@@ -8,20 +8,51 @@ Phases (any failure exits non-zero before the last line is printed):
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels from ``gossipfs_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source, started together;
-3. kernel against plain, one round at N = 16,384 on random pre-tick lanes
-   (all statuses, ages up to the clamp, never-sent entries, mixed flags,
-   deep negative shifts): every output bit-equal; times of the kernel,
-   the plain version and the byte bound;
-4. kernel scan against plain scan: 20 headline rounds, same key: lanes,
-   carry and every per-round metric bit-equal;
-5. the main path: the headline (N = 16,384, 100 rounds, 1 % crash churn,
-   8 tracked crashes) through ``run_rounds`` on the kernel, with the
-   launch counts zeroed just before and read just after; rounds/s, the
-   kernel's device ms per round beside the whole round's ms, peak memory,
-   and ``summarize``'s TTD and FPR;
-6. capacity: N = 65,536 for 10 rounds on the kernel.
+3. K3 (resident round) against plain, one round at N = 16,384 on random
+   pre-tick lanes (all statuses, ages up to the clamp, never-sent entries,
+   mixed flags, deep negative shifts): every output bit-equal; times of
+   the kernel, the plain version and the byte bound;
+4. K3 scan against plain scan: 20 headline rounds, same key: lanes, carry
+   and every per-round metric bit-equal;
+5. the lean main path: the headline (N = 16,384, 100 rounds, 1 % crash
+   churn, 8 tracked crashes) through ``run_rounds`` on K3, with the launch
+   counts zeroed just before and read just after; rounds/s, the kernel's
+   device ms per round beside the whole round's ms, peak memory, and
+   ``summarize``'s TTD and FPR;
+6. K3 capacity: N = 65,536 for 10 rounds;
+7. K2 (explicit-edge merge) against plain, one call per dtype pair shape
+   and detection-stats setting, on corner-case lanes (all statuses, ages
+   up to 63, floor sentinels, deep and negative shifts, dead receivers):
+   config 3's (int8 view, int16 hb, N = 10,240, F = 14), the ring's
+   (int16, int32, N = 1,024, F = 3), (int8, int8, N = 16,384, F = 16) and
+   a ragged N = 1,030 (element loads); every output bit-equal; kernel,
+   plain and byte-bound times at config 3's shape;
+8. K4 (arc merge) against plain at N = 16,384, F = 16, aligned and plain
+   arc bases, and at a ragged N = 1,030, F = 13 (int16 view, int32
+   lanes), stats on and off; every output bit-equal; times and bound at
+   the headline's shape;
+9. the separate-pass scan on the kernels against the same scan on the
+   plain versions, 20 rounds each: configs 1 and 2 (ring, int32 lanes,
+   REMOVE broadcast) and the headline under 2 to 5 % crash and rejoin
+   churn, config 3 under 5 % of each; lanes, carry and every metric
+   bit-equal; and the flagship one-round step (``gossip_round``) round by
+   round;
+10. this slice's main path: config 3 ``sim-10k-crash`` as published
+    (N = 10,240, 120 rounds, 1 % crash churn, 8 tracked crashes at round
+    20) through ``run_rounds`` with the counts zeroed just before and read
+    just after: exactly 120 K2 launches and no K3 one; rounds/s, K2 ms
+    per round beside the whole round's, peak memory, TTD and FPR; then
+    10 rounds under ``torch.profiler``: device ms per round of each stage
+    of the round and the device's busy share;
+11. the eventful arc path: the headline under 1 % crash and 1 % rejoin
+    churn (joins are matrix events), 100 rounds: 100 K4 launches;
+    rounds/s and peak memory; the same stage split;
+12. capacity under config 4's fault model (5 % crash, 5 % rejoin, random
+    fanout 16, int16 lanes, int8 view) at N = 65,536, 10 rounds: rounds/s
+    and peak memory, which must stay under 40 GiB.
 
-The second-to-last line is the kernels JSON, the last the device JSON.
+The last three lines printed are the kernels JSON, the ``nvidia-smi`` name
+and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -244,6 +275,411 @@ def phase_capacity(rounds: int) -> None:
         f"{int(alive[-1])}")
 
 
+def diff_report(names, got, want) -> int:
+    """Log each output's differing entries; return the largest |diff|."""
+    import torch
+
+    err = 0
+    for name, a, b in zip(names, got, want):
+        diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        e = int(diff.max()) if diff.numel() else 0
+        err = max(err, e)
+        log(f"    {name}: {int((diff != 0).sum())} entries differ, "
+            f"max |diff| {e}")
+    return err
+
+
+def merge_inputs(n: int, fanout: int, vdt, hdt, seed: int, aligned=False):
+    """Corner-case inputs of one merge call, made with numpy: post-tick
+    lanes over all statuses, ages up to 63 (a fifth at 0: fresh
+    detections), floor sentinels, deep and negative shifts, dead receivers
+    (whose view rows are absent: a dead node never sends).  Returns
+    (view, edges, bases, hb, asl, shift_a, shift_b, alive) on the card."""
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops.merge import pack_age_status
+
+    rng = np.random.default_rng(seed)
+    lo, hi = {np.int8: (-128, 127), np.int16: (-32768, 32767),
+              np.int32: (-2**20, 2**20)}[hdt]
+    top = 126 if vdt == np.int8 else 16_384
+    alive = rng.random(n) < 0.8
+    view = rng.integers(-1, top + 1, (n, n), dtype=np.int32).astype(vdt)
+    view[~alive] = -1
+    hb = rng.integers(lo, hi + 1, (n, n), dtype=np.int32).astype(hdt)
+    hb[rng.random((n, n), dtype=np.float32) < 0.05] = np.iinfo(hdt).min
+    age = rng.integers(0, 64, (n, n), dtype=np.int8)
+    age[rng.random((n, n), dtype=np.float32) < 0.2] = 0
+    st = rng.integers(0, 3, (n, n), dtype=np.int8)
+    sa = rng.integers(-70_000, 70_000, n).astype(np.int32)
+    sb = np.where(rng.random(n) < 0.5, sa,
+                  rng.integers(-70_000, 70_000, n)).astype(np.int32)
+    edges = rng.integers(0, n, (n, fanout)).astype(np.int32)
+    bases = rng.integers(0, n, n).astype(np.int32)
+    if aligned:
+        bases = bases // 8 * 8
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")  # noqa: E731
+    asl = pack_age_status(t(age), t(st))
+    return (t(view), t(edges), t(bases), t(hb), asl, t(sa), t(sb), t(alive))
+
+
+MERGE_OUTS = ("hb", "asl", "cnt_incl", "n_det", "first_obs")
+
+
+def merge_bound_bytes(view, senders, hb) -> int:
+    """Bytes one merge must move: view, senders, shifts and alive read
+    once; hb and asl read and written once; three int32 [N] outputs."""
+    n = hb.shape[0]
+    return (view.numel() * view.element_size()
+            + senders.numel() * senders.element_size()
+            + 2 * hb.numel() * hb.element_size() + 2 * n * n
+            + n * (4 + 4 + 1) + 3 * 4 * n)
+
+
+def time_merge(fn, plain, args, kw, results: dict, key: str) -> None:
+    """Kernel ms (best of 3 x 20 calls), plain ms (3 calls) and the byte
+    bound, on one shape; the lanes evolve in place across calls, which
+    changes no byte count."""
+    view, senders, hb, asl = args[0], args[1], args[2].clone(), args[3].clone()
+    rest = args[4:]
+    run_k = lambda: fn(view, senders, hb, asl, *rest, **kw)  # noqa: E731
+    run_p = lambda: plain(view, senders, hb, asl, *rest, **kw)  # noqa: E731
+    run_k()
+    run_p()
+    kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
+    plain_ms = cuda_ms(run_p, 3)
+    kernel_ms.append(cuda_ms(run_k, 20))
+    floor_bytes = merge_bound_bytes(view, senders, hb)
+    results[key].update(
+        ms=min(kernel_ms), ms_runs=kernel_ms, plain_ms=plain_ms,
+        bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3,
+        floor_bytes=floor_bytes)
+    log(f"  {key}: kernel {min(kernel_ms):.4f} ms (runs {kernel_ms}), plain "
+        f"{plain_ms:.3f} ms, byte bound "
+        f"{results[key]['bound_ms']:.4f} ms ({floor_bytes} B)")
+
+
+def compare_merge(fn, plain, args, kw) -> int:
+    import torch
+
+    view, senders, hb, asl, *rest = args
+    got = fn(view, senders, hb.clone(), asl.clone(), *rest, **kw)
+    want = plain(view, senders, hb.clone(), asl.clone(), *rest, **kw)
+    torch.cuda.synchronize()
+    return diff_report(MERGE_OUTS, got, want)
+
+
+def phase_k2(results: dict) -> None:
+    import numpy as np
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    shapes = [("config 3", 10_240, 14, np.int8, np.int16),
+              ("ring", 1_024, 3, np.int16, np.int32),
+              ("all-int8", N_MAIN, 16, np.int8, np.int8),
+              # N % 4 != 0: the element-load path (config 1's N = 10)
+              ("ragged", 1_030, 5, np.int8, np.int16)]
+    err = 0
+    timing_args = None
+    for label, n, f, vdt, hdt in shapes:
+        view, edges, _, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, vdt, hdt, SEED + n)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            log(f"  {label}: N={n}, F={f}, view {vdt.__name__}, hb "
+                f"{hdt.__name__}, detect_stats={det}")
+            err = max(err, compare_merge(mu.fused_merge_update,
+                                         mu.fused_merge_update_plain, args,
+                                         dict(detect_stats=det)))
+        if label == "config 3":
+            timing_args = args
+    # tolerance 0: every output is an integer, so any difference is a fault
+    if err:
+        raise AssertionError("K2 != plain")
+    log("  K2 == plain bit for bit on every shape (tolerance 0)")
+    results["k2"] = dict(max_abs_err=err)
+    time_merge(mu.fused_merge_update, mu.fused_merge_update_plain,
+               timing_args, dict(detect_stats=True), results, "k2")
+
+
+def phase_k4(results: dict) -> None:
+    import numpy as np
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    err = 0
+    # the ragged shape (int16 view, int32 lanes, F not dividing N) runs
+    # the element-load path
+    for n, f, vdt, hdt, aligned in ((1_030, 13, np.int16, np.int32, False),
+                                    (N_MAIN, 16, np.int8, np.int8, True),
+                                    (N_MAIN, 16, np.int8, np.int8, False)):
+        view, _, bases, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, vdt, hdt, SEED + int(aligned), aligned)
+        args = (view, bases, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            log(f"  N={n}, F={f}, view {vdt.__name__}, hb {hdt.__name__}, "
+                f"{'aligned' if aligned else 'plain'} bases, "
+                f"detect_stats={det}")
+            err = max(err, compare_merge(
+                mu.arc_merge_update, mu.arc_merge_update_plain, args,
+                dict(fanout=f, detect_stats=det)))
+    if err:
+        raise AssertionError("K4 != plain")
+    log("  K4 == plain bit for bit (tolerance 0)")
+    results["k4"] = dict(max_abs_err=err)
+    time_merge(mu.arc_merge_update, mu.arc_merge_update_plain, args,
+               dict(fanout=16, detect_stats=True), results, "k4")
+
+
+def phase_general_scan_vs_plain(rounds: int) -> None:
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.models.presets import ALL
+
+    runs = [("config 1", ALL["parity-10"].config, 0.05, 0.05),
+            ("config 2", ALL["sim-1k"].config, 0.02, 0.02),
+            ("config 3", ALL["sim-10k-crash"].config, 0.05, 0.05),
+            ("headline", SimConfig.headline(N_MAIN), 0.02, 0.02)]
+    for label, cfg, crash, rejoin in runs:
+        out = {}
+        for plain in (False, True):
+            key = trandom.PRNGKey(7, device="cuda")
+            out[plain] = run_rounds(init_state(cfg), cfg, rounds, key,
+                                    crash_rate=crash, rejoin_rate=rejoin,
+                                    plain=plain)
+        torch.cuda.synchronize()
+        (sk, ck, mk), (sp, cp, mp) = out[False], out[True]
+        pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
+                 ("alive", sk.alive, sp.alive),
+                 ("hb_base", sk.hb_base, sp.hb_base)]
+        pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
+        pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
+        bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: kernel scan != plain scan in {bad}")
+        log(f"  {label} (N={cfg.n}, {cfg.topology}, hb {cfg.hb_dtype}), "
+            f"{rounds} rounds at {crash:.0%} crash / {rejoin:.0%} rejoin: "
+            f"lanes, carry and metrics bit-equal (detections "
+            f"{int(mk.true_detections.sum())}, false positives "
+            f"{int(mk.false_positives.sum())}, alive {int(mk.n_alive[-1])})")
+
+
+def phase_flagship_step_vs_plain(rounds: int) -> None:
+    """The flagship one-round step (``gossip_round`` on the JAX package's
+    ``__graft_entry__`` config, N = 256) round by round, kernel against
+    plain, with a crash, a LEAVE broadcast and a rejoin on the way."""
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import gossip_round
+    from gossipfs_tpu_torch.core.state import RoundEvents, init_state
+    from gossipfs_tpu_torch.core.topology import random_in_edges
+
+    n = 256
+    cfg = SimConfig(n=n, topology="random", fanout=SimConfig.log_fanout(n),
+                    remove_broadcast=False, fresh_cooldown=True,
+                    merge_kernel="pallas", view_dtype="int8",
+                    hb_dtype="int16")
+    states = {p: init_state(cfg) for p in (False, True)}
+    for r in range(rounds):
+        ev = RoundEvents.none(1, n, device="cuda")
+        ev = RoundEvents(*(m[0].clone() for m in ev))
+        ev.crash[[3, 50]] = r == 1
+        ev.leave[7] = r == 2
+        ev.join[[3, 7]] = r == 12
+        edges = random_in_edges(trandom.PRNGKey(r, device="cuda"), n,
+                                cfg.fanout)
+        outs = {p: gossip_round(states[p], ev, edges, cfg, plain=p)
+                for p in (False, True)}
+        states = {p: outs[p][0] for p in outs}
+        (sk, mk, fk, ok), (sp, mp, fp, op) = outs[False], outs[True]
+        pairs = [sk.hb, sp.hb, sk.asl, sp.asl, sk.alive, sp.alive, fk, fp,
+                 ok, op, *[t for pair in zip(mk, mp) for t in pair]]
+        if not all(torch.equal(a, b) for a, b in zip(pairs[::2],
+                                                     pairs[1::2])):
+            raise AssertionError(f"gossip_round kernel != plain, round {r}")
+    log(f"  flagship gossip_round (N={n}, random, hb int16), {rounds} "
+        f"rounds: state, metrics, any_fail and first_obs bit-equal "
+        f"(alive {int(sk.alive.sum())})")
+
+
+def timed_main_path(cfg, rounds: int, run_kw: dict, kernel: str):
+    """One ``run_rounds`` call from a fresh state with the launch counts
+    zeroed just before and read just after.  Returns (carry, per_round,
+    launches, wall seconds, kernel ms per round, peak bytes)."""
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
+
+    state = init_state(cfg)
+    key = trandom.PRNGKey(0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    with merge.record_launch_events() as evs:
+        _, carry, per_round = run_rounds(state, cfg, rounds, key, **run_kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(merge.LAUNCH_COUNTS)
+    want = {k: (rounds if k == kernel else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"main path launched {launches}, want {want}")
+    kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / rounds
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {rounds} rounds in {wall:.4f} s: {rounds / wall:.2f} rounds/s; "
+        f"whole round {wall / rounds * 1e3:.4f} ms, {kernel} "
+        f"{kernel_ms:.4f} ms/round (CUDA events around each launch)")
+    log(f"  launches {launches}; peak memory {peak / 2**30:.3f} GiB")
+    return carry, per_round, launches, wall, kernel_ms, peak
+
+
+def stage_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
+    """Device ms per round of each stage of the separate-pass round (the
+    ``record_function`` ranges of core/rounds.STAGES) under
+    ``torch.profiler``, over ``rounds`` rounds from a fresh state, beside
+    the device's busy ms per round and its share of ``round_ms`` (the
+    unprofiled whole round of the same configuration)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import STAGES, run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+
+    state = init_state(cfg)
+    key = trandom.PRNGKey(3, device="cuda")
+    state, _, _ = run_rounds(state, cfg, 2, key, **run_kw)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_rounds(state, cfg, rounds, key, **run_kw)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
+    split = {e.key: e.device_time_total / 1e3 / rounds for e in events
+             if e.key in STAGES and e.device_type == DeviceType.CPU}
+    # the merge kernels launch from their ctypes library, outside any torch
+    # op, so the trace does not tie them to the "round.merge" range: add
+    # their device time by kernel name
+    split["round.merge"] = split.get("round.merge", 0.0) + sum(
+        e.self_device_time_total for e in kernels
+        if "merge_rows_kernel" in e.key or "window_max_kernel" in e.key
+    ) / 1e3 / rounds
+    shares = ", ".join(f"{k.split('.')[1]} {v:.4f}" for k, v in
+                       sorted(split.items(), key=lambda kv: -kv[1]))
+    log(f"  device ms per round by stage ({rounds} profiled rounds): "
+        f"{shares}; device busy {busy:.4f} ms per round, "
+        f"{busy / round_ms:.1%} of the unprofiled {round_ms:.4f} ms round")
+    return dict(split, busy_ms=busy)
+
+
+def phase_config3_main(results: dict) -> None:
+    from gossipfs_tpu_torch.bench import tracked_crash_events
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.models.presets import ALL
+
+    sc = ALL["sim-10k-crash"]
+    cfg = sc.config
+    events, crash_rounds, churn_ok = tracked_crash_events(cfg, sc.rounds, 8,
+                                                          20)
+    carry, per_round, launches, wall, kernel_ms, _ = timed_main_path(
+        cfg, sc.rounds, dict(events=events, crash_rate=sc.crash_rate,
+                             churn_ok=churn_ok, crash_only_events=True),
+        "fused_merge_update")
+    rep = summarize(carry, per_round, crash_rounds)
+    ttd = sorted(rep.ttd_first.values())
+    conv = sorted(rep.ttd_converged.values())
+    log(f"  tracked ttd_first {ttd}, ttd_converged {conv}; FPR "
+        f"{rep.false_positive_rate:.3e} ({rep.false_positives} false "
+        f"positives), true detections {rep.true_detections}, final alive "
+        f"{rep.final_alive}")
+    if min(ttd) < 1 or max(ttd) > 3 * cfg.t_fail:
+        raise AssertionError(f"tracked crashes detected at {ttd}")
+    if rep.false_positive_rate > 1e-3 or not 0 < rep.final_alive < cfg.n:
+        raise AssertionError("config 3 output out of range")
+    results["config3"] = dict(launches=launches["fused_merge_update"],
+                              rounds_per_s=sc.rounds / wall,
+                              kernel_ms=kernel_ms,
+                              round_ms=wall / sc.rounds * 1e3)
+    stage_split(cfg, 10, dict(crash_rate=sc.crash_rate),
+                wall / sc.rounds * 1e3)
+
+
+def phase_eventful_arc(results: dict, rounds: int) -> None:
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.metrics.detection import summarize
+
+    cfg = SimConfig.headline(N_MAIN)
+    kw = dict(crash_rate=0.01, rejoin_rate=0.01)
+    carry, per_round, launches, wall, _, _ = timed_main_path(
+        cfg, rounds, kw, "arc_merge_update")
+    rep = summarize(carry, per_round)
+    log(f"  FPR {rep.false_positive_rate:.3e}, true detections "
+        f"{rep.true_detections}, final alive {rep.final_alive}")
+    if rep.true_detections <= 0 or not 0 < rep.final_alive < cfg.n:
+        raise AssertionError("eventful arc output out of range")
+    results["arc"] = dict(launches=launches["arc_merge_update"])
+    stage_split(cfg, 10, kw, wall / rounds * 1e3)
+
+
+def phase_config4_capacity(rounds: int) -> None:
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.models.presets import ALL
+
+    sc = ALL["sim-100k"]
+    cfg = dataclasses.replace(sc.config, n=N_CAPACITY,
+                              fanout=SimConfig.log_fanout(N_CAPACITY))
+    kw = dict(crash_rate=sc.crash_rate, rejoin_rate=sc.rejoin_rate)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg)
+    key = trandom.PRNGKey(1, device="cuda")
+    state, _, _ = run_rounds(state, cfg, 1, key, **kw)  # allocator warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, _, per_round = run_rounds(state, cfg, rounds, key, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    alive = per_round.n_alive.cpu()
+    log(f"  N={cfg.n}, fanout {cfg.fanout}, hb {cfg.hb_dtype}, view "
+        f"{cfg.view_dtype}: {rounds} rounds in {wall:.4f} s, "
+        f"{rounds / wall:.3f} rounds/s; peak memory {peak / 2**30:.3f} GiB; "
+        f"alive {int(alive[-1])}")
+    if peak >= 40 * 2**30:
+        raise AssertionError(f"capacity peak {peak / 2**30:.3f} GiB >= 40")
+    if not (0 < int(alive[-1]) < cfg.n and final.round == rounds + 1):
+        raise AssertionError("config 4 capacity run out of range")
+
+
+def kernel_line(name: str, source: str, replaces: str, launches: int,
+                r: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
+
+
 def main() -> int:
     import torch
 
@@ -271,22 +707,32 @@ def main() -> int:
     phase_scan_vs_plain(20)
     log(f"[5] main path: headline, N={N_MAIN}, 100 rounds")
     phase_main_path(results)
-    log(f"[6] capacity: N={N_CAPACITY}, 10 rounds")
+    log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds")
     phase_capacity(10)
-    k = results["kernel"]
-    print(json.dumps({"kernels": [{
-        "name": "resident_round",
-        "route": "cuda",
-        "source": "gossipfs_tpu_torch/csrc/resident_round.cu",
-        "replaces": "gossipfs_tpu/ops/merge_pallas.py:2611",
-        "launches": results["main"]["launches"],
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}))
+    log("[7] K2 fused_merge_update vs plain, three shapes")
+    phase_k2(results)
+    log(f"[8] K4 arc_merge_update vs plain, N={N_MAIN}")
+    phase_k4(results)
+    log("[9] separate-pass run_rounds, kernels vs plain, 20 rounds")
+    phase_general_scan_vs_plain(20)
+    phase_flagship_step_vs_plain(20)
+    log("[10] main path: config 3 sim-10k-crash, N=10240, 120 rounds")
+    phase_config3_main(results)
+    log(f"[11] eventful arc path: headline N={N_MAIN}, 1% crash, 1% rejoin, "
+        "100 rounds")
+    phase_eventful_arc(results, 100)
+    log(f"[12] capacity, config 4 fault model: N={N_CAPACITY}, 10 rounds")
+    phase_config4_capacity(10)
+    src = "gossipfs_tpu_torch/csrc/"
+    mp = "gossipfs_tpu/ops/merge_pallas.py:"
+    print(json.dumps({"kernels": [
+        kernel_line("resident_round", src + "resident_round.cu", mp + "2611",
+                    results["main"]["launches"], results["kernel"]),
+        kernel_line("fused_merge_update", src + "fused_merge.cu", mp + "387",
+                    results["config3"]["launches"], results["k2"]),
+        kernel_line("arc_merge_update", src + "arc_merge.cu", mp + "1248",
+                    results["arc"]["launches"], results["k4"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

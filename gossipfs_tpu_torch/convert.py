@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from gossipfs_tpu_torch.core.rounds import MetricsCarry
-from gossipfs_tpu_torch.core.state import SimState
+from gossipfs_tpu_torch.core.state import HB_DTYPES, SimState
 from gossipfs_tpu_torch.ops.merge import pack_age_status, unpack_age_status
 
 CARRY_FIELDS = MetricsCarry._fields
@@ -27,16 +27,15 @@ def from_jax_arrays(hb, age, status, alive, hb_base, round, first_detect=None,
     Returns ``(SimState, MetricsCarry | None)``: the carry when all four
     of its fields are given, else None."""
     hb = np.asarray(hb)
-    if hb.dtype != np.int8:
-        raise NotImplementedError(
-            f"hb dtype {hb.dtype}: the port keeps int8 lanes only "
-            "(ROADMAP Queue 1, item 4 adds int16/int32)")
+    if hb.dtype.name not in HB_DTYPES:
+        raise ValueError(f"hb dtype {hb.dtype}: the lanes are int8, int16 "
+                         "or int32")
 
     def t(a, dtype):
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
     state = SimState(
-        hb=t(hb, torch.int8),
+        hb=t(hb, HB_DTYPES[hb.dtype.name]),
         asl=pack_age_status(t(age, torch.int32), t(status, torch.int32)),
         alive=t(alive, torch.bool),
         round=int(np.asarray(round)),
@@ -52,9 +51,9 @@ def from_jax_arrays(hb, age, status, alive, hb_base, round, first_detect=None,
 
 
 def to_numpy(state: SimState, carry: MetricsCarry | None = None) -> dict:
-    """The JAX package's field names and dtypes as numpy arrays: hb, age,
-    status (int8), alive (bool), hb_base (int32), round (int32), and the
-    carry's four int32 fields when ``carry`` is given."""
+    """The JAX package's field names and dtypes as numpy arrays: hb (its
+    lane dtype), age, status (int8), alive (bool), hb_base (int32), round
+    (int32), and the carry's four int32 fields when ``carry`` is given."""
     age, status = unpack_age_status(state.asl)
     out = {
         "hb": state.hb.cpu().numpy(),

@@ -1,16 +1,31 @@
-"""The lean crash-only round loop: ``run_rounds`` over the resident round.
+"""The round loops: ``run_rounds`` and the single-round ``gossip_round``.
 
-Port of the JAX package's rr scan (``core/rounds.py``:
-``_scan_rounds_rr_packed``) for its headline profile: tile-aligned
-``random_arc`` gossip, gossip-only dissemination with fresh cooldown,
-all-int8 lanes, suspicion off, crash-stop faults.  Each round makes one
-call of the resident round (ops/merge.resident_round), which ticks, builds
-the gossip view, merges and reduces in place over the packed lanes.
+Two loops, picked from the configuration and the fault model:
 
-The randomness of the whole horizon (arc bases and churn uniforms, drawn
-from the same threefry keys as the JAX package) is drawn in one batched
-pass before the loop, and the per-round metrics stay on the device until
-the end: the loop itself launches no RNG work and makes no host sync.
+* the LEAN loop, the port of the JAX package's rr scan
+  (``core/rounds.py: _scan_rounds_rr_packed``) for its headline profile:
+  aligned ``random_arc`` gossip, gossip-only dissemination with fresh
+  cooldown, all-int8 lanes, suspicion off, and no matrix events (crash-stop
+  faults only).  Each round is one call of the resident round
+  (ops/merge.resident_round), which ticks, builds the gossip view, merges
+  and reduces in place over the packed lanes.  The randomness of the whole
+  horizon is drawn in one batched pass before the loop, and the per-round
+  metrics stay on the device until the end.
+* the SEPARATE-PASS loop, the port of the JAX package's general scan
+  (``_scan_rounds`` off the rr path, with ``_round_core``), for everything
+  else with suspicion off: ring and random edges, plain arcs, int16/int32
+  lanes, REMOVE broadcast, the reference cooldown, and rounds with matrix
+  events (LEAVE broadcast, joins through the introducer).  Each round runs
+  the events, the tick and the gossip-view build as PyTorch stages over
+  row chunks of the lanes, in place, then one merge kernel
+  (ops/merge_update): K2 for explicit edges (``random``, ``ring``), K4 for
+  arcs.
+
+Both loops replay the JAX package bit for bit: the same threefry keys per
+round (``k = fold_in(key, round)``, ``(k_edge, k_churn) = split(k)``) and
+integer arithmetic throughout.  The port ignores ``merge_kernel``: the
+topology picks the kernel, and the tensors' device picks kernel or plain
+version.
 """
 
 from __future__ import annotations
@@ -18,13 +33,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from gossipfs_tpu_torch import random as trandom
-from gossipfs_tpu_torch.config import AGE_CLAMP, INT8_REBASE_WINDOW, SimConfig
+from gossipfs_tpu_torch.config import (
+    AGE_CLAMP, INT8_REBASE_WINDOW, REBASE_WINDOW, SimConfig)
 from gossipfs_tpu_torch.core import topology
 from gossipfs_tpu_torch.core.state import (
-    MEMBER, RoundEvents, SimState, init_state, member_counts)
-from gossipfs_tpu_torch.ops import merge
+    FAILED, HB_DTYPES, MEMBER, UNKNOWN, RoundEvents, SimState, init_state,
+    member_counts)
+from gossipfs_tpu_torch.ops import merge, merge_update
+from gossipfs_tpu_torch.ops.merge_update import row_chunks
 
 
 class RoundMetrics(NamedTuple):
@@ -33,8 +52,8 @@ class RoundMetrics(NamedTuple):
     true_detections: torch.Tensor   # detector fired on an actually-dead subject
     false_positives: torch.Tensor   # detector fired on a live subject
     n_alive: torch.Tensor
-    suspects_entered: torch.Tensor  # suspicion observables: zero on this loop
-    refutations: torch.Tensor
+    suspects_entered: torch.Tensor  # suspicion observables: zero while
+    refutations: torch.Tensor       # suspicion is not ported
     fp_suppressed: torch.Tensor
 
 
@@ -45,7 +64,7 @@ class MetricsCarry(NamedTuple):
     ``first_observer`` is the lowest-index observer whose detector fired
     in the first detecting round; ``converged`` the first round every live
     observer had dropped the subject; ``first_suspect`` stays -1 while
-    suspicion is off."""
+    suspicion is off.  All four reset to -1 when the subject rejoins."""
 
     first_detect: torch.Tensor
     first_observer: torch.Tensor
@@ -68,11 +87,16 @@ def _round_stats(n_det: torch.Tensor, alive: torch.Tensor):
 
 def _update_carry(carry: MetricsCarry, alive: torch.Tensor,
                   any_fail: torch.Tensor, first_obs_now: torch.Tensor,
-                  round_idx: int, member_col: torch.Tensor) -> MetricsCarry:
+                  round_idx: int, member_col: torch.Tensor,
+                  rejoined: torch.Tensor | None = None) -> MetricsCarry:
     """Fold one round into the carry.  ``member_col`` is the per-subject
-    count of live non-self observers still listing the subject.  (No
-    rejoins on this loop, so nothing resets.)"""
+    count of live non-self observers still listing the subject;
+    ``rejoined`` the joins that took effect this round (a new incarnation
+    starts a new clock), None when the round had no matrix events."""
     first_detect, first_observer, converged, first_suspect = carry
+    if rejoined is not None:
+        first_detect, first_observer, converged, first_suspect = (
+            torch.where(rejoined, -1, f) for f in carry)
     fresh = (first_detect < 0) & any_fail
     first_observer = torch.where(fresh, first_obs_now, first_observer)
     first_detect = torch.where(fresh, round_idx, first_detect)
@@ -82,17 +106,24 @@ def _update_carry(carry: MetricsCarry, alive: torch.Tensor,
     return MetricsCarry(first_detect, first_observer, converged, first_suspect)
 
 
-def _rebase_shifts_vec(basec: torch.Tensor, config: SimConfig,
-                       colmax_est: torch.Tensor):
-    """Per-subject (shift_a, shift_b, store_base) of the int8 storage
-    mode: the view and storage windows coincide, so shift_a == shift_b."""
+def _rebase_shifts_vec(hb_dtype: torch.dtype, basec: torch.Tensor,
+                       config: SimConfig, colmax_est: torch.Tensor):
+    """Per-subject (shift_a, shift_b, store_base), int32 [N]: ``shift_a``
+    maps the stored encoding to the view's, ``shift_b`` the old stored base
+    to this round's.  Both bases follow ``colmax_est`` (the subject's own
+    counter + 1), down too after a rejoin; int32 lanes store true counters
+    (base 0)."""
     view_base = torch.clamp(colmax_est - config.rebase_window, min=0)
-    store_base = torch.clamp(colmax_est - INT8_REBASE_WINDOW, min=0)
+    if hb_dtype == torch.int32:
+        store_base = torch.zeros_like(basec)
+    else:
+        window = REBASE_WINDOW if hb_dtype == torch.int16 else INT8_REBASE_WINDOW
+        store_base = torch.clamp(colmax_est - window, min=0)
     return view_base - basec, store_base - basec, store_base
 
 
 def rr_packed_init(config: SimConfig, member_mask=None, device="cuda"):
-    """Fully-joined packed initial state in the loop's own layout:
+    """Fully-joined packed initial state in the lean loop's own layout:
     (hb, asl, alive, hb_base, round, counts), ``counts`` the per-receiver
     listed counts.  Nodes outside ``member_mask`` start dead and unknown
     everywhere."""
@@ -102,29 +133,24 @@ def rr_packed_init(config: SimConfig, member_mask=None, device="cuda"):
     return st.hb, st.asl, st.alive, st.hb_base, st.round, counts
 
 
-def _require_slice(config: SimConfig, rejoin_rate: float) -> None:
-    """Raise on anything outside the lean aligned-arc crash-only slice."""
-    checks = (
-        (config.topology != "random_arc" or config.arc_align == 1,
-         f"topology={config.topology!r} arc_align={config.arc_align}: "
-         "plain arcs and explicit edges are ROADMAP Queue 1, item 7 "
-         "(K3's explicit-edge form); ring is item 4"),
-        (config.hb_dtype != "int8",
-         f"hb_dtype={config.hb_dtype!r}: int16/int32 lanes are ROADMAP "
-         "Queue 1, item 4 (the XLA round)"),
-        (config.suspicion is not None,
-         "suspicion: the fused SWIM lifecycle is ROADMAP Queue 1, item 6 "
-         "and K3's suspicion form"),
-        (config.remove_broadcast or not config.fresh_cooldown,
-         "remove_broadcast=True or fresh_cooldown=False: the reference "
-         "dissemination modes are ROADMAP Queue 1, item 4"),
-        (rejoin_rate > 0.0,
-         "rejoin_rate > 0: joins are matrix events, ROADMAP Queue 1, item 4 "
-         "(and K4/K5 for the eventful rounds)"),
-    )
-    for bad, why in checks:
-        if bad:
-            raise NotImplementedError(why)
+def _require_ported(config: SimConfig, scenario) -> None:
+    """Raise on what no loop of the port runs yet."""
+    if config.suspicion is not None:
+        raise NotImplementedError(
+            "suspicion: the SWIM lifecycle (with Lifeguard) across the "
+            "separate-pass round is ROADMAP Queue 1, item 4 (d), with the "
+            "suspect forms of K2, K4 and K3")
+    if scenario is not None:
+        raise NotImplementedError(
+            "scenarios (edge filters, sender mute) are ROADMAP Queue 1, "
+            "item 6")
+
+
+def _lean_ok(config: SimConfig, matrix_events: bool) -> bool:
+    """Whether ``run_rounds`` takes the lean resident-round loop."""
+    return (config.topology == "random_arc" and config.arc_align > 1
+            and config.hb_dtype == "int8" and config.fresh_cooldown
+            and not config.remove_broadcast and not matrix_events)
 
 
 def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
@@ -136,38 +162,52 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
                plain: bool = False):
     """Run ``num_rounds`` gossip rounds on the state's device.
 
-    Same contract as the JAX package's ``run_rounds`` on its lean path:
-    ``events`` are scheduled ``[R, N]`` masks; ``crash_rate`` adds random
-    crash-stop churn (``churn_ok`` masks who may churn); ``mcarry0``
-    continues a carry from an earlier call.  Leave bits mean silent death
-    (with ``crash_only_events=True``); join bits raise.  ``plain=True``
-    runs every round through the plain PyTorch version on any device: the
-    reference the CUDA kernel is held against.
+    The JAX package's ``run_rounds`` contract: ``events`` are scheduled
+    ``[R, N]`` masks (crash, LEAVE broadcast, join through the
+    introducer); ``crash_rate``/``rejoin_rate`` add random crash-stop and
+    rejoin churn (``churn_ok`` masks who may churn); ``mcarry0`` continues
+    a carry from an earlier call.  ``crash_only_events=True`` promises a
+    schedule without joins (leave bits then mean silent death) and keeps
+    the lean fault model; a join bit under it raises.  ``plain=True`` runs
+    every kernel through its plain PyTorch version on any device: the
+    reference the CUDA kernels are held against.
 
     The lanes of ``state`` are updated IN PLACE; the returned state shares
     them.  Returns (state, MetricsCarry, RoundMetrics).
     """
-    _require_slice(config, rejoin_rate)
-    if scenario is not None:
-        raise NotImplementedError(
-            "scenarios (edge filters, sender mute) are ROADMAP Queue 1, "
-            "item 6")
-    n, dev = config.n, state.hb.device
+    _require_ported(config, scenario)
+    n = config.n
     if state.hb.shape != (n, n):
         raise ValueError(f"state is {tuple(state.hb.shape)}, config n={n}")
+    if state.hb.dtype != HB_DTYPES[config.hb_dtype]:
+        raise ValueError(f"state hb is {state.hb.dtype}, config hb_dtype="
+                         f"{config.hb_dtype!r}")
     if events is not None:
-        if bool(events.join.any()):
-            raise NotImplementedError(
-                "join events are matrix events: ROADMAP Queue 1, item 4")
-        if not crash_only_events and bool(events.leave.any()):
-            raise NotImplementedError(
-                "LEAVE broadcast events are matrix events (ROADMAP Queue 1, "
-                "item 4); pass crash_only_events=True for silent death")
-        sched = (events.crash | events.leave).to(device=dev, dtype=torch.bool)
-        if sched.shape != (num_rounds, n):
+        if events.crash.shape != (num_rounds, n):
             raise ValueError(f"events must be [{num_rounds}, {n}]")
-    else:
-        sched = None
+        if crash_only_events and bool(events.join.any()):
+            raise ValueError(
+                "crash_only_events=True ignores events.join, but the "
+                "schedule contains join bits: drop the flag or the joins")
+    # joins and LEAVE broadcasts rewrite whole rows and columns
+    matrix_events = ((events is not None and not crash_only_events)
+                     or rejoin_rate > 0.0)
+    run = _run_lean if _lean_ok(config, matrix_events) else _run_general
+    return run(state, config, num_rounds, key, events, crash_rate,
+               rejoin_rate, churn_ok, mcarry0, matrix_events, plain)
+
+
+# ---------------------------------------------------------------------------
+# The lean loop (resident round)
+# ---------------------------------------------------------------------------
+
+
+def _run_lean(state, config, num_rounds, key, events, crash_rate,
+              rejoin_rate, churn_ok, mcarry0, matrix_events, plain):
+    n, dev = config.n, state.hb.device
+    sched = None
+    if events is not None:
+        sched = (events.crash | events.leave).to(device=dev, dtype=torch.bool)
 
     # the horizon's randomness in one batched pass: per round
     # k = fold_in(key, round), (k_edge, k_churn) = split(k)
@@ -204,7 +244,8 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
         active = alive & ~small
         refresher = alive & small
         colmax_est = torch.diagonal(hb).to(torch.int32) + hb_base + 1
-        sa, sb, store_base = _rebase_shifts_vec(hb_base, config, colmax_est)
+        sa, sb, store_base = _rebase_shifts_vec(hb.dtype, hb_base, config,
+                                                colmax_est)
         vecs = merge.threshold_stack(sa, sb, config.hb_grace - hb_base,
                                      config.rebase_window)
         flags = (active.to(torch.int8) + refresher.to(torch.int8) * 2
@@ -221,12 +262,380 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
                            member_col)
         hb_base = store_base
 
+    metrics = _stack_metrics(per_round, dev)
+    out = SimState(hb=hb, asl=asl, alive=alive, round=r0 + num_rounds,
+                   hb_base=hb_base)
+    return out, mc, metrics
+
+
+def _stack_metrics(per_round: list, dev) -> RoundMetrics:
     if per_round:
         tp, fp, na = (torch.stack(c) for c in zip(*per_round))
     else:
         tp = fp = na = torch.zeros((0,), dtype=torch.int32, device=dev)
     z = torch.zeros_like(tp)
+    return RoundMetrics(tp, fp, na, z, z.clone(), z.clone())
+
+
+# ---------------------------------------------------------------------------
+# The separate-pass round: events, tick and view as PyTorch stages over row
+# chunks of the lanes (in place, so the temporaries stay a few chunks of
+# int32 at any N), then one merge kernel.  Each stage runs inside a
+# ``record_function`` range named in STAGES, so a ``torch.profiler`` trace
+# splits the round's device time by stage (chip_smoke.py phases 10-11).
+# ---------------------------------------------------------------------------
+
+STAGES = ("round.events", "round.tick", "round.edges", "round.view",
+          "round.merge", "round.carry")
+
+
+def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Wrap int32 values to the signed ``bits``-bit range (mod 2^bits),
+    kept int32: the narrow lanes' arithmetic, made explicit."""
+    if bits >= 32:
+        return x
+    half = 1 << (bits - 1)
+    return ((x + half) & ((1 << bits) - 1)) - half
+
+
+def _unpack(asl_rows: torch.Tensor):
+    """(status, age) int32 of packed rows."""
+    p = asl_rows.to(torch.int32) + 128
+    return p & 3, p >> 2
+
+
+def _pack(status: torch.Tensor, age: torch.Tensor) -> torch.Tensor:
+    return (((age << 2) | status) - 128).to(torch.int8)
+
+
+def _apply_events(state: SimState, crash, leave, join,
+                  config: SimConfig) -> SimState:
+    """Crash, LEAVE broadcast and join through the introducer, before the
+    tick (the JAX package's ``_apply_events`` with matrix events).
+
+    A leaver is marked FAILED by every live receiver listing it (keeping
+    its age unless ``fresh_cooldown``).  An effective join (the node is
+    down and the introducer up) is appended by the introducer, added by
+    every live receiver that does not hold it (a FAILED entry keeps it
+    out), and takes the introducer's post-append list as its own fresh
+    table, its self entry included.  Narrow lanes first rebase the joiner's
+    column to base 0, so its fresh heartbeat 0 is representable.  Rows are
+    rewritten in place, chunk by chunk; the joiner template is taken from
+    the introducer's row before any write."""
+    hb, asl, alive, hb_base = state.hb, state.asl, state.alive, state.hb_base
+    n = hb.shape[0]
+    dev = hb.device
+    info = torch.iinfo(hb.dtype)
+    lo, hi = info.min, info.max
+    narrow = hb.dtype != torch.int32
+    leave = leave & alive
+    alive_post = alive & ~(crash | leave)
+    intro = config.introducer
+    eff = join & ~alive_post & alive_post[intro]
+    if not bool((leave | eff).any()):
+        return state._replace(alive=alive_post)
+    new_base = torch.where(eff, 0, hb_base) if narrow else hb_base
+    renorm = eff & (hb_base != 0)
+    # the stored encoding of "true heartbeat 0" per subject
+    hz = torch.clamp(-new_base, lo, 0)
+    intro_add = eff.clone()
+    intro_add[intro] = False
+    cols = torch.arange(n, device=dev)
+
+    def rows(r0: int, r1: int):
+        h = hb[r0:r1].to(torch.int32)
+        st, age = _unpack(asl[r0:r1])
+        mark = alive[r0:r1, None] & (st == MEMBER) & leave[None]
+        st = torch.where(mark, FAILED, st)
+        if config.fresh_cooldown:
+            age = torch.where(mark, 0, age)
+        if narrow:
+            # old-incarnation lanes renormalise to base 0, clipped;
+            # floor sentinels stay sentinels
+            h = torch.where(renorm[None] & (h != lo),
+                            torch.clamp(h + hb_base[None], lo, hi), h)
+        if r0 <= intro < r1:
+            k = intro - r0
+            st[k] = torch.where(intro_add, MEMBER, st[k])
+            h[k] = torch.where(intro_add, hz, h[k])
+            age[k] = torch.where(intro_add, 0, age[k])
+        add = alive_post[r0:r1, None] & (st == UNKNOWN) & eff[None]
+        st = torch.where(add, MEMBER, st)
+        h = torch.where(add, hz[None], h)
+        age = torch.where(add, 0, age)
+        return h, st, age
+
+    h_i, st_i, _ = rows(intro, intro + 1)
+    j_member = st_i[0] == MEMBER
+    j_st = torch.where(j_member, MEMBER, UNKNOWN)
+    j_h = torch.where(j_member, h_i[0], hz)
+    for r0, r1 in row_chunks(n, n):
+        h, st, age = rows(r0, r1)
+        joiner = eff[r0:r1, None]
+        st = torch.where(joiner, j_st[None], st)
+        h = torch.where(joiner, j_h[None], h)
+        age = torch.where(joiner, 0, age)
+        self_entry = joiner & (cols[None] == cols[r0:r1, None])
+        st = torch.where(self_entry, MEMBER, st)
+        h = torch.where(self_entry, hz[None], h)
+        hb[r0:r1] = h.to(hb.dtype)
+        asl[r0:r1] = _pack(st, age)
+    return state._replace(alive=alive_post | eff, hb_base=new_base)
+
+
+def _pre_tick(state: SimState, config: SimConfig):
+    """(active, refresher, colmax_est): senders vs small-group refreshers
+    from the receivers' list sizes, and each subject's post-bump counter
+    bound (its own diagonal + 1), the anchor of this round's rebase."""
+    small = member_counts(state) < config.min_group
+    active = state.alive & ~small
+    refresher = state.alive & small
+    colmax_est = (torch.diagonal(state.hb).to(torch.int32) + state.hb_base
+                  + 1)
+    return active, refresher, colmax_est
+
+
+def _tick(state: SimState, config: SimConfig, active, refresher,
+          stats: bool):
+    """The heartbeat tick, suspicion off, in place: small-group refresh,
+    the sentinel-sticky self bump, detection (member, not self, past the
+    grace, silent more than ``t_fail`` rounds), the REMOVE broadcast, and
+    cooldown expiry.  With ``stats``, returns this round's detections per
+    subject and the first firing receiver (0 where none fired, as
+    ``argmax`` gives), else (None, None).
+
+    The REMOVE broadcast needs every receiver's detections before any
+    mark, so it takes a second pass over the chunks."""
+    hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
+    n = hb.shape[0]
+    dev = hb.device
+    info = torch.iinfo(hb.dtype)
+    lo, hi = info.min, info.max
+    bits = hb.element_size() * 8
+    narrow = hb.dtype != torch.int32
+    if narrow:
+        # hb > grace over true values, as a compare in the stored
+        # encoding against a threshold clipped into the lane range
+        thr = torch.clamp(config.hb_grace - basec + 1, lo, hi)
+    else:
+        thr = config.hb_grace - basec
+    cols = torch.arange(n, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    removed = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_det = torch.zeros(n, **i32)
+    fobs = torch.full((n,), n, **i32)
+    for r0, r1 in row_chunks(n, n):
+        h = hb[r0:r1].to(torch.int32)
+        st, age = _unpack(asl[r0:r1])
+        rows = cols[r0:r1, None]
+        eye = rows == cols[None]
+        act = active[r0:r1, None]
+        age = torch.where(refresher[r0:r1, None] & (st == MEMBER), 0, age)
+        bump = eye & act & (st == MEMBER)
+        if narrow:
+            bump = bump & (h != lo)
+        h = torch.where(bump, _wrap(h + 1, bits), h)
+        age = torch.where(bump, 0, age)
+        past = ((h >= thr[None]) & (h != lo)) if narrow else (h > thr[None])
+        fail = act & ~eye & past & (age > config.t_fail) & (st == MEMBER)
+        st = torch.where(fail, FAILED, st)
+        if config.fresh_cooldown:
+            age = torch.where(fail, 0, age)
+        if config.remove_broadcast:
+            removed |= fail.any(dim=0)
+        else:
+            st = torch.where((st == FAILED) & (age > config.t_cooldown),
+                             UNKNOWN, st)
+        if stats:
+            n_det += fail.sum(dim=0, dtype=torch.int32)
+            fobs = torch.minimum(
+                fobs, torch.where(fail, rows.to(torch.int32), n).amin(dim=0))
+        hb[r0:r1] = h.to(hb.dtype)
+        asl[r0:r1] = _pack(st, age)
+    if config.remove_broadcast:
+        for r0, r1 in row_chunks(n, n):
+            st, age = _unpack(asl[r0:r1])
+            mark = alive[r0:r1, None] & (st == MEMBER) & removed[None]
+            st = torch.where(mark, FAILED, st)
+            if config.fresh_cooldown:
+                age = torch.where(mark, 0, age)
+            st = torch.where((st == FAILED) & (age > config.t_cooldown),
+                             UNKNOWN, st)
+            asl[r0:r1] = _pack(st, age)
+    if not stats:
+        return None, None
+    return n_det, torch.where(n_det > 0, fobs, 0)
+
+
+def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
+    """What each sender's datagram holds: its MEMBER entries within the
+    rebase window, encoded relative to ``shift_a``, -1 where absent, as an
+    ``[N, N]`` tensor of the view dtype.  Narrow lanes compare in the
+    stored encoding against thresholds clipped into their range and wrap
+    as the JAX package's narrow arithmetic does; int32 lanes compare true
+    values."""
+    hb, asl = state.hb, state.asl
+    n = hb.shape[0]
+    vdt = torch.int8 if config.view_dtype == "int8" else torch.int16
+    vbits = 8 if vdt == torch.int8 else 16
+    view = torch.empty((n, n), dtype=vdt, device=hb.device)
+    info = torch.iinfo(hb.dtype)
+    lo, hi = info.min, info.max
+    narrow = hb.dtype != torch.int32
+    window = config.rebase_window
+    if narrow:
+        sa_n = _wrap(shift_a, hb.element_size() * 8)[None]
+        # a shift below the lane range admits every stored value
+        sa_all = (shift_a < lo)[None]
+        # lanes above the subject's own counter are old-incarnation zombies
+        hi_n = torch.clamp(shift_a + window, lo, hi)[None]
+    for r0, r1 in row_chunks(n, n):
+        h = hb[r0:r1].to(torch.int32)
+        elig = ((asl[r0:r1] & 3) == MEMBER) & senders[r0:r1, None]
+        if narrow:
+            goss = (elig & ((h >= sa_n) | sa_all) & (h <= hi_n)
+                    & (h != lo))
+            v = torch.where(goss, h - sa_n, -1)
+        else:
+            rel = h - shift_a[None]
+            v = torch.where(elig & (rel >= 0) & (rel <= window), rel, -1)
+        view[r0:r1] = _wrap(v, vbits).to(vdt)
+    return view
+
+
+def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
+           detect_stats: bool, plain: bool):
+    """Rebase shifts, the gossip view, and the merge kernel in place on the
+    lanes: K4 for arcs (``edges`` are bases), K2 for explicit edges.
+    Returns (cnt_incl, n_det, first_obs, store_base)."""
+    with record_function("round.view"):
+        sa, sb, store_base = _rebase_shifts_vec(
+            state.hb.dtype, state.hb_base, config, colmax_est)
+        view = _gossip_view(state, senders, sa, config)
+    args = (view, edges, state.hb, state.asl, sa, sb, state.alive)
+    with record_function("round.merge"):
+        if config.topology == "random_arc":
+            fn = (merge_update.arc_merge_update_plain if plain
+                  else merge_update.arc_merge_update)
+            out = fn(*args, fanout=config.fanout, detect_stats=detect_stats)
+        else:
+            fn = (merge_update.fused_merge_update_plain if plain
+                  else merge_update.fused_merge_update)
+            out = fn(*args, detect_stats=detect_stats)
+    _, _, cnt_incl, n_det, first_obs = out
+    return cnt_incl, n_det, first_obs, store_base
+
+
+def _round_core(state: SimState, crash, leave, join, edges,
+                config: SimConfig, matrix_events: bool, plain: bool):
+    """One separate-pass round (the JAX package's ``_round_core``,
+    suspicion off).  Returns (state, n_det, first_obs, member_col,
+    rejoined); ``rejoined`` is None without matrix events."""
+    alive_before = state.alive
+    with record_function("round.events"):
+        if matrix_events:
+            state = _apply_events(state, crash, leave, join, config)
+        else:
+            state = state._replace(alive=state.alive & ~(crash | leave))
+    # crash-only, fresh cooldown, gossip-only: this round's detections are
+    # the post-tick FAILED entries at age 0, which the merge kernel counts
+    det_ok = (not matrix_events and config.fresh_cooldown
+              and not config.remove_broadcast)
+    with record_function("round.tick"):
+        active, refresher, colmax_est = _pre_tick(state, config)
+        n_det, first_obs = _tick(state, config, active, refresher,
+                                 stats=not det_ok)
+    if config.topology == "ring":
+        with record_function("round.edges"):
+            edges = topology.ring_edges_from_status(state.asl & 3)
+    cnt_incl, k_ndet, k_fobs, store_base = _merge(
+        state, edges, active, colmax_est, config, det_ok, plain)
+    if det_ok:
+        n_det, first_obs = k_ndet, k_fobs
+    state = state._replace(hb_base=store_base, round=state.round + 1)
+    self_member = state.alive & ((torch.diagonal(state.asl) & 3) == MEMBER)
+    member_col = cnt_incl - self_member.to(torch.int32)
+    rejoined = None
+    if matrix_events:
+        # joins lost to a dead introducer start no new clock
+        rejoined = join & ~alive_before & state.alive
+    return state, n_det, first_obs, member_col, rejoined
+
+
+def gossip_round(state: SimState, events: RoundEvents, edges,
+                 config: SimConfig, plain: bool = False):
+    """Advance the whole cluster by one heartbeat period.
+
+    ``events`` holds one round's bool ``[N]`` masks; ``edges`` are the
+    round's in-edges: explicit ``[N, F]`` for ``random``, arc bases
+    ``[N]`` for ``random_arc``, None for ``ring`` (derived from the
+    post-tick tables).  Lanes are updated in place.  Returns (state,
+    RoundMetrics of scalars, any_fail [N], first_obs [N]), ``first_obs``
+    the lowest firing observer where ``any_fail``."""
+    _require_ported(config, None)
+    dev = state.hb.device
+    crash, leave, join = (m.to(device=dev, dtype=torch.bool) for m in events)
+    if edges is not None:
+        edges = edges.to(device=dev, dtype=torch.int32)
+    state, n_det, first_obs, _, _ = _round_core(
+        state, crash, leave, join, edges, config, True, plain)
+    tp, fp, na = _round_stats(n_det, state.alive)
+    z = torch.zeros_like(tp)
     metrics = RoundMetrics(tp, fp, na, z, z.clone(), z.clone())
-    out = SimState(hb=hb, asl=asl, alive=alive, round=r0 + num_rounds,
-                   hb_base=hb_base)
-    return out, mc, metrics
+    return state, metrics, n_det > 0, first_obs
+
+
+def _run_general(state, config, num_rounds, key, events, crash_rate,
+                 rejoin_rate, churn_ok, mcarry0, matrix_events, plain):
+    n, dev = config.n, state.hb.device
+    r0 = int(state.round)
+    rnds = torch.arange(r0, r0 + num_rounds, dtype=torch.int64, device=dev)
+    ks = trandom.split(trandom.fold_in(key.to(dev), rnds))   # [R, 2, 2]
+    bases_all = None
+    if config.topology == "random_arc":
+        bases_all = topology.in_edges(config, ks[:, 0])      # int32 [R, N]
+    churn = crash_rate > 0.0 or rejoin_rate > 0.0
+    if churn:
+        ck = trandom.split(ks[:, 1])
+        crash_u = trandom.uniform(ck[:, 0], (n,))            # f32 [R, N]
+        join_u = trandom.uniform(ck[:, 1], (n,))
+        f32 = dict(dtype=torch.float32, device=dev)
+        crash_p = torch.tensor(crash_rate, **f32)
+        join_p = torch.tensor(rejoin_rate, **f32)
+        if churn_ok is not None:
+            churn_ok = churn_ok.to(device=dev, dtype=torch.bool)
+    if events is not None:
+        events = RoundEvents(*(m.to(device=dev, dtype=torch.bool)
+                               for m in events))
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    state = state._replace(alive=state.alive.to(torch.bool),
+                           hb_base=state.hb_base.to(torch.int32))
+    mc = mcarry0 if mcarry0 is not None else MetricsCarry.init(n, dev)
+    per_round = []
+    for r in range(num_rounds):
+        with record_function("round.events"):
+            crash = leave = join = none
+            if events is not None:
+                crash, leave, join = (events.crash[r], events.leave[r],
+                                      events.join[r])
+            if churn:
+                c2 = state.alive & (crash_u[r] < crash_p)
+                j2 = ~state.alive & (join_u[r] < join_p)
+                if churn_ok is not None:
+                    c2, j2 = c2 & churn_ok, j2 & churn_ok
+                crash = crash | c2
+                if rejoin_rate > 0.0:
+                    join = join | j2
+        with record_function("round.edges"):
+            if config.topology == "random":
+                edges = topology.in_edges(config, ks[r, 0])  # int32 [N, F]
+            else:
+                edges = None if bases_all is None else bases_all[r]
+        state, n_det, first_obs, member_col, rejoined = _round_core(
+            state, crash, leave, join, edges, config, matrix_events, plain)
+        with record_function("round.carry"):
+            per_round.append(_round_stats(n_det, state.alive))
+            mc = _update_carry(mc, state.alive, n_det > 0, first_obs, r0 + r,
+                               member_col, rejoined)
+    return state, mc, _stack_metrics(per_round, dev)

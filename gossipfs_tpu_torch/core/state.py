@@ -3,19 +3,22 @@
 Row ``i`` of each ``[N, N]`` lane is node ``i``'s view of every peer ``j``
 (receiver rows, subject columns, row-major):
 
-  ``hb[i, j]``   int8 heartbeat count ``i`` knows for ``j``, stored
-                 relative to the per-subject origin ``hb_base[j]`` (the
-                 true counter is ``hb + hb_base``); -128 is the "never
-                 sent" floor sentinel
+  ``hb[i, j]``   heartbeat count ``i`` knows for ``j``, in the config's
+                 ``hb_dtype`` (int8, int16 or int32).  Narrow lanes store
+                 it relative to the per-subject origin ``hb_base[j]`` (the
+                 true counter is ``hb + hb_base``), and their minimum is
+                 the "never sent" floor sentinel; int32 lanes hold the
+                 true counter (``hb_base`` stays 0)
   ``asl[i, j]``  int8 age|status byte, ``((age << 2) | status) - 128``
                  (ops/merge.pack_age_status): ``age`` counts rounds since
                  the entry was last refreshed, saturating at AGE_CLAMP;
                  ``status`` is UNKNOWN / MEMBER / FAILED
 
 plus ground truth ``alive[j]`` and the round counter.  The two bytes per
-entry are the whole state the round loop moves; the JAX package's
+entry are the whole state the lean round loop moves; the JAX package's
 separate ``age``/``status`` lanes are the unpacked view of ``asl``
-(:meth:`SimState.age`, :meth:`SimState.status`).
+(:meth:`SimState.age`, :meth:`SimState.status`).  The packing is lossless
+for every ``hb_dtype``: the age saturates at AGE_CLAMP = 63 (6 bits).
 """
 
 from __future__ import annotations
@@ -30,13 +33,15 @@ from gossipfs_tpu_torch.config import SimConfig
 UNKNOWN = 0   # j not in i's membership list
 MEMBER = 1    # j in i's list (alive as far as i knows)
 FAILED = 2    # j removed by i, still on the fail-list cooldown
-SUSPECT = 3   # SWIM suspicion (not produced by the crash-only round loop)
+SUSPECT = 3   # SWIM suspicion (not produced by the port's round loops)
+
+HB_DTYPES = {"int8": torch.int8, "int16": torch.int16, "int32": torch.int32}
 
 
 class SimState(NamedTuple):
     """The packed simulation state (see module docstring)."""
 
-    hb: torch.Tensor       # int8 [N, N]
+    hb: torch.Tensor       # int8 / int16 / int32 [N, N]
     asl: torch.Tensor      # int8 [N, N] packed age|status
     alive: torch.Tensor    # bool [N]
     round: int             # rounds simulated so far (host integer)
@@ -73,10 +78,6 @@ def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
                device="cuda") -> SimState:
     """Fully-joined initial cohort: every node in ``member_mask`` (default
     all N) starts with every other member listed at heartbeat 0, age 0."""
-    if config.hb_dtype != "int8":
-        raise NotImplementedError(
-            "the port keeps int8 lanes only; int16/int32 heartbeat lanes "
-            "come with the XLA-round slice (ROADMAP Queue 1, item 4)")
     n = config.n
     asl = torch.full((n, n), MEMBER - 128, dtype=torch.int8, device=device)
     if member_mask is None:
@@ -87,12 +88,19 @@ def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
         asl.masked_fill_(~(member_mask[:, None] & member_mask[None, :]),
                          UNKNOWN - 128)
     return SimState(
-        hb=torch.zeros((n, n), dtype=torch.int8, device=device),
+        hb=torch.zeros((n, n), dtype=HB_DTYPES[config.hb_dtype],
+                       device=device),
         asl=asl,
         alive=member_mask.clone(),
         round=0,
         hb_base=torch.zeros((n,), dtype=torch.int32, device=device),
     )
+
+
+def listed(status: torch.Tensor) -> torch.Tensor:
+    """bool mask of entries in the membership list: MEMBER (suspicion,
+    which would add SUSPECT, is not ported yet)."""
+    return status == MEMBER
 
 
 def member_counts(state: SimState) -> torch.Tensor:
@@ -106,6 +114,6 @@ def member_counts(state: SimState) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=asl.device)
     step = max(1, (1 << 26) // cols)
     for r0 in range(0, n, step):
-        out[r0:r0 + step] = ((asl[r0:r0 + step] & 3) == MEMBER).sum(
+        out[r0:r0 + step] = listed(asl[r0:r0 + step] & 3).sum(
             dim=1, dtype=torch.int32)
     return out

@@ -27,13 +27,20 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# C signatures: name -> (restype, argtypes).  Pointers and the stream are
-# c_void_p (a plain int would be cut to 32 bits).
+# C signatures: source name (csrc/<name>.cu) -> function -> (restype,
+# argtypes).  Pointers and the stream are c_void_p (a plain int would be
+# cut to 32 bits).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "resident_round": {
         "rr_round": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P]),
+    },
+    "fused_merge": {
+        "fm_merge": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+    },
+    "arc_merge": {
+        "am_merge": (_I, [_P] * 9 + [_I] * 7 + [_P]),
     },
 }
 

@@ -52,14 +52,39 @@ N_VEC = 11
 KERNEL_ALIGN = 8
 KERNEL_VEC = 4
 
-# launches of each kernel wrapper (plain-version calls do not count)
-LAUNCH_COUNTS = {"resident_round": 0}
+# launches of each kernel wrapper (plain-version calls do not count):
+# this module's resident round and ops/merge_update's two merge kernels
+LAUNCH_COUNTS = {"resident_round": 0, "fused_merge_update": 0,
+                 "arc_merge_update": 0}
 _launch_events: list | None = None
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCH_COUNTS:
         LAUNCH_COUNTS[k] = 0
+
+
+@contextlib.contextmanager
+def counted_launch(name: str, stream):
+    """Wrap one kernel wrapper's launch on ``stream``: on success, add one
+    to its count and, inside :func:`record_launch_events`, record the
+    CUDA event pair around it."""
+    start = None
+    if _launch_events is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    yield
+    LAUNCH_COUNTS[name] += 1
+    if start is not None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        _launch_events.append((start, end))
+
+
+def check_rc(name: str, rc: int) -> None:
+    """Raise when a kernel's C launcher returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 @contextlib.contextmanager
@@ -283,19 +308,10 @@ def resident_round(hb, asl, flags, vecs, bases, *, fanout: int,
                            device=hb.device)
         out = torch.empty((4, n), dtype=torch.int32, device=hb.device)
         stream = torch.cuda.current_stream(hb.device)
-        if _launch_events is not None:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-        rc = lib.rr_round(
-            hb.data_ptr(), asl.data_ptr(), flags.data_ptr(), vecs.data_ptr(),
-            bases.data_ptr(), gmax.data_ptr(), out.data_ptr(), n, fanout,
-            t_fail, t_cooldown, age_clamp, stream.cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"resident_round kernel launch failed: CUDA "
-                               f"error {rc}")
-        LAUNCH_COUNTS["resident_round"] += 1
-        if _launch_events is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(stream)
-            _launch_events.append((start, end))
+        with counted_launch("resident_round", stream):
+            check_rc("resident_round", lib.rr_round(
+                hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
+                vecs.data_ptr(), bases.data_ptr(), gmax.data_ptr(),
+                out.data_ptr(), n, fanout, t_fail, t_cooldown, age_clamp,
+                stream.cuda_stream))
     return hb, asl, out[0], out[1], out[2], out[3]

@@ -1,0 +1,282 @@
+"""The merge kernels of the separate-pass round: gather-max plus the
+membership-update epilogue, over a gossip view that is already built.
+
+Two kernels, each with its plain PyTorch version beside it:
+
+* :func:`fused_merge_update` (K2) takes explicit in-edges ``[N, F]``:
+  ``best[i, :] = max_f view[edges[i, f], :]``.  Port of
+  ``gossipfs_tpu/ops/merge_pallas.py: fused_merge_update_blocked``; the
+  ``random`` and ``ring`` topologies run it.
+* :func:`arc_merge_update` (K4) takes arc bases ``[N]``: the window max
+  ``W[r, :] = max_{k<F} view[(r + k) mod N, :]`` once, then
+  ``best[i, :] = W[bases[i], :]``.  Port of ``arc_merge_update_blocked``;
+  every ``random_arc`` round off the lean loop runs it.
+
+Both then run the same epilogue on each entry (``_epilogue_and_count`` of
+the JAX package, in its int32 + clip form): advance a listed entry whose
+best view value is fresher, add an UNKNOWN one that some sender carried,
+renormalise every stored value to this round's base (``shift_a`` maps the
+stored encoding to the view's, ``shift_b`` the old stored base to the
+new), clip to the lane dtype, and age every entry by one (saturating at
+``age_clamp``), all gated on the receiver being alive.  They reduce per
+subject: ``cnt_incl`` (live receivers listing it after the merge, self
+included), and with ``detect_stats`` this round's detections ``n_det``
+and the lowest firing receiver ``first_obs`` (N where none fired), read
+off the post-tick lanes as FAILED at age 0 (valid under the crash-only,
+fresh-cooldown, gossip-only fault model).  Without ``detect_stats`` both
+are zeros, as in the JAX kernels.
+
+The lanes are the port's: ``hb`` in int8, int16 or int32, ``asl`` the
+packed age|status byte, updated IN PLACE.  On a CPU tensor a wrapper runs
+the plain version; on a CUDA tensor it launches its kernel
+(``csrc/fused_merge.cu``, ``csrc/arc_merge.cu``) or raises.  All the
+arithmetic is int32 over the widened lane values, so kernel, plain version
+and the JAX package agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gossipfs_tpu_torch.config import AGE_CLAMP
+from gossipfs_tpu_torch.core.state import FAILED, HB_DTYPES, MEMBER, UNKNOWN
+from gossipfs_tpu_torch.ops import merge
+
+VIEW_DTYPES = (torch.int8, torch.int16)
+# the CUDA kernels' limits: edges of a block's receiver rows are staged in
+# 48 KB of shared memory
+MAX_KERNEL_FANOUT = 512
+
+
+def row_chunks(n: int, cols: int):
+    """Row ranges of ~16M entries: the temporaries of the plain versions
+    (and of the round's torch stages) stay small at any N."""
+    step = max(1, (1 << 24) // max(cols, 1))
+    for r0 in range(0, n, step):
+        yield r0, min(n, r0 + step)
+
+
+def epilogue_plain(best, hb, asl, recv, sa, sb, lo: int, hi: int,
+                   age_clamp: int):
+    """The per-entry merge epilogue over int32 tensors (``best``, ``hb``,
+    ``asl`` the widened biased byte, all ``[r, N]``; ``recv`` bool
+    ``[r, 1]``; ``sa``/``sb`` int32 ``[N]``).  Returns (hb, asl, listed,
+    fresh), the last two bool: the entry is listed after the merge, and
+    the detector fired on it this round (FAILED at age 0 before it).
+    Term for term ``_epilogue_and_count`` of the JAX package."""
+    p = asl + 128
+    st, age = p & 3, p >> 2
+    any_m = best >= 0
+    advance = recv & any_m & (st == MEMBER) & (best > hb - sa)
+    add = recv & any_m & (st == UNKNOWN)
+    upd = advance | add
+    new_hb = torch.where(upd, best + (sa - sb), hb - sb).clamp(lo, hi)
+    new_age = torch.clamp(torch.where(upd, 0, age) + 1, max=age_clamp)
+    new_st = torch.where(upd, MEMBER, st)
+    new_asl = ((new_age << 2) | new_st) - 128
+    fresh = recv & (st == FAILED) & (age == 0)
+    return new_hb, new_asl, new_st == MEMBER, fresh
+
+
+def fanout_max_merge_plain(view: torch.Tensor, edges: torch.Tensor):
+    """``best[i, :] = max_f view[edges[i, f], :]`` as int32 ``[len(edges),
+    N]`` (the JAX package's ``fanout_max_merge_xla``)."""
+    e = edges.to(torch.int64)
+    best = view[e[:, 0]].to(torch.int32)
+    for f in range(1, e.shape[1]):
+        best = torch.maximum(best, view[e[:, f]].to(torch.int32))
+    return best
+
+
+def window_max_plain(view: torch.Tensor, fanout: int) -> torch.Tensor:
+    """``W[r, :] = max_{k<F} view[(r + k) mod N, :]`` in the view's dtype,
+    by shift doubling over row chunks (the JAX package's
+    ``arc_window_max_xla`` before its gather)."""
+    n = view.shape[0]
+    w = torch.empty_like(view)
+    p = 1 << (fanout.bit_length() - 1)    # largest power of two <= F
+    for r0, r1 in row_chunks(n, view.shape[1]):
+        ext = view[torch.arange(r0, r1 + fanout - 1, device=view.device) % n]
+        length, s = ext.shape[0], 1
+        while s < p:
+            # ext[r] = max over rows r..r+2s-1 after the step with shift s
+            ext = torch.maximum(ext[:length - s], ext[s:length])
+            length -= s
+            s *= 2
+        rows = r1 - r0
+        if p != fanout:
+            # two overlapping p-windows cover the F-window exactly
+            ext = torch.maximum(ext[:rows], ext[fanout - p:fanout - p + rows])
+        w[r0:r1] = ext[:rows]
+    return w
+
+
+def arc_window_max_plain(view: torch.Tensor, bases: torch.Tensor,
+                         fanout: int) -> torch.Tensor:
+    """``best[i, :] = W[bases[i], :]`` over :func:`window_max_plain`'s W
+    (the JAX package's ``arc_window_max_xla``)."""
+    return window_max_plain(view, fanout)[bases.to(torch.int64)]
+
+
+def _merge_rows_plain(rows_best, hb, asl, shift_a, shift_b, alive,
+                      detect_stats: bool, age_clamp: int):
+    """The epilogue and reductions over every receiver row, in row chunks;
+    ``rows_best(r0, r1)`` gives the int32 best rows of receivers
+    ``r0..r1-1``.  Updates ``hb``/``asl`` in place."""
+    n = hb.shape[0]
+    dev = hb.device
+    info = torch.iinfo(hb.dtype)
+    sa = shift_a.to(torch.int32)
+    sb = shift_b.to(torch.int32)
+    recv_all = alive.to(torch.bool)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cnt = torch.zeros(n, **i32)
+    n_det = torch.zeros(n, **i32)
+    first_obs = torch.full((n,), n if detect_stats else 0, **i32)
+    for r0, r1 in row_chunks(n, n):
+        recv = recv_all[r0:r1, None]
+        h, a, listed, fresh = epilogue_plain(
+            rows_best(r0, r1), hb[r0:r1].to(torch.int32),
+            asl[r0:r1].to(torch.int32), recv, sa, sb, info.min, info.max,
+            age_clamp)
+        hb[r0:r1] = h.to(hb.dtype)
+        asl[r0:r1] = a.to(torch.int8)
+        cnt += (listed & recv).sum(dim=0, dtype=torch.int32)
+        if detect_stats:
+            n_det += fresh.sum(dim=0, dtype=torch.int32)
+            rows = torch.arange(r0, r1, **i32)[:, None]
+            first_obs = torch.minimum(
+                first_obs, torch.where(fresh, rows, n).amin(dim=0))
+    return hb, asl, cnt, n_det, first_obs
+
+
+def fused_merge_update_plain(view, edges, hb, asl, shift_a, shift_b, alive,
+                             *, detect_stats: bool = False,
+                             age_clamp: int = AGE_CLAMP):
+    """K2 in plain PyTorch (see module docstring).  Returns (hb, asl,
+    cnt_incl, n_det, first_obs), the last three int32 ``[N]``."""
+    return _merge_rows_plain(
+        lambda r0, r1: fanout_max_merge_plain(view, edges[r0:r1]),
+        hb, asl, shift_a, shift_b, alive, detect_stats, age_clamp)
+
+
+def arc_merge_update_plain(view, bases, hb, asl, shift_a, shift_b, alive,
+                           *, fanout: int, detect_stats: bool = False,
+                           age_clamp: int = AGE_CLAMP):
+    """K4 in plain PyTorch (see module docstring); same outputs as K2."""
+    w = window_max_plain(view, fanout)
+    b = bases.to(torch.int64)
+    return _merge_rows_plain(
+        lambda r0, r1: w[b[r0:r1]].to(torch.int32),
+        hb, asl, shift_a, shift_b, alive, detect_stats, age_clamp)
+
+
+def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
+                  age_clamp):
+    n = hb.shape[0] if hb.dim() == 2 else -1
+    want = {
+        "view": (view, VIEW_DTYPES, (n, n)),
+        "hb": (hb, tuple(HB_DTYPES.values()), (n, n)),
+        "asl": (asl, (torch.int8,), (n, n)),
+        "shift_a": (shift_a, (torch.int32,), (n,)),
+        "shift_b": (shift_b, (torch.int32,), (n,)),
+        "alive": (alive, (torch.bool,), (n,)),
+    }
+    want.update(senders)
+    for arg, (t, dtypes, shape) in want.items():
+        if t.dtype not in dtypes or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be {dtypes} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.device != hb.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, hb on "
+                             f"{hb.device}")
+    if hb.dtype != torch.int32 and view.element_size() > hb.element_size():
+        raise ValueError(f"{name}: a {view.dtype} view over {hb.dtype} lanes")
+    if not 0 <= age_clamp <= AGE_CLAMP:
+        raise ValueError(f"{name}: age_clamp must be in [0, {AGE_CLAMP}] "
+                         "(the packed age is 6 bits)")
+
+
+def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
+            shift_a, shift_b, alive, fanout: int, detect_stats: bool,
+            age_clamp: int, scratch=None):
+    """Launch kernel ``name`` (C function ``fn`` of ``csrc/<source>.cu``)
+    on hb's device and current stream."""
+    if hb.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {hb.device}")
+    from gossipfs_tpu_torch.ops import _build
+
+    lib = _build.load(source)
+    n = hb.shape[0]
+    # vector loads need N % 4 == 0 and 16-byte aligned rows of every lane
+    ptrs = [t.data_ptr() for t in (view, hb, asl)]
+    aligned = int(n % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    with torch.cuda.device(hb.device):
+        out = torch.zeros((3, n), dtype=torch.int32, device=hb.device)
+        if detect_stats:
+            out[2].fill_(n)
+        stream = torch.cuda.current_stream(hb.device)
+        args = [view.data_ptr(), senders.data_ptr(), hb.data_ptr(),
+                asl.data_ptr(), shift_a.data_ptr(), shift_b.data_ptr(),
+                alive.data_ptr()]
+        if scratch is not None:
+            args.append(scratch.data_ptr())
+        args += [out.data_ptr(), n, fanout, view.element_size(),
+                 hb.element_size(), int(detect_stats), age_clamp, aligned,
+                 stream.cuda_stream]
+        with merge.counted_launch(name, stream):
+            merge.check_rc(name, getattr(lib, fn)(*args))
+    return hb, asl, out[0], out[1], out[2]
+
+
+def fused_merge_update(view, edges, hb, asl, shift_a, shift_b, alive, *,
+                       detect_stats: bool = False,
+                       age_clamp: int = AGE_CLAMP):
+    """K2: :func:`fused_merge_update_plain` for CPU tensors, the CUDA
+    kernel for CUDA tensors (same contract; raises what it cannot run).
+    ``view`` int8/int16 ``[N, N]``; ``edges`` int32 ``[N, F]`` in
+    ``[0, N)``; ``hb`` int8/16/32 and ``asl`` int8 ``[N, N]``, updated in
+    place; ``shift_a``/``shift_b`` int32 ``[N]``; ``alive`` bool ``[N]``."""
+    n = hb.shape[0] if hb.dim() == 2 else -1
+    f = edges.shape[1] if edges.dim() == 2 else -1
+    _check_inputs("fused_merge_update", view,
+                  {"edges": (edges, (torch.int32,), (n, f))}, hb, asl,
+                  shift_a, shift_b, alive, age_clamp)
+    if f < 1:
+        raise ValueError("fused_merge_update: edges need fanout >= 1")
+    if hb.device.type == "cpu":
+        return fused_merge_update_plain(
+            view, edges, hb, asl, shift_a, shift_b, alive,
+            detect_stats=detect_stats, age_clamp=age_clamp)
+    if f > MAX_KERNEL_FANOUT:
+        raise NotImplementedError(
+            f"fused_merge_update: the CUDA kernel takes fanout <= "
+            f"{MAX_KERNEL_FANOUT}, got {f}")
+    return _launch("fused_merge_update", "fused_merge", "fm_merge", view,
+                   edges, hb, asl, shift_a, shift_b, alive, f, detect_stats,
+                   age_clamp)
+
+
+def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
+                     fanout: int, detect_stats: bool = False,
+                     age_clamp: int = AGE_CLAMP):
+    """K4: :func:`arc_merge_update_plain` for CPU tensors, the CUDA kernel
+    for CUDA tensors.  ``bases`` int32 ``[N]`` in ``[0, N)``; the rest as
+    :func:`fused_merge_update`.  The kernel writes the window max to a
+    scratch ``[N, N]`` buffer of the view's dtype."""
+    n = hb.shape[0] if hb.dim() == 2 else -1
+    _check_inputs("arc_merge_update", view,
+                  {"bases": (bases, (torch.int32,), (n,))}, hb, asl,
+                  shift_a, shift_b, alive, age_clamp)
+    if not 1 <= fanout < n:
+        raise ValueError(f"arc_merge_update: fanout must be in [1, N), got "
+                         f"{fanout}")
+    if hb.device.type == "cpu":
+        return arc_merge_update_plain(
+            view, bases, hb, asl, shift_a, shift_b, alive, fanout=fanout,
+            detect_stats=detect_stats, age_clamp=age_clamp)
+    return _launch("arc_merge_update", "arc_merge", "am_merge", view, bases,
+                   hb, asl, shift_a, shift_b, alive, fanout, detect_stats,
+                   age_clamp, scratch=torch.empty_like(view))

@@ -20,6 +20,7 @@ from gossipfs_tpu_torch import random as trandom
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.convert import from_jax_arrays, to_numpy
 from gossipfs_tpu_torch.core.rounds import run_rounds
+from gossipfs_tpu_torch.core.state import init_state
 
 # one intra-op thread: tier-1 runs several test workers side by side,
 # some of them wall-clock socket engines
@@ -86,3 +87,24 @@ def test_to_numpy_inverts_from_jax_arrays(seed):
     st2, none = from_jax_arrays(**{k: x[k] for k in STATE}, device="cpu")
     assert none is None
     assert set(to_numpy(st2)) == set(STATE)
+
+
+@pytest.mark.parametrize("hb_dtype", ["int8", "int16", "int32"])
+def test_round_trip_from_jax_init_state_every_hb_dtype(hb_dtype):
+    """JAX ``init_state`` (a partial cohort) carried over and back, for
+    each heartbeat lane dtype: the dtype survives, and the carried state
+    equals the port's own ``init_state``."""
+    n = 96
+    kw = dict(n=n, topology="random", fanout=4, view_dtype="int8",
+              hb_dtype=hb_dtype)
+    mask = np.random.default_rng(4).random(n) < 0.7
+    jst = jax_init_state(JaxConfig(**kw), jax.numpy.asarray(mask))
+    x = {k: np.asarray(getattr(jst, k)) for k in STATE}
+    tst, carry = from_jax_arrays(**x, device="cpu")
+    assert carry is None and tst.hb.dtype == getattr(torch, hb_dtype)
+    back = to_numpy(tst)
+    for k in STATE:
+        assert back[k].dtype == x[k].dtype, k
+        np.testing.assert_array_equal(back[k], x[k], err_msg=k)
+    own = init_state(SimConfig(**kw), torch.from_numpy(mask), device="cpu")
+    assert torch.equal(own.hb, tst.hb) and torch.equal(own.asl, tst.asl)

@@ -46,8 +46,8 @@ def test_port_imports_without_jax():
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert doc["leaked"] == []
     for mod in ("config", "random", "core.state", "core.topology",
-                "core.rounds", "ops.merge", "ops._build", "metrics.detection",
-                "convert", "bench"):
+                "core.rounds", "ops.merge", "ops.merge_update", "ops._build",
+                "metrics.detection", "models.presets", "convert", "bench"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -26,6 +26,7 @@ import torch
 from gossipfs_tpu.bench.run import tracked_crash_events as jax_tracked
 from gossipfs_tpu.config import SimConfig as JaxConfig
 from gossipfs_tpu.core.rounds import run_rounds as jax_run_rounds
+from gossipfs_tpu.core.state import RoundEvents as JaxEvents
 from gossipfs_tpu.core.state import init_state as jax_init_state
 from gossipfs_tpu.metrics.detection import summarize as jax_summarize
 from gossipfs_tpu.ops import merge_pallas as mp
@@ -183,29 +184,64 @@ def test_tracked_crash_report_matches_jax():
     assert all(v >= 0 for v in got["ttd_first"].values())
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(topology="random", arc_align=1), "explicit edges"),
-    (dict(arc_align=1), "plain arcs"),
-    (dict(remove_broadcast=True), "remove_broadcast"),
-])
-def test_run_rounds_rejects_outside_the_slice(change, match):
+@pytest.mark.parametrize("change", [
+    dict(topology="random", arc_align=1), dict(arc_align=1),
+    dict(remove_broadcast=True),
+], ids=["explicit edges", "plain arcs", "remove_broadcast"])
+def test_run_rounds_off_the_lean_slice_matches_jax(change):
+    """Profiles the resident round does not take run the separate-pass
+    loop (K2 for explicit edges, K4 for arcs), still bit for bit."""
+    kw = {**dict(n=64, **HEADLINE), **change}
+    jcfg, tcfg = JaxConfig(merge_kernel="xla", **kw), SimConfig(**kw)
+    js, jc, jm = jax_run_rounds(jax_init_state(jcfg), jcfg, 30,
+                                jax.random.PRNGKey(2), crash_rate=0.03)
+    ts, tc, tm = run_rounds(init_state(tcfg, device="cpu"), tcfg, 30,
+                            trandom.PRNGKey(2), crash_rate=0.03)
+    pairs = [("hb", js.hb, ts.hb), ("age", js.age, ts.age),
+             ("status", js.status, ts.status), ("alive", js.alive, ts.alive)]
+    pairs += [(f, getattr(jc, f), getattr(tc, f)) for f in jc._fields]
+    pairs += [(f, getattr(jm, f), getattr(tm, f)) for f in jm._fields]
+    for name, a, b in pairs:
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    assert int(jnp.sum(jm.true_detections)) > 0
+
+
+@pytest.mark.parametrize("change,scenario,match", [
+    (dict(suspicion="swim"), None, "suspicion"),
+    ({}, object(), "scenarios"),
+], ids=["suspicion", "scenario"])
+def test_run_rounds_rejects_outside_the_slice(change, scenario, match):
     cfg = SimConfig(**{**dict(n=64, **HEADLINE), **change})
     st = init_state(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        run_rounds(st, cfg, 2, trandom.PRNGKey(0))
+        run_rounds(st, cfg, 2, trandom.PRNGKey(0), scenario=scenario)
 
 
 def test_run_rounds_rejects_join_events():
-    cfg = SimConfig(n=64, **HEADLINE)
-    ev = RoundEvents.none(2, 64)
-    ev = ev._replace(join=ev.join.clone())
-    ev.join[1, 3] = True
-    with pytest.raises(NotImplementedError, match="join"):
-        run_rounds(init_state(cfg, device="cpu"), cfg, 2, trandom.PRNGKey(0),
-                   events=ev, crash_only_events=True)
-    with pytest.raises(NotImplementedError, match="rejoin"):
-        run_rounds(init_state(cfg, device="cpu"), cfg, 2, trandom.PRNGKey(0),
-                   rejoin_rate=0.1)
+    """Joins are matrix events: a join-carrying schedule under the
+    crash-only promise raises, as in the JAX package; without it, and
+    with random rejoins, the scan runs and matches JAX."""
+    n, rounds = 64, 30
+    cfg = SimConfig(n=n, **HEADLINE)
+    ev = RoundEvents.none(rounds, n)
+    ev = ev._replace(join=ev.join.clone(), crash=ev.crash.clone())
+    ev.crash[2, 3] = True
+    ev.join[20, 3] = True
+    with pytest.raises(ValueError, match="join"):
+        run_rounds(init_state(cfg, device="cpu"), cfg, rounds,
+                   trandom.PRNGKey(0), events=ev, crash_only_events=True)
+    jcfg = JaxConfig(n=n, merge_kernel="xla", **HEADLINE)
+    jev = JaxEvents(*(jnp.asarray(m.numpy()) for m in ev))
+    js, jc, jm = jax_run_rounds(jax_init_state(jcfg), jcfg, rounds,
+                                jax.random.PRNGKey(0), events=jev,
+                                crash_rate=0.02, rejoin_rate=0.1)
+    ts, tc, tm = run_rounds(init_state(cfg, device="cpu"), cfg, rounds,
+                            trandom.PRNGKey(0), events=ev, crash_rate=0.02,
+                            rejoin_rate=0.1)
+    for a, b in ((js.hb, ts.hb), (js.status, ts.status),
+                 (js.alive, ts.alive), *zip(jc, tc), *zip(jm, tm)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert int(jnp.sum(jm.true_detections)) > 0
 
 
 def test_run_rounds_plain_flag_is_the_same_loop_on_cpu():
