@@ -49,7 +49,33 @@ Phases (any failure exits non-zero before the last line is printed):
     rounds/s and peak memory; the same stage split;
 12. capacity under config 4's fault model (5 % crash, 5 % rejoin, random
     fanout 16, int16 lanes, int8 view) at N = 65,536, 10 rounds: rounds/s
-    and peak memory, which must stay under 40 GiB.
+    and peak memory, which must stay under 40 GiB;
+13. K3's suspicion form against plain, one round at N = 16,384 on random
+    pre-tick lanes with SUSPECT entries on both sides of both confirm ages
+    and flags bit 4 on half the rows, with and without the Lifeguard lane:
+    every output bit-equal (``suspect_cnt`` included); times and bound;
+14. the suspect forms of K2 (config 3's shape) and K4 (the headline's)
+    against plain, on lanes holding SUSPECT entries, and their times at
+    the shapes and stats setting of phases 7-8; then K5 against plain
+    and against K2 at N = 16,384, F = 14, an int8 view over int8 and int16
+    lanes, and at a ragged N = 1,030, stats and suspicion on and off:
+    every output bit-equal; K5's times and bound at the main path's
+    shape beside K2's time on the same inputs;
+15. 20-round scans, kernels against plain: the ``bench --suspicion``
+    headline (K3), the headline at LOCALHEALTH_r14's chosen Lifeguard
+    point (K3's lh lane), ``SimConfig.suspicion_rr(16_384)`` under 2 %
+    crash and rejoin churn (K5), config 3 with t_fail 3 and t_suspect 2
+    (K2), and the suspicion headline under rejoin churn (K4); lanes,
+    carry and all six metrics bit-equal;
+16. this slice's main path A: the ``bench --suspicion`` headline (N =
+    16,384, 100 rounds, 1 % crash churn, 8 tracked crashes) through
+    ``run_rounds``: exactly 100 K3 launches; rounds/s, K3 ms per round
+    beside the whole round, peak memory, TTD, ``ttd_suspect``,
+    suspect-to-confirm, FPR and the three suspicion counters;
+17. main path B: ``SimConfig.suspicion_rr(16_384)`` (random edges F = 14,
+    all-int8) for 100 rounds under 1 % crash and 1 % rejoin churn: exactly
+    100 K5 launches and no other kernel's; rounds/s, peak memory and the
+    profiled stage split.
 
 The last three lines printed are the kernels JSON, the ``nvidia-smi`` name
 and power limit, and the device JSON.
@@ -289,12 +315,14 @@ def diff_report(names, got, want) -> int:
     return err
 
 
-def merge_inputs(n: int, fanout: int, vdt, hdt, seed: int, aligned=False):
+def merge_inputs(n: int, fanout: int, vdt, hdt, seed: int, aligned=False,
+                 statuses: int = 3):
     """Corner-case inputs of one merge call, made with numpy: post-tick
-    lanes over all statuses, ages up to 63 (a fifth at 0: fresh
-    detections), floor sentinels, deep and negative shifts, dead receivers
-    (whose view rows are absent: a dead node never sends).  Returns
-    (view, edges, bases, hb, asl, shift_a, shift_b, alive) on the card."""
+    lanes over the first ``statuses`` statuses (4: SUSPECT too), ages up
+    to 63 (a fifth at 0: fresh detections), floor sentinels, deep and
+    negative shifts, dead receivers (whose view rows are absent: a dead
+    node never sends).  Returns (view, edges, bases, hb, asl, shift_a,
+    shift_b, alive) on the card."""
     import numpy as np
     import torch
 
@@ -311,7 +339,7 @@ def merge_inputs(n: int, fanout: int, vdt, hdt, seed: int, aligned=False):
     hb[rng.random((n, n), dtype=np.float32) < 0.05] = np.iinfo(hdt).min
     age = rng.integers(0, 64, (n, n), dtype=np.int8)
     age[rng.random((n, n), dtype=np.float32) < 0.2] = 0
-    st = rng.integers(0, 3, (n, n), dtype=np.int8)
+    st = rng.integers(0, statuses, (n, n), dtype=np.int8)
     sa = rng.integers(-70_000, 70_000, n).astype(np.int32)
     sb = np.where(rng.random(n) < 0.5, sa,
                   rng.integers(-70_000, 70_000, n)).astype(np.int32)
@@ -324,17 +352,19 @@ def merge_inputs(n: int, fanout: int, vdt, hdt, seed: int, aligned=False):
     return (t(view), t(edges), t(bases), t(hb), asl, t(sa), t(sb), t(alive))
 
 
-MERGE_OUTS = ("hb", "asl", "cnt_incl", "n_det", "first_obs")
+MERGE_OUTS = ("hb", "asl", "cnt_incl", "n_det", "first_obs", "refuted",
+              "held")
 
 
-def merge_bound_bytes(view, senders, hb) -> int:
+def merge_bound_bytes(view, senders, hb, outputs: int = 3) -> int:
     """Bytes one merge must move: view, senders, shifts and alive read
-    once; hb and asl read and written once; three int32 [N] outputs."""
+    once; hb and asl read and written once; ``outputs`` int32 [N]
+    reductions (5 in the suspect form)."""
     n = hb.shape[0]
     return (view.numel() * view.element_size()
             + senders.numel() * senders.element_size()
             + 2 * hb.numel() * hb.element_size() + 2 * n * n
-            + n * (4 + 4 + 1) + 3 * 4 * n)
+            + n * (4 + 4 + 1) + outputs * 4 * n)
 
 
 def time_merge(fn, plain, args, kw, results: dict, key: str) -> None:
@@ -350,7 +380,8 @@ def time_merge(fn, plain, args, kw, results: dict, key: str) -> None:
     kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
     plain_ms = cuda_ms(run_p, 3)
     kernel_ms.append(cuda_ms(run_k, 20))
-    floor_bytes = merge_bound_bytes(view, senders, hb)
+    floor_bytes = merge_bound_bytes(view, senders, hb,
+                                    5 if kw.get("suspect") else 3)
     results[key].update(
         ms=min(kernel_ms), ms_runs=kernel_ms, plain_ms=plain_ms,
         bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3,
@@ -576,7 +607,8 @@ def stage_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
     # their device time by kernel name
     split["round.merge"] = split.get("round.merge", 0.0) + sum(
         e.self_device_time_total for e in kernels
-        if "merge_rows_kernel" in e.key or "window_max_kernel" in e.key
+        if any(k in e.key for k in ("merge_rows_kernel", "window_max_kernel",
+                                    "stripe_kernel"))
     ) / 1e3 / rounds
     shares = ", ".join(f"{k.split('.')[1]} {v:.4f}" for k, v in
                        sorted(split.items(), key=lambda kv: -kv[1]))
@@ -671,6 +703,284 @@ def phase_config4_capacity(rounds: int) -> None:
         raise AssertionError("config 4 capacity run out of range")
 
 
+SUS_KW = dict(t_fail=3, t_cooldown=12, fanout=16, arc_align=8)
+
+
+def suspicion_round_inputs(n: int, seed: int):
+    """Pre-tick lanes for one suspicion round: every status, SUSPECT
+    entries at ages 3..13 (both sides of the confirm ages 5 and 11 of
+    t_fail 3, t_suspect 2, lh_multiplier 3), never-sent entries, flags
+    with bit 4 on half the rows, deep shifts."""
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.config import AGE_CLAMP, INT8_REBASE_WINDOW
+    from gossipfs_tpu_torch.ops import merge
+
+    rng = np.random.default_rng(seed)
+    hb = rng.integers(-128, 128, (n, n), dtype=np.int8)
+    hb[rng.random((n, n), dtype=np.float32) < 0.05] = -128
+    st = rng.integers(0, 4, (n, n), dtype=np.int8)
+    age = rng.integers(0, AGE_CLAMP + 1, (n, n), dtype=np.int8)
+    age = np.where(st == 3, rng.integers(3, 14, (n, n), dtype=np.int8), age)
+    asl = ((age.astype(np.int16) << 2 | st) - 128).astype(np.int8)
+    flags = rng.choice(np.array([0, 4, 5, 6, 1, 7], np.int8), n)
+    flags = flags + (16 * (rng.random(n) < 0.5)).astype(np.int8)
+    sa = rng.integers(-260, 60, n).astype(np.int32)
+    g = rng.integers(-200, 60, n).astype(np.int32)
+    bases = (rng.integers(0, n // 8, n) * 8).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")  # noqa: E731
+    vecs = merge.threshold_stack(t(sa), t(sa), t(g), INT8_REBASE_WINDOW)
+    return t(hb), t(asl), t(flags), vecs, t(bases)
+
+
+def phase_k3_suspicion(n: int, results: dict) -> None:
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    hb, asl, flags, vecs, bases = suspicion_round_inputs(n, SEED + 13)
+    names = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
+             "entered", "refuted", "held", "suspect_cnt")
+    err = 0
+    for lh in (0, 3):
+        kw = dict(SUS_KW, suspect=True, t_suspect=2, lh_multiplier=lh)
+        got = merge.resident_round(hb.clone(), asl.clone(), flags, vecs,
+                                   bases, **kw)
+        want = merge.resident_round_plain(hb.clone(), asl.clone(), flags,
+                                          vecs, bases, **kw)
+        torch.cuda.synchronize()
+        log(f"  lh_multiplier={lh}: {len(got)} outputs")
+        err = max(err, diff_report(names, got, want))
+        log(f"    confirmations {int(got[3].sum())}, entered "
+            f"{int(got[6].sum())}, refuted {int(got[7].sum())}, held "
+            f"{int(got[8].sum())}")
+    # tolerance 0: every output is an integer, so any difference is a fault
+    if err:
+        raise AssertionError("K3 suspicion form != plain")
+    log("  K3 suspicion form == plain bit for bit (tolerance 0)")
+    # times in the form the main path runs (suspicion, no Lifeguard lane)
+    kw = dict(SUS_KW, suspect=True, t_suspect=2)
+    h2, a2 = hb.clone(), asl.clone()
+    run_k = lambda: merge.resident_round(h2, a2, flags, vecs, bases, **kw)  # noqa: E731
+    run_p = lambda: merge.resident_round_plain(h2, a2, flags, vecs, bases, **kw)  # noqa: E731
+    run_k()
+    run_p()
+    kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
+    plain_ms = cuda_ms(run_p, 3)
+    kernel_ms.append(cuda_ms(run_k, 20))
+    # lanes read and written once, flags, stack and bases read, seven
+    # int32 [N] outputs
+    floor_bytes = 4 * n * n + n * (1 + 11 + 4) + 7 * 4 * n
+    results["k3_sus"] = dict(
+        max_abs_err=err, ms=min(kernel_ms), ms_runs=kernel_ms,
+        plain_ms=plain_ms, bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3)
+    log(f"  suspicion form: kernel {min(kernel_ms):.4f} ms (runs "
+        f"{kernel_ms}), plain {plain_ms:.3f} ms, byte bound "
+        f"{results['k3_sus']['bound_ms']:.4f} ms ({floor_bytes} B)")
+
+
+def phase_suspect_merges(results: dict) -> None:
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    err = 0
+    timed = []
+    for key, label, fn, plain, n, f, vdt, hdt in (
+            ("k2_sus", "K2 config 3", mu.fused_merge_update,
+             mu.fused_merge_update_plain, 10_240, 14, np.int8, np.int16),
+            ("k4_sus", "K4 headline", mu.arc_merge_update,
+             mu.arc_merge_update_plain, N_MAIN, 16, np.int8, np.int8)):
+        view, edges, bases, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, vdt, hdt, SEED + 14 + n, aligned=True, statuses=4)
+        senders = bases if fn is mu.arc_merge_update else edges
+        kw = dict(fanout=f) if fn is mu.arc_merge_update else {}
+        args = (view, senders, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            log(f"  {label} suspect form: N={n}, F={f}, detect_stats={det}")
+            err = max(err, compare_merge(
+                fn, plain, args, dict(kw, detect_stats=det, suspect=True)))
+        timed.append((key, fn, plain, args, kw))
+    if err:
+        raise AssertionError("suspect forms of K2/K4 != plain")
+    log("  K2 and K4 suspect forms == plain bit for bit (tolerance 0)")
+    # times at the shapes and stats setting of phases 7-8, suspicion on
+    for key, fn, plain, args, kw in timed:
+        results[key] = dict(max_abs_err=err)
+        time_merge(fn, plain, args, dict(kw, detect_stats=True, suspect=True),
+                   results, key)
+
+    timing_args = None
+    for label, n, f, hdt in (("all-int8", N_MAIN, 14, np.int8),
+                             ("int16 lanes", N_MAIN, 14, np.int16),
+                             ("ragged", 1_030, 5, np.int16)):
+        view, edges, _, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, np.int8, hdt, SEED + 17 + n, statuses=4)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            for sus in (False, True):
+                kw = dict(detect_stats=det, suspect=sus)
+                log(f"  K5 {label}: N={n}, F={f}, hb {hdt.__name__}, "
+                    f"detect_stats={det}, suspect={sus}")
+                err = max(err, compare_merge(mu.stripe_merge_update,
+                                             mu.stripe_merge_update_plain,
+                                             args, kw))
+                got = mu.stripe_merge_update(view, edges, hb.clone(),
+                                             asl.clone(), sa, sb, alive, **kw)
+                k2 = mu.fused_merge_update(view, edges, hb.clone(),
+                                           asl.clone(), sa, sb, alive, **kw)
+                torch.cuda.synchronize()
+                bad = [name for name, a, b in zip(MERGE_OUTS, got, k2)
+                       if not torch.equal(a, b)]
+                if bad:
+                    raise AssertionError(f"K5 != K2 in {bad}")
+        if label == "all-int8":
+            timing_args = args
+    if err:
+        raise AssertionError("K5 != plain")
+    log("  K5 == plain and == K2 bit for bit on every shape (tolerance 0)")
+    # the main path's form: suspicion on, detection stats off (joins)
+    kw = dict(detect_stats=False, suspect=True)
+    results["k5"] = dict(max_abs_err=err)
+    time_merge(mu.stripe_merge_update, mu.stripe_merge_update_plain,
+               timing_args, kw, results, "k5")
+    results["k2_on_k5_shape"] = dict(max_abs_err=0)
+    time_merge(mu.fused_merge_update, mu.fused_merge_update_plain,
+               timing_args, kw, results, "k2_on_k5_shape")
+
+
+def suspicion_headline(**sus):
+    """The ``bench --suspicion`` headline (t_fail 3), with ``sus`` as its
+    SuspicionParams (t_suspect 2 by default)."""
+    import dataclasses
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.suspicion import SuspicionParams
+
+    return dataclasses.replace(SimConfig.headline(N_MAIN), t_fail=3,
+                               suspicion=SuspicionParams(
+                                   **(sus or dict(t_suspect=2))))
+
+
+def phase_suspicion_scans(rounds: int) -> None:
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.models.presets import ALL
+    from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.suspicion import SuspicionParams
+
+    config3 = dataclasses.replace(ALL["sim-10k-crash"].config, t_fail=3,
+                                  suspicion=SuspicionParams(t_suspect=2))
+    runs = [
+        ("bench --suspicion headline", suspicion_headline(), 0.02, 0.0,
+         "resident_round"),
+        ("headline, Lifeguard t3 m4 1/64",
+         suspicion_headline(t_suspect=3, lh_multiplier=4,
+                            lh_frac=0.015625), 0.02, 0.0, "resident_round"),
+        ("suspicion_rr", SimConfig.suspicion_rr(N_MAIN), 0.02, 0.02,
+         "stripe_merge_update"),
+        ("config 3, t_fail 3 + t_suspect 2", config3, 0.05, 0.05,
+         "fused_merge_update"),
+        ("suspicion headline, rejoins", suspicion_headline(), 0.02, 0.02,
+         "arc_merge_update"),
+    ]
+    for label, cfg, crash, rejoin, kernel in runs:
+        out = {}
+        for plain in (False, True):
+            key = trandom.PRNGKey(7, device="cuda")
+            merge.reset_launch_counts()
+            out[plain] = run_rounds(init_state(cfg), cfg, rounds, key,
+                                    crash_rate=crash, rejoin_rate=rejoin,
+                                    plain=plain)
+            if not plain and merge.LAUNCH_COUNTS[kernel] != rounds:
+                raise AssertionError(f"{label}: launched "
+                                     f"{merge.LAUNCH_COUNTS}")
+        torch.cuda.synchronize()
+        (sk, ck, mk), (sp, cp, mp) = out[False], out[True]
+        pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
+                 ("alive", sk.alive, sp.alive),
+                 ("hb_base", sk.hb_base, sp.hb_base)]
+        pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
+        pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
+        bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: kernel scan != plain scan in "
+                                 f"{bad}")
+        if int(mk.suspects_entered.sum()) <= 0:
+            raise AssertionError(f"{label}: the lifecycle never ran")
+        log(f"  {label} (N={cfg.n}, {kernel}), {rounds} rounds at "
+            f"{crash:.0%} crash / {rejoin:.0%} rejoin: lanes, carry and "
+            f"metrics bit-equal (confirmations "
+            f"{int(mk.true_detections.sum())}, false positives "
+            f"{int(mk.false_positives.sum())}, suspects entered "
+            f"{int(mk.suspects_entered.sum())}, refuted "
+            f"{int(mk.refutations.sum())}, first_suspect set "
+            f"{int((ck.first_suspect >= 0).sum())})")
+
+
+def phase_suspicion_main(results: dict) -> None:
+    from gossipfs_tpu_torch.bench import (
+        CRASH_RATE, ROUNDS, tracked_crash_events)
+    from gossipfs_tpu_torch.metrics.detection import summarize
+
+    cfg = suspicion_headline()
+    events, crash_rounds, churn_ok = tracked_crash_events(cfg, ROUNDS, 8, 20)
+    carry, per_round, launches, wall, kernel_ms, _ = timed_main_path(
+        cfg, ROUNDS, dict(events=events, crash_rate=CRASH_RATE,
+                          churn_ok=churn_ok, crash_only_events=True),
+        "resident_round")
+    rep = summarize(carry, per_round, crash_rounds)
+    ttd = sorted(rep.ttd_first.values())
+    log(f"  tracked ttd_first {ttd}, ttd_suspect "
+        f"{sorted(rep.ttd_suspect.values())}, suspect_to_confirm "
+        f"{sorted(rep.suspect_to_confirm.values())}, ttd_converged "
+        f"{sorted(rep.ttd_converged.values())}")
+    log(f"  FPR {rep.false_positive_rate:.3e} ({rep.false_positives} false "
+        f"confirmations), true confirmations {rep.true_detections}, "
+        f"suspects entered {rep.suspects_entered}, refutations "
+        f"{rep.refutations}, fp_suppressed {rep.fp_suppressed}, final "
+        f"alive {rep.final_alive}")
+    window = cfg.suspicion.max_confirm_after(cfg.t_fail)
+    if min(ttd) < 1 or max(ttd) > 3 * window:
+        raise AssertionError(f"tracked crashes confirmed at {ttd}")
+    if len(rep.suspect_to_confirm) != len(crash_rounds):
+        raise AssertionError("a tracked crash was never suspected")
+    if rep.false_positive_rate > 1e-3 or not 0 < rep.final_alive < cfg.n:
+        raise AssertionError("suspicion main path output out of range")
+    results["sus_main"] = dict(launches=launches["resident_round"],
+                               rounds_per_s=ROUNDS / wall,
+                               kernel_ms=kernel_ms,
+                               round_ms=wall / ROUNDS * 1e3)
+
+
+def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.metrics.detection import summarize
+
+    cfg = SimConfig.suspicion_rr(N_MAIN)
+    kw = dict(crash_rate=0.01, rejoin_rate=0.01)
+    carry, per_round, launches, wall, kernel_ms, _ = timed_main_path(
+        cfg, rounds, kw, "stripe_merge_update")
+    rep = summarize(carry, per_round)
+    log(f"  FPR {rep.false_positive_rate:.3e}, true confirmations "
+        f"{rep.true_detections}, suspects entered {rep.suspects_entered}, "
+        f"refutations {rep.refutations}, fp_suppressed "
+        f"{rep.fp_suppressed}, final alive {rep.final_alive}")
+    if rep.true_detections <= 0 or not 0 < rep.final_alive < cfg.n:
+        raise AssertionError("suspicion_rr output out of range")
+    results["k5_main"] = dict(launches=launches["stripe_merge_update"],
+                              kernel_ms=kernel_ms)
+    stage_split(cfg, 10, kw, wall / rounds * 1e3)
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int,
                 r: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -723,15 +1033,32 @@ def main() -> int:
     phase_eventful_arc(results, 100)
     log(f"[12] capacity, config 4 fault model: N={N_CAPACITY}, 10 rounds")
     phase_config4_capacity(10)
+    log(f"[13] K3 suspicion + Lifeguard form vs plain, one round, "
+        f"N={N_MAIN}")
+    phase_k3_suspicion(N_MAIN, results)
+    log("[14] suspect forms of K2 and K4, and K5 stripe_merge_update, vs "
+        "plain")
+    phase_suspect_merges(results)
+    log("[15] suspicion run_rounds, kernels vs plain, 20 rounds")
+    phase_suspicion_scans(20)
+    log(f"[16] main path A: bench --suspicion headline, N={N_MAIN}, 100 "
+        "rounds")
+    phase_suspicion_main(results)
+    log(f"[17] main path B: suspicion_rr, N={N_MAIN}, 1% crash, 1% rejoin, "
+        "100 rounds")
+    phase_suspicion_rr_main(results, 100)
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     print(json.dumps({"kernels": [
         kernel_line("resident_round", src + "resident_round.cu", mp + "2611",
-                    results["main"]["launches"], results["kernel"]),
+                    results["sus_main"]["launches"], results["k3_sus"]),
         kernel_line("fused_merge_update", src + "fused_merge.cu", mp + "387",
                     results["config3"]["launches"], results["k2"]),
         kernel_line("arc_merge_update", src + "arc_merge.cu", mp + "1248",
                     results["arc"]["launches"], results["k4"]),
+        kernel_line("stripe_merge_update", src + "stripe_merge.cu",
+                    mp + "998", results["k5_main"]["launches"],
+                    results["k5"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,13 @@ groups of 8, gossip-only dissemination with fresh cooldown, all-int8
 lanes) for ``ROUNDS`` rounds under 1 % random crash-stop churn per round.
 Each attempt starts from a fresh fully-joined state (set-up, not timed)
 and is timed with CUDA events around the whole ``run_rounds`` call, after
-one warm-up run; the headline is the median attempt.
+one warm-up run; the headline is the median attempt.  ``--suspicion`` arms
+the SWIM lifecycle at the JAX package's fast knob (``t_fail=3``,
+``SuspicionParams(t_suspect=2)``), its ``bench.py --suspicion`` anchor; the
+round then runs the resident round's suspicion form.
 
     python -m gossipfs_tpu_torch.bench [--n N] [--rounds R] [--attempts A]
+                                       [--suspicion]
 
 Prints one JSON line.  Needs a CUDA device: there is no CPU fallback.
 """
@@ -16,6 +20,7 @@ Prints one JSON line.  Needs a CUDA device: there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 
@@ -26,6 +31,7 @@ from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.core.rounds import run_rounds
 from gossipfs_tpu_torch.core.state import RoundEvents, init_state
 from gossipfs_tpu_torch.ops import merge
+from gossipfs_tpu_torch.suspicion import SuspicionParams
 
 N = 16_384
 ROUNDS = 100
@@ -77,23 +83,36 @@ def timed_run(cfg: SimConfig, rounds: int, seed: int = 0,
     return start.elapsed_time(end) / 1e3
 
 
+def headline_config(n: int, suspicion: bool) -> SimConfig:
+    """The bench's configuration: the headline, with the SWIM lifecycle at
+    the fast knob (t_fail 3, t_suspect 2) under ``suspicion``."""
+    cfg = SimConfig.headline(n)
+    if suspicion:
+        cfg = dataclasses.replace(cfg, t_fail=3,
+                                  suspicion=SuspicionParams(t_suspect=2))
+    return cfg
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=N)
     ap.add_argument("--rounds", type=int, default=ROUNDS)
     ap.add_argument("--attempts", type=int, default=5)
+    ap.add_argument("--suspicion", action="store_true",
+                    help="arm the SWIM lifecycle (t_fail=3, t_suspect=2)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gossipfs_tpu_torch.bench needs a CUDA device")
-    cfg = SimConfig.headline(args.n)
+    cfg = headline_config(args.n, args.suspicion)
     timed_run(cfg, args.rounds)  # warm-up: kernel build and load
     merge.reset_launch_counts()
     secs = [timed_run(cfg, args.rounds) for _ in range(args.attempts)]
     rates = sorted(args.rounds / s for s in secs)
+    sus = ", suspicion t_fail=3 t_suspect=2" if args.suspicion else ""
     median = statistics.median(rates)
     doc = {
         "metric": (f"simulated gossip rounds/sec, N={args.n}, fanout=16 "
-                   f"tile-aligned arc, 1% crash churn "
+                   f"tile-aligned arc, 1% crash churn{sus} "
                    f"({torch.cuda.get_device_name(0)})"),
         "value": median,
         "median": median,
@@ -105,6 +124,8 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(0),
         "kernel": "resident_round_cuda",
         "launches": merge.LAUNCH_COUNTS["resident_round"],
+        "suspicion": (None if cfg.suspicion is None
+                      else dataclasses.asdict(cfg.suspicion)),
     }
     print(json.dumps(doc))
     return doc

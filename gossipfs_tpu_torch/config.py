@@ -6,8 +6,10 @@ field with the JAX package's.  The port keeps its own copy (it imports
 nothing of the JAX package).  What is dropped is the JAX package's Pallas
 admissibility checks (VMEM budgets, stripe widths): they describe TPU
 layout, not the protocol.  The tiling knobs (``merge_block_*``,
-``merge_slots``, ``rr_*``) and ``merge_kernel``/``elementwise`` are kept so
-configurations line up, and the port's round loop ignores them.
+``merge_slots``, ``rr_*``) and ``elementwise`` are kept so configurations
+line up, and the port's round loop ignores them.  Of ``merge_kernel`` the
+port reads one thing: a ``pallas_stripe*``/``pallas_rr*`` value sends the
+explicit-edge rounds to the stripe kernel K5 (core/rounds._merge).
 
 Reference constants (the Go implementation this system models):
   heartbeat period 1 s  -> 1 round == 1 s of simulated time
@@ -21,7 +23,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Literal
+from typing import Literal
+
+from gossipfs_tpu_torch.suspicion.params import SuspicionParams
+from gossipfs_tpu_torch.suspicion.tensor import require_suspicion_config
 
 Topology = Literal["ring", "random", "random_arc"]
 
@@ -68,8 +73,9 @@ class SimConfig:
     merge_block_r: int = 128         # JAX tiling knob (ignored by the port)
     merge_block_c: int = 8192        # JAX tiling knob (ignored by the port)
     merge_slots: int = 4             # JAX tiling knob (ignored by the port)
-    merge_kernel: str = "xla"        # JAX merge implementation (the port
-                                     # picks its path from the tensors' device)
+    merge_kernel: str = "xla"        # JAX merge implementation; the port
+                                     # reads only whether it names the
+                                     # stripe family (K5 for explicit edges)
     view_dtype: str = "int16"        # gossip-view storage: "int16" | "int8"
     hb_dtype: str = "int32"          # heartbeat-lane storage: "int32" |
                                      # "int16" | "int8" (int8 requires
@@ -77,8 +83,9 @@ class SimConfig:
     elementwise: str = "lanes"       # JAX elementwise formulation (ignored)
     rr_resident: str = "auto"        # JAX VMEM residency knob (ignored)
     rr_rotate: str = "auto"          # JAX VMEM layout knob (ignored)
-    suspicion: Any = None            # SWIM suspect/refute parameters; None =
-                                     # direct crash-on-timeout
+    suspicion: SuspicionParams | None = None  # SWIM suspect/refute
+                                     # parameters; None = direct
+                                     # crash-on-timeout
     fused_tick: str = "auto"         # JAX fused-tick knob (ignored)
 
     def __post_init__(self) -> None:
@@ -124,12 +131,22 @@ class SimConfig:
             raise ValueError("elementwise='swar' requires hb_dtype='int8'")
         if self.fused_tick not in ("auto", "off"):
             raise ValueError(f"unknown fused_tick: {self.fused_tick!r}")
-        if self.suspicion is not None and (
-                self.remove_broadcast or not self.fresh_cooldown):
-            raise ValueError(
-                "suspicion requires remove_broadcast=False and "
-                "fresh_cooldown=True (gossip-only dissemination)"
-            )
+        if self.suspicion is not None:
+            if not isinstance(self.suspicion, SuspicionParams):
+                raise ValueError(
+                    "suspicion must be a suspicion.SuspicionParams, got "
+                    f"{type(self.suspicion).__name__}"
+                )
+            require_suspicion_config(self)
+            # the age lane carries the suspicion clock and saturates at
+            # AGE_CLAMP: the stretched confirm window must stay below it
+            worst = self.suspicion.max_confirm_after(self.t_fail)
+            if worst >= AGE_CLAMP:
+                raise ValueError(
+                    f"t_fail + t_suspect * (1 + lh_multiplier) = {worst} "
+                    f"must be < AGE_CLAMP ({AGE_CLAMP}); the age lane, which "
+                    "carries the suspicion clock, saturates there"
+                )
         if self.view_dtype not in ("int16", "int8"):
             raise ValueError(f"unknown view_dtype: {self.view_dtype!r}")
         if self.hb_dtype not in ("int32", "int16", "int8"):
@@ -178,6 +195,33 @@ class SimConfig:
             n=n, topology="random_arc", fanout=16, arc_align=8,
             remove_broadcast=False, fresh_cooldown=True, t_cooldown=12,
             merge_kernel="pallas_rr", view_dtype="int8", hb_dtype="int8",
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def suspicion_rr(cls, n: int, block_c: int = 1024, t_fail: int = 3,
+                     t_suspect: int = 2, interpret: bool = False,
+                     **overrides) -> "SimConfig":
+        """The rr capacity profile with the SWIM lifecycle armed at the fast
+        knob (t_fail=3 + t_suspect=2): the JAX package's fused fast path's
+        production config, field for field."""
+        kw = dict(t_fail=t_fail,
+                  suspicion=SuspicionParams(t_suspect=t_suspect))
+        kw.update(overrides)
+        return cls.packed_rr(n, block_c, interpret=interpret, **kw)
+
+    @classmethod
+    def packed_rr(cls, n: int, block_c: int = 1024,
+                  interpret: bool = False, **overrides) -> "SimConfig":
+        """The resident-round capacity profile (random fanout log2 N,
+        gossip-only with fresh cooldown, all-int8 lanes), field for field
+        the JAX package's.  Its explicit-edge rounds run K5 on the card."""
+        kw = dict(
+            n=n, topology="random", fanout=cls.log_fanout(n),
+            remove_broadcast=False, fresh_cooldown=True, t_cooldown=12,
+            merge_kernel="pallas_rr_interpret" if interpret else "pallas_rr",
+            merge_block_c=block_c, view_dtype="int8", hb_dtype="int8",
         )
         kw.update(overrides)
         return cls(**kw)

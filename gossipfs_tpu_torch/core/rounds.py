@@ -5,27 +5,29 @@ Two loops, picked from the configuration and the fault model:
 * the LEAN loop, the port of the JAX package's rr scan
   (``core/rounds.py: _scan_rounds_rr_packed``) for its headline profile:
   aligned ``random_arc`` gossip, gossip-only dissemination with fresh
-  cooldown, all-int8 lanes, suspicion off, and no matrix events (crash-stop
-  faults only).  Each round is one call of the resident round
-  (ops/merge.resident_round), which ticks, builds the gossip view, merges
-  and reduces in place over the packed lanes.  The randomness of the whole
-  horizon is drawn in one batched pass before the loop, and the per-round
-  metrics stay on the device until the end.
+  cooldown, all-int8 lanes, and no matrix events (crash-stop faults only),
+  with or without the SWIM lifecycle and its Lifeguard lane.  Each round
+  is one call of the resident round (ops/merge.resident_round), which
+  ticks, builds the gossip view, merges and reduces in place over the
+  packed lanes.  The randomness of the whole horizon is drawn in one
+  batched pass before the loop, and the per-round metrics stay on the
+  device until the end.
 * the SEPARATE-PASS loop, the port of the JAX package's general scan
   (``_scan_rounds`` off the rr path, with ``_round_core``), for everything
-  else with suspicion off: ring and random edges, plain arcs, int16/int32
-  lanes, REMOVE broadcast, the reference cooldown, and rounds with matrix
-  events (LEAVE broadcast, joins through the introducer).  Each round runs
-  the events, the tick and the gossip-view build as PyTorch stages over
-  row chunks of the lanes, in place, then one merge kernel
-  (ops/merge_update): K2 for explicit edges (``random``, ``ring``), K4 for
-  arcs.
+  else: ring and random edges, plain arcs, int16/int32 lanes, REMOVE
+  broadcast, the reference cooldown, rounds with matrix events (LEAVE
+  broadcast, joins through the introducer), each with or without
+  suspicion.  Each round runs the events, the tick and the gossip-view
+  build as PyTorch stages over row chunks of the lanes, in place, then one
+  merge kernel (ops/merge_update), picked by :func:`merge_kernel`: K4 for
+  arcs, K5 for the explicit edges of ``pallas_stripe``/``pallas_rr``
+  configurations it admits, K2 for the other explicit edges.
 
 Both loops replay the JAX package bit for bit: the same threefry keys per
 round (``k = fold_in(key, round)``, ``(k_edge, k_churn) = split(k)``) and
-integer arithmetic throughout.  The port ignores ``merge_kernel``: the
-topology picks the kernel, and the tensors' device picks kernel or plain
-version.
+integer arithmetic throughout (the Lifeguard compare is the JAX package's
+float32 one).  The configuration picks the kernel, and the tensors'
+device picks kernel or plain version.
 """
 
 from __future__ import annotations
@@ -40,21 +42,25 @@ from gossipfs_tpu_torch.config import (
     AGE_CLAMP, INT8_REBASE_WINDOW, REBASE_WINDOW, SimConfig)
 from gossipfs_tpu_torch.core import topology
 from gossipfs_tpu_torch.core.state import (
-    FAILED, HB_DTYPES, MEMBER, UNKNOWN, RoundEvents, SimState, init_state,
-    member_counts)
+    FAILED, HB_DTYPES, MEMBER, SUSPECT, UNKNOWN, RoundEvents, SimState,
+    init_state, listed, member_counts, suspect_counts)
 from gossipfs_tpu_torch.ops import merge, merge_update
 from gossipfs_tpu_torch.ops.merge_update import row_chunks
 
 
 class RoundMetrics(NamedTuple):
-    """Per-round scalar observables, stacked over the horizon (int32 [R])."""
+    """Per-round scalar observables, stacked over the horizon (int32 [R]).
+
+    Under suspicion ``true_detections``/``false_positives`` count SUSPECT ->
+    FAILED confirmations and the three suspicion counters are live; with
+    suspicion off they are zeros."""
 
     true_detections: torch.Tensor   # detector fired on an actually-dead subject
     false_positives: torch.Tensor   # detector fired on a live subject
     n_alive: torch.Tensor
-    suspects_entered: torch.Tensor  # suspicion observables: zero while
-    refutations: torch.Tensor       # suspicion is not ported
-    fp_suppressed: torch.Tensor
+    suspects_entered: torch.Tensor  # entries newly marked SUSPECT this round
+    refutations: torch.Tensor       # SUSPECT entries refuted (-> MEMBER)
+    fp_suppressed: torch.Tensor     # refutations of actually-alive subjects
 
 
 class MetricsCarry(NamedTuple):
@@ -63,8 +69,10 @@ class MetricsCarry(NamedTuple):
 
     ``first_observer`` is the lowest-index observer whose detector fired
     in the first detecting round; ``converged`` the first round every live
-    observer had dropped the subject; ``first_suspect`` stays -1 while
-    suspicion is off.  All four reset to -1 when the subject rejoins."""
+    observer had dropped the subject (a SUSPECT holder has not);
+    ``first_suspect`` the first round of the suspicion episode some
+    observer holds the subject SUSPECT in (-1 while suspicion is off).  All
+    four reset to -1 when the subject rejoins."""
 
     first_detect: torch.Tensor
     first_observer: torch.Tensor
@@ -77,22 +85,34 @@ class MetricsCarry(NamedTuple):
         return MetricsCarry(neg, neg.clone(), neg.clone(), neg.clone())
 
 
-def _round_stats(n_det: torch.Tensor, alive: torch.Tensor):
-    """Scalar true/false detections and n_alive for one round."""
+def _round_stats(n_det: torch.Tensor, alive: torch.Tensor,
+                 sus: tuple | None = None) -> tuple:
+    """One round's six RoundMetrics scalars: true/false detections and
+    n_alive, then the suspicion counters ``sus`` = (per-subject entered,
+    per-subject refuted) reduced here (zeros without suspicion)."""
     z = n_det.new_zeros(())
-    return (torch.where(alive, z, n_det).sum(dtype=torch.int32),
-            torch.where(alive, n_det, z).sum(dtype=torch.int32),
-            alive.sum(dtype=torch.int32))
+    stats = (torch.where(alive, z, n_det).sum(dtype=torch.int32),
+             torch.where(alive, n_det, z).sum(dtype=torch.int32),
+             alive.sum(dtype=torch.int32))
+    if sus is None:
+        return stats + (z, z, z)
+    entered, refuted = sus
+    return stats + (entered.sum(dtype=torch.int32),
+                    refuted.sum(dtype=torch.int32),
+                    torch.where(alive, refuted, z).sum(dtype=torch.int32))
 
 
 def _update_carry(carry: MetricsCarry, alive: torch.Tensor,
                   any_fail: torch.Tensor, first_obs_now: torch.Tensor,
                   round_idx: int, member_col: torch.Tensor,
-                  rejoined: torch.Tensor | None = None) -> MetricsCarry:
+                  rejoined: torch.Tensor | None = None,
+                  any_suspect: torch.Tensor | None = None) -> MetricsCarry:
     """Fold one round into the carry.  ``member_col`` is the per-subject
     count of live non-self observers still listing the subject;
     ``rejoined`` the joins that took effect this round (a new incarnation
-    starts a new clock), None when the round had no matrix events."""
+    starts a new clock), None when the round had no matrix events;
+    ``any_suspect`` (suspicion runs) whether some observer holds the
+    subject SUSPECT after the merge."""
     first_detect, first_observer, converged, first_suspect = carry
     if rejoined is not None:
         first_detect, first_observer, converged, first_suspect = (
@@ -100,6 +120,14 @@ def _update_carry(carry: MetricsCarry, alive: torch.Tensor,
     fresh = (first_detect < 0) & any_fail
     first_observer = torch.where(fresh, first_obs_now, first_observer)
     first_detect = torch.where(fresh, round_idx, first_detect)
+    if any_suspect is not None:
+        # episode semantics: a suspicion that cleared with no confirm
+        # (every observer refuted) ends its episode and resets the clock;
+        # after a confirm (first_detect set just above) the stamp freezes
+        first_suspect = torch.where((first_detect < 0) & ~any_suspect, -1,
+                                    first_suspect)
+        first_suspect = torch.where((first_suspect < 0) & any_suspect,
+                                    round_idx, first_suspect)
     all_dropped = (member_col == 0) & ~alive
     converged = torch.where((converged < 0) & all_dropped, round_idx,
                             converged)
@@ -133,13 +161,8 @@ def rr_packed_init(config: SimConfig, member_mask=None, device="cuda"):
     return st.hb, st.asl, st.alive, st.hb_base, st.round, counts
 
 
-def _require_ported(config: SimConfig, scenario) -> None:
+def _require_ported(scenario) -> None:
     """Raise on what no loop of the port runs yet."""
-    if config.suspicion is not None:
-        raise NotImplementedError(
-            "suspicion: the SWIM lifecycle (with Lifeguard) across the "
-            "separate-pass round is ROADMAP Queue 1, item 4 (d), with the "
-            "suspect forms of K2, K4 and K3")
     if scenario is not None:
         raise NotImplementedError(
             "scenarios (edge filters, sender mute) are ROADMAP Queue 1, "
@@ -175,7 +198,7 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
     The lanes of ``state`` are updated IN PLACE; the returned state shares
     them.  Returns (state, MetricsCarry, RoundMetrics).
     """
-    _require_ported(config, scenario)
+    _require_ported(scenario)
     n = config.n
     if state.hb.shape != (n, n):
         raise ValueError(f"state is {tuple(state.hb.shape)}, config n={n}")
@@ -225,7 +248,19 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
 
     hb, asl, alive = state.hb, state.asl, state.alive.to(torch.bool)
     hb_base = state.hb_base.to(torch.int32)
-    counts = member_counts(state)
+    sus = config.suspicion
+    # the carried per-receiver listed counts (suspects included) and, on
+    # the Lifeguard lane, SUSPECT counts: each round's post-merge counts
+    # are the next round's pre-tick ones on this crash-only path
+    counts = member_counts(state, sus is not None)
+    lh = sus is not None and sus.lh_multiplier > 0
+    sus_kw = {}
+    if sus is not None:
+        sus_kw = dict(suspect=True, t_suspect=sus.t_suspect,
+                      lh_multiplier=sus.lh_multiplier)
+    if lh:
+        sus_counts = suspect_counts(state)
+        lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32, device=dev)
     mc = mcarry0 if mcarry0 is not None else MetricsCarry.init(n, dev)
     round_fn = merge.resident_round_plain if plain else merge.resident_round
     per_round = []
@@ -250,16 +285,29 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
                                      config.rebase_window)
         flags = (active.to(torch.int8) + refresher.to(torch.int8) * 2
                  + alive.to(torch.int8) * 4)
-        _, _, cnt_incl, n_det, first_obs, recv_cnt = round_fn(
+        if lh:
+            # Lifeguard: the JAX package's float32 compare over the
+            # carried (pre-tick) counts, riding flags bit 4
+            degraded = sus_counts.float() > lh_frac * counts.float()
+            flags = flags + degraded.to(torch.int8) * 16
+        res = round_fn(
             hb, asl, flags, vecs, bases_all[r], fanout=config.fanout,
             arc_align=config.arc_align, t_fail=config.t_fail,
-            t_cooldown=config.t_cooldown, age_clamp=AGE_CLAMP)
-        counts = recv_cnt
-        per_round.append(_round_stats(n_det, alive))
+            t_cooldown=config.t_cooldown, age_clamp=AGE_CLAMP, **sus_kw)
+        cnt_incl, n_det, first_obs, counts = res[2:6]
+        any_sus = None
+        if sus is not None:
+            entered, refuted, held = res[6:9]
+            any_sus = held > 0
+            if lh:
+                sus_counts = res[9]
+        per_round.append(_round_stats(
+            n_det, alive, None if sus is None else (entered, refuted)))
+        # the diagonal is never SUSPECT: the MEMBER test is the listed one
         self_member = alive & ((torch.diagonal(asl) & 3) == MEMBER)
         member_col = cnt_incl - self_member.to(torch.int32)
         mc = _update_carry(mc, alive, n_det > 0, first_obs, r0 + r,
-                           member_col)
+                           member_col, any_suspect=any_sus)
         hb_base = store_base
 
     metrics = _stack_metrics(per_round, dev)
@@ -269,12 +317,10 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
 
 
 def _stack_metrics(per_round: list, dev) -> RoundMetrics:
-    if per_round:
-        tp, fp, na = (torch.stack(c) for c in zip(*per_round))
-    else:
-        tp = fp = na = torch.zeros((0,), dtype=torch.int32, device=dev)
-    z = torch.zeros_like(tp)
-    return RoundMetrics(tp, fp, na, z, z.clone(), z.clone())
+    if not per_round:
+        return RoundMetrics(*(torch.zeros((0,), dtype=torch.int32,
+                                          device=dev) for _ in range(6)))
+    return RoundMetrics(*(torch.stack(c) for c in zip(*per_round)))
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +359,13 @@ def _apply_events(state: SimState, crash, leave, join,
     """Crash, LEAVE broadcast and join through the introducer, before the
     tick (the JAX package's ``_apply_events`` with matrix events).
 
-    A leaver is marked FAILED by every live receiver listing it (keeping
-    its age unless ``fresh_cooldown``).  An effective join (the node is
-    down and the introducer up) is appended by the introducer, added by
-    every live receiver that does not hold it (a FAILED entry keeps it
-    out), and takes the introducer's post-append list as its own fresh
-    table, its self entry included.  Narrow lanes first rebase the joiner's
+    A leaver is marked FAILED by every live receiver listing it, suspects
+    included under suspicion (keeping its age unless ``fresh_cooldown``).
+    An effective join (the node is down and the introducer up) is appended
+    by the introducer, added by every live receiver that does not hold it
+    (a FAILED entry keeps it out), and takes the introducer's post-append
+    list as its own fresh table (its MEMBER entries), its self entry
+    included.  Narrow lanes first rebase the joiner's
     column to base 0, so its fresh heartbeat 0 is representable.  Rows are
     rewritten in place, chunk by chunk; the joiner template is taken from
     the introducer's row before any write."""
@@ -328,6 +375,7 @@ def _apply_events(state: SimState, crash, leave, join,
     info = torch.iinfo(hb.dtype)
     lo, hi = info.min, info.max
     narrow = hb.dtype != torch.int32
+    sus_on = config.suspicion is not None
     leave = leave & alive
     alive_post = alive & ~(crash | leave)
     intro = config.introducer
@@ -345,7 +393,7 @@ def _apply_events(state: SimState, crash, leave, join,
     def rows(r0: int, r1: int):
         h = hb[r0:r1].to(torch.int32)
         st, age = _unpack(asl[r0:r1])
-        mark = alive[r0:r1, None] & (st == MEMBER) & leave[None]
+        mark = alive[r0:r1, None] & listed(st, sus_on) & leave[None]
         st = torch.where(mark, FAILED, st)
         if config.fresh_cooldown:
             age = torch.where(mark, 0, age)
@@ -387,7 +435,8 @@ def _pre_tick(state: SimState, config: SimConfig):
     """(active, refresher, colmax_est): senders vs small-group refreshers
     from the receivers' list sizes, and each subject's post-bump counter
     bound (its own diagonal + 1), the anchor of this round's rebase."""
-    small = member_counts(state) < config.min_group
+    counts = member_counts(state, config.suspicion is not None)
+    small = counts < config.min_group
     active = state.alive & ~small
     refresher = state.alive & small
     colmax_est = (torch.diagonal(state.hb).to(torch.int32) + state.hb_base
@@ -397,18 +446,29 @@ def _pre_tick(state: SimState, config: SimConfig):
 
 def _tick(state: SimState, config: SimConfig, active, refresher,
           stats: bool):
-    """The heartbeat tick, suspicion off, in place: small-group refresh,
-    the sentinel-sticky self bump, detection (member, not self, past the
+    """The heartbeat tick, in place: small-group refresh, the
+    sentinel-sticky self bump, detection (member, not self, past the
     grace, silent more than ``t_fail`` rounds), the REMOVE broadcast, and
-    cooldown expiry.  With ``stats``, returns this round's detections per
-    subject and the first firing receiver (0 where none fired, as
-    ``argmax`` gives), else (None, None).
+    cooldown expiry.
 
-    The REMOVE broadcast needs every receiver's detections before any
-    mark, so it takes a second pass over the chunks."""
+    Under suspicion (the JAX package's SWIM branch) the refresh also
+    reverts SUSPECT -> MEMBER, a stale MEMBER enters SUSPECT instead of
+    failing, and a SUSPECT entry silent past ``t_fail + t_suspect * (1 +
+    lh)`` confirms to FAILED; both masks read the pre-write status and the
+    FAILED write lands last.  ``lh`` is the Lifeguard multiplier on rows
+    whose pre-tick lists hold more than ``lh_frac`` of their listed
+    entries SUSPECT (the JAX package's float32 compare).
+
+    Returns (n_det, first_obs, entered): with ``stats`` this round's
+    detections (confirmations) per subject and the first firing receiver
+    (0 where none fired, as ``argmax`` gives), else (None, None); under
+    suspicion the per-subject count of entries that entered SUSPECT, else
+    None.  The REMOVE broadcast needs every receiver's detections before
+    any mark, so it takes a second pass over the chunks."""
     hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
     n = hb.shape[0]
     dev = hb.device
+    sus = config.suspicion
     info = torch.iinfo(hb.dtype)
     lo, hi = info.min, info.max
     bits = hb.element_size() * 8
@@ -424,21 +484,46 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
     removed = torch.zeros(n, dtype=torch.bool, device=dev)
     n_det = torch.zeros(n, **i32)
     fobs = torch.full((n,), n, **i32)
+    entered = None
+    if sus is not None:
+        entered = torch.zeros(n, **i32)
+        confirm_thr = config.t_fail + sus.t_suspect
+        if sus.lh_multiplier > 0:
+            lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32,
+                                   device=dev)
     for r0, r1 in row_chunks(n, n):
         h = hb[r0:r1].to(torch.int32)
         st, age = _unpack(asl[r0:r1])
         rows = cols[r0:r1, None]
         eye = rows == cols[None]
         act = active[r0:r1, None]
-        age = torch.where(refresher[r0:r1, None] & (st == MEMBER), 0, age)
+        if sus is not None and sus.lh_multiplier > 0:
+            # Lifeguard, over this chunk's pre-tick rows
+            n_sus = (st == SUSPECT).sum(dim=1, dtype=torch.int32)
+            n_lst = listed(st, True).sum(dim=1, dtype=torch.int32)
+            degraded = n_sus.float() > lh_frac * n_lst.float()
+            confirm_thr = (config.t_fail + sus.t_suspect * (
+                1 + torch.where(degraded, sus.lh_multiplier, 0)))[:, None]
+        ref_rows = refresher[r0:r1, None]
+        age = torch.where(ref_rows & listed(st, sus is not None), 0, age)
+        if sus is not None:
+            st = torch.where(ref_rows & (st == SUSPECT), MEMBER, st)
         bump = eye & act & (st == MEMBER)
         if narrow:
             bump = bump & (h != lo)
         h = torch.where(bump, _wrap(h + 1, bits), h)
         age = torch.where(bump, 0, age)
         past = ((h >= thr[None]) & (h != lo)) if narrow else (h > thr[None])
-        fail = act & ~eye & past & (age > config.t_fail) & (st == MEMBER)
-        st = torch.where(fail, FAILED, st)
+        stale = act & ~eye & past & (age > config.t_fail)
+        if sus is None:
+            fail = stale & (st == MEMBER)
+            st = torch.where(fail, FAILED, st)
+        else:
+            suspect_new = stale & (st == MEMBER)
+            fail = act & ~eye & (st == SUSPECT) & (age > confirm_thr)
+            st = torch.where(suspect_new, SUSPECT, st)
+            st = torch.where(fail, FAILED, st)
+            entered += suspect_new.sum(dim=0, dtype=torch.int32)
         if config.fresh_cooldown:
             age = torch.where(fail, 0, age)
         if config.remove_broadcast:
@@ -463,13 +548,14 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
                              UNKNOWN, st)
             asl[r0:r1] = _pack(st, age)
     if not stats:
-        return None, None
-    return n_det, torch.where(n_det > 0, fobs, 0)
+        return None, None, entered
+    return n_det, torch.where(n_det > 0, fobs, 0), entered
 
 
 def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
-    """What each sender's datagram holds: its MEMBER entries within the
-    rebase window, encoded relative to ``shift_a``, -1 where absent, as an
+    """What each sender's datagram holds: its listed entries (MEMBER, and
+    SUSPECT under suspicion) within the rebase window, encoded relative to
+    ``shift_a``, -1 where absent, as an
     ``[N, N]`` tensor of the view dtype.  Narrow lanes compare in the
     stored encoding against thresholds clipped into their range and wrap
     as the JAX package's narrow arithmetic does; int32 lanes compare true
@@ -491,7 +577,8 @@ def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
         hi_n = torch.clamp(shift_a + window, lo, hi)[None]
     for r0, r1 in row_chunks(n, n):
         h = hb[r0:r1].to(torch.int32)
-        elig = ((asl[r0:r1] & 3) == MEMBER) & senders[r0:r1, None]
+        elig = (listed(asl[r0:r1] & 3, config.suspicion is not None)
+                & senders[r0:r1, None])
         if narrow:
             goss = (elig & ((h >= sa_n) | sa_all) & (h <= hi_n)
                     & (h != lo))
@@ -503,34 +590,65 @@ def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
     return view
 
 
+def merge_kernel(config: SimConfig) -> str:
+    """The merge kernel the separate-pass round launches, by the launch
+    counters' names (ops/merge.LAUNCH_COUNTS), decided from the
+    configuration and N alone, before any launch:
+
+    * ``arc_merge_update`` (K4) for ``random_arc``;
+    * ``stripe_merge_update`` (K5) for ``random`` (explicit edges) when
+      ``merge_kernel`` names the stripe family (``pallas_stripe*``,
+      ``pallas_rr*``: the JAX package's ``_merge`` sends these rounds to its
+      stripe kernel) and K5 admits the shape (an int8 view, N <=
+      ``merge_update.STRIPE_MAX_N``);
+    * ``fused_merge_update`` (K2) for every other explicit-edge round:
+      ``ring``, other ``merge_kernel`` values, int16 views, larger N.
+
+    The three compute the same function; the plain versions follow the
+    same rule."""
+    if config.topology == "random_arc":
+        return "arc_merge_update"
+    if (config.topology == "random"
+            and config.merge_kernel.startswith(("pallas_stripe", "pallas_rr"))
+            and merge_update.stripe_admits(config.n, config.view_dtype)):
+        return "stripe_merge_update"
+    return "fused_merge_update"
+
+
 def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
            detect_stats: bool, plain: bool):
     """Rebase shifts, the gossip view, and the merge kernel in place on the
-    lanes: K4 for arcs (``edges`` are bases), K2 for explicit edges.
-    Returns (cnt_incl, n_det, first_obs, store_base)."""
+    lanes (:func:`merge_kernel`; arcs pass bases as ``edges``).  Returns
+    (cnt_incl, n_det, first_obs, refuted, held, store_base), the suspicion
+    reductions ``refuted``/``held`` None with suspicion off."""
     with record_function("round.view"):
         sa, sb, store_base = _rebase_shifts_vec(
             state.hb.dtype, state.hb_base, config, colmax_est)
         view = _gossip_view(state, senders, sa, config)
     args = (view, edges, state.hb, state.asl, sa, sb, state.alive)
+    suspect = config.suspicion is not None
+    kw = dict(detect_stats=detect_stats, suspect=suspect)
+    name = merge_kernel(config)
+    if name == "arc_merge_update":
+        kw["fanout"] = config.fanout
+    fn = getattr(merge_update, name + ("_plain" if plain else ""))
     with record_function("round.merge"):
-        if config.topology == "random_arc":
-            fn = (merge_update.arc_merge_update_plain if plain
-                  else merge_update.arc_merge_update)
-            out = fn(*args, fanout=config.fanout, detect_stats=detect_stats)
-        else:
-            fn = (merge_update.fused_merge_update_plain if plain
-                  else merge_update.fused_merge_update)
-            out = fn(*args, detect_stats=detect_stats)
-    _, _, cnt_incl, n_det, first_obs = out
-    return cnt_incl, n_det, first_obs, store_base
+        out = fn(*args, **kw)
+    cnt_incl, n_det, first_obs = out[2:5]
+    refuted, held = out[5:] if suspect else (None, None)
+    return cnt_incl, n_det, first_obs, refuted, held, store_base
 
 
 def _round_core(state: SimState, crash, leave, join, edges,
                 config: SimConfig, matrix_events: bool, plain: bool):
-    """One separate-pass round (the JAX package's ``_round_core``,
-    suspicion off).  Returns (state, n_det, first_obs, member_col,
-    rejoined); ``rejoined`` is None without matrix events."""
+    """One separate-pass round (the JAX package's ``_round_core``).
+    Returns (state, n_det, stats, first_obs, member_col, rejoined,
+    any_sus): ``n_det`` this round's detections per subject, ``stats`` the
+    six RoundMetrics scalars, ``rejoined`` None without
+    matrix events, ``any_sus`` (whether an observer still holds the
+    subject SUSPECT after the merge) None with suspicion off.  The
+    suspicion counters come from the tick (entered) and the merge kernel
+    (refuted, held), with no ``[N, N]`` snapshot."""
     alive_before = state.alive
     with record_function("round.events"):
         if matrix_events:
@@ -541,25 +659,30 @@ def _round_core(state: SimState, crash, leave, join, edges,
     # the post-tick FAILED entries at age 0, which the merge kernel counts
     det_ok = (not matrix_events and config.fresh_cooldown
               and not config.remove_broadcast)
+    sus_on = config.suspicion is not None
     with record_function("round.tick"):
         active, refresher, colmax_est = _pre_tick(state, config)
-        n_det, first_obs = _tick(state, config, active, refresher,
-                                 stats=not det_ok)
+        n_det, first_obs, entered = _tick(state, config, active, refresher,
+                                          stats=not det_ok)
     if config.topology == "ring":
         with record_function("round.edges"):
-            edges = topology.ring_edges_from_status(state.asl & 3)
-    cnt_incl, k_ndet, k_fobs, store_base = _merge(
+            edges = topology.ring_edges_from_status(state.asl & 3, sus_on)
+    cnt_incl, k_ndet, k_fobs, refuted, held, store_base = _merge(
         state, edges, active, colmax_est, config, det_ok, plain)
     if det_ok:
         n_det, first_obs = k_ndet, k_fobs
     state = state._replace(hb_base=store_base, round=state.round + 1)
+    # the diagonal is never SUSPECT: the MEMBER test is the listed one
     self_member = state.alive & ((torch.diagonal(state.asl) & 3) == MEMBER)
     member_col = cnt_incl - self_member.to(torch.int32)
     rejoined = None
     if matrix_events:
         # joins lost to a dead introducer start no new clock
         rejoined = join & ~alive_before & state.alive
-    return state, n_det, first_obs, member_col, rejoined
+    stats = _round_stats(n_det, state.alive,
+                         (entered, refuted) if sus_on else None)
+    any_sus = held > 0 if sus_on else None
+    return state, n_det, stats, first_obs, member_col, rejoined, any_sus
 
 
 def gossip_round(state: SimState, events: RoundEvents, edges,
@@ -572,17 +695,13 @@ def gossip_round(state: SimState, events: RoundEvents, edges,
     post-tick tables).  Lanes are updated in place.  Returns (state,
     RoundMetrics of scalars, any_fail [N], first_obs [N]), ``first_obs``
     the lowest firing observer where ``any_fail``."""
-    _require_ported(config, None)
     dev = state.hb.device
     crash, leave, join = (m.to(device=dev, dtype=torch.bool) for m in events)
     if edges is not None:
         edges = edges.to(device=dev, dtype=torch.int32)
-    state, n_det, first_obs, _, _ = _round_core(
+    state, n_det, stats, first_obs, _, _, _ = _round_core(
         state, crash, leave, join, edges, config, True, plain)
-    tp, fp, na = _round_stats(n_det, state.alive)
-    z = torch.zeros_like(tp)
-    metrics = RoundMetrics(tp, fp, na, z, z.clone(), z.clone())
-    return state, metrics, n_det > 0, first_obs
+    return state, RoundMetrics(*stats), n_det > 0, first_obs
 
 
 def _run_general(state, config, num_rounds, key, events, crash_rate,
@@ -632,10 +751,11 @@ def _run_general(state, config, num_rounds, key, events, crash_rate,
                 edges = topology.in_edges(config, ks[r, 0])  # int32 [N, F]
             else:
                 edges = None if bases_all is None else bases_all[r]
-        state, n_det, first_obs, member_col, rejoined = _round_core(
-            state, crash, leave, join, edges, config, matrix_events, plain)
+        state, n_det, stats, first_obs, member_col, rejoined, any_sus = (
+            _round_core(state, crash, leave, join, edges, config,
+                        matrix_events, plain))
         with record_function("round.carry"):
-            per_round.append(_round_stats(n_det, state.alive))
+            per_round.append(stats)
             mc = _update_carry(mc, state.alive, n_det > 0, first_obs, r0 + r,
-                               member_col, rejoined)
+                               member_col, rejoined, any_sus)
     return state, mc, _stack_metrics(per_round, dev)

@@ -12,7 +12,8 @@ Row ``i`` of each ``[N, N]`` lane is node ``i``'s view of every peer ``j``
   ``asl[i, j]``  int8 age|status byte, ``((age << 2) | status) - 128``
                  (ops/merge.pack_age_status): ``age`` counts rounds since
                  the entry was last refreshed, saturating at AGE_CLAMP;
-                 ``status`` is UNKNOWN / MEMBER / FAILED
+                 ``status`` is UNKNOWN / MEMBER / FAILED, and SUSPECT under
+                 the SWIM lifecycle (``SimConfig.suspicion``)
 
 plus ground truth ``alive[j]`` and the round counter.  The two bytes per
 entry are the whole state the lean round loop moves; the JAX package's
@@ -33,7 +34,7 @@ from gossipfs_tpu_torch.config import SimConfig
 UNKNOWN = 0   # j not in i's membership list
 MEMBER = 1    # j in i's list (alive as far as i knows)
 FAILED = 2    # j removed by i, still on the fail-list cooldown
-SUSPECT = 3   # SWIM suspicion (not produced by the port's round loops)
+SUSPECT = 3   # SWIM suspicion: still listed, pending refute or confirm
 
 HB_DTYPES = {"int8": torch.int8, "int16": torch.int16, "int32": torch.int32}
 
@@ -69,7 +70,7 @@ class RoundEvents(NamedTuple):
     join: torch.Tensor    # (re)join through the introducer
 
     @staticmethod
-    def none(num_rounds: int, n: int, device="cpu") -> "RoundEvents":
+    def none(num_rounds: int, n: int, device="cuda") -> "RoundEvents":
         z = torch.zeros((num_rounds, n), dtype=torch.bool, device=device)
         return RoundEvents(crash=z, leave=z, join=z)
 
@@ -97,23 +98,38 @@ def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
     )
 
 
-def listed(status: torch.Tensor) -> torch.Tensor:
-    """bool mask of entries in the membership list: MEMBER (suspicion,
-    which would add SUSPECT, is not ported yet)."""
+def listed(status: torch.Tensor, suspicion: bool = False) -> torch.Tensor:
+    """bool mask of entries in the membership list: MEMBER, and SUSPECT
+    under the SWIM lifecycle (a suspect still gossips, counts toward
+    min_group and is marked by LEAVE, pending refute or confirm).  In the
+    0..3 encoding the listed statuses are the odd ones."""
+    if suspicion:
+        return (status & 1) == 1
     return status == MEMBER
 
 
-def member_counts(state: SimState) -> torch.Tensor:
-    """Size of each node's membership list (int32 [N]).
-
-    The status is the low two bits of the biased byte (the bias, 128, is
-    a multiple of 4), so no widening is needed; rows go in chunks, which
-    keeps the temporaries small at any N."""
+def _row_counts(state: SimState, pick) -> torch.Tensor:
+    """Per-row count (int32 [N]) of the entries whose status ``pick``
+    selects.  The status is the low two bits of the biased byte (the bias,
+    128, is a multiple of 4), so no widening is needed; rows go in chunks,
+    which keeps the temporaries small at any N."""
     asl = state.asl
     n, cols = asl.shape
     out = torch.empty(n, dtype=torch.int32, device=asl.device)
     step = max(1, (1 << 26) // cols)
     for r0 in range(0, n, step):
-        out[r0:r0 + step] = listed(asl[r0:r0 + step] & 3).sum(
+        out[r0:r0 + step] = pick(asl[r0:r0 + step] & 3).sum(
             dim=1, dtype=torch.int32)
     return out
+
+
+def member_counts(state: SimState, suspicion: bool = False) -> torch.Tensor:
+    """Size of each node's membership list (int32 [N]), suspects included
+    under ``suspicion``."""
+    return _row_counts(state, lambda st: listed(st, suspicion))
+
+
+def suspect_counts(state: SimState) -> torch.Tensor:
+    """SUSPECT entries of each node's list (int32 [N]): the Lifeguard
+    local-health input."""
+    return _row_counts(state, lambda st: st == SUSPECT)

@@ -26,9 +26,13 @@ from gossipfs_tpu_torch.core.state import listed
 from gossipfs_tpu_torch.ops.merge_update import row_chunks
 
 
-def ring_edges_from_status(status: torch.Tensor) -> torch.Tensor:
+def ring_edges_from_status(status: torch.Tensor,
+                           include_suspects: bool = False) -> torch.Tensor:
     """int32 ``[N, 3]`` ring in-edges over each receiver's own list:
     (next member above, first below, second below) in cyclic id order.
+    Under suspicion (``include_suspects``) SUSPECT entries are still list
+    positions and stay ring targets: excluding them would keep every
+    refutation away from the suspecting side.
 
     Receivers with too few other members fall back to self-edges, which
     merge as no-ops.  Each minimum is the first one in id order, as
@@ -41,7 +45,7 @@ def ring_edges_from_status(status: torch.Tensor) -> torch.Tensor:
     big = n + 1
     for r0, r1 in row_chunks(n, n):
         i = torch.arange(r0, r1, device=dev)[:, None]
-        m = listed(status[r0:r1]) & (j != i)
+        m = listed(status[r0:r1], include_suspects) & (j != i)
         dn = torch.where(m, (j - i) % n, big)
         dp = torch.where(m, (i - j) % n, big)
         next1 = dn.argmin(dim=1)
@@ -108,7 +112,7 @@ def in_edges(config: SimConfig, keys: torch.Tensor | None,
     explicit ``[..., N, F]`` edges for ``random``, and for ``ring`` the
     ``[N, 3]`` edges over ``status`` (the unpacked post-tick status)."""
     if config.topology == "ring":
-        return ring_edges_from_status(status)
+        return ring_edges_from_status(status, config.suspicion is not None)
     if config.topology == "random":
         return random_in_edges(keys, config.n, config.fanout)
     if config.arc_align > 1:

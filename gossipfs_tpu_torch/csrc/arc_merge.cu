@@ -98,13 +98,14 @@ cudaError_t launch_window(const void* view, void* w, int n, int fanout,
 }  // namespace
 
 // Launch K4 on ``stream``.  view: int8/int16 [n, n]; bases: int32 [n] in
-// [0, n); hb, asl, sa, sb, alive, out as fm_merge; wbuf: [n, n] scratch of
-// the view's type.  Returns the CUDA error code of the launches.
+// [0, n); hb, asl, sa, sb, alive, out, suspect as fm_merge; wbuf: [n, n]
+// scratch of the view's type.  Returns the CUDA error code of the launches.
 extern "C" int am_merge(const void* view, const void* bases, void* hb,
                         void* asl, const void* sa, const void* sb,
                         const void* alive, void* wbuf, void* out, int n,
                         int fanout, int view_bytes, int hb_bytes, int detect,
-                        int age_clamp, int aligned, void* stream) {
+                        int suspect, int age_clamp, int aligned,
+                        void* stream) {
   if (n <= 1 || fanout < 1 || fanout >= n) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -119,5 +120,5 @@ extern "C" int am_merge(const void* view, const void* bases, void* hb,
       view_bytes, hb_bytes, wbuf, static_cast<const int32_t*>(bases), 1, hb,
       asl, static_cast<const int32_t*>(sa), static_cast<const int32_t*>(sb),
       static_cast<const uint8_t*>(alive), static_cast<int32_t*>(out), n,
-      detect, age_clamp, aligned != 0, s);
+      detect, suspect, age_clamp, aligned != 0, s);
 }

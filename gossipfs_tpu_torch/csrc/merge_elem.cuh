@@ -1,8 +1,8 @@
 // Per-entry merge epilogue of the separate-pass round, shared by the
-// Hopper kernels K2 (fused_merge.cu) and K4 (arc_merge.cu) and by a host
-// build that the CPU tests compile with g++ and hold against the plain
-// PyTorch version (gossipfs_tpu_torch/ops/merge_update.py:
-// epilogue_plain).
+// Hopper kernels K2 (fused_merge.cu), K4 (arc_merge.cu) and K5
+// (stripe_merge.cu) and by a host build that the CPU tests compile with
+// g++ and hold against the plain PyTorch version
+// (gossipfs_tpu_torch/ops/merge_update.py: epilogue_plain).
 //
 // The int32 + clip formulation of the JAX package's
 // _epilogue_and_count (gossipfs_tpu/ops/merge_pallas.py): every lane value
@@ -25,6 +25,7 @@
 #define ME_UNKNOWN 0
 #define ME_MEMBER 1
 #define ME_FAILED 2
+#define ME_SUSPECT 3
 
 // value range of each heartbeat lane type: the epilogue's clip
 template <typename H> struct MeLim;
@@ -40,8 +41,10 @@ template <> struct MeLim<int32_t> {
 
 struct MeOut {
   int hb, asl;
-  bool listed;  // MEMBER after the merge
-  bool fresh;   // the detector fired on this entry this round
+  bool listed;   // in the list after the merge (MEMBER, or SUSPECT)
+  bool fresh;    // the detector fired on this entry this round
+  bool refuted;  // suspicion: an advance on a SUSPECT entry (-> MEMBER)
+  bool held;     // suspicion: still SUSPECT after the merge
 };
 
 // One entry: ``best`` the max of the senders' view values for the subject
@@ -52,13 +55,22 @@ struct MeOut {
 // UNKNOWN one, renormalise to the new base, age by one.  ``fresh`` is the
 // detection identity (FAILED at age 0 before the merge) that the
 // crash-only fresh-cooldown fault model makes exact.
+//
+// ``kSus`` is the SWIM form (the JAX kernels' ``suspect=`` epilogue): a
+// SUSPECT entry is still listed (listed = the odd statuses, MEMBER and
+// SUSPECT), so it takes the advance compare, and an advance on it is the
+// refutation: every update writes MEMBER.  It also reports ``refuted``
+// and ``held`` for the per-subject suspicion reductions.  With ``kSus``
+// false the two stay false and the rest is the suspicion-off epilogue.
+template <bool kSus = false>
 ME_HD MeOut merge_elem(int best, int hb, int asl, bool recv, int sa, int sb,
                        int lo, int hi, int age_clamp) {
   const int p = asl + 128;
   const int st = p & 3;
   const int age = p >> 2;
   const bool any = best >= 0;
-  const bool advance = recv && any && st == ME_MEMBER && best > hb - sa;
+  const bool listed_pre = kSus ? (st & 1) != 0 : st == ME_MEMBER;
+  const bool advance = recv && any && listed_pre && best > hb - sa;
   const bool add = recv && any && st == ME_UNKNOWN;
   const bool upd = advance || add;
   int v = upd ? best + (sa - sb) : hb - sb;
@@ -69,7 +81,9 @@ ME_HD MeOut merge_elem(int best, int hb, int asl, bool recv, int sa, int sb,
   MeOut out;
   out.hb = v;
   out.asl = ((new_age << 2) | new_st) - 128;
-  out.listed = new_st == ME_MEMBER;
+  out.listed = kSus ? (new_st & 1) != 0 : new_st == ME_MEMBER;
   out.fresh = recv && st == ME_FAILED && age == 0;
+  out.refuted = kSus && advance && st == ME_SUSPECT;
+  out.held = kSus && new_st == ME_SUSPECT;
   return out;
 }

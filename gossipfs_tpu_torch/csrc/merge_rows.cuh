@@ -3,6 +3,8 @@
 // then the merge epilogue (merge_elem.cuh) in place on the lanes, and the
 // per-subject reductions.  K2 gives each receiver its F in-edges; K4 gives
 // it one row of the window max (F = 1, the senders being its arc base).
+// The suspicion form (kSus) adds two reductions: refuted entries and
+// entries still SUSPECT after the merge, per subject, over all rows.
 //
 // Geometry: a block covers kRows receiver rows x kTile subject columns;
 // each thread owns kVec = 4 consecutive subjects of every row (one 4, 8 or
@@ -70,8 +72,9 @@ __device__ __forceinline__ void store4(T* p, int valid, const int (&in)[kVec]) {
 // senders: int32 [n, fanout] row-major.  A dead receiver's gather is
 // skipped (best stays -1): its epilogue is gated on recv anyway, which is
 // what the TPU kernel's remap of dead receivers' edges to themselves
-// achieves.  A sender outside [0, n) counts as absent.
-template <typename V, typename H, bool kAligned>
+// achieves.  A sender outside [0, n) counts as absent.  ``out`` is int32
+// [3, n] (cnt, n_det, first_obs), [5, n] with refuted and held under kSus.
+template <typename V, typename H, bool kAligned, bool kSus>
 __global__ void __launch_bounds__(kThreads)
 merge_rows_kernel(const V* __restrict__ view,
                   const int32_t* __restrict__ senders, int fanout,
@@ -79,8 +82,7 @@ merge_rows_kernel(const V* __restrict__ view,
                   const int32_t* __restrict__ shift_a,
                   const int32_t* __restrict__ shift_b,
                   const uint8_t* __restrict__ alive,
-                  int32_t* __restrict__ cnt, int32_t* __restrict__ n_det,
-                  int32_t* __restrict__ first_obs, int n, int detect,
+                  int32_t* __restrict__ out, int n, int detect,
                   int age_clamp) {
   extern __shared__ int32_t s_send[];  // [kRows][fanout]
   const int row0 = blockIdx.x * kRows;
@@ -91,7 +93,7 @@ merge_rows_kernel(const V* __restrict__ view,
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   if (col0 >= n) return;  // after the block's only barrier
   const int valid = min(kVec, n - col0);
-  int sa[kVec], sb[kVec], c[kVec], nd[kVec], fo[kVec];
+  int sa[kVec], sb[kVec], c[kVec], nd[kVec], fo[kVec], rf[kVec], hd[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     sa[k] = k < valid ? shift_a[col0 + k] : 0;
@@ -99,6 +101,8 @@ merge_rows_kernel(const V* __restrict__ view,
     c[k] = 0;
     nd[k] = 0;
     fo[k] = n;
+    rf[k] = 0;
+    hd[k] = 0;
   }
 #pragma unroll 1
   for (int r = 0; r < rows; ++r) {
@@ -126,14 +130,19 @@ merge_rows_kernel(const V* __restrict__ view,
     load4<int8_t, kAligned>(asl + off, valid, a);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const MeOut m = merge_elem(best[k], h[k], a[k], recv, sa[k], sb[k],
-                                 MeLim<H>::lo, MeLim<H>::hi, age_clamp);
+      const MeOut m = merge_elem<kSus>(best[k], h[k], a[k], recv, sa[k],
+                                       sb[k], MeLim<H>::lo, MeLim<H>::hi,
+                                       age_clamp);
       h[k] = m.hb;
       a[k] = m.asl;
       c[k] += (recv && m.listed) ? 1 : 0;
       if (m.fresh) {
         nd[k] += 1;
         fo[k] = min(fo[k], row);
+      }
+      if (kSus) {
+        rf[k] += m.refuted ? 1 : 0;
+        hd[k] += m.held ? 1 : 0;
       }
     }
     store4<H, kAligned>(hb + off, valid, h);
@@ -142,12 +151,31 @@ merge_rows_kernel(const V* __restrict__ view,
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     if (k >= valid) break;
-    if (c[k]) atomicAdd(cnt + col0 + k, c[k]);
+    if (c[k]) atomicAdd(out + col0 + k, c[k]);
     if (detect && nd[k]) {
-      atomicAdd(n_det + col0 + k, nd[k]);
-      atomicMin(first_obs + col0 + k, fo[k]);
+      atomicAdd(out + n + col0 + k, nd[k]);
+      atomicMin(out + 2 * n + col0 + k, fo[k]);
     }
+    if (kSus && rf[k]) atomicAdd(out + 3 * n + col0 + k, rf[k]);
+    if (kSus && hd[k]) atomicAdd(out + 4 * n + col0 + k, hd[k]);
   }
+}
+
+template <typename V, typename H, bool kSus>
+cudaError_t launch_rows_s(const V* v, const int32_t* senders, int fanout,
+                          H* h, int8_t* a, const int32_t* sa,
+                          const int32_t* sb, const uint8_t* alive,
+                          int32_t* out, int n, int detect, int age_clamp,
+                          bool aligned, cudaStream_t s) {
+  const dim3 grid((n + kRows - 1) / kRows, (n + kTile - 1) / kTile);
+  const size_t smem = sizeof(int32_t) * kRows * (size_t)fanout;
+  if (aligned)
+    merge_rows_kernel<V, H, true, kSus><<<grid, kThreads, smem, s>>>(
+        v, senders, fanout, h, a, sa, sb, alive, out, n, detect, age_clamp);
+  else
+    merge_rows_kernel<V, H, false, kSus><<<grid, kThreads, smem, s>>>(
+        v, senders, fanout, h, a, sa, sb, alive, out, n, detect, age_clamp);
+  return cudaGetLastError();
 }
 
 template <typename V, typename H>
@@ -155,38 +183,33 @@ cudaError_t launch_rows_t(const void* view, const int32_t* senders,
                           int fanout, void* hb, void* asl,
                           const int32_t* sa, const int32_t* sb,
                           const uint8_t* alive, int32_t* out, int n,
-                          int detect, int age_clamp, bool aligned,
-                          cudaStream_t s) {
-  const dim3 grid((n + kRows - 1) / kRows, (n + kTile - 1) / kTile);
-  const size_t smem = sizeof(int32_t) * kRows * (size_t)fanout;
+                          int detect, int suspect, int age_clamp,
+                          bool aligned, cudaStream_t s) {
   const V* v = static_cast<const V*>(view);
   H* h = static_cast<H*>(hb);
   int8_t* a = static_cast<int8_t*>(asl);
-  if (aligned)
-    merge_rows_kernel<V, H, true><<<grid, kThreads, smem, s>>>(
-        v, senders, fanout, h, a, sa, sb, alive, out, out + n, out + 2 * n,
-        n, detect, age_clamp);
-  else
-    merge_rows_kernel<V, H, false><<<grid, kThreads, smem, s>>>(
-        v, senders, fanout, h, a, sa, sb, alive, out, out + n, out + 2 * n,
-        n, detect, age_clamp);
-  return cudaGetLastError();
+  if (suspect)
+    return launch_rows_s<V, H, true>(v, senders, fanout, h, a, sa, sb, alive,
+                                     out, n, detect, age_clamp, aligned, s);
+  return launch_rows_s<V, H, false>(v, senders, fanout, h, a, sa, sb, alive,
+                                    out, n, detect, age_clamp, aligned, s);
 }
 
 // The row pass for every (view, hb) pair SimConfig admits, by byte width.
-// out: int32 [3, n] = cnt_incl, n_det, first_obs, initialised by the
-// caller (zeros; first_obs n when detect).
+// out: int32 [3, n] = cnt_incl, n_det, first_obs ([5, n] with refuted and
+// held when ``suspect``), initialised by the caller (zeros; first_obs n
+// when detect).
 inline cudaError_t launch_rows(int view_bytes, int hb_bytes, const void* view,
                                const int32_t* senders, int fanout, void* hb,
                                void* asl, const int32_t* sa,
                                const int32_t* sb, const uint8_t* alive,
-                               int32_t* out, int n, int detect, int age_clamp,
-                               bool aligned, cudaStream_t s) {
+                               int32_t* out, int n, int detect, int suspect,
+                               int age_clamp, bool aligned, cudaStream_t s) {
   if (n <= 0 || fanout < 1 || fanout > kMaxFanout || age_clamp < 0 ||
       age_clamp > 63)
     return cudaErrorInvalidValue;
 #define MR_ARGS view, senders, fanout, hb, asl, sa, sb, alive, out, n, \
-                detect, age_clamp, aligned, s
+                detect, suspect, age_clamp, aligned, s
   if (view_bytes == 1 && hb_bytes == 1)
     return launch_rows_t<int8_t, int8_t>(MR_ARGS);
   if (view_bytes == 1 && hb_bytes == 2)

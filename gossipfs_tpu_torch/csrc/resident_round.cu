@@ -2,9 +2,11 @@
 // round's reductions) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel gossipfs_tpu/ops/merge_pallas.py
-// resident_round_blocked (aligned-arc, crash-only, suspicion-off form).
-// The function it computes is defined by the plain PyTorch version,
-// gossipfs_tpu_torch/ops/merge.py resident_round_plain.
+// resident_round_blocked (:2611), in its aligned-arc forms: crash-only,
+// and with the SWIM lifecycle (suspect / confirm in the tick, refute in
+// the merge, the Lifeguard stretch as a per-row confirm threshold on
+// flags bit 4).  The function it computes is defined by the plain PyTorch
+// version, gossipfs_tpu_torch/ops/merge.py resident_round_plain.
 //
 // Bound.  The round is pure byte traffic plus small integer arithmetic:
 // the information floor reads and writes each packed lane once, 4 B per
@@ -34,6 +36,15 @@
 // extracts included), which would make instruction issue, not bytes, the
 // limit: packing 4 subjects per 32-bit op (the JAX package's SWAR form) is
 // the next step to try.
+//
+// The suspicion form (kSus) is the same two launches: pass A also counts
+// the entries that entered SUSPECT per subject (a bit per group row, like
+// the detections), pass B the refuted entries and the entries still
+// SUSPECT after the merge per subject (registers over the block's rows,
+// one atomic each), and with the Lifeguard lane (kLh) the per-receiver
+// count of post-merge SUSPECT entries (a warp reduce, like recv_cnt),
+// which the round loop turns into next round's flags bit 4.  The
+// crash-only instantiation is the code it was.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,13 +80,20 @@ __device__ __forceinline__ void store_vec(int8_t* p, const Bytes& u) {
   *reinterpret_cast<Word<kVec>::T*>(p) = u.v;
 }
 
+// the tick's suspicion thresholds (unused by the crash-only form)
+struct SusThr {
+  int confirm, confirm_hi;
+};
+
+template <bool kSus>
 __global__ void __launch_bounds__(kThreads)
 rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                     const int8_t* __restrict__ flags,
                     const int8_t* __restrict__ vecs,
                     int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
-                    int32_t* __restrict__ first_obs, int n, int t_fail,
-                    int t_cooldown) {
+                    int32_t* __restrict__ first_obs,
+                    int32_t* __restrict__ entered, int n, int t_fail,
+                    int t_cooldown, SusThr sus) {
   const int grp = blockIdx.x;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   if (col0 >= n) return;
@@ -86,11 +104,12 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   // per subject: the group max of the view, and a bit per group row
   // whose detector fired
   int gm[kVec];
-  unsigned fired[kVec];
+  unsigned fired[kVec], ent[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     gm[k] = -128;
     fired[k] = 0;
+    ent[k] = 0;
   }
 #pragma unroll 1
   for (int r = 0; r < kAlign; ++r) {
@@ -98,20 +117,38 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     const int f = flags[row];
     const bool act = (f & 1) != 0;
     const bool ref = (f & 2) != 0;
+    const bool lh = (f & 16) != 0;
     const size_t off = (size_t)row * n + col0;
     Bytes h = load_vec(hb + off);
     Bytes a = load_vec(asl + off);
     const int d = row - col0;  // the diagonal sits at k == d
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const RrTick t = rr_tick(h.b[k], a.b[k], act, ref, k == d, thr_g.b[k],
-                               t_fail, t_cooldown);
-      h.b[k] = (int8_t)t.hb;
-      a.b[k] = (int8_t)t.asl;
-      const int enc = rr_view(t.hb, t.elig, act, sa_n.b[k], sa_all.b[k],
+      int th, ta;
+      bool fail, elig;
+      if (kSus) {
+        const RrTickSus t = rr_tick_sus(h.b[k], a.b[k], act, ref, k == d, lh,
+                                        thr_g.b[k], t_fail, t_cooldown,
+                                        sus.confirm, sus.confirm_hi);
+        th = t.hb;
+        ta = t.asl;
+        fail = t.fail;
+        elig = t.elig;
+        ent[k] |= (unsigned)t.entered << r;
+      } else {
+        const RrTick t = rr_tick(h.b[k], a.b[k], act, ref, k == d,
+                                 thr_g.b[k], t_fail, t_cooldown);
+        th = t.hb;
+        ta = t.asl;
+        fail = t.fail;
+        elig = t.elig;
+      }
+      h.b[k] = (int8_t)th;
+      a.b[k] = (int8_t)ta;
+      const int enc = rr_view(th, elig, act, sa_n.b[k], sa_all.b[k],
                               hi_n.b[k]);
       gm[k] = max(gm[k], enc);
-      fired[k] |= (unsigned)t.fail << r;
+      fired[k] |= (unsigned)fail << r;
     }
     store_vec(hb + off, h);
     store_vec(asl + off, a);
@@ -126,9 +163,18 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
       atomicAdd(n_det + col0 + k, __popc(fired[k]));
       atomicMin(first_obs + col0 + k, grp * kAlign + __ffs(fired[k]) - 1);
     }
+    if (kSus && ent[k]) atomicAdd(entered + col0 + k, __popc(ent[k]));
   }
 }
 
+// the merge pass's suspicion outputs (null in the crash-only form)
+struct SusOut {
+  int32_t* refuted;      // [n] per subject
+  int32_t* held;         // [n] per subject, post-merge SUSPECT, all rows
+  int32_t* suspect_cnt;  // [n] per receiver (the Lifeguard lane)
+};
+
+template <bool kSus, bool kLh>
 __global__ void __launch_bounds__(kThreads)
 rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 const int8_t* __restrict__ flags,
@@ -137,7 +183,7 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 const int8_t* __restrict__ gmax,
                 int32_t* __restrict__ member_cnt,
                 int32_t* __restrict__ recv_cnt,
-                int32_t* __restrict__ first_obs, int n, int nw,
+                int32_t* __restrict__ first_obs, SusOut so, int n, int nw,
                 int age_clamp) {
   const int row0 = blockIdx.x * kRowsB;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
@@ -152,14 +198,19 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     if (valid && i != V_SA_ALL && i != V_HI_N && i != V_THR_G)
       vr[i] = load_vec(vecs + (size_t)i * n + col0);
   }
-  int cnt[kVec];
+  int cnt[kVec], ref[kVec], hld[kVec];
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) cnt[k] = 0;
+  for (int k = 0; k < kVec; ++k) {
+    cnt[k] = 0;
+    ref[k] = 0;
+    hld[k] = 0;
+  }
 #pragma unroll 1
   for (int r = 0; r < kRowsB; ++r) {
     const int row = row0 + r;
     if (row >= n) break;  // uniform across the block
     int listed_sum = 0;
+    int sus_sum = 0;
     if (valid) {
       const bool recv = (flags[row] & 4) != 0;
       const int g0 = bases[row] / kAlign;
@@ -179,13 +230,20 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         int v[N_VEC];
 #pragma unroll
         for (int i = 0; i < N_VEC; ++i) v[i] = vr[i].b[k];
-        const RrMerge m = rr_merge(h.b[k], a.b[k], best.b[k], recv, v,
-                                   age_clamp);
+        const RrMerge m = rr_merge_t<kSus>(h.b[k], a.b[k], best.b[k], recv,
+                                           v, age_clamp);
         h.b[k] = (int8_t)m.hb;
         a.b[k] = (int8_t)m.asl;
-        const int listed = (m.asl & 3) == RR_MEMBER;
+        const int st = m.asl & 3;
+        const int listed = kSus ? (st & 1) : st == RR_MEMBER;
         cnt[k] += recv ? listed : 0;
         listed_sum += listed;
+        if (kSus) {
+          const int held = st == RR_SUSPECT;
+          ref[k] += m.refuted ? 1 : 0;
+          hld[k] += held;
+          sus_sum += held;
+        }
       }
       store_vec(hb + off, h);
       store_vec(asl + off, a);
@@ -195,11 +253,21 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
       listed_sum += __shfl_down_sync(0xffffffffu, listed_sum, o);
     if ((threadIdx.x & 31) == 0 && listed_sum)
       atomicAdd(recv_cnt + row, listed_sum);
+    if (kLh) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sus_sum += __shfl_down_sync(0xffffffffu, sus_sum, o);
+      if ((threadIdx.x & 31) == 0 && sus_sum)
+        atomicAdd(so.suspect_cnt + row, sus_sum);
+    }
   }
   if (!valid) return;
 #pragma unroll
-  for (int k = 0; k < kVec; ++k)
+  for (int k = 0; k < kVec; ++k) {
     if (cnt[k]) atomicAdd(member_cnt + col0 + k, cnt[k]);
+    if (kSus && ref[k]) atomicAdd(so.refuted + col0 + k, ref[k]);
+    if (kSus && hld[k]) atomicAdd(so.held + col0 + k, hld[k]);
+  }
   if (blockIdx.x == 0) {
     // pass A has finished (stream order): columns no row fired on get
     // the sentinel N, as the plain version gives
@@ -209,40 +277,63 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   }
 }
 
+template <bool kSus, bool kLh>
+cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
+                         const int8_t* vecs, const int32_t* bases,
+                         int8_t* gmax, int32_t* o, int n, int fanout,
+                         int t_fail, int t_cooldown, SusThr sus,
+                         int age_clamp, cudaStream_t s) {
+  const int tiles = (n + kTile - 1) / kTile;
+  const size_t nn = (size_t)n;
+  rr_tick_view_kernel<kSus><<<dim3(n / kAlign, tiles), kThreads, 0, s>>>(
+      hb, asl, flags, vecs, gmax, o + nn, o + 2 * nn,
+      kSus ? o + 4 * nn : nullptr, n, t_fail, t_cooldown, sus);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  SusOut so{kSus ? o + 5 * nn : nullptr, kSus ? o + 6 * nn : nullptr,
+            kLh ? o + 7 * nn : nullptr};
+  rr_merge_kernel<kSus, kLh>
+      <<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
+          hb, asl, flags, vecs, bases, gmax, o, o + 3 * nn, o + 2 * nn, so,
+          n, fanout / kAlign, age_clamp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch one round on ``stream``.  hb, asl: int8 [n, n] row-major,
 // pre-tick, updated in place.  flags: int8 [n] (bit 0 active sender,
-// bit 1 small-group refresher, bit 2 alive).  vecs: int8 [11, n]
-// threshold stack.  bases: int32 [n] arc starts, multiples of 8 in
-// [0, n).  gmax: int8 [n/8, n] scratch.  out: int32 [4, n] =
-// member_cnt, n_det, first_obs, recv_cnt.  Returns the CUDA error code
-// of the launches (0 on success).
+// bit 1 small-group refresher, bit 2 alive, bit 4 Lifeguard-degraded
+// receiver).  vecs: int8 [11, n] threshold stack.  bases: int32 [n] arc
+// starts, multiples of 8 in [0, n).  gmax: int8 [n/8, n] scratch.  out:
+// int32 [4, n] = member_cnt, n_det, first_obs, recv_cnt; with ``suspect``
+// [7, n], adding entered, refuted and held per subject; with ``lh`` too
+// [8, n], adding suspect_cnt per receiver.  ``confirm_thr`` /
+// ``confirm_thr_hi``: the suspicion confirm ages of a healthy / degraded
+// receiver.  Returns the CUDA error code of the launches (0 on success).
 extern "C" int rr_round(void* hb, void* asl, const void* flags,
                         const void* vecs, const void* bases, void* gmax,
                         void* out, int n, int fanout, int t_fail,
-                        int t_cooldown, int age_clamp, void* stream) {
+                        int t_cooldown, int age_clamp, int suspect, int lh,
+                        int confirm_thr, int confirm_thr_hi, void* stream) {
   if (n <= 0 || n % kAlign || n % kVec || fanout <= 0 || fanout % kAlign ||
-      fanout > n)
+      fanout > n || (lh && !suspect))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* o = static_cast<int32_t*>(out);
-  cudaError_t e = cudaMemsetAsync(o, 0, sizeof(int32_t) * 4 * (size_t)n, s);
+  const int rows = suspect ? (lh ? 8 : 7) : 4;
+  cudaError_t e = cudaMemsetAsync(o, 0, sizeof(int32_t) * rows * (size_t)n, s);
   if (e != cudaSuccess) return (int)e;
   e = cudaMemsetAsync(o + 2 * (size_t)n, 0x7F, sizeof(int32_t) * (size_t)n, s);
   if (e != cudaSuccess) return (int)e;
-  const int tiles = (n + kTile - 1) / kTile;
-  rr_tick_view_kernel<<<dim3(n / kAlign, tiles), kThreads, 0, s>>>(
-      static_cast<int8_t*>(hb), static_cast<int8_t*>(asl),
-      static_cast<const int8_t*>(flags), static_cast<const int8_t*>(vecs),
-      static_cast<int8_t*>(gmax), o + n, o + 2 * (size_t)n, n, t_fail,
-      t_cooldown);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rr_merge_kernel<<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
-      static_cast<int8_t*>(hb), static_cast<int8_t*>(asl),
-      static_cast<const int8_t*>(flags), static_cast<const int8_t*>(vecs),
-      static_cast<const int32_t*>(bases), static_cast<const int8_t*>(gmax),
-      o, o + 3 * (size_t)n, o + 2 * (size_t)n, n, fanout / kAlign, age_clamp);
-  return (int)cudaGetLastError();
+  const SusThr sus{confirm_thr, confirm_thr_hi};
+#define RR_ARGS static_cast<int8_t*>(hb), static_cast<int8_t*>(asl), \
+      static_cast<const int8_t*>(flags), static_cast<const int8_t*>(vecs), \
+      static_cast<const int32_t*>(bases), static_cast<int8_t*>(gmax), o, n, \
+      fanout, t_fail, t_cooldown, sus, age_clamp, s
+  if (!suspect) e = launch_round<false, false>(RR_ARGS);
+  else if (!lh) e = launch_round<true, false>(RR_ARGS);
+  else e = launch_round<true, true>(RR_ARGS);
+#undef RR_ARGS
+  return (int)e;
 }

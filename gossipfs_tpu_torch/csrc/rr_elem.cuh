@@ -19,6 +19,7 @@
 #define RR_UNKNOWN 0
 #define RR_MEMBER 1
 #define RR_FAILED 2
+#define RR_SUSPECT 3
 
 // rows of the per-subject int8 threshold stack (ops/merge.threshold_stack)
 enum {
@@ -67,6 +68,55 @@ RR_HD RrTick rr_tick(int hb, int asl, bool act, bool ref, bool eye,
   return out;
 }
 
+struct RrTickSus {
+  int hb, asl;
+  bool fail;     // a SUSPECT entry confirmed to FAILED this round
+  bool elig;     // post-tick listed, MEMBER or SUSPECT (may be gossiped)
+  bool entered;  // a MEMBER entry entered SUSPECT this round
+};
+
+// The tick's SWIM form (suspicion armed): as rr_tick, except that the
+// small-group refresh also reverts SUSPECT -> MEMBER (both land at
+// (MEMBER, age 0)), a stale MEMBER enters SUSPECT (status bit 1 set: the
+// age keeps running, it is the suspicion clock), and a SUSPECT entry
+// confirms to FAILED once its age passes ``confirm_thr``, or
+// ``confirm_thr_hi`` on a Lifeguard-degraded row (``lh``).  Both masks
+// read the pre-write status, so an entry spends at least one round
+// SUSPECT, and the FAILED write lands last.  The confirm compare needs no
+// diagonal exclusion: the diagonal is never SUSPECT.
+RR_HD RrTickSus rr_tick_sus(int hb, int asl, bool act, bool ref, bool eye,
+                            bool lh, int thr_g, int t_fail, int t_cooldown,
+                            int confirm_thr, int confirm_thr_hi) {
+  const int st = asl & 3;
+  const bool st_mem = st == RR_MEMBER;
+  const bool st_sus = st == RR_SUSPECT;
+  const bool nsent = hb != -128;
+  if (ref && (st_mem || st_sus)) asl = RR_MEMBER - 128;  // refresh/revert
+  const bool bump = eye && act && st_mem && nsent;
+  if (bump) {
+    hb = rr_wrap8(hb + 1);
+    asl = RR_MEMBER - 128;
+  }
+  const bool past = (hb >= thr_g) && nsent;
+  const bool stale = act && st_mem && past &&
+                     asl > (((t_fail << 2) | RR_MEMBER) - 128);
+  const int thr = lh ? confirm_thr_hi : confirm_thr;
+  const bool confirm = act && st_sus &&
+                       asl > (((thr << 2) | RR_SUSPECT) - 128);
+  if (stale) asl |= 2;                          // MEMBER -> SUSPECT
+  if (confirm) asl = RR_FAILED - 128;           // fresh cooldown stamp
+  const bool expire = (asl & 3) == RR_FAILED &&
+                      asl > (((t_cooldown << 2) | RR_FAILED) - 128);
+  if (expire) asl = asl & -4;
+  RrTickSus out;
+  out.hb = hb;
+  out.asl = asl;
+  out.fail = confirm;
+  out.elig = (st_mem || st_sus) && !confirm;
+  out.entered = stale;
+  return out;
+}
+
 // The gossip view of one post-tick entry: an active sender's MEMBER
 // entry within the rebase window, encoded relative to the view shift;
 // -1 when absent.  Returned wrapped to int8: the group max runs over the
@@ -80,17 +130,22 @@ RR_HD int rr_view(int hb, bool elig, bool act, int sa_n, int sa_all,
 
 struct RrMerge {
   int hb, asl;
+  bool refuted;  // suspicion: an advance on a SUSPECT entry (-> MEMBER)
 };
 
 // Merge epilogue on one post-tick entry: advance / add / rebase / age
 // advance, gated on the receiver's alive bit.  ``best`` is the max of the
 // senders' view values for this subject; ``v`` the subject's threshold
-// stack column (int8 values widened).
-RR_HD RrMerge rr_merge(int hb, int asl, int best, bool recv, const int* v,
-                       int age_clamp) {
+// stack column (int8 values widened).  ``kSus``: a SUSPECT entry is
+// listed and takes the advance, which refutes it (every update writes
+// (MEMBER, age 0)).
+template <bool kSus>
+RR_HD RrMerge rr_merge_t(int hb, int asl, int best, bool recv, const int* v,
+                         int age_clamp) {
   const int st = asl & 3;
   const bool any_m = best >= 0;
-  const bool advance = recv && st == RR_MEMBER && any_m &&
+  const bool listed = kSus ? (st & 1) != 0 : st == RR_MEMBER;
+  const bool advance = recv && listed && any_m &&
                        best > v[V_CMP_DEEP] &&
                        rr_wrap8(best + v[V_SA_N]) > hb;
   const bool add = recv && st == RR_UNKNOWN && any_m;
@@ -103,5 +158,11 @@ RR_HD RrMerge rr_merge(int hb, int asl, int best, bool recv, const int* v,
   out.hb = rr_wrap8(upd ? up_val : keep_val);
   const int base = upd ? RR_MEMBER - 128 : asl;
   out.asl = base >= (age_clamp << 2) - 128 ? base : base + 4;
+  out.refuted = kSus && advance && st == RR_SUSPECT;
   return out;
+}
+
+RR_HD RrMerge rr_merge(int hb, int asl, int best, bool recv, const int* v,
+                       int age_clamp) {
+  return rr_merge_t<false>(hb, asl, best, recv, v, age_clamp);
 }

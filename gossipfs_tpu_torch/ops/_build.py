@@ -33,14 +33,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "resident_round": {
-        "rr_round": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P]),
+        "rr_round": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     },
     "fused_merge": {
-        "fm_merge": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+        "fm_merge": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+    },
+    "stripe_merge": {
+        "sm_merge": (_I, [_P] * 8 + [_I] * 8 + [_P]),
     },
     "arc_merge": {
-        "am_merge": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+        "am_merge": (_I, [_P] * 9 + [_I] * 8 + [_P]),
     },
 }
 

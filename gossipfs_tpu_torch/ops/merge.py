@@ -1,19 +1,27 @@
 """The resident round: one whole lean gossip round over the packed lanes.
 
-Port of the aligned-arc, crash-only, suspicion-off form of the TPU kernel
-``gossipfs_tpu/ops/merge_pallas.py: resident_round_blocked``.  One round:
+Port of the aligned-arc forms of the TPU kernel
+``gossipfs_tpu/ops/merge_pallas.py: resident_round_blocked``, crash-only
+and with the SWIM lifecycle (``suspect=True``).  One round:
 
 1. tick every entry (small-group refresh, diagonal heartbeat bump,
-   detection, fresh cooldown stamp, cooldown expiry);
+   detection, fresh cooldown stamp, cooldown expiry; under suspicion a
+   stale MEMBER enters SUSPECT and a SUSPECT entry past its confirm age,
+   stretched on Lifeguard-degraded rows, confirms to FAILED);
 2. encode each sender's gossip view of the post-tick lanes and take the
    max over every aligned group of ``arc_align`` sender rows: ``G[N/8, N]``;
 3. merge: receiver ``i`` takes ``best = max_k G[(bases[i]/8 + k) mod N/8]``
    over its arc's ``fanout/8`` groups and runs the membership-update
    epilogue (advance / add / rebase / age advance), gated on its alive bit;
+   under suspicion an advance on a SUSPECT entry refutes it;
 4. reduce: per subject the post-merge member count over live receivers
    (``member_cnt``), the detections (``n_det``) and the lowest firing
    observer (``first_obs``, N when none fired); per receiver its listed
-   count (``recv_cnt``, next round's group-size input).
+   count (``recv_cnt``, next round's group-size input).  Under suspicion
+   also, per subject, the entries that entered SUSPECT, were refuted, and
+   are still SUSPECT after the merge (over all rows), and with the
+   Lifeguard lane per receiver its post-merge SUSPECT count
+   (``suspect_cnt``, next round's degraded input).
 
 :func:`resident_round_plain` is the function in plain PyTorch, term for
 term with the JAX package's packed stages; :func:`resident_round` is the
@@ -40,7 +48,7 @@ import contextlib
 import torch
 
 from gossipfs_tpu_torch.config import AGE_CLAMP
-from gossipfs_tpu_torch.core.state import FAILED, MEMBER, UNKNOWN
+from gossipfs_tpu_torch.core.state import FAILED, MEMBER, SUSPECT, UNKNOWN
 
 # rows of the per-subject int8 threshold stack (csrc/rr_elem.cuh has the
 # same enumeration)
@@ -53,9 +61,9 @@ KERNEL_ALIGN = 8
 KERNEL_VEC = 4
 
 # launches of each kernel wrapper (plain-version calls do not count):
-# this module's resident round and ops/merge_update's two merge kernels
+# this module's resident round and ops/merge_update's three merge kernels
 LAUNCH_COUNTS = {"resident_round": 0, "fused_merge_update": 0,
-                 "arc_merge_update": 0}
+                 "arc_merge_update": 0, "stripe_merge_update": 0}
 _launch_events: list | None = None
 
 
@@ -162,6 +170,34 @@ def tick_plain(hb, asl, act, ref, eye, thr_g, t_fail: int, t_cooldown: int):
     return hb, asl, fail, st_mem & ~fail
 
 
+def tick_sus_plain(hb, asl, act, ref, eye, lh, thr_g, t_fail: int,
+                   t_cooldown: int, confirm_thr: int, confirm_thr_hi: int):
+    """The tick's SWIM form over int32 hb and packed asl (csrc/rr_elem.cuh
+    rr_tick_sus): refresh also reverts SUSPECT, a stale MEMBER enters
+    SUSPECT (status bit 1), a SUSPECT entry past its confirm age (the
+    ``confirm_thr_hi`` one on ``lh`` rows) confirms to FAILED.  Returns
+    (hb, asl, fail, elig, entered)."""
+    st = asl & 3
+    st_mem = st == MEMBER
+    st_sus = st == SUSPECT
+    nsent = hb != -128
+    asl = torch.where(ref & (st_mem | st_sus), MEMBER - 128, asl)
+    bump = eye & act & st_mem & nsent
+    hb = torch.where(bump, wrap8(hb + 1), hb)
+    asl = torch.where(bump, MEMBER - 128, asl)
+    past = (hb >= thr_g) & nsent
+    stale = act & st_mem & past & (asl > ((t_fail << 2) | MEMBER) - 128)
+    thr_b = torch.where(lh, ((confirm_thr_hi << 2) | SUSPECT) - 128,
+                        ((confirm_thr << 2) | SUSPECT) - 128)
+    confirm = act & st_sus & (asl > thr_b)
+    asl = torch.where(stale, asl | 2, asl)
+    asl = torch.where(confirm, FAILED - 128, asl)
+    expire = ((asl & 3) == FAILED) & (
+        asl > ((t_cooldown << 2) | FAILED) - 128)
+    asl = torch.where(expire, asl & -4, asl)
+    return hb, asl, confirm, (st_mem | st_sus) & ~confirm, stale
+
+
 def view_plain(hb, elig, act, sa_n, sa_all, hi_n):
     """Wrapped gossip-view value of post-tick entries; -1 when absent
     (csrc/rr_elem.cuh rr_view)."""
@@ -170,12 +206,16 @@ def view_plain(hb, elig, act, sa_n, sa_all, hi_n):
     return wrap8(torch.where(goss, hb - sa_n, -1))
 
 
-def merge_plain(hb, asl, best, recv, v, age_clamp: int):
-    """Merge epilogue on post-tick entries (csrc/rr_elem.cuh rr_merge);
-    ``v`` is the int32 threshold stack, broadcast over rows."""
+def merge_plain(hb, asl, best, recv, v, age_clamp: int,
+                suspect: bool = False):
+    """Merge epilogue on post-tick entries (csrc/rr_elem.cuh rr_merge_t);
+    ``v`` is the int32 threshold stack, broadcast over rows.  Returns
+    (hb, asl, refuted), ``refuted`` (advances on SUSPECT entries) None
+    without ``suspect``."""
     st = asl & 3
     any_m = best >= 0
-    advance = (recv & (st == MEMBER) & any_m & (best > v[V_CMP_DEEP])
+    lst = ((st & 1) == 1) if suspect else (st == MEMBER)
+    advance = (recv & lst & any_m & (best > v[V_CMP_DEEP])
                & (wrap8(best + v[V_SA_N]) > hb))
     upd = advance | (recv & (st == UNKNOWN) & any_m)
     up_val = torch.where(best <= v[V_UP_DEEP], -128, best + v[V_D8])
@@ -185,7 +225,8 @@ def merge_plain(hb, asl, best, recv, v, age_clamp: int):
     new_hb = wrap8(torch.where(upd, up_val, keep_val))
     base = torch.where(upd, MEMBER - 128, asl)
     new_asl = torch.where(base >= (age_clamp << 2) - 128, base, base + 4)
-    return new_hb, new_asl
+    refuted = (advance & (st == SUSPECT)) if suspect else None
+    return new_hb, new_asl, refuted
 
 
 def _row_chunk(n: int, align: int) -> int:
@@ -194,27 +235,54 @@ def _row_chunk(n: int, align: int) -> int:
     return min(rows, n)
 
 
+def _sus_thresholds(t_fail: int, suspect: bool, t_suspect: int,
+                    lh_multiplier: int, age_clamp: int) -> tuple[int, int]:
+    """(confirm_thr, confirm_thr_hi): the confirm ages of a healthy and a
+    Lifeguard-degraded receiver; checks the suspicion arguments as the JAX
+    kernel's wrapper does."""
+    if not suspect:
+        if lh_multiplier:
+            raise ValueError("resident_round: lh_multiplier > 0 (the "
+                             "Lifeguard lane) needs suspect=True")
+        return 0, 0
+    hi = t_fail + t_suspect * (1 + lh_multiplier)
+    if t_suspect < 1 or hi >= age_clamp:
+        raise ValueError(
+            f"resident_round: t_suspect >= 1 and t_fail + t_suspect * (1 + "
+            f"lh_multiplier) < age_clamp ({age_clamp}) needed, the age lane "
+            f"being the suspicion clock (got t_fail={t_fail}, "
+            f"t_suspect={t_suspect}, lh_multiplier={lh_multiplier})")
+    return t_fail + t_suspect, hi
+
+
 def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
                          arc_align: int, t_fail: int, t_cooldown: int,
-                         age_clamp: int = AGE_CLAMP):
+                         age_clamp: int = AGE_CLAMP, suspect: bool = False,
+                         t_suspect: int = 0, lh_multiplier: int = 0):
     """One round in plain PyTorch (the function the kernel computes).
 
     ``hb``/``asl`` int8 ``[N, N]`` pre-tick lanes, updated in place;
     ``flags`` int8 ``[N]`` (bit 0 active sender, bit 1 small-group
-    refresher, bit 2 alive); ``vecs`` the int8 ``[11, N]``
-    :func:`threshold_stack`; ``bases`` int32 ``[N]`` arc starts, multiples
-    of ``arc_align``.  Returns (hb, asl, member_cnt, n_det, first_obs,
-    recv_cnt), the last four int32 ``[N]``.  Works in row chunks, so its
-    temporaries stay small at any N."""
+    refresher, bit 2 alive, bit 4 Lifeguard-degraded receiver); ``vecs``
+    the int8 ``[11, N]`` :func:`threshold_stack`; ``bases`` int32 ``[N]``
+    arc starts, multiples of ``arc_align``.  Returns (hb, asl, member_cnt,
+    n_det, first_obs, recv_cnt), the last four int32 ``[N]``; with
+    ``suspect`` then (entered, refuted, held) per subject, and with
+    ``lh_multiplier > 0`` last ``suspect_cnt`` per receiver.  Works in row
+    chunks, so its temporaries stay small at any N."""
     n = hb.shape[0]
     dev = hb.device
+    thr, thr_hi = _sus_thresholds(t_fail, suspect, t_suspect, lh_multiplier,
+                                  age_clamp)
     v = vecs.to(torch.int32)
     fl = flags.to(torch.int32)
     act, ref, recv = (fl & 1) != 0, (fl & 2) != 0, (fl & 4) != 0
+    lh = (fl & 16) != 0
     nb = n // arc_align
     step = _row_chunk(n, arc_align)
     cols = torch.arange(n, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
+    sus_out = torch.zeros((3 + int(lh_multiplier > 0), n), **i32)
 
     # tick, view encode, aligned group max and the detection reductions
     gmax = torch.empty((nb, n), dtype=torch.int8, device=dev)
@@ -224,10 +292,16 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
         r1 = min(n, r0 + step)
         rows = torch.arange(r0, r1, device=dev)
         a_r = act[r0:r1, None]
-        h, a, fail, elig = tick_plain(
-            hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32), a_r,
-            ref[r0:r1, None], rows[:, None] == cols[None, :], v[V_THR_G],
-            t_fail, t_cooldown)
+        args = (hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32), a_r,
+                ref[r0:r1, None], rows[:, None] == cols[None, :])
+        if suspect:
+            h, a, fail, elig, entered = tick_sus_plain(
+                *args, lh[r0:r1, None], v[V_THR_G], t_fail, t_cooldown, thr,
+                thr_hi)
+            sus_out[0] += entered.sum(dim=0, dtype=torch.int32)
+        else:
+            h, a, fail, elig = tick_plain(*args, v[V_THR_G], t_fail,
+                                          t_cooldown)
         hb[r0:r1] = h.to(torch.int8)
         asl[r0:r1] = a.to(torch.int8)
         enc = view_plain(h, elig, a_r, v[V_SA_N], v[V_SA_ALL], v[V_HI_N])
@@ -248,15 +322,23 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
         for k in range(1, fanout // arc_align):
             best = torch.maximum(best, gmax[(g + k) % nb])
         rv = recv[r0:r1, None]
-        h, a = merge_plain(hb[r0:r1].to(torch.int32),
-                           asl[r0:r1].to(torch.int32),
-                           best.to(torch.int32), rv, v[:, None, :], age_clamp)
+        h, a, refuted = merge_plain(
+            hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32),
+            best.to(torch.int32), rv, v[:, None, :], age_clamp, suspect)
         hb[r0:r1] = h.to(torch.int8)
         asl[r0:r1] = a.to(torch.int8)
-        listed = (a & 3) == MEMBER
-        member_cnt += (listed & rv).sum(dim=0, dtype=torch.int32)
-        recv_cnt[r0:r1] = listed.sum(dim=1, dtype=torch.int32)
-    return hb, asl, member_cnt, n_det, first_obs, recv_cnt
+        st = a & 3
+        lst = ((st & 1) == 1) if suspect else (st == MEMBER)
+        member_cnt += (lst & rv).sum(dim=0, dtype=torch.int32)
+        recv_cnt[r0:r1] = lst.sum(dim=1, dtype=torch.int32)
+        if suspect:
+            held = st == SUSPECT
+            sus_out[1] += refuted.sum(dim=0, dtype=torch.int32)
+            sus_out[2] += held.sum(dim=0, dtype=torch.int32)
+            if lh_multiplier > 0:
+                sus_out[3, r0:r1] = held.sum(dim=1, dtype=torch.int32)
+    out = (hb, asl, member_cnt, n_det, first_obs, recv_cnt)
+    return out + tuple(sus_out) if suspect else out
 
 
 def _check_inputs(hb, asl, flags, vecs, bases, fanout, arc_align):
@@ -284,34 +366,40 @@ def _check_inputs(hb, asl, flags, vecs, bases, fanout, arc_align):
 
 def resident_round(hb, asl, flags, vecs, bases, *, fanout: int,
                    arc_align: int, t_fail: int, t_cooldown: int,
-                   age_clamp: int = AGE_CLAMP):
+                   age_clamp: int = AGE_CLAMP, suspect: bool = False,
+                   t_suspect: int = 0, lh_multiplier: int = 0):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract; raises what it cannot run)."""
     _check_inputs(hb, asl, flags, vecs, bases, fanout, arc_align)
+    kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
+              t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
+              t_suspect=t_suspect, lh_multiplier=lh_multiplier)
     if hb.device.type == "cpu":
-        return resident_round_plain(
-            hb, asl, flags, vecs, bases, fanout=fanout, arc_align=arc_align,
-            t_fail=t_fail, t_cooldown=t_cooldown, age_clamp=age_clamp)
+        return resident_round_plain(hb, asl, flags, vecs, bases, **kw)
     if hb.device.type != "cuda":
         raise ValueError(f"resident_round: no kernel for {hb.device}")
+    thr, thr_hi = _sus_thresholds(t_fail, suspect, t_suspect, lh_multiplier,
+                                  age_clamp)
     n = hb.shape[0]
     if arc_align != KERNEL_ALIGN or n % KERNEL_VEC:
         raise NotImplementedError(
             f"the CUDA resident round takes arc_align={KERNEL_ALIGN} and "
             f"N % {KERNEL_VEC} == 0 (got arc_align={arc_align}, N={n}); "
-            "plain arcs and explicit edges are ROADMAP Queue 1, item 7")
+            "plain arcs and explicit edges run the separate-pass round")
     from gossipfs_tpu_torch.ops import _build
 
+    lh = int(suspect and lh_multiplier > 0)
+    rows = 4 + 3 * int(suspect) + lh
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
         gmax = torch.empty((n // KERNEL_ALIGN, n), dtype=torch.int8,
                            device=hb.device)
-        out = torch.empty((4, n), dtype=torch.int32, device=hb.device)
+        out = torch.empty((rows, n), dtype=torch.int32, device=hb.device)
         stream = torch.cuda.current_stream(hb.device)
         with counted_launch("resident_round", stream):
             check_rc("resident_round", lib.rr_round(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
                 vecs.data_ptr(), bases.data_ptr(), gmax.data_ptr(),
                 out.data_ptr(), n, fanout, t_fail, t_cooldown, age_clamp,
-                stream.cuda_stream))
-    return hb, asl, out[0], out[1], out[2], out[3]
+                int(suspect), lh, thr, thr_hi, stream.cuda_stream))
+    return (hb, asl, *out)

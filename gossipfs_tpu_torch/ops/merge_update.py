@@ -1,18 +1,24 @@
 """The merge kernels of the separate-pass round: gather-max plus the
 membership-update epilogue, over a gossip view that is already built.
 
-Two kernels, each with its plain PyTorch version beside it:
+Three kernels, each with its plain PyTorch version beside it:
 
 * :func:`fused_merge_update` (K2) takes explicit in-edges ``[N, F]``:
   ``best[i, :] = max_f view[edges[i, f], :]``.  Port of
   ``gossipfs_tpu/ops/merge_pallas.py: fused_merge_update_blocked``; the
   ``random`` and ``ring`` topologies run it.
+* :func:`stripe_merge_update` (K5) is K2's function over an int8 view with
+  another memory strategy: one block stages a strip of view columns for
+  every receiver, so the view crosses device memory once per round.  Port
+  of ``stripe_merge_update_blocked``; the explicit-edge rounds of
+  ``pallas_stripe``/``pallas_rr`` configurations run it where it admits
+  the shape (:func:`stripe_admits`).
 * :func:`arc_merge_update` (K4) takes arc bases ``[N]``: the window max
   ``W[r, :] = max_{k<F} view[(r + k) mod N, :]`` once, then
   ``best[i, :] = W[bases[i], :]``.  Port of ``arc_merge_update_blocked``;
   every ``random_arc`` round off the lean loop runs it.
 
-Both then run the same epilogue on each entry (``_epilogue_and_count`` of
+All run the same epilogue on each entry (``_epilogue_and_count`` of
 the JAX package, in its int32 + clip form): advance a listed entry whose
 best view value is fresher, add an UNKNOWN one that some sender carried,
 renormalise every stored value to this round's base (``shift_a`` maps the
@@ -26,12 +32,20 @@ off the post-tick lanes as FAILED at age 0 (valid under the crash-only,
 fresh-cooldown, gossip-only fault model).  Without ``detect_stats`` both
 are zeros, as in the JAX kernels.
 
+``suspect=True`` is the SWIM form (the JAX kernels' ``suspect=``): a
+SUSPECT entry is listed, an advance on it is the refutation (every update
+writes MEMBER), the counts include suspects, and two more per-subject
+reductions come back: ``refuted`` (advances on SUSPECT entries) and
+``held`` (entries still SUSPECT after the merge, over all rows, dead
+receivers included).  They give the round's suspicion observables with no
+``[N, N]`` snapshot.
+
 The lanes are the port's: ``hb`` in int8, int16 or int32, ``asl`` the
 packed age|status byte, updated IN PLACE.  On a CPU tensor a wrapper runs
 the plain version; on a CUDA tensor it launches its kernel
-(``csrc/fused_merge.cu``, ``csrc/arc_merge.cu``) or raises.  All the
-arithmetic is int32 over the widened lane values, so kernel, plain version
-and the JAX package agree bit for bit.
+(``csrc/fused_merge.cu``, ``csrc/stripe_merge.cu``, ``csrc/arc_merge.cu``)
+or raises.  All the arithmetic is int32 over the widened lane values, so
+kernel, plain version and the JAX package agree bit for bit.
 """
 
 from __future__ import annotations
@@ -39,13 +53,27 @@ from __future__ import annotations
 import torch
 
 from gossipfs_tpu_torch.config import AGE_CLAMP
-from gossipfs_tpu_torch.core.state import FAILED, HB_DTYPES, MEMBER, UNKNOWN
+from gossipfs_tpu_torch.core.state import (
+    FAILED, HB_DTYPES, MEMBER, SUSPECT, UNKNOWN, listed)
 from gossipfs_tpu_torch.ops import merge
 
 VIEW_DTYPES = (torch.int8, torch.int16)
 # the CUDA kernels' limits: edges of a block's receiver rows are staged in
 # 48 KB of shared memory
 MAX_KERNEL_FANOUT = 512
+# K5's: a block stages 8 view columns (8 B) of every receiver row in
+# shared memory, beside its reduction scratch (5 int32 sums per column for
+# each of its 32 warps), within the 232,448 B one Hopper block may opt in
+# to (csrc/stripe_merge.cu)
+STRIPE_COLS = 8
+STRIPE_MAX_N = (232_448 - 5 * 32 * STRIPE_COLS * 4) // STRIPE_COLS
+
+
+def stripe_admits(n: int, view_dtype: str) -> bool:
+    """Whether K5 takes an ``[N, N]`` view of ``view_dtype``: int8, and a
+    view strip of every receiver row that fits one block's shared memory
+    (N <= 28,416)."""
+    return view_dtype == "int8" and n <= STRIPE_MAX_N
 
 
 def row_chunks(n: int, cols: int):
@@ -57,17 +85,19 @@ def row_chunks(n: int, cols: int):
 
 
 def epilogue_plain(best, hb, asl, recv, sa, sb, lo: int, hi: int,
-                   age_clamp: int):
+                   age_clamp: int, suspect: bool = False):
     """The per-entry merge epilogue over int32 tensors (``best``, ``hb``,
-    ``asl`` the widened biased byte, all ``[r, N]``; ``recv`` bool
-    ``[r, 1]``; ``sa``/``sb`` int32 ``[N]``).  Returns (hb, asl, listed,
-    fresh), the last two bool: the entry is listed after the merge, and
-    the detector fired on it this round (FAILED at age 0 before it).
-    Term for term ``_epilogue_and_count`` of the JAX package."""
+    ``asl`` the widened biased byte, all ``[r, C]``; ``recv`` bool
+    ``[r, 1]``; ``sa``/``sb`` int32 ``[C]``).  Returns (hb, asl, listed,
+    fresh, refuted, held), the last four bool: the entry is listed after
+    the merge, the detector fired on it this round (FAILED at age 0 before
+    it), and under ``suspect`` an advance refuted its suspicion / it is
+    still SUSPECT (None without ``suspect``).  Term for term
+    ``_epilogue_and_count`` of the JAX package."""
     p = asl + 128
     st, age = p & 3, p >> 2
     any_m = best >= 0
-    advance = recv & any_m & (st == MEMBER) & (best > hb - sa)
+    advance = recv & any_m & listed(st, suspect) & (best > hb - sa)
     add = recv & any_m & (st == UNKNOWN)
     upd = advance | add
     new_hb = torch.where(upd, best + (sa - sb), hb - sb).clamp(lo, hi)
@@ -75,7 +105,11 @@ def epilogue_plain(best, hb, asl, recv, sa, sb, lo: int, hi: int,
     new_st = torch.where(upd, MEMBER, st)
     new_asl = ((new_age << 2) | new_st) - 128
     fresh = recv & (st == FAILED) & (age == 0)
-    return new_hb, new_asl, new_st == MEMBER, fresh
+    refuted = held = None
+    if suspect:
+        refuted = advance & (st == SUSPECT)
+        held = new_st == SUSPECT
+    return new_hb, new_asl, listed(new_st, suspect), fresh, refuted, held
 
 
 def fanout_max_merge_plain(view: torch.Tensor, edges: torch.Tensor):
@@ -119,7 +153,7 @@ def arc_window_max_plain(view: torch.Tensor, bases: torch.Tensor,
 
 
 def _merge_rows_plain(rows_best, hb, asl, shift_a, shift_b, alive,
-                      detect_stats: bool, age_clamp: int):
+                      detect_stats: bool, suspect: bool, age_clamp: int):
     """The epilogue and reductions over every receiver row, in row chunks;
     ``rows_best(r0, r1)`` gives the int32 best rows of receivers
     ``r0..r1-1``.  Updates ``hb``/``asl`` in place."""
@@ -130,45 +164,92 @@ def _merge_rows_plain(rows_best, hb, asl, shift_a, shift_b, alive,
     sb = shift_b.to(torch.int32)
     recv_all = alive.to(torch.bool)
     i32 = dict(dtype=torch.int32, device=dev)
-    cnt = torch.zeros(n, **i32)
-    n_det = torch.zeros(n, **i32)
-    first_obs = torch.full((n,), n if detect_stats else 0, **i32)
+    out = torch.zeros((5 if suspect else 3, n), **i32)
+    cnt, n_det, first_obs = out[0], out[1], out[2]
+    if detect_stats:
+        first_obs.fill_(n)
     for r0, r1 in row_chunks(n, n):
         recv = recv_all[r0:r1, None]
-        h, a, listed, fresh = epilogue_plain(
+        h, a, lst, fresh, refuted, held = epilogue_plain(
             rows_best(r0, r1), hb[r0:r1].to(torch.int32),
             asl[r0:r1].to(torch.int32), recv, sa, sb, info.min, info.max,
-            age_clamp)
+            age_clamp, suspect)
         hb[r0:r1] = h.to(hb.dtype)
         asl[r0:r1] = a.to(torch.int8)
-        cnt += (listed & recv).sum(dim=0, dtype=torch.int32)
+        cnt += (lst & recv).sum(dim=0, dtype=torch.int32)
         if detect_stats:
             n_det += fresh.sum(dim=0, dtype=torch.int32)
             rows = torch.arange(r0, r1, **i32)[:, None]
-            first_obs = torch.minimum(
-                first_obs, torch.where(fresh, rows, n).amin(dim=0))
-    return hb, asl, cnt, n_det, first_obs
+            torch.minimum(first_obs, torch.where(fresh, rows, n).amin(dim=0),
+                          out=first_obs)
+        if suspect:
+            out[3] += refuted.sum(dim=0, dtype=torch.int32)
+            out[4] += held.sum(dim=0, dtype=torch.int32)
+    return (hb, asl, *out)
 
 
 def fused_merge_update_plain(view, edges, hb, asl, shift_a, shift_b, alive,
                              *, detect_stats: bool = False,
+                             suspect: bool = False,
                              age_clamp: int = AGE_CLAMP):
     """K2 in plain PyTorch (see module docstring).  Returns (hb, asl,
-    cnt_incl, n_det, first_obs), the last three int32 ``[N]``."""
+    cnt_incl, n_det, first_obs), the last three int32 ``[N]``, then
+    (refuted, held) under ``suspect``."""
     return _merge_rows_plain(
         lambda r0, r1: fanout_max_merge_plain(view, edges[r0:r1]),
-        hb, asl, shift_a, shift_b, alive, detect_stats, age_clamp)
+        hb, asl, shift_a, shift_b, alive, detect_stats, suspect, age_clamp)
+
+
+def stripe_merge_update_plain(view, edges, hb, asl, shift_a, shift_b, alive,
+                              *, detect_stats: bool = False,
+                              suspect: bool = False,
+                              age_clamp: int = AGE_CLAMP):
+    """K5 in plain PyTorch: K2's function, computed as the kernel walks it.
+    For each strip of subject columns (~16M entries), the strip of the
+    view is gathered for every receiver at once, the epilogue runs on the
+    strip of the lanes, and the strip's reductions are complete (no sum
+    carries from one strip to the next).  Same outputs as
+    :func:`fused_merge_update_plain`."""
+    n = hb.shape[0]
+    dev = hb.device
+    info = torch.iinfo(hb.dtype)
+    e = edges.to(torch.int64)
+    recv = alive.to(torch.bool)[:, None]
+    rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    out = torch.zeros((5 if suspect else 3, n), dtype=torch.int32,
+                      device=dev)
+    for c0, c1 in row_chunks(n, n):          # column strips, same sizes
+        strip = view[:, c0:c1]
+        best = strip[e[:, 0]].to(torch.int32)
+        for f in range(1, e.shape[1]):
+            best = torch.maximum(best, strip[e[:, f]].to(torch.int32))
+        h, a, lst, fresh, refuted, held = epilogue_plain(
+            best, hb[:, c0:c1].to(torch.int32), asl[:, c0:c1].to(torch.int32),
+            recv, shift_a[c0:c1].to(torch.int32),
+            shift_b[c0:c1].to(torch.int32), info.min, info.max, age_clamp,
+            suspect)
+        hb[:, c0:c1] = h.to(hb.dtype)
+        asl[:, c0:c1] = a.to(torch.int8)
+        out[0, c0:c1] = (lst & recv).sum(dim=0, dtype=torch.int32)
+        if detect_stats:
+            out[1, c0:c1] = fresh.sum(dim=0, dtype=torch.int32)
+            out[2, c0:c1] = torch.where(fresh, rows, n).amin(dim=0)
+        if suspect:
+            out[3, c0:c1] = refuted.sum(dim=0, dtype=torch.int32)
+            out[4, c0:c1] = held.sum(dim=0, dtype=torch.int32)
+    return (hb, asl, *out)
 
 
 def arc_merge_update_plain(view, bases, hb, asl, shift_a, shift_b, alive,
                            *, fanout: int, detect_stats: bool = False,
+                           suspect: bool = False,
                            age_clamp: int = AGE_CLAMP):
     """K4 in plain PyTorch (see module docstring); same outputs as K2."""
     w = window_max_plain(view, fanout)
     b = bases.to(torch.int64)
     return _merge_rows_plain(
         lambda r0, r1: w[b[r0:r1]].to(torch.int32),
-        hb, asl, shift_a, shift_b, alive, detect_stats, age_clamp)
+        hb, asl, shift_a, shift_b, alive, detect_stats, suspect, age_clamp)
 
 
 def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
@@ -201,7 +282,7 @@ def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
 
 def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
             shift_a, shift_b, alive, fanout: int, detect_stats: bool,
-            age_clamp: int, scratch=None):
+            suspect: bool, age_clamp: int, scratch=None):
     """Launch kernel ``name`` (C function ``fn`` of ``csrc/<source>.cu``)
     on hb's device and current stream."""
     if hb.device.type != "cuda":
@@ -214,7 +295,8 @@ def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
     ptrs = [t.data_ptr() for t in (view, hb, asl)]
     aligned = int(n % 4 == 0 and all(p % 16 == 0 for p in ptrs))
     with torch.cuda.device(hb.device):
-        out = torch.zeros((3, n), dtype=torch.int32, device=hb.device)
+        out = torch.zeros((5 if suspect else 3, n), dtype=torch.int32,
+                          device=hb.device)
         if detect_stats:
             out[2].fill_(n)
         stream = torch.cuda.current_stream(hb.device)
@@ -224,44 +306,79 @@ def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
         if scratch is not None:
             args.append(scratch.data_ptr())
         args += [out.data_ptr(), n, fanout, view.element_size(),
-                 hb.element_size(), int(detect_stats), age_clamp, aligned,
-                 stream.cuda_stream]
+                 hb.element_size(), int(detect_stats), int(suspect),
+                 age_clamp, aligned, stream.cuda_stream]
         with merge.counted_launch(name, stream):
             merge.check_rc(name, getattr(lib, fn)(*args))
-    return hb, asl, out[0], out[1], out[2]
+    return (hb, asl, *out)
+
+
+def _check_edges(name, view, edges, hb, asl, shift_a, shift_b, alive,
+                 age_clamp) -> int:
+    n = hb.shape[0] if hb.dim() == 2 else -1
+    f = edges.shape[1] if edges.dim() == 2 else -1
+    _check_inputs(name, view, {"edges": (edges, (torch.int32,), (n, f))}, hb,
+                  asl, shift_a, shift_b, alive, age_clamp)
+    if f < 1:
+        raise ValueError(f"{name}: edges need fanout >= 1")
+    return f
 
 
 def fused_merge_update(view, edges, hb, asl, shift_a, shift_b, alive, *,
-                       detect_stats: bool = False,
+                       detect_stats: bool = False, suspect: bool = False,
                        age_clamp: int = AGE_CLAMP):
     """K2: :func:`fused_merge_update_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract; raises what it cannot run).
     ``view`` int8/int16 ``[N, N]``; ``edges`` int32 ``[N, F]`` in
     ``[0, N)``; ``hb`` int8/16/32 and ``asl`` int8 ``[N, N]``, updated in
     place; ``shift_a``/``shift_b`` int32 ``[N]``; ``alive`` bool ``[N]``."""
-    n = hb.shape[0] if hb.dim() == 2 else -1
-    f = edges.shape[1] if edges.dim() == 2 else -1
-    _check_inputs("fused_merge_update", view,
-                  {"edges": (edges, (torch.int32,), (n, f))}, hb, asl,
-                  shift_a, shift_b, alive, age_clamp)
-    if f < 1:
-        raise ValueError("fused_merge_update: edges need fanout >= 1")
+    f = _check_edges("fused_merge_update", view, edges, hb, asl, shift_a,
+                     shift_b, alive, age_clamp)
     if hb.device.type == "cpu":
         return fused_merge_update_plain(
             view, edges, hb, asl, shift_a, shift_b, alive,
-            detect_stats=detect_stats, age_clamp=age_clamp)
+            detect_stats=detect_stats, suspect=suspect, age_clamp=age_clamp)
     if f > MAX_KERNEL_FANOUT:
         raise NotImplementedError(
             f"fused_merge_update: the CUDA kernel takes fanout <= "
             f"{MAX_KERNEL_FANOUT}, got {f}")
     return _launch("fused_merge_update", "fused_merge", "fm_merge", view,
                    edges, hb, asl, shift_a, shift_b, alive, f, detect_stats,
-                   age_clamp)
+                   suspect, age_clamp)
+
+
+def stripe_merge_update(view, edges, hb, asl, shift_a, shift_b, alive, *,
+                        detect_stats: bool = False, suspect: bool = False,
+                        age_clamp: int = AGE_CLAMP):
+    """K5: :func:`stripe_merge_update_plain` for CPU tensors, the CUDA
+    kernel for CUDA tensors.  Takes an int8 view only, and on the card
+    N <= :data:`STRIPE_MAX_N` (:func:`stripe_admits`); the rest as
+    :func:`fused_merge_update`."""
+    f = _check_edges("stripe_merge_update", view, edges, hb, asl, shift_a,
+                     shift_b, alive, age_clamp)
+    if view.dtype != torch.int8:
+        raise ValueError(f"stripe_merge_update: the view must be int8, got "
+                         f"{view.dtype}")
+    if hb.device.type == "cpu":
+        return stripe_merge_update_plain(
+            view, edges, hb, asl, shift_a, shift_b, alive,
+            detect_stats=detect_stats, suspect=suspect, age_clamp=age_clamp)
+    n = hb.shape[0]
+    if n > STRIPE_MAX_N:
+        raise NotImplementedError(
+            f"stripe_merge_update: the CUDA kernel stages an [N, "
+            f"{STRIPE_COLS}] view strip in shared memory, N <= "
+            f"{STRIPE_MAX_N}; got N={n}")
+    # every block of the kernel reads every receiver's edges: it takes them
+    # as int16 (N <= STRIPE_MAX_N fits), half the bytes
+    return _launch("stripe_merge_update", "stripe_merge", "sm_merge", view,
+                   edges.to(torch.int16), hb, asl, shift_a, shift_b, alive,
+                   f, detect_stats, suspect, age_clamp)
 
 
 def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
                      fanout: int, detect_stats: bool = False,
-                     age_clamp: int = AGE_CLAMP):
+                     suspect: bool = False, age_clamp: int = AGE_CLAMP):
     """K4: :func:`arc_merge_update_plain` for CPU tensors, the CUDA kernel
     for CUDA tensors.  ``bases`` int32 ``[N]`` in ``[0, N)``; the rest as
     :func:`fused_merge_update`.  The kernel writes the window max to a
@@ -276,7 +393,7 @@ def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
     if hb.device.type == "cpu":
         return arc_merge_update_plain(
             view, bases, hb, asl, shift_a, shift_b, alive, fanout=fanout,
-            detect_stats=detect_stats, age_clamp=age_clamp)
+            detect_stats=detect_stats, suspect=suspect, age_clamp=age_clamp)
     return _launch("arc_merge_update", "arc_merge", "am_merge", view, bases,
                    hb, asl, shift_a, shift_b, alive, fanout, detect_stats,
-                   age_clamp, scratch=torch.empty_like(view))
+                   suspect, age_clamp, scratch=torch.empty_like(view))

@@ -45,7 +45,7 @@ def threefry2x32(k1, k2, x1, x2):
     return a, b
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
     """Key from an integer seed (``jax.random.PRNGKey`` for 32-bit seeds)."""
     if not -2**31 <= seed < 2**31:
         raise ValueError(f"seed must be an int32, got {seed}")

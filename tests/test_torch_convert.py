@@ -52,7 +52,7 @@ def test_state_carries_across_and_continues_identically():
     # both sides continue from round 40 with the same key and carry
     js, jc, jm = jax_run_rounds(st, jcfg, 40, key, crash_rate=0.02,
                                 mcarry0=carry)
-    ts, tc, tm = run_rounds(tst, tcfg, 40, trandom.PRNGKey(23),
+    ts, tc, tm = run_rounds(tst, tcfg, 40, trandom.PRNGKey(23, device="cpu"),
                             crash_rate=0.02, mcarry0=tcarry)
     want = _jax_fields(js, jc)
     got = to_numpy(ts, tc)

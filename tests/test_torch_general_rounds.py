@@ -91,7 +91,7 @@ def run_both(kw: dict, rounds: int, seed: int, events=None, **run):
                            jax.random.PRNGKey(seed), events=jev, **run)
     merge.reset_launch_counts()
     t_out = run_rounds(init_state(tcfg, device="cpu"), tcfg, rounds,
-                       trandom.PRNGKey(seed), events=tev, **run)
+                       trandom.PRNGKey(seed, device="cpu"), events=tev, **run)
     assert all(v == 0 for v in merge.LAUNCH_COUNTS.values())  # plain on CPU
     assert_runs_equal(j_out, t_out)
     return j_out, t_out
@@ -163,7 +163,8 @@ def test_carried_state_with_bases_above_their_counters():
     ts, tc = from_jax_arrays(**x, device="cpu")
     j_out = jax_run_rounds(js, jcfg, 30, key, crash_rate=0.03,
                            rejoin_rate=0.2, mcarry0=jc)
-    t_out = run_rounds(ts, tcfg, 30, trandom.PRNGKey(11), crash_rate=0.03,
+    t_out = run_rounds(ts, tcfg, 30, trandom.PRNGKey(11, device="cpu"),
+                       crash_rate=0.03,
                        rejoin_rate=0.2, mcarry0=tc)
     assert_runs_equal(j_out, t_out)
 
@@ -188,7 +189,8 @@ def test_gossip_round_matches_jax_flagship_step():
         edges = jtopo.random_in_edges(jax.random.PRNGKey(r), n, tcfg.fanout)
         js, jm, jfail, jfobs = jax_gossip_round(
             js, JaxEvents(*(jnp.asarray(e) for e in ev)), edges, jcfg)
-        tedges = ttopo.random_in_edges(trandom.PRNGKey(r), n, tcfg.fanout)
+        tedges = ttopo.random_in_edges(trandom.PRNGKey(r, device="cpu"), n,
+                                       tcfg.fanout)
         ts, tm, tfail, tfobs = gossip_round(
             ts, RoundEvents(*(torch.from_numpy(e) for e in ev)), tedges, tcfg)
         got = to_numpy(ts)
@@ -211,12 +213,12 @@ def test_random_in_edges_match_jax_uint16_draw(n, seed):
     fanout = 3 if n > 20_000 else 14
     want = np.asarray(jtopo.random_in_edges(jax.random.PRNGKey(seed), n,
                                             fanout))
-    got = ttopo.random_in_edges(trandom.PRNGKey(seed), n, fanout)
+    got = ttopo.random_in_edges(trandom.PRNGKey(seed, device="cpu"), n, fanout)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         ttopo.in_edges(SimConfig(n=n, topology="random", fanout=fanout),
-                       trandom.PRNGKey(seed)).numpy(), want)
+                       trandom.PRNGKey(seed, device="cpu")).numpy(), want)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -28,7 +28,7 @@ def jkey_data(k) -> np.ndarray:
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prngkey_split_fold_in(seed):
-    jk, tk = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+    jk, tk = jax.random.PRNGKey(seed), trandom.PRNGKey(seed, device="cpu")
     np.testing.assert_array_equal(tk.numpy(), jkey_data(jk))
     for num in (2, 3, 7):
         np.testing.assert_array_equal(trandom.split(tk, num).numpy(),
@@ -44,7 +44,7 @@ def test_batched_keys_match_per_key_draws(seed):
     """The round loop's batched pass: fold_in over a vector of rounds,
     then split, then one draw per key, equals jax key by key."""
     rounds = np.arange(5, 13)
-    tk = trandom.split(trandom.fold_in(trandom.PRNGKey(seed),
+    tk = trandom.split(trandom.fold_in(trandom.PRNGKey(seed, device="cpu"),
                                        torch.from_numpy(rounds)))
     t_draw = trandom.randint(tk[:, 0], (96,), 0, 12)
     t_unif = trandom.uniform(tk[:, 1], (96,))
@@ -67,7 +67,7 @@ def test_batched_keys_match_per_key_draws(seed):
 @pytest.mark.parametrize("shape", [(1,), (33,), (4, 50)])
 def test_randint_int32(lo, hi, shape):
     for seed in (1, 99):
-        jk, tk = jax.random.PRNGKey(seed), trandom.PRNGKey(seed)
+        jk, tk = jax.random.PRNGKey(seed), trandom.PRNGKey(seed, device="cpu")
         want = np.asarray(jax.random.randint(jk, shape, lo, hi, jnp.int32))
         got = trandom.randint(tk, shape, lo, hi)
         assert got.dtype == torch.int32
@@ -78,7 +78,7 @@ def test_randint_int32(lo, hi, shape):
 def test_uniform_float32(shape):
     for seed in SEEDS:
         want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))
-        got = trandom.uniform(trandom.PRNGKey(seed), shape)
+        got = trandom.uniform(trandom.PRNGKey(seed, device="cpu"), shape)
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy().view(np.int32),
                                       want.view(np.int32))
@@ -86,6 +86,6 @@ def test_uniform_float32(shape):
 
 def test_bad_bounds_and_seeds_raise():
     with pytest.raises(ValueError):
-        trandom.randint(trandom.PRNGKey(0), (3,), 5, 5)
+        trandom.randint(trandom.PRNGKey(0, device="cpu"), (3,), 5, 5)
     with pytest.raises(ValueError):
-        trandom.PRNGKey(2**31)
+        trandom.PRNGKey(2**31, device="cpu")

@@ -133,7 +133,8 @@ def _compare_scans(n: int, rounds: int, crash_rate: float, seed: int):
                                 jax.random.PRNGKey(seed),
                                 crash_rate=crash_rate)
     ts, tc, tm = run_rounds(init_state(tcfg, device="cpu"), tcfg, rounds,
-                            trandom.PRNGKey(seed), crash_rate=crash_rate)
+                            trandom.PRNGKey(seed, device="cpu"),
+                            crash_rate=crash_rate)
     pairs = [("hb", js.hb, ts.hb), ("age", js.age, ts.age),
              ("status", js.status, ts.status), ("alive", js.alive, ts.alive),
              ("hb_base", js.hb_base, ts.hb_base)]
@@ -176,7 +177,8 @@ def test_tracked_crash_report_matches_jax():
                                crash_rate=0.01, churn_ok=jok,
                                crash_only_events=True)
     _, tc, tm = run_rounds(init_state(tcfg, device="cpu"), tcfg, rounds,
-                           trandom.PRNGKey(4), events=tev, crash_rate=0.01,
+                           trandom.PRNGKey(4, device="cpu"), events=tev,
+                           crash_rate=0.01,
                            churn_ok=tok, crash_only_events=True)
     want = jax_summarize(jc, jm, jcr).as_dict()
     got = summarize(tc, tm, tcr).as_dict()
@@ -196,7 +198,7 @@ def test_run_rounds_off_the_lean_slice_matches_jax(change):
     js, jc, jm = jax_run_rounds(jax_init_state(jcfg), jcfg, 30,
                                 jax.random.PRNGKey(2), crash_rate=0.03)
     ts, tc, tm = run_rounds(init_state(tcfg, device="cpu"), tcfg, 30,
-                            trandom.PRNGKey(2), crash_rate=0.03)
+                            trandom.PRNGKey(2, device="cpu"), crash_rate=0.03)
     pairs = [("hb", js.hb, ts.hb), ("age", js.age, ts.age),
              ("status", js.status, ts.status), ("alive", js.alive, ts.alive)]
     pairs += [(f, getattr(jc, f), getattr(tc, f)) for f in jc._fields]
@@ -206,15 +208,20 @@ def test_run_rounds_off_the_lean_slice_matches_jax(change):
     assert int(jnp.sum(jm.true_detections)) > 0
 
 
-@pytest.mark.parametrize("change,scenario,match", [
-    (dict(suspicion="swim"), None, "suspicion"),
-    ({}, object(), "scenarios"),
+@pytest.mark.parametrize("change,scenario,error,match", [
+    (dict(suspicion="swim"), None, ValueError, "SuspicionParams"),
+    ({}, object(), NotImplementedError, "scenarios"),
 ], ids=["suspicion", "scenario"])
-def test_run_rounds_rejects_outside_the_slice(change, scenario, match):
-    cfg = SimConfig(**{**dict(n=64, **HEADLINE), **change})
-    st = init_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        run_rounds(st, cfg, 2, trandom.PRNGKey(0), scenario=scenario)
+def test_run_rounds_rejects_outside_the_slice(change, scenario, error,
+                                              match):
+    """Suspicion runs on both loops now: what stays outside is a
+    suspicion value that is not a ``SuspicionParams`` (rejected when the
+    configuration is built) and scenarios (rejected by ``run_rounds``)."""
+    with pytest.raises(error, match=match):
+        cfg = SimConfig(**{**dict(n=64, **HEADLINE), **change})
+        st = init_state(cfg, device="cpu")
+        run_rounds(st, cfg, 2, trandom.PRNGKey(0, device="cpu"),
+                   scenario=scenario)
 
 
 def test_run_rounds_rejects_join_events():
@@ -223,20 +230,22 @@ def test_run_rounds_rejects_join_events():
     with random rejoins, the scan runs and matches JAX."""
     n, rounds = 64, 30
     cfg = SimConfig(n=n, **HEADLINE)
-    ev = RoundEvents.none(rounds, n)
+    ev = RoundEvents.none(rounds, n, device="cpu")
     ev = ev._replace(join=ev.join.clone(), crash=ev.crash.clone())
     ev.crash[2, 3] = True
     ev.join[20, 3] = True
     with pytest.raises(ValueError, match="join"):
         run_rounds(init_state(cfg, device="cpu"), cfg, rounds,
-                   trandom.PRNGKey(0), events=ev, crash_only_events=True)
+                   trandom.PRNGKey(0, device="cpu"), events=ev,
+                   crash_only_events=True)
     jcfg = JaxConfig(n=n, merge_kernel="xla", **HEADLINE)
     jev = JaxEvents(*(jnp.asarray(m.numpy()) for m in ev))
     js, jc, jm = jax_run_rounds(jax_init_state(jcfg), jcfg, rounds,
                                 jax.random.PRNGKey(0), events=jev,
                                 crash_rate=0.02, rejoin_rate=0.1)
     ts, tc, tm = run_rounds(init_state(cfg, device="cpu"), cfg, rounds,
-                            trandom.PRNGKey(0), events=ev, crash_rate=0.02,
+                            trandom.PRNGKey(0, device="cpu"), events=ev,
+                            crash_rate=0.02,
                             rejoin_rate=0.1)
     for a, b in ((js.hb, ts.hb), (js.status, ts.status),
                  (js.alive, ts.alive), *zip(jc, tc), *zip(jm, tm)):
@@ -248,9 +257,11 @@ def test_run_rounds_plain_flag_is_the_same_loop_on_cpu():
     """``plain=True`` (what the card's checks compare the kernel against)
     and the wrapper path agree on CPU, where both run the plain round."""
     cfg = SimConfig(n=128, **HEADLINE)
-    a = run_rounds(init_state(cfg, device="cpu"), cfg, 12, trandom.PRNGKey(9),
+    a = run_rounds(init_state(cfg, device="cpu"), cfg, 12,
+                   trandom.PRNGKey(9, device="cpu"),
                    crash_rate=0.05)
-    b = run_rounds(init_state(cfg, device="cpu"), cfg, 12, trandom.PRNGKey(9),
+    b = run_rounds(init_state(cfg, device="cpu"), cfg, 12,
+                   trandom.PRNGKey(9, device="cpu"),
                    crash_rate=0.05, plain=True)
     for x, y in zip((a[0].hb, a[0].asl, *a[1], *a[2]),
                     (b[0].hb, b[0].asl, *b[1], *b[2])):

@@ -61,12 +61,14 @@ def test_init_state_matches_jax(masked):
 def test_aligned_arc_bases_match_jax(n, fanout, align, seed):
     jk = jax.random.PRNGKey(seed)
     want = np.asarray(jtopo.random_arc_bases_aligned(jk, n, fanout, align))
-    got = ttopo.random_arc_bases_aligned(trandom.PRNGKey(seed), n, fanout,
+    got = ttopo.random_arc_bases_aligned(trandom.PRNGKey(seed, device="cpu"),
+                                         n, fanout,
                                          align)
     np.testing.assert_array_equal(got.numpy(), want)
     cfg_kw = dict(HEADLINE, fanout=fanout, arc_align=align)
     np.testing.assert_array_equal(
-        ttopo.in_edges(SimConfig(n=n, **cfg_kw), trandom.PRNGKey(seed)).numpy(),
+        ttopo.in_edges(SimConfig(n=n, **cfg_kw),
+                       trandom.PRNGKey(seed, device="cpu")).numpy(),
         np.asarray(jtopo.in_edges(JaxConfig(n=n, **cfg_kw), jk, None)))
     np.testing.assert_array_equal(ttopo.arc_edges(got, fanout).numpy(),
                                   np.asarray(jtopo.arc_edges(want, fanout)))
@@ -77,7 +79,8 @@ def test_aligned_arc_bases_match_jax(n, fanout, align, seed):
 def test_plain_arc_bases_match_jax(n, fanout, seed):
     want = np.asarray(jtopo.random_arc_bases(jax.random.PRNGKey(seed), n,
                                              fanout))
-    got = ttopo.random_arc_bases(trandom.PRNGKey(seed), n, fanout)
+    got = ttopo.random_arc_bases(trandom.PRNGKey(seed, device="cpu"), n,
+                                 fanout)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -90,7 +93,8 @@ def test_churn_masks_match_jax(crash_rate, rejoin_rate, seed):
     alive = np.random.default_rng(seed).random(n) < 0.8
     jc, jj = jtopo.churn_masks(jax.random.PRNGKey(seed), jnp.asarray(alive),
                                crash_rate, rejoin_rate)
-    tc, tj = ttopo.churn_masks(trandom.PRNGKey(seed), torch.from_numpy(alive),
+    tc, tj = ttopo.churn_masks(trandom.PRNGKey(seed, device="cpu"),
+                               torch.from_numpy(alive),
                                crash_rate, rejoin_rate)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tj.numpy(), np.asarray(jj))
