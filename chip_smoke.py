@@ -75,10 +75,41 @@ Phases (any failure exits non-zero before the last line is printed):
 17. main path B: ``SimConfig.suspicion_rr(16_384)`` (random edges F = 14,
     all-int8) for 100 rounds under 1 % crash and 1 % rejoin churn: exactly
     100 K5 launches and no other kernel's; rounds/s, peak memory and the
-    profiled stage split.
+    profiled stage split;
+18. K1 (``fanout_max_merge``) against plain: int8, int16 and int32 views at
+    N = 16,384, F = 14, and a ragged N = 1,030, F = 5; every entry equal;
+    kernel, plain and byte-bound times (int8);
+19. K3's explicit-edge (F = 14) and plain-arc (F = 16, align 1) forms
+    against plain, one round at N = 16,384, crash-only, suspicion and
+    suspicion + Lifeguard: every output equal; times, bounds and the
+    profiled split between the two launches; K5's suspicion-off time at
+    phase 14's all-int8 shape;
+20. 20-round lean scans, kernel against plain: ``packed_rr``,
+    ``suspicion_rr`` with and without the Lifeguard lane, plain arcs and
+    ``headline(arc_align=4)`` (aligned bases the kernel takes as plain
+    arcs); lanes, carry and all six metrics bit-equal;
+21. main path C: ``SimConfig.packed_rr(16_384)`` (random edges F = 14) for
+    100 rounds, 1 % crash churn, 8 tracked crashes at round 3, through
+    ``run_rounds`` on the lean loop: exactly 100 K3 launches and no other
+    kernel's; rounds/s, K3 ms per round, host ms, TTD, FPR and the
+    profiled device split; then the same run through the separate-pass
+    loop (K5): equal final lanes, carry, metrics and report, and its
+    rounds/s beside;
+22. capacity frontier: ``python -m gossipfs_tpu_torch.frontier`` at its
+    defaults (N = 65,536, F = 16, 20 rounds): rounds/s and peak memory,
+    which must stay under 40 GiB;
+23. ``PackedDetector`` at the CLI's capacity point N = 49,152: advance 3,
+    crash, advance 8, join, advance 10: the detection lands at crash +
+    t_fail, the joiner is alive; ms per advance and for the advance that
+    joins; at N = 16,384 the same script's lanes equal ``run_rounds`` with
+    the same scheduled events;
+24. ``SimDetector`` on config 3 (N = 10,240): two rounds, two crashes,
+    then ``advance_bulk(60, snapshot_every=10)`` against
+    ``advance_bulk(60)`` (equal state and events), then an interactive
+    stretch whose crash lands at crash + t_fail.
 
-The last three lines printed are the kernels JSON, the ``nvidia-smi`` name
-and power limit, and the device JSON.
+The last three lines printed are the kernels JSON (five kernels), the
+``nvidia-smi`` name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -980,6 +1011,486 @@ def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
                               kernel_ms=kernel_ms)
     stage_split(cfg, 10, kw, wall / rounds * 1e3)
 
+def phase_k1(results: dict) -> None:
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import fanout_max as fx
+
+    rng = np.random.default_rng(SEED + 18)
+    err = 0
+    timing = None
+    for n, f in ((N_MAIN, 14), (1_030, 5)):
+        edges = torch.from_numpy(
+            rng.integers(0, n, (n, f)).astype(np.int32)).cuda()
+        for dt in (np.int8, np.int16, np.int32):
+            # gossip views lie in [-1, window]; draw below -1 too, where
+            # the kernel (no floor) and the JAX XLA oracle part
+            view = torch.from_numpy(
+                rng.integers(-3, 127, (n, n)).astype(dt)).cuda()
+            got = fx.fanout_max_merge(view, edges)
+            want = fx.fanout_max_merge_plain(view, edges)
+            torch.cuda.synchronize()
+            err = max(err, diff_report((f"out {dt.__name__}, N={n}, F={f}",),
+                                       (got,), (want,)))
+            if n == N_MAIN and dt is np.int8:
+                timing = (view, edges)
+            del view, got, want
+    # tolerance 0: integer outputs
+    if err:
+        raise AssertionError("K1 != plain")
+    log("  K1 == plain bit for bit on every dtype and shape (tolerance 0)")
+    view, edges = timing
+    run_k = lambda: fx.fanout_max_merge(view, edges)  # noqa: E731
+    run_p = lambda: fx.fanout_max_merge_plain(view, edges)  # noqa: E731
+    run_k()
+    run_p()
+    kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
+    plain_ms = cuda_ms(run_p, 3)
+    kernel_ms.append(cuda_ms(run_k, 20))
+    # view read once, edges read once, the output written once
+    floor_bytes = 2 * view.numel() * view.element_size() + edges.numel() * 4
+    results["k1"] = dict(max_abs_err=err, ms=min(kernel_ms),
+                         ms_runs=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3)
+    log(f"  int8 N={N_MAIN}, F=14: kernel {min(kernel_ms):.4f} ms (runs "
+        f"{kernel_ms}), plain {plain_ms:.3f} ms, byte bound "
+        f"{results['k1']['bound_ms']:.4f} ms ({floor_bytes} B)")
+
+
+def launch_split(fn, reps: int) -> dict:
+    """Device time of each CUDA kernel ``fn`` launches, by kernel name,
+    under ``torch.profiler`` over ``reps`` calls: ``{name: (ms in all,
+    launches the profiler saw)}``.  The profiler may miss the records of
+    the last launches before it stops, so a caller divides by the
+    launches seen where it wants ms per launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            # "void (anonymous namespace)::rr_merge_kernel<...>(...)" ->
+            # "rr_merge_kernel"
+            name = (e.key.split("<")[0].split("::")[-1].split("(")[0].strip()
+                    or e.key)
+            ms, seen = out.get(name, (0.0, 0))
+            out[name] = (ms + e.self_device_time_total / 1e3,
+                         seen + e.count)
+    return out
+
+
+def phase_k3_forms(n: int, results: dict) -> None:
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    rng = np.random.default_rng(SEED + 19)
+    edges = torch.from_numpy(rng.integers(0, n, (n, 14)).astype(np.int32)).cuda()
+    bases = torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).cuda()
+    forms = {"edges": (edges, dict()),
+             "arc": (bases, dict(fanout=16, arc_align=1))}
+    names = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
+             "entered", "refuted", "held", "suspect_cnt")
+    sus_inputs = suspicion_round_inputs(n, SEED + 13)
+    modes = {"crash-only": (random_round_inputs(n, SEED), dict(t_fail=5)),
+             "suspicion": (sus_inputs,
+                           dict(t_fail=3, suspect=True, t_suspect=2)),
+             "suspicion + lh": (sus_inputs,
+                                dict(t_fail=3, suspect=True, t_suspect=2,
+                                     lh_multiplier=3))}
+    err = 0
+    for form, (senders, fkw) in forms.items():
+        for mode, ((hb, asl, flags, vecs, _), mkw) in modes.items():
+            kw = dict(fkw, t_cooldown=12, **mkw)
+            got = merge.resident_round(hb.clone(), asl.clone(), flags, vecs,
+                                       senders, **kw)
+            want = merge.resident_round_plain(hb.clone(), asl.clone(), flags,
+                                              vecs, senders, **kw)
+            torch.cuda.synchronize()
+            log(f"  {form} form, {mode}: {len(got)} outputs, detections "
+                f"{int(got[3].sum())}")
+            err = max(err, diff_report(names, got, want))
+    # tolerance 0: integer outputs
+    if err:
+        raise AssertionError("K3 explicit-edge / plain-arc form != plain")
+    log("  K3 explicit-edge and plain-arc forms == plain bit for bit "
+        "(tolerance 0)")
+    # times: the main path C form (edges, crash-only), its suspicion form,
+    # and the plain-arc form, with the split between the two launches
+    for key, form, mode in (("k3_edges", "edges", "crash-only"),
+                            ("k3_edges_sus", "edges", "suspicion"),
+                            ("k3_arc", "arc", "crash-only")):
+        senders, fkw = forms[form]
+        (hb, asl, flags, vecs, _), mkw = modes[mode]
+        kw = dict(fkw, t_cooldown=12, **mkw)
+        h2, a2 = hb.clone(), asl.clone()
+        run_k = lambda: merge.resident_round(h2, a2, flags, vecs, senders, **kw)  # noqa: E731
+        run_p = lambda: merge.resident_round_plain(h2, a2, flags, vecs, senders, **kw)  # noqa: E731
+        run_k()
+        run_p()
+        kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
+        plain_ms = cuda_ms(run_p, 3)
+        kernel_ms.append(cuda_ms(run_k, 20))
+        # K3's two kernels, ms per launch as the profiler saw them
+        split = {k: (ms / seen, seen) for k, (ms, seen)
+                 in launch_split(run_k, 10).items() if k.startswith("rr_")}
+        outs = 4 + (3 if mode != "crash-only" else 0)
+        floor_bytes = (4 * n * n + n * (1 + 11) + senders.numel() * 4
+                       + outs * 4 * n)
+        results[key] = dict(max_abs_err=err, ms=min(kernel_ms),
+                            ms_runs=kernel_ms, plain_ms=plain_ms,
+                            bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3,
+                            split=split)
+        both = sum(ms for ms, _ in split.values())
+        parts = ", ".join(f"{k} {ms:.4f} ms ({ms / both:.1%}; {seen} of 10 "
+                          "launches seen)"
+                          for k, (ms, seen) in sorted(split.items()))
+        log(f"  {form} form, {mode}: kernel {min(kernel_ms):.4f} ms (runs "
+            f"{kernel_ms}), plain {plain_ms:.3f} ms, byte bound "
+            f"{results[key]['bound_ms']:.4f} ms ({floor_bytes} B); per "
+            f"launch under the profiler: {parts}")
+    # the K5 row's suspicion-off time, at phase 14's all-int8 shape
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    view, edges5, _, hb, asl, sa, sb, alive = merge_inputs(
+        N_MAIN, 14, np.int8, np.int8, SEED + 17 + N_MAIN, statuses=4)
+    results["k5_off"] = dict(max_abs_err=0)
+    log("  K5 at phase 14's all-int8 shape, suspicion off, stats off:")
+    time_merge(mu.stripe_merge_update, mu.stripe_merge_update_plain,
+               (view, edges5, hb, asl, sa, sb, alive),
+               dict(detect_stats=False, suspect=False), results, "k5_off")
+
+
+def lean_scan_configs():
+    import dataclasses
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.suspicion import SuspicionParams
+
+    lh = SuspicionParams(t_suspect=3, lh_multiplier=4, lh_frac=0.015625)
+    return [
+        ("packed_rr", SimConfig.packed_rr(N_MAIN), "edges"),
+        ("suspicion_rr", SimConfig.suspicion_rr(N_MAIN), "edges"),
+        ("suspicion_rr, Lifeguard t3 m4 1/64",
+         SimConfig.suspicion_rr(N_MAIN, suspicion=lh), "edges"),
+        ("plain arcs", dataclasses.replace(
+            SimConfig.packed_rr(N_MAIN), topology="random_arc", fanout=16),
+         "arc"),
+        ("headline(arc_align=4)", SimConfig.headline(N_MAIN, arc_align=4),
+         "arc"),
+    ]
+
+
+def phase_lean_scans(rounds: int) -> None:
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import route, run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
+
+    for label, cfg, form in lean_scan_configs():
+        if route(cfg) != ("lean", form):
+            raise AssertionError(f"{label}: routed {route(cfg)}")
+        out = {}
+        for plain in (False, True):
+            key = trandom.PRNGKey(7, device="cuda")
+            merge.reset_launch_counts()
+            out[plain] = run_rounds(init_state(cfg), cfg, rounds, key,
+                                    crash_rate=0.02, plain=plain)
+            want = {k: (rounds if k == "resident_round" and not plain else 0)
+                    for k in merge.LAUNCH_COUNTS}
+            if merge.LAUNCH_COUNTS != want:
+                raise AssertionError(f"{label}: launched "
+                                     f"{merge.LAUNCH_COUNTS}")
+        torch.cuda.synchronize()
+        (sk, ck, mk), (sp, cp, mp) = out[False], out[True]
+        pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
+                 ("alive", sk.alive, sp.alive),
+                 ("hb_base", sk.hb_base, sp.hb_base)]
+        pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
+        pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
+        bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: kernel scan != plain scan in "
+                                 f"{bad}")
+        log(f"  {label} (N={cfg.n}, {form} form), {rounds} rounds at 2% "
+            f"crash: lanes, carry and metrics bit-equal (detections "
+            f"{int(mk.true_detections.sum())}, false positives "
+            f"{int(mk.false_positives.sum())}, suspects entered "
+            f"{int(mk.suspects_entered.sum())}, alive {int(mk.n_alive[-1])})")
+
+
+def lean_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
+    """Device ms per round of the lean loop by CUDA kernel name under
+    ``torch.profiler`` over ``rounds`` rounds from a fresh state: K3's two
+    launches and everything else (edge and churn draws, flags, the
+    threshold stack, the carry), beside the device's busy ms per round and
+    its share of ``round_ms`` (the unprofiled round)."""
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+
+    state = init_state(cfg)
+    key = trandom.PRNGKey(3, device="cuda")
+    state, _, _ = run_rounds(state, cfg, 2, key, **run_kw)   # warm-up
+    raw = launch_split(lambda: run_rounds(state, cfg, rounds, key, **run_kw),
+                       1)
+    split = {k: ms / rounds for k, (ms, _) in raw.items()}
+    # K3 launches two kernels a round
+    seen = sum(n for k, (_, n) in raw.items() if k.startswith("rr_"))
+    k3 = {k: v for k, v in split.items() if k.startswith("rr_")}
+    other = sum(v for k, v in split.items() if not k.startswith("rr_"))
+    busy = sum(split.values())
+    top = sorted(((v, k) for k, v in split.items()
+                  if not k.startswith("rr_")), reverse=True)[:4]
+    log(f"  device ms per round ({rounds} profiled rounds): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(k3.items()))
+        + f", everything else {other:.4f} (largest: "
+        + ", ".join(f"{k[:40]} {v:.4f}" for v, k in top)
+        + f"); busy {busy:.4f} ms per round, {busy / round_ms:.1%} of the "
+        f"unprofiled {round_ms:.4f} ms round; the profiler saw {seen} of "
+        f"{2 * rounds} K3 kernel launches")
+    return dict(k3, other_ms=other, busy_ms=busy)
+
+
+def phase_packed_main(results: dict) -> None:
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.bench import tracked_crash_events
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core import rounds as R
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.ops import merge
+
+    cfg = SimConfig.packed_rr(N_MAIN)
+    rounds = 100
+    events, crash_rounds, churn_ok = tracked_crash_events(cfg, rounds, 8, 3)
+    kw = dict(events=events, crash_rate=0.01, churn_ok=churn_ok,
+              crash_only_events=True)
+    if R.route(cfg) != ("lean", "edges"):
+        raise AssertionError(f"main path C routed {R.route(cfg)}")
+    # the lean loop, through run_rounds, counts zeroed just before
+    state = init_state(cfg)
+    key = trandom.PRNGKey(0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    with merge.record_launch_events() as evs:
+        final, carry, per_round = R.run_rounds(state, cfg, rounds, key, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(merge.LAUNCH_COUNTS)
+    want = {k: (rounds if k == "resident_round" else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"main path C launched {launches}, want {want}")
+    kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / rounds
+    peak = torch.cuda.max_memory_allocated()
+    round_ms = wall / rounds * 1e3
+    rep = summarize(carry, per_round, crash_rounds)
+    ttd = sorted(rep.ttd_first.values())
+    log(f"  lean loop: {rounds} rounds in {wall:.4f} s, {rounds / wall:.2f} "
+        f"rounds/s; whole round {round_ms:.4f} ms, K3 {kernel_ms:.4f} "
+        f"ms/round (CUDA events around each launch), host and the rest "
+        f"{round_ms - kernel_ms:.4f} ms; peak memory {peak / 2**30:.3f} GiB")
+    log(f"  launches {launches}")
+    log(f"  tracked ttd_first {ttd}, ttd_converged "
+        f"{sorted(rep.ttd_converged.values())}; FPR "
+        f"{rep.false_positive_rate:.3e} ({rep.false_positives} false "
+        f"positives), true detections {rep.true_detections}, final alive "
+        f"{rep.final_alive}")
+    if min(ttd) < 1 or max(ttd) > 3 * cfg.t_fail:
+        raise AssertionError(f"tracked crashes detected at {ttd}")
+    if rep.false_positive_rate > 1e-3 or not 0 < rep.final_alive < cfg.n:
+        raise AssertionError("main path C output out of range")
+    results["main_c"] = dict(launches=launches["resident_round"],
+                             fanout_max_launches=launches["fanout_max_merge"],
+                             rounds_per_s=rounds / wall, kernel_ms=kernel_ms,
+                             round_ms=round_ms)
+    lean_split(cfg, 10, dict(crash_rate=0.01), round_ms)
+    # the same run through the separate-pass loop (K5): the same function,
+    # so equal outputs, at the separate-pass round's cost
+    gstate = init_state(cfg)
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    gfinal, gcarry, gper = R._run_general(
+        gstate, cfg, rounds, key, events, 0.01, 0.0, churn_ok, None, False,
+        False)
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    glaunch = dict(merge.LAUNCH_COUNTS)
+    pairs = [("hb", final.hb, gfinal.hb), ("asl", final.asl, gfinal.asl),
+             ("alive", final.alive, gfinal.alive),
+             ("hb_base", final.hb_base, gfinal.hb_base)]
+    pairs += [(f, getattr(carry, f), getattr(gcarry, f))
+              for f in carry._fields]
+    pairs += [(f, getattr(per_round, f), getattr(gper, f))
+              for f in per_round._fields]
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    grep = summarize(gcarry, gper, crash_rounds)
+    if bad or grep.as_dict() != rep.as_dict():
+        raise AssertionError(f"lean != separate-pass in {bad}")
+    log(f"  separate-pass loop on the same run: {rounds / gwall:.2f} "
+        f"rounds/s ({gwall / rounds * 1e3:.4f} ms a round, launches "
+        f"{glaunch}); final lanes, carry, metrics and report equal to the "
+        f"lean loop's (TTD {sorted(grep.ttd_first.values())}, FPR "
+        f"{grep.false_positive_rate:.3e})")
+    results["main_c"]["separate_rounds_per_s"] = rounds / gwall
+
+
+def phase_frontier() -> None:
+    import torch
+
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, "-m", "gossipfs_tpu_torch.frontier"],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"frontier failed:\n{out.stderr[-4000:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    peak = doc["peak_memory_bytes"]
+    log(f"  N={doc['n_padded']}, fanout {doc['fanout']}, {doc['rounds']} "
+        f"rounds: {doc['rounds_per_sec']:.3f} rounds/s "
+        f"({doc['seconds_per_round'] * 1e3:.4f} ms a round); peak memory "
+        f"{peak / 2**30:.3f} GiB; detected {doc['detected']} of "
+        f"{doc['tracked_crashes']}, TTD median {doc['ttd_first_median']}, "
+        f"FPR {doc['false_positive_rate']:.3e} ({doc['device']})")
+    if peak >= 40 * 2**30:
+        raise AssertionError(f"frontier peak {peak / 2**30:.3f} GiB >= 40")
+    if doc["detected"] != doc["tracked_crashes"] or doc["n"] != N_CAPACITY:
+        raise AssertionError(f"frontier output out of range: {doc}")
+
+
+def packed_session(n: int, node: int, timed: bool = False):
+    """The PackedDetector script: advance 3, crash ``node``, advance 8,
+    join it, advance 10.  Returns (detector, events, ms per quiet advance,
+    ms of the advance that joins)."""
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.detector.sim import PackedDetector
+
+    def step(d):
+        t0 = time.perf_counter()
+        d.advance(1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    d = PackedDetector(SimConfig.packed_rr(n), seed=3)
+    d.advance(3)
+    d.crash(node)
+    d.advance(8)
+    events = d.drain_events()
+    d.join(node)
+    join_ms = step(d)
+    quiet = [step(d) for _ in range(9)]
+    return d, events, min(quiet) if timed else None, join_ms
+
+
+def phase_packed_detector(n_cap: int, node: int = 4_097) -> None:
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import RoundEvents, init_state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    d, events, adv_ms, join_ms = packed_session(n_cap, node, timed=True)
+    mine = [e for e in events if e.subject == node]
+    cfg = d.config
+    if (len(mine) != 1 or mine[0].round != 3 + cfg.t_fail
+            or mine[0].false_positive or node not in d.alive_nodes()
+            or d.round != 21):
+        raise AssertionError(f"PackedDetector session out of range: {mine}")
+    log(f"  N={n_cap}, fanout {cfg.fanout}: crash of {node} at round 3 "
+        f"detected at round {mine[0].round} by observer {mine[0].observer} "
+        f"({len(events)} events in all); the joiner is alive; quiet "
+        f"advance {adv_ms:.4f} ms, advance with a join {join_ms:.4f} ms; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del d
+    torch.cuda.empty_cache()
+    # N = 16,384: the same script against run_rounds with the scheduled
+    # matrix events (crash at round 3, join at round 11)
+    d, _, _, _ = packed_session(N_MAIN, node)
+    cfg = SimConfig.packed_rr(N_MAIN)
+    ev = RoundEvents.none(21, N_MAIN)
+    ev = RoundEvents(ev.crash.clone(), ev.leave, ev.join.clone())
+    ev.crash[3, node] = True
+    ev.join[11, node] = True
+    final, _, _ = run_rounds(init_state(cfg), cfg, 21,
+                             trandom.PRNGKey(3, device="cuda"), events=ev)
+    lanes = d.lanes()
+    bad = [k for k in ("hb", "asl", "alive", "hb_base")
+           if not torch.equal(getattr(final, k), getattr(lanes, k))]
+    if bad:
+        raise AssertionError(f"PackedDetector != run_rounds in {bad}")
+    log(f"  N={N_MAIN}: the same script's lanes, liveness and bases equal "
+        "run_rounds with the scheduled crash and join")
+
+
+def phase_sim_detector() -> None:
+    import torch
+
+    from gossipfs_tpu_torch.detector.sim import SimDetector
+    from gossipfs_tpu_torch.models.presets import ALL
+
+    cfg = ALL["sim-10k-crash"].config
+    dets, secs = [], []
+    for every in (None, 10):
+        d = SimDetector(cfg, seed=1)
+        # a node that never sent a heartbeat is never detected: crash
+        # after two rounds, as the JAX package's detector tests do
+        d.advance(2)
+        d.crash(5)
+        d.crash(300)
+        t0 = time.perf_counter()
+        buf = d.advance_bulk(60, snapshot_every=every)
+        events = d.drain_events()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        dets.append((d, events, buf))
+    (one, ev1, _), (chunked, ev2, buf) = dets
+    bad = [k for k in ("hb", "asl", "alive", "hb_base")
+           if not torch.equal(getattr(one.state, k), getattr(chunked.state, k))]
+    snap = buf.latest()
+    subjects = sorted({e.subject for e in ev1})
+    if (bad or ev1 != ev2 or subjects[:1] != [5] or 300 not in subjects
+            or snap.round != 62 or one.state.round != 62):
+        raise AssertionError(
+            f"advance_bulk with snapshots != one bulk call: lanes differ in "
+            f"{bad}, {len(ev1)} vs {len(ev2)} events, subjects {subjects}, "
+            f"snapshot round {snap.round}")
+    log(f"  config 3 (N={cfg.n}): advance_bulk(60) {secs[0]:.3f} s, with "
+        f"snapshot_every=10 {secs[1]:.3f} s: equal state and "
+        f"{len(ev1)} equal events (subjects {subjects}); latest snapshot "
+        f"round {snap.round}")
+    chunked.crash(7)
+    t0 = time.perf_counter()
+    chunked.advance(8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 8 * 1e3
+    mine = [e for e in chunked.drain_events() if e.subject == 7]
+    if not mine or mine[0].round != 62 + cfg.t_fail:
+        raise AssertionError(f"interactive stretch: {mine}")
+    log(f"  interactive: crash of 7 at round 62 detected at round "
+        f"{mine[0].round} by observer {mine[0].observer}; {ms:.4f} ms per "
+        "advance")
+
 
 def kernel_line(name: str, source: str, replaces: str, launches: int,
                 r: dict) -> dict:
@@ -1047,6 +1558,25 @@ def main() -> int:
     log(f"[17] main path B: suspicion_rr, N={N_MAIN}, 1% crash, 1% rejoin, "
         "100 rounds")
     phase_suspicion_rr_main(results, 100)
+    log(f"[18] K1 fanout_max_merge vs plain, N={N_MAIN} and ragged")
+    phase_k1(results)
+    log(f"[19] K3 explicit-edge and plain-arc forms vs plain, one round, "
+        f"N={N_MAIN}")
+    phase_k3_forms(N_MAIN, results)
+    log("[20] lean run_rounds, kernel vs plain, 20 rounds: packed_rr, "
+        "suspicion_rr (lh off, on), plain arcs, headline(arc_align=4)")
+    phase_lean_scans(20)
+    log(f"[21] main path C: packed_rr, N={N_MAIN}, 1% crash, 8 tracked "
+        "crashes, 100 rounds")
+    phase_packed_main(results)
+    log(f"[22] capacity frontier: python -m gossipfs_tpu_torch.frontier "
+        f"(N={N_CAPACITY}, 20 rounds)")
+    phase_frontier()
+    log("[23] PackedDetector: N=49152 session, N=16384 against run_rounds")
+    phase_packed_detector(49_152)
+    log("[24] SimDetector: config 3, advance_bulk with and without "
+        "snapshots, interactive")
+    phase_sim_detector()
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     print(json.dumps({"kernels": [
@@ -1059,6 +1589,11 @@ def main() -> int:
         kernel_line("stripe_merge_update", src + "stripe_merge.cu",
                     mp + "998", results["k5_main"]["launches"],
                     results["k5"]),
+        # only tests call K1 (in both packages): its gather runs on the
+        # main path inside K3's explicit-edge form, so main path C's run
+        # launches it no time
+        kernel_line("fanout_max_merge", src + "fanout_max.cu", mp + "146",
+                    results["main_c"]["fanout_max_launches"], results["k1"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

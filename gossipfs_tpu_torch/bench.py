@@ -38,24 +38,29 @@ ROUNDS = 100
 CRASH_RATE = 0.01
 
 
-def tracked_victims(n: int, track: int, introducer: int = 0) -> list[int]:
-    """``track`` crash victims spread evenly over the ids, skipping the
-    introducer (the JAX package's bench/run.py derivation)."""
-    track = min(track, n - 1)
-    stride = max(n // (track + 1), 1)
-    nodes = [(introducer + (k + 1) * stride) % n for k in range(track)]
+def tracked_victims(n: int, track: int, introducer: int = 0,
+                    n_live: int | None = None) -> list[int]:
+    """``track`` crash victims spread evenly over the live ids (the first
+    ``n_live``, default all ``n``), skipping the introducer (the JAX
+    package's bench/run.py derivation)."""
+    live = n if n_live is None else n_live
+    track = min(track, live - 1)
+    stride = max(live // (track + 1), 1)
+    nodes = [(introducer + (k + 1) * stride) % live for k in range(track)]
     return sorted({x for x in nodes if x != introducer})
 
 
 def tracked_crash_events(cfg: SimConfig, rounds: int, track: int, at: int,
-                         device="cuda"):
+                         device="cuda", n_live: int | None = None):
     """Schedule ``track`` deterministic crashes at round ``at``.
 
     Returns (RoundEvents [rounds, N], {node: crash_round}, churn_ok): the
     churn mask keeps the tracked nodes and the introducer out of random
-    churn, as the JAX package's bench does."""
+    churn, as the JAX package's bench does.  ``n_live``: the live cohort of
+    a padded configuration (gossipfs_tpu_torch.frontier): the victims come
+    from its ids and the dead pad ids past it stay out of churn too."""
     n = cfg.n
-    nodes = tracked_victims(n, track, cfg.introducer)
+    nodes = tracked_victims(n, track, cfg.introducer, n_live)
     at = min(at, rounds - 1)
     crash = torch.zeros((rounds, n), dtype=torch.bool, device=device)
     crash[at, nodes] = True
@@ -63,6 +68,8 @@ def tracked_crash_events(cfg: SimConfig, rounds: int, track: int, at: int,
     churn_ok = torch.ones((n,), dtype=torch.bool, device=device)
     churn_ok[nodes] = False
     churn_ok[cfg.introducer] = False
+    if n_live is not None:
+        churn_ok[n_live:] = False
     return (RoundEvents(crash=crash, leave=zeros, join=zeros),
             {node: at for node in nodes}, churn_ok)
 

@@ -8,8 +8,10 @@ admissibility checks (VMEM budgets, stripe widths): they describe TPU
 layout, not the protocol.  The tiling knobs (``merge_block_*``,
 ``merge_slots``, ``rr_*``) and ``elementwise`` are kept so configurations
 line up, and the port's round loop ignores them.  Of ``merge_kernel`` the
-port reads one thing: a ``pallas_stripe*``/``pallas_rr*`` value sends the
-explicit-edge rounds to the stripe kernel K5 (core/rounds._merge).
+port reads the family: a ``pallas_rr*`` value sends crash-only rounds of
+random edges and arcs to the lean loop (core/rounds._lean_ok), and a
+``pallas_stripe*``/``pallas_rr*`` value sends the separate-pass loop's
+explicit-edge rounds to the stripe kernel K5 (core/rounds.merge_kernel).
 
 Reference constants (the Go implementation this system models):
   heartbeat period 1 s  -> 1 round == 1 s of simulated time
@@ -216,7 +218,9 @@ class SimConfig:
                   interpret: bool = False, **overrides) -> "SimConfig":
         """The resident-round capacity profile (random fanout log2 N,
         gossip-only with fresh cooldown, all-int8 lanes), field for field
-        the JAX package's.  Its explicit-edge rounds run K5 on the card."""
+        the JAX package's.  Its crash-only rounds run the lean loop on the
+        resident round's explicit-edge form; rounds with joins run the
+        separate-pass round on K5."""
         kw = dict(
             n=n, topology="random", fanout=cls.log_fanout(n),
             remove_broadcast=False, fresh_cooldown=True, t_cooldown=12,

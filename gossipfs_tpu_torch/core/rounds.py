@@ -1,27 +1,33 @@
 """The round loops: ``run_rounds`` and the single-round ``gossip_round``.
 
-Two loops, picked from the configuration and the fault model:
+Two loops, picked from the configuration and the fault model
+(:func:`route`):
 
 * the LEAN loop, the port of the JAX package's rr scan
-  (``core/rounds.py: _scan_rounds_rr_packed``) for its headline profile:
-  aligned ``random_arc`` gossip, gossip-only dissemination with fresh
-  cooldown, all-int8 lanes, and no matrix events (crash-stop faults only),
-  with or without the SWIM lifecycle and its Lifeguard lane.  Each round
+  (``core/rounds.py: _scan_rounds_rr_packed``) for its production
+  profiles: gossip-only dissemination with fresh cooldown, all-int8 lanes
+  and no matrix events (crash-stop faults only), with or without the SWIM
+  lifecycle and its Lifeguard lane, over the aligned-arc headline topology
+  or, under a ``pallas_rr`` merge kernel, over explicit random edges
+  (``SimConfig.packed_rr``/``suspicion_rr``) and plain arcs.  Each round
   is one call of the resident round (ops/merge.resident_round), which
   ticks, builds the gossip view, merges and reduces in place over the
-  packed lanes.  The randomness of the whole horizon is drawn in one
-  batched pass before the loop, and the per-round metrics stay on the
-  device until the end.
+  packed lanes.  Arc bases and churn draws for the whole horizon come in
+  one batched pass before the loop, explicit edges one round at a time,
+  and the per-round metrics stay on the device until the end.
+  :func:`run_lean_packed` is the loop's core, which takes and returns the
+  carried per-receiver counts (the detectors thread them between calls).
 * the SEPARATE-PASS loop, the port of the JAX package's general scan
   (``_scan_rounds`` off the rr path, with ``_round_core``), for everything
-  else: ring and random edges, plain arcs, int16/int32 lanes, REMOVE
-  broadcast, the reference cooldown, rounds with matrix events (LEAVE
-  broadcast, joins through the introducer), each with or without
-  suspicion.  Each round runs the events, the tick and the gossip-view
-  build as PyTorch stages over row chunks of the lanes, in place, then one
-  merge kernel (ops/merge_update), picked by :func:`merge_kernel`: K4 for
-  arcs, K5 for the explicit edges of ``pallas_stripe``/``pallas_rr``
-  configurations it admits, K2 for the other explicit edges.
+  else: ring edges, the other merge kernels' random edges and arcs,
+  int16/int32 lanes, REMOVE broadcast, the reference cooldown, rounds
+  with matrix events (LEAVE broadcast, joins through the introducer), each
+  with or without suspicion.  Each round runs the events, the tick and the
+  gossip-view build as PyTorch stages over row chunks of the lanes, in
+  place, then one merge kernel (ops/merge_update), picked by
+  :func:`merge_kernel`: K4 for arcs, K5 for the explicit edges of
+  ``pallas_stripe``/``pallas_rr`` configurations it admits, K2 for the
+  other explicit edges.
 
 Both loops replay the JAX package bit for bit: the same threefry keys per
 round (``k = fold_in(key, round)``, ``(k_edge, k_churn) = split(k)``) and
@@ -170,10 +176,33 @@ def _require_ported(scenario) -> None:
 
 
 def _lean_ok(config: SimConfig, matrix_events: bool) -> bool:
-    """Whether ``run_rounds`` takes the lean resident-round loop."""
-    return (config.topology == "random_arc" and config.arc_align > 1
-            and config.hb_dtype == "int8" and config.fresh_cooldown
-            and not config.remove_broadcast and not matrix_events)
+    """Whether ``run_rounds`` takes the lean resident-round loop: the JAX
+    package's rr gate (``_use_rr``, less its TPU admissibility: a
+    ``pallas_rr`` merge kernel, ``fused_tick="auto"``, random edges or
+    arcs) or the aligned-arc headline profile, each with all-int8 lanes,
+    fresh cooldown, no REMOVE broadcast and no matrix events.  The CUDA
+    resident round takes ``N % 4 == 0``, so a ragged N runs the
+    separate-pass round (same outputs)."""
+    if (matrix_events or config.hb_dtype != "int8"
+            or not config.fresh_cooldown or config.remove_broadcast
+            or config.n % merge.KERNEL_VEC):
+        return False
+    if config.topology == "random_arc" and config.arc_align > 1:
+        return True
+    return (config.merge_kernel.startswith("pallas_rr")
+            and config.fused_tick == "auto"
+            and config.topology in ("random", "random_arc"))
+
+
+def route(config: SimConfig, matrix_events: bool = False) -> tuple[str, str]:
+    """The loop ``run_rounds`` takes and the kernel it launches on the
+    card, from the configuration alone: ``("lean", form)`` with the
+    resident round's merge form (ops/merge.kernel_form), or
+    ``("separate", name)`` with the merge kernel of :func:`merge_kernel`."""
+    if _lean_ok(config, matrix_events):
+        fanout = None if config.topology == "random" else config.fanout
+        return "lean", merge.kernel_form(fanout, config.arc_align)
+    return "separate", merge_kernel(config)
 
 
 def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
@@ -227,17 +256,56 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
 
 def _run_lean(state, config, num_rounds, key, events, crash_rate,
               rejoin_rate, churn_ok, mcarry0, matrix_events, plain):
-    n, dev = config.n, state.hb.device
-    sched = None
+    crash = None
     if events is not None:
-        sched = (events.crash | events.leave).to(device=dev, dtype=torch.bool)
+        # crash-only: a leave bit is a silent death
+        crash = events.crash | events.leave
+    hb, asl, alive, hb_base, rnd, _, _, mc, metrics = run_lean_packed(
+        state.hb, state.asl, state.alive, state.hb_base, int(state.round),
+        config, key, num_rounds, crash=crash, crash_rate=crash_rate,
+        churn_ok=churn_ok, mcarry0=mcarry0, plain=plain)
+    out = SimState(hb=hb, asl=asl, alive=alive, round=rnd, hb_base=hb_base)
+    return out, mc, metrics
 
-    # the horizon's randomness in one batched pass: per round
-    # k = fold_in(key, round), (k_edge, k_churn) = split(k)
-    r0 = int(state.round)
-    rnds = torch.arange(r0, r0 + num_rounds, dtype=torch.int64, device=dev)
+
+def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
+                    config: SimConfig, key: torch.Tensor, num_rounds: int,
+                    crash: torch.Tensor | None = None,
+                    crash_rate: float = 0.0,
+                    churn_ok: torch.Tensor | None = None,
+                    mcarry0: MetricsCarry | None = None,
+                    counts0: torch.Tensor | None = None,
+                    sus_counts0: torch.Tensor | None = None,
+                    plain: bool = False) -> tuple:
+    """The lean loop's core over the packed lanes (the JAX package's
+    ``_scan_rounds_rr_packed``), for a configuration :func:`_lean_ok`
+    admits.
+
+    ``hb``/``asl`` int8 ``[N, N]`` lanes, updated IN PLACE; ``alive0``,
+    ``hb_base0`` and ``round0`` the rest of the state; ``crash`` an
+    optional bool ``[num_rounds, N]`` schedule of silent deaths;
+    ``crash_rate``/``churn_ok`` random crash-stop churn.  ``counts0`` is
+    the carried per-receiver listed count and, on the Lifeguard lane,
+    ``sus_counts0`` the carried SUSPECT count: each round's post-merge
+    counts are the next round's pre-tick ones, so a caller that advances
+    round by round threads them back in; None recounts them from the
+    lanes (one ``[N, N]`` pass).  Returns (hb, asl, alive, hb_base, round,
+    counts, sus_counts, MetricsCarry, RoundMetrics), ``sus_counts`` None
+    off the Lifeguard lane."""
+    n, dev = config.n, hb.device
+    explicit = config.topology == "random"
+    if crash is not None:
+        crash = crash.to(device=dev, dtype=torch.bool)
+
+    # per round k = fold_in(key, round), (k_edge, k_churn) = split(k): arc
+    # bases and churn uniforms for the whole horizon in one batched pass,
+    # explicit [N, F] edges in blocks of rounds (a horizon of them at
+    # N = 16,384 would be hundreds of MB)
+    rnds = torch.arange(round0, round0 + num_rounds, dtype=torch.int64,
+                        device=dev)
     ks = trandom.split(trandom.fold_in(key.to(dev), rnds))
-    bases_all = topology.in_edges(config, ks[:, 0])          # int32 [R, N]
+    senders_all = (_edge_blocks(config, ks[:, 0]) if explicit
+                   else iter(topology.in_edges(config, ks[:, 0])))
     crash_u = None
     if crash_rate > 0.0:
         churn_keys = trandom.split(ks[:, 1])
@@ -246,35 +314,39 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
         if churn_ok is not None:
             churn_ok = churn_ok.to(device=dev, dtype=torch.bool)
 
-    hb, asl, alive = state.hb, state.asl, state.alive.to(torch.bool)
-    hb_base = state.hb_base.to(torch.int32)
+    alive = alive0.to(device=dev, dtype=torch.bool)
+    hb_base = hb_base0.to(device=dev, dtype=torch.int32)
     sus = config.suspicion
-    # the carried per-receiver listed counts (suspects included) and, on
-    # the Lifeguard lane, SUSPECT counts: each round's post-merge counts
-    # are the next round's pre-tick ones on this crash-only path
-    counts = member_counts(state, sus is not None)
     lh = sus is not None and sus.lh_multiplier > 0
+    lanes = SimState(hb=hb, asl=asl, alive=alive, round=round0,
+                     hb_base=hb_base)
+    counts = (counts0 if counts0 is not None
+              else member_counts(lanes, sus is not None))
+    sus_counts = None
     sus_kw = {}
     if sus is not None:
         sus_kw = dict(suspect=True, t_suspect=sus.t_suspect,
                       lh_multiplier=sus.lh_multiplier)
     if lh:
-        sus_counts = suspect_counts(state)
+        sus_counts = (sus_counts0 if sus_counts0 is not None
+                      else suspect_counts(lanes))
         lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32, device=dev)
     mc = mcarry0 if mcarry0 is not None else MetricsCarry.init(n, dev)
     round_fn = merge.resident_round_plain if plain else merge.resident_round
+    senders_kw = (dict() if explicit
+                  else dict(fanout=config.fanout, arc_align=config.arc_align))
     per_round = []
     for r in range(num_rounds):
-        crash = None
-        if sched is not None:
-            crash = sched[r]
+        dead = None
+        if crash is not None:
+            dead = crash[r]
         if crash_u is not None:
             c2 = alive & (crash_u[r] < rate)
             if churn_ok is not None:
                 c2 = c2 & churn_ok
-            crash = c2 if crash is None else crash | c2
-        if crash is not None:
-            alive = alive & ~crash
+            dead = c2 if dead is None else dead | c2
+        if dead is not None:
+            alive = alive & ~dead
         small = counts < config.min_group
         active = alive & ~small
         refresher = alive & small
@@ -290,10 +362,11 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
             # carried (pre-tick) counts, riding flags bit 4
             degraded = sus_counts.float() > lh_frac * counts.float()
             flags = flags + degraded.to(torch.int8) * 16
+        senders = next(senders_all)
         res = round_fn(
-            hb, asl, flags, vecs, bases_all[r], fanout=config.fanout,
-            arc_align=config.arc_align, t_fail=config.t_fail,
-            t_cooldown=config.t_cooldown, age_clamp=AGE_CLAMP, **sus_kw)
+            hb, asl, flags, vecs, senders, t_fail=config.t_fail,
+            t_cooldown=config.t_cooldown, age_clamp=AGE_CLAMP, **senders_kw,
+            **sus_kw)
         cnt_incl, n_det, first_obs, counts = res[2:6]
         any_sus = None
         if sus is not None:
@@ -306,14 +379,27 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
         # the diagonal is never SUSPECT: the MEMBER test is the listed one
         self_member = alive & ((torch.diagonal(asl) & 3) == MEMBER)
         member_col = cnt_incl - self_member.to(torch.int32)
-        mc = _update_carry(mc, alive, n_det > 0, first_obs, r0 + r,
+        mc = _update_carry(mc, alive, n_det > 0, first_obs, round0 + r,
                            member_col, any_suspect=any_sus)
         hb_base = store_base
 
-    metrics = _stack_metrics(per_round, dev)
-    out = SimState(hb=hb, asl=asl, alive=alive, round=r0 + num_rounds,
-                   hb_base=hb_base)
-    return out, mc, metrics
+    return (hb, asl, alive, hb_base, round0 + num_rounds, counts,
+            sus_counts, mc, _stack_metrics(per_round, dev))
+
+
+# explicit edges drawn per block of rounds: one batch of threefry ops for
+# up to this many edges (16 MB of int32, 32 MB per int64 temporary)
+EDGE_BLOCK = 1 << 22
+
+
+def _edge_blocks(config: SimConfig, keys: torch.Tensor):
+    """Each round's int32 ``[N, F]`` random in-edges for the edge keys
+    ``[R, 2]``, drawn a block of rounds at a time: the same draws as one
+    ``topology.in_edges`` call per round, with the draw's launches shared
+    by the block."""
+    per = max(1, EDGE_BLOCK // (config.n * config.fanout))
+    for r0 in range(0, keys.shape[0], per):
+        yield from topology.in_edges(config, keys[r0:r0 + per])
 
 
 def _stack_metrics(per_round: list, dev) -> RoundMetrics:

@@ -84,10 +84,12 @@ def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
     if member_mask is None:
         member_mask = torch.ones((n,), dtype=torch.bool, device=device)
     else:
-        # i knows j iff both are initial members
+        # i knows j iff both are initial members: the rows and columns of
+        # the others are unknown (two index writes, no [N, N] mask)
         member_mask = member_mask.to(device=device, dtype=torch.bool)
-        asl.masked_fill_(~(member_mask[:, None] & member_mask[None, :]),
-                         UNKNOWN - 128)
+        out = ~member_mask
+        asl[out] = UNKNOWN - 128
+        asl[:, out] = UNKNOWN - 128
     return SimState(
         hb=torch.zeros((n, n), dtype=HB_DTYPES[config.hb_dtype],
                        device=device),

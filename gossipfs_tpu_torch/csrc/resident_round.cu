@@ -1,12 +1,15 @@
-// One lean gossip round (tick, gossip view, aligned-arc merge and the
-// round's reductions) for NVIDIA Hopper (sm_90a).
+// One lean gossip round (tick, gossip view, merge and the round's
+// reductions) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel gossipfs_tpu/ops/merge_pallas.py
-// resident_round_blocked (:2611), in its aligned-arc forms: crash-only,
-// and with the SWIM lifecycle (suspect / confirm in the tick, refute in
-// the merge, the Lifeguard stretch as a per-row confirm threshold on
-// flags bit 4).  The function it computes is defined by the plain PyTorch
-// version, gossipfs_tpu_torch/ops/merge.py resident_round_plain.
+// resident_round_blocked (:2611) in three merge forms: aligned arcs of
+// 8-row sender groups, explicit [n, F] in-edges, and plain arcs (F
+// consecutive sender rows from a per-receiver base; aligned bases of any
+// other granularity take this form too); each crash-only and with the
+// SWIM lifecycle (suspect / confirm in the tick, refute in the merge, the
+// Lifeguard stretch as a per-row confirm threshold on flags bit 4).  The
+// function it computes is defined by the plain PyTorch version,
+// gossipfs_tpu_torch/ops/merge.py resident_round_plain.
 //
 // Bound.  The round is pure byte traffic plus small integer arithmetic:
 // the information floor reads and writes each packed lane once, 4 B per
@@ -37,6 +40,21 @@
 // limit: packing 4 subjects per 32-bit op (the JAX package's SWAR form) is
 // the next step to try.
 //
+// The explicit-edge and plain-arc forms (kFullView) run pass A with the
+// same 8-row blocks but write every sender row's encoded view, so G is the
+// whole view [N, N] int8 (5 B per entry instead of 4 1/8), and pass B
+// gathers each receiver's F sender rows through gather_rows.cuh (K1's
+// gather): edges[row, f] for explicit edges, (base + f) mod N for plain
+// arcs.  A dead receiver skips its gather: the epilogue is gated on its
+// alive bit, which is why explicit edges need no remap for dead
+// receivers (merge_pallas.py:2665-2666).  The F gathered rows of one
+// 1,024-column tile lie in that tile's view strip (16 MB at N = 16,384),
+// which the blocks in flight share through L2.  These forms move about
+// 10 B per entry (lanes twice each way, the view written once and read
+// once from device memory), 2.5x the floor.  The aligned-group form's
+// instantiations compile as before: kFullView and kForm are template
+// constants.
+//
 // The suspicion form (kSus) is the same two launches: pass A also counts
 // the entries that entered SUSPECT per subject (a bit per group row, like
 // the detections), pass B the refuted entries and the entries still
@@ -48,16 +66,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gather_rows.cuh"
 #include "rr_elem.cuh"
 
 namespace {
 
-constexpr int kAlign = 8;              // rows per sender group
+constexpr int kAlign = 8;              // rows per sender group (and per
+                                       // pass-A block)
 constexpr int kVec = 4;                // subjects per thread
 constexpr int kThreads = 256;
 constexpr int kTile = kVec * kThreads;  // columns per block
 constexpr int kRowsB = 32;             // receiver rows per merge block
 constexpr int kFobsUnset = 0x7F7F7F7F;  // memset(0x7F) sentinel
+
+// pass B's merge forms (rr_round's ``form``)
+enum { kFormGroup = 0, kFormEdges = 1, kFormArc = 2 };
 
 // kVec int8 lanes moved as one vector load/store
 template <int V> struct Word;
@@ -85,7 +108,9 @@ struct SusThr {
   int confirm, confirm_hi;
 };
 
-template <bool kSus>
+// kFullView: G is the whole view [n, n] (each row's encoded values), else
+// the 8-row group max [n/8, n]
+template <bool kSus, bool kFullView>
 __global__ void __launch_bounds__(kThreads)
 rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                     const int8_t* __restrict__ flags,
@@ -105,6 +130,8 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   // whose detector fired
   int gm[kVec];
   unsigned fired[kVec], ent[kVec];
+  // a ragged last block (n % 8 != 0) in the full-view form
+  const int rows = kFullView ? min(kAlign, n - grp * kAlign) : kAlign;
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     gm[k] = -128;
@@ -112,7 +139,7 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     ent[k] = 0;
   }
 #pragma unroll 1
-  for (int r = 0; r < kAlign; ++r) {
+  for (int r = 0; r < rows; ++r) {
     const int row = grp * kAlign + r;
     const int f = flags[row];
     const bool act = (f & 1) != 0;
@@ -121,6 +148,7 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     const size_t off = (size_t)row * n + col0;
     Bytes h = load_vec(hb + off);
     Bytes a = load_vec(asl + off);
+    Bytes venc;
     const int d = row - col0;  // the diagonal sits at k == d
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
@@ -147,16 +175,22 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
       a.b[k] = (int8_t)ta;
       const int enc = rr_view(th, elig, act, sa_n.b[k], sa_all.b[k],
                               hi_n.b[k]);
-      gm[k] = max(gm[k], enc);
+      if (kFullView)
+        venc.b[k] = (int8_t)enc;
+      else
+        gm[k] = max(gm[k], enc);
       fired[k] |= (unsigned)fail << r;
     }
     store_vec(hb + off, h);
     store_vec(asl + off, a);
+    if (kFullView) store_vec(gmax + off, venc);
   }
-  Bytes g;
+  if (!kFullView) {
+    Bytes g;
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) g.b[k] = (int8_t)gm[k];
-  store_vec(gmax + (size_t)grp * n + col0, g);
+    for (int k = 0; k < kVec; ++k) g.b[k] = (int8_t)gm[k];
+    store_vec(gmax + (size_t)grp * n + col0, g);
+  }
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     if (fired[k]) {
@@ -174,16 +208,20 @@ struct SusOut {
   int32_t* suspect_cnt;  // [n] per receiver (the Lifeguard lane)
 };
 
-template <bool kSus, bool kLh>
+// kForm: kFormGroup takes ``senders`` as arc bases (multiples of 8) and
+// ``width`` = F/8 groups of G[n/8, n]; kFormEdges takes ``senders`` as
+// int32 [n, width] in-edges and kFormArc as arc bases [n], ``width`` = F,
+// both over the whole view G[n, n].
+template <bool kSus, bool kLh, int kForm>
 __global__ void __launch_bounds__(kThreads)
 rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 const int8_t* __restrict__ flags,
                 const int8_t* __restrict__ vecs,
-                const int32_t* __restrict__ bases,
+                const int32_t* __restrict__ senders,
                 const int8_t* __restrict__ gmax,
                 int32_t* __restrict__ member_cnt,
                 int32_t* __restrict__ recv_cnt,
-                int32_t* __restrict__ first_obs, SusOut so, int n, int nw,
+                int32_t* __restrict__ first_obs, SusOut so, int n, int width,
                 int age_clamp) {
   const int row0 = blockIdx.x * kRowsB;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
@@ -213,14 +251,41 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     int sus_sum = 0;
     if (valid) {
       const bool recv = (flags[row] & 4) != 0;
-      const int g0 = bases[row] / kAlign;
-      Bytes best = load_vec(gmax + (size_t)g0 * n + col0);
-      for (int w = 1; w < nw; ++w) {
-        const int g = (g0 + w) % nb;
-        const Bytes o = load_vec(gmax + (size_t)g * n + col0);
+      Bytes best;
+      if (kForm == kFormGroup) {
+        const int g0 = senders[row] / kAlign;
+        best = load_vec(gmax + (size_t)g0 * n + col0);
+        for (int w = 1; w < width; ++w) {
+          const int g = (g0 + w) % nb;
+          const Bytes o = load_vec(gmax + (size_t)g * n + col0);
 #pragma unroll
-        for (int k = 0; k < kVec; ++k)
-          best.b[k] = (int8_t)max((int)best.b[k], (int)o.b[k]);
+          for (int k = 0; k < kVec; ++k)
+            best.b[k] = (int8_t)max((int)best.b[k], (int)o.b[k]);
+        }
+      } else {
+        // a dead receiver's best is never read (the epilogue is gated
+        // on recv), so it skips the gather
+        int bm[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) bm[k] = -1;
+        if (recv) {
+          if (kForm == kFormEdges) {
+            const int32_t* e = senders + (size_t)row * width;
+            gather_rows::gather_max<int8_t, kVec, true>(
+                gmax, n, col0, kVec, width, [e](int f) { return e[f]; }, bm);
+          } else {
+            const int base = senders[row];
+            gather_rows::gather_max<int8_t, kVec, true>(
+                gmax, n, col0, kVec, width,
+                [base, n](int f) {
+                  const int s = base + f;
+                  return s >= n ? s - n : s;
+                },
+                bm);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) best.b[k] = (int8_t)bm[k];
       }
       const size_t off = (size_t)row * n + col0;
       Bytes h = load_vec(hb + off);
@@ -277,26 +342,42 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   }
 }
 
-template <bool kSus, bool kLh>
+template <bool kSus, bool kLh, int kForm>
 cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
-                         const int8_t* vecs, const int32_t* bases,
+                         const int8_t* vecs, const int32_t* senders,
                          int8_t* gmax, int32_t* o, int n, int fanout,
                          int t_fail, int t_cooldown, SusThr sus,
                          int age_clamp, cudaStream_t s) {
+  constexpr bool kFull = kForm != kFormGroup;
   const int tiles = (n + kTile - 1) / kTile;
   const size_t nn = (size_t)n;
-  rr_tick_view_kernel<kSus><<<dim3(n / kAlign, tiles), kThreads, 0, s>>>(
-      hb, asl, flags, vecs, gmax, o + nn, o + 2 * nn,
-      kSus ? o + 4 * nn : nullptr, n, t_fail, t_cooldown, sus);
+  rr_tick_view_kernel<kSus, kFull>
+      <<<dim3((n + kAlign - 1) / kAlign, tiles), kThreads, 0, s>>>(
+          hb, asl, flags, vecs, gmax, o + nn, o + 2 * nn,
+          kSus ? o + 4 * nn : nullptr, n, t_fail, t_cooldown, sus);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   SusOut so{kSus ? o + 5 * nn : nullptr, kSus ? o + 6 * nn : nullptr,
             kLh ? o + 7 * nn : nullptr};
-  rr_merge_kernel<kSus, kLh>
+  rr_merge_kernel<kSus, kLh, kForm>
       <<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
-          hb, asl, flags, vecs, bases, gmax, o, o + 3 * nn, o + 2 * nn, so,
-          n, fanout / kAlign, age_clamp);
+          hb, asl, flags, vecs, senders, gmax, o, o + 3 * nn, o + 2 * nn, so,
+          n, kFull ? fanout : fanout / kAlign, age_clamp);
   return cudaGetLastError();
+}
+
+template <int kForm>
+cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
+                        const int8_t* flags, const int8_t* vecs,
+                        const int32_t* senders, int8_t* gmax, int32_t* o,
+                        int n, int fanout, int t_fail, int t_cooldown,
+                        SusThr sus, int age_clamp, cudaStream_t s) {
+#define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, n, fanout, t_fail, \
+      t_cooldown, sus, age_clamp, s
+  if (!suspect) return launch_round<false, false, kForm>(RR_ARGS);
+  if (!lh) return launch_round<true, false, kForm>(RR_ARGS);
+  return launch_round<true, true, kForm>(RR_ARGS);
+#undef RR_ARGS
 }
 
 }  // namespace
@@ -304,20 +385,24 @@ cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
 // Launch one round on ``stream``.  hb, asl: int8 [n, n] row-major,
 // pre-tick, updated in place.  flags: int8 [n] (bit 0 active sender,
 // bit 1 small-group refresher, bit 2 alive, bit 4 Lifeguard-degraded
-// receiver).  vecs: int8 [11, n] threshold stack.  bases: int32 [n] arc
-// starts, multiples of 8 in [0, n).  gmax: int8 [n/8, n] scratch.  out:
+// receiver).  vecs: int8 [11, n] threshold stack.  ``form`` 0 (aligned
+// arcs): senders int32 [n] arc starts, multiples of 8 in [0, n), gmax
+// int8 [n/8, n] scratch; 1 (explicit edges): senders int32 [n, fanout]
+// in [0, n), gmax int8 [n, n] scratch; 2 (plain arcs): senders int32 [n]
+// arc starts in [0, n), gmax int8 [n, n] scratch.  out:
 // int32 [4, n] = member_cnt, n_det, first_obs, recv_cnt; with ``suspect``
 // [7, n], adding entered, refuted and held per subject; with ``lh`` too
 // [8, n], adding suspect_cnt per receiver.  ``confirm_thr`` /
 // ``confirm_thr_hi``: the suspicion confirm ages of a healthy / degraded
 // receiver.  Returns the CUDA error code of the launches (0 on success).
 extern "C" int rr_round(void* hb, void* asl, const void* flags,
-                        const void* vecs, const void* bases, void* gmax,
-                        void* out, int n, int fanout, int t_fail,
+                        const void* vecs, const void* senders, void* gmax,
+                        void* out, int n, int fanout, int form, int t_fail,
                         int t_cooldown, int age_clamp, int suspect, int lh,
                         int confirm_thr, int confirm_thr_hi, void* stream) {
-  if (n <= 0 || n % kAlign || n % kVec || fanout <= 0 || fanout % kAlign ||
-      fanout > n || (lh && !suspect))
+  if (n <= 0 || n % kVec || fanout <= 0 || fanout > n || (lh && !suspect) ||
+      form < kFormGroup || form > kFormArc ||
+      (form == kFormGroup && (n % kAlign || fanout % kAlign)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* o = static_cast<int32_t*>(out);
@@ -327,13 +412,14 @@ extern "C" int rr_round(void* hb, void* asl, const void* flags,
   e = cudaMemsetAsync(o + 2 * (size_t)n, 0x7F, sizeof(int32_t) * (size_t)n, s);
   if (e != cudaSuccess) return (int)e;
   const SusThr sus{confirm_thr, confirm_thr_hi};
-#define RR_ARGS static_cast<int8_t*>(hb), static_cast<int8_t*>(asl), \
-      static_cast<const int8_t*>(flags), static_cast<const int8_t*>(vecs), \
-      static_cast<const int32_t*>(bases), static_cast<int8_t*>(gmax), o, n, \
-      fanout, t_fail, t_cooldown, sus, age_clamp, s
-  if (!suspect) e = launch_round<false, false>(RR_ARGS);
-  else if (!lh) e = launch_round<true, false>(RR_ARGS);
-  else e = launch_round<true, true>(RR_ARGS);
+#define RR_ARGS suspect, lh, static_cast<int8_t*>(hb), \
+      static_cast<int8_t*>(asl), static_cast<const int8_t*>(flags), \
+      static_cast<const int8_t*>(vecs), \
+      static_cast<const int32_t*>(senders), static_cast<int8_t*>(gmax), o, \
+      n, fanout, t_fail, t_cooldown, sus, age_clamp, s
+  if (form == kFormGroup) e = launch_form<kFormGroup>(RR_ARGS);
+  else if (form == kFormEdges) e = launch_form<kFormEdges>(RR_ARGS);
+  else e = launch_form<kFormArc>(RR_ARGS);
 #undef RR_ARGS
   return (int)e;
 }

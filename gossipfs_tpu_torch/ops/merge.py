@@ -1,19 +1,24 @@
 """The resident round: one whole lean gossip round over the packed lanes.
 
-Port of the aligned-arc forms of the TPU kernel
-``gossipfs_tpu/ops/merge_pallas.py: resident_round_blocked``, crash-only
-and with the SWIM lifecycle (``suspect=True``).  One round:
+Port of the TPU kernel ``gossipfs_tpu/ops/merge_pallas.py:
+resident_round_blocked`` in its three merge forms (aligned arcs, explicit
+in-edges, plain arcs), crash-only and with the SWIM lifecycle
+(``suspect=True``).  One round:
 
 1. tick every entry (small-group refresh, diagonal heartbeat bump,
    detection, fresh cooldown stamp, cooldown expiry; under suspicion a
    stale MEMBER enters SUSPECT and a SUSPECT entry past its confirm age,
    stretched on Lifeguard-degraded rows, confirms to FAILED);
-2. encode each sender's gossip view of the post-tick lanes and take the
-   max over every aligned group of ``arc_align`` sender rows: ``G[N/8, N]``;
-3. merge: receiver ``i`` takes ``best = max_k G[(bases[i]/8 + k) mod N/8]``
-   over its arc's ``fanout/8`` groups and runs the membership-update
-   epilogue (advance / add / rebase / age advance), gated on its alive bit;
-   under suspicion an advance on a SUSPECT entry refutes it;
+2. encode each sender's gossip view of the post-tick lanes; aligned arcs
+   take the max over every aligned group of ``arc_align`` sender rows,
+   ``G[N/align, N]``, the other forms keep the whole view ``G[N, N]``;
+3. merge: receiver ``i`` takes ``best``, the max of its senders' view
+   rows: ``max_k G[(bases[i]/align + k) mod N/align]`` over its arc's
+   ``fanout/align`` groups (a plain arc is align 1), or ``max_f
+   G[edges[i, f]]`` over explicit in-edges, and runs the membership-update
+   epilogue (advance / add / rebase / age advance), gated on its alive bit
+   (so explicit edges need no remap for dead receivers); under suspicion
+   an advance on a SUSPECT entry refutes it;
 4. reduce: per subject the post-merge member count over live receivers
    (``member_cnt``), the detections (``n_det``) and the lowest firing
    observer (``first_obs``, N when none fired); per receiver its listed
@@ -32,9 +37,12 @@ Source note.  Replaces ``resident_round_blocked``
 (gossipfs_tpu/ops/merge_pallas.py:2611).  Bound on the H100: bytes.  The
 floor is each packed lane read and written once, 4 B per entry (0.32 ms at
 N = 16,384 and 3.35 TB/s); the arithmetic is a few dozen integer ops per
-entry.  The kernel runs as two launches (tick + view + group max, then
-merge + reductions) and moves about 8.4 B per entry; its time and bound
-are in PERF.md (from chip_smoke.py).
+entry.  The kernel runs as two launches (tick + view + group max or whole
+view, then merge + reductions) and moves about 8.4 B per entry in the
+aligned form, about 10 B in the others (the whole view once each way); its
+times and bounds are in PERF.md (from chip_smoke.py).  It takes
+``N % 4 == 0`` (4-byte vectors): the round loop sends a ragged N to the
+separate-pass round (core/rounds._lean_ok).
 
 All arithmetic is int32 over int8 lane values with an explicit mod-2^8
 wrap where a value is compared or stored, so every result is exact: the
@@ -60,10 +68,26 @@ N_VEC = 11
 KERNEL_ALIGN = 8
 KERNEL_VEC = 4
 
+# the kernel's merge forms (csrc/resident_round.cu rr_round's ``form``)
+FORMS = ("aligned_group", "edges", "arc")
+
+
+def kernel_form(fanout: int | None, arc_align: int) -> str:
+    """The merge form the CUDA kernel runs: ``aligned_group`` for arc bases
+    aligned to its 8-row sender groups, ``arc`` for any other arc bases
+    (F consecutive sender rows), ``edges`` for explicit in-edges (``fanout``
+    None)."""
+    if fanout is None:
+        return "edges"
+    return "aligned_group" if arc_align == KERNEL_ALIGN else "arc"
+
+
 # launches of each kernel wrapper (plain-version calls do not count):
-# this module's resident round and ops/merge_update's three merge kernels
+# this module's resident round, ops/merge_update's three merge kernels and
+# ops/fanout_max's gather-max
 LAUNCH_COUNTS = {"resident_round": 0, "fused_merge_update": 0,
-                 "arc_merge_update": 0, "stripe_merge_update": 0}
+                 "arc_merge_update": 0, "stripe_merge_update": 0,
+                 "fanout_max_merge": 0}
 _launch_events: list | None = None
 
 
@@ -255,8 +279,9 @@ def _sus_thresholds(t_fail: int, suspect: bool, t_suspect: int,
     return t_fail + t_suspect, hi
 
 
-def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
-                         arc_align: int, t_fail: int, t_cooldown: int,
+def resident_round_plain(hb, asl, flags, vecs, senders, *,
+                         fanout: int | None = None, arc_align: int = 1,
+                         t_fail: int, t_cooldown: int,
                          age_clamp: int = AGE_CLAMP, suspect: bool = False,
                          t_suspect: int = 0, lh_multiplier: int = 0):
     """One round in plain PyTorch (the function the kernel computes).
@@ -264,9 +289,11 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
     ``hb``/``asl`` int8 ``[N, N]`` pre-tick lanes, updated in place;
     ``flags`` int8 ``[N]`` (bit 0 active sender, bit 1 small-group
     refresher, bit 2 alive, bit 4 Lifeguard-degraded receiver); ``vecs``
-    the int8 ``[11, N]`` :func:`threshold_stack`; ``bases`` int32 ``[N]``
-    arc starts, multiples of ``arc_align``.  Returns (hb, asl, member_cnt,
-    n_det, first_obs, recv_cnt), the last four int32 ``[N]``; with
+    the int8 ``[11, N]`` :func:`threshold_stack`; ``senders`` the round's
+    in-edges as the JAX kernel takes them: int32 ``[N]`` arc starts,
+    multiples of ``arc_align``, with ``fanout`` the arc length, or int32
+    ``[N, F]`` explicit edges with ``fanout`` None.  Returns (hb, asl,
+    member_cnt, n_det, first_obs, recv_cnt), the last four int32 ``[N]``; with
     ``suspect`` then (entered, refuted, held) per subject, and with
     ``lh_multiplier > 0`` last ``suspect_cnt`` per receiver.  Works in row
     chunks, so its temporaries stay small at any N."""
@@ -278,13 +305,16 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
     fl = flags.to(torch.int32)
     act, ref, recv = (fl & 1) != 0, (fl & 2) != 0, (fl & 4) != 0
     lh = (fl & 16) != 0
-    nb = n // arc_align
-    step = _row_chunk(n, arc_align)
+    edges = fanout is None
+    align = 1 if edges else arc_align
+    nb = n // align
+    step = _row_chunk(n, align)
     cols = torch.arange(n, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     sus_out = torch.zeros((3 + int(lh_multiplier > 0), n), **i32)
 
-    # tick, view encode, aligned group max and the detection reductions
+    # tick, view encode, aligned group max (align 1: the whole view) and
+    # the detection reductions
     gmax = torch.empty((nb, n), dtype=torch.int8, device=dev)
     n_det = torch.zeros(n, **i32)
     first_obs = torch.full((n,), n, **i32)
@@ -305,8 +335,8 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
         hb[r0:r1] = h.to(torch.int8)
         asl[r0:r1] = a.to(torch.int8)
         enc = view_plain(h, elig, a_r, v[V_SA_N], v[V_SA_ALL], v[V_HI_N])
-        gmax[r0 // arc_align:r1 // arc_align] = (
-            enc.reshape(-1, arc_align, n).amax(dim=1).to(torch.int8))
+        gmax[r0 // align:r1 // align] = (
+            enc.reshape(-1, align, n).amax(dim=1).to(torch.int8))
         n_det += fail.sum(dim=0, dtype=torch.int32)
         first = torch.where(fail, rows[:, None].to(torch.int32), n)
         first_obs = torch.minimum(first_obs, first.amin(dim=0))
@@ -314,13 +344,20 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
     # merge epilogue and the membership reductions
     member_cnt = torch.zeros(n, **i32)
     recv_cnt = torch.empty(n, **i32)
-    grp = (bases.to(torch.int64) // arc_align)
+    idx = senders.to(torch.int64)
+    if not edges:
+        idx = idx // align
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
-        g = grp[r0:r1]
-        best = gmax[g]
-        for k in range(1, fanout // arc_align):
-            best = torch.maximum(best, gmax[(g + k) % nb])
+        g = idx[r0:r1]
+        if edges:
+            best = gmax[g[:, 0]]
+            for f in range(1, g.shape[1]):
+                best = torch.maximum(best, gmax[g[:, f]])
+        else:
+            best = gmax[g]
+            for k in range(1, fanout // align):
+                best = torch.maximum(best, gmax[(g + k) % nb])
         rv = recv[r0:r1, None]
         h, a, refuted = merge_plain(
             hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32),
@@ -341,15 +378,19 @@ def resident_round_plain(hb, asl, flags, vecs, bases, *, fanout: int,
     return out + tuple(sus_out) if suspect else out
 
 
-def _check_inputs(hb, asl, flags, vecs, bases, fanout, arc_align):
+def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align):
     n = hb.shape[0] if hb.dim() == 2 else -1
     want = {
         "hb": (hb, torch.int8, (n, n)),
         "asl": (asl, torch.int8, (n, n)),
         "flags": (flags, torch.int8, (n,)),
         "vecs": (vecs, torch.int8, (N_VEC, n)),
-        "bases": (bases, torch.int32, (n,)),
     }
+    if fanout is None:
+        f = senders.shape[1] if senders.dim() == 2 else -1
+        want["edges"] = (senders, torch.int32, (n, max(f, 1)))
+    else:
+        want["bases"] = (senders, torch.int32, (n,))
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"resident_round: {name} must be {dtype} "
@@ -359,47 +400,53 @@ def _check_inputs(hb, asl, flags, vecs, bases, fanout, arc_align):
         if t.device != hb.device:
             raise ValueError(f"resident_round: {name} is on {t.device}, "
                              f"hb on {hb.device}")
-    if arc_align < 1 or n % arc_align or fanout % arc_align or fanout <= 0:
+    if fanout is not None and (arc_align < 1 or n % arc_align
+                               or fanout % arc_align or not 0 < fanout <= n):
         raise ValueError(f"resident_round: arc_align={arc_align} must divide "
-                         f"n={n} and fanout={fanout}")
+                         f"n={n} and fanout={fanout} (0 < fanout <= n)")
 
 
-def resident_round(hb, asl, flags, vecs, bases, *, fanout: int,
-                   arc_align: int, t_fail: int, t_cooldown: int,
-                   age_clamp: int = AGE_CLAMP, suspect: bool = False,
-                   t_suspect: int = 0, lh_multiplier: int = 0):
+def resident_round(hb, asl, flags, vecs, senders, *,
+                   fanout: int | None = None, arc_align: int = 1,
+                   t_fail: int, t_cooldown: int, age_clamp: int = AGE_CLAMP,
+                   suspect: bool = False, t_suspect: int = 0,
+                   lh_multiplier: int = 0):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
-    kernel for CUDA tensors (same contract; raises what it cannot run)."""
-    _check_inputs(hb, asl, flags, vecs, bases, fanout, arc_align)
+    kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
+    senders ask for; raises what it cannot run)."""
+    _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align)
     kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
               t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
               t_suspect=t_suspect, lh_multiplier=lh_multiplier)
     if hb.device.type == "cpu":
-        return resident_round_plain(hb, asl, flags, vecs, bases, **kw)
+        return resident_round_plain(hb, asl, flags, vecs, senders, **kw)
     if hb.device.type != "cuda":
         raise ValueError(f"resident_round: no kernel for {hb.device}")
     thr, thr_hi = _sus_thresholds(t_fail, suspect, t_suspect, lh_multiplier,
                                   age_clamp)
     n = hb.shape[0]
-    if arc_align != KERNEL_ALIGN or n % KERNEL_VEC:
+    if n % KERNEL_VEC:
         raise NotImplementedError(
-            f"the CUDA resident round takes arc_align={KERNEL_ALIGN} and "
-            f"N % {KERNEL_VEC} == 0 (got arc_align={arc_align}, N={n}); "
-            "plain arcs and explicit edges run the separate-pass round")
+            f"the CUDA resident round takes N % {KERNEL_VEC} == 0 (got "
+            f"N={n}); the round loop runs a ragged N through the "
+            "separate-pass round")
     from gossipfs_tpu_torch.ops import _build
 
+    form = kernel_form(fanout, arc_align)
+    width = senders.shape[1] if fanout is None else fanout
     lh = int(suspect and lh_multiplier > 0)
     rows = 4 + 3 * int(suspect) + lh
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
-        gmax = torch.empty((n // KERNEL_ALIGN, n), dtype=torch.int8,
-                           device=hb.device)
+        g_rows = n // KERNEL_ALIGN if form == "aligned_group" else n
+        gmax = torch.empty((g_rows, n), dtype=torch.int8, device=hb.device)
         out = torch.empty((rows, n), dtype=torch.int32, device=hb.device)
         stream = torch.cuda.current_stream(hb.device)
         with counted_launch("resident_round", stream):
             check_rc("resident_round", lib.rr_round(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
-                vecs.data_ptr(), bases.data_ptr(), gmax.data_ptr(),
-                out.data_ptr(), n, fanout, t_fail, t_cooldown, age_clamp,
-                int(suspect), lh, thr, thr_hi, stream.cuda_stream))
+                vecs.data_ptr(), senders.data_ptr(), gmax.data_ptr(),
+                out.data_ptr(), n, width, FORMS.index(form), t_fail,
+                t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
+                stream.cuda_stream))
     return (hb, asl, *out)

@@ -101,9 +101,8 @@ def randint(keys: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor
         raise ValueError(f"need int32 bounds with minval < maxval, got "
                          f"[{minval}, {maxval})")
     shape = tuple(shape)
-    ks = split(keys)
-    higher = bits32(ks[..., 0, :], shape)
-    lower = bits32(ks[..., 1, :], shape)
+    # both halves of the split in one batch of threefry ops
+    higher, lower = bits32(split(keys), shape).unbind(-len(shape) - 1)
     span = (maxval - minval) & _M32
     # 2**32 % span without leaving uint32, as jax computes it (the square
     # of 2**16 % span wraps in uint32 before the second remainder)

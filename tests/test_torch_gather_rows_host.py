@@ -1,0 +1,192 @@
+"""Host build of the F-row gather-max (csrc/gather_rows.cuh).
+
+K1 (csrc/fanout_max.cu) and the explicit-edge and plain-arc merge pass of
+the resident round (csrc/resident_round.cu) gather through one header of
+``__host__ __device__`` functions.  Here g++ compiles a small harness from
+that same header; ``ctypes`` runs it over numpy inputs:
+
+* K1's loop (16-row blocks of 4-column groups, element loads at a ragged
+  N) must equal ``fanout_max_merge_plain`` for every view type;
+* a host replay of the resident round's explicit-edge and plain-arc forms
+  (pass A writing the whole encoded view, pass B gathering each live
+  receiver's F sender rows, the epilogue and the reductions) must equal
+  ``resident_round_plain`` on whole rounds.
+This catches slips in the gather and its row indexing before the card
+runs the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gossipfs_tpu_torch.ops import fanout_max as fx
+from gossipfs_tpu_torch.ops import merge
+
+# one intra-op thread: tier-1 runs several test workers side by side,
+# some of them wall-clock socket engines
+torch.set_num_threads(1)
+
+CSRC = Path(__file__).resolve().parent.parent / "gossipfs_tpu_torch" / "csrc"
+
+HARNESS = r"""
+#include <cstdint>
+#include <algorithm>
+#include "gather_rows.cuh"
+#include "rr_elem.cuh"
+
+template <typename T>
+static void k1(const T* view, const int32_t* edges, T* out, int n,
+               int fanout) {
+  for (int row = 0; row < n; ++row)
+    for (int col0 = 0; col0 < n; col0 += 4) {
+      const int valid = std::min(4, n - col0);
+      const int32_t* e = edges + (size_t)row * fanout;
+      int best[4];
+      gather_rows::gather_max<T, 4, false>(
+          view, n, col0, valid, fanout, [e](int f) { return e[f]; }, best);
+      gather_rows::store_row<T, 4, false>(out + (size_t)row * n + col0,
+                                          valid, best);
+    }
+}
+
+extern "C" void host_k1(int bytes, const void* view, const int32_t* edges,
+                        void* out, int n, int fanout) {
+  if (bytes == 1)
+    k1((const int8_t*)view, edges, (int8_t*)out, n, fanout);
+  else if (bytes == 2)
+    k1((const int16_t*)view, edges, (int16_t*)out, n, fanout);
+  else
+    k1((const int32_t*)view, edges, (int32_t*)out, n, fanout);
+}
+
+// The resident round's full-view forms, replayed: ``arc`` 0 takes
+// senders int32 [n, fanout] (explicit edges), 1 arc bases [n].  out =
+// [4, n] int32 member_cnt, n_det, first_obs, recv_cnt (crash-only).
+extern "C" void host_round_full(int n, int fanout, int arc, int8_t* hb,
+                                int8_t* asl, const int8_t* flags,
+                                const int8_t* vecs, const int32_t* senders,
+                                int t_fail, int t_cooldown, int age_clamp,
+                                int32_t* out) {
+  int8_t* view = new int8_t[(size_t)n * n];
+  int32_t *cnt = out, *ndet = out + n, *fobs = out + 2 * n,
+          *rcnt = out + 3 * n;
+  for (int j = 0; j < 4 * n; ++j) out[j] = 0;
+  for (int j = 0; j < n; ++j) fobs[j] = n;
+  for (int r = 0; r < n; ++r)
+    for (int c = 0; c < n; ++c) {
+      const size_t o = (size_t)r * n + c;
+      const bool act = flags[r] & 1, ref = flags[r] & 2;
+      RrTick t = rr_tick(hb[o], asl[o], act, ref, r == c,
+                         vecs[V_THR_G * n + c], t_fail, t_cooldown);
+      hb[o] = (int8_t)t.hb; asl[o] = (int8_t)t.asl;
+      view[o] = (int8_t)rr_view(t.hb, t.elig, act, vecs[V_SA_N * n + c],
+                                vecs[V_SA_ALL * n + c], vecs[V_HI_N * n + c]);
+      if (t.fail) { ndet[c] += 1; fobs[c] = std::min(fobs[c], r); }
+    }
+  for (int r = 0; r < n; ++r) {
+    const bool recv = flags[r] & 4;
+    for (int col0 = 0; col0 < n; col0 += 4) {
+      int best[4] = {-1, -1, -1, -1};
+      if (recv) {
+        if (arc) {
+          const int base = senders[r];
+          gather_rows::gather_max<int8_t, 4, false>(
+              view, n, col0, 4, fanout,
+              [base, n](int f) { const int s = base + f;
+                                 return s >= n ? s - n : s; }, best);
+        } else {
+          const int32_t* e = senders + (size_t)r * fanout;
+          gather_rows::gather_max<int8_t, 4, false>(
+              view, n, col0, 4, fanout, [e](int f) { return e[f]; }, best);
+        }
+      }
+      for (int k = 0; k < 4; ++k) {
+        const int c = col0 + k;
+        int v[N_VEC];
+        for (int i = 0; i < N_VEC; ++i) v[i] = vecs[i * n + c];
+        const size_t o = (size_t)r * n + c;
+        RrMerge m = rr_merge(hb[o], asl[o], (int8_t)best[k], recv, v,
+                             age_clamp);
+        hb[o] = (int8_t)m.hb; asl[o] = (int8_t)m.asl;
+        const int listed = (m.asl & 3) == RR_MEMBER;
+        cnt[c] += recv && listed;
+        rcnt[r] += listed;
+      }
+    }
+  }
+  delete[] view;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host harness")
+    d = tmp_path_factory.mktemp("gather_rows")
+    src, lib = d / "harness.cpp", d / "libharness.so"
+    src.write_text(HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                    f"-I{CSRC}", "-o", str(lib), str(src)], check=True,
+                   capture_output=True, text=True)
+    return ctypes.CDLL(str(lib))
+
+
+def call(fn, *args):
+    fn(*[a.ctypes.data_as(ctypes.c_void_p) if isinstance(a, np.ndarray)
+         else ctypes.c_int(a) for a in args])
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("n,fanout", [(256, 8), (130, 5)])
+def test_k1_loop_matches_plain(host_lib, n, fanout, dtype):
+    rng = np.random.default_rng(n + fanout)
+    info = np.iinfo(dtype)
+    view = rng.integers(info.min, info.max, (n, n), endpoint=True,
+                        dtype=np.int64).astype(dtype)
+    edges = rng.integers(0, n, (n, fanout)).astype(np.int32)
+    out = np.empty_like(view)
+    call(host_lib.host_k1, view.itemsize, view, edges, out, n, fanout)
+    want = fx.fanout_max_merge_plain(torch.from_numpy(view),
+                                     torch.from_numpy(edges)).numpy()
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("form", ["edges", "arc"])
+def test_host_round_matches_resident_round_plain(host_lib, form):
+    n, fanout = 256, 12
+    rng = np.random.default_rng(7 + len(form))
+    hb = rng.integers(-128, 128, (n, n), dtype=np.int8)
+    hb[rng.random((n, n)) < 0.05] = -128
+    age = rng.integers(0, 64, (n, n))
+    asl = ((age << 2 | rng.integers(0, 3, (n, n))) - 128).astype(np.int8)
+    flags = rng.integers(0, 8, n).astype(np.int8)
+    sa = torch.from_numpy(rng.integers(-260, 60, n).astype(np.int32))
+    g = torch.from_numpy(rng.integers(-200, 60, n).astype(np.int32))
+    vecs = merge.threshold_stack(sa, sa, g, 126).numpy()
+    if form == "edges":
+        senders = rng.integers(0, n, (n, fanout)).astype(np.int32)
+        kw = {}
+    else:
+        senders = rng.integers(0, n, n).astype(np.int32)
+        kw = dict(fanout=fanout, arc_align=1)
+    want = merge.resident_round_plain(
+        torch.from_numpy(hb.copy()), torch.from_numpy(asl.copy()),
+        torch.from_numpy(flags), torch.from_numpy(vecs),
+        torch.from_numpy(senders), t_fail=5, t_cooldown=12, **kw)
+    h, a = hb.copy(), asl.copy()
+    out = np.empty((4, n), np.int32)
+    call(host_lib.host_round_full, n, fanout, int(form == "arc"), h, a,
+         flags, np.ascontiguousarray(vecs), senders, 5, 12, 63, out)
+    names = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt")
+    for name, o, w in zip(names, [h, a, *out], want):
+        np.testing.assert_array_equal(o, w.numpy(), err_msg=name)
+    assert want[3].sum() > 0
