@@ -106,10 +106,40 @@ Phases (any failure exits non-zero before the last line is printed):
 24. ``SimDetector`` on config 3 (N = 10,240): two rounds, two crashes,
     then ``advance_bulk(60, snapshot_every=10)`` against
     ``advance_bulk(60)`` (equal state and events), then an interactive
-    stretch whose crash lands at crash + t_fail.
+    stretch whose crash lands at crash + t_fail;
+25. K3's ``edge_filter`` form (the scenario engine on aligned arcs: masked
+    group gather, sender mute on flags bit 3) against plain, one round at
+    N = 16,384, F = 16: arc alignments 8 (group maxes) and 4 (view rows),
+    random match masks (a tenth of them zero), ~6 % of the rows muted,
+    crash-only, suspicion and suspicion + Lifeguard: every output equal;
+    times, the profiled split between the two launches, and the byte
+    bound;
+26. 20-round lean scans under a scenario, kernel against plain: the
+    suspicion headline under split + slow + flap + outage, ``suspicion_rr``
+    under split + slow + Bernoulli loss, ``headline(arc_align=4)`` under a
+    split; lanes, carry and all six metrics bit-equal;
+27. main path D (this slice's path): the suspicion headline for 100 rounds,
+    1 % crash churn, 8 tracked crashes, under one scenario (a half/half
+    partition for rounds 20-45, 1/16 of the nodes flapping up 3 down 2 for
+    rounds 10-80, an 8-node rack outage for rounds 50-62, fault nodes
+    disjoint from the tracked victims): exactly 100 K3 launches, all in
+    the ``edge_filter`` form, and no other kernel's; rounds/s, K3 ms, host
+    ms, the profiled device split and busy share, TTD, FPR, suspects
+    entered, refutations;
+28. main path D': ``SimConfig.suspicion_rr(16_384)`` for 100 rounds, 1 %
+    crash churn, 8 tracked crashes, under a partition + 2 % Bernoulli loss
+    on 1/16 of the senders + slow senders: the lean loop on K3's
+    explicit-edge form with rewritten edges (100 launches); then 20 rounds
+    of the same run through the separate-pass loop (K5) beside 20 on the
+    lean loop: equal lanes, carry and metrics;
+29. ``curves --partition`` at N = 16,384 through
+    ``SimDetector.load_scenario`` (interactive rounds on the separate-pass
+    loop, K2): the ``PartitionReport`` row, ``cross_hb_advances == 0`` and
+    ``reconverge_rounds <= reconverge_bound``.
 
-The last three lines printed are the kernels JSON (five kernels), the
-``nvidia-smi`` name and power limit, and the device JSON.
+The last three lines printed are the kernels JSON (the five kernels, K3
+once per merge form), the ``nvidia-smi`` name and power limit, and the
+device JSON.
 """
 
 from __future__ import annotations
@@ -1191,44 +1221,60 @@ def lean_scan_configs():
     ]
 
 
-def phase_lean_scans(rounds: int) -> None:
+def phase_lean_scans(rounds: int, results: dict) -> None:
+    for label, cfg, form in lean_scan_configs():
+        lean_scan_vs_plain(label, cfg, form, rounds, None, results)
+
+
+def lean_scan_vs_plain(label: str, cfg, form: str, rounds: int, scenario,
+                       results: dict) -> None:
+    """One lean scan on the kernel and on its plain version from the same
+    key (2 % crash churn, ``scenario`` a FaultScenario or None): the route
+    and the launches (all K3, all in ``form``) as expected, then lanes,
+    carry and metrics bit-equal.  Keeps the form's launch count in
+    ``results["scan_launches"]``."""
     import torch
 
     from gossipfs_tpu_torch import random as trandom
     from gossipfs_tpu_torch.core.rounds import route, run_rounds
     from gossipfs_tpu_torch.core.state import init_state
     from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.scenarios.tensor import compile_tensor
 
-    for label, cfg, form in lean_scan_configs():
-        if route(cfg) != ("lean", form):
-            raise AssertionError(f"{label}: routed {route(cfg)}")
-        out = {}
-        for plain in (False, True):
-            key = trandom.PRNGKey(7, device="cuda")
-            merge.reset_launch_counts()
-            out[plain] = run_rounds(init_state(cfg), cfg, rounds, key,
-                                    crash_rate=0.02, plain=plain)
-            want = {k: (rounds if k == "resident_round" and not plain else 0)
-                    for k in merge.LAUNCH_COUNTS}
-            if merge.LAUNCH_COUNTS != want:
-                raise AssertionError(f"{label}: launched "
-                                     f"{merge.LAUNCH_COUNTS}")
-        torch.cuda.synchronize()
-        (sk, ck, mk), (sp, cp, mp) = out[False], out[True]
-        pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
-                 ("alive", sk.alive, sp.alive),
-                 ("hb_base", sk.hb_base, sp.hb_base)]
-        pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
-        pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
-        bad = [name for name, a, b in pairs if not torch.equal(a, b)]
-        if bad:
-            raise AssertionError(f"{label}: kernel scan != plain scan in "
-                                 f"{bad}")
-        log(f"  {label} (N={cfg.n}, {form} form), {rounds} rounds at 2% "
-            f"crash: lanes, carry and metrics bit-equal (detections "
-            f"{int(mk.true_detections.sum())}, false positives "
-            f"{int(mk.false_positives.sum())}, suspects entered "
-            f"{int(mk.suspects_entered.sum())}, alive {int(mk.n_alive[-1])})")
+    tsc = None if scenario is None else compile_tensor(scenario)
+    if route(cfg, scenario=tsc) != ("lean", form):
+        raise AssertionError(f"{label}: routed {route(cfg, scenario=tsc)}")
+    out = {}
+    for plain in (False, True):
+        key = trandom.PRNGKey(7, device="cuda")
+        merge.reset_launch_counts()
+        out[plain] = run_rounds(init_state(cfg), cfg, rounds, key,
+                                crash_rate=0.02, plain=plain, scenario=tsc)
+        want = {k: (rounds if k == "resident_round" and not plain else 0)
+                for k in merge.LAUNCH_COUNTS}
+        forms = {k: (rounds if k == form and not plain else 0)
+                 for k in merge.FORM_LAUNCHES}
+        if merge.LAUNCH_COUNTS != want or merge.FORM_LAUNCHES != forms:
+            raise AssertionError(f"{label}: launched {merge.LAUNCH_COUNTS} "
+                                 f"{merge.FORM_LAUNCHES}")
+    results.setdefault("scan_launches", {})[form] = rounds
+    torch.cuda.synchronize()
+    (sk, ck, mk), (sp, cp, mp) = out[False], out[True]
+    pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
+             ("alive", sk.alive, sp.alive),
+             ("hb_base", sk.hb_base, sp.hb_base)]
+    pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
+    pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{label}: kernel scan != plain scan in {bad}")
+    armed = "" if scenario is None else f" under {scenario.name}"
+    log(f"  {label} (N={cfg.n}, {form} form), {rounds} rounds at 2% "
+        f"crash{armed}: lanes, carry and metrics bit-equal (detections "
+        f"{int(mk.true_detections.sum())}, false positives "
+        f"{int(mk.false_positives.sum())}, suspects entered "
+        f"{int(mk.suspects_entered.sum())}, refuted "
+        f"{int(mk.refutations.sum())}, alive {int(mk.n_alive[-1])})")
 
 
 def lean_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
@@ -1492,6 +1538,339 @@ def phase_sim_detector() -> None:
         "advance")
 
 
+def match_edges(n: int, fanout: int, align: int, seed: int):
+    """int32 ``[n, 2]`` (aligned arc base, group-match bitmask) on the
+    card: three masks in ten full, one in ten zero, the rest random."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nw = fanout // align
+    bases = rng.integers(0, n // align, n) * align
+    u = rng.random(n)
+    mask = np.where(u < 0.3, (1 << nw) - 1,
+                    np.where(u < 0.4, 0, rng.integers(0, 1 << nw, n)))
+    return torch.from_numpy(
+        np.stack([bases, mask], axis=1).astype(np.int32)).cuda()
+
+
+def phase_k3_edge_filter(n: int, results: dict) -> None:
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    fanout = 16
+    names = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
+             "entered", "refuted", "held", "suspect_cnt")
+    rng = np.random.default_rng(SEED + 25)
+    muted = torch.from_numpy((8 * (rng.random(n) < 0.06)).astype(np.int8)).cuda()
+
+    def with_mutes(inputs):
+        hb, asl, flags, vecs, _ = inputs
+        return hb, asl, flags + muted, vecs
+
+    sus_inputs = with_mutes(suspicion_round_inputs(n, SEED + 13))
+    modes = {"crash-only": (with_mutes(random_round_inputs(n, SEED)),
+                            dict(t_fail=5)),
+             "suspicion": (sus_inputs,
+                           dict(t_fail=3, suspect=True, t_suspect=2)),
+             "suspicion + lh": (sus_inputs,
+                                dict(t_fail=3, suspect=True, t_suspect=2,
+                                     lh_multiplier=3))}
+    senders = {8: match_edges(n, fanout, 8, SEED + 8),
+               4: match_edges(n, fanout, 4, SEED + 4)}
+    err = 0
+    for align, e2 in senders.items():
+        form = merge.kernel_form(fanout, align, True)
+        for mode, ((hb, asl, flags, vecs), mkw) in modes.items():
+            kw = dict(fanout=fanout, arc_align=align, t_cooldown=12,
+                      edge_filter=True, **mkw)
+            got = merge.resident_round(hb.clone(), asl.clone(), flags, vecs,
+                                       e2, **kw)
+            want = merge.resident_round_plain(hb.clone(), asl.clone(), flags,
+                                              vecs, e2, **kw)
+            torch.cuda.synchronize()
+            log(f"  align {align} ({form}), {mode}: {len(got)} outputs, "
+                f"detections {int(got[3].sum())}, muted rows "
+                f"{int((muted != 0).sum())}, zero masks "
+                f"{int((e2[:, 1] == 0).sum())}")
+            err = max(err, diff_report(names, got, want))
+    # tolerance 0: integer outputs
+    if err:
+        raise AssertionError("K3 edge_filter form != plain")
+    log("  K3 edge_filter forms == plain bit for bit (tolerance 0)")
+    for key, align, mode in (("k3_filter", 8, "crash-only"),
+                             ("k3_filter_sus", 8, "suspicion"),
+                             ("k3_filter_lh", 8, "suspicion + lh"),
+                             ("k3_filter_rows", 4, "crash-only"),
+                             ("k3_filter_rows_sus", 4, "suspicion")):
+        (hb, asl, flags, vecs), mkw = modes[mode]
+        e2 = senders[align]
+        kw = dict(fanout=fanout, arc_align=align, t_cooldown=12,
+                  edge_filter=True, **mkw)
+        h2, a2 = hb.clone(), asl.clone()
+        run_k = lambda: merge.resident_round(h2, a2, flags, vecs, e2, **kw)  # noqa: E731
+        run_p = lambda: merge.resident_round_plain(h2, a2, flags, vecs, e2, **kw)  # noqa: E731
+        run_k()
+        run_p()
+        kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
+        plain_ms = cuda_ms(run_p, 3)
+        kernel_ms.append(cuda_ms(run_k, 20))
+        split = {k: (ms / seen, seen) for k, (ms, seen)
+                 in launch_split(run_k, 10).items() if k.startswith("rr_")}
+        outs = 4 + (3 if mode != "crash-only" else 0) + int("lh" in mode)
+        # both lanes both ways, flags, the stack, [N, 2] senders, outputs
+        floor_bytes = 4 * n * n + n * (1 + 11) + e2.numel() * 4 + outs * 4 * n
+        results[key] = dict(max_abs_err=err, ms=min(kernel_ms),
+                            ms_runs=kernel_ms, plain_ms=plain_ms,
+                            bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3,
+                            split=split)
+        both = sum(ms for ms, _ in split.values())
+        parts = ", ".join(f"{k} {ms:.4f} ms ({ms / both:.1%}; {seen} of 10 "
+                          "launches seen)"
+                          for k, (ms, seen) in sorted(split.items()))
+        log(f"  align {align}, {mode}: kernel {min(kernel_ms):.4f} ms (runs "
+            f"{kernel_ms}), plain {plain_ms:.3f} ms, byte bound "
+            f"{results[key]['bound_ms']:.4f} ms ({floor_bytes} B); per "
+            f"launch under the profiler: {parts}")
+
+
+def pick_nodes(n: int, count: int, avoid, start: int = 0) -> tuple:
+    """The first ``count`` ids from ``start`` on that are outside
+    ``avoid``: deterministic, disjoint from the tracked crash victims."""
+    out = []
+    for x in range(start, n):
+        if x not in avoid:
+            out.append(x)
+            if len(out) == count:
+                break
+    return tuple(out)
+
+
+def arc_fault_scenario(n: int, avoid, shift: int = 0):
+    """Main path D's scenario: a half/half partition for rounds 20-45,
+    1/16 of the nodes flapping (up 3, down 2) for rounds 10-80, an 8-node
+    rack outage for rounds 50-62, every fault node outside ``avoid``;
+    ``shift`` moves every window earlier."""
+    from gossipfs_tpu_torch.scenarios import (
+        CorrelatedOutage, FaultScenario, Flapping, Partition)
+
+    w = lambda a, b: dict(start=max(a - shift, 0), end=b - shift)  # noqa: E731
+    return FaultScenario(
+        name="split+flap+outage", n=n,
+        partitions=(Partition(**w(20, 45), groups=(tuple(range(n // 2)),)),),
+        flapping=(Flapping(**w(10, 80), up=3, down=2,
+                           nodes=pick_nodes(n, n // 16, avoid)),),
+        outages=(CorrelatedOutage(**w(50, 62), nodes=pick_nodes(
+            n, 8, avoid, n // 2 + 8)),))
+
+
+def edge_fault_scenario(n: int, avoid, shift: int = 0):
+    """Main path D's explicit-edge twin: the partition for rounds 20-45,
+    2 % Bernoulli loss on the out-links of 1/16 of the nodes for rounds
+    0-100, 1/64 of the nodes sending every third round for rounds 10-80."""
+    from gossipfs_tpu_torch.scenarios import (
+        FaultScenario, LinkFault, Partition, SlowNode)
+
+    w = lambda a, b: dict(start=max(a - shift, 0), end=b - shift)  # noqa: E731
+    return FaultScenario(
+        name="split+loss+slow", n=n,
+        partitions=(Partition(**w(20, 45), groups=(tuple(range(n // 2)),)),),
+        link_faults=(LinkFault(start=0, end=100, rate=0.02,
+                               src=pick_nodes(n, n // 16, avoid),
+                               dst=tuple(range(n))),),
+        slow_nodes=(SlowNode(**w(10, 80), stride=3, nodes=pick_nodes(
+            n, n // 64, avoid, n // 2)),))
+
+
+def phase_scenario_scans(rounds: int, results: dict) -> None:
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.scenarios import (
+        CorrelatedOutage, FaultScenario, Flapping, LinkFault, Partition,
+        SlowNode, split_halves)
+
+    n = N_MAIN
+    # windows inside the 20 rounds
+    split = (Partition(start=4, end=14, groups=(tuple(range(n // 2)),)),)
+    slow = (SlowNode(start=0, end=16, stride=3,
+                     nodes=tuple(range(n // 2, n // 2 + n // 64))),)
+    arcs = FaultScenario(
+        name="split+slow+flap+outage", n=n, partitions=split,
+        slow_nodes=slow,
+        flapping=(Flapping(start=2, end=18, up=3, down=2,
+                           nodes=tuple(range(n // 16))),),
+        outages=(CorrelatedOutage(start=8, end=16, nodes=tuple(
+            range(n // 2 + n // 4, n // 2 + n // 4 + 8))),))
+    edges = FaultScenario(
+        name="split+slow+loss", n=n, partitions=split, slow_nodes=slow,
+        link_faults=(LinkFault(start=0, end=20, rate=0.02,
+                               src=tuple(range(n // 16)),
+                               dst=tuple(range(n))),))
+    for label, cfg, form, sc in (
+            ("suspicion headline", suspicion_headline(), "filter_group",
+             arcs),
+            ("suspicion_rr", SimConfig.suspicion_rr(n), "edges", edges),
+            ("headline(arc_align=4)", SimConfig.headline(n, arc_align=4),
+             "filter_rows", split_halves(n, 4, 14))):
+        lean_scan_vs_plain(label, cfg, form, rounds, sc, results)
+
+
+def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
+                       results: dict, key: str):
+    """One lean main path under ``scenario`` through ``run_rounds``, with
+    the launch counts zeroed just before and read just after: exactly
+    ``rounds`` K3 launches, all in ``form``, and no other kernel's."""
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.bench import tracked_crash_events
+    from gossipfs_tpu_torch.core import rounds as R
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.scenarios.tensor import compile_tensor
+
+    events, crash_rounds, churn_ok = tracked_crash_events(cfg, rounds, 8, 3)
+    sc = scenario(cfg.n, set(crash_rounds))
+    tsc = compile_tensor(sc)
+    kw = dict(events=events, crash_rate=0.01, churn_ok=churn_ok,
+              crash_only_events=True, scenario=tsc)
+    if R.route(cfg, scenario=tsc) != ("lean", form):
+        raise AssertionError(f"{label} routed {R.route(cfg, scenario=tsc)}")
+    rkey = trandom.PRNGKey(0, device="cuda")
+    # the same run once untimed: earlier phases emptied the allocator's
+    # cache, and a first run pays the device allocations of its horizon
+    # tables (0.4 ms a round over 100 rounds when it was timed cold)
+    R.run_rounds(init_state(cfg), cfg, rounds, rkey, **kw)
+    state = init_state(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    with merge.record_launch_events() as evs:
+        final, carry, per_round = R.run_rounds(state, cfg, rounds, rkey, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, forms = dict(merge.LAUNCH_COUNTS), dict(merge.FORM_LAUNCHES)
+    want = {k: (rounds if k == "resident_round" else 0) for k in launches}
+    want_forms = {k: (rounds if k == form else 0) for k in forms}
+    if launches != want or forms != want_forms:
+        raise AssertionError(f"{label} launched {launches} {forms}, want "
+                             f"{want} {want_forms}")
+    kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / rounds
+    peak = torch.cuda.max_memory_allocated()
+    round_ms = wall / rounds * 1e3
+    rep = summarize(carry, per_round, crash_rounds)
+    ttd = sorted(rep.ttd_first.values())
+    log(f"  {sc.name}: {rounds} rounds in {wall:.4f} s, "
+        f"{rounds / wall:.2f} rounds/s; whole round {round_ms:.4f} ms, K3 "
+        f"{kernel_ms:.4f} ms/round (CUDA events around each launch), host "
+        f"and the rest {round_ms - kernel_ms:.4f} ms; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    log(f"  launches {launches}, by form {forms}")
+    log(f"  tracked ttd_first {ttd}, ttd_suspect "
+        f"{sorted(rep.ttd_suspect.values())}; FPR "
+        f"{rep.false_positive_rate:.3e} ({rep.false_positives} false "
+        f"confirmations: the split's and the outage's cross-side removals "
+        f"count here), true confirmations {rep.true_detections}, suspects "
+        f"entered {rep.suspects_entered}, refutations {rep.refutations}, "
+        f"fp_suppressed {rep.fp_suppressed}, final alive {rep.final_alive}")
+    window = cfg.suspicion.max_confirm_after(cfg.t_fail)
+    if min(ttd) < 1 or max(ttd) > 3 * window:
+        raise AssertionError(f"{label}: tracked crashes confirmed at {ttd}")
+    if (rep.suspects_entered <= 0 or rep.refutations <= 0
+            or rep.false_positives <= 0
+            or not 0 < rep.final_alive < cfg.n):
+        raise AssertionError(f"{label}: output out of range")
+    results[key] = dict(launches=forms[form], rounds_per_s=rounds / wall,
+                        kernel_ms=kernel_ms, round_ms=round_ms)
+    # the device split over 10 rounds inside the fault windows (every
+    # window 30 rounds earlier: the split and the flapping are active)
+    mid = compile_tensor(scenario(cfg.n, set(crash_rounds), shift=18))
+    lean_split(cfg, 10, dict(crash_rate=0.01, scenario=mid), round_ms)
+    return sc, kw, rkey
+
+
+def phase_scenario_main(results: dict) -> None:
+    scenario_main_path("main path D", suspicion_headline(), "filter_group",
+                       arc_fault_scenario, 100, results, "main_d")
+
+
+def phase_scenario_rr_main(results: dict) -> None:
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core import rounds as R
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
+
+    cfg = SimConfig.suspicion_rr(N_MAIN)
+    _, kw, key = scenario_main_path("main path D'", cfg, "edges",
+                                    edge_fault_scenario, 100, results,
+                                    "main_d2")
+    # 20 rounds of the same run on both loops: the same function
+    rounds = 20
+    kw = dict(kw, events=type(kw["events"])(*(m[:rounds]
+                                              for m in kw["events"])))
+    lean = R.run_rounds(init_state(cfg), cfg, rounds, key, **kw)
+    merge.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = R._run_general(init_state(cfg), cfg, rounds, key, kw["events"],
+                         0.01, 0.0, kw["churn_ok"], None, False, False,
+                         kw["scenario"])
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    glaunch = dict(merge.LAUNCH_COUNTS)
+    want = {k: (rounds if k == "stripe_merge_update" else 0) for k in glaunch}
+    if glaunch != want:
+        raise AssertionError(f"separate-pass twin launched {glaunch}")
+    (sl, cl, ml), (sg, cg, mg) = lean, gen
+    pairs = [("hb", sl.hb, sg.hb), ("asl", sl.asl, sg.asl),
+             ("alive", sl.alive, sg.alive), ("hb_base", sl.hb_base, sg.hb_base)]
+    pairs += [(f, getattr(cl, f), getattr(cg, f)) for f in cl._fields]
+    pairs += [(f, getattr(ml, f), getattr(mg, f)) for f in ml._fields]
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"main path D': lean != separate-pass in {bad}")
+    log(f"  {rounds} rounds of the same run on the separate-pass loop "
+        f"({gwall / rounds * 1e3:.4f} ms a round, launches {glaunch}): "
+        "lanes, carry and metrics equal to the lean loop's (suspects entered "
+        f"{int(mg.suspects_entered.sum())}, refuted "
+        f"{int(mg.refutations.sum())})")
+
+
+def phase_partition_sweep(results: dict) -> None:
+    import torch
+
+    from gossipfs_tpu_torch import curves
+    from gossipfs_tpu_torch.ops import merge
+
+    torch.cuda.empty_cache()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = curves.partition_sweep(ns=(N_MAIN,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = doc["rows"][0]
+    launches = dict(merge.LAUNCH_COUNTS)
+    horizon = row["heal_at"] + row["reconverge_bound"] + 8
+    log(f"  N={row['n']}, fanout {row['fanout']}: {horizon} interactive "
+        f"rounds in {wall:.3f} s ({wall / horizon * 1e3:.4f} ms a round, "
+        f"stats and event reads included), launches {launches}")
+    log(f"  row {json.dumps(row)}")
+    want = {k: (horizon if k == "fused_merge_update" else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"partition sweep launched {launches}")
+    if (row["cross_hb_advances"] != 0
+            or not 0 < row["reconverge_rounds"] <= row["reconverge_bound"]
+            or min(row["local_ttd"].values()) < 1):
+        raise AssertionError(f"partition sweep row out of range: {row}")
+    results["partition"] = dict(seconds=wall, rounds=horizon)
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int,
                 r: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -1565,7 +1944,7 @@ def main() -> int:
     phase_k3_forms(N_MAIN, results)
     log("[20] lean run_rounds, kernel vs plain, 20 rounds: packed_rr, "
         "suspicion_rr (lh off, on), plain arcs, headline(arc_align=4)")
-    phase_lean_scans(20)
+    phase_lean_scans(20, results)
     log(f"[21] main path C: packed_rr, N={N_MAIN}, 1% crash, 8 tracked "
         "crashes, 100 rounds")
     phase_packed_main(results)
@@ -1577,11 +1956,46 @@ def main() -> int:
     log("[24] SimDetector: config 3, advance_bulk with and without "
         "snapshots, interactive")
     phase_sim_detector()
+    log(f"[25] K3 edge_filter form vs plain, one round, N={N_MAIN}, align 8 "
+        "and 4")
+    phase_k3_edge_filter(N_MAIN, results)
+    log("[26] lean run_rounds under a scenario, kernel vs plain, 20 rounds: "
+        "suspicion headline, suspicion_rr, headline(arc_align=4)")
+    phase_scenario_scans(20, results)
+    log(f"[27] main path D: suspicion headline under split + flap + outage, "
+        f"N={N_MAIN}, 100 rounds")
+    phase_scenario_main(results)
+    log(f"[28] main path D': suspicion_rr under split + loss + slow, "
+        f"N={N_MAIN}, 100 rounds")
+    phase_scenario_rr_main(results)
+    log(f"[29] curves --partition, N={N_MAIN}, through "
+        "SimDetector.load_scenario")
+    phase_partition_sweep(results)
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     print(json.dumps({"kernels": [
         kernel_line("resident_round", src + "resident_round.cu", mp + "2611",
                     results["sus_main"]["launches"], results["k3_sus"]),
+        # K3's other merge forms, each with the launches of the main path
+        # that runs it (phases 5, 21, 27); the plain-arc and filter_rows
+        # forms are on no main path: theirs are the 20-round scans' of
+        # phases 20 and 26 (headline(arc_align=4))
+        kernel_line("resident_round[aligned_group, crash-only]",
+                    src + "resident_round.cu", mp + "2611",
+                    results["main"]["launches"], results["kernel"]),
+        kernel_line("resident_round[edges]", src + "resident_round.cu",
+                    mp + "2611", results["main_c"]["launches"],
+                    results["k3_edges"]),
+        kernel_line("resident_round[arc]", src + "resident_round.cu",
+                    mp + "2611", results["scan_launches"]["arc"],
+                    results["k3_arc"]),
+        kernel_line("resident_round[edge_filter: filter_group]",
+                    src + "resident_round.cu", mp + "2611",
+                    results["main_d"]["launches"], results["k3_filter_sus"]),
+        kernel_line("resident_round[edge_filter: filter_rows]",
+                    src + "resident_round.cu", mp + "2611",
+                    results["scan_launches"]["filter_rows"],
+                    results["k3_filter_rows_sus"]),
         kernel_line("fused_merge_update", src + "fused_merge.cu", mp + "387",
                     results["config3"]["launches"], results["k2"]),
         kernel_line("arc_merge_update", src + "arc_merge.cu", mp + "1248",

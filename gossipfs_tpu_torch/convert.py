@@ -4,6 +4,8 @@ The JAX package keeps three ``[N, N]`` lanes (``hb``, ``age``,
 ``status``); the port keeps ``hb`` and the packed age|status byte.  These
 two functions move a state (and its metrics carry) between the forms,
 through numpy, so a run started in one package continues in the other.
+:func:`scenario_from_jax` carries a compiled fault scenario across (an
+armed run keeps its rule table and its arming round).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from gossipfs_tpu_torch.core.rounds import MetricsCarry
 from gossipfs_tpu_torch.core.state import HB_DTYPES, SimState
 from gossipfs_tpu_torch.ops.merge import pack_age_status, unpack_age_status
+from gossipfs_tpu_torch.scenarios.tensor import TensorScenario
 
 CARRY_FIELDS = MetricsCarry._fields
 
@@ -67,3 +70,18 @@ def to_numpy(state: SimState, carry: MetricsCarry | None = None) -> dict:
         for name, val in zip(CARRY_FIELDS, carry):
             out[name] = val.to(torch.int32).cpu().numpy()
     return out
+
+
+def scenario_from_jax(leaves: dict, device="cuda") -> TensorScenario:
+    """The port's ``TensorScenario`` from the JAX package's, given as its
+    leaves in numpy (``{name: np.asarray(leaf)}`` over the NamedTuple's
+    ``_asdict()``).  Names, shapes and dtypes are the same on both sides
+    (int32 windows and ids, float32 rates, bool node masks), so each leaf
+    moves as it is."""
+    if set(leaves) != set(TensorScenario._fields):
+        raise ValueError(
+            f"scenario leaves must be {TensorScenario._fields}, got "
+            f"{tuple(leaves)}")
+    return TensorScenario(**{
+        name: torch.from_numpy(np.array(leaves[name])).to(device)
+        for name in TensorScenario._fields})

@@ -34,6 +34,18 @@ round (``k = fold_in(key, round)``, ``(k_edge, k_churn) = split(k)``) and
 integer arithmetic throughout (the Lifeguard compare is the JAX package's
 float32 one).  The configuration picks the kernel, and the tensors'
 device picks kernel or plain version.
+
+Both loops take a fault scenario (``scenario=``, a compiled
+``scenarios.tensor.TensorScenario``: partitions, link loss, slow and
+flapping senders, rack outages).  Faults touch transport only: explicit
+edges (random, ring) are rewritten by ``filter_edges`` before the merge
+(a dropped message's edge points at the receiver, a no-op merge), with
+the loss draws from ``k_scn = fold_in(k, 0x5CE)``; aligned arcs take
+``arc_match_edges``' (base, group-match mask) pairs and ``sends_mask``'s
+sender mute: on the lean loop through the resident round's
+``edge_filter`` form (the mute on flags bit 3), on the separate-pass loop
+through the masked group max ``ops.merge.arc_group_window_max`` in torch
+ops (the JAX package runs that case in XLA, outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from gossipfs_tpu_torch.core.state import (
     init_state, listed, member_counts, suspect_counts)
 from gossipfs_tpu_torch.ops import merge, merge_update
 from gossipfs_tpu_torch.ops.merge_update import row_chunks
+from gossipfs_tpu_torch.scenarios import tensor as scn
 
 
 class RoundMetrics(NamedTuple):
@@ -167,26 +180,24 @@ def rr_packed_init(config: SimConfig, member_mask=None, device="cuda"):
     return st.hb, st.asl, st.alive, st.hb_base, st.round, counts
 
 
-def _require_ported(scenario) -> None:
-    """Raise on what no loop of the port runs yet."""
-    if scenario is not None:
-        raise NotImplementedError(
-            "scenarios (edge filters, sender mute) are ROADMAP Queue 1, "
-            "item 6")
-
-
-def _lean_ok(config: SimConfig, matrix_events: bool) -> bool:
+def _lean_ok(config: SimConfig, matrix_events: bool, scenario=None) -> bool:
     """Whether ``run_rounds`` takes the lean resident-round loop: the JAX
     package's rr gate (``_use_rr``, less its TPU admissibility: a
     ``pallas_rr`` merge kernel, ``fused_tick="auto"``, random edges or
     arcs) or the aligned-arc headline profile, each with all-int8 lanes,
     fresh cooldown, no REMOVE broadcast and no matrix events.  The CUDA
     resident round takes ``N % 4 == 0``, so a ragged N runs the
-    separate-pass round (same outputs)."""
+    separate-pass round (same outputs).  Under a ``scenario`` an arc run
+    stays only where the ``edge_filter`` form exists: aligned arcs of at
+    most ``merge.ARC_MATCH_MAX_GROUPS`` window groups (the JAX package's
+    ``_rr_scan_eligible``)."""
     if (matrix_events or config.hb_dtype != "int8"
             or not config.fresh_cooldown or config.remove_broadcast
             or config.n % merge.KERNEL_VEC):
         return False
+    if scenario is not None and config.topology == "random_arc":
+        return (config.arc_align > 1 and config.fanout // config.arc_align
+                <= merge.ARC_MATCH_MAX_GROUPS)
     if config.topology == "random_arc" and config.arc_align > 1:
         return True
     return (config.merge_kernel.startswith("pallas_rr")
@@ -194,15 +205,21 @@ def _lean_ok(config: SimConfig, matrix_events: bool) -> bool:
             and config.topology in ("random", "random_arc"))
 
 
-def route(config: SimConfig, matrix_events: bool = False) -> tuple[str, str]:
+def route(config: SimConfig, matrix_events: bool = False,
+          scenario=None) -> tuple[str, str]:
     """The loop ``run_rounds`` takes and the kernel it launches on the
-    card, from the configuration alone: ``("lean", form)`` with the
-    resident round's merge form (ops/merge.kernel_form), or
-    ``("separate", name)`` with the merge kernel of :func:`merge_kernel`."""
-    if _lean_ok(config, matrix_events):
-        fanout = None if config.topology == "random" else config.fanout
-        return "lean", merge.kernel_form(fanout, config.arc_align)
-    return "separate", merge_kernel(config)
+    card, from the configuration and whether a ``scenario`` is armed:
+    ``("lean", form)`` with the resident round's merge form
+    (ops/merge.kernel_form; an armed arc run takes an ``edge_filter``
+    form, an armed explicit-edge run the ``edges`` form on rewritten
+    edges), or ``("separate", name)`` with the merge of
+    :func:`merge_kernel`."""
+    armed = scenario is not None
+    if _lean_ok(config, matrix_events, scenario):
+        arc = config.topology == "random_arc"
+        return "lean", merge.kernel_form(config.fanout if arc else None,
+                                         config.arc_align, armed and arc)
+    return "separate", merge_kernel(config, armed)
 
 
 def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
@@ -220,14 +237,18 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
     rejoin churn (``churn_ok`` masks who may churn); ``mcarry0`` continues
     a carry from an earlier call.  ``crash_only_events=True`` promises a
     schedule without joins (leave bits then mean silent death) and keeps
-    the lean fault model; a join bit under it raises.  ``plain=True`` runs
-    every kernel through its plain PyTorch version on any device: the
-    reference the CUDA kernels are held against.
+    the lean fault model; a join bit under it raises.  ``scenario`` is a
+    compiled ``scenarios.tensor.TensorScenario`` (or None): the run keeps
+    its configured loop and kernel, and only the capability matrix is
+    checked first (``scenarios.tensor.require_scenario_config``).
+    ``plain=True`` runs every kernel through its plain PyTorch version on
+    any device: the reference the CUDA kernels are held against.
 
     The lanes of ``state`` are updated IN PLACE; the returned state shares
     them.  Returns (state, MetricsCarry, RoundMetrics).
     """
-    _require_ported(scenario)
+    if scenario is not None:
+        scn.require_scenario_config(config, scenario)
     n = config.n
     if state.hb.shape != (n, n):
         raise ValueError(f"state is {tuple(state.hb.shape)}, config n={n}")
@@ -244,9 +265,11 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
     # joins and LEAVE broadcasts rewrite whole rows and columns
     matrix_events = ((events is not None and not crash_only_events)
                      or rejoin_rate > 0.0)
-    run = _run_lean if _lean_ok(config, matrix_events) else _run_general
+    lean = _lean_ok(config, matrix_events, scenario)
+    run = _run_lean if lean else _run_general
     return run(state, config, num_rounds, key, events, crash_rate,
-               rejoin_rate, churn_ok, mcarry0, matrix_events, plain)
+               rejoin_rate, churn_ok, mcarry0, matrix_events, plain,
+               scenario)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +278,8 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
 
 
 def _run_lean(state, config, num_rounds, key, events, crash_rate,
-              rejoin_rate, churn_ok, mcarry0, matrix_events, plain):
+              rejoin_rate, churn_ok, mcarry0, matrix_events, plain,
+              scenario=None):
     crash = None
     if events is not None:
         # crash-only: a leave bit is a silent death
@@ -263,7 +287,7 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
     hb, asl, alive, hb_base, rnd, _, _, mc, metrics = run_lean_packed(
         state.hb, state.asl, state.alive, state.hb_base, int(state.round),
         config, key, num_rounds, crash=crash, crash_rate=crash_rate,
-        churn_ok=churn_ok, mcarry0=mcarry0, plain=plain)
+        churn_ok=churn_ok, mcarry0=mcarry0, plain=plain, scenario=scenario)
     out = SimState(hb=hb, asl=asl, alive=alive, round=rnd, hb_base=hb_base)
     return out, mc, metrics
 
@@ -276,7 +300,7 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
                     mcarry0: MetricsCarry | None = None,
                     counts0: torch.Tensor | None = None,
                     sus_counts0: torch.Tensor | None = None,
-                    plain: bool = False) -> tuple:
+                    plain: bool = False, scenario=None) -> tuple:
     """The lean loop's core over the packed lanes (the JAX package's
     ``_scan_rounds_rr_packed``), for a configuration :func:`_lean_ok`
     admits.
@@ -291,7 +315,14 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
     round by round threads them back in; None recounts them from the
     lanes (one ``[N, N]`` pass).  Returns (hb, asl, alive, hb_base, round,
     counts, sus_counts, MetricsCarry, RoundMetrics), ``sus_counts`` None
-    off the Lifeguard lane."""
+    off the Lifeguard lane.
+
+    ``scenario`` (a ``TensorScenario``): explicit edges are rewritten by
+    ``filter_edges`` block by block as they are drawn; aligned arcs run
+    the resident round's ``edge_filter`` form on ``arc_match_edges``'
+    (base, mask) pairs with ``~sends_mask`` on flags bit 3.  The rule
+    table depends only on the round number, so the masks and mutes of
+    the whole horizon come from one batched pass, like the bases."""
     n, dev = config.n, hb.device
     explicit = config.topology == "random"
     if crash is not None:
@@ -303,9 +334,18 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
     # N = 16,384 would be hundreds of MB)
     rnds = torch.arange(round0, round0 + num_rounds, dtype=torch.int64,
                         device=dev)
-    ks = trandom.split(trandom.fold_in(key.to(dev), rnds))
-    senders_all = (_edge_blocks(config, ks[:, 0]) if explicit
-                   else iter(topology.in_edges(config, ks[:, 0])))
+    kr = trandom.fold_in(key.to(dev), rnds)
+    ks = trandom.split(kr)
+    muted_all = None
+    if explicit:
+        senders_all = _edge_blocks(config, ks[:, 0], scenario, rnds, kr)
+    else:
+        bases_all = topology.in_edges(config, ks[:, 0])      # int32 [R, N]
+        if scenario is not None:
+            bases_all = scn.arc_match_edges(
+                scenario, bases_all, rnds, config.fanout, config.arc_align)
+            muted_all = ~scn.sends_mask(scenario, n, rnds)   # bool [R, N]
+        senders_all = iter(bases_all)
     crash_u = None
     if crash_rate > 0.0:
         churn_keys = trandom.split(ks[:, 1])
@@ -334,7 +374,8 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
     mc = mcarry0 if mcarry0 is not None else MetricsCarry.init(n, dev)
     round_fn = merge.resident_round_plain if plain else merge.resident_round
     senders_kw = (dict() if explicit
-                  else dict(fanout=config.fanout, arc_align=config.arc_align))
+                  else dict(fanout=config.fanout, arc_align=config.arc_align,
+                            edge_filter=scenario is not None))
     per_round = []
     for r in range(num_rounds):
         dead = None
@@ -362,6 +403,10 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
             # carried (pre-tick) counts, riding flags bit 4
             degraded = sus_counts.float() > lh_frac * counts.float()
             flags = flags + degraded.to(torch.int8) * 16
+        if muted_all is not None:
+            # scenario mute: the sender's view row encodes absent, its
+            # own tick (and its receiving) runs as ever
+            flags = flags + muted_all[r].to(torch.int8) * 8
         senders = next(senders_all)
         res = round_fn(
             hb, asl, flags, vecs, senders, t_fail=config.t_fail,
@@ -392,14 +437,28 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
 EDGE_BLOCK = 1 << 22
 
 
-def _edge_blocks(config: SimConfig, keys: torch.Tensor):
+# the scenario engine's per-round key: k_scn = fold_in(k, 0x5CE)
+SCN_FOLD = 0x5CE
+
+
+def _edge_blocks(config: SimConfig, keys: torch.Tensor, scenario=None,
+                 rnds: torch.Tensor | None = None,
+                 round_keys: torch.Tensor | None = None):
     """Each round's int32 ``[N, F]`` random in-edges for the edge keys
     ``[R, 2]``, drawn a block of rounds at a time: the same draws as one
     ``topology.in_edges`` call per round, with the draw's launches shared
-    by the block."""
+    by the block.  Under a ``scenario`` each block is rewritten by
+    ``filter_edges`` (rounds ``rnds`` ``[R]``, the loss draws keyed off
+    the per-round keys ``round_keys`` ``[R, 2]``) before it is handed
+    out."""
     per = max(1, EDGE_BLOCK // (config.n * config.fanout))
     for r0 in range(0, keys.shape[0], per):
-        yield from topology.in_edges(config, keys[r0:r0 + per])
+        edges = topology.in_edges(config, keys[r0:r0 + per])
+        if scenario is not None:
+            k_scn = trandom.fold_in(round_keys[r0:r0 + per], SCN_FOLD)
+            edges = scn.filter_edges(scenario, edges, rnds[r0:r0 + per],
+                                     k_scn)
+        yield from edges
 
 
 def _stack_metrics(per_round: list, dev) -> RoundMetrics:
@@ -676,12 +735,17 @@ def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
     return view
 
 
-def merge_kernel(config: SimConfig) -> str:
+def merge_kernel(config: SimConfig, armed: bool = False) -> str:
     """The merge kernel the separate-pass round launches, by the launch
     counters' names (ops/merge.LAUNCH_COUNTS), decided from the
-    configuration and N alone, before any launch:
+    configuration, N and whether a scenario is ``armed``, before any
+    launch:
 
-    * ``arc_merge_update`` (K4) for ``random_arc``;
+    * ``arc_group_merge_update`` for ``random_arc`` under a scenario: the
+      masked group max and the epilogue in torch ops on any device, no
+      kernel launch (the JAX package runs these rounds in XLA: its arc
+      kernels fuse the unfiltered window max);
+    * ``arc_merge_update`` (K4) for any other ``random_arc`` round;
     * ``stripe_merge_update`` (K5) for ``random`` (explicit edges) when
       ``merge_kernel`` names the stripe family (``pallas_stripe*``,
       ``pallas_rr*``: the JAX package's ``_merge`` sends these rounds to its
@@ -691,9 +755,10 @@ def merge_kernel(config: SimConfig) -> str:
       ``ring``, other ``merge_kernel`` values, int16 views, larger N.
 
     The three compute the same function; the plain versions follow the
-    same rule."""
+    same rule.  Explicit edges are rewritten before the merge, so an
+    armed run of them keeps its kernel."""
     if config.topology == "random_arc":
-        return "arc_merge_update"
+        return "arc_group_merge_update" if armed else "arc_merge_update"
     if (config.topology == "random"
             and config.merge_kernel.startswith(("pallas_stripe", "pallas_rr"))
             and merge_update.stripe_admits(config.n, config.view_dtype)):
@@ -702,9 +767,11 @@ def merge_kernel(config: SimConfig) -> str:
 
 
 def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
-           detect_stats: bool, plain: bool):
+           detect_stats: bool, plain: bool, arc_match=None):
     """Rebase shifts, the gossip view, and the merge kernel in place on the
-    lanes (:func:`merge_kernel`; arcs pass bases as ``edges``).  Returns
+    lanes (:func:`merge_kernel`; arcs pass bases as ``edges``, or under a
+    scenario ``arc_match``, the ``[N, 2]`` (base, match mask) pairs of the
+    masked group form).  Returns
     (cnt_incl, n_det, first_obs, refuted, held, store_base), the suspicion
     reductions ``refuted``/``held`` None with suspicion off."""
     with record_function("round.view"):
@@ -714,10 +781,16 @@ def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
     args = (view, edges, state.hb, state.asl, sa, sb, state.alive)
     suspect = config.suspicion is not None
     kw = dict(detect_stats=detect_stats, suspect=suspect)
-    name = merge_kernel(config)
+    name = merge_kernel(config, arc_match is not None)
     if name == "arc_merge_update":
         kw["fanout"] = config.fanout
-    fn = getattr(merge_update, name + ("_plain" if plain else ""))
+    if name == "arc_group_merge_update":
+        # torch ops whatever the device: there is no kernel to pick
+        args = (view, arc_match) + args[2:]
+        kw.update(fanout=config.fanout, align=config.arc_align)
+        fn = merge_update.arc_group_merge_update
+    else:
+        fn = getattr(merge_update, name + ("_plain" if plain else ""))
     with record_function("round.merge"):
         out = fn(*args, **kw)
     cnt_incl, n_det, first_obs = out[2:5]
@@ -726,8 +799,14 @@ def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
 
 
 def _round_core(state: SimState, crash, leave, join, edges,
-                config: SimConfig, matrix_events: bool, plain: bool):
+                config: SimConfig, matrix_events: bool, plain: bool,
+                edge_filter=None, sends=None, arc_match=None):
     """One separate-pass round (the JAX package's ``_round_core``).
+    ``edge_filter`` rewrites explicit edges the caller has not filtered
+    yet (the ring's, derived here from the post-tick tables);
+    ``sends``/``arc_match`` are the aligned-arc scenario form: the sender
+    mute (a muted sender's view row encodes absent) and the (base, match
+    mask) pairs.
     Returns (state, n_det, stats, first_obs, member_col, rejoined,
     any_sus): ``n_det`` this round's detections per subject, ``stats`` the
     six RoundMetrics scalars, ``rejoined`` None without
@@ -753,8 +832,12 @@ def _round_core(state: SimState, crash, leave, join, edges,
     if config.topology == "ring":
         with record_function("round.edges"):
             edges = topology.ring_edges_from_status(state.asl & 3, sus_on)
+    if edge_filter is not None:
+        with record_function("round.edges"):
+            edges = edge_filter(edges)
+    senders = active if sends is None else active & sends
     cnt_incl, k_ndet, k_fobs, refuted, held, store_base = _merge(
-        state, edges, active, colmax_est, config, det_ok, plain)
+        state, edges, senders, colmax_est, config, det_ok, plain, arc_match)
     if det_ok:
         n_det, first_obs = k_ndet, k_fobs
     state = state._replace(hb_base=store_base, round=state.round + 1)
@@ -790,15 +873,52 @@ def gossip_round(state: SimState, events: RoundEvents, edges,
     return state, RoundMetrics(*stats), n_det > 0, first_obs
 
 
+def gossip_round_scenario(state: SimState, events: RoundEvents, edges,
+                          config: SimConfig, tsc, key: torch.Tensor,
+                          plain: bool = False):
+    """One interactive round under an armed fault scenario: the contract
+    of :func:`gossip_round`, plus ``tsc`` (a
+    ``scenarios.tensor.TensorScenario``) and the round's key for the
+    Bernoulli loss draws.  Aligned arcs take the group-granular form
+    (sender mute and masked group max); explicit edges, the ring's
+    included, are rewritten per edge."""
+    dev = state.hb.device
+    crash, leave, join = (m.to(device=dev, dtype=torch.bool) for m in events)
+    rnd = int(state.round)
+    if config.topology == "random_arc":
+        bases = edges.to(device=dev, dtype=torch.int32)
+        kw = dict(sends=scn.sends_mask(tsc, config.n, rnd),
+                  arc_match=scn.arc_match_edges(tsc, bases, rnd,
+                                                config.fanout,
+                                                config.arc_align))
+        edges = bases
+    else:
+        if edges is not None:
+            edges = edges.to(device=dev, dtype=torch.int32)
+        kw = dict(edge_filter=lambda e: scn.filter_edges(tsc, e, rnd, key))
+    state, n_det, stats, first_obs, _, _, _ = _round_core(
+        state, crash, leave, join, edges, config, True, plain, **kw)
+    return state, RoundMetrics(*stats), n_det > 0, first_obs
+
+
 def _run_general(state, config, num_rounds, key, events, crash_rate,
-                 rejoin_rate, churn_ok, mcarry0, matrix_events, plain):
+                 rejoin_rate, churn_ok, mcarry0, matrix_events, plain,
+                 scenario=None):
     n, dev = config.n, state.hb.device
     r0 = int(state.round)
     rnds = torch.arange(r0, r0 + num_rounds, dtype=torch.int64, device=dev)
-    ks = trandom.split(trandom.fold_in(key.to(dev), rnds))   # [R, 2, 2]
-    bases_all = None
+    kr = trandom.fold_in(key.to(dev), rnds)                  # [R, 2]
+    ks = trandom.split(kr)                                   # [R, 2, 2]
+    bases_all = sends_all = match_all = k_scn = None
     if config.topology == "random_arc":
         bases_all = topology.in_edges(config, ks[:, 0])      # int32 [R, N]
+        if scenario is not None:
+            # the aligned-arc scenario form, the whole horizon at once
+            sends_all = scn.sends_mask(scenario, n, rnds)
+            match_all = scn.arc_match_edges(
+                scenario, bases_all, rnds, config.fanout, config.arc_align)
+    elif scenario is not None:
+        k_scn = trandom.fold_in(kr, SCN_FOLD)                # [R, 2]
     churn = crash_rate > 0.0 or rejoin_rate > 0.0
     if churn:
         ck = trandom.split(ks[:, 1])
@@ -832,14 +952,27 @@ def _run_general(state, config, num_rounds, key, events, crash_rate,
                 crash = crash | c2
                 if rejoin_rate > 0.0:
                     join = join | j2
+        scn_kw = {}
         with record_function("round.edges"):
             if config.topology == "random":
                 edges = topology.in_edges(config, ks[r, 0])  # int32 [N, F]
+                if scenario is not None:
+                    edges = scn.filter_edges(scenario, edges, r0 + r,
+                                             k_scn[r])
+            elif config.topology == "ring":
+                edges = None
+                if scenario is not None:
+                    # the ring's edges derive from the post-tick tables
+                    # inside the round: filtered there
+                    scn_kw = dict(edge_filter=lambda e, r=r: scn.filter_edges(
+                        scenario, e, r0 + r, k_scn[r]))
             else:
-                edges = None if bases_all is None else bases_all[r]
+                edges = bases_all[r]
+                if scenario is not None:
+                    scn_kw = dict(sends=sends_all[r], arc_match=match_all[r])
         state, n_det, stats, first_obs, member_col, rejoined, any_sus = (
             _round_core(state, crash, leave, join, edges, config,
-                        matrix_events, plain))
+                        matrix_events, plain, **scn_kw))
         with record_function("round.carry"):
             per_round.append(stats)
             mc = _update_carry(mc, state.alive, n_det > 0, first_obs, r0 + r,

@@ -2,7 +2,7 @@
 // reductions) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel gossipfs_tpu/ops/merge_pallas.py
-// resident_round_blocked (:2611) in three merge forms: aligned arcs of
+// resident_round_blocked (:2611) in its merge forms: aligned arcs of
 // 8-row sender groups, explicit [n, F] in-edges, and plain arcs (F
 // consecutive sender rows from a per-receiver base; aligned bases of any
 // other granularity take this form too); each crash-only and with the
@@ -63,6 +63,20 @@
 // count of post-merge SUSPECT entries (a warp reduce, like recv_cnt),
 // which the round loop turns into next round's flags bit 4.  The
 // crash-only instantiation is the code it was.
+//
+// The edge_filter forms (the scenario engine on aligned arcs,
+// merge_pallas.py:2276-2301 and the mute on flags bit 3) are two more
+// instantiations of the same two launches.  Pass A (kMute) reads flags
+// bit 3: a muted sender ticks as ever and its view row encodes absent
+// (rr_elem.cuh rr_sends).  Pass B takes senders as int32 [n, 2] (arc base,
+// group-match bitmask) and gathers through gather_rows.cuh
+// gather_max_masked: kFormFilterGroup (arc_align 8) the masked max over
+// the arc's F/8 group maxes of G[n/8, n]; kFormFilterRows (any other
+// alignment) the masked max over the arc's F rows of the whole view, row f
+// kept iff bit f / arc_align is set.  A dropped group contributes -1, so
+// a zero mask (a receiver in a blacked-out rack) merges nothing and only
+// ages.  Bytes as the aligned form's (filter_group) or the plain-arc
+// form's (filter_rows), plus 8 B of senders per receiver.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -80,7 +94,10 @@ constexpr int kRowsB = 32;             // receiver rows per merge block
 constexpr int kFobsUnset = 0x7F7F7F7F;  // memset(0x7F) sentinel
 
 // pass B's merge forms (rr_round's ``form``)
-enum { kFormGroup = 0, kFormEdges = 1, kFormArc = 2 };
+enum {
+  kFormGroup = 0, kFormEdges = 1, kFormArc = 2, kFormFilterGroup = 3,
+  kFormFilterRows = 4
+};
 
 // kVec int8 lanes moved as one vector load/store
 template <int V> struct Word;
@@ -109,8 +126,9 @@ struct SusThr {
 };
 
 // kFullView: G is the whole view [n, n] (each row's encoded values), else
-// the 8-row group max [n/8, n]
-template <bool kSus, bool kFullView>
+// the 8-row group max [n/8, n].  kMute: flags bit 3 mutes the row's view
+// (the edge_filter forms).
+template <bool kSus, bool kFullView, bool kMute>
 __global__ void __launch_bounds__(kThreads)
 rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                     const int8_t* __restrict__ flags,
@@ -145,6 +163,7 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     const bool act = (f & 1) != 0;
     const bool ref = (f & 2) != 0;
     const bool lh = (f & 16) != 0;
+    const bool sends = rr_sends(f, kMute);
     const size_t off = (size_t)row * n + col0;
     Bytes h = load_vec(hb + off);
     Bytes a = load_vec(asl + off);
@@ -173,7 +192,7 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
       }
       h.b[k] = (int8_t)th;
       a.b[k] = (int8_t)ta;
-      const int enc = rr_view(th, elig, act, sa_n.b[k], sa_all.b[k],
+      const int enc = rr_view(th, elig, sends, sa_n.b[k], sa_all.b[k],
                               hi_n.b[k]);
       if (kFullView)
         venc.b[k] = (int8_t)enc;
@@ -211,7 +230,11 @@ struct SusOut {
 // kForm: kFormGroup takes ``senders`` as arc bases (multiples of 8) and
 // ``width`` = F/8 groups of G[n/8, n]; kFormEdges takes ``senders`` as
 // int32 [n, width] in-edges and kFormArc as arc bases [n], ``width`` = F,
-// both over the whole view G[n, n].
+// both over the whole view G[n, n].  The edge_filter forms take
+// ``senders`` as int32 [n, 2] (arc base, group-match bitmask):
+// kFormFilterGroup over G[n/8, n] with ``width`` = F/8, kFormFilterRows
+// over the whole view with ``width`` = F and ``group_shift`` =
+// log2(arc_align).
 template <bool kSus, bool kLh, int kForm>
 __global__ void __launch_bounds__(kThreads)
 rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
@@ -222,7 +245,7 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 int32_t* __restrict__ member_cnt,
                 int32_t* __restrict__ recv_cnt,
                 int32_t* __restrict__ first_obs, SusOut so, int n, int width,
-                int age_clamp) {
+                int group_shift, int age_clamp) {
   const int row0 = blockIdx.x * kRowsB;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   // every lane of a warp takes part in the row reductions below, so a
@@ -273,10 +296,30 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
             const int32_t* e = senders + (size_t)row * width;
             gather_rows::gather_max<int8_t, kVec, true>(
                 gmax, n, col0, kVec, width, [e](int f) { return e[f]; }, bm);
-          } else {
+          } else if (kForm == kFormArc) {
             const int base = senders[row];
             gather_rows::gather_max<int8_t, kVec, true>(
                 gmax, n, col0, kVec, width,
+                [base, n](int f) {
+                  const int s = base + f;
+                  return s >= n ? s - n : s;
+                },
+                bm);
+          } else if (kForm == kFormFilterGroup) {
+            const int g0 = senders[2 * (size_t)row] / kAlign;
+            const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
+            gather_rows::gather_max_masked<int8_t, kVec, true>(
+                gmax, nb, n, col0, kVec, width, 0, mask,
+                [g0, nb](int k) {
+                  const int g = g0 + k;
+                  return g >= nb ? g - nb : g;
+                },
+                bm);
+          } else {
+            const int base = senders[2 * (size_t)row];
+            const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
+            gather_rows::gather_max_masked<int8_t, kVec, true>(
+                gmax, n, n, col0, kVec, width, group_shift, mask,
                 [base, n](int f) {
                   const int s = base + f;
                   return s >= n ? s - n : s;
@@ -346,12 +389,13 @@ template <bool kSus, bool kLh, int kForm>
 cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
                          const int8_t* vecs, const int32_t* senders,
                          int8_t* gmax, int32_t* o, int n, int fanout,
-                         int t_fail, int t_cooldown, SusThr sus,
-                         int age_clamp, cudaStream_t s) {
-  constexpr bool kFull = kForm != kFormGroup;
+                         int group_shift, int t_fail, int t_cooldown,
+                         SusThr sus, int age_clamp, cudaStream_t s) {
+  constexpr bool kFull = kForm != kFormGroup && kForm != kFormFilterGroup;
+  constexpr bool kMute = kForm == kFormFilterGroup || kForm == kFormFilterRows;
   const int tiles = (n + kTile - 1) / kTile;
   const size_t nn = (size_t)n;
-  rr_tick_view_kernel<kSus, kFull>
+  rr_tick_view_kernel<kSus, kFull, kMute>
       <<<dim3((n + kAlign - 1) / kAlign, tiles), kThreads, 0, s>>>(
           hb, asl, flags, vecs, gmax, o + nn, o + 2 * nn,
           kSus ? o + 4 * nn : nullptr, n, t_fail, t_cooldown, sus);
@@ -362,7 +406,7 @@ cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
   rr_merge_kernel<kSus, kLh, kForm>
       <<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
           hb, asl, flags, vecs, senders, gmax, o, o + 3 * nn, o + 2 * nn, so,
-          n, kFull ? fanout : fanout / kAlign, age_clamp);
+          n, kFull ? fanout : fanout / kAlign, group_shift, age_clamp);
   return cudaGetLastError();
 }
 
@@ -370,10 +414,11 @@ template <int kForm>
 cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
                         const int8_t* flags, const int8_t* vecs,
                         const int32_t* senders, int8_t* gmax, int32_t* o,
-                        int n, int fanout, int t_fail, int t_cooldown,
-                        SusThr sus, int age_clamp, cudaStream_t s) {
-#define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, n, fanout, t_fail, \
-      t_cooldown, sus, age_clamp, s
+                        int n, int fanout, int group_shift, int t_fail,
+                        int t_cooldown, SusThr sus, int age_clamp,
+                        cudaStream_t s) {
+#define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, n, fanout, \
+      group_shift, t_fail, t_cooldown, sus, age_clamp, s
   if (!suspect) return launch_round<false, false, kForm>(RR_ARGS);
   if (!lh) return launch_round<true, false, kForm>(RR_ARGS);
   return launch_round<true, true, kForm>(RR_ARGS);
@@ -384,12 +429,17 @@ cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
 
 // Launch one round on ``stream``.  hb, asl: int8 [n, n] row-major,
 // pre-tick, updated in place.  flags: int8 [n] (bit 0 active sender,
-// bit 1 small-group refresher, bit 2 alive, bit 4 Lifeguard-degraded
-// receiver).  vecs: int8 [11, n] threshold stack.  ``form`` 0 (aligned
+// bit 1 small-group refresher, bit 2 alive, bit 3 muted sender, read by
+// forms 3 and 4 only, bit 4 Lifeguard-degraded receiver).  vecs: int8 [11, n] threshold stack.  ``form`` 0 (aligned
 // arcs): senders int32 [n] arc starts, multiples of 8 in [0, n), gmax
 // int8 [n/8, n] scratch; 1 (explicit edges): senders int32 [n, fanout]
 // in [0, n), gmax int8 [n, n] scratch; 2 (plain arcs): senders int32 [n]
-// arc starts in [0, n), gmax int8 [n, n] scratch.  out:
+// arc starts in [0, n), gmax int8 [n, n] scratch; 3 and 4 (edge_filter:
+// aligned arcs of ``align`` with a group-match mask): senders int32 [n, 2]
+// (arc start, a multiple of ``align``; bitmask, bit k keeps window group
+// k of the fanout / align <= 31), 3 for ``align`` 8 with gmax int8
+// [n/8, n], 4 for any other power of two with gmax int8 [n, n].
+// ``align`` is read by forms 3 and 4 only.  out:
 // int32 [4, n] = member_cnt, n_det, first_obs, recv_cnt; with ``suspect``
 // [7, n], adding entered, refuted and held per subject; with ``lh`` too
 // [8, n], adding suspect_cnt per receiver.  ``confirm_thr`` /
@@ -397,13 +447,23 @@ cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
 // receiver.  Returns the CUDA error code of the launches (0 on success).
 extern "C" int rr_round(void* hb, void* asl, const void* flags,
                         const void* vecs, const void* senders, void* gmax,
-                        void* out, int n, int fanout, int form, int t_fail,
-                        int t_cooldown, int age_clamp, int suspect, int lh,
-                        int confirm_thr, int confirm_thr_hi, void* stream) {
+                        void* out, int n, int fanout, int form, int align,
+                        int t_fail, int t_cooldown, int age_clamp,
+                        int suspect, int lh, int confirm_thr,
+                        int confirm_thr_hi, void* stream) {
   if (n <= 0 || n % kVec || fanout <= 0 || fanout > n || (lh && !suspect) ||
-      form < kFormGroup || form > kFormArc ||
-      (form == kFormGroup && (n % kAlign || fanout % kAlign)))
+      form < kFormGroup || form > kFormFilterRows ||
+      ((form == kFormGroup || form == kFormFilterGroup) &&
+       (n % kAlign || fanout % kAlign)))
     return (int)cudaErrorInvalidValue;
+  int group_shift = 0;
+  if (form >= kFormFilterGroup) {
+    // a power of two > 1 dividing n and fanout, at most 31 window groups
+    if (align <= 1 || (align & (align - 1)) || n % align || fanout % align ||
+        fanout / align > 31 || (form == kFormFilterGroup && align != kAlign))
+      return (int)cudaErrorInvalidValue;
+    while ((1 << group_shift) < align) ++group_shift;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* o = static_cast<int32_t*>(out);
   const int rows = suspect ? (lh ? 8 : 7) : 4;
@@ -416,10 +476,12 @@ extern "C" int rr_round(void* hb, void* asl, const void* flags,
       static_cast<int8_t*>(asl), static_cast<const int8_t*>(flags), \
       static_cast<const int8_t*>(vecs), \
       static_cast<const int32_t*>(senders), static_cast<int8_t*>(gmax), o, \
-      n, fanout, t_fail, t_cooldown, sus, age_clamp, s
+      n, fanout, group_shift, t_fail, t_cooldown, sus, age_clamp, s
   if (form == kFormGroup) e = launch_form<kFormGroup>(RR_ARGS);
   else if (form == kFormEdges) e = launch_form<kFormEdges>(RR_ARGS);
-  else e = launch_form<kFormArc>(RR_ARGS);
+  else if (form == kFormArc) e = launch_form<kFormArc>(RR_ARGS);
+  else if (form == kFormFilterGroup) e = launch_form<kFormFilterGroup>(RR_ARGS);
+  else e = launch_form<kFormFilterRows>(RR_ARGS);
 #undef RR_ARGS
   return (int)e;
 }

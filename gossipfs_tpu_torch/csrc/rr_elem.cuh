@@ -117,10 +117,19 @@ RR_HD RrTickSus rr_tick_sus(int hb, int asl, bool act, bool ref, bool eye,
   return out;
 }
 
-// The gossip view of one post-tick entry: an active sender's MEMBER
-// entry within the rebase window, encoded relative to the view shift;
-// -1 when absent.  Returned wrapped to int8: the group max runs over the
-// wrapped values.
+// Whether a row's view is sent this round, from its flags byte: an
+// active sender (bit 0) that the scenario engine has not muted (bit 3,
+// read in the edge_filter form only: a slow or flapping sender, or a
+// member of a blacked-out rack).  A muted row ticks as ever (its tick
+// takes ``act`` from bit 0); only its view encodes absent.
+RR_HD bool rr_sends(int flags, bool edge_filter) {
+  return (flags & 1) != 0 && !(edge_filter && (flags & 8) != 0);
+}
+
+// The gossip view of one post-tick entry: a sender's (``act``: rr_sends)
+// MEMBER entry within the rebase window, encoded relative to the view
+// shift; -1 when absent.  Returned wrapped to int8: the group max runs
+// over the wrapped values.
 RR_HD int rr_view(int hb, bool elig, bool act, int sa_n, int sa_all,
                   int hi_n) {
   const bool goss = elig && act && (hb >= sa_n || sa_all != 0) &&

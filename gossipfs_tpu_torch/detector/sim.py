@@ -16,9 +16,17 @@ The port's loops update the lanes in place, so each detector owns its
 state: a reader that keeps ``det.state`` across an advance sees it move.
 While a bulk advance runs, the direct reads (``membership``,
 ``suspects``, ``alive_nodes``) wait for it; the snapshot buffer serves
-reads meanwhile.  Not ported yet: scenarios (ROADMAP Queue 1 item 6) and
-the flight recorder (``attach_recorder``; the obs plane, ROADMAP Queue 1
-item 13), which raise ``NotImplementedError``.
+reads meanwhile.
+
+``SimDetector.load_scenario`` arms a ``scenarios.FaultScenario``: rule
+windows count from the current round; interactive rounds then run
+``gossip_round_scenario`` and bulk runs hand the compiled table to
+``run_rounds``, each on the configured kernels (explicit edges rewritten,
+aligned arcs in the group form).  ``PackedDetector`` has no scenario seam,
+as in the JAX package.  Not ported yet: the flight recorder
+(``attach_recorder``; the obs plane, ROADMAP Queue 1), which raises
+``NotImplementedError``; its ``scenario_arm``/``scenario_clear`` rows come
+with it.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from gossipfs_tpu_torch.core import topology
 from gossipfs_tpu_torch.core.state import (
     MEMBER, SUSPECT, UNKNOWN, RoundEvents, SimState, init_state)
 from gossipfs_tpu_torch.detector.api import DetectionEvent
+from gossipfs_tpu_torch.scenarios import tensor as scn_tensor
 from gossipfs_tpu_torch.utils.snapshot import Snapshot, SnapshotBuffer
 
 
@@ -64,6 +73,11 @@ class SimDetector:
         # cumulative suspicion lifecycle counters (``suspicion status``)
         self._sus_totals = {"suspects_entered": 0, "refutations": 0,
                             "fp_suppressed": 0, "confirms": 0}
+        # armed fault scenario (scenarios/): the declarative schedule and
+        # its compiled rule table
+        self._scenario = None
+        self._scn_tensor = None
+        self._scn_round0 = 0     # the arming round (the table's round0)
 
     # -- not ported yet ----------------------------------------------------
     def attach_recorder(self, recorder) -> None:
@@ -71,10 +85,46 @@ class SimDetector:
             "the flight recorder (obs/) is not ported yet: ROADMAP Queue 1, "
             "item 13")
 
+    # -- scenario engine ---------------------------------------------------
     def load_scenario(self, scenario) -> None:
-        raise NotImplementedError(
-            "scenarios (edge filters, sender mute) are ROADMAP Queue 1, "
-            "item 6")
+        """Arm a ``scenarios.FaultScenario``: rule windows count from the
+        CURRENT round.  Loading replaces any previous scenario; what the
+        configuration cannot honor raises here, with nothing half-armed
+        (``scenarios.tensor.require_scenario_config`` with the rule tables
+        in hand: Bernoulli loss has no aligned-arc form, partition sides
+        must be align-group-closed)."""
+        if scenario.n != self.config.n:
+            raise ValueError(
+                f"scenario is for n={scenario.n}, detector has "
+                f"n={self.config.n}"
+            )
+        scn_tensor.require_scenario_config(self.config, scenario)
+        self._join_bulk()
+        self._scn_round0 = int(self.state.round)
+        self._scn_tensor = scn_tensor.compile_tensor(
+            scenario, round0=self._scn_round0, device=self.device)
+        self._scenario = scenario
+
+    def clear_scenario(self) -> None:
+        self._scenario = self._scn_tensor = None
+
+    def scenario_status(self) -> dict | None:
+        """Status document for the armed scenario (None when unarmed)."""
+        if self._scenario is None:
+            return None
+        return self._scenario.status(int(self.state.round) - self._scn_round0)
+
+    def _refuse_join_in_window(self, round_idx: int) -> None:
+        """The join path is an instantaneous introducer row and column
+        rewrite, not transport messages: the active fault rules cannot
+        filter it, so it would teleport across a partition.  Refuse rather
+        than simulate wrong dynamics."""
+        if (self._scenario is not None and self._pending_join
+                and self._scenario.active_at(round_idx - self._scn_round0)):
+            raise NotImplementedError(
+                "join during an active scenario window is not "
+                "transport-filtered; advance past the fault windows "
+                "(or clear_scenario) before joining")
 
     # -- event verbs -------------------------------------------------------
     def _check(self, node: int) -> int:
@@ -127,14 +177,21 @@ class SimDetector:
         cfg = self.config
         for _ in range(rounds):
             round_idx = int(self.state.round)
+            self._refuse_join_in_window(round_idx)
             ev = self._take_verbs()
             # the interactive round takes k = fold_in(key, round) as its
             # edge key itself, with no split (the JAX package's advance)
             k = trandom.fold_in(self._key, round_idx)
             edges = (None if cfg.topology == "ring"
                      else topology.in_edges(cfg, k))
-            self.state, metrics, any_fail, first_obs = R.gossip_round(
-                self.state, ev, edges, cfg)
+            if self._scenario is not None:
+                self.state, metrics, any_fail, first_obs = (
+                    R.gossip_round_scenario(
+                        self.state, ev, edges, cfg, self._scn_tensor,
+                        trandom.fold_in(k, R.SCN_FOLD)))
+            else:
+                self.state, metrics, any_fail, first_obs = R.gossip_round(
+                    self.state, ev, edges, cfg)
             if cfg.suspicion is not None:
                 self._accumulate_suspicion(
                     int(metrics.suspects_entered), int(metrics.refutations),
@@ -175,6 +232,7 @@ class SimDetector:
         published, two deep."""
         self._join_bulk()
         start = int(self.state.round)
+        self._refuse_join_in_window(start)
         first = self._take_verbs()
         n = self.config.n
         events = RoundEvents(*(
@@ -185,7 +243,8 @@ class SimDetector:
 
         if snapshot_every is None:
             self.state, mcarry, per_round = R.run_rounds(
-                self.state, self.config, rounds, self._key, events=events)
+                self.state, self.config, rounds, self._key, events=events,
+                scenario=self._scn_tensor)
             self._pending_bulk.append(
                 (start, rounds, mcarry, self.state.alive, [per_round]))
             return None
@@ -197,6 +256,9 @@ class SimDetector:
         every = max(1, int(snapshot_every))
         chunks = [(off, min(every, rounds - off))
                   for off in range(0, rounds, every)]
+        # the table armed NOW: a clear_scenario or load_scenario while the
+        # chunks still run must not reach into them
+        scn = self._scn_tensor
 
         def pipeline() -> None:
             try:
@@ -205,7 +267,7 @@ class SimDetector:
                     ev = RoundEvents(*(m[off:off + ln] for m in events))
                     st, mcarry, per_round = R.run_rounds(
                         st, self.config, ln, self._key, events=ev,
-                        mcarry0=mcarry)
+                        mcarry0=mcarry, scenario=scn)
                     per_rounds.append(per_round)
                     # the boundary copy is queued before the next chunk,
                     # which rewrites the lanes in place

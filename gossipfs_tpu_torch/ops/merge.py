@@ -1,9 +1,10 @@
 """The resident round: one whole lean gossip round over the packed lanes.
 
 Port of the TPU kernel ``gossipfs_tpu/ops/merge_pallas.py:
-resident_round_blocked`` in its three merge forms (aligned arcs, explicit
-in-edges, plain arcs), crash-only and with the SWIM lifecycle
-(``suspect=True``).  One round:
+resident_round_blocked`` in its merge forms (aligned arcs, explicit
+in-edges, plain arcs, and the scenario engine's ``edge_filter`` form of
+aligned arcs), crash-only and with the SWIM lifecycle (``suspect=True``).
+One round:
 
 1. tick every entry (small-group refresh, diagonal heartbeat bump,
    detection, fresh cooldown stamp, cooldown expiry; under suspicion a
@@ -18,7 +19,13 @@ in-edges, plain arcs), crash-only and with the SWIM lifecycle
    G[edges[i, f]]`` over explicit in-edges, and runs the membership-update
    epilogue (advance / add / rebase / age advance), gated on its alive bit
    (so explicit edges need no remap for dead receivers); under suspicion
-   an advance on a SUSPECT entry refutes it;
+   an advance on a SUSPECT entry refutes it.  In the ``edge_filter`` form
+   (``senders`` int32 ``[N, 2]``: arc base, group-match bitmask) a sender
+   whose flags bit 3 is set is muted: its view row encodes absent to
+   everyone while its own tick runs as ever; and receiver ``i`` keeps
+   window group ``k`` only where bit ``k`` of its mask is set (a dropped
+   group contributes -1, "no sender carried the entry"; a zero mask is a
+   merge that only ages);
 4. reduce: per subject the post-merge member count over live receivers
    (``member_cnt``), the detections (``n_det``) and the lowest firing
    observer (``first_obs``, N when none fired); per receiver its listed
@@ -68,17 +75,28 @@ N_VEC = 11
 KERNEL_ALIGN = 8
 KERNEL_VEC = 4
 
+# the group-match bitmask of the ``edge_filter`` form is one int32 per
+# receiver: at most this many window groups (fanout / arc_align)
+ARC_MATCH_MAX_GROUPS = 31
+
 # the kernel's merge forms (csrc/resident_round.cu rr_round's ``form``)
-FORMS = ("aligned_group", "edges", "arc")
+FORMS = ("aligned_group", "edges", "arc", "filter_group", "filter_rows")
 
 
-def kernel_form(fanout: int | None, arc_align: int) -> str:
+def kernel_form(fanout: int | None, arc_align: int,
+                edge_filter: bool = False) -> str:
     """The merge form the CUDA kernel runs: ``aligned_group`` for arc bases
     aligned to its 8-row sender groups, ``arc`` for any other arc bases
     (F consecutive sender rows), ``edges`` for explicit in-edges (``fanout``
-    None)."""
+    None).  Under ``edge_filter`` (aligned arcs with a group-match mask):
+    ``filter_group``, the masked max over the 8-row group maxes, for
+    ``arc_align`` 8; ``filter_rows`` for any other alignment, the masked
+    max over the arc's F view rows, row ``f`` kept iff bit ``f //
+    arc_align`` is set (the max over a group is the max over its rows)."""
     if fanout is None:
         return "edges"
+    if edge_filter:
+        return "filter_group" if arc_align == KERNEL_ALIGN else "filter_rows"
     return "aligned_group" if arc_align == KERNEL_ALIGN else "arc"
 
 
@@ -88,25 +106,31 @@ def kernel_form(fanout: int | None, arc_align: int) -> str:
 LAUNCH_COUNTS = {"resident_round": 0, "fused_merge_update": 0,
                  "arc_merge_update": 0, "stripe_merge_update": 0,
                  "fanout_max_merge": 0}
+# the resident round's launches again, by the merge form launched
+FORM_LAUNCHES = dict.fromkeys(FORMS, 0)
 _launch_events: list | None = None
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[k] = 0
+    for counts in (LAUNCH_COUNTS, FORM_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 @contextlib.contextmanager
-def counted_launch(name: str, stream):
+def counted_launch(name: str, stream, form: str | None = None):
     """Wrap one kernel wrapper's launch on ``stream``: on success, add one
-    to its count and, inside :func:`record_launch_events`, record the
-    CUDA event pair around it."""
+    to its count (and to its merge ``form``'s, for the resident round)
+    and, inside :func:`record_launch_events`, record the CUDA event pair
+    around it."""
     start = None
     if _launch_events is not None:
         start = torch.cuda.Event(enable_timing=True)
         start.record(stream)
     yield
     LAUNCH_COUNTS[name] += 1
+    if form is not None:
+        FORM_LAUNCHES[form] += 1
     if start is not None:
         end = torch.cuda.Event(enable_timing=True)
         end.record(stream)
@@ -253,6 +277,35 @@ def merge_plain(hb, asl, best, recv, v, age_clamp: int,
     return new_hb, new_asl, refuted
 
 
+def masked_group_window_max(gmax: torch.Tensor, edges2: torch.Tensor,
+                            nw: int, align: int) -> torch.Tensor:
+    """``best[i, :] = max_{k < nw} (bit k of mask[i] ? gmax[(base[i] /
+    align + k) mod len(gmax)] : -1)`` for the receivers of ``edges2``
+    (int32 ``[r, 2]``: arc base, match bitmask) over the group maxes
+    ``gmax`` ``[N/align, C]``.  A dropped group contributes the absent
+    encoding -1, what "no sender carried the entry" gives."""
+    nb = gmax.shape[0]
+    g = edges2[:, 0].to(torch.int64) // align
+    best = None
+    for k in range(nw):
+        keep = ((edges2[:, 1] >> k) & 1) != 0
+        v = torch.where(keep[:, None], gmax[(g + k) % nb], -1)
+        best = v if best is None else torch.maximum(best, v)
+    return best
+
+
+def arc_group_window_max(view: torch.Tensor, edges2: torch.Tensor,
+                         fanout: int, align: int) -> torch.Tensor:
+    """Scenario-filtered aligned-arc merge in plain PyTorch (the JAX
+    package's ``arc_group_window_max_xla``): the max over each aligned
+    group of ``align`` view rows, then :func:`masked_group_window_max` over
+    each receiver's ``fanout / align`` window groups.  ``view`` ``[N, C]``;
+    ``edges2`` int32 ``[N, 2]`` (scenarios.tensor.arc_match_edges).
+    Returns the view's dtype."""
+    gm = view.reshape(view.shape[0] // align, align, -1).amax(dim=1)
+    return masked_group_window_max(gm, edges2, fanout // align, align)
+
+
 def _row_chunk(n: int, align: int) -> int:
     """Rows per plain-version chunk: ~16M entries, whole sender groups."""
     rows = max(align, (1 << 24) // n // align * align)
@@ -283,7 +336,8 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
                          fanout: int | None = None, arc_align: int = 1,
                          t_fail: int, t_cooldown: int,
                          age_clamp: int = AGE_CLAMP, suspect: bool = False,
-                         t_suspect: int = 0, lh_multiplier: int = 0):
+                         t_suspect: int = 0, lh_multiplier: int = 0,
+                         edge_filter: bool = False):
     """One round in plain PyTorch (the function the kernel computes).
 
     ``hb``/``asl`` int8 ``[N, N]`` pre-tick lanes, updated in place;
@@ -292,8 +346,10 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     the int8 ``[11, N]`` :func:`threshold_stack`; ``senders`` the round's
     in-edges as the JAX kernel takes them: int32 ``[N]`` arc starts,
     multiples of ``arc_align``, with ``fanout`` the arc length, or int32
-    ``[N, F]`` explicit edges with ``fanout`` None.  Returns (hb, asl,
-    member_cnt, n_det, first_obs, recv_cnt), the last four int32 ``[N]``; with
+    ``[N, F]`` explicit edges with ``fanout`` None; with ``edge_filter``
+    int32 ``[N, 2]`` (arc start, group-match bitmask) and flags bit 3 the
+    muted senders (read in this form only, as in the JAX kernel).  Returns
+    (hb, asl, member_cnt, n_det, first_obs, recv_cnt), the last four int32 ``[N]``; with
     ``suspect`` then (entered, refuted, held) per subject, and with
     ``lh_multiplier > 0`` last ``suspect_cnt`` per receiver.  Works in row
     chunks, so its temporaries stay small at any N."""
@@ -305,6 +361,8 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     fl = flags.to(torch.int32)
     act, ref, recv = (fl & 1) != 0, (fl & 2) != 0, (fl & 4) != 0
     lh = (fl & 16) != 0
+    # a muted sender ticks as ever; its view row encodes absent
+    sends = act & ((fl & 8) == 0) if edge_filter else act
     edges = fanout is None
     align = 1 if edges else arc_align
     nb = n // align
@@ -334,7 +392,8 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
                                           t_cooldown)
         hb[r0:r1] = h.to(torch.int8)
         asl[r0:r1] = a.to(torch.int8)
-        enc = view_plain(h, elig, a_r, v[V_SA_N], v[V_SA_ALL], v[V_HI_N])
+        enc = view_plain(h, elig, sends[r0:r1, None], v[V_SA_N], v[V_SA_ALL],
+                         v[V_HI_N])
         gmax[r0 // align:r1 // align] = (
             enc.reshape(-1, align, n).amax(dim=1).to(torch.int8))
         n_det += fail.sum(dim=0, dtype=torch.int32)
@@ -344,17 +403,18 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     # merge epilogue and the membership reductions
     member_cnt = torch.zeros(n, **i32)
     recv_cnt = torch.empty(n, **i32)
-    idx = senders.to(torch.int64)
-    if not edges:
-        idx = idx // align
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
-        g = idx[r0:r1]
-        if edges:
+        if edge_filter:
+            best = masked_group_window_max(gmax, senders[r0:r1],
+                                           fanout // align, align)
+        elif edges:
+            g = senders[r0:r1].to(torch.int64)
             best = gmax[g[:, 0]]
             for f in range(1, g.shape[1]):
                 best = torch.maximum(best, gmax[g[:, f]])
         else:
+            g = senders[r0:r1].to(torch.int64) // align
             best = gmax[g]
             for k in range(1, fanout // align):
                 best = torch.maximum(best, gmax[(g + k) % nb])
@@ -378,8 +438,21 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     return out + tuple(sus_out) if suspect else out
 
 
-def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align):
+def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
+                  edge_filter=False):
     n = hb.shape[0] if hb.dim() == 2 else -1
+    if edge_filter:
+        if fanout is None or arc_align <= 1:
+            raise ValueError(
+                "resident_round: edge_filter (the scenario-armed masked "
+                "gather) requires the aligned-arc topology; explicit-edge "
+                "scenarios rewrite the sampled [N, F] edges instead "
+                "(scenarios/tensor.py)")
+        if fanout // arc_align > ARC_MATCH_MAX_GROUPS:
+            raise ValueError(
+                "resident_round: edge_filter packs the per-receiver "
+                "group-match mask into an int32: fanout/arc_align must be "
+                f"<= {ARC_MATCH_MAX_GROUPS} (got {fanout // arc_align})")
     want = {
         "hb": (hb, torch.int8, (n, n)),
         "asl": (asl, torch.int8, (n, n)),
@@ -389,6 +462,8 @@ def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align):
     if fanout is None:
         f = senders.shape[1] if senders.dim() == 2 else -1
         want["edges"] = (senders, torch.int32, (n, max(f, 1)))
+    elif edge_filter:
+        want["(base, match-mask) edges"] = (senders, torch.int32, (n, 2))
     else:
         want["bases"] = (senders, torch.int32, (n,))
     for name, (t, dtype, shape) in want.items():
@@ -410,14 +485,16 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                    fanout: int | None = None, arc_align: int = 1,
                    t_fail: int, t_cooldown: int, age_clamp: int = AGE_CLAMP,
                    suspect: bool = False, t_suspect: int = 0,
-                   lh_multiplier: int = 0):
+                   lh_multiplier: int = 0, edge_filter: bool = False):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
     senders ask for; raises what it cannot run)."""
-    _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align)
+    _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
+                  edge_filter)
     kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
               t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
-              t_suspect=t_suspect, lh_multiplier=lh_multiplier)
+              t_suspect=t_suspect, lh_multiplier=lh_multiplier,
+              edge_filter=edge_filter)
     if hb.device.type == "cpu":
         return resident_round_plain(hb, asl, flags, vecs, senders, **kw)
     if hb.device.type != "cuda":
@@ -432,21 +509,22 @@ def resident_round(hb, asl, flags, vecs, senders, *,
             "separate-pass round")
     from gossipfs_tpu_torch.ops import _build
 
-    form = kernel_form(fanout, arc_align)
+    form = kernel_form(fanout, arc_align, edge_filter)
     width = senders.shape[1] if fanout is None else fanout
     lh = int(suspect and lh_multiplier > 0)
     rows = 4 + 3 * int(suspect) + lh
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
-        g_rows = n // KERNEL_ALIGN if form == "aligned_group" else n
+        g_rows = (n // KERNEL_ALIGN
+                  if form in ("aligned_group", "filter_group") else n)
         gmax = torch.empty((g_rows, n), dtype=torch.int8, device=hb.device)
         out = torch.empty((rows, n), dtype=torch.int32, device=hb.device)
         stream = torch.cuda.current_stream(hb.device)
-        with counted_launch("resident_round", stream):
+        with counted_launch("resident_round", stream, form):
             check_rc("resident_round", lib.rr_round(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
                 vecs.data_ptr(), senders.data_ptr(), gmax.data_ptr(),
-                out.data_ptr(), n, width, FORMS.index(form), t_fail,
-                t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
+                out.data_ptr(), n, width, FORMS.index(form), arc_align,
+                t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
                 stream.cuda_stream))
     return (hb, asl, *out)

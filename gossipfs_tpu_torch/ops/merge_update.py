@@ -252,6 +252,26 @@ def arc_merge_update_plain(view, bases, hb, asl, shift_a, shift_b, alive,
         hb, asl, shift_a, shift_b, alive, detect_stats, suspect, age_clamp)
 
 
+def arc_group_merge_update(view, edges2, hb, asl, shift_a, shift_b, alive,
+                           *, fanout: int, align: int,
+                           detect_stats: bool = False, suspect: bool = False,
+                           age_clamp: int = AGE_CLAMP):
+    """The scenario-filtered aligned-arc merge of the separate-pass round:
+    ``best`` from ``ops.merge.arc_group_window_max`` (``edges2`` int32
+    ``[N, 2]``: arc base, group-match bitmask), then K2's epilogue and
+    reductions; same outputs as K2.  Plain PyTorch on any device and no
+    kernel launch: the JAX package runs this case in XLA too, outside any
+    Pallas kernel (its arc kernels fuse the unfiltered window max), and
+    the lean loop has the fused form (ops.merge.resident_round with
+    ``edge_filter``)."""
+    n = view.shape[0]
+    gm = view.reshape(n // align, align, n).amax(dim=1)   # once per round
+    return _merge_rows_plain(
+        lambda r0, r1: merge.masked_group_window_max(
+            gm, edges2[r0:r1], fanout // align, align).to(torch.int32),
+        hb, asl, shift_a, shift_b, alive, detect_stats, suspect, age_clamp)
+
+
 def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
                   age_clamp):
     n = hb.shape[0] if hb.dim() == 2 else -1

@@ -49,7 +49,9 @@ def test_port_imports_without_jax():
                 "core.rounds", "ops.merge", "ops.merge_update", "ops._build",
                 "ops.fanout_max", "metrics.detection", "models.presets",
                 "convert", "bench", "detector.api", "detector.sim",
-                "utils.snapshot", "frontier"):
+                "utils.snapshot", "frontier", "curves", "scenarios",
+                "scenarios.schedule", "scenarios.runtime",
+                "scenarios.tensor"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -37,6 +37,8 @@ from gossipfs_tpu_torch.core.rounds import run_rounds
 from gossipfs_tpu_torch.core.state import RoundEvents, init_state
 from gossipfs_tpu_torch.metrics.detection import summarize
 from gossipfs_tpu_torch.ops import merge
+from gossipfs_tpu_torch.scenarios import (
+    FaultScenario, LinkFault, compile_tensor)
 
 # one intra-op thread: tier-1 runs several test workers side by side,
 # some of them wall-clock socket engines
@@ -210,13 +212,19 @@ def test_run_rounds_off_the_lean_slice_matches_jax(change):
 
 @pytest.mark.parametrize("change,scenario,error,match", [
     (dict(suspicion="swim"), None, ValueError, "SuspicionParams"),
-    ({}, object(), NotImplementedError, "scenarios"),
+    ({}, "loss", ValueError, "no group form"),
 ], ids=["suspicion", "scenario"])
 def test_run_rounds_rejects_outside_the_slice(change, scenario, error,
                                               match):
-    """Suspicion runs on both loops now: what stays outside is a
-    suspicion value that is not a ``SuspicionParams`` (rejected when the
-    configuration is built) and scenarios (rejected by ``run_rounds``)."""
+    """Suspicion and scenarios run on both loops now: what stays outside
+    is a suspicion value that is not a ``SuspicionParams`` (rejected when
+    the configuration is built) and a scenario the topology cannot honor
+    (Bernoulli loss on aligned arcs, rejected by ``run_rounds`` as the JAX
+    package rejects it)."""
+    if scenario == "loss":
+        scenario = compile_tensor(FaultScenario(name="l", n=64, link_faults=(
+            LinkFault(start=0, end=4, rate=0.5, src=(1,), dst=(2,)),)),
+            device="cpu")
     with pytest.raises(error, match=match):
         cfg = SimConfig(**{**dict(n=64, **HEADLINE), **change})
         st = init_state(cfg, device="cpu")

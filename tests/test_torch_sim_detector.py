@@ -11,7 +11,8 @@ the CPU):
 * ``advance_bulk(snapshot_every=k)`` equals one bulk call, and a snapshot
   read after later chunks have rewritten the lanes in place still holds
   its own round's status;
-* what is not ported yet raises ``NotImplementedError``.
+* what is not ported yet (the flight recorder) raises
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from gossipfs_tpu.suspicion import SuspicionParams as JaxSus
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.detector.api import FailureDetector
 from gossipfs_tpu_torch.detector.sim import SimDetector
+from gossipfs_tpu_torch.scenarios import split_halves
 from gossipfs_tpu_torch.suspicion import SuspicionParams
 from gossipfs_tpu_torch.utils.snapshot import SnapshotBuffer
 
@@ -137,8 +139,10 @@ def test_bulk_failure_reraises_on_the_next_read():
 def test_unported_surfaces_raise():
     _, t = pair()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.load_scenario(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.attach_recorder(object())
+    # scenarios are ported (tests/test_torch_partition.py): what raises is
+    # a scenario of another cluster size
+    with pytest.raises(ValueError, match="scenario is for n=8"):
+        t.load_scenario(split_halves(8, 0, 2))
     with pytest.raises(ValueError, match="out of range"):
         t.join(N)
