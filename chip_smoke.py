@@ -135,11 +135,33 @@ Phases (any failure exits non-zero before the last line is printed):
 29. ``curves --partition`` at N = 16,384 through
     ``SimDetector.load_scenario`` (interactive rounds on the separate-pass
     loop, K2): the ``PartitionReport`` row, ``cross_hb_advances == 0`` and
-    ``reconverge_rounds <= reconverge_bound``.
+    ``reconverge_rounds <= reconverge_bound``;
+30. K3's SWAR form (``elementwise="swar"``) in all 15 instantiations the
+    lean gate reaches (5 merge forms x crash-only / suspicion / + lh, the
+    mute on the ``edge_filter`` forms), one round at N = 16,384 on the
+    random lanes of phases 3, 13 and 25: bit-equal to the SWAR plain
+    version and to the lanes kernel; SWAR and lanes ms in turns, the byte
+    bound, SWAR's pass A / pass B split;
+31. 20-round lean scans with ``elementwise="swar"``: the headline, the
+    suspicion headline, ``suspicion_rr``, ``headline(arc_align=4)``, main
+    path D's scenario and ``headline(arc_align=4)`` under a split (every
+    SWAR form): the SWAR kernel == the SWAR plain version == the lanes
+    kernel in lanes, carry and metrics;
+32. main paths E and E': the headline and the ``bench --suspicion``
+    headline with ``elementwise="swar"`` as phases 5 and 16 run them:
+    exactly 100 K3 launches, all ``aligned_group/swar``; ms a round,
+    rounds/s, K3 ms, the profiled split, and a report equal to the lanes
+    run's of this invocation;
+33. the separate-pass round with ``elementwise="swar"`` (the SWAR tick in
+    torch ops): the eventful headline, 20 rounds, equal to the lanes run;
+    the profiled ``round.tick`` beside phase 11's;
+34. the frontier with ``--elementwise swar``: rounds/s and peak memory
+    beside phase 22's, and the same detection fields.
 
-The last three lines printed are the kernels JSON (the five kernels, K3
-once per merge form), the ``nvidia-smi`` name and power limit, and the
-device JSON.
+The last four lines printed are every main path's ms a round, rounds/s
+and launch counts (one JSON line), the kernels JSON (the five kernels, K3
+once per merge form and once per SWAR form), the ``nvidia-smi`` name and
+power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -332,7 +354,9 @@ def phase_main_path(results: dict) -> None:
         raise AssertionError("main path output out of range")
     results["main"] = dict(launches=launches["resident_round"],
                            rounds_per_s=ROUNDS / wall, kernel_ms=kernel_ms,
-                           round_ms=wall / ROUNDS * 1e3)
+                           round_ms=wall / ROUNDS * 1e3,
+                           launch_counts=launch_counts(),
+                           report=rep.as_dict())
 
 
 def phase_capacity(rounds: int) -> None:
@@ -360,6 +384,17 @@ def phase_capacity(rounds: int) -> None:
         f"{rounds / wall:.3f} rounds/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; alive "
         f"{int(alive[-1])}")
+
+
+def launch_counts() -> dict:
+    """The nonzero launch counts of the run just made: each kernel
+    wrapper's, and the resident round's again by merge form."""
+    from gossipfs_tpu_torch.ops import merge
+
+    out = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    out.update({f"resident_round[{k}]": v
+                for k, v in merge.FORM_LAUNCHES.items() if v})
+    return out
 
 
 def diff_report(names, got, want) -> int:
@@ -706,7 +741,8 @@ def phase_config3_main(results: dict) -> None:
     results["config3"] = dict(launches=launches["fused_merge_update"],
                               rounds_per_s=sc.rounds / wall,
                               kernel_ms=kernel_ms,
-                              round_ms=wall / sc.rounds * 1e3)
+                              round_ms=wall / sc.rounds * 1e3,
+                              launch_counts=launch_counts())
     stage_split(cfg, 10, dict(crash_rate=sc.crash_rate),
                 wall / sc.rounds * 1e3)
 
@@ -724,8 +760,11 @@ def phase_eventful_arc(results: dict, rounds: int) -> None:
         f"{rep.true_detections}, final alive {rep.final_alive}")
     if rep.true_detections <= 0 or not 0 < rep.final_alive < cfg.n:
         raise AssertionError("eventful arc output out of range")
-    results["arc"] = dict(launches=launches["arc_merge_update"])
-    stage_split(cfg, 10, kw, wall / rounds * 1e3)
+    results["arc"] = dict(launches=launches["arc_merge_update"],
+                          rounds_per_s=rounds / wall,
+                          round_ms=wall / rounds * 1e3,
+                          launch_counts=launch_counts())
+    results["arc"]["split"] = stage_split(cfg, 10, kw, wall / rounds * 1e3)
 
 
 def phase_config4_capacity(rounds: int) -> None:
@@ -1019,7 +1058,9 @@ def phase_suspicion_main(results: dict) -> None:
     results["sus_main"] = dict(launches=launches["resident_round"],
                                rounds_per_s=ROUNDS / wall,
                                kernel_ms=kernel_ms,
-                               round_ms=wall / ROUNDS * 1e3)
+                               round_ms=wall / ROUNDS * 1e3,
+                               launch_counts=launch_counts(),
+                               report=rep.as_dict())
 
 
 def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
@@ -1038,7 +1079,10 @@ def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
     if rep.true_detections <= 0 or not 0 < rep.final_alive < cfg.n:
         raise AssertionError("suspicion_rr output out of range")
     results["k5_main"] = dict(launches=launches["stripe_merge_update"],
-                              kernel_ms=kernel_ms)
+                              kernel_ms=kernel_ms,
+                              rounds_per_s=rounds / wall,
+                              round_ms=wall / rounds * 1e3,
+                              launch_counts=launch_counts())
     stage_split(cfg, 10, kw, wall / rounds * 1e3)
 
 def phase_k1(results: dict) -> None:
@@ -1365,7 +1409,8 @@ def phase_packed_main(results: dict) -> None:
     results["main_c"] = dict(launches=launches["resident_round"],
                              fanout_max_launches=launches["fanout_max_merge"],
                              rounds_per_s=rounds / wall, kernel_ms=kernel_ms,
-                             round_ms=round_ms)
+                             round_ms=round_ms,
+                             launch_counts=launch_counts())
     lean_split(cfg, 10, dict(crash_rate=0.01), round_ms)
     # the same run through the separate-pass loop (K5): the same function,
     # so equal outputs, at the separate-pass round's cost
@@ -1398,15 +1443,19 @@ def phase_packed_main(results: dict) -> None:
     results["main_c"]["separate_rounds_per_s"] = rounds / gwall
 
 
-def phase_frontier() -> None:
+def phase_frontier(results: dict, elementwise: str = "lanes") -> None:
+    """``python -m gossipfs_tpu_torch.frontier --elementwise ...``; the
+    SWAR run's detection fields must equal the lanes run's."""
     import torch
 
     torch.cuda.empty_cache()
-    out = subprocess.run([sys.executable, "-m", "gossipfs_tpu_torch.frontier"],
+    out = subprocess.run([sys.executable, "-m", "gossipfs_tpu_torch.frontier",
+                          "--elementwise", elementwise],
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         raise AssertionError(f"frontier failed:\n{out.stderr[-4000:]}")
     doc = json.loads(out.stdout.strip().splitlines()[-1])
+    results["frontier_" + elementwise] = doc
     peak = doc["peak_memory_bytes"]
     log(f"  N={doc['n_padded']}, fanout {doc['fanout']}, {doc['rounds']} "
         f"rounds: {doc['rounds_per_sec']:.3f} rounds/s "
@@ -1418,6 +1467,15 @@ def phase_frontier() -> None:
         raise AssertionError(f"frontier peak {peak / 2**30:.3f} GiB >= 40")
     if doc["detected"] != doc["tracked_crashes"] or doc["n"] != N_CAPACITY:
         raise AssertionError(f"frontier output out of range: {doc}")
+    lanes = results["frontier_lanes"]
+    same = ("detected", "ttd_first_median", "ttd_first_max",
+            "ttd_converged_median", "false_positive_rate")
+    if any(doc[k] != lanes[k] for k in same):
+        raise AssertionError(f"frontier {elementwise} != lanes in {same}")
+    if elementwise != "lanes":
+        log(f"  detection fields equal to the lanes run's; lanes "
+            f"{lanes['rounds_per_sec']:.3f} rounds/s at "
+            f"{lanes['peak_memory_bytes'] / 2**30:.3f} GiB")
 
 
 def packed_session(n: int, node: int, timed: bool = False):
@@ -1784,7 +1842,8 @@ def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
             or not 0 < rep.final_alive < cfg.n):
         raise AssertionError(f"{label}: output out of range")
     results[key] = dict(launches=forms[form], rounds_per_s=rounds / wall,
-                        kernel_ms=kernel_ms, round_ms=round_ms)
+                        kernel_ms=kernel_ms, round_ms=round_ms,
+                        launch_counts=launch_counts())
     # the device split over 10 rounds inside the fault windows (every
     # window 30 rounds earlier: the split and the flapping are active)
     mid = compile_tensor(scenario(cfg.n, set(crash_rounds), shift=18))
@@ -1871,6 +1930,350 @@ def phase_partition_sweep(results: dict) -> None:
     results["partition"] = dict(seconds=wall, rounds=horizon)
 
 
+def swar_round_cases(n: int):
+    """Phase 30's inputs: each merge form's senders (and kwargs), and the
+    three modes' lanes (crash-only lanes hold FAILED entries, the
+    suspicion lanes SUSPECT ones on both sides of both confirm ages)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 30)
+    cuda = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()  # noqa: E731
+    forms = {
+        "aligned_group": (cuda(rng.integers(0, n // 8, n) * 8),
+                          dict(fanout=16, arc_align=8)),
+        "edges": (cuda(rng.integers(0, n, (n, 14))), {}),
+        "arc": (cuda(rng.integers(0, n, n)), dict(fanout=16, arc_align=1)),
+        "filter_group": (match_edges(n, 16, 8, SEED + 8),
+                         dict(fanout=16, arc_align=8, edge_filter=True)),
+        "filter_rows": (match_edges(n, 16, 4, SEED + 4),
+                        dict(fanout=16, arc_align=4, edge_filter=True)),
+    }
+    sus = suspicion_round_inputs(n, SEED + 13)[:4]
+    modes = {"crash-only": (random_round_inputs(n, SEED)[:4], dict(t_fail=5)),
+             "suspicion": (sus, dict(t_fail=3, suspect=True, t_suspect=2)),
+             "suspicion + lh": (sus, dict(t_fail=3, suspect=True,
+                                          t_suspect=2, lh_multiplier=3))}
+    muted = torch.from_numpy(
+        (8 * (rng.random(n) < 0.06)).astype(np.int8)).cuda()
+    return forms, modes, muted
+
+
+# the mode of each SWAR form's kernels-line row: that of the path that
+# launches it (phases 31 and 32)
+SWAR_ROW_MODE = {"aligned_group": "crash-only", "edges": "suspicion",
+                 "arc": "crash-only", "filter_group": "suspicion",
+                 "filter_rows": "crash-only"}
+
+
+def phase_k3_swar(n: int, results: dict) -> None:
+    """K3's SWAR form (elementwise="swar") in every instantiation the lean
+    gate reaches: 5 merge forms x crash-only / suspicion / + Lifeguard,
+    the mute on the edge_filter forms.  Each bit-equal to the SWAR plain
+    version and to the lanes kernel on the same inputs; then times of
+    both kernels in turns (lanes, SWAR, SWAR, lanes), the byte bound (the
+    same bytes as the lanes form's) and SWAR's pass A / pass B split."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    names = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
+             "entered", "refuted", "held", "suspect_cnt")
+    forms, modes, muted = swar_round_cases(n)
+    err = 0
+    out = results.setdefault("k3_swar", {})
+    for form, (senders, fkw) in forms.items():
+        for mode, ((hb, asl, flags, vecs), mkw) in modes.items():
+            if fkw.get("edge_filter"):
+                flags = flags + muted
+            kw = dict(fkw, t_cooldown=12, **mkw)
+            name = merge.kernel_form(kw.get("fanout"), kw.get("arc_align", 1),
+                                     kw.get("edge_filter", False), "swar")
+            got = merge.resident_round(hb.clone(), asl.clone(), flags, vecs,
+                                       senders, elementwise="swar", **kw)
+            want = merge.resident_round_plain(hb.clone(), asl.clone(), flags,
+                                              vecs, senders,
+                                              elementwise="swar", **kw)
+            lanes = merge.resident_round(hb.clone(), asl.clone(), flags,
+                                         vecs, senders, **kw)
+            torch.cuda.synchronize()
+            log(f"  {name}, {mode}: {len(got)} outputs, detections "
+                f"{int(got[3].sum())}; SWAR kernel vs SWAR plain:")
+            e = diff_report(names, got, want)
+            log("   SWAR kernel vs lanes kernel:")
+            e = max(e, diff_report(names, got, lanes))
+            err = max(err, e)
+            h2, a2 = hb.clone(), asl.clone()
+            run_s = lambda: merge.resident_round(  # noqa: E731
+                h2, a2, flags, vecs, senders, elementwise="swar", **kw)
+            run_l = lambda: merge.resident_round(  # noqa: E731
+                h2, a2, flags, vecs, senders, **kw)
+            run_l()
+            run_s()
+            lanes_ms = [cuda_ms(run_l, 10)]
+            swar_ms = [cuda_ms(run_s, 10), cuda_ms(run_s, 10)]
+            lanes_ms.append(cuda_ms(run_l, 10))
+            split = {k: (ms / seen, seen) for k, (ms, seen)
+                     in launch_split(run_s, 10).items()
+                     if k.startswith("rr_")}
+            plain_ms = None
+            if SWAR_ROW_MODE[form] == mode:
+                run_p = lambda: merge.resident_round_plain(  # noqa: E731
+                    h2, a2, flags, vecs, senders, elementwise="swar", **kw)
+                run_p()
+                plain_ms = cuda_ms(run_p, 2)
+            outs = len(got) - 2
+            floor_bytes = (4 * n * n + n * (1 + 11) + senders.numel() * 4
+                           + outs * 4 * n)
+            out[(form, mode)] = dict(
+                max_abs_err=e, ms=min(swar_ms), ms_runs=swar_ms,
+                lanes_ms=min(lanes_ms), lanes_runs=lanes_ms,
+                plain_ms=plain_ms,
+                bound_ms=floor_bytes / H100_BYTES_PER_S * 1e3, split=split)
+            parts = ", ".join(f"{k} {ms:.4f} ms ({seen} of 10 launches seen)"
+                              for k, (ms, seen) in sorted(split.items()))
+            plain = "" if plain_ms is None else f", SWAR plain {plain_ms:.3f} ms"
+            log(f"   SWAR {min(swar_ms):.4f} ms (runs {swar_ms}) against "
+                f"lanes {min(lanes_ms):.4f} ms (runs {lanes_ms}): "
+                f"{min(lanes_ms) / min(swar_ms):.3f}x; byte bound "
+                f"{out[(form, mode)]['bound_ms']:.4f} ms ({floor_bytes} B)"
+                f"{plain}; SWAR per launch under the profiler: {parts}")
+    # tolerance 0: integer outputs
+    if err:
+        raise AssertionError("K3 SWAR form != SWAR plain or != lanes kernel")
+    log("  K3 SWAR form == SWAR plain == lanes kernel bit for bit on all 15 "
+        "instantiations (tolerance 0)")
+
+
+def swar_scan_configs():
+    """Phase 31's lean scans: (label, config, form, scenario or None)."""
+    import dataclasses
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.scenarios import split_halves
+
+    sw = dict(elementwise="swar")
+    return [
+        ("headline", SimConfig.headline(N_MAIN, **sw), "aligned_group", None),
+        ("suspicion headline", dataclasses.replace(suspicion_headline(), **sw),
+         "aligned_group", None),
+        ("suspicion_rr", SimConfig.suspicion_rr(N_MAIN, **sw), "edges", None),
+        ("headline(arc_align=4)", SimConfig.headline(N_MAIN, arc_align=4,
+                                                     **sw), "arc", None),
+        ("main path D's scenario", dataclasses.replace(suspicion_headline(),
+                                                       **sw),
+         "filter_group", arc_fault_scenario(N_MAIN, set(), shift=18)),
+        ("headline(arc_align=4) under a split",
+         SimConfig.headline(N_MAIN, arc_align=4, **sw), "filter_rows",
+         split_halves(N_MAIN, 4, 14)),
+    ]
+
+
+def phase_swar_scans(rounds: int, results: dict) -> None:
+    """20-round lean scans under 2 % crash churn: the SWAR kernel against
+    the SWAR plain version and against the lanes kernel on the same
+    configuration less ``elementwise``; lanes, carry and metrics in
+    full."""
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import route, run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.scenarios.tensor import compile_tensor
+
+    for label, cfg, form, scenario in swar_scan_configs():
+        tsc = None if scenario is None else compile_tensor(scenario)
+        if route(cfg, scenario=tsc) != ("lean", form + "/swar"):
+            raise AssertionError(f"{label}: routed {route(cfg, scenario=tsc)}")
+        runs = {"swar kernel": (cfg, False, form + "/swar"),
+                "swar plain": (cfg, True, None),
+                "lanes kernel": (dataclasses.replace(cfg, elementwise="lanes"),
+                                 False, form)}
+        out = {}
+        for run, (c, plain, launched) in runs.items():
+            merge.reset_launch_counts()
+            out[run] = run_rounds(init_state(c), c, rounds,
+                                  trandom.PRNGKey(7, device="cuda"),
+                                  crash_rate=0.02, plain=plain, scenario=tsc)
+            forms = {k: (rounds if k == launched else 0)
+                     for k in merge.FORM_LAUNCHES}
+            if merge.FORM_LAUNCHES != forms:
+                raise AssertionError(f"{label}, {run}: launched "
+                                     f"{merge.FORM_LAUNCHES}")
+        results.setdefault("swar_scan_launches", {})[form] = rounds
+        torch.cuda.synchronize()
+        sk, ck, mk = out["swar kernel"]
+        for other in ("swar plain", "lanes kernel"):
+            so, co, mo = out[other]
+            pairs = [("hb", sk.hb, so.hb), ("asl", sk.asl, so.asl),
+                     ("alive", sk.alive, so.alive),
+                     ("hb_base", sk.hb_base, so.hb_base)]
+            pairs += [(f, getattr(ck, f), getattr(co, f)) for f in ck._fields]
+            pairs += [(f, getattr(mk, f), getattr(mo, f)) for f in mk._fields]
+            bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"{label}: SWAR kernel scan != {other} "
+                                     f"in {bad}")
+        log(f"  {label} ({form}/swar), {rounds} rounds at 2% crash: lanes, "
+            f"carry and metrics of the SWAR kernel == SWAR plain == lanes "
+            f"kernel (detections {int(mk.true_detections.sum())}, suspects "
+            f"entered {int(mk.suspects_entered.sum())}, refuted "
+            f"{int(mk.refutations.sum())}, alive {int(mk.n_alive[-1])})")
+
+
+def phase_swar_main(results: dict) -> None:
+    """Main paths E and E': the headline and the ``bench --suspicion``
+    headline with ``elementwise="swar"``, 100 rounds each as phases 5 and
+    16 run them: exactly 100 K3 launches, all ``aligned_group/swar``, and
+    a report equal to the lanes run's of this same invocation."""
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.bench import (
+        CRASH_RATE, ROUNDS, tracked_crash_events)
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.ops import merge
+
+    for label, key, lanes_key, cfg in (
+            ("E", "main_e", "main",
+             SimConfig.headline(N_MAIN, elementwise="swar")),
+            ("E'", "main_e2", "sus_main",
+             dataclasses.replace(suspicion_headline(), elementwise="swar"))):
+        events, crash_rounds, churn_ok = tracked_crash_events(cfg, ROUNDS, 8,
+                                                              20)
+        kw = dict(events=events, crash_rate=CRASH_RATE, churn_ok=churn_ok,
+                  crash_only_events=True)
+        rkey = trandom.PRNGKey(0, device="cuda")
+        # the same run once untimed: the profiled split of the previous
+        # path leaves the allocator cold, and a first run pays its device
+        # allocations (E' read 0.7 ms a round slower timed cold)
+        run_rounds(init_state(cfg), cfg, ROUNDS, rkey, **kw)
+        state = init_state(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        with merge.record_launch_events() as evs:
+            _, carry, per_round = run_rounds(state, cfg, ROUNDS, rkey, **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(merge.LAUNCH_COUNTS)
+        forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
+        want = {k: (ROUNDS if k == "resident_round" else 0) for k in launches}
+        if launches != want or forms != {"aligned_group/swar": ROUNDS}:
+            raise AssertionError(f"{key} launched {launches} {forms}")
+        kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / ROUNDS
+        peak = torch.cuda.max_memory_allocated()
+        round_ms = wall / ROUNDS * 1e3
+        rep = summarize(carry, per_round, crash_rounds)
+        lanes = results[lanes_key]
+        log(f"  {label}: {ROUNDS} rounds in {wall:.4f} s, {ROUNDS / wall:.2f} "
+            f"rounds/s; whole round {round_ms:.4f} ms, K3 {kernel_ms:.4f} "
+            f"ms/round (CUDA events around each launch); the lanes run of "
+            f"this invocation {lanes['round_ms']:.4f} ms, K3 "
+            f"{lanes['kernel_ms']:.4f} ms; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+        log(f"  launches {launches}, by form {forms}")
+        log(f"  tracked ttd_first {sorted(rep.ttd_first.values())}, FPR "
+            f"{rep.false_positive_rate:.3e}, true detections "
+            f"{rep.true_detections}, final alive {rep.final_alive}")
+        if rep.as_dict() != lanes["report"]:
+            raise AssertionError(f"{key}: report != the lanes run's")
+        log("  report equal to the lanes run's (TTD, FPR and every field)")
+        results[key] = dict(launches=ROUNDS, rounds_per_s=ROUNDS / wall,
+                            kernel_ms=kernel_ms, round_ms=round_ms,
+                            launch_counts=launch_counts())
+        results[key]["split"] = lean_split(cfg, 10,
+                                           dict(crash_rate=CRASH_RATE),
+                                           round_ms)
+
+
+def phase_swar_separate(results: dict, rounds: int) -> None:
+    """The separate-pass round with ``elementwise="swar"`` (the SWAR tick
+    in torch ops, K4 unchanged): the eventful headline under 1 % crash
+    and 1 % rejoin churn against the same run in the lanes form, then the
+    profiled stage split beside phase 11's."""
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
+
+    cfg = SimConfig.headline(N_MAIN, elementwise="swar")
+    kw = dict(crash_rate=0.01, rejoin_rate=0.01)
+    out, walls = {}, {}
+    for ew in ("lanes", "swar"):
+        c = dataclasses.replace(cfg, elementwise=ew)
+        state = init_state(c)
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[ew] = run_rounds(state, c, rounds,
+                             trandom.PRNGKey(5, device="cuda"), **kw)
+        torch.cuda.synchronize()
+        walls[ew] = time.perf_counter() - t0
+        want = {k: (rounds if k == "arc_merge_update" else 0)
+                for k in merge.LAUNCH_COUNTS}
+        if merge.LAUNCH_COUNTS != want:
+            raise AssertionError(f"separate-pass {ew}: launched "
+                                 f"{merge.LAUNCH_COUNTS}")
+    (sl, cl, ml), (ss, cs, ms) = out["lanes"], out["swar"]
+    pairs = [("hb", sl.hb, ss.hb), ("asl", sl.asl, ss.asl),
+             ("alive", sl.alive, ss.alive), ("hb_base", sl.hb_base, ss.hb_base)]
+    pairs += [(f, getattr(cl, f), getattr(cs, f)) for f in cl._fields]
+    pairs += [(f, getattr(ml, f), getattr(ms, f)) for f in ml._fields]
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"separate-pass SWAR != lanes in {bad}")
+    round_ms = walls["swar"] / rounds * 1e3
+    log(f"  {rounds} rounds: SWAR {round_ms:.4f} ms a round, lanes "
+        f"{walls['lanes'] / rounds * 1e3:.4f} ms (first runs, host clock); "
+        f"lanes, carry and metrics equal (detections "
+        f"{int(ms.true_detections.sum())}, alive {int(ms.n_alive[-1])}); "
+        f"{rounds} K4 launches each")
+    split = stage_split(cfg, 10, kw, round_ms)
+    lanes_tick = results["arc"]["split"]["round.tick"]
+    log(f"  round.tick: SWAR {split['round.tick']:.4f} ms against phase "
+        f"11's lanes {lanes_tick:.4f} ms per round "
+        f"({lanes_tick / split['round.tick']:.3f}x)")
+    results["separate_swar"] = dict(round_ms=round_ms,
+                                    rounds_per_s=rounds / walls["swar"],
+                                    tick_ms=split["round.tick"],
+                                    lanes_tick_ms=lanes_tick,
+                                    launches={"arc_merge_update": rounds})
+
+
+def main_path_summary(results: dict) -> dict:
+    """Every main path's ms a round, rounds/s and launch counts, by phase,
+    for the one JSON line beside the kernels line."""
+    rows = {"5": "main", "10": "config3", "11": "arc", "16": "sus_main",
+            "17": "k5_main", "21": "main_c", "27": "main_d", "28": "main_d2",
+            "32 E": "main_e", "32 E'": "main_e2"}
+    out = {}
+    for phase, key in rows.items():
+        r = results[key]
+        out[phase] = {"round_ms": r["round_ms"],
+                      "rounds_per_s": r["rounds_per_s"],
+                      "launches": r["launch_counts"]}
+    p = results["partition"]
+    out["29"] = {"round_ms": p["seconds"] / p["rounds"] * 1e3,
+                 "rounds_per_s": p["rounds"] / p["seconds"],
+                 "launches": {"fused_merge_update": p["rounds"]}}
+    return out
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int,
                 r: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -1950,7 +2353,7 @@ def main() -> int:
     phase_packed_main(results)
     log(f"[22] capacity frontier: python -m gossipfs_tpu_torch.frontier "
         f"(N={N_CAPACITY}, 20 rounds)")
-    phase_frontier()
+    phase_frontier(results)
     log("[23] PackedDetector: N=49152 session, N=16384 against run_rounds")
     phase_packed_detector(49_152)
     log("[24] SimDetector: config 3, advance_bulk with and without "
@@ -1971,9 +2374,37 @@ def main() -> int:
     log(f"[29] curves --partition, N={N_MAIN}, through "
         "SimDetector.load_scenario")
     phase_partition_sweep(results)
+    log(f"[30] K3 SWAR form vs SWAR plain and vs the lanes kernel, one "
+        f"round, N={N_MAIN}, 5 forms x 3 modes")
+    phase_k3_swar(N_MAIN, results)
+    log("[31] lean run_rounds with elementwise='swar', 20 rounds: SWAR "
+        "kernel vs SWAR plain vs lanes kernel")
+    phase_swar_scans(20, results)
+    log(f"[32] main paths E and E': headline and suspicion headline with "
+        f"elementwise='swar', N={N_MAIN}, 100 rounds")
+    phase_swar_main(results)
+    log(f"[33] separate-pass round with elementwise='swar': eventful "
+        f"headline N={N_MAIN}, 1% crash, 1% rejoin, 20 rounds")
+    phase_swar_separate(results, 20)
+    log(f"[34] capacity frontier, SWAR form: python -m "
+        f"gossipfs_tpu_torch.frontier --elementwise swar (N={N_CAPACITY}, "
+        "20 rounds)")
+    phase_frontier(results, "swar")
+    print(json.dumps({"main_paths": main_path_summary(results)}))
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
-    print(json.dumps({"kernels": [
+    swar = results["k3_swar"]
+    swar_launches = dict(results["swar_scan_launches"],
+                         aligned_group=results["main_e"]["launches"])
+    swar_rows = [
+        # each SWAR form in the mode of the path that launches it: the
+        # aligned form main path E's 100 (E' adds 100 suspicion ones), the
+        # others phase 31's 20-round scans
+        kernel_line(f"resident_round[{form}/swar, {SWAR_ROW_MODE[form]}]",
+                    src + "resident_round.cu", mp + "2611",
+                    swar_launches[form], swar[(form, SWAR_ROW_MODE[form])])
+        for form in SWAR_ROW_MODE]
+    print(json.dumps({"kernels": swar_rows + [
         kernel_line("resident_round", src + "resident_round.cu", mp + "2611",
                     results["sus_main"]["launches"], results["k3_sus"]),
         # K3's other merge forms, each with the launches of the main path

@@ -9,10 +9,14 @@ and is timed with CUDA events around the whole ``run_rounds`` call, after
 one warm-up run; the headline is the median attempt.  ``--suspicion`` arms
 the SWIM lifecycle at the JAX package's fast knob (``t_fail=3``,
 ``SuspicionParams(t_suspect=2)``), its ``bench.py --suspicion`` anchor; the
-round then runs the resident round's suspicion form.
+round then runs the resident round's suspicion form.  ``--elementwise
+swar`` runs the resident round's SWAR form (4 packed subjects per int32
+word), as the JAX package's chip bench does; the default stays ``lanes``
+so the headline series stays continuous, and the JSON line records the
+choice.
 
     python -m gossipfs_tpu_torch.bench [--n N] [--rounds R] [--attempts A]
-                                       [--suspicion]
+                                       [--suspicion] [--elementwise swar]
 
 Prints one JSON line.  Needs a CUDA device: there is no CPU fallback.
 """
@@ -90,10 +94,11 @@ def timed_run(cfg: SimConfig, rounds: int, seed: int = 0,
     return start.elapsed_time(end) / 1e3
 
 
-def headline_config(n: int, suspicion: bool) -> SimConfig:
+def headline_config(n: int, suspicion: bool,
+                    elementwise: str = "lanes") -> SimConfig:
     """The bench's configuration: the headline, with the SWIM lifecycle at
     the fast knob (t_fail 3, t_suspect 2) under ``suspicion``."""
-    cfg = SimConfig.headline(n)
+    cfg = SimConfig.headline(n, elementwise=elementwise)
     if suspicion:
         cfg = dataclasses.replace(cfg, t_fail=3,
                                   suspicion=SuspicionParams(t_suspect=2))
@@ -107,10 +112,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--attempts", type=int, default=5)
     ap.add_argument("--suspicion", action="store_true",
                     help="arm the SWIM lifecycle (t_fail=3, t_suspect=2)")
+    ap.add_argument("--elementwise", choices=merge.ELEMENTWISE,
+                    default="lanes",
+                    help="swar: the resident round's SWAR form")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gossipfs_tpu_torch.bench needs a CUDA device")
-    cfg = headline_config(args.n, args.suspicion)
+    cfg = headline_config(args.n, args.suspicion, args.elementwise)
     timed_run(cfg, args.rounds)  # warm-up: kernel build and load
     merge.reset_launch_counts()
     secs = [timed_run(cfg, args.rounds) for _ in range(args.attempts)]
@@ -131,6 +139,9 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(0),
         "kernel": "resident_round_cuda",
         "launches": merge.LAUNCH_COUNTS["resident_round"],
+        "elementwise": args.elementwise,
+        "form_launches": {k: v for k, v in merge.FORM_LAUNCHES.items()
+                          if v},
         "suspicion": (None if cfg.suspicion is None
                       else dataclasses.asdict(cfg.suspicion)),
     }

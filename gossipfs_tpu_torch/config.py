@@ -6,8 +6,12 @@ field with the JAX package's.  The port keeps its own copy (it imports
 nothing of the JAX package).  What is dropped is the JAX package's Pallas
 admissibility checks (VMEM budgets, stripe widths): they describe TPU
 layout, not the protocol.  The tiling knobs (``merge_block_*``,
-``merge_slots``, ``rr_*``) and ``elementwise`` are kept so configurations
-line up, and the port's round loop ignores them.  Of ``merge_kernel`` the
+``merge_slots``, ``rr_*``) are kept so configurations line up, and the
+port's round loop ignores them.  ``elementwise="swar"`` picks the SWAR
+form (ops/swar.py: 4 packed int8 subjects per int32 word) on both loops,
+as in the JAX package: the resident round's SWAR kernel on the lean loop,
+the SWAR tick and the scenario-armed arc epilogue on the separate-pass
+loop; the outputs are the lanes form's bit for bit.  Of ``merge_kernel`` the
 port reads the family: a ``pallas_rr*`` value sends crash-only rounds of
 random edges and arcs to the lean loop (core/rounds._lean_ok), and a
 ``pallas_stripe*``/``pallas_rr*`` value sends the separate-pass loop's
@@ -82,7 +86,10 @@ class SimConfig:
     hb_dtype: str = "int32"          # heartbeat-lane storage: "int32" |
                                      # "int16" | "int8" (int8 requires
                                      # view_dtype="int8")
-    elementwise: str = "lanes"       # JAX elementwise formulation (ignored)
+    elementwise: str = "lanes"       # "lanes" | "swar": the SWAR form runs
+                                     # the round's compares and selects on 4
+                                     # packed int8 subjects per int32 word
+                                     # (needs hb_dtype="int8")
     rr_resident: str = "auto"        # JAX VMEM residency knob (ignored)
     rr_rotate: str = "auto"          # JAX VMEM layout knob (ignored)
     suspicion: SuspicionParams | None = None  # SWIM suspect/refute

@@ -61,8 +61,8 @@ from gossipfs_tpu_torch.config import (
 from gossipfs_tpu_torch.core import topology
 from gossipfs_tpu_torch.core.state import (
     FAILED, HB_DTYPES, MEMBER, SUSPECT, UNKNOWN, RoundEvents, SimState,
-    init_state, listed, member_counts, suspect_counts)
-from gossipfs_tpu_torch.ops import merge, merge_update
+    init_state, listed, member_counts, suspect_counts, swar_lanes_ok)
+from gossipfs_tpu_torch.ops import merge, merge_update, swar
 from gossipfs_tpu_torch.ops.merge_update import row_chunks
 from gossipfs_tpu_torch.scenarios import tensor as scn
 
@@ -212,13 +212,15 @@ def route(config: SimConfig, matrix_events: bool = False,
     ``("lean", form)`` with the resident round's merge form
     (ops/merge.kernel_form; an armed arc run takes an ``edge_filter``
     form, an armed explicit-edge run the ``edges`` form on rewritten
-    edges), or ``("separate", name)`` with the merge of
+    edges; ``elementwise="swar"`` its SWAR form, ``aligned_group/swar``),
+    or ``("separate", name)`` with the merge of
     :func:`merge_kernel`."""
     armed = scenario is not None
     if _lean_ok(config, matrix_events, scenario):
         arc = config.topology == "random_arc"
         return "lean", merge.kernel_form(config.fanout if arc else None,
-                                         config.arc_align, armed and arc)
+                                         config.arc_align, armed and arc,
+                                         config.elementwise)
     return "separate", merge_kernel(config, armed)
 
 
@@ -376,6 +378,8 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
     senders_kw = (dict() if explicit
                   else dict(fanout=config.fanout, arc_align=config.arc_align,
                             edge_filter=scenario is not None))
+    # _lean_ok's N % 4 == 0 and int8 lanes are what the SWAR form packs
+    senders_kw["elementwise"] = config.elementwise
     per_round = []
     for r in range(num_rounds):
         dead = None
@@ -609,7 +613,13 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
     (0 where none fired, as ``argmax`` gives), else (None, None); under
     suspicion the per-subject count of entries that entered SUSPECT, else
     None.  The REMOVE broadcast needs every receiver's detections before
-    any mark, so it takes a second pass over the chunks."""
+    any mark, so it takes a second pass over the chunks.
+
+    ``config.elementwise="swar"`` runs :func:`_tick_swar` where the lanes
+    pack (``swar_lanes_ok``: int8, N % 4 == 0), as the JAX package
+    dispatches; a ragged N takes this lanes form."""
+    if config.elementwise == "swar" and swar_lanes_ok(state.hb):
+        return _tick_swar(state, config, active, refresher, stats)
     hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
     n = hb.shape[0]
     dev = hb.device
@@ -692,6 +702,132 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
             st = torch.where((st == FAILED) & (age > config.t_cooldown),
                              UNKNOWN, st)
             asl[r0:r1] = _pack(st, age)
+    if not stats:
+        return None, None, entered
+    return n_det, torch.where(n_det > 0, fobs, 0), entered
+
+
+def _eye_words(r0: int, r1: int, n: int, device) -> torch.Tensor:
+    """Packed-word diagonal mask of rows ``r0..r1``: int32 ``[r, N/4]``,
+    byte 0xFF where receiver == subject (byte k of word w is subject
+    4w + k), from 4 word-width compares (the JAX package's
+    ``_eye_words``)."""
+    rows = torch.arange(r0, r1, dtype=torch.int32, device=device)[:, None]
+    colw = torch.arange(0, n, 4, dtype=torch.int32, device=device)[None]
+    out = None
+    for k, bm in enumerate(swar.BYTE):
+        m = torch.where(rows == colw + k, bm, 0).to(torch.int32)
+        out = m if out is None else out | m
+    return out
+
+
+def _tick_swar(state: SimState, config: SimConfig, active, refresher,
+               stats: bool):
+    """:func:`_tick` on packed words (the JAX package's ``_tick_swar``): 4
+    subjects per int32 op, the same bytes.  The JAX package keeps age and
+    status in separate lanes; here both ride the packed age|status byte
+    ``((age << 2) | status) - 128``, so every age threshold becomes one
+    signed compare of that byte against ``((t << 2) | status) - 128``
+    where the status is known (MEMBER for detection, SUSPECT for the
+    confirm, FAILED for the expiry), and a status write keeps or zeroes
+    the age bits.  Row masks (active, refresher, alive, the Lifeguard
+    threshold) are uniform across a word; per-subject thresholds pack 4 to
+    a word; only the diagonal differs per byte (:func:`_eye_words`).  The
+    reductions (detections, first observer, suspects entered, the REMOVE
+    broadcast's OR over receivers) read the masks back as bytes.  Same
+    contract as :func:`_tick`."""
+    hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
+    n = hb.shape[0]
+    dev = hb.device
+    sus = config.suspicion
+    w = swar.word
+    mem0, fail0 = w(MEMBER - 128), w(FAILED - 128)
+    det_thr = w(((config.t_fail << 2) | MEMBER) - 128)
+    cool_thr = w(((config.t_cooldown << 2) | FAILED) - 128)
+    thrw = swar.pack(torch.clamp(config.hb_grace - basec + 1, -128, 127)
+                     .to(torch.int8))
+    i32 = dict(dtype=torch.int32, device=dev)
+    removed = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_det = torch.zeros(n, **i32)
+    fobs = torch.full((n,), n, **i32)
+    entered = None
+    if sus is not None:
+        entered = torch.zeros(n, **i32)
+        confirm_w = w(((config.t_fail + sus.t_suspect) << 2 | SUSPECT) - 128)
+        if sus.lh_multiplier > 0:
+            lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32,
+                                   device=dev)
+
+    def failed_word(aslw):
+        # FAILED: the fresh cooldown stamps age 0, else the age is kept
+        if config.fresh_cooldown:
+            return fail0
+        return (aslw & w(0xFC)) | w(FAILED)
+
+    def expire(aslw):
+        # cooldown expiry -> UNKNOWN (status bits 0), age kept
+        exp = swar.eq(aslw & w(3), w(FAILED)) & swar.gts(aslw, cool_thr)
+        return swar.sel(swar.to_bytes(exp), aslw & w(0xFC), aslw)
+
+    for r0, r1 in row_chunks(n, n):
+        hbw = swar.pack(hb[r0:r1])
+        aslw = swar.pack(asl[r0:r1])
+        act = swar.bool_mask(active[r0:r1])[:, None]
+        ref = swar.bool_mask(refresher[r0:r1])[:, None]
+        eye = _eye_words(r0, r1, n, dev)
+        st = aslw & w(3)
+        stm = swar.eq(st, w(MEMBER))
+        if sus is None:
+            aslw = swar.sel(ref & swar.to_bytes(stm), st | swar.H, aslw)
+        else:
+            sus_pre = swar.eq(st, w(SUSPECT))
+            if sus.lh_multiplier > 0:
+                # Lifeguard, over this chunk's pre-tick rows
+                n_sus = (swar.unpack(sus_pre) != 0).sum(dim=1,
+                                                        dtype=torch.int32)
+                n_lst = (swar.unpack(stm | sus_pre) != 0).sum(
+                    dim=1, dtype=torch.int32)
+                degraded = n_sus.float() > lh_frac * n_lst.float()
+                age_thr = config.t_fail + sus.t_suspect * (
+                    1 + torch.where(degraded, sus.lh_multiplier, 0))
+                confirm_w = swar.splat((age_thr << 2 | SUSPECT) - 128)[:, None]
+            # the refresh also reverts SUSPECT -> MEMBER
+            aslw = swar.sel(ref & swar.to_bytes(stm | sus_pre), mem0, aslw)
+        # the sentinel-sticky diagonal bump and its stamp
+        bump = eye & act & swar.to_bytes(stm & swar.ne(hbw, swar.H))
+        hbw = swar.add(hbw, bump & swar.L)
+        aslw = swar.sel(bump, mem0, aslw)
+        past = swar.ges(hbw, thrw) & swar.ne(hbw, swar.H)
+        stale = act & ~eye & stm & past & swar.gts(aslw, det_thr)
+        if sus is None:
+            fail = stale
+        else:
+            fail = act & ~eye & sus_pre & swar.gts(aslw, confirm_w)
+            aslw = aslw | (swar.to_bytes(stale) & w(2))   # -> SUSPECT
+            entered += (swar.unpack(stale) != 0).sum(dim=0,
+                                                     dtype=torch.int32)
+        aslw = swar.sel(swar.to_bytes(fail), failed_word(aslw), aslw)
+        fail_rows = swar.unpack(fail) != 0
+        if config.remove_broadcast:
+            removed |= fail_rows.any(dim=0)
+        else:
+            aslw = expire(aslw)
+        if stats:
+            n_det += fail_rows.sum(dim=0, dtype=torch.int32)
+            rows = torch.arange(r0, r1, **i32)[:, None]
+            fobs = torch.minimum(
+                fobs, torch.where(fail_rows, rows, n).amin(dim=0))
+        hb[r0:r1] = swar.unpack(hbw)
+        asl[r0:r1] = swar.unpack(aslw)
+    if config.remove_broadcast:
+        # one detection removes the subject at every live receiver
+        removed_w = swar.pack(torch.where(removed, -1, 0).to(torch.int8))
+        for r0, r1 in row_chunks(n, n):
+            aslw = swar.pack(asl[r0:r1])
+            mark = (swar.bool_mask(alive[r0:r1])[:, None] & removed_w
+                    & swar.to_bytes(swar.eq(aslw & w(3), w(MEMBER))))
+            aslw = swar.sel(mark, failed_word(aslw), aslw)
+            asl[r0:r1] = swar.unpack(expire(aslw))
     if not stats:
         return None, None, entered
     return n_det, torch.where(n_det > 0, fobs, 0), entered
@@ -787,7 +923,8 @@ def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
     if name == "arc_group_merge_update":
         # torch ops whatever the device: there is no kernel to pick
         args = (view, arc_match) + args[2:]
-        kw.update(fanout=config.fanout, align=config.arc_align)
+        kw.update(fanout=config.fanout, align=config.arc_align,
+                  elementwise=config.elementwise)
         fn = merge_update.arc_group_merge_update
     else:
         fn = getattr(merge_update, name + ("_plain" if plain else ""))

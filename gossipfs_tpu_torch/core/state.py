@@ -135,3 +135,11 @@ def suspect_counts(state: SimState) -> torch.Tensor:
     """SUSPECT entries of each node's list (int32 [N]): the Lifeguard
     local-health input."""
     return _row_counts(state, lambda st: st == SUSPECT)
+
+
+def swar_lanes_ok(hb: torch.Tensor) -> bool:
+    """Whether the SWAR elementwise form (``config.elementwise="swar"``,
+    ops/swar.py: 4 subjects per int32 word) can pack these lanes: int8
+    storage and a minor (subject) axis divisible by the 4-byte word.  A
+    ragged N takes the lanes form, as in the JAX package."""
+    return hb.dtype == torch.int8 and hb.shape[-1] % 4 == 0

@@ -37,8 +37,7 @@
 // occupancy left the card idle between loads).  Each subject still costs
 // an estimated ~100 scalar integer instructions over the two passes (byte
 // extracts included), which would make instruction issue, not bytes, the
-// limit: packing 4 subjects per 32-bit op (the JAX package's SWAR form) is
-// the next step to try.
+// limit: the SWAR form below packs 4 subjects per 32-bit op to test that.
 //
 // The explicit-edge and plain-arc forms (kFullView) run pass A with the
 // same 8-row blocks but write every sender row's encoded view, so G is the
@@ -77,11 +76,24 @@
 // a zero mask (a receiver in a blacked-out rack) merges nothing and only
 // ages.  Bytes as the aligned form's (filter_group) or the plain-arc
 // form's (filter_rows), plus 8 B of senders per receiver.
+//
+// The SWAR form (kSwar, config elementwise="swar"; the JAX package's
+// _rr_tick_view_swar / _rr_merge_swar, merge_pallas.py:1643, :1720) is
+// one more template flag on both launches, every merge form and
+// suspicion mode: the same blocks, gathers and bytes, with the per-entry
+// arithmetic on one 32-bit word of 4 subjects per thread and row
+// (rr_swar.cuh: carry-safe byte-SIMD compares and selects, ~2x the
+// operations of one lane's on 1/4 the lanes, and no byte extracts).  The
+// words the diagonal crosses keep the lanes functions, as the JAX kernel
+// keeps its diagonal chunks on the lanes path.  Counts accumulate as
+// 0/1-per-byte counter words.  Its outputs are the lanes form's bit for
+// bit; if it is faster, the lanes form was issue-bound.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "gather_rows.cuh"
 #include "rr_elem.cuh"
+#include "rr_swar.cuh"
 
 namespace {
 
@@ -129,14 +141,12 @@ struct SusThr {
 // the 8-row group max [n/8, n].  kMute: flags bit 3 mutes the row's view
 // (the edge_filter forms).
 template <bool kSus, bool kFullView, bool kMute>
-__global__ void __launch_bounds__(kThreads)
-rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
-                    const int8_t* __restrict__ flags,
-                    const int8_t* __restrict__ vecs,
-                    int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
-                    int32_t* __restrict__ first_obs,
-                    int32_t* __restrict__ entered, int n, int t_fail,
-                    int t_cooldown, SusThr sus) {
+__device__ __forceinline__ void tick_view_lanes(
+    int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+    const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
+    int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
+    int32_t* __restrict__ first_obs, int32_t* __restrict__ entered, int n,
+    int t_fail, int t_cooldown, SusThr sus) {
   const int grp = blockIdx.x;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   if (col0 >= n) return;
@@ -220,6 +230,112 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   }
 }
 
+// Pass A in the SWAR form: the same block walk with one 4-subject word
+// per thread and row.  A word the diagonal crosses (row in [col0, col0 +
+// 4)) takes the lanes functions byte by byte; every other word the
+// eye-free word tick (rr_swar.cuh).  The group max is one maxs per word;
+// detections and SUSPECT entries accumulate as 0/1-per-byte counter words
+// over the block's 8 rows (at most 8 per byte), unpacked once before the
+// atomics; the lowest firing row per byte rides a word of row numbers
+// written where a byte fires first (the rare path, behind a branch).
+template <bool kSus, bool kFullView, bool kMute>
+__device__ __forceinline__ void tick_view_swar(
+    int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+    const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
+    int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
+    int32_t* __restrict__ first_obs, int32_t* __restrict__ entered, int n,
+    int t_fail, int t_cooldown, SusThr sus) {
+  const int grp = blockIdx.x;
+  const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
+  if (col0 >= n) return;
+  // the stack rows pass A reads
+  SwVec vec{};
+  vec.v[V_SA_N] = swar::load(vecs + (size_t)V_SA_N * n + col0);
+  vec.v[V_SA_ALL] = swar::load(vecs + (size_t)V_SA_ALL * n + col0);
+  vec.v[V_HI_N] = swar::load(vecs + (size_t)V_HI_N * n + col0);
+  vec.v[V_THR_G] = swar::load(vecs + (size_t)V_THR_G * n + col0);
+  uint32_t gm = swar::H;  // -128 per byte
+  uint32_t det = 0, ent = 0, seen = 0, first = 0;
+  const int rows = kFullView ? min(kAlign, n - grp * kAlign) : kAlign;
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    const int row = grp * kAlign + r;
+    const int f = flags[row];
+    const bool act = (f & 1) != 0;
+    const bool ref = (f & 2) != 0;
+    const bool lh = (f & 16) != 0;
+    const bool sends = rr_sends(f, kMute);
+    const size_t off = (size_t)row * n + col0;
+    const uint32_t h = swar::load(hb + off);
+    const uint32_t a = swar::load(asl + off);
+    const int d = row - col0;  // the diagonal's byte, if in [0, 4)
+    const SwTickView t =
+        (unsigned)d < 4u
+            ? rr_tick_view_lanes_word<kSus>(h, a, act, ref, lh, sends, d,
+                                            vec, t_fail, t_cooldown,
+                                            sus.confirm, sus.confirm_hi)
+            : rr_tick_view_swar<kSus>(h, a, swar::row(act), swar::row(ref),
+                                      swar::row(lh), swar::row(sends), vec,
+                                      t_fail, t_cooldown, sus.confirm,
+                                      sus.confirm_hi);
+    swar::store(hb + off, t.hb);
+    swar::store(asl + off, t.asl);
+    if (kFullView)
+      swar::store(gmax + off, t.enc);
+    else
+      gm = swar::maxs(gm, t.enc);
+    det += t.fail >> 7;
+    if (t.fail) {
+      const uint32_t fresh = t.fail & ~seen;
+      seen |= t.fail;
+      first = swar::sel(swar::bytes(fresh), swar::word(r), first);
+    }
+    if (kSus) ent += t.entered >> 7;
+  }
+  if (!kFullView) swar::store(gmax + (size_t)grp * n + col0, gm);
+  if (!(det | ent)) return;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int c = (det >> (8 * k)) & 0xFF;
+    if (c) {
+      atomicAdd(n_det + col0 + k, c);
+      atomicMin(first_obs + col0 + k,
+                grp * kAlign + (int)((first >> (8 * k)) & 0xFF));
+    }
+    const int e = (ent >> (8 * k)) & 0xFF;
+    if (kSus && e) atomicAdd(entered + col0 + k, e);
+  }
+}
+
+// kSwar picks the SWAR form of the pass, same outputs.
+template <bool kSus, bool kFullView, bool kMute, bool kSwar>
+__global__ void __launch_bounds__(kThreads)
+rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+                    const int8_t* __restrict__ flags,
+                    const int8_t* __restrict__ vecs,
+                    int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
+                    int32_t* __restrict__ first_obs,
+                    int32_t* __restrict__ entered, int n, int t_fail,
+                    int t_cooldown, SusThr sus) {
+  if constexpr (kSwar)
+    tick_view_swar<kSus, kFullView, kMute>(hb, asl, flags, vecs, gmax, n_det,
+                                           first_obs, entered, n, t_fail,
+                                           t_cooldown, sus);
+  else
+    tick_view_lanes<kSus, kFullView, kMute>(hb, asl, flags, vecs, gmax,
+                                            n_det, first_obs, entered, n,
+                                            t_fail, t_cooldown, sus);
+}
+
+// After pass A (stream order): columns no row fired on get the sentinel
+// N, as the plain version gives.  Run by pass B's first row of blocks.
+__device__ __forceinline__ void fobs_unset_to_n(int32_t* first_obs, int col0,
+                                                int n) {
+#pragma unroll
+  for (int k = 0; k < kVec; ++k)
+    if (first_obs[col0 + k] == kFobsUnset) first_obs[col0 + k] = n;
+}
+
 // the merge pass's suspicion outputs (null in the crash-only form)
 struct SusOut {
   int32_t* refuted;      // [n] per subject
@@ -236,16 +352,13 @@ struct SusOut {
 // over the whole view with ``width`` = F and ``group_shift`` =
 // log2(arc_align).
 template <bool kSus, bool kLh, int kForm>
-__global__ void __launch_bounds__(kThreads)
-rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
-                const int8_t* __restrict__ flags,
-                const int8_t* __restrict__ vecs,
-                const int32_t* __restrict__ senders,
-                const int8_t* __restrict__ gmax,
-                int32_t* __restrict__ member_cnt,
-                int32_t* __restrict__ recv_cnt,
-                int32_t* __restrict__ first_obs, SusOut so, int n, int width,
-                int group_shift, int age_clamp) {
+__device__ __forceinline__ void merge_lanes(
+    int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+    const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
+    const int32_t* __restrict__ senders, const int8_t* __restrict__ gmax,
+    int32_t* __restrict__ member_cnt, int32_t* __restrict__ recv_cnt,
+    int32_t* __restrict__ first_obs, SusOut so, int n, int width,
+    int group_shift, int age_clamp) {
   const int row0 = blockIdx.x * kRowsB;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   // every lane of a warp takes part in the row reductions below, so a
@@ -376,16 +489,151 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     if (kSus && ref[k]) atomicAdd(so.refuted + col0 + k, ref[k]);
     if (kSus && hld[k]) atomicAdd(so.held + col0 + k, hld[k]);
   }
-  if (blockIdx.x == 0) {
-    // pass A has finished (stream order): columns no row fired on get
-    // the sentinel N, as the plain version gives
-#pragma unroll
-    for (int k = 0; k < kVec; ++k)
-      if (first_obs[col0 + k] == kFobsUnset) first_obs[col0 + k] = n;
-  }
+  if (blockIdx.x == 0) fobs_unset_to_n(first_obs, col0, n);
 }
 
+// Pass B in the SWAR form: the byte max over the groups or gathered rows
+// is one maxs per word, the epilogue rr_merge_swar_t; recv_cnt and the
+// Lifeguard SUSPECT count are __popc of a 0/1-per-byte word into the same
+// warp reduce, and the per-subject member, refuted and held counts
+// accumulate as 0/1-per-byte counter words over the block's 32 rows (at
+// most 32 per byte), unpacked once before the atomics.
 template <bool kSus, bool kLh, int kForm>
+__device__ __forceinline__ void merge_swar(
+    int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+    const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
+    const int32_t* __restrict__ senders, const int8_t* __restrict__ gmax,
+    int32_t* __restrict__ member_cnt, int32_t* __restrict__ recv_cnt,
+    int32_t* __restrict__ first_obs, SusOut so, int n, int width,
+    int group_shift, int age_clamp) {
+  using swar::word;
+  const int row0 = blockIdx.x * kRowsB;
+  const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
+  // every lane of a warp takes part in the row reductions below, so a
+  // thread past the last column stays in the loop with nothing to count
+  const bool valid = col0 < n;
+  const int nb = n / kAlign;
+  // the stack rows the epilogue reads (pass A's four are not)
+  SwVec vec{};
+#pragma unroll
+  for (int i = 0; i < N_VEC; ++i)
+    if (valid && i != V_SA_ALL && i != V_HI_N && i != V_THR_G)
+      vec.v[i] = swar::load(vecs + (size_t)i * n + col0);
+  uint32_t cnt = 0, refw = 0, hld = 0;
+#pragma unroll 1
+  for (int r = 0; r < kRowsB; ++r) {
+    const int row = row0 + r;
+    if (row >= n) break;  // uniform across the block
+    int listed_sum = 0;
+    int sus_sum = 0;
+    if (valid) {
+      const bool recv = (flags[row] & 4) != 0;
+      uint32_t best = 0xFFFFFFFFu;
+      if (kForm == kFormGroup) {
+        const int g0 = senders[row] / kAlign;
+        best = swar::load(gmax + (size_t)g0 * n + col0);
+        for (int w = 1; w < width; ++w) {
+          const int g = (g0 + w) % nb;
+          best = swar::maxs(best, swar::load(gmax + (size_t)g * n + col0));
+        }
+      } else if (recv) {
+        // a dead receiver's best is never read: it skips the gather
+        if (kForm == kFormEdges) {
+          const int32_t* e = senders + (size_t)row * width;
+          best = gather_max_swar(gmax, n, n, col0, width,
+                                 [e](int f) { return e[f]; });
+        } else if (kForm == kFormArc) {
+          const int base = senders[row];
+          best = gather_max_swar(gmax, n, n, col0, width, [base, n](int f) {
+            const int s = base + f;
+            return s >= n ? s - n : s;
+          });
+        } else if (kForm == kFormFilterGroup) {
+          const int g0 = senders[2 * (size_t)row] / kAlign;
+          const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
+          best = gather_max_masked_swar(gmax, nb, n, col0, width, 0, mask,
+                                        [g0, nb](int k) {
+                                          const int g = g0 + k;
+                                          return g >= nb ? g - nb : g;
+                                        });
+        } else {
+          const int base = senders[2 * (size_t)row];
+          const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
+          best = gather_max_masked_swar(gmax, n, n, col0, width, group_shift,
+                                        mask, [base, n](int f) {
+                                          const int s = base + f;
+                                          return s >= n ? s - n : s;
+                                        });
+        }
+      }
+      const size_t off = (size_t)row * n + col0;
+      const SwMerge m = rr_merge_swar_t<kSus>(
+          swar::load(hb + off), swar::load(asl + off), best, swar::row(recv),
+          vec, age_clamp);
+      swar::store(hb + off, m.hb);
+      swar::store(asl + off, m.asl);
+      const uint32_t st = m.asl & word(3);
+      // 0/1 per byte: listed (status bit 0 under suspicion), SUSPECT
+      const uint32_t listed =
+          kSus ? st & swar::L : swar::eq(st, word(RR_MEMBER)) >> 7;
+      if (recv) cnt += listed;
+      listed_sum = __popc(listed);
+      if (kSus) {
+        const uint32_t held = swar::eq(st, word(RR_SUSPECT)) >> 7;
+        refw += m.refuted & swar::L;
+        hld += held;
+        sus_sum = __popc(held);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      listed_sum += __shfl_down_sync(0xffffffffu, listed_sum, o);
+    if ((threadIdx.x & 31) == 0 && listed_sum)
+      atomicAdd(recv_cnt + row, listed_sum);
+    if (kLh) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sus_sum += __shfl_down_sync(0xffffffffu, sus_sum, o);
+      if ((threadIdx.x & 31) == 0 && sus_sum)
+        atomicAdd(so.suspect_cnt + row, sus_sum);
+    }
+  }
+  if (!valid) return;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int s = 8 * k;
+    if ((cnt >> s) & 0xFF) atomicAdd(member_cnt + col0 + k, (cnt >> s) & 0xFF);
+    if (kSus && ((refw >> s) & 0xFF))
+      atomicAdd(so.refuted + col0 + k, (refw >> s) & 0xFF);
+    if (kSus && ((hld >> s) & 0xFF))
+      atomicAdd(so.held + col0 + k, (hld >> s) & 0xFF);
+  }
+  if (blockIdx.x == 0) fobs_unset_to_n(first_obs, col0, n);
+}
+
+// kSwar picks the SWAR form of the pass, same outputs.
+template <bool kSus, bool kLh, int kForm, bool kSwar>
+__global__ void __launch_bounds__(kThreads)
+rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+                const int8_t* __restrict__ flags,
+                const int8_t* __restrict__ vecs,
+                const int32_t* __restrict__ senders,
+                const int8_t* __restrict__ gmax,
+                int32_t* __restrict__ member_cnt,
+                int32_t* __restrict__ recv_cnt,
+                int32_t* __restrict__ first_obs, SusOut so, int n, int width,
+                int group_shift, int age_clamp) {
+  if constexpr (kSwar)
+    merge_swar<kSus, kLh, kForm>(hb, asl, flags, vecs, senders, gmax,
+                                 member_cnt, recv_cnt, first_obs, so, n,
+                                 width, group_shift, age_clamp);
+  else
+    merge_lanes<kSus, kLh, kForm>(hb, asl, flags, vecs, senders, gmax,
+                                  member_cnt, recv_cnt, first_obs, so, n,
+                                  width, group_shift, age_clamp);
+}
+
+template <bool kSus, bool kLh, int kForm, bool kSwar>
 cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
                          const int8_t* vecs, const int32_t* senders,
                          int8_t* gmax, int32_t* o, int n, int fanout,
@@ -395,7 +643,7 @@ cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
   constexpr bool kMute = kForm == kFormFilterGroup || kForm == kFormFilterRows;
   const int tiles = (n + kTile - 1) / kTile;
   const size_t nn = (size_t)n;
-  rr_tick_view_kernel<kSus, kFull, kMute>
+  rr_tick_view_kernel<kSus, kFull, kMute, kSwar>
       <<<dim3((n + kAlign - 1) / kAlign, tiles), kThreads, 0, s>>>(
           hb, asl, flags, vecs, gmax, o + nn, o + 2 * nn,
           kSus ? o + 4 * nn : nullptr, n, t_fail, t_cooldown, sus);
@@ -403,14 +651,14 @@ cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
   if (e != cudaSuccess) return e;
   SusOut so{kSus ? o + 5 * nn : nullptr, kSus ? o + 6 * nn : nullptr,
             kLh ? o + 7 * nn : nullptr};
-  rr_merge_kernel<kSus, kLh, kForm>
+  rr_merge_kernel<kSus, kLh, kForm, kSwar>
       <<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
           hb, asl, flags, vecs, senders, gmax, o, o + 3 * nn, o + 2 * nn, so,
           n, kFull ? fanout : fanout / kAlign, group_shift, age_clamp);
   return cudaGetLastError();
 }
 
-template <int kForm>
+template <int kForm, bool kSwar>
 cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
                         const int8_t* flags, const int8_t* vecs,
                         const int32_t* senders, int8_t* gmax, int32_t* o,
@@ -419,9 +667,29 @@ cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
                         cudaStream_t s) {
 #define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, n, fanout, \
       group_shift, t_fail, t_cooldown, sus, age_clamp, s
-  if (!suspect) return launch_round<false, false, kForm>(RR_ARGS);
-  if (!lh) return launch_round<true, false, kForm>(RR_ARGS);
-  return launch_round<true, true, kForm>(RR_ARGS);
+  if (!suspect) return launch_round<false, false, kForm, kSwar>(RR_ARGS);
+  if (!lh) return launch_round<true, false, kForm, kSwar>(RR_ARGS);
+  return launch_round<true, true, kForm, kSwar>(RR_ARGS);
+#undef RR_ARGS
+}
+
+template <bool kSwar>
+cudaError_t launch_elementwise(int form, int suspect, int lh, int8_t* hb,
+                               int8_t* asl, const int8_t* flags,
+                               const int8_t* vecs, const int32_t* senders,
+                               int8_t* gmax, int32_t* o, int n, int fanout,
+                               int group_shift, int t_fail, int t_cooldown,
+                               SusThr sus, int age_clamp, cudaStream_t s) {
+#define RR_ARGS suspect, lh, hb, asl, flags, vecs, senders, gmax, o, n, \
+      fanout, group_shift, t_fail, t_cooldown, sus, age_clamp, s
+  switch (form) {
+    case kFormGroup: return launch_form<kFormGroup, kSwar>(RR_ARGS);
+    case kFormEdges: return launch_form<kFormEdges, kSwar>(RR_ARGS);
+    case kFormArc: return launch_form<kFormArc, kSwar>(RR_ARGS);
+    case kFormFilterGroup:
+      return launch_form<kFormFilterGroup, kSwar>(RR_ARGS);
+    default: return launch_form<kFormFilterRows, kSwar>(RR_ARGS);
+  }
 #undef RR_ARGS
 }
 
@@ -444,13 +712,14 @@ cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
 // [7, n], adding entered, refuted and held per subject; with ``lh`` too
 // [8, n], adding suspect_cnt per receiver.  ``confirm_thr`` /
 // ``confirm_thr_hi``: the suspicion confirm ages of a healthy / degraded
-// receiver.  Returns the CUDA error code of the launches (0 on success).
+// receiver.  ``swar`` 1 runs the SWAR form (same outputs).  Returns the
+// CUDA error code of the launches (0 on success).
 extern "C" int rr_round(void* hb, void* asl, const void* flags,
                         const void* vecs, const void* senders, void* gmax,
                         void* out, int n, int fanout, int form, int align,
                         int t_fail, int t_cooldown, int age_clamp,
                         int suspect, int lh, int confirm_thr,
-                        int confirm_thr_hi, void* stream) {
+                        int confirm_thr_hi, int swar, void* stream) {
   if (n <= 0 || n % kVec || fanout <= 0 || fanout > n || (lh && !suspect) ||
       form < kFormGroup || form > kFormFilterRows ||
       ((form == kFormGroup || form == kFormFilterGroup) &&
@@ -472,16 +741,13 @@ extern "C" int rr_round(void* hb, void* asl, const void* flags,
   e = cudaMemsetAsync(o + 2 * (size_t)n, 0x7F, sizeof(int32_t) * (size_t)n, s);
   if (e != cudaSuccess) return (int)e;
   const SusThr sus{confirm_thr, confirm_thr_hi};
-#define RR_ARGS suspect, lh, static_cast<int8_t*>(hb), \
+#define RR_ARGS form, suspect, lh, static_cast<int8_t*>(hb), \
       static_cast<int8_t*>(asl), static_cast<const int8_t*>(flags), \
       static_cast<const int8_t*>(vecs), \
       static_cast<const int32_t*>(senders), static_cast<int8_t*>(gmax), o, \
       n, fanout, group_shift, t_fail, t_cooldown, sus, age_clamp, s
-  if (form == kFormGroup) e = launch_form<kFormGroup>(RR_ARGS);
-  else if (form == kFormEdges) e = launch_form<kFormEdges>(RR_ARGS);
-  else if (form == kFormArc) e = launch_form<kFormArc>(RR_ARGS);
-  else if (form == kFormFilterGroup) e = launch_form<kFormFilterGroup>(RR_ARGS);
-  else e = launch_form<kFormFilterRows>(RR_ARGS);
+  e = swar ? launch_elementwise<true>(RR_ARGS)
+           : launch_elementwise<false>(RR_ARGS);
 #undef RR_ARGS
   return (int)e;
 }

@@ -18,8 +18,9 @@ fresh state (set-up not timed) and ends in a device synchronize.  Prints
 one JSON line: the JAX package's fields, less ``rr_rotate``,
 ``merge_block_r`` and ``row_budget_bytes`` (TPU VMEM layout, which the
 port does not have), plus the device and its peak memory.
-``--elementwise swar`` and ``--trace`` raise ``NotImplementedError``
-until the resident round's SWAR form and the flight recorder are ported.
+``--elementwise swar`` runs the resident round's SWAR form;
+``--trace`` raises ``NotImplementedError`` until the flight recorder is
+ported.
 """
 
 from __future__ import annotations
@@ -53,13 +54,15 @@ def pad_quantum(block_c: int, topology: str) -> int:
 
 
 def frontier_config(n: int, block_c: int = 1024, topology: str = "random",
-                    arc_align: int = 1, fanout: int | None = None):
+                    arc_align: int = 1, fanout: int | None = None,
+                    elementwise: str = "lanes"):
     """(config, n_padded): ``SimConfig.packed_rr`` at the padded N, with
     the JAX frontier's fanout rule (aligned arcs round log2 N up to a
     multiple of the alignment)."""
     n_pad = -(-n // pad_quantum(block_c, topology)) * pad_quantum(
         block_c, topology)
-    over = dict(topology=topology, arc_align=arc_align)
+    over = dict(topology=topology, arc_align=arc_align,
+                elementwise=elementwise)
     if fanout:
         over["fanout"] = fanout
     elif arc_align > 1:
@@ -73,10 +76,6 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
         seed: int = 0, topology: str = "random", arc_align: int = 1,
         fanout: int | None = None, elementwise: str = "lanes",
         trace: str | None = None, device="cuda") -> dict:
-    if elementwise != "lanes":
-        raise NotImplementedError(
-            "elementwise='swar' is the resident round's SWAR form, not "
-            "ported yet (ROADMAP Queue 2, K3)")
     if trace is not None:
         raise NotImplementedError(
             "--trace needs the flight recorder (obs/), not ported yet "
@@ -85,7 +84,8 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("gossipfs_tpu_torch.frontier needs a CUDA device "
                          "(or device='cpu')")
-    cfg, n_pad = frontier_config(n, block_c, topology, arc_align, fanout)
+    cfg, n_pad = frontier_config(n, block_c, topology, arc_align, fanout,
+                                 elementwise)
     padded = n_pad != n
     if not R._lean_ok(cfg, False):
         raise ValueError(f"{cfg} does not take the lean loop")
@@ -166,7 +166,8 @@ def main(argv=None) -> dict:
                    help="aligned arc bases (random_arc only)")
     p.add_argument("--fanout", type=int, default=None)
     p.add_argument("--elementwise", choices=("lanes", "swar"),
-                   default="lanes", help="swar: not ported yet (raises)")
+                   default="lanes",
+                   help="swar: the resident round's SWAR form")
     p.add_argument("--trace", type=str, default=None, metavar="PATH",
                    help="flight-recorder trace: not ported yet (raises)")
     p.add_argument("--device", type=str, default="cuda")

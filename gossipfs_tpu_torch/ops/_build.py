@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "resident_round": {
-        "rr_round": (_I, [_P] * 7 + [_I] * 11 + [_P]),
+        "rr_round": (_I, [_P] * 7 + [_I] * 12 + [_P]),
     },
     "fanout_max": {
         "fx_fanout_max": (_I, [_P] * 3 + [_I] * 4 + [_P]),

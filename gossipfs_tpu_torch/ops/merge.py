@@ -54,6 +54,14 @@ separate-pass round (core/rounds._lean_ok).
 All arithmetic is int32 over int8 lane values with an explicit mod-2^8
 wrap where a value is compared or stored, so every result is exact: the
 kernel, this plain version and the JAX package agree bit for bit.
+
+``elementwise="swar"`` is the SWAR form (the JAX package's
+``_rr_tick_view_swar``/``_rr_merge_swar``, config ``elementwise="swar"``):
+the same round on 4 packed int8 subjects per int32 word (ops/swar.py),
+compares and selects as carry-safe byte-SIMD word ops.  The words the
+diagonal crosses keep the lanes formulation (the bump needs a per-byte eye
+mask), as in the JAX kernel.  Its outputs are the lanes form's, bit for
+bit; the kernel's twin is ``csrc/rr_swar.cuh``.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ import torch
 
 from gossipfs_tpu_torch.config import AGE_CLAMP
 from gossipfs_tpu_torch.core.state import FAILED, MEMBER, SUSPECT, UNKNOWN
+from gossipfs_tpu_torch.ops import swar
 
 # rows of the per-subject int8 threshold stack (csrc/rr_elem.cuh has the
 # same enumeration)
@@ -81,10 +90,13 @@ ARC_MATCH_MAX_GROUPS = 31
 
 # the kernel's merge forms (csrc/resident_round.cu rr_round's ``form``)
 FORMS = ("aligned_group", "edges", "arc", "filter_group", "filter_rows")
+ELEMENTWISE = ("lanes", "swar")
+# the SWAR form of each merge form, by its launch-count name
+SWAR_FORMS = tuple(f + "/swar" for f in FORMS)
 
 
 def kernel_form(fanout: int | None, arc_align: int,
-                edge_filter: bool = False) -> str:
+                edge_filter: bool = False, elementwise: str = "lanes") -> str:
     """The merge form the CUDA kernel runs: ``aligned_group`` for arc bases
     aligned to its 8-row sender groups, ``arc`` for any other arc bases
     (F consecutive sender rows), ``edges`` for explicit in-edges (``fanout``
@@ -92,12 +104,16 @@ def kernel_form(fanout: int | None, arc_align: int,
     ``filter_group``, the masked max over the 8-row group maxes, for
     ``arc_align`` 8; ``filter_rows`` for any other alignment, the masked
     max over the arc's F view rows, row ``f`` kept iff bit ``f //
-    arc_align`` is set (the max over a group is the max over its rows)."""
+    arc_align`` is set (the max over a group is the max over its rows).
+    Under ``elementwise="swar"`` the name gains ``/swar``: the same merge
+    form on packed words (``aligned_group/swar``)."""
     if fanout is None:
-        return "edges"
-    if edge_filter:
-        return "filter_group" if arc_align == KERNEL_ALIGN else "filter_rows"
-    return "aligned_group" if arc_align == KERNEL_ALIGN else "arc"
+        form = "edges"
+    elif edge_filter:
+        form = "filter_group" if arc_align == KERNEL_ALIGN else "filter_rows"
+    else:
+        form = "aligned_group" if arc_align == KERNEL_ALIGN else "arc"
+    return form + "/swar" if elementwise == "swar" else form
 
 
 # launches of each kernel wrapper (plain-version calls do not count):
@@ -106,8 +122,9 @@ def kernel_form(fanout: int | None, arc_align: int,
 LAUNCH_COUNTS = {"resident_round": 0, "fused_merge_update": 0,
                  "arc_merge_update": 0, "stripe_merge_update": 0,
                  "fanout_max_merge": 0}
-# the resident round's launches again, by the merge form launched
-FORM_LAUNCHES = dict.fromkeys(FORMS, 0)
+# the resident round's launches again, by the merge form launched (the
+# SWAR forms under their own names)
+FORM_LAUNCHES = dict.fromkeys(FORMS + SWAR_FORMS, 0)
 _launch_events: list | None = None
 
 
@@ -277,6 +294,116 @@ def merge_plain(hb, asl, best, recv, v, age_clamp: int,
     return new_hb, new_asl, refuted
 
 
+def tick_view_swar_plain(hbw, aslw, act, ref, sends, vw, t_fail: int,
+                         t_cooldown: int, suspect: bool = False, lh=None,
+                         confirm_thr: int = 0, confirm_thr_hi: int = 0):
+    """The eye-free tick and view encode over packed words
+    (csrc/rr_swar.cuh rr_tick_view_swar; the JAX package's
+    ``_rr_tick_view_swar``), for words the diagonal does not cross.
+    ``hbw``/``aslw`` int32 words; ``act``/``ref``/``sends``/``lh`` row
+    masks as words (-1/0, ops/swar.bool_mask); ``vw`` the packed threshold
+    stack.  Returns (hbw, aslw, fail, entered, enc): ``fail`` (the
+    confirmations under ``suspect``) and ``entered`` (None without
+    ``suspect``) hmasks, ``enc`` the view words (-1 where absent)."""
+    w = swar.word
+    st = aslw & w(3)
+    stm = swar.eq(st, w(MEMBER))
+    nsent = swar.ne(hbw, swar.H)
+    if suspect:
+        sus_pre = swar.eq(st, w(SUSPECT))
+        # listed refreshers land at (MEMBER, age 0), SUSPECT reverted
+        aslw = swar.sel(swar.to_bytes(ref & (stm | sus_pre)),
+                        w(MEMBER - 128), aslw)
+    else:
+        aslw = swar.sel(swar.to_bytes(ref & stm), st | swar.H, aslw)
+    past = swar.ges(hbw, vw[V_THR_G]) & nsent
+    stale = (act & stm & past
+             & swar.gts(aslw, w(((t_fail << 2) | MEMBER) - 128)))
+    entered = None
+    if suspect:
+        thr = w(((confirm_thr << 2) | SUSPECT) - 128)
+        if lh is not None:
+            thr = swar.sel(lh, w(((confirm_thr_hi << 2) | SUSPECT) - 128),
+                           thr)
+        fail = act & sus_pre & swar.gts(aslw, thr)
+        # MEMBER -> SUSPECT is status bit 1; the age keeps running
+        aslw = aslw | (swar.to_bytes(stale) & w(2))
+        elig = (stm | sus_pre) & ~fail
+        entered = stale
+    else:
+        fail = stale
+        elig = stm & ~fail
+    aslw = swar.sel(swar.to_bytes(fail), w(FAILED - 128), aslw)
+    expire = (swar.eq(aslw & w(3), w(FAILED))
+              & swar.gts(aslw, w(((t_cooldown << 2) | FAILED) - 128)))
+    aslw = swar.sel(swar.to_bytes(expire), aslw & w(0xFC), aslw)
+    goss = (elig & sends
+            & (swar.ges(hbw, vw[V_SA_N]) | swar.ne(vw[V_SA_ALL], 0))
+            & swar.les(hbw, vw[V_HI_N]) & nsent)
+    enc = swar.sel(swar.to_bytes(goss), swar.sub(hbw, vw[V_SA_N]), -1)
+    return hbw, aslw, fail, entered, enc
+
+
+def merge_swar_plain(hbw, aslw, best, recv, vw, age_clamp: int,
+                     suspect: bool = False):
+    """The merge epilogue over packed words (csrc/rr_swar.cuh
+    rr_merge_swar_t; the JAX package's ``_rr_merge_swar``, and term for
+    term its separate-pass ``_membership_update_swar``).  ``best`` the
+    merged view words, ``recv`` the receiver row mask (-1/0), ``vw`` the
+    packed threshold stack.  Returns (hbw, aslw, refuted), ``refuted`` a
+    full-byte mask of the advances on SUSPECT entries (None without
+    ``suspect``)."""
+    w = swar.word
+    st = aslw & w(3)
+    anym = ~best & swar.H                       # best >= 0
+    lst = swar.ne(st & swar.L, 0) if suspect else swar.eq(st, w(MEMBER))
+    adv = recv & swar.to_bytes(
+        lst & anym & swar.gts(best, vw[V_CMP_DEEP])
+        & swar.gts(swar.add(best, vw[V_SA_N]), hbw))
+    add = recv & swar.to_bytes(swar.eq(st, w(UNKNOWN)) & anym)
+    upd = adv | add
+    up_val = swar.sel(swar.to_bytes(swar.les(best, vw[V_UP_DEEP])), swar.H,
+                      swar.add(best, vw[V_D8]))
+    keep_val = swar.sel(
+        swar.to_bytes(swar.ne(vw[V_HAS_HI], 0) & swar.ges(hbw, vw[V_HI_THR])),
+        w(127), swar.sub(hbw, vw[V_SB8]))
+    keep_val = swar.sel(swar.to_bytes(swar.les(hbw, vw[V_KEEP_THR])),
+                        swar.H, keep_val)
+    new_hb = swar.sel(upd, up_val, keep_val)
+    # every update lands at (MEMBER, age 0); then the saturating age step
+    base = swar.sel(upd, w(MEMBER - 128), aslw)
+    new_asl = swar.sel(
+        swar.to_bytes(swar.ges(base, w((age_clamp << 2) - 128))), base,
+        swar.add(base, w(4)))
+    refuted = (adv & swar.to_bytes(swar.eq(st, w(SUSPECT)))
+               if suspect else None)
+    return new_hb, new_asl, refuted
+
+
+def group_max_swar(enc: torch.Tensor, align: int) -> torch.Tensor:
+    """Byte max over each aligned group of ``align`` rows of view words
+    ``[r, C]`` -> ``[r / align, C]`` (one ``swar.maxs`` per word and row)."""
+    g = enc.reshape(enc.shape[0] // align, align, -1)
+    out = g[:, 0]
+    for j in range(1, align):
+        out = swar.maxs(out, g[:, j])
+    return out
+
+
+def masked_group_window_max_swar(gw: torch.Tensor, edges2: torch.Tensor,
+                                 nw: int, align: int) -> torch.Tensor:
+    """:func:`masked_group_window_max` over group-max words ``gw``
+    ``[N/align, C/4]``: a dropped group contributes -1 in every byte."""
+    nb = gw.shape[0]
+    g = edges2[:, 0].to(torch.int64) // align
+    best = None
+    for k in range(nw):
+        keep = ((edges2[:, 1] >> k) & 1) != 0
+        v = torch.where(keep[:, None], gw[(g + k) % nb], -1)
+        best = v if best is None else swar.maxs(best, v)
+    return best
+
+
 def masked_group_window_max(gmax: torch.Tensor, edges2: torch.Tensor,
                             nw: int, align: int) -> torch.Tensor:
     """``best[i, :] = max_{k < nw} (bit k of mask[i] ? gmax[(base[i] /
@@ -332,12 +459,65 @@ def _sus_thresholds(t_fail: int, suspect: bool, t_suspect: int,
     return t_fail + t_suspect, hi
 
 
+def _tick_view_lanes(h, a, rows, c, vc, act, ref, lh, sends, t_fail: int,
+                     t_cooldown: int, suspect: bool, thr: int, thr_hi: int):
+    """Pass A's tick and view encode in the lanes form over int32 ``h``/``a``
+    at columns ``c`` (``[1, C]``, or ``[r, k]`` per row), ``vc`` the int32
+    stack at those columns, the row masks ``[r, 1]``.  Returns (hb, asl,
+    fail, entered, enc), ``entered`` None without ``suspect``."""
+    eye = rows[:, None] == c
+    entered = None
+    if suspect:
+        h, a, fail, elig, entered = tick_sus_plain(
+            h, a, act, ref, eye, lh, vc[V_THR_G], t_fail, t_cooldown, thr,
+            thr_hi)
+    else:
+        h, a, fail, elig = tick_plain(h, a, act, ref, eye, vc[V_THR_G],
+                                      t_fail, t_cooldown)
+    enc = view_plain(h, elig, sends, vc[V_SA_N], vc[V_SA_ALL], vc[V_HI_N])
+    return h, a, fail, entered, enc
+
+
+def _tick_view_swar_rows(hb, asl, r0: int, r1: int, v, vw, masks,
+                         t_fail: int, t_cooldown: int, suspect: bool,
+                         thr: int, thr_hi: int):
+    """Pass A over rows ``r0..r1`` in the SWAR form: the eye-free word
+    tick everywhere, then the words the diagonal crosses (row ``i``'s word
+    ``i // 4``) recomputed in the lanes form.  ``masks`` the bool row masks
+    (act, ref, lh, sends).  Writes the post-tick lanes; returns (fail,
+    entered, enc words)."""
+    dev = hb.device
+    rows = torch.arange(r0, r1, device=dev)
+    dcols = (rows // 4 * 4)[:, None] + torch.arange(4, device=dev)[None]
+    act, ref, lh, sends = (m[r0:r1, None] for m in masks)
+    # the diagonal words' pre-tick bytes, before any write
+    diag = _tick_view_lanes(
+        hb[r0:r1].gather(1, dcols).to(torch.int32),
+        asl[r0:r1].gather(1, dcols).to(torch.int32), rows, dcols,
+        v[:, dcols], act, ref, lh, sends, t_fail, t_cooldown, suspect, thr,
+        thr_hi)
+    hw, aw, fail_h, ent_h, enc = tick_view_swar_plain(
+        swar.pack(hb[r0:r1]).clone(), swar.pack(asl[r0:r1]),
+        swar.bool_mask(act), swar.bool_mask(ref), swar.bool_mask(sends), vw,
+        t_fail, t_cooldown, suspect, swar.bool_mask(lh), thr, thr_hi)
+    fail = swar.unpack(fail_h) != 0
+    entered = swar.unpack(ent_h) != 0 if suspect else None
+    for full, part in zip((swar.unpack(hw), swar.unpack(aw), fail, entered,
+                           swar.unpack(enc)), diag):
+        if full is not None:
+            full.scatter_(1, dcols, part.to(full.dtype))
+    hb[r0:r1] = swar.unpack(hw)
+    asl[r0:r1] = swar.unpack(aw)
+    return fail, entered, enc
+
+
 def resident_round_plain(hb, asl, flags, vecs, senders, *,
                          fanout: int | None = None, arc_align: int = 1,
                          t_fail: int, t_cooldown: int,
                          age_clamp: int = AGE_CLAMP, suspect: bool = False,
                          t_suspect: int = 0, lh_multiplier: int = 0,
-                         edge_filter: bool = False):
+                         edge_filter: bool = False,
+                         elementwise: str = "lanes"):
     """One round in plain PyTorch (the function the kernel computes).
 
     ``hb``/``asl`` int8 ``[N, N]`` pre-tick lanes, updated in place;
@@ -348,16 +528,20 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     multiples of ``arc_align``, with ``fanout`` the arc length, or int32
     ``[N, F]`` explicit edges with ``fanout`` None; with ``edge_filter``
     int32 ``[N, 2]`` (arc start, group-match bitmask) and flags bit 3 the
-    muted senders (read in this form only, as in the JAX kernel).  Returns
-    (hb, asl, member_cnt, n_det, first_obs, recv_cnt), the last four int32 ``[N]``; with
-    ``suspect`` then (entered, refuted, held) per subject, and with
-    ``lh_multiplier > 0`` last ``suspect_cnt`` per receiver.  Works in row
-    chunks, so its temporaries stay small at any N."""
+    muted senders (read in this form only, as in the JAX kernel).
+    ``elementwise="swar"`` computes it on packed words (N % 4 == 0).
+    Returns (hb, asl, member_cnt, n_det, first_obs, recv_cnt), the last
+    four int32 ``[N]``; with ``suspect`` then (entered, refuted, held) per
+    subject, and with ``lh_multiplier > 0`` last ``suspect_cnt`` per
+    receiver.  Works in row chunks, so its temporaries stay small at any
+    N."""
     n = hb.shape[0]
     dev = hb.device
     thr, thr_hi = _sus_thresholds(t_fail, suspect, t_suspect, lh_multiplier,
                                   age_clamp)
+    sw = _swar(elementwise, n)
     v = vecs.to(torch.int32)
+    vw = swar.pack(vecs) if sw else None
     fl = flags.to(torch.int32)
     act, ref, recv = (fl & 1) != 0, (fl & 2) != 0, (fl & 4) != 0
     lh = (fl & 16) != 0
@@ -379,23 +563,24 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         rows = torch.arange(r0, r1, device=dev)
-        a_r = act[r0:r1, None]
-        args = (hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32), a_r,
-                ref[r0:r1, None], rows[:, None] == cols[None, :])
-        if suspect:
-            h, a, fail, elig, entered = tick_sus_plain(
-                *args, lh[r0:r1, None], v[V_THR_G], t_fail, t_cooldown, thr,
-                thr_hi)
-            sus_out[0] += entered.sum(dim=0, dtype=torch.int32)
+        if sw:
+            fail, entered, enc = _tick_view_swar_rows(
+                hb, asl, r0, r1, v, vw, (act, ref, lh, sends), t_fail,
+                t_cooldown, suspect, thr, thr_hi)
+            gmax[r0 // align:r1 // align] = swar.unpack(
+                group_max_swar(enc, align))
         else:
-            h, a, fail, elig = tick_plain(*args, v[V_THR_G], t_fail,
-                                          t_cooldown)
-        hb[r0:r1] = h.to(torch.int8)
-        asl[r0:r1] = a.to(torch.int8)
-        enc = view_plain(h, elig, sends[r0:r1, None], v[V_SA_N], v[V_SA_ALL],
-                         v[V_HI_N])
-        gmax[r0 // align:r1 // align] = (
-            enc.reshape(-1, align, n).amax(dim=1).to(torch.int8))
+            h, a, fail, entered, enc = _tick_view_lanes(
+                hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32), rows,
+                cols[None, :], v, act[r0:r1, None], ref[r0:r1, None],
+                lh[r0:r1, None], sends[r0:r1, None], t_fail, t_cooldown,
+                suspect, thr, thr_hi)
+            hb[r0:r1] = h.to(torch.int8)
+            asl[r0:r1] = a.to(torch.int8)
+            gmax[r0 // align:r1 // align] = (
+                enc.reshape(-1, align, n).amax(dim=1).to(torch.int8))
+        if suspect:
+            sus_out[0] += entered.sum(dim=0, dtype=torch.int32)
         n_det += fail.sum(dim=0, dtype=torch.int32)
         first = torch.where(fail, rows[:, None].to(torch.int32), n)
         first_obs = torch.minimum(first_obs, first.amin(dim=0))
@@ -403,27 +588,39 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     # merge epilogue and the membership reductions
     member_cnt = torch.zeros(n, **i32)
     recv_cnt = torch.empty(n, **i32)
+    src = swar.pack(gmax) if sw else gmax
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         if edge_filter:
-            best = masked_group_window_max(gmax, senders[r0:r1],
-                                           fanout // align, align)
-        elif edges:
-            g = senders[r0:r1].to(torch.int64)
-            best = gmax[g[:, 0]]
-            for f in range(1, g.shape[1]):
-                best = torch.maximum(best, gmax[g[:, f]])
+            masked = masked_group_window_max_swar if sw else (
+                masked_group_window_max)
+            best = masked(src, senders[r0:r1], fanout // align, align)
         else:
-            g = senders[r0:r1].to(torch.int64) // align
-            best = gmax[g]
-            for k in range(1, fanout // align):
-                best = torch.maximum(best, gmax[(g + k) % nb])
+            g = senders[r0:r1].to(torch.int64)
+            if edges:
+                parts = [src[g[:, f]] for f in range(g.shape[1])]
+            else:
+                g = g // align
+                parts = [src[(g + k) % nb] for k in range(fanout // align)]
+            best = parts[0]
+            for p in parts[1:]:
+                best = swar.maxs(best, p) if sw else torch.maximum(best, p)
         rv = recv[r0:r1, None]
-        h, a, refuted = merge_plain(
-            hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32),
-            best.to(torch.int32), rv, v[:, None, :], age_clamp, suspect)
-        hb[r0:r1] = h.to(torch.int8)
-        asl[r0:r1] = a.to(torch.int8)
+        if sw:
+            h, a, refuted = merge_swar_plain(
+                swar.pack(hb[r0:r1]), swar.pack(asl[r0:r1]), best,
+                swar.bool_mask(rv), vw, age_clamp, suspect)
+            hb[r0:r1] = swar.unpack(h)
+            asl[r0:r1] = swar.unpack(a)
+            a = asl[r0:r1].to(torch.int32)
+            if suspect:
+                refuted = swar.unpack(refuted) != 0
+        else:
+            h, a, refuted = merge_plain(
+                hb[r0:r1].to(torch.int32), asl[r0:r1].to(torch.int32),
+                best.to(torch.int32), rv, v[:, None, :], age_clamp, suspect)
+            hb[r0:r1] = h.to(torch.int8)
+            asl[r0:r1] = a.to(torch.int8)
         st = a & 3
         lst = ((st & 1) == 1) if suspect else (st == MEMBER)
         member_cnt += (lst & rv).sum(dim=0, dtype=torch.int32)
@@ -436,6 +633,17 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
                 sus_out[3, r0:r1] = held.sum(dim=1, dtype=torch.int32)
     out = (hb, asl, member_cnt, n_det, first_obs, recv_cnt)
     return out + tuple(sus_out) if suspect else out
+
+
+def _swar(elementwise: str, n: int) -> bool:
+    """Whether the round runs the SWAR form; checks the argument."""
+    if elementwise not in ELEMENTWISE:
+        raise ValueError(f"resident_round: elementwise must be one of "
+                         f"{ELEMENTWISE}, got {elementwise!r}")
+    if elementwise == "swar" and n % 4:
+        raise ValueError(f"resident_round: the SWAR form packs 4 subjects "
+                         f"per word, N % 4 == 0 needed (got N={n})")
+    return elementwise == "swar"
 
 
 def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
@@ -485,16 +693,18 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                    fanout: int | None = None, arc_align: int = 1,
                    t_fail: int, t_cooldown: int, age_clamp: int = AGE_CLAMP,
                    suspect: bool = False, t_suspect: int = 0,
-                   lh_multiplier: int = 0, edge_filter: bool = False):
+                   lh_multiplier: int = 0, edge_filter: bool = False,
+                   elementwise: str = "lanes"):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
-    senders ask for; raises what it cannot run)."""
+    senders and ``elementwise`` ask for; raises what it cannot run)."""
     _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
                   edge_filter)
+    sw = _swar(elementwise, hb.shape[0])
     kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
               t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
               t_suspect=t_suspect, lh_multiplier=lh_multiplier,
-              edge_filter=edge_filter)
+              edge_filter=edge_filter, elementwise=elementwise)
     if hb.device.type == "cpu":
         return resident_round_plain(hb, asl, flags, vecs, senders, **kw)
     if hb.device.type != "cuda":
@@ -509,14 +719,15 @@ def resident_round(hb, asl, flags, vecs, senders, *,
             "separate-pass round")
     from gossipfs_tpu_torch.ops import _build
 
-    form = kernel_form(fanout, arc_align, edge_filter)
+    form = kernel_form(fanout, arc_align, edge_filter, elementwise)
+    base_form = form.split("/")[0]
     width = senders.shape[1] if fanout is None else fanout
     lh = int(suspect and lh_multiplier > 0)
     rows = 4 + 3 * int(suspect) + lh
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
         g_rows = (n // KERNEL_ALIGN
-                  if form in ("aligned_group", "filter_group") else n)
+                  if base_form in ("aligned_group", "filter_group") else n)
         gmax = torch.empty((g_rows, n), dtype=torch.int8, device=hb.device)
         out = torch.empty((rows, n), dtype=torch.int32, device=hb.device)
         stream = torch.cuda.current_stream(hb.device)
@@ -524,7 +735,7 @@ def resident_round(hb, asl, flags, vecs, senders, *,
             check_rc("resident_round", lib.rr_round(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
                 vecs.data_ptr(), senders.data_ptr(), gmax.data_ptr(),
-                out.data_ptr(), n, width, FORMS.index(form), arc_align,
+                out.data_ptr(), n, width, FORMS.index(base_form), arc_align,
                 t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
-                stream.cuda_stream))
+                int(sw), stream.cuda_stream))
     return (hb, asl, *out)

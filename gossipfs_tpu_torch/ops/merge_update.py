@@ -54,8 +54,8 @@ import torch
 
 from gossipfs_tpu_torch.config import AGE_CLAMP
 from gossipfs_tpu_torch.core.state import (
-    FAILED, HB_DTYPES, MEMBER, SUSPECT, UNKNOWN, listed)
-from gossipfs_tpu_torch.ops import merge
+    FAILED, HB_DTYPES, MEMBER, SUSPECT, UNKNOWN, listed, swar_lanes_ok)
+from gossipfs_tpu_torch.ops import merge, swar
 
 VIEW_DTYPES = (torch.int8, torch.int16)
 # the CUDA kernels' limits: edges of a block's receiver rows are staged in
@@ -112,6 +112,29 @@ def epilogue_plain(best, hb, asl, recv, sa, sb, lo: int, hi: int,
     return new_hb, new_asl, listed(new_st, suspect), fresh, refuted, held
 
 
+def membership_update_swar(bestw, hbw, aslw, recv, vw, age_clamp: int,
+                           suspect: bool = False):
+    """:func:`epilogue_plain` on packed words over int8 lanes (the JAX
+    package's ``_membership_update_swar``, its all-int8 epilogue under
+    ``elementwise="swar"``): ``bestw``/``hbw``/``aslw`` int32 words
+    ``[r, C/4]``, ``recv`` the receiver row mask (-1/0), ``vw`` the packed
+    ``ops.merge.threshold_stack`` of the round's shifts (its saturation
+    thresholds are the narrow epilogue's clips).  The word arithmetic is
+    ``ops.merge.merge_swar_plain``, K3's SWAR epilogue.  Returns (hbw,
+    aslw, listed, fresh, refuted, held), the last four bool ``[r, C]`` as
+    :func:`epilogue_plain` gives them."""
+    fresh = (swar.unpack(swar.eq(aslw, swar.word(FAILED - 128)) & recv)
+             != 0)
+    hbw, aslw, refuted = merge.merge_swar_plain(hbw, aslw, bestw, recv, vw,
+                                                age_clamp, suspect)
+    st = swar.unpack(aslw) & 3
+    held = None
+    if suspect:
+        refuted = swar.unpack(refuted) != 0
+        held = st == SUSPECT
+    return hbw, aslw, listed(st, suspect), fresh, refuted, held
+
+
 def fanout_max_merge_plain(view: torch.Tensor, edges: torch.Tensor):
     """``best[i, :] = max_f view[edges[i, f], :]`` as int32 ``[len(edges),
     N]`` (the JAX package's ``fanout_max_merge_xla``)."""
@@ -153,10 +176,12 @@ def arc_window_max_plain(view: torch.Tensor, bases: torch.Tensor,
 
 
 def _merge_rows_plain(rows_best, hb, asl, shift_a, shift_b, alive,
-                      detect_stats: bool, suspect: bool, age_clamp: int):
+                      detect_stats: bool, suspect: bool, age_clamp: int,
+                      swar_form: bool = False):
     """The epilogue and reductions over every receiver row, in row chunks;
     ``rows_best(r0, r1)`` gives the int32 best rows of receivers
-    ``r0..r1-1``.  Updates ``hb``/``asl`` in place."""
+    ``r0..r1-1`` (with ``swar_form`` the packed best words, run through
+    :func:`membership_update_swar`).  Updates ``hb``/``asl`` in place."""
     n = hb.shape[0]
     dev = hb.device
     info = torch.iinfo(hb.dtype)
@@ -168,12 +193,20 @@ def _merge_rows_plain(rows_best, hb, asl, shift_a, shift_b, alive,
     cnt, n_det, first_obs = out[0], out[1], out[2]
     if detect_stats:
         first_obs.fill_(n)
+    if swar_form:
+        vw = swar.pack(merge.threshold_stack(sa, sb, torch.zeros_like(sa), 0))
     for r0, r1 in row_chunks(n, n):
         recv = recv_all[r0:r1, None]
-        h, a, lst, fresh, refuted, held = epilogue_plain(
-            rows_best(r0, r1), hb[r0:r1].to(torch.int32),
-            asl[r0:r1].to(torch.int32), recv, sa, sb, info.min, info.max,
-            age_clamp, suspect)
+        if swar_form:
+            h, a, lst, fresh, refuted, held = membership_update_swar(
+                rows_best(r0, r1), swar.pack(hb[r0:r1]), swar.pack(asl[r0:r1]),
+                swar.bool_mask(recv), vw, age_clamp, suspect)
+            h, a = swar.unpack(h), swar.unpack(a)
+        else:
+            h, a, lst, fresh, refuted, held = epilogue_plain(
+                rows_best(r0, r1), hb[r0:r1].to(torch.int32),
+                asl[r0:r1].to(torch.int32), recv, sa, sb, info.min, info.max,
+                age_clamp, suspect)
         hb[r0:r1] = h.to(hb.dtype)
         asl[r0:r1] = a.to(torch.int8)
         cnt += (lst & recv).sum(dim=0, dtype=torch.int32)
@@ -255,7 +288,8 @@ def arc_merge_update_plain(view, bases, hb, asl, shift_a, shift_b, alive,
 def arc_group_merge_update(view, edges2, hb, asl, shift_a, shift_b, alive,
                            *, fanout: int, align: int,
                            detect_stats: bool = False, suspect: bool = False,
-                           age_clamp: int = AGE_CLAMP):
+                           age_clamp: int = AGE_CLAMP,
+                           elementwise: str = "lanes"):
     """The scenario-filtered aligned-arc merge of the separate-pass round:
     ``best`` from ``ops.merge.arc_group_window_max`` (``edges2`` int32
     ``[N, 2]``: arc base, group-match bitmask), then K2's epilogue and
@@ -263,8 +297,19 @@ def arc_group_merge_update(view, edges2, hb, asl, shift_a, shift_b, alive,
     kernel launch: the JAX package runs this case in XLA too, outside any
     Pallas kernel (its arc kernels fuse the unfiltered window max), and
     the lean loop has the fused form (ops.merge.resident_round with
-    ``edge_filter``)."""
+    ``edge_filter``).  Under ``elementwise="swar"`` over int8 lanes that
+    pack (the JAX package's dispatch), the group max, the masked gather
+    and the epilogue (:func:`membership_update_swar`) run on packed
+    words."""
     n = view.shape[0]
+    if (elementwise == "swar" and swar_lanes_ok(hb)
+            and view.dtype == torch.int8):
+        gw = merge.group_max_swar(swar.pack(view), align)  # once per round
+        return _merge_rows_plain(
+            lambda r0, r1: merge.masked_group_window_max_swar(
+                gw, edges2[r0:r1], fanout // align, align),
+            hb, asl, shift_a, shift_b, alive, detect_stats, suspect,
+            age_clamp, swar_form=True)
     gm = view.reshape(n // align, align, n).amax(dim=1)   # once per round
     return _merge_rows_plain(
         lambda r0, r1: merge.masked_group_window_max(

@@ -47,6 +47,7 @@ def test_port_imports_without_jax():
     assert doc["leaked"] == []
     for mod in ("config", "random", "core.state", "core.topology",
                 "core.rounds", "ops.merge", "ops.merge_update", "ops._build",
+                "ops.swar",
                 "ops.fanout_max", "metrics.detection", "models.presets",
                 "convert", "bench", "detector.api", "detector.sim",
                 "utils.snapshot", "frontier", "curves", "scenarios",
