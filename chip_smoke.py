@@ -156,12 +156,40 @@ Phases (any failure exits non-zero before the last line is printed):
     torch ops): the eventful headline, 20 rounds, equal to the lanes run;
     the profiled ``round.tick`` beside phase 11's;
 34. the frontier with ``--elementwise swar``: rounds/s and peak memory
-    beside phase 22's, and the same detection fields.
+    beside phase 22's, and the same detection fields;
+35. K3's column-shard form (``col_offset``, subject-axis sharding): all 30
+    instantiations (5 merge forms x crash-only / suspicion / + Lifeguard x
+    lanes / SWAR) over the 4 shards ``[16,384 x 4,096]`` of one round on
+    phase 30's inputs: each shard launch == the square launch's column
+    slice, the shards' per-receiver partials sum to its counts, the
+    shards at col_offset 0 and 12,288 == the plain version; then config
+    4's layout, shards 0 and 7 of ``[131,072 x 16,384]`` (aligned arcs
+    F = 16, lanes and SWAR, crash-only and suspicion) == plain; ``0
+    entries differ`` and ms per launch beside the byte bound;
+36. K2 over config 4's shard ``[131,072 x 16,384]`` (int16 hb, int8
+    view, F = 17), K4 and K5 over ``[16,384 x 4,096]``, against their
+    plain versions; ms, plain ms and byte bound;
+37. main paths F and F': the headline (lanes, SWAR) sharded over 2 rank
+    processes (rank r on cuda:r % cards: gloo through the host on a
+    one-card machine, NCCL with a card each), 100 rounds, 1 % crash
+    churn, 8 tracked crashes: the gathered lanes, carry and metrics equal
+    the single-process run, the report phase 5's, exactly 100
+    ``aligned_group`` (``/swar``) launches a rank; ms a round, rounds/s,
+    the all-reduce's ms a round;
+38. main path G: config 4's fault model cut to N = 32,768 over 2 rank
+    processes (16,384 columns a rank), 10 rounds: equal to the
+    single-process run, 10 K2 launches a rank; beside it main path B
+    sharded (``suspicion_rr(16_384)`` under rejoins, K5 over column
+    blocks);
+39. ``python -m gossipfs_tpu_torch.full_scale --n 65536 --rounds 16
+    --devices 8``: 8 rank processes, 16 K4 launches each; its JSON beside
+    ``FULLSCALE.json``'s ``current`` row, each rank's peak memory.
 
 The last four lines printed are every main path's ms a round, rounds/s
 and launch counts (one JSON line), the kernels JSON (the five kernels, K3
-once per merge form and once per SWAR form), the ``nvidia-smi`` name and
-power limit, and the device JSON.
+once per merge form and once per SWAR form, the column-shard forms of K3,
+K2, K4 and K5), the ``nvidia-smi`` name and power limit, and the device
+JSON.
 """
 
 from __future__ import annotations
@@ -2255,12 +2283,626 @@ def phase_swar_separate(results: dict, rounds: int) -> None:
                                     launches={"arc_merge_update": rounds})
 
 
+# ---------------------------------------------------------------------------
+# Subject-axis sharding (phases 35-39): the column-shard forms of the
+# kernels, and the sharded main paths in rank processes on this card.
+# ---------------------------------------------------------------------------
+
+N_SHARD_TALL = 4_096          # phase 35/36's tall-skinny width, 4 shards
+N_CONFIG4 = 131_072           # config 4's N, 8 shards of 16,384
+K3_OUTS = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
+           "entered", "refuted", "held", "suspect_cnt")
+# the per-receiver outputs of the resident round (partial on a shard)
+K3_RECV = (5, 9)
+
+
+def count_diff(a, b) -> tuple[int, int]:
+    """(entries that differ, max |diff|) of two integer tensors."""
+    import torch
+
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    return int((d != 0).sum()), (int(d.max()) if d.numel() else 0)
+
+
+def k3_shard_bound_ms(n: int, c: int, senders, outs: int,
+                      recv_outs: int) -> float:
+    """Byte bound of one shard round: both lanes read and written, flags,
+    the [11, C] stack and the senders read, the per-subject [C] and
+    per-receiver [N] int32 outputs written."""
+    b = (4 * n * c + n + 11 * c + senders.numel() * 4
+         + 4 * (outs - recv_outs) * c + 4 * recv_outs * n)
+    return b / H100_BYTES_PER_S * 1e3
+
+
+def k3_shard_case(n: int, c: int, senders, kw: dict, lanes, plain_at):
+    """One K3 instantiation over the ``n // c`` shards of [N x C]: each
+    shard launch == the square launch's column slice, the shards'
+    per-receiver partials sum to the square launch's counts, the shards in
+    ``plain_at`` == the plain version.  Returns (entries that differ, max
+    |diff|, ms a launch and plain ms of the last shard, byte bound)."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    hb, asl, flags, vecs = lanes
+    shards = n // c
+    square = merge.resident_round(hb.clone(), asl.clone(), flags, vecs,
+                                  senders, **kw)
+    nout = len(square)
+    recv = [i for i in K3_RECV if i < nout]
+    sums = {i: torch.zeros_like(square[i]) for i in recv}
+    diffs = []
+    for s in range(shards):
+        sl = slice(s * c, (s + 1) * c)
+        args = (hb[:, sl].contiguous(), asl[:, sl].contiguous(), flags,
+                vecs[:, sl].contiguous(), senders)
+        got = merge.resident_round(
+            *(a.clone() if i < 2 else a for i, a in enumerate(args)),
+            col_offset=s * c, **kw)
+        for i in range(nout):
+            if i in recv:
+                sums[i] += got[i]
+                continue
+            want = square[i][:, sl] if i < 2 else square[i][sl]
+            diffs.append(count_diff(got[i], want))
+        if s in plain_at:
+            plain = merge.resident_round_plain(
+                *(a.clone() if i < 2 else a for i, a in enumerate(args)),
+                col_offset=s * c, **kw)
+            diffs += [count_diff(a, b) for a, b in zip(got, plain)]
+        if s == shards - 1:
+            h2, a2 = args[0].clone(), args[1].clone()
+            run = lambda: merge.resident_round(  # noqa: E731
+                h2, a2, *args[2:], col_offset=s * c, **kw)
+            run()
+            ms = min(cuda_ms(run, 10), cuda_ms(run, 10))
+            run_p = lambda: merge.resident_round_plain(  # noqa: E731
+                h2, a2, *args[2:], col_offset=s * c, **kw)
+            run_p()
+            plain_ms = cuda_ms(run_p, 2)
+    diffs += [count_diff(sums[i], square[i]) for i in recv]
+    torch.cuda.synchronize()
+    bound = k3_shard_bound_ms(n, c, senders, nout, len(recv))
+    return (sum(d[0] for d in diffs), max(d[1] for d in diffs), ms,
+            plain_ms, bound)
+
+
+def phase_k3_column_shard(results: dict) -> None:
+    """K3's column-shard form (g) on the card: every one of the 30
+    instantiations (5 merge forms x crash-only / suspicion / + Lifeguard x
+    lanes / SWAR) over 4 shards [16,384 x 4,096] of one round: each shard
+    launch == the square launch's column slice, the shards' per-receiver
+    partials sum to the square launch's counts, and the shards at
+    col_offset 0 and 12,288 == the plain version; then the shape of main
+    paths F and F' (the headline's crash-only aligned form, lanes and
+    SWAR, over 2 shards [16,384 x 8,192], both against plain); then
+    config 4's layout (shards 0 and 7 of [131,072 x 16,384], aligned arcs
+    F = 16, lanes and SWAR, crash-only and suspicion) against the plain
+    version.  ms per launch beside the byte bound of each shard shape."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    n, c = N_MAIN, N_SHARD_TALL
+    forms, modes, muted = swar_round_cases(n)
+    bad = 0
+    out = results.setdefault("k3_shard", {})
+    for ew in merge.ELEMENTWISE:
+        for form, (senders, fkw) in forms.items():
+            for mode, ((hb, asl, flags, vecs), mkw) in modes.items():
+                if fkw.get("edge_filter"):
+                    flags = flags + muted
+                kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
+                diff, err, ms, plain_ms, bound = k3_shard_case(
+                    n, c, senders, kw, (hb, asl, flags, vecs),
+                    (0, n // c - 1))
+                bad += diff
+                name = merge.kernel_form(kw.get("fanout"),
+                                         kw.get("arc_align", 1),
+                                         kw.get("edge_filter", False), ew)
+                out[(name, mode, "tall")] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, shape=[n, c])
+                log(f"  [{n} x {c}] {name}, {mode}: 4 shards vs the square "
+                    f"launch's slices and partial sums, offsets 0 and "
+                    f"{n - c} vs plain: {diff} entries differ; {ms:.4f} ms "
+                    f"a shard launch, plain {plain_ms:.3f} ms, byte bound "
+                    f"{bound:.4f} ms")
+    # main paths F and F': the headline (crash-only, aligned arcs F = 16)
+    # over 2 ranks, [16,384 x 8,192] a rank
+    c = N_MAIN // 2
+    senders, fkw = forms["aligned_group"]
+    lanes, mkw = modes["crash-only"]
+    for ew in merge.ELEMENTWISE:
+        kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
+        diff, err, ms, plain_ms, bound = k3_shard_case(
+            n, c, senders, kw, lanes, (0, 1))
+        bad += diff
+        name = merge.kernel_form(16, 8, False, ew)
+        out[(name, "crash-only", "main")] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            shape=[n, c])
+        log(f"  [{n} x {c}] (main paths F/F') {name}, crash-only: 2 shards "
+            f"vs the square launch's slices and partial sums and vs plain: "
+            f"{diff} entries differ; {ms:.4f} ms a shard launch, plain "
+            f"{plain_ms:.3f} ms, byte bound {bound:.4f} ms")
+    # config 4's layout: 8 shards of [131,072 x 16,384], shards 0 and 7
+    n, c = N_CONFIG4, N_CONFIG4 // 8
+    for mode, mkw in (("crash-only", dict(t_fail=5)),
+                      ("suspicion", dict(t_fail=3, suspect=True,
+                                         t_suspect=2))):
+        hb, asl, flags, vecs, bases = big_round_inputs(n, c, SEED + 35,
+                                                       mode != "crash-only")
+        for ew in merge.ELEMENTWISE:
+            kw = dict(fanout=16, arc_align=8, t_cooldown=12, elementwise=ew,
+                      **mkw)
+            for s in (0, 7):
+                got = merge.resident_round(hb.clone(), asl.clone(), flags,
+                                           vecs, bases, col_offset=s * c,
+                                           **kw)
+                want = merge.resident_round_plain(hb.clone(), asl.clone(),
+                                                  flags, vecs, bases,
+                                                  col_offset=s * c, **kw)
+                diffs = [count_diff(a, b) for a, b in zip(got, want)]
+                diff = sum(d[0] for d in diffs)
+                bad += diff
+                msg = ""
+                if s == 7:
+                    h2, a2 = hb.clone(), asl.clone()
+                    run = lambda: merge.resident_round(  # noqa: E731
+                        h2, a2, flags, vecs, bases, col_offset=s * c, **kw)
+                    run()
+                    ms = min(cuda_ms(run, 5), cuda_ms(run, 5))
+                    del h2, a2
+                    bound = k3_shard_bound_ms(n, c, bases, len(got), 1)
+                    out[(f"aligned_group{'/swar' if ew == 'swar' else ''}",
+                         mode, "config4")] = dict(
+                        max_abs_err=max(d[1] for d in diffs), ms=ms,
+                        bound_ms=bound)
+                    msg = (f"; {ms:.4f} ms a launch, byte bound "
+                           f"{bound:.4f} ms")
+                log(f"  [{n} x {c}] shard {s}, aligned_group ({ew}), {mode}:"
+                    f" kernel vs plain: {diff} entries differ (detections "
+                    f"{int(got[3].sum())}){msg}")
+                del got, want
+        del hb, asl
+        torch.cuda.empty_cache()
+    # tolerance 0: integer outputs
+    if bad:
+        raise AssertionError(f"K3 column-shard form: {bad} entries differ")
+    log("  K3 column-shard form == the square launch's slices == plain, "
+        "all 30 instantiations and config 4's layout (tolerance 0)")
+
+
+def big_round_inputs(n: int, c: int, seed: int, suspect: bool):
+    """A shard's pre-tick lanes made on the card (a [131,072 x 16,384]
+    block is 2.1 G entries a lane): every status (SUSPECT under
+    ``suspect``), ages to the clamp, never-sent entries, mixed flags (bit
+    4 on some rows), deep shifts; aligned arc bases."""
+    import torch
+
+    from gossipfs_tpu_torch.config import INT8_REBASE_WINDOW
+    from gossipfs_tpu_torch.ops import merge
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda")
+    hb = torch.empty((n, c), dtype=torch.int8, **dev)
+    asl = torch.empty((n, c), dtype=torch.int8, **dev)
+    for r0 in range(0, n, 8_192):
+        r1 = min(n, r0 + 8_192)
+        h = torch.randint(-128, 128, (r1 - r0, c), generator=g, **dev)
+        h[torch.rand((r1 - r0, c), generator=g, **dev) < 0.05] = -128
+        hb[r0:r1] = h.to(torch.int8)
+        st = torch.randint(0, 4 if suspect else 3, (r1 - r0, c),
+                           generator=g, **dev)
+        age = torch.randint(0, 64, (r1 - r0, c), generator=g, **dev)
+        if suspect:
+            age = torch.where(st == 3, torch.randint(
+                3, 14, (r1 - r0, c), generator=g, **dev), age)
+        asl[r0:r1] = (((age << 2) | st) - 128).to(torch.int8)
+    choice = torch.tensor([0, 4, 5, 6, 1, 7], dtype=torch.int8, **dev)
+    flags = choice[torch.randint(0, 6, (n,), generator=g, **dev)]
+    flags = flags + 16 * (torch.rand(n, generator=g, **dev) < 0.5).to(
+        torch.int8)
+    sa = torch.randint(-260, 60, (c,), generator=g, **dev).to(torch.int32)
+    sb = torch.where(torch.rand(c, generator=g, **dev) < 0.5, sa,
+                     torch.randint(-260, 60, (c,), generator=g, **dev)
+                     .to(torch.int32))
+    gr = torch.randint(-200, 60, (c,), generator=g, **dev).to(torch.int32)
+    vecs = merge.threshold_stack(sa, sb, gr, INT8_REBASE_WINDOW)
+    bases = (torch.randint(0, n // 8, (n,), generator=g, **dev) * 8).to(
+        torch.int32)
+    return hb, asl, flags, vecs, bases
+
+
+def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int):
+    """One merge call's inputs over an [N, C] block, made on the card:
+    post-tick lanes over every status, ages to 63 (a fifth at 0), floor
+    sentinels, dead receivers (their view rows absent), deep and negative
+    shifts; int8 view; explicit edges and arc bases."""
+    import torch
+
+    from gossipfs_tpu_torch.ops.merge import pack_age_status
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda")
+    info = torch.iinfo(hdt)
+    alive = torch.rand(n, generator=g, **dev) < 0.8
+    view = torch.empty((n, c), dtype=torch.int8, **dev)
+    hb = torch.empty((n, c), dtype=hdt, **dev)
+    asl = torch.empty((n, c), dtype=torch.int8, **dev)
+    for r0 in range(0, n, 8_192):
+        r1 = min(n, r0 + 8_192)
+        shape = (r1 - r0, c)
+        v = torch.randint(-1, 127, shape, generator=g, **dev)
+        view[r0:r1] = torch.where(alive[r0:r1, None], v, -1).to(torch.int8)
+        h = torch.randint(info.min, info.max + 1, shape, generator=g, **dev)
+        h[torch.rand(shape, generator=g, **dev) < 0.05] = info.min
+        hb[r0:r1] = h.to(hdt)
+        age = torch.randint(0, 64, shape, generator=g, **dev)
+        age[torch.rand(shape, generator=g, **dev) < 0.2] = 0
+        st = torch.randint(0, 4, shape, generator=g, **dev)
+        asl[r0:r1] = pack_age_status(age, st)
+    sa = torch.randint(-70_000, 70_000, (c,), generator=g, **dev).to(
+        torch.int32)
+    sb = torch.where(torch.rand(c, generator=g, **dev) < 0.5, sa,
+                     torch.randint(-70_000, 70_000, (c,), generator=g, **dev)
+                     .to(torch.int32))
+    edges = torch.randint(0, n, (n, fanout), generator=g, **dev).to(
+        torch.int32)
+    bases = torch.randint(0, n, (n,), generator=g, **dev).to(torch.int32)
+    return view, edges, bases, hb, asl, sa, sb, alive
+
+
+def merge_block_bound_ms(view, senders, hb, outputs: int) -> float:
+    """Byte bound of one merge over an [N, C] block: view and senders
+    read, hb and asl read and written, shifts [C] and alive [N] read,
+    ``outputs`` int32 [C] reductions written."""
+    n, c = hb.shape
+    b = (view.numel() * view.element_size()
+         + senders.numel() * senders.element_size()
+         + 2 * hb.numel() * hb.element_size() + 2 * n * c
+         + 8 * c + n + 4 * outputs * c)
+    return b / H100_BYTES_PER_S * 1e3
+
+
+def phase_merge_column_blocks(results: dict) -> None:
+    """K2, K4 and K5 over column blocks against their plain versions, at
+    the shapes of the main paths that launch them: K2 on main path G's
+    shard [32,768 x 16,384] (int16 hb, int8 view, F = 15), K4 on
+    full_scale's [65,536 x 8,192] (int8, F = 16), K5 on main path B
+    sharded's [16,384 x 8,192] (int8, F = 14); and K2 on config 4's shard
+    [131,072 x 16,384] (F = 17).  Detection stats and suspicion on and
+    off; ms (in the path's own mode), plain ms and the byte bound at each
+    shape."""
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    n_g = 32_768
+    cases = (
+        ("k2_block", mu.fused_merge_update, n_g, n_g // 2,
+         SimConfig.log_fanout(n_g), torch.int16, "edges", {}, False),
+        ("k4_block", mu.arc_merge_update, N_CAPACITY, N_CAPACITY // 8, 16,
+         torch.int8, "bases", dict(fanout=16), False),
+        ("k5_block", mu.stripe_merge_update, N_MAIN, N_MAIN // 2,
+         SimConfig.log_fanout(N_MAIN), torch.int8, "edges", {}, True),
+        ("k2_block_config4", mu.fused_merge_update, N_CONFIG4,
+         N_CONFIG4 // 8, SimConfig.log_fanout(N_CONFIG4), torch.int16,
+         "edges", {}, False),
+    )
+    bad = 0
+    for key, fn, n, c, f, hdt, which, extra, path_sus in cases:
+        plain = getattr(mu, fn.__name__ + "_plain")
+        view, edges, bases, hb, asl, sa, sb, alive = big_merge_inputs(
+            n, c, f, hdt, SEED + n + c)
+        snd = edges if which == "edges" else bases
+        err = 0
+        for det, sus in ((False, False), (True, False), (True, True)):
+            kw = dict(detect_stats=det, suspect=sus, **extra)
+            got = fn(view, snd, hb.clone(), asl.clone(), sa, sb, alive, **kw)
+            want = plain(view, snd, hb.clone(), asl.clone(), sa, sb, alive,
+                         **kw)
+            diffs = [count_diff(a, b) for a, b in zip(got, want)]
+            diff = sum(d[0] for d in diffs)
+            err = max([err] + [d[1] for d in diffs])
+            bad += diff
+            log(f"  {fn.__name__} [{n} x {c}], F={f}, hb {hdt}, "
+                f"detect_stats={det}, suspect={sus}: kernel vs plain: "
+                f"{diff} entries differ (cnt_incl total "
+                f"{int(got[2].sum())})")
+            del got, want
+        kw = dict(detect_stats=True, suspect=path_sus, **extra)
+        h2, a2 = hb.clone(), asl.clone()
+        run = lambda: fn(view, snd, h2, a2, sa, sb, alive, **kw)  # noqa: E731
+        run_p = lambda: plain(view, snd, h2, a2, sa, sb, alive, **kw)  # noqa: E731
+        run()
+        ms = min(cuda_ms(run, 10), cuda_ms(run, 10))
+        run_p()
+        plain_ms = cuda_ms(run_p, 1)
+        bound = merge_block_bound_ms(view, snd, hb, 5 if path_sus else 3)
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, shape=[n, c])
+        log(f"  {fn.__name__} [{n} x {c}], suspect={path_sus}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.3f} ms, byte bound "
+            f"{bound:.4f} ms")
+        del view, hb, asl, h2, a2
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K2/K4/K5 column blocks: {bad} entries differ")
+    log("  K2, K4 and K5 over column blocks == plain (tolerance 0)")
+
+
+def run_digest(state, carry, metrics) -> str:
+    """sha256 of a run's whole outputs (lanes, alive, hb_base, carry and
+    every per-round metric), on the host."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (state.hb, state.asl, state.alive, state.hb_base, *carry,
+              *metrics):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def shard_ranks(rank: int, world: int, device, jobs: list) -> list:
+    """One rank of phases 37-38 (a ``distributed.launch`` target): each
+    job through ``parallel.mesh.run_job``; rank 0 turns the gathered
+    state into a digest and a report, so only small results travel
+    back."""
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.parallel import mesh
+
+    out = []
+    for job in jobs:
+        res = mesh.run_job(rank, world, device, job)
+        if "state" in res:
+            state, carry = res.pop("state"), res.pop("carry")
+            res["digest"] = run_digest(state, carry, res["metrics"])
+            res["report"] = summarize(carry, res.pop("metrics"),
+                                      job.get("crash_rounds")).as_dict()
+        out.append(res)
+    return out
+
+
+def single_digest(cfg, rounds: int, seed: int, kw: dict,
+                  crash_rounds=None) -> tuple[str, dict, float, dict]:
+    """The same run in this process on the card: (digest, report, ms a
+    round, launch counts)."""
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.ops import merge
+
+    dev = {k: (v.cuda() if hasattr(v, "cuda") else v) for k, v in kw.items()}
+    if dev.get("events") is not None:
+        dev["events"] = type(kw["events"])(*(t.cuda() for t in kw["events"]))
+    state = init_state(cfg)
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, carry, per_round = run_rounds(state, cfg, rounds,
+                                      trandom.PRNGKey(seed, device="cuda"),
+                                      **dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / rounds * 1e3
+    rep = summarize(carry, per_round, crash_rounds).as_dict()
+    return run_digest(st, carry, per_round), rep, ms, dict(
+        merge.LAUNCH_COUNTS)
+
+
+def check_sharded(label: str, ranks: list, want_digest: str,
+                  kernel: str, rounds: int, forms: dict | None = None):
+    """Each rank launched ``rounds`` of ``kernel`` (and the ``forms``) and
+    no other kernel; the gathered outputs' digest is the single-process
+    run's."""
+    for r in ranks:
+        want = {k: (rounds if k == kernel else 0) for k in r["launches"]}
+        if r["launches"] != want or (forms is not None
+                                     and r["forms"] != forms):
+            raise AssertionError(f"{label}: rank {r['rank']} launched "
+                                 f"{r['launches']} {r['forms']}")
+    if ranks[0]["digest"] != want_digest:
+        raise AssertionError(f"{label}: the gathered shards != the "
+                             "single-process run")
+
+
+def phase_sharded_headline(results: dict) -> None:
+    """Main paths F and F': the lean headline sharded over 2 rank
+    processes (on one card: gloo; a card each: NCCL), lanes and SWAR, 100
+    rounds, 1 % crash
+    churn, 8 tracked crashes: the gathered lanes, carry and metrics equal
+    the same run in this process, the report equals phase 5's (and phase
+    32's); each rank launched exactly 100 resident rounds, all
+    ``aligned_group`` (``aligned_group/swar``)."""
+    import torch
+
+    from gossipfs_tpu_torch.bench import (
+        CRASH_RATE, ROUNDS, tracked_crash_events)
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.parallel import distributed
+
+    torch.cuda.empty_cache()
+    world = 2
+    cfgs = {"F": SimConfig.headline(N_MAIN),
+            "F'": SimConfig.headline(N_MAIN, elementwise="swar")}
+    jobs, singles = [], {}
+    for label, cfg in cfgs.items():
+        events, crash_rounds, churn_ok = tracked_crash_events(
+            cfg, ROUNDS, 8, 20, device="cpu")
+        kw = dict(events=events, crash_rate=CRASH_RATE, churn_ok=churn_ok,
+                  crash_only_events=True)
+        singles[label] = single_digest(cfg, ROUNDS, 0, kw, crash_rounds)
+        jobs.append(dict(config=cfg, rounds=ROUNDS, seed=0, warm=True,
+                         crash_rounds=crash_rounds, **kw))
+    t0 = time.perf_counter()
+    ranks = distributed.launch(shard_ranks, world, (jobs,), timeout=600)
+    cards = len({str(distributed.device_for_rank(r)) for r in range(world)})
+    log(f"  {world} rank processes on {cards} card(s), "
+        f"{torch.cuda.get_device_name(0)}, {ranks[0][0]['backend']}"
+        f"{' through the host' if ranks[0][0]['backend'] == 'gloo' else ''}"
+        f": {time.perf_counter() - t0:.1f} s with start-up")
+    for i, (label, cfg) in enumerate(cfgs.items()):
+        per = [r[i] for r in ranks]
+        form = "aligned_group" + ("/swar" if label == "F'" else "")
+        check_sharded(label, per, singles[label][0], "resident_round",
+                      ROUNDS, {form: ROUNDS})
+        rep = per[0]["report"]
+        if rep != singles[label][1] or rep != results["main"]["report"]:
+            raise AssertionError(f"{label}: report != phase 5's")
+        secs = max(r["seconds"] for r in per)
+        coll = per[0]["collectives"]
+        round_ms = secs / ROUNDS * 1e3
+        allreduce_ms = coll["seconds"] / ROUNDS * 1e3
+        log(f"  {label} ({form}): shard [{cfg.n} x {per[0]['nloc']}] a rank;"
+            f" {ROUNDS} rounds in {secs:.4f} s, {ROUNDS / secs:.2f} rounds/s"
+            f", {round_ms:.4f} ms a round (the single-process run "
+            f"{singles[label][2]:.4f} ms); all-reduce {allreduce_ms:.4f} ms "
+            f"a round ({coll['calls']} collectives, host clock, waiting for "
+            f"the other rank included); peak memory a rank "
+            f"{max(r['peak_bytes'] for r in per) / 2**30:.3f} GiB")
+        log(f"  {label}: launches a rank {[r['forms'] for r in per]}; "
+            f"gathered lanes, carry and metrics == the single-process run; "
+            f"report == phase 5's: ttd_first "
+            f"{sorted(rep['ttd_first'].values())}, FPR "
+            f"{rep['false_positive_rate']:.3e}")
+        results["main_f" + ("2" if label == "F'" else "")] = dict(
+            round_ms=round_ms, rounds_per_s=ROUNDS / secs,
+            allreduce_ms=allreduce_ms, launches=per[0]["launches"][
+                "resident_round"],
+            launch_counts={"resident_round": ROUNDS,
+                           f"resident_round[{form}]": ROUNDS,
+                           "ranks": world})
+
+
+def phase_sharded_config4(results: dict) -> None:
+    """Main path G: config 4's fault model (``sim_100k``: explicit edges
+    F = log N, int16 hb, int8 view, 5 % crash + 5 % rejoin) cut to N =
+    32,768 over 2 rank processes (16,384 columns a rank, config 4's
+    width a chip), 10 rounds, against the single-process run at the same
+    N: bit-equal, 10 K2 launches a rank.  Beside it main path B sharded
+    (``suspicion_rr(16_384)`` under 1 % crash and rejoin churn, K5 over
+    [16,384 x 8,192] blocks), 10 rounds, the same checks."""
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.models.presets import ALL
+    from gossipfs_tpu_torch.parallel import distributed
+
+    torch.cuda.empty_cache()
+    world, rounds = 2, 10
+    sc = ALL["sim-100k"]
+    n = 32_768
+    runs = {
+        "G": (dataclasses.replace(sc.config, n=n,
+                                  fanout=SimConfig.log_fanout(n)),
+              dict(crash_rate=sc.crash_rate, rejoin_rate=sc.rejoin_rate),
+              "fused_merge_update"),
+        "B (sharded)": (SimConfig.suspicion_rr(N_MAIN),
+                        dict(crash_rate=0.01, rejoin_rate=0.01),
+                        "stripe_merge_update"),
+    }
+    jobs, singles = [], {}
+    for label, (cfg, kw, _) in runs.items():
+        singles[label] = single_digest(cfg, rounds, 3, kw)
+        jobs.append(dict(config=cfg, rounds=rounds, seed=3, **kw))
+        torch.cuda.empty_cache()
+    ranks = distributed.launch(shard_ranks, world, (jobs,), timeout=600)
+    for i, (label, (cfg, _, kernel)) in enumerate(runs.items()):
+        per = [r[i] for r in ranks]
+        if singles[label][3][kernel] != rounds:
+            raise AssertionError(f"{label}: single-process launches "
+                                 f"{singles[label][3]}")
+        check_sharded(label, per, singles[label][0], kernel, rounds)
+        secs = max(r["seconds"] for r in per)
+        coll = per[0]["collectives"]
+        log(f"  {label}: N={cfg.n}, F={cfg.fanout}, hb {cfg.hb_dtype}, "
+            f"shard [{cfg.n} x {per[0]['nloc']}] a rank; {rounds} rounds in "
+            f"{secs:.4f} s ({secs / rounds * 1e3:.4f} ms a round, the "
+            f"single-process run {singles[label][2]:.4f} ms); all-reduce "
+            f"{coll['seconds'] / rounds * 1e3:.4f} ms a round; {kernel} "
+            f"launches a rank {[r['launches'][kernel] for r in per]}; "
+            f"gathered lanes, carry and metrics == the single-process run;"
+            f" peak memory a rank "
+            f"{max(r['peak_bytes'] for r in per) / 2**30:.3f} GiB")
+        results["main_g" if label == "G" else "main_b_sharded"] = dict(
+            round_ms=secs / rounds * 1e3, rounds_per_s=rounds / secs,
+            allreduce_ms=coll["seconds"] / rounds * 1e3,
+            launches=per[0]["launches"][kernel],
+            launch_counts={kernel: rounds, "ranks": world})
+
+
+def phase_full_scale(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.full_scale --n 65536 --rounds 16
+    --devices 8`` on this card: 8 rank processes, K4 over [65,536 x
+    8,192] blocks.  Its JSON beside FULLSCALE.json's ``current`` row (the
+    JAX package's run with the same arguments), each rank's peak memory
+    and launches."""
+    import ast
+    import os
+    import re
+
+    import torch
+
+    torch.cuda.empty_cache()
+    args = ["--n", "65536", "--rounds", "16", "--devices", "8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gossipfs_tpu_torch.full_scale",
+                           *args], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"full_scale exited {proc.returncode}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  full_scale {' '.join(args)}: {wall:.1f} s with start-up")
+    log(f"  port: {json.dumps(doc)}")
+    ranks = [ln for ln in proc.stderr.splitlines()
+             if ln.startswith("full_scale: rank")]
+    for ln in ranks:
+        log(f"  {ln}")
+    launches = [ast.literal_eval(re.search(r"launches (\{.*\})", ln)[1])
+                for ln in ranks]
+    if len(launches) != 8 or any(
+            d.get("arc_merge_update") != 16 or sum(d.values()) != 16
+            for d in launches):
+        raise AssertionError(f"full_scale launches {launches}")
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "FULLSCALE.json")
+    with open(ref_path) as f:
+        ref = json.load(f)["current"]
+    log(f"  JAX (FULLSCALE.json current): {json.dumps(ref)}")
+    keys = ("detected", "ttd_first_median", "ttd_first_max",
+            "ttd_converged_median", "ttd_converged_max",
+            "false_positive_rate")
+    same = {k: doc[k] == ref[k] for k in ("tracked_crashes",) + keys}
+    log(f"  equal to FULLSCALE.json's row: {same}")
+    # the same arguments and key as the JAX package's run: every detection
+    # field must be its, exactly
+    if not all(same.values()):
+        raise AssertionError(f"full_scale's detection fields != "
+                             f"FULLSCALE.json's: {same}")
+    results["full_scale"] = dict(
+        round_ms=doc["wall_seconds"] / doc["rounds"] * 1e3,
+        rounds_per_s=doc["rounds_per_sec"], doc=doc, same_as_jax=same,
+        launches=launches[0]["arc_merge_update"],
+        launch_counts={"arc_merge_update": 16, "ranks": 8})
+
+
 def main_path_summary(results: dict) -> dict:
     """Every main path's ms a round, rounds/s and launch counts, by phase,
     for the one JSON line beside the kernels line."""
     rows = {"5": "main", "10": "config3", "11": "arc", "16": "sus_main",
             "17": "k5_main", "21": "main_c", "27": "main_d", "28": "main_d2",
-            "32 E": "main_e", "32 E'": "main_e2"}
+            "32 E": "main_e", "32 E'": "main_e2", "37 F": "main_f",
+            "37 F'": "main_f2", "38 G": "main_g",
+            "38 B sharded": "main_b_sharded", "39 full_scale": "full_scale"}
     out = {}
     for phase, key in rows.items():
         r = results[key]
@@ -2281,6 +2923,13 @@ def kernel_line(name: str, source: str, replaces: str, launches: int,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None}
+
+
+def shard_line(name: str, source: str, replaces: str, launches: int,
+               r: dict) -> dict:
+    """A column-shard row of the kernels line, with its [N, C] shape."""
+    return dict(kernel_line(name, source, replaces, launches, r),
+                shape=r["shape"])
 
 
 def main() -> int:
@@ -2390,13 +3039,59 @@ def main() -> int:
         f"gossipfs_tpu_torch.frontier --elementwise swar (N={N_CAPACITY}, "
         "20 rounds)")
     phase_frontier(results, "swar")
+    log(f"[35] K3 column-shard form vs the square launch and plain: 30 "
+        f"instantiations over 4 shards [{N_MAIN} x {N_SHARD_TALL}], config "
+        f"4's layout [{N_CONFIG4} x {N_CONFIG4 // 8}]")
+    phase_k3_column_shard(results)
+    log("[36] K2, K4, K5 over column blocks vs plain")
+    phase_merge_column_blocks(results)
+    log(f"[37] main paths F and F': the headline sharded over 2 rank "
+        f"processes, N={N_MAIN}, 100 rounds, lanes and SWAR")
+    phase_sharded_headline(results)
+    log("[38] main path G: config 4's fault model at N=32768 over 2 rank "
+        "processes, 10 rounds; main path B sharded")
+    phase_sharded_config4(results)
+    log("[39] python -m gossipfs_tpu_torch.full_scale --n 65536 --rounds 16 "
+        "--devices 8")
+    phase_full_scale(results)
     print(json.dumps({"main_paths": main_path_summary(results)}))
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
     swar_launches = dict(results["swar_scan_launches"],
                          aligned_group=results["main_e"]["launches"])
-    swar_rows = [
+    shard = results["k3_shard"]
+    shard_rows = [
+        # each column-shard row at the shape of the main path that
+        # launches it, with that path's launches a rank: K3 (g) at the
+        # [16,384 x 8,192] of main paths F and F' (phase 35), K2 at G's
+        # [32,768 x 16,384], K4 at full_scale's [65,536 x 8,192], K5 at B
+        # sharded's [16,384 x 8,192] (phase 36)
+        shard_line("resident_round[column shard: aligned_group, "
+                   "crash-only]", src + "resident_round.cu", mp + "2611",
+                   results["main_f"]["launches"],
+                   shard[("aligned_group", "crash-only", "main")]),
+        shard_line("resident_round[column shard: aligned_group/swar, "
+                   "crash-only]", src + "resident_round.cu", mp + "2611",
+                   results["main_f2"]["launches"],
+                   shard[("aligned_group/swar", "crash-only", "main")]),
+        shard_line("fused_merge_update[column block]",
+                   src + "fused_merge.cu", mp + "387",
+                   results["main_g"]["launches"], results["k2_block"]),
+        shard_line("arc_merge_update[column block]", src + "arc_merge.cu",
+                   mp + "1248", results["full_scale"]["launches"],
+                   results["k4_block"]),
+        shard_line("stripe_merge_update[column block]",
+                   src + "stripe_merge.cu", mp + "998",
+                   results["main_b_sharded"]["launches"],
+                   results["k5_block"]),
+        # config 4's own shard [131,072 x 16,384]: no main path of this
+        # script runs it, so it launched no time there
+        shard_line("fused_merge_update[column block, config 4 shard]",
+                   src + "fused_merge.cu", mp + "387", 0,
+                   results["k2_block_config4"]),
+    ]
+    swar_rows = shard_rows + [
         # each SWAR form in the mode of the path that launches it: the
         # aligned form main path E's 100 (E' adds 100 suspicion ones), the
         # others phase 31's 20-round scans

@@ -3,7 +3,9 @@
 The JAX package keeps three ``[N, N]`` lanes (``hb``, ``age``,
 ``status``); the port keeps ``hb`` and the packed age|status byte.  These
 two functions move a state (and its metrics carry) between the forms,
-through numpy, so a run started in one package continues in the other.
+through numpy, so a run started in one package continues in the other;
+:func:`shard_from_jax_arrays` hands one rank the column shard of a JAX
+state (``parallel/mesh.py``).
 :func:`scenario_from_jax` carries a compiled fault scenario across (an
 armed run keeps its rule table and its arming round).
 """
@@ -51,6 +53,23 @@ def from_jax_arrays(hb, age, status, alive, hb_base, round, first_detect=None,
     elif any(f is not None for f in fields):
         raise ValueError("give all four carry fields or none")
     return state, carry
+
+
+def shard_from_jax_arrays(ctx, hb, age, status, alive, hb_base, round,
+                          first_detect=None, first_observer=None,
+                          converged=None, first_suspect=None,
+                          device="cuda"):
+    """:func:`from_jax_arrays` for one rank's column shard (``ctx``, a
+    ``core.rounds.ShardCtx``): the JAX state's columns ``offset..offset +
+    nloc`` of the lanes, its ``hb_base`` and carry slices, and the whole
+    ``alive``.  Returns ``(SimState, MetricsCarry | None)`` of the shard,
+    ``[N, nloc]`` lanes."""
+    sl = slice(ctx.offset, ctx.offset + ctx.cols(np.asarray(alive).shape[0]))
+    cols = lambda a: None if a is None else np.asarray(a)[..., sl]  # noqa: E731
+    return from_jax_arrays(
+        cols(hb), cols(age), cols(status), alive, cols(hb_base), round,
+        cols(first_detect), cols(first_observer), cols(converged),
+        cols(first_suspect), device=device)
 
 
 def to_numpy(state: SimState, carry: MetricsCarry | None = None) -> dict:

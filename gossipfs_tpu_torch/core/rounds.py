@@ -35,6 +35,18 @@ integer arithmetic throughout (the Lifeguard compare is the JAX package's
 float32 one).  The configuration picks the kernel, and the tensors'
 device picks kernel or plain version.
 
+Both loops run on a column shard too (``ctx``, a :class:`ShardCtx`; the
+JAX package's subject-axis ``shard_map``, ``parallel/mesh.py``): a rank
+holds every receiver row of the ``[N, N]`` lanes for its contiguous block
+of ``nloc`` subject columns, so the sender-row gather stays on the rank.
+The diagonal sits at global row ``offset + j`` of local column ``j``; the
+per-subject vectors (``hb_base``, the carry) are the shard's ``[nloc]``,
+while ``alive``, the round counter, the edges, the arc bases and the
+churn draws are replicated (every rank draws them from the same key).
+The only per-round communication is the sum of the per-receiver counts
+(listed, and SUSPECT on the Lifeguard lane); the round metrics are summed
+once, after the loop.
+
 Both loops take a fault scenario (``scenario=``, a compiled
 ``scenarios.tensor.TensorScenario``: partitions, link loss, slow and
 flapping senders, rack outages).  Faults touch transport only: explicit
@@ -50,9 +62,11 @@ ops (the JAX package runs that case in XLA, outside any Pallas kernel).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from gossipfs_tpu_torch import random as trandom
@@ -65,6 +79,64 @@ from gossipfs_tpu_torch.core.state import (
 from gossipfs_tpu_torch.ops import merge, merge_update, swar
 from gossipfs_tpu_torch.ops.merge_update import row_chunks
 from gossipfs_tpu_torch.scenarios import tensor as scn
+
+
+# the shards' all-reduces since the last reset: how many, and their host
+# seconds (a rank waits there for the slowest rank too)
+COLLECTIVES = {"calls": 0, "seconds": 0.0}
+
+
+class ShardCtx(NamedTuple):
+    """Where a rank's lanes sit under subject-axis (column) sharding (the
+    JAX package's ``ShardCtx``, core/rounds.py:69).
+
+    ``offset`` is the shard's first global subject, ``nloc`` its column
+    count (None: all N, one device), ``group`` the ``torch.distributed``
+    process group the shards sum over (None: local, nothing to sum)."""
+
+    offset: int = 0
+    nloc: int | None = None
+    group: object = None
+
+    def cols(self, n: int) -> int:
+        """The shard's column count in an N-node cluster."""
+        return n if self.nloc is None else self.nloc
+
+    def slice_cols(self, v: torch.Tensor) -> torch.Tensor:
+        """This shard's slice of a replicated per-subject vector (its last
+        axis)."""
+        if self.nloc is None:
+            return v
+        return v[..., self.offset:self.offset + self.nloc]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum a per-shard partial (an int32 tensor) over the shards, in
+        place; the identity when local."""
+        if self.group is None:
+            return x
+        t0 = time.perf_counter()
+        if x.is_cuda and dist.get_backend(self.group) == "gloo":
+            # ranks sharing one card run gloo, which reduces host buffers
+            # (its CUDA path stages through the host as well): move the
+            # vector through the host explicitly
+            h = x.cpu()
+            t0 = time.perf_counter()    # after the copy's wait for the card
+            dist.all_reduce(h, group=self.group)
+            x.copy_(h)
+        else:
+            dist.all_reduce(x, group=self.group)
+        COLLECTIVES["calls"] += 1
+        COLLECTIVES["seconds"] += time.perf_counter() - t0
+        return x
+
+
+LOCAL_CTX = ShardCtx()
+
+
+def _diag(x: torch.Tensor, ctx: ShardCtx = LOCAL_CTX) -> torch.Tensor:
+    """Each local subject's own entry (receiver == subject): ``x[offset +
+    j, j]`` of ``[N, C]`` lanes (the JAX package's ``_diag``)."""
+    return torch.diagonal(x[ctx.offset:ctx.offset + x.shape[1]])
 
 
 class RoundMetrics(NamedTuple):
@@ -105,35 +177,43 @@ class MetricsCarry(NamedTuple):
 
 
 def _round_stats(n_det: torch.Tensor, alive: torch.Tensor,
-                 sus: tuple | None = None) -> tuple:
+                 sus: tuple | None = None,
+                 ctx: ShardCtx = LOCAL_CTX) -> tuple:
     """One round's six RoundMetrics scalars: true/false detections and
     n_alive, then the suspicion counters ``sus`` = (per-subject entered,
-    per-subject refuted) reduced here (zeros without suspicion)."""
+    per-subject refuted) reduced here (zeros without suspicion).  On a
+    shard every count but ``n_alive`` covers the shard's subjects only:
+    :func:`_stack_metrics` sums them over the shards."""
     z = n_det.new_zeros(())
-    stats = (torch.where(alive, z, n_det).sum(dtype=torch.int32),
-             torch.where(alive, n_det, z).sum(dtype=torch.int32),
+    alive_l = ctx.slice_cols(alive)
+    stats = (torch.where(alive_l, z, n_det).sum(dtype=torch.int32),
+             torch.where(alive_l, n_det, z).sum(dtype=torch.int32),
              alive.sum(dtype=torch.int32))
     if sus is None:
         return stats + (z, z, z)
     entered, refuted = sus
     return stats + (entered.sum(dtype=torch.int32),
                     refuted.sum(dtype=torch.int32),
-                    torch.where(alive, refuted, z).sum(dtype=torch.int32))
+                    torch.where(alive_l, refuted, z).sum(dtype=torch.int32))
 
 
 def _update_carry(carry: MetricsCarry, alive: torch.Tensor,
                   any_fail: torch.Tensor, first_obs_now: torch.Tensor,
                   round_idx: int, member_col: torch.Tensor,
                   rejoined: torch.Tensor | None = None,
-                  any_suspect: torch.Tensor | None = None) -> MetricsCarry:
-    """Fold one round into the carry.  ``member_col`` is the per-subject
-    count of live non-self observers still listing the subject;
-    ``rejoined`` the joins that took effect this round (a new incarnation
-    starts a new clock), None when the round had no matrix events;
-    ``any_suspect`` (suspicion runs) whether some observer holds the
-    subject SUSPECT after the merge."""
+                  any_suspect: torch.Tensor | None = None,
+                  ctx: ShardCtx = LOCAL_CTX) -> MetricsCarry:
+    """Fold one round into the carry (per local subject, like its
+    inputs; ``alive`` and ``rejoined`` are the replicated ``[N]`` masks).
+    ``member_col`` is the per-subject count of live non-self observers
+    still listing the subject; ``rejoined`` the joins that took effect
+    this round (a new incarnation starts a new clock), None when the round
+    had no matrix events; ``any_suspect`` (suspicion runs) whether some
+    observer holds the subject SUSPECT after the merge."""
     first_detect, first_observer, converged, first_suspect = carry
+    alive = ctx.slice_cols(alive)
     if rejoined is not None:
+        rejoined = ctx.slice_cols(rejoined)
         first_detect, first_observer, converged, first_suspect = (
             torch.where(rejoined, -1, f) for f in carry)
     fresh = (first_detect < 0) & any_fail
@@ -180,20 +260,24 @@ def rr_packed_init(config: SimConfig, member_mask=None, device="cuda"):
     return st.hb, st.asl, st.alive, st.hb_base, st.round, counts
 
 
-def _lean_ok(config: SimConfig, matrix_events: bool, scenario=None) -> bool:
+def _lean_ok(config: SimConfig, matrix_events: bool, scenario=None,
+             nloc: int | None = None) -> bool:
     """Whether ``run_rounds`` takes the lean resident-round loop: the JAX
     package's rr gate (``_use_rr``, less its TPU admissibility: a
     ``pallas_rr`` merge kernel, ``fused_tick="auto"``, random edges or
     arcs) or the aligned-arc headline profile, each with all-int8 lanes,
     fresh cooldown, no REMOVE broadcast and no matrix events.  The CUDA
-    resident round takes ``N % 4 == 0``, so a ragged N runs the
-    separate-pass round (same outputs).  Under a ``scenario`` an arc run
-    stays only where the ``edge_filter`` form exists: aligned arcs of at
-    most ``merge.ARC_MATCH_MAX_GROUPS`` window groups (the JAX package's
+    resident round takes ``C % 4 == 0`` over its C subject columns (``N``
+    on one device, a shard's ``nloc``: the JAX package's ``_use_rr(config,
+    n, nloc)``), so a ragged width runs the separate-pass round (same
+    outputs).  Under a ``scenario`` an arc run stays only where the
+    ``edge_filter`` form exists: aligned arcs of at most
+    ``merge.ARC_MATCH_MAX_GROUPS`` window groups (the JAX package's
     ``_rr_scan_eligible``)."""
+    cols = config.n if nloc is None else nloc
     if (matrix_events or config.hb_dtype != "int8"
             or not config.fresh_cooldown or config.remove_broadcast
-            or config.n % merge.KERNEL_VEC):
+            or config.n % merge.KERNEL_VEC or cols % merge.KERNEL_VEC):
         return False
     if scenario is not None and config.topology == "random_arc":
         return (config.arc_align > 1 and config.fanout // config.arc_align
@@ -206,9 +290,10 @@ def _lean_ok(config: SimConfig, matrix_events: bool, scenario=None) -> bool:
 
 
 def route(config: SimConfig, matrix_events: bool = False,
-          scenario=None) -> tuple[str, str]:
+          scenario=None, nloc: int | None = None) -> tuple[str, str]:
     """The loop ``run_rounds`` takes and the kernel it launches on the
-    card, from the configuration and whether a ``scenario`` is armed:
+    card, from the configuration, whether a ``scenario`` is armed and the
+    shard's column count ``nloc`` (None: one device, all N):
     ``("lean", form)`` with the resident round's merge form
     (ops/merge.kernel_form; an armed arc run takes an ``edge_filter``
     form, an armed explicit-edge run the ``edges`` form on rewritten
@@ -216,7 +301,7 @@ def route(config: SimConfig, matrix_events: bool = False,
     or ``("separate", name)`` with the merge of
     :func:`merge_kernel`."""
     armed = scenario is not None
-    if _lean_ok(config, matrix_events, scenario):
+    if _lean_ok(config, matrix_events, scenario, nloc):
         arc = config.topology == "random_arc"
         return "lean", merge.kernel_form(config.fanout if arc else None,
                                          config.arc_align, armed and arc,
@@ -230,7 +315,7 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
                churn_ok: torch.Tensor | None = None,
                mcarry0: MetricsCarry | None = None,
                crash_only_events: bool = False, scenario=None,
-               plain: bool = False):
+               plain: bool = False, ctx: ShardCtx = LOCAL_CTX):
     """Run ``num_rounds`` gossip rounds on the state's device.
 
     The JAX package's ``run_rounds`` contract: ``events`` are scheduled
@@ -244,7 +329,11 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
     its configured loop and kernel, and only the capability matrix is
     checked first (``scenarios.tensor.require_scenario_config``).
     ``plain=True`` runs every kernel through its plain PyTorch version on
-    any device: the reference the CUDA kernels are held against.
+    any device: the reference the CUDA kernels are held against.  ``ctx``
+    runs the rounds on one column shard (``parallel/mesh.py``
+    ``run_rounds_sharded`` is the entry point): the state's lanes are then
+    ``[N, nloc]`` and its ``hb_base`` ``[nloc]``, and the carry comes back
+    per local subject.
 
     The lanes of ``state`` are updated IN PLACE; the returned state shares
     them.  Returns (state, MetricsCarry, RoundMetrics).
@@ -252,8 +341,9 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
     if scenario is not None:
         scn.require_scenario_config(config, scenario)
     n = config.n
-    if state.hb.shape != (n, n):
-        raise ValueError(f"state is {tuple(state.hb.shape)}, config n={n}")
+    if state.hb.shape != (n, ctx.cols(n)):
+        raise ValueError(f"state is {tuple(state.hb.shape)}, config n={n}, "
+                         f"shard columns {ctx.cols(n)}")
     if state.hb.dtype != HB_DTYPES[config.hb_dtype]:
         raise ValueError(f"state hb is {state.hb.dtype}, config hb_dtype="
                          f"{config.hb_dtype!r}")
@@ -267,11 +357,11 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
     # joins and LEAVE broadcasts rewrite whole rows and columns
     matrix_events = ((events is not None and not crash_only_events)
                      or rejoin_rate > 0.0)
-    lean = _lean_ok(config, matrix_events, scenario)
+    lean = _lean_ok(config, matrix_events, scenario, ctx.nloc)
     run = _run_lean if lean else _run_general
     return run(state, config, num_rounds, key, events, crash_rate,
                rejoin_rate, churn_ok, mcarry0, matrix_events, plain,
-               scenario)
+               scenario, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +371,7 @@ def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
 
 def _run_lean(state, config, num_rounds, key, events, crash_rate,
               rejoin_rate, churn_ok, mcarry0, matrix_events, plain,
-              scenario=None):
+              scenario=None, ctx: ShardCtx = LOCAL_CTX):
     crash = None
     if events is not None:
         # crash-only: a leave bit is a silent death
@@ -289,7 +379,8 @@ def _run_lean(state, config, num_rounds, key, events, crash_rate,
     hb, asl, alive, hb_base, rnd, _, _, mc, metrics = run_lean_packed(
         state.hb, state.asl, state.alive, state.hb_base, int(state.round),
         config, key, num_rounds, crash=crash, crash_rate=crash_rate,
-        churn_ok=churn_ok, mcarry0=mcarry0, plain=plain, scenario=scenario)
+        churn_ok=churn_ok, mcarry0=mcarry0, plain=plain, scenario=scenario,
+        ctx=ctx)
     out = SimState(hb=hb, asl=asl, alive=alive, round=rnd, hb_base=hb_base)
     return out, mc, metrics
 
@@ -302,7 +393,8 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
                     mcarry0: MetricsCarry | None = None,
                     counts0: torch.Tensor | None = None,
                     sus_counts0: torch.Tensor | None = None,
-                    plain: bool = False, scenario=None) -> tuple:
+                    plain: bool = False, scenario=None,
+                    ctx: ShardCtx = LOCAL_CTX) -> tuple:
     """The lean loop's core over the packed lanes (the JAX package's
     ``_scan_rounds_rr_packed``), for a configuration :func:`_lean_ok`
     admits.
@@ -324,7 +416,15 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
     the resident round's ``edge_filter`` form on ``arc_match_edges``'
     (base, mask) pairs with ``~sends_mask`` on flags bit 3.  The rule
     table depends only on the round number, so the masks and mutes of
-    the whole horizon come from one batched pass, like the bases."""
+    the whole horizon come from one batched pass, like the bases.
+
+    ``ctx`` (a column shard): ``hb``/``asl`` are ``[N, nloc]``,
+    ``hb_base0``/``mcarry0`` the shard's per-subject slices, ``counts0`` and
+    ``sus_counts0`` whole (summed over the shards).  The resident round
+    runs its column-shard form (``col_offset``), its per-receiver counts
+    are the shard's partials, and one all-reduce a round sums them before
+    the next round's small-group and Lifeguard flags (the JAX package's
+    ``ctx.psum`` of ``rcnt``, core/rounds.py:1999, :2005)."""
     n, dev = config.n, hb.device
     explicit = config.topology == "random"
     if crash is not None:
@@ -363,7 +463,7 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
     lanes = SimState(hb=hb, asl=asl, alive=alive, round=round0,
                      hb_base=hb_base)
     counts = (counts0 if counts0 is not None
-              else member_counts(lanes, sus is not None))
+              else member_counts(lanes, sus is not None, ctx))
     sus_counts = None
     sus_kw = {}
     if sus is not None:
@@ -371,15 +471,16 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
                       lh_multiplier=sus.lh_multiplier)
     if lh:
         sus_counts = (sus_counts0 if sus_counts0 is not None
-                      else suspect_counts(lanes))
+                      else suspect_counts(lanes, ctx))
         lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32, device=dev)
-    mc = mcarry0 if mcarry0 is not None else MetricsCarry.init(n, dev)
+    mc = (mcarry0 if mcarry0 is not None
+          else MetricsCarry.init(hb.shape[1], dev))
     round_fn = merge.resident_round_plain if plain else merge.resident_round
     senders_kw = (dict() if explicit
                   else dict(fanout=config.fanout, arc_align=config.arc_align,
                             edge_filter=scenario is not None))
-    # _lean_ok's N % 4 == 0 and int8 lanes are what the SWAR form packs
-    senders_kw["elementwise"] = config.elementwise
+    # _lean_ok's C % 4 == 0 and int8 lanes are what the SWAR form packs
+    senders_kw.update(elementwise=config.elementwise, col_offset=ctx.offset)
     per_round = []
     for r in range(num_rounds):
         dead = None
@@ -395,7 +496,7 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
         small = counts < config.min_group
         active = alive & ~small
         refresher = alive & small
-        colmax_est = torch.diagonal(hb).to(torch.int32) + hb_base + 1
+        colmax_est = _diag(hb, ctx).to(torch.int32) + hb_base + 1
         sa, sb, store_base = _rebase_shifts_vec(hb.dtype, hb_base, config,
                                                 colmax_est)
         vecs = merge.threshold_stack(sa, sb, config.hb_grace - hb_base,
@@ -423,17 +524,25 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
             any_sus = held > 0
             if lh:
                 sus_counts = res[9]
+        if ctx.group is not None:
+            # the round's one collective: the per-receiver partials
+            if lh:
+                both = ctx.psum(torch.cat([counts, sus_counts]))
+                counts, sus_counts = both[:n], both[n:]
+            else:
+                counts = ctx.psum(counts)
         per_round.append(_round_stats(
-            n_det, alive, None if sus is None else (entered, refuted)))
+            n_det, alive, None if sus is None else (entered, refuted), ctx))
         # the diagonal is never SUSPECT: the MEMBER test is the listed one
-        self_member = alive & ((torch.diagonal(asl) & 3) == MEMBER)
+        self_member = (ctx.slice_cols(alive)
+                       & ((_diag(asl, ctx) & 3) == MEMBER))
         member_col = cnt_incl - self_member.to(torch.int32)
         mc = _update_carry(mc, alive, n_det > 0, first_obs, round0 + r,
-                           member_col, any_suspect=any_sus)
+                           member_col, any_suspect=any_sus, ctx=ctx)
         hb_base = store_base
 
     return (hb, asl, alive, hb_base, round0 + num_rounds, counts,
-            sus_counts, mc, _stack_metrics(per_round, dev))
+            sus_counts, mc, _stack_metrics(per_round, dev, ctx))
 
 
 # explicit edges drawn per block of rounds: one batch of threefry ops for
@@ -465,11 +574,20 @@ def _edge_blocks(config: SimConfig, keys: torch.Tensor, scenario=None,
         yield from edges
 
 
-def _stack_metrics(per_round: list, dev) -> RoundMetrics:
+def _stack_metrics(per_round: list, dev,
+                   ctx: ShardCtx = LOCAL_CTX) -> RoundMetrics:
+    """The horizon's RoundMetrics from the per-round scalars; on a shard
+    the per-subject counts (every field but ``n_alive``, which is
+    replicated) are summed over the shards here, in one all-reduce."""
     if not per_round:
         return RoundMetrics(*(torch.zeros((0,), dtype=torch.int32,
                                           device=dev) for _ in range(6)))
-    return RoundMetrics(*(torch.stack(c) for c in zip(*per_round)))
+    m = torch.stack([torch.stack(c) for c in zip(*per_round)])   # [6, R]
+    if ctx.group is not None:
+        part = [i for i, f in enumerate(RoundMetrics._fields)
+                if f != "n_alive"]
+        m[part] = ctx.psum(m[part].contiguous())
+    return RoundMetrics(*m)
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +622,7 @@ def _pack(status: torch.Tensor, age: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_events(state: SimState, crash, leave, join,
-                  config: SimConfig) -> SimState:
+                  config: SimConfig, ctx: ShardCtx = LOCAL_CTX) -> SimState:
     """Crash, LEAVE broadcast and join through the introducer, before the
     tick (the JAX package's ``_apply_events`` with matrix events).
 
@@ -517,9 +635,12 @@ def _apply_events(state: SimState, crash, leave, join,
     included.  Narrow lanes first rebase the joiner's
     column to base 0, so its fresh heartbeat 0 is representable.  Rows are
     rewritten in place, chunk by chunk; the joiner template is taken from
-    the introducer's row before any write."""
+    the introducer's row before any write.  On a column shard a joiner's
+    row is rewritten over the shard's columns, and its column (and its
+    rebase) on the shard that holds it only (the JAX package's
+    ``_sj``/``ctx.slice_cols``, core/rounds.py:319-346)."""
     hb, asl, alive, hb_base = state.hb, state.asl, state.alive, state.hb_base
-    n = hb.shape[0]
+    n, c = hb.shape
     dev = hb.device
     info = torch.iinfo(hb.dtype)
     lo, hi = info.min, info.max
@@ -531,18 +652,22 @@ def _apply_events(state: SimState, crash, leave, join,
     eff = join & ~alive_post & alive_post[intro]
     if not bool((leave | eff).any()):
         return state._replace(alive=alive_post)
-    new_base = torch.where(eff, 0, hb_base) if narrow else hb_base
-    renorm = eff & (hb_base != 0)
+    # the per-subject (column) views of the replicated masks
+    leave_c, eff_c = ctx.slice_cols(leave), ctx.slice_cols(eff)
+    new_base = torch.where(eff_c, 0, hb_base) if narrow else hb_base
+    renorm = eff_c & (hb_base != 0)
     # the stored encoding of "true heartbeat 0" per subject
     hz = torch.clamp(-new_base, lo, 0)
     intro_add = eff.clone()
     intro_add[intro] = False
-    cols = torch.arange(n, device=dev)
+    intro_add = ctx.slice_cols(intro_add)
+    cols = ctx.offset + torch.arange(c, device=dev)     # global subject ids
+    row_ids = torch.arange(n, device=dev)
 
     def rows(r0: int, r1: int):
         h = hb[r0:r1].to(torch.int32)
         st, age = _unpack(asl[r0:r1])
-        mark = alive[r0:r1, None] & listed(st, sus_on) & leave[None]
+        mark = alive[r0:r1, None] & listed(st, sus_on) & leave_c[None]
         st = torch.where(mark, FAILED, st)
         if config.fresh_cooldown:
             age = torch.where(mark, 0, age)
@@ -556,7 +681,7 @@ def _apply_events(state: SimState, crash, leave, join,
             st[k] = torch.where(intro_add, MEMBER, st[k])
             h[k] = torch.where(intro_add, hz, h[k])
             age[k] = torch.where(intro_add, 0, age[k])
-        add = alive_post[r0:r1, None] & (st == UNKNOWN) & eff[None]
+        add = alive_post[r0:r1, None] & (st == UNKNOWN) & eff_c[None]
         st = torch.where(add, MEMBER, st)
         h = torch.where(add, hz[None], h)
         age = torch.where(add, 0, age)
@@ -566,13 +691,13 @@ def _apply_events(state: SimState, crash, leave, join,
     j_member = st_i[0] == MEMBER
     j_st = torch.where(j_member, MEMBER, UNKNOWN)
     j_h = torch.where(j_member, h_i[0], hz)
-    for r0, r1 in row_chunks(n, n):
+    for r0, r1 in row_chunks(n, c):
         h, st, age = rows(r0, r1)
         joiner = eff[r0:r1, None]
         st = torch.where(joiner, j_st[None], st)
         h = torch.where(joiner, j_h[None], h)
         age = torch.where(joiner, 0, age)
-        self_entry = joiner & (cols[None] == cols[r0:r1, None])
+        self_entry = joiner & (cols[None] == row_ids[r0:r1, None])
         st = torch.where(self_entry, MEMBER, st)
         h = torch.where(self_entry, hz[None], h)
         hb[r0:r1] = h.to(hb.dtype)
@@ -580,21 +705,36 @@ def _apply_events(state: SimState, crash, leave, join,
     return state._replace(alive=alive_post | eff, hb_base=new_base)
 
 
-def _pre_tick(state: SimState, config: SimConfig):
-    """(active, refresher, colmax_est): senders vs small-group refreshers
-    from the receivers' list sizes, and each subject's post-bump counter
-    bound (its own diagonal + 1), the anchor of this round's rebase."""
-    counts = member_counts(state, config.suspicion is not None)
-    small = counts < config.min_group
+def _pre_tick(state: SimState, config: SimConfig,
+              ctx: ShardCtx = LOCAL_CTX):
+    """(active, refresher, colmax_est, degraded): senders vs small-group
+    refreshers from the receivers' list sizes, each subject's post-bump
+    counter bound (its own diagonal + 1), the anchor of this round's
+    rebase, and on the Lifeguard lane the receivers whose lists hold more
+    than ``lh_frac`` of their listed entries SUSPECT (the JAX package's
+    float32 compare; None off the lane).  Every count reads the whole
+    row, so a shard sums its partials (one all-reduce)."""
+    sus = config.suspicion
+    lh = sus is not None and sus.lh_multiplier > 0
+    counts = member_counts(state, sus is not None)
+    if lh:
+        counts = torch.cat([counts, suspect_counts(state)])
+    counts = ctx.psum(counts)
+    n = state.alive.shape[0]
+    small = counts[:n] < config.min_group
     active = state.alive & ~small
     refresher = state.alive & small
-    colmax_est = (torch.diagonal(state.hb).to(torch.int32) + state.hb_base
-                  + 1)
-    return active, refresher, colmax_est
+    colmax_est = _diag(state.hb, ctx).to(torch.int32) + state.hb_base + 1
+    degraded = None
+    if lh:
+        lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32,
+                               device=counts.device)
+        degraded = counts[n:].float() > lh_frac * counts[:n].float()
+    return active, refresher, colmax_est, degraded
 
 
 def _tick(state: SimState, config: SimConfig, active, refresher,
-          stats: bool):
+          stats: bool, degraded=None, ctx: ShardCtx = LOCAL_CTX):
     """The heartbeat tick, in place: small-group refresh, the
     sentinel-sticky self bump, detection (member, not self, past the
     grace, silent more than ``t_fail`` rounds), the REMOVE broadcast, and
@@ -604,9 +744,10 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
     reverts SUSPECT -> MEMBER, a stale MEMBER enters SUSPECT instead of
     failing, and a SUSPECT entry silent past ``t_fail + t_suspect * (1 +
     lh)`` confirms to FAILED; both masks read the pre-write status and the
-    FAILED write lands last.  ``lh`` is the Lifeguard multiplier on rows
-    whose pre-tick lists hold more than ``lh_frac`` of their listed
-    entries SUSPECT (the JAX package's float32 compare).
+    FAILED write lands last.  ``lh`` is the Lifeguard multiplier on the
+    ``degraded`` rows (:func:`_pre_tick`: their pre-tick lists hold more
+    than ``lh_frac`` of their listed entries SUSPECT; counted here when
+    not given).
 
     Returns (n_det, first_obs, entered): with ``stats`` this round's
     detections (confirmations) per subject and the first firing receiver
@@ -618,12 +759,15 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
     ``config.elementwise="swar"`` runs :func:`_tick_swar` where the lanes
     pack (``swar_lanes_ok``: int8, N % 4 == 0), as the JAX package
     dispatches; a ragged N takes this lanes form."""
-    if config.elementwise == "swar" and swar_lanes_ok(state.hb):
-        return _tick_swar(state, config, active, refresher, stats)
-    hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
-    n = hb.shape[0]
-    dev = hb.device
     sus = config.suspicion
+    if degraded is None and sus is not None and sus.lh_multiplier > 0:
+        degraded = _pre_tick(state, config, ctx)[3]
+    if config.elementwise == "swar" and swar_lanes_ok(state.hb):
+        return _tick_swar(state, config, active, refresher, stats, degraded,
+                          ctx)
+    hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
+    n, c = hb.shape
+    dev = hb.device
     info = torch.iinfo(hb.dtype)
     lo, hi = info.min, info.max
     bits = hb.element_size() * 8
@@ -634,31 +778,27 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
         thr = torch.clamp(config.hb_grace - basec + 1, lo, hi)
     else:
         thr = config.hb_grace - basec
-    cols = torch.arange(n, device=dev)
+    cols = ctx.offset + torch.arange(c, device=dev)     # global subject ids
+    row_ids = torch.arange(n, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    removed = torch.zeros(n, dtype=torch.bool, device=dev)
-    n_det = torch.zeros(n, **i32)
-    fobs = torch.full((n,), n, **i32)
+    removed = torch.zeros(c, dtype=torch.bool, device=dev)
+    n_det = torch.zeros(c, **i32)
+    fobs = torch.full((c,), n, **i32)
     entered = None
     if sus is not None:
-        entered = torch.zeros(n, **i32)
+        entered = torch.zeros(c, **i32)
         confirm_thr = config.t_fail + sus.t_suspect
-        if sus.lh_multiplier > 0:
-            lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32,
-                                   device=dev)
-    for r0, r1 in row_chunks(n, n):
+    for r0, r1 in row_chunks(n, c):
         h = hb[r0:r1].to(torch.int32)
         st, age = _unpack(asl[r0:r1])
-        rows = cols[r0:r1, None]
+        rows = row_ids[r0:r1, None]
         eye = rows == cols[None]
         act = active[r0:r1, None]
-        if sus is not None and sus.lh_multiplier > 0:
-            # Lifeguard, over this chunk's pre-tick rows
-            n_sus = (st == SUSPECT).sum(dim=1, dtype=torch.int32)
-            n_lst = listed(st, True).sum(dim=1, dtype=torch.int32)
-            degraded = n_sus.float() > lh_frac * n_lst.float()
+        if degraded is not None:
+            # Lifeguard: the stretched confirm age on degraded rows
             confirm_thr = (config.t_fail + sus.t_suspect * (
-                1 + torch.where(degraded, sus.lh_multiplier, 0)))[:, None]
+                1 + torch.where(degraded[r0:r1], sus.lh_multiplier,
+                                0)))[:, None]
         ref_rows = refresher[r0:r1, None]
         age = torch.where(ref_rows & listed(st, sus is not None), 0, age)
         if sus is not None:
@@ -693,7 +833,7 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
         hb[r0:r1] = h.to(hb.dtype)
         asl[r0:r1] = _pack(st, age)
     if config.remove_broadcast:
-        for r0, r1 in row_chunks(n, n):
+        for r0, r1 in row_chunks(n, c):
             st, age = _unpack(asl[r0:r1])
             mark = alive[r0:r1, None] & (st == MEMBER) & removed[None]
             st = torch.where(mark, FAILED, st)
@@ -707,13 +847,15 @@ def _tick(state: SimState, config: SimConfig, active, refresher,
     return n_det, torch.where(n_det > 0, fobs, 0), entered
 
 
-def _eye_words(r0: int, r1: int, n: int, device) -> torch.Tensor:
-    """Packed-word diagonal mask of rows ``r0..r1``: int32 ``[r, N/4]``,
-    byte 0xFF where receiver == subject (byte k of word w is subject
-    4w + k), from 4 word-width compares (the JAX package's
-    ``_eye_words``)."""
+def _eye_words(r0: int, r1: int, c: int, device,
+               offset: int = 0) -> torch.Tensor:
+    """Packed-word diagonal mask of rows ``r0..r1`` over ``c`` columns
+    from global subject ``offset``: int32 ``[r, C/4]``, byte 0xFF where
+    receiver == subject (byte k of word w is subject offset + 4w + k),
+    from 4 word-width compares (the JAX package's ``_eye_words``)."""
     rows = torch.arange(r0, r1, dtype=torch.int32, device=device)[:, None]
-    colw = torch.arange(0, n, 4, dtype=torch.int32, device=device)[None]
+    colw = torch.arange(offset, offset + c, 4, dtype=torch.int32,
+                        device=device)[None]
     out = None
     for k, bm in enumerate(swar.BYTE):
         m = torch.where(rows == colw + k, bm, 0).to(torch.int32)
@@ -722,7 +864,7 @@ def _eye_words(r0: int, r1: int, n: int, device) -> torch.Tensor:
 
 
 def _tick_swar(state: SimState, config: SimConfig, active, refresher,
-               stats: bool):
+               stats: bool, degraded=None, ctx: ShardCtx = LOCAL_CTX):
     """:func:`_tick` on packed words (the JAX package's ``_tick_swar``): 4
     subjects per int32 op, the same bytes.  The JAX package keeps age and
     status in separate lanes; here both ride the packed age|status byte
@@ -737,9 +879,11 @@ def _tick_swar(state: SimState, config: SimConfig, active, refresher,
     broadcast's OR over receivers) read the masks back as bytes.  Same
     contract as :func:`_tick`."""
     hb, asl, alive, basec = state.hb, state.asl, state.alive, state.hb_base
-    n = hb.shape[0]
+    n, c = hb.shape
     dev = hb.device
     sus = config.suspicion
+    if degraded is None and sus is not None and sus.lh_multiplier > 0:
+        degraded = _pre_tick(state, config, ctx)[3]
     w = swar.word
     mem0, fail0 = w(MEMBER - 128), w(FAILED - 128)
     det_thr = w(((config.t_fail << 2) | MEMBER) - 128)
@@ -747,16 +891,13 @@ def _tick_swar(state: SimState, config: SimConfig, active, refresher,
     thrw = swar.pack(torch.clamp(config.hb_grace - basec + 1, -128, 127)
                      .to(torch.int8))
     i32 = dict(dtype=torch.int32, device=dev)
-    removed = torch.zeros(n, dtype=torch.bool, device=dev)
-    n_det = torch.zeros(n, **i32)
-    fobs = torch.full((n,), n, **i32)
+    removed = torch.zeros(c, dtype=torch.bool, device=dev)
+    n_det = torch.zeros(c, **i32)
+    fobs = torch.full((c,), n, **i32)
     entered = None
     if sus is not None:
-        entered = torch.zeros(n, **i32)
+        entered = torch.zeros(c, **i32)
         confirm_w = w(((config.t_fail + sus.t_suspect) << 2 | SUSPECT) - 128)
-        if sus.lh_multiplier > 0:
-            lh_frac = torch.tensor(sus.lh_frac, dtype=torch.float32,
-                                   device=dev)
 
     def failed_word(aslw):
         # FAILED: the fresh cooldown stamps age 0, else the age is kept
@@ -769,27 +910,22 @@ def _tick_swar(state: SimState, config: SimConfig, active, refresher,
         exp = swar.eq(aslw & w(3), w(FAILED)) & swar.gts(aslw, cool_thr)
         return swar.sel(swar.to_bytes(exp), aslw & w(0xFC), aslw)
 
-    for r0, r1 in row_chunks(n, n):
+    for r0, r1 in row_chunks(n, c):
         hbw = swar.pack(hb[r0:r1])
         aslw = swar.pack(asl[r0:r1])
         act = swar.bool_mask(active[r0:r1])[:, None]
         ref = swar.bool_mask(refresher[r0:r1])[:, None]
-        eye = _eye_words(r0, r1, n, dev)
+        eye = _eye_words(r0, r1, c, dev, ctx.offset)
         st = aslw & w(3)
         stm = swar.eq(st, w(MEMBER))
         if sus is None:
             aslw = swar.sel(ref & swar.to_bytes(stm), st | swar.H, aslw)
         else:
             sus_pre = swar.eq(st, w(SUSPECT))
-            if sus.lh_multiplier > 0:
-                # Lifeguard, over this chunk's pre-tick rows
-                n_sus = (swar.unpack(sus_pre) != 0).sum(dim=1,
-                                                        dtype=torch.int32)
-                n_lst = (swar.unpack(stm | sus_pre) != 0).sum(
-                    dim=1, dtype=torch.int32)
-                degraded = n_sus.float() > lh_frac * n_lst.float()
+            if degraded is not None:
+                # Lifeguard: the stretched confirm age on degraded rows
                 age_thr = config.t_fail + sus.t_suspect * (
-                    1 + torch.where(degraded, sus.lh_multiplier, 0))
+                    1 + torch.where(degraded[r0:r1], sus.lh_multiplier, 0))
                 confirm_w = swar.splat((age_thr << 2 | SUSPECT) - 128)[:, None]
             # the refresh also reverts SUSPECT -> MEMBER
             aslw = swar.sel(ref & swar.to_bytes(stm | sus_pre), mem0, aslw)
@@ -822,7 +958,7 @@ def _tick_swar(state: SimState, config: SimConfig, active, refresher,
     if config.remove_broadcast:
         # one detection removes the subject at every live receiver
         removed_w = swar.pack(torch.where(removed, -1, 0).to(torch.int8))
-        for r0, r1 in row_chunks(n, n):
+        for r0, r1 in row_chunks(n, c):
             aslw = swar.pack(asl[r0:r1])
             mark = (swar.bool_mask(alive[r0:r1])[:, None] & removed_w
                     & swar.to_bytes(swar.eq(aslw & w(3), w(MEMBER))))
@@ -836,16 +972,16 @@ def _tick_swar(state: SimState, config: SimConfig, active, refresher,
 def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
     """What each sender's datagram holds: its listed entries (MEMBER, and
     SUSPECT under suspicion) within the rebase window, encoded relative to
-    ``shift_a``, -1 where absent, as an
-    ``[N, N]`` tensor of the view dtype.  Narrow lanes compare in the
+    ``shift_a``, -1 where absent, as an ``[N, C]`` tensor of the view
+    dtype (C the lanes' subject columns).  Narrow lanes compare in the
     stored encoding against thresholds clipped into their range and wrap
     as the JAX package's narrow arithmetic does; int32 lanes compare true
     values."""
     hb, asl = state.hb, state.asl
-    n = hb.shape[0]
+    n, c = hb.shape
     vdt = torch.int8 if config.view_dtype == "int8" else torch.int16
     vbits = 8 if vdt == torch.int8 else 16
-    view = torch.empty((n, n), dtype=vdt, device=hb.device)
+    view = torch.empty((n, c), dtype=vdt, device=hb.device)
     info = torch.iinfo(hb.dtype)
     lo, hi = info.min, info.max
     narrow = hb.dtype != torch.int32
@@ -856,7 +992,7 @@ def _gossip_view(state: SimState, senders, shift_a, config: SimConfig):
         sa_all = (shift_a < lo)[None]
         # lanes above the subject's own counter are old-incarnation zombies
         hi_n = torch.clamp(shift_a + window, lo, hi)[None]
-    for r0, r1 in row_chunks(n, n):
+    for r0, r1 in row_chunks(n, c):
         h = hb[r0:r1].to(torch.int32)
         elig = (listed(asl[r0:r1] & 3, config.suspicion is not None)
                 & senders[r0:r1, None])
@@ -886,7 +1022,8 @@ def merge_kernel(config: SimConfig, armed: bool = False) -> str:
       ``merge_kernel`` names the stripe family (``pallas_stripe*``,
       ``pallas_rr*``: the JAX package's ``_merge`` sends these rounds to its
       stripe kernel) and K5 admits the shape (an int8 view, N <=
-      ``merge_update.STRIPE_MAX_N``);
+      ``merge_update.STRIPE_MAX_N``: a bound on rows, which a column
+      shard keeps whole, so sharding does not change the pick);
     * ``fused_merge_update`` (K2) for every other explicit-edge round:
       ``ring``, other ``merge_kernel`` values, int16 views, larger N.
 
@@ -937,7 +1074,8 @@ def _merge(state: SimState, edges, senders, colmax_est, config: SimConfig,
 
 def _round_core(state: SimState, crash, leave, join, edges,
                 config: SimConfig, matrix_events: bool, plain: bool,
-                edge_filter=None, sends=None, arc_match=None):
+                edge_filter=None, sends=None, arc_match=None,
+                ctx: ShardCtx = LOCAL_CTX):
     """One separate-pass round (the JAX package's ``_round_core``).
     ``edge_filter`` rewrites explicit edges the caller has not filtered
     yet (the ring's, derived here from the post-tick tables);
@@ -950,11 +1088,13 @@ def _round_core(state: SimState, crash, leave, join, edges,
     matrix events, ``any_sus`` (whether an observer still holds the
     subject SUSPECT after the merge) None with suspicion off.  The
     suspicion counters come from the tick (entered) and the merge kernel
-    (refuted, held), with no ``[N, N]`` snapshot."""
+    (refuted, held), with no ``[N, N]`` snapshot.  ``ctx``: one column
+    shard; the per-subject outputs are the shard's, the scalars partial
+    (:func:`_stack_metrics` sums them)."""
     alive_before = state.alive
     with record_function("round.events"):
         if matrix_events:
-            state = _apply_events(state, crash, leave, join, config)
+            state = _apply_events(state, crash, leave, join, config, ctx)
         else:
             state = state._replace(alive=state.alive & ~(crash | leave))
     # crash-only, fresh cooldown, gossip-only: this round's detections are
@@ -963,9 +1103,10 @@ def _round_core(state: SimState, crash, leave, join, edges,
               and not config.remove_broadcast)
     sus_on = config.suspicion is not None
     with record_function("round.tick"):
-        active, refresher, colmax_est = _pre_tick(state, config)
+        active, refresher, colmax_est, degraded = _pre_tick(state, config,
+                                                            ctx)
         n_det, first_obs, entered = _tick(state, config, active, refresher,
-                                          stats=not det_ok)
+                                          not det_ok, degraded, ctx)
     if config.topology == "ring":
         with record_function("round.edges"):
             edges = topology.ring_edges_from_status(state.asl & 3, sus_on)
@@ -979,14 +1120,15 @@ def _round_core(state: SimState, crash, leave, join, edges,
         n_det, first_obs = k_ndet, k_fobs
     state = state._replace(hb_base=store_base, round=state.round + 1)
     # the diagonal is never SUSPECT: the MEMBER test is the listed one
-    self_member = state.alive & ((torch.diagonal(state.asl) & 3) == MEMBER)
+    self_member = (ctx.slice_cols(state.alive)
+                   & ((_diag(state.asl, ctx) & 3) == MEMBER))
     member_col = cnt_incl - self_member.to(torch.int32)
     rejoined = None
     if matrix_events:
         # joins lost to a dead introducer start no new clock
         rejoined = join & ~alive_before & state.alive
     stats = _round_stats(n_det, state.alive,
-                         (entered, refuted) if sus_on else None)
+                         (entered, refuted) if sus_on else None, ctx)
     any_sus = held > 0 if sus_on else None
     return state, n_det, stats, first_obs, member_col, rejoined, any_sus
 
@@ -1040,7 +1182,7 @@ def gossip_round_scenario(state: SimState, events: RoundEvents, edges,
 
 def _run_general(state, config, num_rounds, key, events, crash_rate,
                  rejoin_rate, churn_ok, mcarry0, matrix_events, plain,
-                 scenario=None):
+                 scenario=None, ctx: ShardCtx = LOCAL_CTX):
     n, dev = config.n, state.hb.device
     r0 = int(state.round)
     rnds = torch.arange(r0, r0 + num_rounds, dtype=torch.int64, device=dev)
@@ -1073,7 +1215,8 @@ def _run_general(state, config, num_rounds, key, events, crash_rate,
 
     state = state._replace(alive=state.alive.to(torch.bool),
                            hb_base=state.hb_base.to(torch.int32))
-    mc = mcarry0 if mcarry0 is not None else MetricsCarry.init(n, dev)
+    mc = (mcarry0 if mcarry0 is not None
+          else MetricsCarry.init(state.hb.shape[1], dev))
     per_round = []
     for r in range(num_rounds):
         with record_function("round.events"):
@@ -1109,9 +1252,9 @@ def _run_general(state, config, num_rounds, key, events, crash_rate,
                     scn_kw = dict(sends=sends_all[r], arc_match=match_all[r])
         state, n_det, stats, first_obs, member_col, rejoined, any_sus = (
             _round_core(state, crash, leave, join, edges, config,
-                        matrix_events, plain, **scn_kw))
+                        matrix_events, plain, ctx=ctx, **scn_kw))
         with record_function("round.carry"):
             per_round.append(stats)
             mc = _update_carry(mc, state.alive, n_det > 0, first_obs, r0 + r,
-                               member_col, rejoined, any_sus)
-    return state, mc, _stack_metrics(per_round, dev)
+                               member_col, rejoined, any_sus, ctx)
+    return state, mc, _stack_metrics(per_round, dev, ctx)

@@ -15,7 +15,10 @@ Row ``i`` of each ``[N, N]`` lane is node ``i``'s view of every peer ``j``
                  ``status`` is UNKNOWN / MEMBER / FAILED, and SUSPECT under
                  the SWIM lifecycle (``SimConfig.suspicion``)
 
-plus ground truth ``alive[j]`` and the round counter.  The two bytes per
+plus ground truth ``alive[j]`` and the round counter.  Under subject-axis
+sharding (``parallel/mesh.py``) a rank holds a column block: every row,
+its ``nloc`` subjects from global subject ``offset`` (``[N, nloc]`` lanes,
+``hb_base`` ``[nloc]``; :func:`init_shard`).  The two bytes per
 entry are the whole state the lean round loop moves; the JAX package's
 separate ``age``/``status`` lanes are the unpacked view of ``asl``
 (:meth:`SimState.age`, :meth:`SimState.status`).  The packing is lossless
@@ -75,12 +78,12 @@ class RoundEvents(NamedTuple):
         return RoundEvents(crash=z, leave=z, join=z)
 
 
-def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
-               device="cuda") -> SimState:
-    """Fully-joined initial cohort: every node in ``member_mask`` (default
-    all N) starts with every other member listed at heartbeat 0, age 0."""
+def _init_block(config: SimConfig, offset: int, cols: int, member_mask,
+                device) -> SimState:
+    """The fully-joined initial state's columns ``offset..offset+cols``."""
     n = config.n
-    asl = torch.full((n, n), MEMBER - 128, dtype=torch.int8, device=device)
+    asl = torch.full((n, cols), MEMBER - 128, dtype=torch.int8,
+                     device=device)
     if member_mask is None:
         member_mask = torch.ones((n,), dtype=torch.bool, device=device)
     else:
@@ -89,15 +92,33 @@ def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
         member_mask = member_mask.to(device=device, dtype=torch.bool)
         out = ~member_mask
         asl[out] = UNKNOWN - 128
-        asl[:, out] = UNKNOWN - 128
+        asl[:, out[offset:offset + cols]] = UNKNOWN - 128
     return SimState(
-        hb=torch.zeros((n, n), dtype=HB_DTYPES[config.hb_dtype],
+        hb=torch.zeros((n, cols), dtype=HB_DTYPES[config.hb_dtype],
                        device=device),
         asl=asl,
         alive=member_mask.clone(),
         round=0,
-        hb_base=torch.zeros((n,), dtype=torch.int32, device=device),
+        hb_base=torch.zeros((cols,), dtype=torch.int32, device=device),
     )
+
+
+def init_state(config: SimConfig, member_mask: torch.Tensor | None = None,
+               device="cuda") -> SimState:
+    """Fully-joined initial cohort: every node in ``member_mask`` (default
+    all N) starts with every other member listed at heartbeat 0, age 0."""
+    return _init_block(config, 0, config.n, member_mask, device)
+
+
+def init_shard(config: SimConfig, ctx, member_mask: torch.Tensor | None = None,
+               device="cuda") -> SimState:
+    """One column shard of :func:`init_state` (``ctx`` a
+    ``core.rounds.ShardCtx``): ``[N, nloc]`` lanes built in place, equal to
+    ``init_state(config)`` sliced to the shard's columns, with no
+    ``[N, N]`` tensor on the way (the JAX package builds its shards in
+    place through ``out_shardings`` for the same reason)."""
+    return _init_block(config, ctx.offset, ctx.cols(config.n), member_mask,
+                       device)
 
 
 def listed(status: torch.Tensor, suspicion: bool = False) -> torch.Tensor:
@@ -110,11 +131,13 @@ def listed(status: torch.Tensor, suspicion: bool = False) -> torch.Tensor:
     return status == MEMBER
 
 
-def _row_counts(state: SimState, pick) -> torch.Tensor:
+def _row_counts(state: SimState, pick, ctx=None) -> torch.Tensor:
     """Per-row count (int32 [N]) of the entries whose status ``pick``
     selects.  The status is the low two bits of the biased byte (the bias,
     128, is a multiple of 4), so no widening is needed; rows go in chunks,
-    which keeps the temporaries small at any N."""
+    which keeps the temporaries small at any N.  A row's count reads every
+    column: on a column shard (``ctx``, a ``core.rounds.ShardCtx``) the
+    shards' partials are summed (``ctx.psum``)."""
     asl = state.asl
     n, cols = asl.shape
     out = torch.empty(n, dtype=torch.int32, device=asl.device)
@@ -122,19 +145,20 @@ def _row_counts(state: SimState, pick) -> torch.Tensor:
     for r0 in range(0, n, step):
         out[r0:r0 + step] = pick(asl[r0:r0 + step] & 3).sum(
             dim=1, dtype=torch.int32)
-    return out
+    return out if ctx is None else ctx.psum(out)
 
 
-def member_counts(state: SimState, suspicion: bool = False) -> torch.Tensor:
+def member_counts(state: SimState, suspicion: bool = False,
+                  ctx=None) -> torch.Tensor:
     """Size of each node's membership list (int32 [N]), suspects included
     under ``suspicion``."""
-    return _row_counts(state, lambda st: listed(st, suspicion))
+    return _row_counts(state, lambda st: listed(st, suspicion), ctx)
 
 
-def suspect_counts(state: SimState) -> torch.Tensor:
+def suspect_counts(state: SimState, ctx=None) -> torch.Tensor:
     """SUSPECT entries of each node's list (int32 [N]): the Lifeguard
     local-health input."""
-    return _row_counts(state, lambda st: st == SUSPECT)
+    return _row_counts(state, lambda st: st == SUSPECT, ctx)
 
 
 def swar_lanes_ok(hb: torch.Tensor) -> bool:

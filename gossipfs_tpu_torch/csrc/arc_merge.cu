@@ -46,11 +46,11 @@ using merge_rows::store4;
 template <typename V, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 window_max_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
-                  int fanout) {
+                  int nc, int fanout) {
   const int s0 = blockIdx.x * fanout;  // segment start, extended index
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
-  if (col0 >= n) return;
-  const int valid = min(kVec, n - col0);
+  if (col0 >= nc) return;
+  const int valid = min(kVec, nc - col0);
   const int end = min(s0 + fanout, n);  // window starts owned: [s0, end)
   int run[kVec], v[kVec];
   // suffix maxima of segment m, from its last row down to s0
@@ -59,10 +59,10 @@ window_max_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
 #pragma unroll 4
   for (int x = s0 + fanout - 1; x >= s0; --x) {
     const int row = x < n ? x : x - n;
-    load4<V, kAligned>(view + (size_t)row * n + col0, valid, v);
+    load4<V, kAligned>(view + (size_t)row * nc + col0, valid, v);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) run[k] = max(run[k], v[k]);
-    if (x < end) store4<V, kAligned>(w + (size_t)x * n + col0, valid, run);
+    if (x < end) store4<V, kAligned>(w + (size_t)x * nc + col0, valid, run);
   }
   // prefix maxima of segment m+1, folded into the windows ending there
 #pragma unroll
@@ -70,10 +70,10 @@ window_max_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
 #pragma unroll 4
   for (int x = s0 + fanout; x <= end + fanout - 2; ++x) {
     const int row = x < n ? x : x - n;  // x < 2n: fanout < n
-    load4<V, kAligned>(view + (size_t)row * n + col0, valid, v);
+    load4<V, kAligned>(view + (size_t)row * nc + col0, valid, v);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) run[k] = max(run[k], v[k]);
-    V* wr = w + (size_t)(x - fanout + 1) * n + col0;
+    V* wr = w + (size_t)(x - fanout + 1) * nc + col0;
     int cur[kVec];
     load4<V, kAligned>(wr, valid, cur);
 #pragma unroll
@@ -83,42 +83,45 @@ window_max_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
 }
 
 template <typename V>
-cudaError_t launch_window(const void* view, void* w, int n, int fanout,
-                          bool aligned, cudaStream_t s) {
-  const dim3 grid((n + fanout - 1) / fanout, (n + kTile - 1) / kTile);
+cudaError_t launch_window(const void* view, void* w, int n, int nc,
+                          int fanout, bool aligned, cudaStream_t s) {
+  const dim3 grid((n + fanout - 1) / fanout, (nc + kTile - 1) / kTile);
   if (aligned)
     window_max_kernel<V, true><<<grid, kThreads, 0, s>>>(
-        static_cast<const V*>(view), static_cast<V*>(w), n, fanout);
+        static_cast<const V*>(view), static_cast<V*>(w), n, nc, fanout);
   else
     window_max_kernel<V, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const V*>(view), static_cast<V*>(w), n, fanout);
+        static_cast<const V*>(view), static_cast<V*>(w), n, nc, fanout);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch K4 on ``stream``.  view: int8/int16 [n, n]; bases: int32 [n] in
-// [0, n); hb, asl, sa, sb, alive, out, suspect as fm_merge; wbuf: [n, n]
-// scratch of the view's type.  Returns the CUDA error code of the launches.
+// Launch K4 on ``stream`` over column blocks (n rows, nc subject columns;
+// the window runs down the rows, so a shard needs only its columns).
+// view: int8/int16 [n, nc]; bases: int32 [n] in [0, n); hb, asl, sa, sb,
+// alive, out, suspect as fm_merge; wbuf: [n, nc] scratch of the view's
+// type.  Returns the CUDA error code of the launches.
 extern "C" int am_merge(const void* view, const void* bases, void* hb,
                         void* asl, const void* sa, const void* sb,
                         const void* alive, void* wbuf, void* out, int n,
-                        int fanout, int view_bytes, int hb_bytes, int detect,
-                        int suspect, int age_clamp, int aligned,
+                        int nc, int fanout, int view_bytes, int hb_bytes,
+                        int detect, int suspect, int age_clamp, int aligned,
                         void* stream) {
-  if (n <= 1 || fanout < 1 || fanout >= n) return (int)cudaErrorInvalidValue;
+  if (n <= 1 || nc <= 0 || nc > n || fanout < 1 || fanout >= n)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (view_bytes == 1)
-    e = launch_window<int8_t>(view, wbuf, n, fanout, aligned != 0, s);
+    e = launch_window<int8_t>(view, wbuf, n, nc, fanout, aligned != 0, s);
   else if (view_bytes == 2)
-    e = launch_window<int16_t>(view, wbuf, n, fanout, aligned != 0, s);
+    e = launch_window<int16_t>(view, wbuf, n, nc, fanout, aligned != 0, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   return (int)merge_rows::launch_rows(
       view_bytes, hb_bytes, wbuf, static_cast<const int32_t*>(bases), 1, hb,
       asl, static_cast<const int32_t*>(sa), static_cast<const int32_t*>(sb),
-      static_cast<const uint8_t*>(alive), static_cast<int32_t*>(out), n,
+      static_cast<const uint8_t*>(alive), static_cast<int32_t*>(out), n, nc,
       detect, suspect, age_clamp, aligned != 0, s);
 }

@@ -27,21 +27,24 @@
 
 #include "merge_rows.cuh"
 
-// Launch K2 on ``stream``.  view: int8/int16 [n, n]; edges: int32
-// [n, fanout]; hb: int8/16/32 [n, n] and asl: int8 [n, n], post-tick,
-// updated in place; sa, sb: int32 [n]; alive: bool [n]; out: int32 [3, n]
-// = cnt_incl, n_det, first_obs ([5, n] with refuted and held when
-// ``suspect``), initialised by the caller.  Returns the CUDA error code of
-// the launch (0 on success).
+// Launch K2 on ``stream`` over column blocks: n rows, nc subject columns
+// (nc = n for a square round, n / shards on a subject shard).  view:
+// int8/int16 [n, nc]; edges: int32 [n, fanout] in [0, n); hb: int8/16/32
+// [n, nc] and asl: int8 [n, nc], post-tick, updated in place; sa, sb:
+// int32 [nc]; alive: bool [n]; out: int32 [3, nc] = cnt_incl, n_det,
+// first_obs ([5, nc] with refuted and held when ``suspect``), initialised
+// by the caller.  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int fm_merge(const void* view, const void* edges, void* hb,
                         void* asl, const void* sa, const void* sb,
-                        const void* alive, void* out, int n, int fanout,
+                        const void* alive, void* out, int n, int nc,
+                        int fanout,
                         int view_bytes, int hb_bytes, int detect, int suspect,
                         int age_clamp, int aligned, void* stream) {
   return (int)merge_rows::launch_rows(
       view_bytes, hb_bytes, view, static_cast<const int32_t*>(edges), fanout,
       hb, asl, static_cast<const int32_t*>(sa),
       static_cast<const int32_t*>(sb), static_cast<const uint8_t*>(alive),
-      static_cast<int32_t*>(out), n, detect, suspect, age_clamp,
+      static_cast<int32_t*>(out), n, nc, detect, suspect, age_clamp,
       aligned != 0, static_cast<cudaStream_t>(stream));
 }

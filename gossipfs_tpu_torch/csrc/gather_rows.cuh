@@ -81,21 +81,32 @@ GR_HD void store_row(T* p, int valid, const int (&in)[kV]) {
 }
 
 // best[k] = max over f < fanout of view[row_of(f), col0 + k]; ``view``
-// is [n, n] row-major, ``row_of(f)`` the f-th sender row.
+// is [rows, cols] row-major (a column block of the view under subject
+// sharding: all sender rows, the shard's columns), ``row_of(f)`` the f-th
+// sender row.
 template <typename T, int kV, bool kAligned, typename RowOf>
-GR_HD void gather_max(const T* view, int n, int col0, int valid, int fanout,
-                      RowOf row_of, int (&best)[kV]) {
+GR_HD void gather_max_block(const T* view, int rows, int cols, int col0,
+                            int valid, int fanout, RowOf row_of,
+                            int (&best)[kV]) {
   for (int k = 0; k < kV; ++k) best[k] = Lo<T>::v;
   // unrolled so several sender rows' loads are in flight at once
   GR_UNROLL
   for (int f = 0; f < fanout; ++f) {
     const int s = row_of(f);
-    if ((unsigned)s < (unsigned)n) {
+    if ((unsigned)s < (unsigned)rows) {
       int v[kV];
-      load_row<T, kV, kAligned>(view + (size_t)s * n + col0, valid, v);
+      load_row<T, kV, kAligned>(view + (size_t)s * cols + col0, valid, v);
       for (int k = 0; k < kV; ++k) best[k] = v[k] > best[k] ? v[k] : best[k];
     }
   }
+}
+
+// gather_max_block over a square [n, n] view
+template <typename T, int kV, bool kAligned, typename RowOf>
+GR_HD void gather_max(const T* view, int n, int col0, int valid, int fanout,
+                      RowOf row_of, int (&best)[kV]) {
+  gather_max_block<T, kV, kAligned>(view, n, n, col0, valid, fanout, row_of,
+                                    best);
 }
 
 // The masked gather of K3's edge_filter forms: best[k] = max over

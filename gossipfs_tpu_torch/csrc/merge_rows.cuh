@@ -8,8 +8,8 @@
 //
 // Geometry: a block covers kRows receiver rows x kTile subject columns;
 // each thread owns kVec = 4 consecutive subjects of every row (one 4, 8 or
-// 16-byte vector load per lane when N % 4 == 0 and the lanes are 16-byte
-// aligned, element loads otherwise) and keeps its subjects' counts in
+// 16-byte vector load per lane when the column count % 4 == 0 and the
+// lanes are 16-byte aligned, element loads otherwise) and keeps its subjects' counts in
 // registers across the block's rows; one atomic per subject and block
 // then adds them to the global reductions.  Counts and minima are
 // integers, so every block order gives the same result.  The block's
@@ -69,12 +69,17 @@ __device__ __forceinline__ void store4(T* p, int valid, const int (&in)[kVec]) {
   }
 }
 
-// senders: int32 [n, fanout] row-major.  A dead receiver's gather is
-// skipped (best stays -1): its epilogue is gated on recv anyway, which is
-// what the TPU kernel's remap of dead receivers' edges to themselves
-// achieves.  A sender outside [0, n) counts as absent.  ``out`` is int32
-// [3, n] (cnt, n_det, first_obs), [5, n] with refuted and held under kSus.
-template <typename V, typename H, bool kAligned, bool kSus>
+// The lanes and the view are column blocks [n, nc]: all n receiver (and
+// sender) rows, nc subject columns (nc = n for a square round, n / shards
+// under subject sharding; the function is columnwise, so a shard needs
+// only its columns).  senders: int32 [n, fanout] row-major.  A dead
+// receiver's gather is skipped (best stays -1): its epilogue is gated on
+// recv anyway, which is what the TPU kernel's remap of dead receivers'
+// edges to themselves achieves.  A sender outside [0, n) counts as
+// absent.  ``out`` is int32 [3, nc] (cnt, n_det, first_obs), [5, nc] with
+// refuted and held under kSus.  kBlock: a column block; without it nc = n
+// is a compile-time fact (the square code is what it was before blocks).
+template <typename V, typename H, bool kAligned, bool kSus, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 merge_rows_kernel(const V* __restrict__ view,
                   const int32_t* __restrict__ senders, int fanout,
@@ -82,17 +87,18 @@ merge_rows_kernel(const V* __restrict__ view,
                   const int32_t* __restrict__ shift_a,
                   const int32_t* __restrict__ shift_b,
                   const uint8_t* __restrict__ alive,
-                  int32_t* __restrict__ out, int n, int detect,
+                  int32_t* __restrict__ out, int n, int nc, int detect,
                   int age_clamp) {
   extern __shared__ int32_t s_send[];  // [kRows][fanout]
+  if (!kBlock) nc = n;
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, n - row0);
   for (int t = threadIdx.x; t < rows * fanout; t += kThreads)
     s_send[t] = senders[(size_t)row0 * fanout + t];
   __syncthreads();
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
-  if (col0 >= n) return;  // after the block's only barrier
-  const int valid = min(kVec, n - col0);
+  if (col0 >= nc) return;  // after the block's only barrier
+  const int valid = min(kVec, nc - col0);
   int sa[kVec], sb[kVec], c[kVec], nd[kVec], fo[kVec], rf[kVec], hd[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
@@ -118,13 +124,13 @@ merge_rows_kernel(const V* __restrict__ view,
         const int s = s_send[r * fanout + f];
         if ((unsigned)s < (unsigned)n) {
           int v[kVec];
-          load4<V, kAligned>(view + (size_t)s * n + col0, valid, v);
+          load4<V, kAligned>(view + (size_t)s * nc + col0, valid, v);
 #pragma unroll
           for (int k = 0; k < kVec; ++k) best[k] = max(best[k], v[k]);
         }
       }
     }
-    const size_t off = (size_t)row * n + col0;
+    const size_t off = (size_t)row * nc + col0;
     int h[kVec], a[kVec];
     load4<H, kAligned>(hb + off, valid, h);
     load4<int8_t, kAligned>(asl + off, valid, a);
@@ -153,11 +159,11 @@ merge_rows_kernel(const V* __restrict__ view,
     if (k >= valid) break;
     if (c[k]) atomicAdd(out + col0 + k, c[k]);
     if (detect && nd[k]) {
-      atomicAdd(out + n + col0 + k, nd[k]);
-      atomicMin(out + 2 * n + col0 + k, fo[k]);
+      atomicAdd(out + nc + col0 + k, nd[k]);
+      atomicMin(out + 2 * nc + col0 + k, fo[k]);
     }
-    if (kSus && rf[k]) atomicAdd(out + 3 * n + col0 + k, rf[k]);
-    if (kSus && hd[k]) atomicAdd(out + 4 * n + col0 + k, hd[k]);
+    if (kSus && rf[k]) atomicAdd(out + 3 * nc + col0 + k, rf[k]);
+    if (kSus && hd[k]) atomicAdd(out + 4 * nc + col0 + k, hd[k]);
   }
 }
 
@@ -165,16 +171,24 @@ template <typename V, typename H, bool kSus>
 cudaError_t launch_rows_s(const V* v, const int32_t* senders, int fanout,
                           H* h, int8_t* a, const int32_t* sa,
                           const int32_t* sb, const uint8_t* alive,
-                          int32_t* out, int n, int detect, int age_clamp,
-                          bool aligned, cudaStream_t s) {
-  const dim3 grid((n + kRows - 1) / kRows, (n + kTile - 1) / kTile);
+                          int32_t* out, int n, int nc, int detect,
+                          int age_clamp, bool aligned, cudaStream_t s) {
+  const dim3 grid((n + kRows - 1) / kRows, (nc + kTile - 1) / kTile);
   const size_t smem = sizeof(int32_t) * kRows * (size_t)fanout;
-  if (aligned)
-    merge_rows_kernel<V, H, true, kSus><<<grid, kThreads, smem, s>>>(
-        v, senders, fanout, h, a, sa, sb, alive, out, n, detect, age_clamp);
-  else
-    merge_rows_kernel<V, H, false, kSus><<<grid, kThreads, smem, s>>>(
-        v, senders, fanout, h, a, sa, sb, alive, out, n, detect, age_clamp);
+#define MR_LAUNCH(al, blk)                                                  \
+  merge_rows_kernel<V, H, al, kSus, blk><<<grid, kThreads, smem, s>>>(      \
+      v, senders, fanout, h, a, sa, sb, alive, out, n, nc, detect, age_clamp)
+  if (nc == n) {
+    if (aligned)
+      MR_LAUNCH(true, false);
+    else
+      MR_LAUNCH(false, false);
+  } else if (aligned) {
+    MR_LAUNCH(true, true);
+  } else {
+    MR_LAUNCH(false, true);
+  }
+#undef MR_LAUNCH
   return cudaGetLastError();
 }
 
@@ -182,7 +196,7 @@ template <typename V, typename H>
 cudaError_t launch_rows_t(const void* view, const int32_t* senders,
                           int fanout, void* hb, void* asl,
                           const int32_t* sa, const int32_t* sb,
-                          const uint8_t* alive, int32_t* out, int n,
+                          const uint8_t* alive, int32_t* out, int n, int nc,
                           int detect, int suspect, int age_clamp,
                           bool aligned, cudaStream_t s) {
   const V* v = static_cast<const V*>(view);
@@ -190,25 +204,28 @@ cudaError_t launch_rows_t(const void* view, const int32_t* senders,
   int8_t* a = static_cast<int8_t*>(asl);
   if (suspect)
     return launch_rows_s<V, H, true>(v, senders, fanout, h, a, sa, sb, alive,
-                                     out, n, detect, age_clamp, aligned, s);
+                                     out, n, nc, detect, age_clamp, aligned,
+                                     s);
   return launch_rows_s<V, H, false>(v, senders, fanout, h, a, sa, sb, alive,
-                                    out, n, detect, age_clamp, aligned, s);
+                                    out, n, nc, detect, age_clamp, aligned,
+                                    s);
 }
 
-// The row pass for every (view, hb) pair SimConfig admits, by byte width.
-// out: int32 [3, n] = cnt_incl, n_det, first_obs ([5, n] with refuted and
-// held when ``suspect``), initialised by the caller (zeros; first_obs n
-// when detect).
+// The row pass for every (view, hb) pair SimConfig admits, by byte width,
+// over [n, nc] column blocks.  out: int32 [3, nc] = cnt_incl, n_det,
+// first_obs ([5, nc] with refuted and held when ``suspect``), initialised
+// by the caller (zeros; first_obs n when detect).
 inline cudaError_t launch_rows(int view_bytes, int hb_bytes, const void* view,
                                const int32_t* senders, int fanout, void* hb,
                                void* asl, const int32_t* sa,
                                const int32_t* sb, const uint8_t* alive,
-                               int32_t* out, int n, int detect, int suspect,
-                               int age_clamp, bool aligned, cudaStream_t s) {
-  if (n <= 0 || fanout < 1 || fanout > kMaxFanout || age_clamp < 0 ||
-      age_clamp > 63)
+                               int32_t* out, int n, int nc, int detect,
+                               int suspect, int age_clamp, bool aligned,
+                               cudaStream_t s) {
+  if (n <= 0 || nc <= 0 || nc > n || fanout < 1 || fanout > kMaxFanout ||
+      age_clamp < 0 || age_clamp > 63)
     return cudaErrorInvalidValue;
-#define MR_ARGS view, senders, fanout, hb, asl, sa, sb, alive, out, n, \
+#define MR_ARGS view, senders, fanout, hb, asl, sa, sb, alive, out, n, nc, \
                 detect, suspect, age_clamp, aligned, s
   if (view_bytes == 1 && hb_bytes == 1)
     return launch_rows_t<int8_t, int8_t>(MR_ARGS);

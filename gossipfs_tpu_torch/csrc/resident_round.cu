@@ -88,6 +88,21 @@
 // keeps its diagonal chunks on the lanes path.  Counts accumulate as
 // 0/1-per-byte counter words.  Its outputs are the lanes form's bit for
 // bit; if it is faster, the lanes form was issue-bound.
+//
+// The column-shard form (the JAX kernel's ``col_offset``,
+// merge_pallas.py:2633, :1887) is the same code over a tall-skinny block:
+// all n receiver rows, nc subject columns starting at global subject
+// ``col_offset``.  Every buffer indexed by subject ([n, nc] lanes, the
+// [11, nc] stack, G[*, nc]) takes nc as its row stride and the grid's
+// column tiles cover nc; rows, senders and flags stay global.  The
+// diagonal sits at row == col_offset + local column, so a shard holds it
+// for rows [col_offset, col_offset + nc) only (a SWAR word it crosses is
+// found the same way).  Per-subject outputs are the shard's [nc]; the
+// per-receiver counts (recv_cnt, suspect_cnt) are partial, over the
+// shard's columns, and the round loop sums them across shards.  A square
+// round is nc = n, col_offset = 0: the same launches, from instantiations
+// where those are compile-time facts (kBlock false), so the square code is
+// what it was; a column block runs the kBlock instantiations.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -146,14 +161,14 @@ __device__ __forceinline__ void tick_view_lanes(
     const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
     int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
     int32_t* __restrict__ first_obs, int32_t* __restrict__ entered, int n,
-    int t_fail, int t_cooldown, SusThr sus) {
+    int nc, int col_offset, int t_fail, int t_cooldown, SusThr sus) {
   const int grp = blockIdx.x;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
-  if (col0 >= n) return;
-  const Bytes sa_n = load_vec(vecs + (size_t)V_SA_N * n + col0);
-  const Bytes sa_all = load_vec(vecs + (size_t)V_SA_ALL * n + col0);
-  const Bytes hi_n = load_vec(vecs + (size_t)V_HI_N * n + col0);
-  const Bytes thr_g = load_vec(vecs + (size_t)V_THR_G * n + col0);
+  if (col0 >= nc) return;
+  const Bytes sa_n = load_vec(vecs + (size_t)V_SA_N * nc + col0);
+  const Bytes sa_all = load_vec(vecs + (size_t)V_SA_ALL * nc + col0);
+  const Bytes hi_n = load_vec(vecs + (size_t)V_HI_N * nc + col0);
+  const Bytes thr_g = load_vec(vecs + (size_t)V_THR_G * nc + col0);
   // per subject: the group max of the view, and a bit per group row
   // whose detector fired
   int gm[kVec];
@@ -174,11 +189,12 @@ __device__ __forceinline__ void tick_view_lanes(
     const bool ref = (f & 2) != 0;
     const bool lh = (f & 16) != 0;
     const bool sends = rr_sends(f, kMute);
-    const size_t off = (size_t)row * n + col0;
+    const size_t off = (size_t)row * nc + col0;
     Bytes h = load_vec(hb + off);
     Bytes a = load_vec(asl + off);
     Bytes venc;
-    const int d = row - col0;  // the diagonal sits at k == d
+    // the diagonal sits at k == d: global column col_offset + col0 + k
+    const int d = row - (col_offset + col0);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
       int th, ta;
@@ -218,7 +234,7 @@ __device__ __forceinline__ void tick_view_lanes(
     Bytes g;
 #pragma unroll
     for (int k = 0; k < kVec; ++k) g.b[k] = (int8_t)gm[k];
-    store_vec(gmax + (size_t)grp * n + col0, g);
+    store_vec(gmax + (size_t)grp * nc + col0, g);
   }
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
@@ -244,16 +260,16 @@ __device__ __forceinline__ void tick_view_swar(
     const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
     int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
     int32_t* __restrict__ first_obs, int32_t* __restrict__ entered, int n,
-    int t_fail, int t_cooldown, SusThr sus) {
+    int nc, int col_offset, int t_fail, int t_cooldown, SusThr sus) {
   const int grp = blockIdx.x;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
-  if (col0 >= n) return;
+  if (col0 >= nc) return;
   // the stack rows pass A reads
   SwVec vec{};
-  vec.v[V_SA_N] = swar::load(vecs + (size_t)V_SA_N * n + col0);
-  vec.v[V_SA_ALL] = swar::load(vecs + (size_t)V_SA_ALL * n + col0);
-  vec.v[V_HI_N] = swar::load(vecs + (size_t)V_HI_N * n + col0);
-  vec.v[V_THR_G] = swar::load(vecs + (size_t)V_THR_G * n + col0);
+  vec.v[V_SA_N] = swar::load(vecs + (size_t)V_SA_N * nc + col0);
+  vec.v[V_SA_ALL] = swar::load(vecs + (size_t)V_SA_ALL * nc + col0);
+  vec.v[V_HI_N] = swar::load(vecs + (size_t)V_HI_N * nc + col0);
+  vec.v[V_THR_G] = swar::load(vecs + (size_t)V_THR_G * nc + col0);
   uint32_t gm = swar::H;  // -128 per byte
   uint32_t det = 0, ent = 0, seen = 0, first = 0;
   const int rows = kFullView ? min(kAlign, n - grp * kAlign) : kAlign;
@@ -265,10 +281,11 @@ __device__ __forceinline__ void tick_view_swar(
     const bool ref = (f & 2) != 0;
     const bool lh = (f & 16) != 0;
     const bool sends = rr_sends(f, kMute);
-    const size_t off = (size_t)row * n + col0;
+    const size_t off = (size_t)row * nc + col0;
     const uint32_t h = swar::load(hb + off);
     const uint32_t a = swar::load(asl + off);
-    const int d = row - col0;  // the diagonal's byte, if in [0, 4)
+    // the diagonal's byte, if in [0, 4): global column col_offset + col0
+    const int d = row - (col_offset + col0);
     const SwTickView t =
         (unsigned)d < 4u
             ? rr_tick_view_lanes_word<kSus>(h, a, act, ref, lh, sends, d,
@@ -292,7 +309,7 @@ __device__ __forceinline__ void tick_view_swar(
     }
     if (kSus) ent += t.entered >> 7;
   }
-  if (!kFullView) swar::store(gmax + (size_t)grp * n + col0, gm);
+  if (!kFullView) swar::store(gmax + (size_t)grp * nc + col0, gm);
   if (!(det | ent)) return;
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
@@ -307,28 +324,38 @@ __device__ __forceinline__ void tick_view_swar(
   }
 }
 
-// kSwar picks the SWAR form of the pass, same outputs.
-template <bool kSus, bool kFullView, bool kMute, bool kSwar>
+// kSwar picks the SWAR form of the pass, same outputs.  kBlock: the
+// column-shard form; without it the pass is the square round, nc = n and
+// col_offset = 0 as compile-time facts (the square kernels then compile
+// to the code they had before the column-shard form existed).
+template <bool kSus, bool kFullView, bool kMute, bool kSwar, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                     const int8_t* __restrict__ flags,
                     const int8_t* __restrict__ vecs,
                     int8_t* __restrict__ gmax, int32_t* __restrict__ n_det,
                     int32_t* __restrict__ first_obs,
-                    int32_t* __restrict__ entered, int n, int t_fail,
-                    int t_cooldown, SusThr sus) {
+                    int32_t* __restrict__ entered, int n, int nc,
+                    int col_offset, int t_fail, int t_cooldown, SusThr sus) {
+  if (!kBlock) {
+    nc = n;
+    col_offset = 0;
+  }
   if constexpr (kSwar)
     tick_view_swar<kSus, kFullView, kMute>(hb, asl, flags, vecs, gmax, n_det,
-                                           first_obs, entered, n, t_fail,
-                                           t_cooldown, sus);
+                                           first_obs, entered, n, nc,
+                                           col_offset, t_fail, t_cooldown,
+                                           sus);
   else
     tick_view_lanes<kSus, kFullView, kMute>(hb, asl, flags, vecs, gmax,
-                                            n_det, first_obs, entered, n,
-                                            t_fail, t_cooldown, sus);
+                                            n_det, first_obs, entered, n, nc,
+                                            col_offset, t_fail, t_cooldown,
+                                            sus);
 }
 
 // After pass A (stream order): columns no row fired on get the sentinel
-// N, as the plain version gives.  Run by pass B's first row of blocks.
+// N (the global row count, whatever the shard's width), as the plain
+// version gives.  Run by pass B's first row of blocks.
 __device__ __forceinline__ void fobs_unset_to_n(int32_t* first_obs, int col0,
                                                 int n) {
 #pragma unroll
@@ -338,39 +365,41 @@ __device__ __forceinline__ void fobs_unset_to_n(int32_t* first_obs, int col0,
 
 // the merge pass's suspicion outputs (null in the crash-only form)
 struct SusOut {
-  int32_t* refuted;      // [n] per subject
-  int32_t* held;         // [n] per subject, post-merge SUSPECT, all rows
-  int32_t* suspect_cnt;  // [n] per receiver (the Lifeguard lane)
+  int32_t* refuted;      // [nc] per subject
+  int32_t* held;         // [nc] per subject, post-merge SUSPECT, all rows
+  int32_t* suspect_cnt;  // [n] per receiver (the Lifeguard lane), partial
+                         // over the shard's columns
 };
 
 // kForm: kFormGroup takes ``senders`` as arc bases (multiples of 8) and
-// ``width`` = F/8 groups of G[n/8, n]; kFormEdges takes ``senders`` as
+// ``width`` = F/8 groups of G[n/8, nc]; kFormEdges takes ``senders`` as
 // int32 [n, width] in-edges and kFormArc as arc bases [n], ``width`` = F,
-// both over the whole view G[n, n].  The edge_filter forms take
+// both over the whole view G[n, nc].  The edge_filter forms take
 // ``senders`` as int32 [n, 2] (arc base, group-match bitmask):
-// kFormFilterGroup over G[n/8, n] with ``width`` = F/8, kFormFilterRows
+// kFormFilterGroup over G[n/8, nc] with ``width`` = F/8, kFormFilterRows
 // over the whole view with ``width`` = F and ``group_shift`` =
-// log2(arc_align).
+// log2(arc_align).  Rows (senders, receivers) are global; the nc columns
+// are the shard's.
 template <bool kSus, bool kLh, int kForm>
 __device__ __forceinline__ void merge_lanes(
     int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
     const int32_t* __restrict__ senders, const int8_t* __restrict__ gmax,
     int32_t* __restrict__ member_cnt, int32_t* __restrict__ recv_cnt,
-    int32_t* __restrict__ first_obs, SusOut so, int n, int width,
+    int32_t* __restrict__ first_obs, SusOut so, int n, int nc, int width,
     int group_shift, int age_clamp) {
   const int row0 = blockIdx.x * kRowsB;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   // every lane of a warp takes part in the row reductions below, so a
   // thread past the last column stays in the loop with nothing to count
-  const bool valid = col0 < n;
+  const bool valid = col0 < nc;
   const int nb = n / kAlign;
   Bytes vr[N_VEC];
 #pragma unroll
   for (int i = 0; i < N_VEC; ++i) {
     vr[i].v = Word<kVec>::T{};
     if (valid && i != V_SA_ALL && i != V_HI_N && i != V_THR_G)
-      vr[i] = load_vec(vecs + (size_t)i * n + col0);
+      vr[i] = load_vec(vecs + (size_t)i * nc + col0);
   }
   int cnt[kVec], ref[kVec], hld[kVec];
 #pragma unroll
@@ -390,10 +419,10 @@ __device__ __forceinline__ void merge_lanes(
       Bytes best;
       if (kForm == kFormGroup) {
         const int g0 = senders[row] / kAlign;
-        best = load_vec(gmax + (size_t)g0 * n + col0);
+        best = load_vec(gmax + (size_t)g0 * nc + col0);
         for (int w = 1; w < width; ++w) {
           const int g = (g0 + w) % nb;
-          const Bytes o = load_vec(gmax + (size_t)g * n + col0);
+          const Bytes o = load_vec(gmax + (size_t)g * nc + col0);
 #pragma unroll
           for (int k = 0; k < kVec; ++k)
             best.b[k] = (int8_t)max((int)best.b[k], (int)o.b[k]);
@@ -407,12 +436,13 @@ __device__ __forceinline__ void merge_lanes(
         if (recv) {
           if (kForm == kFormEdges) {
             const int32_t* e = senders + (size_t)row * width;
-            gather_rows::gather_max<int8_t, kVec, true>(
-                gmax, n, col0, kVec, width, [e](int f) { return e[f]; }, bm);
+            gather_rows::gather_max_block<int8_t, kVec, true>(
+                gmax, n, nc, col0, kVec, width, [e](int f) { return e[f]; },
+                bm);
           } else if (kForm == kFormArc) {
             const int base = senders[row];
-            gather_rows::gather_max<int8_t, kVec, true>(
-                gmax, n, col0, kVec, width,
+            gather_rows::gather_max_block<int8_t, kVec, true>(
+                gmax, n, nc, col0, kVec, width,
                 [base, n](int f) {
                   const int s = base + f;
                   return s >= n ? s - n : s;
@@ -422,7 +452,7 @@ __device__ __forceinline__ void merge_lanes(
             const int g0 = senders[2 * (size_t)row] / kAlign;
             const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
             gather_rows::gather_max_masked<int8_t, kVec, true>(
-                gmax, nb, n, col0, kVec, width, 0, mask,
+                gmax, nb, nc, col0, kVec, width, 0, mask,
                 [g0, nb](int k) {
                   const int g = g0 + k;
                   return g >= nb ? g - nb : g;
@@ -432,7 +462,7 @@ __device__ __forceinline__ void merge_lanes(
             const int base = senders[2 * (size_t)row];
             const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
             gather_rows::gather_max_masked<int8_t, kVec, true>(
-                gmax, n, n, col0, kVec, width, group_shift, mask,
+                gmax, n, nc, col0, kVec, width, group_shift, mask,
                 [base, n](int f) {
                   const int s = base + f;
                   return s >= n ? s - n : s;
@@ -443,7 +473,7 @@ __device__ __forceinline__ void merge_lanes(
 #pragma unroll
         for (int k = 0; k < kVec; ++k) best.b[k] = (int8_t)bm[k];
       }
-      const size_t off = (size_t)row * n + col0;
+      const size_t off = (size_t)row * nc + col0;
       Bytes h = load_vec(hb + off);
       Bytes a = load_vec(asl + off);
 #pragma unroll
@@ -504,21 +534,21 @@ __device__ __forceinline__ void merge_swar(
     const int8_t* __restrict__ flags, const int8_t* __restrict__ vecs,
     const int32_t* __restrict__ senders, const int8_t* __restrict__ gmax,
     int32_t* __restrict__ member_cnt, int32_t* __restrict__ recv_cnt,
-    int32_t* __restrict__ first_obs, SusOut so, int n, int width,
+    int32_t* __restrict__ first_obs, SusOut so, int n, int nc, int width,
     int group_shift, int age_clamp) {
   using swar::word;
   const int row0 = blockIdx.x * kRowsB;
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   // every lane of a warp takes part in the row reductions below, so a
   // thread past the last column stays in the loop with nothing to count
-  const bool valid = col0 < n;
+  const bool valid = col0 < nc;
   const int nb = n / kAlign;
   // the stack rows the epilogue reads (pass A's four are not)
   SwVec vec{};
 #pragma unroll
   for (int i = 0; i < N_VEC; ++i)
     if (valid && i != V_SA_ALL && i != V_HI_N && i != V_THR_G)
-      vec.v[i] = swar::load(vecs + (size_t)i * n + col0);
+      vec.v[i] = swar::load(vecs + (size_t)i * nc + col0);
   uint32_t cnt = 0, refw = 0, hld = 0;
 #pragma unroll 1
   for (int r = 0; r < kRowsB; ++r) {
@@ -531,27 +561,27 @@ __device__ __forceinline__ void merge_swar(
       uint32_t best = 0xFFFFFFFFu;
       if (kForm == kFormGroup) {
         const int g0 = senders[row] / kAlign;
-        best = swar::load(gmax + (size_t)g0 * n + col0);
+        best = swar::load(gmax + (size_t)g0 * nc + col0);
         for (int w = 1; w < width; ++w) {
           const int g = (g0 + w) % nb;
-          best = swar::maxs(best, swar::load(gmax + (size_t)g * n + col0));
+          best = swar::maxs(best, swar::load(gmax + (size_t)g * nc + col0));
         }
       } else if (recv) {
         // a dead receiver's best is never read: it skips the gather
         if (kForm == kFormEdges) {
           const int32_t* e = senders + (size_t)row * width;
-          best = gather_max_swar(gmax, n, n, col0, width,
+          best = gather_max_swar(gmax, n, nc, col0, width,
                                  [e](int f) { return e[f]; });
         } else if (kForm == kFormArc) {
           const int base = senders[row];
-          best = gather_max_swar(gmax, n, n, col0, width, [base, n](int f) {
+          best = gather_max_swar(gmax, n, nc, col0, width, [base, n](int f) {
             const int s = base + f;
             return s >= n ? s - n : s;
           });
         } else if (kForm == kFormFilterGroup) {
           const int g0 = senders[2 * (size_t)row] / kAlign;
           const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
-          best = gather_max_masked_swar(gmax, nb, n, col0, width, 0, mask,
+          best = gather_max_masked_swar(gmax, nb, nc, col0, width, 0, mask,
                                         [g0, nb](int k) {
                                           const int g = g0 + k;
                                           return g >= nb ? g - nb : g;
@@ -559,14 +589,14 @@ __device__ __forceinline__ void merge_swar(
         } else {
           const int base = senders[2 * (size_t)row];
           const unsigned mask = (unsigned)senders[2 * (size_t)row + 1];
-          best = gather_max_masked_swar(gmax, n, n, col0, width, group_shift,
+          best = gather_max_masked_swar(gmax, n, nc, col0, width, group_shift,
                                         mask, [base, n](int f) {
                                           const int s = base + f;
                                           return s >= n ? s - n : s;
                                         });
         }
       }
-      const size_t off = (size_t)row * n + col0;
+      const size_t off = (size_t)row * nc + col0;
       const SwMerge m = rr_merge_swar_t<kSus>(
           swar::load(hb + off), swar::load(asl + off), best, swar::row(recv),
           vec, age_clamp);
@@ -611,8 +641,9 @@ __device__ __forceinline__ void merge_swar(
   if (blockIdx.x == 0) fobs_unset_to_n(first_obs, col0, n);
 }
 
-// kSwar picks the SWAR form of the pass, same outputs.
-template <bool kSus, bool kLh, int kForm, bool kSwar>
+// kSwar picks the SWAR form of the pass, same outputs; kBlock as pass
+// A's.
+template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 const int8_t* __restrict__ flags,
@@ -621,51 +652,87 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 const int8_t* __restrict__ gmax,
                 int32_t* __restrict__ member_cnt,
                 int32_t* __restrict__ recv_cnt,
-                int32_t* __restrict__ first_obs, SusOut so, int n, int width,
-                int group_shift, int age_clamp) {
+                int32_t* __restrict__ first_obs, SusOut so, int n, int nc,
+                int width, int group_shift, int age_clamp) {
+  if (!kBlock) nc = n;
   if constexpr (kSwar)
     merge_swar<kSus, kLh, kForm>(hb, asl, flags, vecs, senders, gmax,
-                                 member_cnt, recv_cnt, first_obs, so, n,
+                                 member_cnt, recv_cnt, first_obs, so, n, nc,
                                  width, group_shift, age_clamp);
   else
     merge_lanes<kSus, kLh, kForm>(hb, asl, flags, vecs, senders, gmax,
-                                  member_cnt, recv_cnt, first_obs, so, n,
+                                  member_cnt, recv_cnt, first_obs, so, n, nc,
                                   width, group_shift, age_clamp);
 }
 
+// The round's geometry: ``n`` global rows (receivers and senders), ``nc``
+// local columns (the row stride of every [*, nc] buffer), the first of
+// which is global subject ``col_offset``.  A square round is nc = n,
+// col_offset = 0.
+struct Shape {
+  int n, nc, col_offset;
+};
+
+// The outputs, split by axis: ``subj`` int32 [3, nc] (member_cnt, n_det,
+// first_obs) or [6, nc] adding (entered, refuted, held) under kSus;
+// ``recv`` int32 [1, n] (recv_cnt) or [2, n] adding suspect_cnt under kLh.
+struct Outs {
+  int32_t* subj;
+  int32_t* recv;
+};
+
+template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
+cudaError_t launch_pair(int8_t* hb, int8_t* asl, const int8_t* flags,
+                        const int8_t* vecs, const int32_t* senders,
+                        int8_t* gmax, Outs o, Shape sh, int fanout,
+                        int group_shift, int t_fail, int t_cooldown,
+                        SusThr sus, int age_clamp, cudaStream_t s) {
+  constexpr bool kFull = kForm != kFormGroup && kForm != kFormFilterGroup;
+  constexpr bool kMute = kForm == kFormFilterGroup || kForm == kFormFilterRows;
+  const int n = sh.n, nc = sh.nc;
+  const int tiles = (nc + kTile - 1) / kTile;
+  const size_t c = (size_t)nc;
+  rr_tick_view_kernel<kSus, kFull, kMute, kSwar, kBlock>
+      <<<dim3((n + kAlign - 1) / kAlign, tiles), kThreads, 0, s>>>(
+          hb, asl, flags, vecs, gmax, o.subj + c, o.subj + 2 * c,
+          kSus ? o.subj + 3 * c : nullptr, n, nc, sh.col_offset, t_fail,
+          t_cooldown, sus);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  SusOut so{kSus ? o.subj + 4 * c : nullptr, kSus ? o.subj + 5 * c : nullptr,
+            kLh ? o.recv + (size_t)n : nullptr};
+  rr_merge_kernel<kSus, kLh, kForm, kSwar, kBlock>
+      <<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
+          hb, asl, flags, vecs, senders, gmax, o.subj, o.recv, o.subj + 2 * c,
+          so, n, nc, kFull ? fanout : fanout / kAlign, group_shift,
+          age_clamp);
+  return cudaGetLastError();
+}
+
+// The two launches of one round: the square kernels for a square round,
+// the column-shard ones for a column block.
 template <bool kSus, bool kLh, int kForm, bool kSwar>
 cudaError_t launch_round(int8_t* hb, int8_t* asl, const int8_t* flags,
                          const int8_t* vecs, const int32_t* senders,
-                         int8_t* gmax, int32_t* o, int n, int fanout,
+                         int8_t* gmax, Outs o, Shape sh, int fanout,
                          int group_shift, int t_fail, int t_cooldown,
                          SusThr sus, int age_clamp, cudaStream_t s) {
-  constexpr bool kFull = kForm != kFormGroup && kForm != kFormFilterGroup;
-  constexpr bool kMute = kForm == kFormFilterGroup || kForm == kFormFilterRows;
-  const int tiles = (n + kTile - 1) / kTile;
-  const size_t nn = (size_t)n;
-  rr_tick_view_kernel<kSus, kFull, kMute, kSwar>
-      <<<dim3((n + kAlign - 1) / kAlign, tiles), kThreads, 0, s>>>(
-          hb, asl, flags, vecs, gmax, o + nn, o + 2 * nn,
-          kSus ? o + 4 * nn : nullptr, n, t_fail, t_cooldown, sus);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  SusOut so{kSus ? o + 5 * nn : nullptr, kSus ? o + 6 * nn : nullptr,
-            kLh ? o + 7 * nn : nullptr};
-  rr_merge_kernel<kSus, kLh, kForm, kSwar>
-      <<<dim3((n + kRowsB - 1) / kRowsB, tiles), kThreads, 0, s>>>(
-          hb, asl, flags, vecs, senders, gmax, o, o + 3 * nn, o + 2 * nn, so,
-          n, kFull ? fanout : fanout / kAlign, group_shift, age_clamp);
-  return cudaGetLastError();
+#define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, sh, fanout, \
+      group_shift, t_fail, t_cooldown, sus, age_clamp, s
+  if (sh.nc == sh.n && sh.col_offset == 0)
+    return launch_pair<kSus, kLh, kForm, kSwar, false>(RR_ARGS);
+  return launch_pair<kSus, kLh, kForm, kSwar, true>(RR_ARGS);
+#undef RR_ARGS
 }
 
 template <int kForm, bool kSwar>
 cudaError_t launch_form(int suspect, int lh, int8_t* hb, int8_t* asl,
                         const int8_t* flags, const int8_t* vecs,
-                        const int32_t* senders, int8_t* gmax, int32_t* o,
-                        int n, int fanout, int group_shift, int t_fail,
+                        const int32_t* senders, int8_t* gmax, Outs o,
+                        Shape sh, int fanout, int group_shift, int t_fail,
                         int t_cooldown, SusThr sus, int age_clamp,
                         cudaStream_t s) {
-#define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, n, fanout, \
+#define RR_ARGS hb, asl, flags, vecs, senders, gmax, o, sh, fanout, \
       group_shift, t_fail, t_cooldown, sus, age_clamp, s
   if (!suspect) return launch_round<false, false, kForm, kSwar>(RR_ARGS);
   if (!lh) return launch_round<true, false, kForm, kSwar>(RR_ARGS);
@@ -677,10 +744,10 @@ template <bool kSwar>
 cudaError_t launch_elementwise(int form, int suspect, int lh, int8_t* hb,
                                int8_t* asl, const int8_t* flags,
                                const int8_t* vecs, const int32_t* senders,
-                               int8_t* gmax, int32_t* o, int n, int fanout,
+                               int8_t* gmax, Outs o, Shape sh, int fanout,
                                int group_shift, int t_fail, int t_cooldown,
                                SusThr sus, int age_clamp, cudaStream_t s) {
-#define RR_ARGS suspect, lh, hb, asl, flags, vecs, senders, gmax, o, n, \
+#define RR_ARGS suspect, lh, hb, asl, flags, vecs, senders, gmax, o, sh, \
       fanout, group_shift, t_fail, t_cooldown, sus, age_clamp, s
   switch (form) {
     case kFormGroup: return launch_form<kFormGroup, kSwar>(RR_ARGS);
@@ -695,32 +762,39 @@ cudaError_t launch_elementwise(int form, int suspect, int lh, int8_t* hb,
 
 }  // namespace
 
-// Launch one round on ``stream``.  hb, asl: int8 [n, n] row-major,
-// pre-tick, updated in place.  flags: int8 [n] (bit 0 active sender,
-// bit 1 small-group refresher, bit 2 alive, bit 3 muted sender, read by
-// forms 3 and 4 only, bit 4 Lifeguard-degraded receiver).  vecs: int8 [11, n] threshold stack.  ``form`` 0 (aligned
-// arcs): senders int32 [n] arc starts, multiples of 8 in [0, n), gmax
-// int8 [n/8, n] scratch; 1 (explicit edges): senders int32 [n, fanout]
-// in [0, n), gmax int8 [n, n] scratch; 2 (plain arcs): senders int32 [n]
-// arc starts in [0, n), gmax int8 [n, n] scratch; 3 and 4 (edge_filter:
-// aligned arcs of ``align`` with a group-match mask): senders int32 [n, 2]
-// (arc start, a multiple of ``align``; bitmask, bit k keeps window group
-// k of the fanout / align <= 31), 3 for ``align`` 8 with gmax int8
-// [n/8, n], 4 for any other power of two with gmax int8 [n, n].
-// ``align`` is read by forms 3 and 4 only.  out:
-// int32 [4, n] = member_cnt, n_det, first_obs, recv_cnt; with ``suspect``
-// [7, n], adding entered, refuted and held per subject; with ``lh`` too
-// [8, n], adding suspect_cnt per receiver.  ``confirm_thr`` /
-// ``confirm_thr_hi``: the suspicion confirm ages of a healthy / degraded
-// receiver.  ``swar`` 1 runs the SWAR form (same outputs).  Returns the
-// CUDA error code of the launches (0 on success).
+// Launch one round on ``stream`` over a column block of the lanes: all n
+// receiver rows, nc subject columns starting at global subject
+// ``col_offset`` (the column-shard form; a square round passes nc = n and
+// col_offset 0).  hb, asl: int8 [n, nc] row-major, pre-tick, updated in
+// place.  flags: int8 [n] (bit 0 active sender, bit 1 small-group
+// refresher, bit 2 alive, bit 3 muted sender, read by forms 3 and 4 only,
+// bit 4 Lifeguard-degraded receiver).  vecs: int8 [11, nc] threshold
+// stack of the shard's subjects.  ``form`` 0 (aligned arcs): senders
+// int32 [n] arc starts, multiples of 8 in [0, n), gmax int8 [n/8, nc]
+// scratch; 1 (explicit edges): senders int32 [n, fanout] in [0, n), gmax
+// int8 [n, nc] scratch; 2 (plain arcs): senders int32 [n] arc starts in
+// [0, n), gmax int8 [n, nc] scratch; 3 and 4 (edge_filter: aligned arcs
+// of ``align`` with a group-match mask): senders int32 [n, 2] (arc start,
+// a multiple of ``align``; bitmask, bit k keeps window group k of the
+// fanout / align <= 31), 3 for ``align`` 8 with gmax int8 [n/8, nc], 4
+// for any other power of two with gmax int8 [n, nc].  ``align`` is read
+// by forms 3 and 4 only.  out_subj: int32 [3, nc] = member_cnt, n_det,
+// first_obs per subject (first_obs n where no row fired); with
+// ``suspect`` [6, nc], adding entered, refuted and held.  out_recv: int32
+// [1, n] = recv_cnt per receiver; with ``lh`` [2, n], adding suspect_cnt;
+// both count over the nc columns only (a shard's partial).
+// ``confirm_thr`` / ``confirm_thr_hi``: the suspicion confirm ages of a
+// healthy / degraded receiver.  ``swar`` 1 runs the SWAR form (same
+// outputs).  Returns the CUDA error code of the launches (0 on success).
 extern "C" int rr_round(void* hb, void* asl, const void* flags,
                         const void* vecs, const void* senders, void* gmax,
-                        void* out, int n, int fanout, int form, int align,
+                        void* out_subj, void* out_recv, int n, int nc,
+                        int col_offset, int fanout, int form, int align,
                         int t_fail, int t_cooldown, int age_clamp,
                         int suspect, int lh, int confirm_thr,
                         int confirm_thr_hi, int swar, void* stream) {
-  if (n <= 0 || n % kVec || fanout <= 0 || fanout > n || (lh && !suspect) ||
+  if (n <= 0 || n % kVec || nc <= 0 || nc % kVec || col_offset < 0 ||
+      col_offset > n - nc || fanout <= 0 || fanout > n || (lh && !suspect) ||
       form < kFormGroup || form > kFormFilterRows ||
       ((form == kFormGroup || form == kFormFilterGroup) &&
        (n % kAlign || fanout % kAlign)))
@@ -734,18 +808,24 @@ extern "C" int rr_round(void* hb, void* asl, const void* flags,
     while ((1 << group_shift) < align) ++group_shift;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int32_t* o = static_cast<int32_t*>(out);
-  const int rows = suspect ? (lh ? 8 : 7) : 4;
-  cudaError_t e = cudaMemsetAsync(o, 0, sizeof(int32_t) * rows * (size_t)n, s);
+  const Outs o{static_cast<int32_t*>(out_subj),
+               static_cast<int32_t*>(out_recv)};
+  const size_t c = (size_t)nc;
+  cudaError_t e =
+      cudaMemsetAsync(o.subj, 0, sizeof(int32_t) * (suspect ? 6 : 3) * c, s);
   if (e != cudaSuccess) return (int)e;
-  e = cudaMemsetAsync(o + 2 * (size_t)n, 0x7F, sizeof(int32_t) * (size_t)n, s);
+  e = cudaMemsetAsync(o.subj + 2 * c, 0x7F, sizeof(int32_t) * c, s);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(o.recv, 0, sizeof(int32_t) * (lh ? 2 : 1) * (size_t)n,
+                      s);
   if (e != cudaSuccess) return (int)e;
   const SusThr sus{confirm_thr, confirm_thr_hi};
+  const Shape sh{n, nc, col_offset};
 #define RR_ARGS form, suspect, lh, static_cast<int8_t*>(hb), \
       static_cast<int8_t*>(asl), static_cast<const int8_t*>(flags), \
       static_cast<const int8_t*>(vecs), \
       static_cast<const int32_t*>(senders), static_cast<int8_t*>(gmax), o, \
-      n, fanout, group_shift, t_fail, t_cooldown, sus, age_clamp, s
+      sh, fanout, group_shift, t_fail, t_cooldown, sus, age_clamp, s
   e = swar ? launch_elementwise<true>(RR_ARGS)
            : launch_elementwise<false>(RR_ARGS);
 #undef RR_ARGS

@@ -262,8 +262,8 @@ SW_HD SwMerge rr_merge_swar_t(uint32_t hb, uint32_t asl, uint32_t best,
 
 // The merged view word over F rows of a row-major [rows, n] int8 source
 // (K3's explicit-edge and plain-arc gathers, gather_rows.cuh gather_max on
-// words): the byte max starts at -128, a sender outside [0, rows) is
-// skipped.
+// words; n is the row stride, a shard's column count): the byte max starts
+// at -128, a sender outside [0, rows) is skipped.
 template <typename RowOf>
 SW_HD uint32_t gather_max_swar(const int8_t* src, int rows, int n, int col0,
                                int count, RowOf row_of) {

@@ -87,24 +87,24 @@ stripe_kernel(const int8_t* __restrict__ view,
               const int32_t* __restrict__ shift_a,
               const int32_t* __restrict__ shift_b,
               const uint8_t* __restrict__ alive, int32_t* __restrict__ out,
-              int n, int detect, int age_clamp) {
+              int n, int nc, int detect, int age_clamp) {
   extern __shared__ int32_t strip[];     // [n][kHalves] packed view words
   __shared__ int32_t red[kAcc][kWarps][kCols];
   const int c0 = blockIdx.x * kCols;
   // 1. the view strip, word (r, h) = view[r, c0 + 4h .. c0 + 4h + 3];
-  //    columns past N read as absent (-1)
+  //    columns past the block's nc read as absent (-1)
 #pragma unroll 4
   for (int t = threadIdx.x; t < n * kHalves; t += kThreads) {
     const int r = t / kHalves;
     const int col = c0 + (t % kHalves) * kVec;
-    const int8_t* p = view + (size_t)r * n + col;
+    const int8_t* p = view + (size_t)r * nc + col;
     int w = -1;
     if (kAligned) {
-      if (col < n) w = *reinterpret_cast<const int*>(p);
+      if (col < nc) w = *reinterpret_cast<const int*>(p);
     } else {
       Pack4<int8_t> u;
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) u.v[k] = col + k < n ? p[k] : -1;
+      for (int k = 0; k < kVec; ++k) u.v[k] = col + k < nc ? p[k] : -1;
       w = u.w;
     }
     strip[t] = w;
@@ -114,7 +114,7 @@ stripe_kernel(const int8_t* __restrict__ view,
   // 2. the receiver sweep
   const int half = threadIdx.x % kHalves;
   const int col0 = c0 + half * kVec;
-  const int valid = min(kVec, n - col0);   // <= 0: no columns here
+  const int valid = min(kVec, nc - col0);  // <= 0: no columns here
   int sa[kVec], sb[kVec], c[kVec], nd[kVec], fo[kVec], rf[kVec], hd[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
@@ -140,7 +140,7 @@ stripe_kernel(const int8_t* __restrict__ view,
         recv[u] = row < n && alive[row] != 0;
         bw[u] = -1;                         // four absent (-1) bytes
         if (row < n) {
-          const size_t off = (size_t)row * n + col0;
+          const size_t off = (size_t)row * nc + col0;
           load4<H, kAligned>(hb + off, valid, h[u]);
           load4<int8_t, kAligned>(asl + off, valid, a[u]);
         }
@@ -179,7 +179,7 @@ stripe_kernel(const int8_t* __restrict__ view,
             hd[k] += m.held ? 1 : 0;
           }
         }
-        const size_t off = (size_t)row * n + col0;
+        const size_t off = (size_t)row * nc + col0;
         store4<H, kAligned>(hb + off, valid, h[u]);
         store4<int8_t, kAligned>(asl + off, valid, a[u]);
       }
@@ -207,7 +207,7 @@ stripe_kernel(const int8_t* __restrict__ view,
   }
   __syncthreads();
   const int j = threadIdx.x;
-  if (j < kCols && c0 + j < n) {
+  if (j < kCols && c0 + j < nc) {
     int cs = 0, ns = 0, fs = n, rs = 0, hs = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
@@ -219,11 +219,11 @@ stripe_kernel(const int8_t* __restrict__ view,
     }
     const int col = c0 + j;
     out[col] = cs;
-    out[n + col] = detect ? ns : 0;
-    out[2 * n + col] = detect ? fs : 0;
+    out[nc + col] = detect ? ns : 0;
+    out[2 * nc + col] = detect ? fs : 0;
     if (kSus) {
-      out[3 * n + col] = rs;
-      out[4 * n + col] = hs;
+      out[3 * nc + col] = rs;
+      out[4 * nc + col] = hs;
     }
   }
 }
@@ -232,15 +232,17 @@ template <typename H, bool kAligned, bool kSus>
 cudaError_t launch_t(const void* view, const int16_t* edges, int fanout,
                      void* hb, void* asl, const int32_t* sa,
                      const int32_t* sb, const uint8_t* alive, int32_t* out,
-                     int n, int detect, int age_clamp, cudaStream_t s) {
+                     int n, int nc, int detect, int age_clamp,
+                     cudaStream_t s) {
   const size_t smem = sizeof(int32_t) * kHalves * (size_t)n;
   auto kernel = stripe_kernel<H, kAligned, kSus>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(n + kCols - 1) / kCols, kThreads, smem, s>>>(
+  kernel<<<(nc + kCols - 1) / kCols, kThreads, smem, s>>>(
       static_cast<const int8_t*>(view), edges, fanout, static_cast<H*>(hb),
-      static_cast<int8_t*>(asl), sa, sb, alive, out, n, detect, age_clamp);
+      static_cast<int8_t*>(asl), sa, sb, alive, out, n, nc, detect,
+      age_clamp);
   return cudaGetLastError();
 }
 
@@ -248,10 +250,10 @@ template <typename H>
 cudaError_t launch_h(const void* view, const int16_t* edges, int fanout,
                      void* hb, void* asl, const int32_t* sa,
                      const int32_t* sb, const uint8_t* alive, int32_t* out,
-                     int n, int detect, int suspect, int age_clamp,
+                     int n, int nc, int detect, int suspect, int age_clamp,
                      bool aligned, cudaStream_t s) {
-#define SM_ARGS view, edges, fanout, hb, asl, sa, sb, alive, out, n, detect, \
-                age_clamp, s
+#define SM_ARGS view, edges, fanout, hb, asl, sa, sb, alive, out, n, nc, \
+                detect, age_clamp, s
   if (aligned)
     return suspect ? launch_t<H, true, true>(SM_ARGS)
                    : launch_t<H, true, false>(SM_ARGS);
@@ -262,22 +264,25 @@ cudaError_t launch_h(const void* view, const int16_t* edges, int fanout,
 
 }  // namespace
 
-// Launch K5 on ``stream``.  view: int8 [n, n] (view_bytes must be 1);
-// edges: int16 [n, fanout] (every block reads all of them: int16 halves
-// that traffic, and N <= 28,416 fits); hb: int8/16/32 [n, n] and asl:
-// int8 [n, n],
-// post-tick, updated in place; sa, sb: int32 [n]; alive: bool [n]; out:
-// int32 [3, n] = cnt_incl, n_det, first_obs ([5, n] with refuted and held
-// when ``suspect``), every entry written by the kernel.  ``aligned``: N %
-// 4 == 0 and 16-byte aligned lanes (vector loads).  Returns the CUDA error
-// code of the launch (0 on success).
+// Launch K5 on ``stream`` over column blocks: n rows, nc subject columns
+// (nc = n for a square round, n / shards on a subject shard; the strip
+// holds every row, so the shared-memory bound is on n, whatever nc).
+// view: int8 [n, nc] (view_bytes must be 1); edges: int16 [n, fanout]
+// (every block reads all of them: int16 halves that traffic, and N <=
+// 28,416 fits); hb: int8/16/32 [n, nc] and asl: int8 [n, nc], post-tick,
+// updated in place; sa, sb: int32 [nc]; alive: bool [n]; out: int32
+// [3, nc] = cnt_incl, n_det, first_obs ([5, nc] with refuted and held
+// when ``suspect``), every entry written by the kernel.  ``aligned``: nc
+// % 4 == 0 and 16-byte aligned lanes (vector loads).  Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int sm_merge(const void* view, const void* edges, void* hb,
                         void* asl, const void* sa, const void* sb,
-                        const void* alive, void* out, int n, int fanout,
-                        int view_bytes, int hb_bytes, int detect, int suspect,
-                        int age_clamp, int aligned, void* stream) {
-  if (n <= 0 || fanout < 1 || view_bytes != 1 || age_clamp < 0 ||
-      age_clamp > 63 ||
+                        const void* alive, void* out, int n, int nc,
+                        int fanout, int view_bytes, int hb_bytes, int detect,
+                        int suspect, int age_clamp, int aligned,
+                        void* stream) {
+  if (n <= 0 || nc <= 0 || nc > n || fanout < 1 || view_bytes != 1 ||
+      age_clamp < 0 || age_clamp > 63 ||
       (size_t)kHalves * sizeof(int32_t) * n + kStaticSmem > kSmemLimit)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -286,8 +291,8 @@ extern "C" int sm_merge(const void* view, const void* edges, void* hb,
   const int32_t* b = static_cast<const int32_t*>(sb);
   const uint8_t* al = static_cast<const uint8_t*>(alive);
   int32_t* o = static_cast<int32_t*>(out);
-#define SM_ARGS view, e, fanout, hb, asl, a, b, al, o, n, detect, suspect, \
-                age_clamp, aligned != 0, s
+#define SM_ARGS view, e, fanout, hb, asl, a, b, al, o, n, nc, detect, \
+                suspect, age_clamp, aligned != 0, s
   if (hb_bytes == 1) return (int)launch_h<int8_t>(SM_ARGS);
   if (hb_bytes == 2) return (int)launch_h<int16_t>(SM_ARGS);
   if (hb_bytes == 4) return (int)launch_h<int32_t>(SM_ARGS);

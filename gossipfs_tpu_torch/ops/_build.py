@@ -33,19 +33,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "resident_round": {
-        "rr_round": (_I, [_P] * 7 + [_I] * 12 + [_P]),
+        "rr_round": (_I, [_P] * 8 + [_I] * 14 + [_P]),
     },
     "fanout_max": {
         "fx_fanout_max": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     },
     "fused_merge": {
-        "fm_merge": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+        "fm_merge": (_I, [_P] * 8 + [_I] * 9 + [_P]),
     },
     "stripe_merge": {
-        "sm_merge": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+        "sm_merge": (_I, [_P] * 8 + [_I] * 9 + [_P]),
     },
     "arc_merge": {
-        "am_merge": (_I, [_P] * 9 + [_I] * 8 + [_P]),
+        "am_merge": (_I, [_P] * 9 + [_I] * 9 + [_P]),
     },
 }
 

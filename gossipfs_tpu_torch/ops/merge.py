@@ -55,6 +55,16 @@ All arithmetic is int32 over int8 lane values with an explicit mod-2^8
 wrap where a value is compared or stored, so every result is exact: the
 kernel, this plain version and the JAX package agree bit for bit.
 
+``col_offset`` is the column-shard form (the JAX kernel's ``col_offset``,
+merge_pallas.py:2633): the lanes are a tall-skinny ``[N, C]`` block, all
+N receiver and sender rows and the C subjects from global subject
+``col_offset`` on (C = N / shards under subject sharding,
+``parallel/mesh.py``).  The diagonal sits at row == ``col_offset`` + local
+column; per-subject inputs and outputs are the shard's ``[C]``, and the
+per-receiver counts (``recv_cnt``, ``suspect_cnt``) are partial, over the
+shard's columns: summed across the shards they are the square round's.
+The square round is ``col_offset=0``, C = N.
+
 ``elementwise="swar"`` is the SWAR form (the JAX package's
 ``_rr_tick_view_swar``/``_rr_merge_swar``, config ``elementwise="swar"``):
 the same round on 4 packed int8 subjects per int32 word (ops/swar.py),
@@ -433,9 +443,10 @@ def arc_group_window_max(view: torch.Tensor, edges2: torch.Tensor,
     return masked_group_window_max(gm, edges2, fanout // align, align)
 
 
-def _row_chunk(n: int, align: int) -> int:
-    """Rows per plain-version chunk: ~16M entries, whole sender groups."""
-    rows = max(align, (1 << 24) // n // align * align)
+def _row_chunk(n: int, c: int, align: int) -> int:
+    """Rows per plain-version chunk of ``[n, c]`` lanes: ~16M entries,
+    whole sender groups."""
+    rows = max(align, (1 << 24) // c // align * align)
     return min(rows, n)
 
 
@@ -480,22 +491,26 @@ def _tick_view_lanes(h, a, rows, c, vc, act, ref, lh, sends, t_fail: int,
 
 def _tick_view_swar_rows(hb, asl, r0: int, r1: int, v, vw, masks,
                          t_fail: int, t_cooldown: int, suspect: bool,
-                         thr: int, thr_hi: int):
+                         thr: int, thr_hi: int, col_offset: int = 0):
     """Pass A over rows ``r0..r1`` in the SWAR form: the eye-free word
     tick everywhere, then the words the diagonal crosses (row ``i``'s word
-    ``i // 4``) recomputed in the lanes form.  ``masks`` the bool row masks
-    (act, ref, lh, sends).  Writes the post-tick lanes; returns (fail,
-    entered, enc words)."""
+    holding global column ``i``, on the rows whose diagonal lies in the
+    shard's columns) recomputed in the lanes form.  ``masks`` the bool row
+    masks (act, ref, lh, sends).  Writes the post-tick lanes; returns
+    (fail, entered, enc words)."""
     dev = hb.device
+    c = hb.shape[1]
     rows = torch.arange(r0, r1, device=dev)
-    dcols = (rows // 4 * 4)[:, None] + torch.arange(4, device=dev)[None]
+    loc = rows - col_offset
+    on = ((loc >= 0) & (loc < c)).nonzero().squeeze(1)  # chunk-row indices
+    dcols = (loc[on] // 4 * 4)[:, None] + torch.arange(4, device=dev)[None]
     act, ref, lh, sends = (m[r0:r1, None] for m in masks)
     # the diagonal words' pre-tick bytes, before any write
     diag = _tick_view_lanes(
-        hb[r0:r1].gather(1, dcols).to(torch.int32),
-        asl[r0:r1].gather(1, dcols).to(torch.int32), rows, dcols,
-        v[:, dcols], act, ref, lh, sends, t_fail, t_cooldown, suspect, thr,
-        thr_hi)
+        hb[r0:r1][on].gather(1, dcols).to(torch.int32),
+        asl[r0:r1][on].gather(1, dcols).to(torch.int32), rows[on],
+        dcols + col_offset, v[:, dcols], act[on], ref[on], lh[on], sends[on],
+        t_fail, t_cooldown, suspect, thr, thr_hi)
     hw, aw, fail_h, ent_h, enc = tick_view_swar_plain(
         swar.pack(hb[r0:r1]).clone(), swar.pack(asl[r0:r1]),
         swar.bool_mask(act), swar.bool_mask(ref), swar.bool_mask(sends), vw,
@@ -505,7 +520,7 @@ def _tick_view_swar_rows(hb, asl, r0: int, r1: int, v, vw, masks,
     for full, part in zip((swar.unpack(hw), swar.unpack(aw), fail, entered,
                            swar.unpack(enc)), diag):
         if full is not None:
-            full.scatter_(1, dcols, part.to(full.dtype))
+            full[on] = full[on].scatter(1, dcols, part.to(full.dtype))
     hb[r0:r1] = swar.unpack(hw)
     asl[r0:r1] = swar.unpack(aw)
     return fail, entered, enc
@@ -517,29 +532,31 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
                          age_clamp: int = AGE_CLAMP, suspect: bool = False,
                          t_suspect: int = 0, lh_multiplier: int = 0,
                          edge_filter: bool = False,
-                         elementwise: str = "lanes"):
+                         elementwise: str = "lanes", col_offset: int = 0):
     """One round in plain PyTorch (the function the kernel computes).
 
-    ``hb``/``asl`` int8 ``[N, N]`` pre-tick lanes, updated in place;
-    ``flags`` int8 ``[N]`` (bit 0 active sender, bit 1 small-group
-    refresher, bit 2 alive, bit 4 Lifeguard-degraded receiver); ``vecs``
-    the int8 ``[11, N]`` :func:`threshold_stack`; ``senders`` the round's
+    ``hb``/``asl`` int8 ``[N, C]`` pre-tick lanes, updated in place (C = N,
+    or a column shard from global subject ``col_offset``); ``flags`` int8
+    ``[N]`` (bit 0 active sender, bit 1 small-group refresher, bit 2
+    alive, bit 4 Lifeguard-degraded receiver); ``vecs`` the int8 ``[11,
+    C]`` :func:`threshold_stack`; ``senders`` the round's
     in-edges as the JAX kernel takes them: int32 ``[N]`` arc starts,
     multiples of ``arc_align``, with ``fanout`` the arc length, or int32
     ``[N, F]`` explicit edges with ``fanout`` None; with ``edge_filter``
     int32 ``[N, 2]`` (arc start, group-match bitmask) and flags bit 3 the
     muted senders (read in this form only, as in the JAX kernel).
-    ``elementwise="swar"`` computes it on packed words (N % 4 == 0).
-    Returns (hb, asl, member_cnt, n_det, first_obs, recv_cnt), the last
-    four int32 ``[N]``; with ``suspect`` then (entered, refuted, held) per
+    ``elementwise="swar"`` computes it on packed words (C % 4 == 0).
+    Returns (hb, asl, member_cnt, n_det, first_obs, recv_cnt), int32
+    ``[C]`` per subject but ``recv_cnt`` ``[N]`` per receiver (partial over
+    the C columns); with ``suspect`` then (entered, refuted, held) per
     subject, and with ``lh_multiplier > 0`` last ``suspect_cnt`` per
-    receiver.  Works in row chunks, so its temporaries stay small at any
-    N."""
-    n = hb.shape[0]
+    receiver (partial too).  Works in row chunks, so its temporaries stay
+    small at any N."""
+    n, c = hb.shape
     dev = hb.device
     thr, thr_hi = _sus_thresholds(t_fail, suspect, t_suspect, lh_multiplier,
                                   age_clamp)
-    sw = _swar(elementwise, n)
+    sw = _swar(elementwise, c)
     v = vecs.to(torch.int32)
     vw = swar.pack(vecs) if sw else None
     fl = flags.to(torch.int32)
@@ -550,23 +567,24 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
     edges = fanout is None
     align = 1 if edges else arc_align
     nb = n // align
-    step = _row_chunk(n, align)
-    cols = torch.arange(n, device=dev)
+    step = _row_chunk(n, c, align)
+    cols = col_offset + torch.arange(c, device=dev)   # global subject ids
     i32 = dict(dtype=torch.int32, device=dev)
-    sus_out = torch.zeros((3 + int(lh_multiplier > 0), n), **i32)
+    sus_out = torch.zeros((3, c), **i32)          # entered, refuted, held
+    suspect_cnt = (torch.zeros(n, **i32) if lh_multiplier > 0 else None)
 
     # tick, view encode, aligned group max (align 1: the whole view) and
     # the detection reductions
-    gmax = torch.empty((nb, n), dtype=torch.int8, device=dev)
-    n_det = torch.zeros(n, **i32)
-    first_obs = torch.full((n,), n, **i32)
+    gmax = torch.empty((nb, c), dtype=torch.int8, device=dev)
+    n_det = torch.zeros(c, **i32)
+    first_obs = torch.full((c,), n, **i32)
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         rows = torch.arange(r0, r1, device=dev)
         if sw:
             fail, entered, enc = _tick_view_swar_rows(
                 hb, asl, r0, r1, v, vw, (act, ref, lh, sends), t_fail,
-                t_cooldown, suspect, thr, thr_hi)
+                t_cooldown, suspect, thr, thr_hi, col_offset)
             gmax[r0 // align:r1 // align] = swar.unpack(
                 group_max_swar(enc, align))
         else:
@@ -578,7 +596,7 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
             hb[r0:r1] = h.to(torch.int8)
             asl[r0:r1] = a.to(torch.int8)
             gmax[r0 // align:r1 // align] = (
-                enc.reshape(-1, align, n).amax(dim=1).to(torch.int8))
+                enc.reshape(-1, align, c).amax(dim=1).to(torch.int8))
         if suspect:
             sus_out[0] += entered.sum(dim=0, dtype=torch.int32)
         n_det += fail.sum(dim=0, dtype=torch.int32)
@@ -586,7 +604,7 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
         first_obs = torch.minimum(first_obs, first.amin(dim=0))
 
     # merge epilogue and the membership reductions
-    member_cnt = torch.zeros(n, **i32)
+    member_cnt = torch.zeros(c, **i32)
     recv_cnt = torch.empty(n, **i32)
     src = swar.pack(gmax) if sw else gmax
     for r0 in range(0, n, step):
@@ -629,26 +647,36 @@ def resident_round_plain(hb, asl, flags, vecs, senders, *,
             held = st == SUSPECT
             sus_out[1] += refuted.sum(dim=0, dtype=torch.int32)
             sus_out[2] += held.sum(dim=0, dtype=torch.int32)
-            if lh_multiplier > 0:
-                sus_out[3, r0:r1] = held.sum(dim=1, dtype=torch.int32)
+            if suspect_cnt is not None:
+                suspect_cnt[r0:r1] = held.sum(dim=1, dtype=torch.int32)
     out = (hb, asl, member_cnt, n_det, first_obs, recv_cnt)
-    return out + tuple(sus_out) if suspect else out
+    if not suspect:
+        return out
+    out += tuple(sus_out)
+    return out + (suspect_cnt,) if suspect_cnt is not None else out
 
 
-def _swar(elementwise: str, n: int) -> bool:
-    """Whether the round runs the SWAR form; checks the argument."""
+def _swar(elementwise: str, c: int) -> bool:
+    """Whether the round runs the SWAR form over ``c`` subject columns;
+    checks the argument."""
     if elementwise not in ELEMENTWISE:
         raise ValueError(f"resident_round: elementwise must be one of "
                          f"{ELEMENTWISE}, got {elementwise!r}")
-    if elementwise == "swar" and n % 4:
+    if elementwise == "swar" and c % 4:
         raise ValueError(f"resident_round: the SWAR form packs 4 subjects "
-                         f"per word, N % 4 == 0 needed (got N={n})")
+                         f"per word, N % 4 == 0 needed (a column shard's "
+                         f"C % 4 == 0; got {c} columns)")
     return elementwise == "swar"
 
 
 def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
-                  edge_filter=False):
-    n = hb.shape[0] if hb.dim() == 2 else -1
+                  edge_filter=False, col_offset=0):
+    n, c = hb.shape if hb.dim() == 2 else (-1, -1)
+    if not (0 < c <= n and 0 <= col_offset <= n - c):
+        raise ValueError(
+            f"resident_round: hb must be an [N, C] column block with its "
+            f"columns inside [0, N): got {tuple(hb.shape)} at col_offset="
+            f"{col_offset}")
     if edge_filter:
         if fanout is None or arc_align <= 1:
             raise ValueError(
@@ -662,10 +690,10 @@ def _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
                 "group-match mask into an int32: fanout/arc_align must be "
                 f"<= {ARC_MATCH_MAX_GROUPS} (got {fanout // arc_align})")
     want = {
-        "hb": (hb, torch.int8, (n, n)),
-        "asl": (asl, torch.int8, (n, n)),
+        "hb": (hb, torch.int8, (n, c)),
+        "asl": (asl, torch.int8, (n, c)),
         "flags": (flags, torch.int8, (n,)),
-        "vecs": (vecs, torch.int8, (N_VEC, n)),
+        "vecs": (vecs, torch.int8, (N_VEC, c)),
     }
     if fanout is None:
         f = senders.shape[1] if senders.dim() == 2 else -1
@@ -694,48 +722,54 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                    t_fail: int, t_cooldown: int, age_clamp: int = AGE_CLAMP,
                    suspect: bool = False, t_suspect: int = 0,
                    lh_multiplier: int = 0, edge_filter: bool = False,
-                   elementwise: str = "lanes"):
+                   elementwise: str = "lanes", col_offset: int = 0):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
-    senders and ``elementwise`` ask for; raises what it cannot run)."""
+    senders and ``elementwise`` ask for, over ``[N, C]`` lanes from global
+    subject ``col_offset``; raises what it cannot run)."""
     _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
-                  edge_filter)
-    sw = _swar(elementwise, hb.shape[0])
+                  edge_filter, col_offset)
+    n, c = hb.shape
+    sw = _swar(elementwise, c)
     kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
               t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
               t_suspect=t_suspect, lh_multiplier=lh_multiplier,
-              edge_filter=edge_filter, elementwise=elementwise)
+              edge_filter=edge_filter, elementwise=elementwise,
+              col_offset=col_offset)
     if hb.device.type == "cpu":
         return resident_round_plain(hb, asl, flags, vecs, senders, **kw)
     if hb.device.type != "cuda":
         raise ValueError(f"resident_round: no kernel for {hb.device}")
     thr, thr_hi = _sus_thresholds(t_fail, suspect, t_suspect, lh_multiplier,
                                   age_clamp)
-    n = hb.shape[0]
-    if n % KERNEL_VEC:
+    if n % KERNEL_VEC or c % KERNEL_VEC:
         raise NotImplementedError(
-            f"the CUDA resident round takes N % {KERNEL_VEC} == 0 (got "
-            f"N={n}); the round loop runs a ragged N through the "
-            "separate-pass round")
+            f"the CUDA resident round takes N % {KERNEL_VEC} == 0 and C % "
+            f"{KERNEL_VEC} == 0 (got N={n}, C={c}); the round loop runs "
+            "such a shape through the separate-pass round")
     from gossipfs_tpu_torch.ops import _build
 
     form = kernel_form(fanout, arc_align, edge_filter, elementwise)
     base_form = form.split("/")[0]
     width = senders.shape[1] if fanout is None else fanout
     lh = int(suspect and lh_multiplier > 0)
-    rows = 4 + 3 * int(suspect) + lh
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
         g_rows = (n // KERNEL_ALIGN
                   if base_form in ("aligned_group", "filter_group") else n)
-        gmax = torch.empty((g_rows, n), dtype=torch.int8, device=hb.device)
-        out = torch.empty((rows, n), dtype=torch.int32, device=hb.device)
+        gmax = torch.empty((g_rows, c), dtype=torch.int8, device=hb.device)
+        # per subject [C] (member_cnt, n_det, first_obs; entered, refuted,
+        # held), per receiver [N] (recv_cnt; suspect_cnt)
+        subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,
+                           device=hb.device)
+        recv = torch.empty((1 + lh, n), dtype=torch.int32, device=hb.device)
         stream = torch.cuda.current_stream(hb.device)
         with counted_launch("resident_round", stream, form):
             check_rc("resident_round", lib.rr_round(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
                 vecs.data_ptr(), senders.data_ptr(), gmax.data_ptr(),
-                out.data_ptr(), n, width, FORMS.index(base_form), arc_align,
-                t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
-                int(sw), stream.cuda_stream))
-    return (hb, asl, *out)
+                subj.data_ptr(), recv.data_ptr(), n, c, col_offset, width,
+                FORMS.index(base_form), arc_align, t_fail, t_cooldown,
+                age_clamp, int(suspect), lh, thr, thr_hi, int(sw),
+                stream.cuda_stream))
+    return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])

@@ -41,7 +41,14 @@ receivers included).  They give the round's suspicion observables with no
 ``[N, N]`` snapshot.
 
 The lanes are the port's: ``hb`` in int8, int16 or int32, ``asl`` the
-packed age|status byte, updated IN PLACE.  On a CPU tensor a wrapper runs
+packed age|status byte, updated IN PLACE.  They and the view may be a
+column block ``[N, C]`` (all N receiver and sender rows, C subject
+columns: C = N on one device, N / shards on a subject shard,
+``parallel/mesh.py``): the function is columnwise, so output column j
+reads only column j of the view and the lanes.  The per-subject vectors
+(``shift_a``, ``shift_b``, the outputs) are then ``[C]``; ``alive`` and the
+senders stay ``[N]`` / ``[N, F]``, and an unset ``first_obs`` is N, the
+global row count.  On a CPU tensor a wrapper runs
 the plain version; on a CUDA tensor it launches its kernel
 (``csrc/fused_merge.cu``, ``csrc/stripe_merge.cu``, ``csrc/arc_merge.cu``)
 or raises.  All the arithmetic is int32 over the widened lane values, so
@@ -64,15 +71,17 @@ MAX_KERNEL_FANOUT = 512
 # K5's: a block stages 8 view columns (8 B) of every receiver row in
 # shared memory, beside its reduction scratch (5 int32 sums per column for
 # each of its 32 warps), within the 232,448 B one Hopper block may opt in
-# to (csrc/stripe_merge.cu)
+# to (csrc/stripe_merge.cu).  It bounds the ROWS: a subject shard keeps
+# every row, so sharding the columns does not lift it.
 STRIPE_COLS = 8
 STRIPE_MAX_N = (232_448 - 5 * 32 * STRIPE_COLS * 4) // STRIPE_COLS
 
 
 def stripe_admits(n: int, view_dtype: str) -> bool:
-    """Whether K5 takes an ``[N, N]`` view of ``view_dtype``: int8, and a
-    view strip of every receiver row that fits one block's shared memory
-    (N <= 28,416)."""
+    """Whether K5 takes a view of ``n`` rows of ``view_dtype`` (``[N, N]``,
+    or an ``[N, N / shards]`` column block: the bound is on rows): int8,
+    and a view strip of every receiver row that fits one block's shared
+    memory (N <= 28,416)."""
     return view_dtype == "int8" and n <= STRIPE_MAX_N
 
 
@@ -137,7 +146,7 @@ def membership_update_swar(bestw, hbw, aslw, recv, vw, age_clamp: int,
 
 def fanout_max_merge_plain(view: torch.Tensor, edges: torch.Tensor):
     """``best[i, :] = max_f view[edges[i, f], :]`` as int32 ``[len(edges),
-    N]`` (the JAX package's ``fanout_max_merge_xla``)."""
+    C]`` (the JAX package's ``fanout_max_merge_xla``)."""
     e = edges.to(torch.int64)
     best = view[e[:, 0]].to(torch.int32)
     for f in range(1, e.shape[1]):
@@ -182,20 +191,20 @@ def _merge_rows_plain(rows_best, hb, asl, shift_a, shift_b, alive,
     ``rows_best(r0, r1)`` gives the int32 best rows of receivers
     ``r0..r1-1`` (with ``swar_form`` the packed best words, run through
     :func:`membership_update_swar`).  Updates ``hb``/``asl`` in place."""
-    n = hb.shape[0]
+    n, c = hb.shape
     dev = hb.device
     info = torch.iinfo(hb.dtype)
     sa = shift_a.to(torch.int32)
     sb = shift_b.to(torch.int32)
     recv_all = alive.to(torch.bool)
     i32 = dict(dtype=torch.int32, device=dev)
-    out = torch.zeros((5 if suspect else 3, n), **i32)
+    out = torch.zeros((5 if suspect else 3, c), **i32)
     cnt, n_det, first_obs = out[0], out[1], out[2]
     if detect_stats:
         first_obs.fill_(n)
     if swar_form:
         vw = swar.pack(merge.threshold_stack(sa, sb, torch.zeros_like(sa), 0))
-    for r0, r1 in row_chunks(n, n):
+    for r0, r1 in row_chunks(n, c):
         recv = recv_all[r0:r1, None]
         if swar_form:
             h, a, lst, fresh, refuted, held = membership_update_swar(
@@ -243,15 +252,15 @@ def stripe_merge_update_plain(view, edges, hb, asl, shift_a, shift_b, alive,
     strip of the lanes, and the strip's reductions are complete (no sum
     carries from one strip to the next).  Same outputs as
     :func:`fused_merge_update_plain`."""
-    n = hb.shape[0]
+    n, c = hb.shape
     dev = hb.device
     info = torch.iinfo(hb.dtype)
     e = edges.to(torch.int64)
     recv = alive.to(torch.bool)[:, None]
     rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    out = torch.zeros((5 if suspect else 3, n), dtype=torch.int32,
+    out = torch.zeros((5 if suspect else 3, c), dtype=torch.int32,
                       device=dev)
-    for c0, c1 in row_chunks(n, n):          # column strips, same sizes
+    for c0, c1 in row_chunks(c, n):          # column strips of ~16M entries
         strip = view[:, c0:c1]
         best = strip[e[:, 0]].to(torch.int32)
         for f in range(1, e.shape[1]):
@@ -310,7 +319,7 @@ def arc_group_merge_update(view, edges2, hb, asl, shift_a, shift_b, alive,
                 gw, edges2[r0:r1], fanout // align, align),
             hb, asl, shift_a, shift_b, alive, detect_stats, suspect,
             age_clamp, swar_form=True)
-    gm = view.reshape(n // align, align, n).amax(dim=1)   # once per round
+    gm = view.reshape(n // align, align, -1).amax(dim=1)  # once per round
     return _merge_rows_plain(
         lambda r0, r1: merge.masked_group_window_max(
             gm, edges2[r0:r1], fanout // align, align).to(torch.int32),
@@ -319,13 +328,16 @@ def arc_group_merge_update(view, edges2, hb, asl, shift_a, shift_b, alive,
 
 def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
                   age_clamp):
-    n = hb.shape[0] if hb.dim() == 2 else -1
+    n, c = hb.shape if hb.dim() == 2 else (-1, -1)
+    if not 0 < c <= n:
+        raise ValueError(f"{name}: hb must be an [N, C] block with 0 < C <= "
+                         f"N, got {tuple(hb.shape)}")
     want = {
-        "view": (view, VIEW_DTYPES, (n, n)),
-        "hb": (hb, tuple(HB_DTYPES.values()), (n, n)),
-        "asl": (asl, (torch.int8,), (n, n)),
-        "shift_a": (shift_a, (torch.int32,), (n,)),
-        "shift_b": (shift_b, (torch.int32,), (n,)),
+        "view": (view, VIEW_DTYPES, (n, c)),
+        "hb": (hb, tuple(HB_DTYPES.values()), (n, c)),
+        "asl": (asl, (torch.int8,), (n, c)),
+        "shift_a": (shift_a, (torch.int32,), (c,)),
+        "shift_b": (shift_b, (torch.int32,), (c,)),
         "alive": (alive, (torch.bool,), (n,)),
     }
     want.update(senders)
@@ -355,12 +367,12 @@ def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
     from gossipfs_tpu_torch.ops import _build
 
     lib = _build.load(source)
-    n = hb.shape[0]
-    # vector loads need N % 4 == 0 and 16-byte aligned rows of every lane
+    n, c = hb.shape
+    # vector loads need C % 4 == 0 and 16-byte aligned rows of every lane
     ptrs = [t.data_ptr() for t in (view, hb, asl)]
-    aligned = int(n % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    aligned = int(c % 4 == 0 and all(p % 16 == 0 for p in ptrs))
     with torch.cuda.device(hb.device):
-        out = torch.zeros((5 if suspect else 3, n), dtype=torch.int32,
+        out = torch.zeros((5 if suspect else 3, c), dtype=torch.int32,
                           device=hb.device)
         if detect_stats:
             out[2].fill_(n)
@@ -370,7 +382,7 @@ def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
                 alive.data_ptr()]
         if scratch is not None:
             args.append(scratch.data_ptr())
-        args += [out.data_ptr(), n, fanout, view.element_size(),
+        args += [out.data_ptr(), n, c, fanout, view.element_size(),
                  hb.element_size(), int(detect_stats), int(suspect),
                  age_clamp, aligned, stream.cuda_stream]
         with merge.counted_launch(name, stream):
@@ -394,9 +406,10 @@ def fused_merge_update(view, edges, hb, asl, shift_a, shift_b, alive, *,
                        age_clamp: int = AGE_CLAMP):
     """K2: :func:`fused_merge_update_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract; raises what it cannot run).
-    ``view`` int8/int16 ``[N, N]``; ``edges`` int32 ``[N, F]`` in
-    ``[0, N)``; ``hb`` int8/16/32 and ``asl`` int8 ``[N, N]``, updated in
-    place; ``shift_a``/``shift_b`` int32 ``[N]``; ``alive`` bool ``[N]``."""
+    ``view`` int8/int16 ``[N, C]``; ``edges`` int32 ``[N, F]`` in
+    ``[0, N)``; ``hb`` int8/16/32 and ``asl`` int8 ``[N, C]``, updated in
+    place; ``shift_a``/``shift_b`` int32 ``[C]``; ``alive`` bool ``[N]``.
+    C = N on one device, the shard's columns under subject sharding."""
     f = _check_edges("fused_merge_update", view, edges, hb, asl, shift_a,
                      shift_b, alive, age_clamp)
     if hb.device.type == "cpu":
@@ -429,7 +442,7 @@ def stripe_merge_update(view, edges, hb, asl, shift_a, shift_b, alive, *,
             view, edges, hb, asl, shift_a, shift_b, alive,
             detect_stats=detect_stats, suspect=suspect, age_clamp=age_clamp)
     n = hb.shape[0]
-    if n > STRIPE_MAX_N:
+    if n > STRIPE_MAX_N:   # rows: a column shard does not lift it
         raise NotImplementedError(
             f"stripe_merge_update: the CUDA kernel stages an [N, "
             f"{STRIPE_COLS}] view strip in shared memory, N <= "
@@ -447,7 +460,7 @@ def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
     """K4: :func:`arc_merge_update_plain` for CPU tensors, the CUDA kernel
     for CUDA tensors.  ``bases`` int32 ``[N]`` in ``[0, N)``; the rest as
     :func:`fused_merge_update`.  The kernel writes the window max to a
-    scratch ``[N, N]`` buffer of the view's dtype."""
+    scratch buffer of the view's shape and dtype."""
     n = hb.shape[0] if hb.dim() == 2 else -1
     _check_inputs("arc_merge_update", view,
                   {"bases": (bases, (torch.int32,), (n,))}, hb, asl,

@@ -52,7 +52,8 @@ def test_port_imports_without_jax():
                 "convert", "bench", "detector.api", "detector.sim",
                 "utils.snapshot", "frontier", "curves", "scenarios",
                 "scenarios.schedule", "scenarios.runtime",
-                "scenarios.tensor"):
+                "scenarios.tensor", "parallel.mesh",
+                "parallel.distributed", "full_scale"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 
