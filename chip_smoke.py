@@ -16,9 +16,13 @@ Phases (any failure exits non-zero before the last line is printed):
    and every per-round metric bit-equal;
 5. the lean main path: the headline (N = 16,384, 100 rounds, 1 % crash
    churn, 8 tracked crashes) through ``run_rounds`` on K3, with the launch
-   counts zeroed just before and read just after; rounds/s, the kernel's
-   device ms per round beside the whole round's ms, peak memory, and
-   ``summarize``'s TTD and FPR;
+   counts zeroed just before and read just after: exactly one K3 launch a
+   round, all in its one-pass form (f) (``rr_resident="auto"``); rounds/s,
+   the kernel's device ms per round beside the whole round's ms, peak
+   memory, and ``summarize``'s TTD and FPR; then the same run with
+   ``rr_resident="off"`` (K3's two-launch form): equal lanes, carry and
+   metrics, its ms a round beside (phases 16, 21, 27, 28, 32 and 37 run
+   their main paths both ways too);
 6. K3 capacity: N = 65,536 for 10 rounds;
 7. K2 (explicit-edge merge) against plain, one call per dtype pair shape
    and detection-stats setting, on corner-case lanes (all statuses, ages
@@ -67,9 +71,9 @@ Phases (any failure exits non-zero before the last line is printed):
     crash and rejoin churn (K5), config 3 with t_fail 3 and t_suspect 2
     (K2), and the suspicion headline under rejoin churn (K4); lanes,
     carry and all six metrics bit-equal;
-16. this slice's main path A: the ``bench --suspicion`` headline (N =
-    16,384, 100 rounds, 1 % crash churn, 8 tracked crashes) through
-    ``run_rounds``: exactly 100 K3 launches; rounds/s, K3 ms per round
+16. main path A: the ``bench --suspicion`` headline (N = 16,384, 100
+    rounds, 1 % crash churn, 8 tracked crashes) through ``run_rounds``:
+    exactly 100 K3 launches, all one-pass; rounds/s, K3 ms per round
     beside the whole round, peak memory, TTD, ``ttd_suspect``,
     suspect-to-confirm, FPR and the three suspicion counters;
 17. main path B: ``SimConfig.suspicion_rr(16_384)`` (random edges F = 14,
@@ -84,14 +88,16 @@ Phases (any failure exits non-zero before the last line is printed):
     suspicion + Lifeguard: every output equal; times, bounds and the
     profiled split between the two launches; K5's suspicion-off time at
     phase 14's all-int8 shape;
-20. 20-round lean scans, kernel against plain: ``packed_rr``,
-    ``suspicion_rr`` with and without the Lifeguard lane, plain arcs and
-    ``headline(arc_align=4)`` (aligned bases the kernel takes as plain
-    arcs); lanes, carry and all six metrics bit-equal;
+20. 20-round lean scans, kernel (one-pass, then two-launch) against
+    plain: ``packed_rr``, ``suspicion_rr`` with and without the Lifeguard
+    lane, plain arcs and ``headline(arc_align=4)`` (aligned bases the
+    kernel takes as plain arcs); lanes, carry and all six metrics
+    bit-equal;
 21. main path C: ``SimConfig.packed_rr(16_384)`` (random edges F = 14) for
     100 rounds, 1 % crash churn, 8 tracked crashes at round 3, through
-    ``run_rounds`` on the lean loop: exactly 100 K3 launches and no other
-    kernel's; rounds/s, K3 ms per round, host ms, TTD, FPR and the
+    ``run_rounds`` on the lean loop: exactly 100 K3 launches, all
+    one-pass, and no other kernel's; rounds/s, K3 ms per round, host ms,
+    TTD, FPR and the
     profiled device split; then the same run through the separate-pass
     loop (K5): equal final lanes, carry, metrics and report, and its
     rounds/s beside;
@@ -114,7 +120,8 @@ Phases (any failure exits non-zero before the last line is printed):
     crash-only, suspicion and suspicion + Lifeguard: every output equal;
     times, the profiled split between the two launches, and the byte
     bound;
-26. 20-round lean scans under a scenario, kernel against plain: the
+26. 20-round lean scans under a scenario, kernel (one-pass, then
+    two-launch) against plain: the
     suspicion headline under split + slow + flap + outage, ``suspicion_rr``
     under split + slow + Bernoulli loss, ``headline(arc_align=4)`` under a
     split; lanes, carry and all six metrics bit-equal;
@@ -123,13 +130,15 @@ Phases (any failure exits non-zero before the last line is printed):
     partition for rounds 20-45, 1/16 of the nodes flapping up 3 down 2 for
     rounds 10-80, an 8-node rack outage for rounds 50-62, fault nodes
     disjoint from the tracked victims): exactly 100 K3 launches, all in
-    the ``edge_filter`` form, and no other kernel's; rounds/s, K3 ms, host
+    the one-pass ``edge_filter`` form, and no other kernel's; rounds/s,
+    K3 ms, host
     ms, the profiled device split and busy share, TTD, FPR, suspects
     entered, refutations;
 28. main path D': ``SimConfig.suspicion_rr(16_384)`` for 100 rounds, 1 %
     crash churn, 8 tracked crashes, under a partition + 2 % Bernoulli loss
     on 1/16 of the senders + slow senders: the lean loop on K3's
-    explicit-edge form with rewritten edges (100 launches); then 20 rounds
+    one-pass explicit-edge form with rewritten edges (100 launches); then
+    20 rounds
     of the same run through the separate-pass loop (K5) beside 20 on the
     lean loop: equal lanes, carry and metrics;
 29. ``curves --partition`` at N = 16,384 through
@@ -145,11 +154,11 @@ Phases (any failure exits non-zero before the last line is printed):
 31. 20-round lean scans with ``elementwise="swar"``: the headline, the
     suspicion headline, ``suspicion_rr``, ``headline(arc_align=4)``, main
     path D's scenario and ``headline(arc_align=4)`` under a split (every
-    SWAR form): the SWAR kernel == the SWAR plain version == the lanes
-    kernel in lanes, carry and metrics;
+    SWAR form): the SWAR kernel (one-pass) == its two-launch form == the
+    SWAR plain version == the lanes kernel in lanes, carry and metrics;
 32. main paths E and E': the headline and the ``bench --suspicion``
     headline with ``elementwise="swar"`` as phases 5 and 16 run them:
-    exactly 100 K3 launches, all ``aligned_group/swar``; ms a round,
+    exactly 100 K3 launches, all ``aligned_group/swar/onepass``; ms a round,
     rounds/s, K3 ms, the profiled split, and a report equal to the lanes
     run's of this invocation;
 33. the separate-pass round with ``elementwise="swar"`` (the SWAR tick in
@@ -174,8 +183,10 @@ Phases (any failure exits non-zero before the last line is printed):
     one-card machine, NCCL with a card each), 100 rounds, 1 % crash
     churn, 8 tracked crashes: the gathered lanes, carry and metrics equal
     the single-process run, the report phase 5's, exactly 100
-    ``aligned_group`` (``/swar``) launches a rank; ms a round, rounds/s,
-    the all-reduce's ms a round;
+    ``aligned_group`` (``/swar``) one-pass column-block launches a rank;
+    ms a round, rounds/s, the all-reduce's ms a round; then both with
+    ``rr_resident="off"`` in the same rank processes (the two-launch
+    column-shard form), equal to the same single-process run;
 38. main path G: config 4's fault model cut to N = 32,768 over 2 rank
     processes (16,384 columns a rank), 10 rounds: equal to the
     single-process run, 10 K2 launches a rank; beside it main path B
@@ -183,13 +194,25 @@ Phases (any failure exits non-zero before the last line is printed):
     blocks);
 39. ``python -m gossipfs_tpu_torch.full_scale --n 65536 --rounds 16
     --devices 8``: 8 rank processes, 16 K4 launches each; its JSON beside
-    ``FULLSCALE.json``'s ``current`` row, each rank's peak memory.
+    ``FULLSCALE.json``'s ``current`` row, each rank's peak memory;
+40. K3's one-pass form (f) (``csrc/rr_onepass.cu``, a thread-block
+    cluster a column stripe) in all 30 instantiations (5 merge forms x
+    crash-only / suspicion / + Lifeguard x lanes / SWAR), one round at N
+    = 16,384 on phase 30's inputs: bit-equal to the plain version and to
+    the two-launch form, square and over the 2 shards [16,384 x 8,192] of
+    main paths F and F' (partial counts summing to the square launch's);
+    ms of (f) and of the two-launch form in turns, the byte bound, the
+    step timeline of the kernels line's rows, and the clusters the card
+    holds at once.
 
-The last four lines printed are every main path's ms a round, rounds/s
-and launch counts (one JSON line), the kernels JSON (the five kernels, K3
-once per merge form and once per SWAR form, the column-shard forms of K3,
-K2, K4 and K5), the ``nvidia-smi`` name and power limit, and the device
-JSON.
+The last five lines printed are phase 40's times in one JSON line
+(``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
+counts (one JSON line, with each path's ``rr_resident="off"`` run as
+``"<phase> off"``), the kernels JSON (the five kernels; K3's
+one-pass form per merge form and SWAR form in its paths' modes and over
+F/F''s blocks, its two-launch form once per merge form and once per SWAR
+form, the column-shard forms of K3, K2, K4 and K5), the ``nvidia-smi``
+name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -346,6 +369,7 @@ def phase_main_path(results: dict) -> None:
 
     cfg = SimConfig.headline(N_MAIN)
     events, crash_rounds, churn_ok = tracked_crash_events(cfg, ROUNDS, 8, 20)
+    warm_both_forms(cfg, dict(crash_rate=CRASH_RATE, churn_ok=churn_ok))
     state = init_state(cfg)
     key = trandom.PRNGKey(0, device="cuda")
     torch.cuda.synchronize()
@@ -360,9 +384,7 @@ def phase_main_path(results: dict) -> None:
     wall = time.perf_counter() - t0
     launches = dict(merge.LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated()
-    if launches["resident_round"] != ROUNDS:
-        raise AssertionError(f"main path launched {launches}, want "
-                             f"{ROUNDS} resident_round launches")
+    check_onepass("main path 5", "aligned_group", ROUNDS)
     kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / ROUNDS
     rep = summarize(carry, per_round, crash_rounds)
     ttd = sorted(rep.ttd_first.values())
@@ -370,8 +392,8 @@ def phase_main_path(results: dict) -> None:
     log(f"  {ROUNDS} rounds in {wall:.4f} s: {ROUNDS / wall:.2f} rounds/s; "
         f"whole round {wall / ROUNDS * 1e3:.4f} ms, kernel "
         f"{kernel_ms:.4f} ms/round (CUDA events around each launch)")
-    log(f"  launches {launches} (1 per round, 2 CUDA kernels each); peak "
-        f"memory {peak / 2**30:.3f} GiB")
+    log(f"  launches {launch_counts()} (1 per round: K3's one-pass form, "
+        f"one CUDA kernel); peak memory {peak / 2**30:.3f} GiB")
     log(f"  tracked ttd_first {ttd}, ttd_converged {conv}; FPR "
         f"{rep.false_positive_rate:.3e} ({rep.false_positives} false "
         f"positives), true detections {rep.true_detections}, final alive "
@@ -385,6 +407,10 @@ def phase_main_path(results: dict) -> None:
                            round_ms=wall / ROUNDS * 1e3,
                            launch_counts=launch_counts(),
                            report=rep.as_dict())
+    resident_off_twin("main path 5", cfg, ROUNDS, dict(
+        events=events, crash_rate=CRASH_RATE, churn_ok=churn_ok,
+        crash_only_events=True), 0, (final, carry, per_round),
+        results["main"])
 
 
 def phase_capacity(rounds: int) -> None:
@@ -423,6 +449,88 @@ def launch_counts() -> dict:
     out.update({f"resident_round[{k}]": v
                 for k, v in merge.FORM_LAUNCHES.items() if v})
     return out
+
+
+# the launch-count suffix of K3's one-pass form (f)
+ONEPASS = "/onepass"
+
+
+def check_onepass(label: str, form: str, rounds: int) -> None:
+    """The run just made launched K3 ``rounds`` times, one launch a round,
+    all in ``form``'s one-pass form (f), and no other kernel."""
+    from gossipfs_tpu_torch.ops import merge
+
+    forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
+    others = {k: v for k, v in merge.LAUNCH_COUNTS.items()
+              if v and k != "resident_round"}
+    if forms != {form + ONEPASS: rounds} or others:
+        raise AssertionError(f"{label}: launched {merge.LAUNCH_COUNTS} "
+                             f"{forms}, want {rounds} {form}{ONEPASS}")
+
+
+def warm_both_forms(cfg, run_kw: dict) -> None:
+    """One untimed round of ``cfg`` in each of K3's lean forms, the one-pass
+    form (f) and ``rr_resident="off"``'s two-launch form, before a main path
+    and its off twin are timed: each form's first launch (its library's
+    load, the module's lazy load, the cluster occupancy query) then lands
+    outside both host-clock windows."""
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+
+    kw = {k: v for k, v in run_kw.items()
+          if k not in ("events", "crash_only_events")}
+    for c in (cfg, dataclasses.replace(cfg, rr_resident="off")):
+        run_rounds(init_state(c), c, 1, trandom.PRNGKey(1, device="cuda"),
+                   **kw)
+    torch.cuda.synchronize()
+
+
+def resident_off_twin(label: str, cfg, rounds: int, run_kw: dict, seed: int,
+                      auto_out, row: dict) -> None:
+    """The main path ``label`` once more with ``rr_resident="off"`` (K3's
+    two-launch form) from the same state, key and arguments: its lanes,
+    carry and metrics must equal the one-pass run's ``auto_out`` (state,
+    carry, metrics), and every K3 launch be a two-launch form.  Its ms a
+    round, rounds/s and launches go into ``row["off"]``."""
+    import dataclasses
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
+
+    off = dataclasses.replace(cfg, rr_resident="off")
+    state = init_state(off)
+    key = trandom.PRNGKey(seed, device="cuda")
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_rounds(state, off, rounds, key, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
+    if (merge.LAUNCH_COUNTS["resident_round"] != rounds
+            or sum(forms.values()) != rounds
+            or any(k.endswith(ONEPASS) for k in forms)):
+        raise AssertionError(f"{label}, rr_resident='off': launched "
+                             f"{merge.LAUNCH_COUNTS} {forms}")
+    same = run_digest(*out) == run_digest(*auto_out)
+    row["off"] = dict(round_ms=wall / rounds * 1e3, rounds_per_s=rounds / wall,
+                      launches=rounds, launch_counts=launch_counts())
+    log(f"  {label}, rr_resident='off' (the two-launch form, {forms}): "
+        f"{wall / rounds * 1e3:.4f} ms a round, {rounds / wall:.2f} rounds/s"
+        f", against the one-pass run's {row['round_ms']:.4f} ms; lanes, "
+        f"carry and metrics {'==' if same else '!='} the one-pass run's")
+    if not same:
+        raise AssertionError(f"{label}: rr_resident='off' != the one-pass "
+                             "run")
 
 
 def diff_report(names, got, want) -> int:
@@ -667,7 +775,8 @@ def phase_flagship_step_vs_plain(rounds: int) -> None:
 def timed_main_path(cfg, rounds: int, run_kw: dict, kernel: str):
     """One ``run_rounds`` call from a fresh state with the launch counts
     zeroed just before and read just after.  Returns (carry, per_round,
-    launches, wall seconds, kernel ms per round, peak bytes)."""
+    launches, wall seconds, kernel ms per round, peak bytes, final
+    state)."""
     import torch
 
     from gossipfs_tpu_torch import random as trandom
@@ -682,7 +791,8 @@ def timed_main_path(cfg, rounds: int, run_kw: dict, kernel: str):
     merge.reset_launch_counts()
     t0 = time.perf_counter()
     with merge.record_launch_events() as evs:
-        _, carry, per_round = run_rounds(state, cfg, rounds, key, **run_kw)
+        final, carry, per_round = run_rounds(state, cfg, rounds, key,
+                                             **run_kw)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(merge.LAUNCH_COUNTS)
@@ -694,8 +804,8 @@ def timed_main_path(cfg, rounds: int, run_kw: dict, kernel: str):
     log(f"  {rounds} rounds in {wall:.4f} s: {rounds / wall:.2f} rounds/s; "
         f"whole round {wall / rounds * 1e3:.4f} ms, {kernel} "
         f"{kernel_ms:.4f} ms/round (CUDA events around each launch)")
-    log(f"  launches {launches}; peak memory {peak / 2**30:.3f} GiB")
-    return carry, per_round, launches, wall, kernel_ms, peak
+    log(f"  launches {launch_counts()}; peak memory {peak / 2**30:.3f} GiB")
+    return carry, per_round, launches, wall, kernel_ms, peak, final
 
 
 def stage_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
@@ -751,7 +861,7 @@ def phase_config3_main(results: dict) -> None:
     cfg = sc.config
     events, crash_rounds, churn_ok = tracked_crash_events(cfg, sc.rounds, 8,
                                                           20)
-    carry, per_round, launches, wall, kernel_ms, _ = timed_main_path(
+    carry, per_round, launches, wall, kernel_ms, _, _ = timed_main_path(
         cfg, sc.rounds, dict(events=events, crash_rate=sc.crash_rate,
                              churn_ok=churn_ok, crash_only_events=True),
         "fused_merge_update")
@@ -781,7 +891,7 @@ def phase_eventful_arc(results: dict, rounds: int) -> None:
 
     cfg = SimConfig.headline(N_MAIN)
     kw = dict(crash_rate=0.01, rejoin_rate=0.01)
-    carry, per_round, launches, wall, _, _ = timed_main_path(
+    carry, per_round, launches, wall, _, _, _ = timed_main_path(
         cfg, rounds, kw, "arc_merge_update")
     rep = summarize(carry, per_round)
     log(f"  FPR {rep.false_positive_rate:.3e}, true detections "
@@ -1061,10 +1171,12 @@ def phase_suspicion_main(results: dict) -> None:
 
     cfg = suspicion_headline()
     events, crash_rounds, churn_ok = tracked_crash_events(cfg, ROUNDS, 8, 20)
-    carry, per_round, launches, wall, kernel_ms, _ = timed_main_path(
-        cfg, ROUNDS, dict(events=events, crash_rate=CRASH_RATE,
-                          churn_ok=churn_ok, crash_only_events=True),
-        "resident_round")
+    run_kw = dict(events=events, crash_rate=CRASH_RATE, churn_ok=churn_ok,
+                  crash_only_events=True)
+    warm_both_forms(cfg, run_kw)
+    carry, per_round, launches, wall, kernel_ms, _, final = timed_main_path(
+        cfg, ROUNDS, run_kw, "resident_round")
+    check_onepass("main path A", "aligned_group", ROUNDS)
     rep = summarize(carry, per_round, crash_rounds)
     ttd = sorted(rep.ttd_first.values())
     log(f"  tracked ttd_first {ttd}, ttd_suspect "
@@ -1089,6 +1201,8 @@ def phase_suspicion_main(results: dict) -> None:
                                round_ms=wall / ROUNDS * 1e3,
                                launch_counts=launch_counts(),
                                report=rep.as_dict())
+    resident_off_twin("main path A", cfg, ROUNDS, run_kw, 0,
+                      (final, carry, per_round), results["sus_main"])
 
 
 def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
@@ -1097,7 +1211,7 @@ def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
 
     cfg = SimConfig.suspicion_rr(N_MAIN)
     kw = dict(crash_rate=0.01, rejoin_rate=0.01)
-    carry, per_round, launches, wall, kernel_ms, _ = timed_main_path(
+    carry, per_round, launches, wall, kernel_ms, _, _ = timed_main_path(
         cfg, rounds, kw, "stripe_merge_update")
     rep = summarize(carry, per_round)
     log(f"  FPR {rep.false_positive_rate:.3e}, true confirmations "
@@ -1280,6 +1394,7 @@ def lean_scan_configs():
     from gossipfs_tpu_torch.suspicion import SuspicionParams
 
     lh = SuspicionParams(t_suspect=3, lh_multiplier=4, lh_frac=0.015625)
+    # (label, config, merge form): N = 16,384, so the one-pass form runs
     return [
         ("packed_rr", SimConfig.packed_rr(N_MAIN), "edges"),
         ("suspicion_rr", SimConfig.suspicion_rr(N_MAIN), "edges"),
@@ -1300,11 +1415,15 @@ def phase_lean_scans(rounds: int, results: dict) -> None:
 
 def lean_scan_vs_plain(label: str, cfg, form: str, rounds: int, scenario,
                        results: dict) -> None:
-    """One lean scan on the kernel and on its plain version from the same
-    key (2 % crash churn, ``scenario`` a FaultScenario or None): the route
-    and the launches (all K3, all in ``form``) as expected, then lanes,
-    carry and metrics bit-equal.  Keeps the form's launch count in
+    """One lean scan on the kernel (its one-pass form (f), then with
+    ``rr_resident="off"`` the two-launch form) and on its plain version
+    from the same key (2 % crash churn, ``scenario`` a FaultScenario or
+    None): the route and the launches (all K3, all in ``form``'s one-pass
+    or two-launch name) as expected, then lanes, carry and metrics
+    bit-equal.  Keeps each form's launch count in
     ``results["scan_launches"]``."""
+    import dataclasses
+
     import torch
 
     from gossipfs_tpu_torch import random as trandom
@@ -1314,34 +1433,43 @@ def lean_scan_vs_plain(label: str, cfg, form: str, rounds: int, scenario,
     from gossipfs_tpu_torch.scenarios.tensor import compile_tensor
 
     tsc = None if scenario is None else compile_tensor(scenario)
-    if route(cfg, scenario=tsc) != ("lean", form):
+    if route(cfg, scenario=tsc) != ("lean", form + ONEPASS):
         raise AssertionError(f"{label}: routed {route(cfg, scenario=tsc)}")
+    off = dataclasses.replace(cfg, rr_resident="off")
     out = {}
-    for plain in (False, True):
+    for run, c, plain, launched in (("one-pass", cfg, False, form + ONEPASS),
+                                    ("two-launch", off, False, form),
+                                    ("plain", cfg, True, None)):
         key = trandom.PRNGKey(7, device="cuda")
         merge.reset_launch_counts()
-        out[plain] = run_rounds(init_state(cfg), cfg, rounds, key,
-                                crash_rate=0.02, plain=plain, scenario=tsc)
+        out[run] = run_rounds(init_state(c), c, rounds, key,
+                              crash_rate=0.02, plain=plain, scenario=tsc)
         want = {k: (rounds if k == "resident_round" and not plain else 0)
                 for k in merge.LAUNCH_COUNTS}
-        forms = {k: (rounds if k == form and not plain else 0)
+        forms = {k: (rounds if k == launched else 0)
                  for k in merge.FORM_LAUNCHES}
         if merge.LAUNCH_COUNTS != want or merge.FORM_LAUNCHES != forms:
-            raise AssertionError(f"{label}: launched {merge.LAUNCH_COUNTS} "
-                                 f"{merge.FORM_LAUNCHES}")
-    results.setdefault("scan_launches", {})[form] = rounds
+            raise AssertionError(
+                f"{label}, {run}: launched {merge.LAUNCH_COUNTS} "
+                f"{merge.FORM_LAUNCHES}")
+        if launched is not None:
+            results.setdefault("scan_launches", {})[launched] = rounds
     torch.cuda.synchronize()
-    (sk, ck, mk), (sp, cp, mp) = out[False], out[True]
-    pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
-             ("alive", sk.alive, sp.alive),
-             ("hb_base", sk.hb_base, sp.hb_base)]
-    pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
-    pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
-    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
-    if bad:
-        raise AssertionError(f"{label}: kernel scan != plain scan in {bad}")
+    sp, cp, mp = out["plain"]
+    for run in ("one-pass", "two-launch"):
+        sk, ck, mk = out[run]
+        pairs = [("hb", sk.hb, sp.hb), ("asl", sk.asl, sp.asl),
+                 ("alive", sk.alive, sp.alive),
+                 ("hb_base", sk.hb_base, sp.hb_base)]
+        pairs += [(f, getattr(ck, f), getattr(cp, f)) for f in ck._fields]
+        pairs += [(f, getattr(mk, f), getattr(mp, f)) for f in mk._fields]
+        bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"{label}: {run} kernel scan != plain scan "
+                                 f"in {bad}")
     armed = "" if scenario is None else f" under {scenario.name}"
-    log(f"  {label} (N={cfg.n}, {form} form), {rounds} rounds at 2% "
+    log(f"  {label} (N={cfg.n}, {form} form, one-pass and two-launch), "
+        f"{rounds} rounds at 2% "
         f"crash{armed}: lanes, carry and metrics bit-equal (detections "
         f"{int(mk.true_detections.sum())}, false positives "
         f"{int(mk.false_positives.sum())}, suspects entered "
@@ -1351,12 +1479,13 @@ def lean_scan_vs_plain(label: str, cfg, form: str, rounds: int, scenario,
 
 def lean_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
     """Device ms per round of the lean loop by CUDA kernel name under
-    ``torch.profiler`` over ``rounds`` rounds from a fresh state: K3's two
-    launches and everything else (edge and churn draws, flags, the
-    threshold stack, the carry), beside the device's busy ms per round and
-    its share of ``round_ms`` (the unprofiled round)."""
+    ``torch.profiler`` over ``rounds`` rounds from a fresh state: K3's
+    launches (one a round in its one-pass form, two in the two-launch
+    form) and everything else (edge and churn draws, flags, the threshold
+    stack, the carry), beside the device's busy ms per round and its share
+    of ``round_ms`` (the unprofiled round)."""
     from gossipfs_tpu_torch import random as trandom
-    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.rounds import route, run_rounds
     from gossipfs_tpu_torch.core.state import init_state
 
     state = init_state(cfg)
@@ -1365,7 +1494,8 @@ def lean_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
     raw = launch_split(lambda: run_rounds(state, cfg, rounds, key, **run_kw),
                        1)
     split = {k: ms / rounds for k, (ms, _) in raw.items()}
-    # K3 launches two kernels a round
+    per_round = 1 if route(cfg, scenario=run_kw.get("scenario"))[1].endswith(
+        ONEPASS) else 2
     seen = sum(n for k, (_, n) in raw.items() if k.startswith("rr_"))
     k3 = {k: v for k, v in split.items() if k.startswith("rr_")}
     other = sum(v for k, v in split.items() if not k.startswith("rr_"))
@@ -1378,7 +1508,7 @@ def lean_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
         + ", ".join(f"{k[:40]} {v:.4f}" for v, k in top)
         + f"); busy {busy:.4f} ms per round, {busy / round_ms:.1%} of the "
         f"unprofiled {round_ms:.4f} ms round; the profiler saw {seen} of "
-        f"{2 * rounds} K3 kernel launches")
+        f"{per_round * rounds} K3 kernel launches")
     return dict(k3, other_ms=other, busy_ms=busy)
 
 
@@ -1398,8 +1528,9 @@ def phase_packed_main(results: dict) -> None:
     events, crash_rounds, churn_ok = tracked_crash_events(cfg, rounds, 8, 3)
     kw = dict(events=events, crash_rate=0.01, churn_ok=churn_ok,
               crash_only_events=True)
-    if R.route(cfg) != ("lean", "edges"):
+    if R.route(cfg) != ("lean", "edges" + ONEPASS):
         raise AssertionError(f"main path C routed {R.route(cfg)}")
+    warm_both_forms(cfg, kw)
     # the lean loop, through run_rounds, counts zeroed just before
     state = init_state(cfg)
     key = trandom.PRNGKey(0, device="cuda")
@@ -1412,9 +1543,7 @@ def phase_packed_main(results: dict) -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(merge.LAUNCH_COUNTS)
-    want = {k: (rounds if k == "resident_round" else 0) for k in launches}
-    if launches != want:
-        raise AssertionError(f"main path C launched {launches}, want {want}")
+    check_onepass("main path C", "edges", rounds)
     kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / rounds
     peak = torch.cuda.max_memory_allocated()
     round_ms = wall / rounds * 1e3
@@ -1424,7 +1553,7 @@ def phase_packed_main(results: dict) -> None:
         f"rounds/s; whole round {round_ms:.4f} ms, K3 {kernel_ms:.4f} "
         f"ms/round (CUDA events around each launch), host and the rest "
         f"{round_ms - kernel_ms:.4f} ms; peak memory {peak / 2**30:.3f} GiB")
-    log(f"  launches {launches}")
+    log(f"  launches {launch_counts()}")
     log(f"  tracked ttd_first {ttd}, ttd_converged "
         f"{sorted(rep.ttd_converged.values())}; FPR "
         f"{rep.false_positive_rate:.3e} ({rep.false_positives} false "
@@ -1439,6 +1568,8 @@ def phase_packed_main(results: dict) -> None:
                              rounds_per_s=rounds / wall, kernel_ms=kernel_ms,
                              round_ms=round_ms,
                              launch_counts=launch_counts())
+    resident_off_twin("main path C", cfg, rounds, kw, 0,
+                      (final, carry, per_round), results["main_c"])
     lean_split(cfg, 10, dict(crash_rate=0.01), round_ms)
     # the same run through the separate-pass loop (K5): the same function,
     # so equal outputs, at the separate-pass round's cost
@@ -1806,7 +1937,8 @@ def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
                        results: dict, key: str):
     """One lean main path under ``scenario`` through ``run_rounds``, with
     the launch counts zeroed just before and read just after: exactly
-    ``rounds`` K3 launches, all in ``form``, and no other kernel's."""
+    ``rounds`` K3 launches, all in ``form``'s one-pass form, and no other
+    kernel's; then the same run with ``rr_resident="off"``."""
     import torch
 
     from gossipfs_tpu_torch import random as trandom
@@ -1822,13 +1954,14 @@ def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
     tsc = compile_tensor(sc)
     kw = dict(events=events, crash_rate=0.01, churn_ok=churn_ok,
               crash_only_events=True, scenario=tsc)
-    if R.route(cfg, scenario=tsc) != ("lean", form):
+    if R.route(cfg, scenario=tsc) != ("lean", form + ONEPASS):
         raise AssertionError(f"{label} routed {R.route(cfg, scenario=tsc)}")
     rkey = trandom.PRNGKey(0, device="cuda")
     # the same run once untimed: earlier phases emptied the allocator's
     # cache, and a first run pays the device allocations of its horizon
     # tables (0.4 ms a round over 100 rounds when it was timed cold)
     R.run_rounds(init_state(cfg), cfg, rounds, rkey, **kw)
+    warm_both_forms(cfg, kw)
     state = init_state(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1838,12 +1971,9 @@ def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
         final, carry, per_round = R.run_rounds(state, cfg, rounds, rkey, **kw)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, forms = dict(merge.LAUNCH_COUNTS), dict(merge.FORM_LAUNCHES)
-    want = {k: (rounds if k == "resident_round" else 0) for k in launches}
-    want_forms = {k: (rounds if k == form else 0) for k in forms}
-    if launches != want or forms != want_forms:
-        raise AssertionError(f"{label} launched {launches} {forms}, want "
-                             f"{want} {want_forms}")
+    launches = dict(merge.LAUNCH_COUNTS)
+    forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
+    check_onepass(label, form, rounds)
     kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / rounds
     peak = torch.cuda.max_memory_allocated()
     round_ms = wall / rounds * 1e3
@@ -1869,9 +1999,11 @@ def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
             or rep.false_positives <= 0
             or not 0 < rep.final_alive < cfg.n):
         raise AssertionError(f"{label}: output out of range")
-    results[key] = dict(launches=forms[form], rounds_per_s=rounds / wall,
-                        kernel_ms=kernel_ms, round_ms=round_ms,
-                        launch_counts=launch_counts())
+    results[key] = dict(launches=forms[form + ONEPASS],
+                        rounds_per_s=rounds / wall, kernel_ms=kernel_ms,
+                        round_ms=round_ms, launch_counts=launch_counts())
+    resident_off_twin(label, cfg, rounds, kw, 0, (final, carry, per_round),
+                      results[key])
     # the device split over 10 rounds inside the fault windows (every
     # window 30 rounds earlier: the split and the flapping are active)
     mid = compile_tensor(scenario(cfg.n, set(crash_rounds), shift=18))
@@ -2098,8 +2230,9 @@ def swar_scan_configs():
 
 
 def phase_swar_scans(rounds: int, results: dict) -> None:
-    """20-round lean scans under 2 % crash churn: the SWAR kernel against
-    the SWAR plain version and against the lanes kernel on the same
+    """20-round lean scans under 2 % crash churn: the SWAR kernel (one-pass
+    form, and the two-launch form with ``rr_resident="off"``) against the
+    SWAR plain version and against the lanes kernel on the same
     configuration less ``elementwise``; lanes, carry and metrics in
     full."""
     import dataclasses
@@ -2114,12 +2247,15 @@ def phase_swar_scans(rounds: int, results: dict) -> None:
 
     for label, cfg, form, scenario in swar_scan_configs():
         tsc = None if scenario is None else compile_tensor(scenario)
-        if route(cfg, scenario=tsc) != ("lean", form + "/swar"):
+        if route(cfg, scenario=tsc) != ("lean", form + "/swar" + ONEPASS):
             raise AssertionError(f"{label}: routed {route(cfg, scenario=tsc)}")
-        runs = {"swar kernel": (cfg, False, form + "/swar"),
+        runs = {"swar kernel": (cfg, False, form + "/swar" + ONEPASS),
+                "swar two-launch kernel": (
+                    dataclasses.replace(cfg, rr_resident="off"), False,
+                    form + "/swar"),
                 "swar plain": (cfg, True, None),
                 "lanes kernel": (dataclasses.replace(cfg, elementwise="lanes"),
-                                 False, form)}
+                                 False, form + ONEPASS)}
         out = {}
         for run, (c, plain, launched) in runs.items():
             merge.reset_launch_counts()
@@ -2131,10 +2267,12 @@ def phase_swar_scans(rounds: int, results: dict) -> None:
             if merge.FORM_LAUNCHES != forms:
                 raise AssertionError(f"{label}, {run}: launched "
                                      f"{merge.FORM_LAUNCHES}")
-        results.setdefault("swar_scan_launches", {})[form] = rounds
+            if launched is not None and "/swar" in launched:
+                results.setdefault("swar_scan_launches", {})[
+                    launched] = rounds
         torch.cuda.synchronize()
         sk, ck, mk = out["swar kernel"]
-        for other in ("swar plain", "lanes kernel"):
+        for other in ("swar two-launch kernel", "swar plain", "lanes kernel"):
             so, co, mo = out[other]
             pairs = [("hb", sk.hb, so.hb), ("asl", sk.asl, so.asl),
                      ("alive", sk.alive, so.alive),
@@ -2146,8 +2284,9 @@ def phase_swar_scans(rounds: int, results: dict) -> None:
                 raise AssertionError(f"{label}: SWAR kernel scan != {other} "
                                      f"in {bad}")
         log(f"  {label} ({form}/swar), {rounds} rounds at 2% crash: lanes, "
-            f"carry and metrics of the SWAR kernel == SWAR plain == lanes "
-            f"kernel (detections {int(mk.true_detections.sum())}, suspects "
+            f"carry and metrics of the SWAR kernel (one-pass) == its "
+            f"two-launch form == SWAR plain == lanes kernel (detections "
+            f"{int(mk.true_detections.sum())}, suspects "
             f"entered {int(mk.suspects_entered.sum())}, refuted "
             f"{int(mk.refutations.sum())}, alive {int(mk.n_alive[-1])})")
 
@@ -2155,8 +2294,9 @@ def phase_swar_scans(rounds: int, results: dict) -> None:
 def phase_swar_main(results: dict) -> None:
     """Main paths E and E': the headline and the ``bench --suspicion``
     headline with ``elementwise="swar"``, 100 rounds each as phases 5 and
-    16 run them: exactly 100 K3 launches, all ``aligned_group/swar``, and
-    a report equal to the lanes run's of this same invocation."""
+    16 run them: exactly 100 K3 launches, all ``aligned_group/swar`` in
+    the one-pass form, and a report equal to the lanes run's of this same
+    invocation; then each with ``rr_resident="off"``."""
     import dataclasses
 
     import torch
@@ -2184,20 +2324,20 @@ def phase_swar_main(results: dict) -> None:
         # path leaves the allocator cold, and a first run pays its device
         # allocations (E' read 0.7 ms a round slower timed cold)
         run_rounds(init_state(cfg), cfg, ROUNDS, rkey, **kw)
+        warm_both_forms(cfg, kw)
         state = init_state(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         merge.reset_launch_counts()
         t0 = time.perf_counter()
         with merge.record_launch_events() as evs:
-            _, carry, per_round = run_rounds(state, cfg, ROUNDS, rkey, **kw)
+            final, carry, per_round = run_rounds(state, cfg, ROUNDS, rkey,
+                                                 **kw)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(merge.LAUNCH_COUNTS)
         forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
-        want = {k: (ROUNDS if k == "resident_round" else 0) for k in launches}
-        if launches != want or forms != {"aligned_group/swar": ROUNDS}:
-            raise AssertionError(f"{key} launched {launches} {forms}")
+        check_onepass(f"main path {label}", "aligned_group/swar", ROUNDS)
         kernel_ms = sum(s.elapsed_time(e) for s, e in evs) / ROUNDS
         peak = torch.cuda.max_memory_allocated()
         round_ms = wall / ROUNDS * 1e3
@@ -2219,6 +2359,8 @@ def phase_swar_main(results: dict) -> None:
         results[key] = dict(launches=ROUNDS, rounds_per_s=ROUNDS / wall,
                             kernel_ms=kernel_ms, round_ms=round_ms,
                             launch_counts=launch_counts())
+        resident_off_twin(f"main path {label}", cfg, ROUNDS, kw, 0,
+                          (final, carry, per_round), results[key])
         results[key]["split"] = lean_split(cfg, 10,
                                            dict(crash_rate=CRASH_RATE),
                                            round_ms)
@@ -2714,11 +2856,15 @@ def check_sharded(label: str, ranks: list, want_digest: str,
 def phase_sharded_headline(results: dict) -> None:
     """Main paths F and F': the lean headline sharded over 2 rank
     processes (on one card: gloo; a card each: NCCL), lanes and SWAR, 100
-    rounds, 1 % crash
-    churn, 8 tracked crashes: the gathered lanes, carry and metrics equal
-    the same run in this process, the report equals phase 5's (and phase
-    32's); each rank launched exactly 100 resident rounds, all
-    ``aligned_group`` (``aligned_group/swar``)."""
+    rounds, 1 % crash churn, 8 tracked crashes: the gathered lanes, carry
+    and metrics equal the same run in this process, the report equals
+    phase 5's (and phase 32's); each rank launched exactly 100 resident
+    rounds, all ``aligned_group`` (``aligned_group/swar``) in the one-pass
+    column-block form; then both again with ``rr_resident="off"`` (the
+    two-launch column-shard form) in the same rank processes, equal to the
+    same single-process run."""
+    import dataclasses
+
     import torch
 
     from gossipfs_tpu_torch.bench import (
@@ -2739,6 +2885,10 @@ def phase_sharded_headline(results: dict) -> None:
         singles[label] = single_digest(cfg, ROUNDS, 0, kw, crash_rounds)
         jobs.append(dict(config=cfg, rounds=ROUNDS, seed=0, warm=True,
                          crash_rounds=crash_rounds, **kw))
+    # the two-launch twins, after both one-pass jobs
+    jobs += [dict(job, config=dataclasses.replace(job["config"],
+                                                   rr_resident="off"))
+             for job in list(jobs)]
     t0 = time.perf_counter()
     ranks = distributed.launch(shard_ranks, world, (jobs,), timeout=600)
     cards = len({str(distributed.device_for_rank(r)) for r in range(world)})
@@ -2750,7 +2900,10 @@ def phase_sharded_headline(results: dict) -> None:
         per = [r[i] for r in ranks]
         form = "aligned_group" + ("/swar" if label == "F'" else "")
         check_sharded(label, per, singles[label][0], "resident_round",
-                      ROUNDS, {form: ROUNDS})
+                      ROUNDS, {form + ONEPASS: ROUNDS})
+        off = [r[i + len(cfgs)] for r in ranks]
+        check_sharded(label + ", rr_resident='off'", off, singles[label][0],
+                      "resident_round", ROUNDS, {form: ROUNDS})
         rep = per[0]["report"]
         if rep != singles[label][1] or rep != results["main"]["report"]:
             raise AssertionError(f"{label}: report != phase 5's")
@@ -2770,13 +2923,23 @@ def phase_sharded_headline(results: dict) -> None:
             f"report == phase 5's: ttd_first "
             f"{sorted(rep['ttd_first'].values())}, FPR "
             f"{rep['false_positive_rate']:.3e}")
+        off_secs = max(r["seconds"] for r in off)
+        log(f"  {label}, rr_resident='off' (the two-launch column-shard "
+            f"form): {off_secs / ROUNDS * 1e3:.4f} ms a round, "
+            f"{ROUNDS / off_secs:.2f} rounds/s; gathered lanes, carry and "
+            "metrics == the same single-process run")
         results["main_f" + ("2" if label == "F'" else "")] = dict(
             round_ms=round_ms, rounds_per_s=ROUNDS / secs,
             allreduce_ms=allreduce_ms, launches=per[0]["launches"][
                 "resident_round"],
             launch_counts={"resident_round": ROUNDS,
-                           f"resident_round[{form}]": ROUNDS,
-                           "ranks": world})
+                           f"resident_round[{form}{ONEPASS}]": ROUNDS,
+                           "ranks": world},
+            off=dict(round_ms=off_secs / ROUNDS * 1e3,
+                     rounds_per_s=ROUNDS / off_secs, launches=ROUNDS,
+                     launch_counts={"resident_round": ROUNDS,
+                                    f"resident_round[{form}]": ROUNDS,
+                                    "ranks": world}))
 
 
 def phase_sharded_config4(results: dict) -> None:
@@ -2895,9 +3058,181 @@ def phase_full_scale(results: dict) -> None:
         launch_counts={"arc_merge_update": 16, "ranks": 8})
 
 
+# the mode of each one-pass row of the kernels line: that of the path that
+# launches it (the SWAR rows as SWAR_ROW_MODE); aligned_group and edges
+# also in the mode of their second path (A, D')
+ONEPASS_ROWS = (("aligned_group", "crash-only"),
+                ("aligned_group", "suspicion"),
+                ("edges", "crash-only"), ("edges", "suspicion"),
+                ("arc", "crash-only"), ("filter_group", "suspicion"),
+                ("filter_rows", "crash-only"),
+                ("aligned_group/swar", "suspicion")) + tuple(
+    (f + "/swar", m) for f, m in SWAR_ROW_MODE.items())
+
+
+def phase_k3_onepass(results: dict) -> None:
+    """K3's one-pass form (f) in every instantiation the lean gate reaches
+    (5 merge forms x crash-only / suspicion / + Lifeguard x lanes / SWAR),
+    one round at N = 16,384 on phase 30's inputs: bit-equal to the plain
+    version and to the two-launch form; then over the 2 column blocks
+    [16,384 x 8,192] of main paths F and F' (shards 0 and 1): each shard
+    launch == plain and == the two-launch shard launch, and the shards'
+    per-receiver partials sum to the square (f) launch's counts.  ms of (f)
+    and of the two-launch form in turns (two-launch, (f), (f),
+    two-launch) beside the byte bound, the plain version's ms and the
+    kernel's step timeline (microseconds a stripe in step 1, the cluster
+    sync, step 2, the tail) for the
+    kernels line's rows; the clusters the card runs at once."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    n, c = N_MAIN, N_MAIN // 2
+    forms, modes, muted = swar_round_cases(n)
+    clusters = {}
+    for form, (senders, fkw) in forms.items():
+        clusters[form] = merge.onepass_clusters(
+            n, n, form, fanout=fkw.get("fanout", senders.shape[-1]),
+            arc_align=fkw.get("arc_align", 1))
+    smem = {f: merge.onepass_smem(n, f) for f in ("edges", "aligned_group")}
+    log(f"  stripe clusters of {merge.ONEPASS_CTAS} CTAs the card runs at "
+        f"once (cudaOccupancyMaxActiveClusters; {smem['edges']} B of shared "
+        f"memory a CTA in the full-view forms, {smem['aligned_group']} B in "
+        f"the aligned ones): {clusters}")
+    out = results.setdefault("k3_onepass", {"clusters": clusters})
+    rows = set(ONEPASS_ROWS)
+    bad = 0
+    for ew in merge.ELEMENTWISE:
+        for form, (senders, fkw) in forms.items():
+            for mode, ((hb, asl, flags, vecs), mkw) in modes.items():
+                if fkw.get("edge_filter"):
+                    flags = flags + muted
+                kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
+                name = merge.kernel_form(kw.get("fanout"),
+                                         kw.get("arc_align", 1),
+                                         kw.get("edge_filter", False), ew)
+                got = merge.resident_round(hb.clone(), asl.clone(), flags,
+                                           vecs, senders, onepass=True, **kw)
+                want = merge.resident_round_plain(hb.clone(), asl.clone(),
+                                                  flags, vecs, senders, **kw)
+                two = merge.resident_round(hb.clone(), asl.clone(), flags,
+                                           vecs, senders, **kw)
+                diffs = [count_diff(a, b) for a, b in zip(got, want)]
+                diffs += [count_diff(a, b) for a, b in zip(got, two)]
+                nout = len(got)
+                recv = [i for i in K3_RECV if i < nout]
+                sums = {i: torch.zeros_like(got[i]) for i in recv}
+                for shard in range(2):
+                    sl = slice(shard * c, (shard + 1) * c)
+                    args = (hb[:, sl].contiguous(), asl[:, sl].contiguous(),
+                            flags, vecs[:, sl].contiguous(), senders)
+                    skw = dict(kw, col_offset=shard * c)
+                    g = merge.resident_round(args[0].clone(), args[1].clone(),
+                                             *args[2:], onepass=True, **skw)
+                    p = merge.resident_round_plain(
+                        args[0].clone(), args[1].clone(), *args[2:], **skw)
+                    t = merge.resident_round(args[0].clone(), args[1].clone(),
+                                             *args[2:], **skw)
+                    diffs += [count_diff(a, b) for a, b in zip(g, p)]
+                    diffs += [count_diff(a, b) for a, b in zip(g, t)]
+                    for i in recv:
+                        sums[i] += g[i]
+                diffs += [count_diff(sums[i], got[i]) for i in recv]
+                torch.cuda.synchronize()
+                diff = sum(d[0] for d in diffs)
+                bad += diff
+                h2, a2 = hb.clone(), asl.clone()
+                run_f = lambda: merge.resident_round(  # noqa: E731
+                    h2, a2, flags, vecs, senders, onepass=True, **kw)
+                run_2 = lambda: merge.resident_round(  # noqa: E731
+                    h2, a2, flags, vecs, senders, **kw)
+                run_f()
+                run_2()
+                two_ms = [cuda_ms(run_2, 10)]
+                f_ms = [cuda_ms(run_f, 10), cuda_ms(run_f, 10)]
+                two_ms.append(cuda_ms(run_2, 10))
+                plain_ms = split = None
+                if (name, mode) in rows:
+                    run_p = lambda: merge.resident_round_plain(  # noqa: E731
+                        h2, a2, flags, vecs, senders, **kw)
+                    run_p()
+                    plain_ms = cuda_ms(run_p, 2)
+                    # one more launch with its step timeline
+                    tl = torch.zeros((n // merge.ONEPASS_C,
+                                      merge.ONEPASS_CTAS,
+                                      merge.ONEPASS_STAMPS),
+                                     dtype=torch.int64, device="cuda")
+                    merge.resident_round(h2, a2, flags, vecs, senders,
+                                         onepass=True, timeline=tl, **kw)
+                    torch.cuda.synchronize()
+                    split = merge.onepass_timeline_split(tl)
+                bound = k3_shard_bound_ms(n, n, senders, nout, len(recv))
+                out[(name, mode)] = dict(
+                    max_abs_err=max(d[1] for d in diffs), ms=min(f_ms),
+                    ms_runs=f_ms, two_launch_ms=min(two_ms),
+                    two_launch_runs=two_ms, plain_ms=plain_ms,
+                    bound_ms=bound, split=split)
+                log(f"  {name}{ONEPASS}, {mode}: vs plain and two-launch, "
+                    f"square and 2 shards: {diff} entries differ; (f) "
+                    f"{min(f_ms):.4f} ms, two-launch {min(two_ms):.4f} ms "
+                    f"({min(two_ms) / min(f_ms):.3f}x), bound {bound:.4f} ms"
+                    + ("" if plain_ms is None else
+                       f", plain {plain_ms:.3f} ms; us a stripe: " + ", ".join(
+                           f"{k} {v:.2f}" for k, v in split.items())))
+    # tolerance 0: integer outputs
+    if bad:
+        raise AssertionError(f"K3 one-pass form: {bad} entries differ")
+    log("  K3 one-pass form == plain == the two-launch form on all 30 "
+        "instantiations, square and over the 2 shards of F/F' (tolerance 0)")
+    # main paths F and F': the aligned crash-only form over [16,384 x
+    # 8,192], (f) and two-launch in turns, and the plain version
+    senders, fkw = forms["aligned_group"]
+    (hb, asl, flags, vecs), mkw = modes["crash-only"]
+    for ew in merge.ELEMENTWISE:
+        kw = dict(fkw, t_cooldown=12, elementwise=ew, col_offset=c, **mkw)
+        args = (hb[:, c:].contiguous(), asl[:, c:].contiguous(), flags,
+                vecs[:, c:].contiguous(), senders)
+        run_f = lambda: merge.resident_round(  # noqa: E731
+            *args, onepass=True, **kw)
+        run_2 = lambda: merge.resident_round(*args, **kw)  # noqa: E731
+        run_p = lambda: merge.resident_round_plain(*args, **kw)  # noqa: E731
+        run_f()
+        run_2()
+        run_p()
+        two_ms = [cuda_ms(run_2, 10)]
+        f_ms = [cuda_ms(run_f, 10), cuda_ms(run_f, 10)]
+        two_ms.append(cuda_ms(run_2, 10))
+        plain_ms = cuda_ms(run_p, 2)
+        name = merge.kernel_form(16, 8, False, ew)
+        bound = k3_shard_bound_ms(n, c, senders, 6, 1)
+        out[(name, "crash-only", "block")] = dict(
+            max_abs_err=0, ms=min(f_ms), two_launch_ms=min(two_ms),
+            plain_ms=plain_ms, bound_ms=bound, shape=[n, c])
+        log(f"  [{n} x {c}] (main paths F/F') {name}{ONEPASS}, crash-only: "
+            f"(f) {min(f_ms):.4f} ms, two-launch {min(two_ms):.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms")
+
+
+def onepass_summary(results: dict) -> dict:
+    """Phase 40 in one JSON object: each one-pass instantiation's ms beside
+    the two-launch form's, its step timeline where timed, the column
+    blocks of F/F', and the clusters the card holds at once."""
+    out = {}
+    for key, r in results["k3_onepass"].items():
+        if key == "clusters":
+            out["clusters"] = r
+        else:
+            row = {"ms": r["ms"], "two_launch_ms": r["two_launch_ms"]}
+            if r.get("split"):
+                row["us_a_stripe"] = r["split"]
+            out[", ".join(key)] = row
+    return out
+
+
 def main_path_summary(results: dict) -> dict:
-    """Every main path's ms a round, rounds/s and launch counts, by phase,
-    for the one JSON line beside the kernels line."""
+    """Every main path's ms a round, rounds/s and launch counts, by phase
+    (``"<phase> off"``: the same path with ``rr_resident="off"``), for the
+    one JSON line beside the kernels line."""
     rows = {"5": "main", "10": "config3", "11": "arc", "16": "sus_main",
             "17": "k5_main", "21": "main_c", "27": "main_d", "28": "main_d2",
             "32 E": "main_e", "32 E'": "main_e2", "37 F": "main_f",
@@ -2909,6 +3244,12 @@ def main_path_summary(results: dict) -> dict:
         out[phase] = {"round_ms": r["round_ms"],
                       "rounds_per_s": r["rounds_per_s"],
                       "launches": r["launch_counts"]}
+        if "off" in r:
+            # the same path with rr_resident="off" (K3's two-launch form)
+            o = r["off"]
+            out[phase + " off"] = {"round_ms": o["round_ms"],
+                                   "rounds_per_s": o["rounds_per_s"],
+                                   "launches": o["launch_counts"]}
     p = results["partition"]
     out["29"] = {"round_ms": p["seconds"] / p["rounds"] * 1e3,
                  "rounds_per_s": p["rounds"] / p["seconds"],
@@ -3054,13 +3395,47 @@ def main() -> int:
     log("[39] python -m gossipfs_tpu_torch.full_scale --n 65536 --rounds 16 "
         "--devices 8")
     phase_full_scale(results)
+    log(f"[40] K3 one-pass form (f) vs plain and vs the two-launch form: 30 "
+        f"instantiations, N={N_MAIN}, square and the 2 shards "
+        f"[{N_MAIN} x {N_MAIN // 2}]")
+    phase_k3_onepass(results)
+    print(json.dumps({"onepass": onepass_summary(results)}))
     print(json.dumps({"main_paths": main_path_summary(results)}))
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
-    swar_launches = dict(results["swar_scan_launches"],
-                         aligned_group=results["main_e"]["launches"])
+    # the two-launch form's launches: main paths' rr_resident="off" runs
+    # and the scans' two-launch runs (phases 20, 26, 31)
+    swar_launches = {f: results["swar_scan_launches"][f + "/swar"]
+                     for f in SWAR_ROW_MODE}
+    swar_launches["aligned_group"] = results["main_e"]["off"]["launches"]
     shard = results["k3_shard"]
+    onepass = results["k3_onepass"]
+    scans = dict(results["scan_launches"], **results["swar_scan_launches"])
+    path_launches = {
+        ("aligned_group", "crash-only"): results["main"]["launches"],
+        ("aligned_group", "suspicion"): results["sus_main"]["launches"],
+        ("edges", "crash-only"): results["main_c"]["launches"],
+        ("edges", "suspicion"): results["main_d2"]["launches"],
+        ("filter_group", "suspicion"): results["main_d"]["launches"],
+        ("aligned_group/swar", "crash-only"): results["main_e"]["launches"],
+        ("aligned_group/swar", "suspicion"): results["main_e2"]["launches"],
+    }
+    onepass_rows = [
+        # K3 (f) in the mode of each path that launches it (the main paths'
+        # launches, else the 20-round scans' of phases 20, 26 and 31), then
+        # over main paths F and F''s [16,384 x 8,192] blocks
+        kernel_line(f"resident_round[one-pass: {form}, {mode}]",
+                    src + "rr_onepass.cu", mp + "2611",
+                    path_launches.get((form, mode)) or scans[form + ONEPASS],
+                    onepass[(form, mode)])
+        for form, mode in ONEPASS_ROWS] + [
+        shard_line(f"resident_round[one-pass column block: {form}, "
+                   "crash-only]", src + "rr_onepass.cu", mp + "2611",
+                   results[key]["launches"],
+                   onepass[(form, "crash-only", "block")])
+        for form, key in (("aligned_group", "main_f"),
+                          ("aligned_group/swar", "main_f2"))]
     shard_rows = [
         # each column-shard row at the shape of the main path that
         # launches it, with that path's launches a rank: K3 (g) at the
@@ -3069,11 +3444,11 @@ def main() -> int:
         # sharded's [16,384 x 8,192] (phase 36)
         shard_line("resident_round[column shard: aligned_group, "
                    "crash-only]", src + "resident_round.cu", mp + "2611",
-                   results["main_f"]["launches"],
+                   results["main_f"]["off"]["launches"],
                    shard[("aligned_group", "crash-only", "main")]),
         shard_line("resident_round[column shard: aligned_group/swar, "
                    "crash-only]", src + "resident_round.cu", mp + "2611",
-                   results["main_f2"]["launches"],
+                   results["main_f2"]["off"]["launches"],
                    shard[("aligned_group/swar", "crash-only", "main")]),
         shard_line("fused_merge_update[column block]",
                    src + "fused_merge.cu", mp + "387",
@@ -3091,33 +3466,36 @@ def main() -> int:
                    src + "fused_merge.cu", mp + "387", 0,
                    results["k2_block_config4"]),
     ]
-    swar_rows = shard_rows + [
+    swar_rows = onepass_rows + shard_rows + [
         # each SWAR form in the mode of the path that launches it: the
-        # aligned form main path E's 100 (E' adds 100 suspicion ones), the
-        # others phase 31's 20-round scans
+        # aligned form main path E's rr_resident="off" run (E' adds 100
+        # suspicion ones), the others phase 31's 20-round two-launch scans
         kernel_line(f"resident_round[{form}/swar, {SWAR_ROW_MODE[form]}]",
                     src + "resident_round.cu", mp + "2611",
                     swar_launches[form], swar[(form, SWAR_ROW_MODE[form])])
         for form in SWAR_ROW_MODE]
     print(json.dumps({"kernels": swar_rows + [
+        # K3's two-launch form, each merge form with the launches of the
+        # rr_resident="off" run of the main path that runs it (phases 16,
+        # 5, 21, 27); the plain-arc and filter_rows forms are on no main
+        # path: theirs are the 20-round two-launch scans' of phases 20 and
+        # 26 (headline(arc_align=4))
         kernel_line("resident_round", src + "resident_round.cu", mp + "2611",
-                    results["sus_main"]["launches"], results["k3_sus"]),
-        # K3's other merge forms, each with the launches of the main path
-        # that runs it (phases 5, 21, 27); the plain-arc and filter_rows
-        # forms are on no main path: theirs are the 20-round scans' of
-        # phases 20 and 26 (headline(arc_align=4))
+                    results["sus_main"]["off"]["launches"],
+                    results["k3_sus"]),
         kernel_line("resident_round[aligned_group, crash-only]",
                     src + "resident_round.cu", mp + "2611",
-                    results["main"]["launches"], results["kernel"]),
+                    results["main"]["off"]["launches"], results["kernel"]),
         kernel_line("resident_round[edges]", src + "resident_round.cu",
-                    mp + "2611", results["main_c"]["launches"],
+                    mp + "2611", results["main_c"]["off"]["launches"],
                     results["k3_edges"]),
         kernel_line("resident_round[arc]", src + "resident_round.cu",
                     mp + "2611", results["scan_launches"]["arc"],
                     results["k3_arc"]),
         kernel_line("resident_round[edge_filter: filter_group]",
                     src + "resident_round.cu", mp + "2611",
-                    results["main_d"]["launches"], results["k3_filter_sus"]),
+                    results["main_d"]["off"]["launches"],
+                    results["k3_filter_sus"]),
         kernel_line("resident_round[edge_filter: filter_rows]",
                     src + "resident_round.cu", mp + "2611",
                     results["scan_launches"]["filter_rows"],

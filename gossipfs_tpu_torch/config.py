@@ -6,13 +6,16 @@ field with the JAX package's.  The port keeps its own copy (it imports
 nothing of the JAX package).  What is dropped is the JAX package's Pallas
 admissibility checks (VMEM budgets, stripe widths): they describe TPU
 layout, not the protocol.  The tiling knobs (``merge_block_*``,
-``merge_slots``, ``rr_*``) are kept so configurations line up, and the
-port's round loop ignores them.  ``elementwise="swar"`` picks the SWAR
-form (ops/swar.py: 4 packed int8 subjects per int32 word) on both loops,
-as in the JAX package: the resident round's SWAR kernel on the lean loop,
-the SWAR tick and the scenario-armed arc epilogue on the separate-pass
-loop; the outputs are the lanes form's bit for bit.  Of ``merge_kernel`` the
-port reads the family: a ``pallas_rr*`` value sends crash-only rounds of
+``merge_slots``, ``rr_rotate``) are kept so configurations line up, and
+the port's round loop ignores them.  ``rr_resident`` picks the lean
+loop's kernel as in the JAX package: the one-pass resident round (K3 form
+(f), each lane read and written once) where it holds the shape, else the
+two-launch form (core/rounds.onepass).  ``elementwise="swar"`` picks the
+SWAR form (ops/swar.py: 4 packed int8 subjects per int32 word) on both
+loops, as in the JAX package: the resident round's SWAR kernel on the
+lean loop, the SWAR tick and the scenario-armed arc epilogue on the
+separate-pass loop; the outputs are the lanes form's bit for bit.  Of
+``merge_kernel`` the port reads the family: a ``pallas_rr*`` value sends crash-only rounds of
 random edges and arcs to the lean loop (core/rounds._lean_ok), and a
 ``pallas_stripe*``/``pallas_rr*`` value sends the separate-pass loop's
 explicit-edge rounds to the stripe kernel K5 (core/rounds.merge_kernel).
@@ -90,7 +93,11 @@ class SimConfig:
                                      # the round's compares and selects on 4
                                      # packed int8 subjects per int32 word
                                      # (needs hb_dtype="int8")
-    rr_resident: str = "auto"        # JAX VMEM residency knob (ignored)
+    rr_resident: str = "auto"        # K3's one-pass form (f) on the lean
+                                     # loop: "auto" wherever it holds the
+                                     # round (ops/merge.onepass_fits), "on"
+                                     # required (ValueError where it does
+                                     # not), "off" the two-launch form
     rr_rotate: str = "auto"          # JAX VMEM layout knob (ignored)
     suspicion: SuspicionParams | None = None  # SWIM suspect/refute
                                      # parameters; None = direct
@@ -185,6 +192,21 @@ class SimConfig:
                 raise ValueError(f"{name} must be a power of two >= {lo}, got {v}")
         if self.merge_slots < 2:
             raise ValueError(f"merge_slots must be >= 2, got {self.merge_slots}")
+        arc = self.topology == "random_arc"
+        if self.rr_resident == "on" and (
+                self.merge_kernel.startswith("pallas_rr")
+                or (arc and self.arc_align > 1)):
+            # the one-pass form required on a lean profile: it must hold
+            # the square round at this N (a shard's width and a scenario's
+            # form are checked where core/rounds routes them)
+            from gossipfs_tpu_torch.ops import merge
+
+            form = merge.kernel_form(self.fanout if arc else None,
+                                     self.arc_align)
+            why = merge.onepass_refusal(self.n, self.n, form,
+                                        self.elementwise)
+            if why is not None:
+                raise ValueError(f"rr_resident='on': {why}")
 
     @property
     def rebase_window(self) -> int:

@@ -12,8 +12,11 @@ Two loops, picked from the configuration and the fault model
   (``SimConfig.packed_rr``/``suspicion_rr``) and plain arcs.  Each round
   is one call of the resident round (ops/merge.resident_round), which
   ticks, builds the gossip view, merges and reduces in place over the
-  packed lanes.  Arc bases and churn draws for the whole horizon come in
-  one batched pass before the loop, explicit edges one round at a time,
+  packed lanes: on the card in K3's one-pass form (f) where
+  ``SimConfig.rr_resident`` and its fit take it (:func:`onepass`), else
+  in the two-launch form.  Arc bases and churn draws for the whole
+  horizon come in one batched pass before the loop, explicit edges one
+  round at a time,
   and the per-round metrics stay on the device until the end.
   :func:`run_lean_packed` is the loop's core, which takes and returns the
   carried per-receiver counts (the detectors thread them between calls).
@@ -289,24 +292,60 @@ def _lean_ok(config: SimConfig, matrix_events: bool, scenario=None,
             and config.topology in ("random", "random_arc"))
 
 
+def _lean_form(config: SimConfig, scenario=None) -> str:
+    """The resident round's merge form on the lean loop
+    (ops/merge.kernel_form): an armed arc run takes an ``edge_filter``
+    form, an armed explicit-edge run the ``edges`` form on rewritten
+    edges; ``elementwise="swar"`` adds ``/swar``."""
+    arc = config.topology == "random_arc"
+    return merge.kernel_form(config.fanout if arc else None,
+                             config.arc_align, scenario is not None and arc,
+                             config.elementwise)
+
+
+def onepass_refusal(config: SimConfig, scenario=None,
+                    nloc: int | None = None) -> str | None:
+    """Why K3's one-pass form (f) cannot run the lean rounds of ``config``
+    over ``nloc`` subject columns (None: all N) under ``scenario``: None
+    where it can, and where the configuration takes no lean round."""
+    if not _lean_ok(config, False, scenario, nloc):
+        return None
+    form = _lean_form(config, scenario).split("/")[0]
+    cols = config.n if nloc is None else nloc
+    return merge.onepass_refusal(config.n, cols, form, config.elementwise)
+
+
+def onepass(config: SimConfig, scenario=None,
+            nloc: int | None = None) -> bool:
+    """Whether the lean loop runs its rounds of ``config`` on K3's one-pass
+    form (f) (the JAX package's ``resident`` gate,
+    gossipfs_tpu/core/rounds.py:1848):
+    ``rr_resident="auto"`` wherever ops/merge.onepass_fits holds the
+    shape, ``"on"`` always (``ValueError`` where it does not: no round
+    routed to (f) quietly runs the two-launch form), ``"off"`` never."""
+    if config.rr_resident == "off":
+        return False
+    why = onepass_refusal(config, scenario, nloc)
+    if why is not None and config.rr_resident == "on":
+        raise ValueError(f"rr_resident='on': {why}")
+    return why is None
+
+
 def route(config: SimConfig, matrix_events: bool = False,
           scenario=None, nloc: int | None = None) -> tuple[str, str]:
     """The loop ``run_rounds`` takes and the kernel it launches on the
     card, from the configuration, whether a ``scenario`` is armed and the
     shard's column count ``nloc`` (None: one device, all N):
     ``("lean", form)`` with the resident round's merge form
-    (ops/merge.kernel_form; an armed arc run takes an ``edge_filter``
-    form, an armed explicit-edge run the ``edges`` form on rewritten
-    edges; ``elementwise="swar"`` its SWAR form, ``aligned_group/swar``),
-    or ``("separate", name)`` with the merge of
-    :func:`merge_kernel`."""
-    armed = scenario is not None
+    (:func:`_lean_form`), ``/onepass`` appended where :func:`onepass`
+    takes K3's one-pass form (``aligned_group/swar/onepass``), or
+    ``("separate", name)`` with the merge of :func:`merge_kernel`."""
     if _lean_ok(config, matrix_events, scenario, nloc):
-        arc = config.topology == "random_arc"
-        return "lean", merge.kernel_form(config.fanout if arc else None,
-                                         config.arc_align, armed and arc,
-                                         config.elementwise)
-    return "separate", merge_kernel(config, armed)
+        form = _lean_form(config, scenario)
+        if onepass(config, scenario, nloc):
+            form += "/onepass"
+        return "lean", form
+    return "separate", merge_kernel(config, scenario is not None)
 
 
 def run_rounds(state: SimState, config: SimConfig, num_rounds: int,
@@ -481,6 +520,8 @@ def run_lean_packed(hb, asl, alive0, hb_base0, round0: int,
                             edge_filter=scenario is not None))
     # _lean_ok's C % 4 == 0 and int8 lanes are what the SWAR form packs
     senders_kw.update(elementwise=config.elementwise, col_offset=ctx.offset)
+    if not plain:
+        senders_kw.update(onepass=onepass(config, scenario, ctx.nloc))
     per_round = []
     for r in range(num_rounds):
         dead = None

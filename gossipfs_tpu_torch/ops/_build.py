@@ -35,6 +35,10 @@ SIGNATURES = {
     "resident_round": {
         "rr_round": (_I, [_P] * 8 + [_I] * 14 + [_P]),
     },
+    "rr_onepass": {
+        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
+        "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
+    },
     "fanout_max": {
         "fx_fanout_max": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     },

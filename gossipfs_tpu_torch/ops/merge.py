@@ -65,6 +65,16 @@ per-receiver counts (``recv_cnt``, ``suspect_cnt``) are partial, over the
 shard's columns: summed across the shards they are the square round's.
 The square round is ``col_offset=0``, C = N.
 
+``onepass=True`` runs K3's one-pass form (f) (the JAX kernel's
+``resident=True``): ``csrc/rr_onepass.cu``, one kernel launch a round
+(after a memset of the per-receiver counts it adds into) in which a
+thread-block cluster of ``ONEPASS_CTAS`` CTAs parks a ``ONEPASS_C``-column
+stripe of the ticked lanes in shared memory and merges from there, so each
+packed lane crosses HBM once each way.  It takes the shapes
+:func:`onepass_fits` admits (N = 16,384 square and its column blocks; not
+N = 65,536); the lean loop routes to it under ``SimConfig.rr_resident``
+(core/rounds.onepass).  Its outputs are the two-launch form's bit for bit.
+
 ``elementwise="swar"`` is the SWAR form (the JAX package's
 ``_rr_tick_view_swar``/``_rr_merge_swar``, config ``elementwise="swar"``):
 the same round on 4 packed int8 subjects per int32 word (ops/swar.py),
@@ -77,6 +87,7 @@ bit; the kernel's twin is ``csrc/rr_swar.cuh``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -103,6 +114,25 @@ FORMS = ("aligned_group", "edges", "arc", "filter_group", "filter_rows")
 ELEMENTWISE = ("lanes", "swar")
 # the SWAR form of each merge form, by its launch-count name
 SWAR_FORMS = tuple(f + "/swar" for f in FORMS)
+# the one-pass form (f) of each, lanes and SWAR (csrc/rr_onepass.cu)
+ONEPASS_FORMS = tuple(f + "/onepass" for f in FORMS + SWAR_FORMS)
+
+# The one-pass kernel's geometry: a cluster of ONEPASS_CTAS CTAs owns a
+# stripe of ONEPASS_C subject columns over all N rows, each CTA parking its
+# N / ONEPASS_CTAS rows of the ticked lanes and an [N / 8, ONEPASS_C] view
+# (its rows' slice, or the whole group-max table) in shared memory, at most
+# ONEPASS_SMEM bytes a CTA (the H100's 227 KB a block may use).
+# csrc/rr_onepass.cuh smem_bytes is the same sum.
+ONEPASS_C = 32
+ONEPASS_CTAS = 8
+ONEPASS_SMEM = 232_448
+ONEPASS_COUNT_BYTES = 6 * ONEPASS_C * 4      # a CTA's count block
+# the one-pass kernel's optional timeline: globaltimer stamps a CTA and
+# stripe (start, step 1 done, view ready, step 2 done, end)
+ONEPASS_STAMPS = 5
+# the merge forms that gather other CTAs' sender rows (the others gather
+# 8-row group maxes from a whole table each CTA holds)
+FULL_VIEW_FORMS = ("edges", "arc", "filter_rows")
 
 
 def kernel_form(fanout: int | None, arc_align: int,
@@ -133,8 +163,8 @@ LAUNCH_COUNTS = {"resident_round": 0, "fused_merge_update": 0,
                  "arc_merge_update": 0, "stripe_merge_update": 0,
                  "fanout_max_merge": 0}
 # the resident round's launches again, by the merge form launched (the
-# SWAR forms under their own names)
-FORM_LAUNCHES = dict.fromkeys(FORMS + SWAR_FORMS, 0)
+# SWAR and one-pass forms under their own names)
+FORM_LAUNCHES = dict.fromkeys(FORMS + SWAR_FORMS + ONEPASS_FORMS, 0)
 _launch_events: list | None = None
 
 
@@ -443,6 +473,51 @@ def arc_group_window_max(view: torch.Tensor, edges2: torch.Tensor,
     return masked_group_window_max(gm, edges2, fanout // align, align)
 
 
+def onepass_smem(n: int, form: str) -> int:
+    """Shared memory a CTA of the one-pass kernel needs for ``n`` rows in
+    merge ``form``: both ticked lanes of its ``n / ONEPASS_CTAS`` rows over
+    the stripe, its view (its rows' slice in the full-view forms, the
+    stripe's whole 8-row group-max table in the aligned ones) and its count
+    block."""
+    rows = n // ONEPASS_CTAS
+    view = rows if form in FULL_VIEW_FORMS else n // KERNEL_ALIGN
+    return (2 * rows + view) * ONEPASS_C + ONEPASS_COUNT_BYTES
+
+
+def onepass_fits(n: int, c: int, form: str,
+                 elementwise: str = "lanes") -> bool:
+    """Whether K3's one-pass form (f) runs a round of ``n`` rows over ``c``
+    subject columns (``c == n`` square, or a column block) in merge
+    ``form`` (one of :data:`FORMS`), either ``elementwise`` form: the
+    cluster's row split and the stripe width must divide the shape, and a
+    CTA's shared memory (:func:`onepass_smem`) must fit the card's: up to
+    N = 19,264 (197,376 B a CTA at N = 16,384), so N = 65,536 takes the
+    two-launch form."""
+    if form not in FORMS:
+        raise ValueError(f"onepass_fits: form must be one of {FORMS}, got "
+                         f"{form!r}")
+    if elementwise not in ELEMENTWISE:
+        raise ValueError(f"onepass_fits: elementwise must be one of "
+                         f"{ELEMENTWISE}, got {elementwise!r}")
+    return (n % (ONEPASS_CTAS * KERNEL_ALIGN) == 0 and 0 < c <= n
+            and c % ONEPASS_C == 0
+            and onepass_smem(n, form) <= ONEPASS_SMEM)
+
+
+def onepass_refusal(n: int, c: int, form: str,
+                    elementwise: str = "lanes") -> str | None:
+    """Why K3's one-pass form (f) cannot run a round of ``n`` rows over
+    ``c`` subject columns in merge ``form``: None where
+    :func:`onepass_fits` holds the shape, else the limits it breaks."""
+    if onepass_fits(n, c, form, elementwise):
+        return None
+    return (f"the one-pass resident round does not hold [{n}, {c}] in the "
+            f"{form} form (ops/merge.onepass_fits: N % "
+            f"{ONEPASS_CTAS * KERNEL_ALIGN} == 0, C % {ONEPASS_C} == 0, "
+            f"{onepass_smem(n, form)} B of shared memory a CTA against "
+            f"{ONEPASS_SMEM} B)")
+
+
 def _row_chunk(n: int, c: int, align: int) -> int:
     """Rows per plain-version chunk of ``[n, c]`` lanes: ~16M entries,
     whole sender groups."""
@@ -722,21 +797,39 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                    t_fail: int, t_cooldown: int, age_clamp: int = AGE_CLAMP,
                    suspect: bool = False, t_suspect: int = 0,
                    lh_multiplier: int = 0, edge_filter: bool = False,
-                   elementwise: str = "lanes", col_offset: int = 0):
+                   elementwise: str = "lanes", col_offset: int = 0,
+                   onepass: bool = False,
+                   timeline: torch.Tensor | None = None):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
     senders and ``elementwise`` ask for, over ``[N, C]`` lanes from global
-    subject ``col_offset``; raises what it cannot run)."""
+    subject ``col_offset``; raises what it cannot run).  ``onepass`` runs
+    K3's one-pass form (f), ``csrc/rr_onepass.cu``, counted under the
+    form's ``/onepass`` name; it raises ``ValueError`` where
+    :func:`onepass_fits` refuses the shape, on any device.  ``timeline`` (one-pass, CUDA only):
+    an int64 ``[C / 32, ONEPASS_CTAS, ONEPASS_STAMPS]`` tensor each CTA
+    writes its stripe's step times into (:func:`onepass_timeline_split`)."""
     _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
                   edge_filter, col_offset)
     n, c = hb.shape
     sw = _swar(elementwise, c)
+    form = kernel_form(fanout, arc_align, edge_filter, elementwise)
+    base_form = form.split("/")[0]
+    if timeline is not None and not onepass:
+        raise ValueError("resident_round: the timeline is a one-pass option "
+                         "(onepass=True)")
+    why = onepass_refusal(n, c, base_form, elementwise) if onepass else None
+    if why is not None:
+        raise ValueError(f"resident_round: {why}")
     kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
               t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
               t_suspect=t_suspect, lh_multiplier=lh_multiplier,
               edge_filter=edge_filter, elementwise=elementwise,
               col_offset=col_offset)
     if hb.device.type == "cpu":
+        if timeline is not None:
+            raise ValueError("resident_round: the timeline records the CUDA "
+                             "kernel's steps; the plain version has none")
         return resident_round_plain(hb, asl, flags, vecs, senders, **kw)
     if hb.device.type != "cuda":
         raise ValueError(f"resident_round: no kernel for {hb.device}")
@@ -749,10 +842,13 @@ def resident_round(hb, asl, flags, vecs, senders, *,
             "such a shape through the separate-pass round")
     from gossipfs_tpu_torch.ops import _build
 
-    form = kernel_form(fanout, arc_align, edge_filter, elementwise)
-    base_form = form.split("/")[0]
     width = senders.shape[1] if fanout is None else fanout
     lh = int(suspect and lh_multiplier > 0)
+    if onepass:
+        return _launch_onepass(hb, asl, flags, vecs, senders, width,
+                               base_form, arc_align, t_fail, t_cooldown,
+                               age_clamp, suspect, lh, thr, thr_hi, sw,
+                               col_offset, form, timeline)
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
         g_rows = (n // KERNEL_ALIGN
@@ -773,3 +869,68 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                 age_clamp, int(suspect), lh, thr, thr_hi, int(sw),
                 stream.cuda_stream))
     return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
+
+
+def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
+                    base_form: str, arc_align: int, t_fail: int,
+                    t_cooldown: int, age_clamp: int, suspect: bool, lh: int,
+                    thr: int, thr_hi: int, sw: bool, col_offset: int,
+                    form: str, timeline):
+    """Launch ``csrc/rr_onepass.cu`` for :func:`resident_round`."""
+    from gossipfs_tpu_torch.ops import _build
+
+    n, c = hb.shape
+    shape = (c // ONEPASS_C, ONEPASS_CTAS, ONEPASS_STAMPS)
+    if timeline is not None and (
+            timeline.dtype != torch.int64 or tuple(timeline.shape) != shape
+            or timeline.device != hb.device
+            or not timeline.is_contiguous()):
+        raise ValueError(f"resident_round: timeline must be a contiguous "
+                         f"int64 {shape} tensor on {hb.device}")
+    lib = _build.load("rr_onepass")
+    dev = hb.device
+    with torch.cuda.device(dev):
+        subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,
+                           device=dev)
+        recv = torch.empty((1 + lh, n), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        with counted_launch("resident_round", stream, form + "/onepass"):
+            check_rc("rr_onepass", lib.rr_onepass(
+                hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
+                vecs.data_ptr(), senders.data_ptr(), subj.data_ptr(),
+                recv.data_ptr(), None if timeline is None else timeline.data_ptr(),
+                n, c, col_offset, width, FORMS.index(base_form), arc_align,
+                t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
+                int(sw), stream.cuda_stream))
+    return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
+
+
+def onepass_timeline_split(timeline: torch.Tensor) -> dict:
+    """Median microseconds a stripe spends in each step of the one-pass
+    kernel, from a ``timeline`` :func:`resident_round` filled (stamps of
+    each stripe's CTA 0): ``step1`` (read, tick, park, view), ``sync``
+    (the cluster barrier), ``step2`` (gather, merge, write), ``tail``
+    (the counts' reduction and the last barrier) and ``stripe`` (the
+    whole)."""
+    t = timeline[:, 0, :].double().cpu() / 1e3
+    med = (t[:, 1:] - t[:, :-1]).median(dim=0).values.tolist()
+    return dict(step1=med[0], sync=med[1], step2=med[2], tail=med[3],
+                stripe=float((t[:, -1] - t[:, 0]).median()))
+
+
+def onepass_clusters(n: int, c: int, form: str, *, fanout: int,
+                     arc_align: int = 1, suspect: bool = False,
+                     lh: bool = False, elementwise: str = "lanes",
+                     col_offset: int = 0) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the one-pass instantiation a
+    round of this shape and merge ``form`` launches (on the current
+    card): how many stripe clusters run at once.  Launches nothing."""
+    from gossipfs_tpu_torch.ops import _build
+
+    out = ctypes.c_int(0)
+    check_rc("rr_onepass_clusters", _build.load("rr_onepass")
+             .rr_onepass_clusters(n, c, col_offset, fanout,
+                                  FORMS.index(form), arc_align, int(suspect),
+                                  int(lh), int(elementwise == "swar"),
+                                  ctypes.byref(out)))
+    return out.value

@@ -1,0 +1,306 @@
+"""Host build of K3's one-pass form (f): the stripe walk of csrc/rr_onepass.cu.
+
+The kernel's per-stripe step 1 (tick, park, view slice, detection counts),
+step 2 (gather through the cluster, epilogue on the parked lanes, counts)
+and the cluster's final reduction live in ``__host__ __device__`` functions
+of ``csrc/rr_onepass.cuh``, which g++ compiles here: the very code the card
+runs.  The harness replays a round with the thread-block cluster replaced
+by ``kCtas`` host arrays of parked lanes, view slices and count blocks:
+step 1 for every CTA and thread, then step 2, then the reduction, stripe
+after stripe, with the kernel's thread count.  Every merge form, lanes and
+SWAR, crash-only, suspicion and suspicion + Lifeguard, the square round and
+a column block from a global offset, against ``resident_round_plain``;
+exact equality throughout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gossipfs_tpu_torch.ops import merge
+
+# one intra-op thread: tier-1 runs several test workers side by side,
+# some of them wall-clock socket engines
+torch.set_num_threads(1)
+
+CSRC = Path(__file__).resolve().parent.parent / "gossipfs_tpu_torch" / "csrc"
+# rr_onepass.cu's threads a CTA, by elementwise form
+THREADS = {"lanes": 512, "swar": 768}
+
+HARNESS = r"""
+#include <cstdint>
+#include <vector>
+#include "rr_onepass.cuh"
+
+using namespace onepass;
+
+struct TickSink {
+  int32_t* cnt;
+  void det(int c, int count, int first_row) {
+    cnt[kDet * kC + c] += count;
+    if (first_row < cnt[kFobs * kC + c]) cnt[kFobs * kC + c] = first_row;
+  }
+  void entered(int c, int count) { cnt[kEntered * kC + c] += count; }
+};
+
+struct MergeSink {
+  int32_t* cnt;
+  int32_t* recv;   // [n] recv_cnt
+  int32_t* held;   // [n] suspect_cnt, or null
+  void row(int r, bool valid, int listed, int h) {
+    if (!valid) return;
+    recv[r] += listed;
+    if (held) held[r] += h;
+  }
+  void subj(int c, int member, int refuted, int h) {
+    cnt[kMember * kC + c] += member;
+    cnt[kRefuted * kC + c] += refuted;
+    cnt[kHeld * kC + c] += h;
+  }
+};
+
+template <bool kSus, int kForm, bool kSwar>
+static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
+                    int8_t* hb, int8_t* asl, const int8_t* flags,
+                    const int8_t* vecs, const int32_t* senders,
+                    int32_t* subj, int32_t* recv) {
+  constexpr bool kFull = full_view(kForm);
+  const int rows = n / kCtas;
+  const size_t vrows = view_rows(n, kFull);
+  const int blk = kStatsMax * kC;
+  std::vector<int8_t> ph((size_t)kCtas * rows * kC),
+      pa((size_t)kCtas * rows * kC), pv(kCtas * vrows * kC);
+  std::vector<int32_t> cnt((size_t)kCtas * blk);
+  for (int i = 0; i < (lh ? 2 : 1) * n; ++i) recv[i] = 0;
+  auto park = [&](int q) {
+    return Park{ph.data() + (size_t)q * rows * kC,
+                pa.data() + (size_t)q * rows * kC,
+                pv.data() + q * vrows * kC};
+  };
+  auto view_of = [&](int q) { return pv.data() + q * vrows * kC; };
+  for (int stripe = 0; stripe < nc / kC; ++stripe) {
+    const Stripe sp{n, nc, stripe * kC, col_offset + stripe * kC};
+    for (int i = 0; i < kCtas * blk; ++i)
+      cnt[i] = (i % blk) / kC == kFobs ? n : 0;
+    // a group max goes into every CTA's table
+    auto put_group = [&](int g, int w, const uint32_t (&enc)[kAlign]) {
+      uint32_t v = swar::H;
+      for (int r = 0; r < kAlign; ++r) v = swar::maxs(v, enc[r]);
+      for (int q = 0; q < kCtas; ++q)
+        swar::store(view_of(q) + (size_t)g * kC + 4 * w, v);
+    };
+    for (int q = 0; q < kCtas; ++q) {
+      TickSink ts{cnt.data() + (size_t)q * blk};
+      for (int t = 0; t < nt; ++t)
+        step1<kSus, kFull, mutes(kForm), kSwar>(hb, asl, flags, vecs, sp, kn,
+                                                park(q), q, rows / kAlign, t,
+                                                nt, ts, put_group);
+    }
+    // (the cluster synchronises)
+    for (int q = 0; q < kCtas; ++q) {
+      auto gather = [&](const Meta<kForm>& m, int row, int w) -> uint32_t {
+        if constexpr (kFull) {
+          return gather_rows<kForm>(flags, senders, row, n, kn, [&](int s) {
+            const Where h = row_home(s);
+            return swar::load(view_of(h.cta) + (size_t)h.local * kC + 4 * w);
+          });
+        } else {
+          return gather_groups<kForm>(m, n, kn, [&](int g) {
+            return swar::load(view_of(q) + (size_t)g * kC + 4 * w);
+          });
+        }
+      };
+      MergeSink ms{cnt.data() + (size_t)q * blk, recv,
+                   lh ? recv + n : nullptr};
+      for (int t = 0; t < nt; ++t)
+        step2<kSus, kForm, kSwar>(hb, asl, flags, vecs, senders, sp, kn,
+                                  park(q), q, rows, t, nt, gather, ms);
+    }
+    for (int s = 0; s < (kSus ? 6 : 3); ++s)
+      for (int c = 0; c < kC; ++c)
+        subj[(size_t)s * nc + sp.col0 + c] = finish(
+            s, c, [&](int q) { return cnt.data() + (size_t)q * blk; });
+  }
+}
+
+template <bool kSus, bool kSwar>
+static void round_form(int form, int n, int nc, int col_offset, Knobs kn,
+                       int lh, int nt, int8_t* hb, int8_t* asl,
+                       const int8_t* flags, const int8_t* vecs,
+                       const int32_t* senders, int32_t* subj, int32_t* recv) {
+#define ARGS n, nc, col_offset, kn, lh, nt, hb, asl, flags, vecs, senders, \
+      subj, recv
+  switch (form) {
+    case kFormGroup: return round_t<kSus, kFormGroup, kSwar>(ARGS);
+    case kFormEdges: return round_t<kSus, kFormEdges, kSwar>(ARGS);
+    case kFormArc: return round_t<kSus, kFormArc, kSwar>(ARGS);
+    case kFormFilterGroup:
+      return round_t<kSus, kFormFilterGroup, kSwar>(ARGS);
+    default: return round_t<kSus, kFormFilterRows, kSwar>(ARGS);
+  }
+#undef ARGS
+}
+
+// One round of the one-pass form over [n, nc] lanes from global column
+// col_offset.  subj [3 or 6, nc]; recv [1 or 2, n].
+extern "C" void host_onepass(int n, int nc, int col_offset, int form,
+                             int width, int group_shift, int suspect, int lh,
+                             int swar_form, int nt, int8_t* hb, int8_t* asl,
+                             const int8_t* flags, const int8_t* vecs,
+                             const int32_t* senders, int t_fail,
+                             int t_cooldown, int confirm, int confirm_hi,
+                             int age_clamp, int32_t* subj, int32_t* recv) {
+  const Knobs kn{t_fail, t_cooldown, confirm, confirm_hi, age_clamp, width,
+                 group_shift};
+#define ARGS form, n, nc, col_offset, kn, lh, nt, hb, asl, flags, vecs, \
+      senders, subj, recv
+  if (suspect && swar_form) round_form<true, true>(ARGS);
+  else if (suspect) round_form<true, false>(ARGS);
+  else if (swar_form) round_form<false, true>(ARGS);
+  else round_form<false, false>(ARGS);
+#undef ARGS
+}
+
+extern "C" long host_smem_bytes(long n, int full) {
+  return smem_bytes(n, full != 0);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host harness")
+    d = tmp_path_factory.mktemp("rr_onepass")
+    src, so = d / "harness.cpp", d / "libharness.so"
+    src.write_text(HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                    f"-I{CSRC}", "-o", str(so), str(src)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.host_smem_bytes.restype = ctypes.c_long
+    lib.host_smem_bytes.argtypes = [ctypes.c_long, ctypes.c_int]
+    return lib
+
+
+def call(fn, *args):
+    fn(*[a.ctypes.data_as(ctypes.c_void_p) if isinstance(a, np.ndarray)
+         else ctypes.c_int(a) for a in args])
+
+
+def round_inputs(n: int, c: int, form: str, seed: int, sus: bool,
+                 fanout: int = 16):
+    """Pre-tick ``[n, c]`` lanes over every status (SUSPECT ages on both
+    sides of the confirm ages under ``sus``), ages to the clamp, floor
+    sentinels; flags over every bit; deep shifts; the form's senders."""
+    rng = np.random.default_rng(seed)
+    hb = rng.integers(-128, 128, (n, c), dtype=np.int8)
+    hb[rng.random((n, c)) < 0.05] = -128
+    st = rng.integers(0, 4 if sus else 3, (n, c))
+    age = np.where(st == 3, rng.integers(2, 14, (n, c)),
+                   rng.integers(0, 64, (n, c)))
+    asl = ((age << 2 | st) - 128).astype(np.int8)
+    flags = rng.integers(0, 32, n).astype(np.int8)
+    sa = rng.integers(-260, 60, c).astype(np.int32)
+    sb = np.where(rng.random(c) < 0.5, sa, rng.integers(-260, 60, c))
+    g = rng.integers(-200, 60, c).astype(np.int32)
+    t = torch.from_numpy
+    vecs = merge.threshold_stack(t(sa), t(sb.astype(np.int32)), t(g),
+                                 126).numpy()
+    if form == "edges":
+        senders, kw = rng.integers(0, n, (n, fanout - 7)), {}
+    elif form == "arc":
+        senders, kw = rng.integers(0, n, n), dict(fanout=fanout, arc_align=1)
+    elif form == "aligned_group":
+        senders = rng.integers(0, n // 8, n) * 8
+        kw = dict(fanout=16, arc_align=8)
+    else:
+        align = 8 if form == "filter_group" else 4
+        mask = rng.integers(0, 1 << (16 // align), n)
+        mask[:6] = 0
+        senders = np.stack([rng.integers(0, n // align, n) * align, mask], 1)
+        kw = dict(fanout=16, arc_align=align, edge_filter=True)
+    return hb, asl, flags, vecs, senders.astype(np.int32), kw
+
+
+MODES = {"crash-only": dict(t_fail=5),
+         "suspicion": dict(t_fail=3, suspect=True, t_suspect=2),
+         "suspicion+lh": dict(t_fail=3, suspect=True, t_suspect=2,
+                              lh_multiplier=3)}
+# (n, columns, col_offset): the square round, and a column block whose
+# columns hold part of the diagonal
+SHAPES = {"square": (256, 256, 0), "block": (512, 128, 256)}
+
+
+def host_round(lib, form, mode, elementwise, shape, seed, fanout=16):
+    n, c, off = SHAPES[shape]
+    sus = mode != "crash-only"
+    hb, asl, flags, vecs, senders, fkw = round_inputs(n, c, form, seed, sus,
+                                                      fanout)
+    kw = dict(fkw, t_cooldown=12, **MODES[mode])
+    t = torch.from_numpy
+    want = merge.resident_round_plain(
+        t(hb.copy()), t(asl.copy()), t(flags), t(vecs), t(senders),
+        elementwise=elementwise, col_offset=off, **kw)
+    width = senders.shape[1] if form == "edges" else fanout
+    if form in ("aligned_group", "filter_group"):
+        width //= 8
+    shift = 2 if form == "filter_rows" else 0
+    lh = int("lh" in mode)
+    thr, thr_hi = merge._sus_thresholds(kw["t_fail"], sus,
+                                        kw.get("t_suspect", 0),
+                                        kw.get("lh_multiplier", 0), 63)
+    h, a = hb.copy(), asl.copy()
+    subj = np.empty((6 if sus else 3, c), np.int32)
+    recv = np.empty((1 + lh, n), np.int32)
+    call(lib.host_onepass, n, c, off, merge.FORMS.index(form), width, shift,
+         int(sus), lh, int(elementwise == "swar"), THREADS[elementwise], h, a,
+         flags, vecs,
+         senders, kw["t_fail"], 12, thr, thr_hi, 63, subj, recv)
+    got = [h, a, *subj[:3], recv[0], *subj[3:], *recv[1:]]
+    return got, [w.numpy() for w in want]
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("form", merge.FORMS)
+def test_stripe_walk_matches_plain(lib, form, mode, elementwise, shape):
+    got, want = host_round(lib, form, mode, elementwise, shape, 11)
+    assert len(got) == len(want)
+    names = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
+             "entered", "refuted", "held", "suspect_cnt")
+    for name, x, y in zip(names, got, want):
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    assert want[3].sum() > 0 and (want[4] < SHAPES[shape][0]).any()
+    if mode != "crash-only":
+        assert want[6].sum() > 0 and want[7].sum() > 0
+
+
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("form", ["edges", "arc"])
+def test_stripe_walk_past_one_gather_chunk(lib, form, elementwise):
+    """31 in-edges or a 38-row arc: the gather's second and third chunks
+    of sender slots (the first chunk's in-edges come loaded a row ahead,
+    the later ones are read in the gather)."""
+    got, want = host_round(lib, form, "suspicion", elementwise, "square", 3,
+                           fanout=38)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("form", merge.FORMS)
+@pytest.mark.parametrize("n", [64, 16_384, 19_264, 19_328, 65_536])
+def test_smem_bytes_agree_with_onepass_fits(lib, n, form):
+    full = int(form in merge.FULL_VIEW_FORMS)
+    assert lib.host_smem_bytes(n, full) == merge.onepass_smem(n, form)
+    assert (merge.onepass_smem(n, form) <= merge.ONEPASS_SMEM) == (
+        n <= 19_264)

@@ -36,8 +36,8 @@ torch.set_num_threads(1)
 
 N, BLOCK_C, ROUNDS = 1024, 512, 20
 PROFILES = {
-    "packed_rr": ({}, "edges"),
-    "plain arcs": (dict(topology="random_arc", fanout=16), "arc"),
+    "packed_rr": ({}, "edges/onepass"),
+    "plain arcs": (dict(topology="random_arc", fanout=16), "arc/onepass"),
 }
 
 

@@ -46,7 +46,7 @@ def test_suspicion_rr_lean_loop_matches_jax_rr_scan_interpret(lh):
     tcfg = SimConfig.suspicion_rr(N, BLOCK_C,
                                   suspicion=SuspicionParams(**LH[lh]))
     assert _use_rr(jcfg, N, N)
-    assert route(tcfg) == ("lean", "edges")
+    assert route(tcfg) == ("lean", "edges/onepass")
     js, jc, jm = jax_run_rounds(jax_init_state(jcfg), jcfg, ROUNDS,
                                 jax.random.PRNGKey(13), crash_rate=0.01)
     ts, tc, tm = run_rounds(init_state(tcfg, device="cpu"), tcfg, ROUNDS,

@@ -158,17 +158,19 @@ def test_lean_core_threads_carried_counts():
 
 
 ROUTES = [
-    (SimConfig.packed_rr(16_384), False, ("lean", "edges")),
-    (SimConfig.suspicion_rr(16_384), False, ("lean", "edges")),
+    (SimConfig.packed_rr(16_384), False, ("lean", "edges/onepass")),
+    (SimConfig.suspicion_rr(16_384), False, ("lean", "edges/onepass")),
     (SimConfig.packed_rr(16_384), True, ("separate", "stripe_merge_update")),
+    # past the one-pass form's shared memory: the two-launch form
     (SimConfig.packed_rr(49_152), False, ("lean", "edges")),
-    (SimConfig.headline(16_384), False, ("lean", "aligned_group")),
+    (SimConfig.headline(16_384), False, ("lean", "aligned_group/onepass")),
     # arc_align != 8: the kernel's plain-arc form (F consecutive rows)
-    (SimConfig.headline(16_384, arc_align=4), False, ("lean", "arc")),
-    (SimConfig.headline(16_384, arc_align=16), False, ("lean", "arc")),
-    (SimConfig.headline(16_384, arc_align=2), False, ("lean", "arc")),
+    (SimConfig.headline(16_384, arc_align=4), False, ("lean", "arc/onepass")),
+    (SimConfig.headline(16_384, arc_align=16), False,
+     ("lean", "arc/onepass")),
+    (SimConfig.headline(16_384, arc_align=2), False, ("lean", "arc/onepass")),
     (SimConfig.packed_rr(16_384, topology="random_arc", fanout=16), False,
-     ("lean", "arc")),
+     ("lean", "arc/onepass")),
     (SimConfig.headline(16_384), True, ("separate", "arc_merge_update")),
     # off the rr gate: other merge kernels, the fused-tick knob off
     (SimConfig.packed_rr(16_384, merge_kernel="pallas"), False,
@@ -194,9 +196,12 @@ def test_route_rule(cfg, matrix_events, want):
     got = R.route(cfg, matrix_events)
     assert got == want
     if got[0] == "lean":
-        # the CUDA resident round takes every lean configuration
-        assert cfg.n % merge.KERNEL_VEC == 0 and got[1] in merge.FORMS
-        if got[1] == "aligned_group":
+        # the CUDA resident round takes every lean configuration, the
+        # one-pass form every one that it holds
+        form = got[1].removesuffix("/onepass")
+        assert cfg.n % merge.KERNEL_VEC == 0 and form in merge.FORMS
+        assert merge.onepass_fits(cfg.n, cfg.n, form) == (form != got[1])
+        if form == "aligned_group":
             assert cfg.n % merge.KERNEL_ALIGN == 0
             assert cfg.fanout % merge.KERNEL_ALIGN == 0
 

@@ -124,7 +124,7 @@ def test_suspicion_rr_shape_against_pallas_interpret():
     n = 512
     jcfg, tcfg = configs(SUS, KERNEL, n=n, merge_block_c=512, **RR)
     tcfg = dataclasses.replace(tcfg, merge_kernel="pallas_rr")
-    assert R.route(tcfg, scenario=object()) == ("lean", "edges")
+    assert R.route(tcfg, scenario=object()) == ("lean", "edges/onepass")
     (_, _, jm), _ = run_pair(jcfg, tcfg, 14, 3, loss=True, crash_rate=0.02,
                              crash_only_events=True)
     assert int(np.asarray(jm.suspects_entered).sum()) > 0
@@ -141,7 +141,7 @@ def test_aligned_arcs_edge_filter_against_pallas_interpret(sus, align):
     assert JR._rr_scan_eligible(jcfg, n, n, False, JR.LOCAL_CTX,
                                 scenario=object())
     form = "filter_group" if align == 8 else "filter_rows"
-    assert R.route(tcfg, scenario=object()) == ("lean", form)
+    assert R.route(tcfg, scenario=object()) == ("lean", form + "/onepass")
     (_, _, jm), _ = run_pair(jcfg, tcfg, 16, 3, arcs=True, crash_rate=0.02,
                              crash_only_events=True)
     assert int(np.asarray(jm.suspects_entered).sum()) > 0

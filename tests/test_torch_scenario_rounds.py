@@ -152,7 +152,7 @@ def test_suspicion_rr_shape_lean_filtered_edges():
     n = 512
     jcfg, tcfg = configs(SUS, n=n, merge_block_c=512, **RR)
     tcfg = dataclasses.replace(tcfg, merge_kernel="pallas_rr")
-    assert R.route(tcfg, scenario=object()) == ("lean", "edges")
+    assert R.route(tcfg, scenario=object()) == ("lean", "edges/onepass")
     (_, _, jm), _ = run_pair(jcfg, tcfg, 14, 3, loss=True, crash_rate=0.02,
                              crash_only_events=True)
     assert int(np.asarray(jm.suspects_entered).sum()) > 0
@@ -185,7 +185,7 @@ def test_aligned_arcs_lean_edge_filter(sus, align):
     jcfg, tcfg = configs(sus, n=n, arc_align=align, merge_block_c=512,
                          **ARC)
     form = "filter_group" if align == 8 else "filter_rows"
-    assert R.route(tcfg, scenario=object()) == ("lean", form)
+    assert R.route(tcfg, scenario=object()) == ("lean", form + "/onepass")
     (_, _, jm), _ = run_pair(jcfg, tcfg, 16, 3, arcs=True, crash_rate=0.02,
                              crash_only_events=True)
     if sus is not None:
@@ -297,18 +297,19 @@ def test_gossip_round_scenario_matches_jax(topology):
 
 def test_route_and_gates_under_a_scenario():
     head = SimConfig.headline(1024)
-    assert R.route(head) == ("lean", "aligned_group")
-    assert R.route(head, scenario=object()) == ("lean", "filter_group")
+    assert R.route(head) == ("lean", "aligned_group/onepass")
+    assert R.route(head, scenario=object()) == ("lean",
+                                                "filter_group/onepass")
     assert R.route(SimConfig.headline(1024, arc_align=4),
-                   scenario=object()) == ("lean", "filter_rows")
+                   scenario=object()) == ("lean", "filter_rows/onepass")
     assert R.route(SimConfig.headline(1024, arc_align=16),
-                   scenario=object()) == ("lean", "filter_rows")
+                   scenario=object()) == ("lean", "filter_rows/onepass")
     rr = SimConfig.suspicion_rr(1024)
-    assert R.route(rr, scenario=object()) == ("lean", "edges")
+    assert R.route(rr, scenario=object()) == ("lean", "edges/onepass")
     # more than 31 window groups: no edge_filter form, and run_rounds
     # rejects the scenario as the reference does
     wide = SimConfig.headline(1024, fanout=128, arc_align=4)
-    assert R.route(wide) == ("lean", "arc")
+    assert R.route(wide) == ("lean", "arc/onepass")
     assert R.route(wide, scenario=object()) == ("separate",
                                                 "arc_group_merge_update")
     tsc = ttensor.compile_tensor(tscn.split_halves(1024, 2, 6), device="cpu")

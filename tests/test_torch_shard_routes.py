@@ -48,26 +48,28 @@ def split(n: int):
 # name -> (config, matrix events, scenario, {ranks: route})
 ROUTES = {
     "headline": (SimConfig.headline(16_384), False, None,
-                 {1: ("lean", "aligned_group"), 2: ("lean", "aligned_group"),
-                  4: ("lean", "aligned_group"),
-                  8: ("lean", "aligned_group")}),
+                 {1: ("lean", "aligned_group/onepass"),
+                  2: ("lean", "aligned_group/onepass"),
+                  4: ("lean", "aligned_group/onepass"),
+                  8: ("lean", "aligned_group/onepass")}),
     "headline swar (main path F')": (
         SimConfig.headline(16_384, elementwise="swar"), False, None,
-        {2: ("lean", "aligned_group/swar"),
-         8: ("lean", "aligned_group/swar")}),
+        {2: ("lean", "aligned_group/swar/onepass"),
+         8: ("lean", "aligned_group/swar/onepass")}),
     "bench --suspicion": (headline_config(16_384, True), False, None,
-                          {2: ("lean", "aligned_group")}),
+                          {2: ("lean", "aligned_group/onepass")}),
     "headline align 4": (SimConfig.headline(16_384, arc_align=4), False,
-                         None, {4: ("lean", "arc")}),
+                         None, {4: ("lean", "arc/onepass")}),
     "packed_rr": (SimConfig.packed_rr(16_384), False, None,
-                  {2: ("lean", "edges"), 4: ("lean", "edges")}),
+                  {2: ("lean", "edges/onepass"),
+                   4: ("lean", "edges/onepass")}),
     "suspicion_rr": (SimConfig.suspicion_rr(16_384), False, None,
-                     {2: ("lean", "edges")}),
+                     {2: ("lean", "edges/onepass")}),
     "suspicion_rr, rejoins": (SimConfig.suspicion_rr(16_384), True, None,
                               {2: ("separate", "stripe_merge_update"),
                                4: ("separate", "stripe_merge_update")}),
     "headline under a split": (SimConfig.headline(1024), False, split(1024),
-                               {2: ("lean", "filter_group")}),
+                               {2: ("lean", "filter_group/onepass")}),
     "headline N=1032": (SimConfig.headline(1032), False, None,
                         {1: ("lean", "aligned_group"),
                          2: ("lean", "aligned_group"),
@@ -105,7 +107,10 @@ def test_route_is_launchable_on_the_shard(name, ranks):
                            else nloc)
     if loop == "lean":
         assert nloc % merge.KERNEL_VEC == 0
-        assert kernel in merge.FORMS + merge.SWAR_FORMS
+        assert kernel in merge.FORM_LAUNCHES
+        if kernel in merge.ONEPASS_FORMS:
+            assert merge.onepass_fits(cfg.n, nloc, kernel.split("/")[0],
+                                      cfg.elementwise)
     else:
         assert kernel in merge.LAUNCH_COUNTS
         if kernel == "stripe_merge_update":

@@ -79,27 +79,30 @@ def pair(factory, n, sus=None, **kw):
 # name -> (JAX config, port config, run kwargs, rounds, expected route)
 CASES = {
     "aligned arcs": (*pair("fields", 1024, **HEADLINE),
-                     dict(crash_rate=0.02), 12, ("lean", "aligned_group")),
+                     dict(crash_rate=0.02), 12,
+                     ("lean", "aligned_group/onepass")),
     "arcs align 4": (*pair("fields", 512, **dict(HEADLINE, arc_align=4)),
-                     dict(crash_rate=0.02), 12, ("lean", "arc")),
+                     dict(crash_rate=0.02), 12, ("lean", "arc/onepass")),
     "explicit edges": (*pair("packed_rr", 512), dict(crash_rate=0.02), 12,
-                       ("lean", "edges")),
+                       ("lean", "edges/onepass")),
     "plain arcs": (*pair("packed_rr", 512, topology="random_arc",
                          fanout=16), dict(crash_rate=0.02), 12,
-                   ("lean", "arc")),
+                   ("lean", "arc/onepass")),
     "suspicion + lh": (*pair("suspicion_rr", 512, sus=LH),
-                       dict(crash_rate=0.05), 30, ("lean", "edges")),
+                       dict(crash_rate=0.05), 30, ("lean", "edges/onepass")),
     "min_group 200": (*pair("fields", 512, **dict(HEADLINE, min_group=200)),
-                      dict(crash_rate=0.03), 16, ("lean", "aligned_group")),
+                      dict(crash_rate=0.03), 16,
+                      ("lean", "aligned_group/onepass")),
     "swar": (*pair("fields", 512, **dict(HEADLINE, elementwise="swar")),
-             dict(crash_rate=0.02), 12, ("lean", "aligned_group/swar")),
+             dict(crash_rate=0.02), 12,
+             ("lean", "aligned_group/swar/onepass")),
     "swar suspicion": (*pair("fields", 512, sus=dict(t_suspect=2), t_fail=3,
                              **dict(HEADLINE, elementwise="swar")),
                        dict(crash_rate=0.03), 16,
-                       ("lean", "aligned_group/swar")),
+                       ("lean", "aligned_group/swar/onepass")),
     "scenario": (*pair("fields", 512, sus=dict(t_suspect=2), t_fail=3,
                        **HEADLINE), dict(crash_rate=0.01, scenario="split"),
-                 14, ("lean", "filter_group")),
+                 14, ("lean", "filter_group/onepass")),
 }
 WORLDS = {name: (2, 4) for name in CASES}
 

@@ -102,8 +102,8 @@ def run_pair(jcfg, tcfg, form: str, scenario=None):
 
 
 @pytest.mark.parametrize("sus", [None, LH], ids=["crash-only", "sus+lh"])
-@pytest.mark.parametrize("shape,form", [(ARC, "aligned_group/swar"),
-                                        (RR, "edges/swar")],
+@pytest.mark.parametrize("shape,form", [(ARC, "aligned_group/swar/onepass"),
+                                        (RR, "edges/swar/onepass")],
                          ids=["aligned_group", "edges"])
 def test_swar_lean_loop_matches_jax_rr_scan_interpret(shape, form, sus):
     jcfg, tcfg = configs(shape, sus)
@@ -127,7 +127,7 @@ def test_swar_filter_group_matches_jax_rr_scan_interpret():
     the ``edge_filter`` gather (masked group max, the mute on flags bit
     3) on both sides."""
     jcfg, tcfg = configs(ARC, LH)
-    jm = run_pair(jcfg, tcfg, "filter_group/swar", split_and_flaps)
+    jm = run_pair(jcfg, tcfg, "filter_group/swar/onepass", split_and_flaps)
     assert int(np.asarray(jm.refutations).sum()) > 0
 
 

@@ -64,23 +64,25 @@ def test_route_names_the_swar_form(cfg, form, mode, request):
         scenario = compile_tensor(split_halves(cfg.n, 2, 5), device="cpu")
         form = "filter_group"
     got = R.route(cfg, scenario=scenario)
-    assert got == ("lean", form + "/swar")
+    # N = 16,384: the one-pass form holds every form
+    assert got == ("lean", form + "/swar/onepass")
     # the form the kernel is launched in, and its own launch counter
     arc = cfg.topology == "random_arc"
     assert merge.kernel_form(cfg.fanout if arc else None, cfg.arc_align,
-                             armed, cfg.elementwise) == got[1]
-    assert got[1] in merge.FORM_LAUNCHES and got[1] in merge.SWAR_FORMS
+                             armed, cfg.elementwise) + "/onepass" == got[1]
+    assert got[1] in merge.FORM_LAUNCHES and got[1] in merge.ONEPASS_FORMS
+    assert got[1].removesuffix("/onepass") in merge.SWAR_FORMS
     assert cfg.n % merge.KERNEL_VEC == 0
     # the same configuration in the lanes form routes to the lanes name
     lanes = R.route(dataclasses.replace(cfg, elementwise="lanes"),
                     scenario=scenario)
-    assert lanes == ("lean", form)
+    assert lanes == ("lean", form + "/onepass")
 
 
 def test_swar_filter_rows_and_separate_routes():
     cfg = SimConfig.headline(4_096, arc_align=4, **SW)
     tsc = compile_tensor(split_halves(cfg.n, 2, 5), device="cpu")
-    assert R.route(cfg, scenario=tsc) == ("lean", "filter_rows/swar")
+    assert R.route(cfg, scenario=tsc) == ("lean", "filter_rows/swar/onepass")
     # matrix events and ragged N keep the separate-pass round's kernels
     assert R.route(cfg, True) == ("separate", "arc_merge_update")
     assert R.route(SimConfig.packed_rr(1_030, **SW)) == (
