@@ -17,58 +17,79 @@
 // Bound.  Bytes: each packed lane read and written once, 4 B per entry
 // (1.07 GB at N = 16,384: 0.32 ms at 3.35 TB/s), where the two-launch form
 // moves ~8.4 B (aligned) to ~10 B (full view).  On the H100 the round is
-// bound by instruction issue, not bytes: each step costs what the
-// two-launch form's pass of the same work costs (chip_smoke.py's one-pass
-// phase times both and prints this kernel's step timeline).
+// bound by instruction issue, not bytes, so the design cuts the
+// instructions a word and the waits (chip_smoke.py's one-pass phase times
+// this kernel beside the two-launch form, prints its step timeline and
+// counts its SASS; --onepass-ablation undoes its choices one at a time).
 //
 // Design.  A Hopper block has 227 KB of shared memory, far less than the
 // TPU's 102 MB stripe, so a thread-block cluster of kCtas = 8 CTAs owns one
 // stripe of kC = 32 subject columns over all N rows (one 32-byte sector per
 // row segment); each CTA parks N/8 rows of the stripe in dynamic shared
-// memory, one CTA an SM.  The stripe walk is rr_onepass.cuh:
-//   step 1  each CTA reads its rows' hb and asl once (a thread's 8 rows of
-//           one word issued together), ticks them, parks the ticked lanes
-//           and writes its part of the stripe's view: its 8-row group
-//           maxes into all 8 CTAs' copies of the stripe's group-max table
-//           (aligned_group, filter_group; distributed shared memory
-//           stores, after a cluster barrier that every CTA has reached,
-//           so that none writes a CTA that has not started), or its rows'
-//           encoded view into its own slice (edges,
-//           arc, filter_rows); detections, the first observer and SUSPECT
-//           entries go to the CTA's count block (shared-memory atomics);
+// memory, one CTA an SM.  The grid is the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters, at most one a stripe), each walking
+// stripes c, c + clusters, ... (persistent: one launch's clusters never
+// wait for a wave).  A thread takes 16 bytes (4 words) of a row, so every
+// lane load and store, parked row access and gathered view row is one
+// 16-byte access, and a row's flags, senders and counts are shared by 2
+// threads, not 8.  The stripe walk is rr_onepass.cuh:
+//   step 1  each CTA ticks its rows: asl in place in its park, where
+//           cp.async staged it (no register holds it in flight), hb read
+//           from device memory a row ahead (the stripe's reads split
+//           between the steps: step 2, which also writes both lanes, was
+//           bound by them with both staged); the SWAR tick over a thread's
+//           8 rows unrolled, the lanes tick a row at a time (unrolled it
+//           outgrows the instruction cache) and with no diagonal bump but
+//           on the diagonal's word; then it writes its
+//           part of the stripe's view: its 8-row group maxes into all 8
+//           CTAs' copies of the stripe's group-max table (aligned_group,
+//           filter_group; 16-byte distributed shared memory stores, after a
+//           cluster barrier that every CTA has reached, so that none writes
+//           a CTA that has not started), or its rows' encoded view into its
+//           own slice (edges, arc, filter_rows); detections, the first
+//           observer and SUSPECT entries go to the CTA's count block
+//           (shared-memory atomics);
 //   cluster.sync();
 //   step 2  each CTA merges its own receiver rows: best from its own group
 //           table, or gathered from the other CTAs' view slices through
-//           distributed shared memory (ld.shared::cluster; a row's 8 lanes
-//           compute the sender slots two each and share them by shuffle,
-//           16 loads in flight), the byte max folded two words an
-//           instruction by Hopper's s16x2 3-input max (DPX); the epilogue
-//           on the parked lanes, hb and asl written once; per-receiver
-//           counts (recv_cnt, the Lifeguard suspect_cnt) are partial over
-//           the stripe's columns: one global atomic per row and stripe
-//           into counts the host zeroes before the launch (one 64 KB
-//           memset; per-stripe partials summed by a second kernel were
-//           measured 1.4-2.8 % slower, PERF.md);
-//   cluster.sync(); per-subject counts are complete inside the cluster
-//           (every row of the stripe is there): CTA r sums its columns of
-//           the 8 count blocks through distributed shared memory and
-//           stores them, no global atomics; cluster.sync() so no CTA
-//           leaves while its block is read.
+//           distributed shared memory (ld.shared::cluster.v4: a thread
+//           computes the slots of its 16 bytes itself, 8 rows in flight),
+//           the byte max folded two words an instruction by Hopper's s16x2
+//           3-input max (DPX, 2 instructions a word); the epilogue on the
+//           parked lanes (the lanes form unpacks and packs bytes by prmt),
+//           hb and asl written once, and at once the row's asl segment of
+//           the cluster's next stripe staged by cp.async into the park row
+//           it frees (the reads spread over step 2; a burst after it waits
+//           on the barrier's release); per-receiver counts (recv_cnt, the
+//           Lifeguard suspect_cnt) are partial over the stripe's columns:
+//           one global atomic per row and stripe into counts the host
+//           zeroes before the launch (one 64 KB memset); per-subject counts
+//           reduce over the warp, then one shared atomic per column pair;
+//   cluster.sync(); the next stripe's stack staged.  Per-subject counts
+//           are then complete inside the cluster (every row of the stripe
+//           is there): CTA r sums its columns of the 8 count blocks through
+//           distributed shared memory and stores them, no global atomics,
+//           at the start of the next stripe's step 1 (the other warps tick
+//           meanwhile).  Counts alternate between two blocks a CTA by
+//           stripe, so no third barrier guards the next stripe's counting;
+//           one cluster.sync() after the last stripe keeps every CTA until
+//           its blocks are read.
 // Shared memory per CTA: 2 * N/8 * 32 B of parked lanes, an N/8-row view
-// (its rows' slice, or the whole table of N/8 group maxes) and 768 B of
-// counts: 197,376 B at N = 16,384.  The full-view forms fit there with
-// C = 32 and a portable cluster of 8, so neither way out of the limit is
-// taken: C = 16 would halve the 32-byte sector each row segment fills,
-// and a non-portable cluster of 16 needs 16 free SMs in one GPC, which
-// leaves fewer clusters in flight.  The largest N is 19,264
-// (N % 64 == 0); a larger N runs the two-launch form
-// (ops/merge.onepass_fits), as the TPU does at N = 65,536.  Rows go to the
-// CTAs by 8-row group round robin (rr_onepass.cuh), so a view row's home is
-// a shift and a mask.  The square round and the column block (kBlock, nc
-// and col_offset runtime values) are separate instantiations, as in
-// resident_round.cu.  No fallback: a refused launch, or an occupancy query
-// that finds no place for a cluster, returns its error and the wrapper
-// raises.
+// (its rows' slice, or the whole table of N/8 group maxes), the stripe's
+// 11-row threshold stack, a 32-byte row of the gathers' start value and
+// two 448-byte count blocks (16-bit column pairs): 197,888 B at N =
+// 16,384.  The full-view forms fit there with C = 32 and a portable
+// cluster of 8, so neither way out of the limit is taken: C = 16 would
+// halve the 32-byte sector each row segment fills, and a non-portable
+// cluster of 16 needs 16 free SMs in one GPC, which leaves fewer clusters
+// in flight.  The largest N is 19,264 (N % 64 == 0; 232,448 B, the whole
+// opt-in); a larger N runs the two-launch form (ops/merge.onepass_fits), as
+// the TPU does at N = 65,536.  Rows go to the CTAs by 8-row group round
+// robin (rr_onepass.cuh), so a view row's home is a shift and a mask.  The
+// square round and the column block (kBlock, nc and col_offset runtime
+// values) are separate instantiations, as in resident_round.cu.  No
+// fallback: a refused launch, or an occupancy query that finds no place
+// for a cluster, returns its error and the wrapper raises.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -81,16 +102,9 @@ using namespace onepass;
 
 namespace {
 
-// threads a CTA, one CTA an SM: the lanes form takes 128 registers a
-// thread (512 threads fill the register file), the SWAR form under 100,
-// which leaves room for 768: more warps to cover step 2's gather latency
-constexpr int kThreadsLanes = 512;
-constexpr int kThreadsSwar = 768;
-
-template <bool kSwar>
-__host__ __device__ constexpr int threads() {
-  return kSwar ? kThreadsSwar : kThreadsLanes;
-}
+// threads a CTA, one CTA an SM (16 warps; a thread's 4 words of a row are
+// 4 independent instruction streams)
+constexpr int kThreads = 512;
 
 // globaltimer stamps a CTA and stripe in the optional timeline: start,
 // step 1 done, view ready (after the cluster sync), step 2 done, end
@@ -112,117 +126,92 @@ struct Params {
 
 // step 1's counts into the CTA's count block
 struct TickSink {
-  int32_t* cnt;
+  uint32_t* cnt;
   __device__ void det(int c, int count, int first_row) {
-    atomicAdd(cnt + kDet * kC + c, count);
-    atomicMin(cnt + kFobs * kC + c, first_row);
+    atomicAdd(cnt + kSumDet * kPairs + c / 2, pair_addend(c, count));
+    atomicMin(reinterpret_cast<int*>(cnt) + kFobsAt + c, first_row);
   }
   __device__ void entered(int c, int count) {
-    atomicAdd(cnt + kEntered * kC + c, count);
+    atomicAdd(cnt + kSumEntered * kPairs + c / 2, pair_addend(c, count));
   }
 };
 
-// step 2's counts: per receiver a sum over the row's kWords threads (8
-// consecutive lanes of one warp) and one atomic per row and stripe; per
-// subject into the CTA's count block
+// step 2's counts: per receiver a sum over the row's kLanes threads
+// (neighbouring lanes of one warp) and one atomic per row and stripe; per
+// subject the counter words summed over the warp's threads of the same
+// segment as 16-bit column pairs, then one atomic per pair
 template <bool kSus, bool kLh>
 struct MergeSink {
-  int32_t* cnt;
+  uint32_t* cnt;
   int32_t* recv;  // [n] recv_cnt, then [n] suspect_cnt
   int n;
   __device__ void row(int r, bool valid, int listed, int held) {
 #pragma unroll
-    for (int o = 1; o < kWords; o <<= 1) {
+    for (int o = 1; o < kLanes; o <<= 1) {
       listed += __shfl_xor_sync(0xffffffffu, listed, o);
       if (kLh) held += __shfl_xor_sync(0xffffffffu, held, o);
     }
-    if (!valid || (threadIdx.x % kWords) != 0) return;
+    if (!valid || (threadIdx.x % kLanes) != 0) return;
     if (listed) atomicAdd(recv + r, listed);
     if (kLh && held) atomicAdd(recv + n + r, held);
   }
-  __device__ void subj(int c, int member, int refuted, int held) {
-    if (member) atomicAdd(cnt + kMember * kC + c, member);
-    if (kSus && refuted) atomicAdd(cnt + kRefuted * kC + c, refuted);
-    if (kSus && held) atomicAdd(cnt + kHeld * kC + c, held);
+  __device__ void add(int sum, int h, const uint32_t (&w)[kSeg]) {
+#pragma unroll
+    for (int k = 0; k < kSeg; ++k) {
+      // bytes 0, 1 and bytes 2, 3 as 16-bit halves: columns 2i, 2i + 1
+      uint32_t p[2] = {swar::prmt(w[k], 0, 0x4140),
+                       swar::prmt(w[k], 0, 0x4342)};
+#pragma unroll
+      for (int o = kLanes; o < 32; o <<= 1) {
+        p[0] += __shfl_xor_sync(0xffffffffu, p[0], o);
+        p[1] += __shfl_xor_sync(0xffffffffu, p[1], o);
+      }
+      if ((threadIdx.x & 31) >= kLanes) continue;
+      const int at = sum * kPairs + (kSeg * h + k) * 2;
+      if (p[0]) atomicAdd(cnt + at, p[0]);
+      if (p[1]) atomicAdd(cnt + at + 1, p[1]);
+    }
+  }
+  __device__ void subj(int h, const uint32_t (&member)[kSeg],
+                       const uint32_t (&refuted)[kSeg],
+                       const uint32_t (&held)[kSeg]) {
+    add(kSumMember, h, member);
+    if (kSus) {
+      add(kSumRefuted, h, refuted);
+      add(kSumHeld, h, held);
+    }
   }
 };
 
 // 32-bit shared::cluster addresses: ``a`` (this CTA's shared window) in
-// CTA ``rank``'s window, and a word loaded from one
+// CTA ``rank``'s window, and the 16 bytes there
 __device__ __forceinline__ uint32_t mapa(uint32_t a, int rank) {
   uint32_t r;
   asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
   return r;
 }
 
-__device__ __forceinline__ uint32_t ld_cluster(uint32_t a) {
-  uint32_t v;
-  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(a));
-  return v;
+__device__ __forceinline__ Seg ld_cluster(uint32_t a) {
+  Seg s;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
+               : "r"(a));
+  return s;
 }
 
-// A signed byte max over many words as two s16x2 halves (bytes 0, 2 and
-// bytes 1, 3, sign-extended by prmt), so that Hopper's 3-input s16x2 max
-// (a DPX instruction) folds two words in per half: ~3 instructions a word
-// where swar::maxs takes ~12.
-struct ByteMax {
-  uint32_t lo, hi;
-  __device__ __forceinline__ static uint32_t lo_of(uint32_t w) {
-    uint32_t r;
-    asm("prmt.b32 %0, %1, 0, 0xA280;" : "=r"(r) : "r"(w));
-    return r;
-  }
-  __device__ __forceinline__ static uint32_t hi_of(uint32_t w) {
-    uint32_t r;
-    asm("prmt.b32 %0, %1, 0, 0xB391;" : "=r"(r) : "r"(w));
-    return r;
-  }
-  __device__ __forceinline__ explicit ByteMax(uint32_t w)
-      : lo(lo_of(w)), hi(hi_of(w)) {}
-  __device__ __forceinline__ void add2(uint32_t a, uint32_t b) {
-    lo = (uint32_t)__vimax3_s16x2(lo, lo_of(a), lo_of(b));
-    hi = (uint32_t)__vimax3_s16x2(hi, hi_of(a), hi_of(b));
-  }
-  __device__ __forceinline__ uint32_t word() const {
-    uint32_t r;
-    asm("prmt.b32 %0, %1, %2, 0x6240;" : "=r"(r) : "r"(lo), "r"(hi));
-    return r;
-  }
-};
+// 16 bytes from global to shared memory without a register (cp.async,
+// bypassing L1); cp.async.wait_all makes them visible to this thread
+__device__ __forceinline__ void copy16(int8_t* dst, const int8_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
 
-// gather_rows on the card: the row's kWords lanes (consecutive lanes of
-// one warp, all taking this call together) each compute two slots of a
-// chunk (lane_slot) and their cluster addresses, shuffle them to each
-// other, and every lane issues the chunk's kChunk loads of its word before
-// using any, then folds them with ByteMax.  ``view_sa`` this CTA's view, a
-// 32-bit shared address: a dropped slot loads it and keeps ``none``.
-template <int kForm>
-__device__ __forceinline__ uint32_t gather_rows_cluster(
-    const Meta<kForm>& m, const int32_t* __restrict__ senders, int row,
-    int n, Knobs kn, uint32_t view_sa, int w) {
-  const unsigned mask = 0xFFu << (threadIdx.x & 24);
-  const uint32_t none = mutes(kForm) ? 0xFFFFFFFFu : swar::H;
-  ByteMax best(none);
-  for (int f0 = 0; f0 < kn.width; f0 += kChunk) {
-    uint32_t addr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int s = lane_slot<kForm>(m, senders, row, n, kn, f0, w, i);
-      const Where h = row_home(s < 0 ? 0 : s);
-      addr[i] = s < 0 ? 0u : mapa(view_sa + h.local * kC, h.cta);
-    }
-    uint32_t v[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const uint32_t a = __shfl_sync(mask, addr[k / kWords], k % kWords,
-                                     kWords);
-      const uint32_t x = ld_cluster((a ? a : view_sa) + 4 * w);
-      v[k] = a ? x : none;
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 2) best.add2(v[k], v[k + 1]);
-  }
-  return best.word();
+__device__ __forceinline__ void st_cluster(uint32_t a, const Seg& s) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "r"(s.w[0]), "r"(s.w[1]), "r"(s.w[2]), "r"(s.w[3])
+               : "memory");
 }
 
 // globaltimer (ns) into the timeline slot ``k`` of this CTA and stripe
@@ -234,31 +223,9 @@ __device__ __forceinline__ void stamp(unsigned long long* timeline,
   timeline[((size_t)stripe * kCtas + cta) * kStamps + k] = t;
 }
 
-// gather_groups on the card: the same max over the receiver's F/8 groups
-// of the CTA's own table (``table``: group 0 at this thread's word), two
-// groups a ByteMax step.
-template <int kForm>
-__device__ __forceinline__ uint32_t gather_groups_card(const Meta<kForm>& m,
-                                                       int n, Knobs kn,
-                                                       const int8_t* table) {
-  const int nb = n / kAlign;
-  const int g0 = m.s0 / kAlign;
-  const uint32_t none = mutes(kForm) ? 0xFFFFFFFFu : swar::H;
-  auto group = [&](int k) -> uint32_t {
-    if (k >= kn.width || (mutes(kForm) && !((m.s1 >> k) & 1))) return none;
-    const int g = g0 + k;
-    return *reinterpret_cast<const uint32_t*>(table +
-                                              (g >= nb ? g - nb : g) * kC);
-  };
-  ByteMax best(none);
-  for (int k = 0; k < kn.width; k += 2) best.add2(group(k), group(k + 1));
-  return best.word();
-}
-
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
-__global__ void __launch_bounds__(threads<kSwar>(), 1)
+__global__ void __launch_bounds__(kThreads, 1)
 rr_onepass_kernel(const Params p) {
-  constexpr int kThreads = threads<kSwar>();
   constexpr bool kFull = full_view(kForm);
   constexpr int kStats = kSus ? 6 : 3;
   cg::cluster_group cluster = cg::this_cluster();
@@ -266,82 +233,136 @@ rr_onepass_kernel(const Params p) {
   const int n = p.n;
   const int nc = kBlock ? p.nc : n;
   const int col_offset = kBlock ? p.col_offset : 0;
-  const int stripe = blockIdx.x / kCtas;
+  const int stripes = nc / kC;
+  const int clusters = (int)gridDim.x / kCtas;
   const int rows = n / kCtas;
+  const int groups = rows / kAlign;
+  const int t = threadIdx.x;
+  const int h = t % kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
-  stamp(p.timeline, stripe, cta, 0);
   Park pk;
   pk.hb = reinterpret_cast<int8_t*>(smem);
   pk.asl = pk.hb + (size_t)rows * kC;
   pk.view = pk.asl + (size_t)rows * kC;
-  int32_t* cnt = reinterpret_cast<int32_t*>(
-      pk.view + (size_t)view_rows(n, kFull) * kC);
-  for (int i = threadIdx.x; i < kStats * kC; i += kThreads)
-    cnt[i] = i / kC == kFobs ? n : 0;
-  __syncthreads();
-  const Stripe sp{n, nc, stripe * kC, col_offset + stripe * kC};
+  int8_t* vs = pk.view + (size_t)view_rows(n, kFull) * kC;
+  int8_t* none = vs + N_VEC * kC;
+  uint32_t* blocks = reinterpret_cast<uint32_t*>(none + kC);
+  auto stage_copy = [](int8_t* dst, const int8_t* src) { copy16(dst, src); };
+  int stripe = (int)blockIdx.x / kCtas;
+  stage(p.asl, p.vecs, stripe_at(n, nc, col_offset, stripe), pk, vs, cta,
+        rows, t, kThreads, stage_copy);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  for (int i = t; i < kBlockWords; i += kThreads)
+    blocks[i] = blank_count(i, n);
+  if (t < kWords)
+    reinterpret_cast<uint32_t*>(none)[t] = gather_none(kForm);
+  // a step-1 thread's first group: its rows' flags, the same every stripe
+  GroupFlags fw{};
+  if (t / kLanes < groups)
+    fw = group_flags(p.flags, group_row0(cta, t / kLanes));
+  const uint32_t view_sa = (uint32_t)__cvta_generic_to_shared(pk.view);
+  const uint32_t none_ca =
+      mapa((uint32_t)__cvta_generic_to_shared(none) + 4 * kSeg * h, cta);
 
-  TickSink ts{cnt};
   // the aligned forms: each group max into every CTA's table, so that
   // step 2 gathers from its own shared memory.  A CTA may touch another's
   // shared memory only once that one runs: every thread arrives at a
   // cluster barrier here and waits on it before its first push (or after
-  // step 1, if it pushed nothing)
+  // the first step 1, if it pushed nothing); later stripes push after the
+  // previous stripe's last barrier, when every CTA has read its table
   bool started = kFull;
   if (!kFull) asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
-  auto put_group = [&](int g, int w, const uint32_t (&enc)[kAlign]) {
+  auto put_group = [&](int g, int hh, const Seg& v) {
     if (!started) {
       asm volatile("barrier.cluster.wait;" ::: "memory");
       started = true;
     }
-    ByteMax m(enc[0]);
+    const uint32_t a = view_sa + g * kC + 4 * kSeg * hh;
 #pragma unroll
-    for (int r = 1; r < kAlign; r += 2)
-      m.add2(enc[r], enc[r + 1 < kAlign ? r + 1 : r]);
-    const uint32_t v = m.word();
-#pragma unroll
-    for (int q = 0; q < kCtas; ++q)
-      *reinterpret_cast<uint32_t*>(cluster.map_shared_rank(pk.view, q) +
-                                   g * kC + 4 * w) = v;
+    for (int q = 0; q < kCtas; ++q) st_cluster(mapa(a, q), v);
   };
-  step1<kSus, kFull, mutes(kForm), kSwar>(p.hb, p.asl, p.flags, p.vecs, sp,
-                                          p.kn, pk, cta, rows / kAlign,
-                                          threadIdx.x, kThreads, ts,
-                                          put_group);
-  if (!started) asm volatile("barrier.cluster.wait;" ::: "memory");
-  stamp(p.timeline, stripe, cta, 1);
-  cluster.sync();
-  stamp(p.timeline, stripe, cta, 2);
-  const int8_t* view = pk.view;
-  const uint32_t view_sa = (uint32_t)__cvta_generic_to_shared(view);
-  auto gather = [&](const Meta<kForm>& m, int row, int w) -> uint32_t {
+  auto gather = [&](const auto& m, int row, int hh) -> Seg {
     if constexpr (kFull) {
-      return gather_rows_cluster<kForm>(m, p.senders, row, n, p.kn, view_sa,
-                                        w);
+      return gather_rows<kForm>(
+          m, p.senders, row, n, p.kn,
+          [&](int s) -> uint32_t {
+            if (s < 0) return none_ca;
+            const Where w = row_home(s);
+            return mapa(view_sa + w.local * kC + 4 * kSeg * hh, w.cta);
+          },
+          [](uint32_t a) { return ld_cluster(a); });
     } else {
-      return gather_groups_card<kForm>(m, n, p.kn, view + 4 * w);
+      return gather_groups<kForm>(
+          m, n, p.kn,
+          [&](int g) -> const int8_t* {
+            return g < 0 ? none + 4 * kSeg * hh
+                         : pk.view + g * kC + 4 * kSeg * hh;
+          },
+          [](const int8_t* a) { return load_seg(a); });
     }
   };
-  MergeSink<kSus, kLh> ms{cnt, p.recv, n};
-  step2<kSus, kForm, kSwar>(p.hb, p.asl, p.flags, p.vecs, p.senders, sp,
-                            p.kn, pk, cta, rows, threadIdx.x, kThreads,
-                            gather, ms);
-  stamp(p.timeline, stripe, cta, 3);
-  cluster.sync();
 
-  // CTA ``cta`` stores its kC / kCtas columns of every stat
+  // CTA ``cta`` stores its kC / kCtas columns of every stat of stripe
+  // ``done`` from the count blocks ``blk`` of the cluster
   constexpr int kCols = kC / kCtas;
-  if (threadIdx.x < kCols * kStats) {
-    const int s = threadIdx.x / kCols;
-    const int c = kCols * cta + threadIdx.x % kCols;
-    const int v = finish(s, c, [&](int q) {
-      return (const int32_t*)cluster.map_shared_rank(cnt, q);
+  auto finish_stripe = [&](int done, const uint32_t* blk) {
+    if (t >= kCols * kStats) return;
+    const int s = t / kCols;
+    const int c = kCols * cta + t % kCols;
+    p.subj[(size_t)s * nc + done * kC + c] = finish(s, c, [&](int q) {
+      return (const uint32_t*)cluster.map_shared_rank(blk, q);
     });
-    p.subj[(size_t)s * nc + sp.col0 + c] = v;
+  };
+
+  for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
+    const Stripe sp = stripe_at(n, nc, col_offset, stripe);
+    uint32_t* cnt = blocks + (it & 1) * kBlockWords;
+    stamp(p.timeline, stripe, cta, 0);
+    // the staged rows and stack (every thread's copies) in place
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    // the previous stripe's outputs, from its blocks (complete at its last
+    // barrier, cleared again only after this stripe's next one), while the
+    // other warps tick
+    if (it > 0)
+      finish_stripe(stripe - clusters, blocks + ((it - 1) & 1) * kBlockWords);
+    TickSink ts{cnt};
+    step1<kSus, kFull, mutes(kForm), kSwar>(p.hb, p.flags, vs, sp, p.kn, pk,
+                                            cta, groups, t, kThreads, fw, ts,
+                                            put_group);
+    if (!started) {
+      asm volatile("barrier.cluster.wait;" ::: "memory");
+      started = true;
+    }
+    stamp(p.timeline, stripe, cta, 1);
+    cluster.sync();
+    stamp(p.timeline, stripe, cta, 2);
+    // the next stripe's block: every CTA read it (the finish two stripes
+    // back) before it reached the barrier above
+    uint32_t* spare = blocks + ((it + 1) & 1) * kBlockWords;
+    for (int i = t; i < kBlockWords; i += kThreads)
+      spare[i] = blank_count(i, n);
+    MergeSink<kSus, kLh> ms{cnt, p.recv, n};
+    // each merged row's next-stripe segments go out at once, spread over
+    // step 2 (the row's park segment is this thread's alone)
+    const bool more = stripe + clusters < stripes;
+    const Stripe next = stripe_at(n, nc, col_offset, stripe + clusters);
+    step2<kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp, p.kn,
+                              pk, cta, rows, t, kThreads, gather, ms,
+                              [&](int li, int hh) {
+                                if (more)
+                                  stage_row(p.asl, next, pk, cta, li, hh,
+                                            stage_copy);
+                              });
+    stamp(p.timeline, stripe, cta, 3);
+    cluster.sync();
+    // every thread done with the stack: the next one's copies
+    if (more) stage_stack(p.vecs, next, vs, t, kThreads, stage_copy);
+    else finish_stripe(stripe, cnt);
+    stamp(p.timeline, stripe, cta, 4);
   }
-  // no CTA leaves while another reads its shared memory
+  // no CTA leaves while another reads its count blocks
   cluster.sync();
-  stamp(p.timeline, stripe, cta, 4);
 }
 
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
@@ -352,7 +373,7 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
   const int stripes = (kBlock ? p.nc : p.n) / kC;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(stripes * kCtas);
-  cfg.blockDim = dim3(threads<kSwar>());
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -367,6 +388,7 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
   // refuses the launch
   constexpr int kMaxCards = 64;
   static size_t checked[kMaxCards] = {};
+  static int held[kMaxCards] = {};
   int card = 0;
   e = cudaGetDevice(&card);
   if (e != cudaSuccess) return e;
@@ -380,11 +402,14 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
     if (e != cudaSuccess) return e;
     if (clusters < 1) return cudaErrorInvalidConfiguration;
     checked[card] = smem;
+    held[card] = clusters;
     if (clusters_out != nullptr) {
       *clusters_out = clusters;
       return cudaSuccess;
     }
   }
+  // persistent clusters: as many as the card holds, none without a stripe
+  cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes) * kCtas);
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -442,6 +467,10 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
       return (int)cudaErrorInvalidValue;
     while ((1 << group_shift) < align) ++group_shift;
   }
+  // 16-byte row segments
+  if ((reinterpret_cast<uintptr_t>(hb) | reinterpret_cast<uintptr_t>(asl) |
+       reinterpret_cast<uintptr_t>(vecs)) & 15)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p;
   p.hb = static_cast<int8_t*>(hb);

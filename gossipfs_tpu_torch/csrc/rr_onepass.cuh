@@ -4,42 +4,49 @@
 // thread-block cluster replaced by host arrays, against the plain PyTorch
 // version (gossipfs_tpu_torch/ops/merge.py resident_round_plain).
 //
-// A cluster of kCtas CTAs owns one stripe of kC subject columns over all n
-// receiver rows.  Rows go to the CTAs by 8-row sender group, round robin:
-// group g (rows [8g, 8g + 8)) lives in CTA g % kCtas at local group
-// g / kCtas, so every owner and local index is a shift and a mask.
+// A cluster of kCtas CTAs walks stripes of kC subject columns over all n
+// receiver rows: stripe c, c + clusters, ... (a persistent cluster).  Rows
+// go to the CTAs by 8-row sender group, round robin: group g (rows [8g,
+// 8g + 8)) lives in CTA g % kCtas at local group g / kCtas, so every owner
+// and local index is a shift and a mask.  A thread takes one 16-byte
+// segment (kSeg words, half of a row's 32 bytes) of a row: kLanes threads
+// a row, every load, store and gather 16 bytes wide.
 //
-//   step1  each CTA reads its groups' hb and asl for the stripe once,
-//          ticks them, parks the ticked lanes in its shared memory and
-//          writes its part of the stripe's view: its groups' maxes into
-//          every CTA's copy of the whole group-max table G[n/8, kC] (the
-//          aligned forms: a PutGroup callable, so step 2 gathers from its
-//          own shared memory), or its rows' encoded view into its own
-//          (the explicit-edge, plain-arc and filter_rows forms);
-//          detections and SUSPECT entries go to a Sink.
+//   step1  each CTA ticks its groups' lanes for the stripe, asl in place in
+//          its park (stage / stage_row copied it there), hb read from
+//          device memory, and writes
+//          its part of the stripe's view: its groups' maxes into every
+//          CTA's copy of the whole group-max table G[n/8, kC] (the aligned
+//          forms: a PutGroup callable, so step 2 gathers from its own
+//          shared memory), or its rows' encoded view into its own (the
+//          explicit-edge, plain-arc and filter_rows forms); detections and
+//          SUSPECT entries go to a Sink.
 //   (the cluster synchronises)
 //   step2  each CTA merges its own receiver rows: best gathered from the
 //          stripe's view wherever it lives (a Gather callable: the local
 //          G, or other CTAs' rows, distributed shared memory on the card,
-//          kChunk slots a batch that the row's kWords lanes compute two
-//          each and share), the next row's flags and senders loaded while
-//          this one merges; the epilogue on the parked lanes,
-//          hb and asl written once; per-subject counts accumulate per
-//          thread and go to the Sink once, per-receiver counts go to the
-//          Sink once a row.
+//          kChunk 16-byte rows a batch), the next row's flags and senders
+//          loaded while this one merges; the epilogue on the parked lanes,
+//          hb and asl written once, then the row's asl staged for the
+//          cluster's next stripe; per-subject counts accumulate per thread
+//          and go to the Sink once, per-receiver counts go to the Sink once
+//          a row.
 //   finish per column, the cluster's per-CTA counts summed (the first
 //          observer: their min) into the stripe's outputs.
 //
+// Counts go to one of two count blocks a CTA by the stripe's parity, so
+// the next stripe may count while another CTA still reads this one's.
+//
 // Every per-entry formula is rr_elem.cuh's (lanes) or rr_swar.cuh's (SWAR):
 // the words the diagonal crosses stay on the lanes functions in the SWAR
-// form, as in the two-launch kernel.  The gathers here (gather_groups,
-// gather_rows) are what the host build runs; the card runs the same
-// functions as rr_onepass.cu's gather_groups_card and gather_rows_cluster
-// (lane_slot's slots shared by shuffle, the byte max by DPX), which
-// chip_smoke.py holds bit for bit against the plain version.
+// form, as in the two-launch kernel.  The gathers (gather_groups,
+// gather_rows) and the byte max (ByteMax) are the card's own code; only
+// the row addresses and the 16-byte loads are callables (host arrays here,
+// ld.shared::cluster on the card).
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 
 #include "rr_elem.cuh"
 #include "rr_swar.cuh"
@@ -56,10 +63,12 @@ namespace onepass {
 
 constexpr int kC = 32;             // subject columns per stripe
 constexpr int kWords = kC / 4;     // 4-subject words per stripe row
+constexpr int kSeg = 4;            // words a thread takes of a row (16 B)
+constexpr int kLanes = kWords / kSeg;  // threads a row
 constexpr int kCtasLog = 3;
 constexpr int kCtas = 1 << kCtasLog;  // CTAs per cluster
 constexpr int kAlign = 8;          // rows per sender group
-constexpr int kChunk = 2 * kWords;  // sender rows gathered in one batch
+constexpr int kChunk = 8;          // sender rows gathered in one batch
 
 // the merge forms (resident_round.cu's rr_round ``form``)
 enum {
@@ -77,8 +86,30 @@ OP_HD constexpr bool mutes(int form) {
   return form == kFormFilterGroup || form == kFormFilterRows;
 }
 
-// rows of a CTA's count block [kStats][kC]
-enum { kMember = 0, kDet, kFobs, kEntered, kRefuted, kHeld, kStatsMax };
+// the gathers' start value: the max with no floor (-128 a byte), or from
+// -1 under the edge_filter forms (a dropped group's contribution)
+OP_HD constexpr uint32_t gather_none(int form) {
+  return mutes(form) ? 0xFFFFFFFFu : swar::H;
+}
+
+// A CTA's count block: five sums as 16-bit column pairs (a partial over a
+// CTA's rows is at most n / kCtas < 2^16; one 32-bit word holds columns
+// 2i and 2i + 1), then the first observers as int32.
+enum { kSumMember = 0, kSumDet, kSumEntered, kSumRefuted, kSumHeld, kSums };
+constexpr int kPairs = kC / 2;
+constexpr int kFobsAt = kSums * kPairs;
+constexpr int kBlockWords = kFobsAt + kC;
+
+// entry i of a fresh count block: 0, and n for a first observer (no row
+// fired)
+OP_HD uint32_t blank_count(int i, int n) {
+  return i >= kFobsAt ? (uint32_t)n : 0u;
+}
+
+// ``v`` as an addend of column c's word of a sum row
+OP_HD uint32_t pair_addend(int c, int v) {
+  return (uint32_t)v << (16 * (c & 1));
+}
 
 // where a full-view sender row ``s`` lives: the CTA and the row inside
 // its view slice
@@ -108,6 +139,10 @@ struct Stripe {
   int n, nc, col0, gcol0;
 };
 
+OP_HD Stripe stripe_at(int n, int nc, int col_offset, int stripe) {
+  return {n, nc, stripe * kC, col_offset + stripe * kC};
+}
+
 struct Knobs {
   int t_fail, t_cooldown, confirm, confirm_hi, age_clamp;
   int width;        // groups (aligned forms) or rows gathered a receiver
@@ -123,115 +158,333 @@ struct Park {
   int8_t* view;
 };
 
-OP_HD SwVec load_vec(const int8_t* vecs, int nc, int col) {
-  SwVec v;
-  for (int i = 0; i < N_VEC; ++i)
-    v.v[i] = swar::load(vecs + (size_t)i * nc + col);
-  return v;
+// a thread's 16 bytes of a row
+struct Seg {
+  uint32_t w[kSeg];
+};
+
+OP_HD Seg splat(uint32_t v) { return {{v, v, v, v}}; }
+
+// 16 bytes at ``p`` (16-byte aligned)
+OP_HD Seg load_seg(const int8_t* p) {
+#if defined(__CUDA_ARCH__)
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  return {{v.x, v.y, v.z, v.w}};
+#else
+  Seg s;
+  std::memcpy(s.w, p, sizeof s.w);
+  return s;
+#endif
 }
 
-// Step 1 for CTA ``cta`` as thread ``t`` of ``nt`` (a multiple of kWords):
-// the thread takes word t % kWords of local groups t / kWords, + nt /
-// kWords, ...  ``groups`` the CTA's group count (n / 8 / kCtas).  The
-// sink receives, per column of the stripe (0..kC), the detections with
-// the lowest firing global row, and the SUSPECT entries;
-// ``put_group(g, w, enc)`` (aligned forms) takes group g's kAlign view
-// words at word w, for their byte max in every CTA's table.
+OP_HD void store_seg(int8_t* p, const Seg& s) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(p) = make_uint4(s.w[0], s.w[1], s.w[2], s.w[3]);
+#else
+  std::memcpy(p, s.w, sizeof s.w);
+#endif
+}
+
+// Hopper's 3-input s16x2 max (a DPX instruction), and its host form
+OP_HD uint32_t vimax3_s16x2(uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  return (uint32_t)__vimax3_s16x2(a, b, c);
+#else
+  uint32_t r = 0;
+  for (int s = 0; s < 32; s += 16) {
+    int m = (int16_t)(a >> s);
+    if ((int16_t)(b >> s) > m) m = (int16_t)(b >> s);
+    if ((int16_t)(c >> s) > m) m = (int16_t)(c >> s);
+    r |= (uint32_t)(m & 0xFFFF) << s;
+  }
+  return r;
+#endif
+}
+
+// A signed byte max over many words as two s16x2 halves, so that Hopper's
+// 3-input s16x2 max (a DPX instruction) folds two words in per half: the
+// even bytes sign-extended by prmt (``lo``), the odd bytes as they stand
+// (``hi``: an s16 compare orders by its high byte first, so the high byte
+// of the max is the max of the high bytes, whatever the low ones).  2
+// instructions a word where swar::maxs takes ~12.
+struct ByteMax {
+  uint32_t lo, hi;
+  OP_HD static uint32_t lo_of(uint32_t w) { return swar::prmt(w, 0, 0xA280); }
+  OP_HD explicit ByteMax(uint32_t w) : lo(lo_of(w)), hi(w) {}
+  OP_HD void add2(uint32_t a, uint32_t b) {
+    lo = vimax3_s16x2(lo, lo_of(a), lo_of(b));
+    hi = vimax3_s16x2(hi, a, b);
+  }
+  OP_HD uint32_t word() const { return swar::prmt(lo, hi, 0x7250); }
+};
+
+// the byte max of a thread's 16 bytes of many rows
+struct SegMax {
+  ByteMax m[kSeg];
+  OP_HD explicit SegMax(uint32_t w) : m{ByteMax(w), ByteMax(w), ByteMax(w),
+                                        ByteMax(w)} {}
+  OP_HD void add2(const Seg& a, const Seg& b) {
+    OP_UNROLL
+    for (int k = 0; k < kSeg; ++k) m[k].add2(a.w[k], b.w[k]);
+  }
+  OP_HD Seg seg() const {
+    Seg s;
+    OP_UNROLL
+    for (int k = 0; k < kSeg; ++k) s.w[k] = m[k].word();
+    return s;
+  }
+};
+
+// 16 bytes of shared memory, read again at every call (the card's step 2
+// takes a stripe's threshold rows from there row after row rather than
+// holding them in registers)
+OP_HD Seg lds_seg(const int8_t* p) {
+#if defined(__CUDA_ARCH__)
+  Seg s;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
+               : "r"((uint32_t)__cvta_generic_to_shared(p)));
+  return s;
+#else
+  return load_seg(p);
+#endif
+}
+
+// row j of the threshold stack step 1 (the tick and view: 4 rows) and
+// step 2 (the merge: 8 rows) read
+OP_HD constexpr int tick_vec(int j) {
+  return j == 0 ? V_SA_N : j == 1 ? V_SA_ALL : j == 2 ? V_HI_N : V_THR_G;
+}
+
+OP_HD constexpr int merge_vec(int j) {
+  return j == 0   ? V_SA_N
+         : j == 1 ? V_CMP_DEEP
+         : j == 2 ? V_D8
+         : j == 3 ? V_UP_DEEP
+         : j == 4 ? V_KEEP_THR
+         : j == 5 ? V_HI_THR
+         : j == 6 ? V_HAS_HI
+                  : V_SB8;
+}
+
+// the stack rows step 1 (kMerge false) or step 2 reads, from the stripe's
+// stack staged in shared memory ``vs`` ([N_VEC, kC]) at segment h, as one
+// SwVec a word
+template <bool kMerge>
+OP_HD void load_vecs(const int8_t* vs, int h, SwVec (&vec)[kSeg]) {
+  OP_UNROLL
+  for (int j = 0; j < (kMerge ? 8 : 4); ++j) {
+    const int i = kMerge ? merge_vec(j) : tick_vec(j);
+    const Seg r = lds_seg(vs + i * kC + 4 * kSeg * h);
+    OP_UNROLL
+    for (int k = 0; k < kSeg; ++k) vec[k].v[i] = r.w[k];
+  }
+}
+
+// the first row of local group ``lg`` of CTA ``cta``
+OP_HD int group_row0(int cta, int lg) { return (lg * kCtas + cta) * kAlign; }
+
+// the flags of the 8 rows from row0, packed 4 a word (the same in every
+// stripe: a step-1 thread keeps its first group's)
+struct GroupFlags {
+  uint32_t w[2];
+};
+
+OP_HD GroupFlags group_flags(const int8_t* __restrict__ flags, int row0) {
+  const int8_t* f = flags + row0;
+  return {{swar::pack(f[0], f[1], f[2], f[3]),
+           swar::pack(f[4], f[5], f[6], f[7])}};
+}
+
+// Stage local row ``li`` of CTA ``cta`` at segment h for stripe ``sp``: its
+// asl segment into its park row, 16 bytes by ``copy(dst, src)`` (cp.async
+// on the card: no register holds it).  Step 1 then ticks the parked row in
+// place, with its hb segment read from device memory there: the stripe's
+// reads split between step 1 and step 2, which writes both lanes.  Step 2
+// stages each row for the cluster's next stripe as soon as it has merged
+// it.
+template <typename Copy16>
+OP_HD void stage_row(const int8_t* __restrict__ asl, Stripe sp, Park pk,
+                     int cta, int li, int h, Copy16 copy) {
+  copy(pk.asl + li * kC + 4 * kSeg * h,
+       asl + (size_t)global_row(cta, li) * sp.nc + sp.col0 + 4 * kSeg * h);
+}
+
+// Stage the stripe's threshold stack into ``vs`` ([N_VEC, kC]) as thread
+// ``t`` of ``nt``.
+template <typename Copy16>
+OP_HD void stage_stack(const int8_t* __restrict__ vecs, Stripe sp,
+                       int8_t* vs, int t, int nt, Copy16 copy) {
+  for (int j = t; j < N_VEC * kLanes; j += nt)
+    copy(vs + (j / kLanes) * kC + 4 * kSeg * (j % kLanes),
+         vecs + (size_t)(j / kLanes) * sp.nc + sp.col0 +
+             4 * kSeg * (j % kLanes));
+}
+
+// Stage a whole stripe (the cluster's first) as thread ``t`` of ``nt``:
+// the rows step 2 will merge, and the stack.
+template <typename Copy16>
+OP_HD void stage(const int8_t* __restrict__ asl,
+                 const int8_t* __restrict__ vecs, Stripe sp, Park pk,
+                 int8_t* vs, int cta, int rows, int t, int nt, Copy16 copy) {
+  for (int li = t / kLanes; li < rows; li += nt / kLanes)
+    stage_row(asl, sp, pk, cta, li, t % kLanes, copy);
+  stage_stack(vecs, sp, vs, t, nt, copy);
+}
+
+// The SWAR form's tick and view of a word the diagonal crosses, at byte d
+// (0..3): the lanes functions with the eye.  Out of line (a few words a
+// stripe take it), so that the SWAR step 1, unrolled over its 8 rows,
+// keeps to the instruction cache; the 4 stack rows it reads travel as
+// words, not as the caller's array.
+#if defined(__CUDACC__)
+#define OP_COLD __host__ __device__ __noinline__
+#else
+#define OP_COLD inline
+#endif
+template <bool kSus>
+OP_COLD SwTickView diagonal_word(uint32_t hb, uint32_t asl, int f, bool mute,
+                                 int d, uint32_t sa_n, uint32_t sa_all,
+                                 uint32_t hi_n, uint32_t thr_g, Knobs kn) {
+  SwVec tick;
+  tick.v[V_SA_N] = sa_n;
+  tick.v[V_SA_ALL] = sa_all;
+  tick.v[V_HI_N] = hi_n;
+  tick.v[V_THR_G] = thr_g;
+  return rr_tick_view_lanes_word<kSus>(
+      hb, asl, (f & 1) != 0, (f & 2) != 0, (f & 16) != 0, rr_sends(f, mute),
+      d, tick, kn.t_fail, kn.t_cooldown, kn.confirm, kn.confirm_hi);
+}
+
+// Step 1 for CTA ``cta`` as thread ``t`` of ``nt`` (a multiple of
+// kLanes): the thread takes segment t % kLanes of local groups t / kLanes,
+// + nt / kLanes, ...: hb from device memory (a row ahead), asl from their
+// park rows (stage), with ``fw0`` the flags of the first (group_flags).
+// ``groups`` the CTA's group count (n / 8 / kCtas).  The sink receives,
+// per column of the stripe (0..kC), the detections with the lowest firing
+// global row, and the SUSPECT entries; ``put_group(g, h, max)`` (aligned
+// forms) takes group g's view max at segment h, for every CTA's table.
 template <bool kSus, bool kFull, bool kMute, bool kSwar, typename Sink,
           typename PutGroup>
-OP_HD void step1(const int8_t* __restrict__ hb, const int8_t* __restrict__ asl,
-                 const int8_t* __restrict__ flags,
-                 const int8_t* __restrict__ vecs, Stripe sp, Knobs kn,
-                 Park pk, int cta, int groups, int t, int nt, Sink& sink,
+OP_HD void step1(const int8_t* __restrict__ hb,
+                 const int8_t* __restrict__ flags, const int8_t* vs,
+                 Stripe sp, Knobs kn, Park pk, int cta, int groups, int t,
+                 int nt, const GroupFlags& fw0, Sink& sink,
                  PutGroup put_group) {
-  const int w = t % kWords;
-  const int col = sp.col0 + 4 * w;
-  const SwVec vec = load_vec(vecs, sp.nc, col);
-  for (int lg = t / kWords; lg < groups; lg += nt / kWords) {
-    const int row0 = (lg * kCtas + cta) * kAlign;
-    const size_t off = (size_t)row0 * sp.nc + col;
-    // every row's loads before any use: one group in flight per thread
-    uint32_t h[kAlign], a[kAlign];
-    int f[kAlign];
+  const int h = t % kLanes;
+  SwVec vec[kSeg];
+  load_vecs<false>(vs, h, vec);
+  for (int lg = t / kLanes; lg < groups; lg += nt / kLanes) {
+    const int row0 = group_row0(cta, lg);
+    const GroupFlags fw = lg == t / kLanes ? fw0 : group_flags(flags, row0);
+    // 0/1-per-byte counter words (at most 8 per byte); the first firing
+    // row per byte rides a word of row numbers
+    uint32_t det[kSeg], ent[kSeg], seen[kSeg], first[kSeg];
     OP_UNROLL
+    for (int k = 0; k < kSeg; ++k) det[k] = ent[k] = seen[k] = first[k] = 0;
+    SegMax gm(swar::H);
+    Seg prev{};
+    const int8_t* hrow = hb + (size_t)row0 * sp.nc + sp.col0 + 4 * kSeg * h;
+    Seg ih_next = load_seg(hrow);
+    // the lanes form's tick, unrolled over 8 rows of 16 bytes, outgrows
+    // the instruction cache: one row at a time
+#if defined(__CUDACC__)
+#pragma unroll(kSwar ? kAlign : 1)
+#endif
     for (int r = 0; r < kAlign; ++r) {
-      h[r] = swar::load(hb + off + (size_t)r * sp.nc);
-      a[r] = swar::load(asl + off + (size_t)r * sp.nc);
-      f[r] = flags[row0 + r];
-    }
-    uint32_t enc[kAlign];
-    uint32_t det = 0, ent = 0, seen = 0, first = 0;
-    // the diagonal's byte in the word of row0 + r is d0 + r
-    const int d0 = row0 - (sp.gcol0 + 4 * w);
-    OP_UNROLL
-    for (int r = 0; r < kAlign; ++r) {
-      const bool act = (f[r] & 1) != 0;
-      const bool ref = (f[r] & 2) != 0;
-      const bool lh = (f[r] & 16) != 0;
-      const bool sends = rr_sends(f[r], kMute);
-      const int d = d0 + r;
-      const SwTickView tv =
-          (!kSwar || (unsigned)d < 4u)
-              ? rr_tick_view_lanes_word<kSus>(h[r], a[r], act, ref, lh, sends,
-                                              d, vec, kn.t_fail,
-                                              kn.t_cooldown, kn.confirm,
-                                              kn.confirm_hi)
-              : rr_tick_view_swar<kSus>(h[r], a[r], swar::row(act),
-                                        swar::row(ref), swar::row(lh),
-                                        swar::row(sends), vec, kn.t_fail,
-                                        kn.t_cooldown, kn.confirm,
-                                        kn.confirm_hi);
-      const int li = lg * kAlign + r;
-      swar::store(pk.hb + li * kC + 4 * w, tv.hb);
-      swar::store(pk.asl + li * kC + 4 * w, tv.asl);
-      if (kFull)
-        swar::store(pk.view + li * kC + 4 * w, tv.enc);
-      else
-        enc[r] = tv.enc;
-      // 0/1-per-byte counter words (at most 8 per byte); the first firing
-      // row per byte rides a word of row numbers
-      det += tv.fail >> 7;
-      if (tv.fail) {
-        const uint32_t fresh = tv.fail & ~seen;
-        seen |= tv.fail;
-        first = swar::sel(swar::bytes(fresh), swar::word(r), first);
+      const int f = (int)((fw.w[r >> 2] >> (8 * (r & 3))) & 0xFF);
+      const bool act = (f & 1) != 0;
+      const bool ref = (f & 2) != 0;
+      const bool lh = (f & 16) != 0;
+      const bool sends = rr_sends(f, kMute);
+      const int at = (lg * kAlign + r) * kC + 4 * kSeg * h;
+      const Seg ih = ih_next;
+      if (r + 1 < kAlign) ih_next = load_seg(hrow + (size_t)(r + 1) * sp.nc);
+      const Seg ia = load_seg(pk.asl + at);
+      // the diagonal's byte in word k of row0 + r is d0 - 4k
+      const int d0 = row0 + r - (sp.gcol0 + 4 * kSeg * h);
+      Seg th, ta, enc;
+      OP_UNROLL
+      for (int k = 0; k < kSeg; ++k) {
+        const int d = d0 - 4 * k;
+        // the word the diagonal crosses takes the lanes functions with the
+        // eye at byte d; any other the SWAR tick, or the lanes functions
+        // with no eye (d = 4: the bump compiled away)
+        const SwTickView tv =
+            (unsigned)d < 4u
+                ? (kSwar ? diagonal_word<kSus>(
+                               ih.w[k], ia.w[k], f, kMute, d, vec[k].v[V_SA_N],
+                               vec[k].v[V_SA_ALL], vec[k].v[V_HI_N],
+                               vec[k].v[V_THR_G], kn)
+                         : rr_tick_view_lanes_word<kSus>(
+                               ih.w[k], ia.w[k], act, ref, lh, sends, d,
+                               vec[k], kn.t_fail, kn.t_cooldown, kn.confirm,
+                               kn.confirm_hi))
+            : kSwar ? rr_tick_view_swar<kSus>(
+                          ih.w[k], ia.w[k], swar::row(act), swar::row(ref),
+                          swar::row(lh), swar::row(sends), vec[k], kn.t_fail,
+                          kn.t_cooldown, kn.confirm, kn.confirm_hi)
+                    : rr_tick_view_lanes_word<kSus>(
+                          ih.w[k], ia.w[k], act, ref, lh, sends, 4, vec[k],
+                          kn.t_fail, kn.t_cooldown, kn.confirm,
+                          kn.confirm_hi);
+        th.w[k] = tv.hb;
+        ta.w[k] = tv.asl;
+        enc.w[k] = tv.enc;
+        det[k] += tv.fail >> 7;
+        if (tv.fail) {
+          const uint32_t fresh = tv.fail & ~seen[k];
+          seen[k] |= tv.fail;
+          first[k] = swar::sel(swar::bytes(fresh), swar::word(r), first[k]);
+        }
+        if (kSus) ent[k] += tv.entered >> 7;
       }
-      if (kSus) ent += tv.entered >> 7;
+      store_seg(pk.hb + at, th);
+      store_seg(pk.asl + at, ta);
+      if (kFull)
+        store_seg(pk.view + at, enc);
+      else if (r & 1)
+        gm.add2(prev, enc);
+      else
+        prev = enc;
     }
-    if (!kFull) put_group(lg * kCtas + cta, w, enc);
-    if (!(det | ent)) continue;
-    for (int k = 0; k < 4; ++k) {
-      const int s = 8 * k;
-      const int c = (int)((det >> s) & 0xFF);
-      if (c) sink.det(4 * w + k, c, row0 + (int)((first >> s) & 0xFF));
-      const int e = (int)((ent >> s) & 0xFF);
-      if (kSus && e) sink.entered(4 * w + k, e);
+    if (!kFull) put_group(lg * kCtas + cta, h, gm.seg());
+    OP_UNROLL
+    for (int k = 0; k < kSeg; ++k) {
+      if (!(det[k] | ent[k])) continue;
+      for (int b = 0; b < 4; ++b) {
+        const int s = 8 * b;
+        const int c = 4 * (kSeg * h + k) + b;
+        const int cd = (int)((det[k] >> s) & 0xFF);
+        if (cd) sink.det(c, cd, row0 + (int)((first[k] >> s) & 0xFF));
+        const int e = (int)((ent[k] >> s) & 0xFF);
+        if (kSus && e) sink.entered(c, e);
+      }
     }
   }
 }
 
 // A receiver row's inputs to the merge, loaded a row ahead by each of the
-// row's kWords lanes: its flags, its arc or group base ``s0`` and match
-// mask ``s1``, and for explicit edges the in-edges of the lane's two slots
-// of the first chunk, f = lane and lane + kWords (-1 past the fanout).
+// row's kLanes threads: its flags, its arc or group base ``s0`` and match
+// mask ``s1``, and for explicit edges the in-edges of the first chunk
+// (-1 past the fanout).
 template <int kForm>
 struct Meta {
   int flags = 0;
   int s0 = 0, s1 = 0;
-  int ids[2] = {-1, -1};
+  int ids[kChunk];
 };
 
 template <int kForm>
 OP_HD Meta<kForm> load_meta(const int8_t* __restrict__ flags,
                             const int32_t* __restrict__ senders, int row,
-                            int width, int lane) {
+                            int width) {
   Meta<kForm> m;
   m.flags = flags[row];
   if (kForm == kFormEdges) {
-    for (int i = 0; i < 2; ++i) {
-      const int f = lane + kWords * i;
-      if (f < width) m.ids[i] = senders[(size_t)row * width + f];
-    }
+    OP_UNROLL
+    for (int i = 0; i < kChunk; ++i)
+      m.ids[i] = i < width ? senders[(size_t)row * width + i] : -1;
   } else if (mutes(kForm)) {
     m.s0 = senders[2 * (size_t)row];
     m.s1 = senders[2 * (size_t)row + 1];
@@ -241,35 +494,41 @@ OP_HD Meta<kForm> load_meta(const int8_t* __restrict__ flags,
   return m;
 }
 
-// best over the group maxes of an aligned form's receiver (a live one: a
-// dead receiver's best is never read), ``view(g)`` group g of the CTA's
-// own table at this thread's word: the max with no floor over its F/8
-// groups, or (filter_group) over the groups its mask keeps, from -1.
-template <int kForm, typename ViewWord>
-OP_HD uint32_t gather_groups(const Meta<kForm>& m, int n, Knobs kn,
-                             ViewWord view) {
-  const int nb = n / kAlign;
-  const int g0 = m.s0 / kAlign;
-  uint32_t best = mutes(kForm) ? 0xFFFFFFFFu : swar::H;
-  for (int k = 0; k < kn.width; ++k) {
-    if (mutes(kForm) && !((m.s1 >> k) & 1)) continue;
-    const int g = g0 + k;
-    best = swar::maxs(best, view(g >= nb ? g - nb : g));
-  }
-  return best;
+// The group behind window group ``k`` of an aligned form's receiver, or -1
+// (past its F/8 groups, or a group its filter_group mask drops).
+template <int kForm>
+OP_HD int group_slot(const Meta<kForm>& m, int nb, Knobs kn, int k) {
+  if (k >= kn.width || (mutes(kForm) && !((m.s1 >> k) & 1))) return -1;
+  const int g = m.s0 / kAlign + k;
+  return g >= nb ? g - nb : g;
 }
 
-// The view row behind slot ``lane + kWords * i`` of the chunk from f0, as
-// lane ``lane`` of a row-form receiver's kWords lanes holds it (its own
-// Meta), or -1: explicit edges (the first chunk's from the Meta, later
-// ones read here), (base + f) mod n for plain arcs and filter_rows, the
-// latter only where its mask keeps window group f >> group_shift; a slot
-// past the fanout or a sender outside [0, n) is -1.  A lane's two slots
-// cover a chunk of kChunk == 2 * kWords senders.
+// best over the group maxes of an aligned form's receiver (a live one: a
+// dead receiver's best is never read), two groups a step: the max with no
+// floor over its F/8 groups, or (filter_group) over the groups its mask
+// keeps, from -1.  ``addr(g)`` the address of group g's row at this
+// thread's segment (g < 0: a row holding gather_none), ``load(a)`` its 16
+// bytes.
+template <int kForm, typename RowAddr, typename LoadSeg>
+OP_HD Seg gather_groups(const Meta<kForm>& m, int n, Knobs kn, RowAddr addr,
+                        LoadSeg load) {
+  const int nb = n / kAlign;
+  SegMax best(gather_none(kForm));
+  for (int k = 0; k < kn.width; k += 2)
+    best.add2(load(addr(group_slot<kForm>(m, nb, kn, k))),
+              load(addr(group_slot<kForm>(m, nb, kn, k + 1))));
+  return best.seg();
+}
+
+// The view row behind slot f0 + i of a row-form receiver (its Meta), or
+// -1: explicit edges (the first chunk's from the Meta, later ones read
+// here), (base + f) mod n for plain arcs and filter_rows, the latter only
+// where its mask keeps window group f >> group_shift; a slot past the
+// fanout or a sender outside [0, n) is -1.
 template <int kForm>
 OP_HD int lane_slot(const Meta<kForm>& m, const int32_t* __restrict__ senders,
-                    int row, int n, Knobs kn, int f0, int lane, int i) {
-  const int f = f0 + lane + kWords * i;
+                    int row, int n, Knobs kn, int f0, int i) {
+  const int f = f0 + i;
   if (f >= kn.width) return -1;
   int s;
   if (kForm == kFormEdges) {
@@ -283,27 +542,29 @@ OP_HD int lane_slot(const Meta<kForm>& m, const int32_t* __restrict__ senders,
   return (unsigned)s < (unsigned)n ? s : -1;
 }
 
-// best over the view rows of a row-form receiver (a live one), the slots
-// taken as the card's kWords lanes share them: slot k of a chunk is lane
-// k % kWords's slot k / kWords, from that lane's Meta (loaded here per
-// slot; the card shuffles it).  Explicit edges and plain arcs take the max
-// with no floor, filter_rows from -1 (a dropped group's contribution).
-// ``view(s)`` view row s at this thread's word.
-template <int kForm, typename ViewWord>
-OP_HD uint32_t gather_rows(const int8_t* __restrict__ flags,
-                           const int32_t* __restrict__ senders, int row,
-                           int n, Knobs kn, ViewWord view) {
-  uint32_t best = mutes(kForm) ? 0xFFFFFFFFu : swar::H;
-  for (int f0 = 0; f0 < kn.width; f0 += kChunk)
-    for (int k = 0; k < kChunk; ++k) {
-      const int lane = k % kWords;
-      const Meta<kForm> lm = load_meta<kForm>(flags, senders, row, kn.width,
-                                              lane);
-      const int s = lane_slot<kForm>(lm, senders, row, n, kn, f0, lane,
-                                     k / kWords);
-      if (s >= 0) best = swar::maxs(best, view(s));
-    }
-  return best;
+// best over the view rows of a row-form receiver (a live one), kChunk rows
+// a batch: every row's address, then every row's 16 bytes, then the byte
+// max.  Explicit edges and plain arcs take the max with no floor,
+// filter_rows from -1 (a dropped group's contribution).  ``addr(s)`` the
+// address of view row s at this thread's segment (s < 0: a row holding
+// gather_none), ``load(a)`` its 16 bytes.
+template <int kForm, typename RowAddr, typename LoadSeg>
+OP_HD Seg gather_rows(const Meta<kForm>& m,
+                      const int32_t* __restrict__ senders, int row, int n,
+                      Knobs kn, RowAddr addr, LoadSeg load) {
+  SegMax best(gather_none(kForm));
+  for (int f0 = 0; f0 < kn.width; f0 += kChunk) {
+    decltype(addr(0)) a[kChunk];
+    OP_UNROLL
+    for (int i = 0; i < kChunk; ++i)
+      a[i] = addr(lane_slot<kForm>(m, senders, row, n, kn, f0, i));
+    Seg v[kChunk];
+    OP_UNROLL
+    for (int i = 0; i < kChunk; ++i) v[i] = load(a[i]);
+    OP_UNROLL
+    for (int i = 0; i < kChunk; i += 2) best.add2(v[i], v[i + 1]);
+  }
+  return best.seg();
 }
 
 struct MergeWord {
@@ -312,7 +573,9 @@ struct MergeWord {
 };
 
 // the merge epilogue on one word of parked (post-tick) lanes and the
-// listed / SUSPECT / refuted bytes of its result
+// listed / SUSPECT / refuted bytes of its result.  The lanes form runs
+// rr_merge_t byte by byte (bytes unpacked and packed by prmt); the listed
+// and SUSPECT bytes of either form are read off the merged status word.
 template <bool kSus, bool kSwar>
 OP_HD MergeWord merge_word(uint32_t hb, uint32_t asl, uint32_t best, bool recv,
                            const SwVec& vec, int age_clamp) {
@@ -320,117 +583,144 @@ OP_HD MergeWord merge_word(uint32_t hb, uint32_t asl, uint32_t best, bool recv,
   if (kSwar) {
     const SwMerge m = rr_merge_swar_t<kSus>(hb, asl, best, swar::row(recv),
                                             vec, age_clamp);
-    const uint32_t st = m.asl & swar::word(3);
     out.hb = m.hb;
     out.asl = m.asl;
-    out.listed = kSus ? st & swar::L : swar::eq(st, swar::word(RR_MEMBER)) >> 7;
-    if (kSus) {
-      out.held = swar::eq(st, swar::word(RR_SUSPECT)) >> 7;
-      out.refuted = m.refuted & swar::L;
+    if (kSus) out.refuted = m.refuted & swar::L;
+  } else {
+    int mh[4], ma[4], mr[4];
+    OP_UNROLL
+    for (int k = 0; k < 4; ++k) {
+      int v[N_VEC] = {};
+      OP_UNROLL
+      for (int j = 0; j < 8; ++j)
+        v[merge_vec(j)] = swar::byte_at(vec.v[merge_vec(j)], k);
+      const RrMerge m = rr_merge_t<kSus>(swar::byte_at(hb, k),
+                                         swar::byte_at(asl, k),
+                                         swar::byte_at(best, k), recv, v,
+                                         age_clamp);
+      mh[k] = m.hb;
+      ma[k] = m.asl;
+      mr[k] = m.refuted;
     }
-    return out;
+    out.hb = swar::pack(mh[0], mh[1], mh[2], mh[3]);
+    out.asl = swar::pack(ma[0], ma[1], ma[2], ma[3]);
+    if (kSus) out.refuted = swar::pack(mr[0], mr[1], mr[2], mr[3]);
   }
-  for (int k = 0; k < 4; ++k) {
-    int v[N_VEC];
-    for (int i = 0; i < N_VEC; ++i) v[i] = swar::byte_at(vec.v[i], k);
-    const RrMerge m = rr_merge_t<kSus>(swar::byte_at(hb, k),
-                                       swar::byte_at(asl, k),
-                                       swar::byte_at(best, k), recv, v,
-                                       age_clamp);
-    const int s = 8 * k;
-    const int st = m.asl & 3;
-    out.hb |= (uint32_t)(m.hb & 0xFF) << s;
-    out.asl |= (uint32_t)(m.asl & 0xFF) << s;
-    out.listed |= (uint32_t)(kSus ? (st & 1) : st == RR_MEMBER) << s;
-    if (kSus) {
-      out.held |= (uint32_t)(st == RR_SUSPECT) << s;
-      out.refuted |= (uint32_t)m.refuted << s;
-    }
-  }
+  const uint32_t st = out.asl & swar::word(3);
+  out.listed =
+      kSus ? st & swar::L : swar::eq(st, swar::word(RR_MEMBER)) >> 7;
+  if (kSus) out.held = swar::eq(st, swar::word(RR_SUSPECT)) >> 7;
   return out;
 }
 
-// Step 2 for CTA ``cta`` as thread ``t`` of ``nt``: word t % kWords of
-// local rows t / kWords, + nt / kWords, ...  ``rows`` the CTA's row count
-// (n / kCtas).  Writes each row's merged word to hb and asl; the sink
+// the sum of a word's bytes (each at most 63)
+OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
+
+// Step 2 for CTA ``cta`` as thread ``t`` of ``nt``: segment t % kLanes of
+// local rows t / kLanes, + nt / kLanes, ...  ``rows`` the CTA's row count
+// (n / kCtas).  Writes each row's merged segment to hb and asl; the sink
 // receives once per loop trip from every thread (valid or not, so a
-// warp-wide reduction may run there) the row's listed and SUSPECT bytes,
-// and at the end the thread's per-column member, refuted and held counts.
-// ``gather(meta, row, w)`` is best for a live receiver row at word w
-// (gather_groups or gather_rows, or the card's form of them); each row's
-// Meta is loaded while the row before it merges.
-template <bool kSus, int kForm, bool kSwar, typename Gather, typename Sink>
+// warp-wide reduction may run there) the row's listed and SUSPECT counts
+// over the segment, and at the end, from every thread, its segment's
+// per-column member, refuted and held counter words (0..255 a byte).
+// ``gather(meta, row, h)`` is best for a live receiver row at segment h
+// (gather_groups or gather_rows over the card's addresses); each row's
+// Meta is loaded while the row before it merges; ``restage(li, h)`` runs
+// once the row's park segment is read and its outputs stored (stage_row
+// for the next stripe, or nothing).
+template <bool kSus, int kForm, bool kSwar, typename Gather, typename Sink,
+          typename Restage>
 OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
-                 const int8_t* __restrict__ flags,
-                 const int8_t* __restrict__ vecs,
+                 const int8_t* __restrict__ flags, const int8_t* vs,
                  const int32_t* __restrict__ senders, Stripe sp, Knobs kn,
                  Park pk, int cta, int rows, int t, int nt, Gather gather,
-                 Sink& sink) {
-  const int w = t % kWords;
-  const int col = sp.col0 + 4 * w;
-  const int step = nt / kWords;
-  const SwVec vec = load_vec(vecs, sp.nc, col);
+                 Sink& sink, Restage restage) {
+  const int h = t % kLanes;
+  const int col = sp.col0 + 4 * kSeg * h;
+  const int step = nt / kLanes;
+  // the SWAR form holds the merge's stack rows; the lanes form, short of
+  // registers, reads them again each row
+  SwVec vec[kSeg];
+  if (kSwar) load_vecs<true>(vs, h, vec);
   // 0/1-per-byte counter words: at most rows / step per byte
-  uint32_t cw = 0, rw = 0, hw = 0;
+  uint32_t cw[kSeg], rw[kSeg], hw[kSeg];
+  OP_UNROLL
+  for (int k = 0; k < kSeg; ++k) cw[k] = rw[k] = hw[k] = 0;
   Meta<kForm> next;
-  if (t / kWords < rows)
-    next = load_meta<kForm>(flags, senders, global_row(cta, t / kWords),
-                            kn.width, w);
+  if (t / kLanes < rows)
+    next = load_meta<kForm>(flags, senders, global_row(cta, t / kLanes),
+                            kn.width);
   for (int li0 = 0; li0 < rows; li0 += step) {
-    const int li = li0 + t / kWords;
+    const int li = li0 + t / kLanes;
     const bool valid = li < rows;
     const int row = valid ? global_row(cta, li) : 0;
     const Meta<kForm> m = next;
     if (li + step < rows)
       next = load_meta<kForm>(flags, senders, global_row(cta, li + step),
-                              kn.width, w);
+                              kn.width);
     int listed = 0, held = 0;
     if (valid) {
       const bool recv = (m.flags & 4) != 0;
-      const uint32_t best = recv ? gather(m, row, w) : 0xFFFFFFFFu;
-      const MergeWord mw = merge_word<kSus, kSwar>(
-          swar::load(pk.hb + li * kC + 4 * w),
-          swar::load(pk.asl + li * kC + 4 * w), best, recv, vec,
-          kn.age_clamp);
-      const size_t off = (size_t)row * sp.nc + col;
-      swar::store(hb + off, mw.hb);
-      swar::store(asl + off, mw.asl);
-      if (recv) cw += mw.listed;
-      listed = (int)((mw.listed * swar::L) >> 24);  // the bytes' sum
-      if (kSus) {
-        rw += mw.refuted;
-        hw += mw.held;
-        held = (int)((mw.held * swar::L) >> 24);
+      const Seg best = recv ? gather(m, row, h) : splat(0xFFFFFFFFu);
+      const int at = li * kC + 4 * kSeg * h;
+      const Seg ph = load_seg(pk.hb + at);
+      const Seg pa = load_seg(pk.asl + at);
+      if (!kSwar) load_vecs<true>(vs, h, vec);
+      Seg oh, oa;
+      uint32_t ls = 0, hs = 0;
+      OP_UNROLL
+      for (int k = 0; k < kSeg; ++k) {
+        const MergeWord mw = merge_word<kSus, kSwar>(
+            ph.w[k], pa.w[k], best.w[k], recv, vec[k], kn.age_clamp);
+        oh.w[k] = mw.hb;
+        oa.w[k] = mw.asl;
+        if (recv) cw[k] += mw.listed;
+        ls += mw.listed;
+        if (kSus) {
+          rw[k] += mw.refuted;
+          hw[k] += mw.held;
+          hs += mw.held;
+        }
       }
+      const size_t off = (size_t)row * sp.nc + col;
+      store_seg(hb + off, oh);
+      store_seg(asl + off, oa);
+      restage(li, h);
+      listed = byte_sum(ls);
+      held = byte_sum(hs);
     }
     sink.row(row, valid, listed, held);
   }
-  for (int k = 0; k < 4; ++k) {
-    const int s = 8 * k;
-    sink.subj(4 * w + k, (int)((cw >> s) & 0xFF), (int)((rw >> s) & 0xFF),
-              (int)((hw >> s) & 0xFF));
-  }
+  sink.subj(h, cw, rw, hw);
 }
 
-// One stripe output: column ``c`` (0..kC) of stat ``s`` (a row of the
-// count block) from the cluster's count blocks, ``cta_counts(q)`` the
-// block of CTA q: the sum over the CTAs, or for the first observer their
-// min (n where no row fired: the blocks start there).
+// One stripe output: column ``c`` (0..kC) of output stat ``s`` (member_cnt,
+// n_det, first_obs, entered, refuted, held) from the cluster's count
+// blocks, ``cta_counts(q)`` the block of CTA q: the sum over the CTAs, or
+// for the first observer their min (n where no row fired: the blocks start
+// there).
 template <typename CtaCounts>
 OP_HD int finish(int s, int c, CtaCounts cta_counts) {
-  int acc = cta_counts(0)[s * kC + c];
-  for (int q = 1; q < kCtas; ++q) {
-    const int v = cta_counts(q)[s * kC + c];
-    acc = s == kFobs ? (v < acc ? v : acc) : acc + v;
+  if (s == 2) {
+    int acc = (int)cta_counts(0)[kFobsAt + c];
+    for (int q = 1; q < kCtas; ++q) {
+      const int v = (int)cta_counts(q)[kFobsAt + c];
+      acc = v < acc ? v : acc;
+    }
+    return acc;
   }
+  const int at = (s < 2 ? s : s - 1) * kPairs + c / 2;
+  int acc = 0;
+  for (int q = 0; q < kCtas; ++q)
+    acc += (int)((cta_counts(q)[at] >> (16 * (c & 1))) & 0xFFFF);
   return acc;
 }
 
-// the shared memory of one CTA for ``n`` rows: parked lanes, the view and
-// the count block
+// the shared memory of one CTA for ``n`` rows: parked lanes, the view, the
+// stripe's threshold stack, the gathers' start row and two count blocks
 OP_HD constexpr long smem_bytes(long n, bool full) {
-  return (2 * (n / kCtas) + view_rows(n, full)) * kC +
-         (long)kStatsMax * kC * 4;
+  return (2 * (n / kCtas) + view_rows(n, full) + N_VEC + 1) * kC +
+         2L * kBlockWords * 4;
 }
 
 }  // namespace onepass

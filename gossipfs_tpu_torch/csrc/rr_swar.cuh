@@ -85,8 +85,38 @@ SW_HD uint32_t mins(uint32_t x, uint32_t y) {
   return sel(bytes(les(x, y)), x, y);
 }
 
-// byte k of a word, sign-extended
-SW_HD int byte_at(uint32_t w, int k) { return (int)(int8_t)(w >> (8 * k)); }
+// PTX prmt.b32 (default mode): byte i of the result is byte (s & 7) of
+// the 8 bytes {a, b}, or its sign replicated where s & 8 (s the selector's
+// nibble i).  One instruction on the card.
+SW_HD uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+#else
+  const uint64_t x = (uint64_t)b << 32 | a;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t s = (sel >> (4 * i)) & 15;
+    uint32_t v = (uint32_t)(x >> (8 * (s & 7))) & 0xFF;
+    if (s & 8) v = (v & 0x80) ? 0xFF : 0;
+    r |= v << (8 * i);
+  }
+  return r;
+#endif
+}
+
+// byte k of a word, sign-extended (one prmt)
+SW_HD int byte_at(uint32_t w, int k) {
+  const uint32_t sx = (uint32_t)(k | 8);
+  return (int)prmt(w, 0, (uint32_t)k | sx << 4 | sx << 8 | sx << 12);
+}
+
+// the low bytes of four ints as one word, byte 0 first (three prmt)
+SW_HD uint32_t pack(int b0, int b1, int b2, int b3) {
+  return prmt(prmt((uint32_t)b0, (uint32_t)b1, 0x0040),
+              prmt((uint32_t)b2, (uint32_t)b3, 0x0040), 0x5410);
+}
 
 // 4 consecutive int8 lanes as one word (p is 4-byte aligned)
 SW_HD uint32_t load(const int8_t* p) {
@@ -177,9 +207,10 @@ SW_HD SwTickView rr_tick_view_swar(uint32_t hb, uint32_t asl, uint32_t act,
   return out;
 }
 
-// The same for a word the diagonal crosses, at byte ``d`` (0..3): the
-// lanes functions of rr_elem.cuh byte by byte (the bump needs the
-// per-byte eye), packed back into words.
+// The same for a word the diagonal crosses, at byte ``d`` (0..3; any
+// other ``d`` crosses none): the lanes functions of rr_elem.cuh byte by
+// byte (the bump needs the per-byte eye), bytes unpacked and packed back
+// into words by prmt.
 template <bool kSus>
 SW_HD SwTickView rr_tick_view_lanes_word(uint32_t hb, uint32_t asl, bool act,
                                          bool ref, bool lh, bool sends,
@@ -187,7 +218,10 @@ SW_HD SwTickView rr_tick_view_lanes_word(uint32_t hb, uint32_t asl, bool act,
                                          int t_cooldown, int confirm_thr,
                                          int confirm_thr_hi) {
   using swar::byte_at;
-  SwTickView out{0, 0, 0, 0, 0};
+  int oh[4], oa[4], oe[4], of[4], on[4];
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
   for (int k = 0; k < 4; ++k) {
     int th, ta;
     bool fail, elig, entered = false;
@@ -213,13 +247,18 @@ SW_HD SwTickView rr_tick_view_lanes_word(uint32_t hb, uint32_t asl, bool act,
     const int enc = rr_view(th, elig, sends, byte_at(vec.v[V_SA_N], k),
                             byte_at(vec.v[V_SA_ALL], k),
                             byte_at(vec.v[V_HI_N], k));
-    const int s = 8 * k;
-    out.hb |= (uint32_t)(th & 0xFF) << s;
-    out.asl |= (uint32_t)(ta & 0xFF) << s;
-    out.enc |= (uint32_t)(enc & 0xFF) << s;
-    out.fail |= fail ? 0x80u << s : 0u;
-    out.entered |= entered ? 0x80u << s : 0u;
+    oh[k] = th;
+    oa[k] = ta;
+    oe[k] = enc;
+    of[k] = fail ? 0x80 : 0;
+    on[k] = entered ? 0x80 : 0;
   }
+  SwTickView out;
+  out.hb = swar::pack(oh[0], oh[1], oh[2], oh[3]);
+  out.asl = swar::pack(oa[0], oa[1], oa[2], oa[3]);
+  out.enc = swar::pack(oe[0], oe[1], oe[2], oe[3]);
+  out.fail = swar::pack(of[0], of[1], of[2], of[3]);
+  out.entered = kSus ? swar::pack(on[0], on[1], on[2], on[3]) : 0u;
   return out;
 }
 

@@ -67,10 +67,12 @@ The square round is ``col_offset=0``, C = N.
 
 ``onepass=True`` runs K3's one-pass form (f) (the JAX kernel's
 ``resident=True``): ``csrc/rr_onepass.cu``, one kernel launch a round
-(after a memset of the per-receiver counts it adds into) in which a
-thread-block cluster of ``ONEPASS_CTAS`` CTAs parks a ``ONEPASS_C``-column
-stripe of the ticked lanes in shared memory and merges from there, so each
-packed lane crosses HBM once each way.  It takes the shapes
+(after a memset of the per-receiver counts it adds into) in which
+persistent thread-block clusters of ``ONEPASS_CTAS`` CTAs each park
+``ONEPASS_C``-column stripes of the ticked lanes in shared memory, one
+after another, and merge from there, so each packed lane crosses HBM once
+each way; ``hb``, ``asl`` and ``vecs`` must start 16-byte aligned (the
+kernel moves 16-byte row segments).  It takes the shapes
 :func:`onepass_fits` admits (N = 16,384 square and its column blocks; not
 N = 65,536); the lean loop routes to it under ``SimConfig.rr_resident``
 (core/rounds.onepass).  Its outputs are the two-launch form's bit for bit.
@@ -118,15 +120,19 @@ SWAR_FORMS = tuple(f + "/swar" for f in FORMS)
 ONEPASS_FORMS = tuple(f + "/onepass" for f in FORMS + SWAR_FORMS)
 
 # The one-pass kernel's geometry: a cluster of ONEPASS_CTAS CTAs owns a
-# stripe of ONEPASS_C subject columns over all N rows, each CTA parking its
-# N / ONEPASS_CTAS rows of the ticked lanes and an [N / 8, ONEPASS_C] view
-# (its rows' slice, or the whole group-max table) in shared memory, at most
-# ONEPASS_SMEM bytes a CTA (the H100's 227 KB a block may use).
-# csrc/rr_onepass.cuh smem_bytes is the same sum.
+# stripe of ONEPASS_C subject columns over all N rows at a time, each CTA
+# parking its N / ONEPASS_CTAS rows of the ticked lanes and an
+# [N / 8, ONEPASS_C] view (its rows' slice, or the whole group-max table) in
+# shared memory, at most ONEPASS_SMEM bytes a CTA (the H100's 227 KB a
+# block may use).  csrc/rr_onepass.cuh smem_bytes is the same sum.
 ONEPASS_C = 32
 ONEPASS_CTAS = 8
 ONEPASS_SMEM = 232_448
-ONEPASS_COUNT_BYTES = 6 * ONEPASS_C * 4      # a CTA's count block
+# a CTA's two count blocks (five sums as 16-bit column pairs, the first
+# observers as int32), and the stripe's 11-row threshold stack with the row
+# of the gathers' start value
+ONEPASS_COUNT_BYTES = 2 * (5 * ONEPASS_C // 2 + ONEPASS_C) * 4
+ONEPASS_STACK_BYTES = 12 * ONEPASS_C
 # the one-pass kernel's optional timeline: globaltimer stamps a CTA and
 # stripe (start, step 1 done, view ready, step 2 done, end)
 ONEPASS_STAMPS = 5
@@ -477,11 +483,13 @@ def onepass_smem(n: int, form: str) -> int:
     """Shared memory a CTA of the one-pass kernel needs for ``n`` rows in
     merge ``form``: both ticked lanes of its ``n / ONEPASS_CTAS`` rows over
     the stripe, its view (its rows' slice in the full-view forms, the
-    stripe's whole 8-row group-max table in the aligned ones) and its count
-    block."""
+    stripe's whole 8-row group-max table in the aligned ones), the stripe's
+    11-row threshold stack, the gathers' start row and its two count
+    blocks."""
     rows = n // ONEPASS_CTAS
     view = rows if form in FULL_VIEW_FORMS else n // KERNEL_ALIGN
-    return (2 * rows + view) * ONEPASS_C + ONEPASS_COUNT_BYTES
+    return ((2 * rows + view) * ONEPASS_C + ONEPASS_STACK_BYTES
+            + ONEPASS_COUNT_BYTES)
 
 
 def onepass_fits(n: int, c: int, form: str,
@@ -491,7 +499,7 @@ def onepass_fits(n: int, c: int, form: str,
     ``form`` (one of :data:`FORMS`), either ``elementwise`` form: the
     cluster's row split and the stripe width must divide the shape, and a
     CTA's shared memory (:func:`onepass_smem`) must fit the card's: up to
-    N = 19,264 (197,376 B a CTA at N = 16,384), so N = 65,536 takes the
+    N = 19,264 (197,888 B a CTA at N = 16,384), so N = 65,536 takes the
     two-launch form."""
     if form not in FORMS:
         raise ValueError(f"onepass_fits: form must be one of {FORMS}, got "
@@ -908,14 +916,17 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
 def onepass_timeline_split(timeline: torch.Tensor) -> dict:
     """Median microseconds a stripe spends in each step of the one-pass
     kernel, from a ``timeline`` :func:`resident_round` filled (stamps of
-    each stripe's CTA 0): ``step1`` (read, tick, park, view), ``sync``
-    (the cluster barrier), ``step2`` (gather, merge, write), ``tail``
-    (the counts' reduction and the last barrier) and ``stripe`` (the
-    whole)."""
+    each stripe's CTA 0): ``step1`` (the previous stripe's counts
+    reduced, then tick, park, view), ``sync`` (the cluster barrier),
+    ``step2`` (gather, merge, write, the next stripe's lanes staged),
+    ``tail`` (the last barrier and the next stripe's stack staged),
+    ``stripe`` (the whole) and ``span`` (the first stripe's start to the
+    last one's end: the launch, as its clusters walk their stripes)."""
     t = timeline[:, 0, :].double().cpu() / 1e3
     med = (t[:, 1:] - t[:, :-1]).median(dim=0).values.tolist()
     return dict(step1=med[0], sync=med[1], step2=med[2], tail=med[3],
-                stripe=float((t[:, -1] - t[:, 0]).median()))
+                stripe=float((t[:, -1] - t[:, 0]).median()),
+                span=float(t[:, -1].max() - t[:, 0].min()))
 
 
 def onepass_clusters(n: int, c: int, form: str, *, fanout: int,

@@ -6,11 +6,15 @@ and the cluster's final reduction live in ``__host__ __device__`` functions
 of ``csrc/rr_onepass.cuh``, which g++ compiles here: the very code the card
 runs.  The harness replays a round with the thread-block cluster replaced
 by ``kCtas`` host arrays of parked lanes, view slices and count blocks:
-step 1 for every CTA and thread, then step 2, then the reduction, stripe
-after stripe, with the kernel's thread count.  Every merge form, lanes and
-SWAR, crash-only, suspicion and suspicion + Lifeguard, the square round and
-a column block from a global offset, against ``resident_round_plain``;
-exact equality throughout.
+each persistent cluster walks its stripes (c, c + clusters, ...) as the
+card does, with two count blocks a CTA by stripe parity and each row's
+lanes staged into the park for the next stripe as step 2 merges it; per
+stripe, step 1 for every CTA and thread, then step 2, then the
+reduction, with the kernel's thread count and thread map (two threads a
+row, 16 bytes each).  Every merge form, lanes and SWAR, crash-only,
+suspicion and suspicion + Lifeguard, the square round and a column block
+from a global offset, against ``resident_round_plain``; exact equality
+throughout.
 """
 
 from __future__ import annotations
@@ -32,26 +36,29 @@ torch.set_num_threads(1)
 
 CSRC = Path(__file__).resolve().parent.parent / "gossipfs_tpu_torch" / "csrc"
 # rr_onepass.cu's threads a CTA, by elementwise form
-THREADS = {"lanes": 512, "swar": 768}
+THREADS = {"lanes": 512, "swar": 512}
 
 HARNESS = r"""
 #include <cstdint>
+#include <cstring>
 #include <vector>
 #include "rr_onepass.cuh"
 
 using namespace onepass;
 
 struct TickSink {
-  int32_t* cnt;
+  uint32_t* cnt;
   void det(int c, int count, int first_row) {
-    cnt[kDet * kC + c] += count;
-    if (first_row < cnt[kFobs * kC + c]) cnt[kFobs * kC + c] = first_row;
+    cnt[kSumDet * kPairs + c / 2] += pair_addend(c, count);
+    if (first_row < (int)cnt[kFobsAt + c]) cnt[kFobsAt + c] = first_row;
   }
-  void entered(int c, int count) { cnt[kEntered * kC + c] += count; }
+  void entered(int c, int count) {
+    cnt[kSumEntered * kPairs + c / 2] += pair_addend(c, count);
+  }
 };
 
 struct MergeSink {
-  int32_t* cnt;
+  uint32_t* cnt;
   int32_t* recv;   // [n] recv_cnt
   int32_t* held;   // [n] suspect_cnt, or null
   void row(int r, bool valid, int listed, int h) {
@@ -59,25 +66,44 @@ struct MergeSink {
     recv[r] += listed;
     if (held) held[r] += h;
   }
-  void subj(int c, int member, int refuted, int h) {
-    cnt[kMember * kC + c] += member;
-    cnt[kRefuted * kC + c] += refuted;
-    cnt[kHeld * kC + c] += h;
+  void add(int sum, int h, const uint32_t (&w)[kSeg]) {
+    for (int k = 0; k < kSeg; ++k)
+      for (int b = 0; b < 4; ++b) {
+        const int c = 4 * (kSeg * h + k) + b;
+        cnt[sum * kPairs + c / 2] +=
+            pair_addend(c, (int)((w[k] >> (8 * b)) & 0xFF));
+      }
+  }
+  void subj(int h, const uint32_t (&member)[kSeg],
+            const uint32_t (&refuted)[kSeg], const uint32_t (&held_)[kSeg]) {
+    add(kSumMember, h, member);
+    add(kSumRefuted, h, refuted);
+    add(kSumHeld, h, held_);
   }
 };
 
+// One round as the card runs it: ``clusters`` persistent clusters, each
+// walking stripes c, c + clusters, ... with its kCtas CTAs' parks, views,
+// staged threshold stacks and two count blocks a CTA by stripe parity,
+// each row staged for the next stripe (its lanes copied into its park
+// row) as step 2 merges it; the CTAs and threads of a step replayed one
+// after another (the barriers between steps).
 template <bool kSus, int kForm, bool kSwar>
 static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
-                    int8_t* hb, int8_t* asl, const int8_t* flags,
-                    const int8_t* vecs, const int32_t* senders,
-                    int32_t* subj, int32_t* recv) {
+                    int clusters, int8_t* hb, int8_t* asl,
+                    const int8_t* flags, const int8_t* vecs,
+                    const int32_t* senders, int32_t* subj, int32_t* recv) {
   constexpr bool kFull = full_view(kForm);
   const int rows = n / kCtas;
+  const int groups = rows / kAlign;
+  const int stripes = nc / kC;
   const size_t vrows = view_rows(n, kFull);
-  const int blk = kStatsMax * kC;
   std::vector<int8_t> ph((size_t)kCtas * rows * kC),
-      pa((size_t)kCtas * rows * kC), pv(kCtas * vrows * kC);
-  std::vector<int32_t> cnt((size_t)kCtas * blk);
+      pa((size_t)kCtas * rows * kC), pv(kCtas * vrows * kC),
+      vss((size_t)kCtas * N_VEC * kC);
+  std::vector<uint32_t> blocks((size_t)kCtas * 2 * kBlockWords);
+  std::vector<int8_t> none(kC);
+  for (int i = 0; i < kC; i += 4) swar::store(&none[i], gather_none(kForm));
   for (int i = 0; i < (lh ? 2 : 1) * n; ++i) recv[i] = 0;
   auto park = [&](int q) {
     return Park{ph.data() + (size_t)q * rows * kC,
@@ -85,58 +111,95 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
                 pv.data() + q * vrows * kC};
   };
   auto view_of = [&](int q) { return pv.data() + q * vrows * kC; };
-  for (int stripe = 0; stripe < nc / kC; ++stripe) {
-    const Stripe sp{n, nc, stripe * kC, col_offset + stripe * kC};
-    for (int i = 0; i < kCtas * blk; ++i)
-      cnt[i] = (i % blk) / kC == kFobs ? n : 0;
-    // a group max goes into every CTA's table
-    auto put_group = [&](int g, int w, const uint32_t (&enc)[kAlign]) {
-      uint32_t v = swar::H;
-      for (int r = 0; r < kAlign; ++r) v = swar::maxs(v, enc[r]);
-      for (int q = 0; q < kCtas; ++q)
-        swar::store(view_of(q) + (size_t)g * kC + 4 * w, v);
-    };
-    for (int q = 0; q < kCtas; ++q) {
-      TickSink ts{cnt.data() + (size_t)q * blk};
+  auto vs_of = [&](int q) { return vss.data() + (size_t)q * N_VEC * kC; };
+  auto block = [&](int q, int it) {
+    return blocks.data() + ((size_t)q * 2 + (it & 1)) * kBlockWords;
+  };
+  auto load = [](const int8_t* a) { return load_seg(a); };
+  auto copy = [](int8_t* dst, const int8_t* src) {
+    std::memcpy(dst, src, 16);
+  };
+  for (int c = 0; c < clusters && c < stripes; ++c) {
+    for (int q = 0; q < kCtas; ++q)
       for (int t = 0; t < nt; ++t)
-        step1<kSus, kFull, mutes(kForm), kSwar>(hb, asl, flags, vecs, sp, kn,
-                                                park(q), q, rows / kAlign, t,
-                                                nt, ts, put_group);
-    }
-    // (the cluster synchronises)
-    for (int q = 0; q < kCtas; ++q) {
-      auto gather = [&](const Meta<kForm>& m, int row, int w) -> uint32_t {
-        if constexpr (kFull) {
-          return gather_rows<kForm>(flags, senders, row, n, kn, [&](int s) {
-            const Where h = row_home(s);
-            return swar::load(view_of(h.cta) + (size_t)h.local * kC + 4 * w);
-          });
-        } else {
-          return gather_groups<kForm>(m, n, kn, [&](int g) {
-            return swar::load(view_of(q) + (size_t)g * kC + 4 * w);
-          });
-        }
+        stage(asl, vecs, stripe_at(n, nc, col_offset, c), park(q),
+              vs_of(q), q, rows, t, nt, copy);
+    for (int q = 0; q < kCtas; ++q)
+      for (int i = 0; i < kBlockWords; ++i) block(q, 0)[i] = blank_count(i, n);
+    for (int stripe = c, it = 0; stripe < stripes;
+         stripe += clusters, ++it) {
+      const Stripe sp = stripe_at(n, nc, col_offset, stripe);
+      // a group max goes into every CTA's table
+      auto put_group = [&](int g, int h, const Seg& v) {
+        for (int q = 0; q < kCtas; ++q)
+          store_seg(view_of(q) + (size_t)g * kC + 4 * kSeg * h, v);
       };
-      MergeSink ms{cnt.data() + (size_t)q * blk, recv,
-                   lh ? recv + n : nullptr};
-      for (int t = 0; t < nt; ++t)
-        step2<kSus, kForm, kSwar>(hb, asl, flags, vecs, senders, sp, kn,
-                                  park(q), q, rows, t, nt, gather, ms);
+      for (int q = 0; q < kCtas; ++q) {
+        TickSink ts{block(q, it)};
+        for (int t = 0; t < nt; ++t) {
+          GroupFlags fw{};
+          if (t / kLanes < groups)
+            fw = group_flags(flags, group_row0(q, t / kLanes));
+          step1<kSus, kFull, mutes(kForm), kSwar>(
+              hb, flags, vs_of(q), sp, kn, park(q), q, groups, t, nt, fw, ts,
+              put_group);
+        }
+      }
+      // (the cluster synchronises)
+      for (int q = 0; q < kCtas; ++q) {
+        for (int i = 0; i < kBlockWords; ++i)
+          block(q, it + 1)[i] = blank_count(i, n);
+        auto gather = [&](const Meta<kForm>& m, int row, int h) -> Seg {
+          if constexpr (kFull) {
+            return gather_rows<kForm>(
+                m, senders, row, n, kn,
+                [&](int s) -> const int8_t* {
+                  if (s < 0) return none.data() + 4 * kSeg * h;
+                  const Where w = row_home(s);
+                  return view_of(w.cta) + (size_t)w.local * kC + 4 * kSeg * h;
+                },
+                load);
+          } else {
+            return gather_groups<kForm>(
+                m, n, kn,
+                [&](int g) -> const int8_t* {
+                  return g < 0 ? none.data() + 4 * kSeg * h
+                               : view_of(q) + (size_t)g * kC + 4 * kSeg * h;
+                },
+                load);
+          }
+        };
+        MergeSink ms{block(q, it), recv, lh ? recv + n : nullptr};
+        const bool more = stripe + clusters < stripes;
+        const Stripe next = stripe_at(n, nc, col_offset, stripe + clusters);
+        for (int t = 0; t < nt; ++t)
+          step2<kSus, kForm, kSwar>(
+              hb, asl, flags, vs_of(q), senders, sp, kn, park(q), q, rows, t,
+              nt, gather, ms, [&](int li, int h) {
+                if (more)
+                  stage_row(asl, next, park(q), q, li, h, copy);
+              });
+        // (the CTA synchronises) the next stripe's stack
+        if (more)
+          for (int t = 0; t < nt; ++t)
+            stage_stack(vecs, next, vs_of(q), t, nt, copy);
+      }
+      // (the cluster synchronises)
+      for (int s = 0; s < (kSus ? 6 : 3); ++s)
+        for (int cc = 0; cc < kC; ++cc)
+          subj[(size_t)s * nc + sp.col0 + cc] = finish(
+              s, cc, [&](int q) { return (const uint32_t*)block(q, it); });
     }
-    for (int s = 0; s < (kSus ? 6 : 3); ++s)
-      for (int c = 0; c < kC; ++c)
-        subj[(size_t)s * nc + sp.col0 + c] = finish(
-            s, c, [&](int q) { return cnt.data() + (size_t)q * blk; });
   }
 }
 
 template <bool kSus, bool kSwar>
 static void round_form(int form, int n, int nc, int col_offset, Knobs kn,
-                       int lh, int nt, int8_t* hb, int8_t* asl,
+                       int lh, int nt, int clusters, int8_t* hb, int8_t* asl,
                        const int8_t* flags, const int8_t* vecs,
                        const int32_t* senders, int32_t* subj, int32_t* recv) {
-#define ARGS n, nc, col_offset, kn, lh, nt, hb, asl, flags, vecs, senders, \
-      subj, recv
+#define ARGS n, nc, col_offset, kn, lh, nt, clusters, hb, asl, flags, vecs, \
+      senders, subj, recv
   switch (form) {
     case kFormGroup: return round_t<kSus, kFormGroup, kSwar>(ARGS);
     case kFormEdges: return round_t<kSus, kFormEdges, kSwar>(ARGS);
@@ -152,15 +215,16 @@ static void round_form(int form, int n, int nc, int col_offset, Knobs kn,
 // col_offset.  subj [3 or 6, nc]; recv [1 or 2, n].
 extern "C" void host_onepass(int n, int nc, int col_offset, int form,
                              int width, int group_shift, int suspect, int lh,
-                             int swar_form, int nt, int8_t* hb, int8_t* asl,
-                             const int8_t* flags, const int8_t* vecs,
-                             const int32_t* senders, int t_fail,
-                             int t_cooldown, int confirm, int confirm_hi,
-                             int age_clamp, int32_t* subj, int32_t* recv) {
+                             int swar_form, int nt, int clusters, int8_t* hb,
+                             int8_t* asl, const int8_t* flags,
+                             const int8_t* vecs, const int32_t* senders,
+                             int t_fail, int t_cooldown, int confirm,
+                             int confirm_hi, int age_clamp, int32_t* subj,
+                             int32_t* recv) {
   const Knobs kn{t_fail, t_cooldown, confirm, confirm_hi, age_clamp, width,
                  group_shift};
-#define ARGS form, n, nc, col_offset, kn, lh, nt, hb, asl, flags, vecs, \
-      senders, subj, recv
+#define ARGS form, n, nc, col_offset, kn, lh, nt, clusters, hb, asl, flags, \
+      vecs, senders, subj, recv
   if (suspect && swar_form) round_form<true, true>(ARGS);
   else if (suspect) round_form<true, false>(ARGS);
   else if (swar_form) round_form<false, true>(ARGS);
@@ -171,6 +235,7 @@ extern "C" void host_onepass(int n, int nc, int col_offset, int form,
 extern "C" long host_smem_bytes(long n, int full) {
   return smem_bytes(n, full != 0);
 }
+
 """
 
 
@@ -236,11 +301,15 @@ MODES = {"crash-only": dict(t_fail=5),
          "suspicion+lh": dict(t_fail=3, suspect=True, t_suspect=2,
                               lh_multiplier=3)}
 # (n, columns, col_offset): the square round, and a column block whose
-# columns hold part of the diagonal
-SHAPES = {"square": (256, 256, 0), "block": (512, 128, 256)}
+# columns hold part of the diagonal; "wide" has 32 stripes, more than the
+# clusters the card holds at once
+SHAPES = {"square": (256, 256, 0), "block": (512, 128, 256),
+          "wide": (1024, 1024, 0)}
+MATRIX_SHAPES = ("square", "block")
 
 
-def host_round(lib, form, mode, elementwise, shape, seed, fanout=16):
+def host_round(lib, form, mode, elementwise, shape, seed, fanout=16,
+               clusters=3, threads=None):
     n, c, off = SHAPES[shape]
     sus = mode != "crash-only"
     hb, asl, flags, vecs, senders, fkw = round_inputs(n, c, form, seed, sus,
@@ -262,14 +331,14 @@ def host_round(lib, form, mode, elementwise, shape, seed, fanout=16):
     subj = np.empty((6 if sus else 3, c), np.int32)
     recv = np.empty((1 + lh, n), np.int32)
     call(lib.host_onepass, n, c, off, merge.FORMS.index(form), width, shift,
-         int(sus), lh, int(elementwise == "swar"), THREADS[elementwise], h, a,
-         flags, vecs,
+         int(sus), lh, int(elementwise == "swar"),
+         threads or THREADS[elementwise], clusters, h, a, flags, vecs,
          senders, kw["t_fail"], 12, thr, thr_hi, 63, subj, recv)
     got = [h, a, *subj[:3], recv[0], *subj[3:], *recv[1:]]
     return got, [w.numpy() for w in want]
 
 
-@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("shape", MATRIX_SHAPES)
 @pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("form", merge.FORMS)
@@ -293,6 +362,33 @@ def test_stripe_walk_past_one_gather_chunk(lib, form, elementwise):
     the later ones are read in the gather)."""
     got, want = host_round(lib, form, "suspicion", elementwise, "square", 3,
                            fanout=38)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("form", merge.FORMS)
+@pytest.mark.parametrize("clusters", [1, 15, 16])
+def test_persistent_cluster_walk_matches_plain(lib, clusters, form,
+                                               elementwise):
+    """32 stripes walked by 1, 15 or 16 persistent clusters (stripes c, c +
+    k, ...; the count blocks alternating by stripe, each row's lanes staged
+    into its park row for the next stripe as step 2 merges it): the outputs
+    of the stripe-by-stripe replay and of the plain version."""
+    got, want = host_round(lib, form, "suspicion+lh", elementwise, "wide", 5,
+                           clusters=clusters)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("form", merge.FORMS)
+def test_stripe_walk_with_several_groups_a_thread(lib, form, elementwise):
+    """8 threads a CTA: each step-1 thread ticks 2 groups (the second's
+    flags read in step 1, as at N > 16,384 on the card's 512) and each
+    step-2 thread merges and restages 8 rows."""
+    got, want = host_round(lib, form, "suspicion", elementwise, "square", 7,
+                           threads=8)
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x, y)
 

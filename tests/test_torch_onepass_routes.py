@@ -72,7 +72,7 @@ def test_onepass_fits_stops_at_the_shared_memory(form):
     assert merge.onepass_smem(last, form) <= merge.ONEPASS_SMEM
     assert not merge.onepass_fits(last + 64, 64, form)
     assert merge.onepass_smem(last + 64, form) > merge.ONEPASS_SMEM
-    assert merge.onepass_smem(16_384, form) == 197_376
+    assert merge.onepass_smem(16_384, form) == 197_888
 
 
 def test_onepass_fits_checks_its_arguments():
@@ -156,8 +156,9 @@ def test_rr_resident_on_where_no_lean_round_runs():
 
 
 def test_onepass_timeline_split():
-    """Stamps of 4 stripes: each step's median microseconds and the
-    stripe's."""
+    """Stamps of 4 stripes: each step's median microseconds, the
+    stripe's, and the launch's span from the first start to the last
+    end."""
     steps = torch.tensor([0, 14_000, 17_000, 35_000, 37_000])   # ns
     tl = torch.zeros((4, merge.ONEPASS_CTAS, merge.ONEPASS_STAMPS),
                      dtype=torch.int64)
@@ -165,7 +166,7 @@ def test_onepass_timeline_split():
         tl[i, :] = start + steps
     split = merge.onepass_timeline_split(tl)
     assert split == dict(step1=14.0, sync=3.0, step2=18.0, tail=2.0,
-                         stripe=37.0)
+                         stripe=37.0, span=78.2)
 
 
 def test_wrapper_raises_on_a_shape_onepass_refuses():
