@@ -2,9 +2,6 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
-    python3 chip_smoke.py --onepass-ablation [name,...]
-                                     # K3 (f) with each design choice undone
-                                     # (ONEPASS_ABLATIONS), nothing else
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -3082,7 +3079,9 @@ ONEPASS_ROWS = (("aligned_group", "crash-only"),
 
 # K3 (f)'s ms before its redesign for Hopper (the first one-pass kernel's
 # final run, PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W), by
-# kernels-line row: the times the redesign is held against
+# kernels-line row.  Those runs timed rounds from phase 30's random lanes,
+# not from the lanes after 20 rounds as this phase does: other inputs, so
+# only the two-launch form timed in turns is a like-for-like yardstick
 ONEPASS_MS_BEFORE = {
     ("aligned_group", "crash-only"): 2.0466,
     ("aligned_group", "suspicion"): 2.5508,
@@ -3097,11 +3096,6 @@ ONEPASS_MS_BEFORE = {
     ("aligned_group", "crash-only", "block"): 1.1230,
     ("aligned_group/swar", "crash-only", "block"): 0.6577,
 }
-# words of a stripe row one thread of the one-pass kernel takes
-# (csrc/rr_onepass.cuh kSeg), and the rows its step-1 loop body holds: a
-# group's 8 unrolled in the SWAR form, 1 in the lanes form
-ONEPASS_SEG_WORDS = 4
-ONEPASS_BODY_ROWS = {"swar": 8, "lanes": 1}
 
 
 def cuobjdump() -> str | None:
@@ -3149,19 +3143,15 @@ def sm_clock() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def onepass_sass(lib_path: str, seg_words: int = ONEPASS_SEG_WORDS,
-                 body_rows=None) -> dict:
+def onepass_sass(lib_path: str) -> dict:
     """Static SASS instruction counts of each rr_onepass_kernel
     instantiation in the built library (``cuobjdump -sass``; NOPs left
     out), keyed by its template flags (kSus, kLh, kForm, kSwar, kBlock):
     the whole kernel, and the code between the timeline's stamps of step 1
-    (tick and park) and of step 2 (gather and merge), each also per word
-    of its loop body (step 1: ``body_rows`` rows, by elementwise form, x
-    ``seg_words``; step 2: a row's ``seg_words``).  Empty where cuobjdump
-    is missing."""
+    (tick and park) and of step 2 (gather and merge).  Empty where
+    cuobjdump is missing."""
     import re
 
-    body_rows = ONEPASS_BODY_ROWS if body_rows is None else body_rows
     tool = cuobjdump()
     if tool is None:
         return {}
@@ -3176,19 +3166,17 @@ def onepass_sass(lib_path: str, seg_words: int = ONEPASS_SEG_WORDS,
         lines = [ln for ln in part.splitlines()
                  if re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", ln)
                  and " NOP" not in ln]
+        # the five stamps: a stamp reads GLOBALTIMER in a run of a few
+        # instructions, and steps lie between the runs
         marks = []
         for i, ln in enumerate(lines):
             if "GLOBALTIMER" in ln and (not marks or i - marks[-1] > 8):
                 marks.append(i)
-        flags = tuple(int(g) for g in m.groups())
         row = {"total": len(lines)}
         if len(marks) == 5:
-            rows = body_rows["swar" if flags[3] else "lanes"]
             row["step1"] = marks[1] - marks[0]
             row["step2"] = marks[3] - marks[2]
-            row["step1_per_word"] = row["step1"] / (rows * seg_words)
-            row["step2_per_word"] = row["step2"] / seg_words
-        out[flags] = row
+        out[tuple(int(g) for g in m.groups())] = row
     return out
 
 
@@ -3319,7 +3307,8 @@ def phase_k3_onepass(results: dict) -> None:
                 log(f"  {name}{ONEPASS}, {mode}: vs plain and two-launch, "
                     f"square and 2 shards: {diff} entries differ; (f) "
                     f"{min(f_ms):.4f} ms"
-                    + ("" if before is None else f" (before: {before:.4f})")
+                    + ("" if before is None else
+                       f" (before, other inputs: {before:.4f})")
                     + f", two-launch {min(two_ms):.4f} ms "
                     f"({min(two_ms) / min(f_ms):.3f}x), bound {bound:.4f} ms"
                     f", {clusters[form]} clusters"
@@ -3371,7 +3360,8 @@ def phase_k3_onepass(results: dict) -> None:
             before_ms=ONEPASS_MS_BEFORE[key], clusters=held, sass=code,
             split=split)
         log(f"  [{n} x {c}] (main paths F/F') {name}{ONEPASS}, crash-only: "
-            f"(f) {min(f_ms):.4f} ms (before: {ONEPASS_MS_BEFORE[key]:.4f}), "
+            f"(f) {min(f_ms):.4f} ms (before, other inputs: "
+            f"{ONEPASS_MS_BEFORE[key]:.4f}), "
             f"two-launch {min(two_ms):.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {bound:.4f} ms, {held} clusters"
             + ("" if code is None else f", SASS {code}")
@@ -3379,200 +3369,12 @@ def phase_k3_onepass(results: dict) -> None:
                 f"{k} {v:.2f}" for k, v in split.items()))
 
 
-# The one-pass kernel's design choices, each undone by a patch of the sources
-# (file, text, replacement: every occurrence) for the ablation (--onepass-
-# ablation): the first kernel's 3-instruction byte max; the park, view slice
-# and group table XOR-swizzled (the choice measured and not kept); one
-# cluster a stripe (not persistent); the next stripe staged in one burst
-# after step 2 (not row by row); the lanes tick unrolled over a group's 8
-# rows (not one row at a time); the lanes tick with the eye on every word,
-# not only the diagonal's (one copy of the word's tick: a branch on the
-# diagonal, as in the kernel, lets the compiler drop the eye from the other
-# copy by itself); the SWAR form's diagonal word inlined; the SWAR merge
-# reading its stack rows every row; the SWAR tick unrolled over 4 rows, not 8
-ONEPASS_ABLATIONS = {
-    "fold3": [
-        ("rr_onepass.cuh",
-         "  OP_HD explicit ByteMax(uint32_t w) : lo(lo_of(w)), hi(w) {}",
-         "  OP_HD explicit ByteMax(uint32_t w) : lo(lo_of(w)),"
-         " hi(swar::prmt(w, 0, 0xB391)) {}"),
-        ("rr_onepass.cuh", "    hi = vimax3_s16x2(hi, a, b);",
-         "    hi = vimax3_s16x2(hi, swar::prmt(a, 0, 0xB391),"
-         " swar::prmt(b, 0, 0xB391));"),
-        ("rr_onepass.cuh", "return swar::prmt(lo, hi, 0x7250);",
-         "return swar::prmt(lo, hi, 0x6240);")],
-    "swizzle": [
-        ("rr_onepass.cuh", "  copy(pk.asl + li * kC + 4 * kSeg * h,",
-         "  copy(pk.asl + (li ^ ((li >> 3) & 3)) * kC + 4 * kSeg * h,"),
-        ("rr_onepass.cuh", "      const int at = li * kC + 4 * kSeg * h;",
-         "      const int at = (li ^ ((li >> 3) & 3)) * kC + 4 * kSeg * h;"),
-        ("rr_onepass.cuh",
-         "      const int at = (lg * kAlign + r) * kC + 4 * kSeg * h;",
-         "      const int at = ((lg * kAlign + r) ^ (lg & 3)) * kC"
-         " + 4 * kSeg * h;"),
-        ("rr_onepass.cu",
-         "    const uint32_t a = view_sa + g * kC + 4 * kSeg * hh;",
-         "    const uint32_t a = view_sa + (g ^ ((g >> 3) & 3)) * kC"
-         " + 4 * kSeg * hh;"),
-        ("rr_onepass.cu",
-         "            return mapa(view_sa + w.local * kC + 4 * kSeg * hh,"
-         " w.cta);",
-         "            return mapa(view_sa + (w.local ^ ((w.local >> 3) & 3))"
-         " * kC + 4 * kSeg * hh, w.cta);"),
-        ("rr_onepass.cu",
-         "                         : pk.view + g * kC + 4 * kSeg * hh;",
-         "                         : pk.view + (g ^ ((g >> 3) & 3)) * kC"
-         " + 4 * kSeg * hh;")],
-    "no_persist": [
-        ("rr_onepass.cu",
-         "cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes)"
-         " * kCtas);", "cfg.gridDim = dim3(stripes * kCtas);")],
-    "burst": [
-        ("rr_onepass.cu", "                                if (more)\n"
-         "                                  stage_row(",
-         "                                if (false)\n"
-         "                                  stage_row("),
-        ("rr_onepass.cu",
-         "    if (more) stage_stack(p.vecs, next, vs, t, kThreads,"
-         " stage_copy);",
-         "    if (more) stage(p.asl, p.vecs, next, pk, vs, cta, rows, t,"
-         " kThreads, stage_copy);")],
-    "lanes_unrolled": [
-        ("rr_onepass.cuh", "#pragma unroll(kSwar ? kAlign : 1)",
-         "#pragma unroll(kAlign)")],
-    "eye_everywhere": [
-        ("rr_onepass.cuh", "            (unsigned)d < 4u\n"
-         "                ? (kSwar ? diagonal_word<kSus>(",
-         "            (!kSwar || (unsigned)d < 4u)\n"
-         "                ? (kSwar ? diagonal_word<kSus>(")],
-    "diagonal_inline": [
-        ("rr_onepass.cuh", "#define OP_COLD __host__ __device__ __noinline__",
-         "#define OP_COLD __host__ __device__ __forceinline__")],
-    "vec_rows": [
-        ("rr_onepass.cuh", "  if (kSwar) load_vecs<true>(vs, h, vec);",
-         ""),
-        ("rr_onepass.cuh", "      if (!kSwar) load_vecs<true>(vs, h, vec);",
-         "      load_vecs<true>(vs, h, vec);")],
-    "swar_unroll4": [
-        ("rr_onepass.cuh", "#pragma unroll(kSwar ? kAlign : 1)",
-         "#pragma unroll(kSwar ? 4 : 1)")],
-}
-# the instantiations the ablation times: the forms of main paths 5, A, C,
-# D', D, E and E'
-ABLATION_CASES = (("lanes", "aligned_group", "crash-only"),
-                  ("lanes", "aligned_group", "suspicion"),
-                  ("lanes", "edges", "crash-only"),
-                  ("lanes", "edges", "suspicion"),
-                  ("lanes", "filter_group", "suspicion"),
-                  ("swar", "aligned_group", "crash-only"),
-                  ("swar", "aligned_group", "suspicion"))
-
-
-def onepass_ablation(names=None) -> dict:
-    """K3 (f) against itself with one design choice undone
-    (ONEPASS_ABLATIONS, each a patched copy of the sources built by nvcc
-    beside the real one) and against the two-launch form, at N = 16,384 on
-    phase 30's inputs: every variant bit-equal to the two-launch form, ms
-    of the same 10 rounds (from the lanes after 20) in turns (two-launch,
-    the variants, two-launch, the variants in reverse; twice; the least of
-    each), and the step timeline of each."""
-    import ctypes
-    import os
-    import shutil
-
-    import torch
-
-    from gossipfs_tpu_torch.ops import _build, merge
-
-    names = list(ONEPASS_ABLATIONS) if names is None else names
-    real = _build.build(["rr_onepass", "resident_round"])["rr_onepass"]
-    procs, libs = {}, {"final": ctypes.CDLL(str(real))}
-    for name in names:
-        d = _build.BUILD_DIR / f"ablation_{name}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC, d)
-        for fname, old, new in ONEPASS_ABLATIONS[name]:
-            text = (d / fname).read_text()
-            if old not in text:
-                raise AssertionError(f"ablation {name}: {old!r} not found")
-            (d / fname).write_text(text.replace(old, new))
-        so = d / "lib.so"
-        procs[name] = (so, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-             str(d / "rr_onepass.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for ablation {name}:\n{out}")
-        libs[name] = ctypes.CDLL(str(so))
-    for lib in libs.values():
-        for fn, (res, args) in _build.SIGNATURES["rr_onepass"].items():
-            getattr(lib, fn).restype = res
-            getattr(lib, fn).argtypes = args
-    n = N_MAIN
-    forms, modes, muted = swar_round_cases(n)
-    table, bad = {}, 0
-    try:
-        for ew, form, mode in ABLATION_CASES:
-            senders, fkw = forms[form]
-            (hb, asl, flags, vecs), mkw = modes[mode]
-            if fkw.get("edge_filter"):
-                flags = flags + muted
-            kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
-            want = merge.resident_round(hb.clone(), asl.clone(), flags, vecs,
-                                        senders, **kw)
-            h2, a2 = hb.clone(), asl.clone()
-            run_2 = lambda: merge.resident_round(  # noqa: E731
-                h2, a2, flags, vecs, senders, **kw)
-            run_f = lambda: merge.resident_round(  # noqa: E731
-                h2, a2, flags, vecs, senders, onepass=True, **kw)
-            reset = warm_start(run_2, h2, a2)
-            ms = {name: [] for name in libs}
-            split = {}
-            for name, lib in libs.items():
-                _build._loaded["rr_onepass"] = lib
-                got = merge.resident_round(hb.clone(), asl.clone(), flags,
-                                           vecs, senders, onepass=True, **kw)
-                bad += sum(count_diff(a, b)[0] for a, b in zip(got, want))
-                tl = torch.zeros((n // merge.ONEPASS_C, merge.ONEPASS_CTAS,
-                                  merge.ONEPASS_STAMPS), dtype=torch.int64,
-                                 device="cuda")
-                reset()
-                merge.resident_round(h2, a2, flags, vecs, senders,
-                                     onepass=True, timeline=tl, **kw)
-                torch.cuda.synchronize()
-                split[name] = merge.onepass_timeline_split(tl)
-            run_2()
-            two = []
-            for order in (list(libs), list(libs)[::-1]) * 2:
-                two.append(cuda_ms(run_2, 10, reset))
-                for name in order:
-                    _build._loaded["rr_onepass"] = libs[name]
-                    ms[name].append(cuda_ms(run_f, 10, reset))
-            two.append(cuda_ms(run_2, 10, reset))
-            key = f"{form}{'/swar' if ew == 'swar' else ''}, {mode}"
-            table[key] = {"two_launch_ms": min(two), **{
-                name: {"ms": min(v), "us_a_stripe": split[name]}
-                for name, v in ms.items()}}
-            log(f"  {key}: two-launch {min(two):.4f} ms; " + "; ".join(
-                f"{name} {min(v):.4f} ms ({split[name]['step1']:.2f}, "
-                f"{split[name]['sync']:.2f}, {split[name]['step2']:.2f}, "
-                f"{split[name]['tail']:.2f} us)" for name, v in ms.items()))
-    finally:
-        _build._loaded["rr_onepass"] = libs["final"]
-    # tolerance 0: integer outputs
-    if bad:
-        raise AssertionError(f"K3 one-pass ablation: {bad} entries differ")
-    log("  every variant == the two-launch form (tolerance 0)")
-    return table
-
-
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
-    the two-launch form's and its own before the redesign, its static SASS
-    counts, its step timeline where timed, the column blocks of F/F', and
-    the clusters the card holds at once."""
+    the two-launch form's and its own before the redesign (timed on other
+    inputs: ONEPASS_MS_BEFORE), its static SASS counts, its step timeline
+    where timed, the column blocks of F/F', and the clusters the card
+    holds at once."""
     out = {}
     for key, r in results["k3_onepass"].items():
         if key == "clusters":
@@ -3583,8 +3385,7 @@ def onepass_summary(results: dict) -> dict:
             if r.get("before_ms") is not None:
                 row["before_ms"] = r["before_ms"]
             if r.get("sass"):
-                # static SASS: the kernel, step 1, step 2 (the per-word
-                # figures are in the phase's log lines)
+                # static SASS: the kernel, step 1, step 2
                 row["sass"] = [r["sass"].get(k) for k in
                                ("total", "step1", "step2")]
             if r.get("split"):
@@ -3643,12 +3444,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--onepass-ablation"]:
-        # K3 (f)'s design choices one at a time, nothing else
-        log(f"[device] {torch.cuda.get_device_name(0)}: {nvidia_smi()}")
-        print(json.dumps({"onepass_ablation": onepass_ablation(
-            sys.argv[2].split(",") if sys.argv[2:] else None)}))
-        return 0
     from gossipfs_tpu_torch.ops import _build
 
     name = torch.cuda.get_device_name(0)

@@ -814,7 +814,9 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     subject ``col_offset``; raises what it cannot run).  ``onepass`` runs
     K3's one-pass form (f), ``csrc/rr_onepass.cu``, counted under the
     form's ``/onepass`` name; it raises ``ValueError`` where
-    :func:`onepass_fits` refuses the shape, on any device.  ``timeline`` (one-pass, CUDA only):
+    :func:`onepass_fits` refuses the shape or where ``hb``, ``asl`` or
+    ``vecs`` does not start on a 16-byte boundary (the kernel moves 16-byte
+    row segments), on any device.  ``timeline`` (one-pass, CUDA only):
     an int64 ``[C / 32, ONEPASS_CTAS, ONEPASS_STAMPS]`` tensor each CTA
     writes its stripe's step times into (:func:`onepass_timeline_split`)."""
     _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
@@ -829,6 +831,12 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     why = onepass_refusal(n, c, base_form, elementwise) if onepass else None
     if why is not None:
         raise ValueError(f"resident_round: {why}")
+    for name, t in (("hb", hb), ("asl", asl), ("vecs", vecs)):
+        if onepass and t.data_ptr() % 16:
+            raise ValueError(
+                f"resident_round: the one-pass form moves {name} in 16-byte "
+                f"row segments, so its data must start on a 16-byte boundary "
+                f"(it starts {t.data_ptr() % 16} B past one)")
     kw = dict(fanout=fanout, arc_align=arc_align, t_fail=t_fail,
               t_cooldown=t_cooldown, age_clamp=age_clamp, suspect=suspect,
               t_suspect=t_suspect, lh_multiplier=lh_multiplier,

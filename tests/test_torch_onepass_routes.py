@@ -11,7 +11,8 @@
   wherever it fits and the two-launch form elsewhere, ``on`` raises where
   it does not fit, ``off`` never takes it;
 * ``SimConfig(rr_resident="on")`` raises where the lean loop cannot run
-  (f), and the wrapper raises on a shape (f) refuses;
+  (f), and the wrapper raises on a shape (f) refuses and on lanes that
+  start off a 16-byte boundary;
 * ``run_rounds`` with ``rr_resident`` ``on`` and ``off`` equals the JAX
   package's ``rr_resident="on"`` run (its Pallas resident round in
   interpret mode) in lanes, carry and every metric: aligned arcs in the
@@ -192,6 +193,39 @@ def test_wrapper_raises_on_a_shape_onepass_refuses():
                              onepass=True, timeline=tl[:m // 32], **kw)
     # the two-launch form's plain version takes it
     merge.resident_round(hb, asl, flags, vecs, bases, **kw)
+
+
+@pytest.mark.parametrize("name", ["hb", "asl", "vecs"])
+@pytest.mark.parametrize("offset", [1, 8])
+def test_wrapper_raises_on_lanes_off_a_16_byte_boundary(name, offset):
+    """(f) moves 16-byte row segments: a contiguous view whose data starts
+    off a 16-byte boundary is refused by name on any device (the CUDA
+    launcher would refuse it with a bare invalid-value code); the two-launch
+    form's plain version takes the same view."""
+    rng = np.random.default_rng(0)
+    n = 1_024
+    args = dict(
+        hb=torch.from_numpy(rng.integers(-128, 128, (n, n), dtype=np.int8)),
+        asl=torch.full((n, n), -127, dtype=torch.int8),
+        vecs=torch.zeros((merge.N_VEC, n), dtype=torch.int8))
+    t = args[name]
+    buf = torch.empty(t.numel() + offset, dtype=torch.int8)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    args[name] = view
+    flags = torch.full((n,), 7, dtype=torch.int8)
+    bases = torch.zeros(n, dtype=torch.int32)
+    kw = dict(fanout=16, arc_align=8, t_fail=5, t_cooldown=12)
+    with pytest.raises(ValueError, match=f"moves {name} in 16-byte"):
+        merge.resident_round(args["hb"], args["asl"], flags, args["vecs"],
+                             bases, onepass=True, **kw)
+    want = merge.resident_round(args["hb"].clone(), args["asl"].clone(),
+                                flags, args["vecs"].clone(), bases, **kw)
+    got = merge.resident_round(args["hb"], args["asl"], flags, args["vecs"],
+                               bases, **kw)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
 
 
 N, ROUNDS = 512, 10
