@@ -23,7 +23,8 @@ Phases (any failure exits non-zero before the last line is printed):
    ``rr_resident="off"`` (K3's two-launch form): equal lanes, carry and
    metrics, its ms a round beside (phases 16, 21, 27, 28, 32 and 37 run
    their main paths both ways too);
-6. K3 capacity: N = 65,536 for 10 rounds;
+6. K3 capacity: N = 65,536 for 10 rounds on K3's two-launch form, one
+   launch a round;
 7. K2 (explicit-edge merge) against plain, one call per dtype pair shape
    and detection-stats setting, on corner-case lanes (all statuses, ages
    up to 63, floor sentinels, deep and negative shifts, dead receivers):
@@ -206,16 +207,26 @@ Phases (any failure exits non-zero before the last line is printed):
     before its redesign beside them, the byte bound, the step timeline of
     the kernels line's rows, the clusters the card holds at once, each
     instantiation's static SASS count (``cuobjdump``, where the toolkit
-    has it) and the SM clock before and after.
+    has it) and the SM clock before and after;
+41. K3's two-launch form at the N only it runs (the one-pass form holds N
+    <= 19,264): the aligned form of capacity (phase 6) and the
+    explicit-edge form of the frontier (phases 22, 34) at N = 65,536,
+    lanes and SWAR, crash-only and suspicion, the explicit-edge form of
+    the PackedDetector (phase 23) at N = 49,152, and the aligned form over
+    the last column block [65,536 x 8,192], lanes and SWAR, each against
+    the plain version on random pre-tick lanes made on the card: ``0
+    entries differ``; ms a round, each launch's ms under the profiler,
+    plain ms and byte bound.
 
 The last five lines printed are phase 40's times in one JSON line
 (``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
 counts (one JSON line, with each path's ``rr_resident="off"`` run as
-``"<phase> off"``), the kernels JSON (the five kernels; K3's
+``"<phase> off"``; capacity, the frontier and the detector's advance as
+phases 6, 22, 34 and 23), the kernels JSON (the five kernels; K3's
 one-pass form per merge form and SWAR form in its paths' modes and over
 F/F''s blocks, its two-launch form once per merge form and once per SWAR
-form, the column-shard forms of K3, K2, K4 and K5), the ``nvidia-smi``
-name and power limit, and the device JSON.
+form and at phase 41's shapes, the column-shard forms of K3, K2, K4 and
+K5), the ``nvidia-smi`` name and power limit, and the device JSON.
 """
 
 from __future__ import annotations
@@ -228,6 +239,7 @@ import time
 H100_BYTES_PER_S = 3.35e12   # HBM3 rate of the H100 SXM (data sheet)
 N_MAIN = 16_384
 N_CAPACITY = 65_536
+N_ADVANCE = 49_152             # PackedDetector's capacity point
 SEED = 20_261_016
 
 
@@ -420,13 +432,14 @@ def phase_main_path(results: dict) -> None:
         results["main"])
 
 
-def phase_capacity(rounds: int) -> None:
+def phase_capacity(rounds: int, results: dict) -> None:
     import torch
 
     from gossipfs_tpu_torch import random as trandom
     from gossipfs_tpu_torch.config import SimConfig
     from gossipfs_tpu_torch.core.rounds import run_rounds
     from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.ops import merge
 
     cfg = SimConfig.headline(N_CAPACITY)
     torch.cuda.reset_peak_memory_stats()
@@ -434,6 +447,7 @@ def phase_capacity(rounds: int) -> None:
     key = trandom.PRNGKey(1, device="cuda")
     state, _, _ = run_rounds(state, cfg, 1, key)  # allocator warm-up
     torch.cuda.synchronize()
+    merge.reset_launch_counts()
     t0 = time.perf_counter()
     final, _, per_round = run_rounds(state, cfg, rounds, key, crash_rate=0.01)
     torch.cuda.synchronize()
@@ -441,10 +455,19 @@ def phase_capacity(rounds: int) -> None:
     alive = per_round.n_alive.cpu()
     if not (0 < int(alive[-1]) < cfg.n and final.round == rounds + 1):
         raise AssertionError("capacity run out of range")
+    # K3's two-launch form (N = 65,536 is past the one-pass form's reach)
+    if merge.FORM_LAUNCHES["aligned_group"] != rounds:
+        raise AssertionError(f"capacity launches {launch_counts()}")
+    results["capacity"] = dict(round_ms=wall / rounds * 1e3,
+                               rounds_per_s=rounds / wall,
+                               launches=rounds, launch_counts=launch_counts())
     log(f"  N={cfg.n}: {rounds} rounds in {wall:.4f} s, "
-        f"{rounds / wall:.3f} rounds/s; peak memory "
+        f"{rounds / wall:.3f} rounds/s ({wall / rounds * 1e3:.4f} ms a "
+        f"round); launches {launch_counts()}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; alive "
         f"{int(alive[-1])}")
+    del state, final
+    torch.cuda.empty_cache()
 
 
 def launch_counts() -> dict:
@@ -1633,6 +1656,11 @@ def phase_frontier(results: dict, elementwise: str = "lanes") -> None:
         raise AssertionError(f"frontier peak {peak / 2**30:.3f} GiB >= 40")
     if doc["detected"] != doc["tracked_crashes"] or doc["n"] != N_CAPACITY:
         raise AssertionError(f"frontier output out of range: {doc}")
+    # K3's two-launch explicit-edge form, one launch a round
+    form = "edges" + ("/swar" if elementwise == "swar" else "")
+    if doc["launches"] != {form: doc["rounds"]}:
+        raise AssertionError(f"frontier launches {doc['launches']}")
+    log(f"  launches {doc['launches']}")
     lanes = results["frontier_lanes"]
     same = ("detected", "ttd_first_median", "ttd_first_max",
             "ttd_converged_median", "false_positive_rate")
@@ -1670,17 +1698,23 @@ def packed_session(n: int, node: int, timed: bool = False):
     return d, events, min(quiet) if timed else None, join_ms
 
 
-def phase_packed_detector(n_cap: int, node: int = 4_097) -> None:
+def phase_packed_detector(n_cap: int, results: dict,
+                          node: int = 4_097) -> None:
     import torch
 
     from gossipfs_tpu_torch import random as trandom
     from gossipfs_tpu_torch.config import SimConfig
     from gossipfs_tpu_torch.core.rounds import run_rounds
     from gossipfs_tpu_torch.core.state import RoundEvents, init_state
+    from gossipfs_tpu_torch.ops import merge
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    merge.reset_launch_counts()
     d, events, adv_ms, join_ms = packed_session(n_cap, node, timed=True)
+    results["advance"] = dict(round_ms=adv_ms, rounds_per_s=1e3 / adv_ms,
+                              launches=merge.FORM_LAUNCHES["edges"],
+                              launch_counts=launch_counts())
     mine = [e for e in events if e.subject == node]
     cfg = d.config
     if (len(mine) != 1 or mine[0].round != 3 + cfg.t_fail
@@ -1691,7 +1725,8 @@ def phase_packed_detector(n_cap: int, node: int = 4_097) -> None:
         f"detected at round {mine[0].round} by observer {mine[0].observer} "
         f"({len(events)} events in all); the joiner is alive; quiet "
         f"advance {adv_ms:.4f} ms, advance with a join {join_ms:.4f} ms; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"launches {results['advance']['launch_counts']}")
     del d
     torch.cuda.empty_cache()
     # N = 16,384: the same script against run_rounds with the scheduled
@@ -2446,11 +2481,19 @@ K3_RECV = (5, 9)
 
 
 def count_diff(a, b) -> tuple[int, int]:
-    """(entries that differ, max |diff|) of two integer tensors."""
+    """(entries that differ, max |diff|) of two integer tensors, in row
+    chunks of about 2^26 entries (an [N, N] lane at N = 65,536 is 4.3 G
+    entries)."""
     import torch
 
-    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
-    return int((d != 0).sum()), (int(d.max()) if d.numel() else 0)
+    step = max(1, (1 << 26) // max(1, a[0].numel() if a.dim() > 1 else 1))
+    count, worst = 0, 0
+    for r0 in range(0, max(1, a.shape[0] if a.dim() else 1), step):
+        x, y = (a, b) if a.dim() == 0 else (a[r0:r0 + step], b[r0:r0 + step])
+        d = (x.to(torch.int64) - y.to(torch.int64)).abs()
+        count += int((d != 0).sum())
+        worst = max(worst, int(d.max()) if d.numel() else 0)
+    return count, worst
 
 
 def k3_shard_bound_ms(n: int, c: int, senders, outs: int,
@@ -2637,8 +2680,10 @@ def big_round_inputs(n: int, c: int, seed: int, suspect: bool):
     dev = dict(device="cuda")
     hb = torch.empty((n, c), dtype=torch.int8, **dev)
     asl = torch.empty((n, c), dtype=torch.int8, **dev)
-    for r0 in range(0, n, 8_192):
-        r1 = min(n, r0 + 8_192)
+    # row chunks of 2^27 entries (8,192 rows of a 16,384-column block)
+    step = max(1, (1 << 27) // c)
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
         h = torch.randint(-128, 128, (r1 - r0, c), generator=g, **dev)
         h[torch.rand((r1 - r0, c), generator=g, **dev) < 0.05] = -128
         hb[r0:r1] = h.to(torch.int8)
@@ -3369,6 +3414,112 @@ def phase_k3_onepass(results: dict) -> None:
                 f"{k} {v:.2f}" for k, v in split.items()))
 
 
+LARGE_MODES = {"crash-only": dict(t_fail=5),
+               "suspicion": dict(t_fail=3, suspect=True, t_suspect=2)}
+
+
+def k3_large_case(n: int, c: int, col_offset: int, lanes, senders,
+                  kw: dict) -> dict:
+    """One two-launch K3 instantiation over [n x c] lanes from global
+    subject ``col_offset``: the kernel against the plain version on the
+    same pre-tick lanes (entries that differ, max |diff|), the plain
+    call's device ms, the kernel's ms a round (the least of two 5-round
+    means, the lanes evolving in place), each launch's ms under the
+    profiler, and the byte bound."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    hb, asl, flags, vecs = lanes
+    kw = dict(kw, col_offset=col_offset)
+    got = merge.resident_round(hb.clone(), asl.clone(), flags, vecs, senders,
+                               **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = merge.resident_round_plain(hb.clone(), asl.clone(), flags, vecs,
+                                      senders, **kw)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    diffs = [count_diff(a, b) for a, b in zip(got, want)]
+    nout = len(got)
+    del got, want
+    torch.cuda.empty_cache()
+    h2, a2 = hb.clone(), asl.clone()
+    run = lambda: merge.resident_round(h2, a2, flags, vecs, senders, **kw)  # noqa: E731
+    run()
+    ms = min(cuda_ms(run, 5), cuda_ms(run, 5))
+    split = {k: ms_ / seen for k, (ms_, seen) in launch_split(run, 5).items()
+             if k.startswith("rr_")}
+    del h2, a2
+    torch.cuda.empty_cache()
+    recv_outs = len([i for i in K3_RECV if i < nout])
+    return dict(diff=sum(d[0] for d in diffs),
+                max_abs_err=max(d[1] for d in diffs), ms=ms,
+                plain_ms=plain_ms, split=split, shape=[n, c],
+                bound_ms=k3_shard_bound_ms(n, c, senders, nout, recv_outs))
+
+
+def phase_k3_two_launch_large(results: dict) -> None:
+    """K3's two-launch form at the N only it runs (the one-pass form holds
+    N <= 19,264): the aligned (capacity, phase 6) and explicit-edge
+    (frontier, phases 22 and 34) forms at N = 65,536, lanes and SWAR,
+    crash-only and suspicion; the explicit-edge form at the
+    PackedDetector's N = 49,152 (phase 23); and the aligned form over the
+    last column block [65,536 x 8,192] (the one holding the diagonal's
+    last rows), lanes and SWAR.  Every output against the plain version
+    on the same random pre-tick lanes (tolerance 0: integer outputs);
+    ms a round, each launch's ms, plain ms and byte bound."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    out = results.setdefault("k3_large", {})
+    bad = 0
+    cases = []
+    for mode, mkw in LARGE_MODES.items():
+        cases.append((N_CAPACITY, mode, mkw, ("aligned_group", "edges"), 0))
+    cases.append((N_ADVANCE, "crash-only", LARGE_MODES["crash-only"],
+                  ("edges",), 0))
+    cases.append((N_CAPACITY, "crash-only", LARGE_MODES["crash-only"],
+                  ("aligned_group",), N_CAPACITY // 8))
+    for n, mode, mkw, forms, block in cases:
+        hb, asl, flags, vecs, bases = big_round_inputs(
+            n, n, SEED + 41 + n, mode != "crash-only")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 42 + n)
+        edges = torch.randint(0, n, (n, 16), generator=g,
+                              device="cuda").to(torch.int32)
+        c, off = (block, n - block) if block else (n, 0)
+        if block:
+            sl = slice(off, n)
+            hb, asl = hb[:, sl].contiguous(), asl[:, sl].contiguous()
+            vecs = vecs[:, sl].contiguous()
+        for form in forms:
+            senders, fkw = ((bases, dict(fanout=16, arc_align=8))
+                            if form == "aligned_group" else (edges, {}))
+            for ew in merge.ELEMENTWISE:
+                kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
+                r = k3_large_case(n, c, off, (hb, asl, flags, vecs), senders,
+                                  kw)
+                bad += r["diff"]
+                name = merge.kernel_form(kw.get("fanout"), 8, False, ew)
+                out[(name, mode, n, c)] = r
+                split = ", ".join(f"{k} {v:.4f}"
+                                  for k, v in sorted(r["split"].items()))
+                log(f"  [{n} x {c}] {name}, {mode}: {r['diff']} entries "
+                    f"differ; kernel {r['ms']:.4f} ms a round ({split} ms a "
+                    f"launch), plain {r['plain_ms']:.3f} ms, byte bound "
+                    f"{r['bound_ms']:.4f} ms")
+        del hb, asl, flags, vecs, bases, edges
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K3 two-launch form at large N: {bad} entries "
+                             "differ")
+    log("  K3 two-launch form == plain at N = 65,536, 49,152 and over "
+        "[65,536 x 8,192] (tolerance 0)")
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -3415,6 +3566,19 @@ def main_path_summary(results: dict) -> dict:
             out[phase + " off"] = {"round_ms": o["round_ms"],
                                    "rounds_per_s": o["rounds_per_s"],
                                    "launches": o["launch_counts"]}
+    # the paths only K3's two-launch form runs (N past the one-pass form's
+    # reach): capacity, the frontier (lanes, SWAR), the PackedDetector's
+    # quiet advance at N = 49,152
+    for phase, key in (("6", "capacity"), ("23", "advance")):
+        r = results[key]
+        out[phase] = {"round_ms": r["round_ms"],
+                      "rounds_per_s": r["rounds_per_s"],
+                      "launches": r["launch_counts"]}
+    for phase, ew in (("22", "lanes"), ("34", "swar")):
+        d = results["frontier_" + ew]
+        out[phase] = {"round_ms": d["seconds_per_round"] * 1e3,
+                      "rounds_per_s": d["rounds_per_sec"],
+                      "launches": d["launches"]}
     p = results["partition"]
     out["29"] = {"round_ms": p["seconds"] / p["rounds"] * 1e3,
                  "rounds_per_s": p["rounds"] / p["seconds"],
@@ -3466,7 +3630,7 @@ def main() -> int:
     log(f"[5] main path: headline, N={N_MAIN}, 100 rounds")
     phase_main_path(results)
     log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds")
-    phase_capacity(10)
+    phase_capacity(10, results)
     log("[7] K2 fused_merge_update vs plain, three shapes")
     phase_k2(results)
     log(f"[8] K4 arc_merge_update vs plain, N={N_MAIN}")
@@ -3510,7 +3674,7 @@ def main() -> int:
         f"(N={N_CAPACITY}, 20 rounds)")
     phase_frontier(results)
     log("[23] PackedDetector: N=49152 session, N=16384 against run_rounds")
-    phase_packed_detector(49_152)
+    phase_packed_detector(N_ADVANCE, results)
     log("[24] SimDetector: config 3, advance_bulk with and without "
         "snapshots, interactive")
     phase_sim_detector()
@@ -3564,6 +3728,10 @@ def main() -> int:
         f"instantiations, N={N_MAIN}, square and the 2 shards "
         f"[{N_MAIN} x {N_MAIN // 2}]")
     phase_k3_onepass(results)
+    log(f"[41] K3 two-launch form at the N only it runs: N={N_CAPACITY} "
+        f"(aligned, edges; lanes, SWAR; crash-only, suspicion), "
+        f"N={N_ADVANCE} (edges), [{N_CAPACITY} x {N_CAPACITY // 8}]")
+    phase_k3_two_launch_large(results)
     print(json.dumps({"onepass": onepass_summary(results)}))
     print(json.dumps({"main_paths": main_path_summary(results)}))
     src = "gossipfs_tpu_torch/csrc/"
@@ -3631,7 +3799,27 @@ def main() -> int:
                    src + "fused_merge.cu", mp + "387", 0,
                    results["k2_block_config4"]),
     ]
-    swar_rows = onepass_rows + shard_rows + [
+    large = results["k3_large"]
+    large_launches = {
+        # the launches of the main path that runs each shape and form
+        ("aligned_group", "crash-only", N_CAPACITY, N_CAPACITY):
+            results["capacity"]["launches"],
+        ("edges", "crash-only", N_CAPACITY, N_CAPACITY):
+            results["frontier_lanes"]["launches"]["edges"],
+        ("edges/swar", "crash-only", N_CAPACITY, N_CAPACITY):
+            results["frontier_swar"]["launches"]["edges/swar"],
+        ("edges", "crash-only", N_ADVANCE, N_ADVANCE):
+            results["advance"]["launches"],
+    }
+    large_rows = [
+        # K3's two-launch form at the N only it runs (phase 41), with the
+        # launches of the path that runs each (0: none of this script's
+        # paths runs that form at that shape)
+        shard_line(f"resident_round[two-launch {n} x {c}: {form}, {mode}]",
+                   src + "resident_round.cu", mp + "2611",
+                   large_launches.get((form, mode, n, c), 0), r)
+        for (form, mode, n, c), r in large.items()]
+    swar_rows = onepass_rows + shard_rows + large_rows + [
         # each SWAR form in the mode of the path that launches it: the
         # aligned form main path E's rr_resident="off" run (E' adds 100
         # suspicion ones), the others phase 31's 20-round two-launch scans

@@ -20,8 +20,7 @@
 // columns, 4 consecutive columns per thread (one 4, 8 or 16-byte vector
 // load per sender row when N % 4 == 0, element loads otherwise), the
 // sender ids read by every thread of the block from the same address (a
-// broadcast).  The gather itself is gather_rows.cuh, which K3's
-// explicit-edge merge pass shares.
+// broadcast).  The gather itself is gather_rows.cuh.
 #include <cstdint>
 #include <cuda_runtime.h>
 

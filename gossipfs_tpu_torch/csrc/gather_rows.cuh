@@ -1,11 +1,9 @@
 // The per-receiver F-row gather-max: for one receiver, the max over its F
-// sender rows of a row-major [n, n] view, at kV consecutive columns.
-// Shared by K1 (fanout_max.cu: the gather is the whole kernel) and by the
-// explicit-edge and plain-arc forms of K3's merge pass
-// (resident_round.cu), and compiled by a g++ harness in the CPU tests
-// (tests/test_torch_gather_rows_host.py) against the plain versions.
-// gather_max_masked is the scenario engine's form of the same gather (K3's
-// edge_filter forms; tests/test_torch_edge_filter_host.py).
+// sender rows of a row-major [n, n] view, at kV consecutive columns: K1
+// (fanout_max.cu: the gather is the whole kernel), compiled by a g++
+// harness in the CPU tests (tests/test_torch_gather_rows_host.py) against
+// the plain version.  K3's forms gather 16 bytes a row through
+// rr_onepass.cuh instead.
 //
 // The max starts at the element type's minimum, so it is the max over
 // the F rows with no floor, as the TPU kernels compute it (the XLA oracle
@@ -107,32 +105,6 @@ GR_HD void gather_max(const T* view, int n, int col0, int valid, int fanout,
                       RowOf row_of, int (&best)[kV]) {
   gather_max_block<T, kV, kAligned>(view, n, n, col0, valid, fanout, row_of,
                                     best);
-}
-
-// The masked gather of K3's edge_filter forms: best[k] = max over
-// f < count of (bit (f >> group_shift) of ``mask`` set ? src[row_of(f),
-// col0 + k] : -1).  ``src`` is [rows, n] row-major: the group maxes
-// G[n/8, n] with group_shift 0 (bit f keeps window group f), or the whole
-// view [n, n] with group_shift = log2(arc_align) (row f belongs to window
-// group f / arc_align; the max over a group is the max over its rows).  A
-// dropped row contributes the absent encoding -1, what "no sender carried
-// the entry" gives, so the max starts there: a zero mask yields -1
-// everywhere (a merge that only ages), and no view value lies below -1.
-template <typename T, int kV, bool kAligned, typename RowOf>
-GR_HD void gather_max_masked(const T* src, int rows, int n, int col0,
-                             int valid, int count, int group_shift,
-                             unsigned mask, RowOf row_of, int (&best)[kV]) {
-  for (int k = 0; k < kV; ++k) best[k] = -1;
-  GR_UNROLL
-  for (int f = 0; f < count; ++f) {
-    if (!((mask >> (f >> group_shift)) & 1u)) continue;
-    const int s = row_of(f);
-    if ((unsigned)s < (unsigned)rows) {
-      int v[kV];
-      load_row<T, kV, kAligned>(src + (size_t)s * n + col0, valid, v);
-      for (int k = 0; k < kV; ++k) best[k] = v[k] > best[k] ? v[k] : best[k];
-    }
-  }
 }
 
 }  // namespace gather_rows

@@ -2,7 +2,8 @@
 // 32-bit word carries 4 subjects (int8 lanes, little-endian: byte 0 = the
 // lowest subject), and every compare, select and wrap-around add runs on
 // the 4 at once with carry-safe bitwise word arithmetic.  Shared by the
-// Hopper kernel (resident_round.cu, kSwar) and a host build that the CPU
+// Hopper kernels (resident_round.cu and rr_onepass.cu, kSwar) and a host
+// build that the CPU
 // tests compile with g++ (tests/test_torch_swar_host.py) and hold against
 // the plain PyTorch version (gossipfs_tpu_torch/ops/merge.py:
 // tick_view_swar_plain, merge_swar_plain, itself the port of the JAX
@@ -297,43 +298,4 @@ SW_HD SwMerge rr_merge_swar_t(uint32_t hb, uint32_t asl, uint32_t best,
                 add(base, word(4)));
   out.refuted = kSus ? adv & bytes(eq(st, word(RR_SUSPECT))) : 0u;
   return out;
-}
-
-// The merged view word over F rows of a row-major [rows, n] int8 source
-// (K3's explicit-edge and plain-arc gathers, gather_rows.cuh gather_max on
-// words; n is the row stride, a shard's column count): the byte max starts
-// at -128, a sender outside [0, rows) is skipped.
-template <typename RowOf>
-SW_HD uint32_t gather_max_swar(const int8_t* src, int rows, int n, int col0,
-                               int count, RowOf row_of) {
-  uint32_t best = swar::H;
-#if defined(__CUDACC__)
-#pragma unroll 4
-#endif
-  for (int f = 0; f < count; ++f) {
-    const int s = row_of(f);
-    if ((unsigned)s < (unsigned)rows)
-      best = swar::maxs(best, swar::load(src + (size_t)s * n + col0));
-  }
-  return best;
-}
-
-// The masked gather of the edge_filter forms on words (gather_rows.cuh
-// gather_max_masked): row f kept iff bit (f >> group_shift) of ``mask``
-// is set; a dropped row contributes -1, so the max starts there.
-template <typename RowOf>
-SW_HD uint32_t gather_max_masked_swar(const int8_t* src, int rows, int n,
-                                      int col0, int count, int group_shift,
-                                      unsigned mask, RowOf row_of) {
-  uint32_t best = 0xFFFFFFFFu;
-#if defined(__CUDACC__)
-#pragma unroll 4
-#endif
-  for (int f = 0; f < count; ++f) {
-    if (!((mask >> (f >> group_shift)) & 1u)) continue;
-    const int s = row_of(f);
-    if ((unsigned)s < (unsigned)rows)
-      best = swar::maxs(best, swar::load(src + (size_t)s * n + col0));
-  }
-  return best;
 }

@@ -17,7 +17,9 @@ edges.  One warm-up round builds the kernel; the timed run starts from a
 fresh state (set-up not timed) and ends in a device synchronize.  Prints
 one JSON line: the JAX package's fields, less ``rr_rotate``,
 ``merge_block_r`` and ``row_budget_bytes`` (TPU VMEM layout, which the
-port does not have), plus the device and its peak memory.
+port does not have), plus the device, its peak memory and the timed
+run's resident-round launches by form (none on the CPU, where the plain
+version runs).
 ``--elementwise swar`` runs the resident round's SWAR form;
 ``--trace`` raises ``NotImplementedError`` until the flight recorder is
 ported.
@@ -38,6 +40,7 @@ from gossipfs_tpu_torch.bench import tracked_crash_events
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.core import rounds as R
 from gossipfs_tpu_torch.metrics.detection import summarize
+from gossipfs_tpu_torch.ops import merge
 
 # the JAX package's arc-chunk quantum (gossipfs_tpu/ops/merge_pallas.py
 # ARC_CHUNK), copied so the padded N is the same in both packages
@@ -114,7 +117,9 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
     go(1)  # warm-up: the kernel's build and load
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    merge.reset_launch_counts()
     out, elapsed = go(rounds)
+    launches = {f: v for f, v in merge.FORM_LAUNCHES.items() if v}
     mcarry, per_round = out[7], out[8]
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
@@ -147,6 +152,7 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "peak_memory_bytes": peak,
+        "launches": launches,
     }
 
 

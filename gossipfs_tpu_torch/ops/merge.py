@@ -44,11 +44,15 @@ Source note.  Replaces ``resident_round_blocked``
 (gossipfs_tpu/ops/merge_pallas.py:2611).  Bound on the H100: bytes.  The
 floor is each packed lane read and written once, 4 B per entry (0.32 ms at
 N = 16,384 and 3.35 TB/s); the arithmetic is a few dozen integer ops per
-entry.  The kernel runs as two launches (tick + view + group max or whole
-view, then merge + reductions) and moves about 8.4 B per entry in the
-aligned form, about 10 B in the others (the whole view once each way); its
-times and bounds are in PERF.md (from chip_smoke.py).  It takes
-``N % 4 == 0`` (4-byte vectors): the round loop sends a ragged N to the
+entry.  The two-launch kernel (``csrc/resident_round.cu``, per-thread
+bodies in ``csrc/rr_twopass.cuh``) runs tick + view + group max or whole
+view, then merge + reductions, a thread a 16-byte segment of a row, the
+merge's column tile narrowed so that the view strip it gathers from stays
+in L2 (256 columns at N = 65,536 in the full-view forms); it moves about
+8.4 B per entry in the aligned form, about 10 B in the others (the whole
+view once each way); its times and bounds are in PERF.md (from
+chip_smoke.py).  It takes ``N % 4 == 0`` (4-byte words; rows off 16-byte
+boundaries move word by word): the round loop sends a ragged N to the
 separate-pass round (core/rounds._lean_ok).
 
 All arithmetic is int32 over int8 lane values with an explicit mod-2^8
@@ -103,7 +107,7 @@ from gossipfs_tpu_torch.ops import swar
  V_KEEP_THR, V_HI_THR, V_HAS_HI, V_SB8) = range(11)
 N_VEC = 11
 
-# the CUDA kernel's fixed geometry: 8-row sender groups, 4-byte vectors
+# the CUDA kernel's fixed geometry: 8-row sender groups, 4-byte words
 KERNEL_ALIGN = 8
 KERNEL_VEC = 4
 

@@ -1,11 +1,12 @@
 """Host build of the resident round's ``edge_filter`` forms.
 
-The masked gather (csrc/gather_rows.cuh ``gather_max_masked``) and the
-muted view encode (csrc/rr_elem.cuh ``rr_sends``) are ``__host__
-__device__`` functions of the headers the CUDA kernel
-(csrc/resident_round.cu) is built from.  Here g++ compiles a harness from
-those same headers and replays a whole round the way the kernel's two
-passes walk it, in both forms:
+The masked gathers (csrc/rr_onepass.cuh ``gather_groups`` and
+``gather_rows`` under the edge_filter forms, 16 bytes a row) and the muted
+view encode (csrc/rr_elem.cuh ``rr_sends``) are ``__host__ __device__``
+functions of the headers both CUDA forms of K3 (csrc/resident_round.cu,
+rr_onepass.cu) are built from.  Here g++ compiles a harness from those
+same headers and replays a whole round the way the two-launch kernel's
+passes compute it, in both forms:
 
 * ``filter_group`` (arc_align 8): pass A writes the 8-row group maxes
   ``G[n/8, n]``, pass B takes the masked max over the arc's F/8 groups;
@@ -42,8 +43,8 @@ HARNESS = r"""
 #include <cstdint>
 #include <algorithm>
 #include <vector>
-#include "gather_rows.cuh"
 #include "rr_elem.cuh"
+#include "rr_onepass.cuh"
 
 // One edge_filter round.  senders int32 [n, 2] (arc base, match mask);
 // ``align`` 8 runs the group form, any other power of two the row form.
@@ -91,36 +92,43 @@ static void round_filter(int n, int fanout, int align, int8_t* hb,
       if (fail) { ndet[c] += 1; fobs[c] = std::min(fobs[c], r); }
     }
   }
-  // pass B: the masked gather, the epilogue, the reductions
   int shift = 0;
   while ((1 << shift) < align) ++shift;
+  // pass B: the kernel's masked gathers 16 bytes at a time
+  // (rr_onepass.cuh gather_groups for the group form, gather_rows for the
+  // row form), the epilogue, the reductions
+  const onepass::Knobs kn{t_fail, t_cooldown, confirm, confirm_hi,
+                          age_clamp, group ? fanout / 8 : fanout, shift};
+  const uint32_t none[4] = {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                            0xFFFFFFFFu};
   for (int r = 0; r < n; ++r) {
     const bool recv = flags[r] & 4;
-    const int base = senders[2 * r];
-    const unsigned mask = (unsigned)senders[2 * r + 1];
-    for (int col0 = 0; col0 < n; col0 += 4) {
-      int best[4] = {-1, -1, -1, -1};
-      if (recv) {
-        if (group) {
-          const int g0 = base / 8, nb = n / 8;
-          gather_rows::gather_max_masked<int8_t, 4, false>(
-              g.data(), nb, n, col0, 4, fanout / 8, 0, mask,
-              [g0, nb](int k) { const int x = g0 + k;
-                                return x >= nb ? x - nb : x; }, best);
-        } else {
-          gather_rows::gather_max_masked<int8_t, 4, false>(
-              g.data(), n, n, col0, 4, fanout, shift, mask,
-              [base, n](int f) { const int s = base + f;
-                                 return s >= n ? s - n : s; }, best);
-        }
+    for (int col0 = 0; col0 < n; col0 += 16) {
+      auto addr = [&](int s) -> const int8_t* {
+        return s < 0 ? reinterpret_cast<const int8_t*>(none)
+                     : g.data() + (size_t)s * n + col0;
+      };
+      auto load = [](const int8_t* p) { return onepass::load_seg(p); };
+      onepass::Seg best = onepass::splat(0xFFFFFFFFu);
+      if (recv && group) {
+        const auto m = onepass::load_meta<onepass::kFormFilterGroup>(
+            flags, senders, r, kn.width);
+        best = onepass::gather_groups<onepass::kFormFilterGroup>(m, n, kn,
+                                                                 addr, load);
+      } else if (recv) {
+        const auto m = onepass::load_meta<onepass::kFormFilterRows>(
+            flags, senders, r, kn.width);
+        best = onepass::gather_rows<onepass::kFormFilterRows>(
+            m, senders, r, n, kn, addr, load);
       }
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < 16; ++k) {
         const int c = col0 + k;
         int v[N_VEC];
         for (int i = 0; i < N_VEC; ++i) v[i] = vecs[i * n + c];
         const size_t o = (size_t)r * n + c;
-        RrMerge m = rr_merge_t<kSus>(hb[o], asl[o], (int8_t)best[k], recv, v,
-                                     age_clamp);
+        RrMerge m = rr_merge_t<kSus>(hb[o], asl[o],
+                                     swar::byte_at(best.w[k / 4], k % 4),
+                                     recv, v, age_clamp);
         hb[o] = (int8_t)m.hb; asl[o] = (int8_t)m.asl;
         const int st = m.asl & 3;
         const int listed = kSus ? (st & 1) : st == RR_MEMBER;

@@ -1,17 +1,19 @@
-"""Host build of the F-row gather-max (csrc/gather_rows.cuh).
+"""Host build of the F-row gather-maxes (csrc/gather_rows.cuh, rr_onepass.cuh).
 
-K1 (csrc/fanout_max.cu) and the explicit-edge and plain-arc merge pass of
-the resident round (csrc/resident_round.cu) gather through one header of
-``__host__ __device__`` functions.  Here g++ compiles a small harness from
-that same header; ``ctypes`` runs it over numpy inputs:
+K1 (csrc/fanout_max.cu) gathers through ``gather_rows.cuh``, and the
+explicit-edge and plain-arc merge passes of the resident round (both K3
+forms, csrc/resident_round.cu and rr_onepass.cu) through
+``rr_onepass.cuh``'s ``gather_rows``, 16 bytes a row; both headers are
+``__host__ __device__`` code.  Here g++ compiles a small harness from the
+same headers; ``ctypes`` runs it over numpy inputs:
 
 * K1's loop (16-row blocks of 4-column groups, element loads at a ragged
   N) must equal ``fanout_max_merge_plain`` for every view type;
 * a host replay of the resident round's explicit-edge and plain-arc forms
   (pass A writing the whole encoded view, pass B gathering each live
-  receiver's F sender rows, the epilogue and the reductions) must equal
-  ``resident_round_plain`` on whole rounds.
-This catches slips in the gather and its row indexing before the card
+  receiver's F sender rows 16 bytes at a time, the epilogue and the
+  reductions) must equal ``resident_round_plain`` on whole rounds.
+This catches slips in the gathers and their row indexing before the card
 runs the kernels.
 """
 
@@ -39,6 +41,7 @@ HARNESS = r"""
 #include <cstdint>
 #include <algorithm>
 #include "gather_rows.cuh"
+#include "rr_onepass.cuh"
 #include "rr_elem.cuh"
 
 template <typename T>
@@ -90,29 +93,38 @@ extern "C" void host_round_full(int n, int fanout, int arc, int8_t* hb,
                                 vecs[V_SA_ALL * n + c], vecs[V_HI_N * n + c]);
       if (t.fail) { ndet[c] += 1; fobs[c] = std::min(fobs[c], r); }
     }
+  // pass B: each live receiver's F sender rows gathered 16 bytes at a
+  // time as the kernel's merge pass does (rr_onepass.cuh gather_rows)
+  const onepass::Knobs kn{t_fail, t_cooldown, 0, 0, age_clamp, fanout, 0};
+  const uint32_t none[4] = {0x80808080u, 0x80808080u, 0x80808080u,
+                            0x80808080u};
   for (int r = 0; r < n; ++r) {
     const bool recv = flags[r] & 4;
-    for (int col0 = 0; col0 < n; col0 += 4) {
-      int best[4] = {-1, -1, -1, -1};
-      if (recv) {
-        if (arc) {
-          const int base = senders[r];
-          gather_rows::gather_max<int8_t, 4, false>(
-              view, n, col0, 4, fanout,
-              [base, n](int f) { const int s = base + f;
-                                 return s >= n ? s - n : s; }, best);
-        } else {
-          const int32_t* e = senders + (size_t)r * fanout;
-          gather_rows::gather_max<int8_t, 4, false>(
-              view, n, col0, 4, fanout, [e](int f) { return e[f]; }, best);
-        }
+    for (int col0 = 0; col0 < n; col0 += 16) {
+      auto addr = [&](int s) -> const int8_t* {
+        return s < 0 ? reinterpret_cast<const int8_t*>(none)
+                     : view + (size_t)s * n + col0;
+      };
+      auto load = [](const int8_t* p) { return onepass::load_seg(p); };
+      onepass::Seg best = onepass::splat(0xFFFFFFFFu);
+      if (recv && arc) {
+        const auto m = onepass::load_meta<onepass::kFormArc>(flags, senders,
+                                                             r, fanout);
+        best = onepass::gather_rows<onepass::kFormArc>(m, senders, r, n, kn,
+                                                       addr, load);
+      } else if (recv) {
+        const auto m = onepass::load_meta<onepass::kFormEdges>(
+            flags, senders, r, fanout);
+        best = onepass::gather_rows<onepass::kFormEdges>(m, senders, r, n,
+                                                         kn, addr, load);
       }
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < 16; ++k) {
         const int c = col0 + k;
         int v[N_VEC];
         for (int i = 0; i < N_VEC; ++i) v[i] = vecs[i * n + c];
         const size_t o = (size_t)r * n + c;
-        RrMerge m = rr_merge(hb[o], asl[o], (int8_t)best[k], recv, v,
+        RrMerge m = rr_merge(hb[o], asl[o],
+                             swar::byte_at(best.w[k / 4], k % 4), recv, v,
                              age_clamp);
         hb[o] = (int8_t)m.hb; asl[o] = (int8_t)m.asl;
         const int listed = (m.asl & 3) == RR_MEMBER;

@@ -11,11 +11,12 @@ runs.  Three checks:
   epilogue (``rr_merge_swar_t``) against ``rr_elem.cuh``'s lanes functions
   byte by byte, on random words covering every flag bit, every status,
   ages on both sides of every threshold and deep shifts;
-* a whole round replayed the way the kernel's two passes walk it (the
-  diagonal words on the lanes functions, the group max and the gathers on
-  words, the 0/1-per-byte counter words) in every merge form, crash-only,
-  suspicion and suspicion + Lifeguard, against the SWAR plain version and
-  the lanes plain version.
+* a whole round replayed the way the two-launch kernel's passes walk it
+  (rr_twopass.cuh: 16-byte segments, the diagonal words on the lanes
+  functions, the group max and the gathers on words, the 0/1-per-byte
+  counter words) in every merge form, crash-only, suspicion and suspicion
+  + Lifeguard, against the SWAR plain version and the lanes plain
+  version.
 
 Exact equality throughout.
 """
@@ -43,6 +44,7 @@ HARNESS = r"""
 #include <cstdint>
 #include <vector>
 #include "rr_swar.cuh"
+#include "rr_twopass.cuh"
 
 using namespace swar;
 
@@ -141,146 +143,117 @@ extern "C" void merge_words(int m, int sus, int swar_form, const uint32_t* hb,
   }
 }
 
-// One SWAR round walked as the kernel walks it.  form: 0 aligned group,
-// 1 edges [n, width], 2 arc bases [n], 3 filter_group, 4 filter_rows
-// ([n, 2] base, mask).  out [8, n] int32: member_cnt, n_det, first_obs,
-// recv_cnt, entered, refuted, held, suspect_cnt.
+// One SWAR round walked as the two-launch kernel walks it (its per-thread
+// bodies in rr_twopass.cuh): pass A, a thread a 16-byte segment of an
+// 8-row sender group (the diagonal words on the lanes functions), then
+// pass B, one block's persistent walk over the items (16 rows of one
+// 128-column tile), a thread a row's segment, counter words flushed at
+// each tile.  form: 0 aligned group, 1 edges [n, width], 2 arc bases [n],
+// 3 filter_group, 4 filter_rows ([n, 2] base, mask).  out [8, n] int32:
+// member_cnt, n_det, first_obs, recv_cnt, entered, refuted, held,
+// suspect_cnt.
+template <bool kSus, int kForm>
+static void round_swar_t(int n, int align, int width, int8_t* hb,
+                         int8_t* asl, const int8_t* flags, const int8_t* vecs,
+                         const int32_t* senders, int t_fail, int t_cooldown,
+                         int confirm, int confirm_hi, int age_clamp,
+                         int32_t* out) {
+  using namespace twopass;
+  constexpr bool kFull = onepass::full_view(kForm);
+  int shift = 0;
+  while ((1 << shift) < align) ++shift;
+  const Knobs kn{t_fail, t_cooldown, confirm, confirm_hi, age_clamp, width,
+                 shift};
+  int32_t *cnt = out, *ndet = out + n, *fobs = out + 2 * n,
+          *rcnt = out + 3 * n, *ent = out + 4 * n, *refu = out + 5 * n,
+          *held = out + 6 * n, *scnt = out + 7 * n;
+  for (int j = 0; j < 8 * n; ++j) out[j] = 0;
+  for (int j = 0; j < n; ++j) fobs[j] = n;
+  std::vector<int8_t> g((size_t)(kFull ? n : n / 8) * n);
+  struct Sink {
+    int32_t *ndet, *fobs, *ent;
+    void det(int c, int k, int first) {
+      ndet[c] += k;
+      if (first < fobs[c]) fobs[c] = first;
+    }
+    void entered(int c, int k) { ent[c] += k; }
+  } sink{ndet, fobs, ent};
+  const Geo ga = geometry(n, n, 0, kFull, true, kTileMax);
+  for (int grp = 0; grp < n / 8; ++grp)
+    for (int lane = 0; lane < ga.lanes; ++lane) {
+      const SegAt sa = seg_at(ga, 0, lane);
+      if (sa.words)
+        tick_group<kSus, kFull, onepass::mutes(kForm), true>(
+            hb, asl, flags, vecs, g.data(), ga, grp, sa, kn, sink);
+    }
+  const Geo gb = geometry(n, n, 0, kFull, true, kTileMin);
+  const Walk w = walk(gb);
+  uint32_t none[kSeg];
+  for (int k = 0; k < kSeg; ++k) none[k] = onepass::gather_none(kForm);
+  std::vector<int8_t> vs((size_t)kStackRows * gb.tile);
+  int32_t* outs[3] = {cnt, refu, held};
+  for (int tile = 0; tile < gb.tiles; ++tile) {
+    for (int i = 0; i < kStackRows * gb.lanes; ++i) {
+      const SegAt si = seg_at(gb, tile, i % gb.lanes);
+      store_seg(vs.data() + (i / gb.lanes) * gb.tile +
+                    (i % gb.lanes) * kSegBytes,
+                load_seg(vecs + stack_row(i / gb.lanes) * n + si.col0,
+                         si.words, true),
+                kSeg, true);
+    }
+    for (int lane = 0; lane < gb.lanes; ++lane) {
+      const SegAt sa = seg_at(gb, tile, lane);
+      SwVec vec[kSeg] = {};
+      load_stack(vs.data(), gb.tile, lane, vec);
+      Counts c;
+      clear(c);
+      for (int rb = 0; rb < w.row_blocks; ++rb)
+        for (int slot = 0; slot < gb.slots; ++slot) {
+          const int row = rb * gb.slots + slot;
+          if (row >= n || !sa.words) continue;
+          const auto m = onepass::load_meta<kForm>(flags, senders, row,
+                                                   width);
+          auto addr = [&](int s) -> const int8_t* {
+            return s < 0 ? reinterpret_cast<const int8_t*>(none)
+                         : g.data() + (size_t)s * n + sa.col0;
+          };
+          auto load = [](const int8_t* p) { return onepass::load_seg(p); };
+          auto gather = [&](const Meta<kForm>& mm, int r) -> Seg {
+            if constexpr (kFull)
+              return onepass::gather_rows<kForm>(mm, senders, r, n, kn,
+                                                 addr, load);
+            else
+              return onepass::gather_groups<kForm>(mm, n, kn, addr, load);
+          };
+          const RowCounts rc = merge_row<kSus, kForm, true>(
+              hb, asl, m, row, gb, sa, kn, vec, gather, c);
+          rcnt[row] += rc.listed;
+          scnt[row] += rc.held;
+        }
+      spill_counts<kSus>(c, sa, [&](int col, int q, int v) {
+        outs[q][col] += v;
+      });
+    }
+  }
+}
+
 template <bool kSus>
 static void round_swar(int n, int form, int align, int fanout, int width,
                        int8_t* hb, int8_t* asl, const int8_t* flags,
                        const int8_t* vecs, const int32_t* senders,
                        int t_fail, int t_cooldown, int confirm,
                        int confirm_hi, int age_clamp, int32_t* out) {
-  const bool group = form == 0 || form == 3;
-  const bool mute = form >= 3;
-  const int nb = n / 8;
-  std::vector<int8_t> g((size_t)(group ? nb : n) * n);
-  int32_t *cnt = out, *ndet = out + n, *fobs = out + 2 * n,
-          *rcnt = out + 3 * n, *ent = out + 4 * n, *refu = out + 5 * n,
-          *held = out + 6 * n, *scnt = out + 7 * n;
-  for (int j = 0; j < 8 * n; ++j) out[j] = 0;
-  for (int j = 0; j < n; ++j) fobs[j] = n;
-  // pass A: blocks of 8 rows, one word per thread
-  for (int g0 = 0; g0 < n; g0 += 8) {
-    for (int col0 = 0; col0 < n; col0 += 4) {
-      SwVec v{};
-      for (int k : {V_SA_N, V_SA_ALL, V_HI_N, V_THR_G})
-        v.v[k] = load(vecs + (size_t)k * n + col0);
-      uint32_t gm = H, det = 0, entw = 0, seen = 0, first = 0;
-      for (int r = 0; r < 8 && g0 + r < n; ++r) {
-        const int ri = g0 + r;
-        const int f = flags[ri];
-        const bool act = f & 1, ref = f & 2, lh = f & 16;
-        const bool sends = rr_sends(f, mute);
-        const size_t off = (size_t)ri * n + col0;
-        const int d = ri - col0;
-        const SwTickView t =
-            (unsigned)d < 4u
-                ? rr_tick_view_lanes_word<kSus>(load(hb + off),
-                                                load(asl + off), act, ref,
-                                                lh, sends, d, v, t_fail,
-                                                t_cooldown, confirm,
-                                                confirm_hi)
-                : rr_tick_view_swar<kSus>(load(hb + off), load(asl + off),
-                                          row(act), row(ref), row(lh),
-                                          row(sends), v, t_fail, t_cooldown,
-                                          confirm, confirm_hi);
-        store(hb + off, t.hb);
-        store(asl + off, t.asl);
-        if (group) gm = maxs(gm, t.enc);
-        else store(g.data() + off, t.enc);
-        det += t.fail >> 7;
-        if (t.fail) {
-          const uint32_t fresh = t.fail & ~seen;
-          seen |= t.fail;
-          first = sel(bytes(fresh), word(r), first);
-        }
-        entw += t.entered >> 7;
-      }
-      if (group) store(g.data() + (size_t)(g0 / 8) * n + col0, gm);
-      for (int k = 0; k < 4; ++k) {
-        const int c = (det >> (8 * k)) & 0xFF;
-        if (c) {
-          ndet[col0 + k] += c;
-          const int fr = g0 + (int)((first >> (8 * k)) & 0xFF);
-          if (fr < fobs[col0 + k]) fobs[col0 + k] = fr;
-        }
-        ent[col0 + k] += (entw >> (8 * k)) & 0xFF;
-      }
-    }
+  (void)fanout;
+#define ARGS n, align, width, hb, asl, flags, vecs, senders, t_fail, \
+      t_cooldown, confirm, confirm_hi, age_clamp, out
+  switch (form) {
+    case 0: return round_swar_t<kSus, onepass::kFormGroup>(ARGS);
+    case 1: return round_swar_t<kSus, onepass::kFormEdges>(ARGS);
+    case 2: return round_swar_t<kSus, onepass::kFormArc>(ARGS);
+    case 3: return round_swar_t<kSus, onepass::kFormFilterGroup>(ARGS);
+    default: return round_swar_t<kSus, onepass::kFormFilterRows>(ARGS);
   }
-  // pass B: blocks of 32 rows
-  int shift = 0;
-  while ((1 << shift) < align) ++shift;
-  for (int r0 = 0; r0 < n; r0 += 32) {
-    for (int col0 = 0; col0 < n; col0 += 4) {
-      SwVec v{};
-      for (int k = 0; k < N_VEC; ++k)
-        v.v[k] = load(vecs + (size_t)k * n + col0);
-      uint32_t cw = 0, rw = 0, hw = 0;
-      for (int ri = r0; ri < r0 + 32 && ri < n; ++ri) {
-        const bool recv = flags[ri] & 4;
-        uint32_t best = 0xFFFFFFFFu;
-        if (form == 0) {
-          const int b0 = senders[ri] / 8;
-          best = load(g.data() + (size_t)b0 * n + col0);
-          for (int w = 1; w < width; ++w)
-            best = maxs(best, load(g.data() + (size_t)((b0 + w) % nb) * n
-                                   + col0));
-        } else if (recv) {
-          if (form == 1) {
-            const int32_t* e = senders + (size_t)ri * width;
-            best = gather_max_swar(g.data(), n, n, col0, width,
-                                   [e](int f) { return e[f]; });
-          } else if (form == 2) {
-            const int base = senders[ri];
-            best = gather_max_swar(g.data(), n, n, col0, width,
-                                   [base, n](int f) {
-                                     const int s = base + f;
-                                     return s >= n ? s - n : s;
-                                   });
-          } else if (form == 3) {
-            const int b0 = senders[2 * ri] / 8;
-            best = gather_max_masked_swar(
-                g.data(), nb, n, col0, width, 0,
-                (unsigned)senders[2 * ri + 1], [b0, nb](int k) {
-                  const int x = b0 + k;
-                  return x >= nb ? x - nb : x;
-                });
-          } else {
-            const int base = senders[2 * ri];
-            best = gather_max_masked_swar(
-                g.data(), n, n, col0, width, shift,
-                (unsigned)senders[2 * ri + 1], [base, n](int f) {
-                  const int s = base + f;
-                  return s >= n ? s - n : s;
-                });
-          }
-        }
-        const size_t off = (size_t)ri * n + col0;
-        const SwMerge mg = rr_merge_swar_t<kSus>(load(hb + off),
-                                                 load(asl + off), best,
-                                                 row(recv), v, age_clamp);
-        store(hb + off, mg.hb);
-        store(asl + off, mg.asl);
-        const uint32_t st = mg.asl & word(3);
-        const uint32_t lst = kSus ? st & L : eq(st, word(RR_MEMBER)) >> 7;
-        if (recv) cw += lst;
-        rcnt[ri] += __builtin_popcount(lst);
-        if (kSus) {
-          const uint32_t hl = eq(st, word(RR_SUSPECT)) >> 7;
-          rw += mg.refuted & L;
-          hw += hl;
-          scnt[ri] += __builtin_popcount(hl);
-        }
-      }
-      for (int k = 0; k < 4; ++k) {
-        cnt[col0 + k] += (cw >> (8 * k)) & 0xFF;
-        refu[col0 + k] += (rw >> (8 * k)) & 0xFF;
-        held[col0 + k] += (hw >> (8 * k)) & 0xFF;
-      }
-    }
-  }
+#undef ARGS
 }
 
 extern "C" void host_round_swar(int n, int form, int align, int fanout,
