@@ -115,9 +115,40 @@ struct TickSink {
 // tick wants its registers, 2 (128); the merge gathering 8 rows of 16
 // bytes at once 2, the aligned forms' merge 3, or 2 with the suspicion
 // counts (each timed on the card against the others; PERF.md, PR 10).
-constexpr int tick_blocks(bool swar) { return swar ? 2 : 3; }
+#ifndef RR_TICK_BLOCKS_LANES
+#define RR_TICK_BLOCKS_LANES 3
+#endif
+#ifndef RR_TICK_BLOCKS_SWAR
+#define RR_TICK_BLOCKS_SWAR 2
+#endif
+#ifndef RR_MERGE_BLOCKS_FULL
+#define RR_MERGE_BLOCKS_FULL 2
+#endif
+#ifndef RR_MERGE_BLOCKS_GROUP
+#define RR_MERGE_BLOCKS_GROUP 3
+#endif
+#ifndef RR_MERGE_BLOCKS_GROUP_SUS
+#define RR_MERGE_BLOCKS_GROUP_SUS 2
+#endif
+#ifndef RR_STAGED
+#define RR_STAGED 0
+#endif
+#ifndef RR_GATHER_B
+#define RR_GATHER_B 8
+#endif
+#ifndef RR_SWAR_STACK_SMEM
+#define RR_SWAR_STACK_SMEM 0
+#endif
+#ifndef RR_FLUSH_ITEM
+#define RR_FLUSH_ITEM 0
+#endif
+constexpr int tick_blocks(bool swar) {
+  return swar ? RR_TICK_BLOCKS_SWAR : RR_TICK_BLOCKS_LANES;
+}
 constexpr int merge_blocks(int form, bool sus) {
-  return onepass::full_view(form) || sus ? 2 : 3;
+  return onepass::full_view(form) ? RR_MERGE_BLOCKS_FULL
+         : sus                    ? RR_MERGE_BLOCKS_GROUP_SUS
+                                  : RR_MERGE_BLOCKS_GROUP;
 }
 
 template <bool kSus, bool kFull, bool kMute, bool kSwar>
@@ -134,8 +165,8 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   const SegAt sa = seg_at(g, blockIdx.y, lane);
   if (!sa.words) return;
   TickSink sink{n_det, first_obs, entered};
-  tick_group<kSus, kFull, kMute, kSwar>(hb, asl, flags, vecs, gmax, g, grp,
-                                        sa, kn, sink);
+  tick_group<kSus, kFull, kMute, kSwar, TickSink, !RR_RETICK>(
+      hb, asl, flags, vecs, gmax, g, grp, sa, kn, sink);
 }
 
 // the merge pass's suspicion outputs (null in the crash-only form)
@@ -179,7 +210,9 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   constexpr int kCounts = kSus ? 3 : 1;
   __shared__ int sums[kCounts][kTileMax];
   __shared__ __align__(16) int8_t vs[kStackRows * kTileMax];
+  extern __shared__ __align__(16) int8_t slots[];
   const int t = threadIdx.x;
+  int8_t* gslot = slots + t * kStageBytes;
   const int lane = t % g.lanes;
   const int slot = t / g.lanes;
   const int span = g.lanes < 32 ? g.lanes : 32;
@@ -240,8 +273,8 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                   kSeg, true);
       }
       __syncthreads();
-      if (kSwar) load_stack(vs, g.tile, lane, vec);
-    } else if (since >= kCountMax) {
+      if (kSwar && !RR_SWAR_STACK_SMEM) load_stack(vs, g.tile, lane, vec);
+    } else if (since >= kCountMax || RR_FLUSH_ITEM) {
       flush();
     }
     const int row = rb * g.slots + slot;
@@ -255,19 +288,31 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     }
     RowCounts rc{0, 0};
     if (valid) {
-      if (!kSwar) load_stack(vs, g.tile, lane, vec);
+      if (!kSwar || RR_SWAR_STACK_SMEM) load_stack(vs, g.tile, lane, vec);
       const SegAt s = sa;
       auto load = [s, &g](const int8_t* p) {
         return load_seg(p, s.words, g.al16);
       };
       auto gather = [&](const Meta<kForm>& mm, int r) {
         if constexpr (kFull) {
-          return onepass::gather_rows<kForm>(
-              mm, senders, r, g.n, kn,
-              [&](int sr) {
-                return sr < 0 ? none : gmax + (size_t)sr * nc + s.col0;
-              },
-              load);
+          auto addr = [&](int sr) {
+            return sr < 0 ? none : gmax + (size_t)sr * nc + s.col0;
+          };
+          if (RR_STAGED && g.al16 && s.words == kSeg)
+            return gather_rows_staged<kForm>(
+                mm, senders, r, g.n, kn, addr,
+                [&](int i, const int8_t* src) {
+                  asm volatile(
+                      "cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                          (uint32_t)__cvta_generic_to_shared(
+                              gslot + i * kSegBytes)),
+                      "l"(src)
+                      : "memory");
+                },
+                []() { asm volatile("cp.async.wait_all;" ::: "memory"); },
+                [&](int i) { return onepass::lds_seg(gslot + i * kSegBytes); });
+          return gather_rows_b<kForm, RR_STAGED ? 4 : RR_GATHER_B>(
+              mm, senders, r, g.n, kn, addr, load);
         } else {
           return onepass::gather_groups<kForm>(
               mm, g.n, kn,
@@ -277,8 +322,8 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
               load);
         }
       };
-      rc = merge_row<kSus, kForm, kSwar>(hb, asl, m, row, g, sa, kn, vec,
-                                         gather, cnt);
+      rc = merge_row<kSus, kForm, kSwar, decltype(gather), RR_RETICK>(
+          hb, asl, m, row, g, sa, kn, vec, gather, cnt);
     }
     ++since;  // every thread: the flush it may call is block-wide
     const int rrow = row < g.n ? row : g.n - 1;
@@ -310,7 +355,10 @@ cudaError_t launch_pair(int8_t* hb, int8_t* asl, const int8_t* flags,
   constexpr bool kMute = onepass::mutes(kForm);
   const size_t c = (size_t)g.nc;
   // pass A streams its rows and gathers nothing: the widest tile
-  const Geo ga = geometry(g.n, g.nc, g.col_offset, kFull, g.al16, kTileMax);
+#ifndef RR_TILE_A
+#define RR_TILE_A kTileMax
+#endif
+  const Geo ga = geometry(g.n, g.nc, g.col_offset, kFull, g.al16, RR_TILE_A);
   const int groups = (g.n + kAlign - 1) / kAlign;
   rr_tick_view_kernel<kSus, kFull, kMute, kSwar>
       <<<dim3((groups + ga.slots - 1) / ga.slots, ga.tiles), kThreads, 0,
@@ -322,17 +370,22 @@ cudaError_t launch_pair(int8_t* hb, int8_t* asl, const int8_t* flags,
             kLh ? o.recv + (size_t)g.n : nullptr};
   // the blocks the card holds at once, walking the items
   auto kern = rr_merge_kernel<kSus, kLh, kForm, kSwar>;
+  const int dyn = kFull && RR_STAGED ? kThreads * kStageBytes : 0;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
+  if (dyn && (e = cudaFuncSetAttribute(
+                  kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn)) !=
+                 cudaSuccess)
+    return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                         kThreads, 0)) !=
+                                                         kThreads, dyn)) !=
       cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  kern<<<pass_b_blocks(g, per_sm * sms), kThreads, 0, s>>>(
+  kern<<<pass_b_blocks(g, per_sm * sms), kThreads, dyn, s>>>(
       hb, asl, flags, vecs, senders, gmax, o.subj, o.recv, o.subj + 2 * c,
       so, g, kn);
   return cudaGetLastError();
