@@ -31,10 +31,10 @@
 //
 // Design (rr_twopass.cuh has the per-thread bodies; a thread takes one
 // 16-byte segment, 16 subjects, of a row; both launches in stream order):
-//   A  rr_tick_view_kernel: a block holds 256 / lanes sender groups of 8
-//      rows over one 1,024-column tile.  Each thread ticks its group's 8
-//      rows at its segment (16-byte loads, the next row's in flight; SWAR
-//      unrolled; the lanes tick eye-free but on the diagonal's word, one
+//   A  rr_tick_view_kernel: a block holds 4 sender groups of 8 rows over
+//      one 1,024-column tile.  Each thread ticks its group's 8 rows at its
+//      segment (16-byte loads, the next row's in flight; SWAR unrolled;
+//      the lanes tick eye-free but on the diagonal's word, one
 //      out-of-line call a row for one thread), writes the ticked lanes
 //      back, encodes the gossip view and writes each row's view
 //      (full-view forms: G is the whole view [n, nc]) or the group max
@@ -43,25 +43,25 @@
 //      firing row) and SUSPECT entries with atomics on the rare firing
 //      columns.
 //   B  rr_merge_kernel: as many blocks as the card holds at once, each
-//      walking items (column tile, 256 / lanes receiver rows) b, b +
-//      blocks, ..., so that the blocks in flight gather from one tile's
-//      strip of G.  A thread reads its row's ticked lanes, gathers best
-//      (F/8 group maxes, or F view rows 8 at a time), merges, and writes
-//      both lanes.  recv_cnt (and the Lifeguard suspect_cnt) is a
+//      walking items (1,024-column tile, 4 receiver rows) b, b + blocks,
+//      ..., so that the blocks in flight gather from one tile's strip of
+//      G.  A thread reads its row's ticked lanes, gathers best (F/8 group
+//      maxes, or F view rows 8 at a time), merges, and writes both
+//      lanes.  recv_cnt (and the Lifeguard suspect_cnt) is a
 //      reduction over the row's threads and one atomic a row and warp;
 //      member_cnt (refuted, held) accumulate in 0/1-per-byte counter words
 //      and leave once a tile (or every 255 rows) per block through shared
 //      memory, one atomic a column, so these atomics grow with the blocks
-//      (about 264 a column), not with N / 32.
-// The merge's column tile (twopass::tile_cols) keeps the gathered strip
-// within 16 MB of the 50 MB L2: 1,024 columns at N = 16,384, 256 at N =
-// 65,536 in the full-view forms (a 1,024-column strip of the whole view
-// is 64 MB there), while lane rows are read and written evict-first.
-// Bytes: both lanes read and written by each pass, G written once and read
-// from the strip: about 8.4 B per entry (aligned) and 10 B (full view),
+//      (a few hundred a column), not with N / 32.
+// Lane rows are read and written evict-first, so that the strip keeps
+// more of L2 (64 MB of the whole view at N = 65,536; narrower tiles whose
+// strip fits were measured slower, rr_twopass.cuh).  Bytes: both lanes
+// read and written by each pass, G written once and read from the strip:
+// about 8.4 B per entry (aligned) and 10 B (full view),
 // 2.1x and 2.5x the floor.  A pass B that ticks the pre-tick lanes again,
 // so that pass A writes no lanes (6.1 B / 7 B an entry), was measured and
-// dropped: the extra tick cost what the bytes saved (PERF.md, PR 10).
+// dropped: the second tick cost more than the bytes saved (PERF.md, PR
+// 10).
 // Registers are capped by launch bounds: the lanes tick, a dependent byte
 // chain, runs 3 blocks an SM (80 registers), everything else 2 (128), the
 // aligned forms' crash-only merge 3; with a 16-byte segment a thread the
@@ -115,40 +115,9 @@ struct TickSink {
 // tick wants its registers, 2 (128); the merge gathering 8 rows of 16
 // bytes at once 2, the aligned forms' merge 3, or 2 with the suspicion
 // counts (each timed on the card against the others; PERF.md, PR 10).
-#ifndef RR_TICK_BLOCKS_LANES
-#define RR_TICK_BLOCKS_LANES 3
-#endif
-#ifndef RR_TICK_BLOCKS_SWAR
-#define RR_TICK_BLOCKS_SWAR 2
-#endif
-#ifndef RR_MERGE_BLOCKS_FULL
-#define RR_MERGE_BLOCKS_FULL 2
-#endif
-#ifndef RR_MERGE_BLOCKS_GROUP
-#define RR_MERGE_BLOCKS_GROUP 3
-#endif
-#ifndef RR_MERGE_BLOCKS_GROUP_SUS
-#define RR_MERGE_BLOCKS_GROUP_SUS 2
-#endif
-#ifndef RR_STAGED
-#define RR_STAGED 0
-#endif
-#ifndef RR_GATHER_B
-#define RR_GATHER_B 8
-#endif
-#ifndef RR_SWAR_STACK_SMEM
-#define RR_SWAR_STACK_SMEM 0
-#endif
-#ifndef RR_FLUSH_ITEM
-#define RR_FLUSH_ITEM 0
-#endif
-constexpr int tick_blocks(bool swar) {
-  return swar ? RR_TICK_BLOCKS_SWAR : RR_TICK_BLOCKS_LANES;
-}
+constexpr int tick_blocks(bool swar) { return swar ? 2 : 3; }
 constexpr int merge_blocks(int form, bool sus) {
-  return onepass::full_view(form) ? RR_MERGE_BLOCKS_FULL
-         : sus                    ? RR_MERGE_BLOCKS_GROUP_SUS
-                                  : RR_MERGE_BLOCKS_GROUP;
+  return onepass::full_view(form) || sus ? 2 : 3;
 }
 
 template <bool kSus, bool kFull, bool kMute, bool kSwar>
@@ -165,8 +134,8 @@ rr_tick_view_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   const SegAt sa = seg_at(g, blockIdx.y, lane);
   if (!sa.words) return;
   TickSink sink{n_det, first_obs, entered};
-  tick_group<kSus, kFull, kMute, kSwar, TickSink, !RR_RETICK>(
-      hb, asl, flags, vecs, gmax, g, grp, sa, kn, sink);
+  tick_group<kSus, kFull, kMute, kSwar>(hb, asl, flags, vecs, gmax, g, grp,
+                                        sa, kn, sink);
 }
 
 // the merge pass's suspicion outputs (null in the crash-only form)
@@ -208,11 +177,9 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                 Knobs kn) {
   constexpr bool kFull = onepass::full_view(kForm);
   constexpr int kCounts = kSus ? 3 : 1;
-  __shared__ int sums[kCounts][kTileMax];
-  __shared__ __align__(16) int8_t vs[kStackRows * kTileMax];
-  extern __shared__ __align__(16) int8_t slots[];
+  __shared__ int sums[kCounts][kTile];
+  __shared__ __align__(16) int8_t vs[kStackRows * kTile];
   const int t = threadIdx.x;
-  int8_t* gslot = slots + t * kStageBytes;
   const int lane = t % g.lanes;
   const int slot = t / g.lanes;
   const int span = g.lanes < 32 ? g.lanes : 32;
@@ -221,8 +188,8 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   const int8_t* none = reinterpret_cast<const int8_t*>(
       kNoneRows[onepass::mutes(kForm) ? 1 : 0]);
   int32_t* outs[3] = {member_cnt, so.refuted, so.held};
-  for (int i = t; i < kCounts * kTileMax; i += kThreads)
-    sums[i / kTileMax][i % kTileMax] = 0;
+  for (int i = t; i < kCounts * kTile; i += kThreads)
+    sums[i / kTile][i % kTile] = 0;
   SwVec vec[kSeg] = {};
   Counts cnt;
   clear(cnt);
@@ -273,8 +240,8 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                   kSeg, true);
       }
       __syncthreads();
-      if (kSwar && !RR_SWAR_STACK_SMEM) load_stack(vs, g.tile, lane, vec);
-    } else if (since >= kCountMax || RR_FLUSH_ITEM) {
+      if (kSwar) load_stack(vs, g.tile, lane, vec);
+    } else if (since >= kCountMax) {
       flush();
     }
     const int row = rb * g.slots + slot;
@@ -288,31 +255,19 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     }
     RowCounts rc{0, 0};
     if (valid) {
-      if (!kSwar || RR_SWAR_STACK_SMEM) load_stack(vs, g.tile, lane, vec);
+      if (!kSwar) load_stack(vs, g.tile, lane, vec);
       const SegAt s = sa;
       auto load = [s, &g](const int8_t* p) {
         return load_seg(p, s.words, g.al16);
       };
       auto gather = [&](const Meta<kForm>& mm, int r) {
         if constexpr (kFull) {
-          auto addr = [&](int sr) {
-            return sr < 0 ? none : gmax + (size_t)sr * nc + s.col0;
-          };
-          if (RR_STAGED && g.al16 && s.words == kSeg)
-            return gather_rows_staged<kForm>(
-                mm, senders, r, g.n, kn, addr,
-                [&](int i, const int8_t* src) {
-                  asm volatile(
-                      "cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                          (uint32_t)__cvta_generic_to_shared(
-                              gslot + i * kSegBytes)),
-                      "l"(src)
-                      : "memory");
-                },
-                []() { asm volatile("cp.async.wait_all;" ::: "memory"); },
-                [&](int i) { return onepass::lds_seg(gslot + i * kSegBytes); });
-          return gather_rows_b<kForm, RR_STAGED ? 4 : RR_GATHER_B>(
-              mm, senders, r, g.n, kn, addr, load);
+          return onepass::gather_rows<kForm>(
+              mm, senders, r, g.n, kn,
+              [&](int sr) {
+                return sr < 0 ? none : gmax + (size_t)sr * nc + s.col0;
+              },
+              load);
         } else {
           return onepass::gather_groups<kForm>(
               mm, g.n, kn,
@@ -322,8 +277,8 @@ rr_merge_kernel(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
               load);
         }
       };
-      rc = merge_row<kSus, kForm, kSwar, decltype(gather), RR_RETICK>(
-          hb, asl, m, row, g, sa, kn, vec, gather, cnt);
+      rc = merge_row<kSus, kForm, kSwar>(hb, asl, m, row, g, sa, kn, vec,
+                                         gather, cnt);
     }
     ++since;  // every thread: the flush it may call is block-wide
     const int rrow = row < g.n ? row : g.n - 1;
@@ -354,38 +309,28 @@ cudaError_t launch_pair(int8_t* hb, int8_t* asl, const int8_t* flags,
   constexpr bool kFull = onepass::full_view(kForm);
   constexpr bool kMute = onepass::mutes(kForm);
   const size_t c = (size_t)g.nc;
-  // pass A streams its rows and gathers nothing: the widest tile
-#ifndef RR_TILE_A
-#define RR_TILE_A kTileMax
-#endif
-  const Geo ga = geometry(g.n, g.nc, g.col_offset, kFull, g.al16, RR_TILE_A);
   const int groups = (g.n + kAlign - 1) / kAlign;
   rr_tick_view_kernel<kSus, kFull, kMute, kSwar>
-      <<<dim3((groups + ga.slots - 1) / ga.slots, ga.tiles), kThreads, 0,
-          s>>>(hb, asl, flags, vecs, gmax, o.subj + c, o.subj + 2 * c,
-               kSus ? o.subj + 3 * c : nullptr, ga, kn);
+      <<<dim3((groups + g.slots - 1) / g.slots, g.tiles), kThreads, 0, s>>>(
+          hb, asl, flags, vecs, gmax, o.subj + c, o.subj + 2 * c,
+          kSus ? o.subj + 3 * c : nullptr, g, kn);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   SusOut so{kSus ? o.subj + 4 * c : nullptr, kSus ? o.subj + 5 * c : nullptr,
             kLh ? o.recv + (size_t)g.n : nullptr};
   // the blocks the card holds at once, walking the items
   auto kern = rr_merge_kernel<kSus, kLh, kForm, kSwar>;
-  const int dyn = kFull && RR_STAGED ? kThreads * kStageBytes : 0;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
-  if (dyn && (e = cudaFuncSetAttribute(
-                  kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn)) !=
-                 cudaSuccess)
-    return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                         kThreads, dyn)) !=
+                                                         kThreads, 0)) !=
       cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  kern<<<pass_b_blocks(g, per_sm * sms), kThreads, dyn, s>>>(
+  kern<<<pass_b_blocks(g, per_sm * sms), kThreads, 0, s>>>(
       hb, asl, flags, vecs, senders, gmax, o.subj, o.recv, o.subj + 2 * c,
       so, g, kn);
   return cudaGetLastError();
@@ -487,7 +432,7 @@ extern "C" int rr_round(void* hb, void* asl, const void* flags,
   const bool full = onepass::full_view(form);
   const bool al16 = nc % kSegBytes == 0 && aligned16(hb) && aligned16(asl) &&
                     aligned16(vecs) && aligned16(gmax);
-  const Geo g = geometry(n, nc, col_offset, full, al16);
+  const Geo g = geometry(n, nc, col_offset, al16);
   const Knobs kn{t_fail, t_cooldown, confirm_thr, confirm_thr_hi, age_clamp,
                  full ? fanout : fanout / kAlign, group_shift};
 #define RR_ARGS form, suspect, lh, static_cast<int8_t*>(hb), \

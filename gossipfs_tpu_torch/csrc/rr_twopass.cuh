@@ -8,12 +8,12 @@
 //
 // Thread map.  A thread takes one 16-byte segment (kSeg words, 16
 // subjects) of a row: ``lanes`` = tile / 16 threads a row, ``slots`` =
-// 256 / lanes rows a block at a time.  Pass A's tiles are 1,024 columns
-// wide; pass B's (tile_cols) is the widest power of two from 128 to 1,024
-// whose strip of the view pass B gathers from (every sender row in the full-view forms, the n / 8 group
-// maxes in the aligned ones) holds at most 16 MB of the H100's 50 MB L2:
-// 1,024 columns up to N = 16,384 (full view) or 131,072 (aligned), 256 at
-// N = 65,536 and 49,152 (full view), 128 at 98,304.
+// 256 / lanes rows a block at a time, over column tiles of kTile = 1,024
+// (64 threads a row, 4 rows a block).  Narrower tiles at large N, which
+// keep the strip of the view pass B gathers from inside the 50 MB L2 (256
+// columns at N = 65,536), were measured slower on the card: the gathers
+// hit L2 more often, but each row segment of the lanes streams shrank to
+// 256 bytes and the per-row count atomics grew fourfold (PERF.md, PR 10).
 //
 //   pass A  a thread ticks the 8 rows of one sender group at its segment
 //           (the lanes tick a row at a time, the next row's loads in
@@ -59,33 +59,9 @@ constexpr int kSeg = 4;                 // words a thread takes of a row
 constexpr int kSegBytes = 4 * kSeg;     // 16 subjects
 constexpr int kThreads = 256;
 constexpr int kAlign = 8;               // rows a sender group
-constexpr int kTileMin = 128;
-constexpr int kTileMax = 1024;
-#ifndef RR_STRIP_BYTES
-#define RR_STRIP_BYTES (16L << 20)
-#endif
-#ifndef RR_STREAM
-#define RR_STREAM 1
-#endif
-#ifndef RR_RETICK
-#define RR_RETICK 0
-#endif
-constexpr long kStripBytes = RR_STRIP_BYTES;  // view strip per tile
+constexpr int kTile = 1024;             // columns a tile
 constexpr int kCountMax = 255;          // rows a counter byte may hold
-constexpr int kStackRows = RR_RETICK ? 9 : 8;  // the merge's stack rows
-constexpr int kStage = 16;
-constexpr int kStageBytes = kStage * kSegBytes;
-
-// Pass B's column tile for ``n`` rows (``full``: the full-view forms
-// gather sender rows, else the aligned forms gather n / 8 group maxes):
-// the widest power of two in [kTileMin, kTileMax] whose strip of the view
-// holds at most kStripBytes.
-TP_HD int tile_cols(int n, bool full) {
-  const long rows = full ? (long)n : (long)(n / kAlign);
-  int t = kTileMax;
-  while (t > kTileMin && rows * t > kStripBytes) t >>= 1;
-  return t;
-}
+constexpr int kStackRows = 8;          // the merge's stack rows
 
 // The round's geometry: ``n`` global rows, ``nc`` local columns (the row
 // stride of every [*, nc] buffer) from global subject ``col_offset``; the
@@ -99,16 +75,15 @@ struct Geo {
   bool al16;
 };
 
-// ``tile`` 0 takes tile_cols (the kernel's choice); the host tests pass
-// other powers of two in [kTileMin, kTileMax] to walk several tiles at a
-// small N.
-TP_HD Geo geometry(int n, int nc, int col_offset, bool full, bool al16,
-                   int tile = 0) {
+// ``tile``: kTile on the card; the host tests pass smaller powers of two
+// (from 128) to walk several tiles at a small N.
+TP_HD Geo geometry(int n, int nc, int col_offset, bool al16,
+                   int tile = kTile) {
   Geo g;
   g.n = n;
   g.nc = nc;
   g.col_offset = col_offset;
-  g.tile = tile ? tile : tile_cols(n, full);
+  g.tile = tile;
   g.lanes = g.tile / kSegBytes;
   g.slots = kThreads / g.lanes;
   g.tiles = (nc + g.tile - 1) / g.tile;
@@ -138,7 +113,7 @@ template <bool kStream = false>
 TP_HD Seg load_seg(const int8_t* p, int words, bool al16) {
 #if defined(__CUDA_ARCH__)
   if (al16 && words == kSeg) {
-    const uint4 v = kStream && RR_STREAM ? __ldcs(reinterpret_cast<const uint4*>(p))
+    const uint4 v = kStream ? __ldcs(reinterpret_cast<const uint4*>(p))
                             : *reinterpret_cast<const uint4*>(p);
     return {{v.x, v.y, v.z, v.w}};
   }
@@ -160,7 +135,7 @@ TP_HD void store_seg(int8_t* p, const Seg& s, int words, bool al16) {
 #if defined(__CUDA_ARCH__)
   if (al16 && words == kSeg) {
     const uint4 v = make_uint4(s.w[0], s.w[1], s.w[2], s.w[3]);
-    if (kStream && RR_STREAM)
+    if (kStream)
       __stcs(reinterpret_cast<uint4*>(p), v);
     else
       *reinterpret_cast<uint4*>(p) = v;
@@ -225,8 +200,7 @@ TP_HD void tick_seg(const Seg& h, const Seg& a, int f, int d0,
 // (G[n/8, nc]); stores the ticked lanes back in place.  The sink takes,
 // per local column c, det(c, count, first firing global row) and
 // entered(c, count).
-template <bool kSus, bool kFull, bool kMute, bool kSwar, typename Sink,
-          bool kWrite = true>
+template <bool kSus, bool kFull, bool kMute, bool kSwar, typename Sink>
 TP_HD void tick_group(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                       const int8_t* __restrict__ flags,
                       const int8_t* __restrict__ vecs,
@@ -292,7 +266,7 @@ TP_HD void tick_group(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
       }
       if (kSus) ent[k] += tv[k].entered >> 7;
     }
-    if (kWrite) {
+    {
       Seg th, ta;
       TP_UNROLL
       for (int k = 0; k < kSeg; ++k) {
@@ -326,9 +300,7 @@ TP_HD void tick_group(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
 }
 
 // pass B's stack row j (0..kStackRows)
-TP_HD constexpr int stack_row(int j) {
-  return j < 8 ? onepass::merge_vec(j) : V_THR_G;
-}
+TP_HD constexpr int stack_row(int j) { return onepass::merge_vec(j); }
 
 // A thread's stack words from pass B's staged tile stack ``vs``
 // ([kStackRows, tile], shared memory on the card) at its lane.
@@ -363,28 +335,17 @@ struct RowCounts {
   int listed, held;
 };
 
-template <bool kSus, int kForm, bool kSwar, typename Gather,
-          bool kRetick = false>
+template <bool kSus, int kForm, bool kSwar, typename Gather>
 TP_HD RowCounts merge_row(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                           const Meta<kForm>& m, int row, const Geo& g,
                           SegAt sa, const Knobs& kn,
                           const SwVec (&vec)[kSeg], Gather gather,
                           Counts& cnt) {
   const size_t off = (size_t)row * g.nc + sa.col0;
-  Seg ph = load_seg<true>(hb + off, sa.words, g.al16);
-  Seg pa = load_seg<true>(asl + off, sa.words, g.al16);
+  const Seg ph = load_seg<true>(hb + off, sa.words, g.al16);
+  const Seg pa = load_seg<true>(asl + off, sa.words, g.al16);
   const bool recv = (m.flags & 4) != 0;
   const Seg best = recv ? gather(m, row) : onepass::splat(0xFFFFFFFFu);
-  if (kRetick) {
-    SwTickView tv[kSeg];
-    tick_seg<kSus, onepass::mutes(kForm), kSwar>(
-        ph, pa, m.flags, row - (g.col_offset + sa.col0), vec, kn, tv);
-    TP_UNROLL
-    for (int k = 0; k < kSeg; ++k) {
-      ph.w[k] = tv[k].hb;
-      pa.w[k] = tv[k].asl;
-    }
-  }
   Seg oh, oa;
   uint32_t ls = 0, hs = 0;
   TP_UNROLL
@@ -405,49 +366,6 @@ TP_HD RowCounts merge_row(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   store_seg<true>(hb + off, oh, sa.words, g.al16);
   store_seg<true>(asl + off, oa, sa.words, g.al16);
   return {onepass::byte_sum(ls), onepass::byte_sum(hs)};
-}
-
-// the view rows of a row-form receiver kB a batch through registers
-template <int kForm, int kB, typename RowAddr, typename LoadSeg>
-TP_HD Seg gather_rows_b(const Meta<kForm>& m,
-                        const int32_t* __restrict__ senders, int row, int n,
-                        const Knobs& kn, RowAddr addr, LoadSeg load) {
-  constexpr int kC = onepass::kChunk;
-  SegMax best(onepass::gather_none(kForm));
-  for (int f0 = 0; f0 < kn.width; f0 += kB) {
-    decltype(addr(0)) a[kB];
-    TP_UNROLL
-    for (int i = 0; i < kB; ++i)
-      a[i] = addr(onepass::lane_slot<kForm>(m, senders, row, n, kn,
-                                            f0 + i / kC * kC, i % kC));
-    Seg v[kB];
-    TP_UNROLL
-    for (int i = 0; i < kB; ++i) v[i] = load(a[i]);
-    TP_UNROLL
-    for (int i = 0; i < kB; i += 2) best.add2(v[i], v[i + 1]);
-  }
-  return best.seg();
-}
-
-// the same staged through a thread's slot of kStage 16-byte rows
-template <int kForm, typename RowAddr, typename Stage, typename Wait,
-          typename Staged>
-TP_HD Seg gather_rows_staged(const Meta<kForm>& m,
-                             const int32_t* __restrict__ senders, int row,
-                             int n, const Knobs& kn, RowAddr addr,
-                             Stage stage, Wait wait, Staged staged) {
-  constexpr int kC = onepass::kChunk;
-  SegMax best(onepass::gather_none(kForm));
-  for (int f0 = 0; f0 < kn.width; f0 += kStage) {
-    TP_UNROLL
-    for (int i = 0; i < kStage; ++i)
-      stage(i, addr(onepass::lane_slot<kForm>(m, senders, row, n, kn,
-                                              f0 + i / kC * kC, i % kC)));
-    wait();
-    TP_UNROLL
-    for (int i = 0; i < kStage; i += 2) best.add2(staged(i), staged(i + 1));
-  }
-  return best.seg();
 }
 
 // Pass B's persistent walk: item i (0 <= i < tiles * row_blocks) is

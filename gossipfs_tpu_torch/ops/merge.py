@@ -47,8 +47,8 @@ N = 16,384 and 3.35 TB/s); the arithmetic is a few dozen integer ops per
 entry.  The two-launch kernel (``csrc/resident_round.cu``, per-thread
 bodies in ``csrc/rr_twopass.cuh``) runs tick + view + group max or whole
 view, then merge + reductions, a thread a 16-byte segment of a row, the
-merge's column tile narrowed so that the view strip it gathers from stays
-in L2 (256 columns at N = 65,536 in the full-view forms); it moves about
+merge's blocks resident and walking the round a 1,024-column tile at a
+time; it moves about
 8.4 B per entry in the aligned form, about 10 B in the others (the whole
 view once each way); its times and bounds are in PERF.md (from
 chip_smoke.py).  It takes ``N % 4 == 0`` (4-byte words; rows off 16-byte

@@ -178,7 +178,7 @@ static void round_swar_t(int n, int align, int width, int8_t* hb,
     }
     void entered(int c, int k) { ent[c] += k; }
   } sink{ndet, fobs, ent};
-  const Geo ga = geometry(n, n, 0, kFull, true, kTileMax);
+  const Geo ga = geometry(n, n, 0, true);
   for (int grp = 0; grp < n / 8; ++grp)
     for (int lane = 0; lane < ga.lanes; ++lane) {
       const SegAt sa = seg_at(ga, 0, lane);
@@ -186,7 +186,7 @@ static void round_swar_t(int n, int align, int width, int8_t* hb,
         tick_group<kSus, kFull, onepass::mutes(kForm), true>(
             hb, asl, flags, vecs, g.data(), ga, grp, sa, kn, sink);
     }
-  const Geo gb = geometry(n, n, 0, kFull, true, kTileMin);
+  const Geo gb = geometry(n, n, 0, true, 128);
   const Walk w = walk(gb);
   uint32_t none[kSeg];
   for (int k = 0; k < kSeg; ++k) none[k] = onepass::gather_none(kForm);

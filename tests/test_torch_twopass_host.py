@@ -2,9 +2,8 @@
 
 The kernel's per-thread bodies (pass A's walk over one 8-row sender group
 at a 16-byte segment, pass B's merge of one receiver row, the counter
-words and their flush) and its geometry (the column tile that keeps the
-gathered view strip inside L2, the items pass B's persistent blocks walk)
-live in ``__host__ __device__`` functions of
+words and their flush) and its geometry (the column tiles, the items pass
+B's persistent blocks walk) live in ``__host__ __device__`` functions of
 ``csrc/rr_twopass.cuh``, which g++ compiles here: the very code the card
 runs.  The harness replays a round with the kernel's grids: pass A's
 blocks of ``256 / lanes`` groups a tile, then pass B's persistent blocks
@@ -14,8 +13,8 @@ and every 255 rows.  Every merge form, lanes and SWAR, crash-only,
 suspicion and suspicion + Lifeguard, square rounds, column blocks from a
 global offset, several tiles with a ragged last one (whole words and
 part-words), against ``resident_round_plain``; the diagonal at each word
-of a 16-byte segment against ``rr_elem.cuh``'s lanes functions; the tile
-width over N.  Exact equality throughout.
+of a 16-byte segment against ``rr_elem.cuh``'s lanes functions.  Exact
+equality throughout.
 """
 
 from __future__ import annotations
@@ -67,27 +66,24 @@ static void round_t(int n, int nc, int col_offset, int tile, int blocks,
                     const int32_t* senders, int32_t* subj, int32_t* recv) {
   constexpr bool kFull = onepass::full_view(kForm);
   constexpr bool kMute = onepass::mutes(kForm);
-  const Geo g = geometry(n, nc, col_offset, kFull, al16 != 0, tile);
+  const Geo g = geometry(n, nc, col_offset, al16 != 0, tile ? tile : kTile);
   const size_t c = (size_t)nc;
   std::vector<int8_t> view((size_t)(kFull ? n : n / kAlign) * c);
   for (size_t i = 0; i < (kSus ? 6 : 3) * c; ++i) subj[i] = 0;
   for (size_t i = 0; i < c; ++i) subj[2 * c + i] = 0x7F7F7F7F;
   for (int i = 0; i < (lh ? 2 : 1) * n; ++i) recv[i] = 0;
-  // pass A: blocks of ga.slots groups over one tile (kTileMax wide on the
-  // card; the test's tile here, to walk several at a small N)
-  const Geo ga = geometry(n, nc, col_offset, kFull, al16 != 0,
-                          tile ? tile : kTileMax);
+  // pass A: blocks of g.slots groups over one tile
   TickSink ts{subj + c, subj + 2 * c, kSus ? subj + 3 * c : nullptr};
   const int groups = (n + kAlign - 1) / kAlign;
-  for (int by = 0; by < ga.tiles; ++by)
-    for (int bx = 0; bx < (groups + ga.slots - 1) / ga.slots; ++bx)
+  for (int by = 0; by < g.tiles; ++by)
+    for (int bx = 0; bx < (groups + g.slots - 1) / g.slots; ++bx)
       for (int t = 0; t < kThreads; ++t) {
-        const int grp = bx * ga.slots + t / ga.lanes;
+        const int grp = bx * g.slots + t / g.lanes;
         if (grp * kAlign >= n) continue;
-        const SegAt sa = seg_at(ga, by, t % ga.lanes);
+        const SegAt sa = seg_at(g, by, t % g.lanes);
         if (!sa.words) continue;
         tick_group<kSus, kFull, kMute, kSwar>(hb, asl, flags, vecs,
-                                              view.data(), ga, grp, sa, kn,
+                                              view.data(), g, grp, sa, kn,
                                               ts);
       }
   // pass B: persistent blocks walking items b, b + blocks, ...
@@ -289,10 +285,6 @@ extern "C" void host_diag(int m, int d0, int suspect, int swar_form,
   else if (swar_form) diag_t<false, true>(m, d0, hb, asl, flags, vec, kn, out);
   else diag_t<false, false>(m, d0, hb, asl, flags, vec, kn, out);
 }
-
-extern "C" int host_tile_cols(int n, int full) {
-  return tile_cols(n, full != 0);
-}
 """
 
 
@@ -440,16 +432,14 @@ def test_two_launch_walk_past_one_gather_chunk(lib, form, elementwise):
 
 
 @pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
-def test_kernel_tile_past_32768_rows(lib, elementwise):
-    """A column block of N = 36,000 rows at the kernel's own tile for the
-    full-view forms there (256 columns, as at N = 49,152 and 65,536): 260
-    columns from global subject 35,740, two tiles, the last ragged at one
-    word, rows off 16-byte boundaries, the diagonal's last 260 rows;
-    explicit edges F = 3, 264 pass-B blocks (2 a card of 132 SMs)."""
-    n = 36_000
-    assert lib.host_tile_cols(n, 1) == 256
-    got, want = host_round(lib, "edges", "crash-only", elementwise,
-                           (n, 260, n - 260, 0, 264), 17, fanout=5,
+def test_kernel_tile_ragged_last_tile(lib, elementwise):
+    """The kernel's own 1,024-column tile over a column block of 1,100
+    columns from global subject 300: two tiles, the last ragged at 76
+    columns and ending in a 3-word segment, rows off 16-byte boundaries,
+    part of the diagonal; explicit edges F = 3, 264 pass-B blocks (2 a
+    card of 132 SMs)."""
+    got, want = host_round(lib, "edges", "suspicion+lh", elementwise,
+                           (1_536, 1_100, 300, 0, 264), 17, fanout=5,
                            al16=False)
     assert_equal(got, want)
 
@@ -489,23 +479,3 @@ def test_diagonal_at_each_word_of_a_segment(lib, word, mode, elementwise):
         np.testing.assert_array_equal(out[0], out[1], err_msg=f"d0={d0}")
     # the eye bumped a heartbeat somewhere; with no eye none moves
     assert (out[0, :, 0] != hb).any() == (word != "none")
-
-
-@pytest.mark.parametrize("n", [1_024, 4_096, 16_384, 32_768, 49_152,
-                               65_536, 98_304])
-@pytest.mark.parametrize("form", merge.FORMS)
-def test_tile_width_keeps_the_strip_inside_l2(lib, form, n):
-    """twopass::tile_cols, the tile both launches use: a power of two in
-    [128, 1024], the widest whose strip of the gathered view (N rows of
-    the whole view, N / 8 group maxes) holds at most 16 MB of the H100's
-    50 MB L2."""
-    full = form in merge.FULL_VIEW_FORMS
-    tile = lib.host_tile_cols(n, int(full))
-    rows = n if full else n // 8
-    assert tile in (128, 256, 512, 1024)
-    assert rows * tile <= 16 << 20 or tile == 128
-    assert tile == 1024 or rows * tile * 2 > 16 << 20
-    want = {(16_384, True): 1024, (49_152, True): 256, (65_536, True): 256,
-            (98_304, True): 128, (65_536, False): 1024}
-    if (n, full) in want:
-        assert tile == want[(n, full)]
