@@ -717,11 +717,27 @@ def phase_k4(results: dict) -> None:
             err = max(err, compare_merge(
                 mu.arc_merge_update, mu.arc_merge_update_plain, args,
                 dict(fanout=f, detect_stats=det)))
+    timing_args = args
+    # F = K4_LONG_F: the halo outgrows a park and a tile, so K4 runs its
+    # two launches with the van Herk window
+    import torch
+
+    view, _, bases, hb, asl, sa, sb, alive = big_merge_inputs(
+        N_MAIN, N_MAIN, 1, torch.int8, SEED + 8)
+    args = (view, bases, hb, asl, sa, sb, alive)
+    assert mu.arc_form(N_MAIN, K4_LONG_F) == "segments"
+    for det in (False, True):
+        log(f"  N={N_MAIN}, F={K4_LONG_F} (two launches), view int8, hb "
+            f"int8, detect_stats={det}")
+        err = max(err, compare_merge(
+            mu.arc_merge_update, mu.arc_merge_update_plain, args,
+            dict(fanout=K4_LONG_F, detect_stats=det)))
+    del view, hb, asl, args
     if err:
         raise AssertionError("K4 != plain")
     log("  K4 == plain bit for bit (tolerance 0)")
     results["k4"] = dict(max_abs_err=err)
-    time_merge(mu.arc_merge_update, mu.arc_merge_update_plain, args,
+    time_merge(mu.arc_merge_update, mu.arc_merge_update_plain, timing_args,
                dict(fanout=16, detect_stats=True), results, "k4")
 
 
@@ -1117,6 +1133,40 @@ def phase_suspect_merges(results: dict) -> None:
     results["k2_on_k5_shape"] = dict(max_abs_err=0)
     time_merge(mu.fused_merge_update, mu.fused_merge_update_plain,
                timing_args, kw, results, "k2_on_k5_shape")
+    # the largest N the route sends to K5 (packed_rr(28_416), F = 15),
+    # inputs made on the card
+    from gossipfs_tpu_torch.config import SimConfig
+
+    n, f = mu.STRIPE_MAX_N, SimConfig.log_fanout(mu.STRIPE_MAX_N)
+    view, edges, _, hb, asl, sa, sb, alive = big_merge_inputs(
+        n, n, f, torch.int8, SEED + n)
+    args = (view, edges, hb, asl, sa, sb, alive)
+    bad = 0
+    for det, sus in ((False, False), (True, False), (False, True),
+                     (True, True)):
+        kw = dict(detect_stats=det, suspect=sus)
+        got = mu.stripe_merge_update(view, edges, hb.clone(), asl.clone(),
+                                     sa, sb, alive, **kw)
+        want = mu.stripe_merge_update_plain(view, edges, hb.clone(),
+                                            asl.clone(), sa, sb, alive, **kw)
+        diff = sum(count_diff(a, b)[0] for a, b in zip(got, want))
+        del want
+        k2 = mu.fused_merge_update(view, edges, hb.clone(), asl.clone(), sa,
+                                   sb, alive, **kw)
+        k2_diff = sum(count_diff(a, b)[0] for a, b in zip(got, k2))
+        del got, k2
+        bad += diff + k2_diff
+        log(f"  K5 N={n}, F={f}, hb int8, detect_stats={det}, suspect={sus}: "
+            f"vs plain: {diff} entries differ; vs K2: {k2_diff} entries "
+            "differ")
+    if bad:
+        raise AssertionError(f"K5 at N={n}: {bad} entries differ")
+    kw = dict(detect_stats=False, suspect=True)
+    results["k5_max_n"] = dict(max_abs_err=0, shape=[n, n])
+    time_merge(mu.stripe_merge_update, mu.stripe_merge_update_plain, args,
+               kw, results, "k5_max_n")
+    del view, edges, hb, asl, args
+    torch.cuda.empty_cache()
 
 
 def suspicion_headline(**sus):
@@ -2474,6 +2524,7 @@ def phase_swar_separate(results: dict, rounds: int) -> None:
 
 N_SHARD_TALL = 4_096          # phase 35/36's tall-skinny width, 4 shards
 N_CONFIG4 = 131_072           # config 4's N, 8 shards of 16,384
+K4_LONG_F = 15_000            # a fanout whose halo outgrows K4's park
 K3_OUTS = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
            "entered", "refuted", "held", "suspect_cnt")
 # the per-receiver outputs of the resident round (partial on a shard)
@@ -3520,6 +3571,62 @@ def phase_k3_two_launch_large(results: dict) -> None:
         "[65,536 x 8,192] (tolerance 0)")
 
 
+# K4's and K5's timed shapes: (key, kernel, N, C, F, hb bytes, detection
+# stats, suspect) at phases 8, 14, 19 and 36, and phase 8's van Herk case
+PARK_SHAPES = (
+    ("k4", "arc", N_MAIN, N_MAIN, 16, 1, True, False),
+    ("k4_sus", "arc", N_MAIN, N_MAIN, 16, 1, True, True),
+    ("k4_block", "arc", N_CAPACITY, N_CAPACITY // 8, 16, 1, True, False),
+    ("k4_two_launch", "arc", N_MAIN, N_MAIN, K4_LONG_F, 1, True, False),
+    ("k5", "stripe", N_MAIN, N_MAIN, 14, 1, False, True),
+    ("k5_off", "stripe", N_MAIN, N_MAIN, 14, 1, False, False),
+    ("k5_max_n", "stripe", 28_416, 28_416, 15, 1, False, True),
+    ("k5_block", "stripe", N_MAIN, N_MAIN // 2, 14, 1, True, True),
+)
+
+
+def phase_park_geometry(results: dict) -> None:
+    """K4 and K5 at every timed shape, from the kernels' own sm_info /
+    am_info: the park form's CTAs a cluster, stripe columns, park row
+    bytes, threads a CTA, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters), registers and local memory (spills)
+    a thread and shared memory a CTA; K4's two-launch forms' row pass
+    (threads, blocks an SM, registers, local memory) and window tile
+    (shared memory)."""
+    import ctypes
+
+    from gossipfs_tpu_torch.ops import _build
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    out = {}
+    for key, kernel, n, c, f, hb_bytes, det, sus in PARK_SHAPES:
+        info = (ctypes.c_int * 8)()
+        if kernel == "arc":
+            rc = _build.load("arc_merge").am_info(
+                n, c, f, 1, hb_bytes, int(det), int(sus), 1,
+                ctypes.byref(info))
+        else:
+            rc = _build.load("stripe_merge").sm_info(
+                n, c, f, hb_bytes, int(det), int(sus), 1, ctypes.byref(info))
+        if rc != 0:
+            raise RuntimeError(f"{kernel} info [{n} x {c}]: CUDA error {rc}")
+        ctas, cols, rb, held, regs, local, smem, threads = list(info)
+        ms = results.get(key, {}).get("ms")
+        form = mu.arc_form(n, f) if kernel == "arc" else "park"
+        out[key] = dict(form=form, ctas=ctas, cols=cols, row_bytes=rb,
+                        threads=threads, held=held, regs=regs,
+                        local_bytes=local, smem=smem, ms=ms)
+        log(f"  {key} [{n} x {c}] F={f} det={int(det)} sus={int(sus)}: "
+            + (f"park, cluster {ctas} x {threads} threads, stripe {cols} "
+               f"cols ({rb} B rows), {held} clusters held, {regs} regs, "
+               f"{local} B local, {smem} B smem" if ctas else
+               f"two launches ({form}), row pass {threads} threads x "
+               f"{held} blocks an SM, {regs} regs, {local} B local, stripe "
+               f"{cols} cols; window tile {smem} B smem")
+            + (f", {ms:.4f} ms" if ms is not None else ""))
+    results["park_geometry"] = out
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -3733,7 +3840,11 @@ def main() -> int:
         f"N={N_ADVANCE} (edges), [{N_CAPACITY} x {N_CAPACITY // 8}]")
     phase_k3_two_launch_large(results)
     print(json.dumps({"onepass": onepass_summary(results)}))
-    print(json.dumps({"main_paths": main_path_summary(results)}))
+    log("[42] K4 and K5 at every timed shape: cluster, stripe, clusters "
+        "held, registers, spills")
+    phase_park_geometry(results)
+    print(json.dumps({"main_paths": main_path_summary(results)},
+                     separators=(",", ":")))
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
@@ -3793,6 +3904,11 @@ def main() -> int:
                    src + "stripe_merge.cu", mp + "998",
                    results["main_b_sharded"]["launches"],
                    results["k5_block"]),
+        # K5 at the largest N the route sends it (packed_rr(28_416)): no
+        # main path of this script runs that N
+        shard_line("stripe_merge_update[N = 28,416]",
+                   src + "stripe_merge.cu", mp + "998", 0,
+                   results["k5_max_n"]),
         # config 4's own shard [131,072 x 16,384]: no main path of this
         # script runs it, so it launched no time there
         shard_line("fused_merge_update[column block, config 4 shard]",
@@ -3865,7 +3981,7 @@ def main() -> int:
         # launches it no time
         kernel_line("fanout_max_merge", src + "fanout_max.cu", mp + "146",
                     results["main_c"]["fanout_max_launches"], results["k1"]),
-    ]}))
+    ]}, separators=(",", ":")))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -13,40 +13,286 @@
 // kernel window-maxed a VMEM-resident column stripe of the view in
 // O(log F) shift-doubling passes and read one window row per receiver.
 //
-// Design (simple and right first): two launches in stream order.
-//   A  window_max_kernel: W[r] = max view[r..r+F-1 mod N], per column, by
-//      the van Herk/Gil-Werman split: rows fall in segments of F (in the
-//      index space extended past N by the wrap); a window starting at r
-//      in segment m is the suffix max of m from r joined with the prefix
-//      max of segment m+1 up to r+F-1.  One block per segment x 1024
-//      columns, 4 per thread: a backward pass over segment m writes the
-//      suffix maxima to W, a forward pass over segment m+1 folds the
-//      prefix maxima in.  O(1) work per entry whatever F is; each view
-//      row is read twice (by its own segment and by the one before) and
-//      W is written, read back (by the same thread, mostly from L2) and
-//      written again.
-//   B  the receiver-row pass of merge_rows.cuh with F = 1: receiver i's
-//      single "sender" is W row bases[i].  Dead receivers are masked in
-//      the epilogue (a base cannot be remapped: every W row holds values).
-// That moves about 7 B per entry at the headline against the floor's 5.
+// Design (merge_stripe.cuh holds the per-thread bodies, tested on the
+// host).  The park form, one launch, where a park of 128-byte rows fits
+// (N up to ~28,000 at F = 16; arc_form): the window max never touches
+// device memory.  A thread-block cluster of 16 CTAs of 512 threads owns a
+// stripe of 128 int8 (64 int16) subject columns over all N rows:
+//   1. rows go to the CTAs in contiguous ranges of ceil(N / 16); each CTA
+//      parks its range of the view stripe and the F - 1 rows after it (the
+//      halo, wrapping at N), staged by 16-byte cp.async: 1,039 rows of 128
+//      B at N = 16,384 (133 KB);
+//   2. the park turns in place into M_p[x] = max view[x .. x + p) (p the
+//      largest power of two <= F) by shift doubling, radix 4 while it
+//      fits, each step in chunks of 8 row segments a thread: read,
+//      barrier, write, barrier;
+//   3. cluster.sync();
+//   4. each CTA sweeps its own receiver rows, 16 bytes of the stripe a
+//      thread (8 threads a row: 128 contiguous bytes of each lane row):
+//      W[bases[i]] = max(M_p[b], M_p[b + F - p]) (one row when F is a power
+//      of two) read over distributed shared memory from the CTA holding b,
+//      the epilogue (merge_elem.cuh) on the lanes, read and written once
+//      with evict-first 16-byte accesses, the next row's lanes and base
+//      loaded while this one merges;
+//   5. per-subject counts as in K5 (stripe_merge.cu): bytes in registers,
+//      warp shuffles, one shared atomic a column and warp, a cluster sum
+//      over distributed shared memory, every output entry written once.
+// Persistent clusters walk the stripes.  That moves the floor's 5 B an
+// entry with no [N, C] scratch.
+// Elsewhere (full_scale's [65,536 x 8,192]: a park there holds 32-byte
+// rows, whose lanes stream at half the rate of 128-byte ones) two launches
+// in stream order, with ``wbuf`` [N, C] scratch and ``out`` initialised by
+// the caller: the window max W, by tiles of 512 rows and their F - 1 halo
+// rows doubled in shared memory (window_tile_kernel; van Herk/Gil-Werman
+// segments, window_max_kernel, where a tile does not fit: F > ~1,300),
+// then a row pass (arc_rows_kernel): blocks of 256 threads over a 128-byte
+// stripe of up to 2,048 rows, each receiver's W row read once, the same
+// epilogue and counts, flushed once a block by one global atomic a column
+// and output.  7 B an entry.  No fallback from a refused launch: it returns
+// its error and the wrapper raises.
 #include <climits>
-#include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "merge_rows.cuh"
+#include "merge_stripe.cuh"
+
+namespace cg = cooperative_groups;
+using namespace mstripe;
 
 namespace {
 
-using merge_rows::kThreads;
-using merge_rows::kTile;
-using merge_rows::kVec;
-using merge_rows::load4;
-using merge_rows::store4;
+struct Params {
+  const void* view;
+  const int32_t* bases;
+  void* hb;
+  int8_t* asl;
+  const int32_t* sa;
+  const int32_t* sb;
+  const uint8_t* alive;
+  int32_t* out;
+  void* wbuf;
+  int n, nc, fanout, form, age_clamp, aligned;
+};
 
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+__global__ void __launch_bounds__(kThreads, 1) arc_park_kernel(const Params p) {
+  constexpr int kE = kSegBytes / sizeof(V);  // columns a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cta = (int)cluster.block_rank();
+  const int n = p.n;
+  const int nc = p.nc;
+  const int fanout = p.fanout;
+  constexpr int rb = kMaxRowBytes;           // park row bytes
+  const int nt = kThreads;
+  constexpr int lanes = rb / kSegBytes;      // threads a row
+  const int cols = lanes * kE;               // stripe columns
+  const int step_rows = nt / lanes;          // rows a CTA sweeps at once
+  const int stripes = (nc + cols - 1) / cols;
+  const int clusters = (int)gridDim.x / kCtas;
+  const int span = cta_rows(n);
+  const int rows = range_rows(n, span, cta);
+  const int r0 = cta * span;
+  const int len = rows > 0 ? rows + fanout - 1 : 0;  // park rows in use
+  const int pw = pow2_floor(fanout);
+  const int t = threadIdx.x;
+  const int h = t % lanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* park = reinterpret_cast<int8_t*>(smem);
+  int8_t* none = park + (size_t)(span + fanout - 1) * rb;
+  int32_t* blocks = reinterpret_cast<int32_t*>(none + kMaxRowBytes);
+  __shared__ __align__(16) int32_t shifts[2][kMaxCols];  // shift_a, shift_b
+  const V* view = static_cast<const V*>(p.view);
+  H* hb = static_cast<H*>(p.hb);
+
+  // park row li (global row r0 + li, mod n), segment hh
+  auto stage = [&](int col0) {
+    for (int i = t; i < len * lanes; i += nt) {
+      int g = r0 + i / lanes;
+      if (g >= n) g -= n;
+      stage_seg<V, kVec>(view, nc, col0, g, i % lanes,
+                         park + (size_t)i * kSegBytes,
+                         [](int8_t* d, const int8_t* s) { copy16(d, s); });
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  for (int i = t; i < 2 * kBlockInts; i += nt)
+    blocks[i] = blank_count(i % kBlockInts, n);
+  const uint32_t park_sa = (uint32_t)__cvta_generic_to_shared(park);
+  auto addr = [&](int q, int l) -> uint32_t {
+    return mapa(park_sa + (uint32_t)(l * rb + h * kSegBytes), q);
+  };
+
+  // CTA ``cta`` writes its columns (c % kCtas == cta) of every output of
+  // stripe ``done`` from the cluster's count blocks ``blk``
+  auto finish_stripe = [&](int done, const int32_t* blk) {
+    for (int i = t; i < kOuts * cols; i += nt) {
+      const int s = i / cols;
+      const int c = i % cols;
+      const int col = done * cols + c;
+      if ((c & (kCtas - 1)) != cta || col >= nc || (!kSus && s >= kOutRef))
+        continue;
+      const int v = finish(s, c, [&](int q) {
+        return (const int32_t*)cluster.map_shared_rank(blk, q);
+      });
+      p.out[(size_t)s * nc + col] = output_value(s, v, kDet);
+    }
+  };
+
+  int stripe = (int)blockIdx.x / kCtas;
+  stage(stripe * cols);
+  for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
+    const int col0 = stripe * cols;
+    int32_t* cnt = blocks + (it & 1) * kBlockInts;
+    if (t < 2 * cols) {
+      const int c = col0 + t % cols;
+      shifts[t / cols][t % cols] =
+          c < nc ? (t < cols ? p.sa[c] : p.sb[c]) : 0;
+    }
+    if (it > 0)
+      finish_stripe(stripe - clusters,
+                    blocks + ((it - 1) & 1) * kBlockInts);
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    // the window max in place: M_{s r}[x] = max_{j < r} M_s[x + j s]
+    for (int s = 1; s < pw;) {
+      const int r = window_radix(s, pw);
+      const int chunks = window_chunks(len, s, r, lanes, nt);
+      for (int c = 0; c < chunks; ++c) {
+        Seg v[kWinItems];
+        window_read<V>(park, rb, len, s, r, c, t, nt, v);
+        __syncthreads();
+        window_write(park, rb, len, s, r, c, t, nt, v);
+        __syncthreads();
+      }
+      s *= r;
+    }
+    cluster.sync();
+    int32_t* spare = blocks + ((it + 1) & 1) * kBlockInts;
+    for (int i = t; i < kBlockInts; i += nt) spare[i] = blank_count(i, n);
+
+    const int col = col0 + h * kE;
+    const int valid = kVec ? (col < nc ? kE : 0) : max(0, min(kE, nc - col));
+    Counts<kE> cn;
+    clear(cn);
+    int li = t / lanes;
+    if (valid > 0 && li < rows) {
+      // each row's lanes, alive bit and arc base are loaded while the row
+      // before it merges
+      Lanes<H, kE> ld;
+      const size_t off0 = (size_t)(r0 + li) * nc + col;
+      load_lanes<H, kE, kVec>(hb + off0, p.asl + off0, valid, ld);
+      bool recv = p.alive[r0 + li] != 0;
+      int base = p.bases[r0 + li];
+      for (int step = 0; li < rows; li += step_rows, ++step) {
+        const int row = r0 + li;
+        const bool more = li + step_rows < rows;
+        Lanes<H, kE> nld;
+        bool nrecv = false;
+        int nbase = 0;
+        if (more) {
+          const size_t noff = (size_t)(row + step_rows) * nc + col;
+          load_lanes<H, kE, kVec>(hb + noff, p.asl + noff, valid, nld);
+          nrecv = p.alive[row + step_rows] != 0;
+          nbase = p.bases[row + step_rows];
+        }
+        const Seg best =
+            recv ? arc_best<V>(base, n, span, fanout, pw, addr,
+                               [](uint32_t a) { return ld_cluster(a); })
+                 : onepass::splat(0xFFFFFFFFu);
+        merge_seg<V, H, kSus, kDet, kVec, kE>(
+            best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
+            p.age_clamp, step, cn);
+        const size_t off = (size_t)row * nc + col;
+        store_lanes<H, kE, kVec>(hb + off, p.asl + off, valid, ld);
+        if (more) {
+          ld = nld;
+          recv = nrecv;
+          base = nbase;
+        }
+      }
+    }
+    flush_counts<kSus, kDet, kE>(cnt, cn, h, lanes, n, [&](int st) {
+      return r0 + st * step_rows + t / lanes;
+    });
+    cluster.sync();
+    if (stripe + clusters < stripes)
+      stage((stripe + clusters) * cols);
+    else
+      finish_stripe(stripe, cnt);
+  }
+  cluster.sync();
+}
+
+template <typename V, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+window_tile_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
+                   int nc, int fanout) {
+  constexpr int kE = kSegBytes / sizeof(V);
+  constexpr int lanes = kMaxRowBytes / kSegBytes;
+  constexpr int cols = lanes * kE;
+  const int stripes = (nc + cols - 1) / cols;
+  const int col0 = (int)(blockIdx.x % stripes) * cols;
+  const int r0 = (int)(blockIdx.x / stripes) * kTileRows;
+  const int rows = min(kTileRows, n - r0);
+  const int len = rows + fanout - 1;
+  const int pw = pow2_floor(fanout);
+  const int t = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* park = reinterpret_cast<int8_t*>(smem);
+  for (int i = t; i < len * lanes; i += kThreads) {
+    int g = r0 + i / lanes;
+    if (g >= n) g -= n;
+    stage_seg<V, kVec>(view, nc, col0, g, i % lanes,
+                       park + (size_t)i * kSegBytes,
+                       [](int8_t* d, const int8_t* s) { copy16(d, s); });
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  for (int s = 1; s < pw;) {
+    const int r = window_radix(s, pw);
+    const int chunks = window_chunks(len, s, r, lanes, kThreads);
+    for (int c = 0; c < chunks; ++c) {
+      Seg v[kWinItems];
+      window_read<V>(park, kMaxRowBytes, len, s, r, c, t, kThreads, v);
+      __syncthreads();
+      window_write(park, kMaxRowBytes, len, s, r, c, t, kThreads, v);
+      __syncthreads();
+    }
+    s *= r;
+  }
+  for (int i = t; i < rows * lanes; i += kThreads) {
+    const int h = i % lanes;
+    const int col = col0 + h * kE;
+    if (col >= nc) continue;
+    const Seg m = tile_window<V>(park, i / lanes, h, fanout, pw);
+    V* dst = w + (size_t)(r0 + i / lanes) * nc + col;
+    if (kVec) {
+      st_words(dst, m.w, 16);
+    } else {
+      union {
+        V v[kE];
+        Seg s;
+      } u;
+      u.s = m;
+      for (int k = 0; k < kE && col + k < nc; ++k) dst[k] = u.v[k];
+    }
+  }
+}
+
+// The window max by van Herk/Gil-Werman segments of F rows (the segments
+// form: a fanout whose halo outgrows a tile).
 template <typename V, bool kAligned>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(merge_rows::kThreads)
 window_max_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
                   int nc, int fanout) {
+  using merge_rows::kTile;
+  using merge_rows::kVec;
+  using merge_rows::load4;
+  using merge_rows::store4;
   const int s0 = blockIdx.x * fanout;  // segment start, extended index
   const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
   if (col0 >= nc) return;
@@ -82,17 +328,260 @@ window_max_kernel(const V* __restrict__ view, V* __restrict__ w, int n,
   }
 }
 
-template <typename V>
-cudaError_t launch_window(const void* view, void* w, int n, int nc,
-                          int fanout, bool aligned, cudaStream_t s) {
-  const dim3 grid((n + fanout - 1) / fanout, (nc + kTile - 1) / kTile);
-  if (aligned)
-    window_max_kernel<V, true><<<grid, kThreads, 0, s>>>(
-        static_cast<const V*>(view), static_cast<V*>(w), n, nc, fanout);
-  else
-    window_max_kernel<V, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const V*>(view), static_cast<V*>(w), n, nc, fanout);
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+__global__ void __launch_bounds__(kRowThreads, 2)
+arc_rows_kernel(const Params p) {
+  constexpr int kE = kSegBytes / sizeof(V);
+  constexpr int lanes = kMaxRowBytes / kSegBytes;
+  constexpr int cols = lanes * kE;
+  constexpr int step_rows = kRowThreads / lanes;
+  const int n = p.n;
+  const int nc = p.nc;
+  const int stripes = (nc + cols - 1) / cols;
+  const int col0 = (int)(blockIdx.x % stripes) * cols;
+  const int r0 = (int)(blockIdx.x / stripes) * kRowsPerBlock;
+  const int rows = min(kRowsPerBlock, n - r0);
+  const int t = threadIdx.x;
+  const int h = t % lanes;
+  __shared__ int32_t cnt[kBlockInts];
+  __shared__ __align__(16) int32_t shifts[2][kMaxCols];
+  const V* w = static_cast<const V*>(p.wbuf);
+  H* hb = static_cast<H*>(p.hb);
+  for (int i = t; i < kBlockInts; i += kRowThreads) cnt[i] = blank_count(i, n);
+  if (t < 2 * cols) {
+    const int c = col0 + t % cols;
+    shifts[t / cols][t % cols] = c < nc ? (t < cols ? p.sa[c] : p.sb[c]) : 0;
+  }
+  __syncthreads();
+  const int col = col0 + h * kE;
+  const int valid = kVec ? (col < nc ? kE : 0) : max(0, min(kE, nc - col));
+  Counts<kE> cn;
+  clear(cn);
+  int li = t / lanes;
+  if (valid > 0 && li < rows) {
+    Lanes<H, kE> ld;
+    const size_t off0 = (size_t)(r0 + li) * nc + col;
+    load_lanes<H, kE, kVec>(hb + off0, p.asl + off0, valid, ld);
+    bool recv = p.alive[r0 + li] != 0;
+    int base = p.bases[r0 + li];
+    for (int step = 0; li < rows; li += step_rows, ++step) {
+      const int row = r0 + li;
+      const bool more = li + step_rows < rows;
+      Lanes<H, kE> nld;
+      bool nrecv = false;
+      int nbase = 0;
+      if (more) {
+        const size_t noff = (size_t)(row + step_rows) * nc + col;
+        load_lanes<H, kE, kVec>(hb + noff, p.asl + noff, valid, nld);
+        nrecv = p.alive[row + step_rows] != 0;
+        nbase = p.bases[row + step_rows];
+      }
+      const Seg best = recv && (unsigned)base < (unsigned)n
+                           ? load_row_seg<V, kVec>(w, nc, base, col, valid)
+                           : onepass::splat(0xFFFFFFFFu);
+      merge_seg<V, H, kSus, kDet, kVec, kE>(
+          best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
+          p.age_clamp, step, cn);
+      const size_t off = (size_t)row * nc + col;
+      store_lanes<H, kE, kVec>(hb + off, p.asl + off, valid, ld);
+      if (more) {
+        ld = nld;
+        recv = nrecv;
+        base = nbase;
+      }
+    }
+  }
+  flush_counts<kSus, kDet, kE>(cnt, cn, h, lanes, n, [&](int st) {
+    return r0 + st * step_rows + t / lanes;
+  });
+  __syncthreads();
+  // the block's counts into the initialised outputs: one atomic a column
+  // and output
+  for (int i = t; i < kOuts * cols; i += kRowThreads) {
+    const int s = i / cols;
+    const int c = i % cols;
+    if (col0 + c >= nc || (!kSus && s >= kOutRef) ||
+        (!kDet && (s == kOutDet || s == kOutFobs)))
+      continue;
+    const int v = cnt[s * kMaxCols + c];
+    int32_t* o = p.out + (size_t)s * nc + col0 + c;
+    if (s == kOutFobs) {
+      if (v < n) atomicMin(o, v);
+    } else if (v) {
+      atomicAdd(o, v);
+    }
+  }
+}
+
+// the cluster launch of the park form, or its geometry into ``info``
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+cudaError_t launch_park(const Params& p, int* info, cudaStream_t s) {
+  auto kern = arc_park_kernel<V, H, kVec, kSus, kDet>;
+  const size_t smem = (size_t)smem_bytes((long)cta_rows(p.n) + p.fanout - 1,
+                                         kMaxRowBytes);
+  const int cols = kMaxRowBytes / (int)sizeof(V);
+  const int stripes = (p.nc + cols - 1) / cols;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(stripes * kCtas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  constexpr int kMaxCards = 64;
+  static size_t checked[kMaxCards] = {};
+  static int held[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return e;
+  if (card >= kMaxCards) return cudaErrorInvalidDevice;
+  if (info != nullptr || checked[card] != smem) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    checked[card] = smem;
+    held[card] = clusters;
+    if (info != nullptr) {
+      cudaFuncAttributes fa;
+      e = cudaFuncGetAttributes(&fa, kern);
+      if (e != cudaSuccess) return e;
+      const int v[8] = {kCtas, cols, kMaxRowBytes, clusters, fa.numRegs,
+                        (int)fa.localSizeBytes, (int)smem, kThreads};
+      for (int i = 0; i < 8; ++i) info[i] = v[i];
+      return cudaSuccess;
+    }
+  }
+  cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes) * kCtas);
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// the two launches, or the row pass's geometry into ``info``: no cluster,
+// stripe columns, 128-byte rows, blocks an SM, the row pass's registers
+// and local memory, the window's shared memory a block, threads a block
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+cudaError_t launch_two(const Params& p, int* info, cudaStream_t s) {
+  auto rows = arc_rows_kernel<V, H, kVec, kSus, kDet>;
+  const int cols = kMaxRowBytes / (int)sizeof(V);
+  const int stripes = (p.nc + cols - 1) / cols;
+  const size_t tile_smem = p.form == kArcTiles
+                               ? (size_t)smem_bytes(kTileRows + p.fanout - 1,
+                                                    kMaxRowBytes)
+                               : 0;
+  cudaError_t e;
+  if (info != nullptr) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, rows);
+    if (e != cudaSuccess) return e;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows,
+                                                      kRowThreads, 0);
+    if (e != cudaSuccess) return e;
+    const int v[8] = {0, cols, kMaxRowBytes, per_sm, fa.numRegs,
+                      (int)fa.localSizeBytes, (int)tile_smem, kRowThreads};
+    for (int i = 0; i < 8; ++i) info[i] = v[i];
+    return cudaSuccess;
+  }
+  if (p.wbuf == nullptr) return cudaErrorInvalidValue;
+  const V* view = static_cast<const V*>(p.view);
+  V* w = static_cast<V*>(p.wbuf);
+  if (p.form == kArcTiles) {
+    auto tile = window_tile_kernel<V, kVec>;
+    e = cudaFuncSetAttribute(
+        tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_smem);
+    if (e != cudaSuccess) return e;
+    const int tiles = (p.n + kTileRows - 1) / kTileRows;
+    tile<<<tiles * stripes, kThreads, tile_smem, s>>>(view, w, p.n, p.nc,
+                                                      p.fanout);
+  } else {
+    const dim3 grid((p.n + p.fanout - 1) / p.fanout,
+                    (p.nc + merge_rows::kTile - 1) / merge_rows::kTile);
+    if (p.aligned)
+      window_max_kernel<V, true><<<grid, merge_rows::kThreads, 0, s>>>(
+          view, w, p.n, p.nc, p.fanout);
+    else
+      window_max_kernel<V, false><<<grid, merge_rows::kThreads, 0, s>>>(
+          view, w, p.n, p.nc, p.fanout);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int splits = (p.n + kRowsPerBlock - 1) / kRowsPerBlock;
+  rows<<<stripes * splits, kRowThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+cudaError_t launch(const Params& p, int* info, cudaStream_t s) {
+  return p.form == kArcPark ? launch_park<V, H, kVec, kSus, kDet>(p, info, s)
+                            : launch_two<V, H, kVec, kSus, kDet>(p, info, s);
+}
+
+template <typename V, typename H, bool kVec>
+cudaError_t launch_v(const Params& p, int detect, int suspect, int* info,
+                     cudaStream_t s) {
+  if (detect)
+    return suspect ? launch<V, H, kVec, true, true>(p, info, s)
+                   : launch<V, H, kVec, false, true>(p, info, s);
+  return suspect ? launch<V, H, kVec, true, false>(p, info, s)
+                 : launch<V, H, kVec, false, false>(p, info, s);
+}
+
+template <typename V, typename H>
+cudaError_t launch_vh(const Params& p, bool vec, int detect, int suspect,
+                      int* info, cudaStream_t s) {
+  return vec ? launch_v<V, H, true>(p, detect, suspect, info, s)
+             : launch_v<V, H, false>(p, detect, suspect, info, s);
+}
+
+int run(const void* view, const void* bases, void* hb, void* asl,
+        const void* sa, const void* sb, const void* alive, void* wbuf,
+        void* out, int n, int nc, int fanout, int view_bytes, int hb_bytes,
+        int detect, int suspect, int age_clamp, int aligned, int* info,
+        void* stream) {
+  if (n <= 1 || nc <= 0 || nc > n || fanout < 1 || fanout >= n ||
+      age_clamp < 0 || age_clamp > 63)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.view = view;
+  p.bases = static_cast<const int32_t*>(bases);
+  p.hb = hb;
+  p.asl = static_cast<int8_t*>(asl);
+  p.sa = static_cast<const int32_t*>(sa);
+  p.sb = static_cast<const int32_t*>(sb);
+  p.alive = static_cast<const uint8_t*>(alive);
+  p.out = static_cast<int32_t*>(out);
+  p.wbuf = wbuf;
+  p.n = n;
+  p.nc = nc;
+  p.fanout = fanout;
+  p.form = arc_form(n, fanout);
+  p.age_clamp = age_clamp;
+  p.aligned = aligned;
+  // 16-byte segments: every row's stripe segment whole and aligned
+  const bool vec = aligned != 0 && nc % kSegBytes == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AM_LAUNCH(V, H) \
+  (int)launch_vh<V, H>(p, vec, detect, suspect, info, s)
+  if (view_bytes == 1 && hb_bytes == 1) return AM_LAUNCH(int8_t, int8_t);
+  if (view_bytes == 1 && hb_bytes == 2) return AM_LAUNCH(int8_t, int16_t);
+  if (view_bytes == 1 && hb_bytes == 4) return AM_LAUNCH(int8_t, int32_t);
+  if (view_bytes == 2 && hb_bytes == 2) return AM_LAUNCH(int16_t, int16_t);
+  if (view_bytes == 2 && hb_bytes == 4) return AM_LAUNCH(int16_t, int32_t);
+#undef AM_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -100,28 +589,34 @@ cudaError_t launch_window(const void* view, void* w, int n, int nc,
 // Launch K4 on ``stream`` over column blocks (n rows, nc subject columns;
 // the window runs down the rows, so a shard needs only its columns).
 // view: int8/int16 [n, nc]; bases: int32 [n] in [0, n); hb, asl, sa, sb,
-// alive, out, suspect as fm_merge; wbuf: [n, nc] scratch of the view's
-// type.  Returns the CUDA error code of the launches.
+// alive, suspect as fm_merge.  The park form (merge_stripe.cuh's
+// arc_form(n, fanout) == kArcPark): one launch, every entry of out ([3,
+// nc] or [5, nc]) written, wbuf unused (may be null).  Else two launches
+// with wbuf [n, nc] scratch of the view's type and out initialised by the
+// caller (zeros; first_obs n when detect).  ``aligned``: 16-byte aligned
+// lanes with nc % 4 == 0 (16-byte accesses where also nc % 16 == 0).
+// Returns the CUDA error code of the launches.
 extern "C" int am_merge(const void* view, const void* bases, void* hb,
                         void* asl, const void* sa, const void* sb,
                         const void* alive, void* wbuf, void* out, int n,
                         int nc, int fanout, int view_bytes, int hb_bytes,
                         int detect, int suspect, int age_clamp, int aligned,
                         void* stream) {
-  if (n <= 1 || nc <= 0 || nc > n || fanout < 1 || fanout >= n)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (view_bytes == 1)
-    e = launch_window<int8_t>(view, wbuf, n, nc, fanout, aligned != 0, s);
-  else if (view_bytes == 2)
-    e = launch_window<int16_t>(view, wbuf, n, nc, fanout, aligned != 0, s);
-  else
-    e = cudaErrorInvalidValue;
-  if (e != cudaSuccess) return (int)e;
-  return (int)merge_rows::launch_rows(
-      view_bytes, hb_bytes, wbuf, static_cast<const int32_t*>(bases), 1, hb,
-      asl, static_cast<const int32_t*>(sa), static_cast<const int32_t*>(sb),
-      static_cast<const uint8_t*>(alive), static_cast<int32_t*>(out), n, nc,
-      detect, suspect, age_clamp, aligned != 0, s);
+  return run(view, bases, hb, asl, sa, sb, alive, wbuf, out, n, nc, fanout,
+             view_bytes, hb_bytes, detect, suspect, age_clamp, aligned,
+             nullptr, stream);
+}
+
+// The geometry of what am_merge would launch for this shape, into info[8]
+// (launches nothing): the park form as stripe_merge.cu's sm_info (CTAs a
+// cluster, stripe columns, park row bytes, clusters held, registers, local
+// memory, shared memory, threads a CTA); the two-launch forms with 0 CTAs
+// (no cluster) and the row pass's blocks an SM, registers and local
+// memory, the window tile's shared memory (0: the segments form).
+extern "C" int am_info(int n, int nc, int fanout, int view_bytes,
+                       int hb_bytes, int detect, int suspect, int aligned,
+                       int* info) {
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             nullptr, nullptr, n, nc, fanout, view_bytes, hb_bytes, detect,
+             suspect, 63, aligned, info, nullptr);
 }

@@ -15,287 +15,352 @@
 // TPU kernel kept a view column stripe resident in VMEM for every
 // receiver block, so the view crossed HBM once.
 //
-// Design (simple and right first).  One block owns a strip of kCols = 8
-// subject columns for ALL N receivers:
-//   1. it stages the view strip [N, 8] in dynamic shared memory (8 B per
-//      receiver row: 128 KB at N = 16,384, so one 1,024-thread block per
-//      SM), as two 4-byte words per row;
-//   2. it sweeps the receivers, two threads per receiver row (4 subjects
-//      each), two rows per thread at a time so that their loads overlap:
-//      the F-way max is a per-byte signed max (__vmaxs4) over the
-//      senders' words in shared memory, then the shared epilogue
-//      (merge_elem.cuh) on the receiver's lanes, in place.  Every block
-//      reads every receiver's edges, so they come as int16 (half the
-//      bytes; N <= 28,416 fits) in their row-major [N, F] layout, which
-//      measured faster than [F, N] (a warp's 16 receivers then read a few
-//      lines that stay in L1 across f);
-//   3. each thread keeps its 4 subjects' reductions in registers over its
-//      rows; a warp shuffle and a shared-memory pass over the warps give
-//      the block's totals.  The block sees every receiver of its subjects,
-//      so the reductions need no atomics and no initialised output.
-// The known cost: the lanes and the view are read in 8-byte row segments
-// (4 B per thread), a quarter of a 32-byte sector for int8 lanes, so
-// device-memory traffic stays near the floor only while the blocks of
-// neighbouring strips run together and share those sectors in L2.
-// Dead receivers skip their gather (best stays -1) and are masked in the
-// epilogue, as in K2; the TPU kernel remapped their edges to themselves:
-// the outputs are the same.
-#include <cstdint>
+// Design: a thread-block cluster of kCtas = 8 CTAs owns a stripe of 32
+// subject columns over all N rows (merge_stripe.cuh holds the per-thread
+// bodies, tested on the host):
+//   1. each CTA parks its rows of the int8 view stripe in shared memory,
+//      rows by round robin (row s in CTA s % 8 at park row s / 8), 32 B a
+//      row staged by 16-byte cp.async: N / 8 x 32 B, 64 KB at N = 16,384,
+//      111 KB at 28,416;
+//   2. cluster.sync();
+//   3. each CTA sweeps its own receiver rows, two threads a row, 16 bytes
+//      of the stripe each: the lanes loaded (16-byte evict-first loads of
+//      int8, 32 or 64 bytes of hb) while the receiver's F in-edges (int16,
+//      read once a stripe) address the senders' park rows wherever they
+//      live, 8 rows in flight by ld.shared::cluster.v4, folded by a signed
+//      byte max from -1 (two words a DPX instruction); the epilogue
+//      (merge_elem.cuh) entry by entry; the lanes stored once;
+//   4. per-subject counts: bytes in registers over a thread's rows, summed
+//      over the warp by shuffles, one shared atomic a column and warp into
+//      the CTA's count block; after the next cluster.sync each CTA sums its
+//      4 columns of the 8 blocks over distributed shared memory and writes
+//      every output entry once (no global atomics, no initialised output);
+//      two blocks by the stripe's parity, so two barriers a stripe.
+// Persistent clusters (as many as the card holds at once,
+// cudaOccupancyMaxActiveClusters) walk stripes c, c + clusters, ...; a
+// small park leaves room for several CTAs an SM, whose staging overlaps
+// the others' sweeps.  Byte account at N = 16,384, F = 14: view 1 B and
+// lanes 4 B an entry, plus every receiver's edges once a stripe (512 x
+// 458 KB = 235 MB, mostly from L2): ~17 % over the floor.  Dead receivers
+// skip their gather (best stays -1) and are masked in the epilogue, as in
+// K2; the TPU kernel remapped their edges to themselves: the outputs are
+// the same.  No fallback: a refused launch, or an occupancy query that
+// finds no place for a cluster, returns its error and the wrapper raises.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "merge_rows.cuh"
+#include <cstdint>
+
+#include "merge_stripe.cuh"
+
+namespace cg = cooperative_groups;
+using namespace mstripe;
 
 namespace {
 
-using merge_rows::kVec;
-using merge_rows::load4;
-using merge_rows::Pack4;
-using merge_rows::store4;
+struct Params {
+  const int8_t* view;
+  const int16_t* edges;
+  void* hb;
+  int8_t* asl;
+  const int32_t* sa;
+  const int32_t* sb;
+  const uint8_t* alive;
+  int32_t* out;
+  int n, nc, fanout, rb, age_clamp;
+};
 
-constexpr int kCols = 8;                 // subject columns per block
-constexpr int kHalves = kCols / kVec;    // threads per receiver row
-constexpr int kThreads = 1024;
-constexpr int kRowStep = kThreads / kHalves;
-constexpr int kRowUnroll = 2;            // receiver rows per thread and step
-constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 5;                  // cnt, n_det, first_obs, ref, held
-// the opt-in shared memory of one Hopper block; ops/merge_update.py
-// derives the largest N the kernel admits from the same numbers
-constexpr int kSmemLimit = 232448;
-constexpr int kStaticSmem = sizeof(int32_t) * kAcc * kWarps * kCols;
+template <typename H, bool kVec, bool kSus, bool kDet>
+__global__ void __launch_bounds__(kThreads, 1)
+stripe_kernel(const Params p) {
+  constexpr int kE = kSegBytes;              // int8 columns a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cta = (int)cluster.block_rank();
+  const int n = p.n;
+  const int nc = p.nc;
+  const int rb = p.rb;                       // park row bytes: 128 or 64
+  const int lanes = rb / kSegBytes;          // threads a row
+  const int cols = rb;                       // stripe columns
+  const int step_rows = kThreads / lanes;    // rows a CTA sweeps at once
+  const int stripes = (nc + cols - 1) / cols;
+  const int clusters = (int)gridDim.x / kCtas;
+  const int rows = rr_rows(n, cta);
+  const int t = threadIdx.x;
+  const int h = t % lanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* park = reinterpret_cast<int8_t*>(smem);
+  int8_t* none = park + (size_t)cta_rows(n) * rb;
+  int32_t* blocks = reinterpret_cast<int32_t*>(none + kMaxRowBytes);
+  __shared__ __align__(16) int32_t shifts[2][kMaxCols];  // shift_a, shift_b
+  H* hb = static_cast<H*>(p.hb);
 
-__device__ __forceinline__ int warp_sum_half(int v) {
-  // lanes of one half (same lane parity) combine
-#pragma unroll
-  for (int o = kHalves; o < 32; o <<= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+  // park row li, segment hh at park + li * rb + hh * 16
+  auto stage = [&](int col0) {
+    for (int i = t; i < rows * lanes; i += kThreads)
+      stage_seg<int8_t, kVec>(p.view, nc, col0, rr_global(cta, i / lanes),
+                              i % lanes, park + (size_t)i * kSegBytes,
+                              [](int8_t* d, const int8_t* s) { copy16(d, s); });
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  if (t < kMaxRowBytes / 4) reinterpret_cast<uint32_t*>(none)[t] = ~0u;
+  for (int i = t; i < 2 * kBlockInts; i += kThreads)
+    blocks[i] = blank_count(i % kBlockInts, n);
+  const uint32_t park_sa = (uint32_t)__cvta_generic_to_shared(park);
+  const uint32_t none_ca =
+      mapa((uint32_t)__cvta_generic_to_shared(none) + kSegBytes * h, cta);
+  auto addr = [&](int s) -> uint32_t {
+    if (s < 0) return none_ca;
+    return mapa(park_sa + (uint32_t)((s >> kCtasLog) * rb + h * kSegBytes),
+                s & (kCtas - 1));
+  };
+  // the view rows themselves (the 16-byte path: every segment whole); an
+  // absent slot loads nothing
+  auto gaddr = [&](int s, int col) -> const int8_t* {
+    return s < 0 ? nullptr : p.view + (size_t)s * nc + col;
+  };
 
-__device__ __forceinline__ int warp_min_half(int v) {
-#pragma unroll
-  for (int o = kHalves; o < 32; o <<= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <typename H, bool kAligned, bool kSus>
-__global__ void __launch_bounds__(kThreads)
-stripe_kernel(const int8_t* __restrict__ view,
-              const int16_t* __restrict__ edges, int fanout,
-              H* __restrict__ hb, int8_t* __restrict__ asl,
-              const int32_t* __restrict__ shift_a,
-              const int32_t* __restrict__ shift_b,
-              const uint8_t* __restrict__ alive, int32_t* __restrict__ out,
-              int n, int nc, int detect, int age_clamp) {
-  extern __shared__ int32_t strip[];     // [n][kHalves] packed view words
-  __shared__ int32_t red[kAcc][kWarps][kCols];
-  const int c0 = blockIdx.x * kCols;
-  // 1. the view strip, word (r, h) = view[r, c0 + 4h .. c0 + 4h + 3];
-  //    columns past the block's nc read as absent (-1)
-#pragma unroll 4
-  for (int t = threadIdx.x; t < n * kHalves; t += kThreads) {
-    const int r = t / kHalves;
-    const int col = c0 + (t % kHalves) * kVec;
-    const int8_t* p = view + (size_t)r * nc + col;
-    int w = -1;
-    if (kAligned) {
-      if (col < nc) w = *reinterpret_cast<const int*>(p);
-    } else {
-      Pack4<int8_t> u;
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) u.v[k] = col + k < nc ? p[k] : -1;
-      w = u.w;
+  // CTA ``cta`` writes its columns (c % kCtas == cta) of every output of
+  // stripe ``done`` from the cluster's count blocks ``blk``
+  auto finish_stripe = [&](int done, const int32_t* blk) {
+    for (int i = t; i < kOuts * cols; i += kThreads) {
+      const int s = i / cols;
+      const int c = i % cols;
+      const int col = done * cols + c;
+      if ((c & (kCtas - 1)) != cta || col >= nc || (!kSus && s >= kOutRef))
+        continue;
+      const int v = finish(s, c, [&](int q) {
+        return (const int32_t*)cluster.map_shared_rank(blk, q);
+      });
+      p.out[(size_t)s * nc + col] = output_value(s, v, kDet);
     }
-    strip[t] = w;
-  }
-  __syncthreads();
+  };
 
-  // 2. the receiver sweep
-  const int half = threadIdx.x % kHalves;
-  const int col0 = c0 + half * kVec;
-  const int valid = min(kVec, nc - col0);  // <= 0: no columns here
-  int sa[kVec], sb[kVec], c[kVec], nd[kVec], fo[kVec], rf[kVec], hd[kVec];
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    sa[k] = k < valid ? shift_a[col0 + k] : 0;
-    sb[k] = k < valid ? shift_b[col0 + k] : 0;
-    c[k] = 0;
-    nd[k] = 0;
-    fo[k] = n;
-    rf[k] = 0;
-    hd[k] = 0;
-  }
-  if (valid > 0) {
-    // kRowUnroll receiver rows per step, so that their lane loads and
-    // their senders' edge loads are in flight together
-#pragma unroll 1
-    for (int row0 = threadIdx.x / kHalves; row0 < n;
-         row0 += kRowStep * kRowUnroll) {
-      int h[kRowUnroll][kVec], a[kRowUnroll][kVec], bw[kRowUnroll];
-      bool recv[kRowUnroll];
-#pragma unroll
-      for (int u = 0; u < kRowUnroll; ++u) {
-        const int row = row0 + u * kRowStep;
-        recv[u] = row < n && alive[row] != 0;
-        bw[u] = -1;                         // four absent (-1) bytes
-        if (row < n) {
-          const size_t off = (size_t)row * nc + col0;
-          load4<H, kAligned>(hb + off, valid, h[u]);
-          load4<int8_t, kAligned>(asl + off, valid, a[u]);
+  int stripe = (int)blockIdx.x / kCtas;
+  stage(stripe * cols);
+  for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
+    const int col0 = stripe * cols;
+    int32_t* cnt = blocks + (it & 1) * kBlockInts;
+    if (t < 2 * cols) {
+      const int c = col0 + t % cols;
+      shifts[t / cols][t % cols] =
+          c < nc ? (t < cols ? p.sa[c] : p.sb[c]) : 0;
+    }
+    // the previous stripe's outputs, from its blocks (complete at its last
+    // barrier)
+    if (it > 0)
+      finish_stripe(stripe - clusters,
+                    blocks + ((it - 1) & 1) * kBlockInts);
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    cluster.sync();
+    // every CTA read the other block (the finish above) before the barrier
+    int32_t* spare = blocks + ((it + 1) & 1) * kBlockInts;
+    for (int i = t; i < kBlockInts; i += kThreads)
+      spare[i] = blank_count(i, n);
+
+    const int col = col0 + h * kE;
+    const int valid = kVec ? (col < nc ? kE : 0) : max(0, min(kE, nc - col));
+    Counts<kE> cn;
+    clear(cn);
+    int li = t / lanes;
+    if (valid > 0 && li < rows) {
+      // each row's lanes, alive bit and first sender slots are loaded while
+      // the row before it merges
+      int row = rr_global(cta, li);
+      Lanes<H, kE> ld;
+      load_lanes<H, kE, kVec>(hb + (size_t)row * nc + col,
+                              p.asl + (size_t)row * nc + col, valid, ld);
+      bool recv = p.alive[row] != 0;
+      Ids ids = load_ids(p.edges, row, n, p.fanout, 0);
+      for (int step = 0; li < rows; li += step_rows, ++step) {
+        const int nrow = rr_global(cta, li + step_rows);
+        const bool more = li + step_rows < rows;
+        Lanes<H, kE> nld;
+        bool nrecv = false;
+        Ids nids;
+        if (more) {
+          load_lanes<H, kE, kVec>(hb + (size_t)nrow * nc + col,
+                                  p.asl + (size_t)nrow * nc + col, valid,
+                                  nld);
+          nrecv = p.alive[nrow] != 0;
+          nids = load_ids(p.edges, nrow, n, p.fanout, 0);
+        }
+        const Seg best =
+            !recv ? onepass::splat(0xFFFFFFFFu)
+            : kVec
+                ? gather_edges(
+                      ids, p.edges, row, n, p.fanout, addr,
+                      [](uint32_t a) { return ld_cluster(a); },
+                      [&](int s) { return gaddr(s, col); },
+                      [](const int8_t* a) { return ld_view(a); })
+                : gather_edges(
+                      ids, p.edges, row, n, p.fanout, addr,
+                      [](uint32_t a) { return ld_cluster(a); }, addr,
+                      [](uint32_t a) { return ld_cluster(a); });
+        merge_seg<int8_t, H, kSus, kDet, kVec, kE>(
+            best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
+            p.age_clamp, step, cn);
+        store_lanes<H, kE, kVec>(hb + (size_t)row * nc + col,
+                                 p.asl + (size_t)row * nc + col, valid, ld);
+        if (more) {
+          row = nrow;
+          ld = nld;
+          recv = nrecv;
+          ids = nids;
         }
       }
-#pragma unroll 2
-      for (int f = 0; f < fanout; ++f) {
-#pragma unroll
-        for (int u = 0; u < kRowUnroll; ++u) {
-          if (!recv[u]) continue;
-          const int s = edges[(size_t)(row0 + u * kRowStep) * fanout + f];
-          if ((unsigned)s < (unsigned)n)
-            bw[u] = __vmaxs4(bw[u], strip[s * kHalves + half]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kRowUnroll; ++u) {
-        const int row = row0 + u * kRowStep;
-        if (row >= n) break;
-        Pack4<int8_t> bu;
-        bu.w = bw[u];
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) {
-          const MeOut m = merge_elem<kSus>(bu.v[k], h[u][k], a[u][k],
-                                           recv[u], sa[k], sb[k],
-                                           MeLim<H>::lo, MeLim<H>::hi,
-                                           age_clamp);
-          h[u][k] = m.hb;
-          a[u][k] = m.asl;
-          c[k] += (recv[u] && m.listed) ? 1 : 0;
-          if (m.fresh) {
-            nd[k] += 1;
-            fo[k] = min(fo[k], row);
-          }
-          if (kSus) {
-            rf[k] += m.refuted ? 1 : 0;
-            hd[k] += m.held ? 1 : 0;
-          }
-        }
-        const size_t off = (size_t)row * nc + col0;
-        store4<H, kAligned>(hb + off, valid, h[u]);
-        store4<int8_t, kAligned>(asl + off, valid, a[u]);
-      }
     }
+    flush_counts<kSus, kDet, kE>(cnt, cn, h, lanes, n, [&](int st) {
+      return rr_global(cta, st * step_rows + t / lanes);
+    });
+    // every sweep done: the parks are free and the counts complete
+    cluster.sync();
+    if (stripe + clusters < stripes)
+      stage((stripe + clusters) * cols);
+    else
+      finish_stripe(stripe, cnt);
   }
-
-  // 3. the block's reductions: warp (per half), then across warps
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    const int cs = warp_sum_half(c[k]);
-    const int ns = warp_sum_half(nd[k]);
-    const int fs = warp_min_half(fo[k]);
-    const int rs = kSus ? warp_sum_half(rf[k]) : 0;
-    const int hs = kSus ? warp_sum_half(hd[k]) : 0;
-    if (lane < kHalves) {
-      const int j = lane * kVec + k;
-      red[0][warp][j] = cs;
-      red[1][warp][j] = ns;
-      red[2][warp][j] = fs;
-      red[3][warp][j] = rs;
-      red[4][warp][j] = hs;
-    }
-  }
-  __syncthreads();
-  const int j = threadIdx.x;
-  if (j < kCols && c0 + j < nc) {
-    int cs = 0, ns = 0, fs = n, rs = 0, hs = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      cs += red[0][w][j];
-      ns += red[1][w][j];
-      fs = min(fs, red[2][w][j]);
-      rs += red[3][w][j];
-      hs += red[4][w][j];
-    }
-    const int col = c0 + j;
-    out[col] = cs;
-    out[nc + col] = detect ? ns : 0;
-    out[2 * nc + col] = detect ? fs : 0;
-    if (kSus) {
-      out[3 * nc + col] = rs;
-      out[4 * nc + col] = hs;
-    }
-  }
+  // no CTA leaves while another reads its count blocks
+  cluster.sync();
 }
 
-template <typename H, bool kAligned, bool kSus>
-cudaError_t launch_t(const void* view, const int16_t* edges, int fanout,
-                     void* hb, void* asl, const int32_t* sa,
-                     const int32_t* sb, const uint8_t* alive, int32_t* out,
-                     int n, int nc, int detect, int age_clamp,
-                     cudaStream_t s) {
-  const size_t smem = sizeof(int32_t) * kHalves * (size_t)n;
-  auto kernel = stripe_kernel<H, kAligned, kSus>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename H, bool kVec, bool kSus, bool kDet>
+cudaError_t launch(const Params& p, int* info, cudaStream_t s) {
+  auto kern = stripe_kernel<H, kVec, kSus, kDet>;
+  const size_t smem = (size_t)smem_bytes(cta_rows(p.n), p.rb);
+  const int stripes = (p.nc + p.rb - 1) / p.rb;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(stripes * kCtas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the shared-memory limit raised and the clusters the card holds at once
+  // at this size asked, once a size and card
+  constexpr int kMaxCards = 64;
+  static size_t checked[kMaxCards] = {};
+  static int held[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
   if (e != cudaSuccess) return e;
-  kernel<<<(nc + kCols - 1) / kCols, kThreads, smem, s>>>(
-      static_cast<const int8_t*>(view), edges, fanout, static_cast<H*>(hb),
-      static_cast<int8_t*>(asl), sa, sb, alive, out, n, nc, detect,
-      age_clamp);
+  if (card >= kMaxCards) return cudaErrorInvalidDevice;
+  if (info != nullptr || checked[card] != smem) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    checked[card] = smem;
+    held[card] = clusters;
+    if (info != nullptr) {
+      cudaFuncAttributes fa;
+      e = cudaFuncGetAttributes(&fa, kern);
+      if (e != cudaSuccess) return e;
+      const int v[8] = {kCtas, p.rb, p.rb, clusters, fa.numRegs,
+                        (int)fa.localSizeBytes, (int)smem, kThreads};
+      for (int i = 0; i < 8; ++i) info[i] = v[i];
+      return cudaSuccess;
+    }
+  }
+  // persistent clusters: as many as the card holds, none without a stripe
+  cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes) * kCtas);
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+template <typename H, bool kVec>
+cudaError_t launch_v(const Params& p, int detect, int suspect, int* info,
+                     cudaStream_t s) {
+  if (detect)
+    return suspect ? launch<H, kVec, true, true>(p, info, s)
+                   : launch<H, kVec, false, true>(p, info, s);
+  return suspect ? launch<H, kVec, true, false>(p, info, s)
+                 : launch<H, kVec, false, false>(p, info, s);
+}
+
 template <typename H>
-cudaError_t launch_h(const void* view, const int16_t* edges, int fanout,
-                     void* hb, void* asl, const int32_t* sa,
-                     const int32_t* sb, const uint8_t* alive, int32_t* out,
-                     int n, int nc, int detect, int suspect, int age_clamp,
-                     bool aligned, cudaStream_t s) {
-#define SM_ARGS view, edges, fanout, hb, asl, sa, sb, alive, out, n, nc, \
-                detect, age_clamp, s
-  if (aligned)
-    return suspect ? launch_t<H, true, true>(SM_ARGS)
-                   : launch_t<H, true, false>(SM_ARGS);
-  return suspect ? launch_t<H, false, true>(SM_ARGS)
-                 : launch_t<H, false, false>(SM_ARGS);
-#undef SM_ARGS
+cudaError_t launch_h(const Params& p, bool vec, int detect, int suspect,
+                     int* info, cudaStream_t s) {
+  return vec ? launch_v<H, true>(p, detect, suspect, info, s)
+             : launch_v<H, false>(p, detect, suspect, info, s);
+}
+
+int run(const void* view, const void* edges, void* hb, void* asl,
+        const void* sa, const void* sb, const void* alive, void* out, int n,
+        int nc, int fanout, int view_bytes, int hb_bytes, int detect,
+        int suspect, int age_clamp, int aligned, int* info, void* stream) {
+  // int16 edges: n < 2^15
+  if (n <= 0 || n > 32767 || nc <= 0 || nc > n || fanout < 1 ||
+      view_bytes != 1 || age_clamp < 0 || age_clamp > 63 ||
+      stripe_row_bytes(n) == 0)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.view = static_cast<const int8_t*>(view);
+  p.edges = static_cast<const int16_t*>(edges);
+  p.hb = hb;
+  p.asl = static_cast<int8_t*>(asl);
+  p.sa = static_cast<const int32_t*>(sa);
+  p.sb = static_cast<const int32_t*>(sb);
+  p.alive = static_cast<const uint8_t*>(alive);
+  p.out = static_cast<int32_t*>(out);
+  p.n = n;
+  p.nc = nc;
+  p.fanout = fanout;
+  p.rb = stripe_row_bytes(n);
+  p.age_clamp = age_clamp;
+  // 16-byte segments: every row's stripe segment whole and aligned
+  const bool vec = aligned != 0 && nc % kSegBytes == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SM_LAUNCH(H) (int)launch_h<H>(p, vec, detect, suspect, info, s)
+  if (hb_bytes == 1) return SM_LAUNCH(int8_t);
+  if (hb_bytes == 2) return SM_LAUNCH(int16_t);
+  if (hb_bytes == 4) return SM_LAUNCH(int32_t);
+#undef SM_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launch K5 on ``stream`` over column blocks: n rows, nc subject columns
-// (nc = n for a square round, n / shards on a subject shard; the strip
-// holds every row, so the shared-memory bound is on n, whatever nc).
+// (nc = n for a square round, n / shards on a subject shard; the park holds
+// every row, so the shared-memory bound is on n, whatever nc).
 // view: int8 [n, nc] (view_bytes must be 1); edges: int16 [n, fanout]
-// (every block reads all of them: int16 halves that traffic, and N <=
-// 28,416 fits); hb: int8/16/32 [n, nc] and asl: int8 [n, nc], post-tick,
+// (n < 2^15); hb: int8/16/32 [n, nc] and asl: int8 [n, nc], post-tick,
 // updated in place; sa, sb: int32 [nc]; alive: bool [n]; out: int32
 // [3, nc] = cnt_incl, n_det, first_obs ([5, nc] with refuted and held
-// when ``suspect``), every entry written by the kernel.  ``aligned``: nc
-// % 4 == 0 and 16-byte aligned lanes (vector loads).  Returns the CUDA
-// error code of the launch (0 on success).
+// when ``suspect``), every entry written by the kernel.  ``aligned``: 16-byte
+// aligned lanes with nc % 4 == 0 (the 16-byte path runs where also nc % 16
+// == 0).  Returns the CUDA error code of the launch (0 on success).
 extern "C" int sm_merge(const void* view, const void* edges, void* hb,
                         void* asl, const void* sa, const void* sb,
                         const void* alive, void* out, int n, int nc,
                         int fanout, int view_bytes, int hb_bytes, int detect,
                         int suspect, int age_clamp, int aligned,
                         void* stream) {
-  if (n <= 0 || nc <= 0 || nc > n || fanout < 1 || view_bytes != 1 ||
-      age_clamp < 0 || age_clamp > 63 ||
-      (size_t)kHalves * sizeof(int32_t) * n + kStaticSmem > kSmemLimit)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int16_t* e = static_cast<const int16_t*>(edges);
-  const int32_t* a = static_cast<const int32_t*>(sa);
-  const int32_t* b = static_cast<const int32_t*>(sb);
-  const uint8_t* al = static_cast<const uint8_t*>(alive);
-  int32_t* o = static_cast<int32_t*>(out);
-#define SM_ARGS view, e, fanout, hb, asl, a, b, al, o, n, nc, detect, \
-                suspect, age_clamp, aligned != 0, s
-  if (hb_bytes == 1) return (int)launch_h<int8_t>(SM_ARGS);
-  if (hb_bytes == 2) return (int)launch_h<int16_t>(SM_ARGS);
-  if (hb_bytes == 4) return (int)launch_h<int32_t>(SM_ARGS);
-#undef SM_ARGS
-  return (int)cudaErrorInvalidValue;
+  return run(view, edges, hb, asl, sa, sb, alive, out, n, nc, fanout,
+             view_bytes, hb_bytes, detect, suspect, age_clamp, aligned,
+             nullptr, stream);
+}
+
+// The geometry of the instantiation sm_merge would launch for this shape,
+// into info[8] (launches nothing): CTAs a cluster, stripe columns, park row
+// bytes, clusters the card holds at once, registers a thread, local memory
+// a thread (spills), dynamic shared memory a CTA, threads a CTA.
+extern "C" int sm_info(int n, int nc, int fanout, int hb_bytes, int detect,
+                       int suspect, int aligned, int* info) {
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             nullptr, n, nc, fanout, 1, hb_bytes, detect, suspect, 63,
+             aligned, info, nullptr);
 }

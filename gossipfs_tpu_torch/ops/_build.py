@@ -47,9 +47,11 @@ SIGNATURES = {
     },
     "stripe_merge": {
         "sm_merge": (_I, [_P] * 8 + [_I] * 9 + [_P]),
+        "sm_info": (_I, [_I] * 7 + [_P]),
     },
     "arc_merge": {
         "am_merge": (_I, [_P] * 9 + [_I] * 9 + [_P]),
+        "am_info": (_I, [_I] * 8 + [_P]),
     },
 }
 

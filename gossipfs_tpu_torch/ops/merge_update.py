@@ -8,15 +8,16 @@ Three kernels, each with its plain PyTorch version beside it:
   ``gossipfs_tpu/ops/merge_pallas.py: fused_merge_update_blocked``; the
   ``random`` and ``ring`` topologies run it.
 * :func:`stripe_merge_update` (K5) is K2's function over an int8 view with
-  another memory strategy: one block stages a strip of view columns for
-  every receiver, so the view crosses device memory once per round.  Port
-  of ``stripe_merge_update_blocked``; the explicit-edge rounds of
-  ``pallas_stripe``/``pallas_rr`` configurations run it where it admits
-  the shape (:func:`stripe_admits`).
+  another memory strategy: a cluster of blocks parks a stripe of view
+  columns for every receiver in shared memory, so the view crosses device
+  memory once per round.  Port of ``stripe_merge_update_blocked``; the
+  explicit-edge rounds of ``pallas_stripe``/``pallas_rr`` configurations
+  run it where it admits the shape (:func:`stripe_admits`).
 * :func:`arc_merge_update` (K4) takes arc bases ``[N]``: the window max
   ``W[r, :] = max_{k<F} view[(r + k) mod N, :]`` once, then
   ``best[i, :] = W[bases[i], :]``.  Port of ``arc_merge_update_blocked``;
-  every ``random_arc`` round off the lean loop runs it.
+  every ``random_arc`` round off the lean loop runs it.  Its kernel keeps
+  W in shared memory where the park fits (:func:`arc_form`).
 
 All run the same epilogue on each entry (``_epilogue_and_count`` of
 the JAX package, in its int32 + clip form): advance a listed entry whose
@@ -68,20 +69,48 @@ VIEW_DTYPES = (torch.int8, torch.int16)
 # the CUDA kernels' limits: edges of a block's receiver rows are staged in
 # 48 KB of shared memory
 MAX_KERNEL_FANOUT = 512
-# K5's: a block stages 8 view columns (8 B) of every receiver row in
-# shared memory, beside its reduction scratch (5 int32 sums per column for
-# each of its 32 warps), within the 232,448 B one Hopper block may opt in
-# to (csrc/stripe_merge.cu).  It bounds the ROWS: a subject shard keeps
-# every row, so sharding the columns does not lift it.
-STRIPE_COLS = 8
-STRIPE_MAX_N = (232_448 - 5 * 32 * STRIPE_COLS * 4) // STRIPE_COLS
+# K4's and K5's geometry (csrc/merge_stripe.cuh): a cluster of 16 CTAs of
+# 512 threads, each parking its rows of a view stripe (rows of 128 to 16
+# bytes) beside a 128-byte row of absent bytes and two count blocks of 5 x
+# 128 int32, within the 232,448 B one Hopper block may opt in to; a thread
+# counts at most 255 rows a stripe (byte counters).
+PARK_CTAS = 16
+PARK_THREADS = 512
+PARK_SMEM_LIMIT = 232_448
+# K5's limit on the ROWS (a subject shard keeps every row, so sharding the
+# columns does not lift it): the N the route has admitted since K5's first
+# kernel, whose [N, 8] strip filled one block's shared memory.  The park of
+# the present kernel (N / 16 rows of 64 B: 111 KB at this N) holds it with
+# room; the route keeps its limit.
+STRIPE_MAX_N = 28_416
+
+
+def park_fits(rows: int, park_rows: int, row_bytes: int) -> bool:
+    """Whether a CTA parks ``park_rows`` rows of ``row_bytes`` bytes and
+    sweeps ``rows`` receiver rows (merge_stripe.cuh ``park_fits``)."""
+    return (park_rows * row_bytes + 128 + 2 * 5 * 128 * 4 <= PARK_SMEM_LIMIT
+            and rows <= 255 * (PARK_THREADS // (row_bytes // 16)))
+
+
+def arc_form(n: int, fanout: int) -> str:
+    """K4's form for ``n`` rows and ``fanout`` (merge_stripe.cuh
+    ``arc_form``): ``"park"`` (one launch) where a CTA's range of N / 16
+    rows and its F - 1 halo rows fit in 128-byte rows; else two launches
+    that write the window max to a scratch ``[N, C]``, by ``"tiles"`` of
+    512 rows and their halo where those fit, else by van Herk
+    ``"segments"``."""
+    rows = -(-n // PARK_CTAS)
+    if park_fits(rows, rows + fanout - 1, 128):
+        return "park"
+    if park_fits(0, 512 + fanout - 1, 128):
+        return "tiles"
+    return "segments"
 
 
 def stripe_admits(n: int, view_dtype: str) -> bool:
     """Whether K5 takes a view of ``n`` rows of ``view_dtype`` (``[N, N]``,
     or an ``[N, N / shards]`` column block: the bound is on rows): int8,
-    and a view strip of every receiver row that fits one block's shared
-    memory (N <= 28,416)."""
+    and N <= :data:`STRIPE_MAX_N`."""
     return view_dtype == "int8" and n <= STRIPE_MAX_N
 
 
@@ -359,9 +388,12 @@ def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
 
 def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
             shift_a, shift_b, alive, fanout: int, detect_stats: bool,
-            suspect: bool, age_clamp: int, scratch=None):
+            suspect: bool, age_clamp: int, scratch=False, init: bool = True):
     """Launch kernel ``name`` (C function ``fn`` of ``csrc/<source>.cu``)
-    on hb's device and current stream."""
+    on hb's device and current stream.  ``scratch``: False where the C
+    function takes no scratch pointer, else a tensor or None (a null
+    pointer); ``init``: the kernel adds into its outputs (zeros, first_obs
+    N), else it writes every entry."""
     if hb.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {hb.device}")
     from gossipfs_tpu_torch.ops import _build
@@ -372,16 +404,16 @@ def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
     ptrs = [t.data_ptr() for t in (view, hb, asl)]
     aligned = int(c % 4 == 0 and all(p % 16 == 0 for p in ptrs))
     with torch.cuda.device(hb.device):
-        out = torch.zeros((5 if suspect else 3, c), dtype=torch.int32,
-                          device=hb.device)
-        if detect_stats:
+        out = (torch.zeros if init else torch.empty)(
+            (5 if suspect else 3, c), dtype=torch.int32, device=hb.device)
+        if init and detect_stats:
             out[2].fill_(n)
         stream = torch.cuda.current_stream(hb.device)
         args = [view.data_ptr(), senders.data_ptr(), hb.data_ptr(),
                 asl.data_ptr(), shift_a.data_ptr(), shift_b.data_ptr(),
                 alive.data_ptr()]
-        if scratch is not None:
-            args.append(scratch.data_ptr())
+        if scratch is not False:
+            args.append(None if scratch is None else scratch.data_ptr())
         args += [out.data_ptr(), n, c, fanout, view.element_size(),
                  hb.element_size(), int(detect_stats), int(suspect),
                  age_clamp, aligned, stream.cuda_stream]
@@ -444,14 +476,13 @@ def stripe_merge_update(view, edges, hb, asl, shift_a, shift_b, alive, *,
     n = hb.shape[0]
     if n > STRIPE_MAX_N:   # rows: a column shard does not lift it
         raise NotImplementedError(
-            f"stripe_merge_update: the CUDA kernel stages an [N, "
-            f"{STRIPE_COLS}] view strip in shared memory, N <= "
+            f"stripe_merge_update: the CUDA kernel takes N <= "
             f"{STRIPE_MAX_N}; got N={n}")
-    # every block of the kernel reads every receiver's edges: it takes them
-    # as int16 (N <= STRIPE_MAX_N fits), half the bytes
+    # every stripe's sweep reads every receiver's edges: the kernel takes
+    # them as int16 (N <= STRIPE_MAX_N fits), half the bytes
     return _launch("stripe_merge_update", "stripe_merge", "sm_merge", view,
                    edges.to(torch.int16), hb, asl, shift_a, shift_b, alive,
-                   f, detect_stats, suspect, age_clamp)
+                   f, detect_stats, suspect, age_clamp, init=False)
 
 
 def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
@@ -459,8 +490,10 @@ def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
                      suspect: bool = False, age_clamp: int = AGE_CLAMP):
     """K4: :func:`arc_merge_update_plain` for CPU tensors, the CUDA kernel
     for CUDA tensors.  ``bases`` int32 ``[N]`` in ``[0, N)``; the rest as
-    :func:`fused_merge_update`.  The kernel writes the window max to a
-    scratch buffer of the view's shape and dtype."""
+    :func:`fused_merge_update`.  The kernel keeps the window max in shared
+    memory where a park of 128-byte rows fits (:func:`arc_form`); else its
+    two launches write it to a scratch buffer of the view's shape and
+    dtype."""
     n = hb.shape[0] if hb.dim() == 2 else -1
     _check_inputs("arc_merge_update", view,
                   {"bases": (bases, (torch.int32,), (n,))}, hb, asl,
@@ -472,6 +505,8 @@ def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
         return arc_merge_update_plain(
             view, bases, hb, asl, shift_a, shift_b, alive, fanout=fanout,
             detect_stats=detect_stats, suspect=suspect, age_clamp=age_clamp)
+    two = arc_form(n, fanout) != "park"
     return _launch("arc_merge_update", "arc_merge", "am_merge", view, bases,
                    hb, asl, shift_a, shift_b, alive, fanout, detect_stats,
-                   suspect, age_clamp, scratch=torch.empty_like(view))
+                   suspect, age_clamp, init=two,
+                   scratch=torch.empty_like(view) if two else None)

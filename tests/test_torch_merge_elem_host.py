@@ -8,10 +8,14 @@ from that same header; ``ctypes`` runs it over numpy inputs:
   states, the lane types' extremes and floor sentinels, view values up to
   both windows, shifts deep negative to far positive) must equal
   ``epilogue_plain`` exactly, for each heartbeat lane type;
-* host replays of the kernels' loops (K2's receiver-row pass, K4's
-  van Herk/Gil-Werman window segments followed by the row pass) must
-  equal the plain versions on whole merges, fanouts that do and do not
-  divide N.
+* host replays of the kernels' loops must equal the plain versions on
+  whole merges: K2's receiver-row pass; K4's one launch through its own
+  per-thread bodies (csrc/merge_stripe.cuh: the cluster's parks as host
+  arrays, the window max by shift doubling in the park, the receivers'
+  reads of it, the counts), over every view and lane type pair, ragged N,
+  column blocks, fanouts 1 to N - 1 and windows crossing CTA ranges and
+  the wrap; and its two launches for shapes whose halo outgrows a park
+  (van Herk/Gil-Werman window segments followed by the row pass).
 This catches arithmetic slips before the card runs the kernels.
 """
 
@@ -40,7 +44,9 @@ HARNESS = r"""
 #include <cstdint>
 #include <climits>
 #include <algorithm>
+#include <vector>
 #include "merge_elem.cuh"
+#include "merge_stripe.cuh"
 
 extern "C" void host_epilogue(int m, const int32_t* best, const int32_t* hb,
                               const int8_t* asl, const uint8_t* recv,
@@ -87,29 +93,346 @@ extern "C" void host_rows(int n, int fanout, const int8_t* view,
   }
 }
 
-// arc_merge.cu's window_max_kernel, replayed block by block: segment m
-// of F rows (extended index space), a backward suffix pass writing W and
-// a forward prefix pass folding into it.
-extern "C" void host_window(int n, int fanout, const int8_t* view,
-                            int8_t* w) {
+static void copy16(int8_t* d, const int8_t* s) { std::memcpy(d, s, 16); }
+
+// arc_merge.cu's one-launch form (K4) replayed stripe by stripe, the
+// cluster's parks and count blocks as host arrays and its threads one
+// after another, through merge_stripe.cuh's per-thread bodies: each CTA
+// parks its contiguous range and the F - 1 halo rows after it (stage_seg),
+// turns the park into M_p step by step (radix 4, then 2) and chunk by chunk
+// (every thread's window_read, then every thread's window_write), then
+// every thread sweeps its receiver rows
+// (arc_best over the parks, merge_seg), its counter bytes summed into its
+// CTA's block; finish sums the blocks.  kVec: the 16-byte path.  out =
+// [5, nc] int32, every entry written.
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+static void host_arc_t(int n, int nc, int fanout, const V* view,
+                       const int32_t* bases, H* hb, int8_t* asl,
+                       const int32_t* sa, const int32_t* sb,
+                       const uint8_t* alive, int detect, int32_t* out) {
+  using namespace mstripe;
+  constexpr int kE = kSegBytes / sizeof(V);
+  const int rb = kMaxRowBytes;
+  const int lanes = rb / kSegBytes, cols = lanes * kE;
+  const int nt = kThreads, step_rows = nt / lanes;
+  const int span = cta_rows(n), pw = pow2_floor(fanout);
+  const size_t prow = (size_t)span + fanout - 1;
+  std::vector<int8_t> park(kCtas * prow * rb);
+  std::vector<int32_t> blocks((size_t)kCtas * kBlockInts);
+  std::vector<Seg> buf((size_t)nt * kWinItems);
+  auto* v = reinterpret_cast<Seg(*)[kWinItems]>(buf.data());
+  for (int col0 = 0; col0 < nc; col0 += cols) {
+    int32_t shifts[2][kMaxCols];
+    for (int c = 0; c < cols; ++c) {
+      shifts[0][c] = col0 + c < nc ? sa[col0 + c] : 0;
+      shifts[1][c] = col0 + c < nc ? sb[col0 + c] : 0;
+    }
+    for (int q = 0; q < kCtas; ++q) {
+      const int rows = range_rows(n, span, q), r0 = q * span;
+      const int len = rows > 0 ? rows + fanout - 1 : 0;
+      int8_t* pk = &park[q * prow * rb];
+      for (int i = 0; i < len * lanes; ++i) {
+        int g = r0 + i / lanes;
+        if (g >= n) g -= n;
+        stage_seg<V, kVec>(view, nc, col0, g, i % lanes,
+                           pk + (size_t)i * kSegBytes, copy16);
+      }
+      for (int s = 1; s < pw; s *= window_radix(s, pw)) {
+        const int r = window_radix(s, pw);
+        for (int c = 0; c < window_chunks(len, s, r, lanes, nt); ++c) {
+          for (int t = 0; t < nt; ++t)
+            window_read<V>(pk, rb, len, s, r, c, t, nt, v[t]);
+          for (int t = 0; t < nt; ++t)
+            window_write(pk, rb, len, s, r, c, t, nt, v[t]);
+        }
+      }
+      for (int i = 0; i < kBlockInts; ++i)
+        blocks[(size_t)q * kBlockInts + i] = blank_count(i, n);
+    }
+    for (int q = 0; q < kCtas; ++q)
+      for (int t = 0; t < nt; ++t) {
+        const int rows = range_rows(n, span, q), r0 = q * span;
+        const int h = t % lanes, col = col0 + h * kE;
+        const int valid = kVec ? (col < nc ? kE : 0)
+                               : std::max(0, std::min(kE, nc - col));
+        Counts<kE> cn;
+        clear(cn);
+        int step = 0;
+        for (int li = t / lanes; valid > 0 && li < rows;
+             li += step_rows, ++step) {
+          const int row = r0 + li;
+          const bool recv = alive[row] != 0;
+          const size_t off = (size_t)row * nc + col;
+          Lanes<H, kE> ld;
+          load_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
+          const Seg best =
+              recv ? arc_best<V>(
+                         bases[row], n, span, fanout, pw,
+                         [&](int qq, int l) -> const int8_t* {
+                           return &park[(qq * prow + l) * rb +
+                                        h * kSegBytes];
+                         },
+                         [](const int8_t* a) { return onepass::load_seg(a); })
+                   : onepass::splat(0xFFFFFFFFu);
+          merge_seg<V, H, kSus, kDet, kVec, kE>(
+              best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
+              63, step, cn);
+          store_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
+        }
+        int32_t* blk = &blocks[(size_t)q * kBlockInts];
+        for (int j = 0; j < kE; ++j) {
+          const int c = h * kE + j;
+          blk[kOutCnt * kMaxCols + c] += count_at(cn.cnt, j);
+          blk[kOutDet * kMaxCols + c] += count_at(cn.det, j);
+          blk[kOutRef * kMaxCols + c] += count_at(cn.ref, j);
+          blk[kOutHeld * kMaxCols + c] += count_at(cn.held, j);
+          if (first_step(cn, j) >= 0) {
+            const int r = r0 + first_step(cn, j) * step_rows + t / lanes;
+            int32_t& fo = blk[kOutFobs * kMaxCols + c];
+            fo = std::min(fo, r);
+          }
+        }
+      }
+    for (int s = 0; s < (kSus ? kOuts : 3); ++s)
+      for (int c = 0; c < cols && col0 + c < nc; ++c)
+        out[(size_t)s * nc + col0 + c] = output_value(
+            s, finish(s, c, [&](int q) { return &blocks[(size_t)q * kBlockInts]; }),
+            detect != 0);
+  }
+}
+
+template <typename V, typename H>
+static void host_arc_vh(int vec, int suspect, int n, int nc, int fanout,
+                        const void* view, const int32_t* bases, void* hb,
+                        int8_t* asl, const int32_t* sa, const int32_t* sb,
+                        const uint8_t* alive, int detect, int32_t* out) {
+  const V* w = static_cast<const V*>(view);
+  H* h = static_cast<H*>(hb);
+#define HA_ARGS n, nc, fanout, w, bases, h, asl, sa, sb, alive, detect, out
+#define HA_DET(v, s) \
+  detect ? host_arc_t<V, H, v, s, true>(HA_ARGS) \
+         : host_arc_t<V, H, v, s, false>(HA_ARGS)
+  if (vec)
+    suspect ? HA_DET(true, true) : HA_DET(true, false);
+  else
+    suspect ? HA_DET(false, true) : HA_DET(false, false);
+#undef HA_DET
+#undef HA_ARGS
+}
+
+extern "C" void host_arc(int view_bytes, int hb_bytes, int vec, int suspect,
+                         int n, int nc, int fanout, const void* view,
+                         const int32_t* bases, void* hb, int8_t* asl,
+                         const int32_t* sa, const int32_t* sb,
+                         const uint8_t* alive, int detect, int32_t* out) {
+#define HA_ARGS vec, suspect, n, nc, fanout, view, bases, hb, asl, sa, sb, \
+                alive, detect, out
+  if (view_bytes == 1 && hb_bytes == 1) host_arc_vh<int8_t, int8_t>(HA_ARGS);
+  if (view_bytes == 1 && hb_bytes == 2) host_arc_vh<int8_t, int16_t>(HA_ARGS);
+  if (view_bytes == 1 && hb_bytes == 4) host_arc_vh<int8_t, int32_t>(HA_ARGS);
+  if (view_bytes == 2 && hb_bytes == 2) host_arc_vh<int16_t, int16_t>(HA_ARGS);
+  if (view_bytes == 2 && hb_bytes == 4) host_arc_vh<int16_t, int32_t>(HA_ARGS);
+#undef HA_ARGS
+}
+
+extern "C" int host_arc_form(int n, int fanout) {
+  return mstripe::arc_form(n, fanout);
+}
+
+// arc_merge.cu's window_tile_kernel replayed block by block (the tiles
+// form): a tile of kTileRows rows and its F - 1 halo rows staged, doubled
+// chunk by chunk (every thread's reads, then every thread's writes), then
+// W = max(M_p[x], M_p[x + F - p]) written.
+template <typename V, bool kVec>
+static void host_tiles_t(int n, int nc, int fanout, const V* view, V* w) {
+  using namespace mstripe;
+  constexpr int kE = kSegBytes / sizeof(V), lanes = kMaxRowBytes / kSegBytes;
+  constexpr int cols = lanes * kE;
+  const int pw = pow2_floor(fanout);
+  std::vector<int8_t> park((size_t)(kTileRows + fanout - 1) * kMaxRowBytes);
+  std::vector<Seg> buf((size_t)kThreads * kWinItems);
+  auto* v = reinterpret_cast<Seg(*)[kWinItems]>(buf.data());
+  for (int r0 = 0; r0 < n; r0 += kTileRows)
+    for (int col0 = 0; col0 < nc; col0 += cols) {
+      const int rows = std::min(kTileRows, n - r0), len = rows + fanout - 1;
+      for (int i = 0; i < len * lanes; ++i) {
+        int g = r0 + i / lanes;
+        if (g >= n) g -= n;
+        stage_seg<V, kVec>(view, nc, col0, g, i % lanes,
+                           &park[(size_t)i * kSegBytes], copy16);
+      }
+      for (int s = 1; s < pw; s *= window_radix(s, pw)) {
+        const int r = window_radix(s, pw);
+        for (int c = 0; c < window_chunks(len, s, r, lanes, kThreads); ++c) {
+          for (int t = 0; t < kThreads; ++t)
+            window_read<V>(park.data(), kMaxRowBytes, len, s, r, c, t,
+                           kThreads, v[t]);
+          for (int t = 0; t < kThreads; ++t)
+            window_write(park.data(), kMaxRowBytes, len, s, r, c, t,
+                         kThreads, v[t]);
+        }
+      }
+      for (int i = 0; i < rows * lanes; ++i) {
+        const int h = i % lanes, col = col0 + h * kE;
+        union {
+          V x[kE];
+          Seg s;
+        } u;
+        u.s = tile_window<V>(park.data(), i / lanes, h, fanout, pw);
+        for (int k = 0; k < kE && col + k < nc; ++k)
+          w[(size_t)(r0 + i / lanes) * nc + col + k] = u.x[k];
+      }
+    }
+}
+
+extern "C" void host_tiles(int view_bytes, int vec, int n, int nc,
+                           int fanout, const void* view, void* w) {
+  if (view_bytes == 1)
+    vec ? host_tiles_t<int8_t, true>(n, nc, fanout, (const int8_t*)view,
+                                     (int8_t*)w)
+        : host_tiles_t<int8_t, false>(n, nc, fanout, (const int8_t*)view,
+                                      (int8_t*)w);
+  else
+    vec ? host_tiles_t<int16_t, true>(n, nc, fanout, (const int16_t*)view,
+                                      (int16_t*)w)
+        : host_tiles_t<int16_t, false>(n, nc, fanout, (const int16_t*)view,
+                                       (int16_t*)w);
+}
+
+// arc_merge.cu's arc_rows_kernel replayed block by block (the two-launch
+// forms' row pass): each block's threads sweep up to kRowsPerBlock rows of
+// a 128-byte stripe, one W row a receiver (load_row_seg), merge_seg, their
+// counter bytes summed into the block's counts, which go into the
+// initialised ``out`` as the kernel's atomics do.
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+static void host_rows_t(int n, int nc, const V* w, const int32_t* bases,
+                        H* hb, int8_t* asl, const int32_t* sa,
+                        const int32_t* sb, const uint8_t* alive,
+                        int32_t* out) {
+  using namespace mstripe;
+  constexpr int kE = kSegBytes / sizeof(V), lanes = kMaxRowBytes / kSegBytes;
+  constexpr int cols = lanes * kE, step_rows = kRowThreads / lanes;
+  for (int r0 = 0; r0 < n; r0 += kRowsPerBlock)
+    for (int col0 = 0; col0 < nc; col0 += cols) {
+      const int rows = std::min(kRowsPerBlock, n - r0);
+      int32_t cnt[kBlockInts];
+      for (int i = 0; i < kBlockInts; ++i) cnt[i] = blank_count(i, n);
+      for (int t = 0; t < kRowThreads; ++t) {
+        const int h = t % lanes, col = col0 + h * kE;
+        const int valid = kVec ? (col < nc ? kE : 0)
+                               : std::max(0, std::min(kE, nc - col));
+        Counts<kE> cn;
+        clear(cn);
+        int step = 0;
+        for (int li = t / lanes; valid > 0 && li < rows;
+             li += step_rows, ++step) {
+          const int row = r0 + li, b = bases[row];
+          const bool recv = alive[row] != 0;
+          const size_t off = (size_t)row * nc + col;
+          Lanes<H, kE> ld;
+          load_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
+          const Seg best = recv && (unsigned)b < (unsigned)n
+                               ? load_row_seg<V, kVec>(w, nc, b, col, valid)
+                               : onepass::splat(0xFFFFFFFFu);
+          merge_seg<V, H, kSus, kDet, kVec, kE>(best, ld, valid, sa + col,
+                                                sb + col, recv, 63, step, cn);
+          store_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
+        }
+        for (int j = 0; j < kE; ++j) {
+          const int c = h * kE + j;
+          cnt[kOutCnt * kMaxCols + c] += count_at(cn.cnt, j);
+          cnt[kOutDet * kMaxCols + c] += count_at(cn.det, j);
+          cnt[kOutRef * kMaxCols + c] += count_at(cn.ref, j);
+          cnt[kOutHeld * kMaxCols + c] += count_at(cn.held, j);
+          if (first_step(cn, j) >= 0) {
+            const int r = r0 + first_step(cn, j) * step_rows + t / lanes;
+            int32_t& fo = cnt[kOutFobs * kMaxCols + c];
+            fo = std::min(fo, r);
+          }
+        }
+      }
+      for (int s = 0; s < kOuts; ++s)
+        for (int c = 0; c < cols && col0 + c < nc; ++c) {
+          if ((!kSus && s >= kOutRef) ||
+              (!kDet && (s == kOutDet || s == kOutFobs)))
+            continue;
+          int32_t& o = out[(size_t)s * nc + col0 + c];
+          const int v = cnt[s * kMaxCols + c];
+          o = s == kOutFobs ? std::min(o, v) : o + v;
+        }
+    }
+}
+
+template <typename V, typename H>
+static void host_rows_vh(int vec, int suspect, int detect, int n, int nc,
+                         const void* w, const int32_t* bases, void* hb,
+                         int8_t* asl, const int32_t* sa, const int32_t* sb,
+                         const uint8_t* alive, int32_t* out) {
+  const V* x = static_cast<const V*>(w);
+  H* h = static_cast<H*>(hb);
+#define HR_ARGS n, nc, x, bases, h, asl, sa, sb, alive, out
+#define HR_DET(v, s) \
+  detect ? host_rows_t<V, H, v, s, true>(HR_ARGS) \
+         : host_rows_t<V, H, v, s, false>(HR_ARGS)
+  if (vec)
+    suspect ? HR_DET(true, true) : HR_DET(true, false);
+  else
+    suspect ? HR_DET(false, true) : HR_DET(false, false);
+#undef HR_DET
+#undef HR_ARGS
+}
+
+extern "C" void host_arc_rows(int view_bytes, int hb_bytes, int vec,
+                              int suspect, int detect, int n, int nc,
+                              const void* w, const int32_t* bases, void* hb,
+                              int8_t* asl, const int32_t* sa,
+                              const int32_t* sb, const uint8_t* alive,
+                              int32_t* out) {
+#define HR_ARGS vec, suspect, detect, n, nc, w, bases, hb, asl, sa, sb, \
+                alive, out
+  if (view_bytes == 1 && hb_bytes == 1) host_rows_vh<int8_t, int8_t>(HR_ARGS);
+  if (view_bytes == 1 && hb_bytes == 2) host_rows_vh<int8_t, int16_t>(HR_ARGS);
+  if (view_bytes == 1 && hb_bytes == 4) host_rows_vh<int8_t, int32_t>(HR_ARGS);
+  if (view_bytes == 2 && hb_bytes == 2)
+    host_rows_vh<int16_t, int16_t>(HR_ARGS);
+  if (view_bytes == 2 && hb_bytes == 4)
+    host_rows_vh<int16_t, int32_t>(HR_ARGS);
+#undef HR_ARGS
+}
+
+// arc_merge.cu's window_max_kernel (the segments form: a fanout whose
+// halo outgrows a tile), replayed block by block: segment m of F rows
+// (extended index space), a backward suffix pass writing W and a forward
+// prefix pass folding into it.
+template <typename V>
+static void host_window_t(int n, int nc, int fanout, const V* view, V* w) {
   for (int s0 = 0; s0 < n; s0 += fanout) {
     const int end = std::min(s0 + fanout, n);
-    for (int c = 0; c < n; ++c) {
+    for (int c = 0; c < nc; ++c) {
       int run = INT_MIN;
       for (int x = s0 + fanout - 1; x >= s0; --x) {
         const int row = x < n ? x : x - n;
-        run = std::max(run, (int)view[(size_t)row * n + c]);
-        if (x < end) w[(size_t)x * n + c] = (int8_t)run;
+        run = std::max(run, (int)view[(size_t)row * nc + c]);
+        if (x < end) w[(size_t)x * nc + c] = (V)run;
       }
       run = INT_MIN;
       for (int x = s0 + fanout; x <= end + fanout - 2; ++x) {
         const int row = x < n ? x : x - n;
-        run = std::max(run, (int)view[(size_t)row * n + c]);
-        int8_t* wr = w + (size_t)(x - fanout + 1) * n + c;
-        *wr = (int8_t)std::max((int)*wr, run);
+        run = std::max(run, (int)view[(size_t)row * nc + c]);
+        V* wr = w + (size_t)(x - fanout + 1) * nc + c;
+        *wr = (V)std::max((int)*wr, run);
       }
     }
   }
+}
+
+extern "C" void host_window(int view_bytes, int n, int nc, int fanout,
+                            const void* view, void* w) {
+  if (view_bytes == 1)
+    host_window_t<int8_t>(n, nc, fanout, (const int8_t*)view, (int8_t*)w);
+  else
+    host_window_t<int16_t>(n, nc, fanout, (const int16_t*)view,
+                           (int16_t*)w);
 }
 """
 
@@ -210,24 +533,165 @@ def test_host_rows_match_fused_plain(host_lib, n, fanout):
         np.testing.assert_array_equal(o, w, err_msg=name)
 
 
+NAMES = ("hb", "asl", "cnt", "n_det", "first_obs", "refuted", "held")
+
+
+def check_arc_park(host_lib, view, bases, hb, asl, sa, sb, alive, fanout,
+                   detect: bool = True, suspect: bool = False) -> None:
+    """K4's one-launch (park) form replayed (the 16-byte path where nc % 16
+    == 0, and the element path) against arc_merge_update_plain."""
+    n, nc = hb.shape
+    assert mu.arc_form(n, fanout) == "park"
+    t = torch.from_numpy
+    want = mu.arc_merge_update_plain(
+        t(view), t(bases), t(hb.copy()), t(asl.copy()), t(sa), t(sb),
+        t(alive), fanout=fanout, detect_stats=detect, suspect=suspect)
+    for vec in ((0, 1) if nc % 16 == 0 else (0,)):
+        h, a = hb.copy(), asl.copy()
+        out = np.full((5, nc), -7, np.int32)
+        call(host_lib.host_arc, view.itemsize, hb.itemsize, vec, int(suspect),
+             n, nc, fanout, view, bases, h, a, sa, sb,
+             alive.astype(np.uint8), int(detect), out)
+        got = [h, a, *out[:5 if suspect else 3]]
+        assert len(got) == len(want)
+        for name, o, w in zip(NAMES, got, want):
+            np.testing.assert_array_equal(o, w.numpy(),
+                                          err_msg=f"{name}, vec={vec}")
+
+
+def check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
+                         fanout, detect: bool = True,
+                         suspect: bool = False) -> None:
+    """K4's two launches replayed: the window max by tiles (each path) and
+    by van Herk segments equals the plain one, and the row pass over it
+    into initialised outputs equals the whole plain K4."""
+    n, nc = hb.shape
+    t = torch.from_numpy
+    want_w = mu.window_max_plain(t(view), fanout).numpy()
+    want = mu.arc_merge_update_plain(
+        t(view), t(bases), t(hb.copy()), t(asl.copy()), t(sa), t(sb),
+        t(alive), fanout=fanout, detect_stats=detect, suspect=suspect)
+    vecs = (0, 1) if nc % 16 == 0 else (0,)
+    windows = [("segments", None)] + [("tiles", v) for v in vecs
+                                      if mu.arc_form(n, fanout) != "segments"
+                                      or n < 2_000]
+    for form, vec in windows:
+        w = np.full_like(view, 99)
+        if form == "tiles":
+            call(host_lib.host_tiles, view.itemsize, vec, n, nc, fanout, view,
+                 w)
+        else:
+            call(host_lib.host_window, view.itemsize, n, nc, fanout, view, w)
+        np.testing.assert_array_equal(w, want_w, err_msg=form)
+    for vec in vecs:
+        h, a = hb.copy(), asl.copy()
+        out = np.zeros((5, nc), np.int32)
+        if detect:
+            out[2] = n
+        call(host_lib.host_arc_rows, view.itemsize, hb.itemsize, vec,
+             int(suspect), int(detect), n, nc, want_w, bases, h, a, sa, sb,
+             alive.astype(np.uint8), out)
+        got = [h, a, *out[:5 if suspect else 3]]
+        for name, o, x in zip(NAMES, got, want):
+            np.testing.assert_array_equal(o, x.numpy(),
+                                          err_msg=f"{name}, vec={vec}")
+
+
 @pytest.mark.parametrize("n,fanout", [(96, 16), (70, 11), (50, 49), (64, 1)])
 def test_host_window_then_rows_match_arc_plain(host_lib, n, fanout):
-    """K4's two launches replayed: the window max equals the plain one,
-    and the row pass over it (F = 1, senders = bases) equals the whole
-    plain K4."""
+    """K4 replayed in each of its forms: the window max in the park then
+    the receivers (the one launch these shapes take), and the two launches
+    (where no park fits): the window max by tiles and by segments equals
+    the plain one, and the row pass over it equals the whole plain K4."""
     rng, view, hb, asl, sa, sb, alive = merge_inputs(n, n + fanout)
     bases = rng.integers(0, n, n).astype(np.int32)
-    w = np.full((n, n), 99, np.int8)
-    call(host_lib.host_window, n, fanout, view, w)
-    np.testing.assert_array_equal(
-        w, mu.window_max_plain(torch.from_numpy(view), fanout).numpy())
-    want = plain_out(mu.arc_merge_update_plain, view, bases, hb, asl, sa, sb,
-                     alive, fanout=fanout)
-    h, a = hb.copy(), asl.copy()
-    out = np.zeros((3, n), np.int32)
-    out[2] = n
-    call(host_lib.host_rows, n, 1, w, bases[:, None].copy(), h, a, sa, sb,
-         alive.astype(np.uint8), 1, 63, out)
-    for name, o, x in zip(("hb", "asl", "cnt", "n_det", "first_obs"),
-                          [h, a, *out], want):
-        np.testing.assert_array_equal(o, x, err_msg=name)
+    check_arc_park(host_lib, view, bases, hb, asl, sa, sb, alive, fanout)
+    check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
+                         fanout)
+
+
+def arc_inputs(n: int, nc: int, vd, hd, suspect: bool, seed: int):
+    """One K4 call's inputs over an [n, nc] block, made with numpy."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(hd)
+    top = 126 if vd == np.int8 else 16_384
+    view = rng.integers(-1, top + 1, (n, nc)).astype(vd)
+    alive = rng.random(n) < 0.8
+    view[~alive] = -1
+    hb = rng.integers(max(info.min, -2**20), min(info.max, 2**20) + 1,
+                      (n, nc)).astype(hd)
+    hb[rng.random((n, nc)) < 0.05] = info.min
+    age = rng.integers(0, 64, (n, nc))
+    age[rng.random((n, nc)) < 0.2] = 0
+    status = rng.integers(0, 4 if suspect else 3, (n, nc))
+    asl = pack_age_status(torch.from_numpy(age),
+                          torch.from_numpy(status)).numpy()
+    sa = rng.integers(-70_000, 70_000, nc).astype(np.int32)
+    sb = np.where(rng.random(nc) < 0.5, sa,
+                  rng.integers(-70_000, 70_000, nc)).astype(np.int32)
+    bases = rng.integers(0, n, n).astype(np.int32)
+    return view, bases, hb, asl, sa, sb, alive
+
+
+@pytest.mark.parametrize("suspect", [False, True], ids=["off", "suspect"])
+@pytest.mark.parametrize("detect", [False, True], ids=["nostats", "stats"])
+@pytest.mark.parametrize("n,nc,fanout,vd,hd", [
+    (70, 70, 9, np.int8, np.int8),       # N % 8 != 0, F not a power of 2
+    (100, 36, 7, np.int8, np.int16),     # C < N, C % 16 != 0
+    (130, 48, 5, np.int16, np.int32),    # int16 view, 16-byte path
+    (90, 90, 13, np.int16, np.int16),    # int16 view, ragged
+    (40, 40, 1, np.int8, np.int32),      # fanout 1: W = view
+    (33, 33, 32, np.int8, np.int32),     # fanout N - 1
+    (200, 32, 30, np.int8, np.int8),     # windows cross 2 CTA ranges, wrap
+], ids=["ragged", "block36", "view16", "view16ragged", "f1", "fNm1",
+        "cross"])
+def test_host_arc_park_matches_plain(host_lib, n, nc, fanout, vd, hd, detect,
+                                     suspect):
+    """K4's one-launch form over every view/lane type pair it takes,
+    suspicion and detection stats on and off: ragged N, column blocks,
+    fanout 1 and N - 1, windows crossing CTA ranges and the wrap at N."""
+    view, bases, hb, asl, sa, sb, alive = arc_inputs(n, nc, vd, hd, suspect,
+                                                     n * nc + fanout)
+    if fanout == 30:
+        # receivers whose windows start in the last CTA's range and wrap
+        bases[:40] = n - np.arange(1, 41)
+    check_arc_park(host_lib, view, bases, hb, asl, sa, sb, alive, fanout,
+                   detect, suspect)
+
+
+@pytest.mark.parametrize("suspect", [False, True], ids=["off", "suspect"])
+@pytest.mark.parametrize("detect", [False, True], ids=["nostats", "stats"])
+@pytest.mark.parametrize("n,nc,fanout,vd,hd,form", [
+    (30_000, 20, 16, np.int8, np.int8, "tiles"),      # element path
+    (30_000, 32, 9, np.int16, np.int32, "tiles"),     # int16, 16-byte path
+    (3_000, 64, 2_000, np.int8, np.int8, "segments"),
+    (6_000, 40, 5_000, np.int16, np.int16, "segments"),
+    (8_000, 16, 7_000, np.int8, np.int16, "segments"),
+], ids=["tiles8", "tiles16", "seg64", "seg40", "seg16"])
+def test_host_arc_two_launch_matches_plain(host_lib, n, nc, fanout, vd, hd,
+                                           form, detect, suspect):
+    """K4's two launches where no park of 128-byte rows fits: the window
+    max by tiles (a tile and its halo in shared memory) or by van Herk
+    segments (a halo past a tile), then the row pass, suspicion and
+    detection stats on and off."""
+    assert mu.arc_form(n, fanout) == form
+    view, bases, hb, asl, sa, sb, alive = arc_inputs(n, nc, vd, hd, suspect,
+                                                     n + nc + fanout)
+    check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
+                         fanout, detect, suspect)
+
+
+@pytest.mark.parametrize("n,fanout", [(2, 1), (70, 9), (16_384, 16),
+                                      (28_416, 14), (65_536, 16),
+                                      (3_000, 2_000), (6_000, 5_000),
+                                      (8_000, 7_000), (16_000, 15_000),
+                                      (131_072, 17), (300_000, 3)])
+def test_arc_form_matches_header(host_lib, n, fanout):
+    """The wrapper's rule for K4's form (which decides its scratch) is the
+    kernel's: the park at the main paths' N = 16,384, tiles at
+    full_scale's N = 65,536, segments for a halo past a tile."""
+    forms = ("park", "tiles", "segments")
+    want = forms[host_lib.host_arc_form(n, fanout)]
+    assert mu.arc_form(n, fanout) == want
+    assert want == {16_384: "park", 28_416: "tiles", 65_536: "tiles",
+                    3_000: "segments", 16_000: "segments"}.get(n, want)

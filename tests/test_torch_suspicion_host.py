@@ -10,10 +10,12 @@ runs it over numpy inputs:
 * ``rr_tick_sus`` and ``rr_merge_t<true>`` (the resident round's SWIM
   stages) over every int8 value, Lifeguard bit mixed, equal
   ``tick_sus_plain`` and ``merge_plain(suspect=True)``;
-* a host replay of K5's strip loop (the view strip staged as packed words,
-  the per-byte signed max over the senders' words, the epilogue, the
-  block's reductions) equals ``stripe_merge_update_plain``, suspicion and
-  detection stats on and off, a ragged N included;
+* a host replay of K5's stripe walk through its own per-thread bodies
+  (csrc/merge_stripe.cuh: the cluster's parks and count blocks as host
+  arrays, its threads one after another) equals
+  ``stripe_merge_update_plain``: every hb lane type, suspicion and
+  detection stats on and off, ragged N, column blocks, senders outside
+  [0, N), the 16-byte and the element path;
 * a host replay of the resident round's two passes in the suspicion +
   Lifeguard form equals ``resident_round_plain``.
 This catches arithmetic slips before the card runs the kernels.
@@ -44,7 +46,9 @@ HARNESS = r"""
 #include <cstdint>
 #include <cstring>
 #include <algorithm>
+#include <vector>
 #include "merge_elem.cuh"
+#include "merge_stripe.cuh"
 #include "rr_elem.cuh"
 
 extern "C" void host_epilogue_sus(int m, const int32_t* best,
@@ -90,97 +94,140 @@ extern "C" void host_merge_sus(int m, const int8_t* hb, const int8_t* asl,
   }
 }
 
-// per-byte signed max of two packed words (the device's __vmaxs4)
-static int vmaxs4(int a, int b) {
-  int8_t x[4], y[4];
-  std::memcpy(x, &a, 4);
-  std::memcpy(y, &b, 4);
-  for (int k = 0; k < 4; ++k) x[k] = std::max(x[k], y[k]);
-  int r;
-  std::memcpy(&r, x, 4);
-  return r;
-}
+static void copy16(int8_t* d, const int8_t* s) { std::memcpy(d, s, 16); }
 
-// stripe_merge.cu replayed block by block: a strip of 8 columns, staged
-// as two packed words per receiver row (absent beyond N), then the sweep
-// (two halves of 4 subjects per row) and the strip's reductions.  edges
-// are int16 [n, fanout], as the kernel reads them.  out = [5, n] int32,
-// every entry written.
-template <typename H>
-static void host_stripe(int n, int fanout, const int8_t* view,
-                        const int16_t* edges, H* hb, int8_t* asl,
-                        const int32_t* sa, const int32_t* sb,
-                        const uint8_t* alive, int detect, int suspect,
-                        int32_t* out) {
-  int* strip = new int[(size_t)n * 2];
-  for (int c0 = 0; c0 < n; c0 += 8) {
-    for (int r = 0; r < n; ++r)
-      for (int h = 0; h < 2; ++h) {
-        int8_t b[4];
-        for (int k = 0; k < 4; ++k) {
-          const int col = c0 + 4 * h + k;
-          b[k] = col < n ? view[(size_t)r * n + col] : -1;
-        }
-        std::memcpy(&strip[r * 2 + h], b, 4);
-      }
-    int cnt[8] = {0}, nd[8] = {0}, fo[8], rf[8] = {0}, hd[8] = {0};
-    for (int j = 0; j < 8; ++j) fo[j] = n;
-    for (int row = 0; row < n; ++row)
-      for (int h = 0; h < 2; ++h) {
-        const bool recv = alive[row] != 0;
-        int bw = -1;
-        if (recv)
-          for (int f = 0; f < fanout; ++f) {
-            const int s = edges[(size_t)row * fanout + f];
-            if ((unsigned)s < (unsigned)n) bw = vmaxs4(bw, strip[s * 2 + h]);
-          }
-        int8_t best[4];
-        std::memcpy(best, &bw, 4);
-        for (int k = 0; k < 4; ++k) {
-          const int col = c0 + 4 * h + k;
-          if (col >= n) continue;
-          const size_t o = (size_t)row * n + col;
-          MeOut m = suspect
-              ? merge_elem<true>(best[k], hb[o], asl[o], recv, sa[col],
-                                 sb[col], MeLim<H>::lo, MeLim<H>::hi, 63)
-              : merge_elem<false>(best[k], hb[o], asl[o], recv, sa[col],
-                                  sb[col], MeLim<H>::lo, MeLim<H>::hi, 63);
-          hb[o] = (H)m.hb; asl[o] = (int8_t)m.asl;
-          const int j = 4 * h + k;
-          cnt[j] += recv && m.listed;
-          if (m.fresh) { nd[j] += 1; fo[j] = std::min(fo[j], row); }
-          rf[j] += m.refuted;
-          hd[j] += m.held;
-        }
-      }
-    for (int j = 0; j < 8 && c0 + j < n; ++j) {
-      const int col = c0 + j;
-      out[col] = cnt[j];
-      out[n + col] = detect ? nd[j] : 0;
-      out[2 * n + col] = detect ? fo[j] : 0;
-      out[3 * n + col] = rf[j];
-      out[4 * n + col] = hd[j];
+// stripe_merge.cu (K5) replayed stripe by stripe, the cluster's parks and
+// count blocks as host arrays and its threads one after another, through
+// merge_stripe.cuh's per-thread bodies: each CTA parks its round-robin rows
+// of the 32-column stripe (stage_seg), then every thread of every CTA
+// sweeps its receiver rows (gather_edges over the parks, merge_seg), its
+// counter bytes summed into its CTA's block; finish sums the blocks.
+// kVec: the 16-byte path (nc % 16 == 0).  edges are int16 [n, fanout], as
+// the kernel reads them.  out = [5, nc] int32, every entry written.
+template <typename H, bool kVec, bool kSus, bool kDet>
+static void host_stripe_t(int n, int nc, int fanout, const int8_t* view,
+                          const int16_t* edges, H* hb, int8_t* asl,
+                          const int32_t* sa, const int32_t* sb,
+                          const uint8_t* alive, int detect, int32_t* out) {
+  using namespace mstripe;
+  constexpr int kE = 16;
+  const int rb = stripe_row_bytes(n), lanes = rb / kSegBytes;
+  const int step_rows = kThreads / lanes;
+  const int span = cta_rows(n);
+  std::vector<int8_t> park((size_t)kCtas * span * rb);
+  int8_t none[kMaxRowBytes];
+  std::memset(none, 0xFF, kMaxRowBytes);
+  std::vector<int32_t> blocks((size_t)kCtas * kBlockInts);
+  for (int col0 = 0; col0 < nc; col0 += rb) {
+    int32_t shifts[2][kMaxCols];
+    for (int c = 0; c < rb; ++c) {
+      shifts[0][c] = col0 + c < nc ? sa[col0 + c] : 0;
+      shifts[1][c] = col0 + c < nc ? sb[col0 + c] : 0;
     }
+    for (int q = 0; q < kCtas; ++q) {
+      int8_t* pk = &park[(size_t)q * span * rb];
+      for (int i = 0; i < rr_rows(n, q) * lanes; ++i)
+        stage_seg<int8_t, kVec>(view, nc, col0, rr_global(q, i / lanes),
+                                i % lanes, pk + (size_t)i * kSegBytes,
+                                copy16);
+      for (int i = 0; i < kBlockInts; ++i)
+        blocks[(size_t)q * kBlockInts + i] = blank_count(i, n);
+    }
+    for (int q = 0; q < kCtas; ++q)
+      for (int t = 0; t < kThreads; ++t) {
+        const int h = t % lanes, col = col0 + h * kE;
+        const int valid = kVec ? (col < nc ? kE : 0)
+                               : std::max(0, std::min(kE, nc - col));
+        Counts<kE> cn;
+        clear(cn);
+        int step = 0;
+        for (int li = t / lanes; valid > 0 && li < rr_rows(n, q);
+             li += step_rows, ++step) {
+          const int row = rr_global(q, li);
+          const bool recv = alive[row] != 0;
+          const size_t off = (size_t)row * nc + col;
+          Lanes<H, kE> ld;
+          load_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
+          auto addr = [&](int s) -> const int8_t* {
+            if (s < 0) return none + h * kSegBytes;
+            return &park[((size_t)(s & (kCtas - 1)) * span +
+                          (s >> kCtasLog)) * rb + h * kSegBytes];
+          };
+          auto load = [](const int8_t* a) { return onepass::load_seg(a); };
+          // the 16-byte path reads odd batches from the view itself
+          auto gaddr = [&](int s) -> const int8_t* {
+            if (!kVec) return addr(s);
+            return s < 0 ? nullptr : view + (size_t)s * nc + col;
+          };
+          auto gload = [](const int8_t* a) {
+            return a ? onepass::load_seg(a) : onepass::splat(0xFFFFFFFFu);
+          };
+          const Ids ids = load_ids(edges, row, n, fanout, 0);
+          const Seg best =
+              recv ? gather_edges(ids, edges, row, n, fanout, addr, load,
+                                  gaddr, gload)
+                   : onepass::splat(0xFFFFFFFFu);
+          merge_seg<int8_t, H, kSus, kDet, kVec, kE>(
+              best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
+              63, step, cn);
+          store_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
+        }
+        int32_t* blk = &blocks[(size_t)q * kBlockInts];
+        for (int j = 0; j < kE; ++j) {
+          const int c = h * kE + j;
+          blk[kOutCnt * kMaxCols + c] += count_at(cn.cnt, j);
+          blk[kOutDet * kMaxCols + c] += count_at(cn.det, j);
+          blk[kOutRef * kMaxCols + c] += count_at(cn.ref, j);
+          blk[kOutHeld * kMaxCols + c] += count_at(cn.held, j);
+          if (first_step(cn, j) >= 0) {
+            const int r =
+                rr_global(q, first_step(cn, j) * step_rows + t / lanes);
+            int32_t& fo = blk[kOutFobs * kMaxCols + c];
+            fo = std::min(fo, r);
+          }
+        }
+      }
+    for (int s = 0; s < (kSus ? kOuts : 3); ++s)
+      for (int c = 0; c < rb && col0 + c < nc; ++c)
+        out[(size_t)s * nc + col0 + c] = output_value(
+            s, finish(s, c, [&](int q) { return &blocks[(size_t)q * kBlockInts]; }),
+            detect != 0);
   }
-  delete[] strip;
 }
 
-extern "C" void host_stripe_i8(int n, int fanout, const int8_t* view,
-                               const int16_t* edges, int8_t* hb, int8_t* asl,
-                               const int32_t* sa, const int32_t* sb,
-                               const uint8_t* alive, int detect, int suspect,
-                               int32_t* out) {
-  host_stripe<int8_t>(n, fanout, view, edges, hb, asl, sa, sb, alive, detect,
-                      suspect, out);
+template <typename H>
+static void host_stripe_h(int vec, int suspect, int n, int nc, int fanout,
+                          const int8_t* view, const int16_t* edges, void* hb,
+                          int8_t* asl, const int32_t* sa, const int32_t* sb,
+                          const uint8_t* alive, int detect, int32_t* out) {
+  H* h = static_cast<H*>(hb);
+#define HS_ARGS n, nc, fanout, view, edges, h, asl, sa, sb, alive, detect, out
+#define HS_DET(v, s) \
+  detect ? host_stripe_t<H, v, s, true>(HS_ARGS) \
+         : host_stripe_t<H, v, s, false>(HS_ARGS)
+  if (vec)
+    suspect ? HS_DET(true, true) : HS_DET(true, false);
+  else
+    suspect ? HS_DET(false, true) : HS_DET(false, false);
+#undef HS_DET
+#undef HS_ARGS
 }
 
-extern "C" void host_stripe_i16(int n, int fanout, const int8_t* view,
-                                const int16_t* edges, int16_t* hb,
-                                int8_t* asl, const int32_t* sa,
-                                const int32_t* sb, const uint8_t* alive,
-                                int detect, int suspect, int32_t* out) {
-  host_stripe<int16_t>(n, fanout, view, edges, hb, asl, sa, sb, alive,
-                       detect, suspect, out);
+extern "C" void host_stripe(int hb_bytes, int vec, int suspect, int n, int nc,
+                            int fanout, const int8_t* view,
+                            const int16_t* edges, void* hb, int8_t* asl,
+                            const int32_t* sa, const int32_t* sb,
+                            const uint8_t* alive, int detect, int32_t* out) {
+#define HS_ARGS vec, suspect, n, nc, fanout, view, edges, hb, asl, sa, sb, \
+                alive, detect, out
+  if (hb_bytes == 1) host_stripe_h<int8_t>(HS_ARGS);
+  if (hb_bytes == 2) host_stripe_h<int16_t>(HS_ARGS);
+  if (hb_bytes == 4) host_stripe_h<int32_t>(HS_ARGS);
+#undef HS_ARGS
+}
+
+extern "C" int host_stripe_row_bytes(int n) {
+  return mstripe::stripe_row_bytes(n);
 }
 
 // resident_round.cu's suspicion + Lifeguard form replayed: out = [8, n]
@@ -348,43 +395,114 @@ def test_suspicion_merge_stage_matches_plain(host_lib):
     assert outs[2].any()
 
 
+def stripe_inputs(n: int, nc: int, fanout: int, hd, suspect: bool,
+                  seed: int):
+    """One K5 call's inputs over an [n, nc] block, made with numpy: dead
+    receivers (their view rows absent), floor sentinels, fresh detections,
+    SUSPECT entries under ``suspect``."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(hd)
+    view = rng.integers(-1, 127, (n, nc)).astype(np.int8)
+    alive = rng.random(n) < 0.8
+    view[~alive] = -1
+    hb = rng.integers(info.min, info.max + 1, (n, nc)).astype(hd)
+    hb[rng.random((n, nc)) < 0.05] = info.min
+    age = rng.integers(0, 64, (n, nc))
+    age[rng.random((n, nc)) < 0.2] = 0
+    status = rng.integers(0, 4 if suspect else 3, (n, nc))
+    asl = pack_age_status(torch.from_numpy(age),
+                          torch.from_numpy(status)).numpy()
+    sa = rng.integers(-300, 300, nc).astype(np.int32)
+    sb = rng.integers(-300, 300, nc).astype(np.int32)
+    edges = rng.integers(0, n, (n, fanout)).astype(np.int32)
+    return rng, view, edges, hb, asl, sa, sb, alive
+
+
+def check_stripe(host_lib, view, edges16, ref_edges, hb, asl, sa, sb, alive,
+                 detect: bool, suspect: bool) -> None:
+    """K5's host replay (the 16-byte path where nc % 16 == 0, and the
+    element path) against stripe_merge_update_plain over ``ref_edges``."""
+    n, nc = hb.shape
+    t = torch.from_numpy
+    want = mu.stripe_merge_update_plain(
+        t(view), t(ref_edges), t(hb.copy()), t(asl.copy()), t(sa), t(sb),
+        t(alive), detect_stats=detect, suspect=suspect)
+    names = ("hb", "asl", "cnt", "n_det", "first_obs", "refuted", "held")
+    for vec in ((0, 1) if nc % 16 == 0 else (0,)):
+        h, a = hb.copy(), asl.copy()
+        out = np.full((5, nc), -7, np.int32)
+        call(host_lib.host_stripe, hb.itemsize, vec, int(suspect), n, nc,
+             edges16.shape[1], view, np.ascontiguousarray(edges16), h, a, sa,
+             sb, alive.astype(np.uint8), int(detect), out)
+        got = [h, a, *out[:5 if suspect else 3]]
+        assert len(got) == len(want)
+        for name, o, w in zip(names, got, want):
+            np.testing.assert_array_equal(o, w.numpy(),
+                                          err_msg=f"{name}, vec={vec}")
+
+
 @pytest.mark.parametrize("suspect", [False, True], ids=["off", "suspect"])
 @pytest.mark.parametrize("detect", [False, True], ids=["nostats", "stats"])
 @pytest.mark.parametrize("n,fanout,hd", [(96, 14, np.int8),
                                          (70, 5, np.int16)])
 def test_host_stripe_replay_matches_plain(host_lib, n, fanout, hd, detect,
                                           suspect):
-    """K5's strip loop, N a multiple of 8 and a ragged N (the last strip
-    half empty), against the plain version."""
-    rng = np.random.default_rng(n + fanout)
-    info = np.iinfo(hd)
-    view = rng.integers(-1, 127, (n, n)).astype(np.int8)
-    alive = rng.random(n) < 0.8
-    view[~alive] = -1
-    hb = rng.integers(info.min, info.max + 1, (n, n)).astype(hd)
-    hb[rng.random((n, n)) < 0.05] = info.min
-    age = rng.integers(0, 64, (n, n))
-    age[rng.random((n, n)) < 0.2] = 0
-    status = rng.integers(0, 4 if suspect else 3, (n, n))
-    asl = pack_age_status(torch.from_numpy(age),
-                          torch.from_numpy(status)).numpy()
-    sa = rng.integers(-300, 300, n).astype(np.int32)
-    sb = rng.integers(-300, 300, n).astype(np.int32)
-    edges = rng.integers(0, n, (n, fanout)).astype(np.int32)
-    t = torch.from_numpy
-    want = mu.stripe_merge_update_plain(
-        t(view), t(edges), t(hb.copy()), t(asl.copy()), t(sa), t(sb),
-        t(alive), detect_stats=detect, suspect=suspect)
-    h, a = hb.copy(), asl.copy()
-    out = np.empty((5, n), np.int32)
-    fn = host_lib.host_stripe_i8 if hd == np.int8 else host_lib.host_stripe_i16
-    call(fn, n, fanout, view, edges.astype(np.int16), h, a, sa, sb,
-         alive.astype(np.uint8), int(detect), int(suspect), out)
-    got = [h, a, *out[:5 if suspect else 3]]
-    names = ("hb", "asl", "cnt", "n_det", "first_obs", "refuted", "held")
-    assert len(got) == len(want)
-    for name, o, w in zip(names, got, want):
-        np.testing.assert_array_equal(o, w.numpy(), err_msg=name)
+    """K5's stripe walk (merge_stripe.cuh, cluster as host arrays), N a
+    multiple of 16 (the 16-byte path too) and a ragged N (the last stripe
+    part empty), against the plain version."""
+    _, view, edges, hb, asl, sa, sb, alive = stripe_inputs(
+        n, n, fanout, hd, suspect, n + fanout)
+    check_stripe(host_lib, view, edges.astype(np.int16), edges, hb, asl, sa,
+                 sb, alive, detect, suspect)
+
+
+@pytest.mark.parametrize("suspect", [False, True], ids=["off", "suspect"])
+@pytest.mark.parametrize("detect", [False, True], ids=["nostats", "stats"])
+@pytest.mark.parametrize("hd", [np.int8, np.int16, np.int32],
+                         ids=["hb8", "hb16", "hb32"])
+@pytest.mark.parametrize("n,nc,fanout", [(83, 83, 6), (130, 36, 9),
+                                         (128, 48, 16), (28_000, 20, 5)])
+def test_host_stripe_park_matches_plain(host_lib, n, nc, fanout, hd, detect,
+                                        suspect):
+    """Every hb lane type x suspicion x detection stats: N not a multiple
+    of 8 (83, 130), column blocks C < N with C % 16 != 0 (36, 20: the
+    element path) and C % 16 == 0 (48: the 16-byte path, a stripe part
+    empty), and 64-byte park rows (N = 28,000)."""
+    _, view, edges, hb, asl, sa, sb, alive = stripe_inputs(
+        n, nc, fanout, hd, suspect, n * nc + fanout)
+    check_stripe(host_lib, view, edges.astype(np.int16), edges, hb, asl, sa,
+                 sb, alive, detect, suspect)
+
+
+@pytest.mark.parametrize("suspect", [False, True], ids=["off", "suspect"])
+@pytest.mark.parametrize("n,nc", [(75, 75), (96, 40)])
+def test_host_stripe_absent_senders(host_lib, n, nc, suspect):
+    """Senders outside [0, N) count as absent: the replay over edges with
+    -1, N, N + 7 and 32,767 equals the plain version over edges that name
+    a dead receiver (its view row all -1) in their place."""
+    rng, view, edges, hb, asl, sa, sb, alive = stripe_inputs(
+        n, nc, 7, np.int16, suspect, n + nc)
+    bad = rng.random(edges.shape) < 0.3
+    edges16 = edges.astype(np.int16)
+    edges16[bad] = rng.choice(np.array([-1, n, n + 7, 32_767], np.int16),
+                              int(bad.sum()))
+    edges16[0] = -1                   # a receiver with no sender at all
+    ref = edges.copy()
+    ref[edges16 != edges] = int(np.flatnonzero(~alive)[0])
+    assert (ref != edges).any()
+    check_stripe(host_lib, view, edges16, ref, hb, asl, sa, sb, alive, True,
+                 suspect)
+
+
+def test_stripe_fit_rule_matches_header(host_lib):
+    """The wrapper's route limit is a shape the kernel's park holds: 128-
+    byte park rows at the main paths' N = 16,384, 64 up to the int16
+    edges' N (32,767), none past ~104,000 rows."""
+    assert host_lib.host_stripe_row_bytes(16_384) == 128
+    assert host_lib.host_stripe_row_bytes(mu.STRIPE_MAX_N) == 64
+    assert host_lib.host_stripe_row_bytes(32_767) == 64
+    assert host_lib.host_stripe_row_bytes(100_000) == 32
+    assert host_lib.host_stripe_row_bytes(200_000) == 0
 
 
 def test_host_suspicion_round_matches_resident_round_plain(host_lib):
