@@ -718,16 +718,15 @@ def phase_k4(results: dict) -> None:
                 mu.arc_merge_update, mu.arc_merge_update_plain, args,
                 dict(fanout=f, detect_stats=det)))
     timing_args = args
-    # F = K4_LONG_F: the halo outgrows a park and a tile, so K4 runs its
-    # two launches with the van Herk window
+    # F = K4_LONG_F: the halo outgrows a window tile, so K4 computes the
+    # window max by van Herk segments
     import torch
 
     view, _, bases, hb, asl, sa, sb, alive = big_merge_inputs(
         N_MAIN, N_MAIN, 1, torch.int8, SEED + 8)
     args = (view, bases, hb, asl, sa, sb, alive)
-    assert mu.arc_form(N_MAIN, K4_LONG_F) == "segments"
     for det in (False, True):
-        log(f"  N={N_MAIN}, F={K4_LONG_F} (two launches), view int8, hb "
+        log(f"  N={N_MAIN}, F={K4_LONG_F} (van Herk window), view int8, hb "
             f"int8, detect_stats={det}")
         err = max(err, compare_merge(
             mu.arc_merge_update, mu.arc_merge_update_plain, args,
@@ -3573,7 +3572,7 @@ def phase_k3_two_launch_large(results: dict) -> None:
 
 # K4's and K5's timed shapes: (key, kernel, N, C, F, hb bytes, detection
 # stats, suspect) at phases 8, 14, 19 and 36, and phase 8's van Herk case
-PARK_SHAPES = (
+K45_SHAPES = (
     ("k4", "arc", N_MAIN, N_MAIN, 16, 1, True, False),
     ("k4_sus", "arc", N_MAIN, N_MAIN, 16, 1, True, True),
     ("k4_block", "arc", N_CAPACITY, N_CAPACITY // 8, 16, 1, True, False),
@@ -3585,21 +3584,20 @@ PARK_SHAPES = (
 )
 
 
-def phase_park_geometry(results: dict) -> None:
+def phase_k45_geometry(results: dict) -> None:
     """K4 and K5 at every timed shape, from the kernels' own sm_info /
-    am_info: the park form's CTAs a cluster, stripe columns, park row
-    bytes, threads a CTA, the clusters the card holds at once
+    am_info: K5's CTAs a cluster, stripe columns, park row bytes, threads
+    a CTA, the clusters the card holds at once
     (cudaOccupancyMaxActiveClusters), registers and local memory (spills)
-    a thread and shared memory a CTA; K4's two-launch forms' row pass
-    (threads, blocks an SM, registers, local memory) and window tile
-    (shared memory)."""
+    a thread and shared memory a CTA; K4's row pass (stripe columns,
+    threads and blocks an SM, registers, local memory) and window tile
+    (shared memory; 0 for the van Herk window)."""
     import ctypes
 
     from gossipfs_tpu_torch.ops import _build
-    from gossipfs_tpu_torch.ops import merge_update as mu
 
     out = {}
-    for key, kernel, n, c, f, hb_bytes, det, sus in PARK_SHAPES:
+    for key, kernel, n, c, f, hb_bytes, det, sus in K45_SHAPES:
         info = (ctypes.c_int * 8)()
         if kernel == "arc":
             rc = _build.load("arc_merge").am_info(
@@ -3610,21 +3608,27 @@ def phase_park_geometry(results: dict) -> None:
                 n, c, f, hb_bytes, int(det), int(sus), 1, ctypes.byref(info))
         if rc != 0:
             raise RuntimeError(f"{kernel} info [{n} x {c}]: CUDA error {rc}")
-        ctas, cols, rb, held, regs, local, smem, threads = list(info)
         ms = results.get(key, {}).get("ms")
-        form = mu.arc_form(n, f) if kernel == "arc" else "park"
-        out[key] = dict(form=form, ctas=ctas, cols=cols, row_bytes=rb,
-                        threads=threads, held=held, regs=regs,
-                        local_bytes=local, smem=smem, ms=ms)
-        log(f"  {key} [{n} x {c}] F={f} det={int(det)} sus={int(sus)}: "
-            + (f"park, cluster {ctas} x {threads} threads, stripe {cols} "
-               f"cols ({rb} B rows), {held} clusters held, {regs} regs, "
-               f"{local} B local, {smem} B smem" if ctas else
-               f"two launches ({form}), row pass {threads} threads x "
-               f"{held} blocks an SM, {regs} regs, {local} B local, stripe "
-               f"{cols} cols; window tile {smem} B smem")
-            + (f", {ms:.4f} ms" if ms is not None else ""))
-    results["park_geometry"] = out
+        head = f"  {key} [{n} x {c}] F={f} det={int(det)} sus={int(sus)}: "
+        if kernel == "arc":
+            cols, per_sm, regs, local, threads, tile = list(info)[:6]
+            window = f"tiles, {tile} B smem" if tile else "van Herk"
+            out[key] = dict(cols=cols, threads=threads, blocks_per_sm=per_sm,
+                            regs=regs, local_bytes=local, tile_smem=tile,
+                            ms=ms)
+            line = (f"window {window}; row pass {threads} threads x "
+                    f"{per_sm} blocks an SM, "
+                    f"stripe {cols} cols, {regs} regs, {local} B local")
+        else:
+            ctas, cols, rb, held, regs, local, smem, threads = list(info)
+            out[key] = dict(ctas=ctas, cols=cols, row_bytes=rb,
+                            threads=threads, clusters=held, regs=regs,
+                            local_bytes=local, smem=smem, ms=ms)
+            line = (f"cluster {ctas} x {threads} threads, stripe {cols} cols "
+                    f"({rb} B rows), {held} clusters held, {regs} regs, "
+                    f"{local} B local, {smem} B smem")
+        log(head + line + (f", {ms:.4f} ms" if ms is not None else ""))
+    results["k45_geometry"] = out
 
 
 def onepass_summary(results: dict) -> dict:
@@ -3842,7 +3846,7 @@ def main() -> int:
     print(json.dumps({"onepass": onepass_summary(results)}))
     log("[42] K4 and K5 at every timed shape: cluster, stripe, clusters "
         "held, registers, spills")
-    phase_park_geometry(results)
+    phase_k45_geometry(results)
     print(json.dumps({"main_paths": main_path_summary(results)},
                      separators=(",", ":")))
     src = "gossipfs_tpu_torch/csrc/"

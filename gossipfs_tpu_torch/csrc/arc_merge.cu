@@ -13,45 +13,39 @@
 // kernel window-maxed a VMEM-resident column stripe of the view in
 // O(log F) shift-doubling passes and read one window row per receiver.
 //
-// Design (merge_stripe.cuh holds the per-thread bodies, tested on the
-// host).  The park form, one launch, where a park of 128-byte rows fits
-// (N up to ~28,000 at F = 16; arc_form): the window max never touches
-// device memory.  A thread-block cluster of 16 CTAs of 512 threads owns a
-// stripe of 128 int8 (64 int16) subject columns over all N rows:
-//   1. rows go to the CTAs in contiguous ranges of ceil(N / 16); each CTA
-//      parks its range of the view stripe and the F - 1 rows after it (the
-//      halo, wrapping at N), staged by 16-byte cp.async: 1,039 rows of 128
-//      B at N = 16,384 (133 KB);
-//   2. the park turns in place into M_p[x] = max view[x .. x + p) (p the
-//      largest power of two <= F) by shift doubling, radix 4 while it
-//      fits, each step in chunks of 8 row segments a thread: read,
-//      barrier, write, barrier;
-//   3. cluster.sync();
-//   4. each CTA sweeps its own receiver rows, 16 bytes of the stripe a
-//      thread (8 threads a row: 128 contiguous bytes of each lane row):
-//      W[bases[i]] = max(M_p[b], M_p[b + F - p]) (one row when F is a power
-//      of two) read over distributed shared memory from the CTA holding b,
-//      the epilogue (merge_elem.cuh) on the lanes, read and written once
-//      with evict-first 16-byte accesses, the next row's lanes and base
-//      loaded while this one merges;
-//   5. per-subject counts as in K5 (stripe_merge.cu): bytes in registers,
-//      warp shuffles, one shared atomic a column and warp, a cluster sum
-//      over distributed shared memory, every output entry written once.
-// Persistent clusters walk the stripes.  That moves the floor's 5 B an
-// entry with no [N, C] scratch.
-// Elsewhere (full_scale's [65,536 x 8,192]: a park there holds 32-byte
-// rows, whose lanes stream at half the rate of 128-byte ones) two launches
-// in stream order, with ``wbuf`` [N, C] scratch and ``out`` initialised by
-// the caller: the window max W, by tiles of 512 rows and their F - 1 halo
-// rows doubled in shared memory (window_tile_kernel; van Herk/Gil-Werman
-// segments, window_max_kernel, where a tile does not fit: F > ~1,300),
-// then a row pass (arc_rows_kernel): blocks of 256 threads over a 128-byte
-// stripe of up to 2,048 rows, each receiver's W row read once, the same
-// epilogue and counts, flushed once a block by one global atomic a column
-// and output.  7 B an entry.  No fallback from a refused launch: it returns
-// its error and the wrapper raises.
+// Design: two launches in stream order, the window max W written to a
+// scratch [N, C] (merge_stripe.cuh holds the per-thread bodies, tested on
+// the host).  Every access is a 16-byte piece of a 128-byte stripe of a
+// row: an H100 moves int8 lanes in 128-byte row pieces at ~2.5 TB/s, in
+// 32-byte ones at ~1.3, so the 7 B an entry of this form stream faster
+// than the 5 B of a one-launch park, which at N = 16,384 holds 128-byte
+// rows only on 112 SMs (clusters of 16) and at full_scale's N = 65,536
+// 32-byte rows at most (k4_forms.py timed the park form at 1.04 ms against
+// 0.83 for this one; PERF.md).
+//   1. window_tile_kernel: a block of 512 threads stages a tile of 512
+//      rows of a 128-byte view stripe and the F - 1 rows after it (the
+//      halo, wrapping at N) by 16-byte cp.async, turns it in place into
+//      M_p[x] = max view[x .. x + p) (p the largest power of two <= F) by
+//      shift doubling, radix 4 while it fits, each step in chunks of 8 row
+//      segments a thread (read, barrier, write, barrier), and writes W[x] =
+//      max(M_p[x], M_p[x + F - p]) for its rows: the view read once (and
+//      ~3 % of halo), W written once.  Where a tile and its halo outgrow a
+//      block's shared memory (F > ~1,300) window_max_kernel computes W by
+//      van Herk/Gil-Werman segments of F rows instead (its accesses 4 B a
+//      thread; no main path has such a fanout).
+//   2. arc_rows_kernel: blocks of 256 threads over a 128-byte stripe of up
+//      to 2,048 rows, 8 threads a row, 16 bytes each: receiver i's W row
+//      bases[i] read once (a 128-byte line), the lanes loaded (16-byte
+//      evict-first loads of int8, 32 or 64 bytes of hb) with the next
+//      row's lanes, alive bit and base in flight, the epilogue
+//      (merge_elem.cuh) entry by entry, the lanes stored once; counts as
+//      bytes in registers, summed over the warp by shuffles, one shared
+//      atomic a column and warp into the block's counts, then one global
+//      atomic a column and output a block (N / 2,048 a column, where the
+//      parent kernel flushed every 16 rows).
+// No fallback from a refused launch: it returns its error and the wrapper
+// raises.
 #include <climits>
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -59,7 +53,6 @@
 #include "merge_rows.cuh"
 #include "merge_stripe.cuh"
 
-namespace cg = cooperative_groups;
 using namespace mstripe;
 
 namespace {
@@ -74,157 +67,8 @@ struct Params {
   const uint8_t* alive;
   int32_t* out;
   void* wbuf;
-  int n, nc, fanout, form, age_clamp, aligned;
+  int n, nc, fanout, age_clamp, aligned;
 };
-
-template <typename V, typename H, bool kVec, bool kSus, bool kDet>
-__global__ void __launch_bounds__(kThreads, 1) arc_park_kernel(const Params p) {
-  constexpr int kE = kSegBytes / sizeof(V);  // columns a thread
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cta = (int)cluster.block_rank();
-  const int n = p.n;
-  const int nc = p.nc;
-  const int fanout = p.fanout;
-  constexpr int rb = kMaxRowBytes;           // park row bytes
-  const int nt = kThreads;
-  constexpr int lanes = rb / kSegBytes;      // threads a row
-  const int cols = lanes * kE;               // stripe columns
-  const int step_rows = nt / lanes;          // rows a CTA sweeps at once
-  const int stripes = (nc + cols - 1) / cols;
-  const int clusters = (int)gridDim.x / kCtas;
-  const int span = cta_rows(n);
-  const int rows = range_rows(n, span, cta);
-  const int r0 = cta * span;
-  const int len = rows > 0 ? rows + fanout - 1 : 0;  // park rows in use
-  const int pw = pow2_floor(fanout);
-  const int t = threadIdx.x;
-  const int h = t % lanes;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* park = reinterpret_cast<int8_t*>(smem);
-  int8_t* none = park + (size_t)(span + fanout - 1) * rb;
-  int32_t* blocks = reinterpret_cast<int32_t*>(none + kMaxRowBytes);
-  __shared__ __align__(16) int32_t shifts[2][kMaxCols];  // shift_a, shift_b
-  const V* view = static_cast<const V*>(p.view);
-  H* hb = static_cast<H*>(p.hb);
-
-  // park row li (global row r0 + li, mod n), segment hh
-  auto stage = [&](int col0) {
-    for (int i = t; i < len * lanes; i += nt) {
-      int g = r0 + i / lanes;
-      if (g >= n) g -= n;
-      stage_seg<V, kVec>(view, nc, col0, g, i % lanes,
-                         park + (size_t)i * kSegBytes,
-                         [](int8_t* d, const int8_t* s) { copy16(d, s); });
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  };
-  for (int i = t; i < 2 * kBlockInts; i += nt)
-    blocks[i] = blank_count(i % kBlockInts, n);
-  const uint32_t park_sa = (uint32_t)__cvta_generic_to_shared(park);
-  auto addr = [&](int q, int l) -> uint32_t {
-    return mapa(park_sa + (uint32_t)(l * rb + h * kSegBytes), q);
-  };
-
-  // CTA ``cta`` writes its columns (c % kCtas == cta) of every output of
-  // stripe ``done`` from the cluster's count blocks ``blk``
-  auto finish_stripe = [&](int done, const int32_t* blk) {
-    for (int i = t; i < kOuts * cols; i += nt) {
-      const int s = i / cols;
-      const int c = i % cols;
-      const int col = done * cols + c;
-      if ((c & (kCtas - 1)) != cta || col >= nc || (!kSus && s >= kOutRef))
-        continue;
-      const int v = finish(s, c, [&](int q) {
-        return (const int32_t*)cluster.map_shared_rank(blk, q);
-      });
-      p.out[(size_t)s * nc + col] = output_value(s, v, kDet);
-    }
-  };
-
-  int stripe = (int)blockIdx.x / kCtas;
-  stage(stripe * cols);
-  for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
-    const int col0 = stripe * cols;
-    int32_t* cnt = blocks + (it & 1) * kBlockInts;
-    if (t < 2 * cols) {
-      const int c = col0 + t % cols;
-      shifts[t / cols][t % cols] =
-          c < nc ? (t < cols ? p.sa[c] : p.sb[c]) : 0;
-    }
-    if (it > 0)
-      finish_stripe(stripe - clusters,
-                    blocks + ((it - 1) & 1) * kBlockInts);
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();
-    // the window max in place: M_{s r}[x] = max_{j < r} M_s[x + j s]
-    for (int s = 1; s < pw;) {
-      const int r = window_radix(s, pw);
-      const int chunks = window_chunks(len, s, r, lanes, nt);
-      for (int c = 0; c < chunks; ++c) {
-        Seg v[kWinItems];
-        window_read<V>(park, rb, len, s, r, c, t, nt, v);
-        __syncthreads();
-        window_write(park, rb, len, s, r, c, t, nt, v);
-        __syncthreads();
-      }
-      s *= r;
-    }
-    cluster.sync();
-    int32_t* spare = blocks + ((it + 1) & 1) * kBlockInts;
-    for (int i = t; i < kBlockInts; i += nt) spare[i] = blank_count(i, n);
-
-    const int col = col0 + h * kE;
-    const int valid = kVec ? (col < nc ? kE : 0) : max(0, min(kE, nc - col));
-    Counts<kE> cn;
-    clear(cn);
-    int li = t / lanes;
-    if (valid > 0 && li < rows) {
-      // each row's lanes, alive bit and arc base are loaded while the row
-      // before it merges
-      Lanes<H, kE> ld;
-      const size_t off0 = (size_t)(r0 + li) * nc + col;
-      load_lanes<H, kE, kVec>(hb + off0, p.asl + off0, valid, ld);
-      bool recv = p.alive[r0 + li] != 0;
-      int base = p.bases[r0 + li];
-      for (int step = 0; li < rows; li += step_rows, ++step) {
-        const int row = r0 + li;
-        const bool more = li + step_rows < rows;
-        Lanes<H, kE> nld;
-        bool nrecv = false;
-        int nbase = 0;
-        if (more) {
-          const size_t noff = (size_t)(row + step_rows) * nc + col;
-          load_lanes<H, kE, kVec>(hb + noff, p.asl + noff, valid, nld);
-          nrecv = p.alive[row + step_rows] != 0;
-          nbase = p.bases[row + step_rows];
-        }
-        const Seg best =
-            recv ? arc_best<V>(base, n, span, fanout, pw, addr,
-                               [](uint32_t a) { return ld_cluster(a); })
-                 : onepass::splat(0xFFFFFFFFu);
-        merge_seg<V, H, kSus, kDet, kVec, kE>(
-            best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
-            p.age_clamp, step, cn);
-        const size_t off = (size_t)row * nc + col;
-        store_lanes<H, kE, kVec>(hb + off, p.asl + off, valid, ld);
-        if (more) {
-          ld = nld;
-          recv = nrecv;
-          base = nbase;
-        }
-      }
-    }
-    flush_counts<kSus, kDet, kE>(cnt, cn, h, lanes, n, [&](int st) {
-      return r0 + st * step_rows + t / lanes;
-    });
-    cluster.sync();
-    if (stripe + clusters < stripes)
-      stage((stripe + clusters) * cols);
-    else
-      finish_stripe(stripe, cnt);
-  }
-  cluster.sync();
-}
 
 template <typename V, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -413,74 +257,14 @@ arc_rows_kernel(const Params p) {
   }
 }
 
-// the cluster launch of the park form, or its geometry into ``info``
+// the two launches, or the row pass's geometry into ``info``
 template <typename V, typename H, bool kVec, bool kSus, bool kDet>
-cudaError_t launch_park(const Params& p, int* info, cudaStream_t s) {
-  auto kern = arc_park_kernel<V, H, kVec, kSus, kDet>;
-  const size_t smem = (size_t)smem_bytes((long)cta_rows(p.n) + p.fanout - 1,
-                                         kMaxRowBytes);
-  const int cols = kMaxRowBytes / (int)sizeof(V);
-  const int stripes = (p.nc + cols - 1) / cols;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(stripes * kCtas);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCtas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  constexpr int kMaxCards = 64;
-  static size_t checked[kMaxCards] = {};
-  static int held[kMaxCards] = {};
-  int card = 0;
-  cudaError_t e = cudaGetDevice(&card);
-  if (e != cudaSuccess) return e;
-  if (card >= kMaxCards) return cudaErrorInvalidDevice;
-  if (info != nullptr || checked[card] != smem) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-    if (e != cudaSuccess) return e;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    checked[card] = smem;
-    held[card] = clusters;
-    if (info != nullptr) {
-      cudaFuncAttributes fa;
-      e = cudaFuncGetAttributes(&fa, kern);
-      if (e != cudaSuccess) return e;
-      const int v[8] = {kCtas, cols, kMaxRowBytes, clusters, fa.numRegs,
-                        (int)fa.localSizeBytes, (int)smem, kThreads};
-      for (int i = 0; i < 8; ++i) info[i] = v[i];
-      return cudaSuccess;
-    }
-  }
-  cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes) * kCtas);
-  e = cudaLaunchKernelEx(&cfg, kern, p);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-// the two launches, or the row pass's geometry into ``info``: no cluster,
-// stripe columns, 128-byte rows, blocks an SM, the row pass's registers
-// and local memory, the window's shared memory a block, threads a block
-template <typename V, typename H, bool kVec, bool kSus, bool kDet>
-cudaError_t launch_two(const Params& p, int* info, cudaStream_t s) {
+cudaError_t launch(const Params& p, int* info, cudaStream_t s) {
   auto rows = arc_rows_kernel<V, H, kVec, kSus, kDet>;
   const int cols = kMaxRowBytes / (int)sizeof(V);
   const int stripes = (p.nc + cols - 1) / cols;
-  const size_t tile_smem = p.form == kArcTiles
-                               ? (size_t)smem_bytes(kTileRows + p.fanout - 1,
-                                                    kMaxRowBytes)
-                               : 0;
+  const bool tiles = tile_fits(p.fanout);
+  const size_t tile_smem = tiles ? (size_t)tile_smem_bytes(p.fanout) : 0;
   cudaError_t e;
   if (info != nullptr) {
     cudaFuncAttributes fa;
@@ -490,22 +274,22 @@ cudaError_t launch_two(const Params& p, int* info, cudaStream_t s) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows,
                                                       kRowThreads, 0);
     if (e != cudaSuccess) return e;
-    const int v[8] = {0, cols, kMaxRowBytes, per_sm, fa.numRegs,
-                      (int)fa.localSizeBytes, (int)tile_smem, kRowThreads};
+    const int v[8] = {cols, per_sm, fa.numRegs, (int)fa.localSizeBytes,
+                      kRowThreads, (int)tile_smem, 0, 0};
     for (int i = 0; i < 8; ++i) info[i] = v[i];
     return cudaSuccess;
   }
   if (p.wbuf == nullptr) return cudaErrorInvalidValue;
   const V* view = static_cast<const V*>(p.view);
   V* w = static_cast<V*>(p.wbuf);
-  if (p.form == kArcTiles) {
+  if (tiles) {
     auto tile = window_tile_kernel<V, kVec>;
     e = cudaFuncSetAttribute(
         tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_smem);
     if (e != cudaSuccess) return e;
-    const int tiles = (p.n + kTileRows - 1) / kTileRows;
-    tile<<<tiles * stripes, kThreads, tile_smem, s>>>(view, w, p.n, p.nc,
-                                                      p.fanout);
+    const int row_tiles = (p.n + kTileRows - 1) / kTileRows;
+    tile<<<row_tiles * stripes, kThreads, tile_smem, s>>>(view, w, p.n, p.nc,
+                                                          p.fanout);
   } else {
     const dim3 grid((p.n + p.fanout - 1) / p.fanout,
                     (p.nc + merge_rows::kTile - 1) / merge_rows::kTile);
@@ -521,12 +305,6 @@ cudaError_t launch_two(const Params& p, int* info, cudaStream_t s) {
   const int splits = (p.n + kRowsPerBlock - 1) / kRowsPerBlock;
   rows<<<stripes * splits, kRowThreads, 0, s>>>(p);
   return cudaGetLastError();
-}
-
-template <typename V, typename H, bool kVec, bool kSus, bool kDet>
-cudaError_t launch(const Params& p, int* info, cudaStream_t s) {
-  return p.form == kArcPark ? launch_park<V, H, kVec, kSus, kDet>(p, info, s)
-                            : launch_two<V, H, kVec, kSus, kDet>(p, info, s);
 }
 
 template <typename V, typename H, bool kVec>
@@ -567,7 +345,6 @@ int run(const void* view, const void* bases, void* hb, void* asl,
   p.n = n;
   p.nc = nc;
   p.fanout = fanout;
-  p.form = arc_form(n, fanout);
   p.age_clamp = age_clamp;
   p.aligned = aligned;
   // 16-byte segments: every row's stripe segment whole and aligned
@@ -587,13 +364,11 @@ int run(const void* view, const void* bases, void* hb, void* asl,
 }  // namespace
 
 // Launch K4 on ``stream`` over column blocks (n rows, nc subject columns;
-// the window runs down the rows, so a shard needs only its columns).
-// view: int8/int16 [n, nc]; bases: int32 [n] in [0, n); hb, asl, sa, sb,
-// alive, suspect as fm_merge.  The park form (merge_stripe.cuh's
-// arc_form(n, fanout) == kArcPark): one launch, every entry of out ([3,
-// nc] or [5, nc]) written, wbuf unused (may be null).  Else two launches
-// with wbuf [n, nc] scratch of the view's type and out initialised by the
-// caller (zeros; first_obs n when detect).  ``aligned``: 16-byte aligned
+// the window runs down the rows, so a shard needs only its columns):
+// the window max into ``wbuf`` [n, nc] (scratch of the view's type), then
+// the row pass.  view: int8/int16 [n, nc]; bases: int32 [n] in [0, n); hb,
+// asl, sa, sb, alive, out, suspect as fm_merge (out initialised by the
+// caller: zeros, first_obs n when detect).  ``aligned``: 16-byte aligned
 // lanes with nc % 4 == 0 (16-byte accesses where also nc % 16 == 0).
 // Returns the CUDA error code of the launches.
 extern "C" int am_merge(const void* view, const void* bases, void* hb,
@@ -608,11 +383,9 @@ extern "C" int am_merge(const void* view, const void* bases, void* hb,
 }
 
 // The geometry of what am_merge would launch for this shape, into info[8]
-// (launches nothing): the park form as stripe_merge.cu's sm_info (CTAs a
-// cluster, stripe columns, park row bytes, clusters held, registers, local
-// memory, shared memory, threads a CTA); the two-launch forms with 0 CTAs
-// (no cluster) and the row pass's blocks an SM, registers and local
-// memory, the window tile's shared memory (0: the segments form).
+// (launches nothing): stripe columns, the row pass's blocks an SM,
+// registers and local memory (spills) a thread and threads a block, the
+// window tile's shared memory a block (0: the van Herk window), 0, 0.
 extern "C" int am_info(int n, int nc, int fanout, int view_bytes,
                        int hb_bytes, int detect, int suspect, int aligned,
                        int* info) {

@@ -1,31 +1,31 @@
 // The per-thread bodies of K5 (stripe_merge.cu) and K4 (arc_merge.cu), in
 // __host__ __device__ functions that a host build in the CPU tests compiles
 // with g++ (tests/test_torch_suspicion_host.py, test_torch_merge_elem_host.py)
-// and replays with the thread-block cluster replaced by host arrays, against
-// the plain PyTorch versions (gossipfs_tpu_torch/ops/merge_update.py).
+// and replays, the blocks and the cluster replaced by host arrays and
+// their threads run one after another, against the plain PyTorch versions
+// (gossipfs_tpu_torch/ops/merge_update.py).
 //
-// Both kernels walk stripes of subject columns over all n rows with a
-// thread-block cluster of kCtas CTAs.  Each CTA parks its share of the
-// view's stripe in shared memory (a "park": rows of ``rb`` = 16 to 128
-// bytes, 16 bytes a thread), the cluster synchronises, and each CTA sweeps
-// its own receiver rows: best from the parks of the cluster (distributed
-// shared memory on the card: the RowAddr / LoadSeg callables), then the
-// merge epilogue (merge_elem.cuh) on the receiver's lanes, read and written
-// once, and per-subject counter bytes that the kernel reduces over the
-// warp, the CTA and the cluster.
+// Both kernels work on stripes of subject columns, 16 bytes of a row a
+// thread and up to 8 threads a row: every lane access is a 16-byte piece
+// of a 128-byte (or 64-byte) stripe of the row, which is what lets the
+// lanes stream (an H100 moves int8 lanes in 128-byte row pieces at ~2.5
+// TB/s, in 32-byte ones at ~1.3).  A receiver row's merge (merge_seg) runs
+// the epilogue (merge_elem.cuh) entry by entry and keeps per-subject
+// counter bytes that the kernel reduces over the warp and the block.
 //
-//   K5  rows go to the CTAs round robin (row s lives in CTA s % kCtas at
-//       park row s / kCtas: a mask and a shift); best is the byte max over
-//       the receiver's F in-edges (gather_edges), from -1.
-// The cluster has 16 CTAs of 512 threads: 16 parks of up to 128 KB hold a
-// 128-byte stripe of every row at N = 16,384.
-//   K4  rows go to the CTAs in contiguous ranges of ``rows`` rows; a CTA
-//       parks its range and the F - 1 rows after it (the halo, wrapping at
-//       n) and turns the park in place into M_p[x] = max view[x .. x + p)
-//       (p the largest power of two <= F) by shift doubling
-//       (window_read / window_write, chunk by chunk between barriers);
-//       best is W[b] = max(M_p[b], M_p[b + F - p]) read from the CTA
-//       holding the receiver's arc base b (arc_best).
+//   K5  a thread-block cluster of 16 CTAs of 512 threads parks the view's
+//       stripe for all n rows in shared memory (a "park"), rows by round
+//       robin (row s in CTA s % 16 at park row s / 16: a mask and a
+//       shift), and each CTA sweeps its own receiver rows: best is the
+//       byte max over the receiver's F in-edges (gather_edges), from -1,
+//       read from the parks over distributed shared memory and from the
+//       view in L2; the cluster sums the counts.
+//   K4  a block stages a tile of rows of the view's stripe and the F - 1
+//       rows after it (the halo, wrapping at n) and turns it in place into
+//       M_p[x] = max view[x .. x + p) (p the largest power of two <= F) by
+//       shift doubling (window_read / window_write, chunk by chunk between
+//       barriers), writing W = max(M_p[x], M_p[x + F - p]) (tile_window);
+//       a row pass then reads one W row a receiver (load_row_seg).
 #pragma once
 
 #include <cstdint>
@@ -92,26 +92,16 @@ MS_HD constexpr int stripe_row_bytes(long n) {
                                                    : 0;
 }
 
-// K4's forms.  The park (one launch): a CTA parks its range and the F - 1
-// rows after it in 128-byte rows.  Where that does not fit, two launches
-// with the window max W written to an [N, C] scratch: by tiles of
-// kTileRows rows (and their F - 1 halo rows) in shared memory where a tile
-// fits, else by van Herk/Gil-Werman segments of F rows; then a row pass
-// (arc_rows) reads one W row a receiver.  Both two-launch forms move
-// 128-byte row pieces: 7 B an entry there stream faster than the 5 B of a
-// park of 32-byte rows.
-enum { kArcPark = 0, kArcTiles = 1, kArcSegments = 2 };
+// K4's window tiles: kTileRows rows and the F - 1 rows after them in
+// 128-byte rows, where they fit one block (else van Herk segments).
 constexpr int kTileRows = 512;
 
-MS_HD constexpr bool tile_fits(long fanout) {
-  return smem_bytes(kTileRows + fanout - 1, kMaxRowBytes) <= kSmemLimit;
+MS_HD constexpr long tile_smem_bytes(long fanout) {
+  return (kTileRows + fanout - 1) * kMaxRowBytes;
 }
 
-MS_HD constexpr int arc_form(long n, long fanout) {
-  return park_fits(cta_rows(n), cta_rows(n) + fanout - 1, kMaxRowBytes)
-             ? kArcPark
-         : tile_fits(fanout) ? kArcTiles
-                             : kArcSegments;
+MS_HD constexpr bool tile_fits(long fanout) {
+  return tile_smem_bytes(fanout) <= kSmemLimit;
 }
 
 // the row pass's blocks: a 128-byte stripe of columns by up to
@@ -126,12 +116,6 @@ MS_HD int rr_rows(int n, int cta) {
 }
 
 MS_HD int rr_global(int cta, int li) { return (li << kCtasLog) | cta; }
-
-// K4's contiguous ranges: the rows of CTA ``cta`` ([cta * rows, ...))
-MS_HD int range_rows(int n, int rows, int cta) {
-  const int r = n - cta * rows;
-  return r < 0 ? 0 : (r < rows ? r : rows);
-}
 
 // the largest power of two <= f
 MS_HD int pow2_floor(int f) {
@@ -315,23 +299,6 @@ MS_HD Seg tile_window(const int8_t* park, int x, int h, int fanout, int p) {
   if (p == fanout) return m;
   return max_seg<V>(m, onepass::load_seg(
                            a + (size_t)(fanout - p) * kMaxRowBytes));
-}
-
-// K4's best for a live receiver with arc base ``b``: W[b] = max(M_p[b],
-// M_p[b + F - p]) from the park of CTA b / rows (row b - cta * rows, and
-// the halo past it), or absent (-1) for a base outside [0, n).
-// ``addr(cta, li)`` the address of park row li of that CTA at this
-// thread's segment, ``load(a)`` its 16 bytes.
-template <typename V, typename RowAddr, typename LoadSeg>
-MS_HD Seg arc_best(int b, int n, int rows, int fanout, int p, RowAddr addr,
-                   LoadSeg load) {
-  if ((unsigned)b >= (unsigned)n) return onepass::splat(0xFFFFFFFFu);
-  const int q = b / rows;
-  const int li = b - q * rows;
-  if (p == fanout) return load(addr(q, li));
-  const auto a0 = addr(q, li);
-  const auto a1 = addr(q, li + fanout - p);
-  return max_seg<V>(load(a0), load(a1));
 }
 
 // A thread's lanes of one receiver row: kE entries of hb (raw words) and

@@ -16,8 +16,7 @@ Three kernels, each with its plain PyTorch version beside it:
 * :func:`arc_merge_update` (K4) takes arc bases ``[N]``: the window max
   ``W[r, :] = max_{k<F} view[(r + k) mod N, :]`` once, then
   ``best[i, :] = W[bases[i], :]``.  Port of ``arc_merge_update_blocked``;
-  every ``random_arc`` round off the lean loop runs it.  Its kernel keeps
-  W in shared memory where the park fits (:func:`arc_form`).
+  every ``random_arc`` round off the lean loop runs it.
 
 All run the same epilogue on each entry (``_epilogue_and_count`` of
 the JAX package, in its int32 + clip form): advance a listed entry whose
@@ -69,42 +68,13 @@ VIEW_DTYPES = (torch.int8, torch.int16)
 # the CUDA kernels' limits: edges of a block's receiver rows are staged in
 # 48 KB of shared memory
 MAX_KERNEL_FANOUT = 512
-# K4's and K5's geometry (csrc/merge_stripe.cuh): a cluster of 16 CTAs of
-# 512 threads, each parking its rows of a view stripe (rows of 128 to 16
-# bytes) beside a 128-byte row of absent bytes and two count blocks of 5 x
-# 128 int32, within the 232,448 B one Hopper block may opt in to; a thread
-# counts at most 255 rows a stripe (byte counters).
-PARK_CTAS = 16
-PARK_THREADS = 512
-PARK_SMEM_LIMIT = 232_448
 # K5's limit on the ROWS (a subject shard keeps every row, so sharding the
 # columns does not lift it): the N the route has admitted since K5's first
-# kernel, whose [N, 8] strip filled one block's shared memory.  The park of
-# the present kernel (N / 16 rows of 64 B: 111 KB at this N) holds it with
+# kernel, whose [N, 8] strip filled one block's shared memory.  The present
+# kernel's park (csrc/merge_stripe.cuh: a cluster of 16 CTAs, each holding
+# N / 16 rows of a 64-byte view stripe at this N, 111 KB) holds it with
 # room; the route keeps its limit.
 STRIPE_MAX_N = 28_416
-
-
-def park_fits(rows: int, park_rows: int, row_bytes: int) -> bool:
-    """Whether a CTA parks ``park_rows`` rows of ``row_bytes`` bytes and
-    sweeps ``rows`` receiver rows (merge_stripe.cuh ``park_fits``)."""
-    return (park_rows * row_bytes + 128 + 2 * 5 * 128 * 4 <= PARK_SMEM_LIMIT
-            and rows <= 255 * (PARK_THREADS // (row_bytes // 16)))
-
-
-def arc_form(n: int, fanout: int) -> str:
-    """K4's form for ``n`` rows and ``fanout`` (merge_stripe.cuh
-    ``arc_form``): ``"park"`` (one launch) where a CTA's range of N / 16
-    rows and its F - 1 halo rows fit in 128-byte rows; else two launches
-    that write the window max to a scratch ``[N, C]``, by ``"tiles"`` of
-    512 rows and their halo where those fit, else by van Herk
-    ``"segments"``."""
-    rows = -(-n // PARK_CTAS)
-    if park_fits(rows, rows + fanout - 1, 128):
-        return "park"
-    if park_fits(0, 512 + fanout - 1, 128):
-        return "tiles"
-    return "segments"
 
 
 def stripe_admits(n: int, view_dtype: str) -> bool:
@@ -388,12 +358,11 @@ def _check_inputs(name, view, senders, hb, asl, shift_a, shift_b, alive,
 
 def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
             shift_a, shift_b, alive, fanout: int, detect_stats: bool,
-            suspect: bool, age_clamp: int, scratch=False, init: bool = True):
+            suspect: bool, age_clamp: int, scratch=None, init: bool = True):
     """Launch kernel ``name`` (C function ``fn`` of ``csrc/<source>.cu``)
-    on hb's device and current stream.  ``scratch``: False where the C
-    function takes no scratch pointer, else a tensor or None (a null
-    pointer); ``init``: the kernel adds into its outputs (zeros, first_obs
-    N), else it writes every entry."""
+    on hb's device and current stream; ``scratch``: a tensor whose pointer
+    the C function takes; ``init``: the kernel adds into its outputs
+    (zeros, first_obs N), else it writes every entry."""
     if hb.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {hb.device}")
     from gossipfs_tpu_torch.ops import _build
@@ -412,8 +381,8 @@ def _launch(name: str, source: str, fn: str, view, senders, hb, asl,
         args = [view.data_ptr(), senders.data_ptr(), hb.data_ptr(),
                 asl.data_ptr(), shift_a.data_ptr(), shift_b.data_ptr(),
                 alive.data_ptr()]
-        if scratch is not False:
-            args.append(None if scratch is None else scratch.data_ptr())
+        if scratch is not None:
+            args.append(scratch.data_ptr())
         args += [out.data_ptr(), n, c, fanout, view.element_size(),
                  hb.element_size(), int(detect_stats), int(suspect),
                  age_clamp, aligned, stream.cuda_stream]
@@ -490,10 +459,8 @@ def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
                      suspect: bool = False, age_clamp: int = AGE_CLAMP):
     """K4: :func:`arc_merge_update_plain` for CPU tensors, the CUDA kernel
     for CUDA tensors.  ``bases`` int32 ``[N]`` in ``[0, N)``; the rest as
-    :func:`fused_merge_update`.  The kernel keeps the window max in shared
-    memory where a park of 128-byte rows fits (:func:`arc_form`); else its
-    two launches write it to a scratch buffer of the view's shape and
-    dtype."""
+    :func:`fused_merge_update`.  The kernel writes the window max to a
+    scratch buffer of the view's shape and dtype."""
     n = hb.shape[0] if hb.dim() == 2 else -1
     _check_inputs("arc_merge_update", view,
                   {"bases": (bases, (torch.int32,), (n,))}, hb, asl,
@@ -505,8 +472,6 @@ def arc_merge_update(view, bases, hb, asl, shift_a, shift_b, alive, *,
         return arc_merge_update_plain(
             view, bases, hb, asl, shift_a, shift_b, alive, fanout=fanout,
             detect_stats=detect_stats, suspect=suspect, age_clamp=age_clamp)
-    two = arc_form(n, fanout) != "park"
     return _launch("arc_merge_update", "arc_merge", "am_merge", view, bases,
                    hb, asl, shift_a, shift_b, alive, fanout, detect_stats,
-                   suspect, age_clamp, init=two,
-                   scratch=torch.empty_like(view) if two else None)
+                   suspect, age_clamp, scratch=torch.empty_like(view))

@@ -95,161 +95,21 @@ extern "C" void host_rows(int n, int fanout, const int8_t* view,
 
 static void copy16(int8_t* d, const int8_t* s) { std::memcpy(d, s, 16); }
 
-// arc_merge.cu's one-launch form (K4) replayed stripe by stripe, the
-// cluster's parks and count blocks as host arrays and its threads one
-// after another, through merge_stripe.cuh's per-thread bodies: each CTA
-// parks its contiguous range and the F - 1 halo rows after it (stage_seg),
-// turns the park into M_p step by step (radix 4, then 2) and chunk by chunk
-// (every thread's window_read, then every thread's window_write), then
-// every thread sweeps its receiver rows
-// (arc_best over the parks, merge_seg), its counter bytes summed into its
-// CTA's block; finish sums the blocks.  kVec: the 16-byte path.  out =
-// [5, nc] int32, every entry written.
-template <typename V, typename H, bool kVec, bool kSus, bool kDet>
-static void host_arc_t(int n, int nc, int fanout, const V* view,
-                       const int32_t* bases, H* hb, int8_t* asl,
-                       const int32_t* sa, const int32_t* sb,
-                       const uint8_t* alive, int detect, int32_t* out) {
-  using namespace mstripe;
-  constexpr int kE = kSegBytes / sizeof(V);
-  const int rb = kMaxRowBytes;
-  const int lanes = rb / kSegBytes, cols = lanes * kE;
-  const int nt = kThreads, step_rows = nt / lanes;
-  const int span = cta_rows(n), pw = pow2_floor(fanout);
-  const size_t prow = (size_t)span + fanout - 1;
-  std::vector<int8_t> park(kCtas * prow * rb);
-  std::vector<int32_t> blocks((size_t)kCtas * kBlockInts);
-  std::vector<Seg> buf((size_t)nt * kWinItems);
-  auto* v = reinterpret_cast<Seg(*)[kWinItems]>(buf.data());
-  for (int col0 = 0; col0 < nc; col0 += cols) {
-    int32_t shifts[2][kMaxCols];
-    for (int c = 0; c < cols; ++c) {
-      shifts[0][c] = col0 + c < nc ? sa[col0 + c] : 0;
-      shifts[1][c] = col0 + c < nc ? sb[col0 + c] : 0;
-    }
-    for (int q = 0; q < kCtas; ++q) {
-      const int rows = range_rows(n, span, q), r0 = q * span;
-      const int len = rows > 0 ? rows + fanout - 1 : 0;
-      int8_t* pk = &park[q * prow * rb];
-      for (int i = 0; i < len * lanes; ++i) {
-        int g = r0 + i / lanes;
-        if (g >= n) g -= n;
-        stage_seg<V, kVec>(view, nc, col0, g, i % lanes,
-                           pk + (size_t)i * kSegBytes, copy16);
-      }
-      for (int s = 1; s < pw; s *= window_radix(s, pw)) {
-        const int r = window_radix(s, pw);
-        for (int c = 0; c < window_chunks(len, s, r, lanes, nt); ++c) {
-          for (int t = 0; t < nt; ++t)
-            window_read<V>(pk, rb, len, s, r, c, t, nt, v[t]);
-          for (int t = 0; t < nt; ++t)
-            window_write(pk, rb, len, s, r, c, t, nt, v[t]);
-        }
-      }
-      for (int i = 0; i < kBlockInts; ++i)
-        blocks[(size_t)q * kBlockInts + i] = blank_count(i, n);
-    }
-    for (int q = 0; q < kCtas; ++q)
-      for (int t = 0; t < nt; ++t) {
-        const int rows = range_rows(n, span, q), r0 = q * span;
-        const int h = t % lanes, col = col0 + h * kE;
-        const int valid = kVec ? (col < nc ? kE : 0)
-                               : std::max(0, std::min(kE, nc - col));
-        Counts<kE> cn;
-        clear(cn);
-        int step = 0;
-        for (int li = t / lanes; valid > 0 && li < rows;
-             li += step_rows, ++step) {
-          const int row = r0 + li;
-          const bool recv = alive[row] != 0;
-          const size_t off = (size_t)row * nc + col;
-          Lanes<H, kE> ld;
-          load_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
-          const Seg best =
-              recv ? arc_best<V>(
-                         bases[row], n, span, fanout, pw,
-                         [&](int qq, int l) -> const int8_t* {
-                           return &park[(qq * prow + l) * rb +
-                                        h * kSegBytes];
-                         },
-                         [](const int8_t* a) { return onepass::load_seg(a); })
-                   : onepass::splat(0xFFFFFFFFu);
-          merge_seg<V, H, kSus, kDet, kVec, kE>(
-              best, ld, valid, shifts[0] + h * kE, shifts[1] + h * kE, recv,
-              63, step, cn);
-          store_lanes<H, kE, kVec>(hb + off, asl + off, valid, ld);
-        }
-        int32_t* blk = &blocks[(size_t)q * kBlockInts];
-        for (int j = 0; j < kE; ++j) {
-          const int c = h * kE + j;
-          blk[kOutCnt * kMaxCols + c] += count_at(cn.cnt, j);
-          blk[kOutDet * kMaxCols + c] += count_at(cn.det, j);
-          blk[kOutRef * kMaxCols + c] += count_at(cn.ref, j);
-          blk[kOutHeld * kMaxCols + c] += count_at(cn.held, j);
-          if (first_step(cn, j) >= 0) {
-            const int r = r0 + first_step(cn, j) * step_rows + t / lanes;
-            int32_t& fo = blk[kOutFobs * kMaxCols + c];
-            fo = std::min(fo, r);
-          }
-        }
-      }
-    for (int s = 0; s < (kSus ? kOuts : 3); ++s)
-      for (int c = 0; c < cols && col0 + c < nc; ++c)
-        out[(size_t)s * nc + col0 + c] = output_value(
-            s, finish(s, c, [&](int q) { return &blocks[(size_t)q * kBlockInts]; }),
-            detect != 0);
-  }
+extern "C" int host_tile_fits(int fanout) {
+  return mstripe::tile_fits(fanout);
 }
 
-template <typename V, typename H>
-static void host_arc_vh(int vec, int suspect, int n, int nc, int fanout,
-                        const void* view, const int32_t* bases, void* hb,
-                        int8_t* asl, const int32_t* sa, const int32_t* sb,
-                        const uint8_t* alive, int detect, int32_t* out) {
-  const V* w = static_cast<const V*>(view);
-  H* h = static_cast<H*>(hb);
-#define HA_ARGS n, nc, fanout, w, bases, h, asl, sa, sb, alive, detect, out
-#define HA_DET(v, s) \
-  detect ? host_arc_t<V, H, v, s, true>(HA_ARGS) \
-         : host_arc_t<V, H, v, s, false>(HA_ARGS)
-  if (vec)
-    suspect ? HA_DET(true, true) : HA_DET(true, false);
-  else
-    suspect ? HA_DET(false, true) : HA_DET(false, false);
-#undef HA_DET
-#undef HA_ARGS
-}
-
-extern "C" void host_arc(int view_bytes, int hb_bytes, int vec, int suspect,
-                         int n, int nc, int fanout, const void* view,
-                         const int32_t* bases, void* hb, int8_t* asl,
-                         const int32_t* sa, const int32_t* sb,
-                         const uint8_t* alive, int detect, int32_t* out) {
-#define HA_ARGS vec, suspect, n, nc, fanout, view, bases, hb, asl, sa, sb, \
-                alive, detect, out
-  if (view_bytes == 1 && hb_bytes == 1) host_arc_vh<int8_t, int8_t>(HA_ARGS);
-  if (view_bytes == 1 && hb_bytes == 2) host_arc_vh<int8_t, int16_t>(HA_ARGS);
-  if (view_bytes == 1 && hb_bytes == 4) host_arc_vh<int8_t, int32_t>(HA_ARGS);
-  if (view_bytes == 2 && hb_bytes == 2) host_arc_vh<int16_t, int16_t>(HA_ARGS);
-  if (view_bytes == 2 && hb_bytes == 4) host_arc_vh<int16_t, int32_t>(HA_ARGS);
-#undef HA_ARGS
-}
-
-extern "C" int host_arc_form(int n, int fanout) {
-  return mstripe::arc_form(n, fanout);
-}
-
-// arc_merge.cu's window_tile_kernel replayed block by block (the tiles
-// form): a tile of kTileRows rows and its F - 1 halo rows staged, doubled
-// chunk by chunk (every thread's reads, then every thread's writes), then
-// W = max(M_p[x], M_p[x + F - p]) written.
+// arc_merge.cu's window_tile_kernel replayed block by block: a tile of
+// kTileRows rows and its F - 1 halo rows staged (stage_seg), doubled chunk
+// by chunk (every thread's window_read, then every thread's window_write),
+// then W = max(M_p[x], M_p[x + F - p]) written (tile_window).
 template <typename V, bool kVec>
 static void host_tiles_t(int n, int nc, int fanout, const V* view, V* w) {
   using namespace mstripe;
   constexpr int kE = kSegBytes / sizeof(V), lanes = kMaxRowBytes / kSegBytes;
   constexpr int cols = lanes * kE;
   const int pw = pow2_floor(fanout);
-  std::vector<int8_t> park((size_t)(kTileRows + fanout - 1) * kMaxRowBytes);
+  std::vector<int8_t> park(tile_smem_bytes(fanout));
   std::vector<Seg> buf((size_t)kThreads * kWinItems);
   auto* v = reinterpret_cast<Seg(*)[kWinItems]>(buf.data());
   for (int r0 = 0; r0 < n; r0 += kTileRows)
@@ -299,8 +159,8 @@ extern "C" void host_tiles(int view_bytes, int vec, int n, int nc,
                                        (int16_t*)w);
 }
 
-// arc_merge.cu's arc_rows_kernel replayed block by block (the two-launch
-// forms' row pass): each block's threads sweep up to kRowsPerBlock rows of
+// arc_merge.cu's arc_rows_kernel replayed block by block: each block's
+// threads sweep up to kRowsPerBlock rows of
 // a 128-byte stripe, one W row a receiver (load_row_seg), merge_seg, their
 // counter bytes summed into the block's counts, which go into the
 // initialised ``out`` as the kernel's atomics do.
@@ -400,8 +260,8 @@ extern "C" void host_arc_rows(int view_bytes, int hb_bytes, int vec,
 #undef HR_ARGS
 }
 
-// arc_merge.cu's window_max_kernel (the segments form: a fanout whose
-// halo outgrows a tile), replayed block by block: segment m of F rows
+// arc_merge.cu's window_max_kernel (the van Herk window, for a fanout
+// whose halo outgrows a tile), replayed block by block: segment m of F rows
 // (extended index space), a backward suffix pass writing W and a forward
 // prefix pass folding into it.
 template <typename V>
@@ -536,35 +396,12 @@ def test_host_rows_match_fused_plain(host_lib, n, fanout):
 NAMES = ("hb", "asl", "cnt", "n_det", "first_obs", "refuted", "held")
 
 
-def check_arc_park(host_lib, view, bases, hb, asl, sa, sb, alive, fanout,
-                   detect: bool = True, suspect: bool = False) -> None:
-    """K4's one-launch (park) form replayed (the 16-byte path where nc % 16
-    == 0, and the element path) against arc_merge_update_plain."""
-    n, nc = hb.shape
-    assert mu.arc_form(n, fanout) == "park"
-    t = torch.from_numpy
-    want = mu.arc_merge_update_plain(
-        t(view), t(bases), t(hb.copy()), t(asl.copy()), t(sa), t(sb),
-        t(alive), fanout=fanout, detect_stats=detect, suspect=suspect)
-    for vec in ((0, 1) if nc % 16 == 0 else (0,)):
-        h, a = hb.copy(), asl.copy()
-        out = np.full((5, nc), -7, np.int32)
-        call(host_lib.host_arc, view.itemsize, hb.itemsize, vec, int(suspect),
-             n, nc, fanout, view, bases, h, a, sa, sb,
-             alive.astype(np.uint8), int(detect), out)
-        got = [h, a, *out[:5 if suspect else 3]]
-        assert len(got) == len(want)
-        for name, o, w in zip(NAMES, got, want):
-            np.testing.assert_array_equal(o, w.numpy(),
-                                          err_msg=f"{name}, vec={vec}")
-
-
-def check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
-                         fanout, detect: bool = True,
-                         suspect: bool = False) -> None:
-    """K4's two launches replayed: the window max by tiles (each path) and
-    by van Herk segments equals the plain one, and the row pass over it
-    into initialised outputs equals the whole plain K4."""
+def check_arc(host_lib, view, bases, hb, asl, sa, sb, alive, fanout,
+              detect: bool = True, suspect: bool = False) -> None:
+    """K4 replayed: the window max by tiles (each path, where a tile and
+    its halo fit a block) and by van Herk segments equals the plain one,
+    and the row pass over it into initialised outputs (each path) equals
+    the whole plain K4."""
     n, nc = hb.shape
     t = torch.from_numpy
     want_w = mu.window_max_plain(t(view), fanout).numpy()
@@ -572,9 +409,9 @@ def check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
         t(view), t(bases), t(hb.copy()), t(asl.copy()), t(sa), t(sb),
         t(alive), fanout=fanout, detect_stats=detect, suspect=suspect)
     vecs = (0, 1) if nc % 16 == 0 else (0,)
-    windows = [("segments", None)] + [("tiles", v) for v in vecs
-                                      if mu.arc_form(n, fanout) != "segments"
-                                      or n < 2_000]
+    windows = [("segments", None)]
+    if host_lib.host_tile_fits(fanout):
+        windows += [("tiles", v) for v in vecs]
     for form, vec in windows:
         w = np.full_like(view, 99)
         if form == "tiles":
@@ -582,7 +419,7 @@ def check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
                  w)
         else:
             call(host_lib.host_window, view.itemsize, n, nc, fanout, view, w)
-        np.testing.assert_array_equal(w, want_w, err_msg=form)
+        np.testing.assert_array_equal(w, want_w, err_msg=f"{form} {vec}")
     for vec in vecs:
         h, a = hb.copy(), asl.copy()
         out = np.zeros((5, nc), np.int32)
@@ -592,6 +429,7 @@ def check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
              int(suspect), int(detect), n, nc, want_w, bases, h, a, sa, sb,
              alive.astype(np.uint8), out)
         got = [h, a, *out[:5 if suspect else 3]]
+        assert len(got) == len(want)
         for name, o, x in zip(NAMES, got, want):
             np.testing.assert_array_equal(o, x.numpy(),
                                           err_msg=f"{name}, vec={vec}")
@@ -599,15 +437,12 @@ def check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
 
 @pytest.mark.parametrize("n,fanout", [(96, 16), (70, 11), (50, 49), (64, 1)])
 def test_host_window_then_rows_match_arc_plain(host_lib, n, fanout):
-    """K4 replayed in each of its forms: the window max in the park then
-    the receivers (the one launch these shapes take), and the two launches
-    (where no park fits): the window max by tiles and by segments equals
-    the plain one, and the row pass over it equals the whole plain K4."""
+    """K4's two launches replayed: the window max by tiles and by van Herk
+    segments equals the plain one, and the row pass over it (one W row a
+    receiver, at its arc base) equals the whole plain K4."""
     rng, view, hb, asl, sa, sb, alive = merge_inputs(n, n + fanout)
     bases = rng.integers(0, n, n).astype(np.int32)
-    check_arc_park(host_lib, view, bases, hb, asl, sa, sb, alive, fanout)
-    check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
-                         fanout)
+    check_arc(host_lib, view, bases, hb, asl, sa, sb, alive, fanout)
 
 
 def arc_inputs(n: int, nc: int, vd, hd, suspect: bool, seed: int):
@@ -642,56 +477,34 @@ def arc_inputs(n: int, nc: int, vd, hd, suspect: bool, seed: int):
     (90, 90, 13, np.int16, np.int16),    # int16 view, ragged
     (40, 40, 1, np.int8, np.int32),      # fanout 1: W = view
     (33, 33, 32, np.int8, np.int32),     # fanout N - 1
-    (200, 32, 30, np.int8, np.int8),     # windows cross 2 CTA ranges, wrap
+    (1_100, 32, 30, np.int8, np.int8),   # windows cross tiles, wrap at N
+    (3_000, 20, 16, np.int8, np.int8),   # several row-pass blocks
+    (2_500, 32, 9, np.int16, np.int32),  # int16 view, several blocks
+    (3_000, 64, 2_000, np.int8, np.int8),       # van Herk: past a tile
+    (6_000, 40, 5_000, np.int16, np.int16),
+    (8_000, 16, 7_000, np.int8, np.int16),
 ], ids=["ragged", "block36", "view16", "view16ragged", "f1", "fNm1",
-        "cross"])
-def test_host_arc_park_matches_plain(host_lib, n, nc, fanout, vd, hd, detect,
-                                     suspect):
-    """K4's one-launch form over every view/lane type pair it takes,
-    suspicion and detection stats on and off: ragged N, column blocks,
-    fanout 1 and N - 1, windows crossing CTA ranges and the wrap at N."""
+        "cross", "blocks8", "blocks16", "seg64", "seg40", "seg16"])
+def test_host_arc_matches_plain(host_lib, n, nc, fanout, vd, hd, detect,
+                                suspect):
+    """K4 over every view/lane type pair it takes, suspicion and detection
+    stats on and off: ragged N, column blocks (C % 16 != 0: the element
+    path), fanout 1 and N - 1, windows crossing window tiles and the wrap
+    at N, several row-pass blocks a stripe, and halos past a tile (the van
+    Herk window)."""
     view, bases, hb, asl, sa, sb, alive = arc_inputs(n, nc, vd, hd, suspect,
                                                      n * nc + fanout)
     if fanout == 30:
-        # receivers whose windows start in the last CTA's range and wrap
-        bases[:40] = n - np.arange(1, 41)
-    check_arc_park(host_lib, view, bases, hb, asl, sa, sb, alive, fanout,
-                   detect, suspect)
+        # receivers whose windows start at a tile's end or wrap at N
+        bases[:40] = np.r_[np.arange(490, 510), n - np.arange(1, 21)]
+    check_arc(host_lib, view, bases, hb, asl, sa, sb, alive, fanout, detect,
+              suspect)
 
 
-@pytest.mark.parametrize("suspect", [False, True], ids=["off", "suspect"])
-@pytest.mark.parametrize("detect", [False, True], ids=["nostats", "stats"])
-@pytest.mark.parametrize("n,nc,fanout,vd,hd,form", [
-    (30_000, 20, 16, np.int8, np.int8, "tiles"),      # element path
-    (30_000, 32, 9, np.int16, np.int32, "tiles"),     # int16, 16-byte path
-    (3_000, 64, 2_000, np.int8, np.int8, "segments"),
-    (6_000, 40, 5_000, np.int16, np.int16, "segments"),
-    (8_000, 16, 7_000, np.int8, np.int16, "segments"),
-], ids=["tiles8", "tiles16", "seg64", "seg40", "seg16"])
-def test_host_arc_two_launch_matches_plain(host_lib, n, nc, fanout, vd, hd,
-                                           form, detect, suspect):
-    """K4's two launches where no park of 128-byte rows fits: the window
-    max by tiles (a tile and its halo in shared memory) or by van Herk
-    segments (a halo past a tile), then the row pass, suspicion and
-    detection stats on and off."""
-    assert mu.arc_form(n, fanout) == form
-    view, bases, hb, asl, sa, sb, alive = arc_inputs(n, nc, vd, hd, suspect,
-                                                     n + nc + fanout)
-    check_arc_two_launch(host_lib, view, bases, hb, asl, sa, sb, alive,
-                         fanout, detect, suspect)
-
-
-@pytest.mark.parametrize("n,fanout", [(2, 1), (70, 9), (16_384, 16),
-                                      (28_416, 14), (65_536, 16),
-                                      (3_000, 2_000), (6_000, 5_000),
-                                      (8_000, 7_000), (16_000, 15_000),
-                                      (131_072, 17), (300_000, 3)])
-def test_arc_form_matches_header(host_lib, n, fanout):
-    """The wrapper's rule for K4's form (which decides its scratch) is the
-    kernel's: the park at the main paths' N = 16,384, tiles at
-    full_scale's N = 65,536, segments for a halo past a tile."""
-    forms = ("park", "tiles", "segments")
-    want = forms[host_lib.host_arc_form(n, fanout)]
-    assert mu.arc_form(n, fanout) == want
-    assert want == {16_384: "park", 28_416: "tiles", 65_536: "tiles",
-                    3_000: "segments", 16_000: "segments"}.get(n, want)
+@pytest.mark.parametrize("fanout,fits", [(1, True), (16, True), (1_305, True),
+                                         (1_306, False), (15_000, False)])
+def test_arc_window_tile_rule(host_lib, fanout, fits):
+    """The window tile (512 rows and the F - 1 halo rows, 128 bytes each)
+    fits one block's shared memory up to F = 1,305; the main paths' F = 16
+    takes tiles, phase 8's F = 15,000 the van Herk window."""
+    assert bool(host_lib.host_tile_fits(fanout)) == fits
