@@ -20,8 +20,7 @@
 // 32-byte ones at ~1.3, so the 7 B an entry of this form stream faster
 // than the 5 B of a one-launch park, which at N = 16,384 holds 128-byte
 // rows only on 112 SMs (clusters of 16) and at full_scale's N = 65,536
-// 32-byte rows at most (k4_forms.py timed the park form at 1.04 ms against
-// 0.83 for this one; PERF.md).
+// 32-byte rows at most (PERF.md section 6 has both forms' times).
 //   1. window_tile_kernel: a block of 512 threads stages a tile of 512
 //      rows of a 128-byte view stripe and the F - 1 rows after it (the
 //      halo, wrapping at N) by 16-byte cp.async, turns it in place into
@@ -41,8 +40,7 @@
 //      (merge_elem.cuh) entry by entry, the lanes stored once; counts as
 //      bytes in registers, summed over the warp by shuffles, one shared
 //      atomic a column and warp into the block's counts, then one global
-//      atomic a column and output a block (N / 2,048 a column, where the
-//      parent kernel flushed every 16 rows).
+//      atomic a column and output a block (N / 2,048 a column).
 // No fallback from a refused launch: it returns its error and the wrapper
 // raises.
 #include <climits>

@@ -15,37 +15,43 @@
 // TPU kernel kept a view column stripe resident in VMEM for every
 // receiver block, so the view crossed HBM once.
 //
-// Design: a thread-block cluster of kCtas = 8 CTAs owns a stripe of 32
-// subject columns over all N rows (merge_stripe.cuh holds the per-thread
-// bodies, tested on the host):
+// Design: a thread-block cluster of kCtas = 16 CTAs of 512 threads (a
+// non-portable size) owns a stripe of 128 subject columns over all N rows
+// (64 where a 128-byte park does not fit, N > ~27,000); merge_stripe.cuh
+// holds the per-thread bodies, tested on the host.  128-byte row pieces
+// are what lets the lanes stream: an H100 moves int8 lanes at ~2.5 TB/s in
+// them and ~1.3 in 32-byte ones.
 //   1. each CTA parks its rows of the int8 view stripe in shared memory,
-//      rows by round robin (row s in CTA s % 8 at park row s / 8), 32 B a
-//      row staged by 16-byte cp.async: N / 8 x 32 B, 64 KB at N = 16,384,
-//      111 KB at 28,416;
+//      rows by round robin (row s in CTA s % 16 at park row s / 16), staged
+//      by 16-byte cp.async: N / 16 x 128 B, 128 KB at N = 16,384 (111 KB
+//      of 64-byte rows at 28,416), one CTA an SM;
 //   2. cluster.sync();
-//   3. each CTA sweeps its own receiver rows, two threads a row, 16 bytes
-//      of the stripe each: the lanes loaded (16-byte evict-first loads of
-//      int8, 32 or 64 bytes of hb) while the receiver's F in-edges (int16,
-//      read once a stripe) address the senders' park rows wherever they
-//      live, 8 rows in flight by ld.shared::cluster.v4, folded by a signed
-//      byte max from -1 (two words a DPX instruction); the epilogue
-//      (merge_elem.cuh) entry by entry; the lanes stored once;
+//   3. each CTA sweeps its own receiver rows, 8 threads a row, 16 bytes of
+//      the stripe each: the next row's lanes (16-byte evict-first loads of
+//      int8, 32 or 64 bytes of hb), alive bit and first 8 sender ids load
+//      while this row merges; the receiver's F in-edges (int16, read once
+//      a stripe) name the senders' rows, gathered 8 at a time, even
+//      batches from the parks wherever they live (ld.shared::cluster.v4),
+//      odd ones from the view in L2 (where staging left the stripe), and
+//      folded by a signed byte max from -1 (two words a DPX instruction);
+//      the epilogue (merge_elem.cuh) entry by entry; the lanes stored once;
 //   4. per-subject counts: bytes in registers over a thread's rows, summed
 //      over the warp by shuffles, one shared atomic a column and warp into
 //      the CTA's count block; after the next cluster.sync each CTA sums its
-//      4 columns of the 8 blocks over distributed shared memory and writes
+//      8 columns of the 16 blocks over distributed shared memory and writes
 //      every output entry once (no global atomics, no initialised output);
 //      two blocks by the stripe's parity, so two barriers a stripe.
 // Persistent clusters (as many as the card holds at once,
-// cudaOccupancyMaxActiveClusters) walk stripes c, c + clusters, ...; a
-// small park leaves room for several CTAs an SM, whose staging overlaps
-// the others' sweeps.  Byte account at N = 16,384, F = 14: view 1 B and
-// lanes 4 B an entry, plus every receiver's edges once a stripe (512 x
-// 458 KB = 235 MB, mostly from L2): ~17 % over the floor.  Dead receivers
-// skip their gather (best stays -1) and are masked in the epilogue, as in
-// K2; the TPU kernel remapped their edges to themselves: the outputs are
-// the same.  No fallback: a refused launch, or an occupancy query that
-// finds no place for a cluster, returns its error and the wrapper raises.
+// cudaOccupancyMaxActiveClusters: 7 on an H100) walk stripes c, c +
+// clusters, ...  Byte account at N = 16,384, F = 14: view 1 B and lanes 4
+// B an entry, plus every receiver's edges once a stripe (128 x 458 KB = 59
+// MB, mostly from L2): ~4 % over the floor.  The gather is bound by
+// latency, not by either memory's bandwidth (PERF.md section 6).  Dead
+// receivers skip their gather (best stays -1) and are masked in the
+// epilogue, as in K2; the TPU kernel remapped their edges to themselves:
+// the outputs are the same.  No fallback: a refused launch, or an
+// occupancy query that finds no place for a cluster, returns its error
+// and the wrapper raises.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
