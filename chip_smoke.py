@@ -887,6 +887,7 @@ def stage_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
     split["round.merge"] = split.get("round.merge", 0.0) + sum(
         e.self_device_time_total for e in kernels
         if any(k in e.key for k in ("merge_rows_kernel", "window_max_kernel",
+                                    "window_tile_kernel", "arc_rows_kernel",
                                     "stripe_kernel"))
     ) / 1e3 / rounds
     shares = ", ".join(f"{k.split('.')[1]} {v:.4f}" for k, v in
@@ -2523,7 +2524,7 @@ def phase_swar_separate(results: dict, rounds: int) -> None:
 
 N_SHARD_TALL = 4_096          # phase 35/36's tall-skinny width, 4 shards
 N_CONFIG4 = 131_072           # config 4's N, 8 shards of 16,384
-K4_LONG_F = 15_000            # a fanout whose halo outgrows K4's park
+K4_LONG_F = 15_000            # a fanout whose halo outgrows a K4 window tile
 K3_OUTS = ("hb", "asl", "member_cnt", "n_det", "first_obs", "recv_cnt",
            "entered", "refuted", "held", "suspect_cnt")
 # the per-receiver outputs of the resident round (partial on a shard)
@@ -3576,7 +3577,7 @@ K45_SHAPES = (
     ("k4", "arc", N_MAIN, N_MAIN, 16, 1, True, False),
     ("k4_sus", "arc", N_MAIN, N_MAIN, 16, 1, True, True),
     ("k4_block", "arc", N_CAPACITY, N_CAPACITY // 8, 16, 1, True, False),
-    ("k4_two_launch", "arc", N_MAIN, N_MAIN, K4_LONG_F, 1, True, False),
+    ("k4_van_herk", "arc", N_MAIN, N_MAIN, K4_LONG_F, 1, True, False),
     ("k5", "stripe", N_MAIN, N_MAIN, 14, 1, False, True),
     ("k5_off", "stripe", N_MAIN, N_MAIN, 14, 1, False, False),
     ("k5_max_n", "stripe", 28_416, 28_416, 15, 1, False, True),
