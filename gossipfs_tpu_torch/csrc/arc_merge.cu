@@ -237,22 +237,7 @@ arc_rows_kernel(const Params p) {
     return r0 + st * step_rows + t / lanes;
   });
   __syncthreads();
-  // the block's counts into the initialised outputs: one atomic a column
-  // and output
-  for (int i = t; i < kOuts * cols; i += kRowThreads) {
-    const int s = i / cols;
-    const int c = i % cols;
-    if (col0 + c >= nc || (!kSus && s >= kOutRef) ||
-        (!kDet && (s == kOutDet || s == kOutFobs)))
-      continue;
-    const int v = cnt[s * kMaxCols + c];
-    int32_t* o = p.out + (size_t)s * nc + col0 + c;
-    if (s == kOutFobs) {
-      if (v < n) atomicMin(o, v);
-    } else if (v) {
-      atomicAdd(o, v);
-    }
-  }
+  add_block_counts<kSus, kDet>(cnt, p.out, col0, cols, nc, n);
 }
 
 // the two launches, or the row pass's geometry into ``info``

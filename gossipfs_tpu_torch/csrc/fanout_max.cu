@@ -9,64 +9,122 @@
 //
 // Bound: bytes.  The floor reads the view once and writes the output once,
 // 2 N^2 elements (0.54 GB at N = 16,384 in int8: 0.16 ms at the H100's
-// 3.35 TB/s), plus the N x F int32 edges; the work is F - 1 compares per
-// output element.  The gather reads F view rows per output row, F times the
-// floor's view bytes: what keeps that off device memory is L2.  The grid
-// runs its receiver-row blocks fastest inside one 1,024-column tile, so
-// that tile's view strip (N x 1,024 elements: 16 MB in int8 at N = 16,384)
-// is what the blocks in flight gather from, and it fits the 50 MB L2.
+// 3.35 TB/s), plus the N x F int32 edges; the work is F - 1 compares an
+// output element.  The gather reads F view rows an output row, F times the
+// floor's view bytes (3.76 GB at N = 16,384, F = 14): those come from L2,
+// and what bounds the kernel is how fast L2 serves them and how well their
+// latency is hidden.
 //
-// Design (simple and right first): a block covers 16 receiver rows x 1,024
-// columns, 4 consecutive columns per thread (one 4, 8 or 16-byte vector
-// load per sender row when N % 4 == 0, element loads otherwise), the
-// sender ids read by every thread of the block from the same address (a
-// broadcast).  The gather itself is gather_rows.cuh.
+// Design: K2's gather alone (gather_ring.cuh, tested on the host): a block
+// of 256 threads takes a 128-byte stripe of columns by a range of receiver
+// rows, 8 threads a row, 16 bytes each; each receiver's F sender segments
+// go by cp.async.cg into a 3-stage ring in shared memory one receiver row
+// ahead of the fold (a DPX max, two words an instruction in int8), and the
+// output row piece is stored once, 16 bytes evict-first.  Items run row
+// ranges fastest inside a stripe, sized so that the blocks the card holds
+// at once gather from ~24 MB of view strips (item_rows).  A sender outside
+// [0, n) is skipped (the fold starts at the type's minimum); every caller's
+// senders lie in [0, n).  fx_info reports the geometry.  No fallback: a
+// refused launch returns its error and the wrapper raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "gather_rows.cuh"
+#include "gather_ring.cuh"
 
 namespace {
 
-constexpr int kVec = 4;                 // columns per thread
-constexpr int kThreads = 256;
-constexpr int kTile = kVec * kThreads;  // columns per block
-constexpr int kRows = 16;               // receiver rows per block
-
-template <typename T, bool kAligned>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(gring::kThreads, 2)
 fanout_max_kernel(const T* __restrict__ view,
                   const int32_t* __restrict__ edges, T* __restrict__ out,
-                  int n, int fanout) {
-  const int row0 = blockIdx.x * kRows;
-  const int col0 = blockIdx.y * kTile + threadIdx.x * kVec;
-  if (col0 >= n) return;
-  const int valid = min(kVec, n - col0);
-  const int rows = min(kRows, n - row0);
-#pragma unroll 1
-  for (int r = 0; r < rows; ++r) {
-    const int32_t* e = edges + (size_t)(row0 + r) * fanout;
-    int best[kVec];
-    gather_rows::gather_max<T, kVec, kAligned>(
-        view, n, col0, valid, fanout, [e](int f) { return e[f]; }, best);
-    gather_rows::store_row<T, kVec, kAligned>(
-        out + (size_t)(row0 + r) * n + col0, valid, best);
-  }
+                  int n, int fanout, int item_rows) {
+  constexpr int cols = gring::kLanes * (mstripe::kSegBytes / (int)sizeof(T));
+  const int splits = (n + item_rows - 1) / item_rows;
+  const int col0 = (int)(blockIdx.x / splits) * cols;
+  const int r0 = (int)(blockIdx.x % splits) * item_rows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  gring::fx_thread<T, kVec>(
+      view, edges, out, n, fanout, r0, min(item_rows, n - r0), col0,
+      threadIdx.x, reinterpret_cast<int8_t*>(smem),
+      [](int8_t* d, const int8_t* s) { mstripe::copy16(d, s); },
+      [] { asm volatile("cp.async.commit_group;" ::: "memory"); },
+      [] {
+        asm volatile("cp.async.wait_group %0;" ::"n"(gring::kDepth - 1)
+                     : "memory");
+      });
 }
 
-template <typename T>
+// the launch, or its geometry into ``info`` (as fm_info's)
+template <typename T, bool kVec>
 cudaError_t launch(const void* view, const int32_t* edges, void* out, int n,
-                   int fanout, bool aligned, cudaStream_t s) {
-  const dim3 grid((n + kRows - 1) / kRows, (n + kTile - 1) / kTile);
-  const T* v = static_cast<const T*>(view);
-  T* o = static_cast<T*>(out);
-  if (aligned)
-    fanout_max_kernel<T, true><<<grid, kThreads, 0, s>>>(v, edges, o, n,
-                                                         fanout);
-  else
-    fanout_max_kernel<T, false><<<grid, kThreads, 0, s>>>(v, edges, o, n,
-                                                          fanout);
+                   int fanout, int* info, cudaStream_t s) {
+  auto kern = fanout_max_kernel<T, kVec>;
+  const gring::Plan pl = gring::plan(fanout);
+  const int smem = (int)gring::ring_bytes(pl.chunk);
+  constexpr int kMaxCards = 64;
+  static bool raised[kMaxCards] = {};
+  static int asked[kMaxCards] = {};
+  static int held[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return e;
+  if (card >= kMaxCards) return cudaErrorInvalidDevice;
+  if (!raised[card]) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gring::ring_bytes(gring::kSlots));
+    if (e != cudaSuccess) return e;
+    raised[card] = true;
+  }
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+  if (e != cudaSuccess) return e;
+  if (asked[card] != smem) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      gring::kThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    asked[card] = smem;
+    held[card] = per_sm * sms;
+  }
+  const int rows = gring::item_rows(n, held[card]);
+  constexpr int cols = gring::kLanes * (mstripe::kSegBytes / (int)sizeof(T));
+  const int items = (n + cols - 1) / cols * ((n + rows - 1) / rows);
+  if (info != nullptr) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    const int v[10] = {cols,       rows,        gring::kDepth,
+                       pl.chunk,   smem,        gring::kThreads,
+                       held[card] / sms, fa.numRegs, (int)fa.localSizeBytes,
+                       items};
+    for (int i = 0; i < 10; ++i) info[i] = v[i];
+    return cudaSuccess;
+  }
+  kern<<<items, gring::kThreads, smem, s>>>(static_cast<const T*>(view),
+                                            edges, static_cast<T*>(out), n,
+                                            fanout, rows);
   return cudaGetLastError();
+}
+
+int run(const void* view, const void* edges, void* out, int n, int fanout,
+        int elem_bytes, int aligned, int* info, void* stream) {
+  if (n <= 0 || fanout < 1) return (int)cudaErrorInvalidValue;
+  const int32_t* e = static_cast<const int32_t*>(edges);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte segments: every row's stripe segment whole and aligned
+  const bool vec = aligned != 0 && n % mstripe::kSegBytes == 0;
+#define FX_LAUNCH(T)                                            \
+  (int)(vec ? launch<T, true>(view, e, out, n, fanout, info, s) \
+            : launch<T, false>(view, e, out, n, fanout, info, s))
+  switch (elem_bytes) {
+    case 1: return FX_LAUNCH(int8_t);
+    case 2: return FX_LAUNCH(int16_t);
+    case 4: return FX_LAUNCH(int32_t);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FX_LAUNCH
 }
 
 }  // namespace
@@ -74,19 +132,22 @@ cudaError_t launch(const void* view, const int32_t* edges, void* out, int n,
 // Launch K1 on ``stream``.  view: [n, n] row-major of ``elem_bytes``-byte
 // signed integers (1, 2 or 4); edges: int32 [n, fanout], each in [0, n);
 // out: like view.  ``aligned``: n % 4 == 0 and every pointer 16-byte
-// aligned (vector loads).  Returns the CUDA error code of the launch (0 on
-// success).
+// aligned (16-byte accesses where also n % 16 == 0).  Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int fx_fanout_max(const void* view, const void* edges, void* out,
                              int n, int fanout, int elem_bytes, int aligned,
                              void* stream) {
-  if (n <= 0 || fanout < 1) return (int)cudaErrorInvalidValue;
-  const int32_t* e = static_cast<const int32_t*>(edges);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool al = aligned != 0;
-  switch (elem_bytes) {
-    case 1: return (int)launch<int8_t>(view, e, out, n, fanout, al, s);
-    case 2: return (int)launch<int16_t>(view, e, out, n, fanout, al, s);
-    case 4: return (int)launch<int32_t>(view, e, out, n, fanout, al, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return run(view, edges, out, n, fanout, elem_bytes, aligned, nullptr,
+             stream);
+}
+
+// The geometry of what fx_fanout_max would launch for this shape, into
+// info[10] (launches nothing), as fm_info's: stripe columns, receiver rows
+// an item, ring stages, slots a stage and thread, ring bytes a block,
+// threads a block, blocks an SM, registers and local memory a thread,
+// items (blocks) of the launch.
+extern "C" int fx_info(int n, int fanout, int elem_bytes, int aligned,
+                       int* info) {
+  return run(nullptr, nullptr, nullptr, n, fanout, elem_bytes, aligned, info,
+             nullptr);
 }

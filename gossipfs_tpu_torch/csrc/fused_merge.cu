@@ -10,41 +10,236 @@
 // Bound: bytes.  The floor moves the view once and the lanes once each way:
 // at config 3's shape (N = 10,240, int8 view, int16 hb, the packed
 // age|status byte) that is N^2 x (1 + 2x2 + 2x1) B = 734 MB, 0.22 ms at the
-// H100's 3.35 TB/s; the epilogue is a few dozen integer ops per entry.
-// The TPU kernel gathered the F sender rows with async DMAs into VMEM.
+// H100's 3.35 TB/s; the epilogue is a few dozen integer ops an entry.  The
+// gather reads F view rows a receiver (1.47 GB at config 3): those have to
+// come from L2, and their latency has to be hidden.  The TPU kernel
+// gathered its F rows with slotted async DMAs into VMEM.
 //
-// Design (simple and right first): one pass, merge_rows.cuh.  A block
-// covers 16 receiver rows x 1024 subjects, 4 subjects per thread; the F
-// sender rows of each receiver are read straight from device memory
-// (F view reads per entry: 14 at config 3, so about 2.1 GB moved, ~3x the
-// floor; the view is 105 MB, twice the 50 MB L2, so only part of the
-// gather hits in L2).  Each lane is read and written once, in place.
-// Staging a column stripe of the view in shared memory for many receivers
-// (the JAX package's stripe kernel K5) is the step that would cut the
-// gather's bytes: csrc/stripe_merge.cu (K5) does that.
+// Design: one launch, its per-thread bodies in gather_ring.cuh (tested on
+// the host).  A block of 256 threads takes a 128-byte stripe of the view's
+// columns by a range of receiver rows, 8 threads a row, 16 bytes each (the
+// parent's 4 columns a thread moved 4-byte pieces of the int8 view).  Each
+// receiver's F sender segments go by cp.async.cg into a ring of 3 stages
+// of up to 8 slots a thread in shared memory (96 KB a block at F >= 15, 84
+// KB at 14), issued one receiver row ahead of the fold, so the gather's
+// latency is hidden by bytes in flight rather than by warps; the next
+// row's lanes and alive bit load into registers as this row gathers; the
+// epilogue (merge_elem.cuh) runs entry by entry on the 16-byte lane
+// pieces, loaded and stored once, evict-first.  Counts are bytes in
+// registers, summed over the warp by shuffles, one shared atomic a column
+// and warp, then one global atomic a column and output an item (the parent
+// added one every 16 rows: 19.7M atomics a call at config 3).  Items run
+// row ranges fastest inside a stripe, sized (item_rows) so that the blocks
+// the card holds at once gather from ~24 MB of view strips, half the L2:
+// the parent's 1,024-column tiles put a 134 MB strip behind config 4's
+// shard. fm_info reports the geometry.  Dead receivers skip their gather
+// (best stays -1), a sender outside [0, n) is absent.  No fallback: a
+// refused launch returns its error and the wrapper raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "merge_rows.cuh"
+#include "gather_ring.cuh"
+
+using namespace mstripe;
+
+namespace {
+
+struct Params {
+  const void* view;
+  const int32_t* edges;
+  void* hb;
+  int8_t* asl;
+  const int32_t* sa;
+  const int32_t* sb;
+  const uint8_t* alive;
+  int32_t* out;
+  int n, nc, fanout, age_clamp, rows;  // rows: an item's receiver rows
+};
+
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+__global__ void __launch_bounds__(gring::kThreads, 2)
+fused_kernel(const Params p) {
+  using gring::kLanes;
+  using gring::kStepRows;
+  constexpr int kE = kSegBytes / sizeof(V);
+  constexpr int cols = kLanes * kE;
+  const int n = p.n;
+  const int nc = p.nc;
+  const int splits = (n + p.rows - 1) / p.rows;
+  const int col0 = (int)(blockIdx.x / splits) * cols;
+  const int r0 = (int)(blockIdx.x % splits) * p.rows;
+  const int rows = min(p.rows, n - r0);
+  const int t = threadIdx.x;
+  __shared__ int32_t cnt[kBlockInts];
+  __shared__ __align__(16) int32_t shifts[2][kMaxCols];
+  extern __shared__ __align__(16) unsigned char smem[];
+  for (int i = t; i < kBlockInts; i += gring::kThreads)
+    cnt[i] = blank_count(i, n);
+  if (t < 2 * cols) {
+    const int c = col0 + t % cols;
+    shifts[t / cols][t % cols] = c < nc ? (t < cols ? p.sa[c] : p.sb[c]) : 0;
+  }
+  __syncthreads();
+  const gring::FmArgs<V, H> a{static_cast<const V*>(p.view), p.edges,
+                              static_cast<H*>(p.hb), p.asl, p.alive, n, nc,
+                              p.fanout, p.age_clamp};
+  Counts<kE> cn;
+  clear(cn);
+  gring::fm_thread<V, H, kSus, kDet, kVec>(
+      a, r0, rows, col0, t, reinterpret_cast<int8_t*>(smem), shifts[0],
+      shifts[1], [](int8_t* d, const int8_t* s) { copy16(d, s); },
+      [] { asm volatile("cp.async.commit_group;" ::: "memory"); },
+      [] {
+        asm volatile("cp.async.wait_group %0;" ::"n"(gring::kDepth - 1)
+                     : "memory");
+      },
+      cn);
+  flush_counts<kSus, kDet, kE>(cnt, cn, t % kLanes, kLanes, n, [&](int st) {
+    return r0 + st * kStepRows + t / kLanes;
+  });
+  __syncthreads();
+  add_block_counts<kSus, kDet>(cnt, p.out, col0, cols, nc, n);
+}
+
+// the launch, or its geometry into ``info``
+template <typename V, typename H, bool kVec, bool kSus, bool kDet>
+cudaError_t launch(Params p, int* info, cudaStream_t s) {
+  auto kern = fused_kernel<V, H, kVec, kSus, kDet>;
+  const gring::Plan pl = gring::plan(p.fanout);
+  const int smem = (int)gring::ring_bytes(pl.chunk);
+  // the opt-in shared memory raised once a card, and the blocks an SM holds
+  // at this ring's size asked once a size and card
+  constexpr int kMaxCards = 64;
+  static bool raised[kMaxCards] = {};
+  static int asked[kMaxCards] = {};
+  static int held[kMaxCards] = {};
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return e;
+  if (card >= kMaxCards) return cudaErrorInvalidDevice;
+  if (!raised[card]) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gring::ring_bytes(gring::kSlots));
+    if (e != cudaSuccess) return e;
+    raised[card] = true;
+  }
+  if (asked[card] != smem) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      gring::kThreads, smem);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    asked[card] = smem;
+    held[card] = per_sm * sms;
+  }
+  p.rows = gring::item_rows(p.n, held[card]);
+  constexpr int cols = gring::kLanes * (kSegBytes / (int)sizeof(V));
+  const int stripes = (p.nc + cols - 1) / cols;
+  const int splits = (p.n + p.rows - 1) / p.rows;
+  if (info != nullptr) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+    if (e != cudaSuccess) return e;
+    const int v[10] = {cols,          p.rows,      gring::kDepth, pl.chunk,
+                       smem,          gring::kThreads, held[card] / sms,
+                       fa.numRegs,    (int)fa.localSizeBytes, stripes * splits};
+    for (int i = 0; i < 10; ++i) info[i] = v[i];
+    return cudaSuccess;
+  }
+  kern<<<stripes * splits, gring::kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename V, typename H, bool kVec>
+cudaError_t launch_v(const Params& p, int detect, int suspect, int* info,
+                     cudaStream_t s) {
+  if (detect)
+    return suspect ? launch<V, H, kVec, true, true>(p, info, s)
+                   : launch<V, H, kVec, false, true>(p, info, s);
+  return suspect ? launch<V, H, kVec, true, false>(p, info, s)
+                 : launch<V, H, kVec, false, false>(p, info, s);
+}
+
+template <typename V, typename H>
+cudaError_t launch_vh(const Params& p, bool vec, int detect, int suspect,
+                      int* info, cudaStream_t s) {
+  return vec ? launch_v<V, H, true>(p, detect, suspect, info, s)
+             : launch_v<V, H, false>(p, detect, suspect, info, s);
+}
+
+int run(const void* view, const void* edges, void* hb, void* asl,
+        const void* sa, const void* sb, const void* alive, void* out, int n,
+        int nc, int fanout, int view_bytes, int hb_bytes, int detect,
+        int suspect, int age_clamp, int aligned, int* info, void* stream) {
+  if (n <= 0 || nc <= 0 || nc > n || fanout < 1 || fanout > 512 ||
+      age_clamp < 0 || age_clamp > 63)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.view = view;
+  p.edges = static_cast<const int32_t*>(edges);
+  p.hb = hb;
+  p.asl = static_cast<int8_t*>(asl);
+  p.sa = static_cast<const int32_t*>(sa);
+  p.sb = static_cast<const int32_t*>(sb);
+  p.alive = static_cast<const uint8_t*>(alive);
+  p.out = static_cast<int32_t*>(out);
+  p.n = n;
+  p.nc = nc;
+  p.fanout = fanout;
+  p.age_clamp = age_clamp;
+  p.rows = 0;
+  // 16-byte segments: every row's stripe segment whole and aligned
+  const bool vec = aligned != 0 && nc % kSegBytes == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FM_LAUNCH(V, H) \
+  (int)launch_vh<V, H>(p, vec, detect, suspect, info, s)
+  if (view_bytes == 1 && hb_bytes == 1) return FM_LAUNCH(int8_t, int8_t);
+  if (view_bytes == 1 && hb_bytes == 2) return FM_LAUNCH(int8_t, int16_t);
+  if (view_bytes == 1 && hb_bytes == 4) return FM_LAUNCH(int8_t, int32_t);
+  if (view_bytes == 2 && hb_bytes == 2) return FM_LAUNCH(int16_t, int16_t);
+  if (view_bytes == 2 && hb_bytes == 4) return FM_LAUNCH(int16_t, int32_t);
+#undef FM_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // Launch K2 on ``stream`` over column blocks: n rows, nc subject columns
 // (nc = n for a square round, n / shards on a subject shard).  view:
-// int8/int16 [n, nc]; edges: int32 [n, fanout] in [0, n); hb: int8/16/32
-// [n, nc] and asl: int8 [n, nc], post-tick, updated in place; sa, sb:
-// int32 [nc]; alive: bool [n]; out: int32 [3, nc] = cnt_incl, n_det,
-// first_obs ([5, nc] with refuted and held when ``suspect``), initialised
-// by the caller.  Returns the CUDA error code of the launch (0 on
-// success).
+// int8/int16 [n, nc]; edges: int32 [n, fanout] (1 <= fanout <= 512; a
+// sender outside [0, n) is absent); hb: int8/16/32 [n, nc] and asl: int8
+// [n, nc], post-tick, updated in place; sa, sb: int32 [nc]; alive: bool
+// [n]; out: int32 [3, nc] = cnt_incl, n_det, first_obs ([5, nc] with
+// refuted and held when ``suspect``), initialised by the caller (zeros,
+// first_obs n when detect).  ``aligned``: 16-byte aligned lanes with nc %
+// 4 == 0 (16-byte accesses where also nc % 16 == 0).  Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int fm_merge(const void* view, const void* edges, void* hb,
                         void* asl, const void* sa, const void* sb,
                         const void* alive, void* out, int n, int nc,
-                        int fanout,
-                        int view_bytes, int hb_bytes, int detect, int suspect,
-                        int age_clamp, int aligned, void* stream) {
-  return (int)merge_rows::launch_rows(
-      view_bytes, hb_bytes, view, static_cast<const int32_t*>(edges), fanout,
-      hb, asl, static_cast<const int32_t*>(sa),
-      static_cast<const int32_t*>(sb), static_cast<const uint8_t*>(alive),
-      static_cast<int32_t*>(out), n, nc, detect, suspect, age_clamp,
-      aligned != 0, static_cast<cudaStream_t>(stream));
+                        int fanout, int view_bytes, int hb_bytes, int detect,
+                        int suspect, int age_clamp, int aligned,
+                        void* stream) {
+  return run(view, edges, hb, asl, sa, sb, alive, out, n, nc, fanout,
+             view_bytes, hb_bytes, detect, suspect, age_clamp, aligned,
+             nullptr, stream);
+}
+
+// The geometry of what fm_merge would launch for this shape, into info[10]
+// (launches nothing): stripe columns, receiver rows an item, ring stages,
+// slots a stage and thread, ring bytes a block, threads a block, blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+// memory (spills) a thread, items (blocks) of the launch.
+extern "C" int fm_info(int n, int nc, int fanout, int view_bytes,
+                       int hb_bytes, int detect, int suspect, int aligned,
+                       int* info) {
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+             nullptr, n, nc, fanout, view_bytes, hb_bytes, detect, suspect,
+             63, aligned, info, nullptr);
 }

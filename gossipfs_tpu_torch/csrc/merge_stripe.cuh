@@ -124,6 +124,16 @@ MS_HD int pow2_floor(int f) {
   return p;
 }
 
+// Hopper's 3-input s32 max (a DPX instruction), and its host form
+MS_HD uint32_t vimax3_s32(uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  return (uint32_t)__vimax3_s32((int)a, (int)b, (int)c);
+#else
+  const int m = (int)a > (int)b ? (int)a : (int)b;
+  return (uint32_t)(m > (int)c ? m : (int)c);
+#endif
+}
+
 // A signed max of two 16-byte segments of V values.
 template <typename V>
 MS_HD Seg max_seg(const Seg& a, const Seg& b) {
@@ -134,8 +144,10 @@ MS_HD Seg max_seg(const Seg& a, const Seg& b) {
       onepass::ByteMax m(a.w[k]);
       m.add2(b.w[k], b.w[k]);
       r.w[k] = m.word();
-    } else {
+    } else if (sizeof(V) == 2) {
       r.w[k] = onepass::vimax3_s16x2(a.w[k], b.w[k], b.w[k]);
+    } else {
+      r.w[k] = vimax3_s32(a.w[k], b.w[k], b.w[k]);
     }
   }
   return r;
@@ -610,6 +622,31 @@ __device__ __forceinline__ void flush_counts(int32_t* cnt,
   if (kSus) {
     sum(kOutRef, cn.ref);
     sum(kOutHeld, cn.held);
+  }
+}
+
+// A block's count block ``cnt`` (complete: after the barrier that follows
+// every thread's flush_counts) for its stripe of ``cols`` columns from
+// ``col0`` into the initialised outputs ``out`` [3 or 5, nc], by every
+// thread of the block: one global atomic a column and output, none for a
+// zero sum or a column where no row fired.
+template <bool kSus, bool kDet>
+__device__ __forceinline__ void add_block_counts(const int32_t* cnt,
+                                                 int32_t* out, int col0,
+                                                 int cols, int nc, int n) {
+  for (int i = threadIdx.x; i < kOuts * cols; i += blockDim.x) {
+    const int s = i / cols;
+    const int c = i % cols;
+    if (col0 + c >= nc || (!kSus && s >= kOutRef) ||
+        (!kDet && (s == kOutDet || s == kOutFobs)))
+      continue;
+    const int v = cnt[s * kMaxCols + c];
+    int32_t* o = out + (size_t)s * nc + col0 + c;
+    if (s == kOutFobs) {
+      if (v < n) atomicMin(o, v);
+    } else if (v) {
+      atomicAdd(o, v);
+    }
   }
 }
 #endif

@@ -41,9 +41,11 @@ SIGNATURES = {
     },
     "fanout_max": {
         "fx_fanout_max": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+        "fx_info": (_I, [_I] * 4 + [_P]),
     },
     "fused_merge": {
         "fm_merge": (_I, [_P] * 8 + [_I] * 9 + [_P]),
+        "fm_info": (_I, [_I] * 8 + [_P]),
     },
     "stripe_merge": {
         "sm_merge": (_I, [_P] * 8 + [_I] * 9 + [_P]),

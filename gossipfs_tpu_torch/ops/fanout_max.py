@@ -9,9 +9,10 @@ only where the view is >= -1 (every gossip view is: -1 means absent).
 
 :func:`fanout_max_merge_plain` is the function in plain PyTorch;
 :func:`fanout_max_merge` runs it for CPU tensors and launches the CUDA
-kernel (``csrc/fanout_max.cu``) for CUDA tensors.  The gather itself
-(``csrc/gather_rows.cuh``) is the inner loop of the resident round's
-explicit-edge merge (ops/merge.resident_round).
+kernel (``csrc/fanout_max.cu``) for CUDA tensors.  Its gather
+(``csrc/gather_ring.cuh``) is K2's: 16 bytes a thread of a 128-byte
+column stripe, each receiver's sender segments copied asynchronously into
+a ring in shared memory ahead of the fold.
 
 Source note.  Replaces ``fanout_max_merge`` (merge_pallas.py:146).  Bound
 on the H100: bytes, the view read once and the output written once

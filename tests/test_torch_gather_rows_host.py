@@ -1,14 +1,19 @@
-"""Host build of the F-row gather-maxes (csrc/gather_rows.cuh, rr_onepass.cuh).
+"""Host build of the F-row gather-maxes (csrc/gather_ring.cuh, rr_onepass.cuh).
 
-K1 (csrc/fanout_max.cu) gathers through ``gather_rows.cuh``, and the
-explicit-edge and plain-arc merge passes of the resident round (both K3
-forms, csrc/resident_round.cu and rr_onepass.cu) through
-``rr_onepass.cuh``'s ``gather_rows``, 16 bytes a row; both headers are
-``__host__ __device__`` code.  Here g++ compiles a small harness from the
-same headers; ``ctypes`` runs it over numpy inputs:
+K1 (csrc/fanout_max.cu) gathers through ``gather_ring.cuh`` (the ring that
+K2 shares: 16 bytes a thread of a 128-byte stripe, a receiver's senders
+copied into shared memory ahead of the fold), and the explicit-edge and
+plain-arc merge passes of the resident round (both K3 forms,
+csrc/resident_round.cu and rr_onepass.cu) through ``rr_onepass.cuh``'s
+``gather_rows``, 16 bytes a row; both headers are ``__host__ __device__``
+code.  Here g++ compiles a small harness from the same headers; ``ctypes``
+runs it over numpy inputs:
 
-* K1's loop (16-row blocks of 4-column groups, element loads at a ragged
-  N) must equal ``fanout_max_merge_plain`` for every view type;
+* K1 replayed item by item (a stripe of columns by a range of receiver
+  rows, its 256 threads one after another through ``fx_thread``, the ring
+  in a host array) must equal ``fanout_max_merge_plain`` for every view
+  type, on the 16-byte and the element path, over several items a stripe,
+  fanouts of several ring chunks and senders outside [0, N);
 * a host replay of the resident round's explicit-edge and plain-arc forms
   (pass A writing the whole encoded view, pass B gathering each live
   receiver's F sender rows 16 bytes at a time, the epilogue and the
@@ -40,33 +45,47 @@ CSRC = Path(__file__).resolve().parent.parent / "gossipfs_tpu_torch" / "csrc"
 HARNESS = r"""
 #include <cstdint>
 #include <algorithm>
-#include "gather_rows.cuh"
+#include <cstring>
+#include <vector>
+#include "gather_ring.cuh"
 #include "rr_onepass.cuh"
 #include "rr_elem.cuh"
 
-template <typename T>
+static void copy16(int8_t* d, const int8_t* s) { std::memcpy(d, s, 16); }
+
+// fanout_max.cu's kernel replayed item by item: items of ``rows`` receiver
+// rows by a 128-byte stripe, every thread's fx_thread.
+template <typename T, bool kVec>
 static void k1(const T* view, const int32_t* edges, T* out, int n,
-               int fanout) {
-  for (int row = 0; row < n; ++row)
-    for (int col0 = 0; col0 < n; col0 += 4) {
-      const int valid = std::min(4, n - col0);
-      const int32_t* e = edges + (size_t)row * fanout;
-      int best[4];
-      gather_rows::gather_max<T, 4, false>(
-          view, n, col0, valid, fanout, [e](int f) { return e[f]; }, best);
-      gather_rows::store_row<T, 4, false>(out + (size_t)row * n + col0,
-                                          valid, best);
-    }
+               int fanout, int rows) {
+  constexpr int cols = gring::kLanes * (mstripe::kSegBytes / sizeof(T));
+  std::vector<int8_t> ring(gring::ring_bytes(gring::plan(fanout).chunk));
+  for (int col0 = 0; col0 < n; col0 += cols)
+    for (int r0 = 0; r0 < n; r0 += rows)
+      for (int t = 0; t < gring::kThreads; ++t)
+        gring::fx_thread<T, kVec>(view, edges, out, n, fanout, r0,
+                                  std::min(rows, n - r0), col0, t,
+                                  ring.data(), copy16, [] {}, [] {});
 }
 
-extern "C" void host_k1(int bytes, const void* view, const int32_t* edges,
-                        void* out, int n, int fanout) {
-  if (bytes == 1)
-    k1((const int8_t*)view, edges, (int8_t*)out, n, fanout);
-  else if (bytes == 2)
-    k1((const int16_t*)view, edges, (int16_t*)out, n, fanout);
+template <typename T>
+static void k1_v(int vec, const void* view, const int32_t* edges, void* out,
+                 int n, int fanout, int rows) {
+  if (vec)
+    k1<T, true>((const T*)view, edges, (T*)out, n, fanout, rows);
   else
-    k1((const int32_t*)view, edges, (int32_t*)out, n, fanout);
+    k1<T, false>((const T*)view, edges, (T*)out, n, fanout, rows);
+}
+
+extern "C" void host_k1(int bytes, int vec, const void* view,
+                        const int32_t* edges, void* out, int n, int fanout,
+                        int rows) {
+  if (bytes == 1)
+    k1_v<int8_t>(vec, view, edges, out, n, fanout, rows);
+  else if (bytes == 2)
+    k1_v<int16_t>(vec, view, edges, out, n, fanout, rows);
+  else
+    k1_v<int32_t>(vec, view, edges, out, n, fanout, rows);
 }
 
 // The resident round's full-view forms, replayed: ``arc`` 0 takes
@@ -157,19 +176,58 @@ def call(fn, *args):
          else ctypes.c_int(a) for a in args])
 
 
+def check_k1(host_lib, view, edges, want, rows: int) -> None:
+    """The replay (each path: the 16-byte one where N % 16 == 0) over
+    items of ``rows`` receiver rows equals ``want``."""
+    n, fanout = edges.shape
+    for vec in ((0, 1) if n % 16 == 0 else (0,)):
+        out = np.zeros_like(view)
+        call(host_lib.host_k1, view.itemsize, vec, view, edges, out, n,
+             fanout, rows)
+        np.testing.assert_array_equal(out, want, err_msg=f"vec={vec}")
+
+
+def k1_view(rng, n: int, dtype):
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, (n, n), endpoint=True,
+                        dtype=np.int64).astype(dtype)
+
+
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
 @pytest.mark.parametrize("n,fanout", [(256, 8), (130, 5)])
 def test_k1_loop_matches_plain(host_lib, n, fanout, dtype):
+    """K1 over each view type, one item a stripe: N = 256 on both paths,
+    a ragged N = 130 on the element path."""
     rng = np.random.default_rng(n + fanout)
-    info = np.iinfo(dtype)
-    view = rng.integers(info.min, info.max, (n, n), endpoint=True,
-                        dtype=np.int64).astype(dtype)
+    view = k1_view(rng, n, dtype)
     edges = rng.integers(0, n, (n, fanout)).astype(np.int32)
-    out = np.empty_like(view)
-    call(host_lib.host_k1, view.itemsize, view, edges, out, n, fanout)
     want = fx.fanout_max_merge_plain(torch.from_numpy(view),
                                      torch.from_numpy(edges)).numpy()
-    np.testing.assert_array_equal(out, want)
+    check_k1(host_lib, view, edges, want, -(-n // 32) * 32)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("n,fanout,rows", [(200, 40, 96), (320, 14, 32),
+                                           (97, 1, 32)],
+                         ids=["f40", "items", "f1ragged"])
+def test_k1_ring_matches_plain(host_lib, n, fanout, rows, dtype):
+    """K1 over each view type through several items a stripe, fanouts of
+    one and of five ring chunks, with a fifth of the senders outside
+    [0, N): those are skipped, which the plain version reads as a row of
+    the type's minimum in their place (row 0, named by no other edge)."""
+    rng = np.random.default_rng(n * fanout)
+    view = k1_view(rng, n, dtype)
+    edges = rng.integers(1, n, (n, fanout)).astype(np.int32)
+    ref = edges.copy()
+    bad = rng.random(edges.shape) < 0.2
+    edges[bad] = rng.choice(np.array([-1, n, n + 7, 2**31 - 1], np.int32),
+                            int(bad.sum()))
+    ref[bad] = 0
+    low = view.copy()
+    low[0] = np.iinfo(dtype).min
+    want = fx.fanout_max_merge_plain(torch.from_numpy(low),
+                                     torch.from_numpy(ref)).numpy()
+    check_k1(host_lib, view, edges, want, rows)
 
 
 @pytest.mark.parametrize("form", ["edges", "arc"])

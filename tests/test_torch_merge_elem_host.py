@@ -8,8 +8,10 @@ from that same header; ``ctypes`` runs it over numpy inputs:
   states, the lane types' extremes and floor sentinels, view values up to
   both windows, shifts deep negative to far positive) must equal
   ``epilogue_plain`` exactly, for each heartbeat lane type;
-* host replays of the kernels' loops must equal the plain versions on
-  whole merges: K2's receiver-row pass; K4's one launch through its own
+* host replays must equal the plain versions on whole merges: K2's
+  function as a loop over receivers, senders and subjects around the
+  epilogue (K2's own per-thread bodies are replayed in
+  tests/test_torch_fused_merge_host.py); K4's one launch through its own
   per-thread bodies (csrc/merge_stripe.cuh: the cluster's parks as host
   arrays, the window max by shift doubling in the park, the receivers'
   reads of it, the counts), over every view and lane type pair, ragged N,
@@ -62,8 +64,8 @@ extern "C" void host_epilogue(int m, const int32_t* best, const int32_t* hb,
   }
 }
 
-// merge_rows.cuh's receiver-row pass, replayed: int8 view, int16 lanes.
-// out = [3, n] int32, initialised by the caller.
+// K2's function around the epilogue, receiver by receiver: int8 view,
+// int16 lanes.  out = [3, n] int32, initialised by the caller.
 extern "C" void host_rows(int n, int fanout, const int8_t* view,
                           const int32_t* senders, int16_t* hb, int8_t* asl,
                           const int32_t* sa, const int32_t* sb,
