@@ -63,9 +63,9 @@ using onepass::Seg;
 constexpr int kThreads = 256;                 // threads a block
 constexpr int kLanes = kMaxRowBytes / kSegBytes;  // threads a row: 8
 constexpr int kStepRows = kThreads / kLanes;  // rows a step: 32
-constexpr int kDepth = 3;                     // ring stages
+constexpr int kDepth = 2;                     // ring stages
 constexpr int kSlots = 8;                     // a stage's slots a thread, most
-constexpr long kL2Budget = 24L << 20;         // view strips in flight, bytes
+constexpr long kL2Budget = 12L << 20;         // view strips in flight, bytes
 // a thread's rows an item at most: its counters (and the first observer's
 // step) are bytes
 constexpr int kMaxItemRows = mstripe::kMaxSweep * kStepRows;

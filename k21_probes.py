@@ -6,8 +6,9 @@ committed source with lines replaced), timed in turns (every variant, then
 every variant in reverse order; best of 3 x 10 calls each time, CUDA
 events) at chip_smoke.py's timed shapes: K2 at config 3 (N = 10,240,
 F = 14, int8 view, int16 hb, detection stats), on K5's inputs (N = 16,384,
-F = 14, all-int8, suspicion) and on config 4's shard [131,072 x 16,384]
-(F = 17, int16 hb); K1 at N = 16,384, F = 14, int8.  Every variant but
+F = 14, all-int8, suspicion), on main path G's block [32,768 x 16,384]
+(F = 15, int16 hb) and on config 4's shard [131,072 x 16,384] (F = 17,
+int16 hb); K1 at N = 16,384, F = 14, int8.  Every variant but
 ``no_gather`` must give the committed kernels' outputs bit for bit.
 
     python3 k21_probes.py          # prints one JSON line last
@@ -38,13 +39,9 @@ SYNC = ("[](int8_t* d, const int8_t* s) { onepass::store_seg(d, "
 VARIANTS = {
     # name: [(file, text as committed, replacement), ...]
     "committed": [],
-    # the copies one chunk ahead of the fold, not two
-    "depth2": [(RING, "constexpr int kDepth = 3;", "constexpr int kDepth = 2;")],
-    # three chunks ahead, in stages of at most 6 slots (F = 14: 3 chunks)
-    "depth4_slots6": [
-        (RING, "constexpr int kDepth = 3;", "constexpr int kDepth = 4;"),
-        (RING, "constexpr int kSlots = 8;", "constexpr int kSlots = 6;")],
-    # stages of at most 9 slots (F = 17: 2 chunks, 110.6 KB of ring)
+    # the copies two chunks ahead of the fold, not one
+    "depth3": [(RING, "constexpr int kDepth = 2;", "constexpr int kDepth = 3;")],
+    # stages of at most 9 slots (F = 17: 2 chunks)
     "slots9": [(RING, "constexpr int kSlots = 8;", "constexpr int kSlots = 9;")],
     # the ring filled by plain 16-byte loads through registers
     "sync_copy": [(FM, ASYNC, SYNC), (FX, ASYNC_FX, SYNC)],
@@ -62,9 +59,12 @@ VARIANTS = {
          "cols;\n"
          "  const int r0 = (int)(blockIdx.x / ((n + cols - 1) / cols)) * "
          "item_rows;")],
-    # items of half the rows: the blocks in flight span half the strips
-    "half_items": [(RING, "  const long splits = (held + strips - 1) / strips;",
-                    "  const long splits = 2 * ((held + strips - 1) / strips);")],
+    # the blocks in flight over ~24 MB or ~6 MB of view strips, not ~12
+    "budget24": [(RING, "kL2Budget = 12L << 20;", "kL2Budget = 24L << 20;")],
+    "budget6": [(RING, "kL2Budget = 12L << 20;", "kL2Budget = 6L << 20;")],
+    # K1 at 3 blocks an SM (its registers allow it; K2 unchanged)
+    "k1_blocks3": [(FX, "__launch_bounds__(gring::kThreads, 2)",
+                    "__launch_bounds__(gring::kThreads, 3)")],
     # no gather (best = the fold's identity): outputs not checked
     "no_gather": [(RING, "      if (ids.live) {", "      if (false) {"),
                   (RING, "        return recv;\n      },",
@@ -197,6 +197,9 @@ def main() -> int:
         libs[(name, "fused_merge")].fm_info(131_072, 16_384, 17, 1, 2, 1, 0,
                                             1, ctypes.byref(info))
         print(f"fm_info config 4 shard {name}: {list(info)}", flush=True)
+        libs[(name, "fanout_max")].fx_info(16_384, 14, 1, 1,
+                                           ctypes.byref(info))
+        print(f"fx_info {name}: {list(info)}", flush=True)
     res = {}
     a = cs.merge_inputs(10_240, 14, np.int8, np.int16, cs.SEED + 10_240)
     args = (a[0], a[1], *a[3:])
@@ -209,6 +212,14 @@ def main() -> int:
     runs = k2_case(libs, "k2_on_k5_shape", args,
                    dict(detect_stats=False, suspect=True))
     res["k2_on_k5_shape"] = in_turns("k2_on_k5_shape", runs)
+    del a, args, runs
+    torch.cuda.empty_cache()
+    a = cs.big_merge_inputs(32_768, 16_384, 15, torch.int16,
+                            cs.SEED + 32_768 + 16_384)
+    args = (a[0], a[1], *a[3:])
+    runs = k2_case(libs, "k2_block", args,
+                   dict(detect_stats=True, suspect=False))
+    res["k2_block"] = in_turns("k2_block", runs)
     del a, args, runs
     torch.cuda.empty_cache()
     a = cs.big_merge_inputs(cs.N_CONFIG4, cs.N_CONFIG4 // 8, 17, torch.int16,
