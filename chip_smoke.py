@@ -53,8 +53,11 @@ Phases (any failure exits non-zero before the last line is printed):
     churn (joins are matrix events), 100 rounds: 100 K4 launches;
     rounds/s and peak memory; the same stage split;
 12. capacity under config 4's fault model (5 % crash, 5 % rejoin, random
-    fanout 16, int16 lanes, int8 view) at N = 65,536, 10 rounds: rounds/s
-    and peak memory, which must stay under 40 GiB;
+    fanout 16, int16 lanes, int8 view) at N = 65,536, 10 rounds: exactly
+    10 K2 launches and no other kernel's, rounds/s, K2's device ms a round
+    (CUDA events around each launch: the largest K2 a main path launches)
+    beside the whole round's, and peak memory, which must stay under 40
+    GiB;
 13. K3's suspicion form against plain, one round at N = 16,384 on random
     pre-tick lanes with SUSPECT entries on both sides of both confirm ages
     and flags bit 4 on half the rows, with and without the Lifeguard lane:
@@ -216,13 +219,18 @@ Phases (any failure exits non-zero before the last line is printed):
     the last column block [65,536 x 8,192], lanes and SWAR, each against
     the plain version on random pre-tick lanes made on the card: ``0
     entries differ``; ms a round, each launch's ms under the profiler,
-    plain ms and byte bound.
+    plain ms and byte bound;
+42. the geometry of K2 and K1 (``fm_info``, ``fx_info``: stripe columns,
+    rows an item, ring stages and slots, ring bytes, threads, blocks an
+    SM, items), K4 and K5 at every shape they are timed at, with each
+    kernel's registers and local memory a thread.
 
 The last five lines printed are phase 40's times in one JSON line
 (``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
 counts (one JSON line, with each path's ``rr_resident="off"`` run as
 ``"<phase> off"``; capacity, the frontier and the detector's advance as
-phases 6, 22, 34 and 23), the kernels JSON (the five kernels; K3's
+phases 6, 22, 34 and 23; config 4's fault model as phase 12, with K2's ms
+a round), the kernels JSON (the five kernels; K3's
 one-pass form per merge form and SWAR form in its paths' modes and over
 F/F''s blocks, its two-launch form once per merge form and once per SWAR
 form and at phase 41's shapes, the column-shard forms of K3, K2, K4 and
@@ -886,7 +894,7 @@ def stage_split(cfg, rounds: int, run_kw: dict, round_ms: float) -> dict:
     # their device time by kernel name
     split["round.merge"] = split.get("round.merge", 0.0) + sum(
         e.self_device_time_total for e in kernels
-        if any(k in e.key for k in ("merge_rows_kernel", "window_max_kernel",
+        if any(k in e.key for k in ("fused_kernel", "window_max_kernel",
                                     "window_tile_kernel", "arc_rows_kernel",
                                     "stripe_kernel"))
     ) / 1e3 / rounds
@@ -951,7 +959,7 @@ def phase_eventful_arc(results: dict, rounds: int) -> None:
     results["arc"]["split"] = stage_split(cfg, 10, kw, wall / rounds * 1e3)
 
 
-def phase_config4_capacity(rounds: int) -> None:
+def phase_config4_capacity(rounds: int, results: dict) -> None:
     import dataclasses
 
     import torch
@@ -961,6 +969,7 @@ def phase_config4_capacity(rounds: int) -> None:
     from gossipfs_tpu_torch.core.rounds import run_rounds
     from gossipfs_tpu_torch.core.state import init_state
     from gossipfs_tpu_torch.models.presets import ALL
+    from gossipfs_tpu_torch.ops import merge
 
     sc = ALL["sim-100k"]
     cfg = dataclasses.replace(sc.config, n=N_CAPACITY,
@@ -971,20 +980,34 @@ def phase_config4_capacity(rounds: int) -> None:
     key = trandom.PRNGKey(1, device="cuda")
     state, _, _ = run_rounds(state, cfg, 1, key, **kw)  # allocator warm-up
     torch.cuda.synchronize()
+    merge.reset_launch_counts()
     t0 = time.perf_counter()
-    final, _, per_round = run_rounds(state, cfg, rounds, key, **kw)
-    torch.cuda.synchronize()
+    with merge.record_launch_events() as evs:
+        final, _, per_round = run_rounds(state, cfg, rounds, key, **kw)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    launches = dict(merge.LAUNCH_COUNTS)
+    want = {k: (rounds if k == "fused_merge_update" else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"config 4 capacity launched {launches}, want "
+                             f"{want}")
+    # K2's device time: CUDA events around each of its launches
+    k2_ms = sum(s.elapsed_time(e) for s, e in evs) / rounds
     alive = per_round.n_alive.cpu()
     log(f"  N={cfg.n}, fanout {cfg.fanout}, hb {cfg.hb_dtype}, view "
         f"{cfg.view_dtype}: {rounds} rounds in {wall:.4f} s, "
-        f"{rounds / wall:.3f} rounds/s; peak memory {peak / 2**30:.3f} GiB; "
-        f"alive {int(alive[-1])}")
+        f"{rounds / wall:.3f} rounds/s; whole round "
+        f"{wall / rounds * 1e3:.4f} ms, K2 fused_merge_update "
+        f"{k2_ms:.4f} ms a round (CUDA events around each launch); peak "
+        f"memory {peak / 2**30:.3f} GiB; alive {int(alive[-1])}")
     if peak >= 40 * 2**30:
         raise AssertionError(f"capacity peak {peak / 2**30:.3f} GiB >= 40")
     if not (0 < int(alive[-1]) < cfg.n and final.round == rounds + 1):
         raise AssertionError("config 4 capacity run out of range")
+    results["config4"] = dict(round_ms=wall / rounds * 1e3,
+                              rounds_per_s=rounds / wall, kernel_ms=k2_ms,
+                              launch_counts=launch_counts())
 
 
 SUS_KW = dict(t_fail=3, t_cooldown=12, fanout=16, arc_align=8)
@@ -3571,9 +3594,17 @@ def phase_k3_two_launch_large(results: dict) -> None:
         "[65,536 x 8,192] (tolerance 0)")
 
 
-# K4's and K5's timed shapes: (key, kernel, N, C, F, hb bytes, detection
-# stats, suspect) at phases 8, 14, 19 and 36, and phase 8's van Herk case
-K45_SHAPES = (
+# K2's, K1's, K4's and K5's timed shapes: (key, kernel, N, C, F, hb bytes
+# (K1: view bytes), detection stats, suspect) at phases 7, 8, 14, 18, 19 and
+# 36, and phase 8's van Herk case; K2's views are int8
+GEOMETRY_SHAPES = (
+    ("k2", "fused", 10_240, 10_240, 14, 2, True, False),
+    ("k2_sus", "fused", 10_240, 10_240, 14, 2, True, True),
+    ("k2_on_k5_shape", "fused", N_MAIN, N_MAIN, 14, 1, False, True),
+    ("k2_block", "fused", 32_768, 16_384, 15, 2, True, False),
+    ("k2_block_config4", "fused", N_CONFIG4, N_CONFIG4 // 8, 17, 2, True,
+     False),
+    ("k1", "fanout", N_MAIN, N_MAIN, 14, 1, False, False),
     ("k4", "arc", N_MAIN, N_MAIN, 16, 1, True, False),
     ("k4_sus", "arc", N_MAIN, N_MAIN, 16, 1, True, True),
     ("k4_block", "arc", N_CAPACITY, N_CAPACITY // 8, 16, 1, True, False),
@@ -3585,22 +3616,31 @@ K45_SHAPES = (
 )
 
 
-def phase_k45_geometry(results: dict) -> None:
-    """K4 and K5 at every timed shape, from the kernels' own sm_info /
-    am_info: K5's CTAs a cluster, stripe columns, park row bytes, threads
-    a CTA, the clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters), registers and local memory (spills)
-    a thread and shared memory a CTA; K4's row pass (stripe columns,
-    threads and blocks an SM, registers, local memory) and window tile
-    (shared memory; 0 for the van Herk window)."""
+def phase_merge_geometry(results: dict) -> None:
+    """K2, K1, K4 and K5 at every timed shape, from the kernels' own
+    fm_info / fx_info / am_info / sm_info: K2's and K1's stripe columns,
+    rows an item, ring stages and slots a stage, ring bytes, threads and
+    blocks an SM, items; K5's CTAs a cluster, stripe columns, park row
+    bytes, threads a CTA, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) and shared memory a CTA; K4's row
+    pass (stripe columns, threads and blocks an SM) and window tile
+    (shared memory; 0 for the van Herk window); every kernel's registers
+    and local memory (spills) a thread."""
     import ctypes
 
     from gossipfs_tpu_torch.ops import _build
 
     out = {}
-    for key, kernel, n, c, f, hb_bytes, det, sus in K45_SHAPES:
-        info = (ctypes.c_int * 8)()
-        if kernel == "arc":
+    for key, kernel, n, c, f, hb_bytes, det, sus in GEOMETRY_SHAPES:
+        info = (ctypes.c_int * 10)()
+        if kernel == "fused":
+            rc = _build.load("fused_merge").fm_info(
+                n, c, f, 1, hb_bytes, int(det), int(sus), 1,
+                ctypes.byref(info))
+        elif kernel == "fanout":
+            rc = _build.load("fanout_max").fx_info(n, f, hb_bytes, 1,
+                                                   ctypes.byref(info))
+        elif kernel == "arc":
             rc = _build.load("arc_merge").am_info(
                 n, c, f, 1, hb_bytes, int(det), int(sus), 1,
                 ctypes.byref(info))
@@ -3611,7 +3651,18 @@ def phase_k45_geometry(results: dict) -> None:
             raise RuntimeError(f"{kernel} info [{n} x {c}]: CUDA error {rc}")
         ms = results.get(key, {}).get("ms")
         head = f"  {key} [{n} x {c}] F={f} det={int(det)} sus={int(sus)}: "
-        if kernel == "arc":
+        if kernel in ("fused", "fanout"):
+            (cols, rows, depth, slots, ring, threads, per_sm, regs, local,
+             items) = list(info)
+            out[key] = dict(cols=cols, item_rows=rows, stages=depth,
+                            slots=slots, ring_bytes=ring, threads=threads,
+                            blocks_per_sm=per_sm, regs=regs,
+                            local_bytes=local, items=items, ms=ms)
+            line = (f"stripe {cols} cols x {rows} rows an item ({items} "
+                    f"items), ring {depth} stages x {slots} slots "
+                    f"({ring} B), {threads} threads x {per_sm} blocks an "
+                    f"SM, {regs} regs, {local} B local")
+        elif kernel == "arc":
             cols, per_sm, regs, local, threads, tile = list(info)[:6]
             window = f"tiles, {tile} B smem" if tile else "van Herk"
             out[key] = dict(cols=cols, threads=threads, blocks_per_sm=per_sm,
@@ -3621,7 +3672,7 @@ def phase_k45_geometry(results: dict) -> None:
                     f"{per_sm} blocks an SM, "
                     f"stripe {cols} cols, {regs} regs, {local} B local")
         else:
-            ctas, cols, rb, held, regs, local, smem, threads = list(info)
+            ctas, cols, rb, held, regs, local, smem, threads = list(info)[:8]
             out[key] = dict(ctas=ctas, cols=cols, row_bytes=rb,
                             threads=threads, clusters=held, regs=regs,
                             local_bytes=local, smem=smem, ms=ms)
@@ -3629,7 +3680,7 @@ def phase_k45_geometry(results: dict) -> None:
                     f"({rb} B rows), {held} clusters held, {regs} regs, "
                     f"{local} B local, {smem} B smem")
         log(head + line + (f", {ms:.4f} ms" if ms is not None else ""))
-    results["k45_geometry"] = out
+    results["merge_geometry"] = out
 
 
 def onepass_summary(results: dict) -> dict:
@@ -3686,6 +3737,11 @@ def main_path_summary(results: dict) -> dict:
         out[phase] = {"round_ms": r["round_ms"],
                       "rounds_per_s": r["rounds_per_s"],
                       "launches": r["launch_counts"]}
+    # config 4's fault model at N = 65,536 (the largest K2 a path launches),
+    # with K2's device ms a round
+    r = results["config4"]
+    out["12"] = {"round_ms": r["round_ms"], "rounds_per_s": r["rounds_per_s"],
+                 "launches": r["launch_counts"], "k2_ms": r["kernel_ms"]}
     for phase, ew in (("22", "lanes"), ("34", "swar")):
         d = results["frontier_" + ew]
         out[phase] = {"round_ms": d["seconds_per_round"] * 1e3,
@@ -3756,7 +3812,7 @@ def main() -> int:
         "100 rounds")
     phase_eventful_arc(results, 100)
     log(f"[12] capacity, config 4 fault model: N={N_CAPACITY}, 10 rounds")
-    phase_config4_capacity(10)
+    phase_config4_capacity(10, results)
     log(f"[13] K3 suspicion + Lifeguard form vs plain, one round, "
         f"N={N_MAIN}")
     phase_k3_suspicion(N_MAIN, results)
@@ -3845,9 +3901,9 @@ def main() -> int:
         f"N={N_ADVANCE} (edges), [{N_CAPACITY} x {N_CAPACITY // 8}]")
     phase_k3_two_launch_large(results)
     print(json.dumps({"onepass": onepass_summary(results)}))
-    log("[42] K4 and K5 at every timed shape: cluster, stripe, clusters "
-        "held, registers, spills")
-    phase_k45_geometry(results)
+    log("[42] K2, K1, K4 and K5 at every timed shape: stripe, ring, "
+        "items, cluster, blocks held, registers, spills")
+    phase_merge_geometry(results)
     print(json.dumps({"main_paths": main_path_summary(results)},
                      separators=(",", ":")))
     src = "gossipfs_tpu_torch/csrc/"

@@ -17,24 +17,28 @@
 //
 // Design: one launch, its per-thread bodies in gather_ring.cuh (tested on
 // the host).  A block of 256 threads takes a 128-byte stripe of the view's
-// columns by a range of receiver rows, 8 threads a row, 16 bytes each (the
-// parent's 4 columns a thread moved 4-byte pieces of the int8 view).  Each
-// receiver's F sender segments go by cp.async.cg into a ring of 3 stages
-// of up to 8 slots a thread in shared memory (96 KB a block at F >= 15, 84
-// KB at 14), issued one receiver row ahead of the fold, so the gather's
-// latency is hidden by bytes in flight rather than by warps; the next
-// row's lanes and alive bit load into registers as this row gathers; the
+// columns by a range of receiver rows, 8 threads a row, 16 bytes each (4
+// columns a thread before moved 4-byte pieces of the int8 view).  Each
+// receiver's F sender segments go by cp.async.cg into a ring of 2 stages
+// of up to 8 slots a thread in shared memory (56 KB a block at F = 14,
+// chunks of 7), one chunk ahead of the fold, so the gather's latency is
+// hidden by bytes in flight rather than by warps (plain loads through
+// registers into the same ring: 68 % slower at config 3); the next row's
+// lanes and alive bit load into registers as this row gathers; the
 // epilogue (merge_elem.cuh) runs entry by entry on the 16-byte lane
 // pieces, loaded and stored once, evict-first.  Counts are bytes in
 // registers, summed over the warp by shuffles, one shared atomic a column
-// and warp, then one global atomic a column and output an item (the parent
-// added one every 16 rows: 19.7M atomics a call at config 3).  Items run
-// row ranges fastest inside a stripe, sized (item_rows) so that the blocks
-// the card holds at once gather from ~24 MB of view strips, half the L2:
-// the parent's 1,024-column tiles put a 134 MB strip behind config 4's
-// shard. fm_info reports the geometry.  Dead receivers skip their gather
-// (best stays -1), a sender outside [0, n) is absent.  No fallback: a
-// refused launch returns its error and the wrapper raises.
+// and warp, then one global atomic a column and output an item (before:
+// one every 16 rows, 19.7M atomics a call at config 3; now 0.9M).  Items
+// run row ranges fastest inside a stripe, sized (item_rows) so that the
+// blocks the card holds at once gather from ~12 MB of view strips (before,
+// 1,024-column tiles put a 134 MB strip behind config 4's shard; items
+// stripe-fastest: 28-45 % slower).  fm_info reports the geometry.  What
+// is left: at config 4's shard (F = 17) the gather's 36.5 GB from L2 take
+// ~5.2 ms beside the lanes' ~5.4, at ~7 TB/s (PERF.md section 6).  Dead
+// receivers skip their gather (best stays -1), a sender outside [0, n) is
+// absent.  No fallback: a refused launch returns its error and the wrapper
+// raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -124,12 +128,13 @@ cudaError_t launch(Params p, int* info, cudaStream_t s) {
     if (e != cudaSuccess) return e;
     raised[card] = true;
   }
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+  if (e != cudaSuccess) return e;
   if (asked[card] != smem) {
-    int per_sm = 0, sms = 0;
+    int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                       gring::kThreads, smem);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     asked[card] = smem;
@@ -142,9 +147,6 @@ cudaError_t launch(Params p, int* info, cudaStream_t s) {
   if (info != nullptr) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, kern);
-    if (e != cudaSuccess) return e;
-    int sms = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) return e;
     const int v[10] = {cols,          p.rows,      gring::kDepth, pl.chunk,
                        smem,          gring::kThreads, held[card] / sms,

@@ -16,28 +16,33 @@
 //
 // The ring.  A thread's gather is a sequence of items: receiver row k's F
 // senders in `chunks` chunks of at most kSlots (plan), chunk j of row k at
-// item q = k * chunks + j.  The ring holds kDepth stages of `chunk` 16-byte
-// slots a thread, item q in stage q % kDepth.  Before a thread waits for
-// item q (cp.async.wait_group kDepth - 1) and folds it, it issues the copies
-// of item q + kDepth - 1 (cp.async.cg: through L2, not L1) and commits them
-// as one group (empty for a dead receiver or past its rows), so the copies
-// run kDepth - 1 chunks ahead of the fold: one receiver row at F = 14 (two
-// chunks of 7).  The copies in flight hold no register; 2 blocks an SM
-// keep 2 x 256 x 2 x 7 x 16 B = 115 KB of the gather in flight at F = 14
-// where an L2 hit's few hundred cycles at ~30 B a clock an SM need ~20-30
-// KB.  Each thread folds only the slots it filled, so the ring needs no
-// barrier.  An absent sender (outside [0, n)) writes `none` into its slot:
-// -1 for K2 (its best starts at -1), the type's minimum for K1 (no floor).
-// A chunk's sender ids and alive bit load one item before its copies issue.
-// The element path (a ragged row: nc % 16 != 0 or unaligned lanes) fills
-// the slots by plain loads, value by value.
+// item q = k * chunks + j.  The ring holds kDepth = 2 stages of `chunk`
+// 16-byte slots a thread, item q in stage q % kDepth.  Before a thread waits
+// for item q (cp.async.wait_group kDepth - 1) and folds it, it issues the
+// copies of item q + 1 (cp.async.cg: through L2, not L1) and commits them as
+// one group (empty for a dead receiver or past its rows), so one chunk's
+// copies are in flight while the chunk before it folds and, at the row's
+// last chunk, while the row merges.  The copies in flight hold no
+// register: 2 blocks of 256 threads keep 2 x 256 x 7 x 16 B = 57 KB of the
+// gather in flight an SM at F = 14 (K1: 4 blocks, 115 KB), where an L2
+// hit's few hundred cycles at ~30 B a clock an SM need ~20-30 KB.  A third
+// stage (two chunks ahead) was 1-14 % slower everywhere it was timed, the
+// ring filled by plain loads through registers 49-79 % slower (PERF.md
+// section 6).  Each thread folds only the slots it filled, so the ring
+// needs no barrier.  An absent sender (outside [0, n)) writes `none` into
+// its slot: -1 for K2 (its best starts at -1), the type's minimum for K1
+// (no floor).  A chunk's sender ids and alive bit load one item before its
+// copies issue.  The element path (a ragged row: nc % 16 != 0 or unaligned
+// lanes) fills the slots by plain loads, value by value.
 //
 // Order.  Items run row ranges fastest inside a stripe (item = stripe *
 // splits + range), so the blocks in flight gather from a few stripes, each
 // a strip of the view of n x 128 B: item_rows sizes the ranges so that the
-// blocks the card holds at once span about kL2Budget (half the 50 MB L2) of
-// strips (14 ranges of 736 rows a stripe at config 3's N = 10,240 with 264
-// blocks held).  K2's counts flush once an item.
+// blocks the card holds at once span about kL2Budget (12 MB, a quarter of
+// the L2) of strips, and at least one: 30 ranges of 352 rows a stripe at
+// config 3's N = 10,240 with K2's 264 blocks held.  Items stripe-fastest
+// were 26-142 % slower; budgets of 24 and 6 MB 0-10 % slower, but for K1
+// at 6 MB (1.4 % faster).  K2's counts flush once an item.
 #pragma once
 
 #include <cstdint>

@@ -286,18 +286,18 @@ def test_ring_plan(host_lib, fanout, chunk, chunks):
 
 
 @pytest.mark.parametrize("n,held,rows", [
-    (10_240, HELD, 736), (16_384, HELD, 768), (32_768, HELD, 768),
-    (65_536, HELD, 768), (131_072, HELD, 512), (1_024, HELD, 512),
+    (10_240, HELD, 352), (16_384, HELD, 384), (32_768, HELD, 384),
+    (65_536, HELD, 256), (131_072, HELD, 512), (1_024, HELD, 352),
     (64, HELD, 64), (1_000_000, 1, 8_160)])
 def test_item_rows_rule(host_lib, n, held, rows):
-    """Items at the main paths' N with the 264 blocks an H100 holds: the
-    blocks in flight span the 128-byte view strips that ~24 MB holds (at
-    least one), and one more where rows rounded up to whole steps of 32
-    leave fewer ranges; never more than 255 rows a thread (its counter
+    """Items at the main paths' N with the 264 blocks an H100 holds of K2:
+    the blocks in flight span the 128-byte view strips that ~12 MB holds
+    (at least one), and one more where rows rounded up to whole steps of
+    32 leave fewer ranges; never more than 255 rows a thread (its counter
     bytes)."""
     got = host_lib.host_item_rows(n, held)
     assert got == rows
     assert got % 32 == 0 and got <= 255 * 32
     splits = -(-n // got)
-    strips = max(1, (24 << 20) // (n * 128))
+    strips = max(1, (12 << 20) // (n * 128))
     assert -(-held // splits) <= strips + 1
