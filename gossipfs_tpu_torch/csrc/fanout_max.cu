@@ -64,43 +64,20 @@ cudaError_t launch(const void* view, const int32_t* edges, void* out, int n,
   auto kern = fanout_max_kernel<T, kVec>;
   const gring::Plan pl = gring::plan(fanout);
   const int smem = (int)gring::ring_bytes(pl.chunk);
-  constexpr int kMaxCards = 64;
-  static bool raised[kMaxCards] = {};
-  static int asked[kMaxCards] = {};
-  static int held[kMaxCards] = {};
-  int card = 0;
-  cudaError_t e = cudaGetDevice(&card);
+  static gring::Held held;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = gring::held_blocks(kern, smem, held, &per_sm, &sms);
   if (e != cudaSuccess) return e;
-  if (card >= kMaxCards) return cudaErrorInvalidDevice;
-  if (!raised[card]) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)gring::ring_bytes(gring::kSlots));
-    if (e != cudaSuccess) return e;
-    raised[card] = true;
-  }
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
-  if (e != cudaSuccess) return e;
-  if (asked[card] != smem) {
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      gring::kThreads, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    asked[card] = smem;
-    held[card] = per_sm * sms;
-  }
-  const int rows = gring::item_rows(n, held[card]);
+  const int rows = gring::item_rows(n, per_sm * sms);
   constexpr int cols = gring::kLanes * (mstripe::kSegBytes / (int)sizeof(T));
   const int items = (n + cols - 1) / cols * ((n + rows - 1) / rows);
   if (info != nullptr) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, kern);
     if (e != cudaSuccess) return e;
-    const int v[10] = {cols,       rows,        gring::kDepth,
-                       pl.chunk,   smem,        gring::kThreads,
-                       held[card] / sms, fa.numRegs, (int)fa.localSizeBytes,
+    const int v[10] = {cols,     rows,       gring::kDepth,
+                       pl.chunk, smem,       gring::kThreads,
+                       per_sm,   fa.numRegs, (int)fa.localSizeBytes,
                        items};
     for (int i = 0; i < 10; ++i) info[i] = v[i];
     return cudaSuccess;

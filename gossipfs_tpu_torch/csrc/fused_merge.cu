@@ -111,36 +111,11 @@ cudaError_t launch(Params p, int* info, cudaStream_t s) {
   auto kern = fused_kernel<V, H, kVec, kSus, kDet>;
   const gring::Plan pl = gring::plan(p.fanout);
   const int smem = (int)gring::ring_bytes(pl.chunk);
-  // the opt-in shared memory raised once a card, and the blocks an SM holds
-  // at this ring's size asked once a size and card
-  constexpr int kMaxCards = 64;
-  static bool raised[kMaxCards] = {};
-  static int asked[kMaxCards] = {};
-  static int held[kMaxCards] = {};
-  int card = 0;
-  cudaError_t e = cudaGetDevice(&card);
+  static gring::Held held;
+  int per_sm = 0, sms = 0;
+  cudaError_t e = gring::held_blocks(kern, smem, held, &per_sm, &sms);
   if (e != cudaSuccess) return e;
-  if (card >= kMaxCards) return cudaErrorInvalidDevice;
-  if (!raised[card]) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)gring::ring_bytes(gring::kSlots));
-    if (e != cudaSuccess) return e;
-    raised[card] = true;
-  }
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
-  if (e != cudaSuccess) return e;
-  if (asked[card] != smem) {
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      gring::kThreads, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    asked[card] = smem;
-    held[card] = per_sm * sms;
-  }
-  p.rows = gring::item_rows(p.n, held[card]);
+  p.rows = gring::item_rows(p.n, per_sm * sms);
   constexpr int cols = gring::kLanes * (kSegBytes / (int)sizeof(V));
   const int stripes = (p.nc + cols - 1) / cols;
   const int splits = (p.n + p.rows - 1) / p.rows;
@@ -148,9 +123,10 @@ cudaError_t launch(Params p, int* info, cudaStream_t s) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, kern);
     if (e != cudaSuccess) return e;
-    const int v[10] = {cols,          p.rows,      gring::kDepth, pl.chunk,
-                       smem,          gring::kThreads, held[card] / sms,
-                       fa.numRegs,    (int)fa.localSizeBytes, stripes * splits};
+    const int v[10] = {cols,       p.rows,          gring::kDepth,
+                       pl.chunk,   smem,            gring::kThreads,
+                       per_sm,     fa.numRegs,      (int)fa.localSizeBytes,
+                       stripes * splits};
     for (int i = 0; i < 10; ++i) info[i] = v[i];
     return cudaSuccess;
   }

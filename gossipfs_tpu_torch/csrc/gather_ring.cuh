@@ -119,8 +119,7 @@ struct SegFold {
   GR_HD void add2(const Seg& a, const Seg& b) {
     GR_UNROLL
     for (int k = 0; k < 4; ++k)
-      s.w[k] = sizeof(V) == 2 ? onepass::vimax3_s16x2(s.w[k], a.w[k], b.w[k])
-                              : mstripe::vimax3_s32(s.w[k], a.w[k], b.w[k]);
+      s.w[k] = mstripe::max3_word<V>(s.w[k], a.w[k], b.w[k]);
   }
   GR_HD Seg seg() const { return s; }
 };
@@ -340,5 +339,48 @@ GR_HD void fx_thread(const T* __restrict__ view,
         }
       });
 }
+
+#if defined(__CUDACC__)
+// What a launcher asks the card once a card and ring size, per kernel
+// instantiation (each keeps its own, a function-local static).
+struct Held {
+  static constexpr int kMaxCards = 64;
+  bool raised[kMaxCards];
+  int asked[kMaxCards], per_sm[kMaxCards], sms[kMaxCards];
+};
+
+// The blocks of ``kern`` an SM holds with ``smem`` bytes of ring, and the
+// card's SMs: the opt-in shared memory raised to the largest ring once a
+// card, the occupancy asked once a ring size and card.  A kernel that no
+// SM holds is an error.
+template <typename Kern>
+inline cudaError_t held_blocks(Kern kern, int smem, Held& h, int* per_sm,
+                               int* sms) {
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return e;
+  if (card >= Held::kMaxCards) return cudaErrorInvalidDevice;
+  if (!h.raised[card]) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ring_bytes(kSlots));
+    if (e != cudaSuccess) return e;
+    h.raised[card] = true;
+  }
+  if (h.asked[card] != smem) {
+    e = cudaDeviceGetAttribute(&h.sms[card], cudaDevAttrMultiProcessorCount,
+                               card);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&h.per_sm[card], kern,
+                                                      kThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (h.per_sm[card] < 1) return cudaErrorInvalidConfiguration;
+    h.asked[card] = smem;
+  }
+  *per_sm = h.per_sm[card];
+  *sms = h.sms[card];
+  return cudaSuccess;
+}
+#endif
 
 }  // namespace gring

@@ -134,6 +134,13 @@ MS_HD uint32_t vimax3_s32(uint32_t a, uint32_t b, uint32_t c) {
 #endif
 }
 
+// The signed max of three words of int16 pairs or of int32 values, one
+// DPX instruction.
+template <typename V>
+MS_HD uint32_t max3_word(uint32_t a, uint32_t b, uint32_t c) {
+  return sizeof(V) == 2 ? onepass::vimax3_s16x2(a, b, c) : vimax3_s32(a, b, c);
+}
+
 // A signed max of two 16-byte segments of V values.
 template <typename V>
 MS_HD Seg max_seg(const Seg& a, const Seg& b) {
@@ -144,10 +151,8 @@ MS_HD Seg max_seg(const Seg& a, const Seg& b) {
       onepass::ByteMax m(a.w[k]);
       m.add2(b.w[k], b.w[k]);
       r.w[k] = m.word();
-    } else if (sizeof(V) == 2) {
-      r.w[k] = onepass::vimax3_s16x2(a.w[k], b.w[k], b.w[k]);
     } else {
-      r.w[k] = vimax3_s32(a.w[k], b.w[k], b.w[k]);
+      r.w[k] = max3_word<V>(a.w[k], b.w[k], b.w[k]);
     }
   }
   return r;

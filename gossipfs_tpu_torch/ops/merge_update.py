@@ -65,8 +65,8 @@ from gossipfs_tpu_torch.core.state import (
 from gossipfs_tpu_torch.ops import merge, swar
 
 VIEW_DTYPES = (torch.int8, torch.int16)
-# K2's fanout limit on the card (its launcher refuses more; its ring walks
-# a row's senders 8 at a time)
+# K2's fanout range on the card, 1 to this: its launcher's contract (the
+# ring walks a row's senders 8 at a time, so no buffer bounds F)
 MAX_KERNEL_FANOUT = 512
 # K5's limit on the ROWS (a subject shard keeps every row, so sharding the
 # columns does not lift it): the N the route has admitted since K5's first
