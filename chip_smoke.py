@@ -179,9 +179,14 @@ Phases (any failure exits non-zero before the last line is printed):
     4's layout, shards 0 and 7 of ``[131,072 x 16,384]`` (aligned arcs
     F = 16, lanes and SWAR, crash-only and suspicion) == plain; ``0
     entries differ`` and ms per launch beside the byte bound;
-36. K2 over config 4's shard ``[131,072 x 16,384]`` (int16 hb, int8
-    view, F = 17), K4 and K5 over ``[16,384 x 4,096]``, against their
-    plain versions; ms, plain ms and byte bound;
+36. K2, K4 and K5 over the column blocks their main paths launch (K2
+    G's ``[32,768 x 16,384]``, K4 ``full_scale``'s ``[65,536 x 8,192]``,
+    K5 B sharded's ``[16,384 x 8,192]``), K2 over config 4's shard
+    ``[131,072 x 16,384]`` (int16 hb, int8 view, F = 17) and over phase
+    12's square ``[65,536 x 65,536]`` (int16 hb, int8 view, F = 16),
+    against their plain versions on random lanes with dead receivers,
+    detection stats and suspicion on and off (tolerance 0); ms, plain ms
+    and byte bound;
 37. main paths F and F': the headline (lanes, SWAR) sharded over 2 rank
     processes (rank r on cuda:r % cards: gloo through the host on a
     one-card machine, NCCL with a card each), 100 rounds, 1 % crash
@@ -2799,8 +2804,10 @@ def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int):
     view = torch.empty((n, c), dtype=torch.int8, **dev)
     hb = torch.empty((n, c), dtype=hdt, **dev)
     asl = torch.empty((n, c), dtype=torch.int8, **dev)
-    for r0 in range(0, n, 8_192):
-        r1 = min(n, r0 + 8_192)
+    # row chunks of at most 2^27 entries (8,192 rows of 16,384 columns)
+    step = min(8_192, max(1, (1 << 27) // c))
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
         shape = (r1 - r0, c)
         v = torch.randint(-1, 127, shape, generator=g, **dev)
         view[r0:r1] = torch.where(alive[r0:r1, None], v, -1).to(torch.int8)
@@ -2839,10 +2846,11 @@ def phase_merge_column_blocks(results: dict) -> None:
     the shapes of the main paths that launch them: K2 on main path G's
     shard [32,768 x 16,384] (int16 hb, int8 view, F = 15), K4 on
     full_scale's [65,536 x 8,192] (int8, F = 16), K5 on main path B
-    sharded's [16,384 x 8,192] (int8, F = 14); and K2 on config 4's shard
-    [131,072 x 16,384] (F = 17).  Detection stats and suspicion on and
-    off; ms (in the path's own mode), plain ms and the byte bound at each
-    shape."""
+    sharded's [16,384 x 8,192] (int8, F = 14); K2 on config 4's shard
+    [131,072 x 16,384] (F = 17) and on phase 12's square [65,536 x 65,536]
+    (int16 hb, int8 view, F = 16: the largest K2 a main path launches).
+    Detection stats and suspicion on and off; ms (in the path's own mode),
+    plain ms and the byte bound at each shape."""
     import torch
 
     from gossipfs_tpu_torch.config import SimConfig
@@ -2859,6 +2867,8 @@ def phase_merge_column_blocks(results: dict) -> None:
         ("k2_block_config4", mu.fused_merge_update, N_CONFIG4,
          N_CONFIG4 // 8, SimConfig.log_fanout(N_CONFIG4), torch.int16,
          "edges", {}, False),
+        ("k2_config4_fault", mu.fused_merge_update, N_CAPACITY, N_CAPACITY,
+         SimConfig.log_fanout(N_CAPACITY), torch.int16, "edges", {}, False),
     )
     bad = 0
     for key, fn, n, c, f, hdt, which, extra, path_sus in cases:
@@ -3604,6 +3614,8 @@ GEOMETRY_SHAPES = (
     ("k2_block", "fused", 32_768, 16_384, 15, 2, True, False),
     ("k2_block_config4", "fused", N_CONFIG4, N_CONFIG4 // 8, 17, 2, True,
      False),
+    ("k2_config4_fault", "fused", N_CAPACITY, N_CAPACITY, 16, 2, True,
+     False),
     ("k1", "fanout", N_MAIN, N_MAIN, 14, 1, False, False),
     ("k4", "arc", N_MAIN, N_MAIN, 16, 1, True, False),
     ("k4_sus", "arc", N_MAIN, N_MAIN, 16, 1, True, True),
@@ -3975,6 +3987,12 @@ def main() -> int:
         shard_line("fused_merge_update[column block, config 4 shard]",
                    src + "fused_merge.cu", mp + "387", 0,
                    results["k2_block_config4"]),
+        # phase 12's square N = 65,536 (config 4's fault model), with
+        # phase 12's launches
+        shard_line("fused_merge_update[config 4 fault model]",
+                   src + "fused_merge.cu", mp + "387",
+                   results["config4"]["launch_counts"]["fused_merge_update"],
+                   results["k2_config4_fault"]),
     ]
     large = results["k3_large"]
     large_launches = {
