@@ -15,20 +15,19 @@
 // and what bounds the kernel is how fast L2 serves them and how well their
 // latency is hidden.
 //
-// Design: K2's gather alone (gather_ring.cuh, tested on the host): a block
-// of 256 threads takes a 128-byte stripe of columns by a range of receiver
-// rows, 8 threads a row, 16 bytes each (4-byte pieces before); each
-// receiver's F sender segments go by cp.async.cg into a 2-stage ring in
-// shared memory one chunk ahead of the fold (a DPX max, two words an
-// instruction in int8), and the output row piece is stored once, 16 bytes
-// evict-first.  Its 44 registers let 4 blocks share an SM.  Items run row
-// ranges fastest inside a stripe, sized so that the blocks the card holds
-// at once gather from ~12 MB of view strips (item_rows; stripe-fastest
-// items: 142 % slower).  At N = 16,384, F = 14 the gather reads 3.76 GB
-// from L2 at ~9 TB/s.  A sender outside [0, n) is skipped (the fold
-// starts at the type's minimum); every caller's senders lie in [0, n).
-// fx_info reports the geometry.  No fallback: a refused launch returns its
-// error and the wrapper raises.
+// Design: K2's gather alone (gather_ring.cuh, tested on the host): a block of
+// 256 threads takes a 128-byte stripe of columns by a range of receiver rows, 8
+// threads a row, 16 bytes each; each receiver's F sender segments go by
+// cp.async.cg into a 2-stage ring in shared memory one chunk ahead of the fold
+// (a DPX max, two words an instruction in int8), and the output row piece is
+// stored once, 16 bytes evict-first.  Its 44 registers let 4 blocks share an
+// SM.  Items run row ranges fastest inside a stripe, sized so that the blocks
+// the card holds at once gather from ~12 MB of view strips (item_rows;
+// stripe-fastest items: 142 % slower).  At N = 16,384, F = 14 the gather reads
+// 3.76 GB from L2 at ~9 TB/s.  A sender outside [0, n) is skipped (the fold
+// starts at the type's minimum); every caller's senders lie in [0, n).  fx_info
+// reports the geometry.  No fallback: a refused launch returns its error and
+// the wrapper raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -62,29 +61,14 @@ template <typename T, bool kVec>
 cudaError_t launch(const void* view, const int32_t* edges, void* out, int n,
                    int fanout, int* info, cudaStream_t s) {
   auto kern = fanout_max_kernel<T, kVec>;
-  const gring::Plan pl = gring::plan(fanout);
-  const int smem = (int)gring::ring_bytes(pl.chunk);
   static gring::Held held;
-  int per_sm = 0, sms = 0;
-  cudaError_t e = gring::held_blocks(kern, smem, held, &per_sm, &sms);
-  if (e != cudaSuccess) return e;
-  const int rows = gring::item_rows(n, per_sm * sms);
-  constexpr int cols = gring::kLanes * (mstripe::kSegBytes / (int)sizeof(T));
-  const int items = (n + cols - 1) / cols * ((n + rows - 1) / rows);
-  if (info != nullptr) {
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, kern);
-    if (e != cudaSuccess) return e;
-    const int v[10] = {cols,     rows,       gring::kDepth,
-                       pl.chunk, smem,       gring::kThreads,
-                       per_sm,   fa.numRegs, (int)fa.localSizeBytes,
-                       items};
-    for (int i = 0; i < 10; ++i) info[i] = v[i];
-    return cudaSuccess;
-  }
-  kern<<<items, gring::kThreads, smem, s>>>(static_cast<const T*>(view),
-                                            edges, static_cast<T*>(out), n,
-                                            fanout, rows);
+  gring::Grid g;
+  const cudaError_t e =
+      gring::grid(kern, n, n, (int)sizeof(T), fanout, held, &g, info);
+  if (e != cudaSuccess || info != nullptr) return e;
+  kern<<<g.items, gring::kThreads, g.smem, s>>>(static_cast<const T*>(view),
+                                                edges, static_cast<T*>(out),
+                                                n, fanout, g.rows);
   return cudaGetLastError();
 }
 

@@ -15,30 +15,25 @@
 // come from L2, and their latency has to be hidden.  The TPU kernel
 // gathered its F rows with slotted async DMAs into VMEM.
 //
-// Design: one launch, its per-thread bodies in gather_ring.cuh (tested on
-// the host).  A block of 256 threads takes a 128-byte stripe of the view's
-// columns by a range of receiver rows, 8 threads a row, 16 bytes each (4
-// columns a thread before moved 4-byte pieces of the int8 view).  Each
-// receiver's F sender segments go by cp.async.cg into a ring of 2 stages
-// of up to 8 slots a thread in shared memory (56 KB a block at F = 14,
-// chunks of 7), one chunk ahead of the fold, so the gather's latency is
-// hidden by bytes in flight rather than by warps (plain loads through
-// registers into the same ring: 68 % slower at config 3); the next row's
-// lanes and alive bit load into registers as this row gathers; the
-// epilogue (merge_elem.cuh) runs entry by entry on the 16-byte lane
-// pieces, loaded and stored once, evict-first.  Counts are bytes in
-// registers, summed over the warp by shuffles, one shared atomic a column
-// and warp, then one global atomic a column and output an item (before:
-// one every 16 rows, 19.7M atomics a call at config 3; now 0.9M).  Items
-// run row ranges fastest inside a stripe, sized (item_rows) so that the
-// blocks the card holds at once gather from ~12 MB of view strips (before,
-// 1,024-column tiles put a 134 MB strip behind config 4's shard; items
-// stripe-fastest: 28-45 % slower).  fm_info reports the geometry.  What
-// is left: at config 4's shard (F = 17) the gather's 36.5 GB from L2 take
-// ~5.2 ms beside the lanes' ~5.4, at ~7 TB/s (PERF.md section 6).  Dead
-// receivers skip their gather (best stays -1), a sender outside [0, n) is
-// absent.  No fallback: a refused launch returns its error and the wrapper
-// raises.
+// Design: one launch, its per-thread bodies in gather_ring.cuh (tested on the
+// host).  A block of 256 threads takes a 128-byte stripe of the view's columns
+// by a range of receiver rows, 8 threads a row, 16 bytes each.  Each receiver's
+// F sender segments go by cp.async.cg into a ring of 2 stages of up to 8 slots
+// a thread in shared memory (56 KB a block at F = 14, chunks of 7), one chunk
+// ahead of the fold, so the gather's latency is hidden by bytes in flight
+// rather than by warps (plain loads through registers into the same ring: 68 %
+// slower at config 3); the next row's lanes and alive bit load into registers
+// as this row gathers; the epilogue (merge_elem.cuh) runs entry by entry on the
+// 16-byte lane pieces, loaded and stored once, evict-first.  Counts are bytes
+// in registers, summed over the warp by shuffles, one shared atomic a column
+// and warp, then one global atomic a column and output an item (0.9M a call at
+// config 3).  Items run row ranges fastest inside a stripe, sized (item_rows)
+// so that the blocks the card holds at once gather from ~12 MB of view strips
+// (items stripe-fastest: 26-45 % slower).  fm_info reports the geometry.  What
+// is left: at config 4's shard (F = 17) the gather's 36.5 GB from L2 take ~5.2
+// ms beside the lanes' ~5.4, at ~7 TB/s (PERF.md section 6).  Dead receivers
+// skip their gather (best stays -1), a sender outside [0, n) is absent.  No
+// fallback: a refused launch returns its error and the wrapper raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -105,32 +100,17 @@ fused_kernel(const Params p) {
   add_block_counts<kSus, kDet>(cnt, p.out, col0, cols, nc, n);
 }
 
-// the launch, or its geometry into ``info``
+// the launch, or its geometry into ``info`` (launching nothing)
 template <typename V, typename H, bool kVec, bool kSus, bool kDet>
 cudaError_t launch(Params p, int* info, cudaStream_t s) {
   auto kern = fused_kernel<V, H, kVec, kSus, kDet>;
-  const gring::Plan pl = gring::plan(p.fanout);
-  const int smem = (int)gring::ring_bytes(pl.chunk);
   static gring::Held held;
-  int per_sm = 0, sms = 0;
-  cudaError_t e = gring::held_blocks(kern, smem, held, &per_sm, &sms);
-  if (e != cudaSuccess) return e;
-  p.rows = gring::item_rows(p.n, per_sm * sms);
-  constexpr int cols = gring::kLanes * (kSegBytes / (int)sizeof(V));
-  const int stripes = (p.nc + cols - 1) / cols;
-  const int splits = (p.n + p.rows - 1) / p.rows;
-  if (info != nullptr) {
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, kern);
-    if (e != cudaSuccess) return e;
-    const int v[10] = {cols,       p.rows,          gring::kDepth,
-                       pl.chunk,   smem,            gring::kThreads,
-                       per_sm,     fa.numRegs,      (int)fa.localSizeBytes,
-                       stripes * splits};
-    for (int i = 0; i < 10; ++i) info[i] = v[i];
-    return cudaSuccess;
-  }
-  kern<<<stripes * splits, gring::kThreads, smem, s>>>(p);
+  gring::Grid g;
+  const cudaError_t e = gring::grid(kern, p.n, p.nc, (int)sizeof(V),
+                                    p.fanout, held, &g, info);
+  if (e != cudaSuccess || info != nullptr) return e;
+  p.rows = g.rows;
+  kern<<<g.items, gring::kThreads, g.smem, s>>>(p);
   return cudaGetLastError();
 }
 

@@ -381,6 +381,41 @@ inline cudaError_t held_blocks(Kern kern, int smem, Held& h, int* per_sm,
   *sms = h.sms[card];
   return cudaSuccess;
 }
+
+// An item launch: ring bytes a block, receiver rows an item, items (the
+// grid's blocks).
+struct Grid {
+  int smem, rows, items;
+};
+
+// The grid of ``kern`` over an [n, nc] block of ``elem``-byte view values
+// at ``fanout`` (the blocks held from held_blocks, the rows from
+// item_rows); with ``info``, the geometry into info[10] as well: stripe
+// columns, rows an item, ring stages, slots a stage and thread, ring bytes
+// a block, threads a block, blocks an SM, registers and local memory
+// (spills) a thread, items.
+template <typename Kern>
+inline cudaError_t grid(Kern kern, int n, int nc, int elem, int fanout,
+                        Held& h, Grid* g, int* info) {
+  const Plan pl = plan(fanout);
+  g->smem = (int)ring_bytes(pl.chunk);
+  int per_sm = 0, sms = 0;
+  cudaError_t e = held_blocks(kern, g->smem, h, &per_sm, &sms);
+  if (e != cudaSuccess) return e;
+  g->rows = item_rows(n, per_sm * sms);
+  const int cols = kLanes * (kSegBytes / elem);
+  g->items = (nc + cols - 1) / cols * ((n + g->rows - 1) / g->rows);
+  if (info == nullptr) return cudaSuccess;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return e;
+  const int v[10] = {cols,     g->rows,    kDepth,
+                     pl.chunk, g->smem,    kThreads,
+                     per_sm,   fa.numRegs, (int)fa.localSizeBytes,
+                     g->items};
+  for (int i = 0; i < 10; ++i) info[i] = v[i];
+  return cudaSuccess;
+}
 #endif
 
 }  // namespace gring
