@@ -226,7 +226,7 @@ Phases (any failure exits non-zero before the last line is printed):
     entries differ``; ms a round, each launch's ms under the profiler,
     plain ms and byte bound;
 42. the geometry of K2 and K1 (``fm_info``, ``fx_info``: stripe columns,
-    rows an item, ring stages and slots, ring bytes, threads, blocks an
+    rows an item, ring stages and slots, shared memory, threads, blocks an
     SM, items), K4 and K5 at every shape they are timed at, with each
     kernel's registers and local memory a thread.
 
@@ -3631,7 +3631,7 @@ GEOMETRY_SHAPES = (
 def phase_merge_geometry(results: dict) -> None:
     """K2, K1, K4 and K5 at every timed shape, from the kernels' own
     fm_info / fx_info / am_info / sm_info: K2's and K1's stripe columns,
-    rows an item, ring stages and slots a stage, ring bytes, threads and
+    rows an item, ring stages and slots a stage, shared memory, threads and
     blocks an SM, items; K5's CTAs a cluster, stripe columns, park row
     bytes, threads a CTA, the clusters the card holds at once
     (cudaOccupancyMaxActiveClusters) and shared memory a CTA; K4's row
@@ -3664,15 +3664,15 @@ def phase_merge_geometry(results: dict) -> None:
         ms = results.get(key, {}).get("ms")
         head = f"  {key} [{n} x {c}] F={f} det={int(det)} sus={int(sus)}: "
         if kernel in ("fused", "fanout"):
-            (cols, rows, depth, slots, ring, threads, per_sm, regs, local,
+            (cols, rows, depth, slots, smem, threads, per_sm, regs, local,
              items) = list(info)
             out[key] = dict(cols=cols, item_rows=rows, stages=depth,
-                            slots=slots, ring_bytes=ring, threads=threads,
+                            slots=slots, smem=smem, threads=threads,
                             blocks_per_sm=per_sm, regs=regs,
                             local_bytes=local, items=items, ms=ms)
             line = (f"stripe {cols} cols x {rows} rows an item ({items} "
-                    f"items), ring {depth} stages x {slots} slots "
-                    f"({ring} B), {threads} threads x {per_sm} blocks an "
+                    f"items), ring {depth} stages x {slots} slots, {smem} "
+                    f"B shared memory, {threads} threads x {per_sm} blocks an "
                     f"SM, {regs} regs, {local} B local")
         elif kernel == "arc":
             cols, per_sm, regs, local, threads, tile = list(info)[:6]

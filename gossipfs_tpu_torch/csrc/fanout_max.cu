@@ -64,7 +64,7 @@ cudaError_t launch(const void* view, const int32_t* edges, void* out, int n,
   static gring::Held held;
   gring::Grid g;
   const cudaError_t e =
-      gring::grid(kern, n, n, (int)sizeof(T), fanout, held, &g, info);
+      gring::grid(kern, n, n, (int)sizeof(T), fanout, false, held, &g, info);
   if (e != cudaSuccess || info != nullptr) return e;
   kern<<<g.items, gring::kThreads, g.smem, s>>>(static_cast<const T*>(view),
                                                 edges, static_cast<T*>(out),
@@ -107,7 +107,7 @@ extern "C" int fx_fanout_max(const void* view, const void* edges, void* out,
 
 // The geometry of what fx_fanout_max would launch for this shape, into
 // info[10] (launches nothing), as fm_info's: stripe columns, receiver rows
-// an item, ring stages, slots a stage and thread, ring bytes a block,
+// an item, ring stages, slots a stage and thread, shared memory a block,
 // threads a block, blocks an SM, registers and local memory a thread,
 // items (blocks) of the launch.
 extern "C" int fx_info(int n, int fanout, int elem_bytes, int aligned,

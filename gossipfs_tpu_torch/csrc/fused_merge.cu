@@ -17,23 +17,27 @@
 //
 // Design: one launch, its per-thread bodies in gather_ring.cuh (tested on the
 // host).  A block of 256 threads takes a 128-byte stripe of the view's columns
-// by a range of receiver rows, 8 threads a row, 16 bytes each.  Each receiver's
-// F sender segments go by cp.async.cg into a ring of 2 stages of up to 8 slots
-// a thread in shared memory (56 KB a block at F = 14, chunks of 7), one chunk
-// ahead of the fold, so the gather's latency is hidden by bytes in flight
-// rather than by warps (plain loads through registers into the same ring: 68 %
-// slower at config 3); the next row's lanes and alive bit load into registers
-// as this row gathers; the epilogue (merge_elem.cuh) runs entry by entry on the
-// 16-byte lane pieces, loaded and stored once, evict-first.  Counts are bytes
-// in registers, summed over the warp by shuffles, one shared atomic a column
-// and warp, then one global atomic a column and output an item (0.9M a call at
-// config 3).  Items run row ranges fastest inside a stripe, sized (item_rows)
-// so that the blocks the card holds at once gather from ~12 MB of view strips
-// (items stripe-fastest: 26-45 % slower).  fm_info reports the geometry.  What
-// is left: at config 4's shard (F = 17) the gather's 36.5 GB from L2 take ~5.2
-// ms beside the lanes' ~5.4, at ~7 TB/s (PERF.md section 6).  Dead receivers
-// skip their gather (best stays -1), a sender outside [0, n) is absent.  No
-// fallback: a refused launch returns its error and the wrapper raises.
+// by a range of receiver rows, 8 threads a row, 16 bytes each.  The block first
+// stages the item's sender ids in shared memory behind the ring (at most 40 KB
+// at F <= 17; 2.4-12.1 % faster than each thread loading them from global
+// memory).  Each receiver's F sender segments go by cp.async.cg into a ring of
+// 2 stages of up to 8 slots a thread in shared memory (56 KB a block at F = 14,
+// chunks of 7), one chunk ahead of the fold, so the gather's latency is hidden
+// by bytes in flight rather than by warps (plain loads through registers into
+// the same ring: 68 % slower at config 3); the next row's lanes and alive bit
+// load into registers as this row gathers; the epilogue (merge_elem.cuh) runs
+// entry by entry on the 16-byte lane pieces, loaded and stored once,
+// evict-first.  Counts are bytes in registers, summed over the warp by
+// shuffles, one shared atomic a column and warp, then one global atomic a
+// column and output an item (0.9M a call at config 3; flushed every 32-row
+// step instead: 51-62 % slower).  Items run row ranges fastest inside a
+// stripe, sized (item_rows) so that the blocks the card holds at once
+// gather from ~12 MB of view strips (items stripe-fastest: 26-45 %
+// slower).  fm_info reports the geometry.  What is left: at config 4's
+// shard (F = 17) the gather's 36.5 GB from L2 take ~5.2 ms beside the
+// lanes' ~5.4, at ~7 TB/s (PERF.md section 6).  Dead receivers skip their
+// gather (best stays -1), a sender outside [0, n) is absent.  No fallback:
+// a refused launch returns its error and the wrapper raises.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -78,8 +82,12 @@ fused_kernel(const Params p) {
     const int c = col0 + t % cols;
     shifts[t / cols][t % cols] = c < nc ? (t < cols ? p.sa[c] : p.sb[c]) : 0;
   }
+  // the item's sender ids, behind the ring
+  int32_t* ids = reinterpret_cast<int32_t*>(
+      smem + gring::ring_bytes(gring::plan(p.fanout).chunk));
+  gring::stage_ids(p.edges, ids, r0, rows, p.fanout, t, gring::kThreads);
   __syncthreads();
-  const gring::FmArgs<V, H> a{static_cast<const V*>(p.view), p.edges,
+  const gring::FmArgs<V, H> a{static_cast<const V*>(p.view), ids,
                               static_cast<H*>(p.hb), p.asl, p.alive, n, nc,
                               p.fanout, p.age_clamp};
   Counts<kE> cn;
@@ -107,7 +115,7 @@ cudaError_t launch(Params p, int* info, cudaStream_t s) {
   static gring::Held held;
   gring::Grid g;
   const cudaError_t e = gring::grid(kern, p.n, p.nc, (int)sizeof(V),
-                                    p.fanout, held, &g, info);
+                                    p.fanout, true, held, &g, info);
   if (e != cudaSuccess || info != nullptr) return e;
   p.rows = g.rows;
   kern<<<g.items, gring::kThreads, g.smem, s>>>(p);
@@ -191,8 +199,9 @@ extern "C" int fm_merge(const void* view, const void* edges, void* hb,
 
 // The geometry of what fm_merge would launch for this shape, into info[10]
 // (launches nothing): stripe columns, receiver rows an item, ring stages,
-// slots a stage and thread, ring bytes a block, threads a block, blocks an
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+// slots a stage and thread, shared memory a block (the ring and the staged
+// ids), threads a block, blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
 // memory (spills) a thread, items (blocks) of the launch.
 extern "C" int fm_info(int n, int nc, int fanout, int view_bytes,
                        int hb_bytes, int detect, int suspect, int aligned,

@@ -32,8 +32,12 @@
 // needs no barrier.  An absent sender (outside [0, n)) writes `none` into
 // its slot: -1 for K2 (its best starts at -1), the type's minimum for K1
 // (no floor).  A chunk's sender ids and alive bit load one item before its
-// copies issue.  The element path (a ragged row: nc % 16 != 0 or unaligned
-// lanes) fills the slots by plain loads, value by value.
+// copies issue.  K2's block first stages its item's ids in shared memory
+// behind the ring (stage_ids, before the block's one barrier), and the
+// chunks' ids load from there: 2.4-12.1 % faster than from global memory
+// (PERF.md section 6).  K1, whose fanout has no bound, loads them from
+// global memory.  The element path (a ragged row: nc % 16 != 0 or
+// unaligned lanes) fills the slots by plain loads, value by value.
 //
 // Order.  Items run row ranges fastest inside a stripe (item = stripe *
 // splits + range), so the blocks in flight gather from a few stripes, each
@@ -74,6 +78,10 @@ constexpr long kL2Budget = 12L << 20;         // view strips in flight, bytes
 // a thread's rows an item at most: its counters (and the first observer's
 // step) are bytes
 constexpr int kMaxItemRows = mstripe::kMaxSweep * kStepRows;
+// an item's staged sender ids at most, bytes; one step's rows may take
+// more, at most kStepRows x kMaxStagedFanout x 4
+constexpr long kIdsBudget = 40L << 10;
+constexpr int kMaxStagedFanout = 512;
 
 // A row's senders in `chunks` chunks of `chunk` (the last may be shorter).
 struct Plan {
@@ -101,6 +109,23 @@ GR_HD int item_rows(long n, long held) {
   rows = (rows + kStepRows - 1) / kStepRows * kStepRows;
   if (rows < kStepRows) rows = kStepRows;
   return (int)(rows < kMaxItemRows ? rows : kMaxItemRows);
+}
+
+// Receiver rows an item whose sender ids are staged: ``rows`` cut, in
+// whole steps, to what kIdsBudget holds at ``fanout``, one step at least.
+GR_HD int staged_rows(int rows, int fanout) {
+  long cap = kIdsBudget / (4L * fanout) / kStepRows * kStepRows;
+  if (cap < kStepRows) cap = kStepRows;
+  return rows < cap ? rows : (int)cap;
+}
+
+// An item's staged sender ids: the in-edges (int32 [n, F]) of its rows r0
+// .. r0 + rows - 1 into ``ids`` ([rows, F]), thread t of ``threads``
+// taking every threads-th id.
+GR_HD void stage_ids(const int32_t* __restrict__ edges, int32_t* ids, int r0,
+                     int rows, int fanout, int t, int threads) {
+  const int32_t* e = edges + (size_t)r0 * fanout;
+  for (int i = t; i < rows * fanout; i += threads) ids[i] = e[i];
 }
 
 // slot i of stage d of thread t: consecutive threads at consecutive 16
@@ -133,22 +158,23 @@ struct SegFold<int8_t> {
 };
 
 // An item's senders: slots 0 .. cnt - 1 of the chunk from sender f0 of
-// receiver ``row``'s in-edges (int32 [n, F]), -1 for a sender outside
-// [0, n) (absent); ``live``: the receiver is alive (always, without an
-// alive vector), else no sender is read.
+// receiver ``row``'s in-edges, row ``row - ids_r0`` of ``ids_in`` (int32
+// [rows, F]), -1 for a sender outside [0, n) (absent); ``live``: the
+// receiver is alive (always, without an alive vector), else no sender is
+// read.
 struct Ids {
   int s[kSlots];
   int cnt;
   bool live;
 };
 
-GR_HD Ids load_ids(const int32_t* __restrict__ edges,
+GR_HD Ids load_ids(const int32_t* __restrict__ ids_in, int ids_r0,
                    const uint8_t* __restrict__ alive, int row, int n,
                    int fanout, int f0, int cnt) {
   Ids ids;
   ids.cnt = cnt;
   ids.live = alive == nullptr || alive[row] != 0;
-  const int32_t* e = edges + (size_t)row * fanout + f0;
+  const int32_t* e = ids_in + (size_t)(row - ids_r0) * fanout + f0;
   GR_UNROLL
   for (int i = 0; i < kSlots; ++i) {
     const int s = ids.live && i < cnt ? e[i] : -1;
@@ -158,7 +184,8 @@ GR_HD Ids load_ids(const int32_t* __restrict__ edges,
 }
 
 // One thread's sweep of an item: rows row0, row0 + 32, ... (rows_t of
-// them), segment h of the stripe from column col0.  For each row k,
+// them), segment h of the stripe from column col0, the rows' in-edges
+// from row ids_r0 of ``ids_in`` (int32 [., F]).  For each row k,
 // ``begin(k)`` (returns whether to gather: the receiver is alive), then the
 // row's chunks through the ring, then ``end(k, best)`` with the max over
 // the row's senders from ``none`` (``none`` itself for a dead receiver).
@@ -168,7 +195,7 @@ GR_HD Ids load_ids(const int32_t* __restrict__ edges,
 template <typename V, bool kVec, typename Copy16, typename Commit,
           typename Wait, typename Begin, typename End>
 GR_HD void ring_sweep(const V* __restrict__ view,
-                      const int32_t* __restrict__ edges,
+                      const int32_t* __restrict__ ids_in, int ids_r0,
                       const uint8_t* __restrict__ alive, int n, int nc,
                       int fanout, int row0, int rows_t, int col0, int h,
                       int t, int8_t* ring, uint32_t none, Copy16 copy,
@@ -177,7 +204,7 @@ GR_HD void ring_sweep(const V* __restrict__ view,
   const int items = rows_t * pl.chunks;
   // the producer: the next item to issue (row pk, chunk pj) and its ids
   int pk = 0, pj = 0;
-  Ids ids = load_ids(edges, alive, row0, n, fanout, 0,
+  Ids ids = load_ids(ids_in, ids_r0, alive, row0, n, fanout, 0,
                      pl.chunk < fanout ? pl.chunk : fanout);
   auto issue = [&](int p) {
     if (p < items) {
@@ -200,7 +227,8 @@ GR_HD void ring_sweep(const V* __restrict__ view,
       }
       if (p + 1 < items) {
         const int f0 = pj * pl.chunk;
-        ids = load_ids(edges, alive, row0 + pk * kStepRows, n, fanout, f0,
+        ids = load_ids(ids_in, ids_r0, alive, row0 + pk * kStepRows, n,
+                       fanout, f0,
                        fanout - f0 < pl.chunk ? fanout - f0 : pl.chunk);
       }
     }
@@ -232,12 +260,13 @@ GR_HD void ring_sweep(const V* __restrict__ view,
   }
 }
 
-// K2's arguments: the view and lanes are [n, nc] column blocks, edges
-// int32 [n, F], the shifts the stripe's (shared memory, [128] each).
+// K2's arguments: the view and lanes are [n, nc] column blocks, ids the
+// item's staged in-edges (int32 [rows, F] from row r0), the shifts the
+// stripe's (shared memory, [128] each).
 template <typename V, typename H>
 struct FmArgs {
   const V* view;
-  const int32_t* edges;
+  const int32_t* ids;
   H* hb;
   int8_t* asl;
   const uint8_t* alive;
@@ -272,8 +301,8 @@ GR_HD void fm_thread(const FmArgs<V, H>& a, int r0, int rows, int col0,
                           a.asl + (size_t)row0 * a.nc + col, valid, ld);
   bool recv = a.alive[row0] != 0, nrecv = false;
   ring_sweep<V, kVec>(
-      a.view, a.edges, a.alive, a.n, a.nc, a.fanout, row0, rows_t, col0, h,
-      t, ring, 0xFFFFFFFFu, copy, commit, wait,
+      a.view, a.ids, r0, a.alive, a.n, a.nc, a.fanout, row0, rows_t, col0,
+      h, t, ring, 0xFFFFFFFFu, copy, commit, wait,
       [&](int k) {
         if (k + 1 < rows_t) {
           const int row = row0 + (k + 1) * kStepRows;
@@ -323,8 +352,8 @@ GR_HD void fx_thread(const T* __restrict__ view,
   const int rows_t = (rows - li + kStepRows - 1) / kStepRows;
   const int row0 = r0 + li;
   ring_sweep<T, kVec>(
-      view, edges, nullptr, n, n, fanout, row0, rows_t, col0, h, t, ring,
-      lowest<T>(), copy, commit, wait, [](int) { return true; },
+      view, edges, 0, nullptr, n, n, fanout, row0, rows_t, col0, h, t,
+      ring, lowest<T>(), copy, commit, wait, [](int) { return true; },
       [&](int k, const Seg& best) {
         T* dst = out + (size_t)(row0 + k * kStepRows) * n + col;
         if (kVec) {
@@ -361,9 +390,9 @@ inline cudaError_t held_blocks(Kern kern, int smem, Held& h, int* per_sm,
   if (e != cudaSuccess) return e;
   if (card >= Held::kMaxCards) return cudaErrorInvalidDevice;
   if (!h.raised[card]) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)ring_bytes(kSlots));
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(ring_bytes(kSlots) + 4L * kStepRows * kMaxStagedFanout));
     if (e != cudaSuccess) return e;
     h.raised[card] = true;
   }
@@ -382,30 +411,42 @@ inline cudaError_t held_blocks(Kern kern, int smem, Held& h, int* per_sm,
   return cudaSuccess;
 }
 
-// An item launch: ring bytes a block, receiver rows an item, items (the
-// grid's blocks).
+// An item launch: shared memory a block (the ring, then the item's staged
+// ids), receiver rows an item, items (the grid's blocks).
 struct Grid {
   int smem, rows, items;
 };
 
 // The grid of ``kern`` over an [n, nc] block of ``elem``-byte view values
-// at ``fanout`` (the blocks held from held_blocks, the rows from
-// item_rows); with ``info``, the geometry into info[10] as well: stripe
-// columns, rows an item, ring stages, slots a stage and thread, ring bytes
-// a block, threads a block, blocks an SM, registers and local memory
-// (spills) a thread, items.
+// at ``fanout``: the rows from item_rows over the blocks that the card
+// holds with the ring alone (held_blocks), cut by staged_rows and the
+// ids' bytes added where ``staged`` (fanout <= kMaxStagedFanout); with
+// ``info``, the geometry into info[10] as well: stripe columns, rows an
+// item, ring stages, slots a stage and thread, shared memory a block,
+// threads a block, blocks an SM, registers and local memory (spills) a
+// thread, items.
 template <typename Kern>
 inline cudaError_t grid(Kern kern, int n, int nc, int elem, int fanout,
-                        Held& h, Grid* g, int* info) {
+                        bool staged, Held& h, Grid* g, int* info) {
+  if (staged && fanout > kMaxStagedFanout) return cudaErrorInvalidValue;
   const Plan pl = plan(fanout);
   g->smem = (int)ring_bytes(pl.chunk);
   int per_sm = 0, sms = 0;
   cudaError_t e = held_blocks(kern, g->smem, h, &per_sm, &sms);
   if (e != cudaSuccess) return e;
   g->rows = item_rows(n, per_sm * sms);
+  if (staged) {
+    g->rows = staged_rows(g->rows, fanout);
+    g->smem += 4 * g->rows * fanout;
+  }
   const int cols = kLanes * (kSegBytes / elem);
   g->items = (nc + cols - 1) / cols * ((n + g->rows - 1) / g->rows);
   if (info == nullptr) return cudaSuccess;
+  if (staged) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kThreads, g->smem);
+    if (e != cudaSuccess) return e;
+  }
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, kern);
   if (e != cudaSuccess) return e;

@@ -12,9 +12,10 @@ the initialised outputs as its atomics do.  The replay must equal
 ``fused_merge_update_plain`` for every view/lane type pair, suspicion and
 detection stats on and off, column blocks, the 16-byte and the element
 path, ragged N, senders outside [0, N), dead receivers, fanout 1, fanouts
-that take several ring stages a row, and items of a few rows, so that the
-count flush and the first observer cross items.  The ring's plan and the
-items' row rule are checked at the main paths' shapes.
+that take several ring stages a row, the largest fanout, and items of a
+few rows, so that the count flush and the first observer cross items.
+The ring's plan and the items' row rules (item_rows, staged_rows) are
+checked at the main paths' shapes.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ using namespace mstripe;
 static void copy16(int8_t* d, const int8_t* s) { std::memcpy(d, s, 16); }
 
 // fused_merge.cu's fused_kernel replayed item by item: the item's shifts
-// staged, every thread's fm_thread, their counter bytes summed into the
+// and sender ids staged (stage_ids, by each thread), every thread's
+// fm_thread, their counter bytes summed into the
 // item's counts (flush_counts: sums, and the min over the rows that fired
 // of r0 + step * 32 + t / 8), the counts into the initialised ``out`` as
 // add_block_counts does.
@@ -60,11 +62,15 @@ static void fm_t(int n, int nc, int fanout, int rows_per_item, int age_clamp,
                  int32_t* out) {
   constexpr int kE = kSegBytes / sizeof(V), cols = gring::kLanes * kE;
   std::vector<int8_t> ring(gring::ring_bytes(gring::plan(fanout).chunk));
-  const gring::FmArgs<V, H> a{view, edges, hb,     asl,      alive,
-                              n,    nc,    fanout, age_clamp};
+  std::vector<int32_t> ids((size_t)rows_per_item * fanout);
+  const gring::FmArgs<V, H> a{view, ids.data(), hb,     asl,      alive,
+                              n,    nc,         fanout, age_clamp};
   for (int col0 = 0; col0 < nc; col0 += cols)
     for (int r0 = 0; r0 < n; r0 += rows_per_item) {
       const int rows = std::min(rows_per_item, n - r0);
+      for (int t = 0; t < gring::kThreads; ++t)
+        gring::stage_ids(edges, ids.data(), r0, rows, fanout, t,
+                         gring::kThreads);
       int32_t cnt[kBlockInts], sh[2][kMaxCols];
       for (int i = 0; i < kBlockInts; ++i) cnt[i] = blank_count(i, n);
       for (int c = 0; c < kMaxCols; ++c) {
@@ -142,6 +148,10 @@ extern "C" void host_fm(int view_bytes, int hb_bytes, int vec, int suspect,
 
 extern "C" int host_item_rows(long n, long held) {
   return gring::item_rows(n, held);
+}
+
+extern "C" int host_staged_rows(int rows, int fanout) {
+  return gring::staged_rows(rows, fanout);
 }
 
 extern "C" void host_plan(int fanout, int* out) {
@@ -250,18 +260,22 @@ def check_fm(host_lib, view, edges, ref, hb, asl, sa, sb, alive, rows,
     (80, 32, 40, np.int8, np.int16, None),    # F = 40: five ring chunks
     (300, 160, 17, np.int8, np.int8, 64),     # items of 64 rows, 2 stripes
     (260, 80, 15, np.int16, np.int32, 32),    # items of one step
+    (100, 32, 512, np.int8, np.int16, None),  # F = 512: staged ids cut items
 ], ids=["ragged", "block36", "view16", "view16f14", "f1", "f40", "items",
-        "items16"])
+        "items16", "f512"])
 def test_host_fused_matches_plain(host_lib, n, nc, fanout, vd, hd, rows,
                                   detect, suspect):
     """K2 over every view/lane type pair it takes, suspicion and detection
     stats on and off: ragged N, column blocks (C % 16 != 0: the element
     path), senders outside [0, N) and dead receivers in every case, fanout
-    1, fanouts of several ring chunks a row, and items of a few rows (the
-    counts and the first observer summed across items)."""
+    1, fanouts of several ring chunks a row, the largest fanout (its
+    staged ids cut the items to one step), and items of a few rows (the
+    counts and the first observer summed across items).  Without a given
+    item size, the kernel's: item_rows cut by staged_rows."""
     args = fm_inputs(n, nc, fanout, vd, hd, suspect, n * nc + fanout)
     if rows is None:
-        rows = host_lib.host_item_rows(n, HELD)
+        rows = host_lib.host_staged_rows(host_lib.host_item_rows(n, HELD),
+                                         fanout)
     check_fm(host_lib, *args, rows, detect, suspect)
 
 
@@ -301,3 +315,17 @@ def test_item_rows_rule(host_lib, n, held, rows):
     splits = -(-n // got)
     strips = max(1, (12 << 20) // (n * 128))
     assert -(-held // splits) <= strips + 1
+
+
+@pytest.mark.parametrize("rows,fanout,want", [
+    (352, 14, 352), (384, 15, 384), (512, 17, 512), (256, 16, 256),
+    (8_160, 14, 704), (352, 40, 256), (96, 40, 96), (352, 512, 32),
+    (32, 512, 32), (8_160, 1, 8_160)])
+def test_staged_rows_rule(host_lib, rows, fanout, want):
+    """K2's items keep their staged sender ids within 40 KB of shared
+    memory, cut in whole steps of 32 rows and never below one step: the
+    main paths' items (F = 14-17) are not cut; F = 512 takes one step."""
+    got = host_lib.host_staged_rows(rows, fanout)
+    assert got == want
+    assert got % 32 == 0 or got == rows
+    assert got == 32 or got * fanout * 4 <= 40 << 10
