@@ -105,9 +105,11 @@ Phases (any failure exits non-zero before the last line is printed):
     profiled device split; then the same run through the separate-pass
     loop (K5): equal final lanes, carry, metrics and report, and its
     rounds/s beside;
-22. capacity frontier: ``python -m gossipfs_tpu_torch.frontier`` at its
-    defaults (N = 65,536, F = 16, 20 rounds): rounds/s and peak memory,
-    which must stay under 40 GiB;
+22. capacity frontier: ``python -m gossipfs_tpu_torch.frontier --trace``
+    at its defaults (N = 65,536, F = 16, 20 rounds): rounds/s and peak
+    memory, which must stay under 40 GiB; the trace's ``remove`` rows
+    number at most N and ``obs.timeline.analyze`` gives the JSON's TTD
+    and FPR from it;
 23. ``PackedDetector`` at the CLI's capacity point N = 49,152: advance 3,
     crash, advance 8, join, advance 10: the detection lands at crash +
     t_fail, the joiner is alive; ms per advance and for the advance that
@@ -228,14 +230,29 @@ Phases (any failure exits non-zero before the last line is printed):
 42. the geometry of K2 and K1 (``fm_info``, ``fx_info``: stripe columns,
     rows an item, ring stages and slots, shared memory, threads, blocks an
     SM, items), K4 and K5 at every shape they are timed at, with each
-    kernel's registers and local memory a thread.
+    kernel's registers and local memory a thread;
+43. the obs plane (``obs/``, the flight recorder, the streaming monitor,
+    the analyzer): ``bench --trace --monitor`` on the headline (3
+    attempts) beside the bench without the flags, equal K3 launches, an ok
+    verdict, the trace's FPR and detection counts equal to ``summarize``
+    of the same run, rounds/s beside phase 5's; ``curves.sweep`` at N =
+    1,024, 4,096 and 16,384 with a trace and the monitor, one K2 launch a
+    round, each row's TTD, FPR and counts reproduced by ``analyze`` of its
+    trace and the monitor equal to ``analyze``; ``SimDetector`` on config
+    3 with a recorder, 30 rounds interactive against ``advance_bulk(30,
+    snapshot_every=10)``: equal crash, hb_freeze and leave rows and first
+    confirms, the recorder's ms a round beside the round's; the three
+    gossip regression cases reproduced, and an ``outage`` campaign run at
+    N = 16,384 (one K2 launch a round) equal to its run on the plain
+    versions.
 
 The last five lines printed are phase 40's times in one JSON line
 (``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
 counts (one JSON line, with each path's ``rr_resident="off"`` run as
 ``"<phase> off"``; capacity, the frontier and the detector's advance as
 phases 6, 22, 34 and 23; config 4's fault model as phase 12, with K2's ms
-a round), the kernels JSON (the five kernels; K3's
+a round; phase 43's bench, curve rows, recorder and campaign run as
+``"43 ..."``), the kernels JSON (the five kernels; K3's
 one-pass form per merge form and SWAR form in its paths' modes and over
 F/F''s blocks, its two-launch form once per merge form and once per SWAR
 form and at phase 41's shapes, the column-shard forms of K3, K2, K4 and
@@ -1711,17 +1728,38 @@ def phase_packed_main(results: dict) -> None:
 
 
 def phase_frontier(results: dict, elementwise: str = "lanes") -> None:
-    """``python -m gossipfs_tpu_torch.frontier --elementwise ...``; the
-    SWAR run's detection fields must equal the lanes run's."""
+    """``python -m gossipfs_tpu_torch.frontier --elementwise ... --trace``;
+    the trace's ``remove`` rows number at most N and the analyzer gives
+    the JSON's TTD and FPR from it; the SWAR run's detection fields must
+    equal the lanes run's."""
+    import tempfile
+
     import torch
 
+    from gossipfs_tpu_torch.obs import timeline
+
     torch.cuda.empty_cache()
-    out = subprocess.run([sys.executable, "-m", "gossipfs_tpu_torch.frontier",
-                          "--elementwise", elementwise],
-                         capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise AssertionError(f"frontier failed:\n{out.stderr[-4000:]}")
-    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/frontier.jsonl"
+        out = subprocess.run(
+            [sys.executable, "-m", "gossipfs_tpu_torch.frontier",
+             "--elementwise", elementwise, "--trace", trace],
+            capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"frontier failed:\n{out.stderr[-4000:]}")
+        doc = json.loads(out.stdout.strip().splitlines()[-1])
+        headers, events = timeline.merge([trace])
+    post = timeline.analyze(headers, events)
+    removes = sum(e.kind == "remove" for e in events)
+    bad = [k for k in ("ttd_first_median", "false_positive_rate",
+                       "detected", "tracked_crashes") if post[k] != doc[k]]
+    log(f"  trace: {doc['trace_events']} events ({removes} remove rows), "
+        f"decode {doc['trace_ms']:.3f} ms after the timed run; analyze "
+        f"gives TTD {post['ttd_first_median']}, FPR "
+        f"{post['false_positive_rate']:.3e}")
+    if bad or removes > doc["n"] or len(events) != doc["trace_events"]:
+        raise AssertionError(f"frontier trace: analyze differs in {bad}, "
+                             f"{removes} remove rows for N={doc['n']}")
     results["frontier_" + elementwise] = doc
     peak = doc["peak_memory_bytes"]
     log(f"  N={doc['n_padded']}, fanout {doc['fanout']}, {doc['rounds']} "
@@ -3695,6 +3733,265 @@ def phase_merge_geometry(results: dict) -> None:
     results["merge_geometry"] = out
 
 
+# ---------------------------------------------------------------------------
+# The obs plane on the card (phase 43): the flight recorder, the streaming
+# monitor and the analyzer behind bench --trace/--monitor, the TTD/FPR
+# curves, the SimDetector seam and the campaign replay.
+# ---------------------------------------------------------------------------
+
+
+def quiet_main(main, argv: list) -> dict:
+    """An entry point's ``main(argv)`` with its JSON line kept off this
+    script's output, whose last lines are read as its result."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def obs_bench(tmp: str, results: dict) -> None:
+    """``bench --trace --monitor`` on the headline (3 attempts) beside the
+    same bench without the flags: equal K3 launches, an ok verdict, and a
+    trace whose FPR and detection counts equal ``summarize`` of the same
+    run (every attempt runs the same key from a fresh state)."""
+    import torch
+
+    from gossipfs_tpu_torch import bench
+    from gossipfs_tpu_torch.metrics.detection import summarize
+    from gossipfs_tpu_torch.obs import timeline
+    from gossipfs_tpu_torch.obs.recorder import decode_scan, load_stream
+
+    path = f"{tmp}/bench.jsonl"
+    plain = quiet_main(bench.main, ["--attempts", "3"])
+    traced = quiet_main(bench.main, ["--attempts", "3", "--trace", path,
+                                     "--monitor"])
+    if (traced["launches"] != plain["launches"]
+            or plain["launches"] != 3 * bench.ROUNDS
+            or traced["form_launches"] != plain["form_launches"]):
+        raise AssertionError(
+            f"bench launches with the flags {traced['launches']} "
+            f"{traced['form_launches']}, without {plain['launches']} "
+            f"{plain['form_launches']}")
+    if not traced["monitor"]["ok"]:
+        raise AssertionError(f"bench monitor verdict {traced['monitor']}")
+    cfg = bench.headline_config(N_MAIN, False)
+    _, (state, carry, per_round) = bench.timed_run(cfg, bench.ROUNDS)
+    rep = summarize(carry, per_round)
+    header, events = load_stream(path)
+    doc = timeline.analyze([header], events)
+    again = [e.to_record() for e in decode_scan(
+        per_round, carry, n=cfg.n, alive=state.alive)]
+    torch.cuda.synchronize()
+    same = [e.to_record() for e in events] == again
+    if (not same or doc["false_positive_rate"] != rep.false_positive_rate
+            or doc["true_detections"] != rep.true_detections
+            or doc["false_positives"] != rep.false_positives
+            or len(events) != traced["trace_events"]):
+        raise AssertionError(
+            f"bench trace: decode of the same run equal {same}; analyze "
+            f"{doc['false_positive_rate']} / {doc['true_detections']} / "
+            f"{doc['false_positives']}, summarize {rep.false_positive_rate}"
+            f" / {rep.true_detections} / {rep.false_positives}")
+    log(f"  bench --trace --monitor: launches {traced['form_launches']} "
+        f"(without the flags {plain['form_launches']}); verdict ok, "
+        f"{traced['trace_events']} events; trace {traced['trace_ms']:.3f} "
+        f"ms, monitor {traced['monitor_ms']:.3f} ms (host, after the "
+        "attempts)")
+    log(f"  rounds/s (CUDA events, median of 3): {traced['median']:.2f} "
+        f"with the flags, {plain['median']:.2f} without; phase 5 (host "
+        f"clock) {results['main']['rounds_per_s']:.2f}")
+    log(f"  analyze(trace) == summarize(same run): FPR "
+        f"{rep.false_positive_rate:.3e}, true detections "
+        f"{rep.true_detections}, false positives {rep.false_positives}")
+    results["obs"]["bench"] = dict(
+        rounds_per_s=traced["median"], plain_rounds_per_s=plain["median"],
+        launches=traced["form_launches"], events=traced["trace_events"],
+        trace_ms=traced["trace_ms"], monitor_ms=traced["monitor_ms"])
+
+
+def obs_curves(tmp: str, results: dict) -> None:
+    """``curves.sweep`` at N = 1,024, 4,096 and 16,384 with ``trace`` and
+    ``monitor``: per row, one K2 launch a round and no other kernel's; the
+    analyzer gives the row's TTD, FPR and counts from its trace alone, and
+    the streaming monitor over the trace equals the analyzer."""
+    import torch
+
+    from gossipfs_tpu_torch import curves
+    from gossipfs_tpu_torch.obs import timeline
+    from gossipfs_tpu_torch.obs.monitor import StreamMonitor, estimator_parity
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    doc = curves.sweep(trace=f"{tmp}/curves.jsonl", monitor=True)
+    wall = time.perf_counter() - t0
+    rows = {}
+    for row in doc["rows"]:
+        n = row["n"]
+        if row["launches"] != {"fused_merge_update": curves.ROUNDS}:
+            raise AssertionError(f"curves N={n} launched {row['launches']}")
+        post = timeline.analyze(*timeline.merge([row["trace"]]))
+        mon = StreamMonitor()
+        mon.feed_jsonl(row["trace"])
+        parity = estimator_parity(post, mon.summary())
+        bad = [k for k in ("ttd_first_median", "false_positive_rate",
+                           "detected", "tracked_crashes")
+               if post[k] != row[k]]
+        if bad or not parity["ok"] or not row["monitor"]["ok"]:
+            raise AssertionError(
+                f"curves N={n}: analyze differs in {bad}, parity "
+                f"{parity['mismatches']}, verdict {row['monitor']}")
+        log(f"  N={n}, fanout {row['fanout']}: TTD median "
+            f"{row['ttd_first_median']} (max {row['ttd_first_max']}), "
+            f"converged {row['ttd_converged_median']}, detected "
+            f"{row['detected']}/{row['tracked_crashes']}, FPR "
+            f"{row['false_positive_rate']:.3e}; {row['trace_events']} "
+            f"events, decode {row['trace_ms']:.3f} ms; launches "
+            f"{row['launches']}; analyze == row, monitor == analyze")
+        rows[str(n)] = {k: row[k] for k in (
+            "ttd_first_median", "false_positive_rate", "trace_events",
+            "trace_ms")}
+    log(f"  sweep {wall:.3f} s ({curves.ROUNDS} rounds a row, the decodes "
+        "and the monitor included)")
+    results["obs"]["curves"] = dict(rows=rows, seconds=wall)
+
+
+def obs_detector(results: dict) -> None:
+    """``SimDetector`` on config 3 with a recorder: 30 interactive rounds
+    on one detector, ``advance_bulk(30, snapshot_every=10)`` on another
+    of the same seed, after four crashes and a leave queued at round 2.
+    The ground-truth rows and the first confirm per subject agree, and
+    each stream's confirm rows are its own drained detection events; a
+    third detector runs the interactive rounds with no recorder."""
+    import torch
+
+    from gossipfs_tpu_torch.detector.sim import SimDetector
+    from gossipfs_tpu_torch.models.presets import ALL
+    from gossipfs_tpu_torch.obs.recorder import FlightRecorder
+
+    cfg = ALL["sim-10k-crash"].config
+    rounds, streams, ms = 30, {}, {}
+    for mode in ("interactive", "bulk", "no recorder"):
+        det = SimDetector(cfg, seed=1)
+        rec = FlightRecorder(source="sim", n=cfg.n)
+        if mode != "no recorder":
+            det.attach_recorder(rec)
+        det.advance(2)
+        for node in (5, 300, 4097, 9000):
+            det.crash(node)
+        det.leave(777)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "bulk":
+            det.advance_bulk(rounds, snapshot_every=10)
+        else:
+            det.advance(rounds)
+        events = det.drain_events()
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) / rounds * 1e3
+        confirms = [(e.round, e.observer, e.subject) for e in rec.events
+                    if e.kind == "confirm"]
+        if mode != "no recorder" and confirms != [
+                (e.round, e.observer, e.subject) for e in events]:
+            raise AssertionError(f"{mode}: confirm rows != drained events")
+        streams[mode] = rec.events
+
+    def faults(evs):
+        return sorted((e.round, e.kind, e.subject) for e in evs
+                      if e.kind in ("crash", "hb_freeze", "leave"))
+
+    def first_confirms(evs):
+        out = {}
+        for e in evs:
+            if e.kind == "confirm":
+                out.setdefault(e.subject, (e.round, e.observer))
+        return out
+
+    inter, bulk = streams["interactive"], streams["bulk"]
+    firsts = first_confirms(inter)
+    if (faults(inter) != faults(bulk) or len(faults(inter)) != 9
+            or firsts != first_confirms(bulk)
+            or not {5, 300, 4097, 9000} <= set(firsts)):
+        raise AssertionError(
+            f"interactive and bulk streams differ: {faults(inter)} / "
+            f"{faults(bulk)}, {firsts} / {first_confirms(bulk)}")
+    rec_ms = ms["interactive"] - ms["no recorder"]
+    log(f"  config 3 (N={cfg.n}): {len(inter)} interactive events, "
+        f"{len(bulk)} bulk; crash, hb_freeze and leave rows equal; first "
+        f"confirms equal {dict(sorted(firsts.items()))}")
+    log(f"  ms a round: interactive with the recorder "
+        f"{ms['interactive']:.4f}, without {ms['no recorder']:.4f} "
+        f"(recorder {rec_ms:.4f}); advance_bulk(30, snapshot_every=10) "
+        f"{ms['bulk']:.4f}, the decode included")
+    results["obs"]["detector"] = dict(
+        round_ms=ms["no recorder"], recorder_ms=rec_ms,
+        bulk_round_ms=ms["bulk"], events=len(inter))
+
+
+def obs_campaigns(results: dict) -> None:
+    """The three gossip regression cases replayed on the card, then one
+    ``outage`` run (256 nodes dark for 10 rounds) at N = 16,384 on the
+    campaign profile: one K2 launch a round with the scenario's edge
+    rewrite, and its row equal to the same run on the plain versions."""
+    import pathlib
+
+    import torch
+
+    from gossipfs_tpu_torch.bench import tracked_victims
+    from gossipfs_tpu_torch.campaigns import driver
+    from gossipfs_tpu_torch.ops import merge
+
+    for case in ("flap_storm_n256", "outage_storm_n256",
+                 "outage_absorbed_n256"):
+        out = driver.run_case(pathlib.Path(__file__).resolve().parent
+                              / "regressions" / f"{case}.json")
+        row = out["row"]
+        if not out["reproduced"]:
+            raise AssertionError(f"{case} not reproduced: {row['verdict']} "
+                                 f"{row['monitor']}")
+        log(f"  {case}: reproduced, {row['verdict']} "
+            f"{row['monitor']['by_invariant']}, FPR "
+            f"{row['estimators']['false_positive_rate']:.3e}, TTD median "
+            f"{row['estimators']['ttd_first_median']}")
+    n = N_MAIN
+    cfg = driver.campaign_config(n)
+    avoid = set(tracked_victims(n, 4, cfg.introducer)) | {cfg.introducer}
+    sc = driver.make_scenario("outage", n, 10, avoid=avoid, size=256,
+                              length=10)
+    torch.cuda.empty_cache()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    row = driver.run_scenario(n, sc)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    if launches != {"fused_merge_update": row["rounds"]}:
+        raise AssertionError(f"campaign N={n} launched {launches}")
+    plain = driver.run_scenario(n, sc, plain=True)
+    if plain != row:
+        bad = [k for k in row if row[k] != plain[k]]
+        raise AssertionError(f"campaign N={n}: kernels != plain in {bad}")
+    log(f"  outage size 256 x 10 rounds at N={n} (fanout {cfg.fanout}, "
+        f"view {cfg.view_dtype}, hb {cfg.hb_dtype}): {row['rounds']} rounds"
+        f" in {wall:.3f} s, launches {launches}; verdict {row['verdict']} "
+        f"{row['monitor']['by_invariant']}; row == the plain versions' row")
+    log(f"  estimators {json.dumps(row['estimators'])}")
+    results["obs"]["campaign"] = dict(
+        round_ms=wall / row["rounds"] * 1e3,
+        rounds_per_s=row["rounds"] / wall, launches=launches,
+        verdict=row["verdict"])
+
+
+def phase_obs_plane(results: dict) -> None:
+    import tempfile
+
+    results["obs"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_bench(tmp, results)
+        obs_curves(tmp, results)
+    obs_detector(results)
+    obs_campaigns(results)
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -3763,6 +4060,14 @@ def main_path_summary(results: dict) -> dict:
     out["29"] = {"round_ms": p["seconds"] / p["rounds"] * 1e3,
                  "rounds_per_s": p["rounds"] / p["seconds"],
                  "launches": {"fused_merge_update": p["rounds"]}}
+    # the obs plane (phase 43): bench --trace --monitor (CUDA events, with
+    # and without the flags), each curve row's decode, the detector's
+    # recorder, the campaign run at N = 16,384
+    obs = results["obs"]
+    out["43 bench"] = obs["bench"]
+    out["43 curves"] = obs["curves"]
+    out["43 detector"] = obs["detector"]
+    out["43 campaign"] = obs["campaign"]
     return out
 
 
@@ -3916,6 +4221,12 @@ def main() -> int:
     log("[42] K2, K1, K4 and K5 at every timed shape: stripe, ring, "
         "items, cluster, blocks held, registers, spills")
     phase_merge_geometry(results)
+    log(f"[43] the obs plane: bench --trace --monitor (N={N_MAIN}), "
+        "curves.sweep with trace and monitor, the SimDetector recorder on "
+        "config 3, the campaign replay")
+    t0 = time.perf_counter()
+    phase_obs_plane(results)
+    log(f"  phase 43 in {time.perf_counter() - t0:.2f} s")
     print(json.dumps({"main_paths": main_path_summary(results)},
                      separators=(",", ":")))
     src = "gossipfs_tpu_torch/csrc/"

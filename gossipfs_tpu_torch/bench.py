@@ -17,8 +17,17 @@ choice.
 
     python -m gossipfs_tpu_torch.bench [--n N] [--rounds R] [--attempts A]
                                        [--suspicion] [--elementwise swar]
+                                       [--trace PATH] [--monitor]
 
-Prints one JSON line.  Needs a CUDA device: there is no CPU fallback.
+``--trace PATH`` writes the last attempt's flight-recorder event stream
+(``obs/``; analyze it with ``python -m gossipfs_tpu_torch.obs.timeline``)
+and ``--monitor`` streams the same decoded events through the invariant
+monitor, stamps its verdict into the JSON and exits 1 on a violation.
+Both decode the outputs after the attempts, off the timed window: the
+rounds and their kernel launches are the same with or without them.
+
+Prints one JSON line.  Runs on the card; ``--device cpu`` runs the plain
+versions on the CPU (a host-clock time, not a device one).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import argparse
 import dataclasses
 import json
 import statistics
+import time
 
 import torch
 
@@ -34,6 +44,8 @@ from gossipfs_tpu_torch import random as trandom
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.core.rounds import run_rounds
 from gossipfs_tpu_torch.core.state import RoundEvents, init_state
+from gossipfs_tpu_torch.obs.monitor import monitor_verdict
+from gossipfs_tpu_torch.obs.recorder import decode_scan, write_trace
 from gossipfs_tpu_torch.ops import merge
 from gossipfs_tpu_torch.suspicion import SuspicionParams
 
@@ -79,19 +91,25 @@ def tracked_crash_events(cfg: SimConfig, rounds: int, track: int, at: int,
 
 
 def timed_run(cfg: SimConfig, rounds: int, seed: int = 0,
-              crash_rate: float = CRASH_RATE) -> float:
-    """Seconds of device time for one ``run_rounds`` call from a fresh
-    state (CUDA events around the call, set-up excluded)."""
-    state = init_state(cfg, device="cuda")
-    key = trandom.PRNGKey(seed, device="cuda")
+              crash_rate: float = CRASH_RATE, device="cuda"):
+    """One ``run_rounds`` call from a fresh state: (seconds, its outputs
+    (state, MetricsCarry, RoundMetrics)).  On the card the seconds are
+    device time (CUDA events around the call, set-up excluded); on the
+    CPU, the host clock's."""
+    state = init_state(cfg, device=device)
+    key = trandom.PRNGKey(seed, device=device)
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = run_rounds(state, cfg, rounds, key, crash_rate=crash_rate)
+        return time.perf_counter() - t0, out
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    run_rounds(state, cfg, rounds, key, crash_rate=crash_rate)
+    out = run_rounds(state, cfg, rounds, key, crash_rate=crash_rate)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / 1e3
+    return start.elapsed_time(end) / 1e3, out
 
 
 def headline_config(n: int, suspicion: bool,
@@ -115,20 +133,39 @@ def main(argv=None) -> dict:
     ap.add_argument("--elementwise", choices=merge.ELEMENTWISE,
                     default="lanes",
                     help="swar: the resident round's SWAR form")
+    ap.add_argument("--trace", type=str, default=None, metavar="PATH",
+                    help="write the last attempt's flight-recorder event "
+                         "stream (obs/ JSONL) to PATH, decoded after the "
+                         "timed window")
+    ap.add_argument("--monitor", action="store_true",
+                    help="stream the last attempt's decoded events "
+                         "through the invariant monitor (obs/monitor.py), "
+                         "stamp its verdict into the JSON, exit 1 on a "
+                         "violation")
+    ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("gossipfs_tpu_torch.bench needs a CUDA device")
+    dev = args.device
+    on_card = torch.device(dev).type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise SystemExit("gossipfs_tpu_torch.bench needs a CUDA device "
+                         "(or --device cpu)")
     cfg = headline_config(args.n, args.suspicion, args.elementwise)
-    timed_run(cfg, args.rounds)  # warm-up: kernel build and load
+    timed_run(cfg, args.rounds, device=dev)  # warm-up: kernel build, load
     merge.reset_launch_counts()
-    secs = [timed_run(cfg, args.rounds) for _ in range(args.attempts)]
+    secs = []
+    for _ in range(args.attempts):
+        sec, out = timed_run(cfg, args.rounds, device=dev)
+        secs.append(sec)
+    launches = merge.LAUNCH_COUNTS["resident_round"]
+    form_launches = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
     rates = sorted(args.rounds / s for s in secs)
     sus = ", suspicion t_fail=3 t_suspect=2" if args.suspicion else ""
     median = statistics.median(rates)
+    device = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    obs = decode_last(out, cfg, args.trace, args.monitor)
     doc = {
         "metric": (f"simulated gossip rounds/sec, N={args.n}, fanout=16 "
-                   f"tile-aligned arc, 1% crash churn{sus} "
-                   f"({torch.cuda.get_device_name(0)})"),
+                   f"tile-aligned arc, 1% crash churn{sus} ({device})"),
         "value": median,
         "median": median,
         "best": rates[-1],
@@ -136,16 +173,48 @@ def main(argv=None) -> dict:
         "unit": "rounds/s",
         # the reference's heartbeat loop runs 1 round per second
         "vs_baseline": median,
-        "device": torch.cuda.get_device_name(0),
-        "kernel": "resident_round_cuda",
-        "launches": merge.LAUNCH_COUNTS["resident_round"],
+        "device": device,
+        "kernel": ("resident_round_cuda" if on_card
+                   else "resident_round_plain"),
+        "launches": launches,
         "elementwise": args.elementwise,
-        "form_launches": {k: v for k, v in merge.FORM_LAUNCHES.items()
-                          if v},
+        "form_launches": form_launches,
         "suspicion": (None if cfg.suspicion is None
                       else dataclasses.asdict(cfg.suspicion)),
+        **obs,
     }
     print(json.dumps(doc))
+    if args.monitor and not doc["monitor"]["ok"]:
+        # a headline over a run that broke a protocol invariant is not a
+        # headline (the verdict is stamped above)
+        raise SystemExit(1)
+    return doc
+
+
+def decode_last(out, cfg: SimConfig, trace: str | None,
+                monitor: bool) -> dict:
+    """The ``--trace``/``--monitor`` fields of the JSON from one attempt's
+    outputs, decoded on the host after the timed window: the monitor's
+    verdict (its violation list stays in the trace) and the trace's path,
+    event count and the host ms of each decode."""
+    state, carry, per_round = out
+    n, sus = cfg.n, cfg.suspicion is not None
+    doc: dict = {}
+    if monitor:
+        t0 = time.perf_counter()
+        evs = decode_scan(per_round, carry, n=n, alive=state.alive,
+                          suspicion=sus)
+        doc["monitor"] = monitor_verdict(evs, n=n)
+        del doc["monitor"]["violations"]
+        doc["monitor_ms"] = (time.perf_counter() - t0) * 1e3
+    if trace:
+        t0 = time.perf_counter()
+        doc["trace_events"] = write_trace(
+            trace, per_round, carry, n=n, source="bench", alive=state.alive,
+            suspicion=sus, elementwise=cfg.elementwise,
+            merge_kernel=cfg.merge_kernel, crash_rate=CRASH_RATE)
+        doc["trace"] = trace
+        doc["trace_ms"] = (time.perf_counter() - t0) * 1e3
     return doc
 
 

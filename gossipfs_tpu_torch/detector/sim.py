@@ -23,10 +23,14 @@ windows count from the current round; interactive rounds then run
 ``gossip_round_scenario`` and bulk runs hand the compiled table to
 ``run_rounds``, each on the configured kernels (explicit edges rewritten,
 aligned arcs in the group form).  ``PackedDetector`` has no scenario seam,
-as in the JAX package.  Not ported yet: the flight recorder
-(``attach_recorder``; the obs plane, ROADMAP Queue 1), which raises
-``NotImplementedError``; its ``scenario_arm``/``scenario_clear`` rows come
-with it.
+as in the JAX package.
+
+``SimDetector.attach_recorder`` arms an ``obs.FlightRecorder`` (or a
+``MonitorRecorder``): interactive rounds emit the schema's lifecycle rows
+(ground-truth verbs, ``round_tick``, ``confirm``, ``suspect``,
+``refute``, ``remove``) from O(N) per-subject reductions made on the
+device, and bulk runs decode their existing outputs
+(``obs.recorder.decode_scan``) when their events are read.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from gossipfs_tpu_torch.core import topology
 from gossipfs_tpu_torch.core.state import (
     MEMBER, SUSPECT, UNKNOWN, RoundEvents, SimState, init_state)
 from gossipfs_tpu_torch.detector.api import DetectionEvent
+from gossipfs_tpu_torch.obs.recorder import decode_scan
+from gossipfs_tpu_torch.obs.schema import Event
 from gossipfs_tpu_torch.scenarios import tensor as scn_tensor
 from gossipfs_tpu_torch.utils.snapshot import Snapshot, SnapshotBuffer
 
@@ -78,12 +84,94 @@ class SimDetector:
         self._scenario = None
         self._scn_tensor = None
         self._scn_round0 = 0     # the arming round (the table's round0)
+        # flight recorder (obs/): per-round rows on the interactive path,
+        # a post-run decode of bulk runs
+        self._recorder = None
+        self._rec_suspects: set[int] = set()
+        self._rec_removed: set[int] = set()
 
-    # -- not ported yet ----------------------------------------------------
+    # -- flight recorder (obs/) --------------------------------------------
     def attach_recorder(self, recorder) -> None:
-        raise NotImplementedError(
-            "the flight recorder (obs/) is not ported yet: ROADMAP Queue 1, "
-            "item 13")
+        """Arm an ``obs.FlightRecorder``: every later round emits the
+        schema's lifecycle events.  An interactive round reduces the
+        status lanes to three per-subject columns on the device (held
+        SUSPECT by someone, MEMBER somewhere, held by no live non-self
+        observer) and moves only those O(N) bools to the host; a bulk run
+        decodes its existing outputs instead, off the rounds."""
+        self._recorder = recorder
+        self._rec_suspects = set()
+        self._rec_removed = set()
+
+    def _rec_emit(self, round_idx: int, kind: str, subject: int,
+                  observer: int = -1, **detail) -> None:
+        self._recorder.emit(Event(round=round_idx, observer=observer,
+                                  subject=subject, kind=kind,
+                                  detail=detail))
+
+    def _record_interactive_round(self, round_idx: int, metrics, af, fo,
+                                  crashed: set[int], left: set[int],
+                                  joined: set[int]) -> None:
+        """One interactive round's schema events (recorder armed only).
+        ``metrics`` is the round's ``RoundMetrics`` as host integers;
+        ``af``/``fo`` the host copies of ``any_fail``/``first_obs``, None
+        on a quiet round."""
+        for s in sorted(crashed):
+            self._rec_emit(round_idx, "crash", s)
+            self._rec_emit(round_idx, "hb_freeze", s)
+            self._rec_removed.discard(s)
+        for s in sorted(left):
+            self._rec_emit(round_idx, "leave", s)
+            self._rec_removed.discard(s)
+        for s in sorted(joined):
+            self._rec_emit(round_idx, "join", s)
+            self._rec_removed.discard(s)
+        sus_on = self.config.suspicion is not None
+        m = metrics
+        detail = {"n_alive": m.n_alive, "true_detections": m.true_detections,
+                  "false_positives": m.false_positives}
+        if sus_on:
+            detail.update(suspects_entered=m.suspects_entered,
+                          refutations=m.refutations,
+                          fp_suppressed=m.fp_suppressed)
+        self._rec_emit(round_idx, "round_tick", -1, **detail)
+
+        # the per-subject columns, reduced on the device: no [N, N] host
+        # copy.  held: a live observer other than the subject lists it
+        st = self.state.status
+        alive = self.state.alive
+        held = ((st == MEMBER) | (st == SUSPECT)) & alive[:, None]
+        held.fill_diagonal_(False)
+        cols = [~held.any(0) & ~alive, alive]
+        del held
+        if sus_on:
+            cols += [(st == SUSPECT).any(0), (st == MEMBER).any(0)]
+        cols = torch.stack(cols).cpu().numpy()
+        gone_v, alive_h = cols[0], cols[1]
+        if af is not None:
+            for subj in np.nonzero(af)[0]:
+                self._rec_emit(round_idx, "confirm", int(subj),
+                               observer=int(fo[subj]),
+                               false_positive=bool(alive_h[subj]))
+        if sus_on:
+            sus_any, member_any = cols[2], cols[3]
+            now_sus = set(np.nonzero(sus_any)[0].tolist())
+            for s in sorted(now_sus - self._rec_suspects):
+                self._rec_emit(round_idx, "suspect", s)
+            confirmed = (set(np.nonzero(af)[0].tolist())
+                         if af is not None else set())
+            # a refutation is evidence of life: the entry must be BACK as
+            # a MEMBER somewhere, and not because of a same-round leave or
+            # crash verb (a dropped suspect was never refuted)
+            for s in sorted(self._rec_suspects - now_sus - confirmed):
+                if member_any[s] and s not in crashed and s not in left:
+                    self._rec_emit(round_idx, "refute", s)
+            self._rec_suspects = now_sus
+        # cluster-wide removal (the convergence event): a dead subject no
+        # live observer still lists — _update_carry's all_dropped
+        gone = set(np.nonzero(gone_v)[0].tolist())
+        for s in sorted(gone - self._rec_removed):
+            self._rec_emit(round_idx, "remove", s)
+        self._rec_removed |= gone
 
     # -- scenario engine ---------------------------------------------------
     def load_scenario(self, scenario) -> None:
@@ -104,8 +192,14 @@ class SimDetector:
         self._scn_tensor = scn_tensor.compile_tensor(
             scenario, round0=self._scn_round0, device=self.device)
         self._scenario = scenario
+        if self._recorder is not None:
+            self._rec_emit(self._scn_round0, "scenario_arm", -1,
+                           name=scenario.name, horizon=scenario.horizon)
 
     def clear_scenario(self) -> None:
+        if self._scenario is not None and self._recorder is not None:
+            self._join_bulk()
+            self._rec_emit(int(self.state.round), "scenario_clear", -1)
         self._scenario = self._scn_tensor = None
 
     def scenario_status(self) -> dict | None:
@@ -178,6 +272,10 @@ class SimDetector:
         for _ in range(rounds):
             round_idx = int(self.state.round)
             self._refuse_join_in_window(round_idx)
+            verbs = None
+            if self._recorder is not None:
+                verbs = (set(self._pending_crash), set(self._pending_leave),
+                         set(self._pending_join))
             ev = self._take_verbs()
             # the interactive round takes k = fold_in(key, round) as its
             # edge key itself, with no split (the JAX package's advance)
@@ -192,19 +290,27 @@ class SimDetector:
             else:
                 self.state, metrics, any_fail, first_obs = R.gossip_round(
                     self.state, ev, edges, cfg)
+            m = None
+            if cfg.suspicion is not None or verbs is not None:
+                # the round's six counters in one transfer
+                m = R.RoundMetrics(*torch.stack(list(metrics)).tolist())
             if cfg.suspicion is not None:
                 self._accumulate_suspicion(
-                    int(metrics.suspects_entered), int(metrics.refutations),
-                    int(metrics.fp_suppressed),
-                    int(metrics.true_detections)
-                    + int(metrics.false_positives))
-            if not bool(any_fail.any()):
+                    m.suspects_entered, m.refutations, m.fp_suppressed,
+                    m.true_detections + m.false_positives)
+            eventful = bool(any_fail.any())
+            af = fo = None
+            if eventful:
+                # the per-subject vectors the round computes anyway, O(N)
+                # host bytes
+                af = any_fail.cpu().numpy()
+                fo = first_obs.cpu().numpy()
+            if verbs is not None:
+                self._record_interactive_round(round_idx, m, af, fo, *verbs)
+            if not eventful:
                 continue  # quiet round: one scalar transfer
-            # eventful round: the per-subject vectors the round computes
-            # anyway, O(N) host bytes; one event per detected subject,
-            # attributed to the lowest-index firing observer
-            af = any_fail.cpu().numpy()
-            fo = first_obs.cpu().numpy()
+            # one event per detected subject, attributed to the
+            # lowest-index firing observer
             alive = self.state.alive.cpu().numpy()
             for subj in np.nonzero(af)[0]:
                 self._events.append(DetectionEvent(
@@ -233,6 +339,10 @@ class SimDetector:
         self._join_bulk()
         start = int(self.state.round)
         self._refuse_join_in_window(start)
+        # the verbs this run applies on its first round, for the recorder's
+        # ground-truth rows (decode_scan has no leave or join rows)
+        verbs = (set(self._pending_crash), set(self._pending_leave),
+                 set(self._pending_join))
         first = self._take_verbs()
         n = self.config.n
         events = RoundEvents(*(
@@ -246,7 +356,7 @@ class SimDetector:
                 self.state, self.config, rounds, self._key, events=events,
                 scenario=self._scn_tensor)
             self._pending_bulk.append(
-                (start, rounds, mcarry, self.state.alive, [per_round]))
+                (start, rounds, mcarry, self.state.alive, [per_round], verbs))
             return None
 
         if self._snap_buffer is None:
@@ -277,7 +387,7 @@ class SimDetector:
                     prev = (st, snap)
                 self._publish(*prev)
                 self._pending_bulk.append(
-                    (start, rounds, mcarry, st.alive, per_rounds))
+                    (start, rounds, mcarry, st.alive, per_rounds, verbs))
             except BaseException as e:  # re-raised by the next _join_bulk
                 self._bulk_error = e
 
@@ -314,7 +424,7 @@ class SimDetector:
         detection round and its lowest firing observer from the metrics
         carry, the same first event the interactive path reports."""
         pending, self._pending_bulk = self._pending_bulk, []
-        for start, rounds, mcarry, alive, per_rounds in pending:
+        for start, rounds, mcarry, alive, per_rounds, verbs in pending:
             if self.config.suspicion is not None:
                 for pr in per_rounds:
                     self._accumulate_suspicion(
@@ -323,6 +433,22 @@ class SimDetector:
                         int(pr.fp_suppressed.sum()),
                         int(pr.true_detections.sum())
                         + int(pr.false_positives.sum()))
+            if self._recorder is not None:
+                # the run's verbs as ground-truth rows at its start round,
+                # then its outputs decoded
+                crashed, left, joined = verbs
+                for s in sorted(left):
+                    self._rec_emit(start, "leave", s)
+                for s in sorted(joined):
+                    self._rec_emit(start, "join", s)
+                flat = R.RoundMetrics(*(
+                    torch.cat([getattr(p, f) for p in per_rounds])
+                    for f in R.RoundMetrics._fields))
+                self._recorder.extend(decode_scan(
+                    flat, mcarry, n=self.config.n, start_round=start,
+                    crash_rounds={s: start for s in sorted(crashed)},
+                    alive=alive,
+                    suspicion=self.config.suspicion is not None))
             first = mcarry.first_detect.cpu().numpy()
             observer = mcarry.first_observer.cpu().numpy()
             alive_h = alive.cpu().numpy()

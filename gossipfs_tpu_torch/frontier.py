@@ -20,9 +20,12 @@ one JSON line: the JAX package's fields, less ``rr_rotate``,
 port does not have), plus the device, its peak memory and the timed
 run's resident-round launches by form (none on the CPU, where the plain
 version runs).
-``--elementwise swar`` runs the resident round's SWAR form;
-``--trace`` raises ``NotImplementedError`` until the flight recorder is
-ported.
+``--elementwise swar`` runs the resident round's SWAR form.  ``--trace
+PATH`` writes the timed run's flight-recorder stream (``obs/``; analyze it
+with ``python -m gossipfs_tpu_torch.obs.timeline``), decoded after the
+run from outputs ``summarize`` reads anyway, with the pad subjects past N
+masked out (``n_effective``); the JSON then also carries ``trace``,
+``trace_events`` and the decode's host ms.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from gossipfs_tpu_torch.bench import tracked_crash_events
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.core import rounds as R
 from gossipfs_tpu_torch.metrics.detection import summarize
+from gossipfs_tpu_torch.obs.recorder import write_trace
 from gossipfs_tpu_torch.ops import merge
 
 # the JAX package's arc-chunk quantum (gossipfs_tpu/ops/merge_pallas.py
@@ -79,10 +83,6 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
         seed: int = 0, topology: str = "random", arc_align: int = 1,
         fanout: int | None = None, elementwise: str = "lanes",
         trace: str | None = None, device="cuda") -> dict:
-    if trace is not None:
-        raise NotImplementedError(
-            "--trace needs the flight recorder (obs/), not ported yet "
-            "(ROADMAP Queue 1, item 13)")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("gossipfs_tpu_torch.frontier needs a CUDA device "
@@ -125,6 +125,18 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
             else None)
     report = summarize(mcarry, per_round, crash_rounds,
                        n_effective=n if padded else None)
+    traced = {}
+    if trace:
+        # off the timed run: the lanes stay on the device, only the [N]
+        # liveness and the metrics leave
+        t0 = time.perf_counter()
+        n_events = write_trace(
+            trace, per_round, mcarry, n=n_pad, source="frontier",
+            crash_rounds=crash_rounds, alive=out[2],
+            n_effective=n if padded else None, topology=topology,
+            merge_block_c=block_c, elementwise=elementwise)
+        traced = {"trace": trace, "trace_events": n_events,
+                  "trace_ms": (time.perf_counter() - t0) * 1e3}
     ttd_f = [v for v in report.ttd_first.values() if v >= 0]
     ttd_c = [v for v in report.ttd_converged.values() if v >= 0]
     return {
@@ -153,6 +165,7 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
                    else "cpu"),
         "peak_memory_bytes": peak,
         "launches": launches,
+        **traced,
     }
 
 
@@ -175,7 +188,8 @@ def main(argv=None) -> dict:
                    default="lanes",
                    help="swar: the resident round's SWAR form")
     p.add_argument("--trace", type=str, default=None, metavar="PATH",
-                   help="flight-recorder trace: not ported yet (raises)")
+                   help="write the timed run's flight-recorder event "
+                        "stream (obs/ JSONL) to PATH")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     doc = run(args.n, args.rounds, args.block_c, args.crash_at, args.track,

@@ -53,7 +53,10 @@ def test_port_imports_without_jax():
                 "utils.snapshot", "frontier", "curves", "scenarios",
                 "scenarios.schedule", "scenarios.runtime",
                 "scenarios.tensor", "parallel.mesh",
-                "parallel.distributed", "full_scale"):
+                "parallel.distributed", "full_scale", "obs", "obs.schema",
+                "obs.recorder", "obs.monitor", "obs.timeline", "traffic",
+                "traffic.audit", "traffic.workload", "campaigns",
+                "campaigns.driver"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -253,5 +253,7 @@ def test_curves_cli(tmp_path, capsys):
     doc = json.loads(capsys.readouterr().out)
     assert doc == json.loads(out.read_text())
     assert doc["rows"][0]["n"] == 64
-    with pytest.raises(SystemExit, match="only --partition"):
-        curves.main(["--device", "cpu"])
+    # the TTD/FPR sweep is ported (tests/test_torch_curves_sweep.py); the
+    # suspicion A/B is not
+    with pytest.raises(SystemExit, match="not ported yet"):
+        curves.main(["--suspicion", "--device", "cpu"])

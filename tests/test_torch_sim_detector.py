@@ -11,8 +11,9 @@ the CPU):
 * ``advance_bulk(snapshot_every=k)`` equals one bulk call, and a snapshot
   read after later chunks have rewritten the lanes in place still holds
   its own round's status;
-* what is not ported yet (the flight recorder) raises
-  ``NotImplementedError``.
+* the flight recorder attaches (its streams are held against the JAX
+  package's in ``tests/test_torch_obs_detector.py``), and bad verbs and
+  scenarios of another size raise.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from gossipfs_tpu.suspicion import SuspicionParams as JaxSus
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.detector.api import FailureDetector
 from gossipfs_tpu_torch.detector.sim import SimDetector
+from gossipfs_tpu_torch.obs.recorder import FlightRecorder
 from gossipfs_tpu_torch.scenarios import split_halves
 from gossipfs_tpu_torch.suspicion import SuspicionParams
 from gossipfs_tpu_torch.utils.snapshot import SnapshotBuffer
@@ -138,8 +140,11 @@ def test_bulk_failure_reraises_on_the_next_read():
 
 def test_unported_surfaces_raise():
     _, t = pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.attach_recorder(object())
+    # the flight recorder is ported: attaching one records the next round
+    rec = FlightRecorder(source="sim", n=N)
+    t.attach_recorder(rec)
+    t.advance(1)
+    assert rec.kinds() == ["round_tick"]
     # scenarios are ported (tests/test_torch_partition.py): what raises is
     # a scenario of another cluster size
     with pytest.raises(ValueError, match="scenario is for n=8"):

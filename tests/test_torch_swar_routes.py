@@ -99,7 +99,7 @@ def test_swar_config_needs_int8_lanes():
     assert SimConfig.headline(1024, **SW).elementwise == "swar"
 
 
-def test_frontier_swar_equals_lanes_on_cpu():
+def test_frontier_swar_equals_lanes_on_cpu(tmp_path):
     kw = dict(n=256, rounds=14, block_c=128, seed=4, device="cpu")
     lanes = run_frontier(**kw)
     swar = run_frontier(elementwise="swar", **kw)
@@ -108,8 +108,12 @@ def test_frontier_swar_equals_lanes_on_cpu():
     assert ({k: v for k, v in swar.items() if k not in timing}
             == {k: v for k, v in lanes.items() if k not in timing})
     assert swar["detected"] > 0
-    with pytest.raises(NotImplementedError, match="trace"):
-        run_frontier(trace="x.jsonl", **kw)
+    # --trace is ported: the SWAR run's trace is the lanes run's
+    traces = [tmp_path / "lanes.jsonl", tmp_path / "swar.jsonl"]
+    run_frontier(trace=str(traces[0]), **kw)
+    run_frontier(elementwise="swar", trace=str(traces[1]), **kw)
+    lanes_rows, swar_rows = (p.read_text().splitlines() for p in traces)
+    assert swar_rows[1:] == lanes_rows[1:] and len(lanes_rows) > 20
 
 
 def test_bench_takes_elementwise():
