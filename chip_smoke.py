@@ -244,7 +244,23 @@ Phases (any failure exits non-zero before the last line is printed):
     confirms, the recorder's ms a round beside the round's; the three
     gossip regression cases reproduced, and an ``outage`` campaign run at
     N = 16,384 (one K2 launch a round) equal to its run on the plain
-    versions.
+    versions;
+44. the conformance, curve and scenario runners: K2 against its plain
+    version at the shapes they give it (the conformance column's N = 8,
+    config 1's N = 10, the (t_fail, t_suspect) surface's N = 16,384 in
+    its suspect form, timed); the conformance matrix over the oracle and
+    the tensor column on the card (4 tensor families x 2 seeds, the
+    oracle's self-check over all 24 cases), all agreeing, each card
+    bundle equal to the CPU port's; ``curves.sweep_t_fail(n=16_384)``
+    (one K2 launch a round, the suspect form at t_suspect = 2) with its
+    (3, 2) row equal to its plain re-run; ``curves.suspicion_sweep`` at
+    N = 16,384 on K2 and on ``pallas_rr`` + SWAR (K3), each loss
+    suspect-t3 row equal to its plain re-run, the JAX package's two
+    claims for these rows printed; ``python -m gossipfs_tpu_torch.run``
+    for parity-10, sim-1k, sim-10k-crash and sim-100k cut to N = 32,768
+    and 20 rounds (rounds/s and detection; parity-10's and sim-1k's
+    outputs equal their plain re-runs); ``entry()``'s flagship step, 20
+    steps equal to 20 plain steps.
 
 The last five lines printed are phase 40's times in one JSON line
 (``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
@@ -252,8 +268,8 @@ counts (one JSON line, with each path's ``rr_resident="off"`` run as
 ``"<phase> off"``; capacity, the frontier and the detector's advance as
 phases 6, 22, 34 and 23; config 4's fault model as phase 12, with K2's ms
 a round; phase 43's bench, curve rows, recorder and campaign run as
-``"43 ..."``), the kernels JSON (the five kernels; K3's
-one-pass form per merge form and SWAR form in its paths' modes and over
+``"43 ..."``; phase 44's parts as ``"44 ..."``), the kernels JSON (the
+five kernels; K3's one-pass form per merge form and SWAR form in its paths' modes and over
 F/F''s blocks, its two-launch form once per merge form and once per SWAR
 form and at phase 41's shapes, the column-shard forms of K3, K2, K4 and
 K5), the ``nvidia-smi`` name and power limit, and the device JSON.
@@ -2826,11 +2842,13 @@ def big_round_inputs(n: int, c: int, seed: int, suspect: bool):
     return hb, asl, flags, vecs, bases
 
 
-def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int):
+def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int,
+                     vdt=None):
     """One merge call's inputs over an [N, C] block, made on the card:
     post-tick lanes over every status, ages to 63 (a fifth at 0), floor
     sentinels, dead receivers (their view rows absent), deep and negative
-    shifts; int8 view; explicit edges and arc bases."""
+    shifts; an int8 view (``vdt``: another view type, values as
+    :func:`merge_inputs` draws them); explicit edges and arc bases."""
     import torch
 
     from gossipfs_tpu_torch.ops.merge import pack_age_status
@@ -2838,8 +2856,13 @@ def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = dict(device="cuda")
     info = torch.iinfo(hdt)
+    # int32 lanes as merge_inputs draws them, clear of the shifts' overflow
+    lo, hi = ((-2**20, 2**20) if hdt == torch.int32
+              else (info.min, info.max))
+    vdt = vdt or torch.int8
+    top = 126 if vdt == torch.int8 else 16_384
     alive = torch.rand(n, generator=g, **dev) < 0.8
-    view = torch.empty((n, c), dtype=torch.int8, **dev)
+    view = torch.empty((n, c), dtype=vdt, **dev)
     hb = torch.empty((n, c), dtype=hdt, **dev)
     asl = torch.empty((n, c), dtype=torch.int8, **dev)
     # row chunks of at most 2^27 entries (8,192 rows of 16,384 columns)
@@ -2847,9 +2870,9 @@ def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int):
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         shape = (r1 - r0, c)
-        v = torch.randint(-1, 127, shape, generator=g, **dev)
-        view[r0:r1] = torch.where(alive[r0:r1, None], v, -1).to(torch.int8)
-        h = torch.randint(info.min, info.max + 1, shape, generator=g, **dev)
+        v = torch.randint(-1, top + 1, shape, generator=g, **dev)
+        view[r0:r1] = torch.where(alive[r0:r1, None], v, -1).to(vdt)
+        h = torch.randint(lo, hi + 1, shape, generator=g, **dev)
         h[torch.rand(shape, generator=g, **dev) < 0.05] = info.min
         hb[r0:r1] = h.to(hdt)
         age = torch.randint(0, 64, shape, generator=g, **dev)
@@ -3992,6 +4015,330 @@ def phase_obs_plane(results: dict) -> None:
     obs_campaigns(results)
 
 
+
+# ---------------------------------------------------------------------------
+# The conformance, curve and scenario runners on the card (phase 44): the
+# conformance tensor column, the (t_fail, t_suspect) surface, the
+# suspicion A/B, the BASELINE scenario runner and the flagship step.
+# ---------------------------------------------------------------------------
+
+
+def runner_k2_shapes(results: dict) -> None:
+    """K2 against its plain version at the shapes phase 44's paths give
+    it that no earlier phase holds, both forms, detection stats on and
+    off, tolerance 0 (every output is an integer): the conformance
+    column's N = 8 (F = 3, int16 view, int32 hb; C = 8, far below the
+    128-byte stripe) and config 1's N = 10; the (t_fail, t_suspect)
+    surface's N = 16,384 (F = 14, int8 view, int16 hb), where the suspect
+    form is timed (detection stats on, as the surface runs it); the
+    suspicion A/B's default-kernel rows at N = 16,384 (F = 14, SimConfig's
+    int16 view and int32 hb); and ``run.py``'s sim-100k cut at N = 32,768
+    (F = 15, int8 view, int16 hb)."""
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    err = 0
+    for label, n, f, seed in (("conformance", 8, 3, 44),
+                              ("parity-10", 10, 3, 45)):
+        view, edges, _, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, np.int16, np.int32, SEED + seed, statuses=4)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            for sus in (False, True):
+                log(f"  K2 {label}: N={n}, F={f}, view int16, hb int32, "
+                    f"detect_stats={det}, suspect={sus}")
+                err = max(err, compare_merge(
+                    mu.fused_merge_update, mu.fused_merge_update_plain, args,
+                    dict(detect_stats=det, suspect=sus)))
+    timed = None
+    for label, n, f, vdt, hdt, seed in (
+            ("t_fail surface", N_MAIN, 14, torch.int8, torch.int16, 44),
+            ("suspicion A/B xla", N_MAIN, 14, torch.int16, torch.int32, 46),
+            ("sim-100k cut", 32_768, 15, torch.int8, torch.int16, 47)):
+        view, edges, _, hb, asl, sa, sb, alive = big_merge_inputs(
+            n, n, f, hdt, SEED + seed, vdt=vdt)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            for sus in (False, True):
+                kw = dict(detect_stats=det, suspect=sus)
+                got = mu.fused_merge_update(view, edges, hb.clone(),
+                                            asl.clone(), sa, sb, alive, **kw)
+                want = mu.fused_merge_update_plain(
+                    view, edges, hb.clone(), asl.clone(), sa, sb, alive,
+                    **kw)
+                diff = sum(count_diff(a, b)[0] for a, b in zip(got, want))
+                log(f"  K2 {label}: N={n}, F={f}, view {str(vdt)[6:]}, hb "
+                    f"{str(hdt)[6:]}, detect_stats={det}, suspect={sus}: "
+                    f"{diff} entries differ")
+                err = max(err, diff)
+                del got, want
+        if timed is None:
+            timed = args
+        else:
+            del view, edges, hb, asl, args
+            torch.cuda.empty_cache()
+    if err:
+        raise AssertionError("K2 != plain at phase 44's shapes")
+    results["k2_sus_surface"] = dict(max_abs_err=0, shape=[N_MAIN, N_MAIN])
+    time_merge(mu.fused_merge_update, mu.fused_merge_update_plain, timed,
+               dict(detect_stats=True, suspect=True), results,
+               "k2_sus_surface")
+    del timed
+    torch.cuda.empty_cache()
+
+
+def runner_conformance(results: dict) -> None:
+    """The conformance matrix over the oracle and the tensor column on the
+    card (the 4 tensor families x seeds 0 and 1; the oracle self-checks
+    all 24 cases): ``all_agree``, and each card bundle equal to the same
+    case's bundle from the port on the CPU (the plain versions)."""
+    from gossipfs_tpu_torch.conformance import (generate_corpus, harness,
+                                                verdict)
+    from gossipfs_tpu_torch.ops import merge
+
+    corpus = generate_corpus((0, 1))
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    doc = verdict.run_matrix(corpus, engines=("reference", "tensor"),
+                             device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    tensor_cases = [c for c in corpus if "tensor" in c["engines"]]
+    # one K2 launch an interactive round, the warm-up's included
+    rounds = sum(c["rounds"] + harness._WARMUP for c in tensor_cases)
+    if (not doc["all_agree"]
+            or launches != {"fused_merge_update": rounds}):
+        raise AssertionError(f"conformance on the card: disagreements "
+                             f"{doc['disagreements']}, launches {launches}"
+                             f" ({rounds} rounds)")
+    for case in tensor_cases:
+        card = harness.run_case_tensor(case, device="cuda")
+        cpu = harness.run_case_tensor(case, device="cpu")
+        if card != cpu:
+            bad = [k for k in card if card[k] != cpu[k]]
+            raise AssertionError(
+                f"conformance {case['family']} seed {case['seed']}: the "
+                f"card's bundle != the CPU's in {bad}")
+    log(f"  run_matrix: {doc['cases']} cases, {len(doc['rows'])} rows "
+        f"({sum(r['engine'] == 'tensor' for r in doc['rows'])} tensor), "
+        f"all_agree {doc['all_agree']}, engines {doc['engines_run']}, "
+        f"{wall:.3f} s; launches {launches} ({rounds} rounds)")
+    log("  each tensor case's bundle on the card == the CPU port's (events, "
+        "checkpoints, final)")
+    results["runners"]["conformance"] = dict(
+        rows=len(doc["rows"]), seconds=wall, launches=launches)
+
+
+def runner_t_fail(results: dict) -> None:
+    """``sweep_t_fail(n=16_384)``: 60 rounds a row over t_fail (3, 5, 8,
+    12) x t_suspect (0, 2), one K2 launch a round (the suspect form where
+    t_suspect = 2); the (3, 2) row re-run on the plain versions equals
+    the kernels' row."""
+    import torch
+
+    from gossipfs_tpu_torch import curves
+
+    n = N_MAIN
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    doc = curves.sweep_t_fail(n=n)
+    wall = time.perf_counter() - t0
+    for row in doc["rows"]:
+        if row["launches"] != {"fused_merge_update": curves.ROUNDS}:
+            raise AssertionError(f"t_fail surface row {row['t_fail']}/"
+                                 f"{row['t_suspect']} launched "
+                                 f"{row['launches']}")
+        log(f"  t_fail {row['t_fail']}, t_suspect {row['t_suspect']}: TTD "
+            f"median {row['ttd_first_median']}, FPR "
+            f"{row['false_positive_rate']:.3e}, suspects entered "
+            f"{row['suspects_entered']}, refutations {row['refutations']}, "
+            f"fp suppressed {row['fp_suppressed']}; {row['launches']}")
+    kw = dict(n=n, t_fails=(3,), t_suspects=(2,))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (again,) = curves.sweep_t_fail(**kw)["rows"]
+    torch.cuda.synchronize()
+    row_ms = (time.perf_counter() - t1) / curves.ROUNDS * 1e3
+    (plain,) = curves.sweep_t_fail(plain=True, **kw)["rows"]
+    want = next(r for r in doc["rows"]
+                if (r["t_fail"], r["t_suspect"]) == (3, 2))
+    strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                       if k not in ("launches", "forms")}
+    if strip(plain) != strip(want) or again != want or plain["launches"]:
+        raise AssertionError(f"t_fail 3 / t_suspect 2: kernels {want}, "
+                             f"again {again}, plain {plain}")
+    log(f"  sweep {wall:.3f} s; the (3, 2) row (K2's suspect form) "
+        f"{row_ms:.4f} ms a round (host clock, set-up and summary "
+        "included); its plain re-run == the kernels' row")
+    results["runners"]["t_fail"] = dict(
+        seconds=wall, suspect_row_round_ms=row_ms,
+        launches=doc["rows"][0]["launches"],
+        rows={f"{r['t_fail']}/{r['t_suspect']}": [
+            r["ttd_first_median"], r["false_positive_rate"]]
+            for r in doc["rows"]})
+
+
+def runner_suspicion(results: dict) -> None:
+    """``suspicion_sweep(ns=(16_384,))`` on the default kernel (K2) and on
+    ``pallas_rr`` + SWAR (the lean loop's K3): every row printed with the
+    form it launched; the loss regime's suspect-t3 row re-run on the plain
+    versions equals the kernels' row; the JAX package's two claims for
+    these rows printed, not asserted."""
+    import torch
+
+    from gossipfs_tpu_torch import curves
+
+    n = N_MAIN
+    out = {}
+    for label, kernel, kw in (
+            ("xla", "fused_merge_update", {}),
+            ("pallas_rr swar", "resident_round",
+             dict(merge_kernel="pallas_rr", elementwise="swar"))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        doc = curves.suspicion_sweep(ns=(n,), **kw)
+        wall = time.perf_counter() - t0
+        for row in doc["rows"]:
+            # one launch a round of the configured kernel; the resident
+            # round's form is recorded, not assumed
+            if row["launches"] != {kernel: curves.ROUNDS}:
+                raise AssertionError(f"{label} {row['fault']} "
+                                     f"{row['mode']}: launched "
+                                     f"{row['launches']}")
+            log(f"  {label} {row['fault']} {row['mode']}: TTD median "
+                f"{row['ttd_first_median']} (max {row['ttd_first_max']}), "
+                f"detected {row['detected']}/{row['tracked_crashes']}, FPR "
+                f"{row['false_positive_rate']:.3e} ({row['false_positives']}"
+                f"), suspects {row['suspects_entered']}, refutations "
+                f"{row['refutations']}; launches {row['launches']} forms "
+                f"{row['forms']}")
+        (plain,) = curves.suspicion_sweep(
+            ns=(n,), only=("loss", "suspect-t3"), plain=True,
+            **kw)["rows"]
+        want = doc["rows"][-1]
+        strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                           if k not in ("launches", "forms")}
+        if strip(plain) != strip(want) or plain["launches"]:
+            raise AssertionError(f"{label} loss suspect-t3: kernels {want},"
+                                 f" plain {plain}")
+        by = {(r["fault"], r["mode"]): r for r in doc["rows"]}
+        ttd = [by[f, "suspect-t3"]["ttd_first_median"]
+               for f in ("churn", "loss")]
+        claim_ttd = all(t is not None and t <= 3 + 2 for t in ttd)
+        claim_fpr = (by["loss", "suspect-t3"]["false_positive_rate"]
+                     < by["loss", "raw-t3"]["false_positive_rate"])
+        log(f"  {label}: sweep {wall:.3f} s; loss suspect-t3 plain re-run "
+            f"== the kernels' row; claims: TTD <= t_fail + t_suspect with "
+            f"suspicion {claim_ttd} ({ttd}), under loss FPR on < off "
+            f"{claim_fpr}")
+        out[label] = dict(seconds=wall, claims=[claim_ttd, claim_fpr],
+                          forms=[r["forms"] or r["launches"]
+                                 for r in doc["rows"]])
+    results["runners"]["suspicion"] = out
+
+
+def runner_scenarios(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.run`` for parity-10, sim-1k and
+    sim-10k-crash at their full sizes and rounds, and sim-100k cut to
+    ``--n 32768 --rounds 20``: each report's rounds/s and detection;
+    parity-10's and sim-1k's outputs equal their plain re-runs, and their
+    rounds/s three times more in turns."""
+    import torch
+
+    from gossipfs_tpu_torch import run
+
+    out = {}
+    for name, argv in (("parity-10", []), ("sim-1k", []),
+                       ("sim-10k-crash", []),
+                       ("sim-100k", ["--n", "32768", "--rounds", "20"])):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep = quiet_main(run.main, ["--scenario", name] + argv)
+        wall = time.perf_counter() - t0
+        det = rep["detection"]
+        log(f"  {name}: N={rep['n']}, {rep['topology']} fanout "
+            f"{rep['fanout']}, {rep['rounds']} rounds: "
+            f"{rep['rounds_per_sec']:.2f} rounds/s (CUDA events); TTD "
+            f"{det['ttd_first']}, FPR {det['false_positive_rate']:.3e}, "
+            f"true detections {det['true_detections']}, final alive "
+            f"{det['final_alive']}; launches {rep['launches']}; "
+            f"{wall:.3f} s with the warm-up")
+        if rep["launches"] != {"fused_merge_update": rep["rounds"]}:
+            raise AssertionError(f"{name}: launched {rep['launches']}")
+        out[name] = dict(rounds_per_s=rep["rounds_per_sec"],
+                         launches=rep["launches"])
+        if name in ("parity-10", "sim-1k"):
+            _, got = run.run_scenario(name, return_outputs=True)
+            _, want = run.run_scenario(name, plain=True, return_outputs=True)
+            fs, fw = got[0], want[0]
+            same = (all(torch.equal(getattr(fs, f), getattr(fw, f))
+                        for f in ("hb", "asl", "alive", "hb_base"))
+                    and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+                    and all(torch.equal(a, b)
+                            for a, b in zip(got[2], want[2])))
+            if not same:
+                raise AssertionError(f"{name}: kernels != plain")
+            log(f"  {name}: final lanes, carry and per-round metrics == the "
+                "plain re-run's")
+    # parity-10 and sim-1k again, three times each in turns: the spread
+    # of their rounds/s inside one call (a round of few-µs launches)
+    turns = {name: [] for name in ("parity-10", "sim-1k")}
+    for _ in range(3):
+        for name in turns:
+            turns[name].append(run.run_scenario(name)["rounds_per_sec"])
+    log(f"  rounds/s in turns (CUDA events): {turns}")
+    out["turns"] = turns
+    log(f"  sim-10k-crash {out['sim-10k-crash']['rounds_per_s']:.2f} "
+        f"rounds/s (run.py, CUDA events, 4 tracked crashes) beside phase "
+        f"10's {results['config3']['rounds_per_s']:.2f} (host clock, 8 "
+        "tracked)")
+    results["runners"]["scenarios"] = out
+
+
+def runner_entry(results: dict) -> None:
+    """``entry()``'s flagship step on the card (N = 256, K2), 20 steps,
+    each equal to the same step on the plain versions."""
+    import torch
+
+    from gossipfs_tpu_torch import entry
+    from gossipfs_tpu_torch.ops import merge
+
+    step, (state, events, edges) = entry.entry()
+    pstep, (pstate, _, _) = entry.entry(plain=True)
+    merge.reset_launch_counts()
+    for i in range(20):
+        state, m = step(state, events, edges)
+        pstate, pm = pstep(pstate, events, edges)
+        same = (all(torch.equal(getattr(state, f), getattr(pstate, f))
+                    for f in ("hb", "asl", "alive", "hb_base"))
+                and all(torch.equal(a, b) for a, b in zip(m, pm)))
+        if not same:
+            raise AssertionError(f"entry() step {i}: kernel != plain")
+    launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    if launches != {"fused_merge_update": 20}:
+        raise AssertionError(f"entry() launched {launches}")
+    log(f"  entry(): 20 flagship steps (N=256) == 20 plain steps; launches "
+        f"{launches}")
+    results["runners"]["entry"] = dict(launches=launches)
+
+
+def phase_runners(results: dict) -> None:
+    results["runners"] = {}
+    t0 = time.perf_counter()
+    runner_k2_shapes(results)
+    for name, fn in (("conformance", runner_conformance),
+                     ("t_fail", runner_t_fail),
+                     ("suspicion", runner_suspicion),
+                     ("scenarios", runner_scenarios),
+                     ("entry", runner_entry)):
+        t1 = time.perf_counter()
+        fn(results)
+        results["runners"].setdefault(name, {})["phase_s"] = (
+            time.perf_counter() - t1)
+    results["runners"]["seconds"] = time.perf_counter() - t0
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -4068,6 +4415,17 @@ def main_path_summary(results: dict) -> dict:
     out["43 curves"] = obs["curves"]
     out["43 detector"] = obs["detector"]
     out["43 campaign"] = obs["campaign"]
+    # the runners (phase 44): each part's seconds and launches, the
+    # (t_fail, t_suspect) surface's suspect-form round and K2's ms in it,
+    # each scenario's rounds/s (CUDA events)
+    run = results["runners"]
+    out["44"] = {"seconds": run["seconds"],
+                 "k2_suspect_ms": results["k2_sus_surface"]["ms"],
+                 "k2_suspect_bound_ms":
+                     results["k2_sus_surface"]["bound_ms"]}
+    for part in ("conformance", "t_fail", "suspicion", "scenarios",
+                 "entry"):
+        out["44 " + part] = run[part]
     return out
 
 
@@ -4227,6 +4585,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_obs_plane(results)
     log(f"  phase 43 in {time.perf_counter() - t0:.2f} s")
+    log(f"[44] the conformance, curve and scenario runners: K2 at their "
+        f"shapes, the conformance matrix (reference, tensor), "
+        f"curves.sweep_t_fail and suspicion_sweep (N={N_MAIN}), "
+        "python -m gossipfs_tpu_torch.run (parity-10, sim-1k, "
+        "sim-10k-crash, sim-100k --n 32768), entry()")
+    phase_runners(results)
+    log(f"  phase 44 in {results['runners']['seconds']:.2f} s")
     print(json.dumps({"main_paths": main_path_summary(results)},
                      separators=(",", ":")))
     src = "gossipfs_tpu_torch/csrc/"

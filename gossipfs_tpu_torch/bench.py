@@ -91,22 +91,26 @@ def tracked_crash_events(cfg: SimConfig, rounds: int, track: int, at: int,
 
 
 def timed_run(cfg: SimConfig, rounds: int, seed: int = 0,
-              crash_rate: float = CRASH_RATE, device="cuda"):
+              crash_rate: float = CRASH_RATE, device="cuda", **run_kw):
     """One ``run_rounds`` call from a fresh state: (seconds, its outputs
-    (state, MetricsCarry, RoundMetrics)).  On the card the seconds are
-    device time (CUDA events around the call, set-up excluded); on the
-    CPU, the host clock's."""
+    (state, MetricsCarry, RoundMetrics)).  ``run_kw`` passes on to
+    ``run_rounds`` (events, churn mask, ``plain``, ...).  On the card the
+    seconds are device time (CUDA events around the call, set-up
+    excluded); on the CPU, the host clock's."""
     state = init_state(cfg, device=device)
     key = trandom.PRNGKey(seed, device=device)
-    if torch.device(device).type != "cuda":
+    dev = torch.device(device)
+    if dev.type != "cuda":
         t0 = time.perf_counter()
-        out = run_rounds(state, cfg, rounds, key, crash_rate=crash_rate)
+        out = run_rounds(state, cfg, rounds, key, crash_rate=crash_rate,
+                         **run_kw)
         return time.perf_counter() - t0, out
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = run_rounds(state, cfg, rounds, key, crash_rate=crash_rate)
+    out = run_rounds(state, cfg, rounds, key, crash_rate=crash_rate,
+                     **run_kw)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3, out

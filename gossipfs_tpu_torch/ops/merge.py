@@ -184,6 +184,23 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
+def launch_snapshot() -> tuple[dict, dict]:
+    """Copies of :data:`LAUNCH_COUNTS` and :data:`FORM_LAUNCHES`, for
+    :func:`launches_since`."""
+    return dict(LAUNCH_COUNTS), dict(FORM_LAUNCHES)
+
+
+def launches_since(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """The kernel launches and the resident round's launches by form
+    since ``before`` (a :func:`launch_snapshot`), the counts that moved
+    only."""
+    counts, forms = before
+    return ({k: v - counts.get(k, 0) for k, v in LAUNCH_COUNTS.items()
+             if v != counts.get(k, 0)},
+            {k: v - forms.get(k, 0) for k, v in FORM_LAUNCHES.items()
+             if v != forms.get(k, 0)})
+
+
 @contextlib.contextmanager
 def counted_launch(name: str, stream, form: str | None = None):
     """Wrap one kernel wrapper's launch on ``stream``: on success, add one

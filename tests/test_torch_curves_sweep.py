@@ -4,7 +4,8 @@ of its bench entry points.
 * ``curves.sweep`` (random edges and windowed arcs, one N and two) equals
   the JAX package's rows, and each row's trace file equals the JAX
   package's byte for byte; the analyzer re-derives the row from it;
-* the CLI writes what it prints and refuses the sweeps not ported yet;
+* the CLI writes what it prints and dispatches ``--suspicion`` and
+  ``--t-fail-sweep``;
 * ``bench --trace --monitor`` on the CPU: the trace's FPR and detection
   counts equal ``summarize`` of the same run, the verdict is ok, and the
   flags change no launch count;
@@ -58,7 +59,7 @@ def test_sweep_matches_jax(tmp_path, ns, topology):
         assert grow["monitor"]["ok"] and grow["detected"] == 8
 
 
-def test_curves_cli_sweep(tmp_path, capsys):
+def test_curves_cli_sweep(tmp_path, capsys, monkeypatch):
     out = tmp_path / "c.json"
     trace = tmp_path / "c.jsonl"
     curves.main(["--ns", "128", "--rounds", "24", "--device", "cpu",
@@ -68,9 +69,20 @@ def test_curves_cli_sweep(tmp_path, capsys):
     (row,) = doc["rows"]
     assert row["n"] == 128 and row["trace"] == str(trace)
     assert row["monitor"]["ok"]
-    for flag in ("--suspicion", "--t-fail-sweep"):
-        with pytest.raises(SystemExit, match="Queue 1, item 4"):
-            curves.main([flag, "--device", "cpu"])
+    # --suspicion and --t-fail-sweep dispatch as the JAX package's CLI
+    # does: the A/B over --ns on the chosen kernel, the surface at its
+    # fixed N (its call recorded here rather than run at N = 4,096)
+    curves.main(["--suspicion", "--ns", "128", "--rounds", "24",
+                 "--device", "cpu"])
+    doc = json.loads(capsys.readouterr().out)
+    assert doc == curves.suspicion_sweep(ns=(128,), rounds=24,
+                                         device="cpu")
+    calls = []
+    monkeypatch.setattr(curves, "sweep_t_fail",
+                        lambda **kw: calls.append(kw) or {"rows": []})
+    curves.main(["--t-fail-sweep", "--rounds", "24", "--device", "cpu"])
+    assert calls == [{"rounds": 24, "device": "cpu"}]
+    assert json.loads(capsys.readouterr().out) == {"rows": []}
 
 
 def test_bench_trace_and_monitor_on_cpu(tmp_path, capsys):

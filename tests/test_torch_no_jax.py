@@ -56,7 +56,10 @@ def test_port_imports_without_jax():
                 "parallel.distributed", "full_scale", "obs", "obs.schema",
                 "obs.recorder", "obs.monitor", "obs.timeline", "traffic",
                 "traffic.audit", "traffic.workload", "campaigns",
-                "campaigns.driver"):
+                "campaigns.driver", "analysis", "analysis.protocol_spec",
+                "suspicion.runtime", "conformance", "conformance.schedules",
+                "conformance.harness", "conformance.verdict",
+                "conformance.shrink", "run", "entry"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -253,7 +253,10 @@ def test_curves_cli(tmp_path, capsys):
     doc = json.loads(capsys.readouterr().out)
     assert doc == json.loads(out.read_text())
     assert doc["rows"][0]["n"] == 64
-    # the TTD/FPR sweep is ported (tests/test_torch_curves_sweep.py); the
-    # suspicion A/B is not
-    with pytest.raises(SystemExit, match="not ported yet"):
-        curves.main(["--suspicion", "--device", "cpu"])
+    # the TTD/FPR sweep and the suspicion A/B are ported too
+    # (tests/test_torch_curves_sweep.py, test_torch_curves_tail.py): the
+    # A/B's rows, two fault regimes by three modes
+    curves.main(["--suspicion", "--ns", "64", "--rounds", "16", "--device",
+                 "cpu"])
+    doc = json.loads(capsys.readouterr().out)
+    assert len(doc["rows"]) == 6 and {r["n"] for r in doc["rows"]} == {64}
