@@ -260,7 +260,26 @@ Phases (any failure exits non-zero before the last line is printed):
     for parity-10, sim-1k, sim-10k-crash and sim-100k cut to N = 32,768
     and 20 rounds (rounds/s and detection; parity-10's and sim-1k's
     outputs equal their plain re-runs); ``entry()``'s flagship step, 20
-    steps equal to 20 plain steps.
+    steps equal to 20 plain steps;
+45. the SDFS plane (``sdfs/``, ``erasure/``, ``traffic/``, ``cosim.py``):
+    K2 against its plain version at the shapes its paths give it (the
+    co-sim lane's N = 64 and the traffic case's N = 256, F = log2 N,
+    int16 view, int32 hb; a [65,536 x 16,384] column block at config 5's
+    int8 view and int16 hb, F = 16), timed; BASELINE config 5
+    ``sim-100k-sdfs`` through ``run.run_scenario`` at N = 65,536 (131,072
+    needs the lanes sharded), 24 rounds, 1,000 files: the detection
+    report, the ``cosim`` dict (files readable, repair plans, elections,
+    final alive, rounds/s) and one K2 launch a round, and at N = 4,096 on
+    the kernels against the plain versions (equal reports, timings
+    aside); the tensor planner's scale lane at N = 100,000 (2,048
+    placements a round, budget 4,096, 24 rounds) equal row for row to
+    the same lane on the CPU; the co-sim lane's four scenarios and the
+    erasure matrix at n = 64 equal to their CPU runs (every count,
+    repair curve and durability triple; every ``match`` true, nothing
+    lost; each operation's p50 and p95 ms); ``campaigns.run_case`` on
+    ``regressions/stripe_rackkill_n256.json`` (pass, lost 0, equal to
+    the CPU run); ``erasure.codec`` encode and decode of a 4 MiB blob at
+    k = 4, m = 2 equal to the numpy twins, with their ms.
 
 The last five lines printed are phase 40's times in one JSON line
 (``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
@@ -268,11 +287,12 @@ counts (one JSON line, with each path's ``rr_resident="off"`` run as
 ``"<phase> off"``; capacity, the frontier and the detector's advance as
 phases 6, 22, 34 and 23; config 4's fault model as phase 12, with K2's ms
 a round; phase 43's bench, curve rows, recorder and campaign run as
-``"43 ..."``; phase 44's parts as ``"44 ..."``), the kernels JSON (the
-five kernels; K3's one-pass form per merge form and SWAR form in its paths' modes and over
+``"43 ..."``; phase 44's parts as ``"44 ..."``, phase 45's as ``"45
+..."``), the kernels JSON (the five kernels; K3's one-pass form per merge form and SWAR form in its paths' modes and over
 F/F''s blocks, its two-launch form once per merge form and once per SWAR
 form and at phase 41's shapes, the column-shard forms of K3, K2, K4 and
-K5), the ``nvidia-smi`` name and power limit, and the device JSON.
+K5, K2 at phase 45's shapes), the ``nvidia-smi`` name and power limit,
+and the device JSON.
 """
 
 from __future__ import annotations
@@ -4339,6 +4359,314 @@ def phase_runners(results: dict) -> None:
             time.perf_counter() - t1)
     results["runners"]["seconds"] = time.perf_counter() - t0
 
+# ---------------------------------------------------------------------------
+# phase 45: the SDFS plane (the co-sim, the planners, the codec, config 5)
+# ---------------------------------------------------------------------------
+
+N_CONFIG5 = 65_536     # config 5 on one card (131,072 needs the lanes sharded)
+SDFS_TIMING = ("_ms", "elapsed_s", "rounds_per_sec", "placements_per_sec",
+               "planner_ms_median", "speedup_vs_realtime")
+
+
+def untimed(doc):
+    """A document with its wall-clock fields dropped, at every depth."""
+    if isinstance(doc, dict):
+        return {k: untimed(v) for k, v in doc.items()
+                if not k.endswith(SDFS_TIMING)}
+    if isinstance(doc, list):
+        return [untimed(v) for v in doc]
+    return doc
+
+
+def sdfs_k2_shapes(results: dict) -> None:
+    """K2 against its plain version at the shapes phase 45's paths give it
+    that no earlier phase holds, detection stats and suspicion on and off,
+    tolerance 0: the co-sim lane's N = 64 and the traffic case's N = 256
+    (``traffic_config``: F = log2 N, SimConfig's int16 view and int32 hb),
+    and one [65,536 x 16,384] column block at config 5's dtypes (int8
+    view, int16 hb, F = 16).  Each timed in the paths' mode (detection
+    stats on, suspicion off) beside its plain version and byte bound."""
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    err = 0
+    for key, n, seed in (("k2_cosim_n64", 64, 451), ("k2_cosim_n256", 256,
+                                                      452)):
+        f = SimConfig.log_fanout(n)
+        view, edges, _, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, np.int16, np.int32, SEED + seed, statuses=4)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            for sus in (False, True):
+                log(f"  K2 co-sim N={n}: F={f}, view int16, hb int32, "
+                    f"detect_stats={det}, suspect={sus}")
+                e = compare_merge(mu.fused_merge_update,
+                                  mu.fused_merge_update_plain, args,
+                                  dict(detect_stats=det, suspect=sus))
+                err = max(err, e)
+        results[key] = dict(max_abs_err=0, shape=[n, n])
+        time_merge(mu.fused_merge_update, mu.fused_merge_update_plain, args,
+                   dict(detect_stats=True), results, key)
+    n, c, f = N_CONFIG5, 16_384, SimConfig.log_fanout(N_CONFIG5)
+    view, edges, _, hb, asl, sa, sb, alive = big_merge_inputs(
+        n, c, f, torch.int16, SEED + 453)
+    for det, sus in ((False, False), (True, False), (True, True)):
+        kw = dict(detect_stats=det, suspect=sus)
+        got = mu.fused_merge_update(view, edges, hb.clone(), asl.clone(), sa,
+                                    sb, alive, **kw)
+        want = mu.fused_merge_update_plain(view, edges, hb.clone(),
+                                           asl.clone(), sa, sb, alive, **kw)
+        diffs = [count_diff(a, b) for a, b in zip(got, want)]
+        diff = sum(d[0] for d in diffs)
+        err = max([err] + [d[1] for d in diffs])
+        log(f"  K2 config 5 block [{n} x {c}], F={f}, view int8, hb int16, "
+            f"detect_stats={det}, suspect={sus}: {diff} entries differ")
+        if diff:
+            err = max(err, 1)
+        del got, want
+    h2, a2 = hb.clone(), asl.clone()
+    run_k = lambda: mu.fused_merge_update(  # noqa: E731
+        view, edges, h2, a2, sa, sb, alive, detect_stats=True)
+    run_p = lambda: mu.fused_merge_update_plain(  # noqa: E731
+        view, edges, h2, a2, sa, sb, alive, detect_stats=True)
+    run_k()
+    ms = min(cuda_ms(run_k, 10), cuda_ms(run_k, 10))
+    run_p()
+    plain_ms = cuda_ms(run_p, 1)
+    bound = merge_block_bound_ms(view, edges, hb, 3)
+    results["k2_config5_block"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=bound,
+                                       shape=[n, c])
+    log(f"  K2 config 5 block [{n} x {c}]: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, byte bound {bound:.4f} ms")
+    del view, edges, hb, asl, h2, a2
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError("K2 != plain at phase 45's shapes")
+
+
+def sdfs_config5(results: dict) -> None:
+    """BASELINE config 5 through ``run.run_scenario`` on the card at N =
+    65,536 (1,000 files, 24 rounds: the detector's warm-up and timed runs,
+    then the co-sim's warm-up chunk and 3 chunks of 8 rounds, each round
+    one K2 launch); then at N = 4,096 on the kernels and on the plain
+    versions: the detection report and the ``cosim`` dict equal, timings
+    aside."""
+    import torch
+
+    from gossipfs_tpu_torch import run
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = run.run_scenario("sim-100k-sdfs", n_override=N_CONFIG5,
+                           rounds_override=24)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cos, det = rep["cosim"], rep["detection"]
+    log(f"  config 5 at N={rep['n']} (fanout {rep['fanout']}, "
+        f"{rep['rounds']} rounds, {cos['files']} files): detector "
+        f"{rep['rounds_per_sec']:.2f} rounds/s (CUDA events), TTD "
+        f"{det['ttd_first']}, FPR {det['false_positive_rate']:.3e}, true "
+        f"detections {det['true_detections']}, final alive "
+        f"{det['final_alive']}; launches {rep['launches']}")
+    log(f"  config 5 cosim: {json.dumps(cos)}; launches "
+        f"{rep['cosim_launches']}; peak {peak:.2f} GiB; {wall:.1f} s with "
+        "both warm-ups")
+    want = {"fused_merge_update": rep["rounds"]}
+    chunks = cos["rounds"] + 8      # the co-sim's warm-up chunk and its run
+    if (rep["launches"] != want or rep["cosim_launches"]
+            != {"fused_merge_update": chunks}):
+        raise AssertionError(f"config 5 launched {rep['launches']} / "
+                             f"{rep['cosim_launches']}")
+    if cos["files_readable"] <= 0 or cos["rounds"] != 24:
+        raise AssertionError(f"config 5 cosim: {cos}")
+    out = dict(n=rep["n"], rounds_per_s=rep["rounds_per_sec"],
+               cosim_rounds_per_s=cos["rounds_per_sec"],
+               launches=rep["launches"], cosim_launches=rep["cosim_launches"],
+               cosim=cos, peak_gib=peak, seconds=wall)
+    small = {}
+    for plain in (False, True):
+        small[plain] = run.run_scenario("sim-100k-sdfs", n_override=4_096,
+                                        rounds_override=24, plain=plain)
+    k, p = small[False], small[True]
+    if (untimed(k["cosim"]) != untimed(p["cosim"])
+            or k["detection"] != p["detection"]
+            or p["launches"] or p["cosim_launches"]):
+        raise AssertionError(f"config 5 at N=4096: kernel {k['cosim']} != "
+                             f"plain {p['cosim']}")
+    log(f"  config 5 at N=4096: cosim {json.dumps(untimed(k['cosim']))} and "
+        f"the detection report == the plain run's; rounds/s kernel "
+        f"{k['rounds_per_sec']:.2f} (cosim {k['cosim']['rounds_per_sec']}), "
+        f"plain {p['rounds_per_sec']:.2f} (cosim "
+        f"{p['cosim']['rounds_per_sec']})")
+    out["n4096"] = dict(rounds_per_s=k["rounds_per_sec"],
+                        cosim_rounds_per_s=k["cosim"]["rounds_per_sec"],
+                        plain_rounds_per_s=p["rounds_per_sec"])
+    results["sdfs"]["config5"] = out
+
+
+def sdfs_scale_lane(results: dict) -> None:
+    """The tensor planner's scale lane at ``TRAFFIC_r12.json``'s shape (N
+    = 100,000, 2,048 placements a round, budget 4,096, 24 rounds) on the
+    card, then the same lane on the CPU: every row, timings aside, equal."""
+    from gossipfs_tpu_torch import traffic_bench
+
+    kw = dict(n=100_000, files_per_round=2048, rounds=24, budget=4096)
+    card = traffic_bench.scale_lane(**kw)
+    t0 = time.perf_counter()
+    cpu = traffic_bench.scale_lane(device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    if untimed(card) != untimed(cpu):
+        raise AssertionError("scale lane: the card's rows != the CPU's")
+    ms = [r["planner_ms"] for r in card["rows"]]
+    log(f"  scale lane N={card['n']}: planner_ms_median "
+        f"{card['planner_ms_median']} (rows {ms}), placements_per_sec "
+        f"{card['placements_per_sec']}, placed {card['placed_total']}, "
+        f"drain {card['storm_drain_rounds_post_run']} rounds, final "
+        f"{json.dumps(card['final'])}; == the CPU run row for row (CPU "
+        f"median {cpu['planner_ms_median']} ms, {cpu_s:.1f} s)")
+    results["sdfs"]["scale"] = dict(
+        planner_ms_median=card["planner_ms_median"],
+        placements_per_sec=card["placements_per_sec"],
+        cpu_planner_ms_median=cpu["planner_ms_median"],
+        final=card["final"])
+
+
+def window_latency(doc: dict) -> dict:
+    """Each op's p50 / p95 ms of every load window of a harness run."""
+    out = {}
+    for name, win in doc.items():
+        if isinstance(win, dict) and "by_op" in win:
+            out[name] = {op: [r["p50_ms"], r["p95_ms"]]
+                         for op, r in win["by_op"].items()}
+    if "by_op" in doc:
+        out["window"] = {op: [r["p50_ms"], r["p95_ms"]]
+                         for op, r in doc["by_op"].items()}
+    return out
+
+
+def sdfs_lanes(results: dict) -> None:
+    """The co-sim lane's four scenarios and the erasure matrix at n = 64
+    on the card, each against the same lane on the CPU: every count,
+    repair curve and durability triple equal, every ``match`` true,
+    nothing lost; one K2 launch a co-sim round."""
+    from gossipfs_tpu_torch import traffic_bench
+    from gossipfs_tpu_torch.ops import merge
+
+    out = {}
+    for label, fn in (("cosim", traffic_bench.cosim_lane),
+                      ("erasure", traffic_bench.erasure_matrix)):
+        before = merge.launch_snapshot()
+        t0 = time.perf_counter()
+        card = fn(64, 24, 8.0, 0)
+        card_s = time.perf_counter() - t0
+        launches, _ = merge.launches_since(before)
+        t0 = time.perf_counter()
+        cpu = fn(64, 24, 8.0, 0, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if untimed(card) != untimed(cpu):
+            raise AssertionError(f"{label} lane: the card's != the CPU's")
+        rows = {k: v for k, v in card.items()
+                if isinstance(v, dict) and "durability" in v}
+        for name, row in rows.items():
+            d = row["durability"]
+            if not (d["match"] and d["monitor"]["match_events"]
+                    and d["harness"]["lost"] == 0):
+                raise AssertionError(f"{label} {name}: durability {d}")
+            log(f"  {label} {name} ({row['redundancy']}): acked "
+                f"{d['harness']['acked_writes']}, files "
+                f"{d['harness']['files_acked']}, lost 0, repairs "
+                f"{d['harness']['repair_events']}, repair bytes "
+                f"{row['repair_bytes_written']}, match true; p50/p95 ms "
+                f"{json.dumps(window_latency(row))}")
+        if set(launches) != {"fused_merge_update"}:
+            raise AssertionError(f"{label} lane launched {launches}")
+        log(f"  {label} lane n=64 on the card == on the CPU (counts, repair "
+            f"curves, durability triples); {card_s:.2f} s card, "
+            f"{cpu_s:.2f} s CPU; launches {launches}")
+        out[label] = dict(launches=launches, seconds=card_s,
+                          cpu_seconds=cpu_s,
+                          latency={k: window_latency(v)
+                                   for k, v in rows.items()})
+        if label == "erasure":
+            out[label]["repair_bandwidth"] = card["repair_bandwidth"]
+    results["sdfs"]["lanes"] = out
+
+
+def sdfs_campaign(results: dict) -> None:
+    """``campaigns.run_case`` on ``regressions/stripe_rackkill_n256.json``
+    on the card: verdict pass, lost 0, the row equal to the CPU run's."""
+    from gossipfs_tpu_torch.campaigns import run_case
+    from gossipfs_tpu_torch.ops import merge
+
+    path = "regressions/stripe_rackkill_n256.json"
+    before = merge.launch_snapshot()
+    card = run_case(path)
+    launches, _ = merge.launches_since(before)
+    cpu = run_case(path, device="cpu")
+    row = card["row"]
+    if (not card["reproduced"] or row["verdict"] != "pass" or row["lost"]
+            or untimed(card) != untimed(cpu)):
+        raise AssertionError(f"stripe_rackkill_n256 on the card: {row}")
+    log(f"  stripe_rackkill_n256: verdict {row['verdict']}, lost "
+        f"{row['lost']}, files acked {row['files_acked']}, repairs "
+        f"{row['repairs_total']}, repair bytes "
+        f"{row['repair_bytes_written']}; == the CPU run; launches "
+        f"{launches}")
+    results["sdfs"]["campaign"] = dict(launches=launches,
+                                       verdict=row["verdict"])
+
+
+def sdfs_codec(results: dict) -> None:
+    """``codec.encode`` and ``decode`` of a 4 MiB blob at k = 4, m = 2 on
+    the card, equal to ``encode_np`` and ``decode_np``; ms of each (CUDA
+    events, the blob already on the card)."""
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.erasure import codec
+
+    k, m = 4, 2
+    blob = np.random.default_rng(SEED + 45).integers(
+        0, 256, 4 << 20, dtype=np.uint8).tobytes()
+    data = codec.split_blob(blob, k)
+    dev = torch.from_numpy(data).to("cuda")
+    frags = codec.encode(dev, m)
+    want = codec.encode_np(data, m)
+    slots = (1, 3, 4, 5)            # two data rows lost
+    rows = frags[list(slots)]
+    back = codec.decode(rows, slots, k, m)
+    if not (np.array_equal(frags.cpu().numpy(), want)
+            and np.array_equal(back.cpu().numpy(),
+                               codec.decode_np(want[list(slots)], slots, k,
+                                               m))
+            and np.array_equal(back.cpu().numpy(), data)):
+        raise AssertionError("codec on the card != the numpy twins")
+    enc_ms = cuda_ms(lambda: codec.encode(dev, m), 5)
+    dec_ms = cuda_ms(lambda: codec.decode(rows, slots, k, m), 5)
+    log(f"  codec 4 MiB, k={k}, m={m}: encode {enc_ms:.4f} ms, decode "
+        f"(slots {slots}) {dec_ms:.4f} ms on the card; both == encode_np / "
+        "decode_np, and decode == the data")
+    results["sdfs"]["codec"] = dict(encode_ms=enc_ms, decode_ms=dec_ms)
+
+
+def phase_sdfs(results: dict) -> None:
+    results["sdfs"] = {}
+    t0 = time.perf_counter()
+    for name, fn in (("k2", sdfs_k2_shapes), ("config5", sdfs_config5),
+                     ("scale", sdfs_scale_lane), ("lanes", sdfs_lanes),
+                     ("campaign", sdfs_campaign), ("codec", sdfs_codec)):
+        t1 = time.perf_counter()
+        fn(results)
+        results["sdfs"].setdefault(name, {})["phase_s"] = (
+            time.perf_counter() - t1)
+    results["sdfs"]["seconds"] = time.perf_counter() - t0
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -4426,7 +4754,57 @@ def main_path_summary(results: dict) -> dict:
     for part in ("conformance", "t_fail", "suspicion", "scenarios",
                  "entry"):
         out["44 " + part] = run[part]
+    # the SDFS plane (phase 45): config 5's detector and co-sim rounds/s
+    # and launches, the scale lane's planner ms, the n = 64 lanes' and the
+    # traffic case's launches, the codec's ms
+    sd = results["sdfs"]
+    c5 = sd["config5"]
+    out["45 config5"] = {
+        "n": c5["n"], "rounds_per_s": c5["rounds_per_s"],
+        "cosim_rounds_per_s": c5["cosim_rounds_per_s"],
+        "launches": c5["launches"], "cosim_launches": c5["cosim_launches"],
+        "cosim": c5["cosim"], "peak_gib": c5["peak_gib"],
+        "n4096": c5["n4096"]}
+    out["45 scale"] = sd["scale"]
+    # the lanes' launches and seconds, and each op's p50 / p95 ms of the
+    # steady window (every window's are in the phase's log lines)
+    out["45 lanes"] = {
+        label: {"launches": r["launches"], "seconds": r["seconds"],
+                "cpu_seconds": r["cpu_seconds"],
+                "steady_p50_p95_ms": r["latency"]["steady"]["window"]}
+        for label, r in sd["lanes"].items() if label != "phase_s"}
+    for part in ("campaign", "codec"):
+        out["45 " + part] = sd[part]
+    out["45"] = {"seconds": sd["seconds"]}
     return out
+
+
+def sdfs_kernel_rows(results: dict, src: str, mp: str) -> list:
+    """Phase 45's K2 rows: the co-sim lane's N = 64 (its launches: the
+    replica lane's and the erasure matrix's rounds on the card), the
+    traffic case's N = 256, config 5's square N = 65,536 (phase 12's
+    shape and dtypes, timed in phase 36, with config 5's launches) and
+    its [65,536 x 16,384] column block (no path of this script runs the
+    block: a sharded config 5 would)."""
+    sd = results["sdfs"]
+    k2 = src + "fused_merge.cu"
+    lanes = sum(sd["lanes"][p]["launches"].get("fused_merge_update", 0)
+                for p in ("cosim", "erasure"))
+    c5 = sd["config5"]
+    c5_launches = (c5["launches"]["fused_merge_update"]
+                   + c5["cosim_launches"]["fused_merge_update"])
+    return [
+        shard_line("fused_merge_update[co-sim n = 64]", k2, mp + "387",
+                   lanes, results["k2_cosim_n64"]),
+        shard_line("fused_merge_update[traffic case n = 256]", k2,
+                   mp + "387",
+                   sd["campaign"]["launches"].get("fused_merge_update", 0),
+                   results["k2_cosim_n256"]),
+        shard_line("fused_merge_update[config 5]", k2, mp + "387",
+                   c5_launches, results["k2_config4_fault"]),
+        shard_line("fused_merge_update[config 5 column block]", k2,
+                   mp + "387", 0, results["k2_config5_block"]),
+    ]
 
 
 def kernel_line(name: str, source: str, replaces: str, launches: int,
@@ -4592,6 +4970,12 @@ def main() -> int:
         "sim-10k-crash, sim-100k --n 32768), entry()")
     phase_runners(results)
     log(f"  phase 44 in {results['runners']['seconds']:.2f} s")
+    log(f"[45] the SDFS plane: K2 at its shapes, config 5 sim-100k-sdfs "
+        f"(N={N_CONFIG5}, 1,000 files, 24 rounds; N=4096 kernel vs plain), "
+        "the planner's scale lane (N=100000), the co-sim lane and the "
+        "erasure matrix (n=64), the traffic case, the codec")
+    phase_sdfs(results)
+    log(f"  phase 45 in {results['sdfs']['seconds']:.2f} s")
     print(json.dumps({"main_paths": main_path_summary(results)},
                      separators=(",", ":")))
     src = "gossipfs_tpu_torch/csrc/"
@@ -4736,7 +5120,7 @@ def main() -> int:
         # launches it no time
         kernel_line("fanout_max_merge", src + "fanout_max.cu", mp + "146",
                     results["main_c"]["fanout_max_launches"], results["k1"]),
-    ]}, separators=(",", ":")))
+    ] + sdfs_kernel_rows(results, src, mp)}, separators=(",", ":")))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

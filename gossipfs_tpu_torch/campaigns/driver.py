@@ -3,9 +3,9 @@
 The port's copy of the JAX package's ``gossipfs_tpu/campaigns/driver.py``:
 the tensor replay, on the port's round loops (on the card: the
 explicit-edge merge K2 with the scenario's edge rewrite, whatever the
-configuration's ``merge_kernel`` names).  The traffic-plane replay
-(:func:`run_traffic_case_doc`) waits for the port's SDFS and traffic
-harness (ROADMAP Queue 1, items 6-7).
+configuration's ``merge_kernel`` names), and the traffic-plane replay
+(:func:`run_traffic_case_doc`: the durability harness's rack-kill storm
+over the port's co-sim, its detector rounds on K2).
 
 One campaign RUN (:func:`run_scenario`) is: build the north-star
 gossip-only config at the requested (t_fail, t_suspect) knob, schedule
@@ -484,13 +484,54 @@ def case_verdict_ok(row: dict, expect: dict) -> bool:
     return bool(ok)
 
 
-def run_traffic_case_doc(doc: dict) -> dict:
-    """Replay a TRAFFIC-plane case (the durability harness's rack-kill
-    storm): not ported yet.  It needs the port's SDFS, traffic planner
-    and harness (ROADMAP Queue 1, items 6-7)."""
-    raise NotImplementedError(
-        "traffic-plane campaign cases need the port's SDFS and traffic "
-        "harness, not ported yet (ROADMAP Queue 1, items 6-7)")
+def run_traffic_case_doc(doc: dict, device="cuda") -> dict:
+    """Replay a TRAFFIC-plane case: the durability harness's rack-kill
+    storm (``traffic/harness.repair_storm``) in the case's redundancy
+    mode — the campaign matrix's byte-plane leg, same self-contained
+    knob contract as the gossip cases.  The verdict is the storm's
+    durability triple: ``pass`` iff zero acked writes are lost under
+    the cluster-state ledger AND the event replay AND the streaming
+    monitor, with all three accountings in exact agreement (the
+    ``no_acked_write_lost`` invariant holding verbatim in stripe mode).
+    The co-sim's detector rounds run on ``device``."""
+    from gossipfs_tpu_torch.traffic.harness import repair_storm
+    from gossipfs_tpu_torch.traffic.workload import WorkloadSpec
+
+    t = doc["traffic"]
+    spec = WorkloadSpec(
+        rate=float(t.get("rate", 4.0)),
+        n_keys=int(t.get("n_keys", 32)),
+        payload_cap=int(t.get("payload_cap", 4096)),
+        seed=int(t.get("seed", 0)),
+        redundancy=t.get("redundancy", "replica"),
+        **({"stripe_k": int(t["stripe_k"])} if "stripe_k" in t else {}),
+        **({"stripe_m": int(t["stripe_m"])} if "stripe_m" in t else {}),
+    )
+    out = repair_storm(
+        int(t["n"]), spec, files=int(t.get("files", 32)),
+        rack=tuple(t.get("rack", (8, 8))),
+        repair_budget=int(t.get("repair_budget", 8)),
+        seed=int(t.get("seed", 0)), device=device,
+    )
+    d = out["durability"]
+    ok = (d["harness"]["lost"] == 0 and d["events"]["lost"] == 0
+          and d["match"] and d["monitor"]["ok"]
+          and d["monitor"]["match_events"])
+    row = {
+        "verdict": "pass" if ok else "violated",
+        "lost": d["harness"]["lost"],
+        "files_acked": d["harness"]["files_acked"],
+        "rack_killed": out["rack_killed"],
+        "repairs_total": out["repairs_total"],
+        "repair_bytes_written": out["repair_bytes_written"],
+        "repair_copies": out["repair_copies"],
+        "durability": d,
+        "traffic_vitals": out["traffic_vitals"],
+    }
+    expect = doc["expect"]
+    reproduced = (row["verdict"] == expect["verdict"]
+                  and row["lost"] == int(expect.get("lost", row["lost"])))
+    return {"reproduced": bool(reproduced), "expect": expect, "row": row}
 
 
 def run_case_doc(doc: dict, device="cuda") -> dict:
@@ -498,7 +539,7 @@ def run_case_doc(doc: dict, device="cuda") -> dict:
     engine (on ``device``), ``"traffic"`` cases on the durability
     harness."""
     if "traffic" in doc:
-        return run_traffic_case_doc(doc)
+        return run_traffic_case_doc(doc, device=device)
     sc = FaultScenario.from_json(json.dumps(doc["scenario"]))
     c = doc["config"]
     row = run_scenario(

@@ -94,16 +94,28 @@ def bits32(keys: torch.Tensor, shape) -> torch.Tensor:
     return a ^ b
 
 
-def randint(keys: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+def randint(keys: torch.Tensor, shape, minval: int,
+            maxval: int | torch.Tensor) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)`` per
-    key, for Python-int bounds within int32."""
-    if not -2**31 <= minval < maxval < 2**31:
-        raise ValueError(f"need int32 bounds with minval < maxval, got "
-                         f"[{minval}, {maxval})")
+    key, for a Python-int ``minval`` and a ``maxval`` that is a Python int
+    or an integer tensor (a 0-d count, say) broadcasting against
+    ``shape``, its values within int32.  A tensor bound stays on the
+    device, as jax's traced bound does: where it is at most ``minval`` the
+    span is 1 and ``minval`` comes back (jax's rule), so no host read
+    checks it."""
     shape = tuple(shape)
+    if isinstance(maxval, torch.Tensor):
+        if not -2**31 <= minval < 2**31:
+            raise ValueError(f"need an int32 minval, got {minval}")
+        mx = maxval.to(device=keys.device, dtype=torch.int64)
+        span = torch.where(mx <= minval, 1, (mx - minval) & _M32)
+    else:
+        if not -2**31 <= minval < maxval < 2**31:
+            raise ValueError(f"need int32 bounds with minval < maxval, got "
+                             f"[{minval}, {maxval})")
+        span = (maxval - minval) & _M32
     # both halves of the split in one batch of threefry ops
     higher, lower = bits32(split(keys), shape).unbind(-len(shape) - 1)
-    span = (maxval - minval) & _M32
     # 2**32 % span without leaving uint32, as jax computes it (the square
     # of 2**16 % span wraps in uint32 before the second remainder)
     mult = ((((1 << 16) % span) ** 2) & _M32) % span

@@ -6,7 +6,9 @@
 * ``sweep_axis`` and ``bisect_axis`` (with their ledgers) and a small
   ``knob_surface`` equal the JAX package's;
 * the scenario families, the campaign profile, the monitor knobs and the
-  case files are the JAX package's; the traffic-plane case is refused.
+  case files are the JAX package's; the traffic-plane case replays (and
+  one whose expectation the run does not meet is refused: not
+  reproduced).
 """
 
 from __future__ import annotations
@@ -108,6 +110,14 @@ def test_case_files_match_jax(tmp_path):
 
 
 def test_traffic_case_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1, items 6-7"):
-        tdrv.run_case(REPO / "regressions" / "stripe_rackkill_n256.json",
-                      device="cpu")
+    """The traffic-plane case replays on the port's co-sim (its result
+    equal to the JAX replay's); a copy of it that expects a violation is
+    refused by both replays alike (not reproduced)."""
+    doc = tdrv.load_case(REPO / "regressions" / "stripe_rackkill_n256.json")
+    got = tdrv.run_case_doc(doc, device="cpu")
+    assert got == jdrv.run_case_doc(doc)
+    assert got["reproduced"] and got["row"]["verdict"] == "pass"
+    wrong = dict(doc, expect={"verdict": "violated", "lost": 1})
+    got = tdrv.run_case_doc(wrong, device="cpu")
+    assert not got["reproduced"]
+    assert got == jdrv.run_case_doc(wrong)

@@ -59,7 +59,12 @@ def test_port_imports_without_jax():
                 "campaigns.driver", "analysis", "analysis.protocol_spec",
                 "suspicion.runtime", "conformance", "conformance.schedules",
                 "conformance.harness", "conformance.verdict",
-                "conformance.shrink", "run", "entry"):
+                "conformance.shrink", "run", "entry", "sdfs",
+                "sdfs.types", "sdfs.quorum", "sdfs.store", "sdfs.election",
+                "sdfs.placement", "sdfs.master", "sdfs.cluster",
+                "utils.eventlog", "erasure", "erasure.codec",
+                "erasure.planner", "traffic.planner", "traffic.harness",
+                "cosim", "traffic_bench", "sdfs_ops"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -6,7 +6,10 @@ against the JAX package's ``bench/run.py``, on the CPU.
   ``sim-100k`` cut to N = 256 and 30 rounds;
 * each run starts from a fresh state, so the warm-up run does not move
   the timed run's outputs, which equal one ``run_rounds`` call;
-* ``sim-100k-sdfs`` raises, naming ROADMAP Queue 1 items 6-7;
+* ``sim-100k-sdfs`` (config 5) at N = 256 gives the JAX report and its
+  ``cosim`` dict (the SDFS co-simulation over the membership, chunk by
+  chunk), timing fields aside; over rank processes it raises, naming
+  ROADMAP Queue 1 item 11;
 * the CLI prints and writes the report, and refuses the card without one;
 * ``--devices 2`` (two gloo rank processes on the CPU) gives the
   single-process report;
@@ -71,8 +74,28 @@ def test_outputs_equal_one_run_rounds_call():
 
 
 def test_sdfs_cosim_raises_naming_queue_1_items_6_7():
-    with pytest.raises(NotImplementedError, match="Queue 1 items 6-7"):
-        run.run_scenario("sim-100k-sdfs", device="cpu", **CUT)
+    """Config 5 no longer raises on one process (Queue 1 items 6-7 are
+    ported: the report equals the JAX one, below); its sharded form
+    raises, naming the ROADMAP item that lifts it, before any rank
+    starts."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        run.run_scenario("sim-100k-sdfs", devices=2, device="cpu", **CUT)
+
+
+@pytest.mark.parametrize("n,rounds", [(256, 30), (128, 17)])
+def test_sdfs_cosim_report_matches_jax(n, rounds):
+    kw = dict(n_override=n, rounds_override=rounds)
+    want = jax_run.run_scenario("sim-100k-sdfs", **kw)
+    got = run.run_scenario("sim-100k-sdfs", device="cpu", **kw)
+    assert set(got) - set(want) == PORT_ONLY | {"cosim_launches"}
+    assert {k: v for k, v in got["cosim"].items() if k not in TIMING} == \
+        {k: v for k, v in want["cosim"].items() if k not in TIMING}
+    assert {k: got[k] for k in want if k not in TIMING | {"cosim"}} == \
+        {k: v for k, v in want.items() if k not in TIMING | {"cosim"}}
+    cos = got["cosim"]
+    assert cos["rounds"] == -(-rounds // 8) * 8 and cos["files"] == 1000
+    assert cos["repair_plans"] > 0 and cos["files_readable"] > 0
+    assert got["cosim_launches"] == {}      # the plain versions ran
 
 
 def test_cli(tmp_path, capsys):
