@@ -279,20 +279,43 @@ Phases (any failure exits non-zero before the last line is printed):
     lost; each operation's p50 and p95 ms); ``campaigns.run_case`` on
     ``regressions/stripe_rackkill_n256.json`` (pass, lost 0, equal to
     the CPU run); ``erasure.codec`` encode and decode of a 4 MiB blob at
-    k = 4, m = 2 equal to the numpy twins, with their ms.
+    k = 4, m = 2 equal to the numpy twins, with their ms;
+46. the shim and the CLI (``shim/``, ``wire_ops.py``): the gRPC service's
+    ``--topology random`` configuration at N = 16,384 (fanout 14) served
+    on a localhost port and driven through ``ShimClient`` (8 puts of 1
+    MiB, 3 crashes with a replica among them, Lsm, AliveNodes, Ls, Get
+    byte for byte, Events, Vitals; ``AdvanceBulk(20, snapshot_every=5)``
+    with Lsm answered from its snapshots, ``as_of_round`` rising), one
+    K2 launch a round counted from the server's start to its stop, and
+    the wire's ``Advance(1)`` and ``Lsm`` ms (median of 10) beside the
+    in-process ``SimDetector.advance(1)`` and ``CoSim.tick(1)``; the CLI's
+    ``--packed --n 49152`` configuration and co-sim fed a REPL script
+    through ``dispatch`` (crashes dropped from node 0's list, put and get,
+    ``metrics``, ``events``), its ``advance 1`` ms and K3's launches by
+    form (that K3 shape is held against plain by phase 41); the same shim
+    script on the card and on the CPU port at N = 1,024 (local and
+    ``rpc`` election with the master crashed) and the ``--packed`` REPL
+    script at ``packed_rr(1024, fanout=8)``: replies, printed text, event
+    logs, detections, vitals and bytes read equal; K2 against its plain
+    version at [16,384 x 16,384] (F = 14, int16 view, int32 hb), N =
+    1,024 and wire_ops' N = 16, timed; ``wire_ops.run`` with seeded 4.0
+    MB and 3.2 MB payloads, n = 16, 5 reps: its rows, healed and
+    byte-identical after the repair.
 
-The last five lines printed are phase 40's times in one JSON line
-(``{"onepass": ...}``), every main path's ms a round, rounds/s and launch
-counts (one JSON line, with each path's ``rr_resident="off"`` run as
-``"<phase> off"``; capacity, the frontier and the detector's advance as
-phases 6, 22, 34 and 23; config 4's fault model as phase 12, with K2's ms
-a round; phase 43's bench, curve rows, recorder and campaign run as
-``"43 ..."``; phase 44's parts as ``"44 ..."``, phase 45's as ``"45
-..."``), the kernels JSON (the five kernels; K3's one-pass form per merge form and SWAR form in its paths' modes and over
-F/F''s blocks, its two-launch form once per merge form and once per SWAR
-form and at phase 41's shapes, the column-shard forms of K3, K2, K4 and
-K5, K2 at phase 45's shapes), the ``nvidia-smi`` name and power limit,
-and the device JSON.
+Phase 40's times are one JSON line (``{"onepass": ...}``) after phase
+41.  The last four lines printed are the kernels JSON (the five kernels;
+K3's one-pass form per merge form and SWAR form in its paths' modes and
+over F/F''s blocks, its two-launch form once per merge form and once per
+SWAR form and at phase 41's shapes, the column-shard forms of K3, K2, K4
+and K5, K2 at phase 45's and phase 46's shapes, K3 at the CLI
+--packed's), every main path's ms a round, rounds/s and launch counts
+(one JSON line, with each path's ``rr_resident="off"`` run as ``"<phase>
+off"``; capacity, the frontier and the detector's advance as phases 6,
+22, 34 and 23; config 4's fault model as phase 12, with K2's ms a round;
+phase 43's bench, curve rows, recorder and campaign run as ``"43 ..."``;
+phase 44's parts as ``"44 ..."``, phase 45's as ``"45 ..."``, phase 46's
+as ``"shim"``), the ``nvidia-smi`` name and power limit, and the device
+JSON.
 """
 
 from __future__ import annotations
@@ -4666,6 +4689,517 @@ def phase_sdfs(results: dict) -> None:
             time.perf_counter() - t1)
     results["sdfs"]["seconds"] = time.perf_counter() - t0
 
+# ---------------------------------------------------------------------------
+# phase 46: the gRPC shim, the interactive CLI and the wire-ops runner
+# ---------------------------------------------------------------------------
+
+N_SHIM_SMALL = 1_024   # the card-against-CPU scripts (the rpc election dials
+                       # one Vote a live voter: thousands at N = 16,384)
+SHIM_FANOUT = 14       # the service's --topology random fanout at N_MAIN
+
+
+def wire_ms(fn, reps: int = 10) -> list:
+    """Host ms of ``reps`` calls of ``fn`` (each ends in a reply off the
+    wire or a device read, so no work is still queued)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def shim_full_width(results: dict) -> None:
+    """The service's ``--topology random`` configuration at N = 16,384 on
+    the card, driven through ``ShimClient`` over a localhost socket: the
+    membership, SDFS and bulk verbs, with the launch counts zeroed just
+    before the server starts and read after it stopped (one K2 launch a
+    round); then the wire's ``Advance(1)`` and ``Lsm`` against the
+    in-process ``SimDetector.advance(1)`` and ``CoSim.tick(1)``."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.cosim import CoSim
+    from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.shim.client import ShimClient
+    from gossipfs_tpu_torch.shim.service import ShimServer, build_kernels
+
+    cfg = SimConfig(n=N_MAIN, topology="random", fanout=SHIM_FANOUT)
+    built = build_kernels(cfg)
+    if built != ["fused_merge"]:
+        raise AssertionError(f"the shim's config builds {built}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = CoSim(cfg, seed=46)
+    rng = np.random.default_rng(SEED + 46)
+    blobs = {f"shard{i}.bin": rng.integers(0, 256, 1 << 20,
+                                           dtype=np.uint8).tobytes()
+             for i in range(8)}
+    merge.reset_launch_counts()
+    server = ShimServer(sim).start()
+    client = ShimClient(server.address, timeout=120.0)
+    rounds = 0
+    try:
+        # heartbeats past the hb <= 1 detection grace first
+        rounds += 3
+        client.advance(3)
+        put_ms = wire_ms(lambda: [client.put(k, v) for k, v in
+                                  blobs.items()], 1)[0]
+        if sorted(sim.cluster.master.files) != sorted(blobs):
+            raise AssertionError("the shim lost a put")
+        victim = client.ls("shard0.bin")[0]
+        crashed = [victim] + [x for x in (N_MAIN // 4 + 1, 3 * N_MAIN // 4,
+                                          N_MAIN - 1) if x != victim][:2]
+        for x in crashed:
+            client.crash(x)
+        rounds += 16
+        client.advance(16)
+        lsm = client.lsm(0)
+        alive = client.alive_nodes()
+        replicas = client.ls("shard0.bin")
+        got = client.get("shard0.bin")
+        events = client.call("Events")["events"]
+        vitals = client.call("Vitals")["lines"][0]
+        detected = {e["subject"] for e in events}
+        if (set(crashed) & set(lsm) or set(crashed) & set(alive)
+                or victim in replicas or len(replicas) != 4
+                or got != blobs["shard0.bin"]
+                or not set(crashed) <= detected
+                or int(vitals["n_alive"]) != N_MAIN - 3):
+            raise AssertionError(
+                f"shim at N={N_MAIN}: crashed {crashed}, replicas "
+                f"{replicas}, detected {sorted(detected)}, vitals {vitals}")
+        log(f"  shim N={N_MAIN}, random fanout {SHIM_FANOUT}: 8 puts of 1 "
+            f"MiB in {put_ms:.1f} ms; crashed {crashed} (a replica of "
+            f"shard0.bin), Advance 16: Lsm(0) {len(lsm)} members, "
+            f"AliveNodes {len(alive)}, shard0.bin on {replicas}, Get == the "
+            f"bytes, {len(events)} detection events "
+            f"({sum(e['false_positive'] for e in events)} false), vitals "
+            f"{json.dumps(vitals)}")
+        adv = wire_ms(lambda: client.advance(1))
+        rounds += len(adv)
+        lsm_ms = wire_ms(lambda: client.lsm(0))
+        # AdvanceBulk: reads answer from its snapshots while it runs (a
+        # read before the first snapshot would wait for the whole run, so
+        # the first is sent once the server holds one)
+        start = sim.round
+        target = client.advance_bulk(20, snapshot_every=5)
+        rounds += 20
+        buffer = server.servicer._snapshots
+        deadline = time.monotonic() + 120
+        while buffer.latest() is None and time.monotonic() < deadline:
+            time.sleep(0.001)
+        seen = []
+        while time.monotonic() < deadline:
+            r = client.call("Lsm", observer=0).get("as_of_round")
+            seen.append(r)
+            if r == target:
+                break
+        served = [r for r in seen if r is not None]
+        if (target != start + 20 or served != sorted(served)
+                or not served or served[-1] != target
+                or len(set(served)) < 2):
+            raise AssertionError(f"AdvanceBulk reads {seen}, target "
+                                 f"{target}")
+        rounds += 1
+        client.advance(1)
+        if "as_of_round" in client.call("Lsm", observer=0):
+            raise AssertionError("Advance did not drop the snapshot reads")
+    finally:
+        client.close()
+        server.stop()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"fused_merge_update": rounds}:
+        raise AssertionError(f"the shim's {rounds} rounds launched "
+                             f"{launches}")
+
+    def detector_step():
+        sim.detector.advance(1)
+        torch.cuda.synchronize()
+
+    det_ms = wire_ms(detector_step)
+    tick_ms = wire_ms(lambda: sim.tick(1))
+    out = dict(n=N_MAIN, rounds=rounds, launches=launches, peak_gib=peak,
+               advance_ms=statistics.median(adv), advance_ms_runs=adv,
+               lsm_ms=statistics.median(lsm_ms),
+               detector_advance_ms=statistics.median(det_ms),
+               tick_ms=statistics.median(tick_ms),
+               bulk_as_of_rounds=sorted(set(served)), put_8mib_ms=put_ms)
+    log(f"  shim wire: Advance(1) {out['advance_ms']:.3f} ms (median of "
+        f"{len(adv)}: {[round(x, 3) for x in adv]}), in-process "
+        f"SimDetector.advance(1) {out['detector_advance_ms']:.3f} ms, "
+        f"CoSim.tick(1) {out['tick_ms']:.3f} ms; Lsm {out['lsm_ms']:.3f} "
+        f"ms; AdvanceBulk(20, snapshot_every=5) served as_of_round "
+        f"{out['bulk_as_of_rounds']}; launches {launches} over {rounds} "
+        f"rounds; peak {peak:.3f} GiB")
+    results["shim"]["full"] = out
+    del sim
+    torch.cuda.empty_cache()
+
+
+def shim_service_process(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.shim.service --n 16384 --topology
+    random --port 0`` as its own process: it builds its kernels, prints
+    its address, answers ``Advance``, ``Crash`` and ``Lsm`` from a client
+    here, and stops on an interrupt."""
+    import re
+    import signal
+    import subprocess as sp
+
+    from gossipfs_tpu_torch.shim.client import ShimClient
+
+    t0 = time.perf_counter()
+    proc = sp.Popen([sys.executable, "-m", "gossipfs_tpu_torch.shim.service",
+                     "--n", str(N_MAIN), "--topology", "random", "--port",
+                     "0"], stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"serving gossipfs\.Shim on (\S+) \(n=(\d+), "
+                      r"device=cuda\)", line)
+        if m is None or int(m.group(2)) != N_MAIN:
+            raise AssertionError(f"shim.service printed {line!r}")
+        ready_s = time.perf_counter() - t0
+        client = ShimClient(m.group(1), timeout=60.0)
+        try:
+            client.advance(3)
+            client.crash(N_MAIN // 2)
+            r = client.advance(10)
+            lsm = client.lsm(0)
+        finally:
+            client.close()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if r != 13 or N_MAIN // 2 in lsm or len(lsm) != N_MAIN - 1 or rc != 0:
+        raise AssertionError(f"shim.service process: round {r}, {len(lsm)} "
+                             f"members, exit {rc}")
+    log(f"  python -m gossipfs_tpu_torch.shim.service --n {N_MAIN} "
+        f"--topology random: serving after {ready_s:.2f} s, Advance to "
+        f"round {r}, Lsm(0) {len(lsm)} members without {N_MAIN // 2}, "
+        f"exit {rc} on SIGINT")
+    results["shim"]["process"] = dict(ready_s=ready_s)
+
+
+def shim_cli_packed(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.shim.cli --packed --n 49152``'s own
+    configuration and co-sim (``config_from_args``, ``cosim_from_args``),
+    fed a REPL script through ``dispatch``: crashes detected and dropped
+    from node 0's list, a put and a get, ``metrics``, ``events``; the ms
+    of ``advance 1`` and the resident round's launches by form (its
+    two-launch explicit-edge form at this N, held against its plain
+    version at this shape by phase 41)."""
+    import io
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.shim import cli
+
+    args = cli.make_parser().parse_args(["--packed", "--n", str(N_ADVANCE)])
+    cfg = cli.config_from_args(args)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = cli.cosim_from_args(args, cfg)
+    crashed = tuple(N_ADVANCE * k // 12 + 1 for k in (1, 3, 5, 8)) + (
+        N_ADVANCE - 1,)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = f"{tmp}/wiki.bin", f"{tmp}/back.bin"
+        blob = np.random.default_rng(SEED + 462).integers(
+            0, 256, 1 << 20, dtype=np.uint8).tobytes()
+        with open(src, "wb") as f:
+            f.write(blob)
+        out = io.StringIO()
+        merge.reset_launch_counts()
+        script = (["advance 2"] + [f"crash {x}" for x in crashed]
+                  + ["advance 10", "lsm 0", f"put {src} wiki.bin",
+                     f"get wiki.bin {dst}", "metrics", "events"])
+        for line in script:
+            cli.dispatch(sim, line, out=out)
+
+        def step():
+            cli.dispatch(sim, "advance 1", out=out)
+            torch.cuda.synchronize()
+
+        adv = wire_ms(step)
+        launches = launch_counts()
+        with open(dst, "rb") as f:
+            back = f.read()
+    text = out.getvalue().splitlines()
+    lsm = [int(x) for x in text[2].strip("[]").split(", ")]
+    rounds = 2 + 10 + len(adv)
+    vitals = next(ln for ln in text if ln.startswith("engine=sim"))
+    want = {"resident_round": rounds,
+            "resident_round[edges]": rounds}
+    if (set(crashed) & set(lsm) or len(lsm) != N_ADVANCE - len(crashed)
+            or text[3] != "ok" or back != blob
+            or f"n_alive={N_ADVANCE - len(crashed)}" not in vitals
+            or launches != want):
+        raise AssertionError(f"CLI --packed: {text[:6]}, launches "
+                             f"{launches}")
+    n_events = sum(1 for ln in text if ln.startswith("DetectionEvent("))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = dict(n=N_ADVANCE, fanout=cfg.fanout, rounds=rounds,
+               advance_ms=statistics.median(adv), advance_ms_runs=adv,
+               launches=launches, peak_gib=peak, detections=n_events)
+    log(f"  CLI --packed --n {N_ADVANCE} (fanout {cfg.fanout}): crashed "
+        f"{list(crashed)} at round 2, lsm 0 after advance 10 has "
+        f"{len(lsm)} members and none of them; put ok, get == the bytes; "
+        f"{n_events} detection events; {vitals}")
+    log(f"  CLI --packed: advance 1 {res['advance_ms']:.3f} ms (median of "
+        f"{len(adv)}: {[round(x, 3) for x in adv]}); launches {launches} "
+        f"(K3's two-launch edges form, held against plain at [{N_ADVANCE} "
+        f"x {N_ADVANCE}] by phase 41); peak {peak:.3f} GiB")
+    results["shim"]["cli_packed"] = res
+    del sim
+    torch.cuda.empty_cache()
+
+
+def shim_script(device: str, election: str = "local") -> dict:
+    """One shim script at N = 1,024 (random, fanout 10) on ``device``:
+    puts, three crashes (with ``election="rpc"`` the master, node 0,
+    among them), 16 rounds, then every read verb.  Returns the replies,
+    the event log, the detections and the master."""
+    import numpy as np
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.cosim import CoSim
+    from gossipfs_tpu_torch.shim.client import ShimClient
+    from gossipfs_tpu_torch.shim.service import ShimServer
+
+    cfg = SimConfig(n=N_SHIM_SMALL, topology="random", fanout=10)
+    sim = CoSim(cfg, seed=11, election=election, device=device)
+    server = ShimServer(sim).start()
+    client = ShimClient(server.address, timeout=120.0)
+    rng = np.random.default_rng(SEED + 463)
+    replies = []
+    try:
+        client.advance(3)
+        for i in range(4):
+            data = rng.integers(0, 256, 65_536, dtype=np.uint8).tobytes()
+            replies.append(client.put(f"f{i}.bin", data))
+        victim = client.ls("f0.bin")[0]
+        crashed = ([0] if election == "rpc" else []) + [victim, 100, 900]
+        for x in crashed:
+            client.crash(x)
+        client.advance(16)
+        for method, req in (
+                ("Lsm", {"observer": 1}), ("Lsm", {"observer": 512}),
+                ("AliveNodes", {}), ("Ls", {"file": "f0.bin"}),
+                ("Ls", {"file": "f3.bin"}), ("Get", {"file": "f0.bin"}),
+                ("Get", {"file": "f2.bin"}), ("Events", {}),
+                ("Vitals", {}), ("ShowMetadata", {}),
+                ("Grep", {"pattern": "Elected|Re-replicated"})):
+            replies.append(client.call(method, **req))
+    finally:
+        client.close()
+        server.stop()
+    return dict(replies=replies, log=sim.log.entries,
+                events=[(e.round, e.observer, e.subject, e.false_positive)
+                        for e in sim.events],
+                master=sim.cluster.master_node, crashed=crashed)
+
+
+def packed_script(device: str, tmp: str) -> dict:
+    """The ``--packed`` REPL script at ``packed_rr(1024, fanout=8)``, seed
+    3, on ``device``: printed text, event log, detections, vitals."""
+    import io
+
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.cosim import CoSim
+    from gossipfs_tpu_torch.detector.sim import PackedDetector
+    from gossipfs_tpu_torch.shim import cli
+
+    cfg = SimConfig.packed_rr(N_SHIM_SMALL, fanout=8)
+    sim = CoSim(cfg, seed=3, detector=PackedDetector(cfg, seed=3,
+                                                     device=device))
+    src = f"{tmp}/p.bin"
+    with open(src, "wb") as f:
+        f.write(bytes(range(256)) * 64)
+    out = io.StringIO()
+    for line in ("advance 2", f"put {src} p.bin", "crash 0", "crash 17",
+                 "crash 512", "advance 4", "crash 900", "advance 10",
+                 "lsm 0", "lsm 1", "ls p.bin", "join 17", "advance 8",
+                 "lsm 17", f"get p.bin {tmp}/p_{device}.bin", "metrics",
+                 "events", "grep Elected"):
+        cli.dispatch(sim, line, out=out)
+    return dict(text=out.getvalue(), log=sim.log.entries,
+                events=[(e.round, e.observer, e.subject, e.false_positive)
+                        for e in sim.events], vitals=sim.vitals())
+
+
+def shim_card_vs_cpu(results: dict) -> None:
+    """The same shim script on the card and on the CPU port at N = 1,024:
+    replies (Lsm, Ls, Get bytes, Events, Vitals ...), event log and
+    detections equal; the same with ``election="rpc"`` and the master
+    crashed (the winner and the election's log line equal); and the
+    ``--packed`` REPL script at ``packed_rr(1024, fanout=8)``, seed 3."""
+    import pathlib
+    import tempfile
+
+    from gossipfs_tpu_torch.ops import merge
+
+    out = {}
+    for election in ("local", "rpc"):
+        before = merge.launch_snapshot()
+        t0 = time.perf_counter()
+        card = shim_script("cuda", election)
+        card_s = time.perf_counter() - t0
+        launches, _ = merge.launches_since(before)
+        t0 = time.perf_counter()
+        cpu = shim_script("cpu", election)
+        cpu_s = time.perf_counter() - t0
+        if card != cpu:
+            bad = [k for k in card if card[k] != cpu[k]]
+            raise AssertionError(f"shim script ({election}): card != CPU "
+                                 f"in {bad}")
+        lines = [e["message"] for e in card["log"]
+                 if e.get("kind") == "election"]
+        if election == "rpc" and (card["master"] == 0 or not any(
+                "Vote/AssignNewMaster" in m for m in lines)):
+            raise AssertionError(f"rpc election: master {card['master']}, "
+                                 f"log {lines}")
+        if set(launches) != {"fused_merge_update"}:
+            raise AssertionError(f"shim script launched {launches}")
+        log(f"  shim script N={N_SHIM_SMALL} election={election}: crashed "
+            f"{card['crashed']}, master {card['master']}, "
+            f"{len(card['events'])} detections, {len(card['log'])} log "
+            f"lines{' incl. ' + repr(lines[-1]) if lines else ''}; card == "
+            f"CPU (replies, log, detections); {card_s:.2f} s card, "
+            f"{cpu_s:.2f} s CPU; launches {launches}")
+        out[election] = dict(launches=launches, seconds=card_s,
+                             cpu_seconds=cpu_s, master=card["master"])
+    with tempfile.TemporaryDirectory() as tmp:
+        before = merge.launch_snapshot()
+        card = packed_script("cuda", tmp)
+        launches, forms = merge.launches_since(before)
+        cpu = packed_script("cpu", tmp)
+        same_bytes = (pathlib.Path(tmp, "p_cuda.bin").read_bytes()
+                      == pathlib.Path(tmp, "p_cpu.bin").read_bytes())
+    if card != cpu or not same_bytes:
+        bad = [k for k in card if card[k] != cpu[k]]
+        raise AssertionError(f"--packed script: card != CPU in {bad}")
+    log(f"  --packed script packed_rr({N_SHIM_SMALL}, fanout=8), seed 3: "
+        f"{len(card['events'])} detections, text, log, vitals and bytes "
+        f"read == the CPU run; launches {launches} {forms}")
+    out["packed"] = dict(launches=launches, forms=forms)
+    results["shim"]["card_vs_cpu"] = out
+
+
+def shim_k2_shapes(results: dict) -> None:
+    """K2 against its plain version at the shapes phase 46's paths give
+    it, detection stats and suspicion on and off, tolerance 0: the
+    shim's [16,384 x 16,384] (F = 14, SimConfig's int16 view and int32
+    hb), the card-against-CPU script's N = 1,024 (F = 10) and wire_ops'
+    ring at N = 16 (F = 3); each timed in the paths' mode."""
+    import numpy as np
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    err = 0
+    for key, n, f, seed in (("k2_shim_n1024", N_SHIM_SMALL, 10, 464),
+                            ("k2_wire_ops_n16", 16, 3, 465)):
+        view, edges, _, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, np.int16, np.int32, SEED + seed, statuses=4)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        for det in (False, True):
+            for sus in (False, True):
+                log(f"  K2 N={n}: F={f}, view int16, hb int32, "
+                    f"detect_stats={det}, suspect={sus}")
+                err = max(err, compare_merge(
+                    mu.fused_merge_update, mu.fused_merge_update_plain, args,
+                    dict(detect_stats=det, suspect=sus)))
+        results[key] = dict(max_abs_err=0, shape=[n, n])
+        time_merge(mu.fused_merge_update, mu.fused_merge_update_plain, args,
+                   dict(detect_stats=True), results, key)
+    n, f = N_MAIN, SHIM_FANOUT
+    view, edges, _, hb, asl, sa, sb, alive = big_merge_inputs(
+        n, n, f, torch.int32, SEED + 466, vdt=torch.int16)
+    args = (view, edges, hb, asl, sa, sb, alive)
+    for det in (False, True):
+        for sus in (False, True):
+            kw = dict(detect_stats=det, suspect=sus)
+            got = mu.fused_merge_update(view, edges, hb.clone(), asl.clone(),
+                                        sa, sb, alive, **kw)
+            want = mu.fused_merge_update_plain(view, edges, hb.clone(),
+                                               asl.clone(), sa, sb, alive,
+                                               **kw)
+            diff = sum(count_diff(a, b)[0] for a, b in zip(got, want))
+            log(f"  K2 shim [{n} x {n}], F={f}, view int16, hb int32, "
+                f"detect_stats={det}, suspect={sus}: {diff} entries differ")
+            err = max(err, diff)
+            del got, want
+    results["k2_shim"] = dict(max_abs_err=err, shape=[n, n])
+    time_merge(mu.fused_merge_update, mu.fused_merge_update_plain, args,
+               dict(detect_stats=True), results, "k2_shim")
+    del view, edges, hb, asl, args
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError("K2 != plain at phase 46's shapes")
+
+
+def shim_wire_ops(results: dict) -> None:
+    """``wire_ops.run`` on the card with two seeded payloads of the
+    reference shards' sizes (4.0 MB and 3.2 MB), n = 16, 5 reps: insert,
+    update and read ms a file, and the repair dict (healed, bytes
+    identical)."""
+    import tempfile
+
+    import numpy as np
+
+    from gossipfs_tpu_torch import wire_ops
+    from gossipfs_tpu_torch.ops import merge
+
+    rng = np.random.default_rng(SEED + 467)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for name, size in (("file5.bin", 4_194_304),
+                           ("file10.bin", 3_276_800)):
+            files.append(f"{tmp}/{name}")
+            with open(files[-1], "wb") as f:
+                f.write(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+        before = merge.launch_snapshot()
+        t0 = time.perf_counter()
+        doc = wire_ops.run(files, n=16, reps=5)
+        seconds = time.perf_counter() - t0
+        launches, _ = merge.launches_since(before)
+    rep = doc["repair"]
+    if not (rep["healed"] and rep["bytes_identical_after_repair"]):
+        raise AssertionError(f"wire_ops repair: {rep}")
+    if set(launches) != {"fused_merge_update"}:
+        raise AssertionError(f"wire_ops launched {launches}")
+    for row in doc["rows"]:
+        log(f"  wire_ops {json.dumps(row)}")
+    log(f"  wire_ops repair {json.dumps(rep)}; {seconds:.2f} s, launches "
+        f"{launches}, device {doc['device']}")
+    results["shim"]["wire_ops"] = dict(rows=doc["rows"], repair=rep,
+                                       launches=launches, seconds=seconds)
+
+
+def phase_shim(results: dict) -> None:
+    results["shim"] = {}
+    t0 = time.perf_counter()
+    for name, fn in (("full", shim_full_width),
+                     ("process", shim_service_process),
+                     ("cli_packed", shim_cli_packed),
+                     ("card_vs_cpu", shim_card_vs_cpu),
+                     ("k2", shim_k2_shapes), ("wire_ops", shim_wire_ops)):
+        t1 = time.perf_counter()
+        fn(results)
+        results["shim"].setdefault(name, {})["phase_s"] = (
+            time.perf_counter() - t1)
+    results["shim"]["seconds"] = time.perf_counter() - t0
+
 
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
@@ -4776,6 +5310,28 @@ def main_path_summary(results: dict) -> dict:
     for part in ("campaign", "codec"):
         out["45 " + part] = sd[part]
     out["45"] = {"seconds": sd["seconds"]}
+    # the shim and the CLI (phase 46): the wire's Advance(1) and Lsm ms
+    # against the in-process round, the CLI --packed advance, the card
+    # against CPU scripts' launches, wire_ops' rows and repair
+    sh = results["shim"]
+    full, cli = sh["full"], sh["cli_packed"]
+    out["shim"] = {
+        "n": full["n"], "advance_ms": full["advance_ms"],
+        "detector_advance_ms": full["detector_advance_ms"],
+        "tick_ms": full["tick_ms"], "lsm_ms": full["lsm_ms"],
+        "rounds": full["rounds"], "launches": full["launches"],
+        "peak_gib": full["peak_gib"],
+        "bulk_as_of_rounds": full["bulk_as_of_rounds"],
+        "cli_packed": {k: cli[k] for k in ("n", "advance_ms", "rounds",
+                                          "launches", "peak_gib")},
+        "card_vs_cpu": {k: v["launches"] for k, v in
+                        sh["card_vs_cpu"].items() if k != "phase_s"},
+        "wire_ops": {"rows": sh["wire_ops"]["rows"],
+                     "healed": sh["wire_ops"]["repair"]["healed"],
+                     "bytes_identical_after_repair":
+                         sh["wire_ops"]["repair"][
+                             "bytes_identical_after_repair"]},
+        "seconds": sh["seconds"]}
     return out
 
 
@@ -4804,6 +5360,35 @@ def sdfs_kernel_rows(results: dict, src: str, mp: str) -> list:
                    c5_launches, results["k2_config4_fault"]),
         shard_line("fused_merge_update[config 5 column block]", k2,
                    mp + "387", 0, results["k2_config5_block"]),
+    ]
+
+
+def shim_kernel_rows(results: dict, src: str, mp: str) -> list:
+    """Phase 46's rows: K2 at the shim's N = 16,384 (its launches: the
+    service's rounds through the wire), at the card-against-CPU scripts'
+    N = 1,024 and at wire_ops' ring N = 16; K3's two-launch explicit-edge
+    form at the CLI --packed's N = 49,152 (phase 41's measurement, the
+    CLI's launches)."""
+    sh = results["shim"]
+    k2 = src + "fused_merge.cu"
+    small = sum(sh["card_vs_cpu"][e]["launches"].get("fused_merge_update",
+                                                     0)
+                for e in ("local", "rpc"))
+    return [
+        shard_line("fused_merge_update[shim n = 16,384]", k2, mp + "387",
+                   sh["full"]["launches"]["fused_merge_update"],
+                   results["k2_shim"]),
+        shard_line("fused_merge_update[shim n = 1,024]", k2, mp + "387",
+                   small, results["k2_shim_n1024"]),
+        shard_line("fused_merge_update[wire_ops n = 16]", k2, mp + "387",
+                   sh["wire_ops"]["launches"]["fused_merge_update"],
+                   results["k2_wire_ops_n16"]),
+        shard_line(f"resident_round[two-launch {N_ADVANCE} x {N_ADVANCE}: "
+                   "edges, crash-only, CLI --packed]",
+                   src + "resident_round.cu", mp + "2611",
+                   sh["cli_packed"]["launches"]["resident_round"],
+                   results["k3_large"][("edges", "crash-only", N_ADVANCE,
+                                        N_ADVANCE)]),
     ]
 
 
@@ -4976,8 +5561,12 @@ def main() -> int:
         "erasure matrix (n=64), the traffic case, the codec")
     phase_sdfs(results)
     log(f"  phase 45 in {results['sdfs']['seconds']:.2f} s")
-    print(json.dumps({"main_paths": main_path_summary(results)},
-                     separators=(",", ":")))
+    log(f"[46] the shim and the CLI: the gRPC service at N={N_MAIN} "
+        f"(random, fanout {SHIM_FANOUT}) through ShimClient, the CLI "
+        f"--packed --n {N_ADVANCE}, card against CPU at N={N_SHIM_SMALL} "
+        "(local and rpc election, --packed), K2 at its shapes, wire_ops")
+    phase_shim(results)
+    log(f"  phase 46 in {results['shim']['seconds']:.2f} s")
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
@@ -5120,7 +5709,11 @@ def main() -> int:
         # launches it no time
         kernel_line("fanout_max_merge", src + "fanout_max.cu", mp + "146",
                     results["main_c"]["fanout_max_launches"], results["k1"]),
-    ] + sdfs_kernel_rows(results, src, mp)}, separators=(",", ":")))
+    ] + sdfs_kernel_rows(results, src, mp) + shim_kernel_rows(
+        results, src, mp)}, separators=(",", ":")))
+    # after the kernels line, so that it ends within the last 24,000 bytes
+    print(json.dumps({"main_paths": main_path_summary(results)},
+                     separators=(",", ":")))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -71,8 +71,9 @@ class CoSim:
         ``update_membership`` (the in-process fast path); "rpc" defers them —
         the cluster only flags ``election_pending`` and the gRPC shim drives
         the real per-node Vote / AssignNewMaster protocol
-        (``ShimServicer.run_pending_election``, not ported yet), matching the reference's
-        distributed revote (slave.go:930-1051).
+        (``shim/service.ShimServicer.run_pending_election``, after each
+        ``Advance``), matching the reference's distributed revote
+        (slave.go:930-1051).
 
         ``detector``: any FailureDetector (default: a fresh SimDetector).
         The capacity-frontier interactive CLI passes a

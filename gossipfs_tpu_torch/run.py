@@ -237,7 +237,7 @@ def run_scenario(sc: presets.Scenario | str, *,
         raise NotImplementedError(
             f"scenario {sc.name!r} over {devices} rank processes: the "
             "co-simulation's chunks run in one process; its sharded form "
-            "waits for ROADMAP Queue 1 item 11")
+            "waits for ROADMAP Queue 1 item 2")
     if plain and sharded:
         raise ValueError("plain=True runs in one process (devices=1)")
     events, crash_rounds, churn_ok = tracked_crash_events(

@@ -6,8 +6,8 @@ The port of the JAX package's ``gossipfs_tpu/traffic/``:
     coming whether or not the system keeps up): put/get/delete mixes at a
     controlled per-round rate, Zipf or uniform key popularity, file-size
     distribution mirroring the reference's ~3-4 MB Wikipedia shards; the
-    driver for the interactive CoSim (the shim's waits for the shim:
-    ROADMAP Queue 1 item 7), and ``quantiles``.
+    drivers for the interactive CoSim and for the gRPC shim, and
+    ``quantiles``.
   * ``planner.py`` — placement and repair planning TENSORIZED against the
     live [N] alive mask on the device: thousands of placements per round
     and the whole repair set (replicas-lost x under-replicated-files) as

@@ -1,7 +1,8 @@
 """Open-loop SDFS load generation: deterministic arrivals, skewed keys.
 
 The port of the JAX package's ``gossipfs_tpu/traffic/workload.py`` (pure
-Python; the co-sim driver runs over the port's ``CoSim``).
+Python; the co-sim driver runs over the port's ``CoSim``, the shim driver
+over the port's gRPC shim).
 
 OPEN-LOOP means arrivals are a function of TIME, not of completions: the
 generator emits ``rate`` operations every round regardless of how the
@@ -21,13 +22,13 @@ write-write conflict window actually bind) or uniform.
 Two drivers ship here: ``drive_cosim`` (the interactive CoSim — in-process
 byte movement, flight-recordable) and ``drive_shim`` (the gRPC shim —
 base64-framed protobuf over a real HTTP/2 socket, the process-boundary
-path), which raises until the shim is ported (ROADMAP Queue 1 item 7).
-Both consume the same op stream, so their throughput rows are
+path).  Both consume the same op stream, so their throughput rows are
 comparable.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import hashlib
 import random
@@ -232,11 +233,40 @@ def drive_cosim(sim, wl: Workload, rounds: int, *, recorder=None,
 
 def drive_shim(client, wl: Workload, rounds: int, *, start_round: int = 0,
                recorder=None) -> dict:
-    """The same op stream through the gRPC shim (process boundary).  The
-    shim is not ported yet: this raises (ROADMAP Queue 1 item 7)."""
-    raise NotImplementedError(
-        "drive_shim needs the port's gRPC shim, not ported yet (ROADMAP "
-        "Queue 1 item 7)")
+    """The same op stream through the gRPC shim (process boundary): Put/
+    Get/Delete RPCs with auto-confirm, one Advance per round.  ``client``
+    is a ``shim.client.ShimClient`` dialed at a live ``ShimServer``."""
+    from gossipfs_tpu_torch.obs.schema import Event
+
+    lat = {"put": [], "get": [], "delete": []}
+    counts = {"put": [0, 0], "get": [0, 0], "delete": [0, 0]}
+    rnd = start_round
+    for _ in range(rounds):
+        for op in wl.ops(rnd):
+            t0 = time.perf_counter()
+            if op.kind == "put":
+                data = wl.payload(op.key, rnd, op.size)
+                reply = client.call(
+                    "Put", file=op.key,
+                    data_b64=base64.b64encode(data).decode(), confirm=True,
+                )
+                ok = bool(reply.get("ok"))
+            elif op.kind == "get":
+                ok = bool(client.call("Get", file=op.key).get("found"))
+            else:
+                ok = bool(client.call("Delete", file=op.key).get("ok"))
+            ms = (time.perf_counter() - t0) * 1e3
+            counts[op.kind][0] += 1
+            counts[op.kind][1] += ok
+            lat[op.kind].append(ms)
+            if recorder is not None:
+                recorder.emit(Event(
+                    round=rnd, observer=-1, subject=-1, kind="client_op",
+                    detail={"op": op.kind, "file": op.key, "bytes": op.size,
+                            "ms": round(ms, 4), "ok": ok},
+                ))
+        rnd = int(client.call("Advance", rounds=1)["round"])
+    return summarize_window(counts, lat, rounds)
 
 
 def quantiles(vals: list[float]) -> dict:

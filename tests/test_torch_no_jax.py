@@ -64,7 +64,9 @@ def test_port_imports_without_jax():
                 "sdfs.placement", "sdfs.master", "sdfs.cluster",
                 "utils.eventlog", "erasure", "erasure.codec",
                 "erasure.planner", "traffic.planner", "traffic.harness",
-                "cosim", "traffic_bench", "sdfs_ops"):
+                "cosim", "traffic_bench", "sdfs_ops", "shim",
+                "shim.gossipfs_pb2", "shim.wire", "shim.retry",
+                "shim.client", "shim.service", "shim.cli", "wire_ops"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

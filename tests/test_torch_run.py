@@ -9,7 +9,7 @@ against the JAX package's ``bench/run.py``, on the CPU.
 * ``sim-100k-sdfs`` (config 5) at N = 256 gives the JAX report and its
   ``cosim`` dict (the SDFS co-simulation over the membership, chunk by
   chunk), timing fields aside; over rank processes it raises, naming
-  ROADMAP Queue 1 item 11;
+  ROADMAP Queue 1 item 2;
 * the CLI prints and writes the report, and refuses the card without one;
 * ``--devices 2`` (two gloo rank processes on the CPU) gives the
   single-process report;
@@ -78,7 +78,7 @@ def test_sdfs_cosim_raises_naming_queue_1_items_6_7():
     ported: the report equals the JAX one, below); its sharded form
     raises, naming the ROADMAP item that lifts it, before any rank
     starts."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         run.run_scenario("sim-100k-sdfs", devices=2, device="cpu", **CUT)
 
 

@@ -3,7 +3,7 @@
 against the JAX package's, on the CPU.
 
 * the workload generator is a copy: op streams, payloads and digests;
-  ``drive_shim`` raises, naming ROADMAP Queue 1 item 7;
+  ``drive_shim`` makes the JAX package's calls on a stub client;
 * the harness's four runs (steady state, churn, partition race, repair
   storm) and the bench's cosim lane and erasure matrix give the JAX
   package's documents, timing fields aside: every count, repair curve,
@@ -61,8 +61,29 @@ def test_workload_is_a_copy():
     assert twl.quantiles([3.0, 1.0, 2.0]) == jwl.quantiles([3.0, 1.0, 2.0])
     with pytest.raises(ValueError):
         twl.WorkloadSpec(redundancy="mirror")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        twl.drive_shim(None, tw, 1)
+    calls = {}
+    for name, mod, wl in (("jax", jwl, jw), ("port", twl, tw)):
+        stub = StubClient()
+        doc = mod.drive_shim(stub, wl, 3, start_round=2)
+        calls[name] = (stub.calls, {k: v for k, v in doc.items()
+                                    if k != "by_op"})
+    assert calls["port"] == calls["jax"]
+    assert calls["port"][1]["rounds"] == 3
+
+
+class StubClient:
+    """Records each shim call; puts and deletes succeed, gets find."""
+
+    def __init__(self):
+        self.calls = []
+        self.round = 2
+
+    def call(self, method, **req):
+        self.calls.append((method, sorted(req.items())))
+        if method == "Advance":
+            self.round += req["rounds"]
+            return {"round": self.round}
+        return {"ok": True, "found": True}
 
 
 SPEC = dict(rate=4.0, n_keys=16, put_frac=0.5)
