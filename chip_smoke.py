@@ -12,7 +12,7 @@ Phases (any failure exits non-zero before the last line is printed):
    pre-tick lanes (all statuses, ages up to the clamp, never-sent entries,
    mixed flags, deep negative shifts): every output bit-equal; times of
    the kernel, the plain version and the byte bound;
-4. K3 scan against plain scan: 20 headline rounds, same key: lanes, carry
+4. K3 scan against plain scan: 12 headline rounds, same key: lanes, carry
    and every per-round metric bit-equal;
 5. the lean main path: the headline (N = 16,384, 100 rounds, 1 % crash
    churn, 8 tracked crashes) through ``run_rounds`` on K3, with the launch
@@ -47,10 +47,10 @@ Phases (any failure exits non-zero before the last line is printed):
     20) through ``run_rounds`` with the counts zeroed just before and read
     just after: exactly 120 K2 launches and no K3 one; rounds/s, K2 ms
     per round beside the whole round's, peak memory, TTD and FPR; then
-    10 rounds under ``torch.profiler``: device ms per round of each stage
+    5 rounds under ``torch.profiler``: device ms per round of each stage
     of the round and the device's busy share;
 11. the eventful arc path: the headline under 1 % crash and 1 % rejoin
-    churn (joins are matrix events), 100 rounds: 100 K4 launches;
+    churn (joins are matrix events), 50 rounds: 50 K4 launches;
     rounds/s and peak memory; the same stage split;
 12. capacity under config 4's fault model (5 % crash, 5 % rejoin, random
     fanout 16, int16 lanes, int8 view) at N = 65,536, 10 rounds: exactly
@@ -69,7 +69,7 @@ Phases (any failure exits non-zero before the last line is printed):
     lanes, and at a ragged N = 1,030, stats and suspicion on and off:
     every output bit-equal; K5's times and bound at the main path's
     shape beside K2's time on the same inputs;
-15. 20-round scans, kernels against plain: the ``bench --suspicion``
+15. 12-round scans, kernels against plain: the ``bench --suspicion``
     headline (K3), the headline at LOCALHEALTH_r14's chosen Lifeguard
     point (K3's lh lane), ``SimConfig.suspicion_rr(16_384)`` under 2 %
     crash and rejoin churn (K5), config 3 with t_fail 3 and t_suspect 2
@@ -81,8 +81,8 @@ Phases (any failure exits non-zero before the last line is printed):
     beside the whole round, peak memory, TTD, ``ttd_suspect``,
     suspect-to-confirm, FPR and the three suspicion counters;
 17. main path B: ``SimConfig.suspicion_rr(16_384)`` (random edges F = 14,
-    all-int8) for 100 rounds under 1 % crash and 1 % rejoin churn: exactly
-    100 K5 launches and no other kernel's; rounds/s, peak memory and the
+    all-int8) for 50 rounds under 1 % crash and 1 % rejoin churn: exactly
+    50 K5 launches and no other kernel's; rounds/s, peak memory and the
     profiled stage split;
 18. K1 (``fanout_max_merge``) against plain: int8, int16 and int32 views at
     N = 16,384, F = 14, and a ragged N = 1,030, F = 5; every entry equal;
@@ -92,7 +92,7 @@ Phases (any failure exits non-zero before the last line is printed):
     suspicion + Lifeguard: every output equal; times, bounds and the
     profiled split between the two launches; K5's suspicion-off time at
     phase 14's all-int8 shape;
-20. 20-round lean scans, kernel (one-pass, then two-launch) against
+20. 12-round lean scans, kernel (one-pass, then two-launch) against
     plain: ``packed_rr``, ``suspicion_rr`` with and without the Lifeguard
     lane, plain arcs and ``headline(arc_align=4)`` (aligned bases the
     kernel takes as plain arcs); lanes, carry and all six metrics
@@ -157,7 +157,7 @@ Phases (any failure exits non-zero before the last line is printed):
     random lanes of phases 3, 13 and 25: bit-equal to the SWAR plain
     version and to the lanes kernel; SWAR and lanes ms in turns, the byte
     bound, SWAR's pass A / pass B split;
-31. 20-round lean scans with ``elementwise="swar"``: the headline, the
+31. 12-round lean scans with ``elementwise="swar"``: the headline, the
     suspicion headline, ``suspicion_rr``, ``headline(arc_align=4)``, main
     path D's scenario and ``headline(arc_align=4)`` under a split (every
     SWAR form): the SWAR kernel (one-pass) == its two-launch form == the
@@ -252,9 +252,10 @@ Phases (any failure exits non-zero before the last line is printed):
     the tensor column on the card (4 tensor families x 2 seeds, the
     oracle's self-check over all 24 cases), all agreeing, each card
     bundle equal to the CPU port's; ``curves.sweep_t_fail(n=16_384)``
-    (one K2 launch a round, the suspect form at t_suspect = 2) with its
-    (3, 2) row equal to its plain re-run; ``curves.suspicion_sweep`` at
-    N = 16,384 on K2 and on ``pallas_rr`` + SWAR (K3), each loss
+    at 40 rounds a row (one K2 launch a round, the suspect form at
+    t_suspect = 2) with its (3, 2) row equal to its plain re-run;
+    ``curves.suspicion_sweep`` at N = 16,384, 40 rounds a row, on K2 and
+    on ``pallas_rr`` + SWAR (K3), each loss
     suspect-t3 row equal to its plain re-run, the JAX package's two
     claims for these rows printed; ``python -m gossipfs_tpu_torch.run``
     for parity-10, sim-1k, sim-10k-crash and sim-100k cut to N = 32,768
@@ -267,7 +268,7 @@ Phases (any failure exits non-zero before the last line is printed):
     int16 view, int32 hb; a [65,536 x 16,384] column block at config 5's
     int8 view and int16 hb, F = 16), timed; BASELINE config 5
     ``sim-100k-sdfs`` through ``run.run_scenario`` at N = 65,536 (131,072
-    needs the lanes sharded), 24 rounds, 1,000 files: the detection
+    needs the lanes sharded), 16 rounds, 1,000 files: the detection
     report, the ``cosim`` dict (files readable, repair plans, elections,
     final alive, rounds/s) and one K2 launch a round, and at N = 4,096 on
     the kernels against the plain versions (equal reports, timings
@@ -300,26 +301,49 @@ Phases (any failure exits non-zero before the last line is printed):
     version at [16,384 x 16,384] (F = 14, int16 view, int32 hb), N =
     1,024 and wire_ops' N = 16, timed; ``wire_ops.run`` with seeded 4.0
     MB and 3.2 MB payloads, n = 16, 5 reps: its rows, healed and
-    byte-identical after the repair.
+    byte-identical after the repair;
+47. the bench and utils tail: K2 against its plain version over config
+    5's [16,384 x 8,192] rank block (F = 14, int16 hb), at the soak's N =
+    4,096 (F = 12; int32, int16, int8 hb) and roundprof's N = 16,384 (F =
+    14; int16, int8 hb), K4 at roundprof's arc rows (F = 14), tolerance
+    0, timed; config 5 (``run.run_scenario("sim-100k-sdfs",
+    devices=2)``) at N = 16,384 over 2 rank processes sharing the card
+    (gloo), its report equal to the one-process run's, each rank's K2
+    launches, peak memory and rounds/s; ``roundprof`` at N = 16,384, every
+    row of ``variants`` and ``suspicion_variants(interpret=False)`` at 20
+    rounds (a lean row with its two-launch twin): route, launches, ms a
+    round and the bandwidth block against 3,350 GB/s, each row's 2 rounds
+    equal on the kernels and the plain versions; the soak cut (int8 and
+    int16 against int32, N = 4,096, 2 chunks of 1,000 rounds: PASS);
+    checkpoint/resume of the headline and config 3 (saved at round 10,
+    restored, also into another hb dtype and onto 2 ranks, against the
+    uninterrupted run); the profiler seam (``utils.profiling.trace``
+    around 10 headline rounds, its rows mapped to K-names, K3's count
+    against the launch counters; ``time_rounds`` beside
+    ``bench.timed_run``; ``bench --xprof``; ``sweep_merge``).
 
 Phase 40's times are one JSON line (``{"onepass": ...}``) after phase
 41.  The last four lines printed are the kernels JSON (the five kernels;
 K3's one-pass form per merge form and SWAR form in its paths' modes and
 over F/F''s blocks, its two-launch form once per merge form and once per
 SWAR form and at phase 41's shapes, the column-shard forms of K3, K2, K4
-and K5, K2 at phase 45's and phase 46's shapes, K3 at the CLI
---packed's), every main path's ms a round, rounds/s and launch counts
-(one JSON line, with each path's ``rr_resident="off"`` run as ``"<phase>
-off"``; capacity, the frontier and the detector's advance as phases 6,
-22, 34 and 23; config 4's fault model as phase 12, with K2's ms a round;
-phase 43's bench, curve rows, recorder and campaign run as ``"43 ..."``;
-phase 44's parts as ``"44 ..."``, phase 45's as ``"45 ..."``, phase 46's
-as ``"shim"``), the ``nvidia-smi`` name and power limit, and the device
-JSON.
+and K5, K2 at phase 45's, phase 46's and phase 47's shapes, K3 at the
+CLI --packed's, K4 at roundprof's), every main path's ms a round,
+rounds/s and launch counts (one JSON line: capacity, the frontier and the
+detector's advance as phases 6, 22, 34 and 23; config 4's fault model as
+phase 12, with K2's ms a round; phase 43's bench, recorder and campaign
+run as ``"43 ..."``; phase 44's and 45's totals, phase 46's as ``"shim"``,
+phase 47's as ``"47 ..."``), the ``nvidia-smi`` name and power limit, and
+the device JSON.  Just before them, one ``{"phase_details": ...}`` line
+holds each path's ``rr_resident="off"`` run as ``"<phase> off"`` and the
+per-part documents of phases 43-47.  The last four lines are compact
+(floats to 5 significant digits), so that they fit in the last 24,000
+bytes of output.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -329,10 +353,24 @@ H100_BYTES_PER_S = 3.35e12   # HBM3 rate of the H100 SXM (data sheet)
 N_MAIN = 16_384
 N_CAPACITY = 65_536
 N_ADVANCE = 49_152             # PackedDetector's capacity point
+# rounds of the eventful separate-pass paths (phases 11 and 17) and of
+# the profiled stage splits, cut from 100 and 10 to keep the whole run
+# inside its time limit
+EVENTFUL_ROUNDS = 50
+SPLIT_ROUNDS = 5
+# rounds a row of phase 44's curve sweeps, cut from their default 60 (the
+# tracked crashes at round 10 are confirmed by round 26 at t_fail 12 +
+# t_suspect 2)
+SWEEP_ROUNDS = 40
+_T0 = time.perf_counter()
 SEED = 20_261_016
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's header (``[N] ...``) gets the seconds since
+    the script started."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -1016,7 +1054,7 @@ def phase_config3_main(results: dict) -> None:
                               kernel_ms=kernel_ms,
                               round_ms=wall / sc.rounds * 1e3,
                               launch_counts=launch_counts())
-    stage_split(cfg, 10, dict(crash_rate=sc.crash_rate),
+    stage_split(cfg, SPLIT_ROUNDS, dict(crash_rate=sc.crash_rate),
                 wall / sc.rounds * 1e3)
 
 
@@ -1037,7 +1075,8 @@ def phase_eventful_arc(results: dict, rounds: int) -> None:
                           rounds_per_s=rounds / wall,
                           round_ms=wall / rounds * 1e3,
                           launch_counts=launch_counts())
-    results["arc"]["split"] = stage_split(cfg, 10, kw, wall / rounds * 1e3)
+    results["arc"]["split"] = stage_split(cfg, SPLIT_ROUNDS, kw,
+                                          wall / rounds * 1e3)
 
 
 def phase_config4_capacity(rounds: int, results: dict) -> None:
@@ -1409,7 +1448,7 @@ def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
                               rounds_per_s=rounds / wall,
                               round_ms=wall / rounds * 1e3,
                               launch_counts=launch_counts())
-    stage_split(cfg, 10, kw, wall / rounds * 1e3)
+    stage_split(cfg, SPLIT_ROUNDS, kw, wall / rounds * 1e3)
 
 def phase_k1(results: dict) -> None:
     import numpy as np
@@ -1754,7 +1793,7 @@ def phase_packed_main(results: dict) -> None:
                              launch_counts=launch_counts())
     resident_off_twin("main path C", cfg, rounds, kw, 0,
                       (final, carry, per_round), results["main_c"])
-    lean_split(cfg, 10, dict(crash_rate=0.01), round_ms)
+    lean_split(cfg, SPLIT_ROUNDS, dict(crash_rate=0.01), round_ms)
     # the same run through the separate-pass loop (K5): the same function,
     # so equal outputs, at the separate-pass round's cost
     gstate = init_state(cfg)
@@ -2224,7 +2263,8 @@ def scenario_main_path(label: str, cfg, form: str, scenario, rounds: int,
     # the device split over 10 rounds inside the fault windows (every
     # window 30 rounds earlier: the split and the flapping are active)
     mid = compile_tensor(scenario(cfg.n, set(crash_rounds), shift=18))
-    lean_split(cfg, 10, dict(crash_rate=0.01, scenario=mid), round_ms)
+    lean_split(cfg, SPLIT_ROUNDS, dict(crash_rate=0.01, scenario=mid),
+               round_ms)
     return sc, kw, rkey
 
 
@@ -2578,7 +2618,7 @@ def phase_swar_main(results: dict) -> None:
                             launch_counts=launch_counts())
         resident_off_twin(f"main path {label}", cfg, ROUNDS, kw, 0,
                           (final, carry, per_round), results[key])
-        results[key]["split"] = lean_split(cfg, 10,
+        results[key]["split"] = lean_split(cfg, SPLIT_ROUNDS,
                                            dict(crash_rate=CRASH_RATE),
                                            round_ms)
 
@@ -2630,7 +2670,7 @@ def phase_swar_separate(results: dict, rounds: int) -> None:
         f"lanes, carry and metrics equal (detections "
         f"{int(ms.true_detections.sum())}, alive {int(ms.n_alive[-1])}); "
         f"{rounds} K4 launches each")
-    split = stage_split(cfg, 10, kw, round_ms)
+    split = stage_split(cfg, SPLIT_ROUNDS, kw, round_ms)
     lanes_tick = results["arc"]["split"]["round.tick"]
     log(f"  round.tick: SWAR {split['round.tick']:.4f} ms against phase "
         f"11's lanes {lanes_tick:.4f} ms per round "
@@ -3016,14 +3056,40 @@ def phase_merge_column_blocks(results: dict) -> None:
     log("  K2, K4 and K5 over column blocks == plain (tolerance 0)")
 
 
+def scan_rounds() -> int:
+    """Rounds of the kernel-against-plain scans of phases 4, 9, 15, 20, 31
+    and 33, from the headline's knobs: a crash in round 1 is marked failed
+    t_fail rounds later and its fail-list entry expires t_cooldown after
+    that, both inside the scan, with 2 rounds to spare (20 at t_fail 5,
+    t_cooldown 12)."""
+    from gossipfs_tpu_torch.config import SimConfig
+
+    cfg = SimConfig.headline(N_MAIN)
+    return 1 + cfg.t_fail + cfg.t_cooldown + 2
+
+
+def run_tensors(state, carry, metrics) -> list:
+    """A run's whole outputs: lanes, alive, hb_base, carry and every
+    per-round metric."""
+    return [state.hb, state.asl, state.alive, state.hb_base, *carry,
+            *metrics]
+
+
+def runs_equal(a, b) -> bool:
+    """Whether two runs' whole outputs are bit-equal (on their device)."""
+    import torch
+
+    return all(torch.equal(x, y)
+               for x, y in zip(run_tensors(*a), run_tensors(*b)))
+
+
 def run_digest(state, carry, metrics) -> str:
     """sha256 of a run's whole outputs (lanes, alive, hb_base, carry and
     every per-round metric), on the host."""
     import hashlib
 
     h = hashlib.sha256()
-    for t in (state.hb, state.asl, state.alive, state.hb_base, *carry,
-              *metrics):
+    for t in run_tensors(state, carry, metrics):
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -4175,7 +4241,7 @@ def runner_conformance(results: dict) -> None:
 
 
 def runner_t_fail(results: dict) -> None:
-    """``sweep_t_fail(n=16_384)``: 60 rounds a row over t_fail (3, 5, 8,
+    """``sweep_t_fail(n=16_384)``: 40 rounds a row over t_fail (3, 5, 8,
     12) x t_suspect (0, 2), one K2 launch a round (the suspect form where
     t_suspect = 2); the (3, 2) row re-run on the plain versions equals
     the kernels' row."""
@@ -4186,10 +4252,10 @@ def runner_t_fail(results: dict) -> None:
     n = N_MAIN
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    doc = curves.sweep_t_fail(n=n)
+    doc = curves.sweep_t_fail(n=n, rounds=SWEEP_ROUNDS)
     wall = time.perf_counter() - t0
     for row in doc["rows"]:
-        if row["launches"] != {"fused_merge_update": curves.ROUNDS}:
+        if row["launches"] != {"fused_merge_update": SWEEP_ROUNDS}:
             raise AssertionError(f"t_fail surface row {row['t_fail']}/"
                                  f"{row['t_suspect']} launched "
                                  f"{row['launches']}")
@@ -4198,12 +4264,12 @@ def runner_t_fail(results: dict) -> None:
             f"{row['false_positive_rate']:.3e}, suspects entered "
             f"{row['suspects_entered']}, refutations {row['refutations']}, "
             f"fp suppressed {row['fp_suppressed']}; {row['launches']}")
-    kw = dict(n=n, t_fails=(3,), t_suspects=(2,))
+    kw = dict(n=n, t_fails=(3,), t_suspects=(2,), rounds=SWEEP_ROUNDS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     (again,) = curves.sweep_t_fail(**kw)["rows"]
     torch.cuda.synchronize()
-    row_ms = (time.perf_counter() - t1) / curves.ROUNDS * 1e3
+    row_ms = (time.perf_counter() - t1) / SWEEP_ROUNDS * 1e3
     (plain,) = curves.sweep_t_fail(plain=True, **kw)["rows"]
     want = next(r for r in doc["rows"]
                 if (r["t_fail"], r["t_suspect"]) == (3, 2))
@@ -4241,12 +4307,12 @@ def runner_suspicion(results: dict) -> None:
              dict(merge_kernel="pallas_rr", elementwise="swar"))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        doc = curves.suspicion_sweep(ns=(n,), **kw)
+        doc = curves.suspicion_sweep(ns=(n,), rounds=SWEEP_ROUNDS, **kw)
         wall = time.perf_counter() - t0
         for row in doc["rows"]:
             # one launch a round of the configured kernel; the resident
             # round's form is recorded, not assumed
-            if row["launches"] != {kernel: curves.ROUNDS}:
+            if row["launches"] != {kernel: SWEEP_ROUNDS}:
                 raise AssertionError(f"{label} {row['fault']} "
                                      f"{row['mode']}: launched "
                                      f"{row['launches']}")
@@ -4259,7 +4325,7 @@ def runner_suspicion(results: dict) -> None:
                 f"{row['forms']}")
         (plain,) = curves.suspicion_sweep(
             ns=(n,), only=("loss", "suspect-t3"), plain=True,
-            **kw)["rows"]
+            rounds=SWEEP_ROUNDS, **kw)["rows"]
         want = doc["rows"][-1]
         strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
                            if k not in ("launches", "forms")}
@@ -4387,6 +4453,7 @@ def phase_runners(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 N_CONFIG5 = 65_536     # config 5 on one card (131,072 needs the lanes sharded)
+C5_ROUNDS = 16         # its rounds, cut from 24 for the run's time limit
 SDFS_TIMING = ("_ms", "elapsed_s", "rounds_per_sec", "placements_per_sec",
                "planner_ms_median", "speedup_vs_realtime")
 
@@ -4395,7 +4462,7 @@ def untimed(doc):
     """A document with its wall-clock fields dropped, at every depth."""
     if isinstance(doc, dict):
         return {k: untimed(v) for k, v in doc.items()
-                if not k.endswith(SDFS_TIMING)}
+                if not (isinstance(k, str) and k.endswith(SDFS_TIMING))}
     if isinstance(doc, list):
         return [untimed(v) for v in doc]
     return doc
@@ -4473,7 +4540,7 @@ def sdfs_k2_shapes(results: dict) -> None:
 
 def sdfs_config5(results: dict) -> None:
     """BASELINE config 5 through ``run.run_scenario`` on the card at N =
-    65,536 (1,000 files, 24 rounds: the detector's warm-up and timed runs,
+    65,536 (1,000 files, 16 rounds: the detector's warm-up and timed runs,
     then the co-sim's warm-up chunk and 3 chunks of 8 rounds, each round
     one K2 launch); then at N = 4,096 on the kernels and on the plain
     versions: the detection report and the ``cosim`` dict equal, timings
@@ -4486,7 +4553,7 @@ def sdfs_config5(results: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rep = run.run_scenario("sim-100k-sdfs", n_override=N_CONFIG5,
-                           rounds_override=24)
+                           rounds_override=C5_ROUNDS)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     cos, det = rep["cosim"], rep["detection"]
@@ -4505,7 +4572,7 @@ def sdfs_config5(results: dict) -> None:
             != {"fused_merge_update": chunks}):
         raise AssertionError(f"config 5 launched {rep['launches']} / "
                              f"{rep['cosim_launches']}")
-    if cos["files_readable"] <= 0 or cos["rounds"] != 24:
+    if cos["files_readable"] <= 0 or cos["rounds"] != C5_ROUNDS:
         raise AssertionError(f"config 5 cosim: {cos}")
     out = dict(n=rep["n"], rounds_per_s=rep["rounds_per_sec"],
                cosim_rounds_per_s=cos["rounds_per_sec"],
@@ -5201,6 +5268,440 @@ def phase_shim(results: dict) -> None:
     results["shim"]["seconds"] = time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# Phase 47: config 5 over ranks, roundprof, the soak, checkpoint/resume and
+# the profiler seam
+# ---------------------------------------------------------------------------
+
+N_SOAK = 4_096          # the soak's N (bench/soak_hb16.py)
+RP_ROUNDS = 20          # roundprof's rounds a row (cut from its 100)
+SOAK_CHUNKS, SOAK_ROUNDS = 2, 1_000     # the soak cut from 10 x 5,000
+# the port's kernels as CUPTI names them (demangled templates), by K-name
+K_NAMES = (("rr_onepass_kernel", "K3 one-pass"),
+           ("rr_tick_view_kernel", "K3 two-launch pass A"),
+           ("rr_merge_kernel", "K3 two-launch pass B"),
+           ("fused_kernel", "K2"), ("stripe_kernel", "K5"),
+           ("arc_rows_kernel", "K4 rows"), ("window_tile_kernel", "K4 window"),
+           ("window_max_kernel", "K4 window"), ("fanout_max_kernel", "K1"))
+
+
+def k_name(name: str) -> str | None:
+    """The K-name of a profiler row, None for torch's own kernels."""
+    for sub, k in K_NAMES:
+        if sub in name:
+            return k
+    return None
+
+
+def block_merge_check(key: str, label: str, fn, plain, n: int, c: int,
+                      f: int, hdts, timed, results: dict, seed: int,
+                      **kw) -> None:
+    """A merge kernel against its plain version over an [N, C] block with
+    an int8 view, for each hb dtype of ``hdts``, detection stats on and
+    off, tolerance 0 (``big_merge_inputs``' corner cases); kernel, plain
+    and byte-bound times at ``timed``'s dtype."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    err = diff = 0
+    arc = fn is mu.arc_merge_update
+    for i, hdt in enumerate(hdts):
+        view, edges, bases, hb, asl, sa, sb, alive = big_merge_inputs(
+            n, c, f, hdt, seed + i)
+        senders = bases if arc else edges
+        for det in (False, True):
+            got = fn(view, senders, hb.clone(), asl.clone(), sa, sb, alive,
+                     detect_stats=det, **kw)
+            want = plain(view, senders, hb.clone(), asl.clone(), sa, sb,
+                         alive, detect_stats=det, **kw)
+            diffs = [count_diff(a, b) for a, b in zip(got, want)]
+            d = sum(x[0] for x in diffs)
+            diff += d
+            err = max([err] + [x[1] for x in diffs])
+            log(f"  {label} [{n} x {c}], F={f}, view int8, hb "
+                f"{str(hdt).split('.')[-1]}, detect_stats={det}: {d} "
+                "entries differ")
+            del got, want
+        if hdt == timed:
+            h2, a2 = hb.clone(), asl.clone()
+            run_k = lambda: fn(view, senders, h2, a2, sa, sb, alive,  # noqa: E731
+                               detect_stats=True, **kw)
+            run_p = lambda: plain(view, senders, h2, a2, sa, sb, alive,  # noqa: E731
+                                  detect_stats=True, **kw)
+            run_k()
+            ms = min(cuda_ms(run_k, 10), cuda_ms(run_k, 10))
+            run_p()
+            plain_ms = cuda_ms(run_p, 1)
+            bound = merge_block_bound_ms(view, senders, hb, 3)
+            del h2, a2
+        del view, edges, bases, hb, asl
+    torch.cuda.empty_cache()
+    if diff or err:
+        raise AssertionError(f"{label} != plain at [{n} x {c}]")
+    results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, shape=[n, c])
+    log(f"  {label} [{n} x {c}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+        f"ms, byte bound {bound:.4f} ms")
+
+
+def p47_kernels(results: dict) -> None:
+    """The merge kernels at the shapes phase 47's paths give them that no
+    earlier phase holds: K2 over config 5's [16,384 x 8,192] rank block
+    (F = 14, int16 hb), at the soak's N = 4,096 (F = 12; int32, int16 and
+    int8 hb) and at roundprof's N = 16,384 (F = 14; int16 and int8 hb);
+    K4 at roundprof's arc rows (N = 16,384, F = 14, plain bases)."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    k2 = (mu.fused_merge_update, mu.fused_merge_update_plain)
+    block_merge_check("k2_c5_ranks", "K2 config 5 rank block", *k2, N_MAIN,
+                      N_MAIN // 2, 14, (torch.int16,), torch.int16, results,
+                      SEED + 471)
+    block_merge_check("k2_soak", "K2 soak", *k2, N_SOAK, N_SOAK, 12,
+                      (torch.int32, torch.int16, torch.int8), torch.int16,
+                      results, SEED + 472)
+    block_merge_check("k2_roundprof", "K2 roundprof", *k2, N_MAIN, N_MAIN,
+                      14, (torch.int16, torch.int8), torch.int16, results,
+                      SEED + 475)
+    block_merge_check("k4_roundprof", "K4 roundprof",
+                      mu.arc_merge_update, mu.arc_merge_update_plain, N_MAIN,
+                      N_MAIN, 14, (torch.int16, torch.int8), torch.int16,
+                      results, SEED + 477, fanout=14)
+
+
+def p47_config5(results: dict) -> None:
+    """Config 5 at N = 16,384 (1,000 files, 24 rounds) over 2 rank
+    processes sharing the card (gloo through the host: not a multi-GPU
+    speed) against the one-process run on the card: the report (the
+    ``cosim`` dict, the detection report, rank 0's launches) equal,
+    timings aside; each rank's K2 launches over its [16,384 x 8,192]
+    block, peak memory and rounds/s."""
+    import torch
+
+    from gossipfs_tpu_torch import run
+
+    kw = dict(n_override=N_MAIN, rounds_override=24)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = run.run_scenario("sim-100k-sdfs", **kw)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    t1 = time.perf_counter()
+    two = run.run_scenario("sim-100k-sdfs", devices=2, **kw)
+    t2 = time.perf_counter()
+    ranks = two.pop("cosim_ranks")
+    same = {k: v for k, v in untimed(two).items() if k != "devices"} == \
+        {k: v for k, v in untimed(one).items() if k != "devices"}
+    cos = two["cosim"]
+    log(f"  config 5 over 2 ranks, N={N_MAIN}: cosim "
+        f"{json.dumps(untimed(cos))}, TTD {two['detection']['ttd_first']}, "
+        f"final alive {two['detection']['final_alive']}: report == the "
+        f"one-process run's: {same}")
+    chunks = cos["rounds"] + 8      # the co-sim's warm-up chunk and its run
+    for r in ranks:
+        log(f"  rank {r['rank']}: [{N_MAIN} x {r['nloc']}] block, co-sim K2 "
+            f"launches {r['launches']}, peak {r['peak_bytes'] / 2**30:.2f} "
+            f"GiB (detector {r['detector_peak_bytes'] / 2**30:.2f} GiB), "
+            f"{r['collectives']['calls']} all-reduces")
+        if r["launches"] != {"fused_merge_update": chunks}:
+            raise AssertionError(f"config 5 rank {r['rank']} launched "
+                                 f"{r['launches']}")
+    log(f"  rounds/s: detector {two['rounds_per_sec']:.2f} over 2 ranks "
+        f"(host clock), {one['rounds_per_sec']:.2f} in one process (CUDA "
+        f"events); co-sim {cos['rounds_per_sec']} over 2 ranks, "
+        f"{one['cosim']['rounds_per_sec']} in one process; one-process "
+        f"peak {one_peak:.2f} GiB; {t1 - t0:.1f} s and {t2 - t1:.1f} s")
+    if not same or two["launches"] != {"fused_merge_update": 24}:
+        raise AssertionError(f"config 5 over ranks: {two} != {one}")
+    results["c5_ranks"] = dict(
+        n=N_MAIN, rounds_per_s=two["rounds_per_sec"],
+        cosim_rounds_per_s=cos["rounds_per_sec"],
+        one_rounds_per_s=one["rounds_per_sec"],
+        one_cosim_rounds_per_s=one["cosim"]["rounds_per_sec"],
+        peak_gib=[max(r["peak_bytes"], r["detector_peak_bytes"]) / 2**30
+                  for r in ranks],
+        launches=two["launches"], cosim_launches=two["cosim_launches"],
+        seconds=t2 - t0)
+
+
+def p47_roundprof(results: dict) -> None:
+    """``roundprof`` at N = 16,384: every row of ``variants`` and of
+    ``suspicion_variants(interpret=False)``, 20 rounds (cut from 100), one
+    run from a fresh state on CUDA events after a 2-round warm-up (the
+    CLI: best of 3 after a full-length one): its route, launches (one
+    of the route's kernel a round, none other), ms a round, and the
+    bandwidth block against the H100's 3,350 GB/s; a lean row also its
+    two-launch twin.  Each row (and twin) then runs 2 rounds on the
+    kernels and on the plain versions from the same state and key: lanes,
+    carry and metrics equal."""
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch import roundprof
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+
+    dev = torch.device("cuda")
+    key = trandom.PRNGKey(0, device="cuda")
+
+    def two_rounds(cfg, plain: bool = False):
+        return run_rounds(init_state(cfg), cfg, 2, key, plain=plain,
+                          crash_rate=roundprof.CRASH_RATE)
+
+    def want_launches(route) -> tuple[dict, dict]:
+        loop, form = route
+        if loop == "lean":
+            return {"resident_round": RP_ROUNDS}, {form: RP_ROUNDS}
+        return {form: RP_ROUNDS}, {}
+
+    rows = {}
+    t0 = time.perf_counter()
+    tables = (roundprof.variants(N_MAIN),
+              roundprof.suspicion_variants(N_MAIN, interpret=False))
+    for table in tables:
+        for name, cfg in table.items():
+            t1 = time.perf_counter()
+            row = roundprof.profile_row(name, cfg, RP_ROUNDS, dev, "gpu",
+                                        reps=1, warm=2)
+            parts = [row] + ([row["two_launch"]] if "two_launch" in row
+                             else [])
+            cfgs = [cfg] + ([dataclasses.replace(cfg, rr_resident="off")]
+                            if "two_launch" in row else [])
+            # a lean row and its two-launch twin share one plain run,
+            # held on the card and compared there
+            plain = two_rounds(cfg, plain=True)
+            for part, c in zip(parts, cfgs):
+                launches, forms = want_launches(part["route"])
+                eq = runs_equal(two_rounds(c), plain)
+                log(f"  {name}{' off' if part is not row else ''}: route "
+                    f"{'/'.join(part['route'])}, launches "
+                    f"{part['launches']} {part['forms']}, "
+                    f"{part['ms_per_round']:.4f} ms a round, "
+                    f"{part['achieved_gb_per_s']:.1f} GB/s of "
+                    f"{part['modeled_bytes_per_round'] / 1e9:.3f} GB = "
+                    f"{part['pct_of_peak_hbm']:.2f} % of "
+                    f"{roundprof.HBM_PEAK_GBS:.0f} GB/s (floor ceiling "
+                    f"{part['floor_implied_ceiling_rounds_per_sec']:.1f} "
+                    f"rounds/s); 2 rounds kernels == plain: {eq}; "
+                    f"{time.perf_counter() - t1:.1f} s")
+                if (part["launches"] != launches or part["forms"] != forms
+                        or not eq):
+                    raise AssertionError(f"roundprof {name}: {part}")
+            rows[name] = row
+            del plain
+    results["roundprof"] = dict(rows=rows, seconds=time.perf_counter() - t0)
+
+
+def p47_soak(results: dict) -> None:
+    """The soak cut: int8 and int16 against int32 at N = 4,096, 2 chunks
+    of 1,000 rounds on K2: PASS, one K2 launch a round."""
+    from gossipfs_tpu_torch import soak_hb16
+    from gossipfs_tpu_torch.ops import merge
+
+    before = merge.launch_snapshot()
+    t0 = time.perf_counter()
+    doc = soak_hb16.main(["--n", str(N_SOAK), "--chunks", str(SOAK_CHUNKS),
+                          "--chunk-rounds", str(SOAK_ROUNDS)])
+    seconds = time.perf_counter() - t0
+    launches, _ = merge.launches_since(before)
+    rounds = SOAK_CHUNKS * SOAK_ROUNDS
+    log(f"  soak N={N_SOAK}, {SOAK_CHUNKS} x {SOAK_ROUNDS} rounds: "
+        f"{'PASS' if doc['ok'] else 'FAIL'} in {seconds:.1f} s; launches "
+        f"{launches}; largest counter {doc['max_true_hb']}: the int8 "
+        f"window (126 rounds) crossed ~{doc['max_true_hb'] // 126} times, "
+        "the int16 window (16,384 rounds) not crossed")
+    if not doc["ok"] or launches != {"fused_merge_update": 3 * rounds}:
+        raise AssertionError(f"soak: {doc} {launches}")
+    results["soak"] = dict(seconds=seconds, launches=launches,
+                           mode_seconds=doc["seconds"],
+                           store_base=doc["store_base"])
+
+
+def p47_checkpoint(results: dict) -> None:
+    """Checkpoint/resume on the card: the headline (lean, K3) and config 3
+    (K2), 1 % crash churn; saved at round 10, restored, 10 more rounds ==
+    the uninterrupted 20 (lanes, 0 entries differ); restored into another
+    hb_dtype (headline int16, config 3 int32), 10 more: status, age,
+    alive, live MEMBER true counters and detections equal; then restored
+    onto 2 rank processes and resumed: the gathered run == the resumed
+    run in this process."""
+    import tempfile
+
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.config import SimConfig
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import MEMBER, init_state
+    from gossipfs_tpu_torch.models import presets
+    from gossipfs_tpu_torch.parallel import distributed
+    from gossipfs_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    key = trandom.PRNGKey(SEED, device="cuda")
+    kw = dict(crash_rate=0.01)
+    cases = (("headline", SimConfig.headline(N_MAIN), "int16"),
+             ("config 3", presets.ALL["sim-10k-crash"].config, "int32"))
+
+    def lanes_diff(a, b) -> int:
+        return sum(count_diff(x, y)[0] for x, y in
+                   ((a.hb, b.hb), (a.asl, b.asl), (a.alive, b.alive),
+                    (a.hb_base, b.hb_base))) + int(a.round != b.round)
+
+    def cross_diff(a, ac, am, b, bc, bm) -> int:
+        """The soak's criteria: status, age, alive, live MEMBER true
+        counters, first_detect, converged and the detection counts."""
+        live = a.alive[:, None] & ((a.asl & 3) == MEMBER)
+        ta = a.hb.to(torch.int32) + a.hb_base[None, :]
+        tb = b.hb.to(torch.int32) + b.hb_base[None, :]
+        d = int((live & (ta != tb)).sum())
+        d += int(((a.asl & 3) != (b.asl & 3)).sum())
+        d += int((a.age != b.age).sum()) + int((a.alive != b.alive).sum())
+        d += int((ac.first_detect != bc.first_detect).sum())
+        d += int((ac.converged != bc.converged).sum())
+        for f in ("true_detections", "false_positives"):
+            d += int((getattr(am, f) != getattr(bm, f)).sum())
+        return d
+
+    jobs, want = [], []
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=distributed.BUILD_DIR)
+    t0 = time.perf_counter()
+    try:
+        for label, cfg, other in cases:
+            full = run_rounds(init_state(cfg), cfg, 20, key, **kw)[0]
+            half = run_rounds(init_state(cfg), cfg, 10, key, **kw)[0]
+            path = f"{tmp}/{label.replace(' ', '')}"
+            t1 = time.perf_counter()
+            save_checkpoint(path, half, key)
+            st, rk = restore_checkpoint(path, cfg)
+            io_s = time.perf_counter() - t1
+            del half
+            res = run_rounds(st, cfg, 10, rk, **kw)
+            d = lanes_diff(full, res[0])
+            log(f"  checkpoint {label} (N={cfg.n}, hb {cfg.hb_dtype}): "
+                f"saved at round 10, restored ({io_s:.2f} s with the "
+                f"save), 10 more rounds == the uninterrupted 20: {d} "
+                "entries differ")
+            del full
+            cfg2 = dataclasses.replace(cfg, hb_dtype=other)
+            st2, rk2 = restore_checkpoint(path, cfg2)
+            res2 = run_rounds(st2, cfg2, 10, rk2, **kw)
+            d2 = cross_diff(*res, *res2)
+            log(f"  checkpoint {label} restored into hb {other}, 10 more "
+                f"rounds: status, age, alive, live MEMBER counters and "
+                f"detections == the {cfg.hb_dtype} resume: {d2} entries "
+                "differ")
+            if d or d2:
+                raise AssertionError(f"checkpoint {label}: {d} / {d2}")
+            want.append(run_digest(*res))
+            jobs.append(dict(config=cfg, rounds=10, restore=path, **kw))
+            del res, res2, st2
+            torch.cuda.empty_cache()
+        ranks = distributed.launch(shard_ranks, 2, (jobs,), timeout=600)
+        for (label, _, _), got, w in zip(cases, ranks[0], want):
+            ok = got["digest"] == w
+            log(f"  checkpoint {label} restored onto 2 ranks ([N x "
+                f"{got['nloc']}] blocks, route {got['route']}), 10 rounds: "
+                f"gathered lanes, carry and metrics == the resume in this "
+                f"process: {ok}; launches {got['launches']}")
+            if not ok:
+                raise AssertionError(f"checkpoint {label} over ranks")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["checkpoint"] = dict(seconds=time.perf_counter() - t0)
+
+
+def p47_profiler(results: dict) -> None:
+    """The profiler seam: ``utils.profiling.trace`` around 10 headline
+    rounds (its top device rows name K3's kernel; K3's row count equals
+    ``ops/merge``'s launch count), ``time_rounds`` beside
+    ``bench.timed_run``'s rate, ``python -m gossipfs_tpu_torch.bench
+    --xprof DIR`` and ``sweep_merge --hb-dtype int8 --elementwise lanes
+    swar``."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gossipfs_tpu_torch import bench, sweep_merge
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.ops import merge
+    from gossipfs_tpu_torch.parallel import distributed
+    from gossipfs_tpu_torch.utils import profiling
+
+    cfg = bench.headline_config(N_MAIN, False)
+    tmp = tempfile.mkdtemp(prefix="prof-", dir=distributed.BUILD_DIR)
+    out = {}
+    try:
+        bench.timed_run(cfg, 10)
+        before = merge.launch_snapshot()
+        with profiling.trace(f"{tmp}/trace"):
+            bench.timed_run(cfg, 10)
+        launches, forms = merge.launches_since(before)
+        rows = profiling.op_breakdown(f"{tmp}/trace", top=8)
+        for r in rows:
+            log(f"  profiler: {r['total_ms']:9.3f} ms x{r['count']:<4d} "
+                f"[{k_name(r['name']) or 'torch'}] {r['name'][:110]}")
+        k3 = sum(r["count"] for r in rows
+                 if (k_name(r["name"]) or "").startswith("K3"))
+        log(f"  profiler: K3 rows count {k3} launches; ops/merge counted "
+            f"{launches} {forms}")
+        if (not rows or not (k_name(rows[0]["name"]) or "").startswith("K3")
+                or k3 != launches.get("resident_round")):
+            raise AssertionError(f"profiler rows {rows} != {launches}")
+        out["top"] = [[k_name(r["name"]), r["total_ms"], r["count"]]
+                      for r in rows[:3]]
+        tr = profiling.time_rounds(None, cfg, trandom.PRNGKey(0,
+                                                              device="cuda"),
+                                   short=10, long=50, crash_rate=0.01)
+        sec, _ = bench.timed_run(cfg, 50)
+        out.update(time_rounds_rps=tr["rounds_per_sec"],
+                   timed_run_rps=50 / sec)
+        log(f"  time_rounds (slope of 10 and 50 rounds, host clock): "
+            f"{tr['rounds_per_sec']:.1f} rounds/s, fixed cost "
+            f"{tr['dispatch_overhead_s'] * 1e3:.3f} ms a call; "
+            f"bench.timed_run (50 rounds, CUDA events): {50 / sec:.1f} "
+            "rounds/s")
+        doc = quiet_main(bench.main, ["--rounds", "20", "--attempts", "2",
+                                      "--xprof", f"{tmp}/xprof"])
+        log(f"  bench --xprof: {doc['value']:.1f} rounds/s, xprof "
+            f"{doc['xprof']}, top "
+            f"{[(k_name(r['name']), r['total_ms'], r['count']) for r in doc['xprof_top'][:3]]}")
+        if not doc["xprof_top"] or not (
+                k_name(doc["xprof_top"][0]["name"]) or "").startswith("K3"):
+            raise AssertionError(f"bench --xprof: {doc['xprof_top']}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = sweep_merge.main(["--hb-dtype", "int8", "--elementwise",
+                                    "lanes", "swar"])
+        for line in buf.getvalue().strip().splitlines():
+            log(f"  sweep_merge: {line}")
+        if len(res) != 2:
+            raise AssertionError("sweep_merge: a row failed")
+        out["sweep"] = {tag: rps for rps, tag in res}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["profiler"] = out
+
+
+def phase_bench_tail(results: dict) -> None:
+    results["p47"] = {}
+    t0 = time.perf_counter()
+    for name, fn in (("kernels", p47_kernels), ("config5", p47_config5),
+                     ("roundprof", p47_roundprof), ("soak", p47_soak),
+                     ("checkpoint", p47_checkpoint),
+                     ("profiler", p47_profiler)):
+        t1 = time.perf_counter()
+        fn(results)
+        results["p47"][name] = time.perf_counter() - t1
+        log(f"  47 {name} in {results['p47'][name]:.2f} s")
+    results["p47"]["seconds"] = time.perf_counter() - t0
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -5332,6 +5833,23 @@ def main_path_summary(results: dict) -> dict:
                          sh["wire_ops"]["repair"][
                              "bytes_identical_after_repair"]},
         "seconds": sh["seconds"]}
+    # the bench and utils tail (phase 47): config 5 over 2 ranks beside
+    # its one-process run, roundprof's rows (ms a round; a lean row's
+    # two-launch twin beside), the soak cut's seconds, the profiler's top
+    # rows and its two rates
+    c5 = results["c5_ranks"]
+    out["47 config5 ranks"] = {
+        k: c5[k] for k in ("n", "rounds_per_s", "cosim_rounds_per_s",
+                           "one_rounds_per_s", "one_cosim_rounds_per_s",
+                           "peak_gib", "launches", "cosim_launches")}
+    out["47 roundprof"] = {
+        name: ([r["ms_per_round"], r["two_launch"]["ms_per_round"]]
+               if "two_launch" in r else r["ms_per_round"])
+        for name, r in results["roundprof"]["rows"].items()}
+    out["47 soak"] = {"seconds": results["soak"]["seconds"],
+                      "launches": results["soak"]["launches"]}
+    out["47 profiler"] = results["profiler"]
+    out["47"] = {"seconds": results["p47"]["seconds"]}
     return out
 
 
@@ -5392,6 +5910,68 @@ def shim_kernel_rows(results: dict, src: str, mp: str) -> list:
     ]
 
 
+# main-path entries printed on the details line before the kernels line
+# (each path's "off" twin, phases 43-46's per-part documents)
+DETAIL_KEYS = ("43 curves", "44 conformance", "44 t_fail", "44 suspicion",
+               "44 scenarios", "44 entry", "45 scale", "45 lanes",
+               "45 campaign", "45 codec", "47 roundprof")
+
+
+def split_details(out: dict) -> tuple[dict, dict]:
+    """The main-paths summary split in two: (the paths' rates and
+    launches, the details).  The shim's and each "off" twin's documents
+    go to the details, a short form of the shim's stays."""
+    details = {k: v for k, v in out.items()
+               if k in DETAIL_KEYS or k.endswith(" off") or k == "shim"}
+    paths = {k: v for k, v in out.items() if k not in details}
+    sh = out["shim"]
+    paths["shim"] = {k: sh[k] for k in ("n", "advance_ms", "rounds",
+                                        "launches", "seconds")}
+    return paths, details
+
+
+def compact_json(doc) -> str:
+    """One JSON line with no spaces and floats to 5 significant digits."""
+    def fix(x):
+        if isinstance(x, float):
+            return float(f"{x:.5g}")
+        if isinstance(x, dict):
+            return {k: fix(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [fix(v) for v in x]
+        return x
+
+    return json.dumps(fix(doc), separators=(",", ":"))
+
+
+def tail_kernel_rows(results: dict, src: str, mp: str) -> list:
+    """Phase 47's rows: K2 over config 5's [16,384 x 8,192] rank block
+    (rank 0's launches: its detector's and its co-sim's), at the soak's
+    N = 4,096 and roundprof's N = 16,384, K4 at roundprof's arc rows (the
+    launches of the rows the route sends to each)."""
+    c5 = results["c5_ranks"]
+    rows = results["roundprof"]["rows"].values()
+
+    def rp(kernel: str) -> int:
+        return sum(r["launches"].get(kernel, 0) for r in rows)
+
+    k2 = src + "fused_merge.cu"
+    return [
+        shard_line("fused_merge_update[config 5 over 2 ranks]", k2,
+                   mp + "387", c5["launches"]["fused_merge_update"]
+                   + c5["cosim_launches"]["fused_merge_update"],
+                   results["k2_c5_ranks"]),
+        shard_line("fused_merge_update[soak]", k2, mp + "387",
+                   results["soak"]["launches"]["fused_merge_update"],
+                   results["k2_soak"]),
+        shard_line("fused_merge_update[roundprof]", k2, mp + "387",
+                   rp("fused_merge_update"), results["k2_roundprof"]),
+        shard_line("arc_merge_update[roundprof]", src + "arc_merge.cu",
+                   mp + "1248", rp("arc_merge_update"),
+                   results["k4_roundprof"]),
+    ]
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int,
                 r: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -5431,8 +6011,9 @@ def main() -> int:
     results: dict = {}
     log(f"[3] resident_round kernel vs plain, one round, N={N_MAIN}")
     phase_kernel_vs_plain(N_MAIN, results)
-    log(f"[4] run_rounds kernel vs plain, 20 rounds, N={N_MAIN}")
-    phase_scan_vs_plain(20)
+    scan = scan_rounds()
+    log(f"[4] run_rounds kernel vs plain, {scan} rounds, N={N_MAIN}")
+    phase_scan_vs_plain(scan)
     log(f"[5] main path: headline, N={N_MAIN}, 100 rounds")
     phase_main_path(results)
     log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds")
@@ -5441,14 +6022,15 @@ def main() -> int:
     phase_k2(results)
     log(f"[8] K4 arc_merge_update vs plain, N={N_MAIN}")
     phase_k4(results)
-    log("[9] separate-pass run_rounds, kernels vs plain, 20 rounds")
-    phase_general_scan_vs_plain(20)
-    phase_flagship_step_vs_plain(20)
+    log(f"[9] separate-pass run_rounds, kernels vs plain, {scan} "
+        "rounds")
+    phase_general_scan_vs_plain(scan)
+    phase_flagship_step_vs_plain(scan)
     log("[10] main path: config 3 sim-10k-crash, N=10240, 120 rounds")
     phase_config3_main(results)
     log(f"[11] eventful arc path: headline N={N_MAIN}, 1% crash, 1% rejoin, "
-        "100 rounds")
-    phase_eventful_arc(results, 100)
+        f"{EVENTFUL_ROUNDS} rounds")
+    phase_eventful_arc(results, EVENTFUL_ROUNDS)
     log(f"[12] capacity, config 4 fault model: N={N_CAPACITY}, 10 rounds")
     phase_config4_capacity(10, results)
     log(f"[13] K3 suspicion + Lifeguard form vs plain, one round, "
@@ -5457,22 +6039,23 @@ def main() -> int:
     log("[14] suspect forms of K2 and K4, and K5 stripe_merge_update, vs "
         "plain")
     phase_suspect_merges(results)
-    log("[15] suspicion run_rounds, kernels vs plain, 20 rounds")
-    phase_suspicion_scans(20)
+    log(f"[15] suspicion run_rounds, kernels vs plain, {scan} rounds")
+    phase_suspicion_scans(scan)
     log(f"[16] main path A: bench --suspicion headline, N={N_MAIN}, 100 "
         "rounds")
     phase_suspicion_main(results)
     log(f"[17] main path B: suspicion_rr, N={N_MAIN}, 1% crash, 1% rejoin, "
-        "100 rounds")
-    phase_suspicion_rr_main(results, 100)
+        f"{EVENTFUL_ROUNDS} rounds")
+    phase_suspicion_rr_main(results, EVENTFUL_ROUNDS)
     log(f"[18] K1 fanout_max_merge vs plain, N={N_MAIN} and ragged")
     phase_k1(results)
     log(f"[19] K3 explicit-edge and plain-arc forms vs plain, one round, "
         f"N={N_MAIN}")
     phase_k3_forms(N_MAIN, results)
-    log("[20] lean run_rounds, kernel vs plain, 20 rounds: packed_rr, "
+    log(f"[20] lean run_rounds, kernel vs plain, {scan} rounds: "
+        "packed_rr, "
         "suspicion_rr (lh off, on), plain arcs, headline(arc_align=4)")
-    phase_lean_scans(20, results)
+    phase_lean_scans(scan, results)
     log(f"[21] main path C: packed_rr, N={N_MAIN}, 1% crash, 8 tracked "
         "crashes, 100 rounds")
     phase_packed_main(results)
@@ -5502,15 +6085,16 @@ def main() -> int:
     log(f"[30] K3 SWAR form vs SWAR plain and vs the lanes kernel, one "
         f"round, N={N_MAIN}, 5 forms x 3 modes")
     phase_k3_swar(N_MAIN, results)
-    log("[31] lean run_rounds with elementwise='swar', 20 rounds: SWAR "
+    log(f"[31] lean run_rounds with elementwise='swar', {scan} "
+        "rounds: SWAR "
         "kernel vs SWAR plain vs lanes kernel")
-    phase_swar_scans(20, results)
+    phase_swar_scans(scan, results)
     log(f"[32] main paths E and E': headline and suspicion headline with "
         f"elementwise='swar', N={N_MAIN}, 100 rounds")
     phase_swar_main(results)
     log(f"[33] separate-pass round with elementwise='swar': eventful "
-        f"headline N={N_MAIN}, 1% crash, 1% rejoin, 20 rounds")
-    phase_swar_separate(results, 20)
+        f"headline N={N_MAIN}, 1% crash, 1% rejoin, {scan} rounds")
+    phase_swar_separate(results, scan)
     log(f"[34] capacity frontier, SWAR form: python -m "
         f"gossipfs_tpu_torch.frontier --elementwise swar (N={N_CAPACITY}, "
         "20 rounds)")
@@ -5556,7 +6140,8 @@ def main() -> int:
     phase_runners(results)
     log(f"  phase 44 in {results['runners']['seconds']:.2f} s")
     log(f"[45] the SDFS plane: K2 at its shapes, config 5 sim-100k-sdfs "
-        f"(N={N_CONFIG5}, 1,000 files, 24 rounds; N=4096 kernel vs plain), "
+        f"(N={N_CONFIG5}, 1,000 files, {C5_ROUNDS} rounds; N=4096 kernel vs "
+        "plain), "
         "the planner's scale lane (N=100000), the co-sim lane and the "
         "erasure matrix (n=64), the traffic case, the codec")
     phase_sdfs(results)
@@ -5567,6 +6152,13 @@ def main() -> int:
         "(local and rpc election, --packed), K2 at its shapes, wire_ops")
     phase_shim(results)
     log(f"  phase 46 in {results['shim']['seconds']:.2f} s")
+    log(f"[47] the bench and utils tail: K2 and K4 at their shapes, config 5 "
+        f"over 2 rank processes (N={N_MAIN}), roundprof (N={N_MAIN}, "
+        f"{RP_ROUNDS} rounds a row), the soak cut (N={N_SOAK}, "
+        f"{SOAK_CHUNKS} x {SOAK_ROUNDS} rounds), checkpoint/resume, the "
+        "profiler seam")
+    phase_bench_tail(results)
+    log(f"  phase 47 in {results['p47']['seconds']:.2f} s")
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
@@ -5671,7 +6263,11 @@ def main() -> int:
                     src + "resident_round.cu", mp + "2611",
                     swar_launches[form], swar[(form, SWAR_ROW_MODE[form])])
         for form in SWAR_ROW_MODE]
-    print(json.dumps({"kernels": swar_rows + [
+    # the paths' detail first; the kernels line, the main paths, the card
+    # and the device line last, within the last 24,000 bytes of output
+    paths, details = split_details(main_path_summary(results))
+    print(compact_json({"phase_details": details}))
+    print(compact_json({"kernels": swar_rows + [
         # K3's two-launch form, each merge form with the launches of the
         # rr_resident="off" run of the main path that runs it (phases 16,
         # 5, 21, 27); the plain-arc and filter_rows forms are on no main
@@ -5710,10 +6306,9 @@ def main() -> int:
         kernel_line("fanout_max_merge", src + "fanout_max.cu", mp + "146",
                     results["main_c"]["fanout_max_launches"], results["k1"]),
     ] + sdfs_kernel_rows(results, src, mp) + shim_kernel_rows(
-        results, src, mp)}, separators=(",", ":")))
+        results, src, mp) + tail_kernel_rows(results, src, mp)}))
     # after the kernels line, so that it ends within the last 24,000 bytes
-    print(json.dumps({"main_paths": main_path_summary(results)},
-                     separators=(",", ":")))
+    print(compact_json({"main_paths": paths}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

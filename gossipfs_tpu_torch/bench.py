@@ -18,6 +18,7 @@ choice.
     python -m gossipfs_tpu_torch.bench [--n N] [--rounds R] [--attempts A]
                                        [--suspicion] [--elementwise swar]
                                        [--trace PATH] [--monitor]
+                                       [--xprof DIR]
 
 ``--trace PATH`` writes the last attempt's flight-recorder event stream
 (``obs/``; analyze it with ``python -m gossipfs_tpu_torch.obs.timeline``)
@@ -25,6 +26,10 @@ and ``--monitor`` streams the same decoded events through the invariant
 monitor, stamps its verdict into the JSON and exits 1 on a violation.
 Both decode the outputs after the attempts, off the timed window: the
 rounds and their kernel launches are the same with or without them.
+``--xprof DIR`` profiles one extra run after the attempts
+(``obs/profile.py``: ``torch.profiler``, a Chrome trace in DIR) and names
+DIR and its top device events in the JSON; the sampled rates never see
+the profiler.
 
 Prints one JSON line.  Runs on the card; ``--device cpu`` runs the plain
 versions on the CPU (a host-clock time, not a device one).
@@ -146,6 +151,11 @@ def main(argv=None) -> dict:
                          "through the invariant monitor (obs/monitor.py), "
                          "stamp its verdict into the JSON, exit 1 on a "
                          "violation")
+    ap.add_argument("--xprof", type=str, default=None, metavar="DIR",
+                    help="profile ONE extra run after the attempts "
+                         "(obs/profile.py, torch.profiler); a Chrome "
+                         "trace in DIR, reduced by utils/profiling."
+                         "op_breakdown")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     dev = args.device
@@ -167,6 +177,15 @@ def main(argv=None) -> dict:
     median = statistics.median(rates)
     device = torch.cuda.get_device_name(dev) if on_card else "cpu"
     obs = decode_last(out, cfg, args.trace, args.monitor)
+    if args.xprof:
+        # one extra run under the profiler, after the sampled attempts
+        # (their launch counts are read above)
+        from gossipfs_tpu_torch.obs.profile import maybe_xprof, xprof_summary
+
+        with maybe_xprof(args.xprof):
+            timed_run(cfg, args.rounds, device=dev)
+        obs["xprof"] = args.xprof
+        obs["xprof_top"] = xprof_summary(args.xprof, top=5)
     doc = {
         "metric": (f"simulated gossip rounds/sec, N={args.n}, fanout=16 "
                    f"tile-aligned arc, 1% crash churn{sus} ({device})"),

@@ -7,7 +7,8 @@ fault scenarios (``driver.FAMILIES``), uses the streaming invariant
 monitor (``obs/monitor.py``) as the per-run oracle, sweeps or BISECTS the
 severity axis to the knee where an invariant breaks, and replays
 committed regression CASE files (``driver.run_case``).  The socket-engine
-runners (``engines.py``) are not ported yet (ROADMAP Queue 1, item 9).
+runners (``engines.py``) are not ported yet (ROADMAP Queue 1, the socket
+engines).
 """
 
 from gossipfs_tpu_torch.campaigns.driver import (

@@ -14,8 +14,8 @@ step-for-step reference prediction:
   * :mod:`verdict`: the per-(schedule, engine) conformance matrix;
   * :mod:`shrink`: greedy delta-debugging for failing schedules.
 
-The udp and native columns wait for the socket engines (ROADMAP Queue 1
-item 9).
+The udp and native columns wait for ROADMAP Queue 1, the socket
+engines.
 """
 
 from gossipfs_tpu_torch.conformance.schedules import (  # noqa: F401

@@ -17,7 +17,7 @@ The port of the JAX package's ``conformance/harness.py``.  One
 
 The socket columns (``udp``: the asyncio engine, ``native``: the C++
 epoll engine) drive engines the port does not carry yet; their runners
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 9).
+raise ``NotImplementedError`` (ROADMAP Queue 1, the socket engines).
 
 Every column returns the same *bundle* shape::
 
@@ -614,8 +614,8 @@ def run_case_tensor(case: dict, device="cuda") -> dict:
 def _socket_column(engine: str):
     raise NotImplementedError(
         f"the {engine} conformance column drives a socket engine the port "
-        "does not carry yet (ROADMAP Queue 1 item 9); run the reference "
-        "and tensor columns")
+        "does not carry yet (ROADMAP Queue 1, the socket engines); run "
+        "the reference and tensor columns")
 
 
 def run_case_udp(case: dict, **kw) -> dict:

@@ -7,7 +7,7 @@ case; ``run_matrix()`` sweeps a corpus x engine grid and aggregates
 The port runs two columns: the oracle (whose self-check row runs for
 every case) and ``tensor`` (the port's ``SimDetector`` on ``device``).
 Naming ``udp`` or ``native`` raises: those columns drive socket engines
-the port does not carry yet (ROADMAP Queue 1 item 9).
+the port does not carry yet (ROADMAP Queue 1, the socket engines).
 
 What is compared (and, as deliberately, what is not):
 
@@ -37,7 +37,7 @@ from __future__ import annotations
 from gossipfs_tpu_torch.conformance import harness, schedules
 
 #: the columns the port runs (the socket columns wait for ROADMAP
-#: Queue 1 item 9)
+#: Queue 1, the socket engines)
 PORTED = ("reference", "tensor")
 
 
@@ -162,8 +162,8 @@ def _require_ported(engines) -> None:
     if missing:
         raise NotImplementedError(
             f"conformance columns {missing} drive socket engines the port "
-            "does not carry yet (ROADMAP Queue 1 item 9); the port runs "
-            f"{list(PORTED)}")
+            "does not carry yet (ROADMAP Queue 1, the socket engines); the "
+            f"port runs {list(PORTED)}")
 
 
 def run_case(case: dict, engines=None, device="cuda") -> list[dict]:

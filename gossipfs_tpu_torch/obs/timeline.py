@@ -19,9 +19,11 @@ both on one fresh run of the port and compares them.
 
 Streams carrying traffic-plane rows (``replica_put`` / ``client_op``)
 also get the event-replayed durability accounting (``traffic/audit.py``)
-and a client-op latency rollup.  The profile-artifact summary of the JAX
-tool (``ROUNDPROF_*.jsonl``) waits for the port's ``bench/roundprof``
-(ROADMAP Queue 1, item 8).
+and a client-op latency rollup.  A profile artifact
+(``ROUNDPROF_*.jsonl``: ``python -m gossipfs_tpu_torch.roundprof``, or the
+JAX package's ``bench/roundprof``) gets its own summary
+(:func:`summarize_roundprof`): its header, its row count and its fastest
+row.
 """
 
 from __future__ import annotations
@@ -199,6 +201,26 @@ def render_timeline(events: list[Event], subject: int) -> list[str]:
     return out
 
 
+def summarize_roundprof(path: str) -> dict:
+    """A roundprof artifact's header (its schema, shape and backend), its
+    row count and its fastest row (least ``ms_per_round``)."""
+    rows = []
+    header = None
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            if schema.is_header(rec):
+                header = rec
+            elif "ms_per_round" in rec:
+                rows.append(rec)
+    best = min(rows, key=lambda r: r["ms_per_round"]) if rows else None
+    return {"schema": (header or {}).get("schema"), "rows": len(rows),
+            "header": header, "fastest": best}
+
+
 def selfcheck(n: int = 1024, rounds: int = 60, seed: int = 0,
               trace_path: str | None = None, monitor: bool = False,
               device="cuda") -> dict:
@@ -363,6 +385,13 @@ def main(argv=None) -> int:
 
     if not args.paths:
         p.error("give at least one stream path (or --selfcheck)")
+
+    # roundprof artifacts get their own summary
+    first_head, _ = load_stream(args.paths[0])
+    if first_head and first_head.get("schema") == schema.ROUNDPROF_SCHEMA:
+        for path in args.paths:
+            print(json.dumps({"path": path, **summarize_roundprof(path)}))
+        return 0
 
     headers, events = merge(args.paths)
     doc = analyze(headers, events)

@@ -66,7 +66,7 @@ def shard_state(state: SimState, ctx: ShardCtx) -> SimState:
                     hb_base=state.hb_base[sl].contiguous())
 
 
-def _gather_cols(t: torch.Tensor, ctx: ShardCtx):
+def gather_cols(t: torch.Tensor, ctx: ShardCtx):
     """Rank 0: the ranks' blocks of ``t`` joined along the last axis, on
     the host; other ranks: None."""
     if ctx.group is None:
@@ -91,7 +91,7 @@ def _gather_cols(t: torch.Tensor, ctx: ShardCtx):
 def gather_state(state: SimState, ctx: ShardCtx) -> SimState | None:
     """The whole state on rank 0's host (None elsewhere); every rank
     calls it."""
-    hb, asl, base = (_gather_cols(t, ctx)
+    hb, asl, base = (gather_cols(t, ctx)
                      for t in (state.hb, state.asl, state.hb_base))
     if hb is None:
         return None
@@ -101,7 +101,7 @@ def gather_state(state: SimState, ctx: ShardCtx) -> SimState | None:
 
 def gather_carry(carry: MetricsCarry, ctx: ShardCtx) -> MetricsCarry | None:
     """The whole carry on rank 0's host (None elsewhere)."""
-    parts = [_gather_cols(t, ctx) for t in carry]
+    parts = [gather_cols(t, ctx) for t in carry]
     return None if parts[0] is None else MetricsCarry(*parts)
 
 
@@ -159,8 +159,13 @@ def run_job(rank: int, world: int, device, job: dict) -> dict:
     ``job``: ``config``, ``rounds``, ``seed`` (the threefry key), and
     optionally ``events``, ``crash_rate``, ``rejoin_rate``, ``churn_ok``,
     ``crash_only_events``, ``scenario`` (host tensors, whole), ``warm``
-    (one untimed run first).  Each rank builds its block in place
-    (``init_shard``) and runs :func:`run_rounds_sharded`.  Returns the
+    (one untimed run first), ``restore`` (a checkpoint directory: each
+    rank resumes its block and the key from it, ``utils/checkpoint``, in
+    place of ``seed``), ``save`` (a directory: rank 0 checkpoints the
+    run's final state, gathered once, and key there).  Each rank builds its
+    block in place
+    (``init_shard``, or the checkpoint's columns) and runs
+    :func:`run_rounds_sharded`.  Returns the
     rank's route, launch counts, host seconds of the timed run, the
     collectives' count and seconds, and peak device memory; rank 0 adds
     the gathered ``state`` and ``carry`` and the ``metrics``, on the
@@ -176,11 +181,21 @@ def run_job(rank: int, world: int, device, job: dict) -> dict:
               churn_ok=_to_device(job.get("churn_ok"), device),
               crash_only_events=job.get("crash_only_events", False),
               scenario=_to_device(job.get("scenario"), device))
-    key = trandom.PRNGKey(job["seed"], device=device)
+    ckpt = job.get("restore")
     cuda = device.type == "cuda"
+    key = None
+
+    def start():
+        if ckpt is None:
+            return (init_shard(cfg, ctx, device=device),
+                    trandom.PRNGKey(job["seed"], device=device))
+        from gossipfs_tpu_torch.utils.checkpoint import restore_checkpoint
+
+        return restore_checkpoint(ckpt, cfg, ctx, device=device)
 
     def run():
-        state = init_shard(cfg, ctx, device=device)
+        nonlocal key
+        state, key = start()
         if cuda:
             torch.cuda.synchronize(device)
         if ctx.group is not None:
@@ -212,6 +227,10 @@ def run_job(rank: int, world: int, device, job: dict) -> dict:
                           else None)}
     full = gather_state(state, ctx)
     full_carry = gather_carry(carry, ctx)
+    if full is not None and job.get("save"):
+        from gossipfs_tpu_torch.utils.checkpoint import save_checkpoint
+
+        save_checkpoint(job["save"], full, key)
     if full is not None:
         res.update(state=full, carry=full_carry,
                    metrics=rounds.RoundMetrics(*(m.cpu() for m in metrics)))

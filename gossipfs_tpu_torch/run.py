@@ -26,8 +26,9 @@ in the JAX package.  ``sim-100k`` at N = 131,072 does not fit one card: cut
 it with ``--n`` or shard it with ``--devices``.  Config 5
 (``sim-100k-sdfs``) adds the SDFS co-simulation (:func:`run_cosim`):
 after the detector's timed run, the SDFS control plane consumes the
-master's membership row every 8 rounds, in one process (with
-``--devices K`` it raises).
+master's membership row every 8 rounds; with ``--devices K`` its chunks
+run on the ranks too (:func:`run_cosim_job`), the control plane on
+rank 0.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gossipfs_tpu_torch import random as trandom
 from gossipfs_tpu_torch.bench import timed_run, tracked_crash_events
@@ -60,23 +62,105 @@ def _sharded_run(cfg: SimConfig, rounds: int, seed: int, events, sc,
     (``parallel.mesh.run_job``: a warm-up run, then a timed one, each from
     a fresh block, host clock ending in a device synchronize).  Returns
     rank 0's gathered (state, MetricsCarry, RoundMetrics, seconds, its
-    timed run's kernel launches) on the host."""
+    timed run's kernel launches) on the host, and for config 5 the ranks'
+    co-simulation results (:func:`run_cosim_job`, in the same launch;
+    None for the other scenarios)."""
     from gossipfs_tpu_torch.parallel import distributed, mesh
 
     job = dict(config=cfg, rounds=rounds, seed=seed, events=events,
                crash_rate=sc.crash_rate, rejoin_rate=sc.rejoin_rate,
                churn_ok=churn_ok, crash_only_events=True, warm=True)
     threads = max(1, (os.cpu_count() or 1) // devices)
-    head = distributed.launch(mesh.run_job, devices, (job,),
-                              timeout=RANK_TIMEOUT, device=device,
-                              threads=threads)[0]
+    kw = dict(timeout=RANK_TIMEOUT, device=device, threads=threads)
+    cosim = None
+    if sc.sdfs_cosim:
+        cosim_job = dict(scenario=sc, config=cfg, rounds=rounds, seed=seed)
+        ranks = distributed.launch(config5_ranks, devices, (job, cosim_job),
+                                   **kw)
+        heads, cosim = [r[0] for r in ranks], [r[1] for r in ranks]
+        for h, c in zip(heads, cosim):
+            c["detector_peak_bytes"] = h["peak_bytes"]
+    else:
+        heads = distributed.launch(mesh.run_job, devices, (job,), **kw)
+    head = heads[0]
     launches = {k: v for k, v in head["launches"].items() if v}
     return (head["state"], head["carry"], head["metrics"], head["seconds"],
-            launches)
+            launches, cosim)
+
+
+class ControlPlane:
+    """Config 5's SDFS control plane: the cluster with its ``n_files``
+    puts, and its reaction to each chunk's membership (rank 0 holds it in
+    a sharded run).  Shared by :func:`run_cosim` and
+    :func:`run_cosim_job`, so that the two runners react alike."""
+
+    def __init__(self, sc: presets.Scenario, cfg: SimConfig, seed: int):
+        from gossipfs_tpu_torch.sdfs.cluster import SDFSCluster
+
+        self.n_files = sc.n_files
+        self.cluster = SDFSCluster(cfg.n, seed=seed,
+                                   introducer=cfg.introducer)
+        for f in range(sc.n_files):
+            self.cluster.put(f"file{f}.txt", b"payload-%d" % f, now=0)
+        self.repairs = 0
+        self.elections = 0
+        self.alive: list[int] = []
+
+    def observer(self, alive_mask: np.ndarray, now: int) -> int | None:
+        """The node whose MEMBER row this chunk's reaction reads, from the
+        ground-truth ``alive_mask``: -1 when no node answers (no
+        reaction), None when the cluster is empty (stop; the empty
+        membership is fed first, so the closing durability check cannot
+        satisfy quorum against the stores of dead nodes)."""
+        from gossipfs_tpu_torch.cosim import select_observer
+
+        self.alive = np.nonzero(alive_mask)[0].tolist()
+        if not self.alive:
+            self.cluster.update_membership([], reachable=[], now=now)
+            return None
+        observer = select_observer(self.cluster.live, set(self.alive),
+                                   self.cluster.master_node)
+        return -1 if observer is None else observer
+
+    def react(self, row: np.ndarray, now: int) -> None:
+        """Consume the observer's MEMBER row (bool ``[N]``): membership,
+        election, repair planning."""
+        view = np.nonzero(row)[0]
+        old_master = self.cluster.master_node
+        self.cluster.update_membership(view.tolist(), reachable=self.alive,
+                                       now=now)
+        if self.cluster.master_node != old_master:
+            self.elections += 1
+        self.repairs += len(self.cluster.fail_recover())
+
+    def report(self, rounds: int, elapsed: float) -> dict:
+        """The JAX package's ``cosim`` dict; durability is how many files
+        still answer a quorum read at the end."""
+        readable = sum(
+            1 for f in range(self.n_files)
+            if self.cluster.get(f"file{f}.txt") is not None)
+        return {
+            "rounds": rounds,
+            "elapsed_s": round(elapsed, 3),
+            "rounds_per_sec": round(rounds / elapsed, 2) if elapsed else None,
+            "files": self.n_files,
+            "files_readable": readable,
+            "repair_plans": self.repairs,
+            "elections": self.elections,
+            "final_alive": len(self.alive),
+        }
+
+
+def cosim_churn(cfg: SimConfig, device="cuda") -> torch.Tensor:
+    """Config 5's churn mask: random churn spares the introducer (see
+    bench.tracked_crash_events): with it dead no rejoin can ever land and
+    the population decays."""
+    return torch.arange(cfg.n, device=device) != cfg.introducer
 
 
 def run_cosim(sc: presets.Scenario, cfg: SimConfig, rounds: int,
-              seed: int, device="cuda", plain: bool = False) -> dict:
+              seed: int, device="cuda", plain: bool = False,
+              churn_ok: torch.Tensor | None = None) -> dict:
     """Config 5's co-simulation: the SDFS control plane consuming the
     simulated membership, in chunks of ``RECOVERY_DELAY`` rounds (8
     heartbeats, the sleep in Fail_recover, slave.go:1123).  Between
@@ -85,6 +169,10 @@ def run_cosim(sc: presets.Scenario, cfg: SimConfig, rounds: int,
     key for every chunk (its rounds fold in their own indices), the
     ground-truth alive mask and the observer's row read back as one
     packet a chunk, the same reaction and the same report.
+    ``churn_ok`` replaces the churn mask (:func:`cosim_churn`, which
+    spares the introducer, so the cluster never empties): no scenario
+    sets it; it is the one way to reach the empty-cluster stop, which the
+    tests hold against :func:`run_cosim_job`'s.
 
     The JAX runner pipelines: it dispatches chunk k+1 before reacting to
     chunk k, and when the observer changed it refetches that observer's
@@ -95,8 +183,6 @@ def run_cosim(sc: presets.Scenario, cfg: SimConfig, rounds: int,
     the host's reaction is no longer overlapped with the device's next
     chunk.  When the cluster empties, the JAX runner had already
     run the next chunk and counts it: so does this one."""
-    from gossipfs_tpu_torch.cosim import select_observer
-    from gossipfs_tpu_torch.sdfs.cluster import SDFSCluster
     from gossipfs_tpu_torch.sdfs.types import RECOVERY_DELAY
 
     dev = torch.device(device)
@@ -107,13 +193,10 @@ def run_cosim(sc: presets.Scenario, cfg: SimConfig, rounds: int,
         row = (state.asl[observer] & 3) == MEMBER
         return torch.cat([state.alive, row]).cpu().numpy()
 
-    cluster = SDFSCluster(n, seed=seed, introducer=cfg.introducer)
-    for f in range(sc.n_files):
-        cluster.put(f"file{f}.txt", b"payload-%d" % f, now=0)
+    plane = ControlPlane(sc, cfg, seed)
     key = trandom.PRNGKey(seed, device=dev)
-    # random churn spares the introducer (see bench.tracked_crash_events):
-    # with it dead no rejoin can ever land and the population decays
-    churn_ok = torch.arange(n, device=dev) != cfg.introducer
+    churn_ok = (cosim_churn(cfg, dev) if churn_ok is None
+                else churn_ok.to(dev))
     chunk = RECOVERY_DELAY
     n_chunks = max(1, -(-rounds // chunk))
 
@@ -126,70 +209,155 @@ def run_cosim(sc: presets.Scenario, cfg: SimConfig, rounds: int,
     # own (the port's rounds update their lanes in place), then start the
     # run from a fresh one, out of the timed window
     warm = run_chunk(init_state(cfg, device=dev))
-    membership_packet(warm, cluster.master_node)
+    membership_packet(warm, plane.cluster.master_node)
     del warm
     state = init_state(cfg, device=dev)
-    repairs = 0
-    elections = 0
     done = 0
-    alive: list[int] = []
-
-    def react(packet: np.ndarray, now: int, state: SimState) -> bool:
-        """One control-plane reaction off the chunk's packet (its row read
-        for the master); False when the cluster is empty (stop)."""
-        nonlocal repairs, elections, alive
-        alive_mask, row = packet[:n], packet[n:]
-        alive = np.nonzero(alive_mask)[0].tolist()
-        if not alive:
-            # feed the empty membership so the closing durability check
-            # can't satisfy quorum against stores of dead nodes
-            cluster.update_membership([], reachable=[], now=now)
-            return False
-        observer = select_observer(cluster.live, set(alive),
-                                   cluster.master_node)
-        if observer is None:
-            return True
-        if observer != cluster.master_node:
-            # never consume a dead master's frozen view
-            row = membership_packet(state, observer)[n:]
-        view = np.nonzero(row)[0]
-        old_master = cluster.master_node
-        cluster.update_membership(view.tolist(), reachable=alive, now=now)
-        if cluster.master_node != old_master:
-            elections += 1
-        repairs += len(cluster.fail_recover())
-        return True
-
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for i in range(n_chunks):
         state = run_chunk(state)
         done += chunk
-        if not react(membership_packet(state, cluster.master_node), done,
-                     state):
+        fetched_for = plane.cluster.master_node
+        packet = membership_packet(state, fetched_for)
+        observer = plane.observer(packet[:n], done)
+        if observer is None:
             if i + 1 < n_chunks:
                 # the pipelined reference had dispatched the next chunk
                 state = run_chunk(state)
                 done += chunk
             break
+        if observer < 0:
+            continue
+        row = packet[n:]
+        if observer != fetched_for:
+            # never consume a dead master's frozen view
+            row = membership_packet(state, observer)[n:]
+        plane.react(row, done)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    return plane.report(done, time.perf_counter() - t0)
+
+
+def _broadcast(t: torch.Tensor, ctx) -> torch.Tensor:
+    """Rank 0's ``t`` on every rank (through the host under gloo)."""
+    if dist.get_backend(ctx.group) == "gloo":
+        dist.broadcast(t, src=0, group=ctx.group)
+        return t
+    d = t.to(torch.device("cuda", torch.cuda.current_device()))
+    dist.broadcast(d, src=0, group=ctx.group)
+    return d.cpu()
+
+
+def run_cosim_job(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of config 5's co-simulation over subject-axis shards (a
+    ``parallel.distributed.launch`` target): the sharded twin of
+    :func:`run_cosim`, as the JAX package runs its co-sim under a mesh.
+
+    ``job``: ``scenario``, ``config``, ``rounds``, ``seed`` and optionally
+    ``churn_ok`` (whole, on the host; as in :func:`run_cosim`, only to
+    reach the empty-cluster stop).  Every rank builds its column block
+    in place (``init_shard``) and runs the ``RECOVERY_DELAY``-round chunks
+    through ``parallel.mesh.run_rounds_sharded``, with one untimed warm-up
+    chunk first.  The control plane lives on rank 0 only.  After each
+    chunk rank 0 picks the observer off its replicated ``alive`` and
+    broadcasts ``[continue, observer]``; every rank then sends its block
+    of the observer's MEMBER row to rank 0 (as uint8: gloo has no bool),
+    which reacts before the next chunk runs.  So every rank takes part in
+    every collective, and on an empty cluster they all stop after the
+    same chunk (the one the pipelined reference had already run counted,
+    as in :func:`run_cosim`).  Returns the rank's launches (its warm-up
+    chunk included), host seconds, peak device memory, collectives'
+    count; rank 0 adds the ``cosim`` report."""
+    from gossipfs_tpu_torch.core import rounds as core_rounds
+    from gossipfs_tpu_torch.core.state import init_shard
+    from gossipfs_tpu_torch.parallel import mesh
+    from gossipfs_tpu_torch.sdfs.types import RECOVERY_DELAY
+
+    sc, cfg = job["scenario"], job["config"]
+    ctx = mesh.shard_ctx(
+        dist.group.WORLD if dist.is_initialized() else None, cfg.n)
+    if ctx.group is None:
+        raise ValueError("run_cosim_job runs over a process group of ranks")
+    key = trandom.PRNGKey(job["seed"], device=device)
+    churn_ok = job.get("churn_ok")
+    churn_ok = (cosim_churn(cfg, device) if churn_ok is None
+                else churn_ok.to(device))
+    plane = ControlPlane(sc, cfg, job["seed"]) if rank == 0 else None
+    chunk = RECOVERY_DELAY
+    n_chunks = max(1, -(-job["rounds"] // chunk))
+    cuda = device.type == "cuda"
+
+    def run_chunk(st: SimState) -> SimState:
+        return mesh.run_rounds_sharded(
+            st, cfg, chunk, key, ctx, crash_rate=sc.crash_rate,
+            rejoin_rate=sc.rejoin_rate, churn_ok=churn_ok)[0]
+
+    def exchange(st: SimState, now: int, warm: bool = False) -> bool:
+        """Rank 0's decision on every rank, then the observer's row to
+        rank 0 and its reaction (none for the ``warm`` exchange, which
+        reads the introducer's row); False: stop."""
+        ctrl = torch.tensor([1, cfg.introducer], dtype=torch.int64)
+        if plane is not None and not warm:
+            observer = plane.observer(st.alive.cpu().numpy(), now)
+            ctrl[0] = observer is not None
+            ctrl[1] = -1 if observer is None else observer
+        go, observer = _broadcast(ctrl, ctx).tolist()
+        if go and observer >= 0:
+            block = ((st.asl[observer] & 3) == MEMBER).to(torch.uint8)
+            row = mesh.gather_cols(block, ctx)
+            if plane is not None and not warm:
+                plane.react(row.numpy().astype(bool), now)
+        return bool(go)
+
+    merge.reset_launch_counts()
+    # the warm-up chunk and one exchange on a block of their own (the
+    # lanes move in place), out of the timed window
+    warm = run_chunk(init_shard(cfg, ctx, device=device))
+    exchange(warm, chunk, warm=True)
+    del warm
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    state = init_shard(cfg, ctx, device=device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    dist.barrier(ctx.group)
+    core_rounds.COLLECTIVES.update(calls=0, seconds=0.0)
+    done = 0
+    t0 = time.perf_counter()
+    for i in range(n_chunks):
+        state = run_chunk(state)
+        done += chunk
+        if not exchange(state, done):
+            if i + 1 < n_chunks:
+                state = run_chunk(state)
+                done += chunk
+            break
+    if cuda:
+        torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0
-    # durability: how many files still answer a quorum read at the end
-    readable = sum(
-        1 for f in range(sc.n_files)
-        if cluster.get(f"file{f}.txt") is not None)
-    return {
-        "rounds": done,
-        "elapsed_s": round(elapsed, 3),
-        "rounds_per_sec": round(done / elapsed, 2) if elapsed else None,
-        "files": sc.n_files,
-        "files_readable": readable,
-        "repair_plans": repairs,
-        "elections": elections,
-        "final_alive": len(alive),
-    }
+    res = {"rank": rank, "world": world, "nloc": ctx.cols(cfg.n),
+           "launches": {k: v for k, v in merge.LAUNCH_COUNTS.items() if v},
+           "seconds": elapsed, "rounds": done,
+           "backend": dist.get_backend(ctx.group),
+           "collectives": dict(core_rounds.COLLECTIVES),
+           "peak_bytes": (torch.cuda.max_memory_allocated(device) if cuda
+                          else None)}
+    if plane is not None:
+        res["cosim"] = plane.report(done, elapsed)
+    return res
+
+
+def config5_ranks(rank: int, world: int, device, job: dict,
+                  cosim_job: dict) -> tuple[dict, dict]:
+    """Config 5 over ranks in one launch: the detector's timed run
+    (``parallel.mesh.run_job``), then the co-simulation
+    (:func:`run_cosim_job`)."""
+    from gossipfs_tpu_torch.parallel import mesh
+
+    return (mesh.run_job(rank, world, device, job),
+            run_cosim_job(rank, world, device, cosim_job))
 
 
 def scenario_config(sc: presets.Scenario,
@@ -223,7 +391,8 @@ def run_scenario(sc: presets.Scenario | str, *,
     ``launches`` (the timed run's kernel launches; rank 0's when
     sharded); config 5 adds the JAX package's ``cosim`` report
     (:func:`run_cosim`) and ``cosim_launches``, the launches of its
-    chunks.  ``return_outputs``
+    chunks (rank 0's when sharded, where ``cosim_ranks`` adds each rank's
+    launches, seconds and peak device memory).  ``return_outputs``
     returns (report, (final state, MetricsCarry, RoundMetrics)) instead.
     """
     if isinstance(sc, str):
@@ -232,19 +401,13 @@ def run_scenario(sc: presets.Scenario | str, *,
     rounds = rounds_override or sc.rounds
     dev = torch.device(device)
     sharded = devices > 1 and cfg.topology != "ring"
-    if sc.sdfs_cosim and sharded:
-        # refuse before the detector's run, whose report it would extend
-        raise NotImplementedError(
-            f"scenario {sc.name!r} over {devices} rank processes: the "
-            "co-simulation's chunks run in one process; its sharded form "
-            "waits for ROADMAP Queue 1 item 2")
     if plain and sharded:
         raise ValueError("plain=True runs in one process (devices=1)")
     events, crash_rounds, churn_ok = tracked_crash_events(
         cfg, rounds, track, crash_at,
         device="cpu" if sharded else dev)
     if sharded:
-        final, carry, per_round, elapsed, launches = _sharded_run(
+        final, carry, per_round, elapsed, launches, cosim = _sharded_run(
             cfg, rounds, seed, events, sc, churn_ok, devices, device)
     else:
         # a warm-up run (the kernels' build and load), then the timed
@@ -279,7 +442,13 @@ def run_scenario(sc: presets.Scenario | str, *,
         "launches": launches,
         "detection": report.as_dict(),
     }
-    if sc.sdfs_cosim:
+    if sc.sdfs_cosim and sharded:
+        # rank 0's control plane and launches; each rank's own figures
+        result["cosim"] = cosim[0]["cosim"]
+        result["cosim_launches"] = cosim[0]["launches"]
+        result["cosim_ranks"] = [
+            {k: v for k, v in r.items() if k != "cosim"} for r in cosim]
+    elif sc.sdfs_cosim:
         before = merge.launch_snapshot()
         result["cosim"] = run_cosim(sc, cfg, rounds, seed, device=dev,
                                     plain=plain)

@@ -10,7 +10,8 @@ package's (``gossipfs_tpu_torch/conformance/``, ``analysis/protocol_spec``,
   and 1, and equal self-check rows;
 * ``shrink`` reaches the JAX package's minimal case on its own test's
   predicates;
-* the socket columns (udp, native) raise, naming ROADMAP Queue 1 item 9.
+* the socket columns (udp, native) raise, naming ROADMAP Queue 1, the
+  socket engines.
 
 Plain Python throughout: no tensor runs here (the tensor column is in
 ``test_torch_conformance_tensor.py``).
@@ -213,14 +214,17 @@ def test_shrink_save_and_refusal(tmp_path):
         shrink.shrink(case, lambda cand: False)
 
 
+SOCKET_ITEM = "Queue 1, the socket engines"
+
+
 @pytest.mark.parametrize("engine", ["udp", "native"])
 def test_socket_columns_raise_naming_queue_1_item_9(engine):
     case = schedules.generate("leave_broadcast", seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=SOCKET_ITEM):
         harness.RUNNERS[engine](case)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=SOCKET_ITEM):
         verdict.run_case(case, engines=(engine,), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match=SOCKET_ITEM):
         verdict.run_matrix([case], engines=("reference", engine),
                            device="cpu")
 

@@ -66,7 +66,9 @@ def test_port_imports_without_jax():
                 "erasure.planner", "traffic.planner", "traffic.harness",
                 "cosim", "traffic_bench", "sdfs_ops", "shim",
                 "shim.gossipfs_pb2", "shim.wire", "shim.retry",
-                "shim.client", "shim.service", "shim.cli", "wire_ops"):
+                "shim.client", "shim.service", "shim.cli", "wire_ops",
+                "utils.checkpoint", "utils.profiling", "obs.profile",
+                "roundprof", "soak_hb16", "sweep_merge"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 

@@ -8,8 +8,8 @@ against the JAX package's ``bench/run.py``, on the CPU.
   the timed run's outputs, which equal one ``run_rounds`` call;
 * ``sim-100k-sdfs`` (config 5) at N = 256 gives the JAX report and its
   ``cosim`` dict (the SDFS co-simulation over the membership, chunk by
-  chunk), timing fields aside; over rank processes it raises, naming
-  ROADMAP Queue 1 item 2;
+  chunk), timing fields aside (over rank processes:
+  ``tests/test_torch_run_sharded_cosim.py``);
 * the CLI prints and writes the report, and refuses the card without one;
 * ``--devices 2`` (two gloo rank processes on the CPU) gives the
   single-process report;
@@ -71,15 +71,6 @@ def test_outputs_equal_one_run_rounds_call():
     assert all(torch.equal(a, b) for a, b in zip(carry, c))
     assert all(torch.equal(a, b) for a, b in zip(per_round, m))
     assert rep["n"] == 256 and rep["fanout"] == 8
-
-
-def test_sdfs_cosim_raises_naming_queue_1_items_6_7():
-    """Config 5 no longer raises on one process (Queue 1 items 6-7 are
-    ported: the report equals the JAX one, below); its sharded form
-    raises, naming the ROADMAP item that lifts it, before any rank
-    starts."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        run.run_scenario("sim-100k-sdfs", devices=2, device="cpu", **CUT)
 
 
 @pytest.mark.parametrize("n,rounds", [(256, 30), (128, 17)])
