@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels from ``gossipfs_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, started together;
+   sm_90a, one nvcc per source, started together, and beside them the
+   native C++ engine of phase 48 (``native/`` with g++ into
+   ``gossipfs_tpu_torch/_build/native``);
 3. K3 (resident round) against plain, one round at N = 16,384 on random
    pre-tick lanes (all statuses, ages up to the clamp, never-sent entries,
    mixed flags, deep negative shifts): every output bit-equal; times of
@@ -314,13 +316,34 @@ Phases (any failure exits non-zero before the last line is printed):
     rounds (a lean row with its two-launch twin): route, launches, ms a
     round and the bandwidth block against 3,350 GB/s, each row's 2 rounds
     equal on the kernels and the plain versions; the soak cut (int8 and
-    int16 against int32, N = 4,096, 2 chunks of 1,000 rounds: PASS);
+    int16 against int32, N = 4,096, 1 chunk of 600 rounds: PASS);
     checkpoint/resume of the headline and config 3 (saved at round 10,
     restored, also into another hb dtype and onto 2 ranks, against the
     uninterrupted run); the profiler seam (``utils.profiling.trace``
     around 10 headline rounds, its rows mapped to K-names, K3's count
     against the launch counters; ``time_rounds`` beside
-    ``bench.timed_run``; ``bench --xprof``; ``sweep_merge``).
+    ``bench.timed_run``; ``bench --xprof``; ``sweep_merge``);
+48. the socket engines: K2 against its plain version at the campaign
+    replays' n = 256 (F = 8) and n = 24 (F = 5, int16 view, int32 hb,
+    crash-only form) and at N = 8 (F = 3, both forms), tolerance 0, timed;
+    ``python -m gossipfs_tpu_torch.campaigns --case
+    regressions/outage_storm_n256.json --engine native`` (the C++ epoll
+    engine at the committed n = 256) and ``--case
+    regressions/outage_mild_udp_n24.json --engine udp`` (the asyncio
+    engine), each through the CLI's ``main`` with the launch counts zeroed
+    just before and read just after: ``reproduced``, the verdict agreeing
+    with the tensor replay on the card, one K2 launch a replay round; the
+    native per-round tick histogram, each engine's period and wire bytes;
+    each replay's scan on the kernels against the plain versions (lanes,
+    carry, per-round metrics: 0 entries differ; the monitor row equal)
+    with its ms a round (CUDA events); ``python -m
+    gossipfs_tpu_torch.conformance --replay`` over reference, tensor,
+    udp and native for leave_broadcast, direct_confirm and refute_race at
+    seed 0 (every row ok; one K2 launch a tensor round; each tensor bundle
+    equal to the CPU's); ``native_rt`` (n = 32, period 5 ms, 200 rounds:
+    the crash detected within 15 rounds); the deploy lane
+    (``--engine deploy --scale-n 8``: eight node processes, verdict
+    agreement).
 
 Phase 40's times are one JSON line (``{"onepass": ...}``) after phase
 41.  The last four lines printed are the kernels JSON (the five kernels;
@@ -328,15 +351,17 @@ K3's one-pass form per merge form and SWAR form in its paths' modes and
 over F/F''s blocks, its two-launch form once per merge form and once per
 SWAR form and at phase 41's shapes, the column-shard forms of K3, K2, K4
 and K5, K2 at phase 45's, phase 46's and phase 47's shapes, K3 at the
-CLI --packed's, K4 at roundprof's), every main path's ms a round,
+CLI --packed's, K4 at roundprof's, K2 at phase 48's), every main path's
+ms a round,
 rounds/s and launch counts (one JSON line: capacity, the frontier and the
 detector's advance as phases 6, 22, 34 and 23; config 4's fault model as
 phase 12, with K2's ms a round; phase 43's bench, recorder and campaign
 run as ``"43 ..."``; phase 44's and 45's totals, phase 46's as ``"shim"``,
-phase 47's as ``"47 ..."``), the ``nvidia-smi`` name and power limit, and
+phase 47's as ``"47 ..."``, phase 48's seconds as ``"48"``), the
+``nvidia-smi`` name and power limit, and
 the device JSON.  Just before them, one ``{"phase_details": ...}`` line
 holds each path's ``rr_resident="off"`` run as ``"<phase> off"`` and the
-per-part documents of phases 43-47.  The last four lines are compact
+per-part documents of phases 43-48.  The last four lines are compact
 (floats to 5 significant digits), so that they fit in the last 24,000
 bytes of output.
 """
@@ -361,7 +386,7 @@ SPLIT_ROUNDS = 5
 # rounds a row of phase 44's curve sweeps, cut from their default 60 (the
 # tracked crashes at round 10 are confirmed by round 26 at t_fail 12 +
 # t_suspect 2)
-SWEEP_ROUNDS = 40
+SWEEP_ROUNDS = 30
 _T0 = time.perf_counter()
 SEED = 20_261_016
 
@@ -5275,7 +5300,10 @@ def phase_shim(results: dict) -> None:
 
 N_SOAK = 4_096          # the soak's N (bench/soak_hb16.py)
 RP_ROUNDS = 20          # roundprof's rounds a row (cut from its 100)
-SOAK_CHUNKS, SOAK_ROUNDS = 2, 1_000     # the soak cut from 10 x 5,000
+# the soak cut from 10 x 5,000 (1 x 600 since phase 48 joined the run, to
+# keep the whole run inside its time limit: the int8 window of 126 rounds
+# is still crossed 4 times)
+SOAK_CHUNKS, SOAK_ROUNDS = 1, 600
 # the port's kernels as CUPTI names them (demangled templates), by K-name
 K_NAMES = (("rr_onepass_kernel", "K3 one-pass"),
            ("rr_tick_view_kernel", "K3 two-launch pass A"),
@@ -5495,8 +5523,8 @@ def p47_roundprof(results: dict) -> None:
 
 
 def p47_soak(results: dict) -> None:
-    """The soak cut: int8 and int16 against int32 at N = 4,096, 2 chunks
-    of 1,000 rounds on K2: PASS, one K2 launch a round."""
+    """The soak cut: int8 and int16 against int32 at N = 4,096, one chunk
+    of 600 rounds on K2: PASS, one K2 launch a round."""
     from gossipfs_tpu_torch import soak_hb16
     from gossipfs_tpu_torch.ops import merge
 
@@ -5702,6 +5730,297 @@ def phase_bench_tail(results: dict) -> None:
     results["p47"]["seconds"] = time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# Phase 48: the socket engines.  The campaign CLI replays committed cases
+# over the native C++ engine (n = 256, at its committed n) and the asyncio
+# udp engine (n = 24), each verdict held against the tensor replay on the
+# card; the conformance CLI replays three schedules over all four columns;
+# native_rt; the deploy lane.  The engines are host code on the wall
+# clock: nothing else runs while they do.
+# ---------------------------------------------------------------------------
+
+SOCKET_CASES = (("native", "outage_storm_n256"), ("udp", "outage_mild_udp_n24"))
+# the three conformance families of the tensor column with the fewest
+# rounds (8, 16, 22), seed 0: with suspicion (leave_broadcast,
+# refute_race, a blackout scenario in the latter) and without
+# (direct_confirm)
+SOCKET_FAMILIES = ("leave_broadcast", "direct_confirm", "refute_race")
+ENGINES4 = ("reference", "tensor", "udp", "native")
+
+
+def repo_path(*parts: str):
+    import pathlib
+
+    return pathlib.Path(__file__).resolve().parent.joinpath(*parts)
+
+
+def cli_json(main, argv: list) -> tuple[int, dict]:
+    """Call a CLI's ``main(argv)`` (the function ``python -m`` runs) with
+    its standard output captured; (exit code, its last JSON line)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def socket_k2_shapes(results: dict) -> None:
+    """K2 against its plain version at the shapes phase 48's paths give
+    it: the campaign replays' n = 256 and n = 24 (the campaign profile's
+    log fanout, int16 view, int32 hb; the crash-only form, as the
+    committed cases arm no suspicion) and the conformance column's N = 8
+    (F = 3, both forms), detection stats on and off, tolerance 0; kernel,
+    plain and byte-bound times in the form each path runs."""
+    import numpy as np
+
+    from gossipfs_tpu_torch.campaigns import driver
+    from gossipfs_tpu_torch.ops import merge_update as mu
+
+    npdt = {"int8": np.int8, "int16": np.int16, "int32": np.int32}
+    shapes = [("k2_campaign_n256", 256, (False,), 481),
+              ("k2_campaign_n24", 24, (False,), 482),
+              ("k2_conformance_n8", 8, (False, True), 483)]
+    for key, n, forms, seed in shapes:
+        cfg = driver.campaign_config(n)   # N = 8: the conformance F = 3
+        f = cfg.fanout
+        view, edges, _, hb, asl, sa, sb, alive = merge_inputs(
+            n, f, npdt[cfg.view_dtype], npdt[cfg.hb_dtype], SEED + seed,
+            statuses=4 if True in forms else 3)
+        args = (view, edges, hb, asl, sa, sb, alive)
+        err = 0
+        for det in (False, True):
+            for sus in forms:
+                log(f"  K2 {key}: N={n}, F={f}, view {cfg.view_dtype}, hb "
+                    f"{cfg.hb_dtype}, detect_stats={det}, suspect={sus}")
+                err = max(err, compare_merge(
+                    mu.fused_merge_update, mu.fused_merge_update_plain,
+                    args, dict(detect_stats=det, suspect=sus)))
+        if err:
+            raise AssertionError(f"K2 != plain at {key}")
+        results[key] = dict(max_abs_err=0, shape=[n, n])
+        time_merge(mu.fused_merge_update, mu.fused_merge_update_plain, args,
+                   dict(detect_stats=True, suspect=forms[-1]), results, key)
+
+
+def case_scan(doc: dict, plain: bool):
+    """The campaign replay's scan of one case doc (``run_scenario``'s
+    ``run_rounds`` call): (final, carry, per_round) and its device ms a
+    round (CUDA events)."""
+    import torch
+
+    from gossipfs_tpu_torch import random as trandom
+    from gossipfs_tpu_torch.bench import tracked_crash_events
+    from gossipfs_tpu_torch.campaigns import driver
+    from gossipfs_tpu_torch.core.rounds import run_rounds
+    from gossipfs_tpu_torch.core.state import init_state
+    from gossipfs_tpu_torch.obs.monitor import MonitorParams
+    from gossipfs_tpu_torch.scenarios.schedule import FaultScenario
+    from gossipfs_tpu_torch.scenarios.tensor import compile_tensor
+
+    c = doc["config"]
+    sc = FaultScenario.from_json(json.dumps(doc["scenario"]))
+    cfg = driver.campaign_config(
+        c["n"], t_fail=c["t_fail"], t_suspect=c["t_suspect"],
+        lh_multiplier=int(c.get("lh_multiplier", 0)),
+        lh_frac=float(c.get("lh_frac", 0.25)))
+    params = MonitorParams.from_dict(doc["monitor"])
+    bound = params.reconverge_bound or (cfg.t_fail + 6)
+    rounds = driver.campaign_rounds(sc.horizon, int(c.get("crash_at", 10)),
+                                    bound)
+    events, _, _ = tracked_crash_events(cfg, rounds, c["track"],
+                                        int(c.get("crash_at", 10)),
+                                        device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run_rounds(init_state(cfg, device="cuda"), cfg, rounds,
+                     trandom.PRNGKey(c["seed"], device="cuda"),
+                     events=events, crash_only_events=True,
+                     scenario=compile_tensor(sc, device="cuda"), plain=plain)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / rounds, rounds
+
+
+def socket_campaign(engine: str, case: str, results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.campaigns --case <case> --engine
+    <engine>`` (its ``main``): launch counts zeroed just before and read
+    just after, one K2 launch a replay round; ``reproduced`` and the
+    verdict agreement required."""
+    from gossipfs_tpu_torch.campaigns import __main__ as cli
+    from gossipfs_tpu_torch.campaigns import driver, engines
+    from gossipfs_tpu_torch.ops import merge
+
+    path = repo_path("regressions", f"{case}.json")
+    rounds = engines._case_plan(driver.load_case(path))[3]
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = cli_json(cli.main, ["--case", str(path), "--engine", engine])
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    row = out["engine_row"]
+    log(f"  {case} --engine {engine}: n={out['n']}, exit {rc}, reproduced "
+        f"{out['reproduced']}, verdicts tensor {out['tensor_verdict']} / "
+        f"{engine} {out['engine_verdict']}, agreement "
+        f"{out['agreement']}, period {row['period']} s, {wall:.1f} s; "
+        f"launches {launches} ({rounds} replay rounds)")
+    if engine == "native":
+        log(f"  native tick_ms histogram {json.dumps(row['tick_ms'])}")
+    log(f"  wire {json.dumps(row['wire'])}")
+    if (rc != 0 or not out["reproduced"] or not out["agreement"]["match"]
+            or launches != {"fused_merge_update": rounds}):
+        raise AssertionError(f"{case} over {engine}: {out['agreement']}, "
+                             f"launches {launches}")
+    results["sockets"][engine] = dict(
+        case=case, n=out["n"], seconds=wall, launches=launches,
+        period=row["period"], verdict=out["engine_verdict"],
+        tensor_verdict=out["tensor_verdict"], tick_ms=row.get("tick_ms"),
+        wire=row["wire"])
+
+
+def socket_replay_vs_plain(engine: str, case: str, results: dict) -> None:
+    """The case's tensor replay on the kernels against the same replay on
+    the plain versions: the scan (lanes, carry and every per-round
+    metric: 0 entries differ) and the monitor row, whose verdict is the
+    one the socket engine's agreed with."""
+    import torch
+
+    from gossipfs_tpu_torch.campaigns import driver
+    from gossipfs_tpu_torch.obs.monitor import MonitorParams
+    from gossipfs_tpu_torch.scenarios.schedule import FaultScenario
+
+    doc = driver.load_case(repo_path("regressions", f"{case}.json"))
+    (got, k_ms, _), (want, p_ms, _) = case_scan(doc, False), case_scan(
+        doc, True)
+    diff = sum(count_diff(a, b)[0] for a, b in zip(run_tensors(*got),
+                                                   run_tensors(*want)))
+    c = doc["config"]
+    row_k = driver.run_case_doc(doc, device="cuda")["row"]
+    row_p = driver.run_scenario(
+        c["n"], FaultScenario.from_json(json.dumps(doc["scenario"])),
+        t_fail=c["t_fail"], t_suspect=c["t_suspect"],
+        lh_multiplier=int(c.get("lh_multiplier", 0)),
+        lh_frac=float(c.get("lh_frac", 0.25)), seed=c["seed"],
+        track=c["track"], crash_at=int(c.get("crash_at", 10)),
+        params=MonitorParams.from_dict(doc["monitor"]), device="cuda",
+        plain=True)
+    so = results["sockets"][engine]
+    log(f"  {case} replay on the kernels against the plain versions: "
+        f"{diff} entries differ (lanes, carry, per-round metrics); monitor "
+        f"row {'==' if row_k == row_p else '!='} the plain row, verdict "
+        f"{row_k['verdict']} (the {engine} run's replay: "
+        f"{so['tensor_verdict']}); {k_ms:.4f} ms a round on the kernels, "
+        f"{p_ms:.4f} ms plain (CUDA events)")
+    if diff or row_k != row_p or row_k["verdict"] != so["tensor_verdict"]:
+        raise AssertionError(f"{case}: kernels != plain")
+    del got, want
+    torch.cuda.empty_cache()
+    so.update(replay_round_ms=k_ms, plain_round_ms=p_ms)
+
+
+def socket_conformance(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.conformance --replay <case>
+    --engines reference tensor udp native`` (its ``main``) for three
+    schedules at seed 0: every row ok (``all_agree``) over all four
+    columns, one K2 launch a tensor round (the warm-up's included); each
+    tensor bundle on the card equal to the same bundle on the CPU (the
+    plain versions)."""
+    import os
+    import tempfile
+
+    from gossipfs_tpu_torch.conformance import __main__ as conf_cli
+    from gossipfs_tpu_torch.conformance import harness, schedules
+    from gossipfs_tpu_torch.ops import merge
+
+    corpus = [schedules.generate(f, 0) for f in SOCKET_FAMILIES]
+    rows, engines_run, bad = 0, set(), []
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for case in corpus:
+            path = os.path.join(tmp, f"{case['family']}.json")
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(schedules.serialize(case))
+            rc, doc = cli_json(conf_cli.main, ["--replay", path, "--engines",
+                                               *ENGINES4])
+            rows += doc["rows"]
+            engines_run |= set(doc["engines_run"])
+            if rc != 0 or not doc["ok"]:
+                bad.append((case["family"], doc["disagreements"]))
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    rounds = sum(c["rounds"] + harness._WARMUP for c in corpus)
+    log(f"  conformance {list(SOCKET_FAMILIES)} x seed 0 over "
+        f"{sorted(engines_run)}: {rows} rows, all_agree {not bad}, "
+        f"{wall:.1f} s; launches {launches} ({rounds} tensor rounds)")
+    if (bad or engines_run != set(ENGINES4)
+            or launches != {"fused_merge_update": rounds}):
+        raise AssertionError(f"conformance over the socket columns: {bad}, "
+                             f"{sorted(engines_run)}, {launches}")
+    for case in corpus:
+        if harness.run_case_tensor(case, device="cuda") != \
+                harness.run_case_tensor(case, device="cpu"):
+            raise AssertionError(f"conformance {case['family']}: the card's "
+                                 "bundle != the CPU's")
+    log("  each tensor bundle on the card == the CPU's (events, checkpoints, "
+        "final)")
+    results["sockets"]["conformance"] = dict(
+        rows=rows, seconds=wall, launches=launches,
+        udp_period=harness.udp_case_period(8))
+
+
+def socket_native_rt(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.native_rt --n 32 --period 0.005
+    --rounds 200`` (its ``main``): the crash detected within 15 rounds."""
+    from gossipfs_tpu_torch import native_rt
+
+    _, doc = cli_json(native_rt.main, ["--n", "32", "--period", "0.005",
+                                       "--rounds", "200"])
+    log(f"  native_rt: {json.dumps(doc)}")
+    if not 0 <= doc["detection_rounds"] <= 15:
+        raise AssertionError(f"native_rt: {doc}")
+    results["sockets"]["native_rt"] = doc
+
+
+def socket_deploy(results: dict) -> None:
+    """``--case outage_mild_udp_n24 --engine deploy --scale-n 8``: eight
+    node processes (no torch in them) with gRPC control planes; the
+    verdict agrees with the tensor replay of the scaled case on the
+    invariants a deploy stream carries."""
+    from gossipfs_tpu_torch.campaigns import __main__ as cli
+    from gossipfs_tpu_torch.ops import merge
+
+    path = repo_path("regressions", "outage_mild_udp_n24.json")
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = cli_json(cli.main, ["--case", str(path), "--engine", "deploy",
+                                  "--scale-n", "8", "--period", "0.1"])
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
+    log(f"  deploy --scale-n 8: exit {rc}, agreement {out['agreement']}, "
+        f"verdicts tensor {out['tensor_verdict']} / deploy "
+        f"{out['engine_verdict']}, {wall:.1f} s; launches {launches}")
+    if not out["agreement"]["match"]:
+        raise AssertionError(f"deploy lane: {out['agreement']}")
+    results["sockets"]["deploy"] = dict(seconds=wall, launches=launches,
+                                        verdict=out["engine_verdict"])
+
+
+def phase_socket_engines(results: dict) -> None:
+    results["sockets"] = {}
+    t0 = time.perf_counter()
+    socket_k2_shapes(results)
+    for engine, case in SOCKET_CASES:
+        socket_campaign(engine, case, results)
+        socket_replay_vs_plain(engine, case, results)
+    socket_conformance(results)
+    socket_native_rt(results)
+    socket_deploy(results)
+    results["sockets"]["seconds"] = time.perf_counter() - t0
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -5850,6 +6169,13 @@ def main_path_summary(results: dict) -> dict:
                       "launches": results["soak"]["launches"]}
     out["47 profiler"] = results["profiler"]
     out["47"] = {"seconds": results["p47"]["seconds"]}
+    # the socket engines (phase 48): each part's document (launches,
+    # periods, the native tick histogram, wire bytes, the replay's ms a
+    # round on the kernels and plain)
+    so = results["sockets"]
+    for part in ("native", "udp", "conformance", "native_rt", "deploy"):
+        out["48 " + part] = so[part]
+    out["48"] = {"seconds": so["seconds"]}
     return out
 
 
@@ -5914,7 +6240,8 @@ def shim_kernel_rows(results: dict, src: str, mp: str) -> list:
 # (each path's "off" twin, phases 43-46's per-part documents)
 DETAIL_KEYS = ("43 curves", "44 conformance", "44 t_fail", "44 suspicion",
                "44 scenarios", "44 entry", "45 scale", "45 lanes",
-               "45 campaign", "45 codec", "47 roundprof")
+               "45 campaign", "45 codec", "47 roundprof", "48 native",
+               "48 udp", "48 conformance", "48 native_rt", "48 deploy")
 
 
 def split_details(out: dict) -> tuple[dict, dict]:
@@ -5972,6 +6299,28 @@ def tail_kernel_rows(results: dict, src: str, mp: str) -> list:
     ]
 
 
+def socket_kernel_rows(results: dict, src: str, mp: str) -> list:
+    """Phase 48's K2 rows: the campaign replays' n = 256 (the native
+    case's launches) and n = 24 (the udp case's), and N = 8 (the
+    conformance column's launches and the deploy lane's scaled replay)."""
+    so = results["sockets"]
+    k2 = src + "fused_merge.cu"
+
+    def k2_launches(*parts: str) -> int:
+        return sum(so[p]["launches"].get("fused_merge_update", 0)
+                   for p in parts)
+
+    return [
+        shard_line("fused_merge_update[campaign n=256]", k2, mp + "387",
+                   k2_launches("native"), results["k2_campaign_n256"]),
+        shard_line("fused_merge_update[campaign n=24]", k2, mp + "387",
+                   k2_launches("udp"), results["k2_campaign_n24"]),
+        shard_line("fused_merge_update[n=8: conformance, deploy]", k2,
+                   mp + "387", k2_launches("conformance", "deploy"),
+                   results["k2_conformance_n8"]),
+    ]
+
+
 def kernel_line(name: str, source: str, replaces: str, launches: int,
                 r: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -5989,8 +6338,13 @@ def shard_line(name: str, source: str, replaces: str, launches: int,
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
 
+    # a fault in native code (the kernels, the C++ engine, a library)
+    # prints every thread's Python stack instead of dying silently
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6002,9 +6356,18 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    _build.build(verbose=True)
-    log(f"[2] built {sorted(_build.SIGNATURES)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    # the native C++ engine (phase 48) compiles with g++ beside the nvcc
+    # builds; a failed build raises here
+    import concurrent.futures
+
+    from gossipfs_tpu_torch import native
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.load_library)
+        _build.build(verbose=True)
+        host.result()
+    log(f"[2] built {sorted(_build.SIGNATURES)} and the native engine "
+        f"({native._LIB_PATH.name}) in {time.perf_counter() - t0:.2f} s")
     for kernel, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"  {kernel}: {line}")
@@ -6159,6 +6522,14 @@ def main() -> int:
         "profiler seam")
     phase_bench_tail(results)
     log(f"  phase 47 in {results['p47']['seconds']:.2f} s")
+    log("[48] the socket engines: K2 at their shapes, python -m "
+        "gossipfs_tpu_torch.campaigns --case outage_storm_n256 --engine "
+        "native and --case outage_mild_udp_n24 --engine udp (the tensor "
+        "replay on the card), python -m gossipfs_tpu_torch.conformance "
+        f"over {list(ENGINES4)} for {len(SOCKET_FAMILIES)} schedules, "
+        "native_rt, the deploy lane (--scale-n 8)")
+    phase_socket_engines(results)
+    log(f"  phase 48 in {results['sockets']['seconds']:.2f} s")
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
@@ -6306,7 +6677,8 @@ def main() -> int:
         kernel_line("fanout_max_merge", src + "fanout_max.cu", mp + "146",
                     results["main_c"]["fanout_max_launches"], results["k1"]),
     ] + sdfs_kernel_rows(results, src, mp) + shim_kernel_rows(
-        results, src, mp) + tail_kernel_rows(results, src, mp)}))
+        results, src, mp) + tail_kernel_rows(results, src, mp)
+        + socket_kernel_rows(results, src, mp)}))
     # after the kernels line, so that it ends within the last 24,000 bytes
     print(compact_json({"main_paths": paths}))
     print(smi)

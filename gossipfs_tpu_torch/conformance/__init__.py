@@ -9,13 +9,13 @@ step-for-step reference prediction:
   * :mod:`schedules`: the seed-pure schedule generator
     (``gossipfs-conformance/v1`` case docs);
   * :mod:`harness`: the per-round reference oracle built on
-    ``suspicion/runtime.py``, and the tensor column (the port's
-    ``SimDetector``, on the card unless told otherwise);
+    ``suspicion/runtime.py``, the tensor column (the port's
+    ``SimDetector``, on the card unless told otherwise) and the udp and
+    native socket columns;
   * :mod:`verdict`: the per-(schedule, engine) conformance matrix;
   * :mod:`shrink`: greedy delta-debugging for failing schedules.
 
-The udp and native columns wait for ROADMAP Queue 1, the socket
-engines.
+``python -m gossipfs_tpu_torch.conformance`` is the CLI.
 """
 
 from gossipfs_tpu_torch.conformance.schedules import (  # noqa: F401

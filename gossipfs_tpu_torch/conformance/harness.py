@@ -1,4 +1,4 @@
-"""The reference oracle and the tensor column of the conformance harness.
+"""Per-engine injection drivers + the step-for-step reference oracle.
 
 The port of the JAX package's ``conformance/harness.py``.  One
 ``gossipfs-conformance/v1`` case doc (``schedules.py``) runs through:
@@ -15,9 +15,14 @@ The port of the JAX package's ``conformance/harness.py``.  One
     it), on the device named by ``device`` (on the card its rounds run
     the explicit-edge merge kernel).
 
-The socket columns (``udp``: the asyncio engine, ``native``: the C++
-epoll engine) drive engines the port does not carry yet; their runners
-raise ``NotImplementedError`` (ROADMAP Queue 1, the socket engines).
+  * **udp**: the port's ``detector/udp.py`` over real localhost sockets,
+    schedule steps injected as crafted datagrams through the engine's own
+    wire codec;
+  * **native**: the C++ epoll engine (``gossipfs_tpu_torch/native.py``),
+    crafted datagrams straight at its sockets, membership/suspect/
+    incarnation surfaces read over the sized C ABI (``gfs_suspects`` /
+    ``gfs_incarnation``).  Both socket columns are host code, copied from
+    the JAX package.
 
 Every column returns the same *bundle* shape::
 
@@ -29,27 +34,26 @@ Every column returns the same *bundle* shape::
 
 with event rounds schedule-relative (warmup happens off the clock on
 every engine) and filtered to the contract's lifecycle kinds;
-``verdict.py`` consumes nothing else.
+``verdict.py`` consumes nothing else.  Socket runs are wall-clock
+jittered; the schedules keep >= 2 rounds of margin around every
+checkpoint so the comparison is protocol, not scheduling.
 """
 
 from __future__ import annotations
 
+import asyncio
 import random
+import socket
+import time
 
 from gossipfs_tpu_torch.analysis import protocol_spec
 from gossipfs_tpu_torch.conformance.schedules import TRACKED_KINDS, validate
+from gossipfs_tpu_torch.detector.udp import (CMD_SEP, DELTA_MARK, ENTRY_SEP,
+                                             FIELD_SEP)
 from gossipfs_tpu_torch.scenarios.schedule import (CorrelatedOutage,
                                                    FaultScenario)
 from gossipfs_tpu_torch.suspicion.params import SuspicionParams
 from gossipfs_tpu_torch.suspicion.runtime import SuspicionRuntime
-
-# The socket engines' wire separators (the JAX package's
-# ``detector/udp.py``: ENTRY_SEP, FIELD_SEP, CMD_SEP, DELTA_MARK), copied
-# as constants: the oracle speaks the engines' own codec.
-ENTRY_SEP = "<#ENTRY#>"
-FIELD_SEP = "<#INFO#>"
-CMD_SEP = "<CMD>"
-DELTA_MARK = "<#DELTA#>"
 
 #: hb value for a REPLAYED/stale incarnation (below any live counter
 #: past the warmup grace)
@@ -541,6 +545,30 @@ def _classify(membership: list[int], suspects: list[int],
     return "member" if subject in membership else "gone"
 
 
+class _Injector:
+    """Raw-socket datagram injection for the socket engines: the
+    adversary writes through the engines' REAL receive path (codec,
+    dispatch, rate limits) with no test seam in between."""
+
+    def __init__(self, base_port: int):
+        self.base_port = base_port
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+
+    def send(self, node: int, payload: str, copies: int = 1) -> None:
+        for _ in range(copies):
+            self.sock.sendto(payload.encode(),
+                             ("127.0.0.1", self.base_port + node))
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _free_udp_base(n: int) -> int:
+    from gossipfs_tpu_torch.deploy.launcher import _free_port_base
+
+    return _free_port_base(n, tcp=False)
+
+
 # ---------------------------------------------------------------------------
 # tensor column (injection verbs + scenario plane; no datagram seam)
 # ---------------------------------------------------------------------------
@@ -607,25 +635,236 @@ def run_case_tensor(case: dict, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# socket columns (not in the port yet)
+# udp driver (asyncio cluster + crafted datagrams)
 # ---------------------------------------------------------------------------
 
 
-def _socket_column(engine: str):
-    raise NotImplementedError(
-        f"the {engine} conformance column drives a socket engine the port "
-        "does not carry yet (ROADMAP Queue 1, the socket engines); run "
-        "the reference and tensor columns")
+def udp_case_period(n: int) -> float:
+    # The asyncio round clock is sleep-paced (run(1) = sleep(period);
+    # round += 1) while staleness/expiry thresholds are measured in TRUE
+    # wall seconds — per-round loop overhead therefore shrinks every
+    # threshold when counted in rounds.  At the campaign period (0.05s
+    # for n=8) the overhead is ~30% of a round and a 5-round staleness
+    # window crosses ~3.5 schedule rounds in: the reference and the
+    # socket engine then straddle checkpoints.  Conformance runs pad the
+    # period so the overhead fraction (and the skew) stays well under
+    # the schedules' >=2-round checkpoint margins.
+    from gossipfs_tpu_torch.campaigns.engines import udp_period
+
+    return max(0.25, udp_period(n))
 
 
-def run_case_udp(case: dict, **kw) -> dict:
-    """The asyncio udp engine's column: not ported (raises)."""
-    _socket_column("udp")
+async def _udp_case(case: dict, period: float,
+                    warmup_timeout: float) -> dict:
+    from gossipfs_tpu_torch.detector.udp import UdpCluster
+    from gossipfs_tpu_torch.obs.recorder import FlightRecorder
+
+    cfg = case["config"]
+    n = case["n"]
+    base = _free_udp_base(n)
+    cluster = UdpCluster(
+        n, base_port=base, period=period, t_fail=int(cfg["t_fail"]),
+        t_cooldown=int(cfg["t_cooldown"]), min_group=int(cfg["min_group"]),
+        fresh_cooldown=True, suspicion=suspicion_params(cfg),
+        push=cfg["push"], fanout=int(cfg["fanout"]),
+        remove_broadcast=bool(cfg["remove_broadcast"]),
+    )
+    inj = _Injector(base)
+    await cluster.start_all()
+    try:
+        # warmed steady-state start OFF the round clock (nodes tick on
+        # their own heartbeat tasks; cluster._round stays 0, so the
+        # recorded stream is schedule-relative) — engines.py's idiom
+        cluster.seed_full_membership()
+        deadline = time.monotonic() + warmup_timeout
+        while time.monotonic() < deadline:
+            if all(len(node.members) == n
+                   and min(m.hb for m in node.members.values()) > 1
+                   for node in cluster.nodes):
+                break
+            await asyncio.sleep(period)
+        else:
+            raise TimeoutError(
+                f"udp cluster (n={n}) did not warm within "
+                f"{warmup_timeout}s")
+        rec = FlightRecorder(source="udp-conformance", n=n,
+                             case=case["family"])
+        cluster.attach_recorder(rec)
+        sc = case_scenario(case)
+        if sc is not None:
+            cluster.load_scenario(sc)
+        steps = _steps_by_round(case)
+        checkpoints: dict[int, dict[int, str]] = {}
+        for r in range(case["rounds"]):
+            for step in steps.get(r, ()):
+                await _udp_step(cluster, inj, step)
+            await cluster.run(1)
+            for cp in case["checkpoints"]:
+                if cp["round"] == r:
+                    membership = cluster.membership(0)
+                    suspects = cluster.suspects(0)
+                    checkpoints[r] = {
+                        s: _classify(membership, suspects, s)
+                        for s in case["tracked"]}
+        membership = cluster.membership(0)
+        suspects = cluster.suspects(0)
+        incarnations = {}
+        for s in case["tracked"]:
+            m = cluster.nodes[0].members.get(cluster.nodes[s].addr)
+            if m is not None:
+                incarnations[s] = int(m.hb)
+        tick_errors = [repr(node.last_tick_error)
+                       for node in cluster.nodes
+                       if node.last_tick_error is not None]
+        return {
+            "engine": "udp",
+            "events": _lifecycle_events(rec.events),
+            "final": {s: _classify(membership, suspects, s)
+                      for s in case["tracked"]},
+            "checkpoints": checkpoints,
+            "incarnations": incarnations,
+            "counters": {"tick_errors": tick_errors},
+        }
+    finally:
+        inj.close()
+        cluster.stop_all()
 
 
-def run_case_native(case: dict, **kw) -> dict:
-    """The C++ epoll engine's column: not ported (raises)."""
-    _socket_column("native")
+async def _udp_step(cluster, inj: _Injector, step: dict) -> None:
+    op = step["op"]
+    if op == "crash":
+        cluster.crash(step["node"])
+    elif op == "leave":
+        cluster.leave(step["node"])
+    elif op == "join":
+        await cluster.join(step["node"])
+    else:
+        alive = [i for i in range(cluster.n) if cluster.nodes[i].alive]
+        about = step.get("about")
+        about_addr = cluster.nodes[about].addr if about is not None else None
+        for t in _targets(step, alive):
+            if op == "verb":
+                hb = STALE_HB if step.get("hb") == "stale" else None
+                payload = wire_verb(step["verb"], about_addr, hb=hb)
+            else:
+                hb = None
+                if step["style"] in _ADVANCE_STYLES:
+                    m = cluster.nodes[t].members.get(about_addr)
+                    hb = (int(m.hb) if m else 0) + int(step["hb_boost"])
+                payload = malformed_payload(step["style"],
+                                            about_addr=about_addr, hb=hb)
+            inj.send(t, payload, copies=int(step.get("copies", 1)))
+
+
+def run_case_udp(case: dict, *, period: float | None = None,
+                 warmup_timeout: float = 60.0) -> dict:
+    validate(case)
+    if period is None:
+        period = udp_case_period(case["n"])
+    return asyncio.run(_udp_case(case, period, warmup_timeout))
+
+
+# ---------------------------------------------------------------------------
+# native driver (C++ epoll engine + crafted datagrams over the C ABI)
+# ---------------------------------------------------------------------------
+
+
+def run_case_native(case: dict, *, period: float | None = None,
+                    warmup_timeout: float = 120.0) -> dict:
+    from gossipfs_tpu_torch.campaigns.engines import native_period
+    from gossipfs_tpu_torch.native import NativeUdpDetector
+    from gossipfs_tpu_torch.obs.recorder import FlightRecorder
+
+    validate(case)
+    cfg = case["config"]
+    n = case["n"]
+    if period is None:
+        period = native_period(n)
+    base = _free_udp_base(n)
+    det = NativeUdpDetector(
+        n, base_port=base, period=period, t_fail=int(cfg["t_fail"]),
+        t_cooldown=int(cfg["t_cooldown"]), min_group=int(cfg["min_group"]),
+        fresh_cooldown=True, push=cfg["push"], fanout=int(cfg["fanout"]),
+        remove_broadcast=bool(cfg["remove_broadcast"]),
+        suspicion=suspicion_params(cfg),
+    )
+    inj = _Injector(base)
+    try:
+        det.seed_full_membership()
+        deadline = time.monotonic() + warmup_timeout
+        while not det.warm():
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"native cluster (n={n}) did not warm within "
+                    f"{warmup_timeout}s")
+            time.sleep(period)
+        rec = FlightRecorder(source="native-conformance", n=n,
+                             case=case["family"])
+        r0 = det.attach_recorder(rec)
+        sc = case_scenario(case)
+        if sc is not None:
+            det.load_scenario(sc, round0=r0)
+        steps = _steps_by_round(case)
+        checkpoints: dict[int, dict[int, str]] = {}
+        for r in range(case["rounds"]):
+            for step in steps.get(r, ()):
+                _native_step(det, inj, step)
+            target = r0 + r + 1
+            if det.round < target:
+                det.advance(target - det.round)
+            for cp in case["checkpoints"]:
+                if cp["round"] == r:
+                    membership = det.membership(0)
+                    suspects = det.suspects(0)
+                    checkpoints[r] = {
+                        s: _classify(membership, suspects, s)
+                        for s in case["tracked"]}
+        membership = det.membership(0)
+        suspects = det.suspects(0)
+        final = {s: _classify(membership, suspects, s)
+                 for s in case["tracked"]}
+        incarnations = {}
+        for s in case["tracked"]:
+            hb = det.incarnation(0, s)
+            if hb >= 0:
+                incarnations[s] = hb
+        # stop the loop BEFORE the drain's host-side parse (engines.py)
+        det.stop()
+        det.pump_obs()
+        rec.close()
+        return {
+            "engine": "native",
+            "events": _lifecycle_events(rec.events),
+            "final": final,
+            "checkpoints": checkpoints,
+            "incarnations": incarnations,
+            "counters": {},
+        }
+    finally:
+        inj.close()
+        det.close()
+
+
+def _native_step(det, inj: _Injector, step: dict) -> None:
+    op = step["op"]
+    if op in ("crash", "leave", "join"):
+        getattr(det, op)(step["node"])
+        return
+    alive = det.alive_nodes()
+    about = step.get("about")
+    about_addr = det.wire_addr(about) if about is not None else None
+    for t in _targets(step, alive):
+        if op == "verb":
+            hb = STALE_HB if step.get("hb") == "stale" else None
+            payload = wire_verb(step["verb"], about_addr, hb=hb)
+        else:
+            hb = None
+            if step["style"] in _ADVANCE_STYLES:
+                cur = det.incarnation(t, about)
+                hb = max(cur, 0) + int(step["hb_boost"])
+            payload = malformed_payload(step["style"],
+                                        about_addr=about_addr, hb=hb)
+        inj.send(t, payload, copies=int(step.get("copies", 1)))
 
 
 #: the runner table (``verdict.run_case`` passes ``device`` to the tensor

@@ -4,10 +4,9 @@ The port of the JAX package's ``conformance/verdict.py``.  ``compare()``
 holds one engine bundle against the reference prediction for the same
 case; ``run_matrix()`` sweeps a corpus x engine grid and aggregates
 ``all_agree``, in the shape of the JAX package's ``CONFORMANCE_r19.json``.
-The port runs two columns: the oracle (whose self-check row runs for
-every case) and ``tensor`` (the port's ``SimDetector`` on ``device``).
-Naming ``udp`` or ``native`` raises: those columns drive socket engines
-the port does not carry yet (ROADMAP Queue 1, the socket engines).
+The port runs every column: the oracle (whose self-check row runs for
+every case), ``tensor`` (the port's ``SimDetector`` on ``device``) and the
+two socket engines, ``udp`` and ``native`` (host code).
 
 What is compared (and, as deliberately, what is not):
 
@@ -36,9 +35,8 @@ from __future__ import annotations
 
 from gossipfs_tpu_torch.conformance import harness, schedules
 
-#: the columns the port runs (the socket columns wait for ROADMAP
-#: Queue 1, the socket engines)
-PORTED = ("reference", "tensor")
+#: the columns the port runs: all four of the JAX package's
+PORTED = ("reference", "tensor", "udp", "native")
 
 
 def _kinds(bundle: dict, subject: int) -> set[str]:
@@ -155,42 +153,31 @@ def oracle_selfcheck(case: dict, ref: dict) -> dict:
     }
 
 
-def _require_ported(engines) -> None:
-    if engines is None:
-        return
-    missing = sorted(set(engines) - set(PORTED))
-    if missing:
-        raise NotImplementedError(
-            f"conformance columns {missing} drive socket engines the port "
-            "does not carry yet (ROADMAP Queue 1, the socket engines); the "
-            f"port runs {list(PORTED)}")
-
-
 def run_case(case: dict, engines=None, device="cuda") -> list[dict]:
     """All matrix rows for one case: the oracle selfcheck plus one
     compare row per requested engine the family can run.  ``engines=None``
-    runs the columns the port has (the oracle and ``tensor``); the tensor
-    column runs on ``device``."""
-    _require_ported(engines)
+    runs every engine the family declares; the tensor column runs on
+    ``device``."""
     ref = harness.run_case_reference(case)
     rows = [oracle_selfcheck(case, ref)]
     for engine in case["engines"]:
-        if engine == "reference" or engine not in PORTED:
+        if engine == "reference":
             continue
         if engines is not None and engine not in engines:
             continue
-        bundle = harness.run_case_tensor(case, device=device)
+        if engine == "tensor":
+            bundle = harness.run_case_tensor(case, device=device)
+        else:
+            bundle = harness.RUNNERS[engine](case)
         rows.append(compare(case, ref, bundle))
     return rows
 
 
 def run_matrix(corpus, engines=None, device="cuda") -> dict:
     """The corpus x engine conformance matrix.  ``engines=None`` runs
-    every column the port has that each family declares (the oracle and
-    ``tensor``); a subset restricts the tensor column while the oracle
-    selfcheck always runs.  ``device`` is where the tensor column's
-    rounds run."""
-    _require_ported(engines)
+    every engine each family declares; a subset restricts the
+    socket/tensor columns while the oracle selfcheck always runs.
+    ``device`` is where the tensor column's rounds run."""
     rows = []
     for case in corpus:
         rows.extend(run_case(case, engines=engines, device=device))

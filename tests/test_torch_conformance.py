@@ -10,8 +10,9 @@ package's (``gossipfs_tpu_torch/conformance/``, ``analysis/protocol_spec``,
   and 1, and equal self-check rows;
 * ``shrink`` reaches the JAX package's minimal case on its own test's
   predicates;
-* the socket columns (udp, native) raise, naming ROADMAP Queue 1, the
-  socket engines.
+* the socket columns (udp, native) are ported: they refuse a drifted
+  doc before any socket opens, with the JAX package's message (their
+  runs are in ``test_torch_socket_conformance.py``).
 
 Plain Python throughout: no tensor runs here (the tensor column is in
 ``test_torch_conformance_tensor.py``).
@@ -214,19 +215,22 @@ def test_shrink_save_and_refusal(tmp_path):
         shrink.shrink(case, lambda cand: False)
 
 
-SOCKET_ITEM = "Queue 1, the socket engines"
-
-
 @pytest.mark.parametrize("engine", ["udp", "native"])
 def test_socket_columns_raise_naming_queue_1_item_9(engine):
-    case = schedules.generate("leave_broadcast", seed=0)
-    with pytest.raises(NotImplementedError, match=SOCKET_ITEM):
-        harness.RUNNERS[engine](case)
-    with pytest.raises(NotImplementedError, match=SOCKET_ITEM):
-        verdict.run_case(case, engines=(engine,), device="cpu")
-    with pytest.raises(NotImplementedError, match=SOCKET_ITEM):
-        verdict.run_matrix([case], engines=("reference", engine),
-                           device="cpu")
+    """The socket columns no longer raise NotImplementedError: they are
+    the JAX package's runners, which validate the doc before opening a
+    socket, so a drifted doc raises the same ValueError in both."""
+    assert engine in verdict.PORTED
+    doc = _drifted()[0]
+    with pytest.raises(ValueError) as want:
+        jax_harness.RUNNERS[engine](copy.deepcopy(doc))
+    with pytest.raises(ValueError) as got:
+        harness.RUNNERS[engine](copy.deepcopy(doc))
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as got:
+        verdict.run_case(copy.deepcopy(doc), engines=(engine,),
+                         device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_tensor_column_refuses_wire_families():
@@ -239,11 +243,15 @@ def test_tensor_column_refuses_wire_families():
 
 
 def test_oracle_only_matrix_equals_jax():
-    """A corpus of wire-plane families (no tensor column) gives the JAX
-    package's whole matrix document, with engines left to default."""
+    """A corpus of wire-plane families restricted to the oracle column
+    gives the JAX package's whole matrix document.  (Left to default, the
+    engines are every column each family declares, the socket columns
+    included, as in the JAX package: ``test_torch_socket_conformance.py``
+    runs those.)"""
     corpus = [jax_schedules.generate(f, 0) for f in
               ("suspect_flood", "remove_poison", "malformed_codec")]
     want = jax_verdict.run_matrix(corpus, engines=("reference",))
-    assert verdict.run_matrix(corpus, device="cpu") == want
     assert verdict.run_matrix(corpus, engines=("reference",),
+                              device="cpu") == want
+    assert verdict.run_matrix(corpus, engines=("reference", "tensor"),
                               device="cpu") == want

@@ -53,5 +53,8 @@ def test_matrix_document_matches_jax():
     got = verdict.run_matrix(corpus, engines=engines, device="cpu")
     assert got == want
     assert got["all_agree"] and got["engines_run"] == list(engines)
-    # the default columns are the ones the port has
-    assert verdict.run_matrix(corpus, device="cpu") == want
+    # naming the tensor column alone keeps the oracle's self-check rows,
+    # as in the JAX package (left to default, the engines are every
+    # column each family declares, socket columns included)
+    assert verdict.run_matrix(corpus, engines=("tensor",), device="cpu") \
+        == jax_verdict.run_matrix(corpus, engines=("tensor",))

@@ -68,7 +68,10 @@ def test_port_imports_without_jax():
                 "shim.gossipfs_pb2", "shim.wire", "shim.retry",
                 "shim.client", "shim.service", "shim.cli", "wire_ops",
                 "utils.checkpoint", "utils.profiling", "obs.profile",
-                "roundprof", "soak_hb16", "sweep_merge"):
+                "roundprof", "soak_hb16", "sweep_merge",
+                "detector.udp", "native", "deploy", "deploy.launcher",
+                "deploy.node", "campaigns.engines", "campaigns.__main__",
+                "conformance.__main__", "native_rt", "ref_workflow"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 
