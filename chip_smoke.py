@@ -312,11 +312,11 @@ Phases (any failure exits non-zero before the last line is printed):
     devices=2)``) at N = 16,384 over 2 rank processes sharing the card
     (gloo), its report equal to the one-process run's, each rank's K2
     launches, peak memory and rounds/s; ``roundprof`` at N = 16,384, every
-    row of ``variants`` and ``suspicion_variants(interpret=False)`` at 20
+    row of ``variants`` and ``suspicion_variants(interpret=False)`` at 10
     rounds (a lean row with its two-launch twin): route, launches, ms a
     round and the bandwidth block against 3,350 GB/s, each row's 2 rounds
     equal on the kernels and the plain versions; the soak cut (int8 and
-    int16 against int32, N = 4,096, 1 chunk of 600 rounds: PASS);
+    int16 against int32, N = 4,096, 1 chunk of 300 rounds: PASS);
     checkpoint/resume of the headline and config 3 (saved at round 10,
     restored, also into another hb dtype and onto 2 ranks, against the
     uninterrupted run); the profiler seam (``utils.profiling.trace``
@@ -343,7 +343,24 @@ Phases (any failure exits non-zero before the last line is printed):
     equal to the CPU's); ``native_rt`` (n = 32, period 5 ms, 200 rounds:
     the crash detected within 15 rounds); the deploy lane
     (``--engine deploy --scale-n 8``: eight node processes, verdict
-    agreement).
+    agreement);
+49. the static analyzer and the parity soak: ``python -m
+    gossipfs_tpu_torch.analysis --probe`` through its main (every AST
+    rule clean over the port's sources, and the shared-memory budget
+    probe on the card: exit 0); that run's reconciliation kernel by kernel
+    (K3's one-pass form at N = 16,384 and 19,264, K5 at ``STRIPE_MAX_N``,
+    K4's window tile at the largest F it holds and van Herk past it, K2
+    and K1 at ``MAX_KERNEL_FANOUT``: the Python formula's bytes equal to
+    the kernel's own info and to ``cudaFuncGetAttributes``' opt-in
+    maximum, one counted launch at each edge shape); ``spec_verify``
+    (``ok``: the tree clean, each spec rule red on its fixture); ``python
+    -m gossipfs_tpu_torch.parity_soak`` at N = 16,384, 0.5 % crash churn,
+    ``PARITY_ROUNDS`` rounds a variant (lanes, SWAR, ``--suspicion``,
+    ``--scenario``): the lean loop (one K3 launch a round, one-pass)
+    against the separate-pass loop (one K4 launch a round; the masked
+    group form in torch ops under the scenario), each with the launch
+    counts zeroed just before and read just after: every lane, the carry
+    and every metric 0 entries differ.
 
 Phase 40's times are one JSON line (``{"onepass": ...}``) after phase
 41.  The last four lines printed are the kernels JSON (the five kernels;
@@ -361,7 +378,7 @@ phase 47's as ``"47 ..."``, phase 48's seconds as ``"48"``), the
 ``nvidia-smi`` name and power limit, and
 the device JSON.  Just before them, one ``{"phase_details": ...}`` line
 holds each path's ``rr_resident="off"`` run as ``"<phase> off"`` and the
-per-part documents of phases 43-48.  The last four lines are compact
+per-part documents of phases 43-49.  The last four lines are compact
 (floats to 5 significant digits), so that they fit in the last 24,000
 bytes of output.
 """
@@ -3839,7 +3856,8 @@ def phase_merge_geometry(results: dict) -> None:
 
     out = {}
     for key, kernel, n, c, f, hb_bytes, det, sus in GEOMETRY_SHAPES:
-        info = (ctypes.c_int * 10)()
+        # fm/fx_info write 11 ints, sm_info 9, am_info 8
+        info = (ctypes.c_int * 12)()
         if kernel == "fused":
             rc = _build.load("fused_merge").fm_info(
                 n, c, f, 1, hb_bytes, int(det), int(sus), 1,
@@ -3860,7 +3878,7 @@ def phase_merge_geometry(results: dict) -> None:
         head = f"  {key} [{n} x {c}] F={f} det={int(det)} sus={int(sus)}: "
         if kernel in ("fused", "fanout"):
             (cols, rows, depth, slots, smem, threads, per_sm, regs, local,
-             items) = list(info)
+             items) = list(info)[:10]
             out[key] = dict(cols=cols, item_rows=rows, stages=depth,
                             slots=slots, smem=smem, threads=threads,
                             blocks_per_sm=per_sm, regs=regs,
@@ -5299,11 +5317,12 @@ def phase_shim(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 N_SOAK = 4_096          # the soak's N (bench/soak_hb16.py)
-RP_ROUNDS = 20          # roundprof's rounds a row (cut from its 100)
-# the soak cut from 10 x 5,000 (1 x 600 since phase 48 joined the run, to
-# keep the whole run inside its time limit: the int8 window of 126 rounds
-# is still crossed 4 times)
-SOAK_CHUNKS, SOAK_ROUNDS = 1, 600
+RP_ROUNDS = 10          # roundprof's rounds a row (cut from its 100; 20
+                        # until phase 49 joined the run)
+# the soak cut from 10 x 5,000 (1 x 600 when phase 48 joined the run, 1 x
+# 300 since phase 49 did, to keep the whole run inside its time limit: the
+# int8 window of 126 rounds is still crossed twice)
+SOAK_CHUNKS, SOAK_ROUNDS = 1, 300
 # the port's kernels as CUPTI names them (demangled templates), by K-name
 K_NAMES = (("rr_onepass_kernel", "K3 one-pass"),
            ("rr_tick_view_kernel", "K3 two-launch pass A"),
@@ -5524,7 +5543,7 @@ def p47_roundprof(results: dict) -> None:
 
 def p47_soak(results: dict) -> None:
     """The soak cut: int8 and int16 against int32 at N = 4,096, one chunk
-    of 600 rounds on K2: PASS, one K2 launch a round."""
+    of 300 rounds on K2: PASS, one K2 launch a round."""
     from gossipfs_tpu_torch import soak_hb16
     from gossipfs_tpu_torch.ops import merge
 
@@ -6021,6 +6040,114 @@ def phase_socket_engines(results: dict) -> None:
     results["sockets"]["seconds"] = time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# The static analyzer and the parity soak on the card (phase 49):
+# gossipfs-lint over the port with the shared-memory budget probe on the
+# card, spec_verify, and the lean loop (K3) against the separate-pass loop
+# (K4) at N = 16,384 in four variants.
+# ---------------------------------------------------------------------------
+
+PARITY_ROUNDS = 100     # rounds a soak variant (the full 300-round soak
+                        # ran by itself: PERF.md section 6)
+PARITY_VARIANTS = (("lanes", []), ("swar", ["--elementwise", "swar"]),
+                   ("suspicion", ["--suspicion"]),
+                   ("scenario", ["--scenario"]))
+
+
+def analysis_lint(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.analysis --probe`` (its main, in
+    this process) on the card's tree: every AST rule clean and the budget
+    probe's card half -- exit 0, no finding.  Then the probe's
+    reconciliation from that run, kernel by kernel: the Python formula's
+    bytes, the kernel's own info and ``cudaFuncGetAttributes``' opt-in
+    maximum, and the edge-shape launches (each zeroed just before and
+    read just after)."""
+    from gossipfs_tpu_torch.analysis import REGISTRY, probes
+    from gossipfs_tpu_torch.analysis.__main__ import main as lint_main
+
+    t0 = time.perf_counter()
+    probes.last_report.clear()
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main(["--probe", "--json"])
+    rep = dict(probes.last_report)
+    if rc != 0 or json.loads(buf.getvalue()) != [] or not rep:
+        raise AssertionError(f"gossipfs-lint --probe exited {rc}: "
+                             f"{buf.getvalue()[-3000:]}")
+    log(f"  python -m gossipfs_tpu_torch.analysis --probe: exit 0, "
+        f"{len(REGISTRY)} rules clean in {time.perf_counter() - t0:.2f} s")
+    for key, r in rep.items():
+        attr = r.get("python_attr", r["python"])
+        log(f"  {key}: Python {r['python']} B == info {r['info']} B; "
+            f"opt-in attribute {r['attr']} B == {attr} B; "
+            f"{r.get('launched', 0)} launch(es)")
+    results["analysis"]["lint"] = dict(
+        rc=rc, rules=len(REGISTRY),
+        probe={k: [r["python"], r["info"], r["attr"], r.get("launched", 0)]
+               for k, r in rep.items()},
+        seconds=time.perf_counter() - t0)
+
+
+def analysis_spec(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.analysis.spec_verify``'s main: the
+    tree clean, every spec rule red on its fixture."""
+    from gossipfs_tpu_torch.analysis import spec_verify
+
+    t0 = time.perf_counter()
+    rc, doc = cli_json(spec_verify.main, [])
+    if rc != 0 or not doc["ok"]:
+        raise AssertionError(f"spec_verify: {doc}")
+    results["analysis"]["spec_verify"] = dict(
+        ok=doc["ok"], red=doc["fixtures_red"], total=doc["fixtures_total"],
+        seconds=time.perf_counter() - t0)
+    log(f"  spec_verify: ok, repo clean, {doc['fixtures_red']} of "
+        f"{doc['fixtures_total']} spec rules red on their fixtures")
+
+
+def analysis_soak(results: dict, rounds: int = PARITY_ROUNDS) -> None:
+    """``python -m gossipfs_tpu_torch.parity_soak`` (its main) at N =
+    16,384, 0.5 % crash churn, lanes, SWAR, --suspicion, --scenario: the
+    lean loop's and the separate-pass loop's launch counts zeroed just
+    before and read just after each; every lane, the carry and every
+    metric bit-equal."""
+    from gossipfs_tpu_torch import parity_soak
+
+    out = results["analysis"]["soak"] = {}
+    for name, flags in PARITY_VARIANTS:
+        rc, doc = cli_json(parity_soak.main, [
+            "--n", str(N_MAIN), "--rounds", str(rounds), *flags])
+        lean = doc["lean_launches"].get("resident_round", 0)
+        sep = doc["separate_launches"]
+        want_sep = ({} if doc["scenario"]
+                    else {"arc_merge_update": rounds})
+        if rc != 0 or not doc["all_equal"] or lean != rounds \
+                or sep != want_sep:
+            raise AssertionError(f"parity soak {name}: {doc}")
+        out[name] = {k: doc[k] for k in (
+            "route", "separate_kernel", "lean_s", "separate_s",
+            "total_detections", "lean_launches", "separate_launches")}
+        for k in ("total_suspects", "total_refutations"):
+            if k in doc:
+                out[name][k] = doc[k]
+        log(f"  soak {name}: {rounds} rounds, lean {doc['route']} "
+            f"({lean} K3 launches, {doc['lean_s']:.3f} s) against "
+            f"separate-pass {doc['separate_kernel']} ({sep}, "
+            f"{doc['separate_s']:.3f} s): lanes, carry and metrics 0 "
+            f"entries differ; {doc['total_detections']} detections")
+
+
+def phase_analysis(results: dict) -> None:
+    results["analysis"] = {}
+    t0 = time.perf_counter()
+    analysis_lint(results)
+    analysis_spec(results)
+    analysis_soak(results)
+    results["analysis"]["seconds"] = time.perf_counter() - t0
+
+
 def onepass_summary(results: dict) -> dict:
     """Phase 40 in one JSON object: each one-pass instantiation's ms beside
     the two-launch form's and its own before the redesign (timed on other
@@ -6176,6 +6303,8 @@ def main_path_summary(results: dict) -> dict:
     for part in ("native", "udp", "conformance", "native_rt", "deploy"):
         out["48 " + part] = so[part]
     out["48"] = {"seconds": so["seconds"]}
+    # the analyzer and the parity soak (phase 49): its whole document
+    out["49 analysis"] = results["analysis"]
     return out
 
 
@@ -6241,7 +6370,8 @@ def shim_kernel_rows(results: dict, src: str, mp: str) -> list:
 DETAIL_KEYS = ("43 curves", "44 conformance", "44 t_fail", "44 suspicion",
                "44 scenarios", "44 entry", "45 scale", "45 lanes",
                "45 campaign", "45 codec", "47 roundprof", "48 native",
-               "48 udp", "48 conformance", "48 native_rt", "48 deploy")
+               "48 udp", "48 conformance", "48 native_rt", "48 deploy",
+               "49 analysis")
 
 
 def split_details(out: dict) -> tuple[dict, dict]:
@@ -6530,6 +6660,13 @@ def main() -> int:
         "native_rt, the deploy lane (--scale-n 8)")
     phase_socket_engines(results)
     log(f"  phase 48 in {results['sockets']['seconds']:.2f} s")
+    log("[49] the static analyzer and the parity soak: python -m "
+        "gossipfs_tpu_torch.analysis --probe (the budget probe on the "
+        "card), the probe's per-kernel bytes, spec_verify, python -m "
+        f"gossipfs_tpu_torch.parity_soak at N={N_MAIN} ({PARITY_ROUNDS} "
+        f"rounds: {', '.join(n for n, _ in PARITY_VARIANTS)})")
+    phase_analysis(results)
+    log(f"  phase 49 in {results['analysis']['seconds']:.2f} s")
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]

@@ -257,8 +257,19 @@ cudaError_t launch(const Params& p, int* info, cudaStream_t s) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rows,
                                                       kRowThreads, 0);
     if (e != cudaSuccess) return e;
+    int tile_attr = 0;
+    if (tiles) {
+      auto tile = window_tile_kernel<V, kVec>;
+      e = cudaFuncSetAttribute(
+          tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_smem);
+      if (e != cudaSuccess) return e;
+      cudaFuncAttributes ft;
+      e = cudaFuncGetAttributes(&ft, tile);
+      if (e != cudaSuccess) return e;
+      tile_attr = ft.maxDynamicSharedSizeBytes;
+    }
     const int v[8] = {cols, per_sm, fa.numRegs, (int)fa.localSizeBytes,
-                      kRowThreads, (int)tile_smem, 0, 0};
+                      kRowThreads, (int)tile_smem, tile_attr, 0};
     for (int i = 0; i < 8; ++i) info[i] = v[i];
     return cudaSuccess;
   }
@@ -368,7 +379,9 @@ extern "C" int am_merge(const void* view, const void* bases, void* hb,
 // The geometry of what am_merge would launch for this shape, into info[8]
 // (launches nothing): stripe columns, the row pass's blocks an SM,
 // registers and local memory (spills) a thread and threads a block, the
-// window tile's shared memory a block (0: the van Herk window), 0, 0.
+// window tile's shared memory a block (0: the van Herk window), the tile
+// kernel's opt-in shared memory as cudaFuncGetAttributes reports it (0:
+// van Herk), 0.
 extern "C" int am_info(int n, int nc, int fanout, int view_bytes,
                        int hb_bytes, int detect, int suspect, int aligned,
                        int* info) {

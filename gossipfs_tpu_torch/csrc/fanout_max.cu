@@ -106,10 +106,10 @@ extern "C" int fx_fanout_max(const void* view, const void* edges, void* out,
 }
 
 // The geometry of what fx_fanout_max would launch for this shape, into
-// info[10] (launches nothing), as fm_info's: stripe columns, receiver rows
+// info[11] (launches nothing), as fm_info's: stripe columns, receiver rows
 // an item, ring stages, slots a stage and thread, shared memory a block,
 // threads a block, blocks an SM, registers and local memory a thread,
-// items (blocks) of the launch.
+// items (blocks) of the launch, the kernel's opt-in shared memory.
 extern "C" int fx_info(int n, int fanout, int elem_bytes, int aligned,
                        int* info) {
   return run(nullptr, nullptr, nullptr, n, fanout, elem_bytes, aligned, info,

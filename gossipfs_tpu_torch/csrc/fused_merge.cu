@@ -197,12 +197,14 @@ extern "C" int fm_merge(const void* view, const void* edges, void* hb,
              nullptr, stream);
 }
 
-// The geometry of what fm_merge would launch for this shape, into info[10]
+// The geometry of what fm_merge would launch for this shape, into info[11]
 // (launches nothing): stripe columns, receiver rows an item, ring stages,
 // slots a stage and thread, shared memory a block (the ring and the staged
 // ids), threads a block, blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
-// memory (spills) a thread, items (blocks) of the launch.
+// memory (spills) a thread, items (blocks) of the launch, and the kernel's
+// opt-in shared memory as cudaFuncGetAttributes reports it
+// (gring::max_smem_bytes).
 extern "C" int fm_info(int n, int nc, int fanout, int view_bytes,
                        int hb_bytes, int detect, int suspect, int aligned,
                        int* info) {

@@ -369,6 +369,12 @@ GR_HD void fx_thread(const T* __restrict__ view,
       });
 }
 
+// The opt-in shared memory a block is raised to once a card: the largest
+// ring and the most staged ids a step's rows can take.
+GR_HD constexpr long max_smem_bytes() {
+  return ring_bytes(kSlots) + 4L * kStepRows * kMaxStagedFanout;
+}
+
 #if defined(__CUDACC__)
 // What a launcher asks the card once a card and ring size, per kernel
 // instantiation (each keeps its own, a function-local static).
@@ -392,7 +398,7 @@ inline cudaError_t held_blocks(Kern kern, int smem, Held& h, int* per_sm,
   if (!h.raised[card]) {
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(ring_bytes(kSlots) + 4L * kStepRows * kMaxStagedFanout));
+        (int)max_smem_bytes());
     if (e != cudaSuccess) return e;
     h.raised[card] = true;
   }
@@ -421,10 +427,11 @@ struct Grid {
 // at ``fanout``: the rows from item_rows over the blocks that the card
 // holds with the ring alone (held_blocks), cut by staged_rows and the
 // ids' bytes added where ``staged`` (fanout <= kMaxStagedFanout); with
-// ``info``, the geometry into info[10] as well: stripe columns, rows an
+// ``info``, the geometry into info[11] as well: stripe columns, rows an
 // item, ring stages, slots a stage and thread, shared memory a block,
 // threads a block, blocks an SM, registers and local memory (spills) a
-// thread, items.
+// thread, items, and the opt-in shared memory cudaFuncGetAttributes
+// reports (max_smem_bytes).
 template <typename Kern>
 inline cudaError_t grid(Kern kern, int n, int nc, int elem, int fanout,
                         bool staged, Held& h, Grid* g, int* info) {
@@ -450,11 +457,11 @@ inline cudaError_t grid(Kern kern, int n, int nc, int elem, int fanout,
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, kern);
   if (e != cudaSuccess) return e;
-  const int v[10] = {cols,     g->rows,    kDepth,
+  const int v[11] = {cols,     g->rows,    kDepth,
                      pl.chunk, g->smem,    kThreads,
                      per_sm,   fa.numRegs, (int)fa.localSizeBytes,
-                     g->items};
-  for (int i = 0; i < 10; ++i) info[i] = v[i];
+                     g->items, fa.maxDynamicSharedSizeBytes};
+  for (int i = 0; i < 11; ++i) info[i] = v[i];
   return cudaSuccess;
 }
 #endif

@@ -404,7 +404,12 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
     checked[card] = smem;
     held[card] = clusters;
     if (clusters_out != nullptr) {
-      *clusters_out = clusters;
+      cudaFuncAttributes fa;
+      e = cudaFuncGetAttributes(&fa, kern);
+      if (e != cudaSuccess) return e;
+      clusters_out[0] = clusters;
+      clusters_out[1] = (int)smem;
+      clusters_out[2] = fa.maxDynamicSharedSizeBytes;
       return cudaSuccess;
     }
   }
@@ -519,8 +524,10 @@ extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
              nullptr, stream);
 }
 
-// cudaOccupancyMaxActiveClusters of the instantiation rr_onepass would
-// launch for this shape and form, into ``*clusters`` (launches nothing).
+// The instantiation rr_onepass would launch for this shape and form, into
+// clusters[3] (launches nothing): cudaOccupancyMaxActiveClusters, the
+// dynamic shared memory a CTA it asks for (onepass::smem_bytes) and the
+// kernel's opt-in maximum as cudaFuncGetAttributes reports it.
 extern "C" int rr_onepass_clusters(int n, int nc, int col_offset, int fanout,
                                    int form, int align, int suspect, int lh,
                                    int swar, int* clusters) {

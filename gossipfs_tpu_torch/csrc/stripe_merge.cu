@@ -273,9 +273,10 @@ cudaError_t launch(const Params& p, int* info, cudaStream_t s) {
       cudaFuncAttributes fa;
       e = cudaFuncGetAttributes(&fa, kern);
       if (e != cudaSuccess) return e;
-      const int v[8] = {kCtas, p.rb, p.rb, clusters, fa.numRegs,
-                        (int)fa.localSizeBytes, (int)smem, kThreads};
-      for (int i = 0; i < 8; ++i) info[i] = v[i];
+      const int v[9] = {kCtas, p.rb, p.rb, clusters, fa.numRegs,
+                        (int)fa.localSizeBytes, (int)smem, kThreads,
+                        fa.maxDynamicSharedSizeBytes};
+      for (int i = 0; i < 9; ++i) info[i] = v[i];
       return cudaSuccess;
     }
   }
@@ -361,9 +362,10 @@ extern "C" int sm_merge(const void* view, const void* edges, void* hb,
 }
 
 // The geometry of the instantiation sm_merge would launch for this shape,
-// into info[8] (launches nothing): CTAs a cluster, stripe columns, park row
+// into info[9] (launches nothing): CTAs a cluster, stripe columns, park row
 // bytes, clusters the card holds at once, registers a thread, local memory
-// a thread (spills), dynamic shared memory a CTA, threads a CTA.
+// a thread (spills), dynamic shared memory a CTA, threads a CTA, and the
+// kernel's opt-in shared memory as cudaFuncGetAttributes reports it.
 extern "C" int sm_info(int n, int nc, int fanout, int hb_bytes, int detect,
                        int suspect, int aligned, int* info) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

@@ -958,19 +958,28 @@ def onepass_timeline_split(timeline: torch.Tensor) -> dict:
                 span=float(t[:, -1].max() - t[:, 0].min()))
 
 
-def onepass_clusters(n: int, c: int, form: str, *, fanout: int,
-                     arc_align: int = 1, suspect: bool = False,
-                     lh: bool = False, elementwise: str = "lanes",
-                     col_offset: int = 0) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the one-pass instantiation a
-    round of this shape and merge ``form`` launches (on the current
-    card): how many stripe clusters run at once.  Launches nothing."""
+def onepass_info(n: int, c: int, form: str, *, fanout: int,
+                 arc_align: int = 1, suspect: bool = False, lh: bool = False,
+                 elementwise: str = "lanes", col_offset: int = 0) -> dict:
+    """The one-pass instantiation a round of this shape and merge ``form``
+    launches, on the current card: ``clusters``
+    (``cudaOccupancyMaxActiveClusters``: how many stripe clusters run at
+    once), ``smem`` (the dynamic shared memory a CTA its launcher asks
+    for, csrc/rr_onepass.cuh ``smem_bytes``) and ``smem_attr`` (the
+    kernel's opt-in maximum, as ``cudaFuncGetAttributes`` reports it after
+    the launcher raised it).  Launches nothing."""
     from gossipfs_tpu_torch.ops import _build
 
-    out = ctypes.c_int(0)
+    out = (ctypes.c_int * 3)()
     check_rc("rr_onepass_clusters", _build.load("rr_onepass")
              .rr_onepass_clusters(n, c, col_offset, fanout,
                                   FORMS.index(form), arc_align, int(suspect),
-                                  int(lh), int(elementwise == "swar"),
-                                  ctypes.byref(out)))
-    return out.value
+                                  int(lh), int(elementwise == "swar"), out))
+    return dict(clusters=out[0], smem=out[1], smem_attr=out[2])
+
+
+def onepass_clusters(n: int, c: int, form: str, **kw) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the one-pass instantiation a
+    round of this shape and merge ``form`` launches (:func:`onepass_info`,
+    same keywords)."""
+    return onepass_info(n, c, form, **kw)["clusters"]

@@ -84,6 +84,75 @@ def stripe_admits(n: int, view_dtype: str) -> bool:
     return view_dtype == "int8" and n <= STRIPE_MAX_N
 
 
+# The shared memory the merge kernels ask for, as the budget functions of
+# their csrc headers compute it (the analyzer's smem-budget probe holds
+# each pair equal, and the card's attributes to both): K5's park
+# (merge_stripe.cuh smem_bytes at stripe_row_bytes), K4's window tile
+# (tile_smem_bytes), K2's and K1's ring (gather_ring.cuh ring_bytes, K2
+# adding its staged sender ids; max_smem_bytes the opt-in maximum).  A
+# block's opt-in limit on the card is merge.ONEPASS_SMEM.
+STRIPE_CTAS = 16                  # CTAs a K5 cluster
+STRIPE_THREADS = 512              # threads a K5 CTA
+SEG_BYTES = 16                    # a thread's bytes of a row piece
+ROW_BYTES = 128                   # park, tile and view row pieces, at most
+COUNT_BLOCK_BYTES = 5 * 128 * 4   # a CTA's count block: int32 [5, 128]
+MAX_SWEEP = 255                   # rows a K5 thread sweeps a stripe, most
+ARC_TILE_ROWS = 512               # rows a K4 window tile
+RING_THREADS = 256                # threads a K2/K1 block
+RING_DEPTH = 2                    # ring stages
+RING_SLOTS = 8                    # a stage's slots a thread, at most
+RING_STEP_ROWS = RING_THREADS // (ROW_BYTES // SEG_BYTES)
+RING_SMEM_MAX = (RING_DEPTH * RING_SLOTS * SEG_BYTES * RING_THREADS
+                 + 4 * RING_STEP_ROWS * MAX_KERNEL_FANOUT)
+
+
+def stripe_cta_rows(n: int) -> int:
+    """The most receiver rows a K5 CTA parks: ceil(n / STRIPE_CTAS)."""
+    return -(-n // STRIPE_CTAS)
+
+
+def stripe_park_smem(park_rows: int, row_bytes: int) -> int:
+    """A K5 CTA's shared memory: the park, one row of absent bytes and two
+    count blocks."""
+    return park_rows * row_bytes + ROW_BYTES + 2 * COUNT_BLOCK_BYTES
+
+
+def stripe_row_bytes(n: int) -> int:
+    """K5's park row bytes at ``n`` rows: the widest of 128, 64 and 32
+    whose park fits a CTA and keeps a thread's sweep to its byte
+    counters, else 0 (K5 cannot hold the shape)."""
+    rows = stripe_cta_rows(n)
+    for rb in (128, 64, 32):
+        if (stripe_park_smem(rows, rb) <= merge.ONEPASS_SMEM
+                and rows <= MAX_SWEEP * (STRIPE_THREADS // (rb // SEG_BYTES))):
+            return rb
+    return 0
+
+
+def stripe_smem(n: int) -> int:
+    """The dynamic shared memory a K5 CTA asks for at ``n`` rows."""
+    return stripe_park_smem(stripe_cta_rows(n), stripe_row_bytes(n))
+
+
+def arc_tile_smem(fanout: int) -> int:
+    """K4's window tile a block: ARC_TILE_ROWS rows and the F - 1 after
+    them, in 128-byte rows (the van Herk window where it does not fit)."""
+    return (ARC_TILE_ROWS + fanout - 1) * ROW_BYTES
+
+
+def arc_tile_fits(fanout: int) -> bool:
+    return arc_tile_smem(fanout) <= merge.ONEPASS_SMEM
+
+
+def ring_smem(fanout: int) -> int:
+    """K2's and K1's ring a block at ``fanout``: RING_DEPTH stages of a
+    chunk's slots a thread (a row's senders in the fewest chunks of at
+    most RING_SLOTS, evenly sized); K2 adds its staged ids behind it."""
+    chunks = -(-fanout // RING_SLOTS)
+    chunk = -(-fanout // chunks)
+    return RING_DEPTH * chunk * SEG_BYTES * RING_THREADS
+
+
 def row_chunks(n: int, cols: int):
     """Row ranges of ~16M entries: the temporaries of the plain versions
     (and of the round's torch stages) stay small at any N."""

@@ -71,7 +71,13 @@ def test_port_imports_without_jax():
                 "roundprof", "soak_hb16", "sweep_merge",
                 "detector.udp", "native", "deploy", "deploy.launcher",
                 "deploy.node", "campaigns.engines", "campaigns.__main__",
-                "conformance.__main__", "native_rt", "ref_workflow"):
+                "conformance.__main__", "native_rt", "ref_workflow",
+                "analysis.framework", "analysis.probes",
+                "analysis.rules_asyncio", "analysis.rules_config",
+                "analysis.rules_conformance", "analysis.rules_device",
+                "analysis.rules_native", "analysis.rules_obs",
+                "analysis.rules_ownership", "analysis.rules_spec",
+                "analysis.__main__", "analysis.spec_verify", "parity_soak"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 
