@@ -7,9 +7,16 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels from ``gossipfs_tpu_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, started together, and beside them the
-   native C++ engine of phase 48 (``native/`` with g++ into
-   ``gossipfs_tpu_torch/_build/native``);
+   sm_90a, one nvcc per source or variant, all started together at a
+   lower CPU priority, and beside them the native C++ engine of phase 48
+   (``native/`` with g++ into ``gossipfs_tpu_torch/_build/native``).
+   Nothing waits for them at once: a kernel's first launch waits for its
+   own build.  Phases 18, 8, 11, 14, 7, 9, 10, 12 and 36, which need only
+   the separate-pass kernels (K1, K4, K2, K5: built in seconds), run
+   first, then 3, 6, 13, 35 and 41, which need only K3's two-launch
+   library, while K3's one-pass library and phase 50's stub variants (at
+   the lowest priority) finish; then the script waits for every build and
+   goes on with phase 4, in the order of the numbers;
 3. K3 (resident round) against plain, one round at N = 16,384 on random
    pre-tick lanes (all statuses, ages up to the clamp, never-sent entries,
    mixed flags, deep negative shifts): every output bit-equal; times of
@@ -49,7 +56,7 @@ Phases (any failure exits non-zero before the last line is printed):
     20) through ``run_rounds`` with the counts zeroed just before and read
     just after: exactly 120 K2 launches and no K3 one; rounds/s, K2 ms
     per round beside the whole round's, peak memory, TTD and FPR; then
-    5 rounds under ``torch.profiler``: device ms per round of each stage
+    2 rounds under ``torch.profiler``: device ms per round of each stage
     of the round and the device's busy share;
 11. the eventful arc path: the headline under 1 % crash and 1 % rejoin
     churn (joins are matrix events), 50 rounds: 50 K4 launches;
@@ -270,7 +277,7 @@ Phases (any failure exits non-zero before the last line is printed):
     int16 view, int32 hb; a [65,536 x 16,384] column block at config 5's
     int8 view and int16 hb, F = 16), timed; BASELINE config 5
     ``sim-100k-sdfs`` through ``run.run_scenario`` at N = 65,536 (131,072
-    needs the lanes sharded), 16 rounds, 1,000 files: the detection
+    needs the lanes sharded), 8 rounds, 1,000 files: the detection
     report, the ``cosim`` dict (files readable, repair plans, elections,
     final alive, rounds/s) and one K2 launch a round, and at N = 4,096 on
     the kernels against the plain versions (equal reports, timings
@@ -360,7 +367,24 @@ Phases (any failure exits non-zero before the last line is printed):
     against the separate-pass loop (one K4 launch a round; the masked
     group form in torch ops under the scenario), each with the launch
     counts zeroed just before and read just after: every lane, the carry
-    and every metric 0 entries differ.
+    and every metric 0 entries differ;
+50. the tools: ``python -m gossipfs_tpu_torch.sweep_rr`` at N = 16,384
+    (``TOOLS_ROUNDS`` rounds, one rep a point: ``rr_resident`` on / off x
+    lanes / SWAR, each point launching its route's form once a round, all
+    four digests equal; the N = 65,536 one-pass points refused); ``python
+    -m gossipfs_tpu_torch.shard_anchor --ladder`` cut to its first two rows
+    and ``LADDER_ROUNDS`` rounds (K3's two-launch column-shard form, one
+    launch a round; each row's formula bytes equal to the growth of the
+    peak allocated memory within the allocator's rounding) and its
+    ``--budget-only`` refusal of (786,432, 16); ``python -m
+    gossipfs_tpu_torch.stub_bisect`` at N = 16,384 with the default list
+    (plain arcs) and ``--arc-align 8 --suspicion`` (every row one K3 (f)
+    launch a round, the ``(full)`` row on the default library, each stub
+    on its variant, built in phase 2), then one round each: ``(full)``
+    against the plain version, the rcnt and sus variants against
+    ``(full)`` (0 entries differ but their zeroed outputs); ``python -m
+    gossipfs_tpu_torch.verify_claims --only headline soak spec_clean
+    trace_invariants`` (each claim a subprocess on the card): all PASS.
 
 Phase 40's times are one JSON line (``{"onepass": ...}``) after phase
 41.  The last four lines printed are the kernels JSON (the five kernels;
@@ -378,7 +402,7 @@ phase 47's as ``"47 ..."``, phase 48's seconds as ``"48"``), the
 ``nvidia-smi`` name and power limit, and
 the device JSON.  Just before them, one ``{"phase_details": ...}`` line
 holds each path's ``rr_resident="off"`` run as ``"<phase> off"`` and the
-per-part documents of phases 43-49.  The last four lines are compact
+per-part documents of phases 43-50.  The last four lines are compact
 (floats to 5 significant digits), so that they fit in the last 24,000
 bytes of output.
 """
@@ -396,10 +420,10 @@ N_MAIN = 16_384
 N_CAPACITY = 65_536
 N_ADVANCE = 49_152             # PackedDetector's capacity point
 # rounds of the eventful separate-pass paths (phases 11 and 17) and of
-# the profiled stage splits, cut from 100 and 10 to keep the whole run
-# inside its time limit
+# the profiled stage splits (after 2 warm-up rounds), cut from 100 and 10
+# to keep the whole run inside its time limit
 EVENTFUL_ROUNDS = 50
-SPLIT_ROUNDS = 5
+SPLIT_ROUNDS = 2
 # rounds a row of phase 44's curve sweeps, cut from their default 60 (the
 # tracked crashes at round 10 are confirmed by round 26 at t_fail 12 +
 # t_suspect 2)
@@ -413,6 +437,9 @@ def log(msg: str) -> None:
     the script started."""
     if msg.startswith("["):
         msg = f"{msg} (at {time.perf_counter() - _T0:.1f} s)"
+        # the headers on standard error too: its end shows how far a run
+        # that was stopped had come
+        print(msg[:200], file=sys.stderr, flush=True)
     print(msg, flush=True)
 
 
@@ -442,29 +469,10 @@ def cuda_ms(fn, reps: int, reset=None) -> float:
 
 
 def random_round_inputs(n: int, seed: int):
-    """Pre-tick lanes and per-round vectors exercising every corner."""
-    import numpy as np
-    import torch
-
-    from gossipfs_tpu_torch.config import AGE_CLAMP, INT8_REBASE_WINDOW
-    from gossipfs_tpu_torch.ops import merge
-
-    rng = np.random.default_rng(seed)
-    hb = rng.integers(-128, 128, (n, n), dtype=np.int8)
-    hb[rng.random((n, n), dtype=np.float32) < 0.05] = -128   # never sent
-    age = rng.integers(0, AGE_CLAMP + 1, (n, n), dtype=np.int8)
-    st = rng.integers(0, 3, (n, n), dtype=np.int8)
-    asl = ((age.astype(np.int16) << 2 | st) - 128).astype(np.int8)
-    flags = rng.choice(np.array([0, 4, 5, 6, 1, 7], np.int8), n)
-    sa = rng.integers(-260, 60, n).astype(np.int32)   # < -128: deep shifts
-    sb = np.where(rng.random(n) < 0.5, sa, rng.integers(-260, 60, n))
-    g = rng.integers(-200, 60, n).astype(np.int32)
-    bases = (rng.integers(0, n // 8, n) * 8).astype(np.int32)
-    dev = "cuda"
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    vecs = merge.threshold_stack(t(sa), t(sb.astype(np.int32)), t(g),
-                                 INT8_REBASE_WINDOW)
-    return t(hb), t(asl), t(flags), vecs, t(bases)
+    """Pre-tick lanes and per-round vectors exercising every corner (all
+    statuses but SUSPECT, ages up to the clamp, never-sent entries, mixed
+    flags, deep shifts), made on the card (:func:`big_round_inputs`)."""
+    return big_round_inputs(n, n, seed, suspect=False, refute_bit=False)
 
 
 def phase_kernel_vs_plain(n: int, results: dict) -> None:
@@ -501,7 +509,7 @@ def phase_kernel_vs_plain(n: int, results: dict) -> None:
     run_k()
     run_p()
     kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
-    plain_ms = cuda_ms(run_p, 3)
+    plain_ms = cuda_ms(run_p, 1)
     kernel_ms.append(cuda_ms(run_k, 20))
     # bytes the function must move: each input once (lanes 2 N^2, flags,
     # 11-row stack, int32 bases), each output once (lanes 2 N^2, four
@@ -748,39 +756,23 @@ def diff_report(names, got, want) -> int:
 
 def merge_inputs(n: int, fanout: int, vdt, hdt, seed: int, aligned=False,
                  statuses: int = 3):
-    """Corner-case inputs of one merge call, made with numpy: post-tick
-    lanes over the first ``statuses`` statuses (4: SUSPECT too), ages up
-    to 63 (a fifth at 0: fresh detections), floor sentinels, deep and
-    negative shifts, dead receivers (whose view rows are absent: a dead
-    node never sends).  Returns (view, edges, bases, hb, asl, shift_a,
-    shift_b, alive) on the card."""
+    """Corner-case inputs of one merge call, made on the card
+    (:func:`big_merge_inputs`; ``vdt`` and ``hdt`` numpy integer types):
+    post-tick lanes over the first ``statuses`` statuses (4: SUSPECT too),
+    ages up to 63 (a fifth at 0: fresh detections), floor sentinels, deep
+    and negative shifts, dead receivers (whose view rows are absent: a
+    dead node never sends); arc bases multiples of 8 where ``aligned``.
+    Returns (view, edges, bases, hb, asl, shift_a, shift_b, alive)."""
     import numpy as np
     import torch
 
-    from gossipfs_tpu_torch.ops.merge import pack_age_status
-
-    rng = np.random.default_rng(seed)
-    lo, hi = {np.int8: (-128, 127), np.int16: (-32768, 32767),
-              np.int32: (-2**20, 2**20)}[hdt]
-    top = 126 if vdt == np.int8 else 16_384
-    alive = rng.random(n) < 0.8
-    view = rng.integers(-1, top + 1, (n, n), dtype=np.int32).astype(vdt)
-    view[~alive] = -1
-    hb = rng.integers(lo, hi + 1, (n, n), dtype=np.int32).astype(hdt)
-    hb[rng.random((n, n), dtype=np.float32) < 0.05] = np.iinfo(hdt).min
-    age = rng.integers(0, 64, (n, n), dtype=np.int8)
-    age[rng.random((n, n), dtype=np.float32) < 0.2] = 0
-    st = rng.integers(0, statuses, (n, n), dtype=np.int8)
-    sa = rng.integers(-70_000, 70_000, n).astype(np.int32)
-    sb = np.where(rng.random(n) < 0.5, sa,
-                  rng.integers(-70_000, 70_000, n)).astype(np.int32)
-    edges = rng.integers(0, n, (n, fanout)).astype(np.int32)
-    bases = rng.integers(0, n, n).astype(np.int32)
+    types = {np.int8: torch.int8, np.int16: torch.int16,
+             np.int32: torch.int32}
+    view, edges, bases, hb, asl, sa, sb, alive = big_merge_inputs(
+        n, n, fanout, types[hdt], seed, vdt=types[vdt], statuses=statuses)
     if aligned:
         bases = bases // 8 * 8
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")  # noqa: E731
-    asl = pack_age_status(t(age), t(st))
-    return (t(view), t(edges), t(bases), t(hb), asl, t(sa), t(sb), t(alive))
+    return view, edges, bases, hb, asl, sa, sb, alive
 
 
 MERGE_OUTS = ("hb", "asl", "cnt_incl", "n_det", "first_obs", "refuted",
@@ -799,7 +791,7 @@ def merge_bound_bytes(view, senders, hb, outputs: int = 3) -> int:
 
 
 def time_merge(fn, plain, args, kw, results: dict, key: str) -> None:
-    """Kernel ms (best of 3 x 20 calls), plain ms (3 calls) and the byte
+    """Kernel ms (best of 3 x 20 calls), plain ms (1 call) and the byte
     bound, on one shape; the lanes evolve in place across calls, which
     changes no byte count."""
     view, senders, hb, asl = args[0], args[1], args[2].clone(), args[3].clone()
@@ -809,7 +801,7 @@ def time_merge(fn, plain, args, kw, results: dict, key: str) -> None:
     run_k()
     run_p()
     kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
-    plain_ms = cuda_ms(run_p, 3)
+    plain_ms = cuda_ms(run_p, 1)
     kernel_ms.append(cuda_ms(run_k, 20))
     floor_bytes = merge_bound_bytes(view, senders, hb,
                                     5 if kw.get("suspect") else 3)
@@ -1179,28 +1171,9 @@ def suspicion_round_inputs(n: int, seed: int):
     """Pre-tick lanes for one suspicion round: every status, SUSPECT
     entries at ages 3..13 (both sides of the confirm ages 5 and 11 of
     t_fail 3, t_suspect 2, lh_multiplier 3), never-sent entries, flags
-    with bit 4 on half the rows, deep shifts."""
-    import numpy as np
-    import torch
-
-    from gossipfs_tpu_torch.config import AGE_CLAMP, INT8_REBASE_WINDOW
-    from gossipfs_tpu_torch.ops import merge
-
-    rng = np.random.default_rng(seed)
-    hb = rng.integers(-128, 128, (n, n), dtype=np.int8)
-    hb[rng.random((n, n), dtype=np.float32) < 0.05] = -128
-    st = rng.integers(0, 4, (n, n), dtype=np.int8)
-    age = rng.integers(0, AGE_CLAMP + 1, (n, n), dtype=np.int8)
-    age = np.where(st == 3, rng.integers(3, 14, (n, n), dtype=np.int8), age)
-    asl = ((age.astype(np.int16) << 2 | st) - 128).astype(np.int8)
-    flags = rng.choice(np.array([0, 4, 5, 6, 1, 7], np.int8), n)
-    flags = flags + (16 * (rng.random(n) < 0.5)).astype(np.int8)
-    sa = rng.integers(-260, 60, n).astype(np.int32)
-    g = rng.integers(-200, 60, n).astype(np.int32)
-    bases = (rng.integers(0, n // 8, n) * 8).astype(np.int32)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")  # noqa: E731
-    vecs = merge.threshold_stack(t(sa), t(sa), t(g), INT8_REBASE_WINDOW)
-    return t(hb), t(asl), t(flags), vecs, t(bases)
+    with bit 4 on half the rows, deep shifts (the store shift equal to the
+    view shift), made on the card (:func:`big_round_inputs`)."""
+    return big_round_inputs(n, n, seed, suspect=True, same_shifts=True)
 
 
 def phase_k3_suspicion(n: int, results: dict) -> None:
@@ -1236,7 +1209,7 @@ def phase_k3_suspicion(n: int, results: dict) -> None:
     run_k()
     run_p()
     kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
-    plain_ms = cuda_ms(run_p, 3)
+    plain_ms = cuda_ms(run_p, 1)
     kernel_ms.append(cuda_ms(run_k, 20))
     # lanes read and written once, flags, stack and bases read, seven
     # int32 [N] outputs
@@ -1493,28 +1466,29 @@ def phase_suspicion_rr_main(results: dict, rounds: int) -> None:
     stage_split(cfg, SPLIT_ROUNDS, kw, wall / rounds * 1e3)
 
 def phase_k1(results: dict) -> None:
-    import numpy as np
     import torch
 
     from gossipfs_tpu_torch.ops import fanout_max as fx
 
-    rng = np.random.default_rng(SEED + 18)
+    # the inputs are drawn on the card
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
     err = 0
     timing = None
     for n, f in ((N_MAIN, 14), (1_030, 5)):
-        edges = torch.from_numpy(
-            rng.integers(0, n, (n, f)).astype(np.int32)).cuda()
-        for dt in (np.int8, np.int16, np.int32):
+        edges = torch.randint(0, n, (n, f), generator=g, device="cuda",
+                              dtype=torch.int32)
+        for dt in (torch.int8, torch.int16, torch.int32):
             # gossip views lie in [-1, window]; draw below -1 too, where
             # the kernel (no floor) and the JAX XLA oracle part
-            view = torch.from_numpy(
-                rng.integers(-3, 127, (n, n)).astype(dt)).cuda()
+            view = torch.randint(-3, 127, (n, n), generator=g,
+                                 device="cuda", dtype=dt)
             got = fx.fanout_max_merge(view, edges)
             want = fx.fanout_max_merge_plain(view, edges)
             torch.cuda.synchronize()
-            err = max(err, diff_report((f"out {dt.__name__}, N={n}, F={f}",),
+            name = str(dt).split(".")[-1]
+            err = max(err, diff_report((f"out {name}, N={n}, F={f}",),
                                        (got,), (want,)))
-            if n == N_MAIN and dt is np.int8:
+            if n == N_MAIN and dt is torch.int8:
                 timing = (view, edges)
             del view, got, want
     # tolerance 0: integer outputs
@@ -1527,7 +1501,7 @@ def phase_k1(results: dict) -> None:
     run_k()
     run_p()
     kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
-    plain_ms = cuda_ms(run_p, 3)
+    plain_ms = cuda_ms(run_p, 1)
     kernel_ms.append(cuda_ms(run_k, 20))
     # view read once, edges read once, the output written once
     floor_bytes = 2 * view.numel() * view.element_size() + edges.numel() * 4
@@ -1620,7 +1594,7 @@ def phase_k3_forms(n: int, results: dict) -> None:
         run_k()
         run_p()
         kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
-        plain_ms = cuda_ms(run_p, 3)
+        plain_ms = cuda_ms(run_p, 1)
         kernel_ms.append(cuda_ms(run_k, 20))
         # K3's two kernels, ms per launch as the profiler saw them
         split = {k: (ms / seen, seen) for k, (ms, seen)
@@ -2130,7 +2104,7 @@ def phase_k3_edge_filter(n: int, results: dict) -> None:
         run_k()
         run_p()
         kernel_ms = [cuda_ms(run_k, 20), cuda_ms(run_k, 20)]
-        plain_ms = cuda_ms(run_p, 3)
+        plain_ms = cuda_ms(run_p, 1)
         kernel_ms.append(cuda_ms(run_k, 20))
         split = {k: (ms / seen, seen) for k, (ms, seen)
                  in launch_split(run_k, 10).items() if k.startswith("rr_")}
@@ -2480,7 +2454,7 @@ def phase_k3_swar(n: int, results: dict) -> None:
                 run_p = lambda: merge.resident_round_plain(  # noqa: E731
                     h2, a2, flags, vecs, senders, elementwise="swar", **kw)
                 run_p()
-                plain_ms = cuda_ms(run_p, 2)
+                plain_ms = cuda_ms(run_p, 1)
             outs = len(got) - 2
             floor_bytes = (4 * n * n + n * (1 + 11) + senders.numel() * 4
                            + outs * 4 * n)
@@ -2809,7 +2783,7 @@ def k3_shard_case(n: int, c: int, senders, kw: dict, lanes, plain_at):
             run_p = lambda: merge.resident_round_plain(  # noqa: E731
                 h2, a2, *args[2:], col_offset=s * c, **kw)
             run_p()
-            plain_ms = cuda_ms(run_p, 2)
+            plain_ms = cuda_ms(run_p, 1)
     diffs += [count_diff(sums[i], square[i]) for i in recv]
     torch.cuda.synchronize()
     bound = k3_shard_bound_ms(n, c, senders, nout, len(recv))
@@ -2924,11 +2898,14 @@ def phase_k3_column_shard(results: dict) -> None:
         "all 30 instantiations and config 4's layout (tolerance 0)")
 
 
-def big_round_inputs(n: int, c: int, seed: int, suspect: bool):
+def big_round_inputs(n: int, c: int, seed: int, suspect: bool,
+                     refute_bit: bool = True, same_shifts: bool = False):
     """A shard's pre-tick lanes made on the card (a [131,072 x 16,384]
     block is 2.1 G entries a lane): every status (SUSPECT under
     ``suspect``), ages to the clamp, never-sent entries, mixed flags (bit
-    4 on some rows), deep shifts; aligned arc bases."""
+    4 on half the rows where ``refute_bit``), deep shifts (the store shift
+    the view shift's where ``same_shifts``, else on half the subjects);
+    aligned arc bases."""
     import torch
 
     from gossipfs_tpu_torch.config import INT8_REBASE_WINDOW
@@ -2954,12 +2931,13 @@ def big_round_inputs(n: int, c: int, seed: int, suspect: bool):
         asl[r0:r1] = (((age << 2) | st) - 128).to(torch.int8)
     choice = torch.tensor([0, 4, 5, 6, 1, 7], dtype=torch.int8, **dev)
     flags = choice[torch.randint(0, 6, (n,), generator=g, **dev)]
-    flags = flags + 16 * (torch.rand(n, generator=g, **dev) < 0.5).to(
-        torch.int8)
+    if refute_bit:
+        flags = flags + 16 * (torch.rand(n, generator=g, **dev) < 0.5).to(
+            torch.int8)
     sa = torch.randint(-260, 60, (c,), generator=g, **dev).to(torch.int32)
-    sb = torch.where(torch.rand(c, generator=g, **dev) < 0.5, sa,
-                     torch.randint(-260, 60, (c,), generator=g, **dev)
-                     .to(torch.int32))
+    sb = sa if same_shifts else torch.where(
+        torch.rand(c, generator=g, **dev) < 0.5, sa,
+        torch.randint(-260, 60, (c,), generator=g, **dev).to(torch.int32))
     gr = torch.randint(-200, 60, (c,), generator=g, **dev).to(torch.int32)
     vecs = merge.threshold_stack(sa, sb, gr, INT8_REBASE_WINDOW)
     bases = (torch.randint(0, n // 8, (n,), generator=g, **dev) * 8).to(
@@ -2968,9 +2946,10 @@ def big_round_inputs(n: int, c: int, seed: int, suspect: bool):
 
 
 def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int,
-                     vdt=None):
+                     vdt=None, statuses: int = 4):
     """One merge call's inputs over an [N, C] block, made on the card:
-    post-tick lanes over every status, ages to 63 (a fifth at 0), floor
+    post-tick lanes over the first ``statuses`` statuses (every one by
+    default), ages to 63 (a fifth at 0), floor
     sentinels, dead receivers (their view rows absent), deep and negative
     shifts; an int8 view (``vdt``: another view type, values as
     :func:`merge_inputs` draws them); explicit edges and arc bases."""
@@ -3002,7 +2981,7 @@ def big_merge_inputs(n: int, c: int, fanout: int, hdt, seed: int,
         hb[r0:r1] = h.to(hdt)
         age = torch.randint(0, 64, shape, generator=g, **dev)
         age[torch.rand(shape, generator=g, **dev) < 0.2] = 0
-        st = torch.randint(0, 4, shape, generator=g, **dev)
+        st = torch.randint(0, statuses, shape, generator=g, **dev)
         asl[r0:r1] = pack_age_status(age, st)
     sa = torch.randint(-70_000, 70_000, (c,), generator=g, **dev).to(
         torch.int32)
@@ -3127,13 +3106,20 @@ def runs_equal(a, b) -> bool:
 
 def run_digest(state, carry, metrics) -> str:
     """sha256 of a run's whole outputs (lanes, alive, hb_base, carry and
-    every per-round metric), on the host."""
+    every per-round metric), on the host: the sha256 of each 32 MiB piece
+    of their bytes, hashed in threads (hashlib lets go of the GIL), then
+    the sha256 of those digests in order."""
+    import concurrent.futures
     import hashlib
 
-    h = hashlib.sha256()
+    step = 1 << 25
+    pieces = []
     for t in run_tensors(state, carry, metrics):
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
+        raw = memoryview(t.contiguous().cpu().numpy()).cast("B")
+        pieces += [raw[i:i + step] for i in range(0, max(len(raw), 1), step)]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        digests = pool.map(lambda b: hashlib.sha256(b).digest(), pieces)
+        return hashlib.sha256(b"".join(digests)).hexdigest()
 
 
 def shard_ranks(rank: int, world: int, device, jobs: list) -> list:
@@ -3484,6 +3470,25 @@ def sm_clock() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# cuobjdump runs started by start_sass_dump, by library path
+_SASS_DUMPS: dict = {}
+
+
+def start_sass_dump(lib_path: str) -> None:
+    """Start ``cuobjdump -sass`` of a library in a thread, so that it runs
+    beside the phases before :func:`onepass_sass` reads it."""
+    import concurrent.futures
+
+    tool = cuobjdump()
+    if tool is None:
+        return
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    _SASS_DUMPS[lib_path] = pool.submit(
+        lambda: subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                               text=True, check=True).stdout)
+    pool.shutdown(wait=False)
+
+
 def onepass_sass(lib_path: str) -> dict:
     """Static SASS instruction counts of each rr_onepass_kernel
     instantiation in the built library (``cuobjdump -sass``; NOPs left
@@ -3493,11 +3498,15 @@ def onepass_sass(lib_path: str) -> dict:
     cuobjdump is missing."""
     import re
 
+    dump = _SASS_DUMPS.pop(lib_path, None)
     tool = cuobjdump()
-    if tool is None:
+    if dump is not None:
+        text = dump.result()
+    elif tool is None:
         return {}
-    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
+    else:
+        text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                              text=True, check=True).stdout
     out = {}
     for part in text.split("Function : ")[1:]:
         m = re.match(r"\S*rr_onepass_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)"
@@ -3624,7 +3633,7 @@ def phase_k3_onepass(results: dict) -> None:
                     run_p = lambda: merge.resident_round_plain(  # noqa: E731
                         h2, a2, flags, vecs, senders, **kw)
                     run_p()
-                    plain_ms = cuda_ms(run_p, 2)
+                    plain_ms = cuda_ms(run_p, 1)
                     # one more launch, the first timed round, with its step
                     # timeline
                     reset()
@@ -3679,7 +3688,7 @@ def phase_k3_onepass(results: dict) -> None:
         run_f()
         run_p()
         two_ms, f_ms = in_turns(run_2, run_f, reset)
-        plain_ms = cuda_ms(run_p, 2)
+        plain_ms = cuda_ms(run_p, 1)
         name = merge.kernel_form(16, 8, False, ew)
         bound = k3_shard_bound_ms(n, c, senders, 6, 1)
         held = merge.onepass_clusters(n, c, "aligned_group", fanout=16,
@@ -4496,7 +4505,7 @@ def phase_runners(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 N_CONFIG5 = 65_536     # config 5 on one card (131,072 needs the lanes sharded)
-C5_ROUNDS = 16         # its rounds, cut from 24 for the run's time limit
+C5_ROUNDS = 8          # its rounds, cut from 24 for the run's time limit
 SDFS_TIMING = ("_ms", "elapsed_s", "rounds_per_sec", "placements_per_sec",
                "planner_ms_median", "speedup_vs_realtime")
 
@@ -4583,9 +4592,9 @@ def sdfs_k2_shapes(results: dict) -> None:
 
 def sdfs_config5(results: dict) -> None:
     """BASELINE config 5 through ``run.run_scenario`` on the card at N =
-    65,536 (1,000 files, 16 rounds: the detector's warm-up and timed runs,
-    then the co-sim's warm-up chunk and 3 chunks of 8 rounds, each round
-    one K2 launch); then at N = 4,096 on the kernels and on the plain
+    65,536 (1,000 files, C5_ROUNDS rounds: the detector's warm-up and timed
+    runs, then the co-sim's warm-up chunk and its chunks of 8 rounds, each
+    round one K2 launch); then at N = 4,096 on the kernels and on the plain
     versions: the detection report and the ``cosim`` dict equal, timings
     aside."""
     import torch
@@ -6047,7 +6056,7 @@ def phase_socket_engines(results: dict) -> None:
 # (K4) at N = 16,384 in four variants.
 # ---------------------------------------------------------------------------
 
-PARITY_ROUNDS = 100     # rounds a soak variant (the full 300-round soak
+PARITY_ROUNDS = 60      # rounds a soak variant (the full 300-round soak
                         # ran by itself: PERF.md section 6)
 PARITY_VARIANTS = (("lanes", []), ("swar", ["--elementwise", "swar"]),
                    ("suspicion", ["--suspicion"]),
@@ -6146,6 +6155,230 @@ def phase_analysis(results: dict) -> None:
     analysis_spec(results)
     analysis_soak(results)
     results["analysis"]["seconds"] = time.perf_counter() - t0
+
+
+TOOLS_ROUNDS = 20        # rounds a point or stub row in phase 50 (the
+                        # tools' defaults ran by themselves: PERF.md
+                        # section 6)
+LADDER_ROUNDS = 10      # rounds a measured ladder row (30 by default)
+
+
+def cli_rows(main, argv: list) -> tuple[int, list]:
+    """A CLI's ``main(argv)`` with its standard output captured: (exit
+    code, every JSON line it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.startswith("{")]
+
+
+def stub_runs() -> list:
+    """Phase 50's two stub_bisect runs at N = 16,384: the default list
+    (plain arcs) and ``--arc-align 8 --suspicion`` (aligned groups, the
+    sus stub), as (argv, the stubs they run with their variant defines)."""
+    from gossipfs_tpu_torch import stub_bisect as sb
+    from gossipfs_tpu_torch.ops import merge
+
+    out = []
+    for align, sus in ((1, False), (8, True)):
+        argv = ["--n", str(N_MAIN), "--rounds", str(TOOLS_ROUNDS),
+                "--reps", "1"] + (["--arc-align", "8", "--suspicion"]
+                                  if sus else [])
+        form = merge.kernel_form(sb.bisect_fanout(N_MAIN, align), align)
+        stubs = [s for s in sb.default_stubs(align, False, sus)
+                 if merge.stub_refusal(s, form, sus) is None]
+        out.append((argv, {s: merge.onepass_defines(
+            form, sus, False, "lanes", False, s) for s in stubs}))
+    return out
+
+
+def tools_sweep(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.sweep_rr`` (its main) at N = 16,384,
+    TOOLS_ROUNDS rounds, 1 rep: the four points (rr_resident on / off x
+    lanes / SWAR), each launching only its route's form, once a round,
+    every digest equal; then ``--n 65536 --rr-resident on``: both rows
+    refused by ops/merge.onepass_refusal."""
+    from gossipfs_tpu_torch import sweep_rr
+    from gossipfs_tpu_torch.ops import merge
+
+    merge.reset_launch_counts()
+    rc, rows = cli_rows(sweep_rr.main, [
+        "--n", str(N_MAIN), "--rounds", str(TOOLS_ROUNDS), "--reps", "1"])
+    points, summary = rows[:-1], rows[-1]
+    if rc != 0 or not summary["digests_equal"] or summary["points_run"] != 4:
+        raise AssertionError(f"sweep_rr: {rows}")
+    for r in points:
+        if r["launches"] != {r["route"]: TOOLS_ROUNDS}:
+            raise AssertionError(f"sweep_rr launches: {r}")
+    rc, refused = cli_rows(sweep_rr.main, [
+        "--n", str(N_CAPACITY), "--rounds", "1", "--reps", "1",
+        "--rr-resident", "on"])
+    if rc != 0 or len(refused) != 3 or not all(
+            "onepass_fits" in r.get("skipped", "") for r in refused[:2]):
+        raise AssertionError(f"sweep_rr refusal: {refused}")
+    results["tools"]["sweep_rr"] = {
+        "ms": {f"{r['rr_resident']}/{r['elementwise']}": r["ms_per_round"]
+               for r in points},
+        "digest": points[0]["digest"][:16], "refused": 2}
+    log(f"  sweep_rr N={N_MAIN}: " + ", ".join(
+        f"{r['rr_resident']}/{r['elementwise']} ({r['route']}) "
+        f"{r['ms_per_round']:.4f} ms a round" for r in points)
+        + f"; 4 digests equal ({points[0]['digest'][:16]}); N={N_CAPACITY} "
+        f"rr_resident=on refused: {refused[0]['skipped']}")
+
+
+def tools_anchor(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.shard_anchor --ladder`` (its main)
+    cut to its first two rows and LADDER_ROUNDS rounds, 1 rep: each row
+    measured on K3's two-launch column-shard form (one launch a round, the
+    warm-up's too), its formula bytes equal to the growth of the peak
+    allocated memory within the allocator's rounding; then ``--ladder
+    --budget-only``: (786,432, 16) refused by its bytes, the rest
+    admitted."""
+    from gossipfs_tpu_torch import shard_anchor as sa
+
+    rc, (doc,) = cli_rows(sa.main, [
+        "--ladder", "--ladder-rows", "2", "--rounds", str(LADDER_ROUNDS),
+        "--reps", "1"])
+    rows = doc["ladder"]
+    for r in rows:
+        if not (r["measured"] and r["alloc_matches"]
+                and r["launches"] == {"aligned_group": LADDER_ROUNDS + 1}):
+            raise AssertionError(f"shard_anchor ladder row: {r}")
+        log(f"  shard_anchor ({r['n_global']}, {r['shards']}): "
+            f"[{r['n_global']} x {r['local_cols']}] "
+            f"{r['ms_per_round_per_chip']:.4f} ms a round "
+            f"({r['implied_rounds_per_sec']:.2f} rounds/s, one card's "
+            f"share); shard_bytes {r['shard_bytes']} B, peak growth "
+            f"{r['alloc_bytes']} B; launches {r['launches']}")
+    rc2, (budget,) = cli_rows(sa.main, ["--ladder", "--budget-only"])
+    verdict = {(r["n_global"], r["shards"]): r["admissible"]
+               for r in budget["ladder"]}
+    if rc or rc2 or verdict.pop((786_432, 16)) or not all(verdict.values()):
+        raise AssertionError(f"shard_anchor budget: {budget}")
+    top = budget["ladder"][-1]
+    log(f"  shard_anchor --budget-only: (786432, 16) refused: "
+        f"{top['refused']}; the other {len(verdict)} rows admitted")
+    results["tools"]["shard_anchor"] = {
+        "rows": [[r["n_global"], r["shards"], r["ms_per_round_per_chip"],
+                  r["shard_bytes"], r["alloc_bytes"]] for r in rows],
+        "refused_bytes": top["shard_bytes"]}
+
+
+def stub_checks(results: dict) -> None:
+    """On the card, at N = 16,384: the ``(full)`` row's round (the default
+    rr_onepass library) equal to the plain version's on the same inputs
+    (plain arcs, crash-only); at aligned groups under suspicion, the rcnt
+    and sus variants' rounds equal to ``(full)``'s but for their zeroed
+    outputs (recv_cnt; entered, refuted, held)."""
+    import torch
+
+    from gossipfs_tpu_torch import stub_bisect as sb
+    from gossipfs_tpu_torch.ops import _build, merge
+
+    def one(x0, kw, stub, plain=False):
+        x = dict(x0, hb=x0["hb"].clone(), asl=x0["asl"].clone())
+        if plain:
+            return merge.resident_round_plain(
+                x["hb"], x["asl"], x["flags"], x["vecs"], x["senders"], **kw)
+        return sb.stub_round(x, kw, stub)
+
+    def differ(a, b) -> int:
+        return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+    kw = sb.round_kwargs(sb.bisect_fanout(N_MAIN, 1), 1, "lanes", False,
+                         False)
+    x0 = sb.build_inputs(N_MAIN, kw["fanout"], 1, device="cuda")
+    full, plain = one(x0, kw, ""), one(x0, kw, "", plain=True)
+    if differ(full, plain):
+        raise AssertionError("stub_bisect (full) against plain: "
+                             f"{differ(full, plain)} entries differ")
+    kw = sb.round_kwargs(sb.bisect_fanout(N_MAIN, 8), 8, "lanes", True,
+                         False)
+    x0 = sb.build_inputs(N_MAIN, kw["fanout"], 8, device="cuda")
+    full = one(x0, kw, "")
+    zeroed = {"rcnt": (5,), "sus": (6, 7, 8)}
+    out = {}
+    for stub, idx in zeroed.items():
+        got = one(x0, kw, stub)
+        kept = [i for i in range(len(full)) if i not in idx]
+        d = differ([got[i] for i in kept], [full[i] for i in kept])
+        nz = sum(int(torch.count_nonzero(got[i])) for i in idx)
+        lit = sum(int(torch.count_nonzero(full[i])) for i in idx)
+        if d or nz or not lit:
+            raise AssertionError(f"stub {stub}: {d} entries differ from "
+                                 f"(full), {nz} zeroed entries nonzero "
+                                 f"({lit} in (full))")
+        out[stub] = {"differ": d, "zeroed_nonzero_in_full": lit}
+    results["tools"]["stub_checks"] = out
+    log(f"  stub_bisect checks, N={N_MAIN}: (full) (the default library "
+        f"{_build.lib_path('rr_onepass').name}) against plain: 0 entries "
+        "differ; rcnt, sus against (full): 0 entries differ but their "
+        f"zeroed outputs ({ {k: v['zeroed_nonzero_in_full'] for k, v in out.items()} } "
+        "nonzero in (full))")
+
+
+def tools_stubs(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.stub_bisect`` (its main) at N =
+    16,384, TOOLS_ROUNDS rounds, 1 rep: the default list and ``--arc-align
+    8 --suspicion``; every row one K3 (f) launch a round, the ``(full)``
+    row on the default library, each stub on its variant; then
+    :func:`stub_checks`."""
+    from gossipfs_tpu_torch import stub_bisect as sb
+    from gossipfs_tpu_torch.ops import _build, merge
+
+    out = results["tools"]["stubs"] = {}
+    for argv, variants in stub_runs():
+        merge.reset_launch_counts()
+        rc, (head, *rows) = cli_rows(sb.main, argv)
+        if rc != 0 or [r["stub"] for r in rows] != head["stubs"] or \
+                head["stubs"] != [s or "(full)" for s in variants]:
+            raise AssertionError(f"stub_bisect {argv}: {head} {rows}")
+        for r in rows:
+            lib = _build.lib_path("rr_onepass", variants[
+                "" if r["stub"] == "(full)" else r["stub"]]).name
+            if r["launches_a_round"] != 1.0 or r["library"] != lib:
+                raise AssertionError(f"stub_bisect row: {r} ({lib})")
+        key = head["form"] + (" sus" if head["suspicion"] else "")
+        out[key] = {r["stub"]: r["ms_per_round"] for r in rows}
+        log(f"  stub_bisect {head['form']}{' --suspicion' if head['suspicion'] else ''} "
+            f"(fanout {head['fanout']}; not run: {sorted(head['not_run'])}): "
+            + ", ".join(f"{r['stub']} {r['ms_per_round']:.4f}"
+                        for r in rows)
+            + " ms a round, one K3 (f) launch a round each")
+    stub_checks(results)
+
+
+def tools_claims(results: dict) -> None:
+    """``python -m gossipfs_tpu_torch.verify_claims --only headline soak
+    spec_clean trace_invariants`` (its main, each claim a subprocess on
+    the card): every one PASS."""
+    from gossipfs_tpu_torch import verify_claims
+
+    only = ["headline", "soak", "spec_clean", "trace_invariants"]
+    rc, rows = cli_rows(verify_claims.main, ["--only", *only])
+    claims, summary = rows[:-1], rows[-1]
+    if rc != 0 or not summary["all_pass"] or [c["claim"] for c in
+                                               claims] != only:
+        raise AssertionError(f"verify_claims: {rows}")
+    results["tools"]["claims"] = {c["claim"]: c["measured"] for c in claims}
+    log("  verify_claims: " + ", ".join(
+        f"{c['claim']} {c['result']} ({c['measured']} against "
+        f"{c['claimed']})" for c in claims))
+
+
+def phase_tools(results: dict) -> None:
+    results["tools"] = {}
+    t0 = time.perf_counter()
+    tools_sweep(results)
+    tools_anchor(results)
+    tools_stubs(results)
+    tools_claims(results)
+    results["tools"]["seconds"] = time.perf_counter() - t0
 
 
 def onepass_summary(results: dict) -> dict:
@@ -6305,6 +6538,9 @@ def main_path_summary(results: dict) -> dict:
     out["48"] = {"seconds": so["seconds"]}
     # the analyzer and the parity soak (phase 49): its whole document
     out["49 analysis"] = results["analysis"]
+    # the tools (phase 50): sweep_rr's points, the ladder rows, the stub
+    # rows' ms a round, the claims measured
+    out["50 tools"] = results["tools"]
     return out
 
 
@@ -6371,7 +6607,7 @@ DETAIL_KEYS = ("43 curves", "44 conformance", "44 t_fail", "44 suspicion",
                "44 scenarios", "44 entry", "45 scale", "45 lanes",
                "45 campaign", "45 codec", "47 roundprof", "48 native",
                "48 udp", "48 conformance", "48 native_rt", "48 deploy",
-               "49 analysis")
+               "49 analysis", "50 tools")
 
 
 def split_details(out: dict) -> tuple[dict, dict]:
@@ -6475,6 +6711,9 @@ def main() -> int:
     # a fault in native code (the kernels, the C++ engine, a library)
     # prints every thread's Python stack instead of dying silently
     faulthandler.enable(all_threads=True)
+    # past 1,100 s (the limit is 1,200) every thread's stack goes to
+    # standard error once, so that a run stopped at the limit shows where
+    faulthandler.dump_traceback_later(1_100, exit=False)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6487,51 +6726,84 @@ def main() -> int:
     log(f"  nvidia-smi: {smi}")
     t0 = time.perf_counter()
     # the native C++ engine (phase 48) compiles with g++ beside the nvcc
-    # builds; a failed build raises here
+    # builds; a failed build raises before phase 3
     import concurrent.futures
 
     from gossipfs_tpu_torch import native
 
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(native.load_library)
-        _build.build(verbose=True)
-        host.result()
-    log(f"[2] built {sorted(_build.SIGNATURES)} and the native engine "
-        f"({native._LIB_PATH.name}) in {time.perf_counter() - t0:.2f} s")
-    for kernel, text in _build.build_logs.items():
-        for line in text.strip().splitlines():
-            log(f"  {kernel}: {line}")
+    # every nvcc build starts now, at a lower CPU priority than this
+    # process (phase 50's stub_bisect variants of rr_onepass at the
+    # lowest), and nothing waits for them here: a kernel's first launch
+    # waits for its own build (ops/_build.load).  The phases that need
+    # only the separate-pass kernels (K1, K4, K2, K5, which build in
+    # seconds) run first, in the order their builds end, while K3's two
+    # libraries and the variants finish
+    variants = sorted({("rr_onepass", d) for _, v in stub_runs()
+                       for d in v.values() if d})
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    host = pool.submit(native.load_library)
+    _build.start(list(_build.SIGNATURES), verbose=True, nice=5)
+    _build.start(variants, verbose=True, nice=19)
+    log(f"[2] building {sorted(_build.SIGNATURES)}, {len(variants)} stage "
+        "variants of rr_onepass and the native engine beside phases 18, 8, "
+        "11, 14, 7, 9, 10, 12 and 36 (the separate-pass kernels) and 3, 6, "
+        "13, 35 and 41 (K3's two-launch form)")
     results: dict = {}
-    log(f"[3] resident_round kernel vs plain, one round, N={N_MAIN}")
-    phase_kernel_vs_plain(N_MAIN, results)
     scan = scan_rounds()
-    log(f"[4] run_rounds kernel vs plain, {scan} rounds, N={N_MAIN}")
-    phase_scan_vs_plain(scan)
-    log(f"[5] main path: headline, N={N_MAIN}, 100 rounds")
-    phase_main_path(results)
-    log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds")
-    phase_capacity(10, results)
-    log("[7] K2 fused_merge_update vs plain, three shapes")
-    phase_k2(results)
+    log(f"[18] K1 fanout_max_merge vs plain, N={N_MAIN} and ragged")
+    phase_k1(results)
     log(f"[8] K4 arc_merge_update vs plain, N={N_MAIN}")
     phase_k4(results)
+    log(f"[11] eventful arc path: headline N={N_MAIN}, 1% crash, 1% rejoin, "
+        f"{EVENTFUL_ROUNDS} rounds")
+    phase_eventful_arc(results, EVENTFUL_ROUNDS)
+    log("[14] suspect forms of K2 and K4, and K5 stripe_merge_update, vs "
+        "plain")
+    phase_suspect_merges(results)
+    log("[7] K2 fused_merge_update vs plain, three shapes")
+    phase_k2(results)
     log(f"[9] separate-pass run_rounds, kernels vs plain, {scan} "
         "rounds")
     phase_general_scan_vs_plain(scan)
     phase_flagship_step_vs_plain(scan)
     log("[10] main path: config 3 sim-10k-crash, N=10240, 120 rounds")
     phase_config3_main(results)
-    log(f"[11] eventful arc path: headline N={N_MAIN}, 1% crash, 1% rejoin, "
-        f"{EVENTFUL_ROUNDS} rounds")
-    phase_eventful_arc(results, EVENTFUL_ROUNDS)
     log(f"[12] capacity, config 4 fault model: N={N_CAPACITY}, 10 rounds")
     phase_config4_capacity(10, results)
+    log("[36] K2, K4, K5 over column blocks vs plain")
+    phase_merge_column_blocks(results)
+    log(f"[3] resident_round kernel vs plain, one round, N={N_MAIN}")
+    phase_kernel_vs_plain(N_MAIN, results)
+    log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds")
+    phase_capacity(10, results)
     log(f"[13] K3 suspicion + Lifeguard form vs plain, one round, "
         f"N={N_MAIN}")
     phase_k3_suspicion(N_MAIN, results)
-    log("[14] suspect forms of K2 and K4, and K5 stripe_merge_update, vs "
-        "plain")
-    phase_suspect_merges(results)
+    log(f"[35] K3 column-shard form vs the square launch and plain: 30 "
+        f"instantiations over 4 shards [{N_MAIN} x {N_SHARD_TALL}], config "
+        f"4's layout [{N_CONFIG4} x {N_CONFIG4 // 8}]")
+    phase_k3_column_shard(results)
+    log(f"[41] K3 two-launch form at the N only it runs: N={N_CAPACITY} "
+        f"(aligned, edges; lanes, SWAR; crash-only, suspicion), "
+        f"N={N_ADVANCE} (edges), [{N_CAPACITY} x {N_CAPACITY // 8}]")
+    phase_k3_two_launch_large(results)
+    t1 = time.perf_counter()
+    paths = _build.build(list(_build.SIGNATURES) + variants, verbose=True)
+    host.result()
+    pool.shutdown()
+    # cuobjdump of K3 (f)'s library (phase 40) runs beside phases 4-39
+    start_sass_dump(str(paths["rr_onepass"]))
+    log(f"[2] built {sorted(_build.SIGNATURES)}, {len(variants)} stage "
+        f"variants of rr_onepass and the native engine "
+        f"({native._LIB_PATH.name}) {time.perf_counter() - t0:.2f} s after "
+        f"they started (waited {time.perf_counter() - t1:.2f} s here)")
+    for kernel, text in _build.build_logs.items():
+        for line in text.strip().splitlines():
+            log(f"  {kernel}: {line}")
+    log(f"[4] run_rounds kernel vs plain, {scan} rounds, N={N_MAIN}")
+    phase_scan_vs_plain(scan)
+    log(f"[5] main path: headline, N={N_MAIN}, 100 rounds")
+    phase_main_path(results)
     log(f"[15] suspicion run_rounds, kernels vs plain, {scan} rounds")
     phase_suspicion_scans(scan)
     log(f"[16] main path A: bench --suspicion headline, N={N_MAIN}, 100 "
@@ -6540,8 +6812,6 @@ def main() -> int:
     log(f"[17] main path B: suspicion_rr, N={N_MAIN}, 1% crash, 1% rejoin, "
         f"{EVENTFUL_ROUNDS} rounds")
     phase_suspicion_rr_main(results, EVENTFUL_ROUNDS)
-    log(f"[18] K1 fanout_max_merge vs plain, N={N_MAIN} and ragged")
-    phase_k1(results)
     log(f"[19] K3 explicit-edge and plain-arc forms vs plain, one round, "
         f"N={N_MAIN}")
     phase_k3_forms(N_MAIN, results)
@@ -6592,12 +6862,6 @@ def main() -> int:
         f"gossipfs_tpu_torch.frontier --elementwise swar (N={N_CAPACITY}, "
         "20 rounds)")
     phase_frontier(results, "swar")
-    log(f"[35] K3 column-shard form vs the square launch and plain: 30 "
-        f"instantiations over 4 shards [{N_MAIN} x {N_SHARD_TALL}], config "
-        f"4's layout [{N_CONFIG4} x {N_CONFIG4 // 8}]")
-    phase_k3_column_shard(results)
-    log("[36] K2, K4, K5 over column blocks vs plain")
-    phase_merge_column_blocks(results)
     log(f"[37] main paths F and F': the headline sharded over 2 rank "
         f"processes, N={N_MAIN}, 100 rounds, lanes and SWAR")
     phase_sharded_headline(results)
@@ -6611,10 +6875,6 @@ def main() -> int:
         f"instantiations, N={N_MAIN}, square and the 2 shards "
         f"[{N_MAIN} x {N_MAIN // 2}]")
     phase_k3_onepass(results)
-    log(f"[41] K3 two-launch form at the N only it runs: N={N_CAPACITY} "
-        f"(aligned, edges; lanes, SWAR; crash-only, suspicion), "
-        f"N={N_ADVANCE} (edges), [{N_CAPACITY} x {N_CAPACITY // 8}]")
-    phase_k3_two_launch_large(results)
     print(json.dumps({"onepass": onepass_summary(results)}))
     log("[42] K2, K1, K4 and K5 at every timed shape: stripe, ring, "
         "items, cluster, blocks held, registers, spills")
@@ -6667,6 +6927,14 @@ def main() -> int:
         f"rounds: {', '.join(n for n, _ in PARITY_VARIANTS)})")
     phase_analysis(results)
     log(f"  phase 49 in {results['analysis']['seconds']:.2f} s")
+    log(f"[50] the tools: python -m gossipfs_tpu_torch.sweep_rr "
+        f"(N={N_MAIN}, {TOOLS_ROUNDS} rounds, 4 points; N={N_CAPACITY} "
+        f"refused), shard_anchor --ladder (2 rows, {LADDER_ROUNDS} rounds; "
+        f"--budget-only), stub_bisect (N={N_MAIN}, {TOOLS_ROUNDS} rounds: "
+        "the default list, --arc-align 8 --suspicion), verify_claims "
+        "--only headline soak spec_clean trace_invariants")
+    phase_tools(results)
+    log(f"  phase 50 in {results['tools']['seconds']:.2f} s")
     src = "gossipfs_tpu_torch/csrc/"
     mp = "gossipfs_tpu/ops/merge_pallas.py:"
     swar = results["k3_swar"]
@@ -6818,6 +7086,7 @@ def main() -> int:
         + socket_kernel_rows(results, src, mp)}))
     # after the kernels line, so that it ends within the last 24,000 bytes
     print(compact_json({"main_paths": paths}))
+    faulthandler.cancel_dump_traceback_later()
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

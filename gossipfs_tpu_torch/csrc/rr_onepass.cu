@@ -20,7 +20,8 @@
 // bound by instruction issue, not bytes, so the design cuts the
 // instructions a word and the waits (chip_smoke.py's one-pass phase times
 // this kernel beside the two-launch form, prints its step timeline and
-// counts its SASS; --onepass-ablation undoes its choices one at a time).
+// counts its SASS; python -m gossipfs_tpu_torch.stub_bisect times it with
+// stages compiled out, the RR_STUB variants of rr_onepass.cuh).
 //
 // Design.  A Hopper block has 227 KB of shared memory, far less than the
 // TPU's 102 MB stripe, so a thread-block cluster of kCtas = 8 CTAs owns one
@@ -176,7 +177,7 @@ struct MergeSink {
                        const uint32_t (&refuted)[kSeg],
                        const uint32_t (&held)[kSeg]) {
     add(kSumMember, h, member);
-    if (kSus) {
+    if (kSus && !stubbed(kStubSus)) {
       add(kSumRefuted, h, refuted);
       add(kSumHeld, h, held);
     }
@@ -435,6 +436,24 @@ cudaError_t launch_mode(int suspect, int lh, const Params& p, int* clusters,
   return launch_shape<true, true, kForm, kSwar>(p, clusters, s);
 }
 
+#if defined(RR_ONLY_FORM)
+// A stage variant's build (ops/_build.py, load with defines) compiles the
+// one instantiation it is built for: merge form RR_ONLY_FORM, mode
+// RR_ONLY_MODE (0 crash-only, 1 suspicion, 2 suspicion + Lifeguard),
+// RR_ONLY_SWAR and RR_ONLY_BLOCK; a launch that asks for another returns
+// cudaErrorInvalidValue.
+cudaError_t dispatch(int form, int suspect, int lh, int swar, const Params& p,
+                     int* clusters, cudaStream_t s) {
+  constexpr bool kSus = RR_ONLY_MODE > 0;
+  constexpr bool kLh = RR_ONLY_MODE > 1;
+  const bool block = !(p.nc == p.n && p.col_offset == 0);
+  if (form != RR_ONLY_FORM || (suspect != 0) != kSus || (lh != 0) != kLh ||
+      (swar != 0) != (RR_ONLY_SWAR != 0) || block != (RR_ONLY_BLOCK != 0))
+    return cudaErrorInvalidValue;
+  return launch<kSus, kLh, RR_ONLY_FORM, RR_ONLY_SWAR != 0,
+                RR_ONLY_BLOCK != 0>(p, clusters, s);
+}
+#else
 template <bool kSwar>
 cudaError_t launch_form(int form, int suspect, int lh, const Params& p,
                         int* clusters, cudaStream_t s) {
@@ -452,6 +471,13 @@ cudaError_t launch_form(int form, int suspect, int lh, const Params& p,
       return launch_mode<kFormFilterRows, kSwar>(suspect, lh, p, clusters, s);
   }
 }
+
+cudaError_t dispatch(int form, int suspect, int lh, int swar, const Params& p,
+                     int* clusters, cudaStream_t s) {
+  return swar ? launch_form<true>(form, suspect, lh, p, clusters, s)
+              : launch_form<false>(form, suspect, lh, p, clusters, s);
+}
+#endif
 
 int run(void* hb, void* asl, const void* flags, const void* vecs,
         const void* senders, void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset, int fanout, int form,
@@ -496,8 +522,7 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
         p.recv, 0, sizeof(int32_t) * (lh ? 2 : 1) * (size_t)n, s);
     if (e != cudaSuccess) return (int)e;
   }
-  return (int)(swar ? launch_form<true>(form, suspect, lh, p, clusters, s)
-                    : launch_form<false>(form, suspect, lh, p, clusters, s));
+  return (int)dispatch(form, suspect, lh, swar, p, clusters, s);
 }
 
 }  // namespace

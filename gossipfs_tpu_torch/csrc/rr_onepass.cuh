@@ -70,6 +70,35 @@ constexpr int kCtas = 1 << kCtasLog;  // CTAs per cluster
 constexpr int kAlign = 8;          // rows per sender group
 constexpr int kChunk = 8;          // sender rows gathered in one batch
 
+// Stage stubs: a build with -DRR_STUB=<mask> compiles the masked stages of
+// the stripe walk out, so that a round timed without them prices each
+// (python -m gossipfs_tpu_torch.stub_bisect; the JAX kernel's ``_stub``,
+// gossipfs_tpu/ops/merge_pallas.py:2642).  The default, 0, compiles every
+// stage: each stub is an ``if constexpr`` on a constant that is false
+// there.
+//   vtick   the tick and view encode become a raw copy of hb into the park
+//           and the view (nor is the group-max table built: it rides them)
+//   wmax    the aligned forms' group-max table is not built
+//   gather  best stays at the gathers' start row (gather_none)
+//   epi     the parked (ticked) lanes are written back; every count is 0
+//   rcnt    the per-receiver counts are 0, with no global atomics
+//   sus     the entered, refuted and held sums are 0 (the suspicion
+//           transitions still run)
+// A stubbed round's outputs are its stage's meaning, not the round's;
+// the table and view the vtick and wmax stubs leave unbuilt are read as
+// shared memory holds them.
+#ifndef RR_STUB
+#define RR_STUB 0
+#endif
+enum : unsigned {
+  kStubVtick = 1, kStubWmax = 2, kStubGather = 4, kStubEpi = 8,
+  kStubRcnt = 16, kStubSus = 32
+};
+
+OP_HD constexpr bool stubbed(unsigned stages) {
+  return ((unsigned)(RR_STUB) & stages) != 0;
+}
+
 // the merge forms (resident_round.cu's rr_round ``form``)
 enum {
   kFormGroup = 0, kFormEdges = 1, kFormArc = 2, kFormFilterGroup = 3,
@@ -400,6 +429,13 @@ OP_HD void step1(const int8_t* __restrict__ hb,
       const int at = (lg * kAlign + r) * kC + 4 * kSeg * h;
       const Seg ih = ih_next;
       if (r + 1 < kAlign) ih_next = load_seg(hrow + (size_t)(r + 1) * sp.nc);
+      if constexpr (stubbed(kStubVtick)) {
+        // the raw hb row into the park (asl is parked raw already) and the
+        // view
+        store_seg(pk.hb + at, ih);
+        if (kFull) store_seg(pk.view + at, ih);
+        continue;
+      }
       const Seg ia = load_seg(pk.asl + at);
       // the diagonal's byte in word k of row0 + r is d0 - 4k
       const int d0 = row0 + r - (sp.gcol0 + 4 * kSeg * h);
@@ -437,18 +473,22 @@ OP_HD void step1(const int8_t* __restrict__ hb,
           seen[k] |= tv.fail;
           first[k] = swar::sel(swar::bytes(fresh), swar::word(r), first[k]);
         }
-        if (kSus) ent[k] += tv.entered >> 7;
+        if (kSus && !stubbed(kStubSus)) ent[k] += tv.entered >> 7;
       }
       store_seg(pk.hb + at, th);
       store_seg(pk.asl + at, ta);
       if (kFull)
         store_seg(pk.view + at, enc);
+      else if (stubbed(kStubWmax))
+        continue;
       else if (r & 1)
         gm.add2(prev, enc);
       else
         prev = enc;
     }
-    if (!kFull) put_group(lg * kCtas + cta, h, gm.seg());
+    if (!kFull && !stubbed(kStubVtick | kStubWmax))
+      put_group(lg * kCtas + cta, h, gm.seg());
+    if (stubbed(kStubEpi)) continue;
     OP_UNROLL
     for (int k = 0; k < kSeg; ++k) {
       if (!(det[k] | ent[k])) continue;
@@ -613,6 +653,16 @@ OP_HD MergeWord merge_word(uint32_t hb, uint32_t asl, uint32_t best, bool recv,
   return out;
 }
 
+// the epi stub's hold on a value it does not store: on the card an empty
+// asm that reads it, so the code computing it stays
+OP_HD void keep_live(const Seg& s) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("" ::"r"(s.w[0]), "r"(s.w[1]), "r"(s.w[2]), "r"(s.w[3]));
+#else
+  (void)s;
+#endif
+}
+
 // the sum of a word's bytes (each at most 63)
 OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
 
@@ -661,10 +711,23 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     int listed = 0, held = 0;
     if (valid) {
       const bool recv = (m.flags & 4) != 0;
-      const Seg best = recv ? gather(m, row, h) : splat(0xFFFFFFFFu);
+      const Seg best = recv ? (stubbed(kStubGather)
+                                   ? splat(gather_none(kForm))
+                                   : gather(m, row, h))
+                            : splat(0xFFFFFFFFu);
       const int at = li * kC + 4 * kSeg * h;
       const Seg ph = load_seg(pk.hb + at);
       const Seg pa = load_seg(pk.asl + at);
+      if constexpr (stubbed(kStubEpi)) {
+        // the parked lanes back as they stand, no count; best stays live,
+        // so that the gather is not compiled out with the epilogue
+        keep_live(best);
+        const size_t off = (size_t)row * sp.nc + col;
+        store_seg(hb + off, ph);
+        store_seg(asl + off, pa);
+        restage(li, h);
+        continue;
+      }
       if (!kSwar) load_vecs<true>(vs, h, vec);
       Seg oh, oa;
       uint32_t ls = 0, hs = 0;
@@ -677,8 +740,10 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         if (recv) cw[k] += mw.listed;
         ls += mw.listed;
         if (kSus) {
-          rw[k] += mw.refuted;
-          hw[k] += mw.held;
+          if (!stubbed(kStubSus)) {
+            rw[k] += mw.refuted;
+            hw[k] += mw.held;
+          }
           hs += mw.held;
         }
       }
@@ -689,9 +754,9 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
       listed = byte_sum(ls);
       held = byte_sum(hs);
     }
-    sink.row(row, valid, listed, held);
+    if (!stubbed(kStubRcnt | kStubEpi)) sink.row(row, valid, listed, held);
   }
-  sink.subj(h, cw, rw, hw);
+  if (!stubbed(kStubEpi)) sink.subj(h, cw, rw, hw);
 }
 
 // One stripe output: column ``c`` (0..kC) of output stat ``s`` (member_cnt,
@@ -701,6 +766,7 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
 // there).
 template <typename CtaCounts>
 OP_HD int finish(int s, int c, CtaCounts cta_counts) {
+  if (stubbed(kStubEpi)) return 0;
   if (s == 2) {
     int acc = (int)cta_counts(0)[kFobsAt + c];
     for (int q = 1; q < kCtas; ++q) {

@@ -143,6 +143,15 @@ ONEPASS_STAMPS = 5
 # the merge forms that gather other CTAs' sender rows (the others gather
 # 8-row group maxes from a whole table each CTA holds)
 FULL_VIEW_FORMS = ("edges", "arc", "filter_rows")
+# K3 (f)'s stage stubs, the RR_STUB bits of csrc/rr_onepass.cuh (which
+# says what each compiles out): a variant build of rr_onepass.cu
+# (onepass_defines) for python -m gossipfs_tpu_torch.stub_bisect
+STUB_STAGES = {"vtick": 1, "wmax": 2, "gather": 4, "epi": 8, "rcnt": 16,
+               "sus": 32}
+# the JAX kernel's stage stubs that have no counterpart here
+STUB_ABSENT = {"wring": "the port has no ring-rotated group-max build "
+                        "(its aligned forms push each group max straight "
+                        "into every CTA's table)"}
 
 
 def kernel_form(fanout: int | None, arc_align: int,
@@ -500,6 +509,14 @@ def arc_group_window_max(view: torch.Tensor, edges2: torch.Tensor,
     return masked_group_window_max(gm, edges2, fanout // align, align)
 
 
+def two_launch_view_rows(n: int, form: str) -> int:
+    """Rows of the view K3's two-launch form writes between its launches
+    for ``n`` rows in merge ``form``: the 8-row group maxes (the aligned
+    forms) or every sender row; its columns are the round's."""
+    return n // KERNEL_ALIGN if form in ("aligned_group",
+                                         "filter_group") else n
+
+
 def onepass_smem(n: int, form: str) -> int:
     """Shared memory a CTA of the one-pass kernel needs for ``n`` rows in
     merge ``form``: both ticked lanes of its ``n / ONEPASS_CTAS`` rows over
@@ -545,6 +562,43 @@ def onepass_refusal(n: int, c: int, form: str,
             f"{ONEPASS_CTAS * KERNEL_ALIGN} == 0, C % {ONEPASS_C} == 0, "
             f"{onepass_smem(n, form)} B of shared memory a CTA against "
             f"{ONEPASS_SMEM} B)")
+
+
+def stub_refusal(stub: str, form: str, suspect: bool) -> str | None:
+    """Why K3 (f) in merge ``form`` has no stage that ``stub`` (stage names
+    joined by commas, :data:`STUB_STAGES`) compiles out: None where each
+    named stage runs there.  An unknown stage raises ``ValueError``."""
+    for stage in filter(None, stub.split(",")):
+        if stage in STUB_ABSENT:
+            return f"{stage}: {STUB_ABSENT[stage]}"
+        if stage not in STUB_STAGES:
+            raise ValueError(f"unknown stage stub {stage!r}: one of "
+                             f"{sorted(STUB_STAGES) + sorted(STUB_ABSENT)}")
+        if stage == "wmax" and form in FULL_VIEW_FORMS:
+            return (f"wmax: the {form} form gathers its senders' view rows "
+                    "directly, with no group-max table or window pass")
+        if stage == "sus" and not suspect:
+            return "sus: the crash-only round has no suspicion sums"
+    return None
+
+
+def onepass_defines(form: str, suspect: bool, lh: bool, elementwise: str,
+                    block: bool, stub: str) -> tuple[str, ...]:
+    """The defines of K3 (f)'s variant build with ``stub``'s stages
+    compiled out (``RR_STUB``), of the one instantiation a round of this
+    merge ``form``, mode, ``elementwise`` form and shape launches
+    (``RR_ONLY_*``, csrc/rr_onepass.cu); empty for no stub: the default
+    library."""
+    why = stub_refusal(stub, form, suspect)
+    if why is not None:
+        raise ValueError(f"resident_round: no such stage to stub: {why}")
+    mask = sum(STUB_STAGES[s] for s in set(filter(None, stub.split(","))))
+    if not mask:
+        return ()
+    return (f"RR_STUB={mask}", f"RR_ONLY_FORM={FORMS.index(form)}",
+            f"RR_ONLY_MODE={int(suspect) + int(lh)}",
+            f"RR_ONLY_SWAR={int(elementwise == 'swar')}",
+            f"RR_ONLY_BLOCK={int(block)}")
 
 
 def _row_chunk(n: int, c: int, align: int) -> int:
@@ -828,7 +882,7 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                    lh_multiplier: int = 0, edge_filter: bool = False,
                    elementwise: str = "lanes", col_offset: int = 0,
                    onepass: bool = False,
-                   timeline: torch.Tensor | None = None):
+                   timeline: torch.Tensor | None = None, stub: str = ""):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
     senders and ``elementwise`` ask for, over ``[N, C]`` lanes from global
@@ -839,7 +893,12 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     ``vecs`` does not start on a 16-byte boundary (the kernel moves 16-byte
     row segments), on any device.  ``timeline`` (one-pass, CUDA only):
     an int64 ``[C / 32, ONEPASS_CTAS, ONEPASS_STAMPS]`` tensor each CTA
-    writes its stripe's step times into (:func:`onepass_timeline_split`)."""
+    writes its stripe's step times into (:func:`onepass_timeline_split`).
+    ``stub`` (one-pass, CUDA only; stage names joined by commas,
+    :data:`STUB_STAGES`) launches K3 (f)'s variant build with those
+    stages compiled out, counted as the round's: a round that computes
+    what the stubs leave (csrc/rr_onepass.cuh), for timing.  The plain
+    version is the oracle and takes no stub."""
     _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
                   edge_filter, col_offset)
     n, c = hb.shape
@@ -852,6 +911,10 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     why = onepass_refusal(n, c, base_form, elementwise) if onepass else None
     if why is not None:
         raise ValueError(f"resident_round: {why}")
+    if stub and (not onepass or hb.device.type != "cuda"):
+        raise ValueError("resident_round: a stage stub is a variant of the "
+                         "one-pass CUDA kernel (onepass=True on a CUDA "
+                         "device); the plain version takes none")
     for name, t in (("hb", hb), ("asl", asl), ("vecs", vecs)):
         if onepass and t.data_ptr() % 16:
             raise ValueError(
@@ -882,15 +945,16 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     width = senders.shape[1] if fanout is None else fanout
     lh = int(suspect and lh_multiplier > 0)
     if onepass:
+        defines = onepass_defines(base_form, suspect, bool(lh),
+                                  elementwise, c != n, stub)
         return _launch_onepass(hb, asl, flags, vecs, senders, width,
                                base_form, arc_align, t_fail, t_cooldown,
                                age_clamp, suspect, lh, thr, thr_hi, sw,
-                               col_offset, form, timeline)
+                               col_offset, form, timeline, defines)
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
-        g_rows = (n // KERNEL_ALIGN
-                  if base_form in ("aligned_group", "filter_group") else n)
-        gmax = torch.empty((g_rows, c), dtype=torch.int8, device=hb.device)
+        gmax = torch.empty((two_launch_view_rows(n, base_form), c),
+                           dtype=torch.int8, device=hb.device)
         # per subject [C] (member_cnt, n_det, first_obs; entered, refuted,
         # held), per receiver [N] (recv_cnt; suspect_cnt)
         subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,
@@ -912,8 +976,9 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                     base_form: str, arc_align: int, t_fail: int,
                     t_cooldown: int, age_clamp: int, suspect: bool, lh: int,
                     thr: int, thr_hi: int, sw: bool, col_offset: int,
-                    form: str, timeline):
-    """Launch ``csrc/rr_onepass.cu`` for :func:`resident_round`."""
+                    form: str, timeline, defines: tuple = ()):
+    """Launch ``csrc/rr_onepass.cu`` (its variant built with ``defines``)
+    for :func:`resident_round`."""
     from gossipfs_tpu_torch.ops import _build
 
     n, c = hb.shape
@@ -924,7 +989,7 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
             or not timeline.is_contiguous()):
         raise ValueError(f"resident_round: timeline must be a contiguous "
                          f"int64 {shape} tensor on {hb.device}")
-    lib = _build.load("rr_onepass")
+    lib = _build.load("rr_onepass", defines)
     dev = hb.device
     with torch.cuda.device(dev):
         subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,

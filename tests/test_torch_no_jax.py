@@ -77,7 +77,8 @@ def test_port_imports_without_jax():
                 "analysis.rules_conformance", "analysis.rules_device",
                 "analysis.rules_native", "analysis.rules_obs",
                 "analysis.rules_ownership", "analysis.rules_spec",
-                "analysis.__main__", "analysis.spec_verify", "parity_soak"):
+                "analysis.__main__", "analysis.spec_verify", "parity_soak",
+                "sweep_rr", "shard_anchor", "stub_bisect", "verify_claims"):
         assert f"gossipfs_tpu_torch.{mod}" in doc["modules"]
 
 
