@@ -13,10 +13,12 @@ Phases (any failure exits non-zero before the last line is printed):
    Nothing waits for them at once: a kernel's first launch waits for its
    own build.  Phases 18, 8, 11, 14, 7, 9, 10, 12 and 36, which need only
    the separate-pass kernels (K1, K4, K2, K5: built in seconds), run
-   first, then 3, 6, 13, 35 and 41, which need only K3's two-launch
-   library, while K3's one-pass library and phase 50's stub variants (at
-   the lowest priority) finish; then the script waits for every build and
-   goes on with phase 4, in the order of the numbers;
+   first, then 3, 13, 35 and 41, which need only K3's two-launch library,
+   while K3's two one-pass libraries (``rr_onepass``, its 8 x 32
+   blocking, and ``rr_onepass_wide``, its 16 x 16 one) and phase 50's
+   stub variants (at the lowest priority) finish; phase 6 then waits for
+   the wide library, the script for every build, and goes on with phase
+   4, in the order of the numbers;
 3. K3 (resident round) against plain, one round at N = 16,384 on random
    pre-tick lanes (all statuses, ages up to the clamp, never-sent entries,
    mixed flags, deep negative shifts): every output bit-equal; times of
@@ -32,8 +34,10 @@ Phases (any failure exits non-zero before the last line is printed):
    ``rr_resident="off"`` (K3's two-launch form): equal lanes, carry and
    metrics, its ms a round beside (phases 16, 21, 27, 28, 32 and 37 run
    their main paths both ways too);
-6. K3 capacity: N = 65,536 for 10 rounds on K3's two-launch form, one
-   launch a round;
+6. K3 capacity: N = 65,536 for 10 rounds on K3's one-pass form (its
+   16 x 16 blocking), one launch a round, then again with
+   ``rr_resident="off"`` (the two-launch form): equal lanes, carry and
+   metrics;
 7. K2 (explicit-edge merge) against plain, one call per dtype pair shape
    and detection-stats setting, on corner-case lanes (all statuses, ages
    up to 63, floor sentinels, deep and negative shifts, dead receivers):
@@ -118,12 +122,15 @@ Phases (any failure exits non-zero before the last line is printed):
     at its defaults (N = 65,536, F = 16, 20 rounds): rounds/s and peak
     memory, which must stay under 40 GiB; the trace's ``remove`` rows
     number at most N and ``obs.timeline.analyze`` gives the JSON's TTD
-    and FPR from it;
+    and FPR from it; one K3 (f) launch a round (16 x 16); then the same
+    frontier with ``rr_resident="off"`` in this process: its digest of
+    the lanes, carry and metrics equal (phase 34 likewise);
 23. ``PackedDetector`` at the CLI's capacity point N = 49,152: advance 3,
     crash, advance 8, join, advance 10: the detection lands at crash +
-    t_fail, the joiner is alive; ms per advance and for the advance that
-    joins; at N = 16,384 the same script's lanes equal ``run_rounds`` with
-    the same scheduled events;
+    t_fail, the joiner is alive, one K3 (f) launch a round; ms per advance
+    and for the advance that joins; the same session with
+    ``rr_resident="off"``: equal events and lanes; at N = 16,384 the same
+    script's lanes equal ``run_rounds`` with the same scheduled events;
 24. ``SimDetector`` on config 3 (N = 10,240): two rounds, two crashes,
     then ``advance_bulk(60, snapshot_every=10)`` against
     ``advance_bulk(60)`` (equal state and events), then an interactive
@@ -226,10 +233,21 @@ Phases (any failure exits non-zero before the last line is printed):
     before its redesign beside them, the byte bound, the step timeline of
     the kernels line's rows, the clusters the card holds at once, each
     instantiation's static SASS count (``cuobjdump``, where the toolkit
-    has it) and the SM clock before and after;
-41. K3's two-launch form at the N only it runs (the one-pass form holds N
-    <= 19,264): the aligned form of capacity (phase 6) and the
-    explicit-edge form of the frontier (phases 22, 34) at N = 65,536,
+    has it), their digest against the untemplated walk's, and the SM
+    clock before and after; then K3 (f)'s 16 x 16 blocking
+    (``csrc/rr_onepass_wide.cu``):
+    forced at N = 16,384 and 24,576, aligned and edges, lanes and SWAR,
+    crash-only and suspicion + Lifeguard, 2 rounds against the plain
+    version; at N = 65,536 (aligned, edges; lanes, SWAR) and 98,304
+    (aligned) ``WIDE_ROUNDS`` rounds against the two-launch form (by the
+    lanes' on-card digest and every count) and 1 round against the plain
+    version, with the ms a launch of both forms in turns, the byte bound,
+    the step timeline, its shared memory a CTA (formula, launcher,
+    ``cudaFuncGetAttributes``) and the clusters the card holds;
+41. K3's two-launch form at the N where it is the ``rr_resident="off"``
+    twin of the one-pass paths: the aligned form of capacity (phase 6)
+    and the explicit-edge form of the frontier (phases 22, 34) at N =
+    65,536,
     lanes and SWAR, crash-only and suspicion, the explicit-edge form of
     the PackedDetector (phase 23) at N = 49,152, and the aligned form over
     the last column block [65,536 x 8,192], lanes and SWAR, each against
@@ -302,7 +320,9 @@ Phases (any failure exits non-zero before the last line is printed):
     ``--packed --n 49152`` configuration and co-sim fed a REPL script
     through ``dispatch`` (crashes dropped from node 0's list, put and get,
     ``metrics``, ``events``), its ``advance 1`` ms and K3's launches by
-    form (that K3 shape is held against plain by phase 41); the same shim
+    form (one-pass, 16 x 16), then the same script with
+    ``rr_resident="off"`` (equal node list, events and lanes; that K3
+    shape is held against plain by phase 41); the same shim
     script on the card and on the CPU port at N = 1,024 (local and
     ``rpc`` election with the master crashed) and the ``--packed`` REPL
     script at ``packed_rr(1024, fanout=8)``: replies, printed text, event
@@ -355,7 +375,9 @@ Phases (any failure exits non-zero before the last line is printed):
     gossipfs_tpu_torch.analysis --probe`` through its main (every AST
     rule clean over the port's sources, and the shared-memory budget
     probe on the card: exit 0); that run's reconciliation kernel by kernel
-    (K3's one-pass form at N = 16,384 and 19,264, K5 at ``STRIPE_MAX_N``,
+    (K3's one-pass form at N = 16,384 and 19,264 and its 16 x 16
+    blocking at 19,328, 109,056 (aligned) and 115,712 (full view), K5 at
+    ``STRIPE_MAX_N``,
     K4's window tile at the largest F it holds and van Herk past it, K2
     and K1 at ``MAX_KERNEL_FANOUT``: the Python formula's bytes equal to
     the kernel's own info and to ``cudaFuncGetAttributes``' opt-in
@@ -369,13 +391,15 @@ Phases (any failure exits non-zero before the last line is printed):
     counts zeroed just before and read just after: every lane, the carry
     and every metric 0 entries differ;
 50. the tools: ``python -m gossipfs_tpu_torch.sweep_rr`` at N = 16,384
-    (``TOOLS_ROUNDS`` rounds, one rep a point: ``rr_resident`` on / off x
-    lanes / SWAR, each point launching its route's form once a round, all
-    four digests equal; the N = 65,536 one-pass points refused); ``python
-    -m gossipfs_tpu_torch.shard_anchor --ladder`` cut to its first two rows
-    and ``LADDER_ROUNDS`` rounds (K3's two-launch column-shard form, one
-    launch a round; each row's formula bytes equal to the growth of the
-    peak allocated memory within the allocator's rounding) and its
+    (``TOOLS_ROUNDS`` rounds: ``rr_resident`` on / off x lanes / SWAR) and
+    65,536 (``SWEEP_WIDE_ROUNDS``, the SWAR pair), one rep a point, each
+    point launching its route's form once a round, the digests of an N
+    equal; the N = 131,072 one-pass points refused; ``python -m
+    gossipfs_tpu_torch.shard_anchor --ladder`` cut to its first two rows
+    and ``LADDER_ROUNDS`` rounds (K3's one-pass column-shard form on its
+    16 x 16 blocking, one launch a round, each row's shard 3 rounds equal
+    on the two-launch form; each row's formula bytes equal to the growth
+    of the peak allocated memory over the rounds to the byte) and its
     ``--budget-only`` refusal of (786,432, 16); ``python -m
     gossipfs_tpu_torch.stub_bisect`` at N = 16,384 with the default list
     (plain arcs) and ``--arc-align 8 --suspicion`` (every row one K3 (f)
@@ -383,13 +407,15 @@ Phases (any failure exits non-zero before the last line is printed):
     on its variant, built in phase 2), then one round each: ``(full)``
     against the plain version, the rcnt and sus variants against
     ``(full)`` (0 entries differ but their zeroed outputs); ``python -m
-    gossipfs_tpu_torch.verify_claims --only headline soak spec_clean
-    trace_invariants`` (each claim a subprocess on the card): all PASS.
+    gossipfs_tpu_torch.verify_claims --only headline frontier_65536 soak
+    spec_clean trace_invariants`` (each claim a subprocess on the card):
+    all PASS.
 
 Phase 40's times are one JSON line (``{"onepass": ...}``) after phase
 41.  The last four lines printed are the kernels JSON (the five kernels;
 K3's one-pass form per merge form and SWAR form in its paths' modes and
-over F/F''s blocks, its two-launch form once per merge form and once per
+over F/F''s blocks, its 16 x 16 blocking at phase 40's N = 65,536 and
+98,304 shapes, its two-launch form once per merge form and once per
 SWAR form and at phase 41's shapes, the column-shard forms of K3, K2, K4
 and K5, K2 at phase 45's, phase 46's and phase 47's shapes, K3 at the
 CLI --packed's, K4 at roundprof's, K2 at phase 48's), every main path's
@@ -422,7 +448,7 @@ N_ADVANCE = 49_152             # PackedDetector's capacity point
 # rounds of the eventful separate-pass paths (phases 11 and 17) and of
 # the profiled stage splits (after 2 warm-up rounds), cut from 100 and 10
 # to keep the whole run inside its time limit
-EVENTFUL_ROUNDS = 50
+EVENTFUL_ROUNDS = 30
 SPLIT_ROUNDS = 2
 # rounds a row of phase 44's curve sweeps, cut from their default 60 (the
 # tracked crashes at round 10 are confirmed by round 26 at t_fail 12 +
@@ -610,6 +636,13 @@ def phase_main_path(results: dict) -> None:
 
 
 def phase_capacity(rounds: int, results: dict) -> None:
+    """The headline at N = 65,536 for ``rounds`` rounds under 1 % crash
+    churn (after one warm-up round) on K3's one-pass form (f), its wide
+    blocking, one launch a round; then the same run with
+    ``rr_resident="off"`` (K3's two-launch form) from the same seed:
+    equal lanes, carry and metrics."""
+    import dataclasses
+
     import torch
 
     from gossipfs_tpu_torch import random as trandom
@@ -618,32 +651,50 @@ def phase_capacity(rounds: int, results: dict) -> None:
     from gossipfs_tpu_torch.core.state import init_state
     from gossipfs_tpu_torch.ops import merge
 
+    def run(cfg):
+        state = init_state(cfg)
+        key = trandom.PRNGKey(1, device="cuda")
+        state, _, _ = run_rounds(state, cfg, 1, key)  # allocator warm-up
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_rounds(state, cfg, rounds, key, crash_rate=0.01)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
     cfg = SimConfig.headline(N_CAPACITY)
     torch.cuda.reset_peak_memory_stats()
-    state = init_state(cfg)
-    key = trandom.PRNGKey(1, device="cuda")
-    state, _, _ = run_rounds(state, cfg, 1, key)  # allocator warm-up
-    torch.cuda.synchronize()
-    merge.reset_launch_counts()
-    t0 = time.perf_counter()
-    final, _, per_round = run_rounds(state, cfg, rounds, key, crash_rate=0.01)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    out, wall = run(cfg)
+    final, _, per_round = out
     alive = per_round.n_alive.cpu()
     if not (0 < int(alive[-1]) < cfg.n and final.round == rounds + 1):
         raise AssertionError("capacity run out of range")
-    # K3's two-launch form (N = 65,536 is past the one-pass form's reach)
-    if merge.FORM_LAUNCHES["aligned_group"] != rounds:
-        raise AssertionError(f"capacity launches {launch_counts()}")
+    # K3's one-pass form, its 16 x 16 blocking at this N
+    check_onepass("capacity", "aligned_group", rounds)
     results["capacity"] = dict(round_ms=wall / rounds * 1e3,
                                rounds_per_s=rounds / wall,
                                launches=rounds, launch_counts=launch_counts())
     log(f"  N={cfg.n}: {rounds} rounds in {wall:.4f} s, "
         f"{rounds / wall:.3f} rounds/s ({wall / rounds * 1e3:.4f} ms a "
-        f"round); launches {launch_counts()}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; alive "
+        f"round); launches {launch_counts()} (blocking "
+        f"{merge.onepass_blocking(cfg.n, cfg.n, 'aligned_group')}); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; alive "
         f"{int(alive[-1])}")
-    del state, final
+    off = dataclasses.replace(cfg, rr_resident="off")
+    twin, wall_off = run(off)
+    forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
+    same = runs_equal(out, twin)
+    results["capacity"]["off"] = dict(
+        round_ms=wall_off / rounds * 1e3, rounds_per_s=rounds / wall_off,
+        launches=rounds, launch_counts=launch_counts())
+    log(f"  capacity, rr_resident='off' (the two-launch form, {forms}): "
+        f"{wall_off / rounds * 1e3:.4f} ms a round against the one-pass "
+        f"run's {wall / rounds * 1e3:.4f} ms; lanes, carry and metrics "
+        f"{'==' if same else '!='} the one-pass run's")
+    if not same or forms != {"aligned_group": rounds}:
+        raise AssertionError(f"capacity: rr_resident='off' {forms}, "
+                             f"equal {same}")
+    del out, twin, final
     torch.cuda.empty_cache()
 
 
@@ -1842,26 +1893,27 @@ def phase_packed_main(results: dict) -> None:
 
 
 def phase_frontier(results: dict, elementwise: str = "lanes") -> None:
-    """``python -m gossipfs_tpu_torch.frontier --elementwise ... --trace``;
-    the trace's ``remove`` rows number at most N and the analyzer gives
-    the JSON's TTD and FPR from it; the SWAR run's detection fields must
-    equal the lanes run's."""
+    """``python -m gossipfs_tpu_torch.frontier --elementwise ... --trace
+    --digest`` (its main, in this process): K3's one-pass form (f) a
+    round, its wide blocking; the trace's ``remove`` rows number at most
+    N and the analyzer gives the JSON's TTD and FPR from it; the SWAR
+    run's detection fields must equal the lanes run's; then the same
+    frontier with ``rr_resident="off"`` (K3's two-launch form): its
+    digest of the final lanes, carry and metrics equal to the one-pass
+    run's."""
     import tempfile
 
     import torch
 
+    from gossipfs_tpu_torch import frontier
     from gossipfs_tpu_torch.obs import timeline
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         trace = f"{tmp}/frontier.jsonl"
-        out = subprocess.run(
-            [sys.executable, "-m", "gossipfs_tpu_torch.frontier",
-             "--elementwise", elementwise, "--trace", trace],
-            capture_output=True, text=True, timeout=600)
-        if out.returncode != 0:
-            raise AssertionError(f"frontier failed:\n{out.stderr[-4000:]}")
-        doc = json.loads(out.stdout.strip().splitlines()[-1])
+        _, rows = cli_rows(frontier.main, [
+            "--elementwise", elementwise, "--trace", trace, "--digest"])
+        doc = rows[-1]
         headers, events = timeline.merge([trace])
     post = timeline.analyze(headers, events)
     removes = sum(e.kind == "remove" for e in events)
@@ -1886,11 +1938,12 @@ def phase_frontier(results: dict, elementwise: str = "lanes") -> None:
         raise AssertionError(f"frontier peak {peak / 2**30:.3f} GiB >= 40")
     if doc["detected"] != doc["tracked_crashes"] or doc["n"] != N_CAPACITY:
         raise AssertionError(f"frontier output out of range: {doc}")
-    # K3's two-launch explicit-edge form, one launch a round
+    # K3's one-pass explicit-edge form, one launch a round
     form = "edges" + ("/swar" if elementwise == "swar" else "")
-    if doc["launches"] != {form: doc["rounds"]}:
+    if doc["launches"] != {form + ONEPASS: doc["rounds"]}:
         raise AssertionError(f"frontier launches {doc['launches']}")
     log(f"  launches {doc['launches']}")
+    frontier_off_twin(doc, form)
     lanes = results["frontier_lanes"]
     same = ("detected", "ttd_first_median", "ttd_first_max",
             "ttd_converged_median", "false_positive_rate")
@@ -1902,7 +1955,35 @@ def phase_frontier(results: dict, elementwise: str = "lanes") -> None:
             f"{lanes['peak_memory_bytes'] / 2**30:.3f} GiB")
 
 
-def packed_session(n: int, node: int, timed: bool = False):
+def frontier_off_twin(doc: dict, form: str) -> None:
+    """The frontier ``doc`` ran (one-pass) once more with
+    ``rr_resident="off"`` in this process: its digest equal to the
+    one-pass run's, every launch the two-launch ``form``."""
+    import torch
+
+    from gossipfs_tpu_torch import frontier
+
+    torch.cuda.empty_cache()
+    off = frontier.run(doc["n"], doc["rounds"], doc["merge_block_c"],
+                       topology=doc["topology"], arc_align=doc["arc_align"],
+                       elementwise=doc["elementwise"], rr_resident="off",
+                       digest=True)
+    same = off["digest"] == doc["digest"]
+    doc["off"] = dict(round_ms=off["seconds_per_round"] * 1e3,
+                      rounds_per_s=off["rounds_per_sec"],
+                      launches=off["launches"])
+    log(f"  rr_resident='off' (the two-launch form, {off['launches']}): "
+        f"{off['seconds_per_round'] * 1e3:.4f} ms a round against the "
+        f"one-pass run's {doc['seconds_per_round'] * 1e3:.4f} ms; lanes, "
+        f"carry and metrics {'==' if same else '!='} the one-pass run's "
+        f"(sha256 {doc['digest'][:16]})")
+    if not same or off["launches"] != {form: doc["rounds"]}:
+        raise AssertionError(f"frontier rr_resident='off': {off}")
+    torch.cuda.empty_cache()
+
+
+def packed_session(n: int, node: int, timed: bool = False,
+                   rr_resident: str = "auto"):
     """The PackedDetector script: advance 3, crash ``node``, advance 8,
     join it, advance 10.  Returns (detector, events, ms per quiet advance,
     ms of the advance that joins)."""
@@ -1917,7 +1998,8 @@ def packed_session(n: int, node: int, timed: bool = False):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    d = PackedDetector(SimConfig.packed_rr(n), seed=3)
+    d = PackedDetector(SimConfig.packed_rr(n, rr_resident=rr_resident),
+                       seed=3)
     d.advance(3)
     d.crash(node)
     d.advance(8)
@@ -1942,8 +2024,9 @@ def phase_packed_detector(n_cap: int, results: dict,
     torch.cuda.reset_peak_memory_stats()
     merge.reset_launch_counts()
     d, events, adv_ms, join_ms = packed_session(n_cap, node, timed=True)
+    check_onepass("PackedDetector", "edges", d.round)
     results["advance"] = dict(round_ms=adv_ms, rounds_per_s=1e3 / adv_ms,
-                              launches=merge.FORM_LAUNCHES["edges"],
+                              launches=d.round,
                               launch_counts=launch_counts())
     mine = [e for e in events if e.subject == node]
     cfg = d.config
@@ -1957,7 +2040,27 @@ def phase_packed_detector(n_cap: int, results: dict,
         f"advance {adv_ms:.4f} ms, advance with a join {join_ms:.4f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
         f"launches {results['advance']['launch_counts']}")
-    del d
+    # the same session with rr_resident="off": K3's two-launch form, the
+    # same events and lanes
+    merge.reset_launch_counts()
+    d2, events2, adv2, _ = packed_session(n_cap, node, timed=True,
+                                          rr_resident="off")
+    forms = {k: v for k, v in merge.FORM_LAUNCHES.items() if v}
+    a, b = d.lanes(), d2.lanes()
+    same = events2 == events and all(
+        torch.equal(getattr(a, k), getattr(b, k))
+        for k in ("hb", "asl", "alive", "hb_base"))
+    results["advance"]["off"] = dict(
+        round_ms=adv2, rounds_per_s=1e3 / adv2, launches=d2.round,
+        launch_counts=launch_counts())
+    log(f"  rr_resident='off' (the two-launch form, {forms}): quiet "
+        f"advance {adv2:.4f} ms against the one-pass session's "
+        f"{adv_ms:.4f} ms; events and lanes {'==' if same else '!='} the "
+        "one-pass session's")
+    if not same or forms != {"edges": d2.round}:
+        raise AssertionError(f"PackedDetector rr_resident='off': {forms}, "
+                             f"equal {same}")
+    del d, d2, a, b
     torch.cuda.empty_cache()
     # N = 16,384: the same script against run_rounds with the scheduled
     # matrix events (crash at round 3, join at round 11)
@@ -3105,21 +3208,12 @@ def runs_equal(a, b) -> bool:
 
 
 def run_digest(state, carry, metrics) -> str:
-    """sha256 of a run's whole outputs (lanes, alive, hb_base, carry and
-    every per-round metric), on the host: the sha256 of each 32 MiB piece
-    of their bytes, hashed in threads (hashlib lets go of the GIL), then
-    the sha256 of those digests in order."""
-    import concurrent.futures
-    import hashlib
+    """The digest of a run's whole outputs (lanes, alive, hb_base, carry
+    and every per-round metric), sweep_rr's and the frontier's
+    (gossipfs_tpu_torch/utils/digest.py)."""
+    from gossipfs_tpu_torch.utils.digest import tensors_digest
 
-    step = 1 << 25
-    pieces = []
-    for t in run_tensors(state, carry, metrics):
-        raw = memoryview(t.contiguous().cpu().numpy()).cast("B")
-        pieces += [raw[i:i + step] for i in range(0, max(len(raw), 1), step)]
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        digests = pool.map(lambda b: hashlib.sha256(b).digest(), pieces)
-        return hashlib.sha256(b"".join(digests)).hexdigest()
+    return tensors_digest(run_tensors(state, carry, metrics))
 
 
 def shard_ranks(rank: int, world: int, device, jobs: list) -> list:
@@ -3530,6 +3624,24 @@ def onepass_sass(lib_path: str) -> dict:
     return out
 
 
+# sass_digest of the 30 square instantiations of rr_onepass.cu (the 8 x 32
+# blocking) as its sources built them on the H100 machine's nvcc before the
+# stripe walk was templated on its blocking (those sources and these built
+# in one call: equal on all 60 instantiations); the template must leave
+# the narrow blocking's code as it was
+ONEPASS_SASS_UNTEMPLATED = "928e3f75e8fc871f"
+
+
+def sass_digest(sass: dict) -> str:
+    """sha256 (16 hex digits) of the square instantiations' static SASS
+    counts (total, step 1, step 2) of an :func:`onepass_sass` table."""
+    import hashlib
+
+    items = sorted((str(k), [v.get("total"), v.get("step1"), v.get("step2")])
+                   for k, v in sass.items() if k[-1] == 0)
+    return hashlib.sha256(json.dumps(items).encode()).hexdigest()[:16]
+
+
 def onepass_flags(name: str, mode: str, block: bool = False) -> tuple:
     """The rr_onepass_kernel template flags of a kernels-line row."""
     from gossipfs_tpu_torch.ops import merge
@@ -3557,6 +3669,7 @@ def phase_k3_onepass(results: dict) -> None:
     from gossipfs_tpu_torch.ops import merge
 
     n, c = N_MAIN, N_MAIN // 2
+    narrow = merge.ONEPASS_BLOCKINGS["8x32"]
     forms, modes, muted = swar_round_cases(n)
     clusters = {}
     for form, (senders, fkw) in forms.items():
@@ -3564,7 +3677,8 @@ def phase_k3_onepass(results: dict) -> None:
             n, n, form, fanout=fkw.get("fanout", senders.shape[-1]),
             arc_align=fkw.get("arc_align", 1))
     smem = {f: merge.onepass_smem(n, f) for f in ("edges", "aligned_group")}
-    log(f"  stripe clusters of {merge.ONEPASS_CTAS} CTAs the card runs at "
+    log(f"  stripe clusters of {merge.ONEPASS_BLOCKINGS['8x32'].ctas} CTAs "
+        f"the card runs at "
         f"once (cudaOccupancyMaxActiveClusters; {smem['edges']} B of shared "
         f"memory a CTA in the full-view forms, {smem['aligned_group']} B in "
         f"the aligned ones): {clusters}")
@@ -3576,6 +3690,14 @@ def phase_k3_onepass(results: dict) -> None:
     out["sass"] = sass
     log(f"  SASS of {len(sass)} rr_onepass_kernel instantiations counted"
         + ("" if sass else " (no cuobjdump here)"))
+    if sass:
+        got = sass_digest(sass)
+        log(f"  SASS of the 30 square instantiations of the 8 x 32 "
+            f"blocking: digest {got} "
+            f"{'==' if got == ONEPASS_SASS_UNTEMPLATED else '!='} the "
+            f"untemplated walk's {ONEPASS_SASS_UNTEMPLATED}")
+        if got != ONEPASS_SASS_UNTEMPLATED:
+            raise AssertionError(f"K3 (f)'s SASS moved: {sass}")
     rows = set(ONEPASS_ROWS)
     bad = 0
     for ew in merge.ELEMENTWISE:
@@ -3637,8 +3759,7 @@ def phase_k3_onepass(results: dict) -> None:
                     # one more launch, the first timed round, with its step
                     # timeline
                     reset()
-                    tl = torch.zeros((n // merge.ONEPASS_C,
-                                      merge.ONEPASS_CTAS,
+                    tl = torch.zeros((n // narrow.cols, narrow.ctas,
                                       merge.ONEPASS_STAMPS),
                                      dtype=torch.int64, device="cuda")
                     merge.resident_round(h2, a2, flags, vecs, senders,
@@ -3698,7 +3819,7 @@ def phase_k3_onepass(results: dict) -> None:
         code = sass.get(onepass_flags(name, "crash-only", True))
         # one more launch, the first timed round, with its step timeline
         reset()
-        tl = torch.zeros((c // merge.ONEPASS_C, merge.ONEPASS_CTAS,
+        tl = torch.zeros((c // narrow.cols, narrow.ctas,
                           merge.ONEPASS_STAMPS), dtype=torch.int64,
                          device="cuda")
         merge.resident_round(*args, onepass=True, timeline=tl, **kw)
@@ -3717,6 +3838,204 @@ def phase_k3_onepass(results: dict) -> None:
             + ("" if code is None else f", SASS {code}")
             + "; us a stripe: " + ", ".join(
                 f"{k} {v:.2f}" for k, v in split.items()))
+
+
+# K3 (f)'s wide blocking (16 CTAs x 16 columns, csrc/rr_onepass_wide.cu):
+# forced against the plain version at N the narrow one also holds and
+# past it, then against the two-launch form at the N only it holds
+WIDE_PLAIN_NS = (N_MAIN, 24_576)
+WIDE_MODES = {"crash-only": dict(t_fail=5),
+              "suspicion + lh": dict(t_fail=3, suspect=True, t_suspect=2,
+                                     lh_multiplier=3)}
+WIDE_SHAPES = ((N_CAPACITY, "aligned_group", "lanes"),
+               (N_CAPACITY, "aligned_group", "swar"),
+               (N_CAPACITY, "edges", "lanes"), (N_CAPACITY, "edges", "swar"),
+               (98_304, "aligned_group", "lanes"))
+WIDE_ROUNDS = 10
+
+
+def lane_digest(t):
+    """A lane's digest on the card: each row's sum of its entries times
+    fixed random column weights (int64, exact: a single differing entry
+    always shows), without a copy of the lane."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randint(1, 2**31, (t.shape[1],), generator=g, device="cuda",
+                      dtype=torch.int64)
+    out = torch.empty(t.shape[0], dtype=torch.int64, device="cuda")
+    for r0 in range(0, t.shape[0], 2048):
+        out[r0:r0 + 2048] = (t[r0:r0 + 2048].to(torch.int64) * w).sum(1)
+    return out
+
+
+def wide_inputs(n: int, form: str, suspect: bool, seed: int):
+    """A round's inputs at ``n`` made on the card (:func:`big_round_inputs`)
+    with the form's senders: aligned arc bases (fanout 16) or explicit
+    edges (fanout log2 N, as ``packed_rr``)."""
+    import torch
+
+    from gossipfs_tpu_torch.config import SimConfig
+
+    hb, asl, flags, vecs, bases = big_round_inputs(n, n, seed, suspect)
+    if form == "aligned_group":
+        return (hb, asl, flags, vecs, bases), dict(fanout=16, arc_align=8)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    edges = torch.randint(0, n, (n, SimConfig.log_fanout(n)), generator=g,
+                          device="cuda", dtype=torch.int32)
+    return (hb, asl, flags, vecs, edges), {}
+
+
+def onepass_wide_vs_plain(results: dict) -> None:
+    """The wide blocking forced (``blocking="16x16"``) at N = 16,384 and
+    24,576, aligned and edges, lanes and SWAR, crash-only and suspicion +
+    Lifeguard: 2 rounds each against the plain version, every count of
+    both rounds and the lanes after the second."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    bad = 0
+    for n in WIDE_PLAIN_NS:
+        for mode, mkw in WIDE_MODES.items():
+            for form in ("aligned_group", "edges"):
+                lanes, fkw = wide_inputs(n, form, mode != "crash-only",
+                                         SEED + n)
+                hb, asl, flags, vecs, senders = lanes
+                for ew in merge.ELEMENTWISE:
+                    kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
+                    h1, a1 = hb.clone(), asl.clone()
+                    h2, a2 = hb.clone(), asl.clone()
+                    d = 0
+                    for _ in range(2):
+                        got = merge.resident_round(
+                            h1, a1, flags, vecs, senders, onepass=True,
+                            blocking="16x16", **kw)
+                        want = merge.resident_round_plain(
+                            h2, a2, flags, vecs, senders, **kw)
+                        d += sum(count_diff(x, y)[0]
+                                 for x, y in zip(got[2:], want[2:]))
+                    d += count_diff(h1, h2)[0] + count_diff(a1, a2)[0]
+                    bad += d
+                    log(f"  16 x 16 forced, N={n} {form} {ew} {mode}: "
+                        f"2 rounds vs plain: {d} entries differ")
+                    del h1, a1, h2, a2
+                del lanes, hb, asl
+                torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K3 (f) wide blocking vs plain: {bad} entries "
+                             "differ")
+    results["k3_wide_vs_plain"] = 2 * len(WIDE_MODES) * 4
+
+
+def onepass_wide_large(results: dict) -> None:
+    """The wide blocking at the N only it holds (WIDE_SHAPES, crash-only):
+    WIDE_ROUNDS rounds of the one-pass form against as many of the
+    two-launch form, one run after the other from the same seeded inputs
+    (each run's counts a round, its lanes at the end by their on-card
+    digest), and its first round against the plain version's on the same
+    inputs (the lanes' digests and every count); ms a launch of both
+    forms in turns,
+    the one-pass form's step timeline, its shared memory a CTA (the
+    formula, the launcher's and cudaFuncGetAttributes') and the clusters
+    the card holds, the plain version's ms and the byte bound."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    from gossipfs_tpu_torch.ops import _build
+
+    out = results.setdefault("k3_wide", {})
+    sass = onepass_sass(str(_build.lib_path("rr_onepass_wide")))
+    mkw = WIDE_MODES["crash-only"]
+    for n, form, ew in WIDE_SHAPES:
+        torch.cuda.empty_cache()
+        lanes, fkw = wide_inputs(n, form, False, SEED + 3 * n)
+        hb0, asl0, flags, vecs, senders = lanes
+        kw = dict(fkw, t_cooldown=12, elementwise=ew, **mkw)
+        run_f = lambda: merge.resident_round(  # noqa: E731
+            hb, asl, flags, vecs, senders, onepass=True, **kw)
+        run_2 = lambda: merge.resident_round(  # noqa: E731
+            hb, asl, flags, vecs, senders, **kw)
+        # the one-pass run on a copy of the inputs, then the plain
+        # version's first round on another, the two-launch run on the
+        # inputs themselves: two states at a time
+        runs = {}
+        for onepass in (True, False):
+            hb, asl = ((hb0.clone(), asl0.clone()) if onepass
+                       else (hb0, asl0))
+            counts = []
+            for r in range(WIDE_ROUNDS):
+                o = (run_f if onepass else run_2)()
+                counts.append([x.clone() for x in o[2:]])
+                if r == 0 and onepass:
+                    first = (lane_digest(hb), lane_digest(asl), counts[0])
+            torch.cuda.synchronize()
+            runs[onepass] = (lane_digest(hb), lane_digest(asl), counts)
+            if onepass:
+                del hb, asl
+                torch.cuda.empty_cache()
+                h2, a2 = hb0.clone(), asl0.clone()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = merge.resident_round_plain(h2, a2, flags, vecs,
+                                                  senders, **kw)
+                end.record()
+                end.synchronize()
+                plain_ms = start.elapsed_time(end)
+                dp = int((lane_digest(h2) != first[0]).sum()) + int(
+                    (lane_digest(a2) != first[1]).sum())
+                dp += sum(count_diff(x, y)[0]
+                          for x, y in zip(first[2], want[2:]))
+                nout = len(want)
+                del h2, a2, want
+                torch.cuda.empty_cache()
+            else:
+                # both forms timed on the two-launch run's lanes, in turns
+                two_ms, f_ms = in_turns(run_2, run_f, None, turns=1)
+                tl = torch.zeros((n // 16, 16, merge.ONEPASS_STAMPS),
+                                 dtype=torch.int64, device="cuda")
+                merge.resident_round(hb, asl, flags, vecs, senders,
+                                     onepass=True, timeline=tl, **kw)
+                torch.cuda.synchronize()
+                split = merge.onepass_timeline_split(tl)
+                del hb, asl
+        del hb0, asl0, lanes
+        d = sum(int((x != y).sum()) for x, y in zip(runs[True][:2],
+                                                    runs[False][:2]))
+        d += sum(count_diff(x, y)[0] for a, b in zip(runs[True][2],
+                                                     runs[False][2])
+                 for x, y in zip(a, b))
+        info = merge.onepass_info(n, n, form, fanout=kw.get("fanout", 16),
+                                  arc_align=kw.get("arc_align", 1),
+                                  elementwise=ew)
+        formula = merge.onepass_smem(n, form, info["blocking"])
+        recv_outs = len([i for i in K3_RECV if i < nout])
+        bound = k3_shard_bound_ms(n, n, senders, nout, recv_outs)
+        name = merge.kernel_form(kw.get("fanout"), kw.get("arc_align", 1),
+                                 False, ew)
+        out[(n, name)] = dict(
+            diff=d + dp, max_abs_err=0 if d + dp == 0 else None,
+            ms=min(f_ms), two_launch_ms=min(two_ms), plain_ms=plain_ms,
+            bound_ms=bound, shape=[n, n], clusters=info["clusters"],
+            smem=[formula, info["smem"], info["smem_attr"]],
+            blocking=info["blocking"], split=split,
+            sass=sass.get(onepass_flags(name, "crash-only")))
+        log(f"  16 x 16, N={n} {name}{ONEPASS}, crash-only: {WIDE_ROUNDS} "
+            f"rounds vs the two-launch form: {d} entries differ, round 1 vs "
+            f"plain: {dp}; (f) {min(f_ms):.4f} ms a launch (one a round), "
+            f"two-launch {min(two_ms):.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound:.4f} ms; {info['clusters']} clusters; shared "
+            f"memory a CTA {formula} B (formula) == {info['smem']} (launcher)"
+            f" == {info['smem_attr']} (cudaFuncGetAttributes); us a stripe: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+        if d + dp or not formula == info["smem"] == info["smem_attr"]:
+            raise AssertionError(f"K3 (f) wide blocking at N={n} {name}: "
+                                 f"{d} / {dp} entries differ, smem "
+                                 f"{formula} {info}")
+        del runs, first
+        torch.cuda.empty_cache()
 
 
 LARGE_MODES = {"crash-only": dict(t_fail=5),
@@ -5012,8 +5331,11 @@ def shim_cli_packed(results: dict) -> None:
     fed a REPL script through ``dispatch``: crashes detected and dropped
     from node 0's list, a put and a get, ``metrics``, ``events``; the ms
     of ``advance 1`` and the resident round's launches by form (its
-    two-launch explicit-edge form at this N, held against its plain
-    version at this shape by phase 41)."""
+    one-pass explicit-edge form at this N, the wide blocking); then the
+    same script with ``rr_resident="off"`` (K3's two-launch form, held
+    against its plain version at this shape by phase 41): the same node
+    list and detection events, equal lanes."""
+    import dataclasses
     import io
     import statistics
     import tempfile
@@ -5025,40 +5347,45 @@ def shim_cli_packed(results: dict) -> None:
     from gossipfs_tpu_torch.shim import cli
 
     args = cli.make_parser().parse_args(["--packed", "--n", str(N_ADVANCE)])
-    cfg = cli.config_from_args(args)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    sim = cli.cosim_from_args(args, cfg)
     crashed = tuple(N_ADVANCE * k // 12 + 1 for k in (1, 3, 5, 8)) + (
         N_ADVANCE - 1,)
-    with tempfile.TemporaryDirectory() as tmp:
-        src, dst = f"{tmp}/wiki.bin", f"{tmp}/back.bin"
-        blob = np.random.default_rng(SEED + 462).integers(
-            0, 256, 1 << 20, dtype=np.uint8).tobytes()
-        with open(src, "wb") as f:
-            f.write(blob)
-        out = io.StringIO()
-        merge.reset_launch_counts()
-        script = (["advance 2"] + [f"crash {x}" for x in crashed]
-                  + ["advance 10", "lsm 0", f"put {src} wiki.bin",
-                     f"get wiki.bin {dst}", "metrics", "events"])
-        for line in script:
-            cli.dispatch(sim, line, out=out)
+    blob = np.random.default_rng(SEED + 462).integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes()
 
-        def step():
-            cli.dispatch(sim, "advance 1", out=out)
-            torch.cuda.synchronize()
+    def session(cfg):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim = cli.cosim_from_args(args, cfg)
+        with tempfile.TemporaryDirectory() as tmp:
+            src, dst = f"{tmp}/wiki.bin", f"{tmp}/back.bin"
+            with open(src, "wb") as f:
+                f.write(blob)
+            out = io.StringIO()
+            merge.reset_launch_counts()
+            script = (["advance 2"] + [f"crash {x}" for x in crashed]
+                      + ["advance 10", "lsm 0", f"put {src} wiki.bin",
+                         f"get wiki.bin {dst}", "metrics", "events"])
+            for line in script:
+                cli.dispatch(sim, line, out=out)
 
-        adv = wire_ms(step)
-        launches = launch_counts()
-        with open(dst, "rb") as f:
-            back = f.read()
-    text = out.getvalue().splitlines()
+            def step():
+                cli.dispatch(sim, "advance 1", out=out)
+                torch.cuda.synchronize()
+
+            adv = wire_ms(step)
+            launches = launch_counts()
+            with open(dst, "rb") as f:
+                back = f.read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        return sim, out.getvalue().splitlines(), adv, launches, back, peak
+
+    cfg = cli.config_from_args(args)
+    sim, text, adv, launches, back, peak = session(cfg)
     lsm = [int(x) for x in text[2].strip("[]").split(", ")]
     rounds = 2 + 10 + len(adv)
     vitals = next(ln for ln in text if ln.startswith("engine=sim"))
     want = {"resident_round": rounds,
-            "resident_round[edges]": rounds}
+            "resident_round[edges/onepass]": rounds}
     if (set(crashed) & set(lsm) or len(lsm) != N_ADVANCE - len(crashed)
             or text[3] != "ok" or back != blob
             or f"n_alive={N_ADVANCE - len(crashed)}" not in vitals
@@ -5066,7 +5393,6 @@ def shim_cli_packed(results: dict) -> None:
         raise AssertionError(f"CLI --packed: {text[:6]}, launches "
                              f"{launches}")
     n_events = sum(1 for ln in text if ln.startswith("DetectionEvent("))
-    peak = torch.cuda.max_memory_allocated() / 2**30
     res = dict(n=N_ADVANCE, fanout=cfg.fanout, rounds=rounds,
                advance_ms=statistics.median(adv), advance_ms_runs=adv,
                launches=launches, peak_gib=peak, detections=n_events)
@@ -5076,10 +5402,32 @@ def shim_cli_packed(results: dict) -> None:
         f"{n_events} detection events; {vitals}")
     log(f"  CLI --packed: advance 1 {res['advance_ms']:.3f} ms (median of "
         f"{len(adv)}: {[round(x, 3) for x in adv]}); launches {launches} "
-        f"(K3's two-launch edges form, held against plain at [{N_ADVANCE} "
-        f"x {N_ADVANCE}] by phase 41); peak {peak:.3f} GiB")
-    results["shim"]["cli_packed"] = res
+        f"(K3's one-pass edges form, its 16 x 16 blocking); peak "
+        f"{peak:.3f} GiB")
+    lanes = sim.detector.lanes()
     del sim
+    # the same script on the two-launch form
+    off = dataclasses.replace(cfg, rr_resident="off")
+    sim2, text2, adv2, launches2, back2, _ = session(off)
+    lanes2 = sim2.detector.lanes()
+    events = [ln for ln in text if ln.startswith("DetectionEvent(")]
+    same = (text2[2] == text[2] and back2 == blob and events == [
+        ln for ln in text2 if ln.startswith("DetectionEvent(")] and all(
+        torch.equal(getattr(lanes, k), getattr(lanes2, k))
+        for k in ("hb", "asl", "alive", "hb_base")))
+    res["off"] = dict(advance_ms=statistics.median(adv2),
+                      launches=launches2)
+    log(f"  CLI --packed, rr_resident='off' (the two-launch form, "
+        f"{launches2}, held against plain at [{N_ADVANCE} x {N_ADVANCE}] "
+        f"by phase 41): advance 1 {statistics.median(adv2):.3f} ms; node "
+        f"list, events and lanes {'==' if same else '!='} the one-pass "
+        "session's")
+    if not same or launches2 != {"resident_round": rounds,
+                                 "resident_round[edges]": rounds}:
+        raise AssertionError(f"CLI --packed rr_resident='off': "
+                             f"{launches2}, equal {same}")
+    results["shim"]["cli_packed"] = res
+    del sim2, lanes, lanes2
     torch.cuda.empty_cache()
 
 
@@ -5326,7 +5674,7 @@ def phase_shim(results: dict) -> None:
 # ---------------------------------------------------------------------------
 
 N_SOAK = 4_096          # the soak's N (bench/soak_hb16.py)
-RP_ROUNDS = 10          # roundprof's rounds a row (cut from its 100; 20
+RP_ROUNDS = 6           # roundprof's rounds a row (cut from its 100; 20
                         # until phase 49 joined the run)
 # the soak cut from 10 x 5,000 (1 x 600 when phase 48 joined the run, 1 x
 # 300 since phase 49 did, to keep the whole run inside its time limit: the
@@ -6056,7 +6404,7 @@ def phase_socket_engines(results: dict) -> None:
 # (K4) at N = 16,384 in four variants.
 # ---------------------------------------------------------------------------
 
-PARITY_ROUNDS = 60      # rounds a soak variant (the full 300-round soak
+PARITY_ROUNDS = 40      # rounds a soak variant (the full 300-round soak
                         # ran by itself: PERF.md section 6)
 PARITY_VARIANTS = (("lanes", []), ("swar", ["--elementwise", "swar"]),
                    ("suspicion", ["--suspicion"]),
@@ -6157,7 +6505,9 @@ def phase_analysis(results: dict) -> None:
     results["analysis"]["seconds"] = time.perf_counter() - t0
 
 
-TOOLS_ROUNDS = 20        # rounds a point or stub row in phase 50 (the
+SWEEP_WIDE_ROUNDS = 5    # rounds a sweep_rr point at N = 65,536
+N_PAST_WIDE = 131_072    # past the one-pass form's wide blocking
+TOOLS_ROUNDS = 10        # rounds a point or stub row in phase 50 (the
                         # tools' defaults ran by themselves: PERF.md
                         # section 6)
 LADDER_ROUNDS = 10      # rounds a measured ladder row (30 by default)
@@ -6198,45 +6548,62 @@ def stub_runs() -> list:
 
 def tools_sweep(results: dict) -> None:
     """``python -m gossipfs_tpu_torch.sweep_rr`` (its main) at N = 16,384,
-    TOOLS_ROUNDS rounds, 1 rep: the four points (rr_resident on / off x
-    lanes / SWAR), each launching only its route's form, once a round,
-    every digest equal; then ``--n 65536 --rr-resident on``: both rows
-    refused by ops/merge.onepass_refusal."""
+    TOOLS_ROUNDS rounds, the four points (rr_resident on / off x lanes /
+    SWAR), and at N = 65,536, SWEEP_WIDE_ROUNDS rounds, its two SWAR
+    points (the one-pass one on the wide blocking; phase 6 runs the lanes
+    pair), 1 rep: each point launching only its route's form, once a
+    round, every digest of an N equal (the one-pass form's run == the
+    two-launch form's); then ``--n 131072
+    --rr-resident on``: both rows refused by ops/merge.onepass_refusal."""
     from gossipfs_tpu_torch import sweep_rr
     from gossipfs_tpu_torch.ops import merge
 
-    merge.reset_launch_counts()
-    rc, rows = cli_rows(sweep_rr.main, [
-        "--n", str(N_MAIN), "--rounds", str(TOOLS_ROUNDS), "--reps", "1"])
-    points, summary = rows[:-1], rows[-1]
-    if rc != 0 or not summary["digests_equal"] or summary["points_run"] != 4:
-        raise AssertionError(f"sweep_rr: {rows}")
-    for r in points:
-        if r["launches"] != {r["route"]: TOOLS_ROUNDS}:
-            raise AssertionError(f"sweep_rr launches: {r}")
+    out = results["tools"]["sweep_rr"] = {}
+    for n, rounds, ews in ((N_MAIN, TOOLS_ROUNDS, merge.ELEMENTWISE),
+                           (N_CAPACITY, SWEEP_WIDE_ROUNDS, ("swar",))):
+        merge.reset_launch_counts()
+        rc, rows = cli_rows(sweep_rr.main, [
+            "--n", str(n), "--rounds", str(rounds), "--reps", "1",
+            "--elementwise", *ews])
+        points, summary = rows[:-1], rows[-1]
+        if (rc != 0 or not summary["digests_equal"]
+                or summary["points_run"] != 2 * len(ews)):
+            raise AssertionError(f"sweep_rr: {rows}")
+        for r in points:
+            onepass = r["rr_resident"] == "on"
+            if (r["launches"] != {r["route"]: rounds}
+                    or r["route"].endswith(ONEPASS) != onepass):
+                raise AssertionError(f"sweep_rr launches: {r}")
+        out[str(n)] = {
+            "ms": {f"{r['rr_resident']}/{r['elementwise']}":
+                   r["ms_per_round"] for r in points},
+            "digest": points[0]["digest"][:16]}
+        if n == N_CAPACITY:
+            results["tools"]["sweep_rr_launches"] = {
+                f"{r['rr_resident']}/{r['elementwise']}":
+                    sum(r["launches"].values()) for r in points}
+        log(f"  sweep_rr N={n}, {rounds} rounds: " + ", ".join(
+            f"{r['rr_resident']}/{r['elementwise']} ({r['route']}) "
+            f"{r['ms_per_round']:.4f} ms a round" for r in points)
+            + f"; {len(points)} digests equal ({points[0]['digest'][:16]})")
     rc, refused = cli_rows(sweep_rr.main, [
-        "--n", str(N_CAPACITY), "--rounds", "1", "--reps", "1",
+        "--n", str(N_PAST_WIDE), "--rounds", "1", "--reps", "1",
         "--rr-resident", "on"])
     if rc != 0 or len(refused) != 3 or not all(
             "onepass_fits" in r.get("skipped", "") for r in refused[:2]):
         raise AssertionError(f"sweep_rr refusal: {refused}")
-    results["tools"]["sweep_rr"] = {
-        "ms": {f"{r['rr_resident']}/{r['elementwise']}": r["ms_per_round"]
-               for r in points},
-        "digest": points[0]["digest"][:16], "refused": 2}
-    log(f"  sweep_rr N={N_MAIN}: " + ", ".join(
-        f"{r['rr_resident']}/{r['elementwise']} ({r['route']}) "
-        f"{r['ms_per_round']:.4f} ms a round" for r in points)
-        + f"; 4 digests equal ({points[0]['digest'][:16]}); N={N_CAPACITY} "
-        f"rr_resident=on refused: {refused[0]['skipped']}")
+    out["refused"] = 2
+    log(f"  sweep_rr N={N_PAST_WIDE} rr_resident=on refused: "
+        f"{refused[0]['skipped']}")
 
 
 def tools_anchor(results: dict) -> None:
     """``python -m gossipfs_tpu_torch.shard_anchor --ladder`` (its main)
     cut to its first two rows and LADDER_ROUNDS rounds, 1 rep: each row
-    measured on K3's two-launch column-shard form (one launch a round, the
-    warm-up's too), its formula bytes equal to the growth of the peak
-    allocated memory within the allocator's rounding; then ``--ladder
+    measured on K3's one-pass column-shard form (its 16 x 16 blocking; one
+    launch a round, the warm-up's too), its formula bytes equal to the
+    growth of the peak allocated memory over the rounds to the byte, and
+    its shard equal on both forms (:func:`anchor_twin`); then ``--ladder
     --budget-only``: (786,432, 16) refused by its bytes, the rest
     admitted."""
     from gossipfs_tpu_torch import shard_anchor as sa
@@ -6246,9 +6613,13 @@ def tools_anchor(results: dict) -> None:
         "--reps", "1"])
     rows = doc["ladder"]
     for r in rows:
-        if not (r["measured"] and r["alloc_matches"]
-                and r["launches"] == {"aligned_group": LADDER_ROUNDS + 1}):
+        # both rows' blocks are K3 (f)'s (its wide blocking), as the
+        # sharded round's route takes them: no view between launches
+        if not (r["measured"] and r["alloc_bytes"] == r["shard_bytes"]
+                and r["launches"] == {"aligned_group" + ONEPASS:
+                                      LADDER_ROUNDS + 1}):
             raise AssertionError(f"shard_anchor ladder row: {r}")
+        anchor_twin(r["n_global"], r["shards"], r["fanout"])
         log(f"  shard_anchor ({r['n_global']}, {r['shards']}): "
             f"[{r['n_global']} x {r['local_cols']}] "
             f"{r['ms_per_round_per_chip']:.4f} ms a round "
@@ -6267,6 +6638,35 @@ def tools_anchor(results: dict) -> None:
         "rows": [[r["n_global"], r["shards"], r["ms_per_round_per_chip"],
                   r["shard_bytes"], r["alloc_bytes"]] for r in rows],
         "refused_bytes": top["shard_bytes"]}
+
+
+def anchor_twin(n: int, shards: int, fanout: int, rounds: int = 3) -> None:
+    """A ladder row's shard (shard 0 of ``shards``, shard_anchor's inputs)
+    for ``rounds`` rounds on K3's one-pass form and again on its
+    two-launch form from the same inputs: equal lanes and outputs."""
+    import torch
+
+    from gossipfs_tpu_torch import shard_anchor as sa
+    from gossipfs_tpu_torch.ops import merge
+
+    outs = []
+    for onepass in (True, False):
+        x = sa.shard_inputs(n, shards, 8, device="cuda")
+        for _ in range(rounds):
+            got = merge.resident_round(
+                x["hb"], x["asl"], x["flags"], x["vecs"], x["bases"],
+                fanout=fanout, arc_align=8, t_fail=sa.T_FAIL,
+                t_cooldown=sa.T_COOLDOWN, onepass=onepass)
+        outs.append(got)
+        del x
+    d = sum(count_diff(a, b)[0] for a, b in zip(*outs))
+    log(f"  shard_anchor ({n}, {shards}) shard 0, {rounds} rounds: one-pass "
+        f"== two-launch: {d} entries differ")
+    if d:
+        raise AssertionError(f"shard_anchor ({n}, {shards}): one-pass != "
+                             "two-launch")
+    del outs
+    torch.cuda.empty_cache()
 
 
 def stub_checks(results: dict) -> None:
@@ -6354,12 +6754,13 @@ def tools_stubs(results: dict) -> None:
 
 
 def tools_claims(results: dict) -> None:
-    """``python -m gossipfs_tpu_torch.verify_claims --only headline soak
-    spec_clean trace_invariants`` (its main, each claim a subprocess on
-    the card): every one PASS."""
+    """``python -m gossipfs_tpu_torch.verify_claims --only headline
+    frontier_65536 soak spec_clean trace_invariants`` (its main, each
+    claim a subprocess on the card): every one PASS."""
     from gossipfs_tpu_torch import verify_claims
 
-    only = ["headline", "soak", "spec_clean", "trace_invariants"]
+    only = ["headline", "frontier_65536", "soak", "spec_clean",
+            "trace_invariants"]
     rc, rows = cli_rows(verify_claims.main, ["--only", *only])
     claims, summary = rows[:-1], rows[-1]
     if rc != 0 or not summary["all_pass"] or [c["claim"] for c in
@@ -6403,6 +6804,11 @@ def onepass_summary(results: dict) -> dict:
             if r.get("split"):
                 row["us_a_stripe"] = r["split"]
             out[", ".join(key)] = row
+    # the 16 x 16 blocking at the N only it holds
+    for (n, name), r in results["k3_wide"].items():
+        out[f"16x16 {n} {name}"] = {
+            k: r[k] for k in ("ms", "two_launch_ms", "plain_ms", "bound_ms",
+                              "clusters", "smem", "sass", "split")}
     return out
 
 
@@ -6427,14 +6833,18 @@ def main_path_summary(results: dict) -> dict:
             out[phase + " off"] = {"round_ms": o["round_ms"],
                                    "rounds_per_s": o["rounds_per_s"],
                                    "launches": o["launch_counts"]}
-    # the paths only K3's two-launch form runs (N past the one-pass form's
-    # reach): capacity, the frontier (lanes, SWAR), the PackedDetector's
-    # quiet advance at N = 49,152
+    # the paths on K3 (f)'s 16 x 16 blocking, each with its two-launch
+    # twin: capacity, the PackedDetector's quiet advance at N = 49,152
+    # (the frontier lanes and SWAR below)
     for phase, key in (("6", "capacity"), ("23", "advance")):
         r = results[key]
         out[phase] = {"round_ms": r["round_ms"],
                       "rounds_per_s": r["rounds_per_s"],
                       "launches": r["launch_counts"]}
+        o = r["off"]
+        out[phase + " off"] = {"round_ms": o["round_ms"],
+                               "rounds_per_s": o["rounds_per_s"],
+                               "launches": o["launch_counts"]}
     # config 4's fault model at N = 65,536 (the largest K2 a path launches),
     # with K2's device ms a round
     r = results["config4"]
@@ -6445,6 +6855,7 @@ def main_path_summary(results: dict) -> dict:
         out[phase] = {"round_ms": d["seconds_per_round"] * 1e3,
                       "rounds_per_s": d["rounds_per_sec"],
                       "launches": d["launches"]}
+        out[phase + " off"] = d["off"]
     p = results["partition"]
     out["29"] = {"round_ms": p["seconds"] / p["rounds"] * 1e3,
                  "rounds_per_s": p["rounds"] / p["seconds"],
@@ -6541,6 +6952,16 @@ def main_path_summary(results: dict) -> dict:
     # the tools (phase 50): sweep_rr's points, the ladder rows, the stub
     # rows' ms a round, the claims measured
     out["50 tools"] = results["tools"]
+    # K3 (f)'s 16 x 16 blocking at the N only it holds (phase 40): ms a
+    # launch (one a round) beside the two-launch form's, the plain
+    # version's and the bound, clusters in flight, shared memory a CTA
+    # (formula, launcher, cudaFuncGetAttributes), the step timeline
+    out["40 wide"] = {
+        f"{n} {name}": dict(
+            {k: r[k] for k in ("ms", "two_launch_ms", "plain_ms",
+                               "bound_ms", "clusters", "smem", "split")},
+            launches_a_round=1)
+        for (n, name), r in results["k3_wide"].items()}
     return out
 
 
@@ -6603,10 +7024,13 @@ def shim_kernel_rows(results: dict, src: str, mp: str) -> list:
 
 # main-path entries printed on the details line before the kernels line
 # (each path's "off" twin, phases 43-46's per-part documents)
-DETAIL_KEYS = ("43 curves", "44 conformance", "44 t_fail", "44 suspicion",
-               "44 scenarios", "44 entry", "45 scale", "45 lanes",
-               "45 campaign", "45 codec", "47 roundprof", "48 native",
-               "48 udp", "48 conformance", "48 native_rt", "48 deploy",
+DETAIL_KEYS = ("40 wide", "43 bench", "43 curves", "43 detector", "43 campaign", "44",
+               "44 conformance", "44 t_fail", "44 suspicion",
+               "44 scenarios", "44 entry", "45", "45 config5", "45 scale",
+               "45 lanes", "45 campaign", "45 codec", "47",
+               "47 config5 ranks", "47 roundprof", "47 soak",
+               "47 profiler", "48", "48 native", "48 udp",
+               "48 conformance", "48 native_rt", "48 deploy",
                "49 analysis", "50 tools")
 
 
@@ -6616,11 +7040,23 @@ def split_details(out: dict) -> tuple[dict, dict]:
     go to the details, a short form of the shim's stays."""
     details = {k: v for k, v in out.items()
                if k in DETAIL_KEYS or k.endswith(" off") or k == "shim"}
-    paths = {k: v for k, v in out.items() if k not in details}
+    paths = {k: dict(v, launches=short_launches(v["launches"]))
+             if "launches" in v else v
+             for k, v in out.items() if k not in details}
     sh = out["shim"]
     paths["shim"] = {k: sh[k] for k in ("n", "advance_ms", "rounds",
                                         "launches", "seconds")}
     return paths, details
+
+
+def short_launches(counts: dict) -> dict:
+    """A path's launch counts without the resident round's total where
+    its per-form counts (``resident_round[form]``) add up to it."""
+    forms = sum(v for k, v in counts.items()
+                if k.startswith("resident_round["))
+    if counts.get("resident_round") == forms:
+        return {k: v for k, v in counts.items() if k != "resident_round"}
+    return counts
 
 
 def compact_json(doc) -> str:
@@ -6746,8 +7182,9 @@ def main() -> int:
     _build.start(variants, verbose=True, nice=19)
     log(f"[2] building {sorted(_build.SIGNATURES)}, {len(variants)} stage "
         "variants of rr_onepass and the native engine beside phases 18, 8, "
-        "11, 14, 7, 9, 10, 12 and 36 (the separate-pass kernels) and 3, 6, "
-        "13, 35 and 41 (K3's two-launch form)")
+        "11, 14, 7, 9, 10, 12 and 36 (the separate-pass kernels) and 3, "
+        "13, 35 and 41 (K3's two-launch form); phase 6 (K3 (f)'s wide "
+        "library) after them")
     results: dict = {}
     scan = scan_rounds()
     log(f"[18] K1 fanout_max_merge vs plain, N={N_MAIN} and ragged")
@@ -6774,8 +7211,6 @@ def main() -> int:
     phase_merge_column_blocks(results)
     log(f"[3] resident_round kernel vs plain, one round, N={N_MAIN}")
     phase_kernel_vs_plain(N_MAIN, results)
-    log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds")
-    phase_capacity(10, results)
     log(f"[13] K3 suspicion + Lifeguard form vs plain, one round, "
         f"N={N_MAIN}")
     phase_k3_suspicion(N_MAIN, results)
@@ -6787,12 +7222,16 @@ def main() -> int:
         f"(aligned, edges; lanes, SWAR; crash-only, suspicion), "
         f"N={N_ADVANCE} (edges), [{N_CAPACITY} x {N_CAPACITY // 8}]")
     phase_k3_two_launch_large(results)
+    log(f"[6] K3 capacity: N={N_CAPACITY}, 10 rounds, the one-pass form "
+        "(its 16 x 16 blocking), then rr_resident='off'")
+    phase_capacity(10, results)
     t1 = time.perf_counter()
     paths = _build.build(list(_build.SIGNATURES) + variants, verbose=True)
     host.result()
     pool.shutdown()
-    # cuobjdump of K3 (f)'s library (phase 40) runs beside phases 4-39
+    # cuobjdump of K3 (f)'s libraries (phase 40) runs beside phases 4-39
     start_sass_dump(str(paths["rr_onepass"]))
+    start_sass_dump(str(paths["rr_onepass_wide"]))
     log(f"[2] built {sorted(_build.SIGNATURES)}, {len(variants)} stage "
         f"variants of rr_onepass and the native engine "
         f"({native._LIB_PATH.name}) {time.perf_counter() - t0:.2f} s after "
@@ -6875,6 +7314,13 @@ def main() -> int:
         f"instantiations, N={N_MAIN}, square and the 2 shards "
         f"[{N_MAIN} x {N_MAIN // 2}]")
     phase_k3_onepass(results)
+    log(f"[40] K3 (f)'s 16 x 16 blocking forced vs plain (N="
+        f"{', '.join(map(str, WIDE_PLAIN_NS))}; aligned, edges; lanes, "
+        "SWAR; crash-only, suspicion + lh; 2 rounds), then at the N only "
+        f"it holds vs the two-launch form ({WIDE_ROUNDS} rounds) and plain "
+        "(1 round): " + ", ".join(f"{n} {f} {e}" for n, f, e in WIDE_SHAPES))
+    onepass_wide_vs_plain(results)
+    onepass_wide_large(results)
     print(json.dumps({"onepass": onepass_summary(results)}))
     log("[42] K2, K1, K4 and K5 at every timed shape: stripe, ring, "
         "items, cluster, blocks held, registers, spills")
@@ -6928,11 +7374,12 @@ def main() -> int:
     phase_analysis(results)
     log(f"  phase 49 in {results['analysis']['seconds']:.2f} s")
     log(f"[50] the tools: python -m gossipfs_tpu_torch.sweep_rr "
-        f"(N={N_MAIN}, {TOOLS_ROUNDS} rounds, 4 points; N={N_CAPACITY} "
+        f"(N={N_MAIN}, {TOOLS_ROUNDS} rounds, 4 points; N={N_CAPACITY}, "
+        f"{SWEEP_WIDE_ROUNDS} rounds, 2 SWAR points; N={N_PAST_WIDE} "
         f"refused), shard_anchor --ladder (2 rows, {LADDER_ROUNDS} rounds; "
         f"--budget-only), stub_bisect (N={N_MAIN}, {TOOLS_ROUNDS} rounds: "
         "the default list, --arc-align 8 --suspicion), verify_claims "
-        "--only headline soak spec_clean trace_invariants")
+        "--only headline frontier_65536 soak spec_clean trace_invariants")
     phase_tools(results)
     log(f"  phase 50 in {results['tools']['seconds']:.2f} s")
     src = "gossipfs_tpu_torch/csrc/"
@@ -7013,16 +7460,34 @@ def main() -> int:
     ]
     large = results["k3_large"]
     large_launches = {
-        # the launches of the main path that runs each shape and form
+        # the launches of the rr_resident="off" twin of the main path that
+        # runs each shape and form
         ("aligned_group", "crash-only", N_CAPACITY, N_CAPACITY):
-            results["capacity"]["launches"],
+            results["capacity"]["off"]["launches"],
         ("edges", "crash-only", N_CAPACITY, N_CAPACITY):
-            results["frontier_lanes"]["launches"]["edges"],
+            results["frontier_lanes"]["off"]["launches"]["edges"],
         ("edges/swar", "crash-only", N_CAPACITY, N_CAPACITY):
-            results["frontier_swar"]["launches"]["edges/swar"],
+            results["frontier_swar"]["off"]["launches"]["edges/swar"],
         ("edges", "crash-only", N_ADVANCE, N_ADVANCE):
-            results["advance"]["launches"],
+            results["advance"]["off"]["launches"],
     }
+    # K3 (f)'s 16 x 16 blocking at the shapes of phase 40's second part,
+    # with the launches of the paths that run each: capacity, the frontier
+    # lanes and SWAR, sweep_rr's N = 65,536 SWAR point (phase 50)
+    sweep_wide = results["tools"]["sweep_rr_launches"]
+    wide_launches = {
+        (N_CAPACITY, "aligned_group"): results["capacity"]["launches"],
+        (N_CAPACITY, "aligned_group/swar"): sweep_wide["on/swar"],
+        (N_CAPACITY, "edges"): results["frontier_lanes"]["launches"][
+            "edges" + ONEPASS],
+        (N_CAPACITY, "edges/swar"): results["frontier_swar"]["launches"][
+            "edges/swar" + ONEPASS],
+    }
+    wide_rows = [
+        kernel_line(f"resident_round[one-pass 16x16 N={n}: {name}]",
+                    src + "rr_onepass_wide.cu", mp + "2611",
+                    wide_launches.get((n, name), 0), r)
+        for (n, name), r in results["k3_wide"].items()]
     large_rows = [
         # K3's two-launch form at the N only it runs (phase 41), with the
         # launches of the path that runs each (0: none of this script's
@@ -7031,7 +7496,7 @@ def main() -> int:
                    src + "resident_round.cu", mp + "2611",
                    large_launches.get((form, mode, n, c), 0), r)
         for (form, mode, n, c), r in large.items()]
-    swar_rows = onepass_rows + shard_rows + large_rows + [
+    swar_rows = onepass_rows + wide_rows + shard_rows + large_rows + [
         # each SWAR form in the mode of the path that launches it: the
         # aligned form main path E's rr_resident="off" run (E' adds 100
         # suspicion ones), the others phase 31's 20-round two-launch scans

@@ -10,7 +10,8 @@ K1 and K4), while the launchers ask the card for the bytes the budget
 functions of the ``csrc/*.cuh`` headers compute.  The pairs:
 
 * ``merge.onepass_smem`` / ``ONEPASS_SMEM`` against
-  ``onepass::smem_bytes`` / ``mstripe::kSmemLimit``;
+  ``onepass::smem_bytes`` / ``mstripe::kSmemLimit``, in both blockings
+  (``Cluster8x32`` and ``Cluster16x16``);
 * ``merge_update.stripe_smem`` / ``stripe_row_bytes`` and
   ``STRIPE_MAX_N`` against ``mstripe::smem_bytes`` / ``stripe_row_bytes``;
 * ``merge_update.arc_tile_smem`` against ``mstripe::tile_smem_bytes``;
@@ -20,7 +21,9 @@ functions of the ``csrc/*.cuh`` headers compute.  The pairs:
 Everywhere (``device="cpu"`` included), g++ compiles the headers into a
 small harness (their budget functions are host code too) and each pair
 must agree over a grid of N, F and forms, inside the acceptance envelope
-(``onepass_fits`` holds N = 16,384 and 19,264 and refuses 65,536;
+(``onepass_blocking`` gives the narrow blocking at N = 16,384 and
+19,264, the wide one at 19,328, 65,536 and up to 115,712 in the
+full-view forms and 109,056 in the aligned ones, and refuses the next N;
 ``stripe_admits`` takes ``STRIPE_MAX_N`` and refuses the next N, which
 K5's park still holds).  On the card (``device="cuda"``) the built
 kernels' own reports must say the same: the ``*_info`` entry points'
@@ -60,8 +63,10 @@ HARNESS = r"""
 #include "gather_ring.cuh"
 
 extern "C" {
-long op_smem(long n, int form) {
-  return onepass::smem_bytes(n, onepass::full_view(form));
+long op_smem(long n, int form, int wide) {
+  const bool full = onepass::full_view(form);
+  return wide ? onepass::smem_bytes<onepass::Cluster16x16>(n, full)
+              : onepass::smem_bytes<onepass::Cluster8x32>(n, full);
 }
 long ms_limit() { return mstripe::kSmemLimit; }
 long ms_cta_rows(long n) { return mstripe::cta_rows(n); }
@@ -79,7 +84,7 @@ long gr_max_staged_fanout() { return gring::kMaxStagedFanout; }
 """
 _L, _I = ctypes.c_long, ctypes.c_int
 # the harness's exports: name -> (restype, argtypes)
-_FUNCS = {"op_smem": (_L, [_L, _I]), "ms_limit": (_L, []),
+_FUNCS = {"op_smem": (_L, [_L, _I, _I]), "ms_limit": (_L, []),
           "ms_cta_rows": (_L, [_L]), "ms_row_bytes": (_L, [_L]),
           "ms_smem": (_L, [_L]), "ms_tile_smem": (_L, [_L]),
           "ms_tile_fits": (_I, [_L]), "gr_ring_bytes": (_L, [_I]),
@@ -90,7 +95,13 @@ _FUNCS = {"op_smem": (_L, [_L, _I]), "ms_limit": (_L, []),
 last_report: dict = {}
 
 # the grids the formulas are held equal over
-ONEPASS_NS = (64, 1_024, 8_192, 16_384, 19_264, 19_328, 32_768, 65_536)
+ONEPASS_NS = (64, 1_024, 8_192, 16_384, 19_264, 19_328, 32_768, 65_536,
+              98_304, 104_448, 109_056, 109_184, 115_712, 115_840)
+# K3 (f)'s acceptance envelope: (N, the blocking onepass_blocking gives the
+# square round in every form), and each wide-blocking form's last N
+ONEPASS_EDGES = ((16_384, "8x32"), (19_264, "8x32"), (19_328, "16x16"),
+                 (65_536, "16x16"), (104_448, "16x16"), (131_072, None))
+ONEPASS_WIDE_LAST = {"full": 115_712, "aligned": 109_056}
 STRIPE_NS = (256, 4_096, 16_384, 28_416, 28_420, 65_536, 113_600, 113_664)
 TILE_FANOUTS = (1, 2, 16, 128, 1_024, 1_305, 1_306, 2_048)
 RING_FANOUTS = tuple(range(1, 25)) + (31, 64, 100, 255, 511, 512)
@@ -132,9 +143,10 @@ def python_budgets(drop: str | None = None) -> dict:
     one of :data:`DROP_TERMS` (the fixture's injected drift)."""
     from gossipfs_tpu_torch.ops import merge, merge_update as mu
 
-    def onepass(n, form):
-        return merge.onepass_smem(n, form) - (
-            merge.ONEPASS_STACK_BYTES if drop == "onepass_stack" else 0)
+    def onepass(n, form, blocking="8x32"):
+        stack = 12 * merge.ONEPASS_BLOCKINGS[blocking].cols
+        return merge.onepass_smem(n, form, blocking) - (
+            stack if drop == "onepass_stack" else 0)
 
     def stripe(n):
         return mu.stripe_smem(n) - (
@@ -162,18 +174,23 @@ def _cpu_findings(drop: str | None) -> list[Finding]:
         bad(_MERGE, f"ONEPASS_SMEM {merge.ONEPASS_SMEM} != the headers' "
                     f"kSmemLimit {lib.ms_limit()}")
     for form_id, form in enumerate(merge.FORMS):
-        for n in ONEPASS_NS:
-            want = lib.op_smem(n, form_id)
-            if py["onepass"](n, form) != want:
-                bad(_MERGE, f"onepass_smem({n}, {form!r}) = "
-                            f"{py['onepass'](n, form)} B but "
-                            f"onepass::smem_bytes = {want} B -- the route "
-                            "admits shapes the kernel cannot hold (or "
-                            "refuses ones it can)")
-        for n, fits in ((16_384, True), (19_264, True), (65_536, False)):
-            if merge.onepass_fits(n, n, form) != fits:
-                bad(_MERGE, f"onepass_fits({n}, {n}, {form!r}) is "
-                            f"{not fits}, expected {fits} -- the one-pass "
+        for wide, blocking in enumerate(merge.ONEPASS_BLOCKINGS):
+            for n in ONEPASS_NS:
+                want = lib.op_smem(n, form_id, wide)
+                got = py["onepass"](n, form, blocking)
+                if got != want:
+                    bad(_MERGE, f"onepass_smem({n}, {form!r}, "
+                                f"{blocking!r}) = {got} B but "
+                                f"onepass::smem_bytes = {want} B -- the "
+                                "route admits shapes the kernel cannot "
+                                "hold (or refuses ones it can)")
+        last = ONEPASS_WIDE_LAST["full" if form in merge.FULL_VIEW_FORMS
+                                 else "aligned"]
+        for n, want in ONEPASS_EDGES + ((last, "16x16"), (last + 128, None)):
+            got = merge.onepass_blocking(n, n, form)
+            if got != want:
+                bad(_MERGE, f"onepass_blocking({n}, {n}, {form!r}) is "
+                            f"{got}, expected {want} -- the one-pass "
                             "acceptance envelope moved")
     # K5: park rows, row bytes and bytes a CTA, and STRIPE_MAX_N's edge
     for n in STRIPE_NS:
@@ -241,17 +258,28 @@ def card_report(drop: str | None = None) -> dict:
                                           None, None, False, False)
         return lambda: R.run_rounds(st, cfg, 1, key)
 
-    # K3 one-pass at the envelope's edges: 16,384 and 19,264
-    for n in (16_384, 19_264):
-        for form in ("aligned_group", "edges"):
+    # K3 one-pass at the envelope's edges: the narrow blocking's 16,384
+    # and 19,264, the wide one's 19,328 and its last N (aligned 109,056,
+    # full view 115,712), each edge launched once in the form it bounds
+    edges = ((16_384, ("aligned_group", "edges"), "aligned_group"),
+             (19_264, ("aligned_group", "edges"), "aligned_group"),
+             (19_328, ("aligned_group", "edges"), "edges"),
+             (ONEPASS_WIDE_LAST["aligned"], ("aligned_group",),
+              "aligned_group"),
+             (ONEPASS_WIDE_LAST["full"], ("edges",), "edges"))
+    for n, forms, run_form in edges:
+        for form in forms:
             info = merge.onepass_info(
                 n, n, form, fanout=16,
                 arc_align=8 if form == "aligned_group" else 1)
             rep[f"K3 onepass {form} N={n}"] = dict(
-                python=py["onepass"](n, form), info=info["smem"],
-                attr=info["smem_attr"], clusters=info["clusters"])
-        cfg = SimConfig.headline(n, rr_resident="on")
-        rep[f"K3 onepass aligned_group N={n}"]["launched"] = launches(
+                python=py["onepass"](n, form, info["blocking"]),
+                info=info["smem"], attr=info["smem_attr"],
+                clusters=info["clusters"], blocking=info["blocking"])
+        cfg = (SimConfig.headline(n, rr_resident="on")
+               if run_form == "aligned_group"
+               else SimConfig.packed_rr(n, rr_resident="on"))
+        rep[f"K3 onepass {run_form} N={n}"]["launched"] = launches(
             "resident_round", one_round(cfg))
         torch.cuda.empty_cache()
     # K5 at STRIPE_MAX_N

@@ -376,7 +376,8 @@ def _top_split(expr: str, ops: str) -> list[str]:
 def _owned(expr: str, src: str, before: int, budget: set[str],
            header_types: set[str], depth: int = 0) -> bool:
     """Whether a size expression comes from a named header budget
-    function: a call to one (any namespace, any cast), 0 (no dynamic
+    function: a call to one (any namespace, any cast, any template
+    arguments), 0 (no dynamic
     shared memory), a ternary whose arms are owned, a local whose latest
     definition before the site is owned, or a field of a struct the
     headers define and fill (``gring::Grid``)."""
@@ -392,7 +393,9 @@ def _owned(expr: str, src: str, before: int, budget: set[str],
             for a in arms)
     if len(_top_split(e, "+-*/")) > 1:
         return False    # a local sum or product: the budget re-derived
-    m = re.fullmatch(r"(?:\w+::)*(\w+)\s*\(.*\)", e, re.S)
+    # a call, its template arguments too (``smem_bytes<Blk>(n, full)``)
+    m = re.fullmatch(r"(?:\w+::)*(\w+)\s*(?:<[\w:, ]*>)?\s*\(.*\)", e,
+                     re.S)
     if m:
         return m.group(1) in budget
     m = re.fullmatch(r"(\w+)(?:\.|->)\w+", e)

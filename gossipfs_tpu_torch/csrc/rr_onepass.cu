@@ -24,16 +24,37 @@
 // stages compiled out, the RR_STUB variants of rr_onepass.cuh).
 //
 // Design.  A Hopper block has 227 KB of shared memory, far less than the
-// TPU's 102 MB stripe, so a thread-block cluster of kCtas = 8 CTAs owns one
-// stripe of kC = 32 subject columns over all N rows (one 32-byte sector per
-// row segment); each CTA parks N/8 rows of the stripe in dynamic shared
-// memory, one CTA an SM.  The grid is the clusters the card holds at once
+// TPU's 102 MB stripe, so a thread-block cluster of kCtas CTAs owns one
+// stripe of kC subject columns over all N rows; each CTA parks N / kCtas
+// rows of the stripe in dynamic shared memory, one CTA an SM.  Two
+// blockings (rr_onepass.cuh Blocking), one library each, ops/merge.py
+// onepass_blocking picking the first that holds the shape:
+//   this file, Cluster8x32: a portable cluster of 8 CTAs, stripes of 32
+//     columns (one 32-byte sector a row segment), both ticked lanes parked,
+//     the aligned forms' whole group-max table in every CTA: 12N + 1,280 B
+//     a CTA, so N <= 19,264 (N % 64 == 0; 232,448 B, the whole opt-in);
+//     4 B an entry;
+//   rr_onepass_wide.cu, Cluster16x16: a non-portable cluster of 16 CTAs
+//     (16 free SMs of one GPC each: fewer clusters in flight), stripes of
+//     16 columns (a 16-byte row segment: half a sector); in the full-view
+//     forms asl alone parked and hb read again from device memory in step
+//     2 (the tick changes hb only on the diagonal, whose segments step 1
+//     parks on the side), in the aligned ones both lanes parked and the
+//     group-max table split over the CTAs (each its own groups' rows, the
+//     others' gathered through distributed shared memory): 2N + 896 B a
+//     CTA in the full-view forms, 17N/8 + 640 in the aligned ones, so N <=
+//     115,712 and 109,056 (N % 128 == 0); 5 B an entry in the full-view
+//     forms, 4 in the aligned ones.  The TPU runs one pass up to N =
+//     69,632 (explicit edges) and 104,448 (arcs with arc_align > 1) at
+//     merge_block_c = 512, and N = 65,536 only at that block width
+//     (gossipfs_tpu/ops/merge_pallas.py rr_resident_supported, :953).
+// The grid is the clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters, at most one a stripe), each walking
 // stripes c, c + clusters, ... (persistent: one launch's clusters never
 // wait for a wave).  A thread takes 16 bytes (4 words) of a row, so every
 // lane load and store, parked row access and gathered view row is one
-// 16-byte access, and a row's flags, senders and counts are shared by 2
-// threads, not 8.  The stripe walk is rr_onepass.cuh:
+// 16-byte access, and a row's flags, senders and counts are shared by
+// kLanes threads (2 or 1), not 8.  The stripe walk is rr_onepass.cuh:
 //   step 1  each CTA ticks its rows: asl in place in its park, where
 //           cp.async staged it (no register holds it in flight), hb read
 //           from device memory a row ahead (the stripe's reads split
@@ -46,15 +67,16 @@
 //           CTAs' copies of the stripe's group-max table (aligned_group,
 //           filter_group; 16-byte distributed shared memory stores, after a
 //           cluster barrier that every CTA has reached, so that none writes
-//           a CTA that has not started), or its rows' encoded view into its
-//           own slice (edges, arc, filter_rows); detections, the first
-//           observer and SUSPECT entries go to the CTA's count block
-//           (shared-memory atomics);
+//           a CTA that has not started) or into its own split table, or its
+//           rows' encoded view into its own slice (edges, arc, filter_rows);
+//           detections, the first observer and SUSPECT entries go to the
+//           CTA's count block (shared-memory atomics);
 //   cluster.sync();
 //   step 2  each CTA merges its own receiver rows: best from its own group
-//           table, or gathered from the other CTAs' view slices through
-//           distributed shared memory (ld.shared::cluster.v4: a thread
-//           computes the slots of its 16 bytes itself, 8 rows in flight),
+//           table, or gathered from the other CTAs' view slices or split
+//           tables through distributed shared memory (ld.shared::cluster.v4:
+//           a thread computes the slots of its 16 bytes itself, 8 rows in
+//           flight),
 //           the byte max folded two words an instruction by Hopper's s16x2
 //           3-input max (DPX, 2 instructions a word); the epilogue on the
 //           parked lanes (the lanes form unpacks and packs bytes by prmt),
@@ -64,33 +86,30 @@
 //           on the barrier's release); per-receiver counts (recv_cnt, the
 //           Lifeguard suspect_cnt) are partial over the stripe's columns:
 //           one global atomic per row and stripe into counts the host
-//           zeroes before the launch (one 64 KB memset); per-subject counts
+//           zeroes before the launch (one memset); per-subject counts
 //           reduce over the warp, then one shared atomic per column pair;
 //   cluster.sync(); the next stripe's stack staged.  Per-subject counts
 //           are then complete inside the cluster (every row of the stripe
-//           is there): CTA r sums its columns of the 8 count blocks through
-//           distributed shared memory and stores them, no global atomics,
-//           at the start of the next stripe's step 1 (the other warps tick
-//           meanwhile).  Counts alternate between two blocks a CTA by
-//           stripe, so no third barrier guards the next stripe's counting;
-//           one cluster.sync() after the last stripe keeps every CTA until
-//           its blocks are read.
-// Shared memory per CTA: 2 * N/8 * 32 B of parked lanes, an N/8-row view
-// (its rows' slice, or the whole table of N/8 group maxes), the stripe's
-// 11-row threshold stack, a 32-byte row of the gathers' start value and
-// two 448-byte count blocks (16-bit column pairs): 197,888 B at N =
-// 16,384.  The full-view forms fit there with C = 32 and a portable
-// cluster of 8, so neither way out of the limit is taken: C = 16 would
-// halve the 32-byte sector each row segment fills, and a non-portable
-// cluster of 16 needs 16 free SMs in one GPC, which leaves fewer clusters
-// in flight.  The largest N is 19,264 (N % 64 == 0; 232,448 B, the whole
-// opt-in); a larger N runs the two-launch form (ops/merge.onepass_fits), as
-// the TPU does at N = 65,536.  Rows go to the CTAs by 8-row group round
-// robin (rr_onepass.cuh), so a view row's home is a shift and a mask.  The
-// square round and the column block (kBlock, nc and col_offset runtime
-// values) are separate instantiations, as in resident_round.cu.  No
-// fallback: a refused launch, or an occupancy query that finds no place
-// for a cluster, returns its error and the wrapper raises.
+//           is there): CTA r sums its columns of the kCtas count blocks
+//           through distributed shared memory and stores them, no global
+//           atomics, at the start of the next stripe's step 1 (the other
+//           warps tick meanwhile).  Counts alternate between two blocks a
+//           CTA by stripe, so no third barrier guards the next stripe's
+//           counting; one cluster.sync() after the last stripe keeps every
+//           CTA until its blocks are read.
+// Shared memory per CTA (onepass::smem_bytes): the parked lanes, the view
+// (its rows' slice, the whole table of N/8 group maxes, or its own
+// groups'), the stripe's 11-row threshold stack, a row of the gathers'
+// start value, the diagonal's rows (Cluster16x16) and two count blocks
+// (16-bit column pairs): 197,888 B at N = 16,384 (Cluster8x32), 209,536 B
+// at N = 98,304 in the aligned forms and 131,968 at 65,536 in the
+// full-view ones (Cluster16x16).
+// Rows go to the CTAs by 8-row group round robin (rr_onepass.cuh), so a
+// view row's or a group's home is a shift and a mask.  The square round
+// and the column block (kBlock, nc and col_offset runtime values) are
+// separate instantiations, as in resident_round.cu.  No fallback: a
+// refused launch, or an occupancy query that finds no place for a
+// cluster, returns its error and the wrapper raises.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -102,6 +121,20 @@ namespace cg = cooperative_groups;
 using namespace onepass;
 
 namespace {
+
+// the blocking this library instantiates (rr_onepass_wide.cu defines
+// RR_WIDE)
+#if defined(RR_WIDE)
+using Blk = Cluster16x16;
+#else
+using Blk = Cluster8x32;
+#endif
+constexpr int kC = Blk::kC;
+constexpr int kCtas = Blk::kCtas;
+constexpr int kLanes = Blk::kLanes;
+constexpr int kPairs = Blk::kPairs;
+constexpr int kFobsAt = Blk::kFobsAt;
+constexpr int kBlockWords = Blk::kBlockWords;
 
 // threads a CTA, one CTA an SM (16 warps; a thread's 4 words of a row are
 // 4 independent instruction streams)
@@ -228,6 +261,8 @@ template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 __global__ void __launch_bounds__(kThreads, 1)
 rr_onepass_kernel(const Params p) {
   constexpr bool kFull = full_view(kForm);
+  constexpr bool kParkHb = park_hb<Blk>(kFull);
+  constexpr bool kSplit = Blk::kSplitTable && !kFull;
   constexpr int kStats = kSus ? 6 : 3;
   cg::cluster_group cluster = cg::this_cluster();
   const int cta = (int)cluster.block_rank();
@@ -242,38 +277,47 @@ rr_onepass_kernel(const Params p) {
   const int h = t % kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   Park pk;
-  pk.hb = reinterpret_cast<int8_t*>(smem);
-  pk.asl = pk.hb + (size_t)rows * kC;
+  pk.hb = kParkHb ? reinterpret_cast<int8_t*>(smem) : nullptr;
+  pk.asl = reinterpret_cast<int8_t*>(smem) + (kParkHb ? (size_t)rows * kC : 0);
   pk.view = pk.asl + (size_t)rows * kC;
-  int8_t* vs = pk.view + (size_t)view_rows(n, kFull) * kC;
+  int8_t* vs = pk.view + (size_t)view_rows<Blk>(n, kFull) * kC;
   int8_t* none = vs + N_VEC * kC;
-  uint32_t* blocks = reinterpret_cast<uint32_t*>(none + kC);
+  pk.diag = none + kC;
+  uint32_t* blocks =
+      reinterpret_cast<uint32_t*>(pk.diag + diag_rows<Blk>(kFull) * kC);
   auto stage_copy = [](int8_t* dst, const int8_t* src) { copy16(dst, src); };
   int stripe = (int)blockIdx.x / kCtas;
-  stage(p.asl, p.vecs, stripe_at(n, nc, col_offset, stripe), pk, vs, cta,
-        rows, t, kThreads, stage_copy);
+  stage<Blk>(p.asl, p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), pk,
+             vs, cta, rows, t, kThreads, stage_copy);
   asm volatile("cp.async.commit_group;" ::: "memory");
   for (int i = t; i < kBlockWords; i += kThreads)
-    blocks[i] = blank_count(i, n);
-  if (t < kWords)
+    blocks[i] = blank_count<Blk>(i, n);
+  if (t < Blk::kWords)
     reinterpret_cast<uint32_t*>(none)[t] = gather_none(kForm);
   // a step-1 thread's first group: its rows' flags, the same every stripe
   GroupFlags fw{};
   if (t / kLanes < groups)
-    fw = group_flags(p.flags, group_row0(cta, t / kLanes));
+    fw = group_flags(p.flags, group_row0<Blk>(cta, t / kLanes));
   const uint32_t view_sa = (uint32_t)__cvta_generic_to_shared(pk.view);
   const uint32_t none_ca =
       mapa((uint32_t)__cvta_generic_to_shared(none) + 4 * kSeg * h, cta);
 
-  // the aligned forms: each group max into every CTA's table, so that
-  // step 2 gathers from its own shared memory.  A CTA may touch another's
-  // shared memory only once that one runs: every thread arrives at a
-  // cluster barrier here and waits on it before its first push (or after
-  // the first step 1, if it pushed nothing); later stripes push after the
-  // previous stripe's last barrier, when every CTA has read its table
-  bool started = kFull;
-  if (!kFull) asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+  // the aligned forms of the narrow blocking: each group max into every
+  // CTA's table, so that step 2 gathers from its own shared memory.  A CTA
+  // may touch another's shared memory only once that one runs: every
+  // thread arrives at a cluster barrier here and waits on it before its
+  // first push (or after the first step 1, if it pushed nothing); later
+  // stripes push after the previous stripe's last barrier, when every CTA
+  // has read its table.  The split table of the wide blocking takes each
+  // group max into its own CTA's table only, and step 2 reads the others'
+  // after the cluster barrier, as the full-view forms read view rows
+  bool started = kFull || kSplit;
+  if (!started) asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
   auto put_group = [&](int g, int hh, const Seg& v) {
+    if constexpr (kSplit) {
+      store_seg(pk.view + group_home<Blk>(g).local * kC + 4 * kSeg * hh, v);
+      return;
+    }
     if (!started) {
       asm volatile("barrier.cluster.wait;" ::: "memory");
       started = true;
@@ -288,7 +332,16 @@ rr_onepass_kernel(const Params p) {
           m, p.senders, row, n, p.kn,
           [&](int s) -> uint32_t {
             if (s < 0) return none_ca;
-            const Where w = row_home(s);
+            const Where w = row_home<Blk>(s);
+            return mapa(view_sa + w.local * kC + 4 * kSeg * hh, w.cta);
+          },
+          [](uint32_t a) { return ld_cluster(a); });
+    } else if constexpr (kSplit) {
+      return gather_groups<kForm>(
+          m, n, p.kn,
+          [&](int g) -> uint32_t {
+            if (g < 0) return none_ca;
+            const Where w = group_home<Blk>(g);
             return mapa(view_sa + w.local * kC + 4 * kSeg * hh, w.cta);
           },
           [](uint32_t a) { return ld_cluster(a); });
@@ -310,13 +363,13 @@ rr_onepass_kernel(const Params p) {
     if (t >= kCols * kStats) return;
     const int s = t / kCols;
     const int c = kCols * cta + t % kCols;
-    p.subj[(size_t)s * nc + done * kC + c] = finish(s, c, [&](int q) {
+    p.subj[(size_t)s * nc + done * kC + c] = finish<Blk>(s, c, [&](int q) {
       return (const uint32_t*)cluster.map_shared_rank(blk, q);
     });
   };
 
   for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
-    const Stripe sp = stripe_at(n, nc, col_offset, stripe);
+    const Stripe sp = stripe_at<Blk>(n, nc, col_offset, stripe);
     uint32_t* cnt = blocks + (it & 1) * kBlockWords;
     stamp(p.timeline, stripe, cta, 0);
     // the staged rows and stack (every thread's copies) in place
@@ -328,9 +381,9 @@ rr_onepass_kernel(const Params p) {
     if (it > 0)
       finish_stripe(stripe - clusters, blocks + ((it - 1) & 1) * kBlockWords);
     TickSink ts{cnt};
-    step1<kSus, kFull, mutes(kForm), kSwar>(p.hb, p.flags, vs, sp, p.kn, pk,
-                                            cta, groups, t, kThreads, fw, ts,
-                                            put_group);
+    step1<Blk, kSus, kFull, mutes(kForm), kSwar>(p.hb, p.flags, vs, sp, p.kn,
+                                                 pk, cta, groups, t, kThreads,
+                                                 fw, ts, put_group);
     if (!started) {
       asm volatile("barrier.cluster.wait;" ::: "memory");
       started = true;
@@ -342,23 +395,23 @@ rr_onepass_kernel(const Params p) {
     // back) before it reached the barrier above
     uint32_t* spare = blocks + ((it + 1) & 1) * kBlockWords;
     for (int i = t; i < kBlockWords; i += kThreads)
-      spare[i] = blank_count(i, n);
+      spare[i] = blank_count<Blk>(i, n);
     MergeSink<kSus, kLh> ms{cnt, p.recv, n};
     // each merged row's next-stripe segments go out at once, spread over
     // step 2 (the row's park segment is this thread's alone)
     const bool more = stripe + clusters < stripes;
-    const Stripe next = stripe_at(n, nc, col_offset, stripe + clusters);
-    step2<kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp, p.kn,
-                              pk, cta, rows, t, kThreads, gather, ms,
-                              [&](int li, int hh) {
-                                if (more)
-                                  stage_row(p.asl, next, pk, cta, li, hh,
-                                            stage_copy);
-                              });
+    const Stripe next = stripe_at<Blk>(n, nc, col_offset, stripe + clusters);
+    step2<Blk, kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp,
+                                   p.kn, pk, cta, rows, t, kThreads, gather,
+                                   ms, [&](int li, int hh) {
+                                     if (more)
+                                       stage_row<Blk>(p.asl, next, pk, cta,
+                                                      li, hh, stage_copy);
+                                   });
     stamp(p.timeline, stripe, cta, 3);
     cluster.sync();
     // every thread done with the stack: the next one's copies
-    if (more) stage_stack(p.vecs, next, vs, t, kThreads, stage_copy);
+    if (more) stage_stack<Blk>(p.vecs, next, vs, t, kThreads, stage_copy);
     else finish_stripe(stripe, cnt);
     stamp(p.timeline, stripe, cta, 4);
   }
@@ -369,7 +422,7 @@ rr_onepass_kernel(const Params p) {
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
   auto kern = rr_onepass_kernel<kSus, kLh, kForm, kSwar, kBlock>;
-  const size_t smem = (size_t)smem_bytes(p.n, full_view(kForm));
+  const size_t smem = (size_t)smem_bytes<Blk>(p.n, full_view(kForm));
   cudaError_t e;
   const int stripes = (kBlock ? p.nc : p.n) / kC;
   cudaLaunchConfig_t cfg = {};
@@ -398,6 +451,12 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
+    if (kCtas > 8) {
+      // past the portable cluster size of 8
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+    }
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
     if (e != cudaSuccess) return e;
@@ -529,12 +588,12 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
 
 // Launch one round on ``stream`` in one pass: the arguments and outputs of
 // resident_round.cu's rr_round (every output written; out_recv complete),
-// for n % 64 == 0, nc % 32 == 0 and a shared-memory need
-// (onepass::smem_bytes) the card grants: one memset of out_recv (the
-// per-receiver counts add up there by global atomics), then one launch.
-// ``timeline`` null, or uint64 [nc / 32, kCtas, kStamps]: each CTA's
-// globaltimer stamps (ns) of its stripe's steps.  Returns the CUDA error
-// code (0 on success).
+// for n % (kCtas * 8) == 0, nc % kC == 0 (64 and 32 here, 128 and 16 in
+// rr_onepass_wide.cu) and a shared-memory need (onepass::smem_bytes) the
+// card grants: one memset of out_recv (the per-receiver counts add up
+// there by global atomics), then one launch.  ``timeline`` null, or uint64
+// [nc / kC, kCtas, kStamps]: each CTA's globaltimer stamps (ns) of its
+// stripe's steps.  Returns the CUDA error code (0 on success).
 extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
                           const void* vecs, const void* senders,
                           void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset,

@@ -4,33 +4,42 @@
 // thread-block cluster replaced by host arrays, against the plain PyTorch
 // version (gossipfs_tpu_torch/ops/merge.py resident_round_plain).
 //
-// A cluster of kCtas CTAs walks stripes of kC subject columns over all n
-// receiver rows: stripe c, c + clusters, ... (a persistent cluster).  Rows
-// go to the CTAs by 8-row sender group, round robin: group g (rows [8g,
-// 8g + 8)) lives in CTA g % kCtas at local group g / kCtas, so every owner
-// and local index is a shift and a mask.  A thread takes one 16-byte
-// segment (kSeg words, half of a row's 32 bytes) of a row: kLanes threads
-// a row, every load, store and gather 16 bytes wide.
+// A cluster of B::kCtas CTAs walks stripes of B::kC subject columns over
+// all n receiver rows: stripe c, c + clusters, ... (a persistent cluster).
+// ``B`` is the blocking (Blocking below): 8 CTAs x 32 columns
+// (Cluster8x32: N <= 19,264), or 16 CTAs x 16 columns (Cluster16x16: N <=
+// 115,712 in the full-view forms, which park asl only, and 109,056 in the
+// aligned ones, whose group-max table is split over the CTAs).
+// Rows go to the CTAs by 8-row sender group, round robin: group g (rows
+// [8g, 8g + 8)) lives in CTA g % kCtas at local group g / kCtas, so every
+// owner and local index is a shift and a mask.  A thread takes one
+// 16-byte segment (kSeg words) of a row: B::kLanes threads a row (2 of
+// the 32-byte rows of Cluster8x32, 1 of Cluster16x16's 16-byte rows),
+// every load, store and gather 16 bytes wide.
 //
 //   step1  each CTA ticks its groups' lanes for the stripe, asl in place in
 //          its park (stage / stage_row copied it there), hb read from
 //          device memory, and writes
-//          its part of the stripe's view: its groups' maxes into every
-//          CTA's copy of the whole group-max table G[n/8, kC] (the aligned
-//          forms: a PutGroup callable, so step 2 gathers from its own
-//          shared memory), or its rows' encoded view into its own (the
-//          explicit-edge, plain-arc and filter_rows forms); detections and
-//          SUSPECT entries go to a Sink.
+//          its part of the stripe's view: its groups' maxes into the
+//          stripe's group-max table G[n/8, kC] (the aligned forms: a
+//          PutGroup callable: every CTA's copy of the whole table, or
+//          under B::kSplitTable its own groups' rows only), or its rows'
+//          encoded view into its own (the explicit-edge, plain-arc and
+//          filter_rows forms); the ticked hb into its park, or (where
+//          park_hb is false) only the segments the diagonal crosses, into
+//          the park's diagonal rows; detections and SUSPECT entries go to
+//          a Sink.
 //   (the cluster synchronises)
 //   step2  each CTA merges its own receiver rows: best gathered from the
 //          stripe's view wherever it lives (a Gather callable: the local
-//          G, or other CTAs' rows, distributed shared memory on the card,
-//          kChunk 16-byte rows a batch), the next row's flags and senders
-//          loaded while this one merges; the epilogue on the parked lanes,
-//          hb and asl written once, then the row's asl staged for the
-//          cluster's next stripe; per-subject counts accumulate per thread
-//          and go to the Sink once, per-receiver counts go to the Sink once
-//          a row.
+//          G, or other CTAs' rows or groups, distributed shared memory on
+//          the card, kChunk 16-byte rows a batch), the next row's flags
+//          and senders loaded while this one merges; the epilogue on the
+//          parked lanes (where park_hb is false on hb read again from
+//          device memory: the tick changes hb only on the diagonal), hb and asl
+//          written once, then the row's asl staged for the cluster's next
+//          stripe; per-subject counts accumulate per thread and go to the
+//          Sink once, per-receiver counts go to the Sink once a row.
 //   finish per column, the cluster's per-CTA counts summed (the first
 //          observer: their min) into the stripe's outputs.
 //
@@ -61,12 +70,7 @@
 
 namespace onepass {
 
-constexpr int kC = 32;             // subject columns per stripe
-constexpr int kWords = kC / 4;     // 4-subject words per stripe row
 constexpr int kSeg = 4;            // words a thread takes of a row (16 B)
-constexpr int kLanes = kWords / kSeg;  // threads a row
-constexpr int kCtasLog = 3;
-constexpr int kCtas = 1 << kCtasLog;  // CTAs per cluster
 constexpr int kAlign = 8;          // rows per sender group
 constexpr int kChunk = 8;          // sender rows gathered in one batch
 
@@ -121,18 +125,54 @@ OP_HD constexpr uint32_t gather_none(int form) {
   return mutes(form) ? 0xFFFFFFFFu : swar::H;
 }
 
-// A CTA's count block: five sums as 16-bit column pairs (a partial over a
-// CTA's rows is at most n / kCtas < 2^16; one 32-bit word holds columns
-// 2i and 2i + 1), then the first observers as int32.
+// the five sums of a count block
 enum { kSumMember = 0, kSumDet, kSumEntered, kSumRefuted, kSumHeld, kSums };
-constexpr int kPairs = kC / 2;
-constexpr int kFobsAt = kSums * kPairs;
-constexpr int kBlockWords = kFobsAt + kC;
+
+// A blocking of the stripe walk: a cluster of kCtas = 2^kCtasLog CTAs, a
+// stripe of kC columns.  A CTA's count block holds the five sums as 16-bit
+// column pairs (a partial over a CTA's rows is at most n / kCtas < 2^16;
+// one 32-bit word holds columns 2i and 2i + 1), then the first observers
+// as int32.  ``kWide_``: the aligned forms' group-max table is split over
+// the cluster's CTAs, each holding its own groups' rows (step 2 gathers the
+// others' through distributed shared memory), where each CTA of the narrow
+// blocking holds the whole table; and in the full-view forms the park
+// holds asl only (park_hb).
+template <int kCtasLog_, int kC_, bool kWide_>
+struct Blocking {
+  static constexpr bool kWide = kWide_;
+  static constexpr int kCtasLog = kCtasLog_;
+  static constexpr int kCtas = 1 << kCtasLog;   // CTAs per cluster
+  static constexpr int kC = kC_;                // subject columns per stripe
+  static constexpr int kWords = kC / 4;         // 4-subject words a row
+  static constexpr int kLanes = kWords / kSeg;  // threads a row
+  static constexpr int kPairs = kC / 2;
+  static constexpr int kFobsAt = kSums * kPairs;
+  static constexpr int kBlockWords = kFobsAt + kC;
+  static constexpr bool kSplitTable = kWide;
+};
+using Cluster8x32 = Blocking<3, 32, false>;
+using Cluster16x16 = Blocking<4, 16, true>;
+
+// Whether the park holds the ticked hb beside asl: always, but in the wide
+// blocking's full-view forms, where both lanes and the view slice do not
+// fit past N ~ 77,000.  There step 2 reads hb again from device memory
+// (the tick changes hb only on the diagonal) and step 1 parks the ticked
+// hb of the segments the diagonal crosses in diag_rows rows on the side.
+template <class B>
+OP_HD constexpr bool park_hb(bool full) {
+  return !B::kWide || !full;
+}
+
+template <class B>
+OP_HD constexpr int diag_rows(bool full) {
+  return park_hb<B>(full) ? 0 : 4 * kSeg;
+}
 
 // entry i of a fresh count block: 0, and n for a first observer (no row
 // fired)
+template <class B>
 OP_HD uint32_t blank_count(int i, int n) {
-  return i >= kFobsAt ? (uint32_t)n : 0u;
+  return i >= B::kFobsAt ? (uint32_t)n : 0u;
 }
 
 // ``v`` as an addend of column c's word of a sum row
@@ -146,19 +186,31 @@ struct Where {
   int cta, local;
 };
 
+template <class B>
 OP_HD Where row_home(int s) {
-  return {(s >> 3) & (kCtas - 1), ((s >> (3 + kCtasLog)) << 3) | (s & 7)};
+  return {(s >> 3) & (B::kCtas - 1),
+          ((s >> (3 + B::kCtasLog)) << 3) | (s & 7)};
 }
 
-// the rows of a CTA's view: its rows' slice (full view) or the whole
-// group-max table
+// where group g of the aligned forms' split table lives: the CTA and the
+// row of its table (the CTA that owns the group's rows)
+template <class B>
+OP_HD Where group_home(int g) {
+  return {g & (B::kCtas - 1), g >> B::kCtasLog};
+}
+
+// the rows of a CTA's view: its rows' slice (full view), its own groups'
+// rows of the group-max table (kSplitTable) or the whole table
+template <class B>
 OP_HD constexpr long view_rows(long n, bool full) {
-  return full ? n / kCtas : n / kAlign;
+  return full ? n / B::kCtas
+              : B::kSplitTable ? n / kAlign / B::kCtas : n / kAlign;
 }
 
 // the global row of a CTA's local row ``li``
+template <class B>
 OP_HD int global_row(int cta, int li) {
-  return ((((li >> 3) << kCtasLog) | cta) << 3) | (li & 7);
+  return ((((li >> 3) << B::kCtasLog) | cta) << 3) | (li & 7);
 }
 
 // the stripe: ``n`` global rows; ``nc`` the lanes' row stride (the block's
@@ -168,8 +220,9 @@ struct Stripe {
   int n, nc, col0, gcol0;
 };
 
+template <class B>
 OP_HD Stripe stripe_at(int n, int nc, int col_offset, int stripe) {
-  return {n, nc, stripe * kC, col_offset + stripe * kC};
+  return {n, nc, stripe * B::kC, col_offset + stripe * B::kC};
 }
 
 struct Knobs {
@@ -178,13 +231,18 @@ struct Knobs {
   int group_shift;  // filter_rows: log2(arc_align)
 };
 
-// A CTA's shared memory: ticked lanes [rows, kC] of its local rows and its
-// view: its rows' slice [rows, kC] (full view), or the whole group-max
-// table [n / 8, kC] in global group order (groups).
+// A CTA's shared memory: ticked lanes [rows, kC] of its local rows (hb:
+// null where park_hb is false) and its view: its rows' slice [rows, kC] (full
+// view), or the group-max table: the whole [n / 8, kC] in global group
+// order, or its own groups' [n / 8 / kCtas, kC] in local group order
+// (B::kSplitTable); where park_hb is false ``diag`` [diag_rows, kC], the
+// ticked hb of the rows the diagonal crosses a segment in (row
+// gcol0 + 4 * kSeg * h + d at segment h in row d).
 struct Park {
   int8_t* hb;
   int8_t* asl;
   int8_t* view;
+  int8_t* diag = nullptr;
 };
 
 // a thread's 16 bytes of a row
@@ -299,19 +357,22 @@ OP_HD constexpr int merge_vec(int j) {
 // the stack rows step 1 (kMerge false) or step 2 reads, from the stripe's
 // stack staged in shared memory ``vs`` ([N_VEC, kC]) at segment h, as one
 // SwVec a word
-template <bool kMerge>
+template <class B, bool kMerge>
 OP_HD void load_vecs(const int8_t* vs, int h, SwVec (&vec)[kSeg]) {
   OP_UNROLL
   for (int j = 0; j < (kMerge ? 8 : 4); ++j) {
     const int i = kMerge ? merge_vec(j) : tick_vec(j);
-    const Seg r = lds_seg(vs + i * kC + 4 * kSeg * h);
+    const Seg r = lds_seg(vs + i * B::kC + 4 * kSeg * h);
     OP_UNROLL
     for (int k = 0; k < kSeg; ++k) vec[k].v[i] = r.w[k];
   }
 }
 
 // the first row of local group ``lg`` of CTA ``cta``
-OP_HD int group_row0(int cta, int lg) { return (lg * kCtas + cta) * kAlign; }
+template <class B>
+OP_HD int group_row0(int cta, int lg) {
+  return (lg * B::kCtas + cta) * kAlign;
+}
 
 // the flags of the 8 rows from row0, packed 4 a word (the same in every
 // stripe: a step-1 thread keeps its first group's)
@@ -332,33 +393,35 @@ OP_HD GroupFlags group_flags(const int8_t* __restrict__ flags, int row0) {
 // reads split between step 1 and step 2, which writes both lanes.  Step 2
 // stages each row for the cluster's next stripe as soon as it has merged
 // it.
-template <typename Copy16>
+template <class B, typename Copy16>
 OP_HD void stage_row(const int8_t* __restrict__ asl, Stripe sp, Park pk,
                      int cta, int li, int h, Copy16 copy) {
-  copy(pk.asl + li * kC + 4 * kSeg * h,
-       asl + (size_t)global_row(cta, li) * sp.nc + sp.col0 + 4 * kSeg * h);
+  copy(pk.asl + li * B::kC + 4 * kSeg * h,
+       asl + (size_t)global_row<B>(cta, li) * sp.nc + sp.col0 +
+           4 * kSeg * h);
 }
 
 // Stage the stripe's threshold stack into ``vs`` ([N_VEC, kC]) as thread
 // ``t`` of ``nt``.
-template <typename Copy16>
+template <class B, typename Copy16>
 OP_HD void stage_stack(const int8_t* __restrict__ vecs, Stripe sp,
                        int8_t* vs, int t, int nt, Copy16 copy) {
+  constexpr int kLanes = B::kLanes;
   for (int j = t; j < N_VEC * kLanes; j += nt)
-    copy(vs + (j / kLanes) * kC + 4 * kSeg * (j % kLanes),
+    copy(vs + (j / kLanes) * B::kC + 4 * kSeg * (j % kLanes),
          vecs + (size_t)(j / kLanes) * sp.nc + sp.col0 +
              4 * kSeg * (j % kLanes));
 }
 
 // Stage a whole stripe (the cluster's first) as thread ``t`` of ``nt``:
 // the rows step 2 will merge, and the stack.
-template <typename Copy16>
+template <class B, typename Copy16>
 OP_HD void stage(const int8_t* __restrict__ asl,
                  const int8_t* __restrict__ vecs, Stripe sp, Park pk,
                  int8_t* vs, int cta, int rows, int t, int nt, Copy16 copy) {
-  for (int li = t / kLanes; li < rows; li += nt / kLanes)
-    stage_row(asl, sp, pk, cta, li, t % kLanes, copy);
-  stage_stack(vecs, sp, vs, t, nt, copy);
+  for (int li = t / B::kLanes; li < rows; li += nt / B::kLanes)
+    stage_row<B>(asl, sp, pk, cta, li, t % B::kLanes, copy);
+  stage_stack<B>(vecs, sp, vs, t, nt, copy);
 }
 
 // The SWAR form's tick and view of a word the diagonal crosses, at byte d
@@ -386,25 +449,31 @@ OP_COLD SwTickView diagonal_word(uint32_t hb, uint32_t asl, int f, bool mute,
 }
 
 // Step 1 for CTA ``cta`` as thread ``t`` of ``nt`` (a multiple of
-// kLanes): the thread takes segment t % kLanes of local groups t / kLanes,
-// + nt / kLanes, ...: hb from device memory (a row ahead), asl from their
-// park rows (stage), with ``fw0`` the flags of the first (group_flags).
-// ``groups`` the CTA's group count (n / 8 / kCtas).  The sink receives,
-// per column of the stripe (0..kC), the detections with the lowest firing
+// B::kLanes): the thread takes segment t % kLanes of local groups t /
+// kLanes, + nt / kLanes, ...: hb from device memory (a row ahead), asl
+// from their park rows (stage), with ``fw0`` the flags of the first
+// (group_flags).  ``groups`` the CTA's group count (n / 8 / kCtas).  The
+// ticked hb goes to the park (kParkHb) or, where the diagonal crosses
+// the segment, to the park's diagonal rows.  The sink receives, per
+// column of the stripe (0..kC), the detections with the lowest firing
 // global row, and the SUSPECT entries; ``put_group(g, h, max)`` (aligned
-// forms) takes group g's view max at segment h, for every CTA's table.
-template <bool kSus, bool kFull, bool kMute, bool kSwar, typename Sink,
-          typename PutGroup>
+// forms) takes group g's view max at segment h, for the table (every
+// CTA's copy, or g's row of its own split table).
+template <class B, bool kSus, bool kFull, bool kMute, bool kSwar,
+          typename Sink, typename PutGroup>
 OP_HD void step1(const int8_t* __restrict__ hb,
                  const int8_t* __restrict__ flags, const int8_t* vs,
                  Stripe sp, Knobs kn, Park pk, int cta, int groups, int t,
                  int nt, const GroupFlags& fw0, Sink& sink,
                  PutGroup put_group) {
+  constexpr int kC = B::kC;
+  constexpr int kLanes = B::kLanes;
+  constexpr bool kParkHb = park_hb<B>(kFull);
   const int h = t % kLanes;
   SwVec vec[kSeg];
-  load_vecs<false>(vs, h, vec);
+  load_vecs<B, false>(vs, h, vec);
   for (int lg = t / kLanes; lg < groups; lg += nt / kLanes) {
-    const int row0 = group_row0(cta, lg);
+    const int row0 = group_row0<B>(cta, lg);
     const GroupFlags fw = lg == t / kLanes ? fw0 : group_flags(flags, row0);
     // 0/1-per-byte counter words (at most 8 per byte); the first firing
     // row per byte rides a word of row numbers
@@ -432,7 +501,7 @@ OP_HD void step1(const int8_t* __restrict__ hb,
       if constexpr (stubbed(kStubVtick)) {
         // the raw hb row into the park (asl is parked raw already) and the
         // view
-        store_seg(pk.hb + at, ih);
+        if constexpr (kParkHb) store_seg(pk.hb + at, ih);
         if (kFull) store_seg(pk.view + at, ih);
         continue;
       }
@@ -475,7 +544,12 @@ OP_HD void step1(const int8_t* __restrict__ hb,
         }
         if (kSus && !stubbed(kStubSus)) ent[k] += tv.entered >> 7;
       }
-      store_seg(pk.hb + at, th);
+      if constexpr (kParkHb) {
+        store_seg(pk.hb + at, th);
+      } else if ((unsigned)d0 < 4u * kSeg) {
+        // the one segment of the row whose hb the tick may change
+        store_seg(pk.diag + d0 * kC + 4 * kSeg * h, th);
+      }
       store_seg(pk.asl + at, ta);
       if (kFull)
         store_seg(pk.view + at, enc);
@@ -487,7 +561,7 @@ OP_HD void step1(const int8_t* __restrict__ hb,
         prev = enc;
     }
     if (!kFull && !stubbed(kStubVtick | kStubWmax))
-      put_group(lg * kCtas + cta, h, gm.seg());
+      put_group(lg * B::kCtas + cta, h, gm.seg());
     if (stubbed(kStubEpi)) continue;
     OP_UNROLL
     for (int k = 0; k < kSeg; ++k) {
@@ -668,7 +742,10 @@ OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
 
 // Step 2 for CTA ``cta`` as thread ``t`` of ``nt``: segment t % kLanes of
 // local rows t / kLanes, + nt / kLanes, ...  ``rows`` the CTA's row count
-// (n / kCtas).  Writes each row's merged segment to hb and asl; the sink
+// (n / kCtas).  The ticked hb comes from the park (kParkHb), else from
+// device memory (its pre-tick value, which the tick leaves but on the
+// diagonal) or, for a segment the diagonal crosses, the park's diagonal
+// rows.  Writes each row's merged segment to hb and asl; the sink
 // receives once per loop trip from every thread (valid or not, so a
 // warp-wide reduction may run there) the row's listed and SUSPECT counts
 // over the segment, and at the end, from every thread, its segment's
@@ -678,45 +755,57 @@ OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
 // Meta is loaded while the row before it merges; ``restage(li, h)`` runs
 // once the row's park segment is read and its outputs stored (stage_row
 // for the next stripe, or nothing).
-template <bool kSus, int kForm, bool kSwar, typename Gather, typename Sink,
-          typename Restage>
+template <class B, bool kSus, int kForm, bool kSwar, typename Gather,
+          typename Sink, typename Restage>
 OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                  const int8_t* __restrict__ flags, const int8_t* vs,
                  const int32_t* __restrict__ senders, Stripe sp, Knobs kn,
                  Park pk, int cta, int rows, int t, int nt, Gather gather,
                  Sink& sink, Restage restage) {
+  constexpr int kC = B::kC;
+  constexpr int kLanes = B::kLanes;
+  constexpr bool kParkHb = park_hb<B>(full_view(kForm));
   const int h = t % kLanes;
   const int col = sp.col0 + 4 * kSeg * h;
   const int step = nt / kLanes;
   // the SWAR form holds the merge's stack rows; the lanes form, short of
   // registers, reads them again each row
   SwVec vec[kSeg];
-  if (kSwar) load_vecs<true>(vs, h, vec);
+  if (kSwar) load_vecs<B, true>(vs, h, vec);
   // 0/1-per-byte counter words: at most rows / step per byte
   uint32_t cw[kSeg], rw[kSeg], hw[kSeg];
   OP_UNROLL
   for (int k = 0; k < kSeg; ++k) cw[k] = rw[k] = hw[k] = 0;
   Meta<kForm> next;
   if (t / kLanes < rows)
-    next = load_meta<kForm>(flags, senders, global_row(cta, t / kLanes),
+    next = load_meta<kForm>(flags, senders, global_row<B>(cta, t / kLanes),
                             kn.width);
   for (int li0 = 0; li0 < rows; li0 += step) {
     const int li = li0 + t / kLanes;
     const bool valid = li < rows;
-    const int row = valid ? global_row(cta, li) : 0;
+    const int row = valid ? global_row<B>(cta, li) : 0;
     const Meta<kForm> m = next;
     if (li + step < rows)
-      next = load_meta<kForm>(flags, senders, global_row(cta, li + step),
-                              kn.width);
+      next = load_meta<kForm>(flags, senders,
+                              global_row<B>(cta, li + step), kn.width);
     int listed = 0, held = 0;
     if (valid) {
       const bool recv = (m.flags & 4) != 0;
+      // without a parked hb: its segment read before the gather, so that
+      // the gather's loads cover the read's latency
+      Seg hb_seg{};
+      if constexpr (!kParkHb) {
+        const int d = row - (sp.gcol0 + 4 * kSeg * h);
+        hb_seg = (unsigned)d < 4u * kSeg
+                     ? load_seg(pk.diag + d * kC + 4 * kSeg * h)
+                     : load_seg(hb + (size_t)row * sp.nc + col);
+      }
       const Seg best = recv ? (stubbed(kStubGather)
                                    ? splat(gather_none(kForm))
                                    : gather(m, row, h))
                             : splat(0xFFFFFFFFu);
       const int at = li * kC + 4 * kSeg * h;
-      const Seg ph = load_seg(pk.hb + at);
+      const Seg ph = kParkHb ? load_seg(pk.hb + at) : hb_seg;
       const Seg pa = load_seg(pk.asl + at);
       if constexpr (stubbed(kStubEpi)) {
         // the parked lanes back as they stand, no count; best stays live,
@@ -728,7 +817,7 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         restage(li, h);
         continue;
       }
-      if (!kSwar) load_vecs<true>(vs, h, vec);
+      if (!kSwar) load_vecs<B, true>(vs, h, vec);
       Seg oh, oa;
       uint32_t ls = 0, hs = 0;
       OP_UNROLL
@@ -764,29 +853,34 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
 // blocks, ``cta_counts(q)`` the block of CTA q: the sum over the CTAs, or
 // for the first observer their min (n where no row fired: the blocks start
 // there).
-template <typename CtaCounts>
+template <class B, typename CtaCounts>
 OP_HD int finish(int s, int c, CtaCounts cta_counts) {
   if (stubbed(kStubEpi)) return 0;
   if (s == 2) {
-    int acc = (int)cta_counts(0)[kFobsAt + c];
-    for (int q = 1; q < kCtas; ++q) {
-      const int v = (int)cta_counts(q)[kFobsAt + c];
+    int acc = (int)cta_counts(0)[B::kFobsAt + c];
+    for (int q = 1; q < B::kCtas; ++q) {
+      const int v = (int)cta_counts(q)[B::kFobsAt + c];
       acc = v < acc ? v : acc;
     }
     return acc;
   }
-  const int at = (s < 2 ? s : s - 1) * kPairs + c / 2;
+  const int at = (s < 2 ? s : s - 1) * B::kPairs + c / 2;
   int acc = 0;
-  for (int q = 0; q < kCtas; ++q)
+  for (int q = 0; q < B::kCtas; ++q)
     acc += (int)((cta_counts(q)[at] >> (16 * (c & 1))) & 0xFFFF);
   return acc;
 }
 
-// the shared memory of one CTA for ``n`` rows: parked lanes, the view, the
-// stripe's threshold stack, the gathers' start row and two count blocks
+// the shared memory of one CTA for ``n`` rows: parked lanes (both, or asl
+// and the diagonal rows), the view, the stripe's threshold stack, the
+// gathers' start row and two count blocks.  Cluster8x32: 12N + 1,280 B
+// in every form; Cluster16x16: 2N + 896 in the full-view forms, 17N/8 +
+// 640 in the aligned ones
+template <class B>
 OP_HD constexpr long smem_bytes(long n, bool full) {
-  return (2 * (n / kCtas) + view_rows(n, full) + N_VEC + 1) * kC +
-         2L * kBlockWords * 4;
+  return ((park_hb<B>(full) ? 2 : 1) * (n / B::kCtas) +
+          view_rows<B>(n, full) + N_VEC + 1 + diag_rows<B>(full)) * B::kC +
+         2L * B::kBlockWords * 4;
 }
 
 }  // namespace onepass

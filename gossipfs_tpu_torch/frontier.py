@@ -20,7 +20,13 @@ one JSON line: the JAX package's fields, less ``rr_rotate``,
 port does not have), plus the device, its peak memory and the timed
 run's resident-round launches by form (none on the CPU, where the plain
 version runs).
-``--elementwise swar`` runs the resident round's SWAR form.  ``--trace
+``--elementwise swar`` runs the resident round's SWAR form;
+``--rr-resident`` picks its one-pass form (f) or its two-launch form as
+``SimConfig.rr_resident`` does (``auto``: (f) wherever it holds the shape,
+N = 65,536 included).  ``--digest`` adds ``digest`` (``utils/digest.tensors_digest``) of the
+timed run's final lanes, liveness, bases, carry and every per-round
+metric (hashed after the run, on the host), so that two runs can be held
+equal.  ``--trace
 PATH`` writes the timed run's flight-recorder stream (``obs/``; analyze it
 with ``python -m gossipfs_tpu_torch.obs.timeline``), decoded after the
 run from outputs ``summarize`` reads anyway, with the pad subjects past N
@@ -45,6 +51,7 @@ from gossipfs_tpu_torch.core import rounds as R
 from gossipfs_tpu_torch.metrics.detection import summarize
 from gossipfs_tpu_torch.obs.recorder import write_trace
 from gossipfs_tpu_torch.ops import merge
+from gossipfs_tpu_torch.utils.digest import tensors_digest
 
 # the JAX package's arc-chunk quantum (gossipfs_tpu/ops/merge_pallas.py
 # ARC_CHUNK), copied so the padded N is the same in both packages
@@ -62,14 +69,14 @@ def pad_quantum(block_c: int, topology: str) -> int:
 
 def frontier_config(n: int, block_c: int = 1024, topology: str = "random",
                     arc_align: int = 1, fanout: int | None = None,
-                    elementwise: str = "lanes"):
+                    elementwise: str = "lanes", rr_resident: str = "auto"):
     """(config, n_padded): ``SimConfig.packed_rr`` at the padded N, with
     the JAX frontier's fanout rule (aligned arcs round log2 N up to a
     multiple of the alignment)."""
     n_pad = -(-n // pad_quantum(block_c, topology)) * pad_quantum(
         block_c, topology)
     over = dict(topology=topology, arc_align=arc_align,
-                elementwise=elementwise)
+                elementwise=elementwise, rr_resident=rr_resident)
     if fanout:
         over["fanout"] = fanout
     elif arc_align > 1:
@@ -78,17 +85,25 @@ def frontier_config(n: int, block_c: int = 1024, topology: str = "random",
     return SimConfig.packed_rr(n_pad, block_c, **over), n_pad
 
 
+def run_digest(out) -> str:
+    """The digest (utils/digest.py) of a ``run_lean_packed`` result's
+    final lanes, liveness, bases, carry and per-round metrics."""
+    hb, asl, alive, hb_base = out[:4]
+    return tensors_digest([hb, asl, alive, hb_base, *out[7], *out[8]])
+
+
 def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
         crash_at: int = 3, track: int = 8, crash_rate: float = 0.01,
         seed: int = 0, topology: str = "random", arc_align: int = 1,
         fanout: int | None = None, elementwise: str = "lanes",
-        trace: str | None = None, device="cuda") -> dict:
+        trace: str | None = None, device="cuda", rr_resident: str = "auto",
+        digest: bool = False) -> dict:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("gossipfs_tpu_torch.frontier needs a CUDA device "
                          "(or device='cpu')")
     cfg, n_pad = frontier_config(n, block_c, topology, arc_align, fanout,
-                                 elementwise)
+                                 elementwise, rr_resident)
     padded = n_pad != n
     if not R._lean_ok(cfg, False):
         raise ValueError(f"{cfg} does not take the lean loop")
@@ -137,6 +152,8 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
             merge_block_c=block_c, elementwise=elementwise)
         traced = {"trace": trace, "trace_events": n_events,
                   "trace_ms": (time.perf_counter() - t0) * 1e3}
+    if digest:
+        traced["digest"] = run_digest(out)
     ttd_f = [v for v in report.ttd_first.values() if v >= 0]
     ttd_c = [v for v in report.ttd_converged.values() if v >= 0]
     return {
@@ -153,6 +170,7 @@ def run(n: int = 65_536, rounds: int = 20, block_c: int = 1024,
         "rounds": rounds,
         "crash_churn": crash_rate,
         "elementwise": elementwise,
+        "rr_resident": rr_resident,
         "tracked_crashes": len(crash_rounds),
         "detected": len(ttd_f),
         "ttd_first_median": statistics.median(ttd_f) if ttd_f else None,
@@ -190,11 +208,18 @@ def main(argv=None) -> dict:
     p.add_argument("--trace", type=str, default=None, metavar="PATH",
                    help="write the timed run's flight-recorder event "
                         "stream (obs/ JSONL) to PATH")
+    p.add_argument("--rr-resident", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="the resident round's one-pass form (f): where it "
+                        "holds the shape (auto), always (on), never (off)")
+    p.add_argument("--digest", action="store_true",
+                   help="add the sha256 of the timed run's outputs")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     doc = run(args.n, args.rounds, args.block_c, args.crash_at, args.track,
               args.crash_rate, args.seed, args.topology, args.arc_align,
-              args.fanout, args.elementwise, args.trace, args.device)
+              args.fanout, args.elementwise, args.trace, args.device,
+              args.rr_resident, args.digest)
     print(json.dumps(doc))
     return doc
 

@@ -53,6 +53,11 @@ SIGNATURES = {
         "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
         "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
     },
+    # the wide blocking: rr_onepass.cu's launcher over Cluster16x16
+    "rr_onepass_wide": {
+        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
+        "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
+    },
     "fanout_max": {
         "fx_fanout_max": (_I, [_P] * 3 + [_I] * 4 + [_P]),
         "fx_info": (_I, [_I] * 4 + [_P]),

@@ -70,16 +70,20 @@ shard's columns: summed across the shards they are the square round's.
 The square round is ``col_offset=0``, C = N.
 
 ``onepass=True`` runs K3's one-pass form (f) (the JAX kernel's
-``resident=True``): ``csrc/rr_onepass.cu``, one kernel launch a round
-(after a memset of the per-receiver counts it adds into) in which
-persistent thread-block clusters of ``ONEPASS_CTAS`` CTAs each park
-``ONEPASS_C``-column stripes of the ticked lanes in shared memory, one
-after another, and merge from there, so each packed lane crosses HBM once
-each way; ``hb``, ``asl`` and ``vecs`` must start 16-byte aligned (the
-kernel moves 16-byte row segments).  It takes the shapes
-:func:`onepass_fits` admits (N = 16,384 square and its column blocks; not
-N = 65,536); the lean loop routes to it under ``SimConfig.rr_resident``
-(core/rounds.onepass).  Its outputs are the two-launch form's bit for bit.
+``resident=True``): one kernel launch a round (after a memset of the
+per-receiver counts it adds into) in which persistent thread-block
+clusters each park column stripes of the ticked lanes in shared memory,
+one after another, and merge from there, so each packed lane crosses HBM
+once each way (hb twice inbound in the wide blocking's full-view forms);
+``hb``, ``asl`` and ``vecs`` must start 16-byte aligned (the kernel moves
+16-byte row segments).  Two blockings (:data:`ONEPASS_BLOCKINGS`,
+:func:`onepass_blocking`): clusters of 8 CTAs a 32-column stripe
+(``csrc/rr_onepass.cu``) up to N = 19,264, so every N = 16,384 path and
+its column blocks; clusters of 16 CTAs a 16-column stripe
+(``csrc/rr_onepass_wide.cu``) past it, up to N = 115,712 (full view) and
+109,056 (aligned forms), every N the JAX package runs resident.  The lean
+loop routes to it under ``SimConfig.rr_resident`` (core/rounds.onepass).
+Its outputs are the two-launch form's bit for bit.
 
 ``elementwise="swar"`` is the SWAR form (the JAX package's
 ``_rr_tick_view_swar``/``_rr_merge_swar``, config ``elementwise="swar"``):
@@ -92,6 +96,7 @@ bit; the kernel's twin is ``csrc/rr_swar.cuh``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 
@@ -123,20 +128,23 @@ SWAR_FORMS = tuple(f + "/swar" for f in FORMS)
 # the one-pass form (f) of each, lanes and SWAR (csrc/rr_onepass.cu)
 ONEPASS_FORMS = tuple(f + "/onepass" for f in FORMS + SWAR_FORMS)
 
-# The one-pass kernel's geometry: a cluster of ONEPASS_CTAS CTAs owns a
-# stripe of ONEPASS_C subject columns over all N rows at a time, each CTA
-# parking its N / ONEPASS_CTAS rows of the ticked lanes and an
-# [N / 8, ONEPASS_C] view (its rows' slice, or the whole group-max table) in
-# shared memory, at most ONEPASS_SMEM bytes a CTA (the H100's 227 KB a
-# block may use).  csrc/rr_onepass.cuh smem_bytes is the same sum.
-ONEPASS_C = 32
-ONEPASS_CTAS = 8
+# The one-pass kernel's blockings (csrc/rr_onepass.cuh Blocking), by name:
+# a cluster of ``ctas`` CTAs owns a stripe of ``cols`` subject columns over
+# all N rows at a time, each CTA parking its N / ctas rows of the ticked
+# lanes and its view in shared memory, at most ONEPASS_SMEM bytes a CTA
+# (the H100's 227 KB a block may use), built from ``source``
+# (csrc/<source>.cu).  "8x32" parks both lanes and, in the aligned forms,
+# the whole group-max table; "16x16" (a non-portable cluster) parks asl
+# alone in the full-view forms (hb read again in step 2) and splits the
+# group-max table over its CTAs.  csrc/rr_onepass.cuh smem_bytes is
+# onepass_smem's sum.
+OnepassBlocking = collections.namedtuple("OnepassBlocking",
+                                         "ctas cols source")
+ONEPASS_BLOCKINGS = {
+    "8x32": OnepassBlocking(8, 32, "rr_onepass"),
+    "16x16": OnepassBlocking(16, 16, "rr_onepass_wide"),
+}
 ONEPASS_SMEM = 232_448
-# a CTA's two count blocks (five sums as 16-bit column pairs, the first
-# observers as int32), and the stripe's 11-row threshold stack with the row
-# of the gathers' start value
-ONEPASS_COUNT_BYTES = 2 * (5 * ONEPASS_C // 2 + ONEPASS_C) * 4
-ONEPASS_STACK_BYTES = 12 * ONEPASS_C
 # the one-pass kernel's optional timeline: globaltimer stamps a CTA and
 # stripe (start, step 1 done, view ready, step 2 done, end)
 ONEPASS_STAMPS = 5
@@ -517,51 +525,94 @@ def two_launch_view_rows(n: int, form: str) -> int:
                                          "filter_group") else n
 
 
-def onepass_smem(n: int, form: str) -> int:
+def onepass_smem(n: int, form: str, blocking: str = "8x32") -> int:
     """Shared memory a CTA of the one-pass kernel needs for ``n`` rows in
-    merge ``form``: both ticked lanes of its ``n / ONEPASS_CTAS`` rows over
-    the stripe, its view (its rows' slice in the full-view forms, the
-    stripe's whole 8-row group-max table in the aligned ones), the stripe's
-    11-row threshold stack, the gathers' start row and its two count
-    blocks."""
-    rows = n // ONEPASS_CTAS
-    view = rows if form in FULL_VIEW_FORMS else n // KERNEL_ALIGN
-    return ((2 * rows + view) * ONEPASS_C + ONEPASS_STACK_BYTES
-            + ONEPASS_COUNT_BYTES)
+    merge ``form`` and ``blocking`` (:data:`ONEPASS_BLOCKINGS`): the
+    ticked lanes of its ``n / ctas`` rows over the stripe (both, or in the
+    wide blocking's full-view forms asl alone and the 16 rows of the
+    segments the diagonal crosses), its view (its rows' slice in the
+    full-view forms; the stripe's whole 8-row group-max table in the
+    narrow blocking's aligned ones, its own groups' rows of it in the
+    wide blocking's), the stripe's 11-row threshold stack, the gathers'
+    start row and its two count blocks.  8x32: 12N + 1,280 B in every
+    form; 16x16: 2N + 896 B in the full-view forms, 17N/8 + 640 in the
+    aligned ones."""
+    ctas, cols, _ = ONEPASS_BLOCKINGS[blocking]
+    rows = n // ctas
+    full = form in FULL_VIEW_FORMS
+    wide = blocking == "16x16"
+    park_hb = not (wide and full)
+    if full:
+        view = rows
+    else:
+        view = n // KERNEL_ALIGN // (ctas if wide else 1)
+    diag = 0 if park_hb else 16    # the rows a segment's diagonal crosses
+    return (((2 if park_hb else 1) * rows + view + N_VEC + 1 + diag) * cols
+            + 2 * (5 * cols // 2 + cols) * 4)
 
 
-def onepass_fits(n: int, c: int, form: str,
-                 elementwise: str = "lanes") -> bool:
-    """Whether K3's one-pass form (f) runs a round of ``n`` rows over ``c``
-    subject columns (``c == n`` square, or a column block) in merge
-    ``form`` (one of :data:`FORMS`), either ``elementwise`` form: the
-    cluster's row split and the stripe width must divide the shape, and a
-    CTA's shared memory (:func:`onepass_smem`) must fit the card's: up to
-    N = 19,264 (197,888 B a CTA at N = 16,384), so N = 65,536 takes the
-    two-launch form."""
+def _blocking_holds(n: int, c: int, form: str, blocking: str) -> bool:
+    """Whether ``blocking`` runs a round of ``n`` rows over ``c`` columns
+    in merge ``form``: the cluster's row split into 8-row groups and the
+    stripe width divide the shape, and a CTA's shared memory fits."""
+    ctas, cols, _ = ONEPASS_BLOCKINGS[blocking]
+    return (n % (ctas * KERNEL_ALIGN) == 0 and 0 < c <= n and c % cols == 0
+            and onepass_smem(n, form, blocking) <= ONEPASS_SMEM)
+
+
+def onepass_blocking(n: int, c: int, form: str,
+                     elementwise: str = "lanes") -> str | None:
+    """The blocking of K3's one-pass form (f) that runs a round of ``n``
+    rows over ``c`` subject columns (``c == n`` square, or a column block)
+    in merge ``form`` (one of :data:`FORMS`), either ``elementwise``
+    form: the narrow "8x32" where it holds the shape, else the wide
+    "16x16" (:data:`ONEPASS_BLOCKINGS`), else None."""
     if form not in FORMS:
         raise ValueError(f"onepass_fits: form must be one of {FORMS}, got "
                          f"{form!r}")
     if elementwise not in ELEMENTWISE:
         raise ValueError(f"onepass_fits: elementwise must be one of "
                          f"{ELEMENTWISE}, got {elementwise!r}")
-    return (n % (ONEPASS_CTAS * KERNEL_ALIGN) == 0 and 0 < c <= n
-            and c % ONEPASS_C == 0
-            and onepass_smem(n, form) <= ONEPASS_SMEM)
+    for blocking in ONEPASS_BLOCKINGS:
+        if _blocking_holds(n, c, form, blocking):
+            return blocking
+    return None
+
+
+def onepass_fits(n: int, c: int, form: str,
+                 elementwise: str = "lanes") -> bool:
+    """Whether K3's one-pass form (f) runs a round of ``n`` rows over ``c``
+    subject columns (``c == n`` square, or a column block) in merge
+    ``form`` (one of :data:`FORMS`), either ``elementwise`` form, in one
+    of its blockings (:func:`onepass_blocking`).
+
+    The envelope: the narrow blocking (8 CTAs x 32 columns) holds N %
+    64 == 0 up to N = 19,264 (197,888 B a CTA at N = 16,384), C % 32 ==
+    0; the wide one (16 CTAs x 16 columns) N % 128 == 0 up to N = 115,712
+    in the full-view forms (edges, arc, filter_rows) and 109,056 in the
+    aligned ones (aligned_group, filter_group), C % 16 == 0.  That holds
+    every configuration the JAX package runs resident (its
+    ``rr_resident_supported``, gossipfs_tpu/ops/merge_pallas.py:953, up
+    to N = 69,632 on explicit edges and 104,448 on arcs with
+    ``arc_align`` > 1, at ``merge_block_c`` 512; N % 512 == 0), and its
+    column blocks (``[65,536 x 8,192]``)."""
+    return onepass_blocking(n, c, form, elementwise) is not None
 
 
 def onepass_refusal(n: int, c: int, form: str,
                     elementwise: str = "lanes") -> str | None:
     """Why K3's one-pass form (f) cannot run a round of ``n`` rows over
     ``c`` subject columns in merge ``form``: None where
-    :func:`onepass_fits` holds the shape, else the limits it breaks."""
+    :func:`onepass_fits` holds the shape, else the limits each blocking
+    breaks."""
     if onepass_fits(n, c, form, elementwise):
         return None
+    limits = "; ".join(
+        f"{name}: N % {b.ctas * KERNEL_ALIGN} == 0, C % {b.cols} == 0, "
+        f"{onepass_smem(n, form, name)} B of shared memory a CTA against "
+        f"{ONEPASS_SMEM} B" for name, b in ONEPASS_BLOCKINGS.items())
     return (f"the one-pass resident round does not hold [{n}, {c}] in the "
-            f"{form} form (ops/merge.onepass_fits: N % "
-            f"{ONEPASS_CTAS * KERNEL_ALIGN} == 0, C % {ONEPASS_C} == 0, "
-            f"{onepass_smem(n, form)} B of shared memory a CTA against "
-            f"{ONEPASS_SMEM} B)")
+            f"{form} form (ops/merge.onepass_fits: {limits})")
 
 
 def stub_refusal(stub: str, form: str, suspect: bool) -> str | None:
@@ -882,7 +933,8 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                    lh_multiplier: int = 0, edge_filter: bool = False,
                    elementwise: str = "lanes", col_offset: int = 0,
                    onepass: bool = False,
-                   timeline: torch.Tensor | None = None, stub: str = ""):
+                   timeline: torch.Tensor | None = None, stub: str = "",
+                   blocking: str | None = None):
     """One round: :func:`resident_round_plain` for CPU tensors, the CUDA
     kernel for CUDA tensors (same contract, in the :func:`kernel_form` the
     senders and ``elementwise`` ask for, over ``[N, C]`` lanes from global
@@ -891,9 +943,13 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     form's ``/onepass`` name; it raises ``ValueError`` where
     :func:`onepass_fits` refuses the shape or where ``hb``, ``asl`` or
     ``vecs`` does not start on a 16-byte boundary (the kernel moves 16-byte
-    row segments), on any device.  ``timeline`` (one-pass, CUDA only):
-    an int64 ``[C / 32, ONEPASS_CTAS, ONEPASS_STAMPS]`` tensor each CTA
-    writes its stripe's step times into (:func:`onepass_timeline_split`).
+    row segments), on any device; it launches the blocking
+    :func:`onepass_blocking` picks, or ``blocking`` (a name of
+    :data:`ONEPASS_BLOCKINGS`, for tests and measurements: it raises
+    where that blocking does not hold the shape).  ``timeline``
+    (one-pass, CUDA only): an int64 ``[C / cols, ctas, ONEPASS_STAMPS]``
+    tensor (the blocking's geometry) each CTA writes its stripe's step
+    times into (:func:`onepass_timeline_split`).
     ``stub`` (one-pass, CUDA only; stage names joined by commas,
     :data:`STUB_STAGES`) launches K3 (f)'s variant build with those
     stages compiled out, counted as the round's: a round that computes
@@ -911,6 +967,17 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     why = onepass_refusal(n, c, base_form, elementwise) if onepass else None
     if why is not None:
         raise ValueError(f"resident_round: {why}")
+    if blocking is not None:
+        if not onepass or blocking not in ONEPASS_BLOCKINGS:
+            raise ValueError(f"resident_round: blocking={blocking!r} names "
+                             f"one of {tuple(ONEPASS_BLOCKINGS)} of the "
+                             "one-pass form (onepass=True)")
+        if not _blocking_holds(n, c, base_form, blocking):
+            raise ValueError(f"resident_round: the {blocking} blocking "
+                             f"does not hold [{n}, {c}] in the {base_form} "
+                             "form")
+    elif onepass:
+        blocking = onepass_blocking(n, c, base_form, elementwise)
     if stub and (not onepass or hb.device.type != "cuda"):
         raise ValueError("resident_round: a stage stub is a variant of the "
                          "one-pass CUDA kernel (onepass=True on a CUDA "
@@ -947,10 +1014,15 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     if onepass:
         defines = onepass_defines(base_form, suspect, bool(lh),
                                   elementwise, c != n, stub)
+        if defines and blocking != "8x32":
+            raise ValueError("resident_round: the stage stubs are variants "
+                             "of the 8x32 blocking's library; this shape "
+                             f"takes the {blocking} blocking")
         return _launch_onepass(hb, asl, flags, vecs, senders, width,
                                base_form, arc_align, t_fail, t_cooldown,
                                age_clamp, suspect, lh, thr, thr_hi, sw,
-                               col_offset, form, timeline, defines)
+                               col_offset, form, timeline, defines,
+                               blocking)
     lib = _build.load("resident_round")
     with torch.cuda.device(hb.device):
         gmax = torch.empty((two_launch_view_rows(n, base_form), c),
@@ -976,20 +1048,23 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                     base_form: str, arc_align: int, t_fail: int,
                     t_cooldown: int, age_clamp: int, suspect: bool, lh: int,
                     thr: int, thr_hi: int, sw: bool, col_offset: int,
-                    form: str, timeline, defines: tuple = ()):
-    """Launch ``csrc/rr_onepass.cu`` (its variant built with ``defines``)
-    for :func:`resident_round`."""
+                    form: str, timeline, defines: tuple = (),
+                    blocking: str = "8x32"):
+    """Launch ``blocking``'s library (``csrc/rr_onepass.cu``, its variant
+    built with ``defines``, or ``csrc/rr_onepass_wide.cu``) for
+    :func:`resident_round`."""
     from gossipfs_tpu_torch.ops import _build
 
     n, c = hb.shape
-    shape = (c // ONEPASS_C, ONEPASS_CTAS, ONEPASS_STAMPS)
+    ctas, cols, source = ONEPASS_BLOCKINGS[blocking]
+    shape = (c // cols, ctas, ONEPASS_STAMPS)
     if timeline is not None and (
             timeline.dtype != torch.int64 or tuple(timeline.shape) != shape
             or timeline.device != hb.device
             or not timeline.is_contiguous()):
         raise ValueError(f"resident_round: timeline must be a contiguous "
                          f"int64 {shape} tensor on {hb.device}")
-    lib = _build.load("rr_onepass", defines)
+    lib = _build.load(source, defines)
     dev = hb.device
     with torch.cuda.device(dev):
         subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,
@@ -1025,9 +1100,11 @@ def onepass_timeline_split(timeline: torch.Tensor) -> dict:
 
 def onepass_info(n: int, c: int, form: str, *, fanout: int,
                  arc_align: int = 1, suspect: bool = False, lh: bool = False,
-                 elementwise: str = "lanes", col_offset: int = 0) -> dict:
+                 elementwise: str = "lanes", col_offset: int = 0,
+                 blocking: str | None = None) -> dict:
     """The one-pass instantiation a round of this shape and merge ``form``
-    launches, on the current card: ``clusters``
+    launches (in ``blocking``, default :func:`onepass_blocking`'s), on the
+    current card: ``blocking``, ``clusters``
     (``cudaOccupancyMaxActiveClusters``: how many stripe clusters run at
     once), ``smem`` (the dynamic shared memory a CTA its launcher asks
     for, csrc/rr_onepass.cuh ``smem_bytes``) and ``smem_attr`` (the
@@ -1035,12 +1112,19 @@ def onepass_info(n: int, c: int, form: str, *, fanout: int,
     the launcher raised it).  Launches nothing."""
     from gossipfs_tpu_torch.ops import _build
 
+    if blocking is None:
+        blocking = onepass_blocking(n, c, form, elementwise)
+    if blocking is None:
+        raise ValueError(f"onepass_info: "
+                         f"{onepass_refusal(n, c, form, elementwise)}")
     out = (ctypes.c_int * 3)()
-    check_rc("rr_onepass_clusters", _build.load("rr_onepass")
+    check_rc("rr_onepass_clusters",
+             _build.load(ONEPASS_BLOCKINGS[blocking].source)
              .rr_onepass_clusters(n, c, col_offset, fanout,
                                   FORMS.index(form), arc_align, int(suspect),
                                   int(lh), int(elementwise == "swar"), out))
-    return dict(clusters=out[0], smem=out[1], smem_attr=out[2])
+    return dict(blocking=blocking, clusters=out[0], smem=out[1],
+                smem_attr=out[2])
 
 
 def onepass_clusters(n: int, c: int, form: str, **kw) -> int:

@@ -5,8 +5,11 @@ round (``parallel/mesh.py``) runs on each rank the same K3 over all N
 receiver rows and its shard's N / shards subject columns, from the
 shard's global column offset; the only traffic between ranks is an
 ``[N]``-vector all-reduce a round.  This tool runs that one shard's
-program on one card: K3's two-launch column-shard form
-(``ops/merge.resident_round(..., col_offset=shard * N / shards)``, the
+program on one card: K3's column-shard form in the form the sharded
+round's route takes (``core/rounds.route`` under ``rr_resident="auto"``:
+the one-pass form (f) where ``ops/merge.onepass_fits`` holds ``[N, N /
+shards]``, so at (65,536, 8) and (98,304, 8), else the two-launch form;
+``ops/merge.resident_round(..., col_offset=shard * N / shards)``, the
 ``aligned_group`` form at the defaults: ``arc_align`` 8, fanout 24) over
 ``[N, N / shards]`` int8 lanes carried across ``--rounds`` rounds, best of
 ``--reps`` runs (CUDA events around the rounds), and prints one JSON row.
@@ -14,8 +17,9 @@ program on one card: K3's two-launch column-shard form
 ``--ladder`` runs the JAX tool's capacity ladder (:data:`LADDER`) in one
 invocation and prints one JSON object.  Its admission is the port's own:
 a shard needs :func:`shard_bytes` of device memory (both lanes, the view
-the two-launch form writes between its launches, the per-subject and
-per-receiver counts, the inputs), admitted where that is at most
+the two-launch form writes between its launches where the shard runs
+that form, the per-subject and per-receiver counts, the inputs),
+admitted where that is at most
 :data:`BUDGET_BYTES`, the H100's stated 80 GB, and on the card at most
 the free bytes ``torch.cuda.mem_get_info`` reports.  Each admitted row is
 measured on the card (the growth of ``torch.cuda.max_memory_allocated``
@@ -77,16 +81,26 @@ NOTE = ("one card's share of the sharded resident round, measured on one "
         "not include")
 
 
+def shard_onepass(n: int, shards: int, arc_align: int = 8) -> bool:
+    """Whether the shard's round runs K3's one-pass form (f): where it
+    holds the ``[N, N / shards]`` block, as the route takes it."""
+    return merge.onepass_fits(n, n // shards,
+                              merge.kernel_form(1, arc_align))
+
+
 def shard_tensors(n: int, shards: int, arc_align: int = 8) -> dict:
     """The tensors one shard's round holds at its peak, by name: (shape,
-    dtype).  The view is the two-launch form's
-    (ops/merge.two_launch_view_rows: N / 8 rows in the aligned forms)."""
+    dtype).  The two-launch form adds its view between its launches
+    (ops/merge.two_launch_view_rows: N / 8 rows in the aligned forms);
+    the one-pass form keeps its view in shared memory."""
     nloc = n // shards
+    view = {} if shard_onepass(n, shards, arc_align) else {
+        "view": ((merge.two_launch_view_rows(
+            n, merge.kernel_form(1, arc_align)), nloc), torch.int8)}
     return {
         "hb": ((n, nloc), torch.int8),
         "asl": ((n, nloc), torch.int8),
-        "view": ((merge.two_launch_view_rows(
-            n, merge.kernel_form(1, arc_align)), nloc), torch.int8),
+        **view,
         "subj": ((3, nloc), torch.int32),       # member_cnt, n_det, first_obs
         "recv": ((1, n), torch.int32),          # recv_cnt
         "flags": ((n,), torch.int8),
@@ -166,12 +180,15 @@ def shard_inputs(n: int, shards: int, arc_align: int = 8, seed: int = 0,
 
 
 def shard_round(x: dict, fanout: int, arc_align: int, col_offset: int):
-    """One round of the shard, in place on ``x``'s lanes: K3's two-launch
-    form on the card, its plain version on the CPU."""
+    """One round of the shard, in place on ``x``'s lanes: K3 in the form
+    the route takes (:func:`shard_onepass`) on the card, its plain version
+    on the CPU."""
+    n, nloc = x["hb"].shape
     return merge.resident_round(
         x["hb"], x["asl"], x["flags"], x["vecs"], x["bases"], fanout=fanout,
         arc_align=arc_align, t_fail=T_FAIL, t_cooldown=T_COOLDOWN,
-        age_clamp=AGE_CLAMP, col_offset=col_offset)
+        age_clamp=AGE_CLAMP, col_offset=col_offset,
+        onepass=shard_onepass(n, n // nloc, arc_align))
 
 
 def _run(x: dict, rounds: int, fanout: int, arc_align: int,
@@ -201,8 +218,8 @@ def measure(n: int, shards: int, block_c: int, block_r: int, fanout: int,
     """Time one shard's round on ``device`` (one warm-up round, then the
     best of ``reps`` runs of ``rounds`` rounds carried on the lanes);
     returns the row.  ``alloc_bytes`` is the growth of the card's peak
-    allocated memory over the measurement (the CPU: the bytes of the
-    tensors held, the plain version's view by its shape)."""
+    allocated memory over the rounds, the inputs included (the CPU: the
+    bytes of the tensors held, the plain version's view by its shape)."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     nloc = n // shards
@@ -214,8 +231,12 @@ def measure(n: int, shards: int, block_c: int, block_r: int, fanout: int,
     if cuda:
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
     x = shard_inputs(n, shards, arc_align, seed, dev)
+    if cuda:
+        # the rounds' peak over the inputs they hold (the input build's
+        # chunk temporaries are not the round's)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     col_offset = shard * nloc
     merge.reset_launch_counts()
     _run(x, 1, fanout, arc_align, col_offset, cuda)
@@ -227,7 +248,8 @@ def measure(n: int, shards: int, block_c: int, block_r: int, fanout: int,
     else:
         held = [*x.values(), *shard_round(x, fanout, arc_align,
                                           col_offset)[2:]]
-        shape, _ = shard_tensors(n, shards, arc_align)["view"]
+        shape, _ = shard_tensors(n, shards, arc_align).get("view",
+                                                           ((0, 0), None))
         alloc = (sum(t.nbytes for t in {id(t): t for t in held}.values())
                  + shape[0] * shape[1])
     del x

@@ -77,12 +77,17 @@ def build_kernels(config, device="cuda") -> list[str]:
         return []
     from gossipfs_tpu_torch.core import rounds
     from gossipfs_tpu_torch.ops import _build
+    from gossipfs_tpu_torch.ops import merge as ops_merge
 
     names = set()
     loop, form = rounds.route(config)
-    if loop == "lean":
-        names.add("rr_onepass" if form.endswith("/onepass")
-                  else "resident_round")
+    if loop == "lean" and form.endswith("/onepass"):
+        # the library of the blocking that holds the square round
+        blocking = ops_merge.onepass_blocking(
+            config.n, config.n, form.split("/")[0], config.elementwise)
+        names.add(ops_merge.ONEPASS_BLOCKINGS[blocking].source)
+    elif loop == "lean":
+        names.add("resident_round")
     merge = _MERGE_SOURCES.get(rounds.merge_kernel(config))
     if merge is not None:
         names.add(merge)

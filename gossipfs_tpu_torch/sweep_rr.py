@@ -5,27 +5,31 @@ exact bench program (``run_rounds`` over tile-aligned ``random_arc``
 fanout 16, ``arc_align`` 8, a ``pallas_rr`` merge with all-int8 lanes, 1 %
 crash churn) across the Pallas kernel's TPU tiles, ``merge_block_c`` x
 ``merge_block_r``.  The port's K3 fixes its geometry when it is compiled
-(ops/merge.py ``ONEPASS_C``, ``ONEPASS_CTAS``, ``ONEPASS_SMEM``; the
-two-launch grid is sized inside csrc/resident_round.cu), so those two
-fields are recorded in each row and ignored.  The points are the choices
-the port has at run time: ``rr_resident`` "on" (K3's one-pass form (f))
-and "off" (its two-launch form) x ``elementwise`` "lanes" and "swar".
-Where the one-pass form does not hold the shape (``--n 65536``), its rows
-print ``ops/merge.onepass_refusal`` as ``skipped``, where the JAX tool
-printed "no resident VMEM fit".
+(ops/merge.py ``ONEPASS_BLOCKINGS``, ``ONEPASS_SMEM``; the two-launch
+grid is sized inside csrc/resident_round.cu), so those two fields are
+recorded in each row and ignored.  The points are the choices the port
+has at run time: ``rr_resident`` "on" (K3's one-pass form (f), in the
+blocking ``ops/merge.onepass_blocking`` picks: 8 x 32 to N = 19,264, 16 x
+16 past it, so ``--n 65536`` runs it) and "off" (its two-launch form) x
+``elementwise`` "lanes" and "swar".  Where the one-pass form does not
+hold the shape (``--n 131072``, past N = 109,056 on aligned arcs), its
+rows print ``ops/merge.onepass_refusal`` as ``skipped``, where the JAX
+tool printed "no resident VMEM fit".
 
 Each point runs the same program from the same seeded state, best of
 ``--reps`` runs (CUDA events around ``run_rounds`` on the card, set-up
 not timed; the JAX tool's one-second pauses between runs were for a
 shared TPU and are gone), and prints one JSON line: the JAX tool's
 ``block_c``, ``block_r``, ``ms_per_round`` and ``rounds_per_sec``, plus
-the point, its route and launches, and ``digest``, the sha256 of the
-final lanes, carry and every per-round metric.  Every point that runs
+the point, its route and launches, and ``digest``
+(``utils/digest.tensors_digest``) of the final lanes, carry and every
+per-round metric.  Every point that runs
 must give the same digest: the last line is ``{"digests_equal": ...}``,
 and the exit code is 1 where they differ.
 
     python -m gossipfs_tpu_torch.sweep_rr --rounds 100 --reps 4
     python -m gossipfs_tpu_torch.sweep_rr --n 65536 --rounds 10 --reps 1
+    python -m gossipfs_tpu_torch.sweep_rr --n 131072 --rr-resident on
     python -m gossipfs_tpu_torch.sweep_rr --device cpu --n 512 --rounds 4 \\
         --reps 1
 """
@@ -33,7 +37,6 @@ and the exit code is 1 where they differ.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import itertools
 import json
 
@@ -43,6 +46,7 @@ from gossipfs_tpu_torch.bench import timed_run
 from gossipfs_tpu_torch.config import SimConfig
 from gossipfs_tpu_torch.core import rounds as R
 from gossipfs_tpu_torch.ops import merge
+from gossipfs_tpu_torch.utils.digest import tensors_digest
 
 CRASH_RATE = 0.01
 RESIDENT = ("on", "off")
@@ -76,13 +80,10 @@ def refusal(n: int, rr_resident: str, elementwise: str, arc_align: int = 8,
 
 
 def run_digest(state, carry, metrics) -> str:
-    """sha256 of a run's final lanes, alive, hb_base, carry and every
-    per-round metric."""
-    h = hashlib.sha256()
-    for t in [state.hb, state.asl, state.alive, state.hb_base, *carry,
-              *metrics]:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
+    """The digest (utils/digest.py) of a run's final lanes, alive,
+    hb_base, carry and every per-round metric."""
+    return tensors_digest([state.hb, state.asl, state.alive, state.hb_base,
+                           *carry, *metrics])
 
 
 def time_point(cfg: SimConfig, rounds: int, reps: int, device) -> dict:

@@ -135,9 +135,13 @@ def _ok(key: str = "ok"):
 
 
 # The JAX package's headline is 100 rounds at N = 16,384; its port's
-# recorded card figure is chip_smoke.py phase 5's ms a round.
+# recorded card figure is chip_smoke.py phase 5's ms a round.  The
+# frontier, ceiling and anchor figures are each claim's own command on the
+# card (PERF.md section 6), K3's one-pass form at those N.
 HEADLINE_MS = 2.0384
-FRONTIER_MS = 42.6931
+FRONTIER_MS = 50.5280
+CEILING_MS = 92.5134
+ANCHOR_MS = 12.8987
 
 
 def claims(device: str) -> dict:
@@ -157,14 +161,17 @@ def claims(device: str) -> dict:
                   "--block-c", "2048", "--topology", "random_arc",
                   "--arc-align", "8", *dev],
             _frontier_ok, 1e3 / FRONTIER_MS, 0.3,
-            f"PR 10's frontier lanes (chip_smoke.py phase 22, random "
-            f"topology): {FRONTIER_MS} ms a round at N = 65,536 (PERF.md "
-            "section 5)"),
+            f"this claim's command on the card (aligned arcs, K3's "
+            f"one-pass form): {FRONTIER_MS} ms a round at N = 65,536 "
+            "(PERF.md section 6)"),
         "ceiling_86016": (
             py + [f"{PORT}.frontier", "--n", "86016", "--rounds", "60",
                   "--block-c", "1024", "--topology", "random_arc",
                   "--arc-align", "8", *dev],
-            _frontier_ok, None, 0.3, None),
+            _frontier_ok, 1e3 / CEILING_MS, 0.3,
+            f"this claim's command on the card (K3's one-pass "
+            f"form): {CEILING_MS} ms a round at N = 86,016 (PERF.md "
+            "section 6)"),
         "soak": (
             py + [f"{PORT}.parity_soak", "--n", "16384", "--rounds", "100",
                   *dev],
@@ -173,7 +180,10 @@ def claims(device: str) -> dict:
             py + [f"{PORT}.shard_anchor", "--n", "98304", "--shards", "8",
                   "--block-c", "2048", "--fanout", "24", "--rounds", "40",
                   "--reps", "3", *dev],
-            lambda d: d["implied_rounds_per_sec"], None, 0.3, None),
+            lambda d: d["implied_rounds_per_sec"], 1e3 / ANCHOR_MS, 0.3,
+            f"this claim's command on the card (the [98,304 x "
+            f"12,288] shard on K3's one-pass form): {ANCHOR_MS} ms a round "
+            "(PERF.md section 6)"),
         "partition_reconv": (
             py + [f"{PORT}.curves", "--partition", "--ns", "1024", *dev],
             _partition_ok, 1.0, 0.0, "a predicate"),

@@ -46,17 +46,19 @@ HARNESS = r"""
 
 using namespace onepass;
 
+template <class B>
 struct TickSink {
   uint32_t* cnt;
   void det(int c, int count, int first_row) {
-    cnt[kSumDet * kPairs + c / 2] += pair_addend(c, count);
-    if (first_row < (int)cnt[kFobsAt + c]) cnt[kFobsAt + c] = first_row;
+    cnt[kSumDet * B::kPairs + c / 2] += pair_addend(c, count);
+    if (first_row < (int)cnt[B::kFobsAt + c]) cnt[B::kFobsAt + c] = first_row;
   }
   void entered(int c, int count) {
-    cnt[kSumEntered * kPairs + c / 2] += pair_addend(c, count);
+    cnt[kSumEntered * B::kPairs + c / 2] += pair_addend(c, count);
   }
 };
 
+template <class B>
 struct MergeSink {
   uint32_t* cnt;
   int32_t* recv;   // [n] recv_cnt
@@ -70,7 +72,7 @@ struct MergeSink {
     for (int k = 0; k < kSeg; ++k)
       for (int b = 0; b < 4; ++b) {
         const int c = 4 * (kSeg * h + k) + b;
-        cnt[sum * kPairs + c / 2] +=
+        cnt[sum * B::kPairs + c / 2] +=
             pair_addend(c, (int)((w[k] >> (8 * b)) & 0xFF));
       }
   }
@@ -82,38 +84,44 @@ struct MergeSink {
   }
 };
 
-// One round as the card runs it: ``clusters`` persistent clusters, each
-// walking stripes c, c + clusters, ... with its kCtas CTAs' parks, views,
-// staged threshold stacks and two count blocks a CTA by stripe parity,
-// each row staged for the next stripe (its lanes copied into its park
-// row) as step 2 merges it; the CTAs and threads of a step replayed one
-// after another (the barriers between steps).
-template <bool kSus, int kForm, bool kSwar>
+// One round as the card runs it in blocking B: ``clusters`` persistent
+// clusters, each walking stripes c, c + clusters, ... with its kCtas CTAs'
+// parks (both lanes, or asl and the diagonal rows), views (view slices,
+// whole or split group-max tables), staged threshold stacks and two count
+// blocks a CTA by stripe parity, each row staged for the next stripe (its
+// lanes copied into its park row) as step 2 merges it; the CTAs and
+// threads of a step replayed one after another (the barriers between
+// steps).
+template <class B, bool kSus, int kForm, bool kSwar>
 static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
                     int clusters, int8_t* hb, int8_t* asl,
                     const int8_t* flags, const int8_t* vecs,
                     const int32_t* senders, int32_t* subj, int32_t* recv) {
   constexpr bool kFull = full_view(kForm);
+  constexpr int kC = B::kC, kCtas = B::kCtas, kLanes = B::kLanes;
+  constexpr bool kParkHb = park_hb<B>(kFull);
   const int rows = n / kCtas;
   const int groups = rows / kAlign;
   const int stripes = nc / kC;
-  const size_t vrows = view_rows(n, kFull);
+  const size_t vrows = view_rows<B>(n, kFull);
+  const size_t drows = diag_rows<B>(kFull);
   std::vector<int8_t> ph((size_t)kCtas * rows * kC),
       pa((size_t)kCtas * rows * kC), pv(kCtas * vrows * kC),
-      vss((size_t)kCtas * N_VEC * kC);
-  std::vector<uint32_t> blocks((size_t)kCtas * 2 * kBlockWords);
+      pd(kCtas * drows * kC + 1), vss((size_t)kCtas * N_VEC * kC);
+  std::vector<uint32_t> blocks((size_t)kCtas * 2 * B::kBlockWords);
   std::vector<int8_t> none(kC);
   for (int i = 0; i < kC; i += 4) swar::store(&none[i], gather_none(kForm));
   for (int i = 0; i < (lh ? 2 : 1) * n; ++i) recv[i] = 0;
   auto park = [&](int q) {
-    return Park{ph.data() + (size_t)q * rows * kC,
-                pa.data() + (size_t)q * rows * kC,
-                pv.data() + q * vrows * kC};
+    Park pk{kParkHb ? ph.data() + (size_t)q * rows * kC : nullptr,
+            pa.data() + (size_t)q * rows * kC, pv.data() + q * vrows * kC};
+    pk.diag = pd.data() + q * drows * kC;
+    return pk;
   };
   auto view_of = [&](int q) { return pv.data() + q * vrows * kC; };
   auto vs_of = [&](int q) { return vss.data() + (size_t)q * N_VEC * kC; };
   auto block = [&](int q, int it) {
-    return blocks.data() + ((size_t)q * 2 + (it & 1)) * kBlockWords;
+    return blocks.data() + ((size_t)q * 2 + (it & 1)) * B::kBlockWords;
   };
   auto load = [](const int8_t* a) { return load_seg(a); };
   auto copy = [](int8_t* dst, const int8_t* src) {
@@ -122,40 +130,47 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
   for (int c = 0; c < clusters && c < stripes; ++c) {
     for (int q = 0; q < kCtas; ++q)
       for (int t = 0; t < nt; ++t)
-        stage(asl, vecs, stripe_at(n, nc, col_offset, c), park(q),
-              vs_of(q), q, rows, t, nt, copy);
+        stage<B>(asl, vecs, stripe_at<B>(n, nc, col_offset, c), park(q),
+                 vs_of(q), q, rows, t, nt, copy);
     for (int q = 0; q < kCtas; ++q)
-      for (int i = 0; i < kBlockWords; ++i) block(q, 0)[i] = blank_count(i, n);
+      for (int i = 0; i < B::kBlockWords; ++i)
+        block(q, 0)[i] = blank_count<B>(i, n);
     for (int stripe = c, it = 0; stripe < stripes;
          stripe += clusters, ++it) {
-      const Stripe sp = stripe_at(n, nc, col_offset, stripe);
-      // a group max goes into every CTA's table
+      const Stripe sp = stripe_at<B>(n, nc, col_offset, stripe);
+      // a group max goes into every CTA's table, or into its own CTA's
+      // split table
       auto put_group = [&](int g, int h, const Seg& v) {
+        if (B::kSplitTable) {
+          const Where w = group_home<B>(g);
+          store_seg(view_of(w.cta) + (size_t)w.local * kC + 4 * kSeg * h, v);
+          return;
+        }
         for (int q = 0; q < kCtas; ++q)
           store_seg(view_of(q) + (size_t)g * kC + 4 * kSeg * h, v);
       };
       for (int q = 0; q < kCtas; ++q) {
-        TickSink ts{block(q, it)};
+        TickSink<B> ts{block(q, it)};
         for (int t = 0; t < nt; ++t) {
           GroupFlags fw{};
           if (t / kLanes < groups)
-            fw = group_flags(flags, group_row0(q, t / kLanes));
-          step1<kSus, kFull, mutes(kForm), kSwar>(
+            fw = group_flags(flags, group_row0<B>(q, t / kLanes));
+          step1<B, kSus, kFull, mutes(kForm), kSwar>(
               hb, flags, vs_of(q), sp, kn, park(q), q, groups, t, nt, fw, ts,
               put_group);
         }
       }
       // (the cluster synchronises)
       for (int q = 0; q < kCtas; ++q) {
-        for (int i = 0; i < kBlockWords; ++i)
-          block(q, it + 1)[i] = blank_count(i, n);
+        for (int i = 0; i < B::kBlockWords; ++i)
+          block(q, it + 1)[i] = blank_count<B>(i, n);
         auto gather = [&](const Meta<kForm>& m, int row, int h) -> Seg {
           if constexpr (kFull) {
             return gather_rows<kForm>(
                 m, senders, row, n, kn,
                 [&](int s) -> const int8_t* {
                   if (s < 0) return none.data() + 4 * kSeg * h;
-                  const Where w = row_home(s);
+                  const Where w = row_home<B>(s);
                   return view_of(w.cta) + (size_t)w.local * kC + 4 * kSeg * h;
                 },
                 load);
@@ -163,37 +178,43 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
             return gather_groups<kForm>(
                 m, n, kn,
                 [&](int g) -> const int8_t* {
-                  return g < 0 ? none.data() + 4 * kSeg * h
-                               : view_of(q) + (size_t)g * kC + 4 * kSeg * h;
+                  if (g < 0) return none.data() + 4 * kSeg * h;
+                  if (B::kSplitTable) {
+                    const Where w = group_home<B>(g);
+                    return view_of(w.cta) + (size_t)w.local * kC +
+                           4 * kSeg * h;
+                  }
+                  return view_of(q) + (size_t)g * kC + 4 * kSeg * h;
                 },
                 load);
           }
         };
-        MergeSink ms{block(q, it), recv, lh ? recv + n : nullptr};
+        MergeSink<B> ms{block(q, it), recv, lh ? recv + n : nullptr};
         const bool more = stripe + clusters < stripes;
-        const Stripe next = stripe_at(n, nc, col_offset, stripe + clusters);
+        const Stripe next =
+            stripe_at<B>(n, nc, col_offset, stripe + clusters);
         for (int t = 0; t < nt; ++t)
-          step2<kSus, kForm, kSwar>(
+          step2<B, kSus, kForm, kSwar>(
               hb, asl, flags, vs_of(q), senders, sp, kn, park(q), q, rows, t,
               nt, gather, ms, [&](int li, int h) {
                 if (more)
-                  stage_row(asl, next, park(q), q, li, h, copy);
+                  stage_row<B>(asl, next, park(q), q, li, h, copy);
               });
         // (the CTA synchronises) the next stripe's stack
         if (more)
           for (int t = 0; t < nt; ++t)
-            stage_stack(vecs, next, vs_of(q), t, nt, copy);
+            stage_stack<B>(vecs, next, vs_of(q), t, nt, copy);
       }
       // (the cluster synchronises)
       for (int s = 0; s < (kSus ? 6 : 3); ++s)
         for (int cc = 0; cc < kC; ++cc)
-          subj[(size_t)s * nc + sp.col0 + cc] = finish(
+          subj[(size_t)s * nc + sp.col0 + cc] = finish<B>(
               s, cc, [&](int q) { return (const uint32_t*)block(q, it); });
     }
   }
 }
 
-template <bool kSus, bool kSwar>
+template <class B, bool kSus, bool kSwar>
 static void round_form(int form, int n, int nc, int col_offset, Knobs kn,
                        int lh, int nt, int clusters, int8_t* hb, int8_t* asl,
                        const int8_t* flags, const int8_t* vecs,
@@ -201,39 +222,54 @@ static void round_form(int form, int n, int nc, int col_offset, Knobs kn,
 #define ARGS n, nc, col_offset, kn, lh, nt, clusters, hb, asl, flags, vecs, \
       senders, subj, recv
   switch (form) {
-    case kFormGroup: return round_t<kSus, kFormGroup, kSwar>(ARGS);
-    case kFormEdges: return round_t<kSus, kFormEdges, kSwar>(ARGS);
-    case kFormArc: return round_t<kSus, kFormArc, kSwar>(ARGS);
+    case kFormGroup: return round_t<B, kSus, kFormGroup, kSwar>(ARGS);
+    case kFormEdges: return round_t<B, kSus, kFormEdges, kSwar>(ARGS);
+    case kFormArc: return round_t<B, kSus, kFormArc, kSwar>(ARGS);
     case kFormFilterGroup:
-      return round_t<kSus, kFormFilterGroup, kSwar>(ARGS);
-    default: return round_t<kSus, kFormFilterRows, kSwar>(ARGS);
+      return round_t<B, kSus, kFormFilterGroup, kSwar>(ARGS);
+    default: return round_t<B, kSus, kFormFilterRows, kSwar>(ARGS);
   }
 #undef ARGS
 }
 
-// One round of the one-pass form over [n, nc] lanes from global column
-// col_offset.  subj [3 or 6, nc]; recv [1 or 2, n].
-extern "C" void host_onepass(int n, int nc, int col_offset, int form,
-                             int width, int group_shift, int suspect, int lh,
-                             int swar_form, int nt, int clusters, int8_t* hb,
-                             int8_t* asl, const int8_t* flags,
-                             const int8_t* vecs, const int32_t* senders,
-                             int t_fail, int t_cooldown, int confirm,
-                             int confirm_hi, int age_clamp, int32_t* subj,
-                             int32_t* recv) {
-  const Knobs kn{t_fail, t_cooldown, confirm, confirm_hi, age_clamp, width,
-                 group_shift};
+template <class B>
+static void round_mode(int form, int n, int nc, int col_offset, Knobs kn,
+                       int suspect, int lh, int swar_form, int nt,
+                       int clusters, int8_t* hb, int8_t* asl,
+                       const int8_t* flags, const int8_t* vecs,
+                       const int32_t* senders, int32_t* subj, int32_t* recv) {
 #define ARGS form, n, nc, col_offset, kn, lh, nt, clusters, hb, asl, flags, \
       vecs, senders, subj, recv
-  if (suspect && swar_form) round_form<true, true>(ARGS);
-  else if (suspect) round_form<true, false>(ARGS);
-  else if (swar_form) round_form<false, true>(ARGS);
-  else round_form<false, false>(ARGS);
+  if (suspect && swar_form) round_form<B, true, true>(ARGS);
+  else if (suspect) round_form<B, true, false>(ARGS);
+  else if (swar_form) round_form<B, false, true>(ARGS);
+  else round_form<B, false, false>(ARGS);
 #undef ARGS
 }
 
-extern "C" long host_smem_bytes(long n, int full) {
-  return smem_bytes(n, full != 0);
+// One round of the one-pass form over [n, nc] lanes from global column
+// col_offset, in the narrow blocking (Cluster8x32) or the wide one
+// (Cluster16x16).  subj [3 or 6, nc]; recv [1 or 2, n].
+extern "C" void host_onepass(int wide, int n, int nc, int col_offset,
+                             int form, int width, int group_shift,
+                             int suspect, int lh, int swar_form, int nt,
+                             int clusters, int8_t* hb, int8_t* asl,
+                             const int8_t* flags, const int8_t* vecs,
+                             const int32_t* senders, int t_fail,
+                             int t_cooldown, int confirm, int confirm_hi,
+                             int age_clamp, int32_t* subj, int32_t* recv) {
+  const Knobs kn{t_fail, t_cooldown, confirm, confirm_hi, age_clamp, width,
+                 group_shift};
+#define ARGS form, n, nc, col_offset, kn, suspect, lh, swar_form, nt, \
+      clusters, hb, asl, flags, vecs, senders, subj, recv
+  if (wide) round_mode<Cluster16x16>(ARGS);
+  else round_mode<Cluster8x32>(ARGS);
+#undef ARGS
+}
+
+extern "C" long host_smem_bytes(long n, int full, int wide) {
+  return wide ? smem_bytes<Cluster16x16>(n, full != 0)
+              : smem_bytes<Cluster8x32>(n, full != 0);
 }
 
 """
@@ -252,7 +288,8 @@ def lib(tmp_path_factory):
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.host_smem_bytes.restype = ctypes.c_long
-    lib.host_smem_bytes.argtypes = [ctypes.c_long, ctypes.c_int]
+    lib.host_smem_bytes.argtypes = [ctypes.c_long, ctypes.c_int,
+                                    ctypes.c_int]
     return lib
 
 
@@ -308,17 +345,14 @@ SHAPES = {"square": (256, 256, 0), "block": (512, 128, 256),
 MATRIX_SHAPES = ("square", "block")
 
 
-def host_round(lib, form, mode, elementwise, shape, seed, fanout=16,
-               clusters=3, threads=None):
-    n, c, off = SHAPES[shape]
+def run_host(lib, n, c, off, form, mode, elementwise, inputs, fanout=16,
+             clusters=3, threads=None, wide=False):
+    """One host round of blocking ``wide`` (Cluster16x16, else
+    Cluster8x32) on ``inputs`` (:func:`round_inputs`' tuple): the outputs
+    in resident_round_plain's order."""
+    hb, asl, flags, vecs, senders, fkw = inputs
     sus = mode != "crash-only"
-    hb, asl, flags, vecs, senders, fkw = round_inputs(n, c, form, seed, sus,
-                                                      fanout)
     kw = dict(fkw, t_cooldown=12, **MODES[mode])
-    t = torch.from_numpy
-    want = merge.resident_round_plain(
-        t(hb.copy()), t(asl.copy()), t(flags), t(vecs), t(senders),
-        elementwise=elementwise, col_offset=off, **kw)
     width = senders.shape[1] if form == "edges" else fanout
     if form in ("aligned_group", "filter_group"):
         width //= 8
@@ -330,12 +364,31 @@ def host_round(lib, form, mode, elementwise, shape, seed, fanout=16,
     h, a = hb.copy(), asl.copy()
     subj = np.empty((6 if sus else 3, c), np.int32)
     recv = np.empty((1 + lh, n), np.int32)
-    call(lib.host_onepass, n, c, off, merge.FORMS.index(form), width, shift,
-         int(sus), lh, int(elementwise == "swar"),
+    call(lib.host_onepass, int(wide), n, c, off, merge.FORMS.index(form),
+         width, shift, int(sus), lh, int(elementwise == "swar"),
          threads or THREADS[elementwise], clusters, h, a, flags, vecs,
          senders, kw["t_fail"], 12, thr, thr_hi, 63, subj, recv)
-    got = [h, a, *subj[:3], recv[0], *subj[3:], *recv[1:]]
-    return got, [w.numpy() for w in want]
+    return [h, a, *subj[:3], recv[0], *subj[3:], *recv[1:]]
+
+
+def plain_outputs(mode, elementwise, off, inputs):
+    """resident_round_plain on ``inputs`` (:func:`round_inputs`)."""
+    hb, asl, flags, vecs, senders, fkw = inputs
+    kw = dict(fkw, t_cooldown=12, **MODES[mode])
+    t = torch.from_numpy
+    want = merge.resident_round_plain(
+        t(hb.copy()), t(asl.copy()), t(flags), t(vecs), t(senders),
+        elementwise=elementwise, col_offset=off, **kw)
+    return [w.numpy() for w in want]
+
+
+def host_round(lib, form, mode, elementwise, shape, seed, fanout=16,
+               clusters=3, threads=None, wide=False):
+    n, c, off = SHAPES[shape]
+    inputs = round_inputs(n, c, form, seed, mode != "crash-only", fanout)
+    got = run_host(lib, n, c, off, form, mode, elementwise, inputs, fanout,
+                   clusters, threads, wide)
+    return got, plain_outputs(mode, elementwise, off, inputs)
 
 
 @pytest.mark.parametrize("shape", MATRIX_SHAPES)
@@ -396,7 +449,12 @@ def test_stripe_walk_with_several_groups_a_thread(lib, form, elementwise):
 @pytest.mark.parametrize("form", merge.FORMS)
 @pytest.mark.parametrize("n", [64, 16_384, 19_264, 19_328, 65_536])
 def test_smem_bytes_agree_with_onepass_fits(lib, n, form):
+    """The narrow blocking's bytes a CTA: the header's and ops/merge's,
+    within the card's opt-in up to N = 19,264; the wide blocking's at the
+    same N (and past its own edges: test_torch_onepass_wide_host.py)."""
     full = int(form in merge.FULL_VIEW_FORMS)
-    assert lib.host_smem_bytes(n, full) == merge.onepass_smem(n, form)
-    assert (merge.onepass_smem(n, form) <= merge.ONEPASS_SMEM) == (
-        n <= 19_264)
+    narrow = merge.onepass_smem(n, form, "8x32")
+    assert lib.host_smem_bytes(n, full, 0) == narrow
+    assert (narrow <= merge.ONEPASS_SMEM) == (n <= 19_264)
+    assert lib.host_smem_bytes(n, full, 1) == merge.onepass_smem(
+        n, form, "16x16") <= merge.ONEPASS_SMEM

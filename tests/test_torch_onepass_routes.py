@@ -4,8 +4,14 @@
 * ``ops.merge.onepass_fits`` admits the reference bench's shape
   (``headline(16_384)``, every form), ``packed_rr`` / ``suspicion_rr`` at
   16,384 and the ``[16,384 x 8,192]`` column blocks of the sharded
-  headline, and refuses N = 65,536, the first N past a CTA's shared
-  memory and widths the cluster cannot split;
+  headline on the narrow blocking (8 CTAs x 32 columns), N = 65,536 and
+  its ``[65,536 x 8,192]`` block on the wide one (16 x 16), and refuses
+  the first N past each blocking's shared memory and widths neither
+  cluster can split;
+* every configuration the JAX package's ``SimConfig`` validates with
+  ``rr_resident="on"`` (explicit edges to N = 69,632, arcs to 104,448 at
+  ``merge_block_c`` 512) validates in the port and routes
+  ``<form>/onepass``, on the blocking ``onepass_blocking`` names;
 * ``route()`` under ``rr_resident`` ``auto`` / ``on`` / ``off`` on each
   lean configuration, one device and sharded widths: ``auto`` takes (f)
   wherever it fits and the two-launch form elsewhere, ``on`` raises where
@@ -56,11 +62,15 @@ def test_onepass_fits_the_main_shapes(form, elementwise):
     # column blocks of the sharded headline (main paths F and F')
     for c in (16_384, 8_192, 4_096):
         assert merge.onepass_fits(16_384, c, form, elementwise)
-    # the frontier and capacity N: the two-launch form, as on the TPU
-    assert not merge.onepass_fits(65_536, 65_536, form, elementwise)
-    assert not merge.onepass_fits(65_536, 8_192, form, elementwise)
-    # the cluster splits rows 8 ways into 8-row groups; a stripe is 32
-    # columns
+    # the frontier and capacity N and config 4's column block: the wide
+    # blocking, as the TPU runs them resident at merge_block_c 512
+    for c in (65_536, 8_192):
+        assert merge.onepass_fits(65_536, c, form, elementwise)
+        assert merge.onepass_blocking(65_536, c, form, elementwise) == (
+            "16x16")
+    assert merge.onepass_blocking(16_384, 16_384, form) == "8x32"
+    # the narrow cluster splits rows 8 ways into 8-row groups and the wide
+    # one 16 ways; a stripe is 32 or 16 columns
     assert not merge.onepass_fits(16_384 + 8, 16_384 + 8, form, elementwise)
     assert not merge.onepass_fits(16_384, 16_384 - 4, form, elementwise)
     assert not merge.onepass_fits(16_384, 0, form, elementwise)
@@ -68,12 +78,20 @@ def test_onepass_fits_the_main_shapes(form, elementwise):
 
 @pytest.mark.parametrize("form", merge.FORMS)
 def test_onepass_fits_stops_at_the_shared_memory(form):
-    last = 19_264
-    assert merge.onepass_fits(last, last, form)
-    assert merge.onepass_smem(last, form) <= merge.ONEPASS_SMEM
-    assert not merge.onepass_fits(last + 64, 64, form)
-    assert merge.onepass_smem(last + 64, form) > merge.ONEPASS_SMEM
+    # the narrow blocking to N = 19,264, the wide one past it
+    assert merge.onepass_blocking(19_264, 19_264, form) == "8x32"
+    assert merge.onepass_smem(19_264, form) <= merge.ONEPASS_SMEM
+    assert merge.onepass_smem(19_328, form) > merge.ONEPASS_SMEM
+    assert merge.onepass_blocking(19_328, 19_328, form) == "16x16"
     assert merge.onepass_smem(16_384, form) == 197_888
+    # the wide blocking's last N: 115,712 in the full-view forms (2N + 896
+    # B a CTA), 109,056 in the aligned ones (17N/8 + 640)
+    last = 115_712 if form in merge.FULL_VIEW_FORMS else 109_056
+    assert merge.onepass_fits(last, last, form)
+    assert merge.onepass_smem(last, form, "16x16") <= merge.ONEPASS_SMEM
+    assert not merge.onepass_fits(last + 128, 128, form)
+    assert merge.onepass_smem(last + 128, form, "16x16") > (
+        merge.ONEPASS_SMEM)
 
 
 def test_onepass_fits_checks_its_arguments():
@@ -131,18 +149,98 @@ def test_shard_width_the_cluster_cannot_split(label, cfg, armed, form):
 
 
 @pytest.mark.parametrize("make,want", [
-    (lambda **kw: SimConfig.headline(65_536, **kw), "aligned_group"),
-    (lambda **kw: SimConfig.packed_rr(49_152, **kw), "edges"),
-    (lambda **kw: SimConfig.packed_rr(65_536, **kw), "edges"),
-    (lambda **kw: SimConfig.headline(20_480, arc_align=4, **kw), "arc"),
+    (lambda **kw: SimConfig.headline(109_184, **kw), "aligned_group"),
+    (lambda **kw: SimConfig.packed_rr(115_840, **kw), "edges"),
+    (lambda **kw: SimConfig.packed_rr(65_600, **kw), "edges"),
+    (lambda **kw: SimConfig.headline(115_840, arc_align=4, **kw), "arc"),
     (lambda **kw: SimConfig.headline(1_032, **kw), "aligned_group"),
-], ids=["frontier headline", "packed_rr 49152", "packed_rr 65536",
-        "align 4 past the full view", "N % 64 != 0"])
+], ids=["headline past the wide blocking", "packed_rr past the wide "
+        "blocking", "packed_rr N % 128 != 0", "align 4 past the wide "
+        "blocking", "N % 64 != 0"])
 def test_rr_resident_on_raises_where_it_cannot_fit(make, want):
     assert R.route(make()) == ("lean", want)           # auto: two-launch
     assert R.route(make(rr_resident="off")) == ("lean", want)
     with pytest.raises(ValueError, match="rr_resident='on'"):
         make(rr_resident="on")
+
+
+# the JAX package's families at the N and merge_block_c its rr_resident="on"
+# validates (gossipfs_tpu/config.py:319-335, rr_resident_supported): the
+# port's form and blocking there
+JAX_ARC = dict(topology="random_arc", fanout=16, remove_broadcast=False,
+               fresh_cooldown=True, t_cooldown=12, merge_kernel="pallas_rr",
+               view_dtype="int8", hb_dtype="int8")
+FAMILIES = {
+    "packed_rr": (lambda n, bc, **kw: JaxConfig.packed_rr(n, bc, **kw),
+                  lambda n, **kw: SimConfig.packed_rr(n, **kw), "edges"),
+    "suspicion_rr": (
+        lambda n, bc, **kw: JaxConfig.suspicion_rr(n, bc, **kw),
+        lambda n, **kw: SimConfig.suspicion_rr(n, **kw), "edges"),
+    "aligned arcs": (
+        lambda n, bc, **kw: JaxConfig(n=n, arc_align=8, merge_block_c=bc,
+                                      **JAX_ARC, **kw),
+        lambda n, **kw: SimConfig.headline(n, **kw), "aligned_group"),
+    "arcs align 4": (
+        lambda n, bc, **kw: JaxConfig(n=n, arc_align=4, merge_block_c=bc,
+                                      **JAX_ARC, **kw),
+        lambda n, **kw: SimConfig.headline(n, arc_align=4, **kw), "arc"),
+}
+ENVELOPE = [(f, n, bc) for f in ("packed_rr", "suspicion_rr")
+            for n, bc in ((24_576, 512), (24_576, 1_024), (32_768, 512),
+                          (32_768, 1_024), (49_152, 512), (65_536, 512),
+                          (69_632, 512))] + [
+    ("aligned arcs", n, bc) for n, bc in (
+        (24_576, 1_024), (32_768, 512), (32_768, 1_024), (49_152, 512),
+        (49_152, 1_024), (65_536, 512), (98_304, 512), (104_448, 512))] + [
+    ("arcs align 4", n, 512) for n in (65_536, 98_304, 104_448)]
+
+
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("family,n,block_c", ENVELOPE,
+                         ids=[f"{f} {n} c{bc}" for f, n, bc in ENVELOPE])
+def test_rr_resident_on_runs_where_the_reference_runs_resident(
+        family, n, block_c, elementwise):
+    """The JAX package validates ``rr_resident="on"`` here, so the port
+    validates it and routes ``<form>/onepass`` (``auto`` too), on the wide
+    blocking (every such N is past the narrow one's 19,264)."""
+    jmake, tmake, form = FAMILIES[family]
+    jmake(n, block_c, rr_resident="on", elementwise=elementwise)
+    cfg = tmake(n, rr_resident="on", elementwise=elementwise)
+    name = form + ("/swar" if elementwise == "swar" else "")
+    assert R.route(cfg) == ("lean", name + "/onepass")
+    assert R.route(dataclasses.replace(cfg, rr_resident="auto")) == (
+        "lean", name + "/onepass")
+    assert merge.onepass_blocking(n, n, form, elementwise) == "16x16"
+
+
+def test_column_block_of_the_reference_runs_one_pass():
+    """Config 4's ``[65,536 x 8,192]`` column block (the headline over 8
+    shards): the JAX gate admits it (``rr_resident_supported`` with
+    ``n_cols`` 8,192), and the port routes each shard one-pass."""
+    assert rr_resident_supported(65_536, 16, 512, 8_192, arc_align=8)
+    cfg = SimConfig.headline(65_536, rr_resident="on")
+    assert R.route(cfg, nloc=8_192) == ("lean", "aligned_group/onepass")
+    assert merge.onepass_blocking(65_536, 8_192, "aligned_group") == "16x16"
+
+
+def test_port_admits_every_jax_resident_configuration():
+    """Over N = 512 .. 131,072 (every multiple of 512) and merge_block_c
+    512 and 1,024: wherever the JAX package's SimConfig validates
+    ``rr_resident="on"``, the port's validates and ``onepass_fits`` holds
+    the square round (the port may admit more)."""
+    admitted = 0
+    for family, (jmake, tmake, form) in FAMILIES.items():
+        for block_c in (512, 1_024):
+            for n in range(block_c, 131_072 + 1, block_c):
+                try:
+                    jmake(n, block_c, rr_resident="on")
+                except ValueError:
+                    continue
+                admitted += 1
+                assert merge.onepass_fits(n, n, form), (family, n)
+                tmake(n, rr_resident="on")
+    # up to 69,632 on explicit edges and 104,448 on arcs at block_c 512
+    assert admitted == 2 * (136 + 34) + 2 * (204 + 51)
 
 
 def test_rr_resident_on_where_no_lean_round_runs():
@@ -161,7 +259,7 @@ def test_onepass_timeline_split():
     stripe's, and the launch's span from the first start to the last
     end."""
     steps = torch.tensor([0, 14_000, 17_000, 35_000, 37_000])   # ns
-    tl = torch.zeros((4, merge.ONEPASS_CTAS, merge.ONEPASS_STAMPS),
+    tl = torch.zeros((4, 8, merge.ONEPASS_STAMPS),
                      dtype=torch.int64)
     for i, start in enumerate((0, 300, 41_000, 41_200)):
         tl[i, :] = start + steps
@@ -181,7 +279,7 @@ def test_wrapper_raises_on_a_shape_onepass_refuses():
     kw = dict(fanout=16, arc_align=8, t_fail=5, t_cooldown=12)
     with pytest.raises(ValueError, match="does not hold"):
         merge.resident_round(hb, asl, flags, vecs, bases, onepass=True, **kw)
-    tl = torch.zeros((n // 32, merge.ONEPASS_CTAS, merge.ONEPASS_STAMPS),
+    tl = torch.zeros((n // 32, 8, merge.ONEPASS_STAMPS),
                      dtype=torch.int64)
     with pytest.raises(ValueError, match="one-pass option"):
         merge.resident_round(hb, asl, flags, vecs, bases, timeline=tl, **kw)

@@ -161,8 +161,10 @@ ROUTES = [
     (SimConfig.packed_rr(16_384), False, ("lean", "edges/onepass")),
     (SimConfig.suspicion_rr(16_384), False, ("lean", "edges/onepass")),
     (SimConfig.packed_rr(16_384), True, ("separate", "stripe_merge_update")),
-    # past the one-pass form's shared memory: the two-launch form
-    (SimConfig.packed_rr(49_152), False, ("lean", "edges")),
+    # past the narrow blocking's shared memory: the wide one (16 x 16)
+    (SimConfig.packed_rr(49_152), False, ("lean", "edges/onepass")),
+    # past the wide one's too: the two-launch form
+    (SimConfig.packed_rr(131_072), False, ("lean", "edges")),
     (SimConfig.headline(16_384), False, ("lean", "aligned_group/onepass")),
     # arc_align != 8: the kernel's plain-arc form (F consecutive rows)
     (SimConfig.headline(16_384, arc_align=4), False, ("lean", "arc/onepass")),
@@ -230,11 +232,12 @@ def test_frontier_padded_run_matches_jax():
 
 
 @pytest.mark.parametrize("kw,want", [
-    (dict(n=65_536), ("lean", "edges")),
-    (dict(n=100_000), ("lean", "edges")),
-    (dict(n=49_152, topology="random_arc", arc_align=16), ("lean", "arc")),
+    (dict(n=65_536), ("lean", "edges/onepass")),
+    (dict(n=100_000), ("lean", "edges/onepass")),
+    (dict(n=49_152, topology="random_arc", arc_align=16),
+     ("lean", "arc/onepass")),
     (dict(n=65_536, topology="random_arc", arc_align=8), ("lean",
-                                                          "aligned_group")),
+                                                          "aligned_group/onepass")),
 ])
 def test_frontier_configs_take_the_lean_loop(kw, want):
     """The frontier's configurations (and the padding of a literal N to

@@ -1,7 +1,8 @@
 """The port's shard_anchor: its ladder, its byte formula and its round.
 
 ``python -m gossipfs_tpu_torch.shard_anchor`` times one card's share of
-the sharded resident round (K3's two-launch column-shard form) and
+the sharded resident round (K3's column-shard form, one-pass where it
+holds the block, as the route takes it) and
 sweeps the JAX tool's capacity ladder with the port's own admission,
 ``shard_bytes`` against the card's memory.  Here, on the CPU: the ladder
 equals the JAX tool's (``tools/shard_anchor.py``, loaded by path: it
@@ -52,12 +53,16 @@ def test_ladder_is_the_jax_tools():
 
 @pytest.mark.parametrize("row", sa.LADDER, ids=lambda r: f"{r[0]}x{r[1]}")
 def test_shard_bytes_formula(row):
-    """Both int8 lanes, the N / 8-row view, [3, N/s] and [1, N] int32
-    counts, flags, the 11-row stack, int32 bases."""
+    """Both int8 lanes, the N / 8-row view where the shard runs K3's
+    two-launch form (the one-pass form holds (65,536, 8) and (98,304, 8):
+    no view in device memory), [3, N/s] and [1, N] int32 counts, flags,
+    the 11-row stack, int32 bases."""
     n, shards = row[0], row[1]
     nloc = n // shards
-    want = (2 * n * nloc + n // 8 * nloc + 3 * nloc * 4 + n * 4 + n
-            + merge.N_VEC * nloc + 4 * n)
+    onepass = merge.onepass_fits(n, nloc, "aligned_group")
+    assert sa.shard_onepass(n, shards) == onepass == (n <= 98_304)
+    want = (2 * n * nloc + (0 if onepass else n // 8 * nloc)
+            + 3 * nloc * 4 + n * 4 + n + merge.N_VEC * nloc + 4 * n)
     assert sa.shard_bytes(n, shards) == want
 
 
@@ -78,6 +83,8 @@ def test_shard_bytes_equal_what_measure_holds_on_cpu():
     shapes = {k: (tuple(t.shape), t.dtype) for k, t in x.items()}
     want = sa.shard_tensors(512, 4)
     assert all(shapes[k] == want[k] for k in shapes)
+    # [512 x 128] runs one-pass: no view between launches
+    assert "view" not in want and "view" in sa.shard_tensors(131_072, 8)
 
 
 def test_budget_only_ladder_refuses_786432_alone():

@@ -56,6 +56,12 @@ HARNESS = r"""
 
 using namespace onepass;
 
+// the stage variants are builds of the narrow blocking
+using B = Cluster8x32;
+constexpr int kC = B::kC, kCtas = B::kCtas, kLanes = B::kLanes;
+constexpr int kPairs = B::kPairs, kFobsAt = B::kFobsAt;
+constexpr int kBlockWords = B::kBlockWords;
+
 struct TickSink {
   uint32_t* cnt;
   void det(int c, int count, int first_row) {
@@ -102,7 +108,7 @@ static void round_t(int n, Knobs kn, int lh, int nt, int clusters,
   constexpr int kForm = kFormGroup;
   const int nc = n, rows = n / kCtas, groups = rows / kAlign;
   const int stripes = nc / kC;
-  const size_t vrows = view_rows(n, false);
+  const size_t vrows = view_rows<B>(n, false);
   std::vector<int8_t> ph((size_t)kCtas * rows * kC),
       pa((size_t)kCtas * rows * kC), pv(kCtas * vrows * kC),
       vss((size_t)kCtas * N_VEC * kC);
@@ -126,13 +132,14 @@ static void round_t(int n, Knobs kn, int lh, int nt, int clusters,
   for (int c = 0; c < clusters && c < stripes; ++c) {
     for (int q = 0; q < kCtas; ++q)
       for (int t = 0; t < nt; ++t)
-        stage(asl, vecs, stripe_at(n, nc, 0, c), park(q), vs_of(q), q, rows,
-              t, nt, copy);
+        stage<B>(asl, vecs, stripe_at<B>(n, nc, 0, c), park(q), vs_of(q), q,
+                 rows, t, nt, copy);
     for (int q = 0; q < kCtas; ++q)
-      for (int i = 0; i < kBlockWords; ++i) block(q, 0)[i] = blank_count(i, n);
+      for (int i = 0; i < kBlockWords; ++i)
+        block(q, 0)[i] = blank_count<B>(i, n);
     for (int stripe = c, it = 0; stripe < stripes;
          stripe += clusters, ++it) {
-      const Stripe sp = stripe_at(n, nc, 0, stripe);
+      const Stripe sp = stripe_at<B>(n, nc, 0, stripe);
       auto put_group = [&](int g, int h, const Seg& v) {
         for (int q = 0; q < kCtas; ++q)
           store_seg(view_of(q) + (size_t)g * kC + 4 * kSeg * h, v);
@@ -142,15 +149,15 @@ static void round_t(int n, Knobs kn, int lh, int nt, int clusters,
         for (int t = 0; t < nt; ++t) {
           GroupFlags fw{};
           if (t / kLanes < groups)
-            fw = group_flags(flags, group_row0(q, t / kLanes));
-          step1<kSus, false, false, false>(hb, flags, vs_of(q), sp, kn,
-                                           park(q), q, groups, t, nt, fw, ts,
-                                           put_group);
+            fw = group_flags(flags, group_row0<B>(q, t / kLanes));
+          step1<B, kSus, false, false, false>(hb, flags, vs_of(q), sp, kn,
+                                              park(q), q, groups, t, nt, fw,
+                                              ts, put_group);
         }
       }
       for (int q = 0; q < kCtas; ++q) {
         for (int i = 0; i < kBlockWords; ++i)
-          block(q, it + 1)[i] = blank_count(i, n);
+          block(q, it + 1)[i] = blank_count<B>(i, n);
         auto gather = [&](const Meta<kForm>& m, int row, int h) -> Seg {
           return gather_groups<kForm>(
               m, n, kn,
@@ -162,20 +169,20 @@ static void round_t(int n, Knobs kn, int lh, int nt, int clusters,
         };
         MergeSink ms{block(q, it), recv, lh ? recv + n : nullptr};
         const bool more = stripe + clusters < stripes;
-        const Stripe next = stripe_at(n, nc, 0, stripe + clusters);
+        const Stripe next = stripe_at<B>(n, nc, 0, stripe + clusters);
         for (int t = 0; t < nt; ++t)
-          step2<kSus, kForm, false>(
+          step2<B, kSus, kForm, false>(
               hb, asl, flags, vs_of(q), senders, sp, kn, park(q), q, rows, t,
               nt, gather, ms, [&](int li, int h) {
-                if (more) stage_row(asl, next, park(q), q, li, h, copy);
+                if (more) stage_row<B>(asl, next, park(q), q, li, h, copy);
               });
         if (more)
           for (int t = 0; t < nt; ++t)
-            stage_stack(vecs, next, vs_of(q), t, nt, copy);
+            stage_stack<B>(vecs, next, vs_of(q), t, nt, copy);
       }
       for (int s = 0; s < (kSus ? 6 : 3); ++s)
         for (int cc = 0; cc < kC; ++cc)
-          subj[(size_t)s * nc + sp.col0 + cc] = finish(
+          subj[(size_t)s * nc + sp.col0 + cc] = finish<B>(
               s, cc, [&](int q) { return (const uint32_t*)block(q, it); });
     }
   }

@@ -53,12 +53,15 @@ def test_config_is_the_jax_tools(field):
 
 
 def test_refusal_row_at_65536():
-    """The one-pass points at N = 65,536 print the route's refusal, as the
-    JAX tool printed "no resident VMEM fit", and run nothing."""
-    rc, rows = run(["--device", "cpu", "--n", "65536", "--rounds", "1",
+    """The one-pass points past the wide blocking (N = 131,072: N =
+    65,536 runs one-pass since the 16 x 16 blocking) print the route's
+    refusal, as the JAX tool printed "no resident VMEM fit", and run
+    nothing."""
+    rc, rows = run(["--device", "cpu", "--n", "131072", "--rounds", "1",
                     "--reps", "1", "--rr-resident", "on"])
     assert rc == 0
-    want = merge.onepass_refusal(65_536, 65_536, "aligned_group")
+    assert sweep_rr.refusal(65_536, "on", "lanes") is None
+    want = merge.onepass_refusal(131_072, 131_072, "aligned_group")
     assert [r["skipped"] for r in rows[:2]] == [want, want]
     assert [r["elementwise"] for r in rows[:2]] == ["lanes", "swar"]
     assert rows[0]["block_c"] == 2048 and rows[0]["block_r"] == 512
