@@ -401,10 +401,13 @@ Phases (any failure exits non-zero before the last line is printed):
     on the two-launch form; each row's formula bytes equal to the growth
     of the peak allocated memory over the rounds to the byte) and its
     ``--budget-only`` refusal of (786,432, 16); ``python -m
-    gossipfs_tpu_torch.stub_bisect`` at N = 16,384 with the default list
-    (plain arcs) and ``--arc-align 8 --suspicion`` (every row one K3 (f)
-    launch a round, the ``(full)`` row on the default library, each stub
-    on its variant, built in phase 2), then one round each: ``(full)``
+    gossipfs_tpu_torch.stub_bisect`` at N = 16,384 (the 8 x 32 blocking)
+    with the default list (plain arcs) and ``--arc-align 8 --suspicion``,
+    and at N = 65,536 (the 16 x 16 blocking) ``--arc-align 8``,
+    ``STUB_WIDE_ROUNDS`` rounds (every row one K3 (f) launch a round, the
+    ``(full)`` row on its blocking's default library, each stub on its
+    variant of that library, built in phase 2), then one round each at N =
+    16,384: ``(full)``
     against the plain version, the rcnt and sus variants against
     ``(full)`` (0 entries differ but their zeroed outputs); ``python -m
     gossipfs_tpu_torch.verify_claims --only headline frontier_65536 soak
@@ -3852,6 +3855,8 @@ WIDE_SHAPES = ((N_CAPACITY, "aligned_group", "lanes"),
                (N_CAPACITY, "edges", "lanes"), (N_CAPACITY, "edges", "swar"),
                (98_304, "aligned_group", "lanes"))
 WIDE_ROUNDS = 10
+# a column block of the wide blocking: (N, columns, col_offset)
+WIDE_BLOCK = (N_CAPACITY, 8_192, 3 * 8_192)
 
 
 def lane_digest(t):
@@ -3926,6 +3931,45 @@ def onepass_wide_vs_plain(results: dict) -> None:
         raise AssertionError(f"K3 (f) wide blocking vs plain: {bad} entries "
                              "differ")
     results["k3_wide_vs_plain"] = 2 * len(WIDE_MODES) * 4
+
+
+def onepass_wide_block_sus(results: dict) -> None:
+    """The wide blocking's aligned SWAR form under suspicion + Lifeguard
+    over a column block at N = 65,536 (WIDE_BLOCK: [65,536 x 8,192] from
+    column 24,576, whose columns hold part of the diagonal), a form no
+    main path launches at that size, as ``onepass_blocking`` picks it: 2
+    rounds against the plain version, every count of both rounds and the
+    lanes after the second."""
+    import torch
+
+    from gossipfs_tpu_torch.ops import merge
+
+    n, c, off = WIDE_BLOCK
+    blocking = merge.onepass_blocking(n, c, "aligned_group", "swar")
+    hb, asl, flags, vecs, bases = big_round_inputs(n, c, SEED + 5, True)
+    kw = dict(fanout=16, arc_align=8, t_cooldown=12, elementwise="swar",
+              col_offset=off, **WIDE_MODES["suspicion + lh"])
+    h1, a1 = hb.clone(), asl.clone()
+    name = "aligned_group/swar" + ONEPASS
+    before = merge.FORM_LAUNCHES[name]
+    d = 0
+    for _ in range(2):
+        got = merge.resident_round(h1, a1, flags, vecs, bases, onepass=True,
+                                   **kw)
+        want = merge.resident_round_plain(hb, asl, flags, vecs, bases, **kw)
+        d += sum(count_diff(x, y)[0] for x, y in zip(got[2:], want[2:]))
+    d += count_diff(h1, hb)[0] + count_diff(a1, asl)[0]
+    launches = merge.FORM_LAUNCHES[name] - before
+    log(f"  16 x 16 ({blocking}), [{n} x {c}] from column {off} {name}, "
+        f"suspicion + lh: 2 rounds ({launches} launches) vs plain: {d} "
+        "entries differ")
+    del hb, asl, h1, a1
+    torch.cuda.empty_cache()
+    if d or blocking != "16x16" or launches != 2:
+        raise AssertionError(f"K3 (f) wide column block under suspicion + "
+                             f"lh: {d} entries differ, blocking {blocking}, "
+                             f"{launches} launches")
+    results["k3_wide_block_sus"] = d
 
 
 def onepass_wide_large(results: dict) -> None:
@@ -6510,6 +6554,7 @@ N_PAST_WIDE = 131_072    # past the one-pass form's wide blocking
 TOOLS_ROUNDS = 10        # rounds a point or stub row in phase 50 (the
                         # tools' defaults ran by themselves: PERF.md
                         # section 6)
+STUB_WIDE_ROUNDS = 3     # rounds a stub row at N = 65,536 (16 x 16)
 LADDER_ROUNDS = 10      # rounds a measured ladder row (30 by default)
 
 
@@ -6527,22 +6572,30 @@ def cli_rows(main, argv: list) -> tuple[int, list]:
 
 
 def stub_runs() -> list:
-    """Phase 50's two stub_bisect runs at N = 16,384: the default list
-    (plain arcs) and ``--arc-align 8 --suspicion`` (aligned groups, the
-    sus stub), as (argv, the stubs they run with their variant defines)."""
+    """Phase 50's three stub_bisect runs: at N = 16,384 (the 8 x 32
+    blocking) the default list (plain arcs) and ``--arc-align 8
+    --suspicion`` (aligned groups, the sus stub), at N = 65,536 (the 16 x
+    16 blocking) ``--arc-align 8`` (aligned groups, lanes), as (argv, the
+    stubs they run with their build items: the blocking's library and the
+    variant's defines)."""
     from gossipfs_tpu_torch import stub_bisect as sb
     from gossipfs_tpu_torch.ops import merge
 
     out = []
-    for align, sus in ((1, False), (8, True)):
-        argv = ["--n", str(N_MAIN), "--rounds", str(TOOLS_ROUNDS),
-                "--reps", "1"] + (["--arc-align", "8", "--suspicion"]
-                                  if sus else [])
-        form = merge.kernel_form(sb.bisect_fanout(N_MAIN, align), align)
+    for n, rounds, align, sus in ((N_MAIN, TOOLS_ROUNDS, 1, False),
+                                  (N_MAIN, TOOLS_ROUNDS, 8, True),
+                                  (N_CAPACITY, STUB_WIDE_ROUNDS, 8, False)):
+        argv = ["--n", str(n), "--rounds", str(rounds), "--reps", "1"] + (
+            ["--arc-align", "8"] if align == 8 else []) + (
+            ["--suspicion"] if sus else [])
+        kw = sb.round_kwargs(sb.bisect_fanout(n, align), align, "lanes", sus,
+                             False)
+        form = merge.kernel_form(kw["fanout"], align)
+        blocking = sb.stub_blocking(n, kw)
         stubs = [s for s in sb.default_stubs(align, False, sus)
                  if merge.stub_refusal(s, form, sus) is None]
-        out.append((argv, {s: merge.onepass_defines(
-            form, sus, False, "lanes", False, s) for s in stubs}))
+        out.append((argv, {s: sb.stub_variant(kw, s, blocking)
+                           for s in stubs}))
     return out
 
 
@@ -6723,11 +6776,12 @@ def stub_checks(results: dict) -> None:
 
 
 def tools_stubs(results: dict) -> None:
-    """``python -m gossipfs_tpu_torch.stub_bisect`` (its main) at N =
-    16,384, TOOLS_ROUNDS rounds, 1 rep: the default list and ``--arc-align
-    8 --suspicion``; every row one K3 (f) launch a round, the ``(full)``
-    row on the default library, each stub on its variant; then
-    :func:`stub_checks`."""
+    """``python -m gossipfs_tpu_torch.stub_bisect`` (its main), 1 rep: at
+    N = 16,384, TOOLS_ROUNDS rounds, the default list and ``--arc-align 8
+    --suspicion`` (the 8 x 32 library), at N = 65,536, STUB_WIDE_ROUNDS
+    rounds, ``--arc-align 8`` (the 16 x 16 library); every row one K3 (f)
+    launch a round, the ``(full)`` row on the blocking's default library,
+    each stub on its variant; then :func:`stub_checks`."""
     from gossipfs_tpu_torch import stub_bisect as sb
     from gossipfs_tpu_torch.ops import _build, merge
 
@@ -6739,15 +6793,19 @@ def tools_stubs(results: dict) -> None:
                 head["stubs"] != [s or "(full)" for s in variants]:
             raise AssertionError(f"stub_bisect {argv}: {head} {rows}")
         for r in rows:
-            lib = _build.lib_path("rr_onepass", variants[
+            lib = _build.lib_path(*variants[
                 "" if r["stub"] == "(full)" else r["stub"]]).name
             if r["launches_a_round"] != 1.0 or r["library"] != lib:
                 raise AssertionError(f"stub_bisect row: {r} ({lib})")
-        key = head["form"] + (" sus" if head["suspicion"] else "")
-        out[key] = {r["stub"]: r["ms_per_round"] for r in rows}
-        log(f"  stub_bisect {head['form']}{' --suspicion' if head['suspicion'] else ''} "
+        key = (f"{head['n']} {head['blocking']} {head['form']}"
+               + (" sus" if head["suspicion"] else ""))
+        out[key] = {r["stub"]: [r["ms_per_round"], r["timeline_us"]["step2"]]
+                    for r in rows}
+        log(f"  stub_bisect N={head['n']} ({head['blocking']}) "
+            f"{head['form']}{' --suspicion' if head['suspicion'] else ''} "
             f"(fanout {head['fanout']}; not run: {sorted(head['not_run'])}): "
-            + ", ".join(f"{r['stub']} {r['ms_per_round']:.4f}"
+            + ", ".join(f"{r['stub']} {r['ms_per_round']:.4f} (step 2 "
+                        f"{r['timeline_us']['step2']:.2f} us a stripe)"
                         for r in rows)
             + " ms a round, one K3 (f) launch a round each")
     stub_checks(results)
@@ -7174,8 +7232,8 @@ def main() -> int:
     # only the separate-pass kernels (K1, K4, K2, K5, which build in
     # seconds) run first, in the order their builds end, while K3's two
     # libraries and the variants finish
-    variants = sorted({("rr_onepass", d) for _, v in stub_runs()
-                       for d in v.values() if d})
+    variants = sorted({item for _, v in stub_runs() for item in v.values()
+                       if item[1]})
     pool = concurrent.futures.ThreadPoolExecutor(1)
     host = pool.submit(native.load_library)
     _build.start(list(_build.SIGNATURES), verbose=True, nice=5)
@@ -7316,10 +7374,13 @@ def main() -> int:
     phase_k3_onepass(results)
     log(f"[40] K3 (f)'s 16 x 16 blocking forced vs plain (N="
         f"{', '.join(map(str, WIDE_PLAIN_NS))}; aligned, edges; lanes, "
-        "SWAR; crash-only, suspicion + lh; 2 rounds), then at the N only "
+        "SWAR; crash-only, suspicion + lh; 2 rounds), its aligned SWAR "
+        f"form under suspicion + lh over [{WIDE_BLOCK[0]} x {WIDE_BLOCK[1]}]"
+        " vs plain (2 rounds), then at the N only "
         f"it holds vs the two-launch form ({WIDE_ROUNDS} rounds) and plain "
         "(1 round): " + ", ".join(f"{n} {f} {e}" for n, f, e in WIDE_SHAPES))
     onepass_wide_vs_plain(results)
+    onepass_wide_block_sus(results)
     onepass_wide_large(results)
     print(json.dumps({"onepass": onepass_summary(results)}))
     log("[42] K2, K1, K4 and K5 at every timed shape: stripe, ring, "

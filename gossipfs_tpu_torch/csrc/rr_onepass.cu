@@ -112,8 +112,12 @@
 // cluster, returns its error and the wrapper raises.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#if defined(RR_WIDE)
+#include <cuda.h>
+#endif
 
 #include <cstdint>
+#include <type_traits>
 
 #include "rr_onepass.cuh"
 
@@ -156,7 +160,26 @@ struct Params {
   unsigned long long* timeline;  // [stripes, kCtas, kStamps] or null
   int n, nc, col_offset;
   Knobs kn;
+  // the wide blocking's lockstep (lockstep below): each cluster's turn,
+  // [kMaxTurns], or null; the launch's number (the turns' high word)
+  unsigned long long* turns;
+  unsigned seq;
+#if defined(RR_WIDE)
+  // the park's tensor copies (stage_bulk): hb and asl as [n / 128, 16, 8,
+  // nc] tensors of bytes (a CTA's groups, the CTAs, a group's rows, the
+  // columns), boxes of ``box`` groups (``*_box``) and of one (``*_one``)
+  CUtensorMap hb_box, hb_one, asl_box, asl_one;
+  int box;
+#endif
 };
+
+// the wide build's parameters stay in the constant bank, where the tensor
+// copies read their maps
+#if defined(RR_WIDE)
+#define RR_PARAMS const __grid_constant__ Params
+#else
+#define RR_PARAMS const Params
+#endif
 
 // step 1's counts into the CTA's count block
 struct TickSink {
@@ -186,6 +209,11 @@ struct MergeSink {
       if (kLh) held += __shfl_xor_sync(0xffffffffu, held, o);
     }
     if (!valid || (threadIdx.x % kLanes) != 0) return;
+    if (listed) atomicAdd(recv + r, listed);
+    if (kLh && held) atomicAdd(recv + n + r, held);
+  }
+  // a held row's counts over the cluster's stripes (Hold::flush)
+  __device__ void add_row(int r, int listed, int held) {
     if (listed) atomicAdd(recv + r, listed);
     if (kLh && held) atomicAdd(recv + n + r, held);
   }
@@ -236,10 +264,26 @@ __device__ __forceinline__ Seg ld_cluster(uint32_t a) {
 // 16 bytes from global to shared memory without a register (cp.async,
 // bypassing L1); cp.async.wait_all makes them visible to this thread
 __device__ __forceinline__ void copy16(int8_t* dst, const int8_t* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
+  if constexpr (Blk::kWide && kL2Prefetch == 64)
+    asm volatile("cp.async.cg.shared.global.L2::64B [%0], [%1], 16;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src)
+                 : "memory");
+  else if constexpr (Blk::kWide && kL2Prefetch == 128)
+    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src)
+                 : "memory");
+  else if constexpr (Blk::kWide && kL2Prefetch == 256)
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src)
+                 : "memory");
 }
 
 __device__ __forceinline__ void st_cluster(uint32_t a, const Seg& s) {
@@ -248,18 +292,161 @@ __device__ __forceinline__ void st_cluster(uint32_t a, const Seg& s) {
                : "memory");
 }
 
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // globaltimer (ns) into the timeline slot ``k`` of this CTA and stripe
 __device__ __forceinline__ void stamp(unsigned long long* timeline,
                                       int stripe, int cta, int k) {
   if (timeline == nullptr || threadIdx.x != 0) return;
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  timeline[((size_t)stripe * kCtas + cta) * kStamps + k] = t;
+  timeline[((size_t)stripe * kCtas + cta) * kStamps + k] = globaltimer();
 }
+
+// The wide blocking's clusters walk their turns in lockstep.  A turn's
+// clusters walk neighbouring stripes (c + clusters * turn), so a row's
+// 16-byte pieces of one turn are 112 contiguous bytes (7 clusters), whose
+// reads share the sectors L2 brings in and whose partial writes merge
+// there into whole sectors, but only while the clusters keep in step: left
+// alone they drift apart by tens of stripes within a round (each cluster
+// then moves lone half sectors, at ~430 GB/s).  So before each turn, one
+// thread a CTA waits until every cluster has begun it (CTA 0's thread 0
+// announces its cluster's turn; a finished cluster announces ~0u).  The
+// wait is advisory, bounded by kLockstepNs a turn, so that a cluster the
+// card did not hold at once only slows the launch; nothing the round
+// computes depends on it.
+constexpr int kMaxTurns = 64;
+constexpr unsigned long long kLockstepNs = 100000;
+
+__device__ __forceinline__ unsigned long long turn_mark(unsigned seq,
+                                                        unsigned turn) {
+  return (unsigned long long)seq << 32 | turn;
+}
+
+__device__ void lockstep(const Params& p, int me, int clusters, int turn,
+                         bool announce) {
+  volatile unsigned long long* turns = p.turns;
+  const unsigned long long at = turn_mark(p.seq, (unsigned)turn);
+  if (announce) turns[me] = at;
+  const unsigned long long t0 = globaltimer();
+  for (int q = 0; q < clusters; ++q)
+    while (turns[q] < at) {
+      if (globaltimer() - t0 > kLockstepNs) return;
+      __nanosleep(64);
+    }
+}
+
+#if defined(RR_WIDE)
+// The wide blocking's park, staged in bulk (rr_onepass.cuh bulk_staged):
+// thread 0 copies the next stripe's asl (and hb, where the park holds it)
+// into the park with Hopper's tensor copies, a CTA's rows being kBox-group
+// boxes of the [n / 128, 16, 8, nc] view of each lane (its groups are
+// every 16th), each box 16 bytes of 8 x kBox rows.  The CTA's step-2 trips
+// (kThreads rows each) fall in up to kStageParts parts: once every thread
+// has merged a part's rows, its copies go out (the rest of step 2, the
+// cluster barrier and the tail cover them) and complete on the part's
+// barrier in shared memory, which step 1 waits on before it reads a group
+// of that part.  So the stripe's bytes are in flight all at once, not as
+// the threads reach them: with the copies after the whole step 2, a
+// stripe's tail grew from ~5 to ~17 us, a burst at ~1.2 TB/s (PERF.md).
+constexpr int kBox = 64;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* a) {
+  return (uint32_t)__cvta_generic_to_shared(a);
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned phase) {
+  asm volatile(
+      "{\n"
+      " .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+__device__ __forceinline__ void tensor_rows(int8_t* dst, const CUtensorMap* map,
+                                            int col0, int cta, int g0,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(cta),
+      "r"(g0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tensor_store(const CUtensorMap* map,
+                                             int col0, int cta, int g0,
+                                             const int8_t* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(col0), "r"(0), "r"(cta), "r"(g0), "r"(smem_u32(src))
+      : "memory");
+}
+
+// thread 0: stripe ``sp``'s park rows of CTA ``cta`` in its local groups
+// [g0, g1), asl and (``hb_too``) hb, to device memory (bulk_stored), and
+// back once the copies have read them
+__device__ void store_bulk(const Params& p, Park pk, Stripe sp, int cta,
+                           int g0, int g1, bool hb_too) {
+  // the park's writers (the generic proxy) before the copies' reads
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  for (int g = g0; g < g1;) {
+    const bool box = g1 - g >= p.box;
+    const int off = g * kAlign * kC;
+    tensor_store(box ? &p.asl_box : &p.asl_one, sp.col0, cta, g,
+                 pk.asl + off);
+    if (hb_too)
+      tensor_store(box ? &p.hb_box : &p.hb_one, sp.col0, cta, g, pk.hb + off);
+    g += box ? p.box : 1;
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// thread 0: stripe ``sp``'s park rows of CTA ``cta`` in its local groups
+// [g0, g1), asl and (``hb_too``) hb, onto ``bar``
+__device__ void stage_bulk(const Params& p, Park pk, Stripe sp, int cta,
+                           int g0, int g1, bool hb_too,
+                           unsigned long long* bar) {
+  const uint32_t bytes =
+      (uint32_t)(g1 - g0) * kAlign * kC * (hb_too ? 2 : 1);
+  // the readers of the park (the generic proxy) before the copies' writes
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  for (int g = g0; g < g1;) {
+    const bool box = g1 - g >= p.box;
+    const int off = g * kAlign * kC;
+    tensor_rows(pk.asl + off, box ? &p.asl_box : &p.asl_one, sp.col0, cta,
+                g, bar);
+    if (hb_too)
+      tensor_rows(pk.hb + off, box ? &p.hb_box : &p.hb_one, sp.col0, cta, g,
+                  bar);
+    g += box ? p.box : 1;
+  }
+}
+#endif
 
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 __global__ void __launch_bounds__(kThreads, 1)
-rr_onepass_kernel(const Params p) {
+rr_onepass_kernel(RR_PARAMS p) {
   constexpr bool kFull = full_view(kForm);
   constexpr bool kParkHb = park_hb<Blk>(kFull);
   constexpr bool kSplit = Blk::kSplitTable && !kFull;
@@ -287,13 +474,54 @@ rr_onepass_kernel(const Params p) {
       reinterpret_cast<uint32_t*>(pk.diag + diag_rows<Blk>(kFull) * kC);
   auto stage_copy = [](int8_t* dst, const int8_t* src) { copy16(dst, src); };
   int stripe = (int)blockIdx.x / kCtas;
-  stage<Blk>(p.asl, p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), pk,
-             vs, cta, rows, t, kThreads, stage_copy);
+  constexpr bool kBulk = bulk_staged<Blk>();
+#if defined(RR_WIDE)
+  // the bulk staging's barriers, after the count blocks, one a part: the
+  // parts' first groups (part_begin(nparts) = groups), a group's part
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
+      pk.diag + diag_rows<Blk>(kFull) * kC + 2 * kBlockWords * 4);
+  const int trips = (rows + kThreads - 1) / kThreads;
+#if defined(RR_X_NPARTS)
+  const int nparts = trips < RR_X_NPARTS ? trips : RR_X_NPARTS;
+#else
+  const int nparts = trips < kStageParts ? trips : kStageParts;
+#endif
+  auto part_begin = [&](int q) {
+    const int g = q * trips / nparts * (kThreads / kAlign);
+    return g < groups ? g : groups;
+  };
+  auto part_of = [&](int lg) {
+    int q = nparts - 1;
+    while (q > 0 && part_begin(q) > lg) --q;
+    return q;
+  };
+  if constexpr (kBulk) {
+    if (t == 0)
+      for (int q = 0; q < kStageParts; ++q) bar_init(bars + q);
+    __syncthreads();
+    if (t == 0)
+      for (int q = 0; q < nparts; ++q)
+        stage_bulk(p, pk, stripe_at<Blk>(n, nc, col_offset, stripe), cta,
+                   part_begin(q), part_begin(q + 1), kParkHb, bars + q);
+  }
+#endif
+  if constexpr (kBulk)
+    stage_stack<Blk>(p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), vs,
+                     t, kThreads, stage_copy);
+  else
+    stage<Blk>(p.asl, p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), pk,
+               vs, cta, rows, t, kThreads, stage_copy);
   asm volatile("cp.async.commit_group;" ::: "memory");
   for (int i = t; i < kBlockWords; i += kThreads)
     blocks[i] = blank_count<Blk>(i, n);
   if (t < Blk::kWords)
     reinterpret_cast<uint32_t*>(none)[t] = gather_none(kForm);
+  // a step-2 thread's held rows (the wide blocking): their Meta, once
+  using HoldT = std::conditional_t<(Blk::kHeld > 0), Hold<Blk, kForm, kLh>,
+                                   NoHold>;
+  HoldT hold;
+  if constexpr (HoldT::kRows > 0)
+    hold.load(p.flags, p.senders, cta, rows, t, kThreads, p.kn.width);
   // a step-1 thread's first group: its rows' flags, the same every stripe
   GroupFlags fw{};
   if (t / kLanes < groups)
@@ -368,10 +596,15 @@ rr_onepass_kernel(const Params p) {
     });
   };
 
+  const bool in_step = Blk::kWide && p.turns != nullptr &&
+                       clusters <= kMaxTurns;
   for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
     const Stripe sp = stripe_at<Blk>(n, nc, col_offset, stripe);
     uint32_t* cnt = blocks + (it & 1) * kBlockWords;
     stamp(p.timeline, stripe, cta, 0);
+    if constexpr (Blk::kWide)
+      if (in_step && t == 0)
+        lockstep(p, (int)blockIdx.x / kCtas, clusters, it, cta == 0);
     // the staged rows and stack (every thread's copies) in place
     asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
@@ -381,9 +614,22 @@ rr_onepass_kernel(const Params p) {
     if (it > 0)
       finish_stripe(stripe - clusters, blocks + ((it - 1) & 1) * kBlockWords);
     TickSink ts{cnt};
+#if defined(RR_WIDE)
+    // a group's park rows in place: its part's copies landed
+    if constexpr (kBulk)
+      step1<Blk, kSus, kFull, mutes(kForm), kSwar>(
+          p.hb, p.flags, vs, sp, p.kn, pk, cta, groups, t, kThreads, fw, ts,
+          put_group,
+          [&](int lg) { bar_wait(bars + part_of(lg), (unsigned)it & 1u); });
+    else
+      step1<Blk, kSus, kFull, mutes(kForm), kSwar>(
+          p.hb, p.flags, vs, sp, p.kn, pk, cta, groups, t, kThreads, fw, ts,
+          put_group);
+#else
     step1<Blk, kSus, kFull, mutes(kForm), kSwar>(p.hb, p.flags, vs, sp, p.kn,
                                                  pk, cta, groups, t, kThreads,
                                                  fw, ts, put_group);
+#endif
     if (!started) {
       asm volatile("barrier.cluster.wait;" ::: "memory");
       started = true;
@@ -401,13 +647,40 @@ rr_onepass_kernel(const Params p) {
     // step 2 (the row's park segment is this thread's alone)
     const bool more = stripe + clusters < stripes;
     const Stripe next = stripe_at<Blk>(n, nc, col_offset, stripe + clusters);
+#if defined(RR_WIDE)
+    // after a part's last trip (every thread has read its park rows): the
+    // next stripe's copies of that part
+    if constexpr (!kBulk)
+      step2<Blk, kSus, kForm, kSwar>(
+          p.hb, p.asl, p.flags, vs, p.senders, sp, p.kn, pk, cta, rows, t,
+          kThreads, gather, ms, [&](int li, int hh) {
+            if (more)
+              stage_row<Blk>(p.asl, next, pk, cta, li, hh, stage_copy);
+          }, &hold);
+    else
+    step2<Blk, kSus, kForm, kSwar>(
+        p.hb, p.asl, p.flags, vs, p.senders, sp, p.kn, pk, cta, rows, t,
+        kThreads, gather, ms, [](int, int) {}, &hold, [&](int j) {
+          for (int q = 0; q < nparts; ++q)
+            if ((q + 1) * trips / nparts == j + 1) {
+              __syncthreads();
+              if (t == 0 && bulk_stored<Blk>())
+                store_bulk(p, pk, sp, cta, part_begin(q), part_begin(q + 1),
+                           kParkHb);
+              if (t == 0 && more)
+                stage_bulk(p, pk, next, cta, part_begin(q),
+                           part_begin(q + 1), kParkHb, bars + q);
+            }
+        });
+#else
     step2<Blk, kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp,
                                    p.kn, pk, cta, rows, t, kThreads, gather,
                                    ms, [&](int li, int hh) {
                                      if (more)
                                        stage_row<Blk>(p.asl, next, pk, cta,
                                                       li, hh, stage_copy);
-                                   });
+                                   }, &hold);
+#endif
     stamp(p.timeline, stripe, cta, 3);
     cluster.sync();
     // every thread done with the stack: the next one's copies
@@ -415,9 +688,89 @@ rr_onepass_kernel(const Params p) {
     else finish_stripe(stripe, cnt);
     stamp(p.timeline, stripe, cta, 4);
   }
+  if constexpr (Blk::kWide)
+    if (in_step && t == 0 && cta == 0)
+      reinterpret_cast<volatile unsigned long long*>(
+          p.turns)[blockIdx.x / kCtas] = turn_mark(p.seq, ~0u);
+#if defined(RR_WIDE)
+  // the park's last stores complete
+  if (t == 0 && bulk_stored<Blk>())
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+#endif
+  // the held rows' per-receiver counts, once
+  if constexpr (HoldT::kRows > 0) {
+    MergeSink<kSus, kLh> ms{nullptr, p.recv, n};
+    hold.flush(ms, cta, rows, t, kThreads);
+  }
   // no CTA leaves while another reads its count blocks
   cluster.sync();
 }
+
+#if defined(RR_WIDE)
+// cuTensorMapEncodeTiled, from the driver the runtime loaded (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (f == nullptr || q != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(f);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// ``map``: lane ``base`` ([n, nc] bytes) as the [n / 128, 16, 8, nc]
+// tensor of stage_bulk, boxes of ``groups`` groups, 128-byte L2 promotion
+cudaError_t encode_rows(CUtensorMap* map, void* base, int n, int nc,
+                        int groups) {
+  EncodeTiled fn;
+  const cudaError_t e = encode_tiled(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[4] = {(cuuint64_t)nc, (cuuint64_t)kAlign,
+                              (cuuint64_t)kCtas,
+                              (cuuint64_t)(n / (kAlign * kCtas))};
+  const cuuint64_t strides[3] = {(cuuint64_t)nc,
+                                 (cuuint64_t)nc * kAlign,
+                                 (cuuint64_t)nc * kAlign * kCtas};
+  const cuuint32_t box[4] = {(cuuint32_t)kC, (cuuint32_t)kAlign, 1,
+                             (cuuint32_t)groups};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the four maps of a launch's park copies
+cudaError_t encode_park(Params& p) {
+  const int nc = p.nc, groups = p.n / (kAlign * kCtas);
+  p.box = groups < kBox ? groups : kBox;
+  cudaError_t e = encode_rows(&p.hb_box, p.hb, p.n, nc, p.box);
+  if (e == cudaSuccess) e = encode_rows(&p.hb_one, p.hb, p.n, nc, 1);
+  if (e == cudaSuccess) e = encode_rows(&p.asl_box, p.asl, p.n, nc, p.box);
+  if (e == cudaSuccess) e = encode_rows(&p.asl_one, p.asl, p.n, nc, 1);
+  return e;
+}
+#endif
 
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
@@ -475,7 +828,14 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
   }
   // persistent clusters: as many as the card holds, none without a stripe
   cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes) * kCtas);
+#if defined(RR_WIDE)
+  Params q = p;
+  e = encode_park(q);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, kern, q);
+#else
   e = cudaLaunchKernelEx(&cfg, kern, p);
+#endif
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -542,8 +902,8 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
         const void* senders, void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset, int fanout, int form,
         int align, int t_fail, int t_cooldown, int age_clamp, int suspect,
         int lh,
-        int confirm_thr, int confirm_thr_hi, int swar, int* clusters,
-        void* stream) {
+        int confirm_thr, int confirm_thr_hi, int swar, void* turns, int seq,
+        int* clusters, void* stream) {
   const bool group = form == kFormGroup || form == kFormFilterGroup;
   if (n <= 0 || n % (kCtas * kAlign) || nc <= 0 || nc % kC ||
       col_offset < 0 || col_offset > n - nc ||
@@ -571,6 +931,8 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
   p.subj = static_cast<int32_t*>(out_subj);
   p.recv = static_cast<int32_t*>(out_recv);
   p.timeline = static_cast<unsigned long long*>(timeline);
+  p.turns = static_cast<unsigned long long*>(turns);
+  p.seq = (unsigned)seq;
   p.n = n;
   p.nc = nc;
   p.col_offset = col_offset;
@@ -593,7 +955,11 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
 // card grants: one memset of out_recv (the per-receiver counts add up
 // there by global atomics), then one launch.  ``timeline`` null, or uint64
 // [nc / kC, kCtas, kStamps]: each CTA's globaltimer stamps (ns) of its
-// stripe's steps.  Returns the CUDA error code (0 on success).
+// stripe's steps.  ``turns`` (the wide blocking; null: no lockstep) the
+// caller's int64 [64] of the clusters' turns, zero before its first launch
+// and kept between launches on the card, ``seq`` the launch's number,
+// rising from 1 from one launch on ``turns`` to the next.  Returns the
+// CUDA error code (0 on success).
 extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
                           const void* vecs, const void* senders,
                           void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset,
@@ -601,11 +967,11 @@ extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
                           int form, int align, int t_fail, int t_cooldown,
                           int age_clamp, int suspect, int lh,
                           int confirm_thr, int confirm_thr_hi, int swar,
-                          void* stream) {
+                          void* turns, int seq, void* stream) {
   return run(hb, asl, flags, vecs, senders, out_subj, out_recv, timeline, n, nc, col_offset, fanout, form, align, t_fail,
              t_cooldown,
              age_clamp, suspect, lh, confirm_thr, confirm_thr_hi, swar,
-             nullptr, stream);
+             turns, seq, nullptr, stream);
 }
 
 // The instantiation rr_onepass would launch for this shape and form, into
@@ -617,5 +983,5 @@ extern "C" int rr_onepass_clusters(int n, int nc, int col_offset, int fanout,
                                    int swar, int* clusters) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
              nullptr, n, nc, col_offset, fanout, form, align, 1, 1, 63,
-             suspect, lh, 0, 0, swar, clusters, nullptr);
+             suspect, lh, 0, 0, swar, nullptr, 0, clusters, nullptr);
 }

@@ -149,6 +149,15 @@ struct Blocking {
   static constexpr int kFobsAt = kSums * kPairs;
   static constexpr int kBlockWords = kFobsAt + kC;
   static constexpr bool kSplitTable = kWide;
+  // a step-2 thread's receiver rows whose metadata and per-receiver counts
+  // the wide blocking holds in registers across its cluster's stripes
+  // (Hold): every row of the thread to N = 65,536 at 512 threads
+#if defined(RR_X_HELD)
+  static constexpr int kHeld = kWide ? RR_X_HELD : 0;
+#else
+  static constexpr int kHeld = kWide ? 8 : 0;
+#endif
+  static_assert(kHeld == 0 || kLanes == 1, "a held row has one thread");
 };
 using Cluster8x32 = Blocking<3, 32, false>;
 using Cluster16x16 = Blocking<4, 16, true>;
@@ -161,6 +170,40 @@ using Cluster16x16 = Blocking<4, 16, true>;
 template <class B>
 OP_HD constexpr bool park_hb(bool full) {
   return !B::kWide || !full;
+}
+
+// Whether the park's rows are staged for a stripe in bulk (on the card:
+// Hopper's tensor copies, a few a CTA, after step 2 has read the park),
+// asl and, where the park holds it, hb, so that step 1 ticks hb from the
+// park: the wide blocking.  Else (the narrow blocking) asl row by row by
+// cp.async as step 2 frees each row, step 1 reading hb from device memory.
+#if defined(RR_X_BULK)
+constexpr bool kBulkStage = RR_X_BULK != 0;
+#else
+constexpr bool kBulkStage = true;
+#endif
+template <class B>
+OP_HD constexpr bool bulk_staged() {
+  return B::kWide && kBulkStage;
+}
+
+template <class B>
+OP_HD constexpr bool hb_from_park(bool full) {
+  return bulk_staged<B>() && park_hb<B>(full);
+}
+
+// Whether step 2 writes each merged row back into its park row (asl, and
+// hb where the park holds it), whose bulk copies store the stripe's lanes
+// to device memory part by part (bulk_staged), instead of storing it from
+// the thread's registers
+#if defined(RR_X_TMA_STORE)
+constexpr bool kBulkStore = RR_X_TMA_STORE != 0;
+#else
+constexpr bool kBulkStore = false;
+#endif
+template <class B>
+OP_HD constexpr bool bulk_stored() {
+  return bulk_staged<B>() && kBulkStore;
 }
 
 template <class B>
@@ -225,6 +268,14 @@ OP_HD Stripe stripe_at(int n, int nc, int col_offset, int stripe) {
   return {n, nc, stripe * B::kC, col_offset + stripe * B::kC};
 }
 
+// A step hook that does nothing: step 1's ``ready(lg)`` before it reads
+// the park rows of local group lg, step 2's ``trip(j)`` after each thread's
+// j-th row (every thread the same count of trips), the narrow blocking's;
+// the wide one's wait for and issue its park's bulk copies there.
+struct NoHook {
+  OP_HD void operator()(int) const {}
+};
+
 struct Knobs {
   int t_fail, t_cooldown, confirm, confirm_hi, age_clamp;
   int width;        // groups (aligned forms) or rows gathered a receiver
@@ -262,6 +313,41 @@ OP_HD Seg load_seg(const int8_t* p) {
   std::memcpy(s.w, p, sizeof s.w);
   return s;
 #endif
+}
+
+// The L2 prefetch size (bytes) of the wide blocking's lane reads from
+// device memory: a miss brings this many bytes of the row into L2, the
+// neighbouring stripes' 16-byte pieces, which the other clusters walk in
+// the same turn or the next
+#if defined(RR_X_L2)
+constexpr int kL2Prefetch = RR_X_L2;
+#else
+constexpr int kL2Prefetch = 0;
+#endif
+
+// 16 bytes of a lane row at ``p`` in device memory: load_seg, with the
+// wide blocking's L2 prefetch size
+template <class B>
+OP_HD Seg ldg_seg(const int8_t* p) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (B::kWide && kL2Prefetch > 0) {
+    Seg s;
+    if constexpr (kL2Prefetch == 64)
+      asm volatile("ld.global.L2::64B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
+                   : "l"(p));
+    else if constexpr (kL2Prefetch == 128)
+      asm volatile("ld.global.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
+                   : "l"(p));
+    else
+      asm volatile("ld.global.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
+                   : "l"(p));
+    return s;
+  }
+#endif
+  return load_seg(p);
 }
 
 OP_HD void store_seg(int8_t* p, const Seg& s) {
@@ -401,6 +487,40 @@ OP_HD void stage_row(const int8_t* __restrict__ asl, Stripe sp, Park pk,
            4 * kSeg * h);
 }
 
+// Stage every park row of a bulk-staged stripe (bulk_staged) as thread
+// ``t`` of ``nt``: asl, and hb where the park holds it, 16 bytes by
+// ``copy`` (the host's stand-in for the card's tensor copies).
+template <class B, typename Copy16>
+OP_HD void stage_lanes(const int8_t* __restrict__ hb,
+                       const int8_t* __restrict__ asl, Stripe sp, Park pk,
+                       int cta, int rows, bool full, int t, int nt,
+                       Copy16 copy) {
+  for (int li = t / B::kLanes; li < rows; li += nt / B::kLanes) {
+    const int h = t % B::kLanes;
+    stage_row<B>(asl, sp, pk, cta, li, h, copy);
+    if (park_hb<B>(full))
+      copy(pk.hb + li * B::kC + 4 * kSeg * h,
+           hb + (size_t)global_row<B>(cta, li) * sp.nc + sp.col0 +
+               4 * kSeg * h);
+  }
+}
+
+// Store every park row of a bulk-stored stripe (bulk_stored) to device
+// memory as thread ``t`` of ``nt``: asl, and hb where the park holds it
+// (the host's stand-in for the card's tensor copies).
+template <class B, typename Copy16>
+OP_HD void unstage_lanes(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
+                         Stripe sp, Park pk, int cta, int rows, bool full,
+                         int t, int nt, Copy16 copy) {
+  for (int li = t / B::kLanes; li < rows; li += nt / B::kLanes) {
+    const int h = t % B::kLanes;
+    const size_t off = (size_t)global_row<B>(cta, li) * sp.nc + sp.col0 +
+                       4 * kSeg * h;
+    copy(asl + off, pk.asl + li * B::kC + 4 * kSeg * h);
+    if (park_hb<B>(full)) copy(hb + off, pk.hb + li * B::kC + 4 * kSeg * h);
+  }
+}
+
 // Stage the stripe's threshold stack into ``vs`` ([N_VEC, kC]) as thread
 // ``t`` of ``nt``.
 template <class B, typename Copy16>
@@ -460,12 +580,12 @@ OP_COLD SwTickView diagonal_word(uint32_t hb, uint32_t asl, int f, bool mute,
 // forms) takes group g's view max at segment h, for the table (every
 // CTA's copy, or g's row of its own split table).
 template <class B, bool kSus, bool kFull, bool kMute, bool kSwar,
-          typename Sink, typename PutGroup>
+          typename Sink, typename PutGroup, typename Ready = NoHook>
 OP_HD void step1(const int8_t* __restrict__ hb,
                  const int8_t* __restrict__ flags, const int8_t* vs,
                  Stripe sp, Knobs kn, Park pk, int cta, int groups, int t,
                  int nt, const GroupFlags& fw0, Sink& sink,
-                 PutGroup put_group) {
+                 PutGroup put_group, Ready ready = Ready()) {
   constexpr int kC = B::kC;
   constexpr int kLanes = B::kLanes;
   constexpr bool kParkHb = park_hb<B>(kFull);
@@ -473,6 +593,7 @@ OP_HD void step1(const int8_t* __restrict__ hb,
   SwVec vec[kSeg];
   load_vecs<B, false>(vs, h, vec);
   for (int lg = t / kLanes; lg < groups; lg += nt / kLanes) {
+    ready(lg);
     const int row0 = group_row0<B>(cta, lg);
     const GroupFlags fw = lg == t / kLanes ? fw0 : group_flags(flags, row0);
     // 0/1-per-byte counter words (at most 8 per byte); the first firing
@@ -483,7 +604,10 @@ OP_HD void step1(const int8_t* __restrict__ hb,
     SegMax gm(swar::H);
     Seg prev{};
     const int8_t* hrow = hb + (size_t)row0 * sp.nc + sp.col0 + 4 * kSeg * h;
-    Seg ih_next = load_seg(hrow);
+    if constexpr (hb_from_park<B>(kFull))
+      hrow = pk.hb + lg * kAlign * kC + 4 * kSeg * h;
+    Seg ih_next =
+        hb_from_park<B>(kFull) ? load_seg(hrow) : ldg_seg<B>(hrow);
     // the lanes form's tick, unrolled over 8 rows of 16 bytes, outgrows
     // the instruction cache: one row at a time
 #if defined(__CUDACC__)
@@ -497,7 +621,11 @@ OP_HD void step1(const int8_t* __restrict__ hb,
       const bool sends = rr_sends(f, kMute);
       const int at = (lg * kAlign + r) * kC + 4 * kSeg * h;
       const Seg ih = ih_next;
-      if (r + 1 < kAlign) ih_next = load_seg(hrow + (size_t)(r + 1) * sp.nc);
+      if constexpr (hb_from_park<B>(kFull)) {
+        if (r + 1 < kAlign) ih_next = load_seg(hrow + (r + 1) * kC);
+      } else if (r + 1 < kAlign) {
+        ih_next = ldg_seg<B>(hrow + (size_t)(r + 1) * sp.nc);
+      }
       if constexpr (stubbed(kStubVtick)) {
         // the raw hb row into the park (asl is parked raw already) and the
         // view
@@ -607,6 +735,84 @@ OP_HD Meta<kForm> load_meta(const int8_t* __restrict__ flags,
   }
   return m;
 }
+
+// What a step-2 thread holds across stripes: nothing (the narrow
+// blocking), or (Hold) its first kRows receiver rows' metadata and counts.
+struct NoHold {
+  static constexpr int kRows = 0;
+  static constexpr bool kMeta = false;
+};
+
+// A wide-blocking step-2 thread's receiver rows are local rows t, t + nt,
+// ... in every stripe (global_row does not depend on it): for the first
+// kRows of them it holds in registers, across its cluster's stripes, the
+// row's Meta (but explicit edges', whose in-edges it loads a row ahead as
+// before), loaded once a launch, and its per-receiver counts (recv_cnt,
+// the Lifeguard suspect_cnt) over the stripes, added once after the last
+// one (flush) instead of once a stripe.  Row i of the thread is array slot
+// i, picked by an unrolled select so the arrays stay in registers.
+template <class B, int kForm, bool kLh>
+struct Hold {
+  static constexpr int kRows = B::kHeld;
+#if defined(RR_X_HELD_META)
+  static constexpr bool kMeta = kForm != kFormEdges && RR_X_HELD_META;
+#else
+  static constexpr bool kMeta = kForm != kFormEdges;
+#endif
+  uint32_t base[kRows];  // flags << 24 | the arc or group base
+  uint32_t mask[kRows];  // the edge_filter forms' group-match mask
+  uint32_t recv[kRows];
+  uint32_t held[kRows];
+  // the rows' Meta, zero counts: thread t of nt of CTA ``cta``, ``rows``
+  // local rows
+  OP_HD void load(const int8_t* __restrict__ flags,
+                  const int32_t* __restrict__ senders, int cta, int rows,
+                  int t, int nt, int width) {
+    OP_UNROLL
+    for (int i = 0; i < kRows; ++i) {
+      recv[i] = held[i] = base[i] = mask[i] = 0;
+      const int li = t / B::kLanes + i * (nt / B::kLanes);
+      if (!kMeta || li >= rows) continue;
+      const Meta<kForm> m =
+          load_meta<kForm>(flags, senders, global_row<B>(cta, li), width);
+      base[i] = (uint32_t)(uint8_t)m.flags << 24 | (uint32_t)m.s0;
+      if (mutes(kForm)) mask[i] = (uint32_t)m.s1;
+    }
+  }
+  OP_HD static uint32_t pick(const uint32_t (&a)[kRows], int j) {
+    uint32_t v = 0;
+    OP_UNROLL
+    for (int i = 0; i < kRows; ++i) v = i == j ? a[i] : v;
+    return v;
+  }
+  OP_HD Meta<kForm> meta(int j) const {
+    Meta<kForm> m;
+    const uint32_t b = pick(base, j);
+    m.flags = (int)(b >> 24);
+    m.s0 = (int)(b & 0xFFFFFFu);
+    if (mutes(kForm)) m.s1 = (int)pick(mask, j);
+    return m;
+  }
+  OP_HD void count(int j, int listed, int h) {
+    OP_UNROLL
+    for (int i = 0; i < kRows; ++i) {
+      recv[i] += i == j ? (uint32_t)listed : 0u;
+      if (kLh) held[i] += i == j ? (uint32_t)h : 0u;
+    }
+  }
+  // the held counts into the sink (``sink.add_row(row, recv, held)``),
+  // once, after the cluster's last stripe
+  template <typename Sink>
+  OP_HD void flush(Sink& sink, int cta, int rows, int t, int nt) const {
+    if (stubbed(kStubRcnt | kStubEpi)) return;
+    OP_UNROLL
+    for (int i = 0; i < kRows; ++i) {
+      const int li = t / B::kLanes + i * (nt / B::kLanes);
+      if (li < rows && (recv[i] | held[i]))
+        sink.add_row(global_row<B>(cta, li), (int)recv[i], (int)held[i]);
+    }
+  }
+};
 
 // The group behind window group ``k`` of an aligned form's receiver, or -1
 // (past its F/8 groups, or a group its filter_group mask drops).
@@ -754,14 +960,19 @@ OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
 // (gather_groups or gather_rows over the card's addresses); each row's
 // Meta is loaded while the row before it merges; ``restage(li, h)`` runs
 // once the row's park segment is read and its outputs stored (stage_row
-// for the next stripe, or nothing).
+// for the next stripe, or nothing).  ``hold`` (the wide blocking: a
+// Hold) gives the Meta of the thread's first H::kRows rows and takes their
+// per-receiver counts in place of the sink; ``trip(j)`` runs after each
+// of the thread's rows (NoHook).
 template <class B, bool kSus, int kForm, bool kSwar, typename Gather,
-          typename Sink, typename Restage>
+          typename Sink, typename Restage, typename H = NoHold,
+          typename Trip = NoHook>
 OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                  const int8_t* __restrict__ flags, const int8_t* vs,
                  const int32_t* __restrict__ senders, Stripe sp, Knobs kn,
                  Park pk, int cta, int rows, int t, int nt, Gather gather,
-                 Sink& sink, Restage restage) {
+                 Sink& sink, Restage restage, H* hold = nullptr,
+                 Trip trip = Trip()) {
   constexpr int kC = B::kC;
   constexpr int kLanes = B::kLanes;
   constexpr bool kParkHb = park_hb<B>(full_view(kForm));
@@ -777,17 +988,28 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
   OP_UNROLL
   for (int k = 0; k < kSeg; ++k) cw[k] = rw[k] = hw[k] = 0;
   Meta<kForm> next;
-  if (t / kLanes < rows)
+  if constexpr (H::kMeta) {
+    if (t / kLanes < rows) next = hold->meta(0);
+  } else if (t / kLanes < rows) {
     next = load_meta<kForm>(flags, senders, global_row<B>(cta, t / kLanes),
                             kn.width);
-  for (int li0 = 0; li0 < rows; li0 += step) {
+  }
+  for (int li0 = 0, j = 0; li0 < rows; trip(j), li0 += step, ++j) {
     const int li = li0 + t / kLanes;
     const bool valid = li < rows;
     const int row = valid ? global_row<B>(cta, li) : 0;
     const Meta<kForm> m = next;
-    if (li + step < rows)
+    if constexpr (H::kMeta) {
+      if (li + step < rows)
+        next = j + 1 < H::kRows
+                   ? hold->meta(j + 1)
+                   : load_meta<kForm>(flags, senders,
+                                      global_row<B>(cta, li + step),
+                                      kn.width);
+    } else if (li + step < rows) {
       next = load_meta<kForm>(flags, senders,
                               global_row<B>(cta, li + step), kn.width);
+    }
     int listed = 0, held = 0;
     if (valid) {
       const bool recv = (m.flags & 4) != 0;
@@ -798,7 +1020,7 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         const int d = row - (sp.gcol0 + 4 * kSeg * h);
         hb_seg = (unsigned)d < 4u * kSeg
                      ? load_seg(pk.diag + d * kC + 4 * kSeg * h)
-                     : load_seg(hb + (size_t)row * sp.nc + col);
+                     : ldg_seg<B>(hb + (size_t)row * sp.nc + col);
       }
       const Seg best = recv ? (stubbed(kStubGather)
                                    ? splat(gather_none(kForm))
@@ -812,8 +1034,13 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         // so that the gather is not compiled out with the epilogue
         keep_live(best);
         const size_t off = (size_t)row * sp.nc + col;
-        store_seg(hb + off, ph);
-        store_seg(asl + off, pa);
+        if constexpr (bulk_stored<B>()) {
+          // the park holds them, and its copies store them
+          if constexpr (!kParkHb) store_seg(hb + off, ph);
+        } else {
+          store_seg(hb + off, ph);
+          store_seg(asl + off, pa);
+        }
         restage(li, h);
         continue;
       }
@@ -837,13 +1064,29 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         }
       }
       const size_t off = (size_t)row * sp.nc + col;
-      store_seg(hb + off, oh);
-      store_seg(asl + off, oa);
+      if constexpr (bulk_stored<B>()) {
+        // into the park row, whose copies store it
+        if constexpr (kParkHb) store_seg(pk.hb + at, oh);
+        else store_seg(hb + off, oh);
+        store_seg(pk.asl + at, oa);
+      } else {
+        store_seg(hb + off, oh);
+        store_seg(asl + off, oa);
+      }
       restage(li, h);
       listed = byte_sum(ls);
       held = byte_sum(hs);
     }
-    if (!stubbed(kStubRcnt | kStubEpi)) sink.row(row, valid, listed, held);
+    if constexpr (H::kRows > 0) {
+      // a held row's counts stay in the thread (listed and held are 0
+      // past the CTA's rows)
+      if (!stubbed(kStubRcnt | kStubEpi)) {
+        if (j < H::kRows) hold->count(j, listed, held);
+        else sink.row(row, valid, listed, held);
+      }
+    } else if (!stubbed(kStubRcnt | kStubEpi)) {
+      sink.row(row, valid, listed, held);
+    }
   }
   if (!stubbed(kStubEpi)) sink.subj(h, cw, rw, hw);
 }
@@ -873,14 +1116,18 @@ OP_HD int finish(int s, int c, CtaCounts cta_counts) {
 
 // the shared memory of one CTA for ``n`` rows: parked lanes (both, or asl
 // and the diagonal rows), the view, the stripe's threshold stack, the
-// gathers' start row and two count blocks.  Cluster8x32: 12N + 1,280 B
-// in every form; Cluster16x16: 2N + 896 in the full-view forms, 17N/8 +
-// 640 in the aligned ones
+// gathers' start row, two count blocks and (bulk_staged) the barriers of
+// the park's kStageParts bulk-copy parts.  Cluster8x32: 12N + 1,280 B in
+// every form; Cluster16x16: 2N + 928 in the full-view forms, 17N/8 + 672
+// in the aligned ones
+constexpr int kStageParts = 4;
+constexpr int kStageBarBytes = 8 * kStageParts;
+
 template <class B>
 OP_HD constexpr long smem_bytes(long n, bool full) {
   return ((park_hb<B>(full) ? 2 : 1) * (n / B::kCtas) +
           view_rows<B>(n, full) + N_VEC + 1 + diag_rows<B>(full)) * B::kC +
-         2L * B::kBlockWords * 4;
+         2L * B::kBlockWords * 4 + (B::kWide ? kStageBarBytes : 0);
 }
 
 }  // namespace onepass

@@ -14,7 +14,8 @@ build raises.
 A variant build adds ``-D`` defines to that command, ``load(name,
 defines=("RR_STUB=4", ...))``, into a library of its own whose name
 hashes the defines too; the default library (no define) is built from
-the command above.  The one variant source is ``rr_onepass``: K3 (f)
+the command above.  The variant sources are K3 (f)'s two libraries,
+``rr_onepass`` and ``rr_onepass_wide`` (its blockings): the stripe walk
 with stages compiled out (``RR_STUB``, csrc/rr_onepass.cuh) and only the
 one instantiation it is timed in (``RR_ONLY_*``, csrc/rr_onepass.cu),
 so a variant builds in seconds where the default library instantiates
@@ -50,12 +51,12 @@ SIGNATURES = {
         "rr_round": (_I, [_P] * 8 + [_I] * 14 + [_P]),
     },
     "rr_onepass": {
-        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
+        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P, _I, _P]),
         "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
     },
     # the wide blocking: rr_onepass.cu's launcher over Cluster16x16
     "rr_onepass_wide": {
-        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
+        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P, _I, _P]),
         "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
     },
     "fanout_max": {

@@ -152,8 +152,9 @@ ONEPASS_STAMPS = 5
 # 8-row group maxes from a whole table each CTA holds)
 FULL_VIEW_FORMS = ("edges", "arc", "filter_rows")
 # K3 (f)'s stage stubs, the RR_STUB bits of csrc/rr_onepass.cuh (which
-# says what each compiles out): a variant build of rr_onepass.cu
-# (onepass_defines) for python -m gossipfs_tpu_torch.stub_bisect
+# says what each compiles out): a variant build of the library of the
+# blocking a round launches (rr_onepass.cu or rr_onepass_wide.cu;
+# onepass_defines) for python -m gossipfs_tpu_torch.stub_bisect
 STUB_STAGES = {"vtick": 1, "wmax": 2, "gather": 4, "epi": 8, "rcnt": 16,
                "sus": 32}
 # the JAX kernel's stage stubs that have no counterpart here
@@ -534,8 +535,9 @@ def onepass_smem(n: int, form: str, blocking: str = "8x32") -> int:
     full-view forms; the stripe's whole 8-row group-max table in the
     narrow blocking's aligned ones, its own groups' rows of it in the
     wide blocking's), the stripe's 11-row threshold stack, the gathers'
-    start row and its two count blocks.  8x32: 12N + 1,280 B in every
-    form; 16x16: 2N + 896 B in the full-view forms, 17N/8 + 640 in the
+    start row, its two count blocks and (16x16) the four 8-byte barriers
+    its park's bulk copies complete on.  8x32: 12N + 1,280 B in every
+    form; 16x16: 2N + 928 B in the full-view forms, 17N/8 + 672 in the
     aligned ones."""
     ctas, cols, _ = ONEPASS_BLOCKINGS[blocking]
     rows = n // ctas
@@ -548,7 +550,7 @@ def onepass_smem(n: int, form: str, blocking: str = "8x32") -> int:
         view = n // KERNEL_ALIGN // (ctas if wide else 1)
     diag = 0 if park_hb else 16    # the rows a segment's diagonal crosses
     return (((2 if park_hb else 1) * rows + view + N_VEC + 1 + diag) * cols
-            + 2 * (5 * cols // 2 + cols) * 4)
+            + 2 * (5 * cols // 2 + cols) * 4 + (32 if wide else 0))
 
 
 def _blocking_holds(n: int, c: int, form: str, blocking: str) -> bool:
@@ -638,8 +640,9 @@ def onepass_defines(form: str, suspect: bool, lh: bool, elementwise: str,
     """The defines of K3 (f)'s variant build with ``stub``'s stages
     compiled out (``RR_STUB``), of the one instantiation a round of this
     merge ``form``, mode, ``elementwise`` form and shape launches
-    (``RR_ONLY_*``, csrc/rr_onepass.cu); empty for no stub: the default
-    library."""
+    (``RR_ONLY_*``, csrc/rr_onepass.cu, which rr_onepass_wide.cu
+    includes: the defines build either blocking's library); empty for no
+    stub: the default library."""
     why = stub_refusal(stub, form, suspect)
     if why is not None:
         raise ValueError(f"resident_round: no such stage to stub: {why}")
@@ -952,7 +955,8 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     times into (:func:`onepass_timeline_split`).
     ``stub`` (one-pass, CUDA only; stage names joined by commas,
     :data:`STUB_STAGES`) launches K3 (f)'s variant build with those
-    stages compiled out, counted as the round's: a round that computes
+    stages compiled out, of the library of the blocking the round takes,
+    counted as the round's: a round that computes
     what the stubs leave (csrc/rr_onepass.cuh), for timing.  The plain
     version is the oracle and takes no stub."""
     _check_inputs(hb, asl, flags, vecs, senders, fanout, arc_align,
@@ -1014,10 +1018,6 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     if onepass:
         defines = onepass_defines(base_form, suspect, bool(lh),
                                   elementwise, c != n, stub)
-        if defines and blocking != "8x32":
-            raise ValueError("resident_round: the stage stubs are variants "
-                             "of the 8x32 blocking's library; this shape "
-                             f"takes the {blocking} blocking")
         return _launch_onepass(hb, asl, flags, vecs, senders, width,
                                base_form, arc_align, t_fail, t_cooldown,
                                age_clamp, suspect, lh, thr, thr_hi, sw,
@@ -1042,6 +1042,23 @@ def resident_round(hb, asl, flags, vecs, senders, *,
                 age_clamp, int(suspect), lh, thr, thr_hi, int(sw),
                 stream.cuda_stream))
     return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
+
+
+# the wide blocking's lockstep state a card (csrc/rr_onepass.cu
+# lockstep): its clusters' turns, kept on the card from one launch to the
+# next, and the number of the last launch
+_ONEPASS_TURNS: dict = {}
+
+
+def _onepass_turns(dev: torch.device) -> tuple[int, int]:
+    """(address, number) of the next wide launch's lockstep turns on
+    ``dev``: an int64 [64] zeroed once a card, numbers rising from 1."""
+    state = _ONEPASS_TURNS.get(dev)
+    if state is None:
+        state = _ONEPASS_TURNS[dev] = [
+            torch.zeros(64, dtype=torch.int64, device=dev), 0]
+    state[1] = state[1] % 0x7FFFFFFF + 1
+    return state[0].data_ptr(), state[1]
 
 
 def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
@@ -1071,6 +1088,8 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                            device=dev)
         recv = torch.empty((1 + lh, n), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev)
+        turns, seq = (_onepass_turns(dev) if blocking == "16x16"
+                      else (None, 0))
         with counted_launch("resident_round", stream, form + "/onepass"):
             check_rc("rr_onepass", lib.rr_onepass(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
@@ -1078,7 +1097,7 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                 recv.data_ptr(), None if timeline is None else timeline.data_ptr(),
                 n, c, col_offset, width, FORMS.index(base_form), arc_align,
                 t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
-                int(sw), stream.cuda_stream))
+                int(sw), turns, seq, stream.cuda_stream))
     return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
 
 

@@ -12,6 +12,11 @@ gathers the others' rows).  Here, at N = 1,024 and 2,048:
 * every merge form, lanes and SWAR, crash-only and suspicion + Lifeguard,
   square and over a column block: bit-equal to ``resident_round_plain``
   and to the narrow blocking's replay;
+* clusters walking many stripes (7 or 2 clusters over 64 stripes) and
+  few threads a CTA, so
+  that a step-2 thread's rows past the 8 it holds across stripes (their
+  metadata and per-receiver counts, added once after the cluster's last
+  stripe) are loaded and counted a stripe at a time;
 * at N = 1,024 every form and mode bit-equal to the JAX package's kernel
   run as its tests run it (``resident_round_blocked(..., interpret=True,
   resident=True)``, ``merge_block_c`` 512), on lanes where its resident
@@ -184,16 +189,43 @@ def test_wide_blocking_matches_jax_kernel_interpret(lib, form, elementwise,
     assert want[3].sum() > 0
 
 
+@pytest.mark.parametrize("threads", [4, 8])
+@pytest.mark.parametrize("mode", WIDE_MODES)
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("form", merge.FORMS)
+def test_wide_walk_holds_rows_across_stripes(lib, form, elementwise, mode,
+                                             threads):
+    """2 clusters over N = 1,024's 64 stripes (32 each: c, c + 2, ...)
+    and 4 or 8 threads a CTA, so that each step-2
+    thread merges 16 or 8 rows a stripe: the first 8 (Cluster16x16::kHeld)
+    with their metadata and per-receiver counts held across the cluster's
+    32 stripes and added once after them, any past those loaded and
+    counted a stripe at a time.  Bit-equal to the plain version, to the
+    narrow blocking's replay and (4 threads) to the JAX kernel in
+    interpret mode."""
+    n = 1_024
+    lanes, sa, g = jax_inputs(n, form, 60 + merge.FORMS.index(form), mode)
+    got = run_host(lib, n, n, 0, form, mode, elementwise, lanes, fanout=16,
+                   clusters=2, threads=threads, wide=True)
+    assert_equal(got, plain_outputs(mode, elementwise, 0, lanes))
+    assert_equal(got, run_host(lib, n, n, 0, form, mode, elementwise, lanes,
+                               fanout=16))
+    if threads == 4:
+        assert_equal(got, jax_round(n, mode, elementwise, lanes, sa, g))
+    assert got[5].sum() > 0
+
+
 @pytest.mark.parametrize("form", merge.FORMS)
 @pytest.mark.parametrize("n", [19_328, 65_536, 69_632, 104_448, 109_056,
                                115_712, 115_840])
 def test_wide_smem_bytes_agree_with_onepass_smem(lib, n, form):
     """The header's bytes a CTA equal ops/merge's at the wide blocking's
-    edges: 2N + 896 B in the full-view forms (to N = 115,712), 17N/8 +
-    640 B in the aligned ones (to 109,056)."""
+    edges: 2N + 928 B in the full-view forms (to N = 115,712), 17N/8 +
+    672 B in the aligned ones (to 109,056), the park staging's four
+    barriers included."""
     full = form in merge.FULL_VIEW_FORMS
     got = merge.onepass_smem(n, form, "16x16")
     assert lib.host_smem_bytes(n, int(full), 1) == got
-    assert got == (2 * n + 896 if full else 17 * n // 8 + 640)
+    assert got == (2 * n + 928 if full else 17 * n // 8 + 672)
     assert (got <= merge.ONEPASS_SMEM) == (n <= (115_712 if full
                                                  else 109_056))
