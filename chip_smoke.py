@@ -238,7 +238,10 @@ Phases (any failure exits non-zero before the last line is printed):
     (``csrc/rr_onepass_wide.cu``):
     forced at N = 16,384 and 24,576, aligned and edges, lanes and SWAR,
     crash-only and suspicion + Lifeguard, 2 rounds against the plain
-    version; at N = 65,536 (aligned, edges; lanes, SWAR) and 98,304
+    version; its aligned SWAR form under suspicion + Lifeguard over the
+    column block ``WIDE_BLOCK`` ([65,536 x 8,192] from column 24,576), 2
+    rounds against the plain version; at N = 65,536 (aligned, edges;
+    lanes, SWAR) and 98,304
     (aligned) ``WIDE_ROUNDS`` rounds against the two-launch form (by the
     lanes' on-card digest and every count) and 1 round against the plain
     version, with the ms a launch of both forms in turns, the byte bound,
@@ -7226,8 +7229,8 @@ def main() -> int:
     from gossipfs_tpu_torch import native
 
     # every nvcc build starts now, at a lower CPU priority than this
-    # process (phase 50's stub_bisect variants of rr_onepass at the
-    # lowest), and nothing waits for them here: a kernel's first launch
+    # process (phase 50's stub_bisect variants of rr_onepass and
+    # rr_onepass_wide at the lowest), and nothing waits for them here: a kernel's first launch
     # waits for its own build (ops/_build.load).  The phases that need
     # only the separate-pass kernels (K1, K4, K2, K5, which build in
     # seconds) run first, in the order their builds end, while K3's two
@@ -7239,7 +7242,8 @@ def main() -> int:
     _build.start(list(_build.SIGNATURES), verbose=True, nice=5)
     _build.start(variants, verbose=True, nice=19)
     log(f"[2] building {sorted(_build.SIGNATURES)}, {len(variants)} stage "
-        "variants of rr_onepass and the native engine beside phases 18, 8, "
+        "variants of rr_onepass and rr_onepass_wide and the native engine "
+        "beside phases 18, 8, "
         "11, 14, 7, 9, 10, 12 and 36 (the separate-pass kernels) and 3, "
         "13, 35 and 41 (K3's two-launch form); phase 6 (K3 (f)'s wide "
         "library) after them")
@@ -7291,7 +7295,7 @@ def main() -> int:
     start_sass_dump(str(paths["rr_onepass"]))
     start_sass_dump(str(paths["rr_onepass_wide"]))
     log(f"[2] built {sorted(_build.SIGNATURES)}, {len(variants)} stage "
-        f"variants of rr_onepass and the native engine "
+        f"variants of rr_onepass and rr_onepass_wide and the native engine "
         f"({native._LIB_PATH.name}) {time.perf_counter() - t0:.2f} s after "
         f"they started (waited {time.perf_counter() - t1:.2f} s here)")
     for kernel, text in _build.build_logs.items():

@@ -48,6 +48,21 @@
 //     69,632 (explicit edges) and 104,448 (arcs with arc_align > 1) at
 //     merge_block_c = 512, and N = 65,536 only at that block width
 //     (gossipfs_tpu/ops/merge_pallas.py rr_resident_supported, :953).
+//     Priced by its stage variants (stub_bisect --n 65536), the wide walk
+//     spent 40-42 ms of a 45-85 ms round on its skeleton (the lanes'
+//     16-byte pieces, ~550 GB/s), and the full-view forms ~30 ms more on
+//     their gathers (16 remote 16-byte rows a receiver); the epilogue, the
+//     aligned gathers and the per-receiver atomics little.  So it keeps
+//     its clusters in lockstep in the aligned forms (lockstep: a turn's 7
+//     clusters walk 7 neighbouring stripes, 112 contiguous bytes of every
+//     row, which L2 merges into whole sectors only while they keep in
+//     step; left alone they drift 20-120 stripes apart), asks L2 for 128
+//     bytes of a row on each lane read from device memory (ldg_seg,
+//     copy16), and holds each step-2 thread's receiver rows' metadata and
+//     counts across its stripes (rr_onepass.cuh Hold).  The sector-pair
+//     stripe order, hb staged beside asl, and the park staged (and
+//     stored) by tensor copies in one part or four were each timed and
+//     left out: none moved the round (PERF.md).
 // The grid is the clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters, at most one a stripe), each walking
 // stripes c, c + clusters, ... (persistent: one launch's clusters never
@@ -86,7 +101,9 @@
 //           on the barrier's release); per-receiver counts (recv_cnt, the
 //           Lifeguard suspect_cnt) are partial over the stripe's columns:
 //           one global atomic per row and stripe into counts the host
-//           zeroes before the launch (one memset); per-subject counts
+//           zeroes before the launch (one memset), or (the wide blocking)
+//           summed in the thread's registers over its cluster's stripes
+//           and added once after the last; per-subject counts
 //           reduce over the warp, then one shared atomic per column pair;
 //   cluster.sync(); the next stripe's stack staged.  Per-subject counts
 //           are then complete inside the cluster (every row of the stripe
@@ -112,9 +129,6 @@
 // cluster, returns its error and the wrapper raises.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#if defined(RR_WIDE)
-#include <cuda.h>
-#endif
 
 #include <cstdint>
 #include <type_traits>
@@ -164,22 +178,7 @@ struct Params {
   // [kMaxTurns], or null; the launch's number (the turns' high word)
   unsigned long long* turns;
   unsigned seq;
-#if defined(RR_WIDE)
-  // the park's tensor copies (stage_bulk): hb and asl as [n / 128, 16, 8,
-  // nc] tensors of bytes (a CTA's groups, the CTAs, a group's rows, the
-  // columns), boxes of ``box`` groups (``*_box``) and of one (``*_one``)
-  CUtensorMap hb_box, hb_one, asl_box, asl_one;
-  int box;
-#endif
 };
-
-// the wide build's parameters stay in the constant bank, where the tensor
-// copies read their maps
-#if defined(RR_WIDE)
-#define RR_PARAMS const __grid_constant__ Params
-#else
-#define RR_PARAMS const Params
-#endif
 
 // step 1's counts into the CTA's count block
 struct TickSink {
@@ -264,18 +263,9 @@ __device__ __forceinline__ Seg ld_cluster(uint32_t a) {
 // 16 bytes from global to shared memory without a register (cp.async,
 // bypassing L1); cp.async.wait_all makes them visible to this thread
 __device__ __forceinline__ void copy16(int8_t* dst, const int8_t* src) {
-  if constexpr (Blk::kWide && kL2Prefetch == 64)
-    asm volatile("cp.async.cg.shared.global.L2::64B [%0], [%1], 16;" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(dst)),
-                 "l"(src)
-                 : "memory");
-  else if constexpr (Blk::kWide && kL2Prefetch == 128)
+  if constexpr (Blk::kWide)
+    // as ldg_seg: 128 bytes of the row into L2 on a miss
     asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;" ::"r"(
-                     (uint32_t)__cvta_generic_to_shared(dst)),
-                 "l"(src)
-                 : "memory");
-  else if constexpr (Blk::kWide && kL2Prefetch == 256)
-    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;" ::"r"(
                      (uint32_t)__cvta_generic_to_shared(dst)),
                  "l"(src)
                  : "memory");
@@ -305,7 +295,9 @@ __device__ __forceinline__ void stamp(unsigned long long* timeline,
   timeline[((size_t)stripe * kCtas + cta) * kStamps + k] = globaltimer();
 }
 
-// The wide blocking's clusters walk their turns in lockstep.  A turn's
+// The wide blocking's clusters walk their turns in lockstep (the aligned
+// forms; the full-view forms, their step 2 long with gathers, keep in step
+// by themselves, and the wait would only add to them).  A turn's
 // clusters walk neighbouring stripes (c + clusters * turn), so a row's
 // 16-byte pieces of one turn are 112 contiguous bytes (7 clusters), whose
 // reads share the sectors L2 brings in and whose partial writes merge
@@ -338,115 +330,9 @@ __device__ void lockstep(const Params& p, int me, int clusters, int turn,
     }
 }
 
-#if defined(RR_WIDE)
-// The wide blocking's park, staged in bulk (rr_onepass.cuh bulk_staged):
-// thread 0 copies the next stripe's asl (and hb, where the park holds it)
-// into the park with Hopper's tensor copies, a CTA's rows being kBox-group
-// boxes of the [n / 128, 16, 8, nc] view of each lane (its groups are
-// every 16th), each box 16 bytes of 8 x kBox rows.  The CTA's step-2 trips
-// (kThreads rows each) fall in up to kStageParts parts: once every thread
-// has merged a part's rows, its copies go out (the rest of step 2, the
-// cluster barrier and the tail cover them) and complete on the part's
-// barrier in shared memory, which step 1 waits on before it reads a group
-// of that part.  So the stripe's bytes are in flight all at once, not as
-// the threads reach them: with the copies after the whole step 2, a
-// stripe's tail grew from ~5 to ~17 us, a burst at ~1.2 TB/s (PERF.md).
-constexpr int kBox = 64;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* a) {
-  return (uint32_t)__cvta_generic_to_shared(a);
-}
-
-__device__ __forceinline__ void bar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_wait(unsigned long long* bar,
-                                         unsigned phase) {
-  asm volatile(
-      "{\n"
-      " .reg .pred done;\n"
-      "WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(phase)
-      : "memory");
-}
-
-__device__ __forceinline__ void tensor_rows(int8_t* dst, const CUtensorMap* map,
-                                            int col0, int cta, int g0,
-                                            unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(cta),
-      "r"(g0), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tensor_store(const CUtensorMap* map,
-                                             int col0, int cta, int g0,
-                                             const int8_t* src) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2, %3, %4}], [%5];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(col0), "r"(0), "r"(cta), "r"(g0), "r"(smem_u32(src))
-      : "memory");
-}
-
-// thread 0: stripe ``sp``'s park rows of CTA ``cta`` in its local groups
-// [g0, g1), asl and (``hb_too``) hb, to device memory (bulk_stored), and
-// back once the copies have read them
-__device__ void store_bulk(const Params& p, Park pk, Stripe sp, int cta,
-                           int g0, int g1, bool hb_too) {
-  // the park's writers (the generic proxy) before the copies' reads
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  for (int g = g0; g < g1;) {
-    const bool box = g1 - g >= p.box;
-    const int off = g * kAlign * kC;
-    tensor_store(box ? &p.asl_box : &p.asl_one, sp.col0, cta, g,
-                 pk.asl + off);
-    if (hb_too)
-      tensor_store(box ? &p.hb_box : &p.hb_one, sp.col0, cta, g, pk.hb + off);
-    g += box ? p.box : 1;
-  }
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// thread 0: stripe ``sp``'s park rows of CTA ``cta`` in its local groups
-// [g0, g1), asl and (``hb_too``) hb, onto ``bar``
-__device__ void stage_bulk(const Params& p, Park pk, Stripe sp, int cta,
-                           int g0, int g1, bool hb_too,
-                           unsigned long long* bar) {
-  const uint32_t bytes =
-      (uint32_t)(g1 - g0) * kAlign * kC * (hb_too ? 2 : 1);
-  // the readers of the park (the generic proxy) before the copies' writes
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  for (int g = g0; g < g1;) {
-    const bool box = g1 - g >= p.box;
-    const int off = g * kAlign * kC;
-    tensor_rows(pk.asl + off, box ? &p.asl_box : &p.asl_one, sp.col0, cta,
-                g, bar);
-    if (hb_too)
-      tensor_rows(pk.hb + off, box ? &p.hb_box : &p.hb_one, sp.col0, cta, g,
-                  bar);
-    g += box ? p.box : 1;
-  }
-}
-#endif
-
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 __global__ void __launch_bounds__(kThreads, 1)
-rr_onepass_kernel(RR_PARAMS p) {
+rr_onepass_kernel(const Params p) {
   constexpr bool kFull = full_view(kForm);
   constexpr bool kParkHb = park_hb<Blk>(kFull);
   constexpr bool kSplit = Blk::kSplitTable && !kFull;
@@ -474,43 +360,8 @@ rr_onepass_kernel(RR_PARAMS p) {
       reinterpret_cast<uint32_t*>(pk.diag + diag_rows<Blk>(kFull) * kC);
   auto stage_copy = [](int8_t* dst, const int8_t* src) { copy16(dst, src); };
   int stripe = (int)blockIdx.x / kCtas;
-  constexpr bool kBulk = bulk_staged<Blk>();
-#if defined(RR_WIDE)
-  // the bulk staging's barriers, after the count blocks, one a part: the
-  // parts' first groups (part_begin(nparts) = groups), a group's part
-  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
-      pk.diag + diag_rows<Blk>(kFull) * kC + 2 * kBlockWords * 4);
-  const int trips = (rows + kThreads - 1) / kThreads;
-#if defined(RR_X_NPARTS)
-  const int nparts = trips < RR_X_NPARTS ? trips : RR_X_NPARTS;
-#else
-  const int nparts = trips < kStageParts ? trips : kStageParts;
-#endif
-  auto part_begin = [&](int q) {
-    const int g = q * trips / nparts * (kThreads / kAlign);
-    return g < groups ? g : groups;
-  };
-  auto part_of = [&](int lg) {
-    int q = nparts - 1;
-    while (q > 0 && part_begin(q) > lg) --q;
-    return q;
-  };
-  if constexpr (kBulk) {
-    if (t == 0)
-      for (int q = 0; q < kStageParts; ++q) bar_init(bars + q);
-    __syncthreads();
-    if (t == 0)
-      for (int q = 0; q < nparts; ++q)
-        stage_bulk(p, pk, stripe_at<Blk>(n, nc, col_offset, stripe), cta,
-                   part_begin(q), part_begin(q + 1), kParkHb, bars + q);
-  }
-#endif
-  if constexpr (kBulk)
-    stage_stack<Blk>(p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), vs,
-                     t, kThreads, stage_copy);
-  else
-    stage<Blk>(p.asl, p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), pk,
-               vs, cta, rows, t, kThreads, stage_copy);
+  stage<Blk>(p.asl, p.vecs, stripe_at<Blk>(n, nc, col_offset, stripe), pk,
+             vs, cta, rows, t, kThreads, stage_copy);
   asm volatile("cp.async.commit_group;" ::: "memory");
   for (int i = t; i < kBlockWords; i += kThreads)
     blocks[i] = blank_count<Blk>(i, n);
@@ -596,7 +447,7 @@ rr_onepass_kernel(RR_PARAMS p) {
     });
   };
 
-  const bool in_step = Blk::kWide && p.turns != nullptr &&
+  const bool in_step = Blk::kWide && !kFull && p.turns != nullptr &&
                        clusters <= kMaxTurns;
   for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
     const Stripe sp = stripe_at<Blk>(n, nc, col_offset, stripe);
@@ -614,22 +465,9 @@ rr_onepass_kernel(RR_PARAMS p) {
     if (it > 0)
       finish_stripe(stripe - clusters, blocks + ((it - 1) & 1) * kBlockWords);
     TickSink ts{cnt};
-#if defined(RR_WIDE)
-    // a group's park rows in place: its part's copies landed
-    if constexpr (kBulk)
-      step1<Blk, kSus, kFull, mutes(kForm), kSwar>(
-          p.hb, p.flags, vs, sp, p.kn, pk, cta, groups, t, kThreads, fw, ts,
-          put_group,
-          [&](int lg) { bar_wait(bars + part_of(lg), (unsigned)it & 1u); });
-    else
-      step1<Blk, kSus, kFull, mutes(kForm), kSwar>(
-          p.hb, p.flags, vs, sp, p.kn, pk, cta, groups, t, kThreads, fw, ts,
-          put_group);
-#else
     step1<Blk, kSus, kFull, mutes(kForm), kSwar>(p.hb, p.flags, vs, sp, p.kn,
                                                  pk, cta, groups, t, kThreads,
                                                  fw, ts, put_group);
-#endif
     if (!started) {
       asm volatile("barrier.cluster.wait;" ::: "memory");
       started = true;
@@ -647,32 +485,6 @@ rr_onepass_kernel(RR_PARAMS p) {
     // step 2 (the row's park segment is this thread's alone)
     const bool more = stripe + clusters < stripes;
     const Stripe next = stripe_at<Blk>(n, nc, col_offset, stripe + clusters);
-#if defined(RR_WIDE)
-    // after a part's last trip (every thread has read its park rows): the
-    // next stripe's copies of that part
-    if constexpr (!kBulk)
-      step2<Blk, kSus, kForm, kSwar>(
-          p.hb, p.asl, p.flags, vs, p.senders, sp, p.kn, pk, cta, rows, t,
-          kThreads, gather, ms, [&](int li, int hh) {
-            if (more)
-              stage_row<Blk>(p.asl, next, pk, cta, li, hh, stage_copy);
-          }, &hold);
-    else
-    step2<Blk, kSus, kForm, kSwar>(
-        p.hb, p.asl, p.flags, vs, p.senders, sp, p.kn, pk, cta, rows, t,
-        kThreads, gather, ms, [](int, int) {}, &hold, [&](int j) {
-          for (int q = 0; q < nparts; ++q)
-            if ((q + 1) * trips / nparts == j + 1) {
-              __syncthreads();
-              if (t == 0 && bulk_stored<Blk>())
-                store_bulk(p, pk, sp, cta, part_begin(q), part_begin(q + 1),
-                           kParkHb);
-              if (t == 0 && more)
-                stage_bulk(p, pk, next, cta, part_begin(q),
-                           part_begin(q + 1), kParkHb, bars + q);
-            }
-        });
-#else
     step2<Blk, kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp,
                                    p.kn, pk, cta, rows, t, kThreads, gather,
                                    ms, [&](int li, int hh) {
@@ -680,7 +492,6 @@ rr_onepass_kernel(RR_PARAMS p) {
                                        stage_row<Blk>(p.asl, next, pk, cta,
                                                       li, hh, stage_copy);
                                    }, &hold);
-#endif
     stamp(p.timeline, stripe, cta, 3);
     cluster.sync();
     // every thread done with the stack: the next one's copies
@@ -692,11 +503,6 @@ rr_onepass_kernel(RR_PARAMS p) {
     if (in_step && t == 0 && cta == 0)
       reinterpret_cast<volatile unsigned long long*>(
           p.turns)[blockIdx.x / kCtas] = turn_mark(p.seq, ~0u);
-#if defined(RR_WIDE)
-  // the park's last stores complete
-  if (t == 0 && bulk_stored<Blk>())
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-#endif
   // the held rows' per-receiver counts, once
   if constexpr (HoldT::kRows > 0) {
     MergeSink<kSus, kLh> ms{nullptr, p.recv, n};
@@ -705,72 +511,6 @@ rr_onepass_kernel(RR_PARAMS p) {
   // no CTA leaves while another reads its count blocks
   cluster.sync();
 }
-
-#if defined(RR_WIDE)
-// cuTensorMapEncodeTiled, from the driver the runtime loaded (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (found == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess) return e;
-    if (f == nullptr || q != cudaDriverEntryPointSuccess)
-      return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(f);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
-// ``map``: lane ``base`` ([n, nc] bytes) as the [n / 128, 16, 8, nc]
-// tensor of stage_bulk, boxes of ``groups`` groups, 128-byte L2 promotion
-cudaError_t encode_rows(CUtensorMap* map, void* base, int n, int nc,
-                        int groups) {
-  EncodeTiled fn;
-  const cudaError_t e = encode_tiled(&fn);
-  if (e != cudaSuccess) return e;
-  const cuuint64_t dims[4] = {(cuuint64_t)nc, (cuuint64_t)kAlign,
-                              (cuuint64_t)kCtas,
-                              (cuuint64_t)(n / (kAlign * kCtas))};
-  const cuuint64_t strides[3] = {(cuuint64_t)nc,
-                                 (cuuint64_t)nc * kAlign,
-                                 (cuuint64_t)nc * kAlign * kCtas};
-  const cuuint32_t box[4] = {(cuuint32_t)kC, (cuuint32_t)kAlign, 1,
-                             (cuuint32_t)groups};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// the four maps of a launch's park copies
-cudaError_t encode_park(Params& p) {
-  const int nc = p.nc, groups = p.n / (kAlign * kCtas);
-  p.box = groups < kBox ? groups : kBox;
-  cudaError_t e = encode_rows(&p.hb_box, p.hb, p.n, nc, p.box);
-  if (e == cudaSuccess) e = encode_rows(&p.hb_one, p.hb, p.n, nc, 1);
-  if (e == cudaSuccess) e = encode_rows(&p.asl_box, p.asl, p.n, nc, p.box);
-  if (e == cudaSuccess) e = encode_rows(&p.asl_one, p.asl, p.n, nc, 1);
-  return e;
-}
-#endif
 
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
@@ -828,14 +568,7 @@ cudaError_t launch(const Params& p, int* clusters_out, cudaStream_t s) {
   }
   // persistent clusters: as many as the card holds, none without a stripe
   cfg.gridDim = dim3((held[card] < stripes ? held[card] : stripes) * kCtas);
-#if defined(RR_WIDE)
-  Params q = p;
-  e = encode_park(q);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, kern, q);
-#else
   e = cudaLaunchKernelEx(&cfg, kern, p);
-#endif
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

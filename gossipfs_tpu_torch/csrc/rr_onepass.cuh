@@ -39,7 +39,10 @@
 //          device memory: the tick changes hb only on the diagonal), hb and asl
 //          written once, then the row's asl staged for the cluster's next
 //          stripe; per-subject counts accumulate per thread and go to the
-//          Sink once, per-receiver counts go to the Sink once a row.
+//          Sink once, per-receiver counts go to the Sink once a row (the
+//          wide blocking: a Hold keeps a thread's first rows' metadata,
+//          loaded once a launch, and their counts over the cluster's
+//          stripes, added once after its last).
 //   finish per column, the cluster's per-CTA counts summed (the first
 //          observer: their min) into the stripe's outputs.
 //
@@ -152,11 +155,7 @@ struct Blocking {
   // a step-2 thread's receiver rows whose metadata and per-receiver counts
   // the wide blocking holds in registers across its cluster's stripes
   // (Hold): every row of the thread to N = 65,536 at 512 threads
-#if defined(RR_X_HELD)
-  static constexpr int kHeld = kWide ? RR_X_HELD : 0;
-#else
   static constexpr int kHeld = kWide ? 8 : 0;
-#endif
   static_assert(kHeld == 0 || kLanes == 1, "a held row has one thread");
 };
 using Cluster8x32 = Blocking<3, 32, false>;
@@ -170,40 +169,6 @@ using Cluster16x16 = Blocking<4, 16, true>;
 template <class B>
 OP_HD constexpr bool park_hb(bool full) {
   return !B::kWide || !full;
-}
-
-// Whether the park's rows are staged for a stripe in bulk (on the card:
-// Hopper's tensor copies, a few a CTA, after step 2 has read the park),
-// asl and, where the park holds it, hb, so that step 1 ticks hb from the
-// park: the wide blocking.  Else (the narrow blocking) asl row by row by
-// cp.async as step 2 frees each row, step 1 reading hb from device memory.
-#if defined(RR_X_BULK)
-constexpr bool kBulkStage = RR_X_BULK != 0;
-#else
-constexpr bool kBulkStage = true;
-#endif
-template <class B>
-OP_HD constexpr bool bulk_staged() {
-  return B::kWide && kBulkStage;
-}
-
-template <class B>
-OP_HD constexpr bool hb_from_park(bool full) {
-  return bulk_staged<B>() && park_hb<B>(full);
-}
-
-// Whether step 2 writes each merged row back into its park row (asl, and
-// hb where the park holds it), whose bulk copies store the stripe's lanes
-// to device memory part by part (bulk_staged), instead of storing it from
-// the thread's registers
-#if defined(RR_X_TMA_STORE)
-constexpr bool kBulkStore = RR_X_TMA_STORE != 0;
-#else
-constexpr bool kBulkStore = false;
-#endif
-template <class B>
-OP_HD constexpr bool bulk_stored() {
-  return bulk_staged<B>() && kBulkStore;
 }
 
 template <class B>
@@ -268,14 +233,6 @@ OP_HD Stripe stripe_at(int n, int nc, int col_offset, int stripe) {
   return {n, nc, stripe * B::kC, col_offset + stripe * B::kC};
 }
 
-// A step hook that does nothing: step 1's ``ready(lg)`` before it reads
-// the park rows of local group lg, step 2's ``trip(j)`` after each thread's
-// j-th row (every thread the same count of trips), the narrow blocking's;
-// the wide one's wait for and issue its park's bulk copies there.
-struct NoHook {
-  OP_HD void operator()(int) const {}
-};
-
 struct Knobs {
   int t_fail, t_cooldown, confirm, confirm_hi, age_clamp;
   int width;        // groups (aligned forms) or rows gathered a receiver
@@ -315,35 +272,17 @@ OP_HD Seg load_seg(const int8_t* p) {
 #endif
 }
 
-// The L2 prefetch size (bytes) of the wide blocking's lane reads from
-// device memory: a miss brings this many bytes of the row into L2, the
-// neighbouring stripes' 16-byte pieces, which the other clusters walk in
-// the same turn or the next
-#if defined(RR_X_L2)
-constexpr int kL2Prefetch = RR_X_L2;
-#else
-constexpr int kL2Prefetch = 0;
-#endif
-
-// 16 bytes of a lane row at ``p`` in device memory: load_seg, with the
-// wide blocking's L2 prefetch size
+// 16 bytes of a lane row at ``p`` in device memory: load_seg, but that the
+// wide blocking asks L2 for 128 bytes of the row on a miss, the pieces of
+// the neighbouring stripes that the other clusters read in the same turn
 template <class B>
 OP_HD Seg ldg_seg(const int8_t* p) {
 #if defined(__CUDA_ARCH__)
-  if constexpr (B::kWide && kL2Prefetch > 0) {
+  if constexpr (B::kWide) {
     Seg s;
-    if constexpr (kL2Prefetch == 64)
-      asm volatile("ld.global.L2::64B.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
-                   : "l"(p));
-    else if constexpr (kL2Prefetch == 128)
-      asm volatile("ld.global.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
-                   : "l"(p));
-    else
-      asm volatile("ld.global.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
-                   : "l"(p));
+    asm volatile("ld.global.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3])
+                 : "l"(p));
     return s;
   }
 #endif
@@ -487,40 +426,6 @@ OP_HD void stage_row(const int8_t* __restrict__ asl, Stripe sp, Park pk,
            4 * kSeg * h);
 }
 
-// Stage every park row of a bulk-staged stripe (bulk_staged) as thread
-// ``t`` of ``nt``: asl, and hb where the park holds it, 16 bytes by
-// ``copy`` (the host's stand-in for the card's tensor copies).
-template <class B, typename Copy16>
-OP_HD void stage_lanes(const int8_t* __restrict__ hb,
-                       const int8_t* __restrict__ asl, Stripe sp, Park pk,
-                       int cta, int rows, bool full, int t, int nt,
-                       Copy16 copy) {
-  for (int li = t / B::kLanes; li < rows; li += nt / B::kLanes) {
-    const int h = t % B::kLanes;
-    stage_row<B>(asl, sp, pk, cta, li, h, copy);
-    if (park_hb<B>(full))
-      copy(pk.hb + li * B::kC + 4 * kSeg * h,
-           hb + (size_t)global_row<B>(cta, li) * sp.nc + sp.col0 +
-               4 * kSeg * h);
-  }
-}
-
-// Store every park row of a bulk-stored stripe (bulk_stored) to device
-// memory as thread ``t`` of ``nt``: asl, and hb where the park holds it
-// (the host's stand-in for the card's tensor copies).
-template <class B, typename Copy16>
-OP_HD void unstage_lanes(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
-                         Stripe sp, Park pk, int cta, int rows, bool full,
-                         int t, int nt, Copy16 copy) {
-  for (int li = t / B::kLanes; li < rows; li += nt / B::kLanes) {
-    const int h = t % B::kLanes;
-    const size_t off = (size_t)global_row<B>(cta, li) * sp.nc + sp.col0 +
-                       4 * kSeg * h;
-    copy(asl + off, pk.asl + li * B::kC + 4 * kSeg * h);
-    if (park_hb<B>(full)) copy(hb + off, pk.hb + li * B::kC + 4 * kSeg * h);
-  }
-}
-
 // Stage the stripe's threshold stack into ``vs`` ([N_VEC, kC]) as thread
 // ``t`` of ``nt``.
 template <class B, typename Copy16>
@@ -580,12 +485,12 @@ OP_COLD SwTickView diagonal_word(uint32_t hb, uint32_t asl, int f, bool mute,
 // forms) takes group g's view max at segment h, for the table (every
 // CTA's copy, or g's row of its own split table).
 template <class B, bool kSus, bool kFull, bool kMute, bool kSwar,
-          typename Sink, typename PutGroup, typename Ready = NoHook>
+          typename Sink, typename PutGroup>
 OP_HD void step1(const int8_t* __restrict__ hb,
                  const int8_t* __restrict__ flags, const int8_t* vs,
                  Stripe sp, Knobs kn, Park pk, int cta, int groups, int t,
                  int nt, const GroupFlags& fw0, Sink& sink,
-                 PutGroup put_group, Ready ready = Ready()) {
+                 PutGroup put_group) {
   constexpr int kC = B::kC;
   constexpr int kLanes = B::kLanes;
   constexpr bool kParkHb = park_hb<B>(kFull);
@@ -593,7 +498,6 @@ OP_HD void step1(const int8_t* __restrict__ hb,
   SwVec vec[kSeg];
   load_vecs<B, false>(vs, h, vec);
   for (int lg = t / kLanes; lg < groups; lg += nt / kLanes) {
-    ready(lg);
     const int row0 = group_row0<B>(cta, lg);
     const GroupFlags fw = lg == t / kLanes ? fw0 : group_flags(flags, row0);
     // 0/1-per-byte counter words (at most 8 per byte); the first firing
@@ -604,10 +508,7 @@ OP_HD void step1(const int8_t* __restrict__ hb,
     SegMax gm(swar::H);
     Seg prev{};
     const int8_t* hrow = hb + (size_t)row0 * sp.nc + sp.col0 + 4 * kSeg * h;
-    if constexpr (hb_from_park<B>(kFull))
-      hrow = pk.hb + lg * kAlign * kC + 4 * kSeg * h;
-    Seg ih_next =
-        hb_from_park<B>(kFull) ? load_seg(hrow) : ldg_seg<B>(hrow);
+    Seg ih_next = ldg_seg<B>(hrow);
     // the lanes form's tick, unrolled over 8 rows of 16 bytes, outgrows
     // the instruction cache: one row at a time
 #if defined(__CUDACC__)
@@ -621,11 +522,7 @@ OP_HD void step1(const int8_t* __restrict__ hb,
       const bool sends = rr_sends(f, kMute);
       const int at = (lg * kAlign + r) * kC + 4 * kSeg * h;
       const Seg ih = ih_next;
-      if constexpr (hb_from_park<B>(kFull)) {
-        if (r + 1 < kAlign) ih_next = load_seg(hrow + (r + 1) * kC);
-      } else if (r + 1 < kAlign) {
-        ih_next = ldg_seg<B>(hrow + (size_t)(r + 1) * sp.nc);
-      }
+      if (r + 1 < kAlign) ih_next = ldg_seg<B>(hrow + (size_t)(r + 1) * sp.nc);
       if constexpr (stubbed(kStubVtick)) {
         // the raw hb row into the park (asl is parked raw already) and the
         // view
@@ -754,11 +651,7 @@ struct NoHold {
 template <class B, int kForm, bool kLh>
 struct Hold {
   static constexpr int kRows = B::kHeld;
-#if defined(RR_X_HELD_META)
-  static constexpr bool kMeta = kForm != kFormEdges && RR_X_HELD_META;
-#else
   static constexpr bool kMeta = kForm != kFormEdges;
-#endif
   uint32_t base[kRows];  // flags << 24 | the arc or group base
   uint32_t mask[kRows];  // the edge_filter forms' group-match mask
   uint32_t recv[kRows];
@@ -962,17 +855,14 @@ OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
 // once the row's park segment is read and its outputs stored (stage_row
 // for the next stripe, or nothing).  ``hold`` (the wide blocking: a
 // Hold) gives the Meta of the thread's first H::kRows rows and takes their
-// per-receiver counts in place of the sink; ``trip(j)`` runs after each
-// of the thread's rows (NoHook).
+// per-receiver counts in place of the sink.
 template <class B, bool kSus, int kForm, bool kSwar, typename Gather,
-          typename Sink, typename Restage, typename H = NoHold,
-          typename Trip = NoHook>
+          typename Sink, typename Restage, typename H = NoHold>
 OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
                  const int8_t* __restrict__ flags, const int8_t* vs,
                  const int32_t* __restrict__ senders, Stripe sp, Knobs kn,
                  Park pk, int cta, int rows, int t, int nt, Gather gather,
-                 Sink& sink, Restage restage, H* hold = nullptr,
-                 Trip trip = Trip()) {
+                 Sink& sink, Restage restage, H* hold = nullptr) {
   constexpr int kC = B::kC;
   constexpr int kLanes = B::kLanes;
   constexpr bool kParkHb = park_hb<B>(full_view(kForm));
@@ -994,7 +884,7 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     next = load_meta<kForm>(flags, senders, global_row<B>(cta, t / kLanes),
                             kn.width);
   }
-  for (int li0 = 0, j = 0; li0 < rows; trip(j), li0 += step, ++j) {
+  for (int li0 = 0, j = 0; li0 < rows; li0 += step, ++j) {
     const int li = li0 + t / kLanes;
     const bool valid = li < rows;
     const int row = valid ? global_row<B>(cta, li) : 0;
@@ -1034,13 +924,8 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         // so that the gather is not compiled out with the epilogue
         keep_live(best);
         const size_t off = (size_t)row * sp.nc + col;
-        if constexpr (bulk_stored<B>()) {
-          // the park holds them, and its copies store them
-          if constexpr (!kParkHb) store_seg(hb + off, ph);
-        } else {
-          store_seg(hb + off, ph);
-          store_seg(asl + off, pa);
-        }
+        store_seg(hb + off, ph);
+        store_seg(asl + off, pa);
         restage(li, h);
         continue;
       }
@@ -1064,15 +949,8 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
         }
       }
       const size_t off = (size_t)row * sp.nc + col;
-      if constexpr (bulk_stored<B>()) {
-        // into the park row, whose copies store it
-        if constexpr (kParkHb) store_seg(pk.hb + at, oh);
-        else store_seg(hb + off, oh);
-        store_seg(pk.asl + at, oa);
-      } else {
-        store_seg(hb + off, oh);
-        store_seg(asl + off, oa);
-      }
+      store_seg(hb + off, oh);
+      store_seg(asl + off, oa);
       restage(li, h);
       listed = byte_sum(ls);
       held = byte_sum(hs);
@@ -1116,18 +994,14 @@ OP_HD int finish(int s, int c, CtaCounts cta_counts) {
 
 // the shared memory of one CTA for ``n`` rows: parked lanes (both, or asl
 // and the diagonal rows), the view, the stripe's threshold stack, the
-// gathers' start row, two count blocks and (bulk_staged) the barriers of
-// the park's kStageParts bulk-copy parts.  Cluster8x32: 12N + 1,280 B in
-// every form; Cluster16x16: 2N + 928 in the full-view forms, 17N/8 + 672
-// in the aligned ones
-constexpr int kStageParts = 4;
-constexpr int kStageBarBytes = 8 * kStageParts;
-
+// gathers' start row and two count blocks.  Cluster8x32: 12N + 1,280 B
+// in every form; Cluster16x16: 2N + 896 in the full-view forms, 17N/8 +
+// 640 in the aligned ones
 template <class B>
 OP_HD constexpr long smem_bytes(long n, bool full) {
   return ((park_hb<B>(full) ? 2 : 1) * (n / B::kCtas) +
           view_rows<B>(n, full) + N_VEC + 1 + diag_rows<B>(full)) * B::kC +
-         2L * B::kBlockWords * 4 + (B::kWide ? kStageBarBytes : 0);
+         2L * B::kBlockWords * 4;
 }
 
 }  // namespace onepass

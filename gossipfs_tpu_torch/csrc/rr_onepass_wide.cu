@@ -6,10 +6,19 @@
 // the full-view forms, 109,056 in the aligned ones), as the TPU kernel's
 // resident form does up to N = 104,448 (gossipfs_tpu/ops/merge_pallas.py
 // resident_round_blocked :2611, resident=True :2631).  The kernel and its
-// launcher are rr_onepass.cu's, built here as a library of their own (its
+// launcher are rr_onepass.cu's, built here as a library of its own (its
 // C functions keep their names), so that nvcc compiles its instantiations
 // beside rr_onepass.cu's; rr_onepass.cu's header says what each blocking
-// does and what bounds it.  Bytes: 4 B an entry in the aligned forms, 5 B
-// in the full-view forms (hb read once more in step 2).
+// does and what bounds it.
+//
+// Bound: 4 B an entry in the aligned forms, 5 B in the full-view forms (hb
+// read once more in step 2): 5.13 / 6.41 ms at N = 65,536 at 3.35 TB/s.
+// Its pace is set by how the memory system takes 16-byte pieces of rows
+// 64 KB apart (~550-600 GB/s) and, in the full-view forms, by the
+// gathers through distributed shared memory.  What the wide blocking does
+// beyond rr_onepass.cu's walk: the clusters' lockstep in the aligned forms
+// (lockstep, from a turns buffer the caller keeps on the card), a 128-byte
+// L2 prefetch on every lane read from device memory, and a step-2
+// thread's receiver rows held across its stripes (rr_onepass.cuh Hold).
 #define RR_WIDE 1
 #include "rr_onepass.cu"

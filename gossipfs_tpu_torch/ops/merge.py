@@ -535,9 +535,8 @@ def onepass_smem(n: int, form: str, blocking: str = "8x32") -> int:
     full-view forms; the stripe's whole 8-row group-max table in the
     narrow blocking's aligned ones, its own groups' rows of it in the
     wide blocking's), the stripe's 11-row threshold stack, the gathers'
-    start row, its two count blocks and (16x16) the four 8-byte barriers
-    its park's bulk copies complete on.  8x32: 12N + 1,280 B in every
-    form; 16x16: 2N + 928 B in the full-view forms, 17N/8 + 672 in the
+    start row and its two count blocks.  8x32: 12N + 1,280 B in every
+    form; 16x16: 2N + 896 B in the full-view forms, 17N/8 + 640 in the
     aligned ones."""
     ctas, cols, _ = ONEPASS_BLOCKINGS[blocking]
     rows = n // ctas
@@ -550,7 +549,7 @@ def onepass_smem(n: int, form: str, blocking: str = "8x32") -> int:
         view = n // KERNEL_ALIGN // (ctas if wide else 1)
     diag = 0 if park_hb else 16    # the rows a segment's diagonal crosses
     return (((2 if park_hb else 1) * rows + view + N_VEC + 1 + diag) * cols
-            + 2 * (5 * cols // 2 + cols) * 4 + (32 if wide else 0))
+            + 2 * (5 * cols // 2 + cols) * 4)
 
 
 def _blocking_holds(n: int, c: int, form: str, blocking: str) -> bool:

@@ -40,7 +40,6 @@ THREADS = {"lanes": 512, "swar": 512}
 
 HARNESS = r"""
 #include <cstdint>
-#include <algorithm>
 #include <cstring>
 #include <type_traits>
 #include <vector>
@@ -92,12 +91,11 @@ struct MergeSink {
 // parks (both lanes, or asl and the diagonal rows), views (view slices,
 // whole or split group-max tables), staged threshold stacks and two count
 // blocks a CTA by stripe parity, each row staged for the next stripe (its
-// asl copied into its park row) as step 2 merges it, or (the wide
-// blocking: bulk_staged, the card's tensor copies) every park row, asl and
-// the parked hb, once the CTA's step 2 is done, and (the wide blocking)
-// each step-2 thread's Hold of its rows' metadata and per-receiver counts
-// across the stripes, flushed after the last one; the CTAs and threads of
-// a step replayed one after another (the barriers between steps).
+// lanes copied into its park row) as step 2 merges it, and (the wide
+// blocking) each step-2 thread's Hold of its rows' metadata and
+// per-receiver counts across the stripes, flushed after the last one; the
+// CTAs and threads of a step replayed one after another (the barriers
+// between steps).
 template <class B, bool kSus, int kForm, bool kSwar>
 static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
                     int clusters, int8_t* hb, int8_t* asl,
@@ -133,22 +131,14 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
   auto copy = [](int8_t* dst, const int8_t* src) {
     std::memcpy(dst, src, 16);
   };
-  const int launched = std::min(clusters, stripes);
   using HoldT = std::conditional_t<(B::kHeld > 0), Hold<B, kForm, kSus>,
                                    NoHold>;
   std::vector<HoldT> holds((size_t)kCtas * nt);
-  for (int c = 0; c < launched; ++c) {
+  for (int c = 0; c < clusters && c < stripes; ++c) {
     for (int q = 0; q < kCtas; ++q)
       for (int t = 0; t < nt; ++t) {
-        const Stripe first = stripe_at<B>(n, nc, col_offset, c);
-        if (bulk_staged<B>()) {
-          stage_lanes<B>(hb, asl, first, park(q), q, rows, kFull, t, nt,
-                         copy);
-          stage_stack<B>(vecs, first, vs_of(q), t, nt, copy);
-        } else {
-          stage<B>(asl, vecs, first, park(q), vs_of(q), q, rows, t, nt,
-                   copy);
-        }
+        stage<B>(asl, vecs, stripe_at<B>(n, nc, col_offset, c), park(q),
+                 vs_of(q), q, rows, t, nt, copy);
         if constexpr (HoldT::kRows > 0)
           holds[(size_t)q * nt + t].load(flags, senders, q, rows, t, nt,
                                          kn.width);
@@ -157,7 +147,7 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
       for (int i = 0; i < B::kBlockWords; ++i)
         block(q, 0)[i] = blank_count<B>(i, n);
     for (int stripe = c, it = 0; stripe < stripes;
-         stripe += launched, ++it) {
+         stripe += clusters, ++it) {
       const Stripe sp = stripe_at<B>(n, nc, col_offset, stripe);
       // a group max goes into every CTA's table, or into its own CTA's
       // split table
@@ -211,26 +201,16 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
           }
         };
         MergeSink<B> ms{block(q, it), recv, lh ? recv + n : nullptr};
-        const bool more = stripe + launched < stripes;
+        const bool more = stripe + clusters < stripes;
         const Stripe next =
-            stripe_at<B>(n, nc, col_offset, stripe + launched);
+            stripe_at<B>(n, nc, col_offset, stripe + clusters);
         for (int t = 0; t < nt; ++t)
           step2<B, kSus, kForm, kSwar>(
               hb, asl, flags, vs_of(q), senders, sp, kn, park(q), q, rows, t,
               nt, gather, ms, [&](int li, int h) {
-                if (more && !bulk_staged<B>())
+                if (more)
                   stage_row<B>(asl, next, park(q), q, li, h, copy);
               }, &holds[(size_t)q * nt + t]);
-        // (the CTA synchronises) the bulk-stored park's lanes out, the
-        // bulk-staged park's next stripe in
-        if (bulk_stored<B>())
-          for (int t = 0; t < nt; ++t)
-            unstage_lanes<B>(hb, asl, sp, park(q), q, rows, kFull, t, nt,
-                             copy);
-        if (more && bulk_staged<B>())
-          for (int t = 0; t < nt; ++t)
-            stage_lanes<B>(hb, asl, next, park(q), q, rows, kFull, t, nt,
-                           copy);
         // (the CTA synchronises) the next stripe's stack
         if (more)
           for (int t = 0; t < nt; ++t)

@@ -220,12 +220,31 @@ def test_wide_walk_holds_rows_across_stripes(lib, form, elementwise, mode,
                                115_712, 115_840])
 def test_wide_smem_bytes_agree_with_onepass_smem(lib, n, form):
     """The header's bytes a CTA equal ops/merge's at the wide blocking's
-    edges: 2N + 928 B in the full-view forms (to N = 115,712), 17N/8 +
-    672 B in the aligned ones (to 109,056), the park staging's four
-    barriers included."""
+    edges: 2N + 896 B in the full-view forms (to N = 115,712), 17N/8 +
+    640 B in the aligned ones (to 109,056)."""
     full = form in merge.FULL_VIEW_FORMS
     got = merge.onepass_smem(n, form, "16x16")
     assert lib.host_smem_bytes(n, int(full), 1) == got
-    assert got == (2 * n + 928 if full else 17 * n // 8 + 672)
+    assert got == (2 * n + 896 if full else 17 * n // 8 + 640)
     assert (got <= merge.ONEPASS_SMEM) == (n <= (115_712 if full
                                                  else 109_056))
+
+
+def test_lockstep_turns_are_one_buffer_a_card_numbered_from_one():
+    """The wide launches' lockstep state (ops/merge._onepass_turns): one
+    int64 [64] zeroed once a card and kept, launch numbers rising from 1
+    and wrapping past 2^31 - 1 back to 1 (a stale larger mark only lets
+    that launch's clusters start without waiting)."""
+    dev = torch.device("cpu")
+    merge._ONEPASS_TURNS.pop(dev, None)
+    try:
+        a0, s0 = merge._onepass_turns(dev)
+        a1, s1 = merge._onepass_turns(dev)
+        buf = merge._ONEPASS_TURNS[dev][0]
+        assert (s0, s1) == (1, 2) and a0 == a1 == buf.data_ptr()
+        assert buf.dtype == torch.int64 and buf.numel() == 64
+        assert int(buf.abs().sum()) == 0
+        merge._ONEPASS_TURNS[dev][1] = 0x7FFFFFFF
+        assert merge._onepass_turns(dev)[1] == 1
+    finally:
+        merge._ONEPASS_TURNS.pop(dev, None)

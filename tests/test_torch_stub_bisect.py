@@ -160,3 +160,45 @@ def test_scenario_needs_aligned_arcs_and_the_card_is_the_default(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         sb.main(["--n", "512"])
+
+
+@pytest.mark.parametrize("n, align, blocking, source", [
+    (16_384, 8, "8x32", "rr_onepass"),
+    (16_384, 1, "8x32", "rr_onepass"),
+    (65_536, 8, "16x16", "rr_onepass_wide"),
+    (65_536, 1, "16x16", "rr_onepass_wide"),
+    (98_304, 8, "16x16", "rr_onepass_wide"),
+])
+def test_variants_build_against_the_blocking_the_round_takes(monkeypatch, n,
+                                                             align, blocking,
+                                                             source):
+    """A stub row's library is the variant of the library of the blocking
+    ops/merge.onepass_blocking picks for the shape: the 8 x 32 one to N =
+    19,264, the 16 x 16 one past it; (full) is that library undefined."""
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    kw = sb.round_kwargs(sb.bisect_fanout(n, align), align, "lanes", False,
+                         False)
+    assert sb.stub_blocking(n, kw) == blocking
+    assert sb.stub_variant(kw, "", blocking) == (source, ())
+    name, defines = sb.stub_variant(kw, "epi,rcnt", blocking)
+    assert name == source and defines[0] == "RR_STUB=24"
+    assert sb.stub_library(kw, "epi,rcnt", blocking) == _build.lib_path(
+        source, defines).name
+
+
+def test_edges_rows_and_the_blocking_in_the_header():
+    rows = run(["--device", "cpu", "--n", "1024", "--edges", "--rounds",
+                "1", "--reps", "1"])
+    head, full = rows[0], rows[1]
+    assert head["form"] == "edges" and head["edges"] is True
+    assert head["blocking"] == "8x32" and head["source"] == "rr_onepass.cu"
+    assert sorted(head["not_run"]) == ["vtick,wmax,gather,epi,rcnt",
+                                       "wmax,gather"]
+    assert full["stub"] == "(full)" and full["ms_per_round"] > 0
+    assert "timeline_us" not in full
+    kw = sb.round_kwargs(10, 1, "lanes", False, False, edges=True)
+    x = sb.build_inputs(1024, 10, device="cpu", edges=True)
+    assert kw["fanout"] is None and tuple(x["senders"].shape) == (1024, 10)
+    with pytest.raises(SystemExit):
+        with contextlib.redirect_stderr(io.StringIO()):
+            sb.main(["--device", "cpu", "--edges", "--arc-align", "8"])
