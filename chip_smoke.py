@@ -7443,7 +7443,8 @@ def main() -> int:
         f"{SWEEP_WIDE_ROUNDS} rounds, 2 SWAR points; N={N_PAST_WIDE} "
         f"refused), shard_anchor --ladder (2 rows, {LADDER_ROUNDS} rounds; "
         f"--budget-only), stub_bisect (N={N_MAIN}, {TOOLS_ROUNDS} rounds: "
-        "the default list, --arc-align 8 --suspicion), verify_claims "
+        f"the default list, --arc-align 8 --suspicion; N={N_CAPACITY}, "
+        f"{STUB_WIDE_ROUNDS} rounds: --arc-align 8), verify_claims "
         "--only headline frontier_65536 soak spec_clean trace_invariants")
     phase_tools(results)
     log(f"  phase 50 in {results['tools']['seconds']:.2f} s")

@@ -56,7 +56,7 @@ HARNESS = r"""
 
 using namespace onepass;
 
-// the stage variants are builds of the narrow blocking
+// the narrow blocking's stage variants (the wide library's run on the card)
 using B = Cluster8x32;
 constexpr int kC = B::kC, kCtas = B::kCtas, kLanes = B::kLanes;
 constexpr int kPairs = B::kPairs, kFobsAt = B::kFobsAt;
