@@ -58,8 +58,11 @@
 //     row, which L2 merges into whole sectors only while they keep in
 //     step; left alone they drift 20-120 stripes apart), asks L2 for 128
 //     bytes of a row on each lane read from device memory (ldg_seg,
-//     copy16), and holds each step-2 thread's receiver rows' metadata and
-//     counts across its stripes (rr_onepass.cuh Hold).  The sector-pair
+//     copy16), holds each step-2 thread's receiver rows' metadata and
+//     counts across its stripes (rr_onepass.cuh Hold), and in the
+//     full-view forms issues a receiver's first chunk of gathers and its
+//     hb read a row ahead, in flight while the row before it merges
+//     (RowGather, load_ahead).  The sector-pair
 //     stripe order, hb staged beside asl, and the park staged (and
 //     stored) by tensor copies in one part or four were each timed and
 //     left out: none moved the round (PERF.md).
@@ -170,14 +173,11 @@ struct Params {
   const int32_t* senders;
   int32_t* subj;       // [3 or 6, nc]: member_cnt, n_det, first_obs
                        // (entered, refuted, held)
-  int32_t* recv;       // [1 or 2, n]: recv_cnt (suspect_cnt), zeroed
+  int32_t* recv;       // [1 or 2, n]: recv_cnt (suspect_cnt), zeroed;
+                       // the wide blocking's turns after them (lockstep)
   unsigned long long* timeline;  // [stripes, kCtas, kStamps] or null
   int n, nc, col_offset;
   Knobs kn;
-  // the wide blocking's lockstep (lockstep below): each cluster's turn,
-  // [kMaxTurns], or null; the launch's number (the turns' high word)
-  unsigned long long* turns;
-  unsigned seq;
 };
 
 // step 1's counts into the CTA's count block
@@ -308,26 +308,35 @@ __device__ __forceinline__ void stamp(unsigned long long* timeline,
 // announces its cluster's turn; a finished cluster announces ~0u).  The
 // wait is advisory, bounded by kLockstepNs a turn, so that a cluster the
 // card did not hold at once only slows the launch; nothing the round
-// computes depends on it.
+// computes depends on it.  A CTA that has waited its bound once waits no
+// more in that launch, so a launch pays at most kLockstepNs a CTA (its
+// cluster's CTAs wait side by side: about kLockstepNs a launch).  The
+// turns are kTurnWords words after the per-receiver counts, which the
+// memset before the launch zeroes with them.
 constexpr int kMaxTurns = 64;
+constexpr int kTurnWords = Blk::kWide ? kMaxTurns : 0;
 constexpr unsigned long long kLockstepNs = 100000;
 
-__device__ __forceinline__ unsigned long long turn_mark(unsigned seq,
-                                                        unsigned turn) {
-  return (unsigned long long)seq << 32 | turn;
-}
-
-__device__ void lockstep(const Params& p, int me, int clusters, int turn,
-                         bool announce) {
-  volatile unsigned long long* turns = p.turns;
-  const unsigned long long at = turn_mark(p.seq, (unsigned)turn);
-  if (announce) turns[me] = at;
+// Announce (``announce``) cluster ``me``'s turn and wait for every cluster
+// to begin it, unless ``waiting`` is false; false once the bound ran out.
+__device__ bool lockstep(volatile unsigned* turns, int me, int clusters,
+                         unsigned turn, bool announce, bool waiting) {
+  if (announce) turns[me] = turn;
+  if (!waiting) return false;
   const unsigned long long t0 = globaltimer();
   for (int q = 0; q < clusters; ++q)
-    while (turns[q] < at) {
-      if (globaltimer() - t0 > kLockstepNs) return;
+    while (turns[q] < turn) {
+      if (globaltimer() - t0 > kLockstepNs) return false;
       __nanosleep(64);
     }
+  return true;
+}
+
+// ``a`` where ``kFirst`` holds, else ``b``
+template <bool kFirst, typename A, typename B>
+__device__ __forceinline__ auto& either(A& a, B& b) {
+  if constexpr (kFirst) return a;
+  else return b;
 }
 
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
@@ -405,6 +414,16 @@ rr_onepass_kernel(const Params p) {
 #pragma unroll
     for (int q = 0; q < kCtas; ++q) st_cluster(mapa(a, q), v);
   };
+  // the wide full-view forms' view rows, whose loads step 2 issues a row
+  // ahead (RowGather)
+  auto view_gather = row_gather<kForm>(
+      p.senders, n, p.kn,
+      [&](int s, int hh) -> uint32_t {
+        if (s < 0) return none_ca;
+        const Where w = row_home<Blk>(s);
+        return mapa(view_sa + w.local * kC + 4 * kSeg * hh, w.cta);
+      },
+      [](uint32_t a) { return ld_cluster(a); });
   auto gather = [&](const auto& m, int row, int hh) -> Seg {
     if constexpr (kFull) {
       return gather_rows<kForm>(
@@ -447,15 +466,18 @@ rr_onepass_kernel(const Params p) {
     });
   };
 
-  const bool in_step = Blk::kWide && !kFull && p.turns != nullptr &&
-                       clusters <= kMaxTurns;
+  const bool in_step = Blk::kWide && !kFull && clusters <= kMaxTurns;
+  volatile unsigned* turns = reinterpret_cast<volatile unsigned*>(
+      p.recv + (kLh ? 2 : 1) * (size_t)n);
+  bool waiting = true;
   for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
     const Stripe sp = stripe_at<Blk>(n, nc, col_offset, stripe);
     uint32_t* cnt = blocks + (it & 1) * kBlockWords;
     stamp(p.timeline, stripe, cta, 0);
     if constexpr (Blk::kWide)
       if (in_step && t == 0)
-        lockstep(p, (int)blockIdx.x / kCtas, clusters, it, cta == 0);
+        waiting = lockstep(turns, (int)blockIdx.x / kCtas, clusters,
+                           (unsigned)it, cta == 0, waiting);
     // the staged rows and stack (every thread's copies) in place
     asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
@@ -486,7 +508,9 @@ rr_onepass_kernel(const Params p) {
     const bool more = stripe + clusters < stripes;
     const Stripe next = stripe_at<Blk>(n, nc, col_offset, stripe + clusters);
     step2<Blk, kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp,
-                                   p.kn, pk, cta, rows, t, kThreads, gather,
+                                   p.kn, pk, cta, rows, t, kThreads,
+                                   either<kFull && Blk::kWide>(view_gather,
+                                                               gather),
                                    ms, [&](int li, int hh) {
                                      if (more)
                                        stage_row<Blk>(p.asl, next, pk, cta,
@@ -500,9 +524,7 @@ rr_onepass_kernel(const Params p) {
     stamp(p.timeline, stripe, cta, 4);
   }
   if constexpr (Blk::kWide)
-    if (in_step && t == 0 && cta == 0)
-      reinterpret_cast<volatile unsigned long long*>(
-          p.turns)[blockIdx.x / kCtas] = turn_mark(p.seq, ~0u);
+    if (in_step && t == 0 && cta == 0) turns[blockIdx.x / kCtas] = ~0u;
   // the held rows' per-receiver counts, once
   if constexpr (HoldT::kRows > 0) {
     MergeSink<kSus, kLh> ms{nullptr, p.recv, n};
@@ -635,8 +657,8 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
         const void* senders, void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset, int fanout, int form,
         int align, int t_fail, int t_cooldown, int age_clamp, int suspect,
         int lh,
-        int confirm_thr, int confirm_thr_hi, int swar, void* turns, int seq,
-        int* clusters, void* stream) {
+        int confirm_thr, int confirm_thr_hi, int swar, int* clusters,
+        void* stream) {
   const bool group = form == kFormGroup || form == kFormFilterGroup;
   if (n <= 0 || n % (kCtas * kAlign) || nc <= 0 || nc % kC ||
       col_offset < 0 || col_offset > n - nc ||
@@ -664,8 +686,6 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
   p.subj = static_cast<int32_t*>(out_subj);
   p.recv = static_cast<int32_t*>(out_recv);
   p.timeline = static_cast<unsigned long long*>(timeline);
-  p.turns = static_cast<unsigned long long*>(turns);
-  p.seq = (unsigned)seq;
   p.n = n;
   p.nc = nc;
   p.col_offset = col_offset;
@@ -673,7 +693,8 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
                group ? fanout / kAlign : fanout, group_shift};
   if (clusters == nullptr) {
     const cudaError_t e = cudaMemsetAsync(
-        p.recv, 0, sizeof(int32_t) * (lh ? 2 : 1) * (size_t)n, s);
+        p.recv, 0, sizeof(int32_t) * ((lh ? 2 : 1) * (size_t)n + kTurnWords),
+        s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)dispatch(form, suspect, lh, swar, p, clusters, s);
@@ -688,11 +709,9 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
 // card grants: one memset of out_recv (the per-receiver counts add up
 // there by global atomics), then one launch.  ``timeline`` null, or uint64
 // [nc / kC, kCtas, kStamps]: each CTA's globaltimer stamps (ns) of its
-// stripe's steps.  ``turns`` (the wide blocking; null: no lockstep) the
-// caller's int64 [64] of the clusters' turns, zero before its first launch
-// and kept between launches on the card, ``seq`` the launch's number,
-// rising from 1 from one launch on ``turns`` to the next.  Returns the
-// CUDA error code (0 on success).
+// stripe's steps.  ``out_recv`` holds (lh ? 2 : 1) * n int32 counts and,
+// in rr_onepass_wide.cu, 64 words more (the clusters' turns, lockstep).
+// Returns the CUDA error code (0 on success).
 extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
                           const void* vecs, const void* senders,
                           void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset,
@@ -700,11 +719,11 @@ extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
                           int form, int align, int t_fail, int t_cooldown,
                           int age_clamp, int suspect, int lh,
                           int confirm_thr, int confirm_thr_hi, int swar,
-                          void* turns, int seq, void* stream) {
+                          void* stream) {
   return run(hb, asl, flags, vecs, senders, out_subj, out_recv, timeline, n, nc, col_offset, fanout, form, align, t_fail,
              t_cooldown,
              age_clamp, suspect, lh, confirm_thr, confirm_thr_hi, swar,
-             turns, seq, nullptr, stream);
+             nullptr, stream);
 }
 
 // The instantiation rr_onepass would launch for this shape and form, into
@@ -716,5 +735,5 @@ extern "C" int rr_onepass_clusters(int n, int nc, int col_offset, int fanout,
                                    int swar, int* clusters) {
   return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
              nullptr, n, nc, col_offset, fanout, form, align, 1, 1, 63,
-             suspect, lh, 0, 0, swar, nullptr, 0, clusters, nullptr);
+             suspect, lh, 0, 0, swar, clusters, nullptr);
 }

@@ -17,8 +17,11 @@
 // 64 KB apart (~550-600 GB/s) and, in the full-view forms, by the
 // gathers through distributed shared memory.  What the wide blocking does
 // beyond rr_onepass.cu's walk: the clusters' lockstep in the aligned forms
-// (lockstep, from a turns buffer the caller keeps on the card), a 128-byte
-// L2 prefetch on every lane read from device memory, and a step-2
-// thread's receiver rows held across its stripes (rr_onepass.cuh Hold).
+// (lockstep, its turns in the words after the per-receiver counts), a
+// 128-byte L2 prefetch on every lane read from device memory, a step-2
+// thread's receiver rows held across its stripes (rr_onepass.cuh Hold),
+// and in the full-view forms each receiver's first 8 view-row gathers and
+// its hb read issued while the row before it merges (rr_onepass.cuh
+// RowGather, load_ahead).
 #define RR_WIDE 1
 #include "rr_onepass.cu"

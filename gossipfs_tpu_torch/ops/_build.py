@@ -51,12 +51,12 @@ SIGNATURES = {
         "rr_round": (_I, [_P] * 8 + [_I] * 14 + [_P]),
     },
     "rr_onepass": {
-        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P, _I, _P]),
+        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
         "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
     },
     # the wide blocking: rr_onepass.cu's launcher over Cluster16x16
     "rr_onepass_wide": {
-        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P, _I, _P]),
+        "rr_onepass": (_I, [_P] * 8 + [_I] * 14 + [_P]),
         "rr_onepass_clusters": (_I, [_I] * 9 + [_P]),
     },
     "fanout_max": {

@@ -148,6 +148,10 @@ ONEPASS_SMEM = 232_448
 # the one-pass kernel's optional timeline: globaltimer stamps a CTA and
 # stripe (start, step 1 done, view ready, step 2 done, end)
 ONEPASS_STAMPS = 5
+# int32 words after a launch's per-receiver counts that its blocking's
+# kernel keeps its clusters' turns in (csrc/rr_onepass.cu kTurnWords:
+# the wide blocking's lockstep), zeroed with the counts before the launch
+ONEPASS_TURNS = {"8x32": 0, "16x16": 64}
 # the merge forms that gather other CTAs' sender rows (the others gather
 # 8-row group maxes from a whole table each CTA holds)
 FULL_VIEW_FORMS = ("edges", "arc", "filter_rows")
@@ -1043,23 +1047,6 @@ def resident_round(hb, asl, flags, vecs, senders, *,
     return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
 
 
-# the wide blocking's lockstep state a card (csrc/rr_onepass.cu
-# lockstep): its clusters' turns, kept on the card from one launch to the
-# next, and the number of the last launch
-_ONEPASS_TURNS: dict = {}
-
-
-def _onepass_turns(dev: torch.device) -> tuple[int, int]:
-    """(address, number) of the next wide launch's lockstep turns on
-    ``dev``: an int64 [64] zeroed once a card, numbers rising from 1."""
-    state = _ONEPASS_TURNS.get(dev)
-    if state is None:
-        state = _ONEPASS_TURNS[dev] = [
-            torch.zeros(64, dtype=torch.int64, device=dev), 0]
-    state[1] = state[1] % 0x7FFFFFFF + 1
-    return state[0].data_ptr(), state[1]
-
-
 def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                     base_form: str, arc_align: int, t_fail: int,
                     t_cooldown: int, age_clamp: int, suspect: bool, lh: int,
@@ -1085,10 +1072,11 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
     with torch.cuda.device(dev):
         subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,
                            device=dev)
-        recv = torch.empty((1 + lh, n), dtype=torch.int32, device=dev)
+        # per receiver (recv_cnt; suspect_cnt), then the wide blocking's
+        # lockstep turns, all zeroed by the launcher's memset
+        recv = torch.empty((1 + lh) * n + ONEPASS_TURNS[blocking],
+                           dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev)
-        turns, seq = (_onepass_turns(dev) if blocking == "16x16"
-                      else (None, 0))
         with counted_launch("resident_round", stream, form + "/onepass"):
             check_rc("rr_onepass", lib.rr_onepass(
                 hb.data_ptr(), asl.data_ptr(), flags.data_ptr(),
@@ -1096,7 +1084,8 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                 recv.data_ptr(), None if timeline is None else timeline.data_ptr(),
                 n, c, col_offset, width, FORMS.index(base_form), arc_align,
                 t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
-                int(sw), turns, seq, stream.cuda_stream))
+                int(sw), stream.cuda_stream))
+    recv = recv[:(1 + lh) * n].view(1 + lh, n)
     return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
 
 

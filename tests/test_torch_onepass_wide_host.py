@@ -16,7 +16,9 @@ gathers the others' rows).  Here, at N = 1,024 and 2,048:
   few threads a CTA, so
   that a step-2 thread's rows past the 8 it holds across stripes (their
   metadata and per-receiver counts, added once after the cluster's last
-  stripe) are loaded and counted a stripe at a time;
+  stripe) are loaded and counted a stripe at a time, and the full-view
+  forms' gathers and hb reads issued a row ahead meet rows of the same
+  thread (1 to 3 chunks of 8 gathers a receiver);
 * at N = 1,024 every form and mode bit-equal to the JAX package's kernel
   run as its tests run it (``resident_round_blocked(..., interpret=True,
   resident=True)``, ``merge_block_c`` 512), on lanes where its resident
@@ -24,7 +26,9 @@ gathers the others' rows).  Here, at N = 1,024 and 2,048:
   SUSPECT ages above it under suspicion, as tests/test_torch_edge_filter.py
   makes them);
 * the shared memory a CTA: the header's ``smem_bytes`` equal to
-  ``ops/merge.onepass_smem`` at the wide blocking's edges.
+  ``ops/merge.onepass_smem`` at the wide blocking's edges; the lockstep's
+  turns right after the per-receiver counts, as many words as the
+  kernel reads.
 """
 
 from __future__ import annotations
@@ -215,6 +219,29 @@ def test_wide_walk_holds_rows_across_stripes(lib, form, elementwise, mode,
     assert got[5].sum() > 0
 
 
+@pytest.mark.parametrize("width", [8, 20])
+@pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
+@pytest.mark.parametrize("form", ["edges", "arc"])
+def test_wide_walk_gathers_a_row_ahead(lib, form, elementwise, width):
+    """The full-view forms' step 2 issues a receiver's first 8 view-row
+    loads and its hb read while the row before it merges (RowGather,
+    load_ahead): 4 threads a CTA over N = 1,024 (16 rows a thread a
+    stripe, 2 clusters), each receiver gathering 8 rows (that one chunk
+    alone) or 20 (two chunks more, the last part empty), live and dead
+    receivers mixed; bit-equal to the plain version and to the narrow
+    blocking's replay."""
+    n, mode = 1_024, "suspicion+lh"
+    fanout = width + 7 if form == "edges" else width
+    inputs = round_inputs(n, n, form, 80 + width, True, fanout=fanout)
+    assert inputs[4].shape[-1] == width or form == "arc"
+    got = run_host(lib, n, n, 0, form, mode, elementwise, inputs,
+                   fanout=fanout, clusters=2, threads=4, wide=True)
+    assert_equal(got, plain_outputs(mode, elementwise, 0, inputs))
+    assert_equal(got, run_host(lib, n, n, 0, form, mode, elementwise, inputs,
+                               fanout=fanout))
+    assert got[5].sum() > 0
+
+
 @pytest.mark.parametrize("form", merge.FORMS)
 @pytest.mark.parametrize("n", [19_328, 65_536, 69_632, 104_448, 109_056,
                                115_712, 115_840])
@@ -230,21 +257,21 @@ def test_wide_smem_bytes_agree_with_onepass_smem(lib, n, form):
                                                  else 109_056))
 
 
-def test_lockstep_turns_are_one_buffer_a_card_numbered_from_one():
-    """The wide launches' lockstep state (ops/merge._onepass_turns): one
-    int64 [64] zeroed once a card and kept, launch numbers rising from 1
-    and wrapping past 2^31 - 1 back to 1 (a stale larger mark only lets
-    that launch's clusters start without waiting)."""
-    dev = torch.device("cpu")
-    merge._ONEPASS_TURNS.pop(dev, None)
-    try:
-        a0, s0 = merge._onepass_turns(dev)
-        a1, s1 = merge._onepass_turns(dev)
-        buf = merge._ONEPASS_TURNS[dev][0]
-        assert (s0, s1) == (1, 2) and a0 == a1 == buf.data_ptr()
-        assert buf.dtype == torch.int64 and buf.numel() == 64
-        assert int(buf.abs().sum()) == 0
-        merge._ONEPASS_TURNS[dev][1] = 0x7FFFFFFF
-        assert merge._onepass_turns(dev)[1] == 1
-    finally:
-        merge._ONEPASS_TURNS.pop(dev, None)
+def test_lockstep_turns_follow_the_counts_in_one_zeroed_block():
+    """The wide kernel keeps its clusters' turns (csrc/rr_onepass.cu
+    lockstep) in kTurnWords int32 words right after the per-receiver
+    counts, and the launcher's one memset zeroes both: ops/merge allocates
+    as many words after the counts as the kernel's kMaxTurns for the wide
+    blocking and none for the narrow one, and the kernel reads them as
+    far as its clusters reach (at most kMaxTurns)."""
+    import re
+
+    src = (CSRC / "rr_onepass.cu").read_text()
+    max_turns = int(re.search(r"constexpr int kMaxTurns = (\d+);",
+                              src).group(1))
+    assert re.search(r"constexpr int kTurnWords = Blk::kWide \? kMaxTurns "
+                     r": 0;", src)
+    assert "(lh ? 2 : 1) * (size_t)n + kTurnWords" in src
+    assert "clusters <= kMaxTurns" in src
+    assert merge.ONEPASS_TURNS == {"8x32": 0, "16x16": max_turns}
+    assert set(merge.ONEPASS_TURNS) == set(merge.ONEPASS_BLOCKINGS)
