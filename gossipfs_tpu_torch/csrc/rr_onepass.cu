@@ -58,14 +58,12 @@
 //     row, which L2 merges into whole sectors only while they keep in
 //     step; left alone they drift 20-120 stripes apart), asks L2 for 128
 //     bytes of a row on each lane read from device memory (ldg_seg,
-//     copy16), holds each step-2 thread's receiver rows' metadata and
-//     counts across its stripes (rr_onepass.cuh Hold), and in the
-//     full-view forms issues a receiver's first chunk of gathers and its
-//     hb read a row ahead, in flight while the row before it merges
-//     (RowGather, load_ahead).  The sector-pair
-//     stripe order, hb staged beside asl, and the park staged (and
-//     stored) by tensor copies in one part or four were each timed and
-//     left out: none moved the round (PERF.md).
+//     copy16), and holds each step-2 thread's receiver rows' metadata and
+//     counts across its stripes (rr_onepass.cuh Hold).  The sector-pair
+//     stripe order, hb staged beside asl, the park staged (and stored) by
+//     tensor copies in one part or four, and the full-view gathers issued
+//     a row ahead were each timed and left out: none moved the round
+//     (PERF.md).
 // The grid is the clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters, at most one a stripe), each walking
 // stripes c, c + clusters, ... (persistent: one launch's clusters never
@@ -332,13 +330,6 @@ __device__ bool lockstep(volatile unsigned* turns, int me, int clusters,
   return true;
 }
 
-// ``a`` where ``kFirst`` holds, else ``b``
-template <bool kFirst, typename A, typename B>
-__device__ __forceinline__ auto& either(A& a, B& b) {
-  if constexpr (kFirst) return a;
-  else return b;
-}
-
 template <bool kSus, bool kLh, int kForm, bool kSwar, bool kBlock>
 __global__ void __launch_bounds__(kThreads, 1)
 rr_onepass_kernel(const Params p) {
@@ -414,16 +405,6 @@ rr_onepass_kernel(const Params p) {
 #pragma unroll
     for (int q = 0; q < kCtas; ++q) st_cluster(mapa(a, q), v);
   };
-  // the wide full-view forms' view rows, whose loads step 2 issues a row
-  // ahead (RowGather)
-  auto view_gather = row_gather<kForm>(
-      p.senders, n, p.kn,
-      [&](int s, int hh) -> uint32_t {
-        if (s < 0) return none_ca;
-        const Where w = row_home<Blk>(s);
-        return mapa(view_sa + w.local * kC + 4 * kSeg * hh, w.cta);
-      },
-      [](uint32_t a) { return ld_cluster(a); });
   auto gather = [&](const auto& m, int row, int hh) -> Seg {
     if constexpr (kFull) {
       return gather_rows<kForm>(
@@ -508,9 +489,7 @@ rr_onepass_kernel(const Params p) {
     const bool more = stripe + clusters < stripes;
     const Stripe next = stripe_at<Blk>(n, nc, col_offset, stripe + clusters);
     step2<Blk, kSus, kForm, kSwar>(p.hb, p.asl, p.flags, vs, p.senders, sp,
-                                   p.kn, pk, cta, rows, t, kThreads,
-                                   either<kFull && Blk::kWide>(view_gather,
-                                                               gather),
+                                   p.kn, pk, cta, rows, t, kThreads, gather,
                                    ms, [&](int li, int hh) {
                                      if (more)
                                        stage_row<Blk>(p.asl, next, pk, cta,

@@ -34,9 +34,7 @@
 //          stripe's view wherever it lives (a Gather callable: the local
 //          G, or other CTAs' rows or groups, distributed shared memory on
 //          the card, kChunk 16-byte rows a batch), the next row's flags
-//          and senders loaded while this one merges (the wide blocking's
-//          full-view forms: also its first chunk of view rows and its hb
-//          segment, a RowGather's loads); the epilogue on the
+//          and senders loaded while this one merges; the epilogue on the
 //          parked lanes (where park_hb is false on hb read again from
 //          device memory: the tick changes hb only on the diagonal), hb and asl
 //          written once, then the row's asl staged for the cluster's next
@@ -786,60 +784,6 @@ OP_HD Seg gather_rows(const Meta<kForm>& m,
   return best.seg();
 }
 
-// A row-form receiver's view rows as the wide blocking's step 2 gathers
-// them, one row ahead: ``issue`` puts the first chunk's kChunk loads in
-// flight (into registers that nothing reads before ``rest``), ``rest``
-// takes their max and gathers the chunks past it as gather_rows does.
-// Called as ``gather(meta, row, h)`` it is gather_rows.  ``addr(s, h)``
-// the address of view row s at segment h (s < 0: a row holding
-// gather_none), ``load(a)`` its 16 bytes.
-template <int kForm, typename RowAddr, typename LoadSeg>
-struct RowGather {
-  const int32_t* senders;
-  int n;
-  Knobs kn;
-  RowAddr addr;
-  LoadSeg load;
-  OP_HD Seg operator()(const Meta<kForm>& m, int row, int h) const {
-    return gather_rows<kForm>(
-        m, senders, row, n, kn, [&](int s) { return addr(s, h); }, load);
-  }
-  OP_HD void issue(const Meta<kForm>& m, int row, int h,
-                   Seg (&v)[kChunk]) const {
-    decltype(addr(0, 0)) a[kChunk];
-    OP_UNROLL
-    for (int i = 0; i < kChunk; ++i)
-      a[i] = addr(lane_slot<kForm>(m, senders, row, n, kn, 0, i), h);
-    OP_UNROLL
-    for (int i = 0; i < kChunk; ++i) v[i] = load(a[i]);
-  }
-  OP_HD Seg rest(const Meta<kForm>& m, int row, int h,
-                 const Seg (&v)[kChunk]) const {
-    SegMax best(gather_none(kForm));
-    OP_UNROLL
-    for (int i = 0; i < kChunk; i += 2) best.add2(v[i], v[i + 1]);
-    for (int f0 = kChunk; f0 < kn.width; f0 += kChunk) {
-      decltype(addr(0, 0)) a[kChunk];
-      OP_UNROLL
-      for (int i = 0; i < kChunk; ++i)
-        a[i] = addr(lane_slot<kForm>(m, senders, row, n, kn, f0, i), h);
-      Seg w[kChunk];
-      OP_UNROLL
-      for (int i = 0; i < kChunk; ++i) w[i] = load(a[i]);
-      OP_UNROLL
-      for (int i = 0; i < kChunk; i += 2) best.add2(w[i], w[i + 1]);
-    }
-    return best.seg();
-  }
-};
-
-template <int kForm, typename RowAddr, typename LoadSeg>
-OP_HD RowGather<kForm, RowAddr, LoadSeg> row_gather(
-    const int32_t* __restrict__ senders, int n, Knobs kn, RowAddr addr,
-    LoadSeg load) {
-  return {senders, n, kn, addr, load};
-}
-
 struct MergeWord {
   uint32_t hb, asl;
   uint32_t listed, held, refuted;  // 0/1 per byte
@@ -899,23 +843,6 @@ OP_HD void keep_live(const Seg& s) {
 // the sum of a word's bytes (each at most 63)
 OP_HD int byte_sum(uint32_t w) { return (int)((w * swar::L) >> 24); }
 
-// The wide full-view forms' step-2 loads of receiver ``row``, issued a
-// row ahead: its hb segment (hb read again from device memory, or the
-// park's diagonal rows where the diagonal crosses it) into ``hb_seg`` and,
-// for a live receiver, the first chunk of its view rows into ``v``
-// (RowGather::issue).  Nothing reads them before the row merges.
-template <class B, typename Gather, typename M>
-OP_HD void load_ahead(const Gather& gather, const M& m, int row,
-                      const int8_t* hb, Stripe sp, Park pk, int h,
-                      Seg (&v)[kChunk], Seg& hb_seg) {
-  const int d = row - (sp.gcol0 + 4 * kSeg * h);
-  hb_seg = (unsigned)d < 4u * kSeg
-               ? load_seg(pk.diag + d * B::kC + 4 * kSeg * h)
-               : ldg_seg<B>(hb + (size_t)row * sp.nc + sp.col0 +
-                            4 * kSeg * h);
-  if (m.flags & 4) gather.issue(m, row, h, v);
-}
-
 // Step 2 for CTA ``cta`` as thread ``t`` of ``nt``: segment t % kLanes of
 // local rows t / kLanes, + nt / kLanes, ...  ``rows`` the CTA's row count
 // (n / kCtas).  The ticked hb comes from the park (kParkHb), else from
@@ -927,12 +854,10 @@ OP_HD void load_ahead(const Gather& gather, const M& m, int row,
 // over the segment, and at the end, from every thread, its segment's
 // per-column member, refuted and held counter words (0..255 a byte).
 // ``gather(meta, row, h)`` is best for a live receiver row at segment h
-// (gather_groups or gather_rows over the card's addresses; in the wide
-// blocking's full-view forms a RowGather, whose first chunk of loads and
-// the row's hb read go out while the row before it merges: load_ahead);
-// each row's Meta is loaded while the row before it merges;
-// ``restage(li, h)`` runs once the row's park segment is read and its
-// outputs stored (stage_row for the next stripe, or nothing).  ``hold`` (the wide blocking: a
+// (gather_groups or gather_rows over the card's addresses); each row's
+// Meta is loaded while the row before it merges; ``restage(li, h)`` runs
+// once the row's park segment is read and its outputs stored (stage_row
+// for the next stripe, or nothing).  ``hold`` (the wide blocking: a
 // Hold) gives the Meta of the thread's first H::kRows rows and takes their
 // per-receiver counts in place of the sink.
 template <class B, bool kSus, int kForm, bool kSwar, typename Gather,
@@ -963,17 +888,6 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     next = load_meta<kForm>(flags, senders, global_row<B>(cta, t / kLanes),
                             kn.width);
   }
-  // the wide full-view forms' loads of a row, issued while the row before
-  // it merges (load_ahead): the first chunk of its view rows and its hb
-  // segment
-  constexpr bool kAhead =
-      B::kWide && full_view(kForm) && !stubbed(kStubGather);
-  Seg ahead[kAhead ? kChunk : 1];
-  Seg ahead_hb{};
-  if constexpr (kAhead)
-    if (t / kLanes < rows)
-      load_ahead<B>(gather, next, global_row<B>(cta, t / kLanes), hb, sp, pk,
-                    h, ahead, ahead_hb);
   for (int li0 = 0, j = 0; li0 < rows; li0 += step, ++j) {
     const int li = li0 + t / kLanes;
     const bool valid = li < rows;
@@ -993,28 +907,19 @@ OP_HD void step2(int8_t* __restrict__ hb, int8_t* __restrict__ asl,
     int listed = 0, held = 0;
     if (valid) {
       const bool recv = (m.flags & 4) != 0;
-      Seg hb_seg{}, best;
-      if constexpr (kAhead) {
-        // this row's loads, issued a row ahead; then the next row's, in
-        // flight while this one merges
-        hb_seg = ahead_hb;
-        best = recv ? gather.rest(m, row, h, ahead) : splat(0xFFFFFFFFu);
-        if (li + step < rows)
-          load_ahead<B>(gather, next, global_row<B>(cta, li + step), hb, sp,
-                        pk, h, ahead, ahead_hb);
-      } else {
-        // without a parked hb: its segment read before the gather, so that
-        // the gather's loads cover the read's latency
-        if constexpr (!kParkHb) {
-          const int d = row - (sp.gcol0 + 4 * kSeg * h);
-          hb_seg = (unsigned)d < 4u * kSeg
-                       ? load_seg(pk.diag + d * kC + 4 * kSeg * h)
-                       : ldg_seg<B>(hb + (size_t)row * sp.nc + col);
-        }
-        best = recv ? (stubbed(kStubGather) ? splat(gather_none(kForm))
-                                            : gather(m, row, h))
-                    : splat(0xFFFFFFFFu);
+      // without a parked hb: its segment read before the gather, so that
+      // the gather's loads cover the read's latency
+      Seg hb_seg{};
+      if constexpr (!kParkHb) {
+        const int d = row - (sp.gcol0 + 4 * kSeg * h);
+        hb_seg = (unsigned)d < 4u * kSeg
+                     ? load_seg(pk.diag + d * kC + 4 * kSeg * h)
+                     : ldg_seg<B>(hb + (size_t)row * sp.nc + col);
       }
+      const Seg best = recv ? (stubbed(kStubGather)
+                                   ? splat(gather_none(kForm))
+                                   : gather(m, row, h))
+                            : splat(0xFFFFFFFFu);
       const int at = li * kC + 4 * kSeg * h;
       const Seg ph = kParkHb ? load_seg(pk.hb + at) : hb_seg;
       const Seg pa = load_seg(pk.asl + at);

@@ -18,10 +18,12 @@
 // gathers through distributed shared memory.  What the wide blocking does
 // beyond rr_onepass.cu's walk: the clusters' lockstep in the aligned forms
 // (lockstep, its turns in the words after the per-receiver counts), a
-// 128-byte L2 prefetch on every lane read from device memory, a step-2
-// thread's receiver rows held across its stripes (rr_onepass.cuh Hold),
-// and in the full-view forms each receiver's first 8 view-row gathers and
-// its hb read issued while the row before it merges (rr_onepass.cuh
-// RowGather, load_ahead).
+// 128-byte L2 prefetch on every lane read from device memory, and a
+// step-2 thread's receiver rows held across its stripes (rr_onepass.cuh
+// Hold).  The full-view gathers issued a row ahead (each receiver's first
+// 8 view-row loads and its hb read in flight while the row before it
+// merges) were timed and left out: no gain where they spill nothing
+// (edges, lanes, crash-only), 200 B of spills and +11 % in SWAR (PERF.md
+// section 6), so the gathers' latency is not what step 2 waits on.
 #define RR_WIDE 1
 #include "rr_onepass.cu"

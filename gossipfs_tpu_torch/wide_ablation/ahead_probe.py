@@ -4,7 +4,8 @@ Builds the working tree's one-pass libraries (csrc/rr_onepass_wide.cu with
 ``ptxas -v``: registers and spills of each instantiation) and the earlier
 tree's wide library from its csrc/ unpacked under
 ``gossipfs_tpu_torch/_build/parent`` (C entry ``rr_onepass`` taking the
-lockstep turns buffer and a launch number), checks the narrow library's
+lockstep turns buffer and a launch number, or with the turns after the
+per-receiver counts as this tree's), checks the narrow library's
 static SASS digest against ``chip_smoke.ONEPASS_SASS_UNTEMPLATED`` and the
 wide kernel against the plain version (``chip_smoke.onepass_wide_vs_plain``
 and ``onepass_wide_block_sus``), then at N = 65,536 and 98,304 (crash-only,
@@ -76,7 +77,14 @@ def main():
     P, I = ctypes.c_void_p, ctypes.c_int
     parent = ctypes.CDLL(str(so))
     parent.rr_onepass.restype = I
-    parent.rr_onepass.argtypes = [P] * 8 + [I] * 14 + [P, I, P]
+    # the earlier tree's C entry: with the lockstep turns buffer and a
+    # launch number before the stream, or (as this tree's) the turns in
+    # 64 words after the per-receiver counts
+    own_turns = "void* turns, int seq" in (
+        parent_src.parent / "rr_onepass.cu").read_text()
+    parent.rr_onepass.argtypes = [P] * 8 + [I] * 14 + (
+        [P, I, P] if own_turns else [P])
+    out["parent_abi"] = "turns, seq" if own_turns else "counts block"
     out["build_s"] = time.perf_counter() - t0
     out["regs"] = registers(_build.build_logs.get("rr_onepass_wide", ""))
     print("built", out["build_s"], "wide regs", out["regs"], flush=True)
@@ -100,18 +108,19 @@ def main():
                                  False, kw["elementwise"]).split("/")[0]
         width = senders.shape[1] if kw.get("fanout") is None else kw["fanout"]
         subj = torch.empty((3, c), dtype=torch.int32, device="cuda")
-        recv = torch.empty((1, n), dtype=torch.int32, device="cuda")
+        recv = torch.empty(n + 64, dtype=torch.int32, device="cuda")
         thr, hi = merge._sus_thresholds(kw["t_fail"], False, 0, 0, 63)
         seq[0] += 1
+        tail = ((turns.data_ptr(), seq[0]) if own_turns else ())
         rc = parent.rr_onepass(
             hb.data_ptr(), asl.data_ptr(), flags.data_ptr(), vecs.data_ptr(),
             senders.data_ptr(), subj.data_ptr(), recv.data_ptr(), None, n, c,
             0, width, merge.FORMS.index(form), kw.get("arc_align", 1),
             kw["t_fail"], 12, 63, 0, 0, thr, hi,
-            int(kw["elementwise"] == "swar"), turns.data_ptr(), seq[0],
+            int(kw["elementwise"] == "swar"), *tail,
             torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
-        return (hb, asl, *subj, recv[0])
+        return (hb, asl, *subj, recv[:n])
 
     timing = {}
     for n, form, ew in SHAPES:

@@ -86,13 +86,6 @@ struct MergeSink {
   }
 };
 
-// ``a`` where ``kFirst`` holds, else ``b``
-template <bool kFirst, typename A, typename B>
-static auto& either(A& a, B& b) {
-  if constexpr (kFirst) return a;
-  else return b;
-}
-
 // One round as the card runs it in blocking B: ``clusters`` persistent
 // clusters, each walking stripes c, c + clusters, ... with its kCtas CTAs'
 // parks (both lanes, or asl and the diagonal rows), views (view slices,
@@ -100,9 +93,7 @@ static auto& either(A& a, B& b) {
 // blocks a CTA by stripe parity, each row staged for the next stripe (its
 // lanes copied into its park row) as step 2 merges it, and (the wide
 // blocking) each step-2 thread's Hold of its rows' metadata and
-// per-receiver counts across the stripes, flushed after the last one, and
-// in its full-view forms each row's first gathers and hb read issued as
-// the row before it merges (RowGather); the
+// per-receiver counts across the stripes, flushed after the last one; the
 // CTAs and threads of a step replayed one after another (the barriers
 // between steps).
 template <class B, bool kSus, int kForm, bool kSwar>
@@ -209,15 +200,6 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
                 load);
           }
         };
-        // the wide full-view forms' view rows, gathered a row ahead
-        auto rows_g = row_gather<kForm>(
-            senders, n, kn,
-            [&](int s, int h) -> const int8_t* {
-              if (s < 0) return none.data() + 4 * kSeg * h;
-              const Where w = row_home<B>(s);
-              return view_of(w.cta) + (size_t)w.local * kC + 4 * kSeg * h;
-            },
-            load);
         MergeSink<B> ms{block(q, it), recv, lh ? recv + n : nullptr};
         const bool more = stripe + clusters < stripes;
         const Stripe next =
@@ -225,8 +207,7 @@ static void round_t(int n, int nc, int col_offset, Knobs kn, int lh, int nt,
         for (int t = 0; t < nt; ++t)
           step2<B, kSus, kForm, kSwar>(
               hb, asl, flags, vs_of(q), senders, sp, kn, park(q), q, rows, t,
-              nt, either<kFull && B::kWide>(rows_g, gather), ms,
-              [&](int li, int h) {
+              nt, gather, ms, [&](int li, int h) {
                 if (more)
                   stage_row<B>(asl, next, park(q), q, li, h, copy);
               }, &holds[(size_t)q * nt + t]);

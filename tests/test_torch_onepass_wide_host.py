@@ -17,8 +17,7 @@ gathers the others' rows).  Here, at N = 1,024 and 2,048:
   that a step-2 thread's rows past the 8 it holds across stripes (their
   metadata and per-receiver counts, added once after the cluster's last
   stripe) are loaded and counted a stripe at a time, and the full-view
-  forms' gathers and hb reads issued a row ahead meet rows of the same
-  thread (1 to 3 chunks of 8 gathers a receiver);
+  forms gather 1 to 3 chunks of 8 view rows a receiver;
 * at N = 1,024 every form and mode bit-equal to the JAX package's kernel
   run as its tests run it (``resident_round_blocked(..., interpret=True,
   resident=True)``, ``merge_block_c`` 512), on lanes where its resident
@@ -222,14 +221,15 @@ def test_wide_walk_holds_rows_across_stripes(lib, form, elementwise, mode,
 @pytest.mark.parametrize("width", [8, 20])
 @pytest.mark.parametrize("elementwise", merge.ELEMENTWISE)
 @pytest.mark.parametrize("form", ["edges", "arc"])
-def test_wide_walk_gathers_a_row_ahead(lib, form, elementwise, width):
-    """The full-view forms' step 2 issues a receiver's first 8 view-row
-    loads and its hb read while the row before it merges (RowGather,
-    load_ahead): 4 threads a CTA over N = 1,024 (16 rows a thread a
-    stripe, 2 clusters), each receiver gathering 8 rows (that one chunk
-    alone) or 20 (two chunks more, the last part empty), live and dead
-    receivers mixed; bit-equal to the plain version and to the narrow
-    blocking's replay."""
+def test_wide_walk_full_view_gathers_by_chunks(lib, form, elementwise,
+                                               width):
+    """The full-view forms' step 2 over many rows a thread: 4 threads a
+    CTA over N = 1,024 (16 rows a thread a stripe, 2 clusters), each
+    receiver gathering 8 view rows (one chunk of kChunk) or 20 (three
+    chunks, the last part empty), live and dead receivers mixed, each
+    row's flags and senders loaded while the row before it merges and
+    hb read again from device memory; bit-equal to the plain version and
+    to the narrow blocking's replay."""
     n, mode = 1_024, "suspicion+lh"
     fanout = width + 7 if form == "edges" else width
     inputs = round_inputs(n, n, form, 80 + width, True, fanout=fanout)
