@@ -171,8 +171,7 @@ struct Params {
   const int32_t* senders;
   int32_t* subj;       // [3 or 6, nc]: member_cnt, n_det, first_obs
                        // (entered, refuted, held)
-  int32_t* recv;       // [1 or 2, n]: recv_cnt (suspect_cnt), zeroed;
-                       // the wide blocking's turns after them (lockstep)
+  int32_t* recv;       // [1 or 2, n]: recv_cnt (suspect_cnt), zeroed
   unsigned long long* timeline;  // [stripes, kCtas, kStamps] or null
   int n, nc, col_offset;
   Knobs kn;
@@ -309,11 +308,13 @@ __device__ __forceinline__ void stamp(unsigned long long* timeline,
 // computes depends on it.  A CTA that has waited its bound once waits no
 // more in that launch, so a launch pays at most kLockstepNs a CTA (its
 // cluster's CTAs wait side by side: about kLockstepNs a launch).  The
-// turns are kTurnWords words after the per-receiver counts, which the
-// memset before the launch zeroes with them.
+// turns are a __device__ array of the library (one a card: each card's
+// context holds its own), which the launcher zeroes before each launch
+// beside the per-receiver counts; so two wide launches in flight at once
+// on one card would share them, which only loosens their lockstep.
 constexpr int kMaxTurns = 64;
-constexpr int kTurnWords = Blk::kWide ? kMaxTurns : 0;
 constexpr unsigned long long kLockstepNs = 100000;
+__device__ unsigned g_turns[kMaxTurns];
 
 // Announce (``announce``) cluster ``me``'s turn and wait for every cluster
 // to begin it, unless ``waiting`` is false; false once the bound ran out.
@@ -448,8 +449,7 @@ rr_onepass_kernel(const Params p) {
   };
 
   const bool in_step = Blk::kWide && !kFull && clusters <= kMaxTurns;
-  volatile unsigned* turns = reinterpret_cast<volatile unsigned*>(
-      p.recv + (kLh ? 2 : 1) * (size_t)n);
+  volatile unsigned* turns = g_turns;
   bool waiting = true;
   for (int it = 0; stripe < stripes; stripe += clusters, ++it) {
     const Stripe sp = stripe_at<Blk>(n, nc, col_offset, stripe);
@@ -671,10 +671,16 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
   p.kn = Knobs{t_fail, t_cooldown, confirm_thr, confirm_thr_hi, age_clamp,
                group ? fanout / kAlign : fanout, group_shift};
   if (clusters == nullptr) {
-    const cudaError_t e = cudaMemsetAsync(
-        p.recv, 0, sizeof(int32_t) * ((lh ? 2 : 1) * (size_t)n + kTurnWords),
-        s);
+    cudaError_t e = cudaMemsetAsync(
+        p.recv, 0, sizeof(int32_t) * (lh ? 2 : 1) * (size_t)n, s);
     if (e != cudaSuccess) return (int)e;
+    if (Blk::kWide) {
+      // the clusters' turns (lockstep), zero for this launch
+      void* turns = nullptr;
+      e = cudaGetSymbolAddress(&turns, g_turns);
+      if (e == cudaSuccess) e = cudaMemsetAsync(turns, 0, sizeof g_turns, s);
+      if (e != cudaSuccess) return (int)e;
+    }
   }
   return (int)dispatch(form, suspect, lh, swar, p, clusters, s);
 }
@@ -688,9 +694,9 @@ int run(void* hb, void* asl, const void* flags, const void* vecs,
 // card grants: one memset of out_recv (the per-receiver counts add up
 // there by global atomics), then one launch.  ``timeline`` null, or uint64
 // [nc / kC, kCtas, kStamps]: each CTA's globaltimer stamps (ns) of its
-// stripe's steps.  ``out_recv`` holds (lh ? 2 : 1) * n int32 counts and,
-// in rr_onepass_wide.cu, 64 words more (the clusters' turns, lockstep).
-// Returns the CUDA error code (0 on success).
+// stripe's steps.  rr_onepass_wide.cu zeroes its clusters' turns
+// (lockstep) before the launch too.  Returns the CUDA error code (0 on
+// success).
 extern "C" int rr_onepass(void* hb, void* asl, const void* flags,
                           const void* vecs, const void* senders,
                           void* out_subj, void* out_recv, void* timeline, int n, int nc, int col_offset,

@@ -148,10 +148,6 @@ ONEPASS_SMEM = 232_448
 # the one-pass kernel's optional timeline: globaltimer stamps a CTA and
 # stripe (start, step 1 done, view ready, step 2 done, end)
 ONEPASS_STAMPS = 5
-# int32 words after a launch's per-receiver counts that its blocking's
-# kernel keeps its clusters' turns in (csrc/rr_onepass.cu kTurnWords:
-# the wide blocking's lockstep), zeroed with the counts before the launch
-ONEPASS_TURNS = {"8x32": 0, "16x16": 64}
 # the merge forms that gather other CTAs' sender rows (the others gather
 # 8-row group maxes from a whole table each CTA holds)
 FULL_VIEW_FORMS = ("edges", "arc", "filter_rows")
@@ -1072,10 +1068,7 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
     with torch.cuda.device(dev):
         subj = torch.empty((6 if suspect else 3, c), dtype=torch.int32,
                            device=dev)
-        # per receiver (recv_cnt; suspect_cnt), then the wide blocking's
-        # lockstep turns, all zeroed by the launcher's memset
-        recv = torch.empty((1 + lh) * n + ONEPASS_TURNS[blocking],
-                           dtype=torch.int32, device=dev)
+        recv = torch.empty((1 + lh, n), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev)
         with counted_launch("resident_round", stream, form + "/onepass"):
             check_rc("rr_onepass", lib.rr_onepass(
@@ -1085,7 +1078,6 @@ def _launch_onepass(hb, asl, flags, vecs, senders, width: int,
                 n, c, col_offset, width, FORMS.index(base_form), arc_align,
                 t_fail, t_cooldown, age_clamp, int(suspect), lh, thr, thr_hi,
                 int(sw), stream.cuda_stream))
-    recv = recv[:(1 + lh) * n].view(1 + lh, n)
     return (hb, asl, *subj[:3], recv[0], *subj[3:], *recv[1:])
 
 

@@ -4,8 +4,8 @@ Builds the working tree's one-pass libraries (csrc/rr_onepass_wide.cu with
 ``ptxas -v``: registers and spills of each instantiation) and the earlier
 tree's wide library from its csrc/ unpacked under
 ``gossipfs_tpu_torch/_build/parent`` (C entry ``rr_onepass`` taking the
-lockstep turns buffer and a launch number, or with the turns after the
-per-receiver counts as this tree's), checks the narrow library's
+lockstep turns buffer and a launch number, or without them as this
+tree's), checks the narrow library's
 static SASS digest against ``chip_smoke.ONEPASS_SASS_UNTEMPLATED`` and the
 wide kernel against the plain version (``chip_smoke.onepass_wide_vs_plain``
 and ``onepass_wide_block_sus``), then at N = 65,536 and 98,304 (crash-only,
@@ -78,8 +78,9 @@ def main():
     parent = ctypes.CDLL(str(so))
     parent.rr_onepass.restype = I
     # the earlier tree's C entry: with the lockstep turns buffer and a
-    # launch number before the stream, or (as this tree's) the turns in
-    # 64 words after the per-receiver counts
+    # launch number before the stream, or without them (the turns kept
+    # after the per-receiver counts, or in the library as this tree's:
+    # recv has room for 64 words more)
     own_turns = "void* turns, int seq" in (
         parent_src.parent / "rr_onepass.cu").read_text()
     parent.rr_onepass.argtypes = [P] * 8 + [I] * 14 + (

@@ -26,8 +26,7 @@ gathers the others' rows).  Here, at N = 1,024 and 2,048:
   makes them);
 * the shared memory a CTA: the header's ``smem_bytes`` equal to
   ``ops/merge.onepass_smem`` at the wide blocking's edges; the lockstep's
-  turns right after the per-receiver counts, as many words as the
-  kernel reads.
+  turns zeroed before each launch.
 """
 
 from __future__ import annotations
@@ -257,21 +256,24 @@ def test_wide_smem_bytes_agree_with_onepass_smem(lib, n, form):
                                                  else 109_056))
 
 
-def test_lockstep_turns_follow_the_counts_in_one_zeroed_block():
-    """The wide kernel keeps its clusters' turns (csrc/rr_onepass.cu
-    lockstep) in kTurnWords int32 words right after the per-receiver
-    counts, and the launcher's one memset zeroes both: ops/merge allocates
-    as many words after the counts as the kernel's kMaxTurns for the wide
-    blocking and none for the narrow one, and the kernel reads them as
-    far as its clusters reach (at most kMaxTurns)."""
+def test_lockstep_turns_are_zeroed_before_each_launch():
+    """The wide kernel's clusters' turns (csrc/rr_onepass.cu lockstep) are
+    a __device__ array of its library, one word a cluster it may wait
+    for, which the launcher zeroes before every launch beside the
+    per-receiver counts: no state passes from one launch to the next,
+    the wrapper allocates nothing for them, and both blockings' libraries
+    keep one C signature."""
     import re
 
+    from gossipfs_tpu_torch.ops import _build
+
     src = (CSRC / "rr_onepass.cu").read_text()
-    max_turns = int(re.search(r"constexpr int kMaxTurns = (\d+);",
-                              src).group(1))
-    assert re.search(r"constexpr int kTurnWords = Blk::kWide \? kMaxTurns "
-                     r": 0;", src)
-    assert "(lh ? 2 : 1) * (size_t)n + kTurnWords" in src
+    assert re.search(r"constexpr int kMaxTurns = \d+;", src)
+    assert "__device__ unsigned g_turns[kMaxTurns];" in src
+    assert "volatile unsigned* turns = g_turns;" in src
+    assert "cudaGetSymbolAddress(&turns, g_turns)" in src
+    assert "cudaMemsetAsync(turns, 0, sizeof g_turns, s)" in src
     assert "clusters <= kMaxTurns" in src
-    assert merge.ONEPASS_TURNS == {"8x32": 0, "16x16": max_turns}
-    assert set(merge.ONEPASS_TURNS) == set(merge.ONEPASS_BLOCKINGS)
+    sig = _build.SIGNATURES
+    assert sig["rr_onepass_wide"] == sig["rr_onepass"]
+    assert len(sig["rr_onepass"]["rr_onepass"][1]) == 23
