@@ -18,8 +18,8 @@ tree's step timeline.  Run from the repository root:
     mkdir -p gossipfs_tpu_torch/_build/parent
     git archive <earlier commit> gossipfs_tpu_torch/csrc | \\
         tar -x -C gossipfs_tpu_torch/_build/parent
-    python gossipfs_tpu_torch/wide_ablation/ahead_probe.py
-        # -> chiprun_out/ahead_probe.json
+    python gossipfs_tpu_torch/wide_ablation/ahead_probe.py [OUT.json]
+        # the whole record to OUT.json (default ahead_probe.json)
 """
 import ctypes
 import json
@@ -176,8 +176,9 @@ def main():
     out["timing"] = timing
     out["smi_end"] = cs.sm_clock()
     out["seconds"] = time.perf_counter() - t0
-    Path("chiprun_out").mkdir(exist_ok=True)
-    with open("chiprun_out/ahead_probe.json", "w") as fh:
+    dest = Path(sys.argv[1] if len(sys.argv) > 1 else "ahead_probe.json")
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    with open(dest, "w") as fh:
         json.dump(out, fh, indent=1, default=str)
     # (the checks above raise where an entry differs)
     bad = [k for k, v in timing.items() if any(v["diff"].values())]
