@@ -6162,7 +6162,15 @@ def phase_bench_tail(results: dict) -> None:
 # clock: nothing else runs while they do.
 # ---------------------------------------------------------------------------
 
-SOCKET_CASES = (("native", "outage_storm_n256"), ("udp", "outage_mild_udp_n24"))
+# (engine, case, --period or None for the engine's default).  The native
+# engine ticks all 256 nodes on one epoll thread against the wall clock;
+# at its default period (0.5 s at n = 256) its warm-up stays unconverged
+# past 192 s on a loaded host (an 8-core CPU beside 24 busy processes),
+# and at 1.0 s beside 32; the case runs at 1.5 s, which converged beside
+# 32 (tick p50 ~300 ms).  Detection counts rounds (t_fail 5), so the
+# verdict does not depend on the period
+SOCKET_CASES = (("native", "outage_storm_n256", 1.5),
+                ("udp", "outage_mild_udp_n24", None))
 # the three conformance families of the tensor column with the fewest
 # rounds (8, 16, 22), seed 0: with suspicion (leave_broadcast,
 # refute_race, a blackout scenario in the latter) and without
@@ -6267,11 +6275,12 @@ def case_scan(doc: dict, plain: bool):
     return out, start.elapsed_time(end) / rounds, rounds
 
 
-def socket_campaign(engine: str, case: str, results: dict) -> None:
+def socket_campaign(engine: str, case: str, period: float | None,
+                    results: dict) -> None:
     """``python -m gossipfs_tpu_torch.campaigns --case <case> --engine
-    <engine>`` (its ``main``): launch counts zeroed just before and read
-    just after, one K2 launch a replay round; ``reproduced`` and the
-    verdict agreement required."""
+    <engine> [--period <period>]`` (its ``main``): launch counts zeroed
+    just before and read just after, one K2 launch a replay round;
+    ``reproduced`` and the verdict agreement required."""
     from gossipfs_tpu_torch.campaigns import __main__ as cli
     from gossipfs_tpu_torch.campaigns import driver, engines
     from gossipfs_tpu_torch.ops import merge
@@ -6280,7 +6289,10 @@ def socket_campaign(engine: str, case: str, results: dict) -> None:
     rounds = engines._case_plan(driver.load_case(path))[3]
     merge.reset_launch_counts()
     t0 = time.perf_counter()
-    rc, out = cli_json(cli.main, ["--case", str(path), "--engine", engine])
+    argv = ["--case", str(path), "--engine", engine]
+    if period is not None:
+        argv += ["--period", str(period)]
+    rc, out = cli_json(cli.main, argv)
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in merge.LAUNCH_COUNTS.items() if v}
     row = out["engine_row"]
@@ -6435,8 +6447,8 @@ def phase_socket_engines(results: dict) -> None:
     results["sockets"] = {}
     t0 = time.perf_counter()
     socket_k2_shapes(results)
-    for engine, case in SOCKET_CASES:
-        socket_campaign(engine, case, results)
+    for engine, case, period in SOCKET_CASES:
+        socket_campaign(engine, case, period, results)
         socket_replay_vs_plain(engine, case, results)
     socket_conformance(results)
     socket_native_rt(results)
@@ -7425,7 +7437,8 @@ def main() -> int:
     log(f"  phase 47 in {results['p47']['seconds']:.2f} s")
     log("[48] the socket engines: K2 at their shapes, python -m "
         "gossipfs_tpu_torch.campaigns --case outage_storm_n256 --engine "
-        "native and --case outage_mild_udp_n24 --engine udp (the tensor "
+        "native --period 1.5 and --case outage_mild_udp_n24 --engine udp "
+        "(the tensor "
         "replay on the card), python -m gossipfs_tpu_torch.conformance "
         f"over {list(ENGINES4)} for {len(SOCKET_FAMILIES)} schedules, "
         "native_rt, the deploy lane (--scale-n 8)")
