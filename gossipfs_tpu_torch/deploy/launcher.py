@@ -155,8 +155,10 @@ class Cluster:
         finally:
             c.close()
 
-    def _probe_ready(self, idx: int) -> bool:
-        """Full view AND every heartbeat counter past the detection grace.
+    def _probe_ready(self, idx: int) -> str | None:
+        """None once node ``idx`` holds a full view AND every heartbeat
+        counter past the detection grace, else what it lacks (the start
+        failure's message names it).
 
         View convergence alone is NOT "the cluster is up": members whose
         counters still sit at hb <= 1 are inside the reference's
@@ -166,21 +168,26 @@ class Cluster:
         kill therefore need counters > 1 everywhere, which also proves
         gossip (not just the introducer's JOIN push) actually flows.
         """
+        proc = self.procs.get(idx)
+        if proc is not None and proc.poll() is not None:
+            return f"exited {proc.returncode}"
         c = ShimClient(f"127.0.0.1:{self.rpc_base + idx}", timeout=2.0)
         try:
             line = c.call("ScenarioStatus")["lines"][0]
-            hb = line.get("hb") or {}
-            if len(hb) != self.n:
-                return False
-            # below min_group (NodeDaemon's default 4) nodes stay in the
-            # refresh-only branch and never bump — counters sit at 0
-            # forever, AND detection is disabled anyway, so the grace
-            # concern the hb check exists for cannot arise
-            return self.n < 4 or min(hb.values()) > 1
-        except Exception:
-            return False
+        except Exception as e:
+            return f"no status ({type(e).__name__})"
         finally:
             c.close()
+        hb = line.get("hb") or {}
+        if len(hb) != self.n:
+            return f"view {len(hb)} of {self.n}"
+        # below min_group (NodeDaemon's default 4) nodes stay in the
+        # refresh-only branch and never bump — counters sit at 0
+        # forever, AND detection is disabled anyway, so the grace
+        # concern the hb check exists for cannot arise
+        if self.n >= 4 and min(hb.values()) <= 1:
+            return f"min hb {min(hb.values())}"
+        return None
 
     def start(self, timeout: float = 30.0) -> None:
         self.spawn(0)  # introducer first (reference SPOF, slave.go:22)
@@ -196,10 +203,13 @@ class Cluster:
         # wait until every node's own view holds the full cohort with
         # every counter past the hb-grace (see _probe_ready)
         while time.monotonic() < deadline:
-            if all(self._probe_ready(i) for i in range(self.n)):
+            if all(self._probe_ready(i) is None for i in range(self.n)):
                 return
             time.sleep(0.25)
-        raise RuntimeError("cluster did not converge")
+        lacking = ((i, self._probe_ready(i)) for i in range(self.n))
+        raise RuntimeError(
+            f"cluster did not converge within {timeout} s: "
+            + ", ".join(f"node {i} {why}" for i, why in lacking if why))
 
     def kill9(self, idx: int) -> None:
         self.procs[idx].send_signal(signal.SIGKILL)

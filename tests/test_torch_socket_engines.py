@@ -14,7 +14,8 @@ test's job, ``test_torch_udp_lockstep.py``):
 
 Every cluster takes its ports from a free window (``_free_port_base``):
 the JAX package's tests bind fixed ports in another worker.  The deploy
-node's import chain is checked to stay free of torch.
+node's import chain is checked to stay free of torch, and a deploy
+cluster that does not converge names what each node lacks.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ import json
 import subprocess
 import sys
 
+import pytest
+
 from gossipfs_tpu_torch import native
 from gossipfs_tpu_torch.conformance import harness, schedules, verdict
-from gossipfs_tpu_torch.deploy.launcher import _free_port_base
+from gossipfs_tpu_torch.deploy.launcher import Cluster, _free_port_base
 from gossipfs_tpu_torch.detector.udp import UdpCluster
 
 
@@ -115,3 +118,23 @@ def test_deploy_node_imports_no_torch():
                          text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_deploy_start_failure_names_what_each_node_lacks(tmp_path,
+                                                         monkeypatch):
+    """No node process and no server: the introducer's probe is stubbed
+    to answer, so ``start`` reaches its convergence wait and its error
+    names every node, one exited and the others without a status."""
+    cluster = Cluster(3, root=str(tmp_path))
+    dead = subprocess.Popen([sys.executable, "-c", "raise SystemExit(3)"])
+    dead.wait(timeout=60)
+    monkeypatch.setattr(cluster, "spawn", lambda idx: None)
+    monkeypatch.setattr(cluster, "_probe_lsm", lambda idx: [])
+    cluster.procs[1] = dead
+    assert cluster._probe_ready(1) == "exited 3"
+    with pytest.raises(RuntimeError) as err:
+        cluster.start(timeout=1.0)
+    msg = str(err.value)
+    assert msg.startswith("cluster did not converge within 1.0 s: ")
+    assert "node 0 no status (" in msg and "node 2 no status (" in msg
+    assert "node 1 exited 3" in msg
